@@ -4,24 +4,35 @@
   python3 chip_smoke.py          # one CUDA device, from the repo root
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the four CUDA kernels from ``src/repro_torch/kernels/csrc``;
+2. builds the six CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. holds each kernel against its plain PyTorch version at the shapes of
-   the serving path (llama3-8b, B=2, prompt 8192), in bf16 and f32, and
+   the serving paths (llama3-8b, B=2, prompt 8192), in bf16 and f32, and
    times both with CUDA events (median of 20), beside the kernel's bound
    (the larger of bytes / 3.35 TB/s and operations / peak rate) and, for
-   prefill, ``F.scaled_dot_product_attention`` as a yardstick;
-4. drives the serving loop (``repro_torch.launch.serve.run``) at full
-   llama3-8b width and depth with random weights: prefill, synopsis build,
-   130 decode steps budgeted by the deadline controller (one absorb of the
-   128-token ring), with every kernel's launch count reset just before and
-   read just after;
-5. checks the outputs: finite logits of the right shape, identical token
-   ids from the kernels and from the plain versions on a small model, and
-   full-budget synopsis decode equal to exact attention on one layer;
-6. profiles three decode steps at budgets 0 and 32 (torch.profiler): wall
-   time, device busy time and the kernels that take it;
-7. runs the loop again with budget 32 on every step: the decode baseline,
-   whose work per step does not depend on the host clock.
+   prefill and decode, ``F.scaled_dot_product_attention`` as a yardstick;
+4. on a small model in f32, checks that the kernels and the plain
+   versions generate the same token ids in synopsis and in exact mode, and
+   that a synopsis step at full budget equals the exact step;
+5. drives the synopsis serving loop (``repro_torch.launch.serve.run``) at
+   full llama3-8b width and depth with random weights: prefill, synopsis
+   build, 130 decode steps budgeted by the deadline controller (one absorb
+   of the 128-token ring); checks finite logits of the right shape and
+   full-budget synopsis decode equal to exact attention on one layer, and
+   profiles three decode steps at budgets 0 and 32 (torch.profiler: wall
+   time, device busy time and the kernels that take it);
+6. runs the loop again with budget 32 on every step: the decode baseline,
+   whose work per step does not depend on the host clock;
+7. runs the exact baseline (``mode="exact"``, 130 steps over the whole
+   prompt cache) and profiles three of its steps;
+8. on that prompt cache and its synopsis, the accuracy of synopsis decode
+   against exact per budget (total-variation distance of the next-token
+   distributions, argmax match; random weights, so not the paper's
+   numbers), and the unfused synopsis op against the fused one on layer 0.
+
+Every path's launch counts are reset just before it runs and read just
+after: the synopsis loop must launch its four kernels, the exact loop
+``flash_prefill`` and ``flash_decode``, the unfused op ``synopsis_score``,
+``flash_decode`` and ``block_gather_attention``.
 
 Any failed phase raises and exits non-zero.  The last lines are the
 kernels' JSON record, the nvidia-smi line and ``{"ok": true, ...}``.
@@ -55,6 +66,12 @@ NEG_INF = -1e30
 # their last bits to bf16, so they may differ by one ulp, at most 2^-7 of
 # the value; 1e-4 absolute covers outputs near zero.  (atol, rtol)
 BF16_OUT_TOL = (1e-4, 2.0 ** -7)
+# f32 partials of the decode kernels: o and m differ only in the order of
+# f32 sums, but l sums up to S = 8320 terms, so the bound is relative as
+# well as absolute (the card tests' tolerance).  (atol, rtol)
+PARTIALS_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-3, 1e-3)}
+ACCURACY_BUDGETS = (0, 1, 2, 4, 8, 16, 32, 64)
+FUSION_BUDGETS = (1, 8, 32, 64)
 
 
 def _median_ms(fn, reps=REPS, warmup=2):
@@ -71,6 +88,22 @@ def _median_ms(fn, reps=REPS, warmup=2):
     end.synchronize()
     times.append(start.elapsed_time(end))
   return statistics.median(times)
+
+
+def _device_ms(fn, reps=REPS):
+  """Device time of one call: the device-side rows of torch.profiler over
+  ``reps`` calls, per call.  Unlike a pair of CUDA events around a call,
+  it leaves out the gaps in which the device waits for the host to
+  launch, which dominate a call shorter than its wrapper's host work."""
+  from torch.profiler import ProfilerActivity, profile
+  fn()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(reps):
+      fn()
+    torch.cuda.synchronize()
+  return sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type != torch.autograd.DeviceType.CPU) / 1e3 / reps
 
 
 def _nbytes(*tensors):
@@ -112,8 +145,12 @@ def _record(name, source, replaces, dtype, err, kernel_fn, plain_fn, nbytes,
   plain_ms = _median_ms(plain_fn)
   library_ms = _median_ms(library_fn) if library_fn is not None else None
   bound_ms, bound_by = _bound(nbytes, ops, dtype)
+  lib_dev = (f"{_device_ms(library_fn):.4f}" if library_fn is not None
+             else None)
   print(f"  [{name} {str(dtype)[6:]}] ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"bound_ms={bound_ms:.4f} ({bound_by}) library_ms={library_ms}")
+        f"bound_ms={bound_ms:.4f} ({bound_by}) library_ms={library_ms}; "
+        f"device time: kernel {_device_ms(kernel_fn):.4f} ms, library "
+        f"{lib_dev} ms")
   return {"name": name, "route": "cuda", "source": source,
           "replaces": replaces, "max_abs_err": err, "ms": ms,
           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -218,8 +255,11 @@ def check_block_gather(dev, dtype, g):
   from repro_torch.kernels import ops, ref
   from repro_torch.kernels.block_gather_attention import (
       block_gather_attention as gather)
-  tol = 1e-3 if dtype == torch.bfloat16 else 1e-4
-  for S, I in ((PROMPT + 128, 32), (PROMPT, 1), (PROMPT, 32)):
+  tol = PARTIALS_TOL[dtype]
+  # The last case is the synopsis loop's and is timed; (S, I, epilogues):
+  # the unfused op runs the kernel with neither epilogue.
+  for S, I, epi in ((PROMPT + 128, 32, True), (PROMPT, 1, True),
+                    (PROMPT, 32, False), (PROMPT, 32, True)):
     q, k, v, k_syn, v_syn, cbias, C = _decode_inputs(dev, dtype, g, S)
     B, Hkv, M, D = k_syn.shape
     sm = D ** -0.5
@@ -239,10 +279,11 @@ def check_block_gather(dev, dtype, g):
     sk, sv = q[:, ::4, None].contiguous(), q[:, 1::4, None].contiguous()
     ek, ev, eb = ops.build_extras(rk, rv, None, (sk, sv))  # E = 129
     ext = dict(extras_k=ek, extras_v=ev, extras_bias=eb)
-    kw = dict(cluster_size=C, sm_scale=sm, **dec, **ext)
+    kw = dict(cluster_size=C, sm_scale=sm, **(dec | ext if epi else {}))
     got = gather(q, k, v, sel, **kw)
     want = ref.fused_gather_attention_ref(q, k, v, sel, **kw)
-    err = _check(f"block_gather S={S} I={I}", dtype, got, want, tol)
+    err = _check(f"block_gather S={S} I={I}"
+                 + ("" if epi else " no epilogues"), dtype, got, want, *tol)
   H = q.shape[1]
   rows = int((sel >= 0).sum()) * C              # rows this selection reads
   nbytes = (_nbytes(q, sel, dec["k_sel"], dec["v_sel"], dec["sel_bias"], ek,
@@ -256,8 +297,67 @@ def check_block_gather(dev, dtype, g):
       nbytes, ops_n)
 
 
+def check_flash_decode(dev, dtype, g):
+  """The exact loop's shapes (the cache at S = 8192 and 8320 after an
+  absorb, the self token at S = 1), the unfused stage 1's (64 and 65
+  centroids with a log(count) bias, -1e30 on the selected ones, and every
+  centroid masked as at i_max = M), and one softcap case."""
+  from repro_torch.kernels import ref
+  from repro_torch.kernels.flash_decode import flash_decode
+  tol = PARTIALS_TOL[dtype]
+  for S, bias_kind, cap in ((PROMPT + 128, None, None), (1, None, None),
+                            (PROMPT + 128, "masked", None),
+                            (PROMPT // 128, "masked", None),
+                            (PROMPT // 128 + 1, "all_masked", None),
+                            (PROMPT, None, 30.0), (PROMPT, None, None)):
+    q, k, v, _, _, _, _ = _decode_inputs(dev, dtype, g, max(S, 128))
+    k, v = k[:, :, :S].contiguous(), v[:, :, :S].contiguous()
+    bias = None
+    if bias_kind is not None:
+      B, Hkv = k.shape[:2]
+      bias = torch.log(torch.randint(1, 129, (B, Hkv, S), generator=g,
+                                     device=dev).float())
+      masked = torch.rand((B, Hkv, S), generator=g, device=dev) < 0.5
+      bias[masked | (bias_kind == "all_masked")] = NEG_INF
+    kw = dict(sm_scale=q.shape[-1] ** -0.5, cap=cap)
+    got = flash_decode(q, k, v, bias, **kw)
+    want = ref.flash_decode_ref(q, k, v, bias, **kw)
+    err = _check(f"flash_decode S={S} bias={bias_kind} cap={cap}", dtype,
+                 got, want, *tol)
+  B, H, D = q.shape
+  sdpa = torch.nn.functional.scaled_dot_product_attention
+  return _record(
+      "flash_decode", "src/repro_torch/kernels/csrc/flash_decode.cu",
+      "src/repro/kernels/flash_decode.py:125", dtype, err,
+      lambda: flash_decode(q, k, v, **kw),
+      lambda: ref.flash_decode_ref(q, k, v, **kw),
+      _nbytes(q, k, v, *got), 4 * B * H * PROMPT * D,
+      lambda: sdpa(q[:, :, None], k, v, enable_gqa=True))
+
+
+def check_synopsis_score(dev, dtype, g):
+  from repro_torch.kernels import ref
+  from repro_torch.kernels.synopsis_score import synopsis_score
+  tol = PARTIALS_TOL[dtype]
+  for S in (PROMPT + 128, PROMPT):                   # M = 65 (ragged), 64
+    q, _, _, k_syn, _, _, _ = _decode_inputs(dev, dtype, g, S)
+    sm = q.shape[-1] ** -0.5
+    got = synopsis_score(q, k_syn, sm_scale=sm)
+    want = ref.synopsis_score_ref(q, k_syn, sm_scale=sm)
+    err = _check(f"synopsis_score M={k_syn.shape[2]}", dtype, got, want,
+                 *tol)
+  B, H, D = q.shape
+  # No single PyTorch call computes it (a product, then an amax).
+  return _record(
+      "synopsis_score", "src/repro_torch/kernels/csrc/synopsis_score.cu",
+      "src/repro/kernels/synopsis_score.py:46", dtype, err,
+      lambda: synopsis_score(q, k_syn, sm_scale=sm),
+      lambda: ref.synopsis_score_ref(q, k_syn, sm_scale=sm),
+      _nbytes(q, k_syn, got), 2 * B * H * k_syn.shape[2] * D)
+
+
 # ---------------------------------------------------------------------------
-# Phases 4-5: the serving loop and its checks
+# Phases 4-8: the serving loops and their checks
 # ---------------------------------------------------------------------------
 
 def _tree_to(tree, dev):
@@ -267,28 +367,49 @@ def _tree_to(tree, dev):
 
 def check_small_model_parity(dev):
   """SMOKE llama3-8b in f32: the kernels on the card and the plain
-  versions on the CPU generate the same ids (fixed budgets, one absorb)."""
+  versions on the CPU generate the same ids, in synopsis mode (fixed
+  budgets, one absorb) and in exact mode; and on the card a synopsis step
+  at i_max = M equals the exact step on the same prompt cache."""
   from repro_torch.configs.registry import get_config
   from repro_torch.launch import serve
   from repro_torch.models import transformer as tf
+  from repro_torch.serve import synopsis_kv as skv
+  from repro_torch.serve.prefill import make_prefill_step
+  from repro_torch.serve.serve_step import make_serve_step
   cfg = dataclasses.replace(get_config("llama3-8b", smoke=True),
                             dtype=torch.float32)
   params = tf.init_model(cfg, torch.Generator().manual_seed(1), "cpu")
+  gparams = _tree_to(params, dev)
   prompt = torch.randint(0, cfg.vocab, (2, 128),
                          generator=torch.Generator().manual_seed(2))
-  budgets = [2, 1, 0] * 6
-  quiet = dict(batch=2, prompt_len=128, tokens=18, budgets=budgets,
-               prompt=prompt, log=lambda _: None)
-  gpu = serve.run(cfg, device=dev, params=_tree_to(params, dev), **quiet)
-  cpu = serve.run(cfg, device="cpu", params=params, **quiet)
-  if not torch.equal(gpu["tokens"].cpu(), cpu["tokens"]):
-    raise AssertionError(f"small-model ids differ: {gpu['tokens'].tolist()}"
-                         f" vs {cpu['tokens'].tolist()}")
-  err = _max_err(gpu["logits"].cpu(), cpu["logits"])
-  print(f"[parity] smoke f32: {gpu['tokens'].shape[1]} ids equal on card "
-        f"and CPU; last logits max_abs_err={err:.3e} (tol 1e-3)")
-  if not err <= 1e-3:
-    raise AssertionError(f"small-model logits differ by {err}")
+  for mode, extra in (("synopsis", dict(budgets=[2, 1, 0] * 6)),
+                      ("exact", {})):
+    quiet = dict(batch=2, prompt_len=128, tokens=18, prompt=prompt,
+                 mode=mode, log=lambda _: None, **extra)
+    gpu = serve.run(cfg, device=dev, params=gparams, **quiet)
+    cpu = serve.run(cfg, device="cpu", params=params, **quiet)
+    if not torch.equal(gpu["tokens"].cpu(), cpu["tokens"]):
+      raise AssertionError(f"small-model {mode} ids differ: "
+                           f"{gpu['tokens'].tolist()} vs "
+                           f"{cpu['tokens'].tolist()}")
+    err = _max_err(gpu["logits"].cpu(), cpu["logits"])
+    print(f"[parity] smoke f32 {mode}: {gpu['tokens'].shape[1]} ids equal "
+          f"on card and CPU; last logits max_abs_err={err:.3e} (tol 1e-3)")
+    if not err <= 1e-3:
+      raise AssertionError(f"small-model {mode} logits differ by {err}")
+
+  logits, cache = make_prefill_step(cfg)(gparams, prompt.to(dev))
+  syn = skv.build(cache, cfg)
+  M = syn["k_syn"].shape[4]
+  tok = logits.argmax(-1, keepdim=True)
+  lg_ex, _ = make_serve_step(cfg, mode="exact")(gparams, cache, tok)
+  lg_syn, _ = make_serve_step(cfg, i_max=M)(gparams, syn, tok)
+  rel = _max_err(lg_syn, lg_ex) / float(lg_ex.abs().max())
+  # f32 throughout; the stage-1 centroid terms cancel in the decrement.
+  print(f"[parity] smoke f32: synopsis step at i_max=M={M} vs exact step, "
+        f"logits max err {rel:.3e} of max|logits| (tol 1e-4)")
+  if not rel <= 1e-4:
+    raise AssertionError(f"full-budget synopsis step != exact step: {rel}")
 
 
 def _step_stats(step_ms):
@@ -298,10 +419,12 @@ def _step_stats(step_ms):
           f"max={steps[-1]:.2f}")
 
 
-def _check_run(out, cfg):
-  """130 steps with one absorb, finite logits, ids in the vocabulary."""
-  if out["absorbs"] != 1 or len(out["step_ms"]) != STEPS:
-    raise AssertionError("the run did not take 130 steps with one absorb")
+def _check_run(out, cfg, absorbs=1):
+  """130 steps with one absorb (none in exact mode), finite logits, ids in
+  the vocabulary."""
+  if out["absorbs"] != absorbs or len(out["step_ms"]) != STEPS:
+    raise AssertionError(f"the run did not take {STEPS} steps with "
+                         f"{absorbs} absorb(s)")
   lg, ids = out["logits"], out["tokens"]
   if (tuple(lg.shape) != (BATCH, cfg.vocab) or not torch.isfinite(lg).all()
       or tuple(ids.shape) != (BATCH, STEPS + 1)
@@ -327,7 +450,7 @@ def check_full_budget(cache, dev, g):
       cluster_size=S // M, sm_scale=D ** -0.5)
   keys = torch.cat([k, cache["recent_k"][0, 0][:, :, :rl], sk], dim=2)
   vals = torch.cat([v, cache["recent_v"][0, 0][:, :, :rl], sv], dim=2)
-  want = ref.exact_decode_ref(q, keys, vals, sm_scale=D ** -0.5)
+  want = ref.exact_attention_ref(q, keys, vals, sm_scale=D ** -0.5)
   rel = _max_err(got, want) / float(want.abs().max())
   # bf16 inputs, f32 sums in another order, and the stage-1 centroid terms
   # cancelled by the decrement: 1e-3 of the output's scale.
@@ -337,12 +460,89 @@ def check_full_budget(cache, dev, g):
     raise AssertionError(f"full-budget synopsis decode != exact: {rel}")
 
 
-def profile_decode(cfg, params, cache, dev, budget, steps=3):
+def _require_launches(path, counts, kernels):
+  """Every kernel of the path launched at least once in its run."""
+  print(f"[{path}] launches {counts}")
+  missing = [k for k in kernels if counts[k] == 0]
+  if missing:
+    raise AssertionError(f"{path}: {missing} not launched: {counts}")
+
+
+def check_accuracy_vs_exact(cfg, params, cache, syn, dev):
+  """One exact step on the prompt cache and synopsis steps on its synopsis
+  at each budget, with the same next token: the mean total-variation
+  distance of the next-token distributions and the argmax match.  The
+  weights are random (the JAX init's scales), so these are not the
+  paper's accuracy numbers."""
+  from repro_torch.serve.serve_step import make_serve_step
+  nt = torch.randint(0, cfg.vocab, (BATCH, 1),
+                     generator=torch.Generator().manual_seed(7)).to(dev)
+  lg_ex, _ = make_serve_step(cfg, mode="exact")(params, cache, nt)
+  p_ex = torch.softmax(lg_ex, -1)
+  M, C = syn["k_syn"].shape[4], cfg.synopsis.cluster_size
+  print(f"[accuracy vs exact] random weights, {cfg.name}, B={BATCH}, "
+        f"S={PROMPT}, M={M}")
+  for budget in ACCURACY_BUDGETS:
+    lg, _ = make_serve_step(cfg, i_max=budget)(params, syn, nt)
+    if not torch.isfinite(lg).all():
+      raise AssertionError(f"non-finite logits at budget {budget}")
+    tv = float(0.5 * (torch.softmax(lg, -1) - p_ex).abs().sum(-1).mean())
+    match = float((lg.argmax(-1) == lg_ex.argmax(-1)).float().mean())
+    print(f"[accuracy vs exact] budget={budget:2d} kv_rows="
+          f"{M + budget * C}/{PROMPT} tv={tv:.6f} argmax_match={match:.2f}")
+
+
+def compare_fused_unfused(syn, dev, g):
+  """Layer 0 of the built full-width cache: the unfused op (score kernel,
+  masked flash_decode over the centroids, block_gather with neither
+  epilogue) against the fused pipeline at several budgets: the same
+  selection, outputs within 1e-3 of max|out| (bf16 inputs, f32 sums in
+  other orders), and both timed.  Returns the unfused op's launches."""
+  from repro_torch.kernels import _build, ops
+  k, v = syn["k"][0, 0], syn["v"][0, 0]
+  k_syn, v_syn = syn["k_syn"][0, 0], syn["v_syn"][0, 0]
+  counts = syn["counts"][0, 0]
+  B, Hkv, _, D = k.shape
+  # The random-weight model's keys are long enough that a unit-normal
+  # query gives one-hot attention, which any composition gets right; scale
+  # the query so that its logits have a spread of ~2.
+  q = torch.randn((B, Hkv * 4, D), generator=g, device=dev)
+  q = (q * 2.0 * D ** 0.5 / k.float().norm(dim=-1).mean()).to(k.dtype)
+  args = (q, k, v, k_syn, v_syn, counts)
+  _build.reset_launches()
+  unfused = {i: ops.synopsis_attention(*args, i_max=i, sm_scale=D ** -0.5,
+                                       return_diag=True)
+             for i in FUSION_BUDGETS}
+  torch.cuda.synchronize()
+  launches = _build.launch_counts()
+  for i in FUSION_BUDGETS:
+    kw = dict(i_max=i, sm_scale=D ** -0.5)
+    a, (_, sel_a, _, _) = unfused[i]
+    b, (_, sel_b, _, _) = ops.synopsis_attention_fused(*args, **kw,
+                                                       return_diag=True)
+    if not torch.equal(sel_a.sort(-1).values, sel_b.sort(-1).values):
+      raise AssertionError(f"fused and unfused select differently, i={i}")
+    rel = _max_err(a, b) / float(a.abs().max())
+    unfused_fn = lambda: ops.synopsis_attention(*args, **kw)
+    fused_fn = lambda: ops.synopsis_attention_fused(*args, **kw)
+    ms_u, ms_f = _median_ms(unfused_fn), _median_ms(fused_fn)
+    dev_u, dev_f = _device_ms(unfused_fn), _device_ms(fused_fn)
+    print(f"[fused vs unfused] layer 0, i_max={i:2d}: unfused_ms={ms_u:.4f} "
+          f"fused_ms={ms_f:.4f} ratio={ms_u / ms_f:.2f}; device time "
+          f"unfused {dev_u:.4f} fused {dev_f:.4f} ratio {dev_u / dev_f:.2f}; "
+          f"max err {rel:.2e} of max|out| (tol 1e-3)")
+    if not rel <= 1e-3:
+      raise AssertionError(f"fused != unfused at i_max={i}: {rel}")
+  return launches
+
+
+def profile_decode(cfg, params, cache, dev, budget, steps=3,
+                   mode="synopsis"):
   """torch.profiler over a few decode steps on the run's final cache:
   wall time, device busy time and the kernels that take it."""
   from torch.profiler import ProfilerActivity, profile
   from repro_torch.serve.serve_step import make_serve_step
-  step = make_serve_step(cfg, i_max=budget)
+  step = make_serve_step(cfg, mode=mode, i_max=budget)
   tok = torch.zeros((BATCH, 1), dtype=torch.long, device=dev)
   step(params, cache, tok)
   torch.cuda.synchronize()
@@ -361,7 +561,8 @@ def profile_decode(cfg, params, cache, dev, budget, steps=3):
                  if e.device_type != torch.autograd.DeviceType.CPU
                  and e.self_device_time_total > 0), reverse=True)
   busy = sum(r[0] for r in rows) / 1e3 / steps
-  print(f"[profile] budget={budget}: {wall:.2f} ms/step wall under the "
+  label = f"budget={budget}" if mode == "synopsis" else "exact"
+  print(f"[profile] {label}: {wall:.2f} ms/step wall under the "
         f"profiler, device busy {busy:.2f} ms/step "
         f"({100 * busy / wall:.1f}%), {sum(r[2] for r in rows) // steps} "
         "device ops/step")
@@ -378,6 +579,7 @@ def main() -> int:
   from repro_torch.kernels import _build
   from repro_torch.launch import serve
   from repro_torch.models import transformer as tf
+  from repro_torch.serve import synopsis_kv as skv
 
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
@@ -392,13 +594,15 @@ def main() -> int:
   t0 = time.perf_counter()
   _build.build(force=True, verbose=True)
   _build.library()
-  print(f"[build] 4 CUDA kernels in {time.perf_counter() - t0:.1f}s")
+  print(f"[build] {len(_build.LAUNCHES)} CUDA kernels in "
+        f"{time.perf_counter() - t0:.1f}s")
 
   g = torch.Generator(dev).manual_seed(0)
   records = {}
   for dtype in (torch.float32, torch.bfloat16):
     for check in (check_fused_synopsis, check_block_gather,
-                  check_segment_build, check_flash_prefill):
+                  check_segment_build, check_flash_prefill,
+                  check_flash_decode, check_synopsis_score):
       rec = check(dev, dtype, g)
       if dtype == torch.bfloat16:          # the serving path's type
         records[rec["name"]] = rec
@@ -434,9 +638,10 @@ def main() -> int:
   print("[main path] step ms by budget " + ", ".join(
       f"{b}: n={len(v)} p50={statistics.median(v):.2f}"
       for b, v in sorted(by_budget.items())))
-  print(f"[main path] launches {launches}")
-  if not all(n > 0 for n in launches.values()):
-    raise AssertionError(f"a kernel was not launched: {launches}")
+  _require_launches("main path", launches,
+                    ("flash_prefill", "segment_build",
+                     "fused_synopsis_score_attention",
+                     "block_gather_attention"))
   _check_run(out, cfg)
   check_full_budget(out["cache"], dev, g)
   for budget in (0, cfg.synopsis.i_max):
@@ -457,12 +662,48 @@ def main() -> int:
         f"build_ms={fixed['build_ms']:.1f}")
   del fixed
 
-  for name, n in launches.items():
+  # Exact baseline: every step attends over the whole prompt cache and its
+  # own token (64 flash_decode launches a step), in the same call as the
+  # budget-32 baseline above, so the two compare.
+  torch.cuda.empty_cache()
+  _build.reset_launches()
+  exact = serve.run(cfg, batch=BATCH, prompt_len=PROMPT, tokens=STEPS,
+                    mode="exact", device=dev, params=params,
+                    log=lambda _: None)
+  exact_launches = _build.launch_counts()
+  _check_run(exact, cfg, absorbs=0)
+  print(f"[exact baseline] decode_ms {_step_stats(exact['step_ms'])} "
+        f"prefill_ms={exact['prefill_ms']:.1f}")
+  _require_launches("exact baseline", exact_launches,
+                    ("flash_prefill", "flash_decode"))
+  want = {"flash_prefill": cfg.n_layers,
+          "flash_decode": 2 * cfg.n_layers * STEPS}
+  if any(exact_launches[k] != n for k, n in want.items()):
+    raise AssertionError(f"exact loop launches {exact_launches}, expected "
+                         f"{want}")
+  cache = exact["cache"]                # the prompt's KV: nothing appended
+  del exact
+  profile_decode(cfg, params, cache, dev, 0, mode="exact")
+
+  syn = skv.build(cache, cfg)
+  check_accuracy_vs_exact(cfg, params, cache, syn, dev)
+  del cache
+  unfused_launches = compare_fused_unfused(syn, dev, g)
+  _require_launches("unfused op", unfused_launches,
+                    ("synopsis_score", "flash_decode",
+                     "block_gather_attention"))
+  del syn
+
+  # Each kernel's launches on the path that runs it: the synopsis loop's
+  # four, the exact loop's flash_decode, the unfused op's synopsis_score.
+  path_launches = dict(launches, flash_decode=exact_launches["flash_decode"],
+                       synopsis_score=unfused_launches["synopsis_score"])
+  for name, n in path_launches.items():
     records[name]["launches"] = n
   keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
           "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
   print(json.dumps({"kernels": [{k: records[n][k] for k in keys}
-                                for n in launches]}))
+                                for n in path_launches]}))
   print(smi)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,12 +28,19 @@ ARCH = "arch=compute_90a,code=sm_90a"
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
+# Head dims and largest GQA group the decode kernels are built for
+# (DISPATCH_HEAD_DIM and GMAX in csrc/attn_common.cuh).
+HEAD_DIMS = (16, 32, 64, 128, 256)
+GMAX = 8
+
 # C entry point -> argtypes (see each .cu file's extern "C" function).
 SIGNATURES = {
     "fused_synopsis_launch": [_P] * 8 + [_I] * 5 + [_F, _F, _I, _P],
     "block_gather_launch": [_P] * 13 + [_I] * 8 + [_F, _F, _I, _P],
     "segment_build_launch": [_P] * 8 + [_I] * 6 + [_P],
     "flash_prefill_launch": [_P] * 4 + [_I] * 5 + [_F, _F, _I, _I, _P],
+    "flash_decode_launch": [_P] * 10 + [_I] * 6 + [_F, _F, _I, _P],
+    "synopsis_score_launch": [_P] * 3 + [_I] * 5 + [_F, _I, _P],
 }
 
 # Launch counts per kernel: each wrapper adds one where it launches its
@@ -43,6 +50,8 @@ LAUNCHES: Dict[str, int] = {
     "segment_build": 0,
     "fused_synopsis_score_attention": 0,
     "block_gather_attention": 0,
+    "flash_decode": 0,
+    "synopsis_score": 0,
 }
 
 _lib = None
@@ -135,6 +144,19 @@ def dtype_code(name: str, *tensors) -> int:
       raise ValueError(f"{name}: tensor of shape {tuple(t.shape)} is not "
                        "contiguous")
   return 1 if first.dtype == torch.bfloat16 else 0
+
+
+def check_rows(name: str, D: int, G: int, *tensors) -> None:
+  """The decode kernels (flash_decode, synopsis_score) read a key row as
+  whole 16-byte vectors and keep G heads of state in registers: they are
+  built for D in HEAD_DIMS and G <= GMAX, from 16-byte aligned tensors."""
+  if D not in HEAD_DIMS or not 1 <= G <= GMAX:
+    raise ValueError(f"{name}: head dim {D} / group {G} not built (D in "
+                     f"{HEAD_DIMS}, G <= {GMAX})")
+  for t in tensors:
+    if t.data_ptr() % 16:
+      raise ValueError(f"{name}: tensor of shape {tuple(t.shape)} is not "
+                       "16-byte aligned")
 
 
 def stream_ptr(t) -> int:

@@ -1,9 +1,11 @@
 // Shared device helpers for the port's hand-written Hopper kernels.
 //
-// All four kernels keep f32 online-softmax state (m, l, acc) in shared
-// memory and accumulate on CUDA cores.  A tile of key/value rows is staged
-// in shared memory as f32 with a padded row stride (D + 1), so that
-// threads of one warp walking neighbouring rows hit distinct banks.
+// The four kernels of the synopsis path keep f32 online-softmax state
+// (m, l, acc) in shared memory and accumulate on CUDA cores; the decode
+// kernels' register-resident helpers are further down.  A tile of
+// key/value rows is staged in shared memory as f32 with a padded row
+// stride (D + 1), so that threads of one warp walking neighbouring rows
+// hit distinct banks.
 //
 // NEG_INF_F is the finite sentinel of the JAX reference (-1e30): a masked
 // logit is set to it and still takes part in the softmax, exactly as the
@@ -157,6 +159,74 @@ __device__ inline void softmax_update(SoftmaxSmem s, int R, int n, int D,
   }
   __syncthreads();
 }
+
+// ---------------------------------------------------------------------------
+// Register-resident helpers of the decode kernels (flash_decode,
+// synopsis_score): one thread owns one key row and reads it from device
+// memory in 16-byte vectors, against the G query rows staged f32 in shared
+// memory (all threads read the same query word: a broadcast).
+// ---------------------------------------------------------------------------
+
+// Upper bound of the GQA group G, so that per-head state is a fixed-size
+// register array; the wrappers refuse larger groups.
+constexpr int GMAX = 8;
+
+// 16 bytes at p (16-byte aligned), widened to f32: 4 floats or 8 bf16.
+__device__ __forceinline__ void load_vec16(const float* p, float* out) {
+  const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+  out[0] = t.x;
+  out[1] = t.y;
+  out[2] = t.z;
+  out[3] = t.w;
+}
+__device__ __forceinline__ void load_vec16(const __nv_bfloat16* p,
+                                           float* out) {
+  const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&t);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+// s[g] = q_s[g] . row for g < G: the raw (unscaled) logits of one key row
+// of D elements against the G staged query rows (q_s is (G, D) f32).
+template <typename T, int D>
+__device__ __forceinline__ void row_dots(const float* q_s, const T* row,
+                                         int G, float (&s)[GMAX]) {
+  constexpr int V = 16 / sizeof(T);
+  static_assert(D % V == 0, "a key row must be whole 16-byte vectors");
+#pragma unroll
+  for (int g = 0; g < GMAX; ++g) s[g] = 0.f;
+#pragma unroll
+  for (int d0 = 0; d0 < D; d0 += V) {
+    float kv[V];
+    load_vec16(row + d0, kv);
+#pragma unroll
+    for (int g = 0; g < GMAX; ++g) {
+      if (g < G) {
+#pragma unroll
+        for (int e = 0; e < V; ++e)
+          s[g] = fmaf(q_s[g * D + d0 + e], kv[e], s[g]);
+      }
+    }
+  }
+}
+
+// Runs the statements (which must return) with `constexpr int kD = D` for
+// the head dims the decode kernels are built for; any other D returns
+// cudaErrorInvalidValue.
+#define DISPATCH_HEAD_DIM(D, ...)                   \
+  switch (D) {                                      \
+    case 16: { constexpr int kD = 16; __VA_ARGS__ } \
+    case 32: { constexpr int kD = 32; __VA_ARGS__ } \
+    case 64: { constexpr int kD = 64; __VA_ARGS__ } \
+    case 128: { constexpr int kD = 128; __VA_ARGS__ } \
+    case 256: { constexpr int kD = 256; __VA_ARGS__ } \
+    default: return (int)cudaErrorInvalidValue;     \
+  }
 
 // Opt a kernel into more than 48 KB of dynamic shared memory.
 template <typename K>

@@ -1,8 +1,11 @@
 """Public ops over the port's kernels (counterpart of ``repro.kernels.ops``,
-fused pipeline only).
+unquantized).
 
 There is no ``impl`` switch: each kernel wrapper launches its CUDA kernel
-on CUDA tensors and runs its plain PyTorch version on CPU tensors.
+on CUDA tensors and runs its plain PyTorch version on CPU tensors, so the
+JAX package's ``_scores`` / ``_decode`` / ``_gather`` dispatchers are the
+wrappers themselves (``flash_decode`` masks a ragged S in the kernel, so
+no tile size that divides S is searched for).
 
 Decode attention is the fused two-stage pipeline:
 :func:`synopsis_stage1` (one pass over ``k_syn``/``v_syn`` gives scores
@@ -10,6 +13,14 @@ AND count-biased partials), ``torch.topk``, :func:`refine_stage2`
 (selected clusters' tokens + decremental centroid masking + recent/self
 extras in one kernel), one :func:`merge_partials`.  The prefill half is
 :func:`prefill_attention` and :func:`synopsis_build`.
+
+The exact baseline is :func:`exact_decode_attention` /
+:func:`decode_partials` (``flash_decode`` over the whole cache), and
+:func:`synopsis_attention` keeps the unfused composition (score kernel,
+masked decode over the centroids, block gather, merge) as the paper-algebra
+oracle and the baseline the fused pipeline is measured against;
+:func:`synopsis_attention_fused` is the fused pipeline under the same
+contract.
 """
 from __future__ import annotations
 
@@ -19,9 +30,11 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.block_gather_attention import block_gather_attention
+from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.kernels.fused_synopsis import fused_synopsis_score_attention
 from repro_torch.kernels.synopsis_build import segment_build
+from repro_torch.kernels.synopsis_score import synopsis_score
 
 NEG_INF = ref.NEG_INF
 merge_partials = ref.merge_partials
@@ -145,3 +158,73 @@ def synopsis_cache_attention(
                         extras=extras)
   out, _, _ = merge_partials(p_syn, p_ref)
   return out
+
+
+def synopsis_attention_fused(q, k, v, k_syn, v_syn, counts, *, i_max: int,
+                             sm_scale: float = 1.0,
+                             return_diag: bool = False):
+  """Fused drop-in for :func:`synopsis_attention` (same contract): one
+  synopsis pass + decremental refinement instead of score + masked decode
+  + gather + merge."""
+  M = k_syn.shape[2]
+  scores, p_syn = synopsis_stage1(q, k_syn, v_syn, counts,
+                                  sm_scale=sm_scale)
+  selected = torch.topk(scores, min(i_max, M), dim=-1).indices
+  selected = selected.to(torch.int32)
+  p_ref = refine_stage2(q, k, v, selected, k_syn, v_syn, counts,
+                        cluster_size=k.shape[2] // M, sm_scale=sm_scale)
+  out, m, l = merge_partials(p_syn, p_ref)
+  if return_diag:
+    return out, (scores, selected, m, l)
+  return out
+
+
+def synopsis_attention(
+    q: torch.Tensor,        # (B, H, D) one decode step's queries
+    k: torch.Tensor,        # (B, Hkv, S, D) cluster-contiguous keys
+    v: torch.Tensor,
+    k_syn: torch.Tensor,    # (B, Hkv, M, D)
+    v_syn: torch.Tensor,
+    counts: torch.Tensor,   # (B, M)
+    *,
+    i_max: int,
+    sm_scale: float = 1.0,
+    return_diag: bool = False,
+):
+  """AccuracyTrader attention, unfused: O(M + i_max*C) instead of O(S).
+
+  Unselected clusters contribute count-weighted centroid terms (stage 1,
+  ``flash_decode`` over the centroids with a log(count) bias, -1e30 on the
+  selected ones); the top-``i_max`` clusters contribute their original
+  tokens exactly (stage 2, ``block_gather_attention`` with neither
+  epilogue).  The synopsis is read twice and three partials merge
+  separately.  With ``i_max == M`` this equals exact attention."""
+  B, Hkv, M, _ = k_syn.shape
+  scores = synopsis_score(q.contiguous(), k_syn.contiguous(),
+                          sm_scale=sm_scale)
+  selected = torch.topk(scores, i_max, dim=-1).indices.to(torch.int32)
+  chosen = torch.zeros((B, Hkv, M), dtype=torch.bool, device=q.device)
+  chosen.scatter_(2, selected.long(), True)
+  syn_bias = torch.where(chosen, torch.tensor(NEG_INF, device=q.device),
+                         count_bias(counts)[:, None, :])
+  part_syn = decode_partials(q, k_syn, v_syn, syn_bias, sm_scale=sm_scale)
+  part_ref = block_gather_attention(
+      q.contiguous(), k.contiguous(), v.contiguous(), selected,
+      cluster_size=k.shape[2] // M, sm_scale=sm_scale)
+  out, m, l = merge_partials(part_syn, part_ref)
+  if return_diag:
+    return out, (scores, selected, m, l)
+  return out
+
+
+def decode_partials(q, k, v, bias=None, *, sm_scale: float = 1.0,
+                    cap: Optional[float] = None):
+  """Decode attention over all of k/v: partials (out, m, l) for merging."""
+  return flash_decode(q.contiguous(), k.contiguous(), v.contiguous(), bias,
+                      sm_scale=sm_scale, cap=cap)
+
+
+def exact_decode_attention(q, k, v, bias=None, *, sm_scale: float = 1.0,
+                           cap: Optional[float] = None) -> torch.Tensor:
+  """Exact GQA decode (the baseline); the normalised output only."""
+  return decode_partials(q, k, v, bias, sm_scale=sm_scale, cap=cap)[0]

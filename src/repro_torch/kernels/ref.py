@@ -189,14 +189,72 @@ def merge_partials(a: Partials, b: Partials) -> Partials:
   return (o.to(oa.dtype), m, l)
 
 
-def exact_decode_ref(q, k, v, *, sm_scale: float = 1.0,
-                     cap: Optional[float] = None) -> torch.Tensor:
-  """Exact GQA decode over the whole key set (B, H, D) f32 — the
-  full-budget yardstick of the synopsis path."""
+def flash_decode_ref(
+    q: torch.Tensor,             # (B, H, D)
+    k: torch.Tensor,             # (B, Hkv, S, D)
+    v: torch.Tensor,             # (B, Hkv, S, D)
+    bias: Optional[torch.Tensor] = None,   # (B, Hkv, S) additive, log-space
+    *,
+    sm_scale: float = 1.0,
+    cap: Optional[float] = None,
+) -> Partials:
+  """GQA decode attention over the whole key set; the bias is added after
+  the softcap (the unfused stage 1 passes log(count), or -1e30 for the
+  selected clusters)."""
   B, H, D = q.shape
   Hkv = k.shape[1]
   qg = q.reshape(B, Hkv, H // Hkv, D).float()
   logits = apply_softcap(
       torch.einsum("bhgd,bhsd->bhgs", qg, k.float()) * sm_scale, cap)
-  p = torch.softmax(logits, dim=-1)
-  return torch.einsum("bhgs,bhsd->bhgd", p, v.float()).reshape(B, H, D)
+  if bias is not None:
+    logits = logits + bias[:, :, None, :].float()
+  m = logits.amax(dim=-1).clamp_min(NEG_INF)
+  p = torch.exp(logits - m[..., None])
+  l = p.sum(-1)
+  out = torch.einsum("bhgs,bhsd->bhgd", p, v.float())
+  out = out / l.clamp_min(1e-30)[..., None]
+  return (out.reshape(B, H, D), m.reshape(B, H), l.reshape(B, H))
+
+
+def synopsis_score_ref(
+    q: torch.Tensor,             # (B, H, D)
+    k_syn: torch.Tensor,         # (B, Hkv, M, D)
+    *,
+    sm_scale: float = 1.0,
+) -> torch.Tensor:
+  """Correlation of every cluster to the query (paper line 1): the max over
+  the GQA group's query heads of the centroid logit, (B, Hkv, M) f32."""
+  B, H, D = q.shape
+  Hkv = k_syn.shape[1]
+  qg = q.reshape(B, Hkv, H // Hkv, D).float()
+  logits = torch.einsum("bhgd,bhmd->bhgm", qg, k_syn.float())
+  return logits.amax(dim=2) * sm_scale
+
+
+def synopsis_attention_ref(q, k, v, k_syn, v_syn, counts, *, i_max: int,
+                           sm_scale: float = 1.0):
+  """The paper's two-stage algebra, unfused: each unselected centroid
+  stands in for its cluster with weight count * exp(logit) (stage 1, the
+  selected ones masked with -1e30), the top-``i_max`` clusters contribute
+  their tokens exactly (stage 2, :func:`fused_gather_attention_ref` with
+  neither epilogue).  Returns (out (B,H,D), scores, selected (B,Hkv,I))."""
+  M = k_syn.shape[2]
+  scores = synopsis_score_ref(q, k_syn, sm_scale=sm_scale)
+  selected = torch.topk(scores, i_max, dim=-1).indices.to(torch.int32)
+  chosen = torch.zeros(scores.shape, dtype=torch.bool, device=q.device)
+  chosen.scatter_(2, selected.long(), True)
+  cbias = torch.log(counts.float().clamp_min(1.0))[:, None, :]
+  syn_bias = torch.where(chosen, torch.tensor(NEG_INF, device=q.device),
+                         cbias)
+  part_syn = flash_decode_ref(q, k_syn, v_syn, syn_bias, sm_scale=sm_scale)
+  part_ref = fused_gather_attention_ref(
+      q, k, v, selected, cluster_size=k.shape[2] // M, sm_scale=sm_scale)
+  out, _, _ = merge_partials(part_syn, part_ref)
+  return out, scores, selected
+
+
+def exact_attention_ref(q, k, v, *, sm_scale: float = 1.0,
+                        cap: Optional[float] = None) -> torch.Tensor:
+  """Exact GQA decode over the whole key set (B, H, D) f32 — the
+  full-budget yardstick of the synopsis path."""
+  return flash_decode_ref(q, k, v, sm_scale=sm_scale, cap=cap)[0]

@@ -4,10 +4,12 @@
 Each decode step picks its refinement budget from the calibrated latency
 model and the deadline; new tokens accumulate in the recent ring and are
 absorbed into the synopsis when it fills (the paper's incremental update).
-All stages run on the port's kernels when the device is a GPU.
+``--mode exact`` is the paper's exact baseline: prefill, then every step
+attends over the whole prompt cache (no build, budget 0 recorded).  All
+stages run on the port's kernels when the device is a GPU.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
-      --no-smoke --prompt-len 8192 --tokens 130
+      --no-smoke --prompt-len 8192 --tokens 130 [--mode exact]
 
 ``--device cpu`` runs the plain PyTorch versions of the kernels (tests);
 without it the driver needs a CUDA device and refuses to run otherwise.
@@ -42,17 +44,28 @@ def run(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int,
         params: Optional[Dict] = None,
         prompt: Optional[torch.Tensor] = None,
         budgets: Optional[Sequence[int]] = None,
-        pca_basis: Optional[torch.Tensor] = None, log=print) -> Dict:
+        pca_basis: Optional[torch.Tensor] = None, mode: str = "synopsis",
+        log=print) -> Dict:
   """Prefill ``batch`` prompts, build the synopsis, decode ``tokens``
   greedy tokens.  ``params``/``prompt`` default to random ones drawn from
   ``seed``; ``budgets`` fixes the budget of each step instead of the
   deadline controller (parity tests); ``pca_basis`` is the clustering's
   PCA start (``core.cluster.initial_basis``).
 
+  ``mode="exact"`` skips the build and the controller and records budget
+  0 for every step.  Like the JAX loop it only advances ``pos``: the new
+  tokens' KV is never appended, so every exact step attends over the
+  prompt plus its own token.
+
   Returns the generated ids (B, 1 + tokens), the last step's logits, the
   budget and wall time of every step, prefill and build times (ms, host
-  clock around synchronised work), the number of absorbs and the final
-  cache."""
+  clock around synchronised work; build 0 in exact mode), the number of
+  absorbs and the final cache."""
+  if mode not in ("synopsis", "exact"):
+    raise ValueError(f"mode={mode!r}: expected 'synopsis' or 'exact'")
+  if mode == "exact" and budgets is not None:
+    raise ValueError("budgets fix the synopsis refinement; exact mode "
+                     "has none")
   dev = resolve_device(device)
   gen = torch.Generator(dev).manual_seed(seed)
   if params is None:
@@ -69,14 +82,19 @@ def run(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int,
   logits, cache = make_prefill_step(cfg)(params, prompt)
   _sync(dev)
   prefill_ms = (time.perf_counter() - t0) * 1e3
-  t0 = time.perf_counter()
-  cache = skv.build(cache, cfg, basis=pca_basis)
-  _sync(dev)
-  build_ms = (time.perf_counter() - t0) * 1e3
-  M = cache["k_syn"].shape[4]
-  log(f"[prefill+build] {tuple(prompt.shape)} tokens: prefill "
-      f"{prefill_ms:.1f}ms, build {build_ms:.1f}ms; M={M} clusters of "
-      f"C={cfg.synopsis.cluster_size}")
+  build_ms = 0.0
+  if mode == "exact":
+    log(f"[prefill] {tuple(prompt.shape)} tokens: prefill "
+        f"{prefill_ms:.1f}ms")
+  else:
+    t0 = time.perf_counter()
+    cache = skv.build(cache, cfg, basis=pca_basis)
+    _sync(dev)
+    build_ms = (time.perf_counter() - t0) * 1e3
+    M = cache["k_syn"].shape[4]
+    log(f"[prefill+build] {tuple(prompt.shape)} tokens: prefill "
+        f"{prefill_ms:.1f}ms, build {build_ms:.1f}ms; M={M} clusters of "
+        f"C={cfg.synopsis.cluster_size}")
 
   ctrl = BudgetController(
       make_predictor("affine", base=5.0, slope=1.0, alpha=0.1),
@@ -86,21 +104,27 @@ def run(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int,
   out_tokens = [tok]
   step_ms, chosen, absorbs = [], [], 0
   for i in range(tokens):
-    budget = (int(budgets[i]) if budgets is not None
-              else ctrl.budget_for(deadline_ms))
+    if mode == "exact":
+      budget = 0
+    elif budgets is not None:
+      budget = int(budgets[i])
+    else:
+      budget = ctrl.budget_for(deadline_ms)
     if budget not in steps:
-      steps[budget] = make_serve_step(cfg, i_max=budget)
+      steps[budget] = make_serve_step(cfg, mode=mode, i_max=budget)
     t0 = time.perf_counter()
     logits, st = steps[budget](params, cache, tok)
     _sync(dev)
     dt = (time.perf_counter() - t0) * 1e3
-    ctrl.observe(budget, dt)
-    cache = skv.append_recent(cache, st["k_delta"], st["v_delta"])
     cache["pos"] = st["pos"]
-    if int(cache["recent_len"][0]) >= cfg.synopsis.recent:
-      cache = skv.absorb_recent(cache, cfg)
-      absorbs += 1
-      log(f"[update] absorbed recent buffer -> M={cache['k_syn'].shape[4]}")
+    if mode == "synopsis":
+      ctrl.observe(budget, dt)
+      cache = skv.append_recent(cache, st["k_delta"], st["v_delta"])
+      if int(cache["recent_len"][0]) >= cfg.synopsis.recent:
+        cache = skv.absorb_recent(cache, cfg)
+        absorbs += 1
+        log(f"[update] absorbed recent buffer -> "
+            f"M={cache['k_syn'].shape[4]}")
     tok = logits.argmax(-1, keepdim=True)
     out_tokens.append(tok)
     step_ms.append(dt)
@@ -124,6 +148,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
   ap.add_argument("--batch", type=int, default=2)
   ap.add_argument("--prompt-len", type=int, default=256)
   ap.add_argument("--tokens", type=int, default=32)
+  ap.add_argument("--mode", default="synopsis",
+                  choices=["exact", "synopsis"],
+                  help="synopsis: AccuracyTrader decode; exact: the exact "
+                       "baseline over the whole cache")
   ap.add_argument("--deadline-ms", type=float, default=50.0)
   ap.add_argument("--budget", type=int, default=None,
                   help="fix every step's refinement budget (clusters) "
@@ -137,11 +165,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     device = resolve_device(args.device)
   except RuntimeError as e:
     ap.error(str(e))
+  if args.mode == "exact" and args.budget is not None:
+    ap.error("--budget sets the synopsis refinement; --mode exact has none")
   cfg = get_config(args.arch, smoke=args.smoke)
   budgets = None if args.budget is None else [args.budget] * args.tokens
   return run(cfg, batch=args.batch, prompt_len=args.prompt_len,
              tokens=args.tokens, deadline_ms=args.deadline_ms,
-             device=device, seed=args.seed, budgets=budgets)
+             device=device, seed=args.seed, budgets=budgets, mode=args.mode)
 
 
 if __name__ == "__main__":

@@ -1,13 +1,19 @@
-"""Decode (serve) step: one new token against a synopsis KV cache
-(counterpart of ``repro.serve.serve_step``, ``mode="synopsis"``).
+"""Decode (serve) step: one new token against a KV cache (counterpart of
+``repro.serve.serve_step``, dense GQA layers).
 
-Per attention layer the AccuracyTrader decode attention runs the fused
-two-stage pipeline of ``kernels.ops.synopsis_cache_attention``: stage-1
-centroid scoring plus the count-biased initial result, ``top_k`` over the
-scores, stage-2 exact refinement over the selected clusters with the
-recent ring and the new token's self-KV folded in, one merge.  The cache is
-read-only inside the step; the new token's per-layer KV comes back as
-``k_delta``/``v_delta`` for the loop to append.
+``mode="synopsis"``: per attention layer the AccuracyTrader decode
+attention runs the fused two-stage pipeline of
+``kernels.ops.synopsis_cache_attention``: stage-1 centroid scoring plus the
+count-biased initial result, ``top_k`` over the scores, stage-2 exact
+refinement over the selected clusters with the recent ring and the new
+token's self-KV folded in, one merge.
+
+``mode="exact"``: the paper's exact baseline.  The layer cache holds only
+``k``/``v``; ``flash_decode`` runs over all of it and once more over the
+new token's self-KV (S = 1), and the two partials merge.
+
+The cache is read-only inside the step; the new token's per-layer KV comes
+back as ``k_delta``/``v_delta`` for the loop to append.
 """
 from __future__ import annotations
 
@@ -21,8 +27,10 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import rms_norm, swiglu
 
-LAYER_LEAVES = ("k", "v", "k_syn", "v_syn", "counts", "recent_k",
-                "recent_v")
+# Per-layer cache leaves each mode reads.
+LAYER_LEAVES = {"synopsis": ("k", "v", "k_syn", "v_syn", "counts",
+                             "recent_k", "recent_v"),
+                "exact": ("k", "v")}
 
 
 def synopsis_decode_attention(
@@ -43,15 +51,39 @@ def synopsis_decode_attention(
       cluster_size=cluster_size, sm_scale=sm_scale)
 
 
-def _attn_decode_layer(x, lp, cfg: ModelConfig, cache_sl, pos, i_max: int):
+def exact_decode_attention(
+    q: torch.Tensor,                      # (B, H, D)
+    k: torch.Tensor,                      # (B, Hkv, S, D)
+    v: torch.Tensor,
+    *,
+    sm_scale: float,
+    cap: Optional[float] = None,
+    self_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+  """Exact attention over the cache and the new token; (B, H, D) f32.  The
+  one-token self partial goes through the same kernel (S = 1)."""
+  out = ops.decode_partials(q, k, v, sm_scale=sm_scale, cap=cap)
+  if self_kv is not None:
+    out = ops.merge_partials(
+        out, ops.decode_partials(q, self_kv[0], self_kv[1],
+                                 sm_scale=sm_scale, cap=cap))
+  return out[0]
+
+
+def _attn_decode_layer(x, lp, cfg: ModelConfig, cache_sl, pos, mode: str,
+                       i_max: int):
   """x (B, 1, d) -> (y (B, 1, d), (k, v) of the new token (B, Hkv, 1, D))."""
   q, k_new, v_new = attn_lib.qkv(x, lp, cfg, pos[:, None])
   kd = k_new.transpose(1, 2)                                  # (B,Hkv,1,D)
   vd = v_new.transpose(1, 2)
-  ctx = synopsis_decode_attention(
-      q[:, 0], cache_sl, i_max=i_max,
-      cluster_size=cfg.synopsis.cluster_size, sm_scale=cfg.hd ** -0.5,
-      self_kv=(kd, vd))
+  if mode == "synopsis":
+    ctx = synopsis_decode_attention(
+        q[:, 0], cache_sl, i_max=i_max,
+        cluster_size=cfg.synopsis.cluster_size, sm_scale=cfg.hd ** -0.5,
+        self_kv=(kd, vd))
+  else:
+    ctx = exact_decode_attention(q[:, 0], cache_sl["k"], cache_sl["v"],
+                                 sm_scale=cfg.hd ** -0.5, self_kv=(kd, vd))
   y = attn_lib.out_proj(ctx[:, None].to(x.dtype), lp, x.dtype)
   return y, (kd, vd)
 
@@ -59,11 +91,12 @@ def _attn_decode_layer(x, lp, cfg: ModelConfig, cache_sl, pos, i_max: int):
 def make_serve_step(cfg: ModelConfig, *, mode: str = "synopsis",
                     i_max: Optional[int] = None):
   """Returns serve_step(params, cache, tokens (B, 1)) -> (logits (B, V)
-  f32, {"k_delta", "v_delta" (nb, na, B, Hkv, 1, D), "pos" (B,)})."""
-  if mode != "synopsis":
-    raise NotImplementedError(f"mode={mode!r}: the port runs the synopsis "
-                              "decode only")
+  f32, {"k_delta", "v_delta" (nb, na, B, Hkv, 1, D), "pos" (B,)}).
+  ``mode`` is "synopsis" (budget ``i_max``) or "exact"."""
+  if mode not in LAYER_LEAVES:
+    raise ValueError(f"mode={mode!r}: expected one of {tuple(LAYER_LEAVES)}")
   tf.check_supported(cfg)
+  leaves = LAYER_LEAVES[mode]
   i_max = cfg.synopsis.i_max if i_max is None else i_max
 
   @torch.no_grad()
@@ -75,11 +108,12 @@ def make_serve_step(cfg: ModelConfig, *, mode: str = "synopsis",
       ks, vs = [], []
       for i, _ in enumerate(cfg.block_pattern):
         lp = tf.layer_params(params["blocks"][f"pos{i}"], b)
-        layer_cache = {kk: cache[kk][b, i] for kk in LAYER_LEAVES}
-        layer_cache["recent_len"] = cache["recent_len"]
+        layer_cache = {kk: cache[kk][b, i] for kk in leaves}
+        if mode == "synopsis":
+          layer_cache["recent_len"] = cache["recent_len"]
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         mix, (kd, vd) = _attn_decode_layer(h, lp["attn"], cfg, layer_cache,
-                                           pos, i_max)
+                                           pos, mode, i_max)
         x = x + mix
         h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
         mp = lp["mlp"]

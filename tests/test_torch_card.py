@@ -18,9 +18,11 @@ import torch
 
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.block_gather_attention import block_gather_attention
+from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.kernels.fused_synopsis import fused_synopsis_score_attention
 from repro_torch.kernels.synopsis_build import segment_build
+from repro_torch.kernels.synopsis_score import synopsis_score
 
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
        torch.bfloat16: dict(rtol=1e-3, atol=1e-3)}
@@ -132,6 +134,14 @@ def test_cpu_tensors_run_the_plain_versions_without_launching():
   want = ref.fused_gather_attention_ref(q, k, v, sel, cluster_size=C, **kw)
   for a, b in zip(got, want):
     torch.testing.assert_close(a, b)
+  k_syn = k.reshape(2, 2, 4, 16, 16).mean(3)
+  bias = torch.randn((2, 2, 64), generator=torch.Generator().manual_seed(1))
+  for a, b in zip(flash_decode(q, k, v, bias, sm_scale=0.25, cap=30.0),
+                  ref.flash_decode_ref(q, k, v, bias, sm_scale=0.25,
+                                       cap=30.0)):
+    torch.testing.assert_close(a, b)
+  torch.testing.assert_close(synopsis_score(q, k_syn, sm_scale=0.25),
+                             ref.synopsis_score_ref(q, k_syn, sm_scale=0.25))
   assert _build.launch_counts() == before
 
 
@@ -212,6 +222,98 @@ def test_card_block_gather(cuda, dtype, case, S, E):
     _close(a, b, TOL[dtype])
 
 
+def _decode_inputs(g, S, D=128, B=2, Hkv=8, G=4):
+  return (_rand(g, B, Hkv * G, D), _rand(g, B, Hkv, S, D),
+          _rand(g, B, Hkv, S, D))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("S", [1, 65, 8192, 8320])
+@pytest.mark.parametrize("bias_kind", [None, "log_count", "masked"])
+@pytest.mark.parametrize("cap", [None, 30.0])
+def test_card_flash_decode(cuda, dtype, S, bias_kind, cap):
+  """The exact path's shapes (S = 8192, 8320 after an absorb, 1 for the
+  self token) and the unfused stage 1's (65 centroids; log(count) bias,
+  -1e30 on some keys, or on every key in the S = 1 and 65 cases)."""
+  g = torch.Generator().manual_seed(10)
+  q, k, v = _to(cuda, dtype, *_decode_inputs(g, S))
+  bias = None
+  if bias_kind is not None:
+    bias = torch.log(torch.randint(1, 129, (2, 8, S), generator=g).float())
+    if bias_kind == "masked":
+      bias[torch.rand((2, 8, S), generator=g) < 0.3] = NEG_INF
+      if S <= 65:
+        bias[:] = NEG_INF
+    bias = bias.to(cuda)
+  kw = dict(sm_scale=q.shape[-1] ** -0.5, cap=cap)
+  n0 = _build.LAUNCHES["flash_decode"]
+  got = flash_decode(q, k, v, bias, **kw)
+  torch.cuda.synchronize()
+  assert _build.LAUNCHES["flash_decode"] == n0 + 1
+  want = ref.flash_decode_ref(q, k, v, bias, **kw)
+  for a, b in zip(got, want):
+    assert a.dtype == torch.float32 and a.shape == b.shape
+    assert torch.isfinite(a).all()
+    _close(a, b, TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D,G", [(16, 4), (64, 1), (128, 8), (256, 2)])
+def test_card_flash_decode_head_dims(cuda, dtype, D, G):
+  """Every head dim the kernel is built for, at a ragged S, with a group
+  of 1 and of GMAX."""
+  g = torch.Generator().manual_seed(11)
+  q, k, v = _to(cuda, dtype, *_decode_inputs(g, 300, D=D, B=1, Hkv=2, G=G))
+  got = flash_decode(q, k, v, sm_scale=D ** -0.5)
+  for a, b in zip(got, ref.flash_decode_ref(q, k, v, sm_scale=D ** -0.5)):
+    _close(a, b, TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M", [64, 65, 300])
+def test_card_synopsis_score(cuda, dtype, M):
+  g = torch.Generator().manual_seed(12)
+  q, k_syn, _ = _to(cuda, dtype, *_decode_inputs(g, M))
+  n0 = _build.LAUNCHES["synopsis_score"]
+  got = synopsis_score(q, k_syn, sm_scale=128 ** -0.5)
+  torch.cuda.synchronize()
+  assert _build.LAUNCHES["synopsis_score"] == n0 + 1
+  assert got.shape == (2, 8, M) and got.dtype == torch.float32
+  _close(got, ref.synopsis_score_ref(q, k_syn, sm_scale=128 ** -0.5),
+         TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("i_max", [1, 32, 64])
+def test_card_unfused_and_fused_synopsis_ops(cuda, dtype, i_max):
+  """The unfused op (synopsis_score, masked flash_decode over the
+  centroids, block_gather with neither epilogue) at the decode shape, on
+  the card against the plain versions, and against the fused op."""
+  B, Hkv, D, C, M = 2, 8, 128, 128, 64
+  g = torch.Generator().manual_seed(13)
+  q, k, v = _to(cuda, dtype, *_decode_inputs(g, M * C))
+  k_syn = k.float().reshape(B, Hkv, M, C, D).mean(3).to(dtype)
+  v_syn = v.float().reshape(B, Hkv, M, C, D).mean(3).to(dtype)
+  counts = torch.full((B, M), float(C), device=cuda)
+  args, kw = (q, k, v, k_syn, v_syn, counts), dict(i_max=i_max,
+                                                  sm_scale=D ** -0.5)
+  before = _build.launch_counts()
+  got = ops.synopsis_attention(*args, **kw)
+  after = _build.launch_counts()
+  for name in ("synopsis_score", "flash_decode", "block_gather_attention"):
+    assert after[name] == before[name] + 1, name
+  want, _, _ = ref.synopsis_attention_ref(*args, **kw)
+  _close(got, want, TOL[dtype])
+  _close(ops.synopsis_attention_fused(*args, **kw), got, TOL[dtype])
+  if i_max == M:
+    _close(got, ref.exact_attention_ref(q, k, v, sm_scale=D ** -0.5),
+           TOL[dtype])
+
+
 @pytest.mark.cuda
 def test_card_wrappers_refuse_what_the_kernels_do_not_take(cuda):
   q, k, v = _to(cuda, torch.float16, *_prefill_inputs((1, 64, 2, 2, 16)))
@@ -224,6 +326,12 @@ def test_card_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                   cluster_size=16)
   with pytest.raises(ValueError):
     flash_prefill(q, k[:, :, :1].contiguous(), v)
+  q, k, v = _to(cuda, torch.float32, *_decode_inputs(
+      torch.Generator().manual_seed(0), 64, D=48))
+  with pytest.raises(ValueError, match="head dim"):
+    flash_decode(q, k, v)
+  with pytest.raises(ValueError, match="head dim"):
+    synopsis_score(q, k)
 
 
 @pytest.mark.cuda
@@ -246,5 +354,5 @@ def test_card_synopsis_cache_attention_full_budget_is_exact(cuda):
       cluster_size=C, sm_scale=D ** -0.5)
   keys = torch.cat([k, rk[:, :, :37], sk], dim=2)
   vals = torch.cat([v, rv[:, :, :37], sv], dim=2)
-  _close(got, ref.exact_decode_ref(q, keys, vals, sm_scale=D ** -0.5),
+  _close(got, ref.exact_attention_ref(q, keys, vals, sm_scale=D ** -0.5),
          TOL[torch.float32])

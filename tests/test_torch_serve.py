@@ -115,8 +115,8 @@ def test_serve_step_matches_jax(llama):
     assert tuple(st[name].shape) == st_j[name].shape
     _close(st[name], st_j[name])
   np.testing.assert_array_equal(st["pos"].numpy(), np.asarray(st_j["pos"]))
-  with pytest.raises(NotImplementedError):
-    make_serve_step(cfg, mode="exact")
+  with pytest.raises(ValueError, match="mode"):
+    make_serve_step(cfg, mode="approx")
 
 
 def test_serving_loop_generates_jax_token_ids(llama):
