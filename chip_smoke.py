@@ -4,15 +4,21 @@
   python3 chip_smoke.py          # one CUDA device, from the repo root
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the six CUDA kernels from ``src/repro_torch/kernels/csrc``;
-3. holds each kernel against its plain PyTorch version at the shapes of
-   the serving paths (llama3-8b, B=2, prompt 8192), in bf16 and f32, and
-   times both with CUDA events (median of 20), beside the kernel's bound
-   (the larger of bytes / 3.35 TB/s and operations / peak rate) and, for
-   prefill and decode, ``F.scaled_dot_product_attention`` as a yardstick;
+2. builds the six CUDA kernels, with the eight quantized branches of three
+   of them, from ``src/repro_torch/kernels/csrc`` (one nvcc per source,
+   all started together);
+3. holds each kernel and each quantized branch (``segment_build`` under
+   int8 / fp8 / int8+kv / fp8+kv, ``fused_synopsis_score_attention`` and
+   ``block_gather_attention`` on int8 / fp8 tables or cache) against its
+   plain PyTorch version at the shapes of the serving paths (llama3-8b,
+   B=2, prompt 8192), in bf16 and f32, and times both with CUDA events
+   (median of 20) and the profiler, beside the kernel's bound (the larger
+   of bytes / 3.35 TB/s and operations / peak rate) and, for prefill and
+   decode, ``F.scaled_dot_product_attention`` as a yardstick;
 4. on a small model in f32, checks that the kernels and the plain
-   versions generate the same token ids in synopsis and in exact mode, and
-   that a synopsis step at full budget equals the exact step;
+   versions generate the same token ids in synopsis mode (unquantized and
+   under each quant spec) and in exact mode, and that a synopsis step at
+   full budget equals the exact step;
 5. drives the synopsis serving loop (``repro_torch.launch.serve.run``) at
    full llama3-8b width and depth with random weights: prefill, synopsis
    build, 130 decode steps budgeted by the deadline controller (one absorb
@@ -21,16 +27,23 @@
    profiles three decode steps at budgets 0 and 32 (torch.profiler: wall
    time, device busy time and the kernels that take it);
 6. runs the loop again with budget 32 on every step: the decode baseline,
-   whose work per step does not depend on the host clock;
+   whose work per step does not follow the host clock; then the same on
+   the quantized arena under int8+kv and fp8+kv (quantized build, decode
+   and absorb), each with its peak memory and a profiled window;
 7. runs the exact baseline (``mode="exact"``, 130 steps over the whole
    prompt cache) and profiles three of its steps;
-8. on that prompt cache and its synopsis, the accuracy of synopsis decode
-   against exact per budget (total-variation distance of the next-token
-   distributions, argmax match; random weights, so not the paper's
-   numbers), and the unfused synopsis op against the fused one on layer 0.
+8. on that prompt cache and its synopsis (unquantized and under each quant
+   spec), the accuracy of synopsis decode against exact per budget
+   (total-variation distance of the next-token distributions, argmax
+   match; random weights, so not the paper's numbers) and the full-budget
+   deviation from exact attention on layer 0 (below 7% relative L2); the
+   unfused synopsis op against the fused one on layer 0;
+9. stage 1's bytes against its time, bf16 against int8 / fp8 tables, at
+   M = 64 and 1024.
 
 Every path's launch counts are reset just before it runs and read just
-after: the synopsis loop must launch its four kernels, the exact loop
+after: the synopsis loop must launch its four kernels, the quantized loops
+their quantized branches and not the unquantized ones, the exact loop
 ``flash_prefill`` and ``flash_decode``, the unfused op ``synopsis_score``,
 ``flash_decode`` and ``block_gather_attention``.
 
@@ -40,6 +53,7 @@ Without a CUDA device, or without the repo around it, it exits non-zero
 and prints no result.
 """
 import dataclasses
+import functools
 import json
 import pathlib
 import statistics
@@ -357,6 +371,236 @@ def check_synopsis_score(dev, dtype, g):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3b: the quantized branches against their plain versions
+# ---------------------------------------------------------------------------
+
+QSPECS = ("int8", "fp8", "int8+kv", "fp8+kv")
+QKINDS = ("int8", "fp8")
+
+
+def _steps(x):
+  """Codes as ordered integers (fp8 by sign and magnitude bits), so that
+  neighbouring codes differ by 1."""
+  if x.dtype == torch.int8:
+    return x.long()
+  bits = x.view(torch.uint8).long()
+  return torch.where(bits >= 128, -(bits & 0x7F), bits)
+
+
+def _check_codes(name, dtype, got, want, exact):
+  """Quantized codes: bit-equal (``exact``), or at most one step apart (a
+  code that follows an f32 mean summed in another order).  Returns the
+  number of codes one step apart."""
+  step = (_steps(got) - _steps(want)).abs()
+  moved = int((step > 0).sum())
+  print(f"  [{name} {str(dtype)[6:]}] codes one step apart: {moved} of "
+        f"{step.numel()} (allowed: {'none' if exact else 'at most 1%'})")
+  if int(step.max()) > 1 or (exact and moved) or moved > 0.01 * step.numel():
+    raise AssertionError(f"{name} ({dtype}): codes differ from the plain "
+                         f"version's ({moved} moved, max {int(step.max())})")
+  return moved
+
+
+def check_segment_build_quant(dev, dtype, g, spec):
+  """The quantized build at the slice's shape: sorted-KV codes and their
+  scales bit-equal to the plain version's, centroid codes at most one
+  step apart, centroid scales within f32 rounding; and the absorb."""
+  from repro_torch.kernels import _build, ref
+  from repro_torch.kernels import quant as qt
+  from repro_torch.kernels.synopsis_build import segment_build
+  N, Hkv, S, D, C = 32 * BATCH, 8, PROMPT, 128, 128
+  qc = qt.parse_qconfig(spec)
+  k = torch.randn((N, Hkv, S, D), generator=g, device=dev).to(dtype)
+  v = torch.randn((N, Hkv, S, D), generator=g, device=dev).to(dtype)
+  perm = torch.argsort(torch.rand((N, S), generator=g, device=dev),
+                       dim=-1).to(torch.int32)
+  ring = torch.arange(128, device=dev, dtype=torch.int32).expand(N, 128)
+  ka, va = k[:, :, :128].contiguous(), v[:, :, :128].contiguous()
+  name = _build.branch("segment_build", spec)
+  for args, label in (((k, v, perm), name), ((ka, va, ring),
+                                             name + " absorb")):
+    got = segment_build(*args, cluster_size=C, quant=spec)
+    want = ref.synopsis_build_quant_ref(*args, cluster_size=C, qc=qc)
+    for leaf in ("k", "v"):
+      if qc.sorted_kv:
+        _check_codes(f"{label} {leaf}", dtype, got[leaf], want[leaf], True)
+      elif not torch.equal(got[leaf], want[leaf]):
+        raise AssertionError(f"{label}: sorted {leaf} differs")
+    for leaf in ("k_syn", "v_syn"):
+      _check_codes(f"{label} {leaf}", dtype, got[leaf], want[leaf], False)
+    scales = [n for n in qt.SCALE_LEAVES if n in want]
+    err = _check(f"{label} scales", dtype, [got[n] for n in scales],
+                 [want[n] for n in scales], 1e-7, 1e-5)
+    # The centroids as the decode path reads them: codes times scales.
+    err = max(err, *(_max_err(
+        qt.dequantize_rows(got[x], got[x + "_scale"]),
+        qt.dequantize_rows(want[x], want[x + "_scale"]))
+        for x in ("k_syn", "v_syn")))
+    for leaf in qt.KV_SCALE_LEAVES:
+      if leaf in want and not torch.equal(got[leaf], want[leaf]):
+        raise AssertionError(f"{label}: {leaf} differs (no sum in it)")
+  got = segment_build(k, v, perm, cluster_size=C, quant=spec)
+  M = S // C
+  return _record(
+      name, "src/repro_torch/kernels/csrc/segment_build.cu",
+      "src/repro/kernels/synopsis_build.py:173", dtype, err,
+      lambda: segment_build(k, v, perm, cluster_size=C, quant=spec),
+      lambda: ref.synopsis_build_quant_ref(k, v, perm, cluster_size=C, qc=qc),
+      _nbytes(k, v, perm, *got.values()),
+      2 * N * Hkv * S * D * (2 if qc.sorted_kv else 1)
+      + 4 * N * Hkv * M * D)
+
+
+def _quant_arena(dev, dtype, g, S, spec):
+  """The decode inputs with their synopsis arena quantized under ``spec``
+  (plain version of the build, identity permutation)."""
+  from repro_torch.kernels import ops, ref
+  from repro_torch.kernels import quant as qt
+  q, k, v, _, _, _, C = _decode_inputs(dev, dtype, g, S)
+  B = k.shape[0]
+  ident = torch.arange(S, device=dev, dtype=torch.int32).expand(B, S)
+  arena = ref.synopsis_build_quant_ref(k, v, ident, cluster_size=C,
+                                       qc=qt.parse_qconfig(spec))
+  return q, arena, ops.count_bias(arena["counts"]), C
+
+
+def check_fused_synopsis_quant(dev, dtype, g, kind):
+  from repro_torch.kernels import _build, ref
+  from repro_torch.kernels.fused_synopsis import (
+      fused_synopsis_score_attention as fused)
+  tol = 1e-3 if dtype == torch.bfloat16 else 1e-4   # f32 sums, other order
+  name = _build.branch("fused_synopsis_score_attention", kind)
+  for S in (PROMPT + 128, PROMPT):                   # M = 65 (ragged), 64
+    q, arena, cbias, _ = _quant_arena(dev, dtype, g, S, kind)
+    tables = (arena["k_syn"], arena["v_syn"], cbias)
+    kw = dict(sm_scale=q.shape[-1] ** -0.5, k_scale=arena["k_syn_scale"],
+              v_scale=arena["v_syn_scale"])
+    got = fused(q, *tables, **kw)
+    want = ref.fused_synopsis_score_attention_ref(q, *tables, **kw)
+    err = _check(f"{name} M={tables[0].shape[2]}", dtype,
+                 (got[0], *got[1]), (want[0], *want[1]), tol)
+  B, H, D = q.shape
+  M = tables[0].shape[2]
+  return _record(
+      name, "src/repro_torch/kernels/csrc/fused_synopsis.cu",
+      "src/repro/kernels/fused_synopsis.py:139", dtype, err,
+      lambda: fused(q, *tables, **kw),
+      lambda: ref.fused_synopsis_score_attention_ref(q, *tables, **kw),
+      _nbytes(q, *tables, kw["k_scale"], kw["v_scale"], got[0], *got[1]),
+      4 * B * H * M * D)
+
+
+def check_block_gather_quant(dev, dtype, g, spec):
+  """Stage 2 on a quantized arena, with its inputs built as
+  ``refine_stage2`` builds them (decrement rows dequantized in f32, E = 129
+  extras): at M = 65, at budget 0 (all ``-1`` ids) and at budget 32, which
+  is timed.  Under int8 / fp8 the cache is bf16 / f32 with f32 decrement
+  rows (the unquantized kernel's key); under ``+kv`` it is quantized."""
+  from repro_torch.kernels import _build, ops, ref
+  from repro_torch.kernels import quant as qt
+  from repro_torch.kernels.block_gather_attention import (
+      block_gather_attention as gather)
+  qc = qt.parse_qconfig(spec)
+  tol = PARTIALS_TOL[dtype]
+  name = _build.branch("block_gather_attention",
+                       qc.kind if qc.sorted_kv else "none")
+  for S, I in ((PROMPT + 128, 32), (PROMPT, 1), (PROMPT, 32)):
+    q, arena, cbias, C = _quant_arena(dev, dtype, g, S, spec)
+    B, Hkv, M, D = arena["k_syn"].shape
+    sm = D ** -0.5
+    if I == 1:                        # budget 0: all padded, extras only
+      sel = torch.full((B, Hkv, 1), -1, dtype=torch.int32, device=dev)
+    else:
+      scores, _ = ref.fused_synopsis_score_attention_ref(
+          q, arena["k_syn"], arena["v_syn"], cbias, sm_scale=sm,
+          k_scale=arena["k_syn_scale"], v_scale=arena["v_syn_scale"])
+      sel = torch.topk(scores, min(I, M), dim=-1).indices.to(torch.int32)
+    safe = sel.long().clamp_min(0)
+    rows = safe[..., None].expand(-1, -1, -1, D)
+    dec = {f"{x}_sel": qt.gather_rows(arena[f"{x}_syn"], 2, rows).float()
+           * torch.gather(arena[f"{x}_syn_scale"], 2, safe)[..., None]
+           for x in "kv"}
+    dec["sel_bias"] = torch.gather(cbias[:, None].expand(B, Hkv, M), 2,
+                                   safe)
+    rk = torch.randn((B, Hkv, 128, D), generator=g, device=dev).to(dtype)
+    rv = torch.randn((B, Hkv, 128, D), generator=g, device=dev).to(dtype)
+    sk, sv = q[:, ::4, None].contiguous(), q[:, 1::4, None].contiguous()
+    ek, ev, eb = ops.build_extras(rk, rv, None, (sk, sv))  # E = 129
+    kw = dict(cluster_size=C, sm_scale=sm, extras_k=ek, extras_v=ev,
+              extras_bias=eb, **dec)
+    if qc.sorted_kv:
+      kw.update(kv_k_scale=arena["k_scale"], kv_v_scale=arena["v_scale"])
+    kv = (arena["k"], arena["v"])
+    got = gather(q, *kv, sel, **kw)
+    want = ref.fused_gather_attention_ref(q, *kv, sel, **kw)
+    err = _check(f"{name} ({spec}) S={S} I={sel.shape[-1]}", dtype, got,
+                 want, *tol)
+  H = q.shape[1]
+  rows_read = int((sel >= 0).sum()) * C
+  scales = [kw[n] for n in ("kv_k_scale", "kv_v_scale") if n in kw]
+  nbytes = (_nbytes(q, sel, dec["k_sel"], dec["v_sel"], dec["sel_bias"], ek,
+                    ev, eb, *got)
+            + 2 * rows_read * D * kv[0].element_size()
+            + len(scales) * int((sel >= 0).sum()) * 4)
+  ops_n = 4 * (H // Hkv) * D * (rows_read + B * Hkv * (I + ek.shape[2]))
+  return _record(
+      name, "src/repro_torch/kernels/csrc/block_gather.cu",
+      "src/repro/kernels/block_gather_attention.py:255", dtype, err,
+      lambda: gather(q, *kv, sel, **kw),
+      lambda: ref.fused_gather_attention_ref(q, *kv, sel, **kw),
+      nbytes, ops_n)
+
+
+def stage1_bytes_against_time(dev, g, rounds=5):
+  """Stage 1 on one layer's tables, unquantized (bf16) and int8 / fp8, at
+  the slice's M = 64 and at M = 1024 (the table of a 131072-token prompt,
+  synthetic): the bytes the kernel must move, its bound and its time.
+  The three variants are timed in turns, ``rounds`` times, and the median
+  device time is reported (a 10-20 us kernel's time varies between
+  calls).  This is the card's answer to the modelled "~1.9-3.8x less
+  stage-1 HBM traffic" of quantization."""
+  from repro_torch.kernels import quant as qt
+  from repro_torch.kernels.fused_synopsis import (
+      fused_synopsis_score_attention as fused)
+  B, Hkv, G, D = BATCH, 8, 4, 128
+  for M in (64, 1024):
+    q = torch.randn((B, Hkv * G, D), generator=g, device=dev).to(
+        torch.bfloat16)
+    cbias = torch.full((B, M), 4.85, device=dev)
+    fns, nbytes = {}, {}
+    for kind in ("none",) + QKINDS:
+      kt = torch.randn((B, Hkv, M, D), generator=g, device=dev)
+      vt = torch.randn((B, Hkv, M, D), generator=g, device=dev)
+      if kind == "none":
+        tables, kw = (kt.to(torch.bfloat16), vt.to(torch.bfloat16)), {}
+      else:
+        (kq, ks), (vq, vs) = qt.quantize_rows(kt, kind), qt.quantize_rows(
+            vt, kind)
+        tables, kw = (kq, vq), dict(k_scale=ks, v_scale=vs)
+      fns[kind] = functools.partial(fused, q, *tables, cbias,
+                                    sm_scale=D ** -0.5, **kw)
+      out = fns[kind]()
+      nbytes[kind] = _nbytes(q, *tables, cbias, *kw.values(), out[0],
+                             *out[1])
+    times = {kind: [] for kind in fns}
+    for _ in range(rounds):
+      for kind, fn in fns.items():
+        times[kind].append((_median_ms(fn), _device_ms(fn)))
+    base = statistics.median(t[1] for t in times["none"])
+    for kind in fns:
+      ms = statistics.median(t[0] for t in times[kind])
+      dev_ms = statistics.median(t[1] for t in times[kind])
+      bound, _ = _bound(nbytes[kind], 4 * B * Hkv * G * M * D,
+                        torch.bfloat16)
+      print(f"[stage-1 bytes] M={M:4d} {kind:4s}: bytes={nbytes[kind]} "
+            f"({nbytes['none'] / nbytes[kind]:.2f}x fewer than bf16) "
+            f"bound_ms={bound:.6f} ms={ms:.4f} device_ms={dev_ms:.4f} "
+            f"(min {min(t[1] for t in times[kind]):.4f}, max "
+            f"{max(t[1] for t in times[kind]):.4f} over {rounds} turns; "
+            f"bf16/this {base / dev_ms:.2f}x)")
+
+
+# ---------------------------------------------------------------------------
 # Phases 4-8: the serving loops and their checks
 # ---------------------------------------------------------------------------
 
@@ -368,9 +612,11 @@ def _tree_to(tree, dev):
 def check_small_model_parity(dev):
   """SMOKE llama3-8b in f32: the kernels on the card and the plain
   versions on the CPU generate the same ids, in synopsis mode (fixed
-  budgets, one absorb) and in exact mode; and on the card a synopsis step
-  at i_max = M equals the exact step on the same prompt cache."""
+  budgets, one absorb; unquantized and under each quant spec) and in exact
+  mode; and on the card a synopsis step at i_max = M equals the exact step
+  on the same prompt cache.  Returns each quant spec's launch counts."""
   from repro_torch.configs.registry import get_config
+  from repro_torch.kernels import _build
   from repro_torch.launch import serve
   from repro_torch.models import transformer as tf
   from repro_torch.serve import synopsis_kv as skv
@@ -382,21 +628,31 @@ def check_small_model_parity(dev):
   gparams = _tree_to(params, dev)
   prompt = torch.randint(0, cfg.vocab, (2, 128),
                          generator=torch.Generator().manual_seed(2))
-  for mode, extra in (("synopsis", dict(budgets=[2, 1, 0] * 6)),
-                      ("exact", {})):
+  quant_launches = {}
+  for mode, quant in ([("synopsis", "none")]
+                      + [("synopsis", q) for q in QSPECS]
+                      + [("exact", "none")]):
+    extra = dict(budgets=[2, 1, 0] * 6) if mode == "synopsis" else {}
     quiet = dict(batch=2, prompt_len=128, tokens=18, prompt=prompt,
                  mode=mode, log=lambda _: None, **extra)
-    gpu = serve.run(cfg, device=dev, params=gparams, **quiet)
-    cpu = serve.run(cfg, device="cpu", params=params, **quiet)
+    qcfg = serve.apply_quant(cfg, quant)
+    _build.reset_launches()
+    gpu = serve.run(qcfg, device=dev, params=gparams, **quiet)
+    torch.cuda.synchronize()
+    quant_launches[quant] = _build.launch_counts()
+    cpu = serve.run(qcfg, device="cpu", params=params, **quiet)
+    label = mode if quant == "none" else f"{mode} quant={quant}"
     if not torch.equal(gpu["tokens"].cpu(), cpu["tokens"]):
-      raise AssertionError(f"small-model {mode} ids differ: "
+      raise AssertionError(f"small-model {label} ids differ: "
                            f"{gpu['tokens'].tolist()} vs "
                            f"{cpu['tokens'].tolist()}")
     err = _max_err(gpu["logits"].cpu(), cpu["logits"])
-    print(f"[parity] smoke f32 {mode}: {gpu['tokens'].shape[1]} ids equal "
+    print(f"[parity] smoke f32 {label}: {gpu['tokens'].shape[1]} ids equal "
           f"on card and CPU; last logits max_abs_err={err:.3e} (tol 1e-3)")
     if not err <= 1e-3:
-      raise AssertionError(f"small-model {mode} logits differ by {err}")
+      raise AssertionError(f"small-model {label} logits differ by {err}")
+    if quant != "none":
+      _require_quant_launches(f"smoke {label}", quant_launches[quant], quant)
 
   logits, cache = make_prefill_step(cfg)(gparams, prompt.to(dev))
   syn = skv.build(cache, cfg)
@@ -410,6 +666,7 @@ def check_small_model_parity(dev):
         f"logits max err {rel:.3e} of max|logits| (tol 1e-4)")
   if not rel <= 1e-4:
     raise AssertionError(f"full-budget synopsis step != exact step: {rel}")
+  return quant_launches
 
 
 def _step_stats(step_ms):
@@ -460,36 +717,116 @@ def check_full_budget(cache, dev, g):
     raise AssertionError(f"full-budget synopsis decode != exact: {rel}")
 
 
-def _require_launches(path, counts, kernels):
-  """Every kernel of the path launched at least once in its run."""
-  print(f"[{path}] launches {counts}")
+def _require_launches(path, counts, kernels, absent=()):
+  """Every kernel of the path launched at least once in its run, and none
+  of ``absent`` (branches the path must not fall back to)."""
+  print(f"[{path}] launches {({k: n for k, n in counts.items() if n})}")
   missing = [k for k in kernels if counts[k] == 0]
   if missing:
     raise AssertionError(f"{path}: {missing} not launched: {counts}")
+  fallback = [k for k in absent if counts[k]]
+  if fallback:
+    raise AssertionError(f"{path}: launched {fallback}, which it must not: "
+                         f"{counts}")
 
 
-def check_accuracy_vs_exact(cfg, params, cache, syn, dev):
+def _quant_branches(quant):
+  """The kernel branches a synopsis loop under ``quant`` launches, and the
+  unquantized branches it must not fall back to."""
+  from repro_torch.kernels import _build
+  from repro_torch.kernels import quant as qt
+  qc = qt.parse_qconfig(quant)
+  stage2 = qc.kind if qc.sorted_kv else "none"
+  need = (_build.branch("segment_build", quant),
+          _build.branch("fused_synopsis_score_attention", qc.kind),
+          _build.branch("block_gather_attention", stage2))
+  absent = ("segment_build", "fused_synopsis_score_attention")
+  return need, absent + (("block_gather_attention",) if qc.sorted_kv else ())
+
+
+def _require_quant_launches(path, counts, quant):
+  need, absent = _quant_branches(quant)
+  _require_launches(path, counts, need, absent)
+
+
+def check_accuracy_vs_exact(cfg, params, cache, syn, dev,
+                            budgets=ACCURACY_BUDGETS):
   """One exact step on the prompt cache and synopsis steps on its synopsis
-  at each budget, with the same next token: the mean total-variation
-  distance of the next-token distributions and the argmax match.  The
-  weights are random (the JAX init's scales), so these are not the
-  paper's accuracy numbers."""
+  (quantized under ``cfg.synopsis.quant``) at each budget, with the same
+  next token: the mean total-variation distance of the next-token
+  distributions and the argmax match.  The weights are random (the JAX
+  init's scales), so these are not the paper's accuracy numbers."""
   from repro_torch.serve.serve_step import make_serve_step
   nt = torch.randint(0, cfg.vocab, (BATCH, 1),
                      generator=torch.Generator().manual_seed(7)).to(dev)
   lg_ex, _ = make_serve_step(cfg, mode="exact")(params, cache, nt)
   p_ex = torch.softmax(lg_ex, -1)
   M, C = syn["k_syn"].shape[4], cfg.synopsis.cluster_size
+  quant = cfg.synopsis.quant
   print(f"[accuracy vs exact] random weights, {cfg.name}, B={BATCH}, "
-        f"S={PROMPT}, M={M}")
-  for budget in ACCURACY_BUDGETS:
-    lg, _ = make_serve_step(cfg, i_max=budget)(params, syn, nt)
+        f"S={PROMPT}, M={M}, quant={quant}")
+  for budget in budgets:
+    lg, _ = make_serve_step(cfg, mode="synopsis", i_max=budget)(params, syn,
+                                                                 nt)
     if not torch.isfinite(lg).all():
       raise AssertionError(f"non-finite logits at budget {budget}")
     tv = float(0.5 * (torch.softmax(lg, -1) - p_ex).abs().sum(-1).mean())
     match = float((lg.argmax(-1) == lg_ex.argmax(-1)).float().mean())
-    print(f"[accuracy vs exact] budget={budget:2d} kv_rows="
+    print(f"[accuracy vs exact] quant={quant} budget={budget:2d} kv_rows="
           f"{M + budget * C}/{PROMPT} tv={tv:.6f} argmax_match={match:.2f}")
+
+
+def check_full_budget_quant(cache, syn, quant, dev, g):
+  """Layer 0 of the exact run's prompt cache and of its synopsis built
+  under ``quant``: synopsis decode at i_max = M (with a self token) against
+  exact attention over the unquantized cache, relative L2 below 7%, the
+  JAX package's bound for quantization noise.  The query is scaled so that
+  its logits spread ~2, as in the fused/unfused comparison."""
+  from repro_torch.kernels import ops, ref
+  from repro_torch.kernels import quant as qt
+  k, v = cache["k"][0, 0], cache["v"][0, 0]
+  B, Hkv, S, D = k.shape
+  M = syn["k_syn"].shape[4]
+  q = torch.randn((B, Hkv * 4, D), generator=g, device=dev)
+  q = (q * 2.0 * D ** 0.5 / k.float().norm(dim=-1).mean()).to(k.dtype)
+  sk = torch.randn((B, Hkv, 1, D), generator=g, device=dev).to(k.dtype)
+  sv = torch.randn((B, Hkv, 1, D), generator=g, device=dev).to(k.dtype)
+  lay = {n: syn[n][0, 0] for n in syn if n not in ("recent_len", "pos")}
+  got = ops.synopsis_cache_attention(
+      q, lay["k"], lay["v"], lay["k_syn"], lay["v_syn"], lay["counts"],
+      None, None, None, sk, sv, *(lay.get(n) for n in qt.SCALE_LEAVES),
+      i_max=M, cluster_size=S // M, sm_scale=D ** -0.5)
+  want = ref.exact_attention_ref(q, torch.cat([k, sk], 2),
+                                 torch.cat([v, sv], 2), sm_scale=D ** -0.5)
+  rel = float((got - want).norm() / want.norm())
+  print(f"[full budget quant] layer 0, quant={quant}, i_max=M={M}: "
+        f"relative L2 deviation from exact {rel:.4e} (bound 0.07)")
+  if not rel < 0.07:
+    raise AssertionError(f"full-budget {quant} decode deviates {rel}")
+  return rel
+
+
+def run_fixed_budget(cfg, params, dev, quant="none"):
+  """The decode baseline: the synopsis loop with budget i_max on every
+  step (its work per step does not follow the host clock), under
+  ``quant``; launch counts and peak memory of this run alone."""
+  from repro_torch.kernels import _build
+  from repro_torch.launch import serve
+  qcfg = serve.apply_quant(cfg, quant)
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  _build.reset_launches()
+  out = serve.run(qcfg, batch=BATCH, prompt_len=PROMPT, tokens=STEPS,
+                  budgets=[cfg.synopsis.i_max] * STEPS, device=dev,
+                  params=params, log=lambda _: None)
+  torch.cuda.synchronize()
+  launches = _build.launch_counts()
+  _check_run(out, cfg)
+  print(f"[decode baseline] quant={quant} budget {cfg.synopsis.i_max} on "
+        f"every step: decode_ms {_step_stats(out['step_ms'])} "
+        f"prefill_ms={out['prefill_ms']:.1f} build_ms={out['build_ms']:.1f} "
+        f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+  return out, launches
 
 
 def compare_fused_unfused(syn, dev, g):
@@ -594,21 +931,30 @@ def main() -> int:
   t0 = time.perf_counter()
   _build.build(force=True, verbose=True)
   _build.library()
-  print(f"[build] {len(_build.LAUNCHES)} CUDA kernels in "
-        f"{time.perf_counter() - t0:.1f}s")
+  n_quant = sum(map(len, _build.QUANT_BRANCHES.values()))
+  print(f"[build] {len(_build.KERNELS)} CUDA kernels with {n_quant} "
+        f"quantized branches ({len(_build.LAUNCHES)} launch-counted "
+        f"branches) in {time.perf_counter() - t0:.1f}s")
 
   g = torch.Generator(dev).manual_seed(0)
   records = {}
   for dtype in (torch.float32, torch.bfloat16):
-    for check in (check_fused_synopsis, check_block_gather,
-                  check_segment_build, check_flash_prefill,
-                  check_flash_decode, check_synopsis_score):
-      rec = check(dev, dtype, g)
+    checks = [functools.partial(c, dev, dtype, g) for c in (
+        check_fused_synopsis, check_block_gather, check_segment_build,
+        check_flash_prefill, check_flash_decode, check_synopsis_score)]
+    checks += [functools.partial(check_segment_build_quant, dev, dtype, g, q)
+               for q in QSPECS]
+    checks += [functools.partial(check_fused_synopsis_quant, dev, dtype, g, k)
+               for k in QKINDS]
+    checks += [functools.partial(check_block_gather_quant, dev, dtype, g, q)
+               for q in QSPECS]
+    for check in checks:
+      rec = check()
       if dtype == torch.bfloat16:          # the serving path's type
-        records[rec["name"]] = rec
-    torch.cuda.empty_cache()
+        records.setdefault(rec["name"], rec)
+      torch.cuda.empty_cache()
 
-  check_small_model_parity(dev)
+  smoke_launches = check_small_model_parity(dev)
 
   cfg = get_config("llama3-8b")
   print(f"[model] {cfg.name} full width: {cfg.n_layers} layers, d="
@@ -648,23 +994,24 @@ def main() -> int:
     profile_decode(cfg, params, out["cache"], dev, budget)
   del out
 
-  # Decode baseline: the same loop with every step at the full budget, so
-  # the work per step does not follow the host clock as the controller's
-  # budgets do.
-  torch.cuda.empty_cache()
-  fixed = serve.run(cfg, batch=BATCH, prompt_len=PROMPT, tokens=STEPS,
-                    budgets=[cfg.synopsis.i_max] * STEPS, device=dev,
-                    params=params, log=lambda _: None)
-  _check_run(fixed, cfg)
-  print(f"[decode baseline] budget {cfg.synopsis.i_max} on every step: "
-        f"decode_ms {_step_stats(fixed['step_ms'])} "
-        f"prefill_ms={fixed['prefill_ms']:.1f} "
-        f"build_ms={fixed['build_ms']:.1f}")
+  # Decode baselines: every step at the full budget, so the work per step
+  # does not follow the host clock as the controller's budgets do;
+  # unquantized, then the quantized arena under int8+kv and fp8+kv, in the
+  # same call so that they compare.
+  fixed, _ = run_fixed_budget(cfg, params, dev)
   del fixed
+  quant_launches = {}
+  for quant in ("int8+kv", "fp8+kv"):
+    qout, quant_launches[quant] = run_fixed_budget(cfg, params, dev, quant)
+    _require_quant_launches(f"decode baseline quant={quant}",
+                            quant_launches[quant], quant)
+    profile_decode(serve.apply_quant(cfg, quant), params, qout["cache"], dev,
+                   cfg.synopsis.i_max)
+    del qout
 
   # Exact baseline: every step attends over the whole prompt cache and its
   # own token (64 flash_decode launches a step), in the same call as the
-  # budget-32 baseline above, so the two compare.
+  # budget-32 baselines above, so the two compare.
   torch.cuda.empty_cache()
   _build.reset_launches()
   exact = serve.run(cfg, batch=BATCH, prompt_len=PROMPT, tokens=STEPS,
@@ -687,19 +1034,53 @@ def main() -> int:
 
   syn = skv.build(cache, cfg)
   check_accuracy_vs_exact(cfg, params, cache, syn, dev)
+  check_full_budget_quant(cache, syn, "none", dev, g)
+  # The quantized arena on the same prompt cache, per spec: the build under
+  # each spec, accuracy against exact, and the full-budget deviation.  The
+  # builds are the full-width path of the int8 / fp8 (synopsis-only) build
+  # branches.
+  for quant in QSPECS:
+    qcfg = serve.apply_quant(cfg, quant)
+    _build.reset_launches()
+    qsyn = skv.build(cache, qcfg)
+    torch.cuda.synchronize()
+    quant_launches.setdefault(quant, _build.launch_counts())
+    check_accuracy_vs_exact(qcfg, params, cache, qsyn, dev,
+                            budgets=(0, 8, 32, 64))
+    check_full_budget_quant(cache, qsyn, quant, dev, g)
+    del qsyn
   del cache
   unfused_launches = compare_fused_unfused(syn, dev, g)
   _require_launches("unfused op", unfused_launches,
                     ("synopsis_score", "flash_decode",
                      "block_gather_attention"))
   del syn
+  stage1_bytes_against_time(dev, g)
 
-  # Each kernel's launches on the path that runs it: the synopsis loop's
-  # four, the exact loop's flash_decode, the unfused op's synopsis_score.
-  path_launches = dict(launches, flash_decode=exact_launches["flash_decode"],
+  # Each kernel branch's launches on the path that runs it: the synopsis
+  # loop's four, the exact loop's flash_decode, the unfused op's
+  # synopsis_score; the quantized branches on the int8+kv / fp8+kv loops,
+  # and the synopsis-only builds on their full-width builds.
+  path_launches = {k: launches[k] for k in (
+      "flash_prefill", "segment_build", "fused_synopsis_score_attention",
+      "block_gather_attention")}
+  path_launches.update(flash_decode=exact_launches["flash_decode"],
                        synopsis_score=unfused_launches["synopsis_score"])
-  for name, n in path_launches.items():
-    records[name]["launches"] = n
+  for quant, counts in quant_launches.items():
+    for key in _quant_branches(quant)[0]:
+      if key in _build.KERNELS:            # unquantized: the runs above
+        continue
+      path_launches[key] = max(path_launches.get(key, 0), counts[key])
+  missing = sorted(set(records) ^ set(path_launches))
+  idle = [k for k, n in path_launches.items() if n == 0]
+  if missing or idle:
+    raise AssertionError(f"kernel branches without a path {missing} or not "
+                         f"launched on it {idle}")
+  for key, n in path_launches.items():
+    records[key]["launches"] = n
+  smoke = {q: {k: n for k, n in c.items() if n}
+           for q, c in smoke_launches.items()}
+  print(f"[smoke launches] {smoke}")
   keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
           "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
   print(json.dumps({"kernels": [{k: records[n][k] for k in keys}

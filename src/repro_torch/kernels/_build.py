@@ -1,12 +1,15 @@
 """Build and load the port's CUDA kernels, and count their launches.
 
-All sources in ``csrc/*.cu`` are compiled by ONE ``nvcc`` command into a
-shared library with a plain C interface (no PyTorch headers, so the build
-takes seconds, not minutes) under ``<repo>/build/repro_torch/``, at the
-first launch of any kernel; later launches reuse it while it is newer than
-every source.  The library is loaded with ``ctypes``: pointers and the
-stream travel as ``c_void_p``, and every C entry point returns
-``cudaGetLastError()``, which :func:`check` turns into an exception.
+Each source in ``csrc/*.cu`` is compiled by its own ``nvcc``, all started
+together, and the objects are linked into one shared library with a plain
+C interface (no PyTorch headers, so the build takes seconds, not minutes)
+under ``<repo>/build/repro_torch/``, at the first launch of any kernel;
+later launches reuse it while it is newer than every source.  The build
+uses ``-O3`` and no ``--use_fast_math``: the quantized encode needs the
+IEEE-rounded ``1 / scale``.  The library is loaded with ``ctypes``:
+pointers and the stream travel as ``c_void_p``, and every C entry point
+returns ``cudaGetLastError()``, which :func:`check` turns into an
+exception.
 
 Nothing here runs at import: the CPU test suite imports every module of
 the port on a machine with no ``nvcc``.
@@ -35,23 +38,37 @@ GMAX = 8
 
 # C entry point -> argtypes (see each .cu file's extern "C" function).
 SIGNATURES = {
-    "fused_synopsis_launch": [_P] * 8 + [_I] * 5 + [_F, _F, _I, _P],
-    "block_gather_launch": [_P] * 13 + [_I] * 8 + [_F, _F, _I, _P],
-    "segment_build_launch": [_P] * 8 + [_I] * 6 + [_P],
+    "fused_synopsis_launch": [_P] * 10 + [_I] * 5 + [_F, _F, _I, _I, _P],
+    "block_gather_launch": [_P] * 15 + [_I] * 8 + [_F, _F] + [_I] * 3 + [_P],
+    "segment_build_launch": [_P] * 12 + [_I] * 8 + [_P],
     "flash_prefill_launch": [_P] * 4 + [_I] * 5 + [_F, _F, _I, _I, _P],
     "flash_decode_launch": [_P] * 10 + [_I] * 6 + [_F, _F, _I, _P],
     "synopsis_score_launch": [_P] * 3 + [_I] * 5 + [_F, _I, _P],
 }
 
-# Launch counts per kernel: each wrapper adds one where it launches its
-# kernel and nowhere else, so a run can show it went through the kernels.
+# Launch counts per kernel branch: each wrapper adds one where it launches
+# its kernel and nowhere else, so a run can show it went through the
+# kernels.  A quantized branch counts under its own key: the build under
+# its spec, stage 1 and stage 2 under the storage type of the tables or
+# cache they read quantized.
+KERNELS = ("flash_prefill", "segment_build", "fused_synopsis_score_attention",
+           "block_gather_attention", "flash_decode", "synopsis_score")
+QUANT_BRANCHES = {
+    "segment_build": ("int8", "fp8", "int8+kv", "fp8+kv"),
+    "fused_synopsis_score_attention": ("int8", "fp8"),
+    "block_gather_attention": ("int8", "fp8"),
+}
+
+
+def branch(name: str, quant: str = "none") -> str:
+  """The launch-count key of kernel ``name``'s branch ``quant``."""
+  return name if quant == "none" else f"{name}[{quant}]"
+
+
 LAUNCHES: Dict[str, int] = {
-    "flash_prefill": 0,
-    "segment_build": 0,
-    "fused_synopsis_score_attention": 0,
-    "block_gather_attention": 0,
-    "flash_decode": 0,
-    "synopsis_score": 0,
+    key: 0 for name in KERNELS
+    for key in (name, *(branch(name, q)
+                        for q in QUANT_BRANCHES.get(name, ())))
 }
 
 _lib = None
@@ -78,10 +95,24 @@ def _nvcc() -> str:
                      "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _run_all(cmds):
+  """Run the commands side by side; wait for every one, then raise on the
+  first that failed.  Returns their output."""
+  procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+           for c in cmds]
+  outs = [p.communicate()[0] for p in procs]
+  for cmd, p, out in zip(cmds, procs, outs):
+    if p.returncode != 0:
+      raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n"
+                         f"{out}")
+  return "".join(outs)
+
+
 def build(force: bool = False, verbose: bool = False) -> pathlib.Path:
-  """Compile every ``csrc/*.cu`` into the shared library (one nvcc call)
-  unless an up-to-date library exists.  Returns its path.  ``verbose``
-  prints ptxas's register / shared-memory / spill report."""
+  """Compile every ``csrc/*.cu`` (one nvcc each, in parallel) and link the
+  shared library, unless an up-to-date library exists.  Returns its path.
+  ``verbose`` prints ptxas's register / shared-memory / spill report."""
   sources = sorted(CSRC.glob("*.cu"))
   headers = sorted(CSRC.glob("*.cuh"))
   lib = BUILD_DIR / LIB_NAME
@@ -90,16 +121,21 @@ def build(force: bool = False, verbose: bool = False) -> pathlib.Path:
                                      for p in sources + headers)):
     return lib
   BUILD_DIR.mkdir(parents=True, exist_ok=True)
-  tmp = BUILD_DIR / f".{LIB_NAME}.{os.getpid()}"
-  cmd = [_nvcc(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
-         "-Xcompiler", "-fPIC", "-I", str(CSRC), "-o", str(tmp),
-         *(["-Xptxas=-v"] if verbose else []), *map(str, sources)]
-  res = subprocess.run(cmd, capture_output=True, text=True)
-  if res.returncode != 0:
-    raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                       f"{res.stdout}\n{res.stderr}")
+  tag = f"{os.getpid()}"
+  objs = [BUILD_DIR / f".{src.stem}.{tag}.o" for src in sources]
+  nvcc = [_nvcc(), "-gencode", ARCH, "-std=c++17", "-O3"]
+  try:
+    report = _run_all([
+        nvcc + ["-Xcompiler", "-fPIC", "-I", str(CSRC), "-c", str(src),
+                "-o", str(obj), *(["-Xptxas=-v"] if verbose else [])]
+        for src, obj in zip(sources, objs)])
+    tmp = BUILD_DIR / f".{LIB_NAME}.{tag}"
+    _run_all([nvcc + ["-shared", "-o", str(tmp), *map(str, objs)]])
+  finally:
+    for obj in objs:
+      obj.unlink(missing_ok=True)
   if verbose:
-    print(res.stdout + res.stderr, end="")
+    print(report, end="")
   os.replace(tmp, lib)
   return lib
 
@@ -124,17 +160,26 @@ def check(err: int, name: str) -> None:
                        f"{err}")
 
 
-def dtype_code(name: str, *tensors) -> int:
-  """Check that the kernel's data tensors lie on one CUDA device, share
-  one dtype (float32 or bfloat16) and are contiguous; returns the C
-  dtype code (0 = float32, 1 = bfloat16)."""
+def code_of(dtype) -> int:
+  """C dtype code: 0 = float32, 1 = bfloat16, 2 = int8, 3 = float8_e4m3fn."""
   import torch  # noqa: PLC0415
+  return {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+          torch.float8_e4m3fn: 3}[dtype]
+
+
+def dtype_code(name: str, *tensors, allowed=None) -> int:
+  """Check that the tensors lie on one CUDA device, share one dtype and
+  are contiguous; returns the C code of that dtype (0 = float32, 1 =
+  bfloat16, 2 = int8, 3 = float8_e4m3fn).  ``allowed`` (default: float32,
+  bfloat16 — the compute types) lists the dtypes the kernel was built
+  for."""
+  import torch  # noqa: PLC0415
+  allowed = (torch.float32, torch.bfloat16) if allowed is None else allowed
   first = tensors[0]
   if first.device.type != "cuda":
     raise ValueError(f"{name}: expected CUDA tensors, got {first.device}")
-  if first.dtype not in (torch.float32, torch.bfloat16):
-    raise TypeError(f"{name}: dtype {first.dtype} not in (float32, "
-                    "bfloat16)")
+  if first.dtype not in allowed:
+    raise TypeError(f"{name}: dtype {first.dtype} not in {tuple(allowed)}")
   for t in tensors:
     if t.device != first.device or t.dtype != first.dtype:
       raise ValueError(f"{name}: tensors differ in device/dtype "
@@ -143,7 +188,40 @@ def dtype_code(name: str, *tensors) -> int:
     if not t.is_contiguous():
       raise ValueError(f"{name}: tensor of shape {tuple(t.shape)} is not "
                        "contiguous")
-  return 1 if first.dtype == torch.bfloat16 else 0
+  return code_of(first.dtype)
+
+
+def storage_code(name: str, q, *tensors) -> int:
+  """The code of the tables' storage dtype: the query ``q``'s own
+  (unquantized) or int8 / float8_e4m3fn (quantized codes), on ``q``'s
+  device."""
+  import torch  # noqa: PLC0415
+  code = dtype_code(name, *tensors, allowed=(q.dtype, torch.int8,
+                                             torch.float8_e4m3fn))
+  if tensors[0].device != q.device:
+    raise ValueError(f"{name}: tensors lie on {tensors[0].device}, the "
+                     f"query on {q.device}")
+  return code
+
+
+def scale_tensors(name: str, quantized: bool, shape, device, *scales):
+  """The f32 scales of a quantized table or cache, one per row or cluster
+  block (``shape``), contiguous on ``device``; None when unquantized.  A
+  quantized table needs its scales, an unquantized one takes none."""
+  import torch  # noqa: PLC0415
+  given = [s is not None for s in scales]
+  if quantized != all(given) or any(given) != all(given):
+    raise ValueError(f"{name}: quantized tables take their scales and "
+                     "unquantized ones none")
+  if not quantized:
+    return [None] * len(scales)
+  out = []
+  for s in scales:
+    if tuple(s.shape) != tuple(shape) or s.device != device:
+      raise ValueError(f"{name}: scale of shape {tuple(s.shape)} on "
+                       f"{s.device}, expected {tuple(shape)} on {device}")
+    out.append(s.to(torch.float32).contiguous())
+  return out
 
 
 def check_rows(name: str, D: int, G: int, *tensors) -> None:

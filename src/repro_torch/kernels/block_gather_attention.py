@@ -7,7 +7,10 @@ kernel streams each selected cluster as C consecutive rows.  ``selected``
 may hold ``-1`` padding (masked with the -1e30 sentinel).  With
 ``k_sel/v_sel/sel_bias`` each selected centroid's stage-1 term is
 accumulated with weight -1; with ``extras_*`` the recent ring and the new
-token's self-KV fold in after the clusters.
+token's self-KV fold in after the clusters.  A quantized cache (int8 /
+fp8 codes) comes with one f32 scale per cluster block
+(``kv_k_scale``/``kv_v_scale``); under a quantized synopsis the decrement
+rows arrive dequantized in f32 beside a bf16 query.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import quant as qt
 from repro_torch.kernels import ref
 
 NAME = "block_gather_attention"
@@ -36,6 +40,8 @@ def block_gather_attention(
     extras_k: Optional[torch.Tensor] = None,     # (B, Hkv, E, D)
     extras_v: Optional[torch.Tensor] = None,     # (B, Hkv, E, D)
     extras_bias: Optional[torch.Tensor] = None,  # (B, E)
+    kv_k_scale: Optional[torch.Tensor] = None,   # (B, Hkv, M) f32 per block
+    kv_v_scale: Optional[torch.Tensor] = None,
 ):
   """Returns partials (o (B,H,D) f32, m (B,H), l (B,H)).
 
@@ -44,7 +50,8 @@ def block_gather_attention(
     return ref.fused_gather_attention_ref(
         q, k, v, selected, cluster_size=cluster_size, sm_scale=sm_scale,
         cap=cap, k_sel=k_sel, v_sel=v_sel, sel_bias=sel_bias,
-        extras_k=extras_k, extras_v=extras_v, extras_bias=extras_bias)
+        extras_k=extras_k, extras_v=extras_v, extras_bias=extras_bias,
+        kv_k_scale=kv_k_scale, kv_v_scale=kv_v_scale)
   B, H, D = q.shape
   _, Hkv, S, _ = k.shape
   G = H // Hkv
@@ -65,12 +72,18 @@ def block_gather_attention(
     raise ValueError(f"{NAME}: bad shapes q{tuple(q.shape)} "
                      f"k{tuple(k.shape)} selected{tuple(selected.shape)} "
                      f"C={C}")
-  data = [q, k, v]
-  if has_dec:
-    data += [k_sel, v_sel]
-  if has_ext:
-    data += [extras_k, extras_v]
-  code = _build.dtype_code(NAME, *data)
+  code = _build.dtype_code(NAME, q, *([extras_k, extras_v] if has_ext
+                                       else []))
+  storage = _build.storage_code(NAME, q, k, v)
+  quantized = k.dtype in qt.QDTYPES
+  kq, vq = _build.scale_tensors(NAME, quantized, (B, Hkv, S // C), q.device,
+                                kv_k_scale, kv_v_scale)
+  # The decrement rows: the query's type, or f32 (dequantized centroids).
+  dec = (_build.dtype_code(NAME, k_sel, v_sel, allowed=(q.dtype,
+                                                         torch.float32))
+         if has_dec else code)
+  if has_dec and k_sel.device != q.device:
+    raise ValueError(f"{NAME}: k_sel on {k_sel.device}, q on {q.device}")
   sel = selected.to(device=q.device, dtype=torch.int32).contiguous()
   f32 = dict(dtype=torch.float32, device=q.device)
   sb = sel_bias.to(**f32).contiguous() if has_dec else None
@@ -81,8 +94,10 @@ def block_gather_attention(
   P = _build.ptr
   err = _build.library().block_gather_launch(
       P(q), P(k), P(v), P(sel), P(k_sel), P(v_sel), P(sb), P(extras_k),
-      P(extras_v), P(eb), P(o), P(m), P(l), B, Hkv, G, S, D, C, I, E,
-      float(sm_scale), float(cap or 0.0), code, _build.stream_ptr(q))
+      P(extras_v), P(eb), P(kq), P(vq), P(o), P(m), P(l), B, Hkv, G, S, D,
+      C, I, E, float(sm_scale), float(cap or 0.0), code, storage, dec,
+      _build.stream_ptr(q))
   _build.check(err, NAME)
-  _build.LAUNCHES[NAME] += 1
+  _build.LAUNCHES[_build.branch(
+      NAME, qt.kind_of(k.dtype) if quantized else "none")] += 1
   return o, m, l

@@ -16,6 +16,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -25,6 +26,12 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+// Quantized storage (the synopsis arena's int8 / fp8-e4m3 codes): the raw
+// code as f32; its scale is applied by the caller.
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
+__device__ __forceinline__ float to_f(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
+}
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -33,6 +40,40 @@ __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's .to()
+}
+
+// Quantized storage types and their encode, as in repro_torch/kernels/
+// quant.py: y is already x * inv with inv = 1 / scale (IEEE-rounded, so the
+// library is built without --use_fast_math); int8 rounds half to even and
+// clips to +-127, fp8 clips to +-448 and rounds to nearest even.
+template <typename Q>
+struct Quant {  // f32 / bf16: stored as they are
+  static constexpr bool enabled = false;
+  static constexpr float qmax = 1.f;
+};
+template <>
+struct Quant<int8_t> {
+  static constexpr bool enabled = true;
+  static constexpr float qmax = 127.f;
+  __device__ static int8_t encode(float y) {
+    return (int8_t)fminf(fmaxf(rintf(y), -127.f), 127.f);
+  }
+};
+template <>
+struct Quant<__nv_fp8_e4m3> {
+  static constexpr bool enabled = true;
+  static constexpr float qmax = 448.f;
+  __device__ static __nv_fp8_e4m3 encode(float y) {
+    __nv_fp8_e4m3 r;
+    r.__x = __nv_cvt_float_to_fp8(fminf(fmaxf(y, -448.f), 448.f),
+                                  __NV_SATFINITE, __NV_E4M3);
+    return r;
+  }
+};
+
+// The reciprocal of a block's scale, 0 for an all-zero block.
+__device__ __forceinline__ float inv_scale(float scale) {
+  return scale > 0.f ? 1.0f / fmaxf(scale, 1e-30f) : 0.f;
 }
 
 // cap <= 0 means "no softcap".
@@ -112,8 +153,12 @@ __device__ inline void load_tile(SoftmaxSmem s, const T* k, const T* v,
 
 // p[r, j] = q[r] . k[j] * sm_scale for the R x TM tile (rows j >= n are
 // left unused).  One warp covers one query row, one lane one key row.
+// With quantized keys, k_scale[j * scale_stride] (stride 0: one scale for
+// the whole tile) multiplies the raw logit before sm_scale.
 __device__ inline void tile_logits(SoftmaxSmem s, int R, int n, int D,
-                                   float sm_scale) {
+                                   float sm_scale,
+                                   const float* k_scale = nullptr,
+                                   int scale_stride = 1) {
   for (int i = threadIdx.x; i < R * TM; i += blockDim.x) {
     int r = i / TM, j = i % TM;
     if (j < n) {
@@ -121,6 +166,7 @@ __device__ inline void tile_logits(SoftmaxSmem s, int R, int n, int D,
       const float* kj = s.k + (size_t)j * (D + 1);
       float acc = 0.f;
       for (int d = 0; d < D; ++d) acc = fmaf(qr[d], kj[d], acc);
+      if (k_scale != nullptr) acc *= k_scale[j * scale_stride];
       s.p[i] = acc * sm_scale;
     }
   }
@@ -128,10 +174,13 @@ __device__ inline void tile_logits(SoftmaxSmem s, int R, int n, int D,
 
 // One online-softmax step over the first n rows of the staged tile with
 // the logits in s.p, accumulated with weight `sign` (+1, or -1 for the
-// decremental centroid terms of stage 2).  Syncs internally; on return
-// s.p holds free scratch again.
+// decremental centroid terms of stage 2).  With quantized values,
+// v_scale[j * scale_stride] multiplies p entering p.V, not l.  Syncs
+// internally; on return s.p holds free scratch again.
 __device__ inline void softmax_update(SoftmaxSmem s, int R, int n, int D,
-                                      float sign) {
+                                      float sign,
+                                      const float* v_scale = nullptr,
+                                      int scale_stride = 1) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   __syncthreads();
@@ -141,7 +190,9 @@ __device__ inline void softmax_update(SoftmaxSmem s, int R, int n, int D,
     float m_new = fmaxf(m_prev, warp_max(x));
     float p = lane < n ? expf(x - m_new) : 0.f;
     float psum = warp_sum(p);
-    s.p[r * TM + lane] = p;
+    s.p[r * TM + lane] =
+        (v_scale != nullptr && lane < n) ? p * v_scale[lane * scale_stride]
+                                         : p;
     if (lane == 0) {
       float alpha = expf(m_prev - m_new);
       s.a[r] = alpha;

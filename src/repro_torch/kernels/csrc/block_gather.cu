@@ -4,7 +4,14 @@
 // Replaces: src/repro/kernels/block_gather_attention.py,
 // block_gather_attention (pl.pallas_call at :255, body _kernel at :52),
 // with the decrement (k_sel/v_sel/sel_bias) and extras (recent ring +
-// self-KV) inputs, unquantized.
+// self-KV) inputs, and its quantized branch (`has_kq`, :57, :86-90, :108):
+// int8 / fp8 sorted k / v with one f32 scale per cluster block, read
+// through the same clamped id that picks the block (the Pallas
+// `_scale_index`, :206-209), on the cluster's raw logits and on its p
+// entering p.V; the decrement and the extras take no scale.  Under a
+// quantized synopsis the decrement rows arrive dequantized in f32 while q
+// and the extras keep the compute type, so k_sel / v_sel have a type of
+// their own (TD).
 //
 // What bounds it on the H100: bytes.  Per (b, hkv) it reads I clusters of
 // C rows of K and V (2 * I * C * D elements), I centroid rows and E extras
@@ -24,15 +31,47 @@
 // slice's shape; splitting I across blocks is left to a later change.
 #include "attn_common.cuh"
 
-template <typename T>
-__global__ void block_gather_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const int* __restrict__ selected, const T* __restrict__ k_sel,
-    const T* __restrict__ v_sel, const float* __restrict__ sel_bias,
-    const T* __restrict__ ek, const T* __restrict__ ev,
-    const float* __restrict__ eb, float* __restrict__ o,
-    float* __restrict__ m_out, float* __restrict__ l_out, int Hkv, int G,
-    int S, int D, int C, int I, int E, float sm_scale, float cap) {
+struct GatherArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int* selected;
+  const void* k_sel;
+  const void* v_sel;
+  const float* sel_bias;
+  const void* ek;
+  const void* ev;
+  const float* eb;
+  const float* kv_k_scale;  // (B, Hkv, M) when k / v are quantized
+  const float* kv_v_scale;
+  float* o;
+  float* m;
+  float* l;
+  int B, Hkv, G, S, D, C, I, E;
+  float sm_scale, cap;
+};
+
+// T: q and the extras; TK: the cache (T, int8 or fp8 with scales); TD: the
+// decrement rows (T, or f32 under a quantized synopsis).
+template <typename T, typename TK, typename TD>
+__global__ void block_gather_kernel(GatherArgs a) {
+  const T* __restrict__ q = (const T*)a.q;
+  const TK* __restrict__ k = (const TK*)a.k;
+  const TK* __restrict__ v = (const TK*)a.v;
+  const int* __restrict__ selected = a.selected;
+  const TD* __restrict__ k_sel = (const TD*)a.k_sel;
+  const TD* __restrict__ v_sel = (const TD*)a.v_sel;
+  const float* __restrict__ sel_bias = a.sel_bias;
+  const T* __restrict__ ek = (const T*)a.ek;
+  const T* __restrict__ ev = (const T*)a.ev;
+  const float* __restrict__ eb = a.eb;
+  float* __restrict__ o = a.o;
+  float* __restrict__ m_out = a.m;
+  float* __restrict__ l_out = a.l;
+  const int Hkv = a.Hkv, G = a.G, S = a.S, D = a.D, C = a.C, I = a.I,
+            E = a.E;
+  const float sm_scale = a.sm_scale, cap = a.cap;
+  const int M = S / C;
   extern __shared__ float smem[];
   const int bh = blockIdx.x;  // b * Hkv + h
   const int b = bh / Hkv;
@@ -42,12 +81,18 @@ __global__ void block_gather_kernel(
   for (int i = threadIdx.x; i < G * D; i += blockDim.x) s.q[i] = to_f(qb[i]);
   init_state(s, G, D);
 
-  const T* kb = k + (size_t)bh * S * D;
-  const T* vb = v + (size_t)bh * S * D;
+  const TK* kb = k + (size_t)bh * S * D;
+  const TK* vb = v + (size_t)bh * S * D;
   for (int i = 0; i < I; ++i) {
     const int sel = selected[(size_t)bh * I + i];
     const bool valid = sel >= 0;
-    const size_t row0 = (size_t)(valid ? sel : 0) * C;
+    const int cid = valid ? sel : 0;  // -1 reads cluster 0 (masked)
+    const size_t row0 = (size_t)cid * C;
+    // One scale for the whole cluster block (stride 0), or none.
+    const float* ksc = a.kv_k_scale ? a.kv_k_scale + (size_t)bh * M + cid
+                                    : nullptr;
+    const float* vsc = a.kv_v_scale ? a.kv_v_scale + (size_t)bh * M + cid
+                                    : nullptr;
 
     if (k_sel != nullptr) {  // decrement: this centroid's stage-1 term, -1x
       const size_t ci = (size_t)bh * I + i;
@@ -65,11 +110,11 @@ __global__ void block_gather_kernel(
       const int n = min(TM, C - r0);
       load_tile(s, kb + (row0 + r0) * D, vb + (row0 + r0) * D, n, D, D);
       __syncthreads();
-      tile_logits(s, G, n, D, sm_scale);
+      tile_logits(s, G, n, D, sm_scale, ksc, 0);
       for (int t = threadIdx.x; t < G * TM; t += blockDim.x) {
         if (t % TM < n) s.p[t] = valid ? softcap_f(s.p[t], cap) : NEG_INF_F;
       }
-      softmax_update(s, G, n, D, 1.f);
+      softmax_update(s, G, n, D, 1.f, vsc, 0);
     }
   }
 
@@ -99,36 +144,53 @@ __global__ void block_gather_kernel(
   }
 }
 
-template <typename T>
-static int launch(const void* q, const void* k, const void* v,
-                  const int* selected, const void* k_sel, const void* v_sel,
-                  const float* sel_bias, const void* ek, const void* ev,
-                  const float* eb, float* o, float* m, float* l, int B,
-                  int Hkv, int G, int S, int D, int C, int I, int E,
-                  float sm_scale, float cap, cudaStream_t stream) {
-  const size_t smem = softmax_smem_floats(G, D) * sizeof(float);
-  cudaError_t err = allow_smem(block_gather_kernel<T>, smem);
+template <typename T, typename TK, typename TD>
+static int launch(const GatherArgs& a, cudaStream_t stream) {
+  const size_t smem = softmax_smem_floats(a.G, a.D) * sizeof(float);
+  cudaError_t err = allow_smem(block_gather_kernel<T, TK, TD>, smem);
   if (err != cudaSuccess) return (int)err;
-  block_gather_kernel<T><<<B * Hkv, 128, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, selected, (const T*)k_sel,
-      (const T*)v_sel, sel_bias, (const T*)ek, (const T*)ev, eb, o, m, l, Hkv,
-      G, S, D, C, I, E, sm_scale, cap);
+  block_gather_kernel<T, TK, TD><<<a.B * a.Hkv, 128, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, k_sel, v_sel, extras).
-// k_sel == NULL: no decrement; ek == NULL: no extras.  cap <= 0: no softcap.
+// The decrement rows' type: T's own, or f32 (dec_dtype 0).
+template <typename T, typename TK>
+static int launch_dec(const GatherArgs& a, int dtype, int dec_dtype,
+                      cudaStream_t st) {
+  if (dec_dtype == dtype) return launch<T, TK, T>(a, st);
+  if (dec_dtype == 0) return launch<T, TK, float>(a, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+static int launch_storage(const GatherArgs& a, int dtype, int storage,
+                          int dec_dtype, cudaStream_t st) {
+  if (storage == dtype) return launch_dec<T, T>(a, dtype, dec_dtype, st);
+  if (storage == 2) return launch_dec<T, int8_t>(a, dtype, dec_dtype, st);
+  if (storage == 3)
+    return launch_dec<T, __nv_fp8_e4m3>(a, dtype, dec_dtype, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// dtype: 0 = float32, 1 = bfloat16 (q, extras); storage: k / v's type (0,
+// 1, or 2 = int8, 3 = fp8 with kv_k_scale / kv_v_scale (B, Hkv, M) f32;
+// NULL scales with an unquantized cache); dec_dtype: k_sel / v_sel's type
+// (dtype's, or 0 = float32).  k_sel == NULL: no decrement; ek == NULL: no
+// extras.  cap <= 0: no softcap.
 extern "C" int block_gather_launch(
     const void* q, const void* k, const void* v, const int* selected,
     const void* k_sel, const void* v_sel, const float* sel_bias,
-    const void* ek, const void* ev, const float* eb, float* o, float* m,
-    float* l, int B, int Hkv, int G, int S, int D, int C, int I, int E,
-    float sm_scale, float cap, int dtype, void* stream) {
+    const void* ek, const void* ev, const float* eb, const float* kv_k_scale,
+    const float* kv_v_scale, float* o, float* m, float* l, int B, int Hkv,
+    int G, int S, int D, int C, int I, int E, float sm_scale, float cap,
+    int dtype, int storage, int dec_dtype, void* stream) {
+  const GatherArgs a{q, k, v, selected, k_sel, v_sel, sel_bias, ek, ev, eb,
+                     kv_k_scale, kv_v_scale, o, m, l,
+                     B, Hkv, G, S, D, C, I, E, sm_scale, cap};
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, selected, k_sel, v_sel, sel_bias,
-                                 ek, ev, eb, o, m, l, B, Hkv, G, S, D, C, I,
-                                 E, sm_scale, cap, st);
-  return launch<float>(q, k, v, selected, k_sel, v_sel, sel_bias, ek, ev, eb,
-                       o, m, l, B, Hkv, G, S, D, C, I, E, sm_scale, cap, st);
+    return launch_storage<__nv_bfloat16>(a, dtype, storage, dec_dtype, st);
+  if (dtype == 0) return launch_storage<float>(a, dtype, storage, dec_dtype,
+                                               st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -2,7 +2,11 @@
 // synopsis attention, in one pass over k_syn / v_syn.
 //
 // Replaces: src/repro/kernels/fused_synopsis.py, fused_synopsis_score_attention
-// (pl.pallas_call at :139, body _kernel at :41), unquantized.
+// (pl.pallas_call at :139, body _kernel at :41), with its quantized branch
+// (`has_scale`, :45, :63-66, :85): int8 / fp8 tables with one f32 scale per
+// centroid row, the k-scale on the raw logits before sm_scale, the v-scale
+// on p entering p.V (l unscaled).  The codes widen to f32 as the tile is
+// staged; no dequantized table lands in device memory.
 //
 // What bounds it on the H100: bytes.  Per (b, hkv) the kernel reads M
 // centroid rows of K and V once (2 * M * D elements) and does 4 * G * M * D
@@ -18,11 +22,14 @@
 // with a partials merge is the fix, left to a later change.
 #include "attn_common.cuh"
 
-template <typename T>
+// T: the query's type; TK: the tables' (T, int8 or fp8 with scales).
+template <typename T, typename TK>
 __global__ void fused_synopsis_kernel(const T* __restrict__ q,
-                                      const T* __restrict__ k_syn,
-                                      const T* __restrict__ v_syn,
+                                      const TK* __restrict__ k_syn,
+                                      const TK* __restrict__ v_syn,
                                       const float* __restrict__ cbias,
+                                      const float* __restrict__ k_scale,
+                                      const float* __restrict__ v_scale,
                                       float* __restrict__ scores,
                                       float* __restrict__ o,
                                       float* __restrict__ m_out,
@@ -38,13 +45,14 @@ __global__ void fused_synopsis_kernel(const T* __restrict__ q,
   for (int i = threadIdx.x; i < G * D; i += blockDim.x) s.q[i] = to_f(qb[i]);
   init_state(s, G, D);
 
-  const T* kb = k_syn + (size_t)bh * M * D;
-  const T* vb = v_syn + (size_t)bh * M * D;
+  const TK* kb = k_syn + (size_t)bh * M * D;
+  const TK* vb = v_syn + (size_t)bh * M * D;
   for (int m0 = 0; m0 < M; m0 += TM) {
     const int n = min(TM, M - m0);
+    const size_t sc0 = (size_t)bh * M + m0;  // this tile's first scale
     load_tile(s, kb + (size_t)m0 * D, vb + (size_t)m0 * D, n, D, D);
     __syncthreads();
-    tile_logits(s, G, n, D, sm_scale);
+    tile_logits(s, G, n, D, sm_scale, k_scale ? k_scale + sc0 : nullptr);
     __syncthreads();
     // Use 1: correlation scores, max over the group, uncapped.  Use 2:
     // softcap + log(count) bias, in place, for the softmax update.
@@ -58,7 +66,7 @@ __global__ void fused_synopsis_kernel(const T* __restrict__ q,
       }
       scores[(size_t)bh * M + m0 + j] = best;
     }
-    softmax_update(s, G, n, D, 1.f);
+    softmax_update(s, G, n, D, 1.f, v_scale ? v_scale + sc0 : nullptr);
   }
 
   for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
@@ -71,31 +79,59 @@ __global__ void fused_synopsis_kernel(const T* __restrict__ q,
   }
 }
 
-template <typename T>
+template <typename T, typename TK>
 static int launch(const void* q, const void* k_syn, const void* v_syn,
-                  const float* cbias, float* scores, float* o, float* m,
+                  const float* cbias, const float* k_scale,
+                  const float* v_scale, float* scores, float* o, float* m,
                   float* l, int B, int Hkv, int G, int M, int D,
                   float sm_scale, float cap, cudaStream_t stream) {
   const size_t smem = softmax_smem_floats(G, D) * sizeof(float);
-  cudaError_t err = allow_smem(fused_synopsis_kernel<T>, smem);
+  cudaError_t err = allow_smem(fused_synopsis_kernel<T, TK>, smem);
   if (err != cudaSuccess) return (int)err;
-  fused_synopsis_kernel<T><<<B * Hkv, 128, smem, stream>>>(
-      (const T*)q, (const T*)k_syn, (const T*)v_syn, cbias, scores, o, m, l,
-      Hkv, G, M, D, sm_scale, cap);
+  fused_synopsis_kernel<T, TK><<<B * Hkv, 128, smem, stream>>>(
+      (const T*)q, (const TK*)k_syn, (const TK*)v_syn, cbias, k_scale,
+      v_scale, scores, o, m, l, Hkv, G, M, D, sm_scale, cap);
   return (int)cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k_syn, v_syn); cap <= 0: no softcap.
+// storage: the tables' type, the query's (dtype) or 2 = int8, 3 = fp8.
+template <typename T>
+static int launch_storage(int storage, int dtype, const void* q,
+                          const void* k_syn, const void* v_syn,
+                          const float* cbias, const float* k_scale,
+                          const float* v_scale, float* scores, float* o,
+                          float* m, float* l, int B, int Hkv, int G, int M,
+                          int D, float sm_scale, float cap,
+                          cudaStream_t st) {
+#define FS_ARGS q, k_syn, v_syn, cbias, k_scale, v_scale, scores, o, m, l, \
+                B, Hkv, G, M, D, sm_scale, cap, st
+  if (storage == dtype) return launch<T, T>(FS_ARGS);
+  if (storage == 2) return launch<T, int8_t>(FS_ARGS);
+  if (storage == 3) return launch<T, __nv_fp8_e4m3>(FS_ARGS);
+#undef FS_ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
+// dtype: 0 = float32, 1 = bfloat16 (q); storage: the tables' type (0, 1,
+// or 2 = int8, 3 = fp8 with k_scale / v_scale (B, Hkv, M) f32; NULL scales
+// with unquantized tables); cap <= 0: no softcap.
 extern "C" int fused_synopsis_launch(const void* q, const void* k_syn,
                                      const void* v_syn, const float* cbias,
-                                     float* scores, float* o, float* m,
-                                     float* l, int B, int Hkv, int G, int M,
-                                     int D, float sm_scale, float cap,
-                                     int dtype, void* stream) {
+                                     const float* k_scale,
+                                     const float* v_scale, float* scores,
+                                     float* o, float* m, float* l, int B,
+                                     int Hkv, int G, int M, int D,
+                                     float sm_scale, float cap, int dtype,
+                                     int storage, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k_syn, v_syn, cbias, scores, o, m, l, B,
-                                 Hkv, G, M, D, sm_scale, cap, st);
-  return launch<float>(q, k_syn, v_syn, cbias, scores, o, m, l, B, Hkv, G, M,
-                       D, sm_scale, cap, st);
+    return launch_storage<__nv_bfloat16>(storage, dtype, q, k_syn, v_syn,
+                                         cbias, k_scale, v_scale, scores, o,
+                                         m, l, B, Hkv, G, M, D, sm_scale,
+                                         cap, st);
+  if (dtype == 0)
+    return launch_storage<float>(storage, dtype, q, k_syn, v_syn, cbias,
+                                 k_scale, v_scale, scores, o, m, l, B, Hkv,
+                                 G, M, D, sm_scale, cap, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -6,6 +6,8 @@ One pass over the centroid tables gives both the group-max correlation
 scores that rank clusters for refinement (uncapped: the softcap is
 monotone) and the online-softmax partials over ALL centroids with the
 ``log(count)`` bias; stage 2 subtracts the selected centroids' terms.
+Quantized tables (int8 / fp8 codes) come with one f32 scale per centroid
+row, which the kernel folds into the logits and into p entering p.V.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import quant as qt
 from repro_torch.kernels import ref
 
 NAME = "fused_synopsis_score_attention"
@@ -27,13 +30,16 @@ def fused_synopsis_score_attention(
     *,
     sm_scale: float = 1.0,
     cap: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,   # (B, Hkv, M) f32 per row
+    v_scale: Optional[torch.Tensor] = None,
 ):
   """Returns (scores (B,Hkv,M) f32, (o (B,H,D) f32, m (B,H), l (B,H))).
 
   CPU tensors run the plain version; CUDA tensors launch the kernel."""
   if q.device.type == "cpu":
     return ref.fused_synopsis_score_attention_ref(
-        q, k_syn, v_syn, cbias, sm_scale=sm_scale, cap=cap)
+        q, k_syn, v_syn, cbias, sm_scale=sm_scale, cap=cap, k_scale=k_scale,
+        v_scale=v_scale)
   B, H, D = q.shape
   _, Hkv, M, _ = k_syn.shape
   G = H // Hkv
@@ -42,7 +48,11 @@ def fused_synopsis_score_attention(
     raise ValueError(f"{NAME}: bad shapes q{tuple(q.shape)} "
                      f"k_syn{tuple(k_syn.shape)} v_syn{tuple(v_syn.shape)} "
                      f"cbias{tuple(cbias.shape)}")
-  code = _build.dtype_code(NAME, q, k_syn, v_syn)
+  code = _build.dtype_code(NAME, q)
+  storage = _build.storage_code(NAME, q, k_syn, v_syn)
+  quantized = k_syn.dtype in qt.QDTYPES
+  ks, vs = _build.scale_tensors(NAME, quantized, (B, Hkv, M), q.device,
+                                k_scale, v_scale)
   cbias = cbias.to(device=q.device, dtype=torch.float32).contiguous()
   f32 = dict(dtype=torch.float32, device=q.device)
   scores = torch.empty((B, Hkv, M), **f32)
@@ -51,9 +61,10 @@ def fused_synopsis_score_attention(
   l = torch.empty((B, H), **f32)
   P = _build.ptr
   err = _build.library().fused_synopsis_launch(
-      P(q), P(k_syn), P(v_syn), P(cbias), P(scores), P(o), P(m), P(l),
-      B, Hkv, G, M, D, float(sm_scale), float(cap or 0.0), code,
-      _build.stream_ptr(q))
+      P(q), P(k_syn), P(v_syn), P(cbias), P(ks), P(vs), P(scores), P(o),
+      P(m), P(l), B, Hkv, G, M, D, float(sm_scale), float(cap or 0.0), code,
+      storage, _build.stream_ptr(q))
   _build.check(err, NAME)
-  _build.LAUNCHES[NAME] += 1
+  _build.LAUNCHES[_build.branch(
+      NAME, qt.kind_of(k_syn.dtype) if quantized else "none")] += 1
   return scores, (o, m, l)

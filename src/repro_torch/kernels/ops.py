@@ -1,5 +1,4 @@
-"""Public ops over the port's kernels (counterpart of ``repro.kernels.ops``,
-unquantized).
+"""Public ops over the port's kernels (counterpart of ``repro.kernels.ops``).
 
 There is no ``impl`` switch: each kernel wrapper launches its CUDA kernel
 on CUDA tensors and runs its plain PyTorch version on CPU tensors, so the
@@ -21,6 +20,14 @@ masked decode over the centroids, block gather, merge) as the paper-algebra
 oracle and the baseline the fused pipeline is measured against;
 :func:`synopsis_attention_fused` is the fused pipeline under the same
 contract.
+
+Quantized arenas (``kernels/quant.py``): :func:`synopsis_build` with a
+``qconfig`` spec returns the arena dict with int8 / fp8 tables and their
+scales; the decode ops take the four scale tensors, which ride into the
+kernels (stage 1: per centroid row; stage 2: per cluster block).  The I
+gathered centroid rows of stage 2's decrement are dequantized to f32 here,
+outside the kernel.  All-``None`` scales are the unquantized path, bit for
+bit.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import quant as qt
 from repro_torch.kernels import ref
 from repro_torch.kernels.block_gather_attention import block_gather_attention
 from repro_torch.kernels.flash_decode import flash_decode
@@ -51,42 +59,70 @@ def prefill_attention(q, k, v, *, sm_scale: float = 1.0) -> torch.Tensor:
                        sm_scale=sm_scale)
 
 
-def synopsis_build(k, v, perm, *, cluster_size: int):
+def synopsis_build(k, v, perm, *, cluster_size: int,
+                   qconfig: Optional[str] = None):
   """Permute the cache cluster-contiguous and aggregate mean centroids in
-  one pass: (k_sorted, v_sorted, k_syn, v_syn, counts (N, M))."""
+  one pass: (k_sorted, v_sorted, k_syn, v_syn, counts (N, M)), or, with a
+  quantizing ``qconfig`` spec, the arena dict with the quantized tables
+  and their scales, from the same pass."""
+  qc = qt.parse_qconfig(qconfig)
   return segment_build(k.contiguous(), v.contiguous(), perm,
-                       cluster_size=cluster_size)
+                       cluster_size=cluster_size,
+                       quant=qc.spec if qc.enabled else None)
 
 
-def synopsis_stage1(q, k_syn, v_syn, counts, *, sm_scale: float):
+ScalePair = Optional[Tuple[torch.Tensor, torch.Tensor]]
+
+
+def synopsis_stage1(q, k_syn, v_syn, counts, *, sm_scale: float,
+                    syn_scales: ScalePair = None):
   """One pass over the synopsis: (scores (B,Hkv,M), partials over ALL
-  centroids with log-count bias)."""
+  centroids with log-count bias).  ``syn_scales`` = (k_syn_scale,
+  v_syn_scale) (B, Hkv, M) when the synopsis is quantized."""
+  ks, vs = syn_scales if syn_scales is not None else (None, None)
   return fused_synopsis_score_attention(
       q.contiguous(), k_syn.contiguous(), v_syn.contiguous(),
-      count_bias(counts), sm_scale=sm_scale)
+      count_bias(counts), sm_scale=sm_scale, k_scale=ks, v_scale=vs)
 
 
 def refine_stage2(q, k, v, selected, k_syn, v_syn, counts, *,
                   cluster_size: int, sm_scale: float,
                   extras: Optional[Tuple[torch.Tensor, torch.Tensor,
-                                         torch.Tensor]] = None):
+                                         torch.Tensor]] = None,
+                  syn_scales: ScalePair = None, kv_scales: ScalePair = None):
   """Selected clusters' original tokens (+), their centroid stage-1 terms
   (-), and the recent/self extras (+) — one fused partial.  The I centroid
-  rows of the decrement are gathered here (tiny: I rows, not I*C)."""
+  rows of the decrement are gathered here (tiny: I rows, not I*C), and
+  dequantized to f32 under ``syn_scales``; ``kv_scales`` = (k_scale,
+  v_scale) (B, Hkv, M) ride into the kernel with a quantized cache."""
   B, Hkv, _, D = k.shape
   safe = selected.long().clamp_min(0)                         # (B,Hkv,I)
-  k_sel = torch.gather(k_syn, 2, safe[..., None].expand(-1, -1, -1, D))
-  v_sel = torch.gather(v_syn, 2, safe[..., None].expand(-1, -1, -1, D))
+  rows = safe[..., None].expand(-1, -1, -1, D)
+  k_sel = qt.gather_rows(k_syn, 2, rows)
+  v_sel = qt.gather_rows(v_syn, 2, rows)
+  if syn_scales is not None:
+    ks, vs = syn_scales
+    k_sel = k_sel.float() * torch.gather(ks.float(), 2, safe)[..., None]
+    v_sel = v_sel.float() * torch.gather(vs.float(), 2, safe)[..., None]
   cb = count_bias(counts)                                     # (B, M)
   sel_bias = torch.gather(cb[:, None, :].expand(B, Hkv, cb.shape[-1]), 2,
                           safe)
   ek, ev, eb = extras if extras is not None else (None, None, None)
+  kq, vq = kv_scales if kv_scales is not None else (None, None)
   return block_gather_attention(
       q.contiguous(), k.contiguous(), v.contiguous(), selected,
       cluster_size=cluster_size, sm_scale=sm_scale, k_sel=k_sel,
       v_sel=v_sel, sel_bias=sel_bias,
       extras_k=None if ek is None else ek.contiguous(),
-      extras_v=None if ev is None else ev.contiguous(), extras_bias=eb)
+      extras_v=None if ev is None else ev.contiguous(), extras_bias=eb,
+      kv_k_scale=kq, kv_v_scale=vq)
+
+
+def _pairs(k_syn_scale, v_syn_scale, kv_k_scale, kv_v_scale):
+  """The four scale tensors -> (syn_scales, kv_scales), None where absent."""
+  syn = None if k_syn_scale is None else (k_syn_scale, v_syn_scale)
+  kv = None if kv_k_scale is None else (kv_k_scale, kv_v_scale)
+  return syn, kv
 
 
 def build_extras(recent_k=None, recent_v=None, recent_len=None,
@@ -134,17 +170,24 @@ def synopsis_cache_attention(
     recent_len: Optional[torch.Tensor] = None,  # (B,)
     self_k: Optional[torch.Tensor] = None,      # (B, Hkv, 1, D)
     self_v: Optional[torch.Tensor] = None,
+    k_syn_scale: Optional[torch.Tensor] = None,  # (B, Hkv, M): quantized
+    v_syn_scale: Optional[torch.Tensor] = None,  # synopsis
+    kv_k_scale: Optional[torch.Tensor] = None,   # (B, Hkv, M): quantized
+    kv_v_scale: Optional[torch.Tensor] = None,   # sorted KV
     *,
     i_max: int,
     cluster_size: int,
     sm_scale: float = 1.0,
 ) -> torch.Tensor:
   """End-to-end fused AccuracyTrader decode attention over a serve-step
-  cache slice; returns the normalised output (B, H, D) f32."""
+  cache slice; returns the normalised output (B, H, D) f32.  All-None
+  scales keep the unquantized path."""
   B = q.shape[0]
   Hkv, M = k_syn.shape[1], k_syn.shape[2]
+  syn_scales, kv_scales = _pairs(k_syn_scale, v_syn_scale, kv_k_scale,
+                                 kv_v_scale)
   scores, p_syn = synopsis_stage1(q, k_syn, v_syn, counts,
-                                  sm_scale=sm_scale)
+                                  sm_scale=sm_scale, syn_scales=syn_scales)
   if i_max > 0:
     selected = torch.topk(scores, min(i_max, M), dim=-1).indices
     selected = selected.to(torch.int32)
@@ -155,24 +198,30 @@ def synopsis_cache_attention(
   extras = build_extras(recent_k, recent_v, recent_len, self_kv)
   p_ref = refine_stage2(q, k, v, selected, k_syn, v_syn, counts,
                         cluster_size=cluster_size, sm_scale=sm_scale,
-                        extras=extras)
+                        extras=extras, syn_scales=syn_scales,
+                        kv_scales=kv_scales)
   out, _, _ = merge_partials(p_syn, p_ref)
   return out
 
 
-def synopsis_attention_fused(q, k, v, k_syn, v_syn, counts, *, i_max: int,
-                             sm_scale: float = 1.0,
+def synopsis_attention_fused(q, k, v, k_syn, v_syn, counts,
+                             k_syn_scale=None, v_syn_scale=None,
+                             kv_k_scale=None, kv_v_scale=None, *,
+                             i_max: int, sm_scale: float = 1.0,
                              return_diag: bool = False):
   """Fused drop-in for :func:`synopsis_attention` (same contract): one
   synopsis pass + decremental refinement instead of score + masked decode
-  + gather + merge."""
+  + gather + merge.  The scales (quantized arena) are optional."""
   M = k_syn.shape[2]
+  syn_scales, kv_scales = _pairs(k_syn_scale, v_syn_scale, kv_k_scale,
+                                 kv_v_scale)
   scores, p_syn = synopsis_stage1(q, k_syn, v_syn, counts,
-                                  sm_scale=sm_scale)
+                                  sm_scale=sm_scale, syn_scales=syn_scales)
   selected = torch.topk(scores, min(i_max, M), dim=-1).indices
   selected = selected.to(torch.int32)
   p_ref = refine_stage2(q, k, v, selected, k_syn, v_syn, counts,
-                        cluster_size=k.shape[2] // M, sm_scale=sm_scale)
+                        cluster_size=k.shape[2] // M, sm_scale=sm_scale,
+                        syn_scales=syn_scales, kv_scales=kv_scales)
   out, m, l = merge_partials(p_syn, p_ref)
   if return_diag:
     return out, (scores, selected, m, l)

@@ -17,6 +17,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import quant as qt
+
 Partials = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 NEG_INF = -1e30
@@ -86,6 +88,39 @@ def synopsis_build_ref(
   return k_sorted, v_sorted, k_syn, v_syn, counts
 
 
+def synopsis_build_quant_ref(
+    k: torch.Tensor,             # (N, Hkv, S, D)
+    v: torch.Tensor,             # (N, Hkv, S, D)
+    perm: torch.Tensor,          # (N, S) int cluster-contiguous permutation
+    *,
+    cluster_size: int,
+    qc: qt.QuantConfig,          # with qc.enabled
+):
+  """The quantized build: the same permute and segment mean, with the
+  centroids quantized from their *f32* means (one scale per centroid row)
+  and, under ``qc.sorted_kv``, the sorted cache quantized per C-row cluster
+  block.  Returns the arena dict {k, v, k_syn, v_syn, counts, k_syn_scale,
+  v_syn_scale[, k_scale, v_scale]}."""
+  N, Hkv, S, D = k.shape
+  C = cluster_size
+  M = S // C
+  idx = perm.long()[:, None, :, None].expand(N, Hkv, S, D)
+  k_sorted = torch.gather(k, 2, idx)
+  v_sorted = torch.gather(v, 2, idx)
+  k_mean = k_sorted.float().reshape(N, Hkv, M, C, D).mean(3)
+  v_mean = v_sorted.float().reshape(N, Hkv, M, C, D).mean(3)
+  out = {"counts": torch.full((N, M), float(C), dtype=torch.float32,
+                              device=k.device)}
+  out["k_syn"], out["k_syn_scale"] = qt.quantize_rows(k_mean, qc.kind)
+  out["v_syn"], out["v_syn_scale"] = qt.quantize_rows(v_mean, qc.kind)
+  if qc.sorted_kv:
+    out["k"], out["k_scale"] = qt.quantize_rows(k_sorted, qc.kind, block=C)
+    out["v"], out["v_scale"] = qt.quantize_rows(v_sorted, qc.kind, block=C)
+  else:
+    out["k"], out["v"] = k_sorted, v_sorted
+  return out
+
+
 def fused_synopsis_score_attention_ref(
     q: torch.Tensor,             # (B, H, D)
     k_syn: torch.Tensor,         # (B, Hkv, M, D)
@@ -94,20 +129,30 @@ def fused_synopsis_score_attention_ref(
     *,
     sm_scale: float = 1.0,
     cap: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,      # (B, Hkv, M) f32
+    v_scale: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Partials]:
   """Centroid logits computed once and used twice: the group-max scores
-  (uncapped) and the count-biased stage-1 partials over ALL centroids."""
+  (uncapped) and the count-biased stage-1 partials over ALL centroids.
+
+  With ``k_scale``/``v_scale`` the tables hold quantized codes: the
+  k-scale multiplies the raw logits before ``sm_scale``, the v-scale the
+  weights ``p`` entering p.V (``l`` stays unscaled)."""
   B, H, D = q.shape
   _, Hkv, M, _ = k_syn.shape
   G = H // Hkv
   qg = q.reshape(B, Hkv, G, D).float()
-  raw = torch.einsum("bhgd,bhmd->bhgm", qg, k_syn.float()) * sm_scale
+  raw = torch.einsum("bhgd,bhmd->bhgm", qg, k_syn.float())
+  if k_scale is not None:
+    raw = raw * k_scale[:, :, None, :].float()
+  raw = raw * sm_scale
   scores = raw.amax(dim=2)                                    # (B, Hkv, M)
   logits = apply_softcap(raw, cap) + cbias[:, None, None, :].float()
   m = logits.amax(dim=-1).clamp_min(NEG_INF)
   p = torch.exp(logits - m[..., None])
   l = p.sum(-1)
-  out = torch.einsum("bhgs,bhsd->bhgd", p, v_syn.float())
+  pv = p if v_scale is None else p * v_scale[:, :, None, :].float()
+  out = torch.einsum("bhgs,bhsd->bhgd", pv, v_syn.float())
   out = out / l.clamp_min(1e-30)[..., None]
   return scores, (out.reshape(B, H, D), m.reshape(B, H), l.reshape(B, H))
 
@@ -127,11 +172,18 @@ def fused_gather_attention_ref(
     extras_k: Optional[torch.Tensor] = None,     # (B, Hkv, E, D)
     extras_v: Optional[torch.Tensor] = None,
     extras_bias: Optional[torch.Tensor] = None,  # (B, E)
+    kv_k_scale: Optional[torch.Tensor] = None,   # (B, Hkv, M) f32
+    kv_v_scale: Optional[torch.Tensor] = None,
 ) -> Partials:
   """Stage 2 in one signed softmax accumulation: the selected clusters'
   tokens (+), their centroid stage-1 terms (-, decremental masking) and
   the recent/self extras (+).  The flush divides by ``l`` only where
-  ``|l| > 1e-30`` (``l`` may cancel or go negative)."""
+  ``|l| > 1e-30`` (``l`` may cancel or go negative).
+
+  With ``kv_k_scale``/``kv_v_scale`` k/v hold the quantized sorted arena:
+  each selected cluster's scale (read through the clamped id) multiplies
+  its raw logits and its value rows; the decrement and the extras take no
+  scale."""
   B, H, D = q.shape
   _, Hkv, S, _ = k.shape
   C = cluster_size
@@ -141,12 +193,19 @@ def fused_gather_attention_ref(
   starts = selected.clamp_min(0) * C                          # (B,Hkv,I)
   idx = (starts[..., None] + torch.arange(C, device=q.device)).reshape(
       B, Hkv, -1)
-  kg = torch.gather(k, 2, idx[..., None].expand(-1, -1, -1, D))
-  vg = torch.gather(v, 2, idx[..., None].expand(-1, -1, -1, D))
+  kg = qt.gather_rows(k, 2, idx[..., None].expand(-1, -1, -1, D))
+  vg = qt.gather_rows(v, 2, idx[..., None].expand(-1, -1, -1, D))
   valid = torch.repeat_interleave(selected >= 0, C, dim=-1)   # (B,Hkv,I*C)
   neg = torch.tensor(NEG_INF, dtype=torch.float32, device=q.device)
-  lt = apply_softcap(torch.einsum("bhgd,bhsd->bhgs", qg, kg.float())
-                     * sm_scale, cap)
+  raw = torch.einsum("bhgd,bhsd->bhgs", qg, kg.float())
+  safe = selected.clamp_min(0)
+  if kv_k_scale is not None:
+    ksc = torch.gather(kv_k_scale.float(), 2, safe)           # (B,Hkv,I)
+    raw = raw * torch.repeat_interleave(ksc, C, dim=-1)[:, :, None, :]
+  if kv_v_scale is not None:
+    vsc = torch.gather(kv_v_scale.float(), 2, safe)
+    vg = vg.float() * torch.repeat_interleave(vsc, C, dim=-1)[..., None]
+  lt = apply_softcap(raw * sm_scale, cap)
   lt = torch.where(valid[:, :, None, :], lt, neg)
 
   pieces = [(lt, vg, 1.0)]

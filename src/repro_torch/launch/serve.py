@@ -5,11 +5,14 @@ Each decode step picks its refinement budget from the calibrated latency
 model and the deadline; new tokens accumulate in the recent ring and are
 absorbed into the synopsis when it fills (the paper's incremental update).
 ``--mode exact`` is the paper's exact baseline: prefill, then every step
-attends over the whole prompt cache (no build, budget 0 recorded).  All
-stages run on the port's kernels when the device is a GPU.
+attends over the whole prompt cache (no build, budget 0 recorded).
+``--quant`` stores the synopsis arena quantized (int8 / fp8 centroids with
+per-row scales; the ``+kv`` specs also the sorted cache, per cluster
+block).  All stages run on the port's kernels when the device is a GPU.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
-      --no-smoke --prompt-len 8192 --tokens 130 [--mode exact]
+      --no-smoke --prompt-len 8192 --tokens 130 [--mode exact] \\
+      [--quant {none,int8,fp8,int8+kv,fp8+kv}]
 
 ``--device cpu`` runs the plain PyTorch versions of the kernels (tests);
 without it the driver needs a CUDA device and refuses to run otherwise.
@@ -17,6 +20,7 @@ without it the driver needs a CUDA device and refuses to run otherwise.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Dict, Optional, Sequence
 
@@ -25,6 +29,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.registry import get_config, list_archs
 from repro_torch.control import BudgetController, make_predictor
+from repro_torch.kernels import quant as qt
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import ModelConfig
 from repro_torch.serve import synopsis_kv as skv
@@ -32,6 +37,16 @@ from repro_torch.serve.prefill import make_prefill_step
 from repro_torch.serve.serve_step import make_serve_step
 
 BUCKETS = (0, 1, 2, 4, 8, 16, 32)
+
+
+def apply_quant(cfg: ModelConfig, quant: str) -> ModelConfig:
+  """The config with the synopsis arena's quant spec swapped in; "none"
+  returns ``cfg`` unchanged (the unquantized path)."""
+  qc = qt.parse_qconfig(quant)
+  if not qc.enabled:
+    return cfg
+  return dataclasses.replace(
+      cfg, synopsis=dataclasses.replace(cfg.synopsis, quant=qc.spec))
 
 
 def _sync(device: torch.device) -> None:
@@ -52,6 +67,9 @@ def run(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int,
   deadline controller (parity tests); ``pca_basis`` is the clustering's
   PCA start (``core.cluster.initial_basis``).
 
+  ``cfg.synopsis.quant`` selects the quantized synopsis arena
+  (:func:`apply_quant`); exact mode builds no arena and refuses it.
+
   ``mode="exact"`` skips the build and the controller and records budget
   0 for every step.  Like the JAX loop it only advances ``pos``: the new
   tokens' KV is never appended, so every exact step attends over the
@@ -66,6 +84,9 @@ def run(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int,
   if mode == "exact" and budgets is not None:
     raise ValueError("budgets fix the synopsis refinement; exact mode "
                      "has none")
+  if mode == "exact" and qt.parse_qconfig(cfg.synopsis.quant).enabled:
+    raise ValueError("quant sets the synopsis arena; exact mode builds "
+                     "none")
   dev = resolve_device(device)
   gen = torch.Generator(dev).manual_seed(seed)
   if params is None:
@@ -94,7 +115,7 @@ def run(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int,
     M = cache["k_syn"].shape[4]
     log(f"[prefill+build] {tuple(prompt.shape)} tokens: prefill "
         f"{prefill_ms:.1f}ms, build {build_ms:.1f}ms; M={M} clusters of "
-        f"C={cfg.synopsis.cluster_size}")
+        f"C={cfg.synopsis.cluster_size}, quant={cfg.synopsis.quant}")
 
   ctrl = BudgetController(
       make_predictor("affine", base=5.0, slope=1.0, alpha=0.1),
@@ -152,6 +173,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                   choices=["exact", "synopsis"],
                   help="synopsis: AccuracyTrader decode; exact: the exact "
                        "baseline over the whole cache")
+  ap.add_argument("--quant", default="none", choices=list(qt.QSPECS),
+                  help="quantize the synopsis arena: int8/fp8 centroids "
+                       "with per-centroid scales; the '+kv' specs also the "
+                       "sorted cache with per-cluster-block scales (synopsis "
+                       "mode only)")
   ap.add_argument("--deadline-ms", type=float, default=50.0)
   ap.add_argument("--budget", type=int, default=None,
                   help="fix every step's refinement budget (clusters) "
@@ -167,7 +193,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     ap.error(str(e))
   if args.mode == "exact" and args.budget is not None:
     ap.error("--budget sets the synopsis refinement; --mode exact has none")
-  cfg = get_config(args.arch, smoke=args.smoke)
+  if args.mode == "exact" and args.quant != "none":
+    ap.error("--quant sets the synopsis arena; --mode exact builds none")
+  cfg = apply_quant(get_config(args.arch, smoke=args.smoke), args.quant)
   budgets = None if args.budget is None else [args.budget] * args.tokens
   return run(cfg, batch=args.batch, prompt_len=args.prompt_len,
              tokens=args.tokens, deadline_ms=args.deadline_ms,

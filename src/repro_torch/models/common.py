@@ -20,6 +20,9 @@ class SynopsisConfig:
   cluster_size: int = 128         # C: original tokens per aggregated point
   i_max: int = 32                 # default refinement budget (clusters)
   recent: int = 128               # exact-attention ring buffer (new tokens)
+  # Synopsis arena quantization (kernels/quant.py): "none" | "int8" | "fp8"
+  # | "int8+kv" | "fp8+kv"; "none" is the unquantized path, bit for bit.
+  quant: str = "none"
 
 
 @dataclasses.dataclass(frozen=True)

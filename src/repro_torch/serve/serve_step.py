@@ -12,8 +12,10 @@ token's self-KV folded in, one merge.
 ``k``/``v``; ``flash_decode`` runs over all of it and once more over the
 new token's self-KV (S = 1), and the two partials merge.
 
-The cache is read-only inside the step; the new token's per-layer KV comes
-back as ``k_delta``/``v_delta`` for the loop to append.
+A quantized arena's scale leaves (``kernels/quant.py``) ride in the layer
+slice when the cache has them.  The cache is read-only inside the step;
+the new token's per-layer KV comes back as ``k_delta``/``v_delta`` for the
+loop to append.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels import quant as qt
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import ModelConfig
@@ -47,8 +50,9 @@ def synopsis_decode_attention(
   return ops.synopsis_cache_attention(
       q, cache["k"], cache["v"], cache["k_syn"], cache["v_syn"],
       cache["counts"], cache.get("recent_k"), cache.get("recent_v"),
-      cache.get("recent_len"), self_k, self_v, i_max=i_max,
-      cluster_size=cluster_size, sm_scale=sm_scale)
+      cache.get("recent_len"), self_k, self_v, cache.get("k_syn_scale"),
+      cache.get("v_syn_scale"), cache.get("k_scale"), cache.get("v_scale"),
+      i_max=i_max, cluster_size=cluster_size, sm_scale=sm_scale)
 
 
 def exact_decode_attention(
@@ -111,6 +115,8 @@ def make_serve_step(cfg: ModelConfig, *, mode: str = "synopsis",
         layer_cache = {kk: cache[kk][b, i] for kk in leaves}
         if mode == "synopsis":
           layer_cache["recent_len"] = cache["recent_len"]
+          layer_cache.update((kk, cache[kk][b, i])
+                             for kk in qt.SCALE_LEAVES if kk in cache)
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         mix, (kd, vd) = _attn_decode_layer(h, lp["attn"], cfg, layer_cache,
                                            pos, mode, i_max)

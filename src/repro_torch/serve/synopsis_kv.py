@@ -12,6 +12,11 @@
 * :func:`absorb_recent`: the paper's "situation 1" update — the full ring
   becomes R/C new clusters appended to the originals and centroid tables,
   through the same kernel with the identity permutation.
+
+Under ``cfg.synopsis.quant`` (``kernels/quant.py``) the build and the
+absorb emit the quantized tables and the scale leaves (nb, na, B, Hkv, M)
+f32; under ``+kv`` the sorted cache, and the ring rows appended to it, are
+quantized codes too.
 """
 from __future__ import annotations
 
@@ -21,7 +26,19 @@ import torch
 
 from repro_torch.core import cluster as cl
 from repro_torch.kernels import ops
+from repro_torch.kernels import quant as qt
 from repro_torch.models.common import ModelConfig
+
+
+def _build_arena(k, v, perm, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+  """``ops.synopsis_build`` under the config's quant spec, as a dict with
+  the arena's leaf names (flat (N, ...) shapes)."""
+  built = ops.synopsis_build(k, v, perm,
+                             cluster_size=cfg.synopsis.cluster_size,
+                             qconfig=cfg.synopsis.quant)
+  if isinstance(built, dict):
+    return built
+  return dict(zip(("k", "v", "k_syn", "v_syn", "counts"), built))
 
 
 def cluster_perms(k: torch.Tensor, num_clusters: int, *,
@@ -49,20 +66,23 @@ def build(cache: Dict[str, torch.Tensor], cfg: ModelConfig, *,
   k = k.reshape(N, Hkv, S, D)
   v = v.reshape(N, Hkv, S, D)
   perms = cluster_perms(k, M, basis=basis)
-  k_sorted, v_sorted, k_syn, v_syn, counts = ops.synopsis_build(
-      k, v, perms, cluster_size=C)
+  built = _build_arena(k, v, perms, cfg)
   R = cfg.synopsis.recent
-  return {
-      "k": k_sorted.reshape(nb, na, B, Hkv, S, D),
-      "v": v_sorted.reshape(nb, na, B, Hkv, S, D),
-      "k_syn": k_syn.reshape(nb, na, B, Hkv, M, D),
-      "v_syn": v_syn.reshape(nb, na, B, Hkv, M, D),
-      "counts": counts.reshape(nb, na, B, M),
+  out = {
+      "k": built["k"].reshape(nb, na, B, Hkv, S, D),
+      "v": built["v"].reshape(nb, na, B, Hkv, S, D),
+      "k_syn": built["k_syn"].reshape(nb, na, B, Hkv, M, D),
+      "v_syn": built["v_syn"].reshape(nb, na, B, Hkv, M, D),
+      "counts": built["counts"].reshape(nb, na, B, M),
       "recent_k": k.new_zeros((nb, na, B, Hkv, R, D)),
       "recent_v": v.new_zeros((nb, na, B, Hkv, R, D)),
       "recent_len": torch.zeros((B,), dtype=torch.int32, device=k.device),
       "pos": cache["pos"],
   }
+  for name in qt.SCALE_LEAVES:
+    if name in built:
+      out[name] = built[name].reshape(nb, na, B, Hkv, M)
+  return out
 
 
 def append_recent(cache: Dict[str, torch.Tensor], k_delta, v_delta):
@@ -82,7 +102,10 @@ def absorb_recent(cache: Dict[str, torch.Tensor],
                   cfg: ModelConfig) -> Dict[str, torch.Tensor]:
   """Ring tokens -> R/C new clusters appended to the originals and the
   centroid tables (the ring is time-contiguous, so the permutation is the
-  identity); the ring resets.  Returns a new cache dict."""
+  identity); the ring resets.  The rows appended to the cache are the
+  build's sorted output: the ring itself, or its codes under ``+kv``, whose
+  scales extend the scale leaves with the centroids'.  Returns a new cache
+  dict."""
   rk, rv = cache["recent_k"], cache["recent_v"]
   nb, na, B, Hkv, R, D = rk.shape
   C = cfg.synopsis.cluster_size
@@ -91,21 +114,25 @@ def absorb_recent(cache: Dict[str, torch.Tensor],
   newM = R // C
   N = nb * na * B
   ident = torch.arange(R, dtype=torch.int32, device=rk.device).expand(N, R)
-  _, _, k_new, v_new, cnt_new = ops.synopsis_build(
-      rk.reshape(N, Hkv, R, D), rv.reshape(N, Hkv, R, D), ident,
-      cluster_size=C)
+  built = _build_arena(rk.reshape(N, Hkv, R, D), rv.reshape(N, Hkv, R, D),
+                       ident, cfg)
   cat = torch.cat
-  return {
+  out = {
       **cache,
-      "k": cat([cache["k"], rk], dim=4),
-      "v": cat([cache["v"], rv], dim=4),
+      "k": cat([cache["k"], built["k"].reshape(nb, na, B, Hkv, R, D)], dim=4),
+      "v": cat([cache["v"], built["v"].reshape(nb, na, B, Hkv, R, D)], dim=4),
       "k_syn": cat([cache["k_syn"],
-                    k_new.reshape(nb, na, B, Hkv, newM, D)], dim=4),
+                    built["k_syn"].reshape(nb, na, B, Hkv, newM, D)], dim=4),
       "v_syn": cat([cache["v_syn"],
-                    v_new.reshape(nb, na, B, Hkv, newM, D)], dim=4),
+                    built["v_syn"].reshape(nb, na, B, Hkv, newM, D)], dim=4),
       "counts": cat([cache["counts"],
-                     cnt_new.reshape(nb, na, B, newM)], dim=3),
+                     built["counts"].reshape(nb, na, B, newM)], dim=3),
       "recent_k": torch.zeros_like(rk),
       "recent_v": torch.zeros_like(rv),
       "recent_len": torch.zeros_like(cache["recent_len"]),
   }
+  for name in qt.SCALE_LEAVES:
+    if name in cache:
+      out[name] = cat([cache[name],
+                       built[name].reshape(nb, na, B, Hkv, newM)], dim=4)
+  return out

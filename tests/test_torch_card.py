@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import quant as qt
 from repro_torch.kernels.block_gather_attention import block_gather_attention
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.flash_prefill import flash_prefill
@@ -356,3 +357,226 @@ def test_card_synopsis_cache_attention_full_budget_is_exact(cuda):
   vals = torch.cat([v, rv[:, :, :37], sv], dim=2)
   _close(got, ref.exact_attention_ref(q, keys, vals, sm_scale=D ** -0.5),
          TOL[torch.float32])
+
+
+# ---------------------------------------------------------------------------
+# The quantized branches (int8 / fp8 arena) against their plain versions
+# ---------------------------------------------------------------------------
+
+QSPECS = ("int8", "fp8", "int8+kv", "fp8+kv")
+
+
+def _steps(x):
+  """Codes as ordered integers (fp8 by sign and magnitude bits), so that
+  neighbouring codes differ by 1."""
+  if x.dtype == torch.int8:
+    return x.cpu().long()
+  bits = x.view(torch.uint8).cpu().long()
+  return torch.where(bits >= 128, -(bits & 0x7F), bits)
+
+
+def _tied_cache(g, kind, N, Hkv, S, D, C):
+  """Random rows, with the first cluster block of every (n, h) made of
+  halves and odd integers up to the kind's qmax, so that its scale is 1
+  and the encode meets ties (int8: x.5; fp8: odd values where the step
+  is 2, x.5 where it is 1)."""
+  x = _rand(g, N, Hkv, S, D) * 3.0
+  qmax = qt.qmax(kind)
+  ties = torch.randint(-2 * int(qmax) + 1, 2 * int(qmax), (N, Hkv, C, D),
+                       generator=g).float() / 2.0
+  ties[..., 0, 0] = qmax
+  x[:, :, :C] = ties
+  return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("spec", QSPECS)
+@pytest.mark.parametrize("perm_kind", ["clustered", "identity"])
+def test_card_segment_build_quant(cuda, dtype, spec, perm_kind):
+  """Sorted-KV codes and their scales bit-equal to the plain version (no
+  sum in them); centroid codes at most one step apart (an f32 mean summed
+  in another order), on few entries; centroid scales within f32
+  rounding."""
+  N, Hkv, S, D, C = 3, 2, 256, 128, 128
+  kind = qt.parse_qconfig(spec).kind
+  g = torch.Generator().manual_seed(14)
+  k, v = _to(cuda, dtype, _tied_cache(g, kind, N, Hkv, S, D, C),
+             _tied_cache(g, kind, N, Hkv, S, D, C))
+  if perm_kind == "identity":
+    perm = torch.arange(S, dtype=torch.int32).expand(N, S)
+  else:
+    perm = torch.stack([torch.randperm(S, generator=g) for _ in range(N)])
+  perm = perm.to(cuda)
+  key = _build.branch("segment_build", spec)
+  n0 = _build.LAUNCHES[key]
+  got = segment_build(k, v, perm, cluster_size=C, quant=spec)
+  torch.cuda.synchronize()
+  assert _build.LAUNCHES[key] == n0 + 1
+  want = ref.synopsis_build_quant_ref(k, v, perm, cluster_size=C,
+                                      qc=qt.parse_qconfig(spec))
+  assert set(got) == set(want)
+  for name in want:
+    assert got[name].dtype == want[name].dtype, name
+    assert got[name].shape == want[name].shape, name
+  for name in ("k", "v", "counts", "k_scale", "v_scale"):
+    if name not in want:
+      continue
+    if want[name].dtype in qt.QDTYPES:
+      assert torch.equal(_steps(got[name]), _steps(want[name])), name
+    else:
+      assert torch.equal(got[name], want[name]), name
+  for name in ("k_syn", "v_syn"):
+    step = (_steps(got[name]) - _steps(want[name])).abs()
+    assert int(step.max()) <= 1, name
+    assert float((step > 0).float().mean()) < 0.01, name
+    _close(got[name + "_scale"], want[name + "_scale"],
+           dict(rtol=1e-5, atol=1e-7))
+
+
+def _quant_tables(g, kind, B, Hkv, M, D):
+  kq, ks = qt.quantize_rows(_rand(g, B, Hkv, M, D) * 0.5, kind)
+  vq, vs = qt.quantize_rows(_rand(g, B, Hkv, M, D), kind)
+  return kq, vq, ks, vs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("M", [64, 65])
+@pytest.mark.parametrize("cap", [None, 30.0])
+def test_card_fused_synopsis_quant(cuda, dtype, kind, M, cap):
+  B, Hkv, G, D = 2, 8, 4, 128
+  g = torch.Generator().manual_seed(15)
+  q = _rand(g, B, Hkv * G, D).to(device=cuda, dtype=dtype)
+  kq, vq, ks, vs = (t.to(cuda) for t in _quant_tables(g, kind, B, Hkv, M, D))
+  cbias = torch.log(torch.randint(1, 129, (B, M), generator=g).float())
+  cbias = cbias.to(cuda)
+  kw = dict(sm_scale=D ** -0.5, cap=cap, k_scale=ks, v_scale=vs)
+  key = _build.branch("fused_synopsis_score_attention", kind)
+  n0 = _build.LAUNCHES[key]
+  got = fused_synopsis_score_attention(q, kq, vq, cbias, **kw)
+  torch.cuda.synchronize()
+  assert _build.LAUNCHES[key] == n0 + 1
+  want = ref.fused_synopsis_score_attention_ref(q, kq, vq, cbias, **kw)
+  _close(got[0], want[0], TOL[dtype])
+  for a, b in zip(got[1], want[1]):
+    _close(a, b, TOL[dtype])
+
+
+def _quant_gather_inputs(g, spec, M, budget, dtype, dev):
+  """Stage-2 inputs as ``refine_stage2`` builds them on a quantized arena
+  at the decode shape: decrement rows dequantized in f32, E = 129 extras
+  in the compute type, per-block scales under ``+kv``."""
+  B, Hkv, G, D, C = 2, 8, 4, 128, 128
+  qc = qt.parse_qconfig(spec)
+  q = _rand(g, B, Hkv * G, D)
+  k, v = _rand(g, B, Hkv, M * C, D), _rand(g, B, Hkv, M * C, D)
+  kw = {}
+  if qc.sorted_kv:
+    k, kw["kv_k_scale"] = qt.quantize_rows(k, qc.kind, block=C)
+    v, kw["kv_v_scale"] = qt.quantize_rows(v, qc.kind, block=C)
+  else:
+    k, v = k.to(dtype), v.to(dtype)
+  _, _, ks, vs = _quant_tables(g, qc.kind, B, Hkv, M, D)
+  kq, vq, _, _ = _quant_tables(g, qc.kind, B, Hkv, M, D)
+  if budget == 0:
+    sel = torch.full((B, Hkv, 1), -1, dtype=torch.int32)
+  else:
+    sel = torch.stack([torch.stack([torch.randperm(M, generator=g)[:budget]
+                                    for _ in range(Hkv)]) for _ in range(B)])
+    sel = sel.to(torch.int32)
+  safe = sel.long().clamp_min(0)
+  rows = safe[..., None].expand(-1, -1, -1, D)
+  kw["k_sel"] = (qt.gather_rows(kq, 2, rows).float()
+                 * torch.gather(ks, 2, safe)[..., None])
+  kw["v_sel"] = (qt.gather_rows(vq, 2, rows).float()
+                 * torch.gather(vs, 2, safe)[..., None])
+  kw["sel_bias"] = torch.full(sel.shape, float(np.log(C)))
+  ek, ev = _rand(g, B, Hkv, 129, D), _rand(g, B, Hkv, 129, D)
+  eb = torch.zeros((B, 129))
+  eb[:, 100:128] = NEG_INF
+  kw.update(extras_k=ek.to(dtype), extras_v=ev.to(dtype), extras_bias=eb)
+  return (q.to(device=dev, dtype=dtype), k.to(dev), v.to(dev), sel.to(dev),
+          C, {n: t.to(dev) for n, t in kw.items()})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("spec", QSPECS)
+@pytest.mark.parametrize("M", [64, 65])
+@pytest.mark.parametrize("budget", [0, 32])
+def test_card_block_gather_quant(cuda, dtype, spec, M, budget):
+  """Every stage-2 branch the quantized path runs: a bf16 / f32 cache with
+  f32 decrement rows (int8, fp8), and an int8 / fp8 cache with its
+  per-block scales (+kv); budget 0 reads cluster 0's scale for the -1
+  ids, never past the table."""
+  g = torch.Generator().manual_seed(16)
+  q, k, v, sel, C, kw = _quant_gather_inputs(g, spec, M, budget, dtype,
+                                             cuda)
+  qc = qt.parse_qconfig(spec)
+  key = _build.branch("block_gather_attention",
+                      qc.kind if qc.sorted_kv else "none")
+  opts = dict(cluster_size=C, sm_scale=q.shape[-1] ** -0.5, cap=30.0)
+  n0 = _build.LAUNCHES[key]
+  got = block_gather_attention(q, k, v, sel, **opts, **kw)
+  torch.cuda.synchronize()
+  assert _build.LAUNCHES[key] == n0 + 1
+  want = ref.fused_gather_attention_ref(q, k, v, sel, **opts, **kw)
+  for a, b in zip(got, want):
+    assert torch.isfinite(a).all()
+    _close(a, b, TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", QSPECS)
+@pytest.mark.parametrize("i_max", [0, 3, 9])
+def test_card_quant_synopsis_cache_attention(cuda, spec, i_max):
+  """The quantized pipeline (build, stage 1, top-k, stage 2, merge) on the
+  card against the same ops on the CPU (plain versions), f32, M = 9."""
+  B, Hkv, G, D, C, M, R = 2, 8, 4, 128, 128, 9, 128
+  g = torch.Generator().manual_seed(17)
+  q = _rand(g, B, Hkv * G, D)
+  k, v = _rand(g, B, Hkv, M * C, D), _rand(g, B, Hkv, M * C, D)
+  rk, rv = _rand(g, B, Hkv, R, D), _rand(g, B, Hkv, R, D)
+  sk, sv = _rand(g, B, Hkv, 1, D), _rand(g, B, Hkv, 1, D)
+  perm = torch.stack([torch.randperm(M * C, generator=g) for _ in range(B)])
+  rlen = torch.full((B,), 37, dtype=torch.int32)
+  outs = []
+  for dev in ("cpu", cuda):
+    arena = ops.synopsis_build(k.to(dev), v.to(dev), perm.to(dev),
+                               cluster_size=C, qconfig=spec)
+    outs.append(ops.synopsis_cache_attention(
+        *(t.to(dev) for t in (q, arena["k"], arena["v"], arena["k_syn"],
+                              arena["v_syn"], arena["counts"], rk, rv, rlen,
+                              sk, sv)),
+        *(arena.get(n) for n in qt.SCALE_LEAVES), i_max=i_max,
+        cluster_size=C, sm_scale=D ** -0.5))
+  _close(outs[1], outs[0], TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_card_quant_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+  g = torch.Generator().manual_seed(18)
+  q = _rand(g, 2, 8, 64).to(cuda)
+  kq, vq, ks, vs = (t.to(cuda) for t in _quant_tables(g, "int8", 2, 2, 8,
+                                                       64))
+  cb = torch.zeros((2, 8), device=cuda)
+  with pytest.raises(ValueError, match="scales"):
+    fused_synopsis_score_attention(q, kq, vq, cb)
+  with pytest.raises(ValueError, match="scales"):
+    fused_synopsis_score_attention(q, kq.float(), vq.float(), cb,
+                                   k_scale=ks, v_scale=vs)
+  with pytest.raises(TypeError):
+    fused_synopsis_score_attention(q.to(torch.int8), kq, vq, cb, k_scale=ks,
+                                   v_scale=vs)
+  with pytest.raises(TypeError):
+    fused_synopsis_score_attention(q, kq.half(), vq.half(), cb)
+  sel = torch.zeros((2, 2, 1), dtype=torch.int32, device=cuda)
+  with pytest.raises(ValueError, match="scales"):
+    block_gather_attention(q, kq, vq, sel, cluster_size=1)
+  with pytest.raises(TypeError):
+    block_gather_attention(q, kq.float(), vq.float(), sel, cluster_size=1,
+                           k_sel=kq[:, :, :1].bfloat16(),
+                           v_sel=vq[:, :, :1].bfloat16(),
+                           sel_bias=torch.zeros((2, 2, 1), device=cuda))

@@ -77,7 +77,7 @@ def test_config_is_llama3_8b():
       "llama3-8b", smoke=True)
   assert dataclasses.asdict(smoke.synopsis) == {
       k: v for k, v in dataclasses.asdict(jsmoke.synopsis).items()
-      if k in ("cluster_size", "i_max", "recent")}
+      if k in ("cluster_size", "i_max", "recent", "quant")}
   with pytest.raises(KeyError):
     get_config("gemma2-2b")
 
