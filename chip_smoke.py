@@ -6,7 +6,8 @@
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the six CUDA kernels, with the eight quantized branches of three
    of them, from ``src/repro_torch/kernels/csrc`` (one nvcc per source,
-   all started together);
+   all started together), and prints ptxas's report of each source
+   (registers, shared memory, spills);
 3. holds each kernel and each quantized branch (``segment_build`` under
    int8 / fp8 / int8+kv / fp8+kv, ``fused_synopsis_score_attention`` and
    ``block_gather_attention`` on int8 / fp8 tables or cache) against its
@@ -14,7 +15,8 @@
    B=2, prompt 8192), in bf16 and f32, and times both with CUDA events
    (median of 20) and the profiler, beside the kernel's bound (the larger
    of bytes / 3.35 TB/s and operations / peak rate) and, for prefill and
-   decode, ``F.scaled_dot_product_attention`` as a yardstick;
+   decode, ``F.scaled_dot_product_attention`` as a yardstick; for the bf16
+   ``flash_prefill`` (wgmma) also its achieved TFLOP/s;
 4. on a small model in f32, checks that the kernels and the plain
    versions generate the same token ids in synopsis mode (unquantized and
    under each quant spec) and in exact mode, and that a synopsis step at
@@ -159,16 +161,17 @@ def _record(name, source, replaces, dtype, err, kernel_fn, plain_fn, nbytes,
   plain_ms = _median_ms(plain_fn)
   library_ms = _median_ms(library_fn) if library_fn is not None else None
   bound_ms, bound_by = _bound(nbytes, ops, dtype)
-  lib_dev = (f"{_device_ms(library_fn):.4f}" if library_fn is not None
-             else None)
+  lib_dev = _device_ms(library_fn) if library_fn is not None else None
+  dev_ms = _device_ms(kernel_fn)
   print(f"  [{name} {str(dtype)[6:]}] ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"bound_ms={bound_ms:.4f} ({bound_by}) library_ms={library_ms}; "
-        f"device time: kernel {_device_ms(kernel_fn):.4f} ms, library "
-        f"{lib_dev} ms")
+        f"device time: kernel {dev_ms:.4f} ms, library "
+        f"{None if lib_dev is None else f'{lib_dev:.4f}'} ms")
   return {"name": name, "route": "cuda", "source": source,
           "replaces": replaces, "max_abs_err": err, "ms": ms,
           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-          "library_ms": library_ms}
+          "library_ms": library_ms, "device_ms": dev_ms,
+          "library_device_ms": lib_dev}
 
 
 # ---------------------------------------------------------------------------
@@ -189,13 +192,27 @@ def check_flash_prefill(dev, dtype, g):
                *(BF16_OUT_TOL if dtype == torch.bfloat16 else (1e-4,)))
   qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
   sdpa = torch.nn.functional.scaled_dot_product_attention
-  return _record(
+  ops = 4 * B * H * D * (S * (S + 1) // 2)
+  rec = _record(
       "flash_prefill", "src/repro_torch/kernels/csrc/flash_prefill.cu",
       "src/repro/kernels/flash_prefill.py:140", dtype, err,
       lambda: flash_prefill(q, k, v, sm_scale=sm),
       lambda: ref.flash_prefill_ref(q, k, v, sm_scale=sm),
-      _nbytes(q, k, v, got), 4 * B * H * D * (S * (S + 1) // 2),
+      _nbytes(q, k, v, got), ops,
       lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+  if dtype == torch.bfloat16:
+    # The wgmma kernel issues P.V twice (P = P_hi + P_lo): 1.5x the
+    # algorithm's operations go through the tensor cores.
+    dev_ms, lib_ms = rec["device_ms"], rec["library_device_ms"]
+    print(f"  [flash_prefill bf16] {ops / 1e12:.3f} TFLOP "
+          f"({1.5 * ops / 1e12:.3f} issued with the P split) in "
+          f"{dev_ms:.4f} ms of device time: "
+          f"{ops / dev_ms / 1e9:.1f} TFLOP/s of the algorithm, "
+          f"{1.5 * ops / dev_ms / 1e9:.1f} issued (peak 989); bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+          f"{rec['bound_ms'] / dev_ms:.1%} of it; SDPA {lib_ms:.4f} ms "
+          f"device, kernel / SDPA {dev_ms / lib_ms:.2f}x")
+  return rec
 
 
 def check_segment_build(dev, dtype, g):

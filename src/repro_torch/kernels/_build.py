@@ -97,7 +97,7 @@ def _nvcc() -> str:
 
 def _run_all(cmds):
   """Run the commands side by side; wait for every one, then raise on the
-  first that failed.  Returns their output."""
+  first that failed.  Returns their outputs, in order."""
   procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
            for c in cmds]
@@ -106,13 +106,14 @@ def _run_all(cmds):
     if p.returncode != 0:
       raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n"
                          f"{out}")
-  return "".join(outs)
+  return outs
 
 
 def build(force: bool = False, verbose: bool = False) -> pathlib.Path:
   """Compile every ``csrc/*.cu`` (one nvcc each, in parallel) and link the
   shared library, unless an up-to-date library exists.  Returns its path.
-  ``verbose`` prints ptxas's register / shared-memory / spill report."""
+  ``verbose`` prints ptxas's register / shared-memory / spill report of
+  each source under a ``[ptxas <file>]`` line."""
   sources = sorted(CSRC.glob("*.cu"))
   headers = sorted(CSRC.glob("*.cuh"))
   lib = BUILD_DIR / LIB_NAME
@@ -125,7 +126,7 @@ def build(force: bool = False, verbose: bool = False) -> pathlib.Path:
   objs = [BUILD_DIR / f".{src.stem}.{tag}.o" for src in sources]
   nvcc = [_nvcc(), "-gencode", ARCH, "-std=c++17", "-O3"]
   try:
-    report = _run_all([
+    reports = _run_all([
         nvcc + ["-Xcompiler", "-fPIC", "-I", str(CSRC), "-c", str(src),
                 "-o", str(obj), *(["-Xptxas=-v"] if verbose else [])]
         for src, obj in zip(sources, objs)])
@@ -135,7 +136,8 @@ def build(force: bool = False, verbose: bool = False) -> pathlib.Path:
     for obj in objs:
       obj.unlink(missing_ok=True)
   if verbose:
-    print(report, end="")
+    for src, report in zip(sources, reports):
+      print(f"[ptxas {src.name}]\n{report}", end="")
   os.replace(tmp, lib)
   return lib
 
@@ -231,6 +233,11 @@ def check_rows(name: str, D: int, G: int, *tensors) -> None:
   if D not in HEAD_DIMS or not 1 <= G <= GMAX:
     raise ValueError(f"{name}: head dim {D} / group {G} not built (D in "
                      f"{HEAD_DIMS}, G <= {GMAX})")
+  check_aligned(name, *tensors)
+
+
+def check_aligned(name: str, *tensors) -> None:
+  """16-byte vector loads and TMA copies need 16-byte aligned tensors."""
   for t in tensors:
     if t.data_ptr() % 16:
       raise ValueError(f"{name}: tensor of shape {tuple(t.shape)} is not "

@@ -5,6 +5,11 @@ replaces ``repro/kernels/flash_prefill.py``).
 Takes the model layout directly — q (B, S, H, D), k/v (B, S, Hkv, D) — and
 returns (B, S, H, D) in ``q.dtype``; the kernel masks the ragged query
 tile and bounds each tile's KV loop by the causal frontier.
+
+bf16 runs the tensor-core (wgmma) kernel, built for the head dims in
+``WGMMA_HEAD_DIMS`` and GQA groups up to ``_build.GMAX``; f32 runs the
+CUDA-core kernel at any D.  A bf16 shape the wgmma kernel does not take
+raises: nothing falls back to the CUDA-core kernel.
 """
 from __future__ import annotations
 
@@ -16,6 +21,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref
 
 NAME = "flash_prefill"
+# D = 256 is not built: its O accumulator alone (128 f32 registers a
+# thread) beside the 64 of the S / P fragment leaves no room in the 232
+# registers of a consumer thread.
+WGMMA_HEAD_DIMS = (16, 32, 64, 128)
 
 
 def flash_prefill(
@@ -39,6 +48,15 @@ def flash_prefill(
   if window is not None and window < 1:
     raise ValueError(f"{NAME}: window {window} < 1")
   code = _build.dtype_code(NAME, q, k, v)
+  if q.dtype == torch.bfloat16:
+    G = H // Hkv
+    if D not in WGMMA_HEAD_DIMS or G > _build.GMAX:
+      raise ValueError(
+          f"{NAME}: the bf16 (wgmma) kernel is built for head dims "
+          f"{WGMMA_HEAD_DIMS} and GQA groups up to {_build.GMAX}, got D={D}, "
+          f"G={G}; D=256 would need more than the 232 registers a consumer "
+          "thread has")
+    _build.check_aligned(NAME, q, k, v)
   out = torch.empty_like(q)
   P = _build.ptr
   err = _build.library().flash_prefill_launch(

@@ -153,6 +153,21 @@ def test_cpu_tensors_run_the_plain_versions_without_launching():
     ((2, 300, 2, 4, 128), None, None),      # ragged last query tile
     ((2, 192, 2, 8, 32), 40, 30.0),
     ((1, 100, 2, 2, 16), None, 30.0),
+    # The edges of the bf16 (wgmma) kernel's tiles: 128 query rows (128 /
+    # G positions) and 128 keys.  (B, S, Hkv, G, D), window, cap.
+    ((1, 1000, 2, 4, 128), None, None),     # many KV tiles, ragged to both
+    ((2, 2100, 1, 8, 64), None, None),
+    ((1, 2100, 2, 3, 128), None, None),     # G not a power of two
+    ((2, 40, 2, 4, 128), None, None),       # S below one tile
+    ((1, 5, 1, 1, 16), None, None),
+    ((1, 520, 2, 1, 16), None, None),       # G = 1: 128 positions a tile
+    ((1, 520, 2, 2, 32), None, None),
+    ((1, 520, 2, 4, 64), None, None),
+    ((1, 520, 1, 8, 128), None, None),
+    ((1, 700, 2, 5, 64), 300, None),        # window edge inside a tile
+    ((2, 600, 2, 4, 128), 200, 30.0),
+    ((1, 300, 1, 8, 32), 57, 20.0),
+    ((1, 1000, 2, 2, 128), 1, None),        # window 1: the diagonal only
 ])
 def test_card_flash_prefill(cuda, dtype, shape, window, cap):
   q, k, v = _to(cuda, dtype, *_prefill_inputs(shape))
@@ -164,6 +179,43 @@ def test_card_flash_prefill(cuda, dtype, shape, window, cap):
   assert got.dtype == dtype and got.shape == q.shape
   _close(got, ref.flash_prefill_ref(q, k, v, **kw),
          TOL[dtype] if dtype == torch.float32 else BF16_OUT_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 128])
+def test_card_flash_prefill_bf16_cancelling_rows(cuda, D):
+  """V rows of alternating sign (+1, -1, ...) and logits spread ~1: each
+  early output is a difference of nearly equal probabilities, near zero.
+  P rounded to one bf16 misses such an output by up to 2^-9 |v| (~2e-3);
+  the kernel's P = P_hi + P_lo keeps it within 1e-4 + 2^-7 |x|."""
+  B, S, Hkv, G = 1, 300, 2, 4
+  g = torch.Generator().manual_seed(11)
+  q = _rand(g, B, S, Hkv * G, D)
+  k = _rand(g, B, S, Hkv, D)
+  sign = (-1.0) ** torch.arange(S, dtype=torch.float32)
+  v = sign[None, :, None, None].expand(B, S, Hkv, D).contiguous()
+  q, k, v = _to(cuda, torch.bfloat16, q, k, v)
+  kw = dict(sm_scale=D ** -0.5)
+  want = ref.flash_prefill_ref(q, k, v, **kw)
+  assert float(want[:, :8].float().abs().min()) < 0.1
+  _close(flash_prefill(q, k, v, **kw), want, BF16_OUT_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 64, 1, 2, 256), (1, 64, 1, 16, 64),
+                                   (1, 64, 1, 2, 48)])
+def test_card_flash_prefill_bf16_refuses_unbuilt_shapes(cuda, shape):
+  """D = 256 (registers), G > 8 and other head dims are not built for bf16:
+  the wrapper raises instead of running the CUDA-core kernel; f32 takes
+  them."""
+  q, k, v = _to(cuda, torch.bfloat16, *_prefill_inputs(shape))
+  n0 = _build.LAUNCHES["flash_prefill"]
+  with pytest.raises(ValueError, match="wgmma"):
+    flash_prefill(q, k, v)
+  assert _build.LAUNCHES["flash_prefill"] == n0
+  q, k, v = _to(cuda, torch.float32, q, k, v)
+  _close(flash_prefill(q, k, v), ref.flash_prefill_ref(q, k, v),
+         TOL[torch.float32])
 
 
 @pytest.mark.cuda
