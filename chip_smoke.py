@@ -13,10 +13,14 @@
    ``block_gather_attention`` on int8 / fp8 tables or cache) against its
    plain PyTorch version at the shapes of the serving paths (llama3-8b,
    B=2, prompt 8192), in bf16 and f32, and times both with CUDA events
-   (median of 20) and the profiler, beside the kernel's bound (the larger
-   of bytes / 3.35 TB/s and operations / peak rate) and, for prefill and
-   decode, ``F.scaled_dot_product_attention`` as a yardstick; for the bf16
-   ``flash_prefill`` (wgmma) also its achieved TFLOP/s;
+   (median of 20) and the profiler (the rows of the kernel's own launches,
+   KERNEL_ROWS), beside the kernel's bound (the larger of bytes / 3.35
+   TB/s and operations / peak rate) and, for prefill and decode,
+   ``F.scaled_dot_product_attention`` as a yardstick; for the bf16
+   ``flash_prefill`` (wgmma) also its achieved TFLOP/s; ``flash_decode``
+   and ``block_gather_attention`` also L2-cold (256 MB written and read
+   back between calls), and ``flash_decode`` over the I * C rows that
+   ``block_gather`` reads, as the gather's yardstick;
 4. on a small model in f32, checks that the kernels and the plain
    versions generate the same token ids in synopsis mode (unquantized and
    under each quant spec) and in exact mode, and that a synopsis step at
@@ -90,12 +94,43 @@ ACCURACY_BUDGETS = (0, 1, 2, 4, 8, 16, 32, 64)
 FUSION_BUDGETS = (1, 8, 32, 64)
 
 
-def _median_ms(fn, reps=REPS, warmup=2):
+# The device-side names of each kernel's launches (substrings of the
+# profiler's rows): a kernel's device time sums these rows and no others.
+KERNEL_ROWS = {
+    "flash_prefill": ("flash_prefill_kernel", "flash_prefill_wgmma"),
+    "segment_build": ("segment_build_kernel",),
+    "fused_synopsis_score_attention": ("fused_synopsis_kernel",),
+    "block_gather_attention": ("block_gather_kernel",),
+    "flash_decode": ("flash_decode_kernel",),
+    "synopsis_score": ("synopsis_score_kernel",),
+}
+# L2 flush between the reps of a cold time: writing this many bytes
+# evicts the 50 MB L2, and reading them back then writes the dirty lines
+# out, so that the timed call pays for neither; neither kernel is a row of
+# any kernel above.
+FLUSH_BYTES = 256 * 2 ** 20
+FLUSH_ROWS = ("FillFunctor", "reduce_kernel")
+_flush = []
+
+
+def _flush_l2():
+  if not _flush:
+    _flush.append(torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
+                              device="cuda"))
+  _flush[0].zero_()
+  _flush[0].sum()
+
+
+def _median_ms(fn, reps=REPS, warmup=2, cold=False):
+  """CUDA-event time of one call, median of ``reps``; ``cold``: the L2 is
+  flushed before each call, so that its inputs come from HBM."""
   for _ in range(warmup):
     fn()
   torch.cuda.synchronize()
   times = []
   for _ in range(reps):
+    if cold:
+      _flush_l2()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -106,20 +141,33 @@ def _median_ms(fn, reps=REPS, warmup=2):
   return statistics.median(times)
 
 
-def _device_ms(fn, reps=REPS):
-  """Device time of one call: the device-side rows of torch.profiler over
-  ``reps`` calls, per call.  Unlike a pair of CUDA events around a call,
-  it leaves out the gaps in which the device waits for the host to
-  launch, which dominate a call shorter than its wrapper's host work."""
+def _device_ms(fn, names=None, reps=REPS, cold=False):
+  """Device time of one call: the profiler's device rows over ``reps``
+  calls, per call, summed over the rows whose name holds one of
+  ``names`` (a kernel's own, KERNEL_ROWS); ``names=None`` (a library
+  call, whose kernels we do not name) takes every row but the L2
+  flush's.  Unlike a pair of CUDA events around a call, it leaves out the
+  gaps in which the device waits for the host to launch, which dominate
+  a call shorter than its wrapper's host work.  Raises when no row
+  matches: a reading of 0 is not a time.  ``cold``: as _median_ms."""
   from torch.profiler import ProfilerActivity, profile
   fn()
   torch.cuda.synchronize()
   with profile(activities=[ProfilerActivity.CUDA]) as prof:
     for _ in range(reps):
+      if cold:
+        _flush_l2()
       fn()
     torch.cuda.synchronize()
-  return sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type != torch.autograd.DeviceType.CPU) / 1e3 / reps
+  rows = [e for e in prof.key_averages()
+          if e.device_type != torch.autograd.DeviceType.CPU
+          and e.self_device_time_total > 0
+          and (any(n in e.key for n in names) if names
+               else not any(n in e.key for n in FLUSH_ROWS))]
+  if not rows:
+    raise AssertionError(f"the profiler shows no device row of {names}: "
+                         f"{[e.key[:60] for e in prof.key_averages()]}")
+  return sum(e.self_device_time_total for e in rows) / 1e3 / reps
 
 
 def _nbytes(*tensors):
@@ -156,22 +204,36 @@ def _bound(nbytes, ops, dtype):
 
 
 def _record(name, source, replaces, dtype, err, kernel_fn, plain_fn, nbytes,
-            ops, library_fn=None):
+            ops, library_fn=None, cold=False):
+  """Times the kernel (warm: repeated calls on the same inputs; and, with
+  ``cold``, with the L2 flushed before each call) beside its plain
+  version, its bound and the library call; returns its record."""
+  names = KERNEL_ROWS[name.split("[")[0]]
   ms = _median_ms(kernel_fn)
   plain_ms = _median_ms(plain_fn)
   library_ms = _median_ms(library_fn) if library_fn is not None else None
   bound_ms, bound_by = _bound(nbytes, ops, dtype)
   lib_dev = _device_ms(library_fn) if library_fn is not None else None
-  dev_ms = _device_ms(kernel_fn)
+  dev_ms = _device_ms(kernel_fn, names)
   print(f"  [{name} {str(dtype)[6:]}] ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"bound_ms={bound_ms:.4f} ({bound_by}) library_ms={library_ms}; "
         f"device time: kernel {dev_ms:.4f} ms, library "
         f"{None if lib_dev is None else f'{lib_dev:.4f}'} ms")
-  return {"name": name, "route": "cuda", "source": source,
-          "replaces": replaces, "max_abs_err": err, "ms": ms,
-          "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-          "library_ms": library_ms, "device_ms": dev_ms,
-          "library_device_ms": lib_dev}
+  rec = {"name": name, "route": "cuda", "source": source,
+         "replaces": replaces, "max_abs_err": err, "ms": ms,
+         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+         "library_ms": library_ms, "device_ms": dev_ms,
+         "library_device_ms": lib_dev}
+  if cold:
+    rec["ms_cold"] = _median_ms(kernel_fn, cold=True)
+    rec["device_ms_cold"] = _device_ms(kernel_fn, names, cold=True)
+    lib_cold = (_device_ms(library_fn, cold=True) if library_fn is not None
+                else None)
+    print(f"  [{name} {str(dtype)[6:]}] L2-cold: ms={rec['ms_cold']:.4f} "
+          f"device {rec['device_ms_cold']:.4f} ms (warm {dev_ms:.4f}), "
+          f"{bound_ms / rec['device_ms_cold']:.1%} of the bound; library "
+          f"device {None if lib_cold is None else f'{lib_cold:.4f}'} ms")
+  return rec
 
 
 # ---------------------------------------------------------------------------
@@ -282,24 +344,47 @@ def check_fused_synopsis(dev, dtype, g):
       _nbytes(q, k_syn, v_syn, cbias, got[0], *got[1]), 4 * B * H * M * D)
 
 
+def _equal_keys(k, sel, C):
+  """k with the C keys of each (b, hkv)'s first selected cluster set to
+  that cluster's first key: the cluster's rows and its centroid's
+  decrement term cancel, so its part's l is ~0."""
+  k = k.clone()
+  B, Hkv = sel.shape[:2]
+  for b in range(B):
+    for h in range(Hkv):
+      c = int(sel[b, h, 0])
+      k[b, h, c * C:(c + 1) * C] = k[b, h, c * C]
+  return k
+
+
 def check_block_gather(dev, dtype, g):
   from repro_torch.kernels import ops, ref
   from repro_torch.kernels.block_gather_attention import (
       block_gather_attention as gather)
+  from repro_torch.kernels.flash_decode import flash_decode
   tol = PARTIALS_TOL[dtype]
-  # The last case is the synopsis loop's and is timed; (S, I, epilogues):
-  # the unfused op runs the kernel with neither epilogue.
-  for S, I, epi in ((PROMPT + 128, 32, True), (PROMPT, 1, True),
-                    (PROMPT, 32, False), (PROMPT, 32, True)):
+  # The last case is the synopsis loop's and is timed; (S, I, epilogues,
+  # ids): the unfused op runs the kernel with neither epilogue; budget 0
+  # pads every id and keeps the extras; "no extras" pads every id of three
+  # parts, which all survive the merge; "equal" cancels one part's l.
+  for S, I, epi, ids in ((PROMPT + 128, 32, "both", "topk"),
+                         (PROMPT, 1, "both", "padded"),
+                         (PROMPT, 3, "no extras", "padded"),
+                         (PROMPT, 32, "none", "topk"),
+                         (PROMPT, 32, "both", "equal"),
+                         (PROMPT, 32, "both", "topk")):
     q, k, v, k_syn, v_syn, cbias, C = _decode_inputs(dev, dtype, g, S)
     B, Hkv, M, D = k_syn.shape
     sm = D ** -0.5
     scores, _ = ref.fused_synopsis_score_attention_ref(q, k_syn, v_syn,
                                                        cbias, sm_scale=sm)
-    if I == 1:                        # budget 0: all padded, extras only
-      sel = torch.full((B, Hkv, 1), -1, dtype=torch.int32, device=dev)
+    if ids == "padded":
+      sel = torch.full((B, Hkv, I), -1, dtype=torch.int32, device=dev)
     else:
       sel = torch.topk(scores, min(I, M), dim=-1).indices.to(torch.int32)
+    if ids == "equal":
+      k = _equal_keys(k, sel, C)
+      k_syn = k.float().reshape(B, Hkv, M, C, D).mean(3).to(dtype)
     I = sel.shape[-1]
     safe = sel.long().clamp_min(0)[..., None].expand(-1, -1, -1, D)
     dec = dict(k_sel=torch.gather(k_syn, 2, safe),
@@ -310,22 +395,37 @@ def check_block_gather(dev, dtype, g):
     sk, sv = q[:, ::4, None].contiguous(), q[:, 1::4, None].contiguous()
     ek, ev, eb = ops.build_extras(rk, rv, None, (sk, sv))  # E = 129
     ext = dict(extras_k=ek, extras_v=ev, extras_bias=eb)
-    kw = dict(cluster_size=C, sm_scale=sm, **(dec | ext if epi else {}))
+    kw = dict(cluster_size=C, sm_scale=sm,
+              **{"both": dec | ext, "no extras": dec, "none": {}}[epi])
     got = gather(q, k, v, sel, **kw)
     want = ref.fused_gather_attention_ref(q, k, v, sel, **kw)
-    err = _check(f"block_gather S={S} I={I}"
-                 + ("" if epi else " no epilogues"), dtype, got, want, *tol)
+    err = _check(f"block_gather S={S} I={I} epilogues={epi} ids={ids}",
+                 dtype, got, want, *tol)
   H = q.shape[1]
   rows = int((sel >= 0).sum()) * C              # rows this selection reads
   nbytes = (_nbytes(q, sel, dec["k_sel"], dec["v_sel"], dec["sel_bias"], ek,
                     ev, eb, *got) + 2 * rows * D * k.element_size())
   ops_n = 4 * (H // Hkv) * D * (rows + B * Hkv * (I + ek.shape[2]))
-  return _record(
+  rec = _record(
       "block_gather_attention", "src/repro_torch/kernels/csrc/block_gather.cu",
       "src/repro/kernels/block_gather_attention.py:255", dtype, err,
       lambda: gather(q, k, v, sel, **kw),
       lambda: ref.fused_gather_attention_ref(q, k, v, sel, **kw),
-      nbytes, ops_n)
+      nbytes, ops_n, cold=True)
+  # The yardstick: flash_decode over I * C contiguous rows reads the same
+  # cache bytes as the gather of I clusters; the gap is the gather's own
+  # cost (its extras, decrement rows, parts and ids).
+  n = I * C
+  kc, vc = k[:, :, :n].contiguous(), v[:, :, :n].contiguous()
+  fd = lambda: flash_decode(q, kc, vc, sm_scale=sm)
+  fd_dev = _device_ms(fd, KERNEL_ROWS["flash_decode"])
+  fd_cold = _device_ms(fd, KERNEL_ROWS["flash_decode"], cold=True)
+  print(f"  [yardstick {str(dtype)[6:]}] flash_decode over S={n} contiguous "
+        f"rows: device {fd_dev:.4f} ms warm, {fd_cold:.4f} cold; "
+        f"block_gather I={I}: {rec['device_ms']:.4f} warm, "
+        f"{rec['device_ms_cold']:.4f} cold (gather / contiguous, cold: "
+        f"{rec['device_ms_cold'] / fd_cold:.2f}x)")
+  return rec
 
 
 def check_flash_decode(dev, dtype, g):
@@ -340,8 +440,9 @@ def check_flash_decode(dev, dtype, g):
                             (PROMPT + 128, "masked", None),
                             (PROMPT // 128, "masked", None),
                             (PROMPT // 128 + 1, "all_masked", None),
+                            (PROMPT // 2 + 1, None, None),
                             (PROMPT, None, 30.0), (PROMPT, None, None)):
-    q, k, v, _, _, _, _ = _decode_inputs(dev, dtype, g, max(S, 128))
+    q, k, v, _, _, _, _ = _decode_inputs(dev, dtype, g, -(-S // 128) * 128)
     k, v = k[:, :, :S].contiguous(), v[:, :, :S].contiguous()
     bias = None
     if bias_kind is not None:
@@ -363,7 +464,7 @@ def check_flash_decode(dev, dtype, g):
       lambda: flash_decode(q, k, v, **kw),
       lambda: ref.flash_decode_ref(q, k, v, **kw),
       _nbytes(q, k, v, *got), 4 * B * H * PROMPT * D,
-      lambda: sdpa(q[:, :, None], k, v, enable_gqa=True))
+      lambda: sdpa(q[:, :, None], k, v, enable_gqa=True), cold=True)
 
 
 def check_synopsis_score(dev, dtype, g):
@@ -565,7 +666,7 @@ def check_block_gather_quant(dev, dtype, g, spec):
       "src/repro/kernels/block_gather_attention.py:255", dtype, err,
       lambda: gather(q, *kv, sel, **kw),
       lambda: ref.fused_gather_attention_ref(q, *kv, sel, **kw),
-      nbytes, ops_n)
+      nbytes, ops_n, cold=True)
 
 
 def stage1_bytes_against_time(dev, g, rounds=5):
@@ -602,7 +703,8 @@ def stage1_bytes_against_time(dev, g, rounds=5):
     times = {kind: [] for kind in fns}
     for _ in range(rounds):
       for kind, fn in fns.items():
-        times[kind].append((_median_ms(fn), _device_ms(fn)))
+        times[kind].append((_median_ms(fn), _device_ms(
+            fn, KERNEL_ROWS["fused_synopsis_score_attention"])))
     base = statistics.median(t[1] for t in times["none"])
     for kind in fns:
       ms = statistics.median(t[0] for t in times[kind])
@@ -922,6 +1024,10 @@ def profile_decode(cfg, params, cache, dev, budget, steps=3,
         "device ops/step")
   for us, name, n in rows[:10]:
     print(f"  {us / 1e3 / steps:8.3f} ms/step  x{n // steps:5d}  {name[:80]}")
+  per = {k: sum(r[0] for r in rows if any(n in r[1] for n in names))
+         for k, names in KERNEL_ROWS.items()}
+  print(f"[profile] {label}: port kernels, ms/step: " + ", ".join(
+      f"{k} {us / 1e3 / steps:.3f}" for k, us in per.items() if us))
 
 
 def main() -> int:
@@ -970,6 +1076,7 @@ def main() -> int:
       if dtype == torch.bfloat16:          # the serving path's type
         records.setdefault(rec["name"], rec)
       torch.cuda.empty_cache()
+  _flush.clear()                 # the loops' peak memory leaves it out
 
   smoke_launches = check_small_model_parity(dev)
 

@@ -36,13 +36,28 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 HEAD_DIMS = (16, 32, 64, 128, 256)
 GMAX = 8
 
+# Geometry of the decode core (csrc/decode_core.cuh) that the wrappers of
+# flash_decode and block_gather_attention size their chunks by: a block
+# has DECODE_WARPS warps, and a tile is whole rows, at most
+# DECODE_TILE_BYTES of K and at most DECODE_TILE_ROWS rows.
+DECODE_WARPS = 4
+DECODE_TILE_BYTES = 4096
+DECODE_TILE_ROWS = 64
+
+
+def decode_tile_rows(D: int, itemsize: int) -> int:
+  """Rows of one tile of the decode core for rows of D elements of
+  ``itemsize`` bytes."""
+  return min(DECODE_TILE_ROWS, DECODE_TILE_BYTES // (D * itemsize))
+
+
 # C entry point -> argtypes (see each .cu file's extern "C" function).
 SIGNATURES = {
     "fused_synopsis_launch": [_P] * 10 + [_I] * 5 + [_F, _F, _I, _I, _P],
-    "block_gather_launch": [_P] * 15 + [_I] * 8 + [_F, _F] + [_I] * 3 + [_P],
+    "block_gather_launch": [_P] * 19 + [_I] * 9 + [_F, _F] + [_I] * 3 + [_P],
     "segment_build_launch": [_P] * 12 + [_I] * 8 + [_P],
     "flash_prefill_launch": [_P] * 4 + [_I] * 5 + [_F, _F, _I, _I, _P],
-    "flash_decode_launch": [_P] * 10 + [_I] * 6 + [_F, _F, _I, _P],
+    "flash_decode_launch": [_P] * 11 + [_I] * 6 + [_F, _F, _I, _P],
     "synopsis_score_launch": [_P] * 3 + [_I] * 5 + [_F, _I, _P],
 }
 
@@ -73,6 +88,7 @@ LAUNCHES: Dict[str, int] = {
 
 _lib = None
 _lock = threading.Lock()
+_tickets: Dict = {}
 
 
 def reset_launches() -> None:
@@ -227,9 +243,10 @@ def scale_tensors(name: str, quantized: bool, shape, device, *scales):
 
 
 def check_rows(name: str, D: int, G: int, *tensors) -> None:
-  """The decode kernels (flash_decode, synopsis_score) read a key row as
-  whole 16-byte vectors and keep G heads of state in registers: they are
-  built for D in HEAD_DIMS and G <= GMAX, from 16-byte aligned tensors."""
+  """The decode kernels (flash_decode, block_gather_attention,
+  synopsis_score) read a key row as whole 16-byte vectors and keep G heads
+  of state in registers: they are built for D in HEAD_DIMS and G <= GMAX,
+  from 16-byte aligned tensors."""
   if D not in HEAD_DIMS or not 1 <= G <= GMAX:
     raise ValueError(f"{name}: head dim {D} / group {G} not built (D in "
                      f"{HEAD_DIMS}, G <= {GMAX})")
@@ -242,6 +259,31 @@ def check_aligned(name: str, *tensors) -> None:
     if t.data_ptr() % 16:
       raise ValueError(f"{name}: tensor of shape {tuple(t.shape)} is not "
                        "16-byte aligned")
+
+
+def partials(device, rows: int, parts: int, D: int):
+  """Scratch of the decode kernels' chunk partials, one allocation: o
+  (rows, parts, D), m and l (rows, parts) f32, and the tickets of their
+  last-block merge (rows of (b, hkv) at most ``rows``)."""
+  import torch  # noqa: PLC0415
+  n = rows * parts
+  buf = torch.empty(n * (D + 2), dtype=torch.float32, device=device)
+  return (buf[:n * D], buf[n * D:n * (D + 1)], buf[n * (D + 1):],
+          tickets(device, rows))
+
+
+def tickets(device, n: int):
+  """Zeroed int32 counters, at least ``n``, for the last-block merge of the
+  decode kernels (one a (b, hkv) row), kept per device: the block that
+  takes a row's last ticket resets it to 0, so the counters are zero
+  between launches.  Launches that use them run one after another (one
+  stream), as the port's do."""
+  import torch  # noqa: PLC0415
+  t = _tickets.get(device)
+  if t is None or t.numel() < n:
+    t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    _tickets[device] = t
+  return t
 
 
 def stream_ptr(t) -> int:

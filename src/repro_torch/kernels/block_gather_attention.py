@@ -3,7 +3,10 @@ fused decrement and extras epilogues (CUDA kernel ``csrc/block_gather.cu``;
 replaces ``repro/kernels/block_gather_attention.py``).
 
 The cache is cluster-contiguous (cluster c = rows [c*C, (c+1)*C)), so the
-kernel streams each selected cluster as C consecutive rows.  ``selected``
+kernel streams each selected cluster as C consecutive rows, one block a
+cluster, and the extras in chunks of at most EXTRAS_ROWS rows, one block
+each; the last block of each (b, hkv) row to finish merges the blocks'
+partials (scratch allocated here).  ``selected``
 may hold ``-1`` padding (masked with the -1e30 sentinel).  With
 ``k_sel/v_sel/sel_bias`` each selected centroid's stage-1 term is
 accumulated with weight -1; with ``extras_*`` the recent ring and the new
@@ -23,6 +26,9 @@ from repro_torch.kernels import quant as qt
 from repro_torch.kernels import ref
 
 NAME = "block_gather_attention"
+# Rows of the extras (recent ring + self-KV) one block takes at most: E =
+# 129 is two chunks of 65 and 64, each about one cluster's bytes.
+EXTRAS_ROWS = 128
 
 
 def block_gather_attention(
@@ -60,7 +66,7 @@ def block_gather_attention(
   has_dec = k_sel is not None
   has_ext = extras_k is not None
   E = extras_k.shape[2] if has_ext else 0
-  bad = (H != Hkv * G or S % C or v.shape != k.shape
+  bad = (H != Hkv * G or S % C or I < 1 or v.shape != k.shape
          or selected.shape != (B, Hkv, I)
          or (has_dec and (k_sel.shape != (B, Hkv, I, D)
                           or v_sel.shape != k_sel.shape
@@ -84,19 +90,26 @@ def block_gather_attention(
          if has_dec else code)
   if has_dec and k_sel.device != q.device:
     raise ValueError(f"{NAME}: k_sel on {k_sel.device}, q on {q.device}")
+  _build.check_rows(NAME, D, G, k, v, *([extras_k, extras_v] if has_ext
+                                        else []))
   sel = selected.to(device=q.device, dtype=torch.int32).contiguous()
   f32 = dict(dtype=torch.float32, device=q.device)
   sb = sel_bias.to(**f32).contiguous() if has_dec else None
   eb = extras_bias.to(**f32).contiguous() if has_ext else None
+  # One part a selected cluster, one an extras chunk of xrows rows.
+  xrows = -(-E // -(-E // EXTRAS_ROWS)) if E else 1
+  nparts = I + (-(-E // xrows) if has_ext else 0)
   o = torch.empty((B, H, D), **f32)
   m = torch.empty((B, H), **f32)
   l = torch.empty((B, H), **f32)
+  part = (_build.partials(q.device, B * H, nparts, D) if nparts > 1
+          else (None,) * 4)
   P = _build.ptr
   err = _build.library().block_gather_launch(
       P(q), P(k), P(v), P(sel), P(k_sel), P(v_sel), P(sb), P(extras_k),
-      P(extras_v), P(eb), P(kq), P(vq), P(o), P(m), P(l), B, Hkv, G, S, D,
-      C, I, E, float(sm_scale), float(cap or 0.0), code, storage, dec,
-      _build.stream_ptr(q))
+      P(extras_v), P(eb), P(kq), P(vq), P(o), P(m), P(l), *map(P, part), B,
+      Hkv, G, S, D, C, I, E, xrows, float(sm_scale), float(cap or 0.0), code,
+      storage, dec, _build.stream_ptr(q))
   _build.check(err, NAME)
   _build.LAUNCHES[_build.branch(
       NAME, qt.kind_of(k.dtype) if quantized else "none")] += 1

@@ -1,11 +1,14 @@
-// Shared device helpers for the port's hand-written Hopper kernels.
+// Shared device helpers for the port's hand-written Hopper kernels: type
+// conversions, the quantized encode, softcap and warp reductions (every
+// kernel), the shared-memory online softmax of fused_synopsis.cu and of
+// flash_prefill.cu's f32 branch, and the register-resident row dots of
+// synopsis_score.cu.  flash_decode.cu and block_gather.cu stream their
+// rows through the decode core of decode_core.cuh instead.
 //
-// The four kernels of the synopsis path keep f32 online-softmax state
-// (m, l, acc) in shared memory and accumulate on CUDA cores; the decode
-// kernels' register-resident helpers are further down.  A tile of
-// key/value rows is staged in shared memory as f32 with a padded row
-// stride (D + 1), so that threads of one warp walking neighbouring rows
-// hit distinct banks.
+// The shared-memory softmax keeps f32 state (m, l, acc) in shared memory
+// and accumulates on CUDA cores.  A tile of key/value rows is staged in
+// shared memory as f32 with a padded row stride (D + 1), so that threads
+// of one warp walking neighbouring rows hit distinct banks.
 //
 // NEG_INF_F is the finite sentinel of the JAX reference (-1e30): a masked
 // logit is set to it and still takes part in the softmax, exactly as the
@@ -212,14 +215,15 @@ __device__ inline void softmax_update(SoftmaxSmem s, int R, int n, int D,
 }
 
 // ---------------------------------------------------------------------------
-// Register-resident helpers of the decode kernels (flash_decode,
-// synopsis_score): one thread owns one key row and reads it from device
-// memory in 16-byte vectors, against the G query rows staged f32 in shared
-// memory (all threads read the same query word: a broadcast).
+// Register-resident row dots (synopsis_score): one thread owns one key row
+// and reads it from device memory in 16-byte vectors, against the G query
+// rows staged f32 in shared memory (all threads read the same query word:
+// a broadcast).
 // ---------------------------------------------------------------------------
 
 // Upper bound of the GQA group G, so that per-head state is a fixed-size
-// register array; the wrappers refuse larger groups.
+// register array (here and in decode_core.cuh); the wrappers refuse larger
+// groups.
 constexpr int GMAX = 8;
 
 // 16 bytes at p (16-byte aligned), widened to f32: 4 floats or 8 bf16.
@@ -267,8 +271,8 @@ __device__ __forceinline__ void row_dots(const float* q_s, const T* row,
 }
 
 // Runs the statements (which must return) with `constexpr int kD = D` for
-// the head dims the decode kernels are built for; any other D returns
-// cudaErrorInvalidValue.
+// the head dims the decode kernels (flash_decode, block_gather,
+// synopsis_score) are built for; any other D returns cudaErrorInvalidValue.
 #define DISPATCH_HEAD_DIM(D, ...)                   \
   switch (D) {                                      \
     case 16: { constexpr int kD = 16; __VA_ARGS__ } \

@@ -5,8 +5,10 @@ replaces ``repro/kernels/flash_decode.py``).
 It serves the exact baseline (the whole cache, then the one-token self
 partial) and the unfused synopsis op's stage 1 (the centroid tables with a
 log(count) bias, -1e30 on the selected clusters).  The kernel splits S
-across blocks and merges the chunks' partials, so a ragged S (8320 after
-an absorb, 65 centroids, 1 self token) needs no tile that divides it.
+across blocks (chunks of whole tiles of the decode core, sized here so the
+grid fills the card about once) and merges the chunks' partials, so a
+ragged S (8320 after an absorb, 65 centroids, 1 self token) needs no tile
+that divides it.
 """
 from __future__ import annotations
 
@@ -18,17 +20,24 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref
 
 NAME = "flash_decode"
-# Rows of S that one block walks (its four warps take 32-row tiles in
-# turn); at least one tile per warp.
+# Blocks of the grid for each SM: 2 measured fastest at the exact path's
+# shape on the H100 (chunks of 512 rows; 1, 3, 4 and 6 were slower; an SM
+# holds 5 blocks of ~37 KB of shared memory at D = 128 in bf16); and the
+# fewest rows a chunk: the self token and the 64 / 65 centroid tables are
+# one chunk, with no merge.
+BLOCKS_PER_SM = 2
 MIN_CHUNK = 128
 
 
-def _chunk(S: int, blocks: int, sms: int) -> int:
-  """Rows per block: enough chunks that the grid covers every SM about
-  four times, none shorter than MIN_CHUNK, rounded to whole 32-row tiles."""
-  nsplit = max(1, min(-(-S // MIN_CHUNK), -(-4 * sms // blocks)))
+def _chunk(S: int, D: int, itemsize: int, blocks: int, sms: int) -> int:
+  """Rows per block: enough chunks for BLOCKS_PER_SM blocks on each SM,
+  none shorter than MIN_CHUNK, rounded to whole rounds of one tile for
+  each warp of the block."""
+  rnd = _build.DECODE_WARPS * _build.decode_tile_rows(D, itemsize)
+  nsplit = max(1, min(-(-S // max(MIN_CHUNK, rnd)),
+                      -(-BLOCKS_PER_SM * sms // blocks)))
   rows = -(-S // nsplit)
-  return -(-rows // 32) * 32
+  return -(-rows // rnd) * rnd
 
 
 def flash_decode(
@@ -59,17 +68,15 @@ def flash_decode(
   f32 = dict(dtype=torch.float32, device=q.device)
   if bias is not None:
     bias = bias.to(**f32).contiguous()
-  chunk = _chunk(S, B * Hkv,
+  chunk = _chunk(S, D, k.element_size(), B * Hkv,
                  torch.cuda.get_device_properties(q.device)
                  .multi_processor_count)
   nsplit = -(-S // chunk)
   o = torch.empty((B, H, D), **f32)
   m = torch.empty((B, H), **f32)
   l = torch.empty((B, H), **f32)
-  part = ((torch.empty((B * H, nsplit, D), **f32),
-           torch.empty((B * H, nsplit), **f32),
-           torch.empty((B * H, nsplit), **f32)) if nsplit > 1
-          else (None, None, None))
+  part = (_build.partials(q.device, B * H, nsplit, D) if nsplit > 1
+          else (None,) * 4)
   P = _build.ptr
   err = _build.library().flash_decode_launch(
       P(q), P(k), P(v), P(bias), P(o), P(m), P(l), *map(P, part), B, Hkv,

@@ -64,25 +64,37 @@ def _prefill_inputs(shape, seed=0):
       _rand(g, B, S, Hkv, D)
 
 
-def _gather_inputs(case, S, D=128, seed=3, E=144):
+def _gather_inputs(case, S, D=128, seed=3, E=144, C=16, I=3, G=4, Hkv=2):
   """Stage-2 inputs shaped as the serve step builds them: centroids are
   cluster means, the decrement bias is log(count), extras are a 128-row
   ring (100 valid) plus self-KV: E = 129 as the port builds them, or
-  padded to 144 with masked rows as the JAX package does."""
-  B, Hkv, G, C = 2, 2, 4, 16
+  padded to 144 with masked rows as the JAX package does.  Cases: "plain"
+  (neither epilogue), "dec_extras", "padded" (some -1 ids), "all_padded"
+  (one -1 id, extras only), "all_padded_no_extras" (three -1 ids, no
+  extras: every part is padded and all of them survive the merge),
+  "equal_keys" (the first selected cluster's C keys are equal, so its
+  rows and its centroid term cancel: its part's l is ~0)."""
+  B = 2
   M = S // C
   g = torch.Generator().manual_seed(seed)
   q = _rand(g, B, Hkv * G, D)
   k, v = _rand(g, B, Hkv, S, D), _rand(g, B, Hkv, S, D)
   if case == "all_padded":
     sel = torch.full((B, Hkv, 1), -1, dtype=torch.int32)
+  elif case == "all_padded_no_extras":
+    sel = torch.full((B, Hkv, 3), -1, dtype=torch.int32)
   else:
-    sel = torch.stack([torch.stack([torch.randperm(M, generator=g)[:3]
+    sel = torch.stack([torch.stack([torch.randperm(M, generator=g)[:I]
                                     for _ in range(Hkv)]) for _ in range(B)])
     sel = sel.to(torch.int32)
     if case == "padded":
-      sel[0, 0, 1] = -1
-      sel[1, :, 2] = -1
+      sel[0, 0, min(1, I - 1)] = -1
+      sel[1, :, I - 1] = -1
+    if case == "equal_keys":
+      for b in range(B):
+        for h in range(Hkv):
+          c = int(sel[b, h, 0])
+          k[b, h, c * C:(c + 1) * C] = k[b, h, c * C]
   kw = {}
   if case != "plain":
     k_syn = k.reshape(B, Hkv, M, C, D).mean(3)
@@ -91,6 +103,7 @@ def _gather_inputs(case, S, D=128, seed=3, E=144):
     kw["k_sel"] = torch.gather(k_syn, 2, safe)
     kw["v_sel"] = torch.gather(v_syn, 2, safe)
     kw["sel_bias"] = torch.full(sel.shape, float(np.log(C)))
+  if case not in ("plain", "all_padded_no_extras"):
     ek, ev = _rand(g, B, Hkv, 144, D), _rand(g, B, Hkv, 144, D)
     ek[:, :, 129:] = 0.0
     ev[:, :, 129:] = 0.0
@@ -123,6 +136,12 @@ def test_ctypes_signatures_match_the_c_entry_points():
   assert found.keys() == _build.SIGNATURES.keys()
   for name, argtypes in _build.SIGNATURES.items():
     assert [kinds[t] for t in argtypes] == found[name], name
+  # The split decode kernels take their outputs, then the scratch of their
+  # chunk partials (o, m, l of every part) and the counters of their
+  # last-block merge from the wrapper.
+  for name, n_in in (("flash_decode_launch", 4), ("block_gather_launch", 12)):
+    assert found[name][:n_in + 7] == ["ptr"] * (n_in + 7), name
+    assert found[name][n_in + 7] == "int", name
 
 
 def test_cpu_tensors_run_the_plain_versions_without_launching():
@@ -256,23 +275,69 @@ def test_card_fused_synopsis(cuda, dtype, M, cap):
     _close(a, b, TOL[dtype])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("case", ["plain", "dec_extras", "padded",
-                                  "all_padded"])
-@pytest.mark.parametrize("S", [128, 144])
-@pytest.mark.parametrize("E", [129, 144])
-def test_card_block_gather(cuda, dtype, case, S, E):
-  q, k, v, sel, C, kw = _gather_inputs(case, S, E=E)
-  args = _to(cuda, dtype, q, k, v)
-  kwc = {n: (t.to(cuda) if n in ("sel_bias", "extras_bias")
-             else t.to(device=cuda, dtype=dtype)) for n, t in kw.items()}
+def _check_gather(dev, dtype, q, k, v, sel, C, kw, key=None):
+  """block_gather_attention on the card against its plain version on the
+  same (card) inputs, softcap 30; one launch of branch ``key``."""
+  args = _to(dev, dtype, q, k, v)
+  kwc = {n: (t.to(dev) if n in ("sel_bias", "extras_bias")
+             else t.to(device=dev, dtype=dtype)) for n, t in kw.items()}
   opts = dict(cluster_size=C, sm_scale=q.shape[-1] ** -0.5, cap=30.0)
-  got = block_gather_attention(*args, sel.to(cuda), **opts, **kwc)
-  want = ref.fused_gather_attention_ref(*args, sel.to(cuda), **opts, **kwc)
+  key = key or "block_gather_attention"
+  n0 = _build.LAUNCHES[key]
+  got = block_gather_attention(*args, sel.to(dev), **opts, **kwc)
+  torch.cuda.synchronize()
+  assert _build.LAUNCHES[key] == n0 + 1
+  want = ref.fused_gather_attention_ref(*args, sel.to(dev), **opts, **kwc)
   for a, b in zip(got, want):
     assert torch.isfinite(a).all()
     _close(a, b, TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", ["plain", "dec_extras", "padded",
+                                  "all_padded", "all_padded_no_extras",
+                                  "equal_keys"])
+@pytest.mark.parametrize("S", [128, 144])
+@pytest.mark.parametrize("E", [129, 144])
+def test_card_block_gather(cuda, dtype, case, S, E):
+  _check_gather(cuda, dtype, *_gather_inputs(case, S, E=E))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("C", [16, 48, 128])
+@pytest.mark.parametrize("I", [1, 3, 32])
+@pytest.mark.parametrize("case", ["dec_extras", "padded", "equal_keys"])
+def test_card_block_gather_clusters(cuda, dtype, C, I, case):
+  """One part a selected cluster: C shorter than a tile (16), not a whole
+  number of tiles (48) and several tiles (128); I = 1 (one part with the
+  extras), 3 and 32 parts, over M = I + 2 clusters; E = 129."""
+  _check_gather(cuda, dtype, *_gather_inputs(case, (I + 2) * C, C=C, I=I,
+                                             E=129, seed=C + I))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D", _build.HEAD_DIMS)
+@pytest.mark.parametrize("G", [1, _build.GMAX])
+def test_card_block_gather_head_dims(cuda, dtype, D, G):
+  """Every head dim the kernel is built for, at a group of 1 and of
+  GMAX, with both epilogues and a padded id."""
+  _check_gather(cuda, dtype, *_gather_inputs("padded", 6 * 48, D=D, C=48,
+                                             G=G, E=129, seed=D + G))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,G", [(48, 4), (128, 9)])
+def test_card_block_gather_refuses_unbuilt_shapes(cuda, D, G):
+  q, k, v, sel, C, kw = _gather_inputs("dec_extras", 64, D=D, G=G, E=129)
+  args = _to(cuda, torch.float32, q, k, v)
+  kwc = {n: t.to(cuda) for n, t in kw.items()}
+  n0 = _build.LAUNCHES["block_gather_attention"]
+  with pytest.raises(ValueError, match="head dim"):
+    block_gather_attention(*args, sel.to(cuda), cluster_size=C, **kwc)
+  assert _build.LAUNCHES["block_gather_attention"] == n0
 
 
 def _decode_inputs(g, S, D=128, B=2, Hkv=8, G=4):
@@ -282,13 +347,14 @@ def _decode_inputs(g, S, D=128, B=2, Hkv=8, G=4):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("S", [1, 65, 8192, 8320])
+@pytest.mark.parametrize("S", [1, 65, 129, 385, 4096, 8192, 8320])
 @pytest.mark.parametrize("bias_kind", [None, "log_count", "masked"])
 @pytest.mark.parametrize("cap", [None, 30.0])
 def test_card_flash_decode(cuda, dtype, S, bias_kind, cap):
   """The exact path's shapes (S = 8192, 8320 after an absorb, 1 for the
   self token) and the unfused stage 1's (65 centroids; log(count) bias,
-  -1e30 on some keys, or on every key in the S = 1 and 65 cases)."""
+  -1e30 on some keys, or on every key in the S = 1 and 65 cases); S = 129
+  and 385 end in a chunk of one row, 4096 is the size of 32 clusters."""
   g = torch.Generator().manual_seed(10)
   q, k, v = _to(cuda, dtype, *_decode_inputs(g, S))
   bias = None
@@ -313,7 +379,8 @@ def test_card_flash_decode(cuda, dtype, S, bias_kind, cap):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("D,G", [(16, 4), (64, 1), (128, 8), (256, 2)])
+@pytest.mark.parametrize("D,G", sorted({(16, 4), (256, 2)} | {
+    (D, G) for D in _build.HEAD_DIMS for G in (1, _build.GMAX)}))
 def test_card_flash_decode_head_dims(cuda, dtype, D, G):
   """Every head dim the kernel is built for, at a ragged S, with a group
   of 1 and of GMAX."""
@@ -516,28 +583,41 @@ def test_card_fused_synopsis_quant(cuda, dtype, kind, M, cap):
     _close(a, b, TOL[dtype])
 
 
-def _quant_gather_inputs(g, spec, M, budget, dtype, dev):
+def _quant_gather_inputs(g, spec, M, budget, dtype, dev, C=128,
+                         equal=False):
   """Stage-2 inputs as ``refine_stage2`` builds them on a quantized arena
-  at the decode shape: decrement rows dequantized in f32, E = 129 extras
-  in the compute type, per-block scales under ``+kv``."""
-  B, Hkv, G, D, C = 2, 8, 4, 128, 128
+  at the decode shape: decrement rows dequantized in f32 from the
+  quantized centroid tables (the means of the cache's clusters), E = 129
+  extras in the compute type, per-block scales under ``+kv``.  ``equal``:
+  the first selected cluster's keys are all equal, so its rows nearly
+  cancel its centroid term (exactly up to the centroid table's
+  rounding)."""
+  B, Hkv, G, D = 2, 8, 4, 128
   qc = qt.parse_qconfig(spec)
   q = _rand(g, B, Hkv * G, D)
   k, v = _rand(g, B, Hkv, M * C, D), _rand(g, B, Hkv, M * C, D)
-  kw = {}
-  if qc.sorted_kv:
-    k, kw["kv_k_scale"] = qt.quantize_rows(k, qc.kind, block=C)
-    v, kw["kv_v_scale"] = qt.quantize_rows(v, qc.kind, block=C)
-  else:
-    k, v = k.to(dtype), v.to(dtype)
-  _, _, ks, vs = _quant_tables(g, qc.kind, B, Hkv, M, D)
-  kq, vq, _, _ = _quant_tables(g, qc.kind, B, Hkv, M, D)
   if budget == 0:
     sel = torch.full((B, Hkv, 1), -1, dtype=torch.int32)
   else:
     sel = torch.stack([torch.stack([torch.randperm(M, generator=g)[:budget]
                                     for _ in range(Hkv)]) for _ in range(B)])
     sel = sel.to(torch.int32)
+  if equal:
+    for b in range(B):
+      for h in range(Hkv):
+        c = int(sel[b, h, 0])
+        k[b, h, c * C:(c + 1) * C] = k[b, h, c * C]
+  kw = {}
+  if qc.sorted_kv:
+    k, kw["kv_k_scale"] = qt.quantize_rows(k, qc.kind, block=C)
+    v, kw["kv_v_scale"] = qt.quantize_rows(v, qc.kind, block=C)
+  else:
+    k, v = k.to(dtype), v.to(dtype)
+  def table(x, scale):  # the centroid table: the clusters' means, quantized
+    xf = x.float() if scale is None else qt.dequantize_rows(x, scale, block=C)
+    return qt.quantize_rows(xf.reshape(B, Hkv, M, C, D).mean(3), qc.kind)
+  kq, ks = table(k, kw.get("kv_k_scale"))
+  vq, vs = table(v, kw.get("kv_v_scale"))
   safe = sel.long().clamp_min(0)
   rows = safe[..., None].expand(-1, -1, -1, D)
   kw["k_sel"] = (qt.gather_rows(kq, 2, rows).float()
@@ -557,15 +637,18 @@ def _quant_gather_inputs(g, spec, M, budget, dtype, dev):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("spec", QSPECS)
 @pytest.mark.parametrize("M", [64, 65])
-@pytest.mark.parametrize("budget", [0, 32])
-def test_card_block_gather_quant(cuda, dtype, spec, M, budget):
+@pytest.mark.parametrize("budget,equal", [(0, False), (1, False), (3, True),
+                                          (32, False), (32, True)])
+@pytest.mark.parametrize("C", [16, 128])
+def test_card_block_gather_quant(cuda, dtype, spec, M, budget, equal, C):
   """Every stage-2 branch the quantized path runs: a bf16 / f32 cache with
   f32 decrement rows (int8, fp8), and an int8 / fp8 cache with its
   per-block scales (+kv); budget 0 reads cluster 0's scale for the -1
-  ids, never past the table."""
+  ids, never past the table; one part (budget 1 with the extras) to 32;
+  a cluster of equal keys, whose part nearly cancels."""
   g = torch.Generator().manual_seed(16)
   q, k, v, sel, C, kw = _quant_gather_inputs(g, spec, M, budget, dtype,
-                                             cuda)
+                                             cuda, C=C, equal=equal)
   qc = qt.parse_qconfig(spec)
   key = _build.branch("block_gather_attention",
                       qc.kind if qc.sorted_kv else "none")

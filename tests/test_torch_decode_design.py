@@ -1,0 +1,405 @@
+"""The split-and-merge design of the two decode kernels
+(``csrc/decode_core.cuh``, ``csrc/flash_decode.cu``,
+``csrc/block_gather.cu``), emulated in torch on the CPU and held against
+the plain versions (``ref.fused_gather_attention_ref``,
+``ref.flash_decode_ref``) and the JAX package's Pallas kernels in
+interpret mode.
+
+The kernels run only on the card; this keeps their arithmetic checkable
+without one.  The emulation does what a block does: its span of rows is
+cut into tiles of ``_build.decode_tile_rows`` rows, tile t goes to warp
+t % DECODE_WARPS, each warp keeps an f32 online softmax over its tiles
+with the finite -1e30 sentinel, and the warps merge into the block's
+*unnormalised* partial (acc, m, l).  ``block_gather`` has one part a
+selected cluster, with its scales and its centroid's decrement term
+folded in as a row of weight -1, and one part an extras chunk of at most
+``EXTRAS_ROWS`` rows; ``flash_decode`` one part a chunk of
+``flash_decode._chunk`` rows.  The merge is exact: m the max, l the sum
+of l_s * exp(m_s - m), o divided by l only where |l| > 1e-30 for
+``block_gather`` (l is signed), by max(l, 1e-30) for ``flash_decode``.
+
+Tolerance 2e-5 (f32 on every side, sums in other orders: the bound of
+``test_torch_kernels.py``).  The traps of the split are cases here:
+budget 0 (all ``-1`` ids, extras only), every part padded with no extras
+(every part survives), a cluster of equal keys (its part's l cancels to
+~0), C = 16 (shorter than one tile), a ragged E, S = 8320 / M = 65 after
+an absorb, and the int8 / fp8 ``+kv`` scales.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import quant as jqt
+from repro.kernels.block_gather_attention import (
+    block_gather_attention as j_block_gather)
+from repro_torch import bridge
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels import quant as qt
+from repro_torch.kernels.block_gather_attention import EXTRAS_ROWS
+from repro_torch.kernels.flash_decode import (BLOCKS_PER_SM, MIN_CHUNK,
+                                              _chunk)
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+NEG_INF = -1e30
+H100_SMS = 132
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+  threads = torch.get_num_threads()
+  torch.set_num_threads(1)
+  yield
+  torch.set_num_threads(threads)
+
+
+def _t(a):
+  return bridge.arena_from_numpy({"x": np.asarray(a)}, "cpu")["x"]
+
+
+def _close(got, want, tol=TOL):
+  np.testing.assert_allclose(np.asarray(got, np.float32),
+                             np.asarray(want, np.float32), **tol)
+
+
+def _normal(rng, *shape):
+  return rng.standard_normal(shape).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# The emulation
+# ---------------------------------------------------------------------------
+
+def _span(qg, k, v, logit, tile_rows):
+  """One block over the rows of k, v (..., n, D) (codes widened to f32)
+  for the query groups qg (..., G, D): its warps' online softmaxes over
+  their tiles, merged.  logit(raw (..., G, r), r0, r1) gives the logits
+  of rows [r0, r1).  Returns the unnormalised (acc, m, l)."""
+  n = k.shape[-2]
+  lead, G, D = qg.shape[:-2], qg.shape[-2], qg.shape[-1]
+  ntiles = -(-n // tile_rows)
+  warps = []
+  for w in range(_build.DECODE_WARPS):
+    m = torch.full(lead + (G,), NEG_INF)
+    l = torch.zeros(lead + (G,))
+    acc = torch.zeros(lead + (G, D))
+    for t in range(w, ntiles, _build.DECODE_WARPS):
+      r0, r1 = t * tile_rows, min(n, (t + 1) * tile_rows)
+      raw = torch.einsum("...gd,...rd->...gr", qg, k[..., r0:r1, :])
+      x = logit(raw, r0, r1)
+      m_new = torch.maximum(m, x.amax(-1))
+      alpha = torch.exp(m - m_new)
+      p = torch.exp(x - m_new[..., None])
+      l = l * alpha + p.sum(-1)
+      acc = acc * alpha[..., None] + torch.einsum("...gr,...rd->...gd", p,
+                                                  v[..., r0:r1, :])
+      m = m_new
+    warps.append((acc, m, l))
+  return _combine(warps)
+
+
+def _combine(parts):
+  """Exact merge of unnormalised partials: (acc, m, l), l signed."""
+  m = torch.stack([p[1] for p in parts]).amax(0)
+  acc = sum(p[0] * torch.exp(p[1] - m)[..., None] for p in parts)
+  l = sum(p[2] * torch.exp(p[1] - m) for p in parts)
+  return acc, m, l
+
+
+def _finish(parts, B, H, D, signed):
+  acc, m, l = _combine(parts)
+  if signed:
+    o = acc / torch.where(l.abs() > 1e-30, l, torch.ones_like(l))[..., None]
+  else:
+    o = acc / l.clamp_min(1e-30)[..., None]
+  return o.reshape(B, H, D), m.reshape(B, H), l.reshape(B, H)
+
+
+def gather_parts(q, k, v, selected, *, cluster_size, sm_scale=1.0, cap=None,
+                 k_sel=None, v_sel=None, sel_bias=None, extras_k=None,
+                 extras_v=None, extras_bias=None, kv_k_scale=None,
+                 kv_v_scale=None):
+  """block_gather's parts, as its blocks leave them (unnormalised): one
+  per selected cluster, then one per extras chunk."""
+  B, H, D = q.shape
+  _, Hkv, _, _ = k.shape
+  G, C = H // Hkv, cluster_size
+  qg = q.reshape(B, Hkv, G, D).float()
+  parts = []
+  for i in range(selected.shape[-1]):
+    sel = selected[..., i].long()                           # (B, Hkv)
+    valid, cid = sel >= 0, sel.clamp_min(0)
+    idx = (cid[..., None] * C + torch.arange(C))[..., None].expand(
+        -1, -1, -1, D)
+    kc = qt.gather_rows(k, 2, idx).float()                  # raw codes
+    vc = qt.gather_rows(v, 2, idx).float()
+    one = torch.ones((B, Hkv))
+    ksc = (one if kv_k_scale is None
+           else torch.gather(kv_k_scale.float(), 2, cid[..., None])[..., 0])
+    vsc = (one if kv_v_scale is None
+           else torch.gather(kv_v_scale.float(), 2, cid[..., None])[..., 0])
+
+    def logit(raw, r0, r1, ksc=ksc, valid=valid):
+      x = ref.apply_softcap(raw * ksc[..., None, None] * sm_scale, cap)
+      return torch.where(valid[..., None, None], x, torch.tensor(NEG_INF))
+
+    acc, m, l = _span(qg, kc, vc, logit,
+                      _build.decode_tile_rows(D, k.element_size()))
+    acc = acc * vsc[..., None, None]
+    if k_sel is not None:                # the decrement: a row of weight -1
+      sc = ref.apply_softcap(torch.einsum(
+          "bhgd,bhd->bhg", qg, k_sel[:, :, i].float()) * sm_scale, cap)
+      sc = torch.where(valid[..., None], sc + sel_bias[:, :, i, None],
+                       torch.tensor(NEG_INF))
+      m2 = torch.maximum(m, sc)
+      e1, e2 = torch.exp(m - m2), torch.exp(sc - m2)
+      l = l * e1 - e2
+      acc = (acc * e1[..., None]
+             - v_sel[:, :, i, None, :].float() * e2[..., None])
+      m = m2
+    parts.append((acc, m, l))
+  if extras_k is not None:
+    E = extras_k.shape[2]
+    xrows = -(-E // -(-E // EXTRAS_ROWS))
+    for x0 in range(0, E, xrows):
+      eb = extras_bias[:, x0:x0 + xrows].float()
+
+      def logit(raw, r0, r1, eb=eb):
+        return (ref.apply_softcap(raw * sm_scale, cap)
+                + eb[:, None, None, r0:r1])
+
+      parts.append(_span(qg, extras_k[:, :, x0:x0 + xrows].float(),
+                         extras_v[:, :, x0:x0 + xrows].float(), logit,
+                         _build.decode_tile_rows(D, extras_k.element_size())))
+  return parts
+
+
+def emulate_block_gather(q, k, v, selected, **kw):
+  B, H, D = q.shape
+  return _finish(gather_parts(q, k, v, selected, **kw), B, H, D, True)
+
+
+def emulate_flash_decode(q, k, v, bias=None, *, sm_scale=1.0, cap=None,
+                         chunk):
+  B, H, D = q.shape
+  Hkv, S = k.shape[1], k.shape[2]
+  qg = q.reshape(B, Hkv, H // Hkv, D).float()
+  tr = _build.decode_tile_rows(D, k.element_size())
+  parts = []
+  for s0 in range(0, S, chunk):
+    bc = None if bias is None else bias[:, :, s0:s0 + chunk].float()
+
+    def logit(raw, r0, r1, bc=bc):
+      x = ref.apply_softcap(raw * sm_scale, cap)
+      return x if bc is None else x + bc[:, :, None, r0:r1]
+
+    parts.append(_span(qg, k[:, :, s0:s0 + chunk].float(),
+                       v[:, :, s0:s0 + chunk].float(), logit, tr))
+  return _finish(parts, B, H, D, False)
+
+
+# ---------------------------------------------------------------------------
+# block_gather_attention
+# ---------------------------------------------------------------------------
+
+GATHER_CASES = {
+    # name: (M, C, I, E, selection, extras)
+    "budget0": (8, 16, 1, 129, "all_padded", True),
+    "all_padded_no_extras": (8, 16, 3, 0, "all_padded", False),
+    "equal_keys": (8, 16, 3, 129, "equal_keys", True),
+    "c16_padded": (9, 16, 5, 129, "padded", True),
+    "ragged_e144": (8, 16, 3, 144, "padded", True),
+    "absorbed_m65": (65, 128, 32, 129, "padded", True),
+    "one_part": (8, 16, 1, 0, "random", False),
+}
+
+
+def _gather_case(name, seed=0, D=32, B=2, Hkv=2, G=4):
+  """Numpy inputs of a case, built as the serve step builds them:
+  centroids are the clusters' means, the decrement bias log(count), the
+  extras a 128-row ring (100 valid) plus self-KV, masked past 129."""
+  M, C, I, E, selection, extras = GATHER_CASES[name]
+  rng = np.random.default_rng(seed)
+  S = M * C
+  q = _normal(rng, B, Hkv * G, D)
+  k, v = _normal(rng, B, Hkv, S, D), _normal(rng, B, Hkv, S, D)
+  if selection == "all_padded":
+    sel = np.full((B, Hkv, I), -1, np.int32)
+  else:
+    sel = np.stack([[rng.permutation(M)[:I] for _ in range(Hkv)]
+                    for _ in range(B)]).astype(np.int32)
+    if selection == "padded":
+      sel[0, 0, 1] = -1
+      sel[1, :, I - 1] = -1
+    if selection == "equal_keys":
+      for b in range(B):
+        for h in range(Hkv):
+          c = sel[b, h, 0]
+          k[b, h, c * C:(c + 1) * C] = k[b, h, c * C]
+  k_syn = k.reshape(B, Hkv, M, C, D).mean(3)
+  v_syn = v.reshape(B, Hkv, M, C, D).mean(3)
+  safe = np.maximum(sel, 0)[..., None]
+  kw = dict(k_sel=np.take_along_axis(k_syn, safe, axis=2),
+            v_sel=np.take_along_axis(v_syn, safe, axis=2),
+            sel_bias=np.full(sel.shape, np.log(C), np.float32))
+  if extras:
+    ek, ev = _normal(rng, B, Hkv, E, D), _normal(rng, B, Hkv, E, D)
+    eb = np.zeros((B, E), np.float32)
+    eb[:, 100:128] = NEG_INF
+    eb[:, 129:] = NEG_INF
+    ek[:, :, 129:] = 0.0
+    ev[:, :, 129:] = 0.0
+    kw.update(extras_k=ek, extras_v=ev, extras_bias=eb)
+  return q, k, v, sel, C, kw
+
+
+def _hold(q, k, v, sel, C, kw, cap, kq=None, vq=None):
+  """The emulation against the plain version and the Pallas kernel.
+  kq / vq: the cache as JAX codes when it is quantized."""
+  sm = q.shape[-1] ** -0.5
+  tk = {n: _t(a) for n, a in kw.items()}
+  args = (_t(q), _t(k if kq is None else kq), _t(v if vq is None else vq),
+          _t(sel))
+  got = emulate_block_gather(*args, cluster_size=C, sm_scale=sm, cap=cap,
+                             **tk)
+  want = ref.fused_gather_attention_ref(*args, cluster_size=C, sm_scale=sm,
+                                        cap=cap, **tk)
+  jax_out = j_block_gather(
+      jnp.asarray(q), jnp.asarray(k if kq is None else kq),
+      jnp.asarray(v if vq is None else vq), jnp.asarray(sel),
+      cluster_size=C, sm_scale=sm, cap=cap, interpret=True,
+      **{n: jnp.asarray(a) for n, a in kw.items()})
+  for g, w, j in zip(got, want, jax_out):
+    assert torch.isfinite(g).all()
+    _close(g, w)
+    _close(g, j)
+  return args, tk
+
+
+@pytest.mark.parametrize("case", sorted(GATHER_CASES))
+@pytest.mark.parametrize("cap", [None, 30.0])
+def test_split_gather_matches_plain_and_pallas(case, cap):
+  q, k, v, sel, C, kw = _gather_case(case)
+  _hold(q, k, v, sel, C, kw, cap)
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("case", ["c16_padded", "equal_keys"])
+def test_split_gather_quantized_cache_scales(kind, case):
+  """The int8 / fp8 ``+kv`` cache: one scale per cluster block on the
+  part's raw logits and on its acc (p entering p.V), none on the
+  decrement (dequantized f32 rows) or the extras."""
+  q, k, v, sel, C, kw = _gather_case(case, seed=4)
+  B, Hkv, S, D = k.shape
+  kq, ks = jqt.quantize_rows(jnp.asarray(k), kind, block=C)
+  vq, vs = jqt.quantize_rows(jnp.asarray(v), kind, block=C)
+  kw.update(kv_k_scale=np.asarray(ks), kv_v_scale=np.asarray(vs))
+  _hold(q, k, v, sel, C, kw, 30.0, kq=np.asarray(kq), vq=np.asarray(vq))
+
+
+def test_equal_keys_part_cancels_and_is_kept_unnormalised():
+  """A cluster whose C keys equal its centroid: its rows' mass C e^x and
+  its decrement e^(x + log C) cancel, so its part's l is ~0 (and its acc
+  ~0 with the centroid's value the rows' mean).  Normalising that part
+  on its own would divide by ~0; the unnormalised part merges to the
+  plain version's output."""
+  q, k, v, sel, C, kw = _gather_case("equal_keys")
+  tk = {n: _t(a) for n, a in kw.items()}
+  parts = gather_parts(_t(q), _t(k), _t(v), _t(sel), cluster_size=C,
+                       sm_scale=q.shape[-1] ** -0.5, **tk)
+  acc, m, l = parts[0]
+  assert float(l.abs().max()) < 1e-5
+  assert float(acc.abs().max()) < 1e-4
+  others = parts[1]
+  assert float(others[2].abs().min()) > 1e-2
+
+
+def test_padded_parts_are_wiped_out_or_all_kept():
+  """An all-padded part is (m = -1e30, l = C - 1): every row and its
+  decrement at the sentinel.  A finite m elsewhere wipes it out; with no
+  extras every part survives, as in the unsplit sum."""
+  q, k, v, sel, C, kw = _gather_case("all_padded_no_extras")
+  tk = {n: _t(a) for n, a in kw.items()}
+  sm = q.shape[-1] ** -0.5
+  parts = gather_parts(_t(q), _t(k), _t(v), _t(sel), cluster_size=C,
+                       sm_scale=sm, **tk)
+  for acc, m, l in parts:
+    assert torch.all(m == NEG_INF) and torch.all(l == C - 1)
+  o, m, l = emulate_block_gather(_t(q), _t(k), _t(v), _t(sel),
+                                 cluster_size=C, sm_scale=sm, **tk)
+  assert torch.all(m == NEG_INF) and torch.all(l == len(parts) * (C - 1))
+  q, k, v, sel, C, kw = _gather_case("budget0")
+  tk = {n: _t(a) for n, a in kw.items()}
+  parts = gather_parts(_t(q), _t(k), _t(v), _t(sel), cluster_size=C,
+                       sm_scale=sm, **tk)
+  _, m, l = _combine(parts)
+  extras = _combine(parts[1:])
+  torch.testing.assert_close(l, extras[2], rtol=0, atol=0)
+  assert torch.all(m > NEG_INF)
+
+
+def test_extras_chunks_cover_e_in_near_equal_parts():
+  for E, want in ((129, [65, 64]), (128, [128]), (144, [72, 72]),
+                  (1, [1]), (300, [100, 100, 100])):
+    xrows = -(-E // -(-E // EXTRAS_ROWS))
+    assert [min(xrows, E - x0) for x0 in range(0, E, xrows)] == want
+
+
+# ---------------------------------------------------------------------------
+# flash_decode
+# ---------------------------------------------------------------------------
+
+def test_chunks_fill_one_wave_of_whole_tile_rounds():
+  """The exact path's shape (B = 2, Hkv = 8, D = 128, bf16): whole rounds
+  of one tile a warp, about BLOCKS_PER_SM blocks an SM and never more than
+  one wave of the 5 blocks an SM holds (~37 KB of shared memory each); the
+  self token and the centroid tables are one chunk."""
+  rnd = _build.DECODE_WARPS * _build.decode_tile_rows(128, 2)
+  for S in (4096, 8192, 8320):
+    chunk = _chunk(S, 128, 2, 16, H100_SMS)
+    nsplit = -(-S // chunk)
+    assert chunk % rnd == 0
+    assert 0.75 * BLOCKS_PER_SM * H100_SMS <= nsplit * 16 <= 5 * H100_SMS
+  for S in (1, 64, 65, MIN_CHUNK):
+    assert _chunk(S, 128, 2, 16, H100_SMS) >= S
+
+
+DECODE_CASES = [
+    # (S, bias kind, cap)
+    (1, None, None), (65, "masked", None), (65, "all_masked", None),
+    (129, "log_count", None), (385, None, 30.0), (8192, None, None),
+    (8320, "masked", 30.0),
+]
+
+
+@pytest.mark.parametrize("S,bias_kind,cap", DECODE_CASES)
+@pytest.mark.parametrize("chunking", ["main_path", "this_shape"])
+def test_split_decode_matches_plain_and_pallas(S, bias_kind, cap, chunking):
+  """flash_decode's chunks: at the chunk length of the exact path's shape
+  (bf16, D = 128, 16 (b, hkv) rows) and at the one this f32 test shape
+  gets, against the plain version and the Pallas kernel."""
+  B, Hkv, G, D = 1, 2, 4, 32
+  rng = np.random.default_rng(S)
+  q = _normal(rng, B, Hkv * G, D)
+  k, v = _normal(rng, B, Hkv, S, D), _normal(rng, B, Hkv, S, D)
+  bias = None
+  if bias_kind is not None:
+    bias = np.log(rng.integers(1, 129, (B, Hkv, S))).astype(np.float32)
+    if bias_kind != "log_count":
+      bias[(rng.random((B, Hkv, S)) < 0.4) | (bias_kind == "all_masked")] = (
+          NEG_INF)
+  chunk = (_chunk(S, 128, 2, 16, H100_SMS) if chunking == "main_path"
+           else _chunk(S, D, 4, B * Hkv, H100_SMS))
+  sm = D ** -0.5
+  tb = None if bias is None else _t(bias)
+  got = emulate_flash_decode(_t(q), _t(k), _t(v), tb, sm_scale=sm, cap=cap,
+                             chunk=chunk)
+  want = ref.flash_decode_ref(_t(q), _t(k), _t(v), tb, sm_scale=sm, cap=cap)
+  jax_out = jops._decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         None if bias is None else jnp.asarray(bias), sm,
+                         "interpret", cap=cap)
+  for g, w, j in zip(got, want, jax_out):
+    assert torch.isfinite(g).all()
+    _close(g, w)
+    _close(g, j)
