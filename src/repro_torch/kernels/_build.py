@@ -37,7 +37,8 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 GMAX = 8
 
 # Geometry of the decode core (csrc/decode_core.cuh) that the wrappers of
-# flash_decode and block_gather_attention size their chunks by: a block
+# flash_decode, block_gather_attention and fused_synopsis_score_attention
+# size their chunks by: a block
 # has DECODE_WARPS warps, and a tile is whole rows, at most
 # DECODE_TILE_BYTES of K and at most DECODE_TILE_ROWS rows.
 DECODE_WARPS = 4
@@ -53,7 +54,7 @@ def decode_tile_rows(D: int, itemsize: int) -> int:
 
 # C entry point -> argtypes (see each .cu file's extern "C" function).
 SIGNATURES = {
-    "fused_synopsis_launch": [_P] * 10 + [_I] * 5 + [_F, _F, _I, _I, _P],
+    "fused_synopsis_launch": [_P] * 14 + [_I] * 6 + [_F, _F, _I, _I, _P],
     "block_gather_launch": [_P] * 19 + [_I] * 9 + [_F, _F] + [_I] * 3 + [_P],
     "segment_build_launch": [_P] * 12 + [_I] * 8 + [_P],
     "flash_prefill_launch": [_P] * 4 + [_I] * 5 + [_F, _F, _I, _I, _P],
@@ -244,9 +245,9 @@ def scale_tensors(name: str, quantized: bool, shape, device, *scales):
 
 def check_rows(name: str, D: int, G: int, *tensors) -> None:
   """The decode kernels (flash_decode, block_gather_attention,
-  synopsis_score) read a key row as whole 16-byte vectors and keep G heads
-  of state in registers: they are built for D in HEAD_DIMS and G <= GMAX,
-  from 16-byte aligned tensors."""
+  fused_synopsis_score_attention, synopsis_score) read a key row as whole
+  16-byte vectors and keep G heads of state in registers: they are built
+  for D in HEAD_DIMS and G <= GMAX, from 16-byte aligned tensors."""
   if D not in HEAD_DIMS or not 1 <= G <= GMAX:
     raise ValueError(f"{name}: head dim {D} / group {G} not built (D in "
                      f"{HEAD_DIMS}, G <= {GMAX})")

@@ -1,9 +1,9 @@
 // Shared device helpers for the port's hand-written Hopper kernels: type
 // conversions, the quantized encode, softcap and warp reductions (every
-// kernel), the shared-memory online softmax of fused_synopsis.cu and of
-// flash_prefill.cu's f32 branch, and the register-resident row dots of
-// synopsis_score.cu.  flash_decode.cu and block_gather.cu stream their
-// rows through the decode core of decode_core.cuh instead.
+// kernel), the shared-memory online softmax of flash_prefill.cu's f32
+// branch, and the register-resident row dots of synopsis_score.cu.
+// flash_decode.cu, block_gather.cu and fused_synopsis.cu stream their rows
+// through the decode core of decode_core.cuh instead.
 //
 // The shared-memory softmax keeps f32 state (m, l, acc) in shared memory
 // and accumulates on CUDA cores.  A tile of key/value rows is staged in
@@ -29,12 +29,6 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-// Quantized storage (the synopsis arena's int8 / fp8-e4m3 codes): the raw
-// code as f32; its scale is applied by the caller.
-__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
-__device__ __forceinline__ float to_f(__nv_fp8_e4m3 x) {
-  return static_cast<float>(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -58,8 +52,9 @@ template <>
 struct Quant<int8_t> {
   static constexpr bool enabled = true;
   static constexpr float qmax = 127.f;
+  // Clipping first and then rounding gives the codes of rounding first.
   __device__ static int8_t encode(float y) {
-    return (int8_t)fminf(fmaxf(rintf(y), -127.f), 127.f);
+    return (int8_t)__float2int_rn(fminf(fmaxf(y, -127.f), 127.f));
   }
 };
 template <>
@@ -156,12 +151,8 @@ __device__ inline void load_tile(SoftmaxSmem s, const T* k, const T* v,
 
 // p[r, j] = q[r] . k[j] * sm_scale for the R x TM tile (rows j >= n are
 // left unused).  One warp covers one query row, one lane one key row.
-// With quantized keys, k_scale[j * scale_stride] (stride 0: one scale for
-// the whole tile) multiplies the raw logit before sm_scale.
 __device__ inline void tile_logits(SoftmaxSmem s, int R, int n, int D,
-                                   float sm_scale,
-                                   const float* k_scale = nullptr,
-                                   int scale_stride = 1) {
+                                   float sm_scale) {
   for (int i = threadIdx.x; i < R * TM; i += blockDim.x) {
     int r = i / TM, j = i % TM;
     if (j < n) {
@@ -169,21 +160,15 @@ __device__ inline void tile_logits(SoftmaxSmem s, int R, int n, int D,
       const float* kj = s.k + (size_t)j * (D + 1);
       float acc = 0.f;
       for (int d = 0; d < D; ++d) acc = fmaf(qr[d], kj[d], acc);
-      if (k_scale != nullptr) acc *= k_scale[j * scale_stride];
       s.p[i] = acc * sm_scale;
     }
   }
 }
 
 // One online-softmax step over the first n rows of the staged tile with
-// the logits in s.p, accumulated with weight `sign` (+1, or -1 for the
-// decremental centroid terms of stage 2).  With quantized values,
-// v_scale[j * scale_stride] multiplies p entering p.V, not l.  Syncs
-// internally; on return s.p holds free scratch again.
-__device__ inline void softmax_update(SoftmaxSmem s, int R, int n, int D,
-                                      float sign,
-                                      const float* v_scale = nullptr,
-                                      int scale_stride = 1) {
+// the logits in s.p.  Syncs internally; on return s.p holds free scratch
+// again.
+__device__ inline void softmax_update(SoftmaxSmem s, int R, int n, int D) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   __syncthreads();
@@ -193,13 +178,11 @@ __device__ inline void softmax_update(SoftmaxSmem s, int R, int n, int D,
     float m_new = fmaxf(m_prev, warp_max(x));
     float p = lane < n ? expf(x - m_new) : 0.f;
     float psum = warp_sum(p);
-    s.p[r * TM + lane] =
-        (v_scale != nullptr && lane < n) ? p * v_scale[lane * scale_stride]
-                                         : p;
+    s.p[r * TM + lane] = p;
     if (lane == 0) {
       float alpha = expf(m_prev - m_new);
       s.a[r] = alpha;
-      s.l[r] = s.l[r] * alpha + sign * psum;
+      s.l[r] = s.l[r] * alpha + psum;
       s.m[r] = m_new;
     }
   }
@@ -209,7 +192,7 @@ __device__ inline void softmax_update(SoftmaxSmem s, int R, int n, int D,
     const float* pr = s.p + (size_t)r * TM;
     float acc = 0.f;
     for (int j = 0; j < n; ++j) acc = fmaf(pr[j], s.v[j * (D + 1) + d], acc);
-    s.acc[i] = s.acc[i] * s.a[r] + sign * acc;
+    s.acc[i] = s.acc[i] * s.a[r] + acc;
   }
   __syncthreads();
 }
@@ -272,7 +255,8 @@ __device__ __forceinline__ void row_dots(const float* q_s, const T* row,
 
 // Runs the statements (which must return) with `constexpr int kD = D` for
 // the head dims the decode kernels (flash_decode, block_gather,
-// synopsis_score) are built for; any other D returns cudaErrorInvalidValue.
+// fused_synopsis, synopsis_score) are built for; any other D returns
+// cudaErrorInvalidValue.
 #define DISPATCH_HEAD_DIM(D, ...)                   \
   switch (D) {                                      \
     case 16: { constexpr int kD = 16; __VA_ARGS__ } \

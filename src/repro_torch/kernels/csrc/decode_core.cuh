@@ -1,6 +1,7 @@
-// The decode core shared by flash_decode.cu and block_gather.cu: one block
-// streams one chunk of key/value rows (a contiguous span: a flash_decode
-// chunk of the cache, one selected cluster, or a chunk of the extras) for
+// The decode core shared by flash_decode.cu, block_gather.cu and
+// fused_synopsis.cu: one block streams one chunk of key/value rows (a
+// contiguous span: a flash_decode chunk of the cache, one selected cluster,
+// a chunk of the extras, or a chunk of the centroid tables) for
 // one query group of G <= GMAX heads, and leaves the chunk's unnormalised
 // online-softmax partial (acc, m, l) to the kernel's epilogue; the last
 // block of a (b, hkv) row to finish (an atomic ticket) merges the chunks'
@@ -224,17 +225,33 @@ __device__ __forceinline__ void issue_tile(char* slot, const TK* k,
   }
 }
 
+// The per-row hooks of stream_chunk that flash_decode and block_gather do
+// without: they compile to nothing.
+struct NoRowHook {  // on_row(x, r): row r's raw dots x[g] of all GB heads
+  template <int GB>
+  __device__ __forceinline__ void operator()(const float (&)[GB], int) const {}
+};
+struct NoPScale {   // pscale(p, r): row r's weight p as it enters p.V
+  __device__ __forceinline__ float operator()(float p, int) const {
+    return p;
+  }
+};
+
 // This warp's share of rows [0, n) of the chunk at (k, v) (tiles warp,
 // warp + WARPS, ...), into st.  q_s: the block's query rows (stage_q);
 // logit(raw, r) turns row r's raw dot q.k of one head into its logit
 // (scale, softcap, bias or sentinel); it is called only for rows r < n and
-// heads g < G.  ring: this warp's Tile::RING_BYTES; p_s: its
-// Tile::P_FLOATS.
-template <typename TK, int D, int GB, typename Logit>
-__device__ __forceinline__ void stream_chunk(const TK* k, const TK* v, int n,
-                                             int G, const float* q_s,
-                                             const Logit& logit, char* ring,
-                                             float* p_s, WarpState<GB>& st) {
+// heads g < G.  on_row(x, r) is called once for every row r < n, by one
+// lane, with the row's raw dots of all GB heads (heads past G hold 0);
+// pscale(p, r) weighs row r's p on its way into p.V after p was added to
+// l (a per-row value scale), for rows r < n.  ring: this warp's
+// Tile::RING_BYTES; p_s: its Tile::P_FLOATS.
+template <typename TK, int D, int GB, typename Logit,
+          typename RowHook = NoRowHook, typename PScale = NoPScale>
+__device__ __forceinline__ void stream_chunk(
+    const TK* k, const TK* v, int n, int G, const float* q_s,
+    const Logit& logit, char* ring, float* p_s, WarpState<GB>& st,
+    const RowHook& on_row = RowHook(), const PScale& pscale = PScale()) {
   using S = Tile<TK, D, GB>;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int ntiles = (n + S::ROWS - 1) / S::ROWS;
@@ -301,6 +318,7 @@ __device__ __forceinline__ void stream_chunk(const TK* k, const TK* v, int n,
             p_s[row * GB + g] = (ok && g < G) ? logit(xv, r0 + row)
                                               : NEG_INF_F;
         }
+        if (ok && piece == 0) on_row(x, r0 + row);
       }
     }
     __syncwarp();
@@ -327,7 +345,7 @@ __device__ __forceinline__ void stream_chunk(const TK* k, const TK* v, int n,
     for (int t = 0; t < S::NE; ++t) {
       const int f = lane + 32 * t;
       const float p = live[t] ? __expf(xs[t] - m_new) : 0.f;
-      if (f < S::ROWS * GB) p_s[f] = p;
+      if (f < S::ROWS * GB) p_s[f] = live[t] ? pscale(p, r0 + f / GB) : p;
       ps += p;
     }
 #pragma unroll

@@ -117,7 +117,7 @@ __global__ void flash_prefill_kernel(const T* __restrict__ q,
         s.p[t] = ok ? softcap_f(s.p[t], cap) : NEG_INF_F;
       }
     }
-    softmax_update(s, R, n, D, 1.f);
+    softmax_update(s, R, n, D);
   }
 
   for (int i = threadIdx.x; i < R * D; i += blockDim.x) {

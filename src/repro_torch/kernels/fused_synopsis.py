@@ -8,6 +8,13 @@ monotone) and the online-softmax partials over ALL centroids with the
 ``log(count)`` bias; stage 2 subtracts the selected centroids' terms.
 Quantized tables (int8 / fp8 codes) come with one f32 scale per centroid
 row, which the kernel folds into the logits and into p entering p.V.
+
+The kernel runs on the split-and-merge decode core: M is cut into chunks
+by flash_decode's rule (``flash_decode._chunk``: one chunk at the loop's
+M = 64 / 65, so no merge and no scratch there; 8 chunks of 128 rows at M
+= 1024 in bf16, which measured as fast as 16 and faster than 4 on the
+H100), and the last block of each (b, hkv) row merges the chunks'
+partials (scratch allocated here).
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import quant as qt
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_decode import _chunk
 
 NAME = "fused_synopsis_score_attention"
 
@@ -53,17 +61,24 @@ def fused_synopsis_score_attention(
   quantized = k_syn.dtype in qt.QDTYPES
   ks, vs = _build.scale_tensors(NAME, quantized, (B, Hkv, M), q.device,
                                 k_scale, v_scale)
+  _build.check_rows(NAME, D, G, k_syn, v_syn)
   cbias = cbias.to(device=q.device, dtype=torch.float32).contiguous()
+  chunk = _chunk(M, D, k_syn.element_size(), B * Hkv,
+                 torch.cuda.get_device_properties(q.device)
+                 .multi_processor_count)
+  nsplit = -(-M // chunk)
   f32 = dict(dtype=torch.float32, device=q.device)
   scores = torch.empty((B, Hkv, M), **f32)
   o = torch.empty((B, H, D), **f32)
   m = torch.empty((B, H), **f32)
   l = torch.empty((B, H), **f32)
+  part = (_build.partials(q.device, B * H, nsplit, D) if nsplit > 1
+          else (None,) * 4)
   P = _build.ptr
   err = _build.library().fused_synopsis_launch(
       P(q), P(k_syn), P(v_syn), P(cbias), P(ks), P(vs), P(scores), P(o),
-      P(m), P(l), B, Hkv, G, M, D, float(sm_scale), float(cap or 0.0), code,
-      storage, _build.stream_ptr(q))
+      P(m), P(l), *map(P, part), B, Hkv, G, M, D, chunk, float(sm_scale),
+      float(cap or 0.0), code, storage, _build.stream_ptr(q))
   _build.check(err, NAME)
   _build.LAUNCHES[_build.branch(
       NAME, qt.kind_of(k_syn.dtype) if quantized else "none")] += 1

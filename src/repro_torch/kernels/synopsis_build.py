@@ -7,7 +7,8 @@ kernel writes the cache in cluster order and each C-row cluster's mean
 centroid in one pass.  Under a quantizing spec it also quantizes the
 centroids from their f32 means (one scale per row) and, with ``+kv``, the
 sorted cache per C-row cluster block.  The absorb of the recent ring
-reuses it with the identity permutation.
+reuses it with the identity permutation.  The kernel stages each cluster's
+rows in shared memory as 16-byte vectors, so D is a multiple of 16.
 """
 from __future__ import annotations
 
@@ -48,6 +49,10 @@ def segment_build(
     raise ValueError(f"{NAME}: bad shapes k{tuple(k.shape)} "
                      f"perm{tuple(perm.shape)} C={C}")
   code = _build.dtype_code(NAME, k, v)
+  if D % 16:
+    raise ValueError(f"{NAME}: head dim {D} not built (the kernel stages "
+                     "and stores rows of 16-byte vectors: D % 16 == 0)")
+  _build.check_aligned(NAME, k, v)
   M = S // C
   perm = perm.to(device=k.device, dtype=torch.int32).contiguous()
   qdt = qt.qdtype(qc.kind) if qc.enabled else k.dtype

@@ -138,8 +138,9 @@ def test_ctypes_signatures_match_the_c_entry_points():
     assert [kinds[t] for t in argtypes] == found[name], name
   # The split decode kernels take their outputs, then the scratch of their
   # chunk partials (o, m, l of every part) and the counters of their
-  # last-block merge from the wrapper.
-  for name, n_in in (("flash_decode_launch", 4), ("block_gather_launch", 12)):
+  # last-block merge from the wrapper (stage 1 also its scores).
+  for name, n_in in (("flash_decode_launch", 4), ("block_gather_launch", 12),
+                     ("fused_synopsis_launch", 7)):
     assert found[name][:n_in + 7] == ["ptr"] * (n_in + 7), name
     assert found[name][n_in + 7] == "int", name
 
@@ -237,11 +238,22 @@ def test_card_flash_prefill_bf16_refuses_unbuilt_shapes(cuda, shape):
          TOL[torch.float32])
 
 
+# (C, D) of the build cases: the loop's (128, 128), clusters shorter than
+# one staged piece, and rows whose f32 clusters come in several pieces.
+BUILD_SHAPES = [(128, 128), (16, 64), (48, 64), (16, 256), (48, 256)]
+
+
+def _build_rows(C):
+  """Cache rows of a build case: two clusters of 128, else six."""
+  return 256 if C == 128 else 6 * C
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("perm_kind", ["clustered", "identity"])
-def test_card_segment_build(cuda, dtype, perm_kind):
-  N, Hkv, S, D, C = 3, 2, 256, 128, 128
+@pytest.mark.parametrize("C,D", BUILD_SHAPES)
+def test_card_segment_build(cuda, dtype, perm_kind, C, D):
+  N, Hkv, S = 3, 2, _build_rows(C)
   g = torch.Generator().manual_seed(7)
   k, v = _to(cuda, dtype, _rand(g, N, Hkv, S, D), _rand(g, N, Hkv, S, D))
   if perm_kind == "identity":
@@ -258,9 +270,10 @@ def test_card_segment_build(cuda, dtype, perm_kind):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("M", [64, 65])
+@pytest.mark.parametrize("M", [64, 65, 300, 1024, 1025])
 @pytest.mark.parametrize("cap", [None, 30.0])
 def test_card_fused_synopsis(cuda, dtype, M, cap):
+  """64 / 65 are one chunk; 300, 1024 and 1025 split and merge."""
   B, Hkv, G, D = 2, 8, 4, 128
   g = torch.Generator().manual_seed(8)
   q, k_syn, v_syn = _to(cuda, dtype, _rand(g, B, Hkv * G, D),
@@ -273,6 +286,54 @@ def test_card_fused_synopsis(cuda, dtype, M, cap):
   _close(got[0], want[0], TOL[dtype])
   for a, b in zip(got[1], want[1]):
     _close(a, b, TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", ["none", "int8", "fp8"])
+@pytest.mark.parametrize("D", _build.HEAD_DIMS)
+@pytest.mark.parametrize("G", [1, _build.GMAX])
+def test_card_fused_synopsis_head_dims(cuda, dtype, kind, D, G):
+  """Every head dim stage 1 is built for, at a group of 1 and of GMAX,
+  on tables of every storage type, at an M that splits."""
+  B, Hkv, M = 2, 2, 300
+  g = torch.Generator().manual_seed(D + G)
+  q = _rand(g, B, Hkv * G, D).to(device=cuda, dtype=dtype)
+  if kind == "none":
+    k_syn, v_syn = _to(cuda, dtype, _rand(g, B, Hkv, M, D),
+                       _rand(g, B, Hkv, M, D))
+    scales = {}
+  else:
+    k_syn, v_syn, ks, vs = (t.to(cuda) for t in _quant_tables(
+        g, kind, B, Hkv, M, D))
+    scales = dict(k_scale=ks, v_scale=vs)
+  cbias = torch.log(torch.randint(1, 129, (B, M), generator=g).float())
+  kw = dict(sm_scale=D ** -0.5, cap=30.0, **scales)
+  key = _build.branch("fused_synopsis_score_attention", kind)
+  n0 = _build.LAUNCHES[key]
+  got = fused_synopsis_score_attention(q, k_syn, v_syn, cbias.to(cuda), **kw)
+  torch.cuda.synchronize()
+  assert _build.LAUNCHES[key] == n0 + 1
+  want = ref.fused_synopsis_score_attention_ref(q, k_syn, v_syn,
+                                                cbias.to(cuda), **kw)
+  _close(got[0], want[0], TOL[dtype])
+  for a, b in zip(got[1], want[1]):
+    _close(a, b, TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,G", [(48, 4), (128, 9)])
+def test_card_fused_synopsis_refuses_unbuilt_shapes(cuda, D, G):
+  """No fallback: a head dim or group the kernel is not built for raises
+  and launches nothing."""
+  g = torch.Generator().manual_seed(19)
+  q, k_syn, v_syn = _to(cuda, torch.float32, _rand(g, 2, 2 * G, D),
+                        _rand(g, 2, 2, 64, D), _rand(g, 2, 2, 64, D))
+  cbias = torch.zeros((2, 64), device=cuda)
+  before = _build.launch_counts()
+  with pytest.raises(ValueError, match="head dim"):
+    fused_synopsis_score_attention(q, k_syn, v_syn, cbias)
+  assert _build.launch_counts() == before
 
 
 def _check_gather(dev, dtype, q, k, v, sel, C, kw, key=None):
@@ -450,6 +511,10 @@ def test_card_wrappers_refuse_what_the_kernels_do_not_take(cuda):
       torch.Generator().manual_seed(0), 64, D=48))
   with pytest.raises(ValueError, match="head dim"):
     flash_decode(q, k, v)
+  perm = torch.arange(64, dtype=torch.int32, device=cuda).expand(2, 64)
+  with pytest.raises(ValueError, match="head dim"):
+    segment_build(k[..., :40].contiguous(), v[..., :40].contiguous(), perm,
+                  cluster_size=16)
   with pytest.raises(ValueError, match="head dim"):
     synopsis_score(q, k)
 
@@ -512,12 +577,13 @@ def _tied_cache(g, kind, N, Hkv, S, D, C):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("spec", QSPECS)
 @pytest.mark.parametrize("perm_kind", ["clustered", "identity"])
-def test_card_segment_build_quant(cuda, dtype, spec, perm_kind):
+@pytest.mark.parametrize("C,D", BUILD_SHAPES)
+def test_card_segment_build_quant(cuda, dtype, spec, perm_kind, C, D):
   """Sorted-KV codes and their scales bit-equal to the plain version (no
   sum in them); centroid codes at most one step apart (an f32 mean summed
   in another order), on few entries; centroid scales within f32
   rounding."""
-  N, Hkv, S, D, C = 3, 2, 256, 128, 128
+  N, Hkv, S = 3, 2, _build_rows(C)
   kind = qt.parse_qconfig(spec).kind
   g = torch.Generator().manual_seed(14)
   k, v = _to(cuda, dtype, _tied_cache(g, kind, N, Hkv, S, D, C),
@@ -562,7 +628,7 @@ def _quant_tables(g, kind, B, Hkv, M, D):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("kind", ["int8", "fp8"])
-@pytest.mark.parametrize("M", [64, 65])
+@pytest.mark.parametrize("M", [64, 65, 300, 1024, 1025])
 @pytest.mark.parametrize("cap", [None, 30.0])
 def test_card_fused_synopsis_quant(cuda, dtype, kind, M, cap):
   B, Hkv, G, D = 2, 8, 4, 128

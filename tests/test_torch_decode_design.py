@@ -1,9 +1,10 @@
-"""The split-and-merge design of the two decode kernels
+"""The split-and-merge design of the three decode kernels
 (``csrc/decode_core.cuh``, ``csrc/flash_decode.cu``,
-``csrc/block_gather.cu``), emulated in torch on the CPU and held against
-the plain versions (``ref.fused_gather_attention_ref``,
-``ref.flash_decode_ref``) and the JAX package's Pallas kernels in
-interpret mode.
+``csrc/block_gather.cu``, ``csrc/fused_synopsis.cu``), emulated in torch
+on the CPU and held against the plain versions
+(``ref.fused_gather_attention_ref``, ``ref.flash_decode_ref``,
+``ref.fused_synopsis_score_attention_ref``) and the JAX package's Pallas
+kernels in interpret mode.
 
 The kernels run only on the card; this keeps their arithmetic checkable
 without one.  The emulation does what a block does: its span of rows is
@@ -14,7 +15,9 @@ with the finite -1e30 sentinel, and the warps merge into the block's
 selected cluster, with its scales and its centroid's decrement term
 folded in as a row of weight -1, and one part an extras chunk of at most
 ``EXTRAS_ROWS`` rows; ``flash_decode`` one part a chunk of
-``flash_decode._chunk`` rows.  The merge is exact: m the max, l the sum
+``flash_decode._chunk`` rows; stage 1 one part a chunk of centroid rows
+by the same rule, with its group-max scores taken
+from each tile's raw dots and its per-row k / v scales.  The merge is exact: m the max, l the sum
 of l_s * exp(m_s - m), o divided by l only where |l| > 1e-30 for
 ``block_gather`` (l is signed), by max(l, 1e-30) for ``flash_decode``.
 
@@ -23,7 +26,9 @@ Tolerance 2e-5 (f32 on every side, sums in other orders: the bound of
 budget 0 (all ``-1`` ids, extras only), every part padded with no extras
 (every part survives), a cluster of equal keys (its part's l cancels to
 ~0), C = 16 (shorter than one tile), a ragged E, S = 8320 / M = 65 after
-an absorb, and the int8 / fp8 ``+kv`` scales.
+an absorb, and the int8 / fp8 ``+kv`` scales; for stage 1, M = 1000 /
+1024 (split) against 64 / 65 (one chunk), G = 3 (a zero head in the
+bucket), and int8 / fp8 tables.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -34,6 +39,8 @@ from repro.kernels import ops as jops
 from repro.kernels import quant as jqt
 from repro.kernels.block_gather_attention import (
     block_gather_attention as j_block_gather)
+from repro.kernels.fused_synopsis import (
+    fused_synopsis_score_attention as j_fused_synopsis)
 from repro_torch import bridge
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import quant as qt
@@ -71,11 +78,13 @@ def _normal(rng, *shape):
 # The emulation
 # ---------------------------------------------------------------------------
 
-def _span(qg, k, v, logit, tile_rows):
+def _span(qg, k, v, logit, tile_rows, on_tile=None, pscale=None):
   """One block over the rows of k, v (..., n, D) (codes widened to f32)
   for the query groups qg (..., G, D): its warps' online softmaxes over
   their tiles, merged.  logit(raw (..., G, r), r0, r1) gives the logits
-  of rows [r0, r1).  Returns the unnormalised (acc, m, l)."""
+  of rows [r0, r1); on_tile(raw, r0, r1) sees the tile's raw dots (the
+  core's row hook); pscale(p, r0, r1) weighs p on its way into p.V, after
+  p was added to l.  Returns the unnormalised (acc, m, l)."""
   n = k.shape[-2]
   lead, G, D = qg.shape[:-2], qg.shape[-2], qg.shape[-1]
   ntiles = -(-n // tile_rows)
@@ -87,11 +96,15 @@ def _span(qg, k, v, logit, tile_rows):
     for t in range(w, ntiles, _build.DECODE_WARPS):
       r0, r1 = t * tile_rows, min(n, (t + 1) * tile_rows)
       raw = torch.einsum("...gd,...rd->...gr", qg, k[..., r0:r1, :])
+      if on_tile is not None:
+        on_tile(raw, r0, r1)
       x = logit(raw, r0, r1)
       m_new = torch.maximum(m, x.amax(-1))
       alpha = torch.exp(m - m_new)
       p = torch.exp(x - m_new[..., None])
       l = l * alpha + p.sum(-1)
+      if pscale is not None:
+        p = pscale(p, r0, r1)
       acc = acc * alpha[..., None] + torch.einsum("...gr,...rd->...gd", p,
                                                   v[..., r0:r1, :])
       m = m_new
@@ -403,3 +416,108 @@ def test_split_decode_matches_plain_and_pallas(S, bias_kind, cap, chunking):
     assert torch.isfinite(g).all()
     _close(g, w)
     _close(g, j)
+
+
+# ---------------------------------------------------------------------------
+# fused_synopsis_score_attention (stage 1)
+# ---------------------------------------------------------------------------
+
+def emulate_fused_synopsis(q, k_syn, v_syn, cbias, *, sm_scale=1.0,
+                           cap=None, k_scale=None, v_scale=None, chunk):
+  """Stage 1 as its blocks compute it: chunks of ``chunk`` centroid rows,
+  the query group padded with zero heads to its bucket (4 or 8), each
+  row's group-max score over the G real heads taken from the tile's raw
+  dots (scaled, uncapped), the k-scale on the raw dot before sm_scale, the
+  count bias after the softcap, the v-scale on p after l, and the chunks
+  merged exactly (l >= 0: o / max(l, 1e-30))."""
+  B, H, D = q.shape
+  Hkv, M = k_syn.shape[1], k_syn.shape[2]
+  G = H // Hkv
+  GB = 4 if G <= 4 else 8
+  qg = torch.zeros((B, Hkv, GB, D))
+  qg[:, :, :G] = q.reshape(B, Hkv, G, D).float()
+  tr = _build.decode_tile_rows(D, k_syn.element_size())
+  scores = torch.full((B, Hkv, M), float("nan"))
+  parts = []
+  for s0 in range(0, M, chunk):
+    s1 = min(M, s0 + chunk)
+    ks = None if k_scale is None else k_scale[:, :, s0:s1].float()
+    vs = None if v_scale is None else v_scale[:, :, s0:s1].float()
+    cb = cbias[:, s0:s1].float()
+
+    def scaled(raw, r0, r1, ks=ks):
+      return (raw if ks is None else raw * ks[:, :, None, r0:r1]) * sm_scale
+
+    def on_tile(raw, r0, r1, s0=s0, scaled=scaled):
+      scores[:, :, s0 + r0:s0 + r1] = scaled(raw, r0, r1)[:, :, :G].amax(2)
+
+    def logit(raw, r0, r1, cb=cb, scaled=scaled):
+      return (ref.apply_softcap(scaled(raw, r0, r1), cap)
+              + cb[:, None, None, r0:r1])
+
+    def pscale(p, r0, r1, vs=vs):
+      return p if vs is None else p * vs[:, :, None, r0:r1]
+
+    acc, m, l = _span(qg, k_syn[:, :, s0:s1].float(),
+                      v_syn[:, :, s0:s1].float(), logit, tr, on_tile, pscale)
+    parts.append((acc[:, :, :G], m[:, :, :G], l[:, :, :G]))
+  return scores, _finish(parts, B, H, D, False)
+
+
+def _stage1_case(M, G, kind, seed, B=1, Hkv=2, D=32, C=4):
+  """Numpy stage-1 inputs built as the serve step builds them: the
+  centroid tables are the means of a cache's C-row clusters (quantized
+  per row under ``kind``: JAX codes and scales), the bias log(count) of
+  counts in [1, 128] (clusters grown unevenly by absorbs)."""
+  rng = np.random.default_rng(seed)
+  q = _normal(rng, B, Hkv * G, D)
+  k = _normal(rng, B, Hkv, M * C, D)
+  v = _normal(rng, B, Hkv, M * C, D)
+  k_syn = k.reshape(B, Hkv, M, C, D).mean(3)
+  v_syn = v.reshape(B, Hkv, M, C, D).mean(3)
+  cbias = np.log(rng.integers(1, 129, (B, M))).astype(np.float32)
+  scales = {}
+  if kind != "none":
+    kq, ks = jqt.quantize_rows(jnp.asarray(k_syn), kind)
+    vq, vs = jqt.quantize_rows(jnp.asarray(v_syn), kind)
+    k_syn, v_syn = np.asarray(kq), np.asarray(vq)
+    scales = dict(k_scale=np.asarray(ks), v_scale=np.asarray(vs))
+  return q, k_syn, v_syn, cbias, scales
+
+
+@pytest.mark.parametrize("M", [64, 65, 1000, 1024])
+@pytest.mark.parametrize("G", [3, 4, 8])
+@pytest.mark.parametrize("kind", ["none", "int8", "fp8"])
+@pytest.mark.parametrize("cap", [None, 30.0])
+def test_split_stage1_matches_plain_and_pallas(M, G, kind, cap):
+  """Stage 1's chunks, at the chunk length of the loop's shape (bf16 or
+  int8 / fp8 tables, D = 128, 16 (b, hkv) rows) and at the one this test
+  shape gets, against the plain version and the Pallas kernel: the scores
+  over the real heads only (G = 3 leaves a zero head in the bucket), the
+  per-row k / v scales, the count bias and the exact merge (M = 1000 and
+  1024 split, 64 and 65 do not at the loop's shape)."""
+  q, k_syn, v_syn, cbias, scales = _stage1_case(M, G, kind, seed=M + G)
+  B, Hkv, _, D = k_syn.shape
+  sm = D ** -0.5
+  args = tuple(_t(a) for a in (q, k_syn, v_syn, cbias))
+  tsc = {n: _t(a) for n, a in scales.items()}
+  want = ref.fused_synopsis_score_attention_ref(*args, sm_scale=sm, cap=cap,
+                                                **tsc)
+  js, jp = j_fused_synopsis(*(jnp.asarray(a) for a in (q, k_syn, v_syn, cbias)),
+                   sm_scale=sm, cap=cap, interpret=True,
+                   **{n: jnp.asarray(a) for n, a in scales.items()})
+  itemsize = args[1].element_size()
+  main = _chunk(M, 128, 2 if kind == "none" else 1, 16, H100_SMS)
+  here = _chunk(M, D, itemsize, B * Hkv, H100_SMS)
+  assert (M > MIN_CHUNK) == (-(-M // main) > 1)
+  for chunk in (main, here):
+    scores, got = emulate_fused_synopsis(*args, sm_scale=sm, cap=cap,
+                                         chunk=chunk, **tsc)
+    assert torch.isfinite(scores).all()
+    _close(scores, want[0])
+    _close(scores, js)
+    for g, w, j in zip(got, want[1], jp):
+      assert torch.isfinite(g).all()
+      _close(g, w)
+      _close(g, j)
+

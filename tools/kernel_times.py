@@ -1,0 +1,152 @@
+#!/usr/bin/env python3
+"""Device times of the synopsis build and stage-1 kernels of whichever
+``repro_torch`` is on ``PYTHONPATH``, at the serving loop's shapes.
+
+  PYTHONPATH=<tree>/src python3 tools/kernel_times.py --label <tree>
+
+Run it for two trees in turns in one call on one card (parent, change,
+change, parent) to compare them: each run builds its tree's kernels into
+that tree's own ``build/``.  It times, with the profiler's rows of the
+kernel's own launches (median over ``--rounds`` turns of 20 calls each):
+
+* ``segment_build`` at the build's shape (N = 64 = B * layers, Hkv = 8,
+  S = 8192, D = 128, C = 128), bf16 and f32, under every quant spec;
+* ``fused_synopsis_score_attention`` at the loop's shape (q (2, 32, 128),
+  tables (2, 8, M, 128)) at M = 64, 65 and 1024, on bf16, int8 and fp8
+  tables, warm and L2-cold (256 MB written and read back before each
+  call).
+
+``--chunking BLOCKS_PER_SM,MIN_CHUNK`` sets the chunk rule of the split
+decode kernels (``flash_decode._chunk``, which stage 1 follows in a tree
+whose stage 1 splits).  Prints one JSON object a line, with the card's
+name and power limit.
+"""
+import argparse
+import json
+import statistics
+import subprocess
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA data sheet
+FLUSH = []
+
+
+def _flush_l2():
+  if not FLUSH:
+    FLUSH.append(torch.empty(64 * 2 ** 20, dtype=torch.float32,
+                             device="cuda"))
+  FLUSH[0].zero_()
+  FLUSH[0].sum()
+
+
+def device_ms(fn, name, reps=20, cold=False, tries=5):
+  """Device time of one call: the profiler rows whose name holds
+  ``name``, over ``reps`` calls, per launch recorded (a call launches the
+  kernel once; a session may lose a record); a session that recorded no
+  launch is run again."""
+  from torch.profiler import ProfilerActivity, profile
+  fn()
+  torch.cuda.synchronize()
+  for _ in range(tries):
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+      for _ in range(reps):
+        if cold:
+          _flush_l2()
+        fn()
+      torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type != torch.autograd.DeviceType.CPU
+            and name in e.key]
+    launches = sum(e.count for e in rows)
+    if launches:
+      return sum(e.self_device_time_total for e in rows) / 1e3 / launches
+  raise AssertionError(f"the profiler lost launches of {name}")
+
+
+def nbytes(*tensors):
+  return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def build_times(g, rounds, label, smi):
+  from repro_torch.kernels.synopsis_build import segment_build
+  N, Hkv, S, D, C = 64, 8, 8192, 128, 128
+  for dtype in (torch.bfloat16, torch.float32):
+    k = torch.randn((N, Hkv, S, D), generator=g, device="cuda").to(dtype)
+    v = torch.randn((N, Hkv, S, D), generator=g, device="cuda").to(dtype)
+    perm = torch.argsort(torch.rand((N, S), generator=g, device="cuda"),
+                         dim=-1).to(torch.int32)
+    for spec in (None, "int8", "fp8", "int8+kv", "fp8+kv"):
+      fn = lambda: segment_build(k, v, perm, cluster_size=C, quant=spec)
+      out = fn()
+      outs = out if spec is None else tuple(out.values())
+      bound = nbytes(k, v, perm, *outs) / HBM_BYTES_PER_S * 1e3
+      t = statistics.median(device_ms(fn, "segment_build_kernel")
+                            for _ in range(rounds))
+      print(json.dumps({"tree": label, "kernel": "segment_build",
+                        "spec": spec or "none", "dtype": str(dtype)[6:],
+                        "device_ms": t, "bound_ms": bound,
+                        "share": bound / t, "card": smi}), flush=True)
+      del out, outs
+    del k, v
+    torch.cuda.empty_cache()
+
+
+def stage1_times(g, rounds, label, smi):
+  from repro_torch.kernels import quant as qt
+  from repro_torch.kernels.fused_synopsis import (
+      fused_synopsis_score_attention as fused)
+  B, Hkv, G, D = 2, 8, 4, 128
+  for M in (64, 65, 1024):
+    q = torch.randn((B, Hkv * G, D), generator=g, device="cuda").to(
+        torch.bfloat16)
+    cbias = torch.full((B, M), 4.85, device="cuda")
+    for kind in ("none", "int8", "fp8"):
+      kt = torch.randn((B, Hkv, M, D), generator=g, device="cuda")
+      vt = torch.randn((B, Hkv, M, D), generator=g, device="cuda")
+      if kind == "none":
+        tables, kw = (kt.to(torch.bfloat16), vt.to(torch.bfloat16)), {}
+      else:
+        (kq, ks), (vq, vs) = (qt.quantize_rows(kt, kind),
+                              qt.quantize_rows(vt, kind))
+        tables, kw = (kq, vq), dict(k_scale=ks, v_scale=vs)
+      fn = lambda: fused(q, *tables, cbias, sm_scale=D ** -0.5, **kw)
+      out = fn()
+      bound = nbytes(q, *tables, cbias, *kw.values(), out[0],
+                     *out[1]) / HBM_BYTES_PER_S * 1e3
+      warm = statistics.median(device_ms(fn, "fused_synopsis_kernel")
+                               for _ in range(rounds))
+      cold = statistics.median(device_ms(fn, "fused_synopsis_kernel",
+                                         cold=True) for _ in range(rounds))
+      print(json.dumps({"tree": label, "kernel": "fused_synopsis",
+                        "kind": kind, "M": M, "device_ms": warm,
+                        "device_ms_cold": cold, "bound_ms": bound,
+                        "card": smi}), flush=True)
+
+
+def main():
+  ap = argparse.ArgumentParser()
+  ap.add_argument("--label", required=True)
+  ap.add_argument("--rounds", type=int, default=3)
+  ap.add_argument("--only", choices=("build", "stage1"))
+  ap.add_argument("--chunking", help="BLOCKS_PER_SM,MIN_CHUNK")
+  args = ap.parse_args()
+  if not torch.cuda.is_available():
+    raise SystemExit("kernel_times: no CUDA device")
+  smi = subprocess.run(
+      ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+      capture_output=True, text=True, check=True).stdout.strip()
+  if args.chunking:
+    from repro_torch.kernels import flash_decode
+    bps, mc = map(int, args.chunking.split(","))
+    flash_decode.BLOCKS_PER_SM, flash_decode.MIN_CHUNK = bps, mc
+    args.label += f" chunking={bps},{mc}"
+  g = torch.Generator("cuda").manual_seed(0)
+  if args.only != "stage1":
+    build_times(g, args.rounds, args.label, smi)
+  if args.only != "build":
+    stage1_times(g, args.rounds, args.label, smi)
+
+
+if __name__ == "__main__":
+  main()
