@@ -21,9 +21,10 @@
    kernels (``flash_decode``, ``block_gather_attention``,
    ``fused_synopsis_score_attention``) also L2-cold (256 MB written and
    read back between calls), and ``flash_decode`` over the I * C rows that
-   ``block_gather`` reads, as the gather's yardstick; stage 1 also at M =
-   1024 (its chunks and their merge), and each ``segment_build`` branch's
-   share of its bound;
+   ``block_gather`` reads, as the gather's yardstick; stage 1 and
+   ``synopsis_score`` also at M = 1024 (stage 1's chunks and their merge;
+   the score kernel's time beside its bound, warm and L2-cold), and each
+   ``segment_build`` branch's share of its bound;
 4. on a small model in f32, checks that the kernels and the plain
    versions generate the same token ids in synopsis mode (unquantized and
    under each quant spec) and in exact mode, and that a synopsis step at
@@ -105,7 +106,7 @@ KERNEL_ROWS = {
     "fused_synopsis_score_attention": ("fused_synopsis_kernel",),
     "block_gather_attention": ("block_gather_kernel",),
     "flash_decode": ("flash_decode_kernel",),
-    "synopsis_score": ("synopsis_score_kernel",),
+    "synopsis_score": ("synopsis_score_warp_kernel",),
 }
 # L2 flush between the reps of a cold time: writing this many bytes
 # evicts the 50 MB L2, and reading them back then writes the dirty lines
@@ -550,21 +551,31 @@ def check_synopsis_score(dev, dtype, g):
   from repro_torch.kernels import ref
   from repro_torch.kernels.synopsis_score import synopsis_score
   tol = PARTIALS_TOL[dtype]
-  for S in (PROMPT + 128, PROMPT):                   # M = 65 (ragged), 64
+  # M = 1024 (a 131072-token prompt's table: four warps a block), timed
+  # here against its bound; then the loop's 65 (ragged) and 64, which is
+  # recorded.
+  for S in (16 * PROMPT, PROMPT + 128, PROMPT):
     q, _, _, k_syn, _, _, _ = _decode_inputs(dev, dtype, g, S)
-    sm = q.shape[-1] ** -0.5
-    got = synopsis_score(q, k_syn, sm_scale=sm)
+    B, H, D = q.shape
+    M = k_syn.shape[2]
+    sm = D ** -0.5
+    fn = functools.partial(synopsis_score, q, k_syn, sm_scale=sm)
+    got = fn()
     want = ref.synopsis_score_ref(q, k_syn, sm_scale=sm)
-    err = _check(f"synopsis_score M={k_syn.shape[2]}", dtype, got, want,
-                 *tol)
-  B, H, D = q.shape
+    err = _check(f"synopsis_score M={M}", dtype, got, want, *tol)
+    if M > 65:
+      names = KERNEL_ROWS["synopsis_score"]
+      warm, cold = _device_ms(fn, names), _device_ms(fn, names, cold=True)
+      bound, by = _bound(_nbytes(q, k_syn, got), 2 * B * H * M * D, dtype)
+      print(f"  [synopsis_score M={M} {str(dtype)[6:]}] device {warm:.5f} "
+            f"ms warm, {cold:.5f} ms L2-cold; bound {bound:.5f} ms ({by}): "
+            f"{bound / warm:.1%} / {bound / cold:.1%} of its bound")
   # No single PyTorch call computes it (a product, then an amax).
   return _record(
       "synopsis_score", "src/repro_torch/kernels/csrc/synopsis_score.cu",
-      "src/repro/kernels/synopsis_score.py:46", dtype, err,
-      lambda: synopsis_score(q, k_syn, sm_scale=sm),
+      "src/repro/kernels/synopsis_score.py:46", dtype, err, fn,
       lambda: ref.synopsis_score_ref(q, k_syn, sm_scale=sm),
-      _nbytes(q, k_syn, got), 2 * B * H * k_syn.shape[2] * D)
+      _nbytes(q, k_syn, got), 2 * B * H * M * D, cold=True)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,9 @@
 // Shared device helpers for the port's hand-written Hopper kernels: type
 // conversions, the quantized encode, softcap and warp reductions (every
-// kernel), the shared-memory online softmax of flash_prefill.cu's f32
-// branch, and the register-resident row dots of synopsis_score.cu.
-// flash_decode.cu, block_gather.cu and fused_synopsis.cu stream their rows
-// through the decode core of decode_core.cuh instead.
+// kernel), and the shared-memory online softmax of flash_prefill.cu's f32
+// branch.  flash_decode.cu, block_gather.cu and fused_synopsis.cu stream
+// their rows through the decode core of decode_core.cuh instead, and
+// synopsis_score.cu reads its rows straight into registers.
 //
 // The shared-memory softmax keeps f32 state (m, l, acc) in shared memory
 // and accumulates on CUDA cores.  A tile of key/value rows is staged in
@@ -197,61 +197,10 @@ __device__ inline void softmax_update(SoftmaxSmem s, int R, int n, int D) {
   __syncthreads();
 }
 
-// ---------------------------------------------------------------------------
-// Register-resident row dots (synopsis_score): one thread owns one key row
-// and reads it from device memory in 16-byte vectors, against the G query
-// rows staged f32 in shared memory (all threads read the same query word:
-// a broadcast).
-// ---------------------------------------------------------------------------
-
 // Upper bound of the GQA group G, so that per-head state is a fixed-size
-// register array (here and in decode_core.cuh); the wrappers refuse larger
-// groups.
+// register array (decode_core.cuh, synopsis_score.cu); the wrappers refuse
+// larger groups.
 constexpr int GMAX = 8;
-
-// 16 bytes at p (16-byte aligned), widened to f32: 4 floats or 8 bf16.
-__device__ __forceinline__ void load_vec16(const float* p, float* out) {
-  const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-  out[0] = t.x;
-  out[1] = t.y;
-  out[2] = t.z;
-  out[3] = t.w;
-}
-__device__ __forceinline__ void load_vec16(const __nv_bfloat16* p,
-                                           float* out) {
-  const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&t);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
-// s[g] = q_s[g] . row for g < G: the raw (unscaled) logits of one key row
-// of D elements against the G staged query rows (q_s is (G, D) f32).
-template <typename T, int D>
-__device__ __forceinline__ void row_dots(const float* q_s, const T* row,
-                                         int G, float (&s)[GMAX]) {
-  constexpr int V = 16 / sizeof(T);
-  static_assert(D % V == 0, "a key row must be whole 16-byte vectors");
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) s[g] = 0.f;
-#pragma unroll
-  for (int d0 = 0; d0 < D; d0 += V) {
-    float kv[V];
-    load_vec16(row + d0, kv);
-#pragma unroll
-    for (int g = 0; g < GMAX; ++g) {
-      if (g < G) {
-#pragma unroll
-        for (int e = 0; e < V; ++e)
-          s[g] = fmaf(q_s[g * D + d0 + e], kv[e], s[g]);
-      }
-    }
-  }
-}
 
 // Runs the statements (which must return) with `constexpr int kD = D` for
 // the head dims the decode kernels (flash_decode, block_gather,

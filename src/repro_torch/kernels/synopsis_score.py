@@ -4,7 +4,8 @@
 
 The score of cluster m for kv head h is the max over the GQA group's query
 heads of the centroid logit ``q . k_syn[m] * sm_scale``; ``top_k`` over it
-picks the clusters that stage 2 refines.
+picks the clusters that stage 2 refines.  The kernel reads q and k_syn as
+16-byte vectors, so both must be 16-byte aligned.
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ def synopsis_score(
     raise ValueError(f"{NAME}: bad shapes q{tuple(q.shape)} "
                      f"k_syn{tuple(k_syn.shape)}")
   code = _build.dtype_code(NAME, q, k_syn)
-  _build.check_rows(NAME, D, G, k_syn)
+  _build.check_rows(NAME, D, G, q, k_syn)
   scores = torch.empty((B, Hkv, M), dtype=torch.float32, device=q.device)
   err = _build.library().synopsis_score_launch(
       _build.ptr(q), _build.ptr(k_syn), _build.ptr(scores), B, Hkv, G, M, D,

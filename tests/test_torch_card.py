@@ -454,17 +454,41 @@ def test_card_flash_decode_head_dims(cuda, dtype, D, G):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("M", [64, 65, 300])
-def test_card_synopsis_score(cuda, dtype, M):
+@pytest.mark.parametrize("M", [64, 65, 300, 1024])
+@pytest.mark.parametrize("Hkv,G", [(8, 4), (2, 3)])
+def test_card_synopsis_score(cuda, dtype, M, Hkv, G):
+  """The loop's M = 64 / 65 (one or a few rows a block), a ragged 300 and
+  1024 (four warps a block); G = 3 pads the head bucket with a zero head
+  that must stay out of the max."""
   g = torch.Generator().manual_seed(12)
-  q, k_syn, _ = _to(cuda, dtype, *_decode_inputs(g, M))
+  q, k_syn, _ = _to(cuda, dtype, *_decode_inputs(g, M, Hkv=Hkv, G=G))
   n0 = _build.LAUNCHES["synopsis_score"]
   got = synopsis_score(q, k_syn, sm_scale=128 ** -0.5)
   torch.cuda.synchronize()
   assert _build.LAUNCHES["synopsis_score"] == n0 + 1
-  assert got.shape == (2, 8, M) and got.dtype == torch.float32
+  assert got.shape == (2, Hkv, M) and got.dtype == torch.float32
   _close(got, ref.synopsis_score_ref(q, k_syn, sm_scale=128 ** -0.5),
          TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D,G", sorted({(D, G) for D in _build.HEAD_DIMS
+                                        for G in (1, 2, 5, _build.GMAX)}))
+def test_card_synopsis_score_head_dims(cuda, dtype, D, G):
+  """Every head dim the kernel is built for (2 to 64 lanes a row, two
+  loads a row a lane for f32 at D = 256) and groups of 1 to GMAX, at a
+  ragged M.  Rows whose real logits are all negative show a padded
+  head's zero taken into the max; a negative sm_scale shows the scale
+  applied before the max, as the Pallas kernel applies it."""
+  g = torch.Generator().manual_seed(14)
+  q, k_syn, _ = _to(cuda, dtype, *_decode_inputs(g, 77, D=D, B=1, Hkv=2,
+                                                 G=G))
+  logits = torch.einsum("bhgd,bhmd->bhgm", q.reshape(1, 2, G, D).float(),
+                        k_syn.float())
+  for sm in (D ** -0.5, -(D ** -0.5)):
+    _close(synopsis_score(q, k_syn, sm_scale=sm), (logits * sm).amax(2),
+           TOL[dtype])
 
 
 @pytest.mark.cuda
@@ -516,6 +540,10 @@ def test_card_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     segment_build(k[..., :40].contiguous(), v[..., :40].contiguous(), perm,
                   cluster_size=16)
   with pytest.raises(ValueError, match="head dim"):
+    synopsis_score(q, k)
+  q, k, _ = _to(cuda, torch.float32, *_decode_inputs(
+      torch.Generator().manual_seed(0), 64, D=16, Hkv=1, G=9))
+  with pytest.raises(ValueError, match="group"):
     synopsis_score(q, k)
 
 

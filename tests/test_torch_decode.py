@@ -8,7 +8,7 @@ the bound the JAX suite holds its own kernels to):
 
 * ``flash_decode`` over the (B, Hkv, G, D, S) sweep of ``test_kernels.py``
   with bias None / random and cap None / 30, and at a ragged S (1, 1500);
-* ``synopsis_score`` at M in {4, 16, 65};
+* ``synopsis_score`` at M in {4, 16, 65, 1024};
 * stage 2 with neither epilogue (the unfused op's ``block_gather``), with
   a ``-1`` padded entry;
 * the unfused and fused synopsis ops, scores and selection included, and
@@ -152,7 +152,7 @@ def test_flash_decode_all_masked_keys():
 # synopsis_score
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("M", [4, 16, 65])
+@pytest.mark.parametrize("M", [4, 16, 65, 1024])
 def test_synopsis_score_matches_pallas(M):
   rng = np.random.default_rng(2)
   q = _normal(rng, 2, 8, 32)

@@ -14,7 +14,11 @@ kernel's own launches (median over ``--rounds`` turns of 20 calls each):
 * ``fused_synopsis_score_attention`` at the loop's shape (q (2, 32, 128),
   tables (2, 8, M, 128)) at M = 64, 65 and 1024, on bf16, int8 and fp8
   tables, warm and L2-cold (256 MB written and read back before each
-  call).
+  call);
+* ``synopsis_score`` (``--only score``) at the unfused op's shape (q (2,
+  32, 128), k_syn (2, 8, M, 128)) at M = 64, 65 and 1024, bf16 and f32,
+  warm and L2-cold.  Its rows are matched by the first version's kernel
+  name and by the redesigned one's, so the tool reads either tree.
 
 ``--chunking BLOCKS_PER_SM,MIN_CHUNK`` sets the chunk rule of the split
 decode kernels (``flash_decode._chunk``, which stage 1 follows in a tree
@@ -40,11 +44,11 @@ def _flush_l2():
   FLUSH[0].sum()
 
 
-def device_ms(fn, name, reps=20, cold=False, tries=5):
-  """Device time of one call: the profiler rows whose name holds
-  ``name``, over ``reps`` calls, per launch recorded (a call launches the
-  kernel once; a session may lose a record); a session that recorded no
-  launch is run again."""
+def device_ms(fn, names, reps=20, cold=False, tries=5):
+  """Device time of one call: the profiler rows whose name holds one of
+  ``names``, over ``reps`` calls, per launch recorded (a call launches
+  the kernel once; a session may lose a record); a session that recorded
+  no launch is run again."""
   from torch.profiler import ProfilerActivity, profile
   fn()
   torch.cuda.synchronize()
@@ -57,11 +61,11 @@ def device_ms(fn, name, reps=20, cold=False, tries=5):
       torch.cuda.synchronize()
     rows = [e for e in prof.key_averages()
             if e.device_type != torch.autograd.DeviceType.CPU
-            and name in e.key]
+            and any(n in e.key for n in names)]
     launches = sum(e.count for e in rows)
     if launches:
       return sum(e.self_device_time_total for e in rows) / 1e3 / launches
-  raise AssertionError(f"the profiler lost launches of {name}")
+  raise AssertionError(f"the profiler lost launches of {names}")
 
 
 def nbytes(*tensors):
@@ -81,7 +85,7 @@ def build_times(g, rounds, label, smi):
       out = fn()
       outs = out if spec is None else tuple(out.values())
       bound = nbytes(k, v, perm, *outs) / HBM_BYTES_PER_S * 1e3
-      t = statistics.median(device_ms(fn, "segment_build_kernel")
+      t = statistics.median(device_ms(fn, ("segment_build_kernel",))
                             for _ in range(rounds))
       print(json.dumps({"tree": label, "kernel": "segment_build",
                         "spec": spec or "none", "dtype": str(dtype)[6:],
@@ -114,9 +118,9 @@ def stage1_times(g, rounds, label, smi):
       out = fn()
       bound = nbytes(q, *tables, cbias, *kw.values(), out[0],
                      *out[1]) / HBM_BYTES_PER_S * 1e3
-      warm = statistics.median(device_ms(fn, "fused_synopsis_kernel")
+      warm = statistics.median(device_ms(fn, ("fused_synopsis_kernel",))
                                for _ in range(rounds))
-      cold = statistics.median(device_ms(fn, "fused_synopsis_kernel",
+      cold = statistics.median(device_ms(fn, ("fused_synopsis_kernel",),
                                          cold=True) for _ in range(rounds))
       print(json.dumps({"tree": label, "kernel": "fused_synopsis",
                         "kind": kind, "M": M, "device_ms": warm,
@@ -124,11 +128,32 @@ def stage1_times(g, rounds, label, smi):
                         "card": smi}), flush=True)
 
 
+def score_times(g, rounds, label, smi):
+  from repro_torch.kernels.synopsis_score import synopsis_score
+  B, Hkv, G, D = 2, 8, 4, 128
+  rows = ("synopsis_score_kernel", "synopsis_score_warp_kernel")
+  for dtype in (torch.bfloat16, torch.float32):
+    for M in (64, 65, 1024):
+      q = torch.randn((B, Hkv * G, D), generator=g, device="cuda").to(dtype)
+      k_syn = torch.randn((B, Hkv, M, D), generator=g, device="cuda").to(
+          dtype)
+      fn = lambda: synopsis_score(q, k_syn, sm_scale=D ** -0.5)
+      bound = nbytes(q, k_syn, fn()) / HBM_BYTES_PER_S * 1e3
+      warm = statistics.median(device_ms(fn, rows) for _ in range(rounds))
+      cold = statistics.median(device_ms(fn, rows, cold=True)
+                               for _ in range(rounds))
+      print(json.dumps({"tree": label, "kernel": "synopsis_score",
+                        "dtype": str(dtype)[6:], "M": M, "device_ms": warm,
+                        "device_ms_cold": cold, "bound_ms": bound,
+                        "share_cold": bound / cold, "card": smi}),
+            flush=True)
+
+
 def main():
   ap = argparse.ArgumentParser()
   ap.add_argument("--label", required=True)
   ap.add_argument("--rounds", type=int, default=3)
-  ap.add_argument("--only", choices=("build", "stage1"))
+  ap.add_argument("--only", choices=("build", "stage1", "score"))
   ap.add_argument("--chunking", help="BLOCKS_PER_SM,MIN_CHUNK")
   args = ap.parse_args()
   if not torch.cuda.is_available():
@@ -142,10 +167,11 @@ def main():
     flash_decode.BLOCKS_PER_SM, flash_decode.MIN_CHUNK = bps, mc
     args.label += f" chunking={bps},{mc}"
   g = torch.Generator("cuda").manual_seed(0)
-  if args.only != "stage1":
-    build_times(g, args.rounds, args.label, smi)
-  if args.only != "build":
-    stage1_times(g, args.rounds, args.label, smi)
+  stages = {"build": build_times, "stage1": stage1_times,
+            "score": score_times}
+  for name, stage in stages.items():
+    if args.only in (None, name):
+      stage(g, args.rounds, args.label, smi)
 
 
 if __name__ == "__main__":
