@@ -49,22 +49,39 @@
    deviation from exact attention on layer 0 (below 7% relative L2); the
    unfused synopsis op against the fused one on layer 0;
 9. stage 1's bytes against its time (warm and L2-cold), bf16 against
-   int8 / fp8 tables, at M = 64 and 1024.
+   int8 / fp8 tables, at M = 64 and 1024;
+10. the continuous-batching engine (``repro_torch.serve.engine``), whose
+    decode steps replay one captured CUDA graph per budget bucket: on a
+    small f32 model the same ids on the card (graphs, kernels) as on the
+    CPU (eager, plain versions), under ``fixed`` and ``basic``; at full
+    llama3-8b width (4 slots, prompt 8192, 32 new tokens) every warm
+    bucket captured, each bucket's replayed step against the same step
+    called eagerly on the same pool (host ms, CUDA-event ms, device busy ms
+    from the profiler, bitwise-equal outputs, the kernels' rows inside the
+    replays), one Poisson trace under ``accuracytrader`` and under
+    ``basic`` on the same arrivals (request latency, accuracy loss, misses,
+    budgets, goodput, admission time, peak memory; the ``basic`` trace also
+    under the profiler: the device's busy share over the window), and one
+    simulator window on the measured step table (``MeasuredStepBackend``).
 
 Every path's launch counts are reset just before it runs and read just
 after: the synopsis loop must launch its four kernels, the quantized loops
 their quantized branches and not the unquantized ones, the exact loop
 ``flash_prefill`` and ``flash_decode``, the unfused op ``synopsis_score``,
-``flash_decode`` and ``block_gather_attention``.
+``flash_decode`` and ``block_gather_attention``, the engine the four
+synopsis-path kernels (counted at the graphs' capture: a replay runs no
+Python, so the profiler's rows show the kernels inside the replays).
 
 Any failed phase raises and exits non-zero.  The last lines are the
 kernels' JSON record, the nvidia-smi line and ``{"ok": true, ...}``.
 Without a CUDA device, or without the repo around it, it exits non-zero
 and prints no result.
 """
+import contextlib
 import dataclasses
 import functools
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -96,6 +113,20 @@ BF16_OUT_TOL = (1e-4, 2.0 ** -7)
 PARTIALS_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-3, 1e-3)}
 ACCURACY_BUDGETS = (0, 1, 2, 4, 8, 16, 32, 64)
 FUSION_BUDGETS = (1, 8, 32, 64)
+# The engine phase: 4 slots of an 8192-token prompt, 32 new tokens each,
+# and one window of Poisson arrivals from seed 0 at 3 req/s for 4 s (9
+# requests; 2-4 slots resident).  The per-request deadline: no published
+# one exists for this model and prompt.  A request's latency is mostly the
+# admissions it waits behind (a B=1 prefill + build of 8192 tokens takes
+# ~340 ms on the H100, and an iteration admits every arrival that fits).
+# At 1500 ms the controller runs out of slack on nearly every step (mean
+# budget ~6 of 64, every request late), at 2500 ms it keeps budget 64 on
+# most (the "[engine deadline]" lines, PERF.md §6).  2000 ms is the
+# smallest round value between, so the controller has budgets to choose
+# from.
+ENGINE_SLOTS, ENGINE_NEW = 4, 32
+ENGINE_RATE, ENGINE_WINDOW_S = 3.0, 4.0
+ENGINE_DEADLINE_MS = 2000.0
 
 
 # The device-side names of each kernel's launches (substrings of the
@@ -1123,6 +1154,470 @@ def profile_decode(cfg, params, cache, dev, budget, steps=3,
       f"{k} {us / 1e3 / steps:.3f}" for k, us in per.items() if us))
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the continuous-batching engine on one CUDA graph per bucket
+# ---------------------------------------------------------------------------
+
+def check_engine_parity(dev):
+  """SMOKE llama3-8b in f32: the engine on the card (captured graphs, the
+  kernels) and on the CPU (eager programs, plain versions) generate the
+  same ids for the same requests, under fixed budget 1 and basic, with
+  admission overlap on (the default)."""
+  from repro_torch.configs.registry import get_config
+  from repro_torch.models import transformer as tf
+  from repro_torch.serve.engine import (EngineConfig, ServingEngine,
+                                        make_requests)
+  cfg = dataclasses.replace(get_config("llama3-8b", smoke=True),
+                            dtype=torch.float32)
+  params = tf.init_model(cfg, torch.Generator().manual_seed(1), "cpu")
+  for arm in (dict(policy="fixed", fixed_budget=1), dict(policy="basic")):
+    ids = {}
+    for where, p in (("cpu", params), ("card", _tree_to(params, dev))):
+      eng = ServingEngine(cfg, EngineConfig(n_slots=2, prompt_len=128,
+                                            max_new_tokens=8, **arm),
+                          params=p, device=dev if where == "card" else "cpu")
+      reqs = make_requests([0.0, 1.0, 2.0, 3.0, 4.0], 128, 8, cfg.vocab,
+                           seed=3)
+      eng.run(reqs)
+      ids[where] = [r.tokens for r in reqs]
+      graphs = len(eng.programs.graphs)
+    if ids["card"] != ids["cpu"]:
+      raise AssertionError(f"engine ids differ on card and CPU ({arm}): "
+                           f"{ids['card']} vs {ids['cpu']}")
+    print(f"[engine parity] smoke f32 {arm['policy']}: "
+          f"{sum(map(len, ids['card']))} ids of 5 requests equal on card "
+          f"({graphs} graphs) and CPU")
+
+
+def _profile_rows(fn, calls):
+  """Device rows of ``calls`` calls of ``fn`` under the profiler: (busy ms
+  a call, device ops a call, {kernel: launches a call}, span ms: the
+  first device op's start to the last one's end, or None without
+  device ops)."""
+  from torch.profiler import ProfilerActivity, profile
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(calls):
+      fn()
+    torch.cuda.synchronize()
+  rows = [e for e in prof.key_averages()
+          if e.device_type != torch.autograd.DeviceType.CPU
+          and e.self_device_time_total > 0]
+  busy = sum(e.self_device_time_total for e in rows) / 1e3 / calls
+  per = {k: sum(e.count for e in rows if any(n in e.key for n in names))
+         / calls for k, names in KERNEL_ROWS.items()}
+  ranges = [e.time_range for e in prof.events()
+            if e.device_type != torch.autograd.DeviceType.CPU]
+  span = ((max(r.end for r in ranges) - min(r.start for r in ranges)) / 1e3
+          if ranges else None)
+  return busy, sum(e.count for e in rows) / calls, per, span
+
+
+def engine_step_table(eng, reps=10):
+  """Each bucket's replayed step against the same program called eagerly,
+  on the pool the trace left (resident lanes): host ms (median of
+  ``reps``, each call waited for), CUDA-event ms (``reps`` calls queued
+  back to back), device busy ms and device ops a step (profiler), and the
+  step's outputs, which must be bitwise equal."""
+  for b in eng.buckets:
+    key = ("step", b)
+    if key not in eng.programs.graphs:
+      raise AssertionError(f"bucket {b} has no captured graph")
+    host = {}
+    for mode, fn in (("replay", lambda: eng.programs.run(key)),
+                     ("eager", lambda: eng.programs.call_eager(key))):
+      fn()
+      torch.cuda.synchronize()
+      out = {k: v.clone() for k, v in eng.step_out.items()}
+      ts = []
+      for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+      start = torch.cuda.Event(enable_timing=True)
+      end = torch.cuda.Event(enable_timing=True)
+      start.record()
+      for _ in range(reps):
+        fn()
+      end.record()
+      end.synchronize()
+      busy, ops_n, per, _ = _profile_rows(fn, 3)
+      host[mode] = (statistics.median(ts), start.elapsed_time(end) / reps,
+                    busy, ops_n, per, out)
+    (r_host, r_ev, r_busy, r_ops, r_per, r_out) = host["replay"]
+    (e_host, e_ev, e_busy, e_ops, _, e_out) = host["eager"]
+    equal = all(torch.equal(r_out[k], e_out[k]) for k in r_out)
+    print(f"[engine step] bucket {b:2d}: replay host {r_host:.3f} ms, "
+          f"events {r_ev:.3f} ms, device busy {r_busy:.3f} ms "
+          f"({r_ops:.0f} device ops; host / busy {r_host / r_busy:.2f}x) | "
+          f"eager host {e_host:.3f} ms, events {e_ev:.3f} ms, busy "
+          f"{e_busy:.3f} ms ({e_ops:.0f} ops) | eager / replay host "
+          f"{e_host / r_host:.2f}x | outputs bitwise equal: {equal}")
+    inside = {k: n for k, n in r_per.items() if n}
+    print(f"  [engine step] bucket {b:2d}: kernel launches inside one "
+          f"replay (profiler rows): {inside}")
+    if not equal:
+      raise AssertionError(f"bucket {b}: replayed and eager step differ")
+    if any(inside.get(k, 0) != eng.cfg.n_layers for k in (
+        "fused_synopsis_score_attention", "block_gather_attention")):
+      raise AssertionError(f"bucket {b}: the replay does not run the "
+                           f"decode kernels once a layer: {inside}")
+
+
+def _engine_metrics(label, s, eng):
+  print(f"[engine trace] {label}: n={s['n']} p50={s['p50']:.1f} ms "
+        f"p99={s['p99']:.1f} ms accuracy_loss_pct="
+        f"{s['accuracy_loss_pct']:.3f} deadline_miss_pct="
+        f"{s['deadline_miss_pct']:.1f} mean_budget={s['mean_budget']:.2f} "
+        f"goodput_per_s={s['goodput_per_s']:.3f} admission_p50="
+        f"{s['admission_p50']:.1f} ms queue_p99={s['queue_p99']:.1f} ms "
+        f"steps={s['steps']} prefills={s['prefills']}")
+  steps = [ms for _, ms, _ in eng.step_log]
+  print(f"  [engine trace] {label}: step ms {_step_stats(steps)}; budgets "
+        f"{[b for b, _, _ in eng.step_log]}; resident "
+        f"{[a for _, _, a in eng.step_log]}")
+  if s["n"] < 8 or not all(len(r.tokens) == ENGINE_NEW + 1
+                           for r in eng.completed):
+    raise AssertionError(f"{label}: the trace did not serve its requests")
+
+
+ENGINE_KERNELS = ("flash_prefill", "segment_build",
+                  "fused_synopsis_score_attention", "block_gather_attention")
+
+
+@contextlib.contextmanager
+def _first_inputs(module, names):
+  """Within the block, each kernel wrapper in ``names`` that ``module``
+  calls keeps a copy of its first call's inputs: yields name -> (args,
+  kwargs)."""
+  seen, saved = {}, {n: getattr(module, n) for n in names}
+
+  def copy(x):
+    return x.clone() if isinstance(x, torch.Tensor) else x
+
+  def keep(name, fn):
+    def call(*args, **kw):
+      if name not in seen:
+        seen[name] = ([copy(a) for a in args],
+                      {k: copy(x) for k, x in kw.items()})
+      return fn(*args, **kw)
+    return call
+
+  for n in names:
+    setattr(module, n, keep(n, saved[n]))
+  try:
+    yield seen
+  finally:
+    for n, fn in saved.items():
+      setattr(module, n, fn)
+
+
+def _engine_plain(name, args, kw):
+  from repro_torch.kernels import ref
+  if name == "segment_build":
+    if kw.get("quant") is not None:
+      raise AssertionError("the engine phase builds unquantized")
+    kw = {k: x for k, x in kw.items() if k != "quant"}
+    return ref.synopsis_build_ref(*args, **kw)
+  return {"flash_prefill": ref.flash_prefill_ref,
+          "fused_synopsis_score_attention":
+              ref.fused_synopsis_score_attention_ref,
+          "block_gather_attention": ref.fused_gather_attention_ref,
+          }[name](*args, **kw)
+
+
+def _prefill_f64(q, k, v, *, sm_scale, cap=None, window=None):
+  """Causal GQA attention in f64: the exact answer the engine's prefill
+  approximates (no softcap or window on its model)."""
+  if cap is not None or window is not None:
+    raise ValueError("the f64 prefill takes neither softcap nor window")
+  B, S, H, D = q.shape
+  Hkv = k.shape[2]
+  qg = q.double().reshape(B, S, Hkv, H // Hkv, D)
+  kd, vd = k.double(), v.double()
+  pos = torch.arange(S, device=q.device)
+  out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+  for q0 in range(0, S, 512):
+    q1 = min(S, q0 + 512)
+    lg = torch.einsum("bqhgd,bkhd->bhgqk", qg[:, q0:q1], kd[:, :q1])
+    lg = (lg * sm_scale).masked_fill(pos[q0:q1, None] < pos[None, :q1],
+                                     -math.inf)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(lg, -1), vd[:, :q1])
+    out[:, q0:q1] = o.reshape(B, q1 - q0, H, D)
+  return out
+
+
+def _gather_f64(q, k, v, selected, *, cluster_size, sm_scale, cap=None,
+                k_sel=None, v_sel=None, sel_bias=None, extras_k=None,
+                extras_v=None, extras_bias=None, kv_k_scale=None,
+                kv_v_scale=None):
+  """Stage 2's signed softmax in f64 (the selected clusters' tokens +,
+  their centroid terms -, the extras +): partials (o, m, l)."""
+  if cap is not None or kv_k_scale is not None or kv_v_scale is not None:
+    raise ValueError("the f64 gather takes neither softcap nor scales")
+  B, H, D = q.shape
+  Hkv, C = k.shape[1], cluster_size
+  qg = q.double().reshape(B, Hkv, H // Hkv, D)
+  sel = selected.long()
+  valid = sel >= 0
+  rows = (sel.clamp_min(0)[..., None] * C
+          + torch.arange(C, device=q.device)).reshape(B, Hkv, -1)
+  ix = rows[..., None].expand(-1, -1, -1, D)
+  zero = torch.zeros(rows.shape, dtype=torch.float64, device=q.device)
+  parts = [(torch.gather(k, 2, ix), torch.gather(v, 2, ix),
+            zero.masked_fill(~valid.repeat_interleave(C, -1), -math.inf),
+            1.0)]
+  if k_sel is not None:
+    parts.append((k_sel, v_sel,
+                  sel_bias.double().masked_fill(~valid, -math.inf), -1.0))
+  if extras_k is not None:
+    parts.append((extras_k, extras_v, extras_bias.double()[:, None], 1.0))
+  logits = [torch.einsum("bhgd,bhsd->bhgs", qg, kk.double()) * sm_scale
+            + bias[:, :, None, :] for kk, _, bias, _ in parts]
+  m = torch.stack([lg.amax(-1) for lg in logits]).amax(0)
+  l = torch.zeros_like(m)
+  acc = torch.zeros(qg.shape, dtype=torch.float64, device=q.device)
+  for lg, (_, vv, _, sign) in zip(logits, parts):
+    p = torch.exp(lg - m[..., None])
+    l = l + sign * p.sum(-1)
+    acc = acc + sign * torch.einsum("bhgs,bhsd->bhgd", p, vv.double())
+  o = acc / torch.where(l.abs() > 1e-30, l, torch.ones_like(l))[..., None]
+  return o.reshape(B, H, D), m.reshape(B, H), l.reshape(B, H)
+
+
+def _tol_units(got, want, atol, rtol=0.0):
+  """The largest error of ``got`` against ``want``, in units of the
+  tolerance ``atol + rtol * |want|``."""
+  return max(float(((g.double() - w.double()).abs()
+                    / (atol + rtol * w.double().abs())).max())
+             for g, w in zip(got, want))
+
+
+# Which inputs of each engine-path kernel scale together: the queries (Q),
+# the keys and their centroids and extras (K), the values and theirs (V);
+# ids, permutations and biases (None) are kept.
+_SCALED = {"flash_prefill": ("Q", "K", "V"),
+           "segment_build": ("K", "V", None),
+           "fused_synopsis_score_attention": ("Q", "K", "V", None),
+           "block_gather_attention": ("Q", "K", "V", None)}
+_SCALED_KW = {"k_sel": "K", "v_sel": "V", "extras_k": "K", "extras_v": "V"}
+
+
+def _unit_scaled(name, args, kw):
+  """The inputs with Q, K and V each multiplied by the power of two
+  nearest its inverse RMS: exact in bf16, so every zero, id, mask and
+  centroid relation stays as it was, at the unit scale the kernel checks'
+  random inputs have."""
+  scale = {}
+  for fam, a in zip(_SCALED[name], args):
+    if fam is not None:
+      rms = float(a.float().square().mean().sqrt())
+      scale[fam] = 2.0 ** -round(math.log2(rms)) if rms > 0 else 1.0
+  args = [a if fam is None else a * scale[fam]
+          for fam, a in zip(_SCALED[name], args)]
+  kw = {key: x * scale[_SCALED_KW[key]]
+        if key in _SCALED_KW and x is not None else x
+        for key, x in kw.items()}
+  return args, kw, scale
+
+
+def _engine_check(label, name, args, kw):
+  """One engine-path kernel on the inputs the engine gave it, against its
+  plain version.
+
+  As given: the engine's layer-0 activations are far from unit scale
+  (RMS ~10 for q, ~20 for k and v under the random init), so prefill and
+  gather logits reach several hundred and an f32 result of either side
+  carries errors the size of the unit-scale tolerance (prefill: 2 bf16
+  ulps apart in ~5e-5 of the outputs; both as far from the exact answer).
+  There the kernel is held to the exact (f64) answer: its largest error,
+  in units of its kernel check's tolerance, is at most 1 or twice the
+  plain version's.  Stage 1 and the build hold that tolerance outright.
+  Scaled: the same inputs with Q, K and V scaled to unit RMS by powers of
+  two (``_unit_scaled``), against the plain version at its kernel check's
+  tolerance."""
+  from repro_torch.kernels import ops
+  dtype = args[0].dtype
+  exact = {"flash_prefill": _prefill_f64,
+           "block_gather_attention": _gather_f64}.get(name)
+  for scaled in (False, True):
+    if scaled:
+      args, kw, scale = _unit_scaled(name, args, kw)
+    got = getattr(ops, name)(*args, **kw)
+    want = _engine_plain(name, args, kw)
+    if name == "fused_synopsis_score_attention":
+      got, want = (got[0], *got[1]), (want[0], *want[1])
+      tol = _stage1_tol(dtype, args[1].shape[2])
+    elif name == "block_gather_attention":
+      tol = PARTIALS_TOL[dtype]
+    elif dtype == torch.bfloat16:
+      tol = BF16_OUT_TOL
+    else:
+      tol = (1e-4,) if name == "flash_prefill" else (1e-5,)
+    if not isinstance(got, (tuple, list)):
+      got, want = (got,), (want,)
+    tag = f"engine {label} {name}"
+    if scaled:
+      print(f"  [{tag}] inputs scaled by {scale}")
+      _check(f"{tag} scaled", dtype, got, want, *tol)
+    elif exact is None:
+      _check(tag, dtype, got, want, *tol)
+    else:
+      ref64 = exact(*args, **kw)
+      ref64 = ref64 if isinstance(ref64, tuple) else (ref64,)
+      kern, plain = _tol_units(got, ref64, *tol), _tol_units(want, ref64, *tol)
+      print(f"  [{tag} {str(dtype)[6:]}] kernel against plain max_abs_err="
+            f"{_max_err(got, want):.3e}; against f64, in units of "
+            f"{tol[0]:.1e}+{tol[1] if len(tol) > 1 else 0:.3g}|x|: kernel "
+            f"{kern:.3f}, plain {plain:.3f}")
+      if kern > max(1.0, 2.0 * plain):
+        raise AssertionError(f"{tag}: the kernel is further from the exact "
+                             f"answer ({kern:.3f} tolerances) than the plain "
+                             f"version allows ({plain:.3f})")
+
+
+def check_engine_kernels(eng):
+  """Each engine-path kernel against its plain version on the inputs the
+  engine itself gives it at full width (layer 0's): one admission's
+  prefill and build (B = 1 over the prompt's tokens), then each warm
+  bucket's step, called eagerly, on a pool of ENGINE_SLOTS lanes of which
+  two are resident and the rest zeroed (counts 0) as free lanes are; as
+  given and scaled to unit RMS (``_engine_check``).  The replay-against-
+  eager comparison cannot see a kernel fault that depends on these shapes:
+  both run the same kernels."""
+  from repro_torch.kernels import ops
+  from repro_torch.serve.engine import make_requests
+  eng.reset()
+  reqs = make_requests([0.0, 0.0], PROMPT, ENGINE_NEW, eng.cfg.vocab,
+                       seed=11)
+  with _first_inputs(ops, ("flash_prefill", "segment_build")) as seen:
+    for slot, req in enumerate(reqs):
+      eng._admit(req, slot)
+  q = seen["flash_prefill"][0][0]
+  k = seen["segment_build"][0][0]
+  if q.shape[:2] != (1, PROMPT) or k.shape[2] != PROMPT:
+    raise AssertionError(f"admission shapes q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)}, expected B = 1 over {PROMPT}")
+  for name in ("flash_prefill", "segment_build"):
+    _engine_check("admission", name, *seen[name])
+  del seen
+  decode = ("fused_synopsis_score_attention", "block_gather_attention")
+  for b in eng._warm_buckets():
+    with _first_inputs(ops, decode) as seen:
+      eng.programs.call_eager(("step", b))
+      torch.cuda.synchronize()
+    k_syn = seen[decode[0]][0][1]
+    zeroed = [i for i in range(k_syn.shape[0]) if not k_syn[i].any()]
+    if (k_syn.shape[0] != ENGINE_SLOTS or k_syn.shape[2] != eng.M
+        or zeroed != list(range(len(reqs), ENGINE_SLOTS))):
+      raise AssertionError(f"bucket {b}: stage 1 saw k_syn "
+                           f"{tuple(k_syn.shape)} with zeroed lanes "
+                           f"{zeroed}")
+    print(f"[engine kernels] bucket {b}: B={ENGINE_SLOTS} M={eng.M}, "
+          f"lanes {zeroed} zeroed")
+    for name in decode:
+      _engine_check(f"bucket {b}", name, *seen[name])
+  eng.reset()
+
+
+def run_engine(cfg, params, dev):
+  """The engine at full width: capture, the per-bucket table, the trace
+  under accuracytrader and basic, the simulator window.  Returns the
+  path's launch counts (capture and admissions)."""
+  from repro_torch.kernels import _build
+  from repro_torch.serve.engine import (EngineConfig, MeasuredStepBackend,
+                                        ServingEngine, run_open_loop)
+  from repro_torch.serving.service import ScatterGatherService, ServiceConfig
+  _build.reset_launches()
+  summaries = {}
+  for policy in ("accuracytrader", "basic"):
+    torch.cuda.empty_cache()      # this engine's peak is its own
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = ServingEngine(cfg, EngineConfig(
+        n_slots=ENGINE_SLOTS, prompt_len=PROMPT, max_new_tokens=ENGINE_NEW,
+        deadline_ms=ENGINE_DEADLINE_MS, policy=policy), params=params,
+        device=dev)
+    torch.cuda.synchronize()
+    warm = eng._warm_buckets()
+    print(f"[engine] {policy}: {cfg.name} slots={ENGINE_SLOTS} "
+          f"prompt={PROMPT} M={eng.M} buckets={eng.buckets}; built, warmed "
+          f"and captured {len(eng.programs.graphs)} graphs (steps {warm} + "
+          f"append) in {time.perf_counter() - t0:.1f}s")
+    if set(eng.programs.graphs) != {("step", b) for b in warm} | {"append"}:
+      raise AssertionError(f"captured {sorted(eng.programs.graphs, key=str)}"
+                           f", expected every warm bucket {warm}")
+    t0 = time.perf_counter()
+    s = run_open_loop(eng, ENGINE_RATE, ENGINE_WINDOW_S, seed=0)
+    served_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[engine trace] {policy}: {ENGINE_RATE} req/s for "
+          f"{ENGINE_WINDOW_S} s of arrivals, deadline {ENGINE_DEADLINE_MS} "
+          f"ms, served in {served_ms:.0f} ms of wall (engine clock "
+          f"{eng.now_ms:.0f} ms)")
+    _engine_metrics(policy, s, eng)
+    summaries[policy] = s
+    if policy == "accuracytrader":
+      launches = _build.launch_counts()
+      # The deadline's round neighbours on the same window: how much of
+      # the budget range the controller uses at each.
+      for deadline in (ENGINE_DEADLINE_MS - 500.0,
+                       ENGINE_DEADLINE_MS + 500.0):
+        eng.ecfg.deadline_ms = deadline
+        n = run_open_loop(eng, ENGINE_RATE, ENGINE_WINDOW_S, seed=0)
+        print(f"[engine deadline] accuracytrader at {deadline:.0f} ms: "
+              f"mean_budget={n['mean_budget']:.2f} deadline_miss_pct="
+              f"{n['deadline_miss_pct']:.1f} p50={n['p50']:.1f} ms "
+              f"accuracy_loss_pct={n['accuracy_loss_pct']:.3f}")
+      eng.ecfg.deadline_ms = ENGINE_DEADLINE_MS
+      engine_step_table(eng)
+      backend = MeasuredStepBackend(eng, iters=5)
+      print(f"[engine simulator] measured step table (ms): "
+            f"{ {b: round(ms, 3) for b, ms in backend.table.items()} }")
+      svc = ScatterGatherService(ServiceConfig(seed=0), step_backend=backend)
+      sim = svc.run_open_loop(20.0, 1.0)
+      print(f"[engine simulator] 108 components, accuracytrader, 20 req/s "
+            f"for 1 s on the measured table: "
+            f"{ {k: round(v, 3) for k, v in sim.items()} }")
+    else:
+      # The same window once more under the profiler: the device's busy
+      # time over the profiled window's own device span (first device op
+      # to last; the profiler's host work lengthens it) and, where the
+      # profiled window ran the same steps and admissions, over the
+      # unprofiled run's wall; and every kernel of the path in it.
+      prof_s = []
+      busy, ops_n, per, span = _profile_rows(
+          lambda: prof_s.append(
+              run_open_loop(eng, ENGINE_RATE, ENGINE_WINDOW_S, seed=0)), 1)
+      same = all(prof_s[0][k] == s[k] for k in ("steps", "prefills"))
+      print(f"[engine profile] basic trace: device busy {busy:.0f} ms, "
+            f"{ops_n:.0f} device ops, kernel launches "
+            f"{ {k: int(n) for k, n in per.items() if n} }; profiled "
+            f"window steps={prof_s[0]['steps']} prefills="
+            f"{prof_s[0]['prefills']} (unprofiled {s['steps']} / "
+            f"{s['prefills']})")
+      print(f"  [engine profile] busy share of the profiled window's device "
+            f"span: " + ("not measured (no device ops in the trace)"
+                         if span is None else
+                         f"{busy:.0f} / {span:.0f} ms = {busy / span:.1%}"))
+      print(f"  [engine profile] busy share of the unprofiled window's "
+            f"wall: " + (f"{busy:.0f} / {served_ms:.0f} ms = "
+                         f"{busy / served_ms:.1%}" if same else
+                         "not stated (the profiled window's steps or "
+                         "admissions differ from the unprofiled one's)"))
+    print(f"[engine] {policy}: peak_mem_gb="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} (weights, slot "
+          "pool, one admission's transients, graphs' pool)")
+    if policy == "accuracytrader":     # after the peak: it keeps copies
+      check_engine_kernels(eng)
+    del eng
+  for k in ("p50", "p99", "accuracy_loss_pct", "deadline_miss_pct",
+            "mean_budget", "goodput_per_s", "admission_p50"):
+    print(f"[engine compare] {k}: accuracytrader "
+          f"{summaries['accuracytrader'][k]:.3f} basic "
+          f"{summaries['basic'][k]:.3f}")
+  return launches
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1273,6 +1768,15 @@ def main() -> int:
                      "block_gather_attention"))
   del syn
   stage1_bytes_against_time(dev, g)
+
+  # The continuous-batching engine: its decode steps are graph replays.
+  check_engine_parity(dev)
+  engine_launches = run_engine(cfg, params, dev)
+  _require_launches("engine", engine_launches,
+                    ("flash_prefill", "segment_build",
+                     "fused_synopsis_score_attention",
+                     "block_gather_attention"),
+                    absent=("flash_decode", "synopsis_score"))
 
   # Each kernel branch's launches on the path that runs it: the synopsis
   # loop's four, the exact loop's flash_decode, the unfused op's

@@ -90,6 +90,7 @@ LAUNCHES: Dict[str, int] = {
 _lib = None
 _lock = threading.Lock()
 _tickets: Dict = {}
+_tickets_superseded: list = []
 
 
 def reset_launches() -> None:
@@ -278,10 +279,22 @@ def tickets(device, n: int):
   decode kernels (one a (b, hkv) row), kept per device: the block that
   takes a row's last ticket resets it to 0, so the counters are zero
   between launches.  Launches that use them run one after another (one
-  stream), as the port's do."""
+  stream), as the port's do.
+
+  A CUDA graph bakes in the address of the counters it was captured with,
+  so a buffer that grows is replaced, never freed: the superseded one
+  stays alive (and zero) for the graphs that still replay on it.  Growing
+  while a graph is being captured would put the counters in the graph's
+  pool, so it raises: allocate them at their largest row count first."""
   import torch  # noqa: PLC0415
   t = _tickets.get(device)
   if t is None or t.numel() < n:
+    if torch.cuda.is_current_stream_capturing():
+      raise RuntimeError(
+          f"merge tickets for {n} rows requested during a CUDA graph "
+          "capture; allocate them before capturing")
+    if t is not None:
+      _tickets_superseded.append(t)
     t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
     _tickets[device] = t
   return t

@@ -141,11 +141,12 @@ def build_extras(recent_k=None, recent_v=None, recent_len=None,
       biases.append(torch.zeros((B, R), dtype=torch.float32,
                                 device=recent_k.device))
     else:
+      # No host-to-device copy (a scalar tensor would be one), so that a
+      # CUDA graph can capture the step.
       pos = torch.arange(R, device=recent_k.device)[None, :]
-      biases.append(torch.where(
-          pos < recent_len.to(recent_k.device)[:, None],
-          torch.tensor(0.0, device=recent_k.device),
-          torch.tensor(NEG_INF, device=recent_k.device)))
+      biases.append(torch.zeros((B, R), dtype=torch.float32,
+                                device=recent_k.device).masked_fill_(
+          pos >= recent_len.to(recent_k.device)[:, None], NEG_INF))
   if self_kv is not None:
     k1, v1 = self_kv                                          # (B,Hkv,1,D)
     ks.append(k1)

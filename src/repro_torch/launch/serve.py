@@ -16,11 +16,26 @@ block).  All stages run on the port's kernels when the device is a GPU.
 
 ``--device cpu`` runs the plain PyTorch versions of the kernels (tests);
 without it the driver needs a CUDA device and refuses to run otherwise.
+
+With ``--engine`` the launcher instead runs the deadline-driven
+continuous-batching engine (``repro_torch.serve.engine``) over an arrival
+trace: requests admit and retire in shared slots mid-flight, each decode
+step is a replay of its budget bucket's CUDA graph, and every budget
+decision is calibrated by measured step times.
+
+  # the paper's Tables 1-2 load sweep, SMOKE model on the CPU:
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine --device cpu \
+      --prompt-len 64 --tokens 4 --rate-scale 0.1
+  # diurnal Sogou-shaped hours (Fig 7a) at full width on the card:
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine --no-smoke \
+      --prompt-len 8192 --tokens 32 --n-slots 4 --trace sogou_hourly \
+      --hours 21 --rate-scale 0.04 --deadline-ms 2000
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
 from typing import Dict, Optional, Sequence
 
@@ -159,6 +174,68 @@ def run(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int,
           "absorbs": absorbs, "cache": cache}
 
 
+def _refuse_unported(ap, args) -> None:
+  """The JAX launcher's engine flags whose modules the port has not
+  ported, each with its ROADMAP item, and what the engine does not take."""
+  for flag, given, item in (
+      ("--cluster", args.cluster > 0, "A.7"), ("--fleet", args.fleet, "A.7"),
+      ("--admission", args.admission != "off", "A.4"),
+      ("--cache-capacity", args.cache_capacity > 0, "A.5"),
+      ("--contract", args.contract != "deadline", "A.3")):
+    if given:
+      ap.error(f"{flag} is not ported yet (ROADMAP {item})")
+  if args.engine and (args.mode != "synopsis" or args.budget is not None):
+    ap.error("--engine takes neither --mode exact nor --budget: the engine "
+             "has no exact arm (--policy basic is its full-budget "
+             "comparison), and --policy sets its budgets")
+
+
+def engine_main(args, device: torch.device) -> Dict:
+  """The continuous-batching engine over an arrival trace: one
+  measurement window of Poisson arrivals per rate point."""
+  from repro_torch.serve.engine import (EngineConfig, ServingEngine,
+                                        run_open_loop)
+  from repro_torch.serving.workload import CF_RATES, hour_rate
+  cfg = apply_quant(get_config(args.arch, smoke=args.smoke), args.quant)
+  C = cfg.synopsis.cluster_size
+  prompt_len = max(C, (args.prompt_len // C) * C)
+  max_new = min(args.tokens, cfg.synopsis.recent)
+  eng = ServingEngine(cfg, EngineConfig(
+      n_slots=args.n_slots, prompt_len=prompt_len, max_new_tokens=max_new,
+      deadline_ms=args.deadline_ms, policy=args.policy,
+      predictor=args.predictor, seed=args.seed), device=device)
+  kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
+          else "cpu")
+  print(f"[engine] {cfg.name} on {kind} policy={args.policy} "
+        f"slots={args.n_slots} prompt={prompt_len} tokens={max_new} "
+        f"M={eng.M} buckets={eng.buckets} deadline={args.deadline_ms}ms "
+        f"quant={cfg.synopsis.quant} graphs={len(eng.programs.graphs)}")
+  if args.trace == "cf_rates":
+    points = [(f"rate{r}", r * args.rate_scale) for r in CF_RATES]
+  else:
+    points = [(f"hour{int(h):02d}", hour_rate(int(h)) * args.rate_scale)
+              for h in args.hours.split(",")]
+  results = {}
+  for name, rate in points:
+    s = run_open_loop(eng, rate_per_s=rate, duration_s=args.duration,
+                      seed=0)
+    results[name] = {"rate_per_s": rate,
+                     **{k: round(float(v), 3) for k, v in s.items()}}
+    print(f"[{name}] rate={rate:6.1f}/s n={s['n']:4.0f} "
+          f"p50={s['p50']:7.1f}ms p99={s['p99']:7.1f}ms "
+          f"p999={s['p999']:7.1f}ms loss={s['accuracy_loss_pct']:5.2f}% "
+          f"miss={s['deadline_miss_pct']:5.1f}% "
+          f"budget={s['mean_budget']:.2f} "
+          f"goodput={s['goodput_per_s']:.1f}/s")
+  out = {"trace": args.trace, "policy": args.policy, "device": kind,
+         "results": results}
+  if args.json:
+    with open(args.json, "w") as f:
+      json.dump(out, f, indent=1, sort_keys=True)
+    print(f"# wrote {args.json}")
+  return out
+
+
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
   ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
   ap.add_argument("--arch", default="llama3-8b", choices=list_archs())
@@ -186,11 +263,42 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                   help="cuda (default; required unless cpu is asked for) "
                        "or cpu (the kernels' plain PyTorch versions)")
   ap.add_argument("--seed", type=int, default=0)
+  eng = ap.add_argument_group("engine (--engine)")
+  eng.add_argument("--engine", action="store_true",
+                   help="run the continuous-batching engine over an "
+                        "arrival trace instead of the single-batch loop")
+  eng.add_argument("--trace", default="cf_rates",
+                   choices=["cf_rates", "sogou_hourly"],
+                   help="arrival-rate source")
+  eng.add_argument("--policy", default="accuracytrader",
+                   choices=["basic", "partial", "accuracytrader", "fixed"])
+  eng.add_argument("--n-slots", type=int, default=2,
+                   help="batch lanes (max resident requests)")
+  eng.add_argument("--duration", type=float, default=1.0,
+                   help="seconds of arrivals per measurement window")
+  eng.add_argument("--rate-scale", type=float, default=1.0,
+                   help="multiplies every arrival rate of the trace")
+  eng.add_argument("--hours", default="3,9,21",
+                   help="hours of day of --trace sogou_hourly")
+  eng.add_argument("--predictor", default="affine",
+                   help="affine | ewma | quantile[:pct]")
+  eng.add_argument("--json", default=None, metavar="PATH",
+                   help="write the sweep's results as JSON")
+  # Flags of the JAX launcher that the port refuses (_refuse_unported).
+  eng.add_argument("--cluster", type=int, default=0, help=argparse.SUPPRESS)
+  eng.add_argument("--fleet", action="store_true", help=argparse.SUPPRESS)
+  eng.add_argument("--admission", default="off", help=argparse.SUPPRESS)
+  eng.add_argument("--cache-capacity", type=int, default=0,
+                   help=argparse.SUPPRESS)
+  eng.add_argument("--contract", default="deadline", help=argparse.SUPPRESS)
   args = ap.parse_args(argv)
+  _refuse_unported(ap, args)
   try:
     device = resolve_device(args.device)
   except RuntimeError as e:
     ap.error(str(e))
+  if args.engine:
+    return engine_main(args, device)
   if args.mode == "exact" and args.budget is not None:
     ap.error("--budget sets the synopsis refinement; --mode exact has none")
   if args.mode == "exact" and args.quant != "none":

@@ -1,0 +1,101 @@
+"""Decode caches and the continuous-batching slot pool (counterpart of
+``repro.serve.kv_cache`` for the dense GQA family the port runs).
+
+``cache_struct`` gives each leaf's shape, dtype and logical axes: the
+exact cache (``k``/``v``, ``pos``) or the synopsis cache (cluster-ordered
+``k``/``v``, the centroid tables, ``counts``, the quantized arena's scale
+leaves under ``cfg.synopsis.quant``, the recent ring and ``pos``).  The
+batch axis doubles as the engine's *slot* axis: :func:`zeros_cache`
+allocates the slot pool and :func:`write_slot` admits one request's B=1
+cache into a lane.
+
+Unlike the JAX package, the pool is allocated once and written in place:
+``write_slot`` copies into the lane and the engine's reset zeroes the
+leaves.  A captured CUDA graph reads fixed addresses, so a pool that was
+reallocated would leave the graphs reading the old one.  The other cache
+families (MLA, SSM state, cross-attention) raise, as
+``models.transformer.check_supported`` does.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.kernels import quant as qt
+from repro_torch.models import transformer as tf
+from repro_torch.models.common import ModelConfig
+
+# Logical axes per cache leaf (leading 'layers' for the block stack).
+KV_AXES = ("layers", None, "batch", "kv_heads", "kv_seq", None)
+COUNT_AXES = ("layers", None, "batch", "kv_seq")
+SCALE_AXES = ("layers", None, "batch", "kv_heads", "kv_seq")
+RECENT_AXES = ("layers", None, "batch", "kv_heads", None, None)
+
+
+def cache_struct(cfg: ModelConfig, B: int, S: int, *,
+                 synopsis: bool) -> Dict[str, Any]:
+  """{leaf: (shape, dtype, logical axes)} of the decode cache for (cfg,
+  batch, sequence length)."""
+  tf.check_supported(cfg)
+  nb, na = cfg.n_blocks, len(cfg.block_pattern)
+  Hkv, D = cfg.n_kv_heads, cfg.hd
+  dt = cfg.dtype
+  out: Dict[str, Any] = {}
+  if synopsis:
+    sc = cfg.synopsis
+    C = sc.cluster_size
+    if S % C:
+      raise ValueError(f"sequence length {S} is not a multiple of C={C}")
+    M = S // C
+    qc = qt.parse_qconfig(sc.quant)
+    syn_dt = qt.qdtype(qc.kind) if qc.enabled else dt
+    kv_dt = qt.qdtype(qc.kind) if qc.sorted_kv else dt
+    out["k"] = ((nb, na, B, Hkv, S, D), kv_dt, KV_AXES)
+    out["v"] = ((nb, na, B, Hkv, S, D), kv_dt, KV_AXES)
+    out["k_syn"] = ((nb, na, B, Hkv, M, D), syn_dt, KV_AXES)
+    out["v_syn"] = ((nb, na, B, Hkv, M, D), syn_dt, KV_AXES)
+    out["counts"] = ((nb, na, B, M), torch.float32, COUNT_AXES)
+    if qc.enabled:
+      names = qt.SCALE_LEAVES if qc.sorted_kv else qt.SYN_SCALE_LEAVES
+      for name in names:
+        out[name] = ((nb, na, B, Hkv, M), torch.float32, SCALE_AXES)
+    out["recent_k"] = ((nb, na, B, Hkv, sc.recent, D), dt, RECENT_AXES)
+    out["recent_v"] = ((nb, na, B, Hkv, sc.recent, D), dt, RECENT_AXES)
+    out["recent_len"] = ((B,), torch.int32, ("batch",))
+  else:
+    out["k"] = ((nb, na, B, Hkv, S, D), dt, KV_AXES)
+    out["v"] = ((nb, na, B, Hkv, S, D), dt, KV_AXES)
+  out["pos"] = ((B,), torch.int32, ("batch",))
+  return out
+
+
+def zeros_cache(cfg: ModelConfig, B: int, S: int, *, synopsis: bool,
+                device) -> Dict[str, torch.Tensor]:
+  """All-zeros cache: the engine's slot pool.  A zeroed lane attends over
+  zeros, which is numerically safe (``count_bias`` clamps its zero counts
+  to 1) and which the engine never reads back."""
+  return {name: torch.zeros(sh, dtype=dt, device=device)
+          for name, (sh, dt, _) in cache_struct(cfg, B, S,
+                                                synopsis=synopsis).items()}
+
+
+def slot_batch_axes(cfg: ModelConfig, B: int, S: int, *,
+                    synopsis: bool) -> Dict[str, int]:
+  """Per-leaf index of the batch ("slot") axis, from the logical axes of
+  ``cache_struct``."""
+  return {k: ax.index("batch")
+          for k, (_, _, ax) in cache_struct(cfg, B, S,
+                                            synopsis=synopsis).items()}
+
+
+def write_slot(cache: Dict[str, torch.Tensor], sub: Dict[str, torch.Tensor],
+               slot: int, batch_axes: Dict[str, int]
+               ) -> Dict[str, torch.Tensor]:
+  """Copy a B=1 per-request cache ``sub`` into lane ``slot`` of the slot
+  pool, in place (cast to the pool's dtypes); leaves of ``cache`` with no
+  counterpart in ``sub`` stay as they are.  Returns ``cache``."""
+  for name, dst in cache.items():
+    if name in sub:
+      dst.narrow(batch_axes[name], slot, 1).copy_(sub[name])
+  return cache

@@ -9,6 +9,8 @@
 * :func:`append_recent`: write one decode step's new KV into the recent
   ring.  Unlike the JAX version it writes in place (the cache dict is the
   loop's own state, so no copy of the ring is needed).
+  :func:`append_recent_slots` is the engine's per-slot form, also in
+  place.
 * :func:`absorb_recent`: the paper's "situation 1" update — the full ring
   becomes R/C new clusters appended to the originals and centroid tables,
   through the same kernel with the identity permutation.
@@ -95,6 +97,30 @@ def append_recent(cache: Dict[str, torch.Tensor], k_delta, v_delta):
   cache["recent_k"][:, :, :, :, rl:rl + 1] = k_delta
   cache["recent_v"][:, :, :, :, rl:rl + 1] = v_delta
   cache["recent_len"] += 1
+  return cache
+
+
+def append_recent_slots(cache: Dict[str, torch.Tensor], k_delta, v_delta,
+                        active: torch.Tensor):
+  """Per-slot ring write of the continuous-batching engine, in place: slot
+  ``b``'s new kv (nb, na, B, Hkv, 1, D) lands at its own
+  ``recent_len[b]`` and only ``active`` (B,) bool slots advance.  A slot
+  whose ring is full neither writes nor advances (the engine bounds
+  residency so that this cannot happen; the guard keeps the op total).
+
+  Tensor ops only, with no read on the host, so that a CUDA graph can
+  capture it: every lane writes at its (clamped) ring position, an
+  inactive or full lane writing back the row it read."""
+  rl = cache["recent_len"]                                    # (B,)
+  R = cache["recent_k"].shape[4]
+  ok = (active & (rl < R)).view(1, 1, -1, 1, 1, 1)
+  at = rl.clamp(max=R - 1).long().view(1, 1, -1, 1, 1, 1)
+  for name, delta in (("recent_k", k_delta), ("recent_v", v_delta)):
+    ring = cache[name]
+    idx = at.expand(*delta.shape)
+    ring.scatter_(4, idx, torch.where(ok, delta.to(ring.dtype),
+                                      ring.gather(4, idx)))
+  rl += ok.view(-1).to(rl.dtype)
   return cache
 
 

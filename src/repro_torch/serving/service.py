@@ -1,0 +1,213 @@
+"""Scatter-gather online service with the paper's techniques, as a
+discrete-event simulation (the port's own copy of
+``repro.serving.service``).
+
+One request fans out to ``n_components`` parallel components; it completes
+when the composer has what it needs, so the tail of component latency is
+the service latency (paper §1).  Techniques:
+
+  * ``basic``          exact processing on every component.
+  * ``reissue``        exact + request reissue: a component slower than the
+                       p95 of its class is replicated on the least-loaded
+                       component and the quicker wins.
+  * ``partial``        exact everywhere, but results missing at the
+                       deadline are skipped (their accuracy is lost).
+  * ``accuracytrader`` stage 1 on the synopsis, then the top-ranked
+                       clusters within the controller's budget.
+
+``step_backend`` closes the loop with the real kernel path: the
+``accuracytrader`` components then serve in the engine's measured
+per-bucket step time (``repro_torch.serve.engine.MeasuredStepBackend``)
+instead of the modelled ``base + slope * items``.  Injected faults with
+replica failover (``faults``) belong to the multi-component tiers
+(ROADMAP A.7), the ε-or-deadline contracts to ROADMAP A.3.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+
+from repro_torch.control import AffinePredictor, BudgetController, TailTracker
+from repro_torch.control.policy import check_contract
+from repro_torch.serving.latency import ComponentModel
+
+
+@dataclasses.dataclass
+class Request:
+  rid: int
+  arrival_ms: float
+
+
+@dataclasses.dataclass
+class ServiceConfig:
+  n_components: int = 108
+  technique: str = "accuracytrader"
+  deadline_ms: float = 100.0
+  full_items: int = 100            # clusters per component (exact = all)
+  i_max_cap: int = 40              # paper: top-40% ranked sets
+  reissue_pct: float = 95.0
+  # Zipf exponent over per-component work: skew > 0 makes low-rank
+  # components "hot" (they own more of the corpus and serve slower).
+  skew: float = 0.0
+  seed: int = 0
+  faults: Optional[object] = None  # ROADMAP A.7
+  shed: bool = False           # predictive shed-at-admission
+  shed_margin: float = 1.0     # shed when backlog+service > ddl*margin
+  contract: str = "deadline"   # the port runs "deadline" (ROADMAP A.3)
+
+
+def zipf_weights(n: int, s: float) -> np.ndarray:
+  """Normalised Zipf(s) weights over ``n`` ranks (s=0 -> uniform)."""
+  ranks = np.arange(1, n + 1, dtype=np.float64)
+  w = ranks ** (-float(s))
+  return w / w.sum()
+
+
+class ScatterGatherService:
+  def __init__(self, cfg: ServiceConfig,
+               accuracy_fn: Optional[Callable[[float], float]] = None,
+               step_backend=None):
+    check_contract(cfg.contract)
+    if cfg.faults is not None:
+      raise NotImplementedError(
+          "injected faults belong to the multi-component tiers, which the "
+          "port has not ported yet (ROADMAP A.7)")
+    self.cfg = cfg
+    self.step_backend = step_backend
+    if cfg.skew:
+      scales = zipf_weights(cfg.n_components, cfg.skew) * cfg.n_components
+    else:
+      scales = np.ones((cfg.n_components,))
+    self.components = [
+        ComponentModel(seed=cfg.seed * 1000 + i, comp_id=i,
+                       work_scale=float(scales[i]),
+                       full_items=cfg.full_items)
+        for i in range(cfg.n_components)
+    ]
+    self.tracker = TailTracker()
+    self.acc_tracker: List[float] = []
+    self.controller = BudgetController(
+        AffinePredictor(base=2.0, slope=0.15),
+        buckets=tuple(sorted({0, 1, 2, 4, 8, 16, 24, 32, 40,
+                              cfg.i_max_cap})),
+        i_max_cap=cfg.i_max_cap)
+    self.class_latencies: List[float] = []
+    # fraction of ranked clusters processed -> accuracy in [0, 1]; default
+    # the fig-4-style concentration curve.
+    self.accuracy_fn = accuracy_fn or _default_concentration
+    self.rng = np.random.default_rng(cfg.seed)
+    self.shed_n = 0
+    self.total_n = 0
+
+  # -- one request -----------------------------------------------------------
+  def submit(self, req: Request) -> Dict[str, float]:
+    cfg = self.cfg
+    tech = cfg.technique
+    done_times = []
+    processed_frac = []
+    self.total_n += 1
+
+    queue_delay = float(np.mean([
+        max(0.0, c.busy_until - req.arrival_ms) for c in self.components]))
+    if cfg.shed:
+      # Predictive shed-at-admission: the mean backlog plus the
+      # predictor's stage-1 floor already misses the deadline.
+      demand = queue_delay + self.controller.model.predict(0)
+      if demand > cfg.deadline_ms * cfg.shed_margin:
+        self.shed_n += 1
+        self.acc_tracker.append(0.0)
+        return {"latency_ms": 0.0, "accuracy": 0.0, "shed": True}
+    if tech == "accuracytrader":
+      budget = self.controller.budget_for(cfg.deadline_ms, queue_delay)
+      measured = None
+      if self.step_backend is not None:
+        measured = self.step_backend.step_ms(budget)
+    for comp in self.components:
+      if tech in ("basic", "partial", "reissue"):
+        items = cfg.full_items
+        service_ms = None
+      else:
+        items = budget
+        service_ms = measured
+      done_times.append(comp.submit(req.arrival_ms, items,
+                                    service_ms=service_ms))
+      processed_frac.append(items / cfg.full_items)
+
+    if tech == "reissue" and self.class_latencies:
+      thresh = np.percentile(self.class_latencies, cfg.reissue_pct)
+      order = np.argsort([c.busy_until for c in self.components])
+      spare = list(order)
+      budget_replicas = max(1, cfg.n_components // 10)
+      for i, t_done in enumerate(done_times):
+        lat_i = t_done - req.arrival_ms
+        if lat_i > thresh and spare and budget_replicas > 0:
+          # replica on the least-loaded component, issued when the
+          # straggler is detected; only if expected to finish sooner
+          j = int(spare.pop(0))
+          est = self.components[j].peek_completion(
+              req.arrival_ms + thresh, cfg.full_items)
+          if est < t_done:
+            t_replica = self.components[j].submit(
+                req.arrival_ms + thresh, cfg.full_items)
+            done_times[i] = min(t_done, t_replica)
+            budget_replicas -= 1
+
+    lat = [t - req.arrival_ms for t in done_times]
+    for v in lat:
+      self.class_latencies.append(v)
+    if len(self.class_latencies) > 5000:
+      del self.class_latencies[:1000]
+
+    deadline_abs = req.arrival_ms + cfg.deadline_ms
+    if tech == "partial":
+      # Components missing the deadline are skipped: their subset's
+      # accuracy contribution is lost (paper §5).
+      acc = float(np.mean([1.0 if t <= deadline_abs else 0.0
+                           for t in done_times]))
+      comp_lat = min(max(lat), cfg.deadline_ms)
+    elif tech == "accuracytrader":
+      comp_lat = max(lat)
+      self.controller.observe(budget, comp_lat)
+      acc = float(np.mean([self.accuracy_fn(u) for u in processed_frac]))
+    else:
+      acc = 1.0
+      comp_lat = max(lat)
+
+    self.tracker.observe(comp_lat)
+    self.acc_tracker.append(acc)
+    return {"latency_ms": comp_lat, "accuracy": acc}
+
+  def run_open_loop(self, arrival_rate_per_s: float,
+                    duration_s: float) -> Dict[str, float]:
+    """Poisson arrivals for one measurement window.  Queues and the
+    calibrated latency model persist across windows; the percentile
+    tracker resets (each call = one reported session, as in Fig 5)."""
+    self.tracker = TailTracker()
+    self.acc_tracker = []
+    self.shed_n = 0
+    self.total_n = 0
+    t = max((c.busy_until for c in self.components), default=0.0)
+    end = t + duration_s * 1000.0
+    rid = 0
+    while t < end:
+      gap = self.rng.exponential(1000.0 / arrival_rate_per_s)
+      t += gap
+      self.submit(Request(rid, t))
+      rid += 1
+    s = self.tracker.summary()
+    s["accuracy_loss_pct"] = 100.0 * (1.0 - float(np.mean(self.acc_tracker)))
+    s["shed_pct"] = 100.0 * self.shed_n / max(1, self.total_n)
+    # Every served request answered its full shard mass (no faults here).
+    s["availability_pct"] = 100.0 if self.total_n > self.shed_n else 0.0
+    return s
+
+
+def _default_concentration(frac: float) -> float:
+  """Fig-4-style curve, calibrated to the paper's operating points: the
+  synopsis stage alone recovers ~93 % of result accuracy, and the top-40 %
+  ranked clusters recover ~99.9 %."""
+  if frac <= 0.0:
+    return 0.93
+  return 0.93 + 0.07 * min(1.0, (frac / 0.45) ** 0.6)

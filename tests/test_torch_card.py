@@ -809,3 +809,181 @@ def test_card_quant_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                            k_sel=kq[:, :, :1].bfloat16(),
                            v_sel=vq[:, :, :1].bfloat16(),
                            sel_bias=torch.zeros((2, 2, 1), device=cuda))
+
+
+# -- the engine's CUDA graphs -------------------------------------------------
+
+ENGINE_PROMPT, ENGINE_NEW = 64, 4
+
+
+def _card_or_skip():
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA device: the engine captures CUDA graphs")
+  return torch.device("cuda")
+
+
+def _smoke_engine(dev, quant="none", **kw):
+  from repro_torch.configs.registry import get_config
+  from repro_torch.launch.serve import apply_quant
+  from repro_torch.serve.engine import EngineConfig, ServingEngine
+  cfg = apply_quant(get_config("llama3-8b", smoke=True), quant)     # bf16
+  ecfg = EngineConfig(n_slots=2, prompt_len=ENGINE_PROMPT,
+                      max_new_tokens=ENGINE_NEW, **kw)
+  return ServingEngine(cfg, ecfg, device=dev)
+
+
+def _serve_a_trace(eng):
+  from repro_torch.serve.engine import make_requests
+  eng.run(make_requests([0.0, 1.0, 2.0], ENGINE_PROMPT, ENGINE_NEW,
+                        eng.cfg.vocab, seed=5))
+
+
+@pytest.fixture(scope="module", params=["none", "int8+kv"])
+def card_engine(request):
+  """A bf16 SMOKE engine (accuracytrader: every bucket captured) after a
+  trace, so that its pool holds resident lanes."""
+  eng = _smoke_engine(_card_or_skip(), request.param)
+  _serve_a_trace(eng)
+  return eng
+
+
+def _step_outputs(eng):
+  torch.cuda.synchronize()
+  return {k: v.clone() for k, v in eng.step_out.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [0, 1, 2, 4])
+def test_card_engine_step_graph_replays_its_eager_call(card_engine, budget):
+  """Every bucket of the run has its captured graph; its replay writes the
+  bits the same program writes when called eagerly on the same pool."""
+  eng = card_engine
+  assert eng.buckets == (0, 1, 2, 4)
+  key = ("step", budget)
+  assert key in eng.programs.graphs and "append" in eng.programs.graphs
+  eng.programs.run(key)
+  replayed = _step_outputs(eng)
+  eng.programs.call_eager(key)
+  eager = _step_outputs(eng)
+  for name, t in replayed.items():
+    assert torch.equal(t, eager[name]), name
+  assert torch.isfinite(replayed["logits"]).all()
+
+
+@pytest.mark.cuda
+def test_card_engine_allocates_the_merge_tickets_before_capture(monkeypatch):
+  """The decode kernels' merge tickets exist before the first capture:
+  no kernel allocates them while a graph is being captured, so they never
+  land in the graphs' pool."""
+  dev = _card_or_skip()
+  calls = []
+  take = _build.tickets
+
+  def spy(device, n):
+    before = _build._tickets.get(device)
+    t = take(device, n)
+    calls.append((torch.cuda.is_current_stream_capturing(),
+                  t is not before))
+    return t
+
+  monkeypatch.setattr(_build, "tickets", spy)
+  monkeypatch.setattr(_build, "_tickets", {})
+  eng = _smoke_engine(dev, policy="fixed", fixed_budget=2)
+  assert [alloc for _, alloc in calls].count(True) == 1
+  assert calls[0] == (False, True)
+  assert any(capturing for capturing, _ in calls)
+  assert not any(capturing and alloc for capturing, alloc in calls)
+  assert _build._tickets[eng.dev].numel() >= 2 * eng.cfg.n_heads
+
+
+@pytest.mark.cuda
+def test_card_engine_replays_after_the_merge_tickets_grow():
+  """A graph bakes in the address of the tickets it was captured with:
+  when a later caller needs more rows, the buffer is replaced but the old
+  one stays alive, so the replay still merges right; it agrees with the
+  eager call, which takes the new buffer.  Growing during a capture
+  raises."""
+  eng = _smoke_engine(_card_or_skip(), policy="fixed", fixed_budget=2)
+  _serve_a_trace(eng)
+  old = _build._tickets[eng.dev]
+  n_old = old.numel()
+  grown = _build.tickets(eng.dev, n_old + 1)
+  assert grown.data_ptr() != old.data_ptr()
+  del old
+  torch.cuda.empty_cache()
+  # the old buffer's size: where the allocator would hand out its memory
+  # again had it been freed
+  junk = torch.full((n_old,), 7, dtype=torch.int32, device=eng.dev)
+  eng.programs.run(("step", 2))
+  replayed = _step_outputs(eng)
+  eng.programs.call_eager(("step", 2))
+  eager = _step_outputs(eng)
+  for name, t in replayed.items():
+    assert torch.equal(t, eager[name]), name
+  del junk
+  x = torch.zeros(1, device=eng.dev)
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    x.add_(1)
+    with pytest.raises(RuntimeError, match="capture"):
+      _build.tickets(eng.dev, grown.numel() + 1)
+  assert _build._tickets[eng.dev] is grown
+
+
+@pytest.mark.cuda
+def test_card_engine_replays_on_the_zeroed_pool_after_reset():
+  """reset() zeroes the pool in place: the same tensors, now zero, and a
+  replay after it gives what the step gives on a fresh zero pool (before
+  the reset it gave something else: the graph reads the live pool)."""
+  from repro_torch.serve import kv_cache as kvc
+  from repro_torch.serve.serve_step import make_serve_step
+  eng = _smoke_engine(_card_or_skip(), policy="fixed", fixed_budget=1)
+  ptrs = {k: v.data_ptr() for k, v in eng.cache.items()}
+  _serve_a_trace(eng)
+  eng.programs.run(("step", 1))
+  busy = _step_outputs(eng)["logits"]
+  eng.reset()
+  assert {k: v.data_ptr() for k, v in eng.cache.items()} == ptrs
+  assert not any(bool(v.view(torch.uint8).any()) for v in eng.cache.values())
+  eng.programs.run(("step", 1))
+  got = _step_outputs(eng)
+  fresh = kvc.zeros_cache(eng.cfg, 2, ENGINE_PROMPT, synopsis=True,
+                          device=eng.dev)
+  logits, st = make_serve_step(eng.cfg, i_max=1)(eng.params, fresh,
+                                                 torch.zeros_like(eng.tok))
+  assert torch.equal(got["logits"], logits)
+  assert torch.equal(got["k_delta"], st["k_delta"])
+  assert not torch.equal(busy, logits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", [dict(policy="fixed", fixed_budget=1),
+                                 dict(policy="basic")],
+                         ids=["fixed1", "basic"])
+def test_card_engine_generates_the_cpu_engine_ids(arm):
+  """SMOKE in f32 (tf32 off): the engine on the card (graphs, kernels) and
+  on the CPU (eager, plain versions) generate the same ids."""
+  import dataclasses
+  from repro_torch.configs.registry import get_config
+  from repro_torch.models import transformer as tf
+  from repro_torch.serve.engine import (EngineConfig, ServingEngine,
+                                        make_requests)
+  dev = _card_or_skip()
+  cfg = dataclasses.replace(get_config("llama3-8b", smoke=True),
+                            dtype=torch.float32)
+  params = tf.init_model(cfg, torch.Generator().manual_seed(1), "cpu")
+  ids = {}
+  for where in ("cpu", dev):
+    eng = ServingEngine(cfg, EngineConfig(
+        n_slots=2, prompt_len=ENGINE_PROMPT, max_new_tokens=ENGINE_NEW,
+        **arm), params=_tree_to(params, where), device=where)
+    reqs = make_requests([0.0, 1.0, 2.0, 3.0], ENGINE_PROMPT, ENGINE_NEW,
+                         cfg.vocab, seed=9)
+    eng.run(reqs)
+    ids[str(where)] = [r.tokens for r in reqs]
+  assert ids["cuda"] == ids["cpu"]
+
+
+def _tree_to(tree, dev):
+  return {k: _tree_to(v, dev) if isinstance(v, dict) else v.to(dev)
+          for k, v in tree.items()}
