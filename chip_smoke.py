@@ -62,7 +62,18 @@
     ``basic`` on the same arrivals (request latency, accuracy loss, misses,
     budgets, goodput, admission time, peak memory; the ``basic`` trace also
     under the profiler: the device's busy share over the window), and one
-    simulator window on the measured step table (``MeasuredStepBackend``).
+    simulator window on the measured step table (``MeasuredStepBackend``);
+11. the rest of the single-device engine at the same width: the contracts
+    (an estimator fit from fixed-budget ``deadline_with_bound`` windows,
+    then the Poisson window under ``error_bounded`` and
+    ``deadline_with_bound``; the budget-32 replay with the coverage
+    profile beside the ``deadline`` replay, whose device-op count must be
+    the previous engine's), queue-aware admission (EDF, two SLO classes,
+    shedding, twice the rate), the corpus cache (a 100%-repeat window with
+    the cache on and off: hits launch neither prefill nor build, the same
+    ids; a Zipf window; delta replay of a 4096-token prefix's
+    8192-token extension, its KV held against the full prefill's), and the
+    loop's ``--batches 2`` serial against ``--pipeline``.
 
 Every path's launch counts are reset just before it runs and read just
 after: the synopsis loop must launch its four kernels, the quantized loops
@@ -127,6 +138,20 @@ FUSION_BUDGETS = (1, 8, 32, 64)
 ENGINE_SLOTS, ENGINE_NEW = 4, 32
 ENGINE_RATE, ENGINE_WINDOW_S = 3.0, 4.0
 ENGINE_DEADLINE_MS = 2000.0
+# The engine's replayed step at these shapes issued these device ops
+# before the contracts' telemetry existed (PERF.md §5, counted by
+# engine_step_table); under the deadline contract the step must issue
+# them still (its telemetry runs under the other two).
+DEADLINE_REPLAY_OPS = {0: 3631, 1: 3663}
+DEADLINE_REPLAY_OPS_REST = 3695
+# The contracts: an estimator fit on short fixed-budget windows (one per
+# budget, every lane admitted at once), then error_bounded at the JAX
+# launcher's default ε.
+CALIB_BUDGETS = (0, 4, 16, 64)
+ENGINE_EPSILON = 0.02
+# Admission: two SLO classes, the interactive one at the engine's deadline
+# and a batch class at twice it, requests taking them in turn.
+SLO_CLASSES = "interactive:2000,batch:4000"
 
 
 # The device-side names of each kernel's launches (substrings of the
@@ -1217,7 +1242,9 @@ def engine_step_table(eng, reps=10):
   on the pool the trace left (resident lanes): host ms (median of
   ``reps``, each call waited for), CUDA-event ms (``reps`` calls queued
   back to back), device busy ms and device ops a step (profiler), and the
-  step's outputs, which must be bitwise equal."""
+  step's outputs, which must be bitwise equal.  Returns {bucket: (replay
+  host ms, busy ms, device ops)}."""
+  rows = {}
   for b in eng.buckets:
     key = ("step", b)
     if key not in eng.programs.graphs:
@@ -1262,6 +1289,24 @@ def engine_step_table(eng, reps=10):
         "fused_synopsis_score_attention", "block_gather_attention")):
       raise AssertionError(f"bucket {b}: the replay does not run the "
                            f"decode kernels once a layer: {inside}")
+    rows[b] = (r_host, r_busy, r_ops)
+  return rows
+
+
+def _replay_row(eng, b, reps=10):
+  """One bucket's replay: host ms (median of ``reps``, each waited for),
+  device busy ms and device ops (profiler)."""
+  key = ("step", b)
+  eng.programs.run(key)
+  torch.cuda.synchronize()
+  ts = []
+  for _ in range(reps):
+    t0 = time.perf_counter()
+    eng.programs.run(key)
+    torch.cuda.synchronize()
+    ts.append((time.perf_counter() - t0) * 1e3)
+  busy, ops_n, _, _ = _profile_rows(lambda: eng.programs.run(key), 3)
+  return statistics.median(ts), busy, ops_n
 
 
 def _engine_metrics(label, s, eng):
@@ -1569,7 +1614,20 @@ def run_engine(cfg, params, dev):
               f"{n['deadline_miss_pct']:.1f} p50={n['p50']:.1f} ms "
               f"accuracy_loss_pct={n['accuracy_loss_pct']:.3f}")
       eng.ecfg.deadline_ms = ENGINE_DEADLINE_MS
-      engine_step_table(eng)
+      replays = engine_step_table(eng)
+      for b, (_, _, ops_n) in replays.items():
+        want = DEADLINE_REPLAY_OPS.get(b, DEADLINE_REPLAY_OPS_REST)
+        if round(ops_n) != want:
+          # A profiler session at times loses rows: the most of three.
+          ops_n = max([ops_n] + [_profile_rows(
+              lambda: eng.programs.run(("step", b)), 3)[1]
+              for _ in range(2)])
+        print(f"  [engine step] bucket {b:2d}: {ops_n:.0f} device ops, the "
+              f"previous engine's {want}")
+        if round(ops_n) != want:
+          raise AssertionError(f"bucket {b}: the deadline replay issues "
+                               f"{ops_n} device ops, the previous engine "
+                               f"{want}")
       backend = MeasuredStepBackend(eng, iters=5)
       print(f"[engine simulator] measured step table (ms): "
             f"{ {b: round(ms, 3) for b, ms in backend.table.items()} }")
@@ -1615,7 +1673,365 @@ def run_engine(cfg, params, dev):
     print(f"[engine compare] {k}: accuracytrader "
           f"{summaries['accuracytrader'][k]:.3f} basic "
           f"{summaries['basic'][k]:.3f}")
+  return launches, replays[cfg.synopsis.i_max]
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the contracts, admission, the corpus cache and delta replay,
+# the loop's --batches / --pipeline
+# ---------------------------------------------------------------------------
+
+def _engine(cfg, params, dev, **kw):
+  from repro_torch.serve.engine import EngineConfig, ServingEngine
+  torch.cuda.empty_cache()      # each engine's memory is its own
+  estimator = kw.pop("estimator", None)
+  kw.setdefault("deadline_ms", ENGINE_DEADLINE_MS)
+  return ServingEngine(cfg, EngineConfig(
+      n_slots=ENGINE_SLOTS, prompt_len=PROMPT, max_new_tokens=ENGINE_NEW,
+      **kw), params=params, estimator=estimator, device=dev)
+
+
+def _served(label, eng, n=None):
+  """Every request served to its last token (none shed unless asked),
+  with finite ids."""
+  served = [r for r in eng.completed if not r.shed_admission]
+  if n is not None and len(eng.completed) != n:
+    raise AssertionError(f"{label}: {len(eng.completed)} requests, not {n}")
+  if not served or not all(len(r.tokens) == ENGINE_NEW + 1
+                           for r in served if not r.dropped):
+    raise AssertionError(f"{label}: requests not served")
+
+
+def run_engine_contract(cfg, params, dev, deadline_replay):
+  """The ε-or-deadline contracts at full width: an estimator fit from one
+  short deadline_with_bound window per calibration budget (policy fixed),
+  shared by the engines that follow; the Poisson window under
+  error_bounded (ε = ENGINE_EPSILON) and deadline_with_bound; the budget-32
+  replay with the coverage profile beside ``deadline_replay`` (the
+  deadline engine's).  Returns the path's launch counts."""
+  from repro_torch.control import calibration_pairs
+  from repro_torch.kernels import _build
+  from repro_torch.serve.engine import make_requests, run_open_loop
+  _build.reset_launches()
+  t0 = time.perf_counter()
+  est, raws, meas = None, [], []
+  for b in CALIB_BUDGETS:
+    eng = _engine(cfg, params, dev, policy="fixed", fixed_budget=b,
+                  contract="deadline_with_bound", estimator=est)
+    est = eng.estimator
+    eng.run(make_requests([0.0] * ENGINE_SLOTS, PROMPT, ENGINE_NEW,
+                          cfg.vocab, seed=100 + b))
+    _served(f"calibration at budget {b}", eng, ENGINE_SLOTS)
+    r, m = calibration_pairs(eng.completed)
+    raws += r
+    meas += m
+    del eng
+  fit = est.fit(raws, meas)
+  print(f"[engine contract] calibration: budgets {CALIB_BUDGETS}, "
+        f"{fit['n']} (raw, measured loss) pairs, spearman "
+        f"{fit['spearman']:.3f}, band half-width {fit['resid_q']:.4f}, "
+        f"raw {min(raws):.5f}-{max(raws):.5f}, in "
+        f"{time.perf_counter() - t0:.1f}s")
+  for contract in ("error_bounded", "deadline_with_bound"):
+    eng = _engine(cfg, params, dev, policy="accuracytrader",
+                  contract=contract, epsilon=ENGINE_EPSILON, estimator=est)
+    s = run_open_loop(eng, ENGINE_RATE, ENGINE_WINDOW_S, seed=0)
+    _served(f"[engine contract] {contract}", eng)
+    if not all(len(r.est_raw) == ENGINE_NEW and r.band_lo <= r.pred_loss
+               <= r.band_hi for r in eng.completed):
+      raise AssertionError(f"{contract}: a request lacks its telemetry")
+    print(f"[engine contract] {contract} (ε={ENGINE_EPSILON}): n={s['n']} "
+          f"p50={s['p50']:.1f} ms p99={s['p99']:.1f} ms mean_budget="
+          f"{s['mean_budget']:.2f} pred_loss_mean={s['pred_loss_mean']:.5f} "
+          f"measured loss {s['accuracy_loss_pct'] / 100:.5f} "
+          f"band_cover_pct={s['band_cover_pct']:.1f} freed_budget_mean="
+          f"{s['freed_budget_mean']:.2f} deadline_miss_pct="
+          f"{s['deadline_miss_pct']:.1f} admission_p50="
+          f"{s['admission_p50']:.1f} ms")
+    if contract == "error_bounded":
+      host, busy, ops_n = _replay_row(eng, cfg.synopsis.i_max)
+      d_host, d_busy, d_ops = deadline_replay
+      print(f"[engine contract] budget-{cfg.synopsis.i_max} replay with the "
+            f"coverage profile: "
+            f"host {host:.3f} ms, device busy {busy:.3f} ms, {ops_n:.0f} "
+            f"device ops | deadline replay: host {d_host:.3f} ms, busy "
+            f"{d_busy:.3f} ms, {d_ops:.0f} ops | the profile costs "
+            f"{busy - d_busy:.3f} ms busy, {ops_n - d_ops:.0f} ops a step")
+    del eng
+  return _build.launch_counts()
+
+
+def run_engine_admission(cfg, params, dev):
+  """EDF over two SLO classes with predictive shedding, on the contract
+  window's arrivals at twice the rate.  Returns the launch counts."""
+  from repro_torch.control import AdmissionConfig, parse_slo_classes
+  from repro_torch.kernels import _build
+  from repro_torch.serve.engine import run_open_loop
+  classes = parse_slo_classes(SLO_CLASSES)
+  names = [c.name for c in classes]
+  _build.reset_launches()
+  eng = _engine(cfg, params, dev, policy="accuracytrader",
+                admission=AdmissionConfig(order="edf", shed=True,
+                                          classes=classes))
+  s = run_open_loop(eng, 2 * ENGINE_RATE, ENGINE_WINDOW_S, seed=0,
+                    slo_of=lambda rid: names[rid % len(names)])
+  _served("[engine admission]", eng)
+  n = len(eng.completed)
+  if s["served_n"] + s["shed_admission_n"] != n or set(s["classes"]) != \
+      set(names):
+    raise AssertionError(f"admission accounting: {s}")
+  print(f"[engine admission] edf, classes {SLO_CLASSES}, shedding on, "
+        f"{2 * ENGINE_RATE} req/s for {ENGINE_WINDOW_S} s: {n} requests, "
+        f"served {s['served_n']}, shed at admission "
+        f"{s['shed_admission_n']}, shed_pct={s['shed_pct']:.1f} goodput="
+        f"{s['goodput_n']} ({s['goodput_per_s']:.3f}/s) p50={s['p50']:.1f} "
+        f"ms p99={s['p99']:.1f} ms mean_budget={s['mean_budget']:.2f} "
+        f"prefills={s['prefills']}")
+  for name in names:
+    c = s["classes"][name]
+    print(f"[engine admission] {name}: served {c['served_n']} shed "
+          f"{c['shed_admission_n']} shed_pct={c['shed_pct']:.1f} goodput="
+          f"{c['goodput_n']} p50={c['p50']:.1f} ms p99={c['p99']:.1f} ms "
+          f"deadline_miss_pct={c['deadline_miss_pct']:.1f}")
+  del eng
+  return _build.launch_counts()
+
+
+def _prefill_plain():
+  """Within the block, prefill attention runs its plain version on the
+  card (the noise floor of a second correct bf16 prefill)."""
+  from repro_torch.kernels import ops, ref
+  return _swapped(ops, "flash_prefill", ref.flash_prefill_ref)
+
+
+@contextlib.contextmanager
+def _swapped(module, name, fn):
+  saved = getattr(module, name)
+  setattr(module, name, fn)
+  try:
+    yield
+  finally:
+    setattr(module, name, saved)
+
+
+def _layer_rel(a, b):
+  """max |a - b| / max |b| per layer of (nb, na, ...) tensors."""
+  a = a.flatten(2).float()
+  b = b.flatten(2).float()
+  return ((a - b).abs().amax(-1) / b.abs().amax(-1)).flatten().tolist()
+
+
+def run_engine_cache(cfg, params, dev, g):
+  """The corpus cache at full width: the 100%-repeat arm with the cache on
+  and off (fixed budget 32, serial admissions, the second window
+  measured), a Zipf window, and delta replay of a 4096-token prefix's
+  8192-token extension.  Returns {kind: launch counts}."""
+  import numpy as np
+  from repro_torch.kernels import _build, ops, ref
+  from repro_torch.kernels.synopsis_build import segment_build
+  from repro_torch.serve.corpus_cache import CacheConfig
+  from repro_torch.serve.engine import EngineRequest, run_open_loop
+  C = cfg.synopsis.cluster_size
+  arms, launches = {}, {}
+  for on in (False, True):
+    eng = _engine(cfg, params, dev, policy="fixed", fixed_budget=32,
+                  overlap_admission=False,
+                  cache=CacheConfig(capacity=4 if on else 0, delta_unit=C))
+    run_open_loop(eng, ENGINE_RATE, ENGINE_WINDOW_S, seed=0, zipf_corpora=1)
+    _build.reset_launches()
+    s = run_open_loop(eng, ENGINE_RATE, ENGINE_WINDOW_S, seed=0,
+                      zipf_corpora=1)
+    launches["hit" if on else "miss"] = _build.launch_counts()
+    _served(f"[engine cache] cache {'on' if on else 'off'}", eng)
+    arms[on] = (s, [r.tokens for r in sorted(eng.completed,
+                                             key=lambda r: r.rid)])
+    if not on:
+      del eng
+  (s_on, ids_on), (s_off, ids_off) = arms[True], arms[False]
+  print(f"[engine cache] 100%-repeat arm (1 corpus), fixed 32, serial "
+        f"admissions, second window: cache on {s_on['cache_hits']:.0f} hits "
+        f"of {s_on['n']}, prefills {s_on['prefills']}, admission_p50 (hits) "
+        f"{s_on['admission_p50']:.2f} ms p99 {s_on['admission_p99']:.2f} ms, "
+        f"request p50 {s_on['p50']:.1f} ms | cache off prefills "
+        f"{s_off['prefills']}, admission_p50 (misses) "
+        f"{s_off['admission_p50']:.2f} ms p99 {s_off['admission_p99']:.2f} "
+        f"ms, request p50 {s_off['p50']:.1f} ms")
+  delta = s_on["accuracy_loss_pct"] - s_off["accuracy_loss_pct"]
+  print(f"[engine cache] loss delta {delta} (on - off), ids equal "
+        f"{ids_on == ids_off}")
+  if delta != 0 or ids_on != ids_off or s_on["prefills"] != 0 or \
+      s_on["cache_hits"] != s_on["n"]:
+    raise AssertionError("the repeat arm's hits differ from its misses")
+  _require_launches("engine cache hits", launches["hit"], (),
+                    absent=("flash_prefill", "segment_build"))
+
+  torch.cuda.reset_peak_memory_stats()
+  s = run_open_loop(eng, ENGINE_RATE, ENGINE_WINDOW_S, seed=0,
+                    zipf_corpora=4)
+  _served("[engine cache] zipf", eng)
+  print(f"[engine cache] zipf window (4 corpora, capacity 4): hit_rate="
+        f"{s['cache_hit_rate']:.3f} ({s['cache_hits']:.0f} hits, "
+        f"{s['cache_misses']:.0f} misses, {s['cache_evictions']:.0f} "
+        f"evictions), entries {s['cache_entries']:.0f}, arena bytes "
+        f"{s['cache_bytes'] / 1e9:.3f} GB, peak_mem_gb="
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f}, p50="
+        f"{s['p50']:.1f} ms admission_p50={s['admission_p50']:.2f} ms")
+
+  # Delta replay: the prefix's arena published, then its extension.
+  P = PROMPT // 2
+  prompt = torch.randint(0, cfg.vocab, (PROMPT,), generator=g,
+                         device=dev).cpu().numpy().astype(np.int32)
+  eng.reset()
+  lg, pre = eng._prefill(params, eng._stage(prompt[:P]))
+  arena = eng._build(pre)
+  del pre
+  e = eng.corpus_cache.publish(prompt[:P], arena, lg.argmax(-1))
+  eng.corpus_cache.release(e.key)
+  req = EngineRequest(rid=0, arrival_ms=0.0, prompt=prompt,
+                      max_new_tokens=ENGINE_NEW)
+  _build.reset_launches()
+  with _first_inputs(ops, ("segment_build",)) as seen:
+    eng._admit(req, 0)
+  launches["extend"] = _build.launch_counts()
+  other = EngineRequest(rid=1, arrival_ms=0.0, prompt=np.roll(prompt, 1),
+                        max_new_tokens=ENGINE_NEW)
+  eng._admit(other, 1)
+  cst = eng.corpus_cache.stats()
+  print(f"[engine cache] delta replay: prefix {P} tokens (M={P // C}) + "
+        f"extension {PROMPT - P} -> {PROMPT} (M={PROMPT // C}): extension "
+        f"admission {req.admit_wall_ms:.1f} ms against a full admission "
+        f"(miss) {other.admit_wall_ms:.1f} ms; cache {cst}")
+  if cst["delta_hits"] != 1 or cst["misses"] != 1:
+    raise AssertionError(f"the extension was not replayed: {cst}")
+  _require_launches("engine cache extension", launches["extend"],
+                    ("segment_build",), absent=("flash_prefill",))
+  # segment_build at the extension's shape, against its plain version.
+  (k, v, perm), kw = seen["segment_build"]
+  del seen
+  if kw.pop("quant", None) is not None:
+    raise AssertionError("the extension builds unquantized")
+  got = segment_build(k, v, perm, **kw)
+  want = ref.synopsis_build_ref(k, v, perm, **kw)
+  err = _check("segment_build extension", k.dtype, got, want,
+               *BF16_OUT_TOL)
+  N, Hkv, E, D = k.shape
+  M = E // kw["cluster_size"]
+  rec = _bound_share(_record(
+      "segment_build", "src/repro_torch/kernels/csrc/segment_build.cu",
+      "src/repro/kernels/synopsis_build.py:173", k.dtype, err,
+      lambda: segment_build(k, v, perm, **kw),
+      lambda: ref.synopsis_build_ref(k, v, perm, **kw),
+      _nbytes(k, v, perm, *got), 2 * N * Hkv * E * D + 2 * N * Hkv * M * D),
+      k.dtype)
+  print(f"[engine cache] segment_build at the extension's shape: {N} "
+        f"sequences x {tuple(k.shape[1:])}, {M} clusters: device "
+        f"{rec['device_ms']:.4f} ms against {rec['bound_ms']:.4f} ms bound "
+        f"({rec['bound_by']}), {launches['extend']['segment_build']} "
+        "launch(es) an extension")
+  del got, want, k, v, perm
+
+  # The extension's KV against the full prefill's slice, in bf16.  Each
+  # layer's bound is relative to max|full|: twice the distance of a second
+  # correct bf16 prefill (the plain attention version on the card) from
+  # the kernel's, plus one bf16 ulp at the top of the range (2^-7): the
+  # random init's activations amplify a last-bit difference layer by
+  # layer, in any two bf16 prefills, until two prefills of 32 layers are
+  # unrelated from layer ~9 on and pick different first tokens.  So the
+  # first token is held to the full prefill's with the depth cut to one
+  # layer (full width), and at full depth to the admission's own.
+  lg_e, (k_e, v_e) = eng._extend(params, eng._stage(prompt[P:]),
+                                 arena["k"], arena["v"], P)
+  lg_f, full = eng._prefill(params, eng._stage(prompt))
+  with _prefill_plain():
+    lg_p, plain = eng._prefill(params, eng._stage(prompt))
+  firsts = {n: int(x.argmax()) for n, x in (("extension", lg_e),
+                                            ("full", lg_f), ("plain", lg_p))}
+  shallow = _delta_first_tokens(cfg, params, eng, prompt, P)
+  worst = 0.0
+  for name, ext in (("k", k_e), ("v", v_e)):
+    e_ext = _layer_rel(ext, full[name][..., P:, :])
+    e_plain = _layer_rel(plain[name][..., P:, :], full[name][..., P:, :])
+    e_pe = _layer_rel(ext, plain[name][..., P:, :])
+    ratio = [a / (2 * b + 2.0 ** -7) for a, b in zip(e_ext, e_plain)]
+    worst = max(worst, max(ratio))
+    print(f"[engine cache] extension {name} vs the full prefill, max err / "
+          f"max|full| by layer: "
+          + " ".join(f"{x:.2e}" for x in e_ext))
+    print(f"  [engine cache] plain-attention prefill {name} vs the kernel's: "
+          + " ".join(f"{x:.2e}" for x in e_plain))
+    print(f"  [engine cache] extension {name} vs the plain-attention "
+          f"prefill: " + " ".join(f"{x:.2e}" for x in e_pe))
+  print(f"[engine cache] extension KV: worst layer at {worst:.3f} of its "
+        f"bound (2 x plain-vs-kernel + 2^-7 of max|full|); first token at "
+        f"{cfg.n_layers} layers: {firsts}, the admission's {req.tokens[0]}; "
+        f"at one "
+        f"layer: {shallow}")
+  if worst > 1.0 or req.tokens[0] != firsts["extension"] or \
+      shallow["extension"] != shallow["full"]:
+    raise AssertionError("the extension's KV or first token differs from "
+                         "the full prefill's")
+  del eng, arena, full, plain, k_e, v_e
   return launches
+
+
+def _delta_first_tokens(cfg, params, eng, prompt, P):
+  """The delta path at full width with the depth cut to the first layer:
+  {path: first token} of the extension (prefix arena + extension step),
+  the full prefill and the plain-attention full prefill."""
+  from repro_torch.serve import synopsis_kv as skv
+  from repro_torch.serve.prefill import make_extend_step, make_prefill_step
+  cut = dataclasses.replace(cfg, n_layers=1)
+
+  def first(tree):
+    return {k: first(x) if isinstance(x, dict) else x[:1]
+            for k, x in tree.items()}
+  p1 = {**params, "blocks": first(params["blocks"])}
+  prefill = make_prefill_step(cut)
+  _, pre = prefill(p1, eng._stage(prompt[:P]))
+  arena = skv.build(pre, cut)
+  lg_e, _ = make_extend_step(cut)(p1, eng._stage(prompt[P:]), arena["k"],
+                                  arena["v"], P)
+  lg_f, _ = prefill(p1, eng._stage(prompt))
+  with _prefill_plain():
+    lg_p, _ = prefill(p1, eng._stage(prompt))
+  rel = float((lg_e - lg_f).abs().max() / lg_f.abs().max())
+  print(f"[engine cache] one layer: extension logits vs the full prefill's "
+        f"max err {rel:.2e} of max|full|")
+  return {n: int(x.argmax()) for n, x in (("extension", lg_e),
+                                          ("full", lg_f), ("plain", lg_p))}
+
+
+def run_pipeline(cfg, params, dev):
+  """``--batches 2`` serial against ``--pipeline`` (B = BATCH, PROMPT
+  tokens): both walls, and batch 0's cache equal in both lanes.  Returns
+  the pipelined lane's launch counts."""
+  from repro_torch.kernels import _build
+  from repro_torch.launch import serve
+  outs = {}
+  for pipeline in (False, True):
+    torch.cuda.empty_cache()
+    _build.reset_launches()
+    outs[pipeline] = serve.run(cfg, batch=BATCH, prompt_len=PROMPT, tokens=0,
+                               batches=2, pipeline=pipeline, device=dev,
+                               params=params, log=print)
+    launches = _build.launch_counts()
+  equal = all(torch.equal(outs[False]["cache"][k], t)
+              for k, t in outs[True]["cache"].items()) and torch.equal(
+                  outs[False]["tokens"], outs[True]["tokens"])
+  print(f"[pipeline] 2 batches x B={BATCH} x {PROMPT} tokens: serial "
+        f"{outs[False]['prefill_build_ms']:.1f} ms (prefill "
+        f"{outs[False]['prefill_ms']:.1f} + build "
+        f"{outs[False]['build_ms']:.1f}), pipelined "
+        f"{outs[True]['prefill_build_ms']:.1f} ms; batch-0 caches and first "
+        f"tokens equal: {equal}")
+  if not equal:
+    raise AssertionError("the pipelined lane's batch 0 differs from the "
+                         "serial lane's")
+  del outs
+  return launches
+
+
+T_START = time.perf_counter()
 
 
 def main() -> int:
@@ -1771,12 +2187,26 @@ def main() -> int:
 
   # The continuous-batching engine: its decode steps are graph replays.
   check_engine_parity(dev)
-  engine_launches = run_engine(cfg, params, dev)
-  _require_launches("engine", engine_launches,
-                    ("flash_prefill", "segment_build",
-                     "fused_synopsis_score_attention",
-                     "block_gather_attention"),
+  engine_launches, deadline_replay = run_engine(cfg, params, dev)
+  engine_kernels = ("flash_prefill", "segment_build",
+                    "fused_synopsis_score_attention",
+                    "block_gather_attention")
+  _require_launches("engine", engine_launches, engine_kernels,
                     absent=("flash_decode", "synopsis_score"))
+
+  # The rest of the single-device engine, and the loop's pipelining.
+  t_new = time.perf_counter()
+  _require_launches("engine contract", run_engine_contract(
+      cfg, params, dev, deadline_replay), engine_kernels,
+                    absent=("flash_decode", "synopsis_score"))
+  _require_launches("engine admission", run_engine_admission(
+      cfg, params, dev), engine_kernels,
+                    absent=("flash_decode", "synopsis_score"))
+  run_engine_cache(cfg, params, dev, g)
+  _require_launches("pipeline", run_pipeline(cfg, params, dev),
+                    ("flash_prefill", "segment_build"))
+  print(f"[phase 11] contracts, admission, cache, pipeline in "
+        f"{time.perf_counter() - t_new:.1f}s")
 
   # Each kernel branch's launches on the path that runs it: the synopsis
   # loop's four, the exact loop's flash_decode, the unfused op's
@@ -1806,6 +2236,7 @@ def main() -> int:
           "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
   print(json.dumps({"kernels": [{k: records[n][k] for k in keys}
                                 for n in path_launches]}))
+  print(f"[total] chip_smoke.py ran {time.perf_counter() - T_START:.1f}s")
   print(smi)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

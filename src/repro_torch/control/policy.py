@@ -4,10 +4,11 @@
 :class:`BudgetController` maps (deadline, queue delay) to the largest
 bucketed refinement budget its latency predictor expects to finish in
 time.  :class:`DeadlineBudgetPolicy` dispatches on the technique
-(``basic`` / ``partial`` / ``accuracytrader`` / ``fixed``).  The port runs
-the ``"deadline"`` serving contract only: the ε-or-deadline contracts
-wait for the accuracy estimator (ROADMAP A.3), and ``allocate_budget``,
-``gather_modes`` and ``recover_modes`` for the multi-component tiers
+(``basic`` / ``partial`` / ``accuracytrader`` / ``fixed``) and composes it
+with the serving contract: under ``error_bounded`` the step budget is the
+smaller of the deadline's and the one the accuracy estimator
+(``control.estimator``) predicts meets ε.  ``allocate_budget``,
+``gather_modes`` and ``recover_modes`` wait for the multi-component tiers
 (ROADMAP A.7).
 """
 from __future__ import annotations
@@ -19,18 +20,20 @@ from repro_torch.control.predictors import AffinePredictor
 
 POLICIES = ("basic", "partial", "accuracytrader", "fixed")
 
-# Serving contracts (the JAX package's names); the port runs "deadline".
+# Serving contracts, orthogonal to the policies:
+#   "deadline"            whatever the policy says;
+#   "error_bounded"       refine until the online estimator predicts loss
+#                         <= ε and answer early; the freed budget is
+#                         accounted per step;
+#   "deadline_with_bound" the policy's budgets, and a calibrated loss band
+#                         on every answer.
 CONTRACTS = ("deadline", "error_bounded", "deadline_with_bound")
 
 
 def check_contract(contract: str) -> None:
-  """Raise unless ``contract`` is the one the port runs."""
+  """Raise unless ``contract`` is one of :data:`CONTRACTS`."""
   if contract not in CONTRACTS:
     raise ValueError(f"contract {contract!r} not in {CONTRACTS}")
-  if contract != "deadline":
-    raise NotImplementedError(
-        f"contract {contract!r} needs the accuracy estimator, which the "
-        "port has not ported yet (ROADMAP A.3); the port runs 'deadline'")
 
 
 @dataclasses.dataclass
@@ -80,12 +83,18 @@ class DeadlineBudgetPolicy:
   predictor: AffinePredictor = dataclasses.field(
       default_factory=AffinePredictor)
   fixed_budget: int = 0
+  # ``estimator`` is a ``control.estimator.AccuracyEstimator`` (only its
+  # ``bucket_for_epsilon`` is called here); error_bounded needs one.
   contract: str = "deadline"
+  epsilon: float = 0.0
+  estimator: Optional[object] = None
 
   def __post_init__(self):
     if self.policy not in POLICIES:
       raise ValueError(f"policy {self.policy!r} not in {POLICIES}")
     check_contract(self.contract)
+    if self.contract == "error_bounded" and self.estimator is None:
+      raise ValueError("contract='error_bounded' needs an estimator")
     self.controller = BudgetController(
         self.predictor, buckets=self.buckets, i_max_cap=self.i_max_cap)
 
@@ -98,11 +107,18 @@ class DeadlineBudgetPolicy:
 
   def budget_for_contract(self, deadline: float, queue_delay: float = 0.0,
                           profiles: Sequence = ()) -> Tuple[int, int]:
-    """(granted, base) under the serving contract: under ``"deadline"``,
-    the only one the port runs, both are the policy's budget."""
-    check_contract(self.contract)
+    """(granted, base): ``base`` is the policy's deadline budget; under
+    ``error_bounded`` ``granted`` is the smaller of it and the smallest
+    bucket the estimator predicts meets ε for every profile in
+    ``profiles`` (the most demanding resident binds: a step is shared).
+    ``base - granted`` is the budget freed."""
     base = self.budget_for(deadline, queue_delay)
-    return base, base
+    if self.contract != "error_bounded" or not len(profiles):
+      return base, base
+    need = max(self.estimator.bucket_for_epsilon(p, self.buckets,
+                                                 self.epsilon)
+               for p in profiles)
+    return min(need, base), base
 
   def observe(self, budget: int, latency: float) -> None:
     self.predictor.observe(budget, latency)

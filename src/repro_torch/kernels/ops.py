@@ -179,10 +179,13 @@ def synopsis_cache_attention(
     i_max: int,
     cluster_size: int,
     sm_scale: float = 1.0,
-) -> torch.Tensor:
+    return_scores: bool = False,
+):
   """End-to-end fused AccuracyTrader decode attention over a serve-step
-  cache slice; returns the normalised output (B, H, D) f32.  All-None
-  scales keep the unquantized path."""
+  cache slice; returns the normalised output (B, H, D) f32, and with
+  ``return_scores`` also stage 1's scores (B, Hkv, M) (the same ops: the
+  scores are stage 1's own output).  All-None scales keep the unquantized
+  path."""
   B = q.shape[0]
   Hkv, M = k_syn.shape[1], k_syn.shape[2]
   syn_scales, kv_scales = _pairs(k_syn_scale, v_syn_scale, kv_k_scale,
@@ -202,7 +205,7 @@ def synopsis_cache_attention(
                         extras=extras, syn_scales=syn_scales,
                         kv_scales=kv_scales)
   out, _, _ = merge_partials(p_syn, p_ref)
-  return out
+  return (out, scores) if return_scores else out
 
 
 def synopsis_attention_fused(q, k, v, k_syn, v_syn, counts,

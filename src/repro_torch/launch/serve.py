@@ -8,11 +8,14 @@ absorbed into the synopsis when it fills (the paper's incremental update).
 attends over the whole prompt cache (no build, budget 0 recorded).
 ``--quant`` stores the synopsis arena quantized (int8 / fp8 centroids with
 per-row scales; the ``+kv`` specs also the sorted cache, per cluster
-block).  All stages run on the port's kernels when the device is a GPU.
+block).  ``--batches N`` prefills and builds N prompt batches, serially
+or, with ``--pipeline``, each prefill launched before the previous batch's
+build; decode runs on batch 0.  All stages run on the port's kernels when
+the device is a GPU.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
       --no-smoke --prompt-len 8192 --tokens 130 [--mode exact] \\
-      [--quant {none,int8,fp8,int8+kv,fp8+kv}]
+      [--quant {none,int8,fp8,int8+kv,fp8+kv}] [--batches 2 --pipeline]
 
 ``--device cpu`` runs the plain PyTorch versions of the kernels (tests);
 without it the driver needs a CUDA device and refuses to run otherwise.
@@ -21,7 +24,12 @@ With ``--engine`` the launcher instead runs the deadline-driven
 continuous-batching engine (``repro_torch.serve.engine``) over an arrival
 trace: requests admit and retire in shared slots mid-flight, each decode
 step is a replay of its budget bucket's CUDA graph, and every budget
-decision is calibrated by measured step times.
+decision is calibrated by measured step times.  ``--contract`` /
+``--epsilon`` set the serving contract, ``--admission`` /
+``--slo-classes`` / ``--shed-margin`` / ``--no-shed`` the admission
+policy, ``--cache-capacity`` / ``--no-cache`` / ``--zipf-corpora`` the
+corpus cache and the repeating prompts it serves.  ``--cluster``,
+``--fleet`` and ``--autoscale`` (the multi-component tiers) are refused.
 
   # the paper's Tables 1-2 load sweep, SMOKE model on the CPU:
   PYTHONPATH=src python -m repro_torch.launch.serve --engine --device cpu \
@@ -30,11 +38,18 @@ decision is calibrated by measured step times.
   PYTHONPATH=src python -m repro_torch.launch.serve --engine --no-smoke \
       --prompt-len 8192 --tokens 32 --n-slots 4 --trace sogou_hourly \
       --hours 21 --rate-scale 0.04 --deadline-ms 2000
+  # the contracts, admission and the cache, SMOKE model on the CPU:
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine --device cpu \
+      --prompt-len 64 --tokens 4 --rate-scale 0.1 \
+      --contract error_bounded --epsilon 0.02 --admission edf \
+      --slo-classes interactive:200,batch:800 --cache-capacity 4 \
+      --zipf-corpora 4
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import time
 from typing import Dict, Optional, Sequence
@@ -75,12 +90,19 @@ def run(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int,
         prompt: Optional[torch.Tensor] = None,
         budgets: Optional[Sequence[int]] = None,
         pca_basis: Optional[torch.Tensor] = None, mode: str = "synopsis",
-        log=print) -> Dict:
+        batches: int = 1, pipeline: bool = False, log=print) -> Dict:
   """Prefill ``batch`` prompts, build the synopsis, decode ``tokens``
   greedy tokens.  ``params``/``prompt`` default to random ones drawn from
   ``seed``; ``budgets`` fixes the budget of each step instead of the
   deadline controller (parity tests); ``pca_basis`` is the clustering's
   PCA start (``core.cluster.initial_basis``).
+
+  ``batches`` > 1 prefills and builds that many prompt batches (batch 0
+  is ``prompt``, the others drawn from ``seed`` after it); decode consumes
+  batch 0 and the other batches' caches are freed.  Serially each batch
+  is waited for; with ``pipeline`` batch i+1's prefill is launched before
+  batch i's build, all on the one stream, with no wait until every stage
+  is queued (the JAX loop's dispatch order).
 
   ``cfg.synopsis.quant`` selects the quantized synopsis arena
   (:func:`apply_quant`); exact mode builds no arena and refuses it.
@@ -92,8 +114,10 @@ def run(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int,
 
   Returns the generated ids (B, 1 + tokens), the last step's logits, the
   budget and wall time of every step, prefill and build times (ms, host
-  clock around synchronised work; build 0 in exact mode), the number of
-  absorbs and the final cache."""
+  clock around synchronised work, summed over the batches; build 0 in
+  exact mode; both 0 when pipelined), the wall of all batches' prefill and
+  build (``prefill_build_ms``), the number of absorbs and the final
+  cache."""
   if mode not in ("synopsis", "exact"):
     raise ValueError(f"mode={mode!r}: expected 'synopsis' or 'exact'")
   if mode == "exact" and budgets is not None:
@@ -109,27 +133,56 @@ def run(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int,
   if prompt is None:
     prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen,
                            device=dev)
-  prompt = prompt.to(dev)
+  prompts = [prompt.to(dev)] + [
+      torch.randint(0, cfg.vocab, tuple(prompt.shape), generator=gen,
+                    device=dev) for _ in range(batches - 1)]
   if budgets is not None and len(budgets) < tokens:
     raise ValueError(f"{len(budgets)} budgets for {tokens} steps")
+  if batches < 1:
+    raise ValueError(f"batches={batches}: at least one batch")
 
+  prefill = make_prefill_step(cfg)
+  build = functools.partial(skv.build, cfg=cfg, basis=pca_basis)
+  synopsis = mode == "synopsis"
+  pipelined = pipeline and synopsis
+  logits_b, caches = [], []               # per batch
+  prefill_ms = build_ms = 0.0
   _sync(dev)
-  t0 = time.perf_counter()
-  logits, cache = make_prefill_step(cfg)(params, prompt)
-  _sync(dev)
-  prefill_ms = (time.perf_counter() - t0) * 1e3
-  build_ms = 0.0
-  if mode == "exact":
-    log(f"[prefill] {tuple(prompt.shape)} tokens: prefill "
-        f"{prefill_ms:.1f}ms")
-  else:
-    t0 = time.perf_counter()
-    cache = skv.build(cache, cfg, basis=pca_basis)
+  t_all = time.perf_counter()
+  if pipelined:
+    pending = None
+    for p in prompts:
+      lg, c = prefill(params, p)
+      if pending is not None:
+        caches.append(build(pending))      # queued behind the next prefill
+      logits_b.append(lg)
+      pending = c
+    caches.append(build(pending))
     _sync(dev)
-    build_ms = (time.perf_counter() - t0) * 1e3
-    M = cache["k_syn"].shape[4]
-    log(f"[prefill+build] {tuple(prompt.shape)} tokens: prefill "
-        f"{prefill_ms:.1f}ms, build {build_ms:.1f}ms; M={M} clusters of "
+  else:
+    for p in prompts:
+      t0 = time.perf_counter()
+      lg, c = prefill(params, p)
+      _sync(dev)
+      prefill_ms += (time.perf_counter() - t0) * 1e3
+      if synopsis:
+        t0 = time.perf_counter()
+        c = build(c)
+        _sync(dev)
+        build_ms += (time.perf_counter() - t0) * 1e3
+      logits_b.append(lg)
+      caches.append(c)
+  prefill_build_ms = (time.perf_counter() - t_all) * 1e3
+  # Decode consumes batch 0 only: the other batches' caches are freed.
+  logits, cache = logits_b[0], caches[0]
+  del logits_b, caches
+  stages = "prefill+build" if synopsis else "prefill"
+  log(f"[{stages}] {batches} batch(es) x {tuple(prompt.shape)} tokens in "
+      f"{prefill_build_ms:.1f}ms ({'pipelined' if pipelined else 'serial'})"
+      + ("" if pipelined else f": prefill {prefill_ms:.1f}ms"
+         + (f", build {build_ms:.1f}ms" if synopsis else "")))
+  if synopsis:
+    log(f"[synopsis] M={cache['k_syn'].shape[4]} clusters of "
         f"C={cfg.synopsis.cluster_size}, quant={cfg.synopsis.quant}")
 
   ctrl = BudgetController(
@@ -171,19 +224,18 @@ def run(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int,
   return {"tokens": generated, "logits": logits, "budgets": chosen,
           "step_ms": step_ms,
           "prefill_ms": prefill_ms, "build_ms": build_ms,
-          "absorbs": absorbs, "cache": cache}
+          "prefill_build_ms": prefill_build_ms, "absorbs": absorbs,
+          "cache": cache}
 
 
 def _refuse_unported(ap, args) -> None:
-  """The JAX launcher's engine flags whose modules the port has not
-  ported, each with its ROADMAP item, and what the engine does not take."""
-  for flag, given, item in (
-      ("--cluster", args.cluster > 0, "A.7"), ("--fleet", args.fleet, "A.7"),
-      ("--admission", args.admission != "off", "A.4"),
-      ("--cache-capacity", args.cache_capacity > 0, "A.5"),
-      ("--contract", args.contract != "deadline", "A.3")):
+  """The JAX launcher's flags of the multi-component tiers, which the port
+  has not ported (ROADMAP A.7), and what the engine does not take."""
+  for flag, given in (("--cluster", args.cluster > 0),
+                      ("--fleet", args.fleet),
+                      ("--autoscale", args.autoscale)):
     if given:
-      ap.error(f"{flag} is not ported yet (ROADMAP {item})")
+      ap.error(f"{flag} is not ported yet (ROADMAP A.7)")
   if args.engine and (args.mode != "synopsis" or args.budget is not None):
     ap.error("--engine takes neither --mode exact nor --budget: the engine "
              "has no exact arm (--policy basic is its full-budget "
@@ -193,6 +245,8 @@ def _refuse_unported(ap, args) -> None:
 def engine_main(args, device: torch.device) -> Dict:
   """The continuous-batching engine over an arrival trace: one
   measurement window of Poisson arrivals per rate point."""
+  from repro_torch.control import AdmissionConfig, parse_slo_classes
+  from repro_torch.serve.corpus_cache import CacheConfig
   from repro_torch.serve.engine import (EngineConfig, ServingEngine,
                                         run_open_loop)
   from repro_torch.serving.workload import CF_RATES, hour_rate
@@ -200,33 +254,61 @@ def engine_main(args, device: torch.device) -> Dict:
   C = cfg.synopsis.cluster_size
   prompt_len = max(C, (args.prompt_len // C) * C)
   max_new = min(args.tokens, cfg.synopsis.recent)
+  admission = None
+  if args.admission != "off":
+    admission = AdmissionConfig(
+        order=args.admission, shed=not args.no_shed,
+        shed_margin=args.shed_margin,
+        classes=parse_slo_classes(args.slo_classes))
+  cache = None
+  if args.cache_capacity > 0 and not args.no_cache:
+    cache = CacheConfig(capacity=args.cache_capacity, delta_unit=C)
   eng = ServingEngine(cfg, EngineConfig(
       n_slots=args.n_slots, prompt_len=prompt_len, max_new_tokens=max_new,
       deadline_ms=args.deadline_ms, policy=args.policy,
-      predictor=args.predictor, seed=args.seed), device=device)
+      predictor=args.predictor, seed=args.seed, admission=admission,
+      cache=cache, contract=args.contract, epsilon=args.epsilon),
+      device=device)
   kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
           else "cpu")
   print(f"[engine] {cfg.name} on {kind} policy={args.policy} "
         f"slots={args.n_slots} prompt={prompt_len} tokens={max_new} "
         f"M={eng.M} buckets={eng.buckets} deadline={args.deadline_ms}ms "
-        f"quant={cfg.synopsis.quant} graphs={len(eng.programs.graphs)}")
+        f"quant={cfg.synopsis.quant} graphs={len(eng.programs.graphs)}"
+        + (f" contract={args.contract} eps={args.epsilon}"
+           if args.contract != "deadline" else "")
+        + (f" admission={args.admission}" if admission is not None else "")
+        + (f" cache={args.cache_capacity}" if cache is not None else ""))
   if args.trace == "cf_rates":
     points = [(f"rate{r}", r * args.rate_scale) for r in CF_RATES]
   else:
     points = [(f"hour{int(h):02d}", hour_rate(int(h)) * args.rate_scale)
               for h in args.hours.split(",")]
+  slo_of = None
+  if admission is not None and admission.classes:
+    names = [c.name for c in admission.classes]
+    slo_of = lambda rid: names[rid % len(names)]  # noqa: E731
   results = {}
   for name, rate in points:
     s = run_open_loop(eng, rate_per_s=rate, duration_s=args.duration,
-                      seed=0)
-    results[name] = {"rate_per_s": rate,
-                     **{k: round(float(v), 3) for k, v in s.items()}}
+                      seed=0, slo_of=slo_of, zipf_corpora=args.zipf_corpora)
+    results[name] = {
+        "rate_per_s": rate,
+        **{k: round(float(v), 3) for k, v in s.items()
+           if not isinstance(v, dict)},
+        **({"classes": s["classes"]} if "classes" in s else {})}
     print(f"[{name}] rate={rate:6.1f}/s n={s['n']:4.0f} "
           f"p50={s['p50']:7.1f}ms p99={s['p99']:7.1f}ms "
           f"p999={s['p999']:7.1f}ms loss={s['accuracy_loss_pct']:5.2f}% "
           f"miss={s['deadline_miss_pct']:5.1f}% "
           f"budget={s['mean_budget']:.2f} "
-          f"goodput={s['goodput_per_s']:.1f}/s")
+          f"shed={s['shed_pct']:.1f}% goodput={s['goodput_per_s']:.1f}/s"
+          + (f" hit_rate={s['cache_hit_rate']:.2f}"
+             if "cache_hit_rate" in s else "")
+          + (f" pred={s['pred_loss_mean']:.4f} "
+             f"band_cov={s['band_cover_pct']:.0f}% "
+             f"freed={s['freed_budget_mean']:.2f}"
+             if "pred_loss_mean" in s else ""))
   out = {"trace": args.trace, "policy": args.policy, "device": kind,
          "results": results}
   if args.json:
@@ -246,6 +328,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
   ap.add_argument("--batch", type=int, default=2)
   ap.add_argument("--prompt-len", type=int, default=256)
   ap.add_argument("--tokens", type=int, default=32)
+  ap.add_argument("--batches", type=int, default=1,
+                  help="prompt batches to prefill and build (decode "
+                       "consumes batch 0)")
+  ap.add_argument("--pipeline", action="store_true",
+                  help="launch batch i+1's prefill before batch i's build, "
+                       "with no wait until all are queued (one stream)")
   ap.add_argument("--mode", default="synopsis",
                   choices=["exact", "synopsis"],
                   help="synopsis: AccuracyTrader decode; exact: the exact "
@@ -282,15 +370,47 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                    help="hours of day of --trace sogou_hourly")
   eng.add_argument("--predictor", default="affine",
                    help="affine | ewma | quantile[:pct]")
+  eng.add_argument("--contract", default="deadline",
+                   choices=["deadline", "error_bounded",
+                            "deadline_with_bound"],
+                   help="serving contract: error_bounded answers early "
+                        "once the online estimator predicts loss <= "
+                        "--epsilon; deadline_with_bound attaches a loss "
+                        "band to every answer")
+  eng.add_argument("--epsilon", type=float, default=0.02,
+                   help="error_bounded's loss target (0: full budget)")
+  eng.add_argument("--admission", default="off",
+                   choices=["off", "fifo", "edf", "slack"],
+                   help="queue-aware admission: ready-queue order (edf: "
+                        "earliest deadline first, slack: least predicted "
+                        "slack) with predictive shedding; off: the FIFO "
+                        "queue, no shedding")
+  eng.add_argument("--slo-classes", default=None, metavar="SPEC",
+                   help="SLO classes for --admission, "
+                        "'name:deadline_ms[@rate_per_s[/burst]]' joined by "
+                        "commas, e.g. 'interactive:80@60,batch:400'; "
+                        "requests take the classes in turn")
+  eng.add_argument("--shed-margin", type=float, default=1.0,
+                   help="shed at admission when the predicted completion "
+                        "exceeds deadline * margin")
+  eng.add_argument("--no-shed", action="store_true",
+                   help="keep the admission order but never shed")
+  eng.add_argument("--cache-capacity", type=int, default=0, metavar="K",
+                   help="corpus cache: resident arenas (0: off); an "
+                        "admission whose prompt is cached skips prefill "
+                        "and build")
+  eng.add_argument("--no-cache", action="store_true",
+                   help="the cache off whatever --cache-capacity says")
+  eng.add_argument("--zipf-corpora", type=int, default=0, metavar="K",
+                   help="draw the prompts from K corpora of Zipf "
+                        "popularity (0: a fresh prompt per request)")
   eng.add_argument("--json", default=None, metavar="PATH",
                    help="write the sweep's results as JSON")
   # Flags of the JAX launcher that the port refuses (_refuse_unported).
   eng.add_argument("--cluster", type=int, default=0, help=argparse.SUPPRESS)
   eng.add_argument("--fleet", action="store_true", help=argparse.SUPPRESS)
-  eng.add_argument("--admission", default="off", help=argparse.SUPPRESS)
-  eng.add_argument("--cache-capacity", type=int, default=0,
+  eng.add_argument("--autoscale", action="store_true",
                    help=argparse.SUPPRESS)
-  eng.add_argument("--contract", default="deadline", help=argparse.SUPPRESS)
   args = ap.parse_args(argv)
   _refuse_unported(ap, args)
   try:
@@ -307,7 +427,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
   budgets = None if args.budget is None else [args.budget] * args.tokens
   return run(cfg, batch=args.batch, prompt_len=args.prompt_len,
              tokens=args.tokens, deadline_ms=args.deadline_ms,
-             device=device, seed=args.seed, budgets=budgets, mode=args.mode)
+             device=device, seed=args.seed, budgets=budgets, mode=args.mode,
+             batches=args.batches, pipeline=args.pipeline)
 
 
 if __name__ == "__main__":

@@ -40,9 +40,30 @@ Policies (the simulator's techniques, in measured time):
 
 The engine has no exact arm: ``basic`` (budget M every step) is its
 full-budget comparison, and the exact baseline is
-``launch.serve.run(mode="exact")``.  The corpus cache (ROADMAP A.5),
-queue-aware admission (A.4), the ε-or-deadline contracts (A.3) and the
-multi-component step backends (A.7) are not ported: asking for one raises.
+``launch.serve.run(mode="exact")``.
+
+Serving contracts (``EngineConfig.contract``): under ``"deadline"`` the
+step programs are the plain ones.  Under ``"error_bounded"`` and
+``"deadline_with_bound"`` each step's attention also computes the stage-1
+coverage profile (``control.estimator.coverage_profile``, from the scores
+stage 1 already gave) and every bucket's graph writes its layer mean into
+one more static output, read to the host after the step's wait; the
+online estimator turns it into a per-request loss estimate and band, and
+``error_bounded`` answers at the smallest bucket predicted to meet ε.
+
+Queue-aware admission (``EngineConfig.admission``,
+``control.admission``): arrivals wait in a ready queue ordered FIFO, EDF
+or by least slack, rate-gated per SLO class, and a request predicted to
+miss its deadline is shed before it costs a prefill.  Without a config the
+queue is FIFO and sheds nothing.
+
+The corpus cache (``EngineConfig.cache``, ``serve.corpus_cache``): an
+admission whose prompt is cached copies the cached arena into its lane
+(no prefill, no build); one that extends a cached prompt runs only the
+extension (``prefill.make_extend_step`` and
+``synopsis_kv.extend_synopsis``); a miss publishes its arena.  The
+multi-component step backends (ROADMAP A.7) are not ported: asking for
+one raises.
 
 :class:`MeasuredStepBackend` exports the measured per-bucket step times to
 the simulator (``serving.service.ScatterGatherService(step_backend=...)``).
@@ -52,24 +73,30 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
+import weakref
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.control import (POLICIES, DeadlineBudgetPolicy, TailTracker,
-                                 make_predictor)
+from repro_torch.control import (POLICIES, AccuracyEstimator, AdmissionConfig,
+                                 AdmissionPolicy, DeadlineBudgetPolicy,
+                                 TailTracker, coverage_profile, make_predictor)
 from repro_torch.control.policy import check_contract
 from repro_torch.core import cluster as cl
 from repro_torch.kernels import _build
+from repro_torch.kernels import quant as qt
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import ModelConfig
+from repro_torch.serve import corpus_cache as ccache
 from repro_torch.serve import kv_cache as kvc
 from repro_torch.serve import synopsis_kv as skv
+from repro_torch.serve.corpus_cache import CacheConfig
 from repro_torch.serve.graphs import Programs
-from repro_torch.serve.prefill import make_prefill_step
-from repro_torch.serve.serve_step import make_serve_step
+from repro_torch.serve.prefill import make_extend_step, make_prefill_step
+from repro_torch.serve.serve_step import (make_serve_step,
+                                          synopsis_decode_attention)
 from repro_torch.serving.service import _default_concentration
 from repro_torch.serving.workload import poisson_arrivals
 
@@ -92,9 +119,16 @@ class EngineConfig:
   # step without a wait between them, so that the device runs them back
   # to back.
   overlap_admission: bool = True
-  admission: Optional[object] = None   # ROADMAP A.4: must stay None
-  cache: Optional[object] = None       # ROADMAP A.5: must stay None
-  contract: str = "deadline"           # ROADMAP A.3: "deadline" only
+  # Queue-aware admission; None: the FIFO queue, no shedding.
+  admission: Optional[AdmissionConfig] = None
+  # The corpus cache; None (or capacity 0): off.
+  cache: Optional[CacheConfig] = None
+  # Serving contract (control.policy.CONTRACTS); "deadline" runs no
+  # telemetry.  epsilon: error_bounded's loss target; band_conf: the
+  # loss bands' nominal coverage.
+  contract: str = "deadline"
+  epsilon: float = 0.02
+  band_conf: float = 0.9
 
 
 @dataclasses.dataclass
@@ -113,6 +147,17 @@ class EngineRequest:
   budgets: List[int] = dataclasses.field(default_factory=list)
   accuracy: float = 0.0
   dropped: bool = False            # shed mid-flight (partial execution)
+  slo: str = "default"             # SLO class name (admission policy)
+  deadline_ms: Optional[float] = None   # per-request deadline override
+  shed_admission: bool = False     # refused at admission (no prefill)
+  # Contract telemetry (empty under contract="deadline"): the per-step
+  # raw loss estimates and spread proxies, and at retirement the
+  # calibrated predicted loss and its band.
+  est_raw: List[float] = dataclasses.field(default_factory=list)
+  est_spread: List[float] = dataclasses.field(default_factory=list)
+  pred_loss: float = -1.0
+  band_lo: float = 0.0
+  band_hi: float = 0.0
 
   @property
   def latency_ms(self) -> float:
@@ -129,20 +174,26 @@ class _Slot:
   remaining: int
 
 
-def _refuse_off_forms(ecfg: EngineConfig, backend) -> None:
-  """The features whose modules the port has not ported raise; none is
-  ignored."""
+def _refuse_backend(backend) -> None:
+  """The multi-component step backends are not ported; asking for one
+  raises rather than being ignored."""
   if backend is not None:
     raise NotImplementedError(
         "multi-component step backends (scatter-gather cluster, fleet) are "
         "not ported yet (ROADMAP A.7)")
-  if ecfg.cache is not None:
-    raise NotImplementedError("the corpus cache is not ported yet "
-                              "(ROADMAP A.5)")
-  if ecfg.admission is not None:
-    raise NotImplementedError("queue-aware admission is not ported yet "
-                              "(ROADMAP A.4)")
-  check_contract(ecfg.contract)
+
+
+def _telemetry_attention(q, cache_sl, *, i_max, cluster_size, sm_scale,
+                         self_kv):
+  """The synopsis decode attention (the same stage 1, top-k, stage 2 and
+  merge) with stage 1's scores (B, Hkv, M) as telemetry: the coverage
+  profile comes from them, with no extra pass over the KV.  The step
+  program computes it once for all layers (the same per-layer profiles,
+  in one batch of ops instead of one a layer)."""
+  ctx, scores = synopsis_decode_attention(
+      q, cache_sl, i_max=i_max, cluster_size=cluster_size,
+      sm_scale=sm_scale, self_kv=self_kv, return_scores=True)
+  return ctx, {"stage1_scores": scores}
 
 
 class ServingEngine:
@@ -152,14 +203,18 @@ class ServingEngine:
   ``core.cluster.initial_basis``) default to ones drawn from
   ``ecfg.seed``.  ``accuracy_fn`` maps the fraction of ranked clusters
   refined in a step to result accuracy (default: the simulator's fig-4
-  concentration curve).  ``device`` is ``"cuda"`` unless the CPU is asked
-  for."""
+  concentration curve).  ``estimator`` (the contracts' online accuracy
+  estimator) defaults to an uncalibrated one; pass one to share its
+  calibration across engines.  ``device`` is ``"cuda"`` unless the CPU is
+  asked for."""
 
   def __init__(self, cfg: ModelConfig, ecfg: EngineConfig, params=None,
                pca_basis: Optional[torch.Tensor] = None,
                accuracy_fn: Optional[Callable[[float], float]] = None,
-               backend=None, device="cuda"):
-    _refuse_off_forms(ecfg, backend)
+               backend=None, estimator: Optional[AccuracyEstimator] = None,
+               device="cuda"):
+    _refuse_backend(backend)
+    check_contract(ecfg.contract)
     tf.check_supported(cfg)
     C = cfg.synopsis.cluster_size
     if ecfg.prompt_len % C != 0:
@@ -189,9 +244,36 @@ class ServingEngine:
     if ecfg.policy == "fixed" and ecfg.fixed_budget not in buckets:
       self.buckets = tuple(sorted(set(buckets) | {ecfg.fixed_budget}))
     self.accuracy_fn = accuracy_fn or _default_concentration
+    self.contract = ecfg.contract
+    self.estimator = estimator if estimator is not None else \
+        AccuracyEstimator(
+            floor=max(1.0 - float(self.accuracy_fn(0.0)), 0.0),
+            conf=ecfg.band_conf)
+    # The coverage profile runs in the step only under the two new
+    # contracts: under "deadline" the step programs are the plain ones.
+    self._telemetry = self.contract != "deadline"
+    self._profile_prior: Optional[np.ndarray] = None
     self.controller = self._make_policy()
+    # One admission policy always: with no config it is the FIFO queue
+    # with no shedding and no classes.  It reaches the demand estimate
+    # through a weak reference: a bound method would make the engine a
+    # reference cycle, freed only by the cyclic collector, whose release
+    # of the graphs can land inside another engine's capture.
+    demand = weakref.WeakMethod(self._demand_ms)
+    self.admission = AdmissionPolicy(
+        ecfg.admission or AdmissionConfig(order="fifo", shed=False),
+        ecfg.deadline_ms, lambda req: demand()(req))
+    self._admit_ms_ewma = 0.0
 
     dev = resolve_device(device)
+    self.corpus_cache = ccache.CorpusCache(
+        ecfg.cache, fingerprint=ccache.corpus_fingerprint(
+            cfg, dev, ecfg.prompt_len, ecfg.seed))
+    # Delta replay re-attends over the cached sorted KV, which a "+kv"
+    # arena stores as int8 / fp8 blocks: extensions are off there (plain
+    # hits and misses only).
+    self._delta_ok = (ccache.supports_delta(cfg) and not
+                      qt.parse_qconfig(cfg.synopsis.quant).sorted_kv)
     if params is None:
       params = tf.init_model(cfg, torch.Generator(dev).manual_seed(ecfg.seed),
                              dev)
@@ -203,6 +285,9 @@ class ServingEngine:
     basis = torch.as_tensor(pca_basis, dtype=torch.float32).to(dev)
     self._prefill = make_prefill_step(cfg)
     self._build = lambda c: skv.build(c, cfg, basis=basis)
+    self._extend = make_extend_step(cfg) if self._delta_ok else None
+    self._extend_build = lambda a, k, v: skv.extend_synopsis(
+        a, k, v, cfg, basis=basis)
     n, P = ecfg.n_slots, ecfg.prompt_len
     self._bx = kvc.slot_batch_axes(cfg, n, P, synopsis=True)
     # The slot pool and the programs' static buffers: allocated once and
@@ -225,6 +310,10 @@ class ServingEngine:
         "v_delta": torch.zeros(delta, dtype=cfg.dtype, device=dev),
         "pos": torch.zeros((n,), dtype=torch.int32, device=dev),
     }
+    if self._telemetry:
+      # The layer-mean coverage profile of each lane.
+      self.step_out["est_profile"] = torch.zeros(
+          (n, self.M + 1), dtype=torch.float32, device=dev)
     self.programs = Programs(self.dev)
     for b in self.buckets:
       self.programs.add(("step", b), self._step_program(b))
@@ -243,7 +332,8 @@ class ServingEngine:
     return DeadlineBudgetPolicy(
         policy=e.policy, buckets=self.buckets, i_max_cap=self.M,
         predictor=make_predictor(e.predictor, **kw),
-        fixed_budget=e.fixed_budget, contract=e.contract)
+        fixed_budget=e.fixed_budget, contract=e.contract, epsilon=e.epsilon,
+        estimator=self.estimator)
 
   # -- programs -------------------------------------------------------------
   # The programs close over the tensors they read and write, not over the
@@ -251,15 +341,24 @@ class ServingEngine:
   # soon as its last reference goes.
   def _step_program(self, budget: int) -> Callable[[], None]:
     """The read-only serve step at ``budget``: pool + token column ->
-    ``step_out``."""
-    step = make_serve_step(self.cfg, mode="synopsis", i_max=budget)
+    ``step_out`` (with the contracts' telemetry, the layer-mean coverage
+    profile too)."""
+    step = make_serve_step(
+        self.cfg, mode="synopsis", i_max=budget,
+        attention_fn=_telemetry_attention if self._telemetry else None)
     params, cache, tok, out = self.params, self.cache, self.tok, self.step_out
+    n = self.ecfg.n_slots
 
     def program():
       logits, st = step(params, cache, tok)
       out["logits"].copy_(logits)
       for name in ("k_delta", "v_delta", "pos"):
         out[name].copy_(st[name])
+      if "est_profile" in out:
+        # Every layer's profile (nb * na * n, M+1), then their mean.
+        prof = coverage_profile(st["stage1_scores"].flatten(0, 2),
+                                cache["counts"].flatten(0, 2))
+        out["est_profile"].copy_(prof.view(-1, n, prof.shape[-1]).mean(0))
 
     return program
 
@@ -287,8 +386,9 @@ class ServingEngine:
   # -- state ----------------------------------------------------------------
   def reset(self) -> None:
     """Fresh slots, pool and clock for a new measurement window; the pool
-    is zeroed in place.  The latency model persists across windows by
-    default (as in the simulator's ``run_open_loop``)."""
+    is zeroed in place.  The latency model, the corpus cache's entries,
+    the estimator's calibration and the coverage-profile prior persist
+    across windows; the cache's counters and the lanes' pins reset."""
     for leaf in self.cache.values():
       leaf.zero_()
     self.tok.zero_()
@@ -299,10 +399,21 @@ class ServingEngine:
     self.events = []                 # (kind, rid, slot, now_ms)
     self.step_log = []               # (budget, ms, active)
     self.prefills = 0
+    for key in getattr(self, "_slot_entry", []):
+      if key is not None:
+        self.corpus_cache.release(key)
+    self._slot_entry: List[Optional[str]] = [None] * self.ecfg.n_slots
+    self.corpus_cache.reset_stats()
+    self._slot_profile: List[Optional[np.ndarray]] = \
+        [None] * self.ecfg.n_slots
+    self._freed_log: List[int] = []
+    self.admission.reset()
 
   def _warm_buckets(self) -> Sequence[int]:
     p = self.ecfg.policy
-    if p == "accuracytrader":
+    # error_bounded may answer at any bucket (the estimator's choice under
+    # the policy's), so every bucket's graph must be captured.
+    if p == "accuracytrader" or self.contract == "error_bounded":
       return self.buckets
     if p == "fixed":
       return (self.ecfg.fixed_budget,)
@@ -310,12 +421,12 @@ class ServingEngine:
 
   def _warmup(self) -> None:
     """Admit a dummy request (the kernels' library loads, prefill and
-    build run once), capture the graph of every bucket the run can
-    dispatch and of the append program, and replay each once, so that the
-    first measured step is a replay; then discard the state.  The decode
-    kernels' merge tickets are allocated before any capture, at the
-    largest row count a step gives them, so that they do not land in the
-    graphs' pool."""
+    build run once; the corpus cache is bypassed), capture the graph of
+    every bucket the run can dispatch and of the append program, and
+    replay each once, so that the first measured step is a replay; then
+    discard the state.  The decode kernels' merge tickets are allocated
+    before any capture, at the largest row count a step gives them, so
+    that they do not land in the graphs' pool."""
     self._warming = True
     if self.dev.type == "cuda":
       _build.tickets(self.dev, self.ecfg.n_slots * self.cfg.n_heads)
@@ -334,22 +445,60 @@ class ServingEngine:
     self.reset()
 
   # -- scheduling -----------------------------------------------------------
+  def _stage(self, tokens) -> torch.Tensor:
+    """Token ids (L,) -> (1, L) long on the device; pinned on the card, so
+    that the copy does not wait for the work queued ahead."""
+    t = torch.as_tensor(np.asarray(tokens), dtype=torch.long)[None]
+    if self.dev.type == "cuda":
+      t = t.pin_memory().to(self.dev, non_blocking=True)
+    return t
+
   def _dispatch_admission(self, req: EngineRequest,
                           slot: int) -> torch.Tensor:
-    """Launch one admission's prefill -> build -> slot write without
-    waiting; returns the first token (1,) on the device."""
-    prompt = torch.as_tensor(np.asarray(req.prompt), dtype=torch.long)[None]
-    if self.dev.type == "cuda":
-      # Pinned, so that the copy does not wait for the work queued ahead.
-      prompt = prompt.pin_memory().to(self.dev, non_blocking=True)
+    """Launch one admission without waiting; returns the first token (1,)
+    on the device.  With the corpus cache on, a hit copies the cached
+    arena into the lane (no prefill, no build), an extension replays only
+    the extension's tokens, and a miss runs prefill -> build -> slot write
+    and publishes its arena.  The warm-up bypasses the cache (its dummy
+    prompts would alias one corpus)."""
+    cc = self.corpus_cache
+    use_cache = cc.enabled and not self._warming
+    if use_cache:
+      kind, entry = cc.lookup(req.prompt, allow_extend=self._delta_ok)
+      if kind != "miss":
+        if kind == "hit":
+          cc.acquire(entry)
+        else:                 # "extend": publishing pins the new entry
+          entry = self._delta_admit(entry, req.prompt)
+        self._slot_entry[slot] = entry.key
+        kvc.write_slot(self.cache, entry.arena, slot, self._bx)
+        return entry.first_token
     self.prefills += 1
-    logits, cache1 = self._prefill(self.params, prompt)
-    kvc.write_slot(self.cache, self._build(cache1), slot, self._bx)
-    return logits.argmax(-1)
+    logits, cache1 = self._prefill(self.params, self._stage(req.prompt))
+    syn = self._build(cache1)
+    first = logits.argmax(-1)
+    if use_cache:
+      self._slot_entry[slot] = cc.publish(req.prompt, syn, first).key
+    kvc.write_slot(self.cache, syn, slot, self._bx)
+    return first
+
+  def _delta_admit(self, entry: ccache.CacheEntry,
+                   prompt) -> ccache.CacheEntry:
+    """Prefix-extension replay: only the extension's tokens run, against
+    the cached arena's sorted prefix KV, the synopsis grows by the
+    extension's clusters, and the extended corpus is published as its own
+    entry (``prefills`` does not move; the cache counts a delta hit)."""
+    t = np.asarray(prompt, np.int32)
+    L = int(entry.tokens.shape[0])
+    logits, (k_new, v_new) = self._extend(
+        self.params, self._stage(t[L:]), entry.arena["k"],
+        entry.arena["v"], L)
+    arena = self._extend_build(entry.arena, k_new, v_new)
+    return self.corpus_cache.publish(t, arena, logits.argmax(-1))
 
   def _admit(self, req: EngineRequest, slot: int) -> None:
     # queue_ms measures pure waiting: the clock *before* this request's
-    # own prefill+build advances it.
+    # own admission advances it.
     req.admit_ms = self.now_ms
     t0 = time.perf_counter()
     first = self._dispatch_admission(req, slot)
@@ -358,7 +507,13 @@ class ServingEngine:
     dt = (time.perf_counter() - t0) * 1e3
     self.now_ms += dt
     req.admit_wall_ms = dt
+    # The admission-cost EWMA: the fixed part of the demand estimate the
+    # predictive shed uses (_demand_ms).
+    if not self._warming:
+      self._admit_ms_ewma = dt if self._admit_ms_ewma == 0.0 \
+          else 0.7 * self._admit_ms_ewma + 0.3 * dt
     req.tokens.append(first_id)
+    self._slot_profile[slot] = None
     self.slots[slot] = _Slot(req, req.max_new_tokens)
     self.events.append(("admit", req.rid, slot, self.now_ms))
 
@@ -366,22 +521,62 @@ class ServingEngine:
                    extra: Sequence[EngineRequest] = ()) -> int:
     """``extra``: requests admitted concurrently with this step (admission
     overlap): the step stands between them and their first decode, so
-    their deadlines clamp the budget as on the serial path."""
+    their deadlines clamp the budget as on the serial path.  Under
+    ``error_bounded`` the budget is the contract's grant, and the budget
+    it frees is logged."""
     remaining = 0.0
     if self.ecfg.policy == "accuracytrader":
       remaining = min(
           [self._abs_deadline(self.slots[i].req) - self.now_ms
            for i in active] +
           [self._abs_deadline(r) - self.now_ms for r in extra])
+    if self.contract == "error_bounded":
+      granted, base = self.controller.budget_for_contract(
+          max(remaining, 0.0),
+          profiles=[self._request_profile(i) for i in active])
+      if not self._warming:
+        self._freed_log.append(base - granted)
+      return granted
     return self.controller.budget_for(max(remaining, 0.0))
 
+  def _request_profile(self, slot: int) -> np.ndarray:
+    """The latest coverage profile of the request in ``slot``: its own
+    last step's, else the EWMA prior over recent steps (a request just
+    admitted has not scored its synopsis yet), else the uniform profile
+    (every cluster equally useful: the most conservative)."""
+    p = self._slot_profile[slot]
+    if p is not None:
+      return p
+    if self._profile_prior is not None:
+      return self._profile_prior
+    return np.linspace(0.0, 1.0, self.M + 1)
+
+  def _deadline_of(self, req: EngineRequest) -> float:
+    """Per-request deadline: its override, else its SLO class's, else the
+    engine's (one rule for the budget, the partial shed and the
+    summary)."""
+    return self.admission.deadline_for(req)
+
   def _abs_deadline(self, req: EngineRequest) -> float:
-    return req.arrival_ms + self.ecfg.deadline_ms
+    return req.arrival_ms + self._deadline_of(req)
+
+  def _demand_ms(self, req: EngineRequest) -> float:
+    """Lower bound of a request's service demand at arrival (the
+    predictive shed's input): the admission-cost EWMA plus one
+    smallest-bucket step per decode token.  Real steps only refine more,
+    so at low load no feasible request is shed."""
+    floor = self.controller.predictor.predict(self.buckets[0])
+    return self._admit_ms_ewma + req.max_new_tokens * floor
 
   def _retire(self, slot: int) -> None:
     s = self.slots[slot]
     req = s.req
     req.finish_ms = self.now_ms
+    # Unpin the lane's cache entry (it stays resident, warm for the next
+    # admission, until capacity pressure evicts it).
+    if self._slot_entry[slot] is not None:
+      self.corpus_cache.release(self._slot_entry[slot])
+      self._slot_entry[slot] = None
     req.dropped = s.remaining > 0      # shed mid-flight, not finished
     policy = self.ecfg.policy
     if policy == "basic":
@@ -389,13 +584,21 @@ class ServingEngine:
     elif policy == "partial":
       # Partial execution: a result missing at the deadline is skipped;
       # its entire accuracy contribution is lost (paper §5).
-      late = req.dropped or req.latency_ms > self.ecfg.deadline_ms
+      late = req.dropped or req.latency_ms > self._deadline_of(req)
       req.accuracy = 0.0 if late else 1.0
     else:
       # Stage 1 always landed; each step covered budget/M of the ranked
       # clusters exactly plus the synopsis estimate of the rest.
       fr = [min(b, self.M) / self.M for b in req.budgets] or [0.0]
       req.accuracy = float(np.mean([self.accuracy_fn(f) for f in fr]))
+    # The contract's outputs: the calibrated loss prediction and its band
+    # from the request's own step telemetry.
+    if self._telemetry and req.est_raw:
+      raw = float(np.mean(req.est_raw))
+      req.pred_loss = float(self.estimator.predict(raw))
+      req.band_lo, req.band_hi = self.estimator.band(
+          raw, spread=float(np.mean(req.est_spread)))
+    self._slot_profile[slot] = None
     self.slots[slot] = None
     self.completed.append(req)
     self.events.append(("retire", req.rid, slot, self.now_ms))
@@ -425,10 +628,25 @@ class ServingEngine:
         and admitted_at is None:
       self.controller.observe(budget, dt)
     self.step_log.append((budget, dt, len(active)))
+    # The contracts' telemetry: this step's layer-mean coverage profile per
+    # lane, the signal of the next step's ε decision and of each
+    # request's running loss estimate.
+    prof = None
+    if self._telemetry:
+      prof = self.step_out["est_profile"].cpu().numpy().astype(np.float64)
+      for i in active:
+        self._slot_profile[i] = prof[i]
+      mean_prof = prof[list(active)].mean(0)
+      self._profile_prior = mean_prof if self._profile_prior is None \
+          else 0.7 * self._profile_prior + 0.3 * mean_prof
     for i in active:
       s = self.slots[i]
       s.req.tokens.append(int(toks[i]))
       s.req.budgets.append(budget)
+      if prof is not None:
+        s.req.est_raw.append(self.estimator.raw_loss(prof[i], budget))
+        s.req.est_spread.append(
+            self.estimator.spread_from_profile(prof[i], budget))
       s.remaining -= 1
       if s.remaining <= 0:
         self._retire(i)
@@ -439,23 +657,39 @@ class ServingEngine:
 
     The clock is hybrid: arrivals advance on the trace's clock, service
     advances by the measured wall time of each step and admission, so
-    queueing delay under load is real, not modelled."""
+    queueing delay under load is real, not modelled.  Each iteration moves
+    the arrived requests into the ready queue, rate-gates them per SLO
+    class (an over-rate request waits), sheds the predicted-dead, orders
+    the rest (FIFO, EDF or least slack) and admits into the free lanes:
+    beside the residents' decode step when there are residents, else
+    serially."""
     pending = collections.deque(
         sorted(requests, key=lambda r: (r.arrival_ms, r.rid)))
-    while pending or any(s is not None for s in self.slots):
+    ready: List[EngineRequest] = []
+    adm = self.admission
+    while pending or ready or any(s is not None for s in self.slots):
       if self.ecfg.policy == "partial":
         # Partial execution sheds unfinished work at the deadline: the
         # result is skipped (accuracy 0 via _retire) and the lane frees.
         for i, s in enumerate(self.slots):
           if s is not None and self.now_ms >= self._abs_deadline(s.req):
             self._retire(i)
-      # Every arrived request that fits a free lane is admitted this
-      # iteration: overlapped with the residents' decode step when there
-      # are residents, else serially.
+      while pending and pending[0].arrival_ms <= self.now_ms:
+        ready.append(pending.popleft())
+      kept, gated = [], []
+      for r in ready:
+        if not adm.rate_admit(r, self.now_ms):
+          gated.append(r)           # waits for its class's token bucket
+        elif adm.predicted_dead(r, self.now_ms):
+          self._shed(r)
+        else:
+          kept.append(r)
+      kept.sort(key=lambda r: adm.key(r, self.now_ms))
       free = [i for i, s in enumerate(self.slots) if s is None]
       admissions = []
-      while free and pending and pending[0].arrival_ms <= self.now_ms:
-        admissions.append((pending.popleft(), free.pop(0)))
+      while free and kept:
+        admissions.append((kept.pop(0), free.pop(0)))
+      ready = kept + gated
       active = [i for i, s in enumerate(self.slots) if s is not None]
       if admissions and active and self.ecfg.overlap_admission:
         self._admit_overlapped(admissions, active)
@@ -464,20 +698,35 @@ class ServingEngine:
         self._admit(req, slot)
       active = [i for i, s in enumerate(self.slots) if s is not None]
       if not active:
-        if not pending:
+        if ready:
+          # Only rate-gated requests wait (every lane is free): advance
+          # until their bucket refills, in 1 ms quanta.
+          self.now_ms += 1.0
+        elif pending:
+          # Idle: jump to the next arrival.
+          self.now_ms = max(self.now_ms, pending[0].arrival_ms)
+        else:
           break
-        # Idle: jump to the next arrival.
-        self.now_ms = max(self.now_ms, pending[0].arrival_ms)
         continue
       self._decode_step(active)
     return self.summary()
 
+  def _shed(self, req: EngineRequest) -> None:
+    """Refuse a request at admission (predicted to miss its deadline): no
+    prefill, no decode step, accuracy 0, counted as dropped."""
+    req.finish_ms = max(self.now_ms, req.arrival_ms)
+    req.dropped = True
+    req.shed_admission = True
+    req.accuracy = 0.0
+    self.completed.append(req)
+    self.events.append(("shed", req.rid, -1, self.now_ms))
+
   def _admit_overlapped(self, admissions, active: Sequence[int]) -> None:
-    """Launch the admitted requests' prefill + build + slot writes, then
-    the residents' decode step behind them, and wait once.  The writes
-    land in lanes the step reads but does not decode (the admitted lanes
-    are inactive in it), so the residents' tokens are those of the serial
-    order; the JAX engine's step reads the pre-admission cache instead."""
+    """Launch the admitted requests' admissions, then the residents'
+    decode step behind them, and wait once.  The writes land in lanes the
+    step reads but does not decode (the admitted lanes are inactive in
+    it), so the residents' tokens are those of the serial order; the JAX
+    engine's step reads the pre-admission cache instead."""
     t_admit = self.now_ms
     budget = self._pick_budget(active, extra=[r for r, _ in admissions])
     t0 = time.perf_counter()
@@ -489,35 +738,39 @@ class ServingEngine:
     for (req, slot), first in zip(admissions, firsts):
       self.tok[slot, 0] = first[0]
       req.tokens.append(int(first[0]))
+      self._slot_profile[slot] = None
       self.slots[slot] = _Slot(req, req.max_new_tokens)
       self.events.append(("admit", req.rid, slot, self.now_ms))
 
   def _class_stats(self, reqs: Sequence[EngineRequest]) -> Dict[str, float]:
-    """Accounting over one request subset.  Every request is served here
-    (no admission policy sheds one), so the admission-shed counts are 0
-    and every request has a service latency."""
+    """Accounting over one request subset: latency percentiles and
+    accuracy over the requests served (one shed at admission has no
+    service latency), shed counts and goodput over all of them, so that
+    the per-class stats sum to the aggregate."""
+    served = [r for r in reqs if not r.shed_admission]
     tracker = TailTracker()
-    for r in reqs:
+    for r in served:
       tracker.observe(r.latency_ms)
     s = tracker.summary()
-    accs = [r.accuracy for r in reqs]
+    accs = [r.accuracy for r in served]
     s["accuracy_loss_pct"] = 100.0 * (1.0 - float(np.mean(accs))) \
         if accs else 0.0
     s["deadline_miss_pct"] = 100.0 * float(np.mean(
-        [r.latency_ms > self.ecfg.deadline_ms for r in reqs])) \
-        if reqs else 0.0
+        [r.latency_ms > self._deadline_of(r) for r in served])) \
+        if served else 0.0
     s["queue_p99"] = float(np.percentile(
-        [r.queue_ms for r in reqs], 99)) if reqs else 0.0
+        [r.queue_ms for r in served], 99)) if served else 0.0
     s["shed_pct"] = 100.0 * float(np.mean(
         [r.dropped for r in reqs])) if reqs else 0.0
-    s["shed_admission_n"] = 0
-    s["served_n"] = len(reqs)
+    s["shed_admission_n"] = sum(r.shed_admission for r in reqs)
+    s["served_n"] = len(served)
     # Goodput: requests actually answered within their own deadline.
-    s["goodput_n"] = sum(1 for r in reqs if not r.dropped
-                         and r.latency_ms <= self.ecfg.deadline_ms)
-    # Availability: a request answered in full (not dropped mid-flight).
+    s["goodput_n"] = sum(1 for r in served if not r.dropped
+                         and r.latency_ms <= self._deadline_of(r))
+    # Availability: a served request answered in full (not dropped
+    # mid-flight).
     s["availability_pct"] = 100.0 * float(np.mean(
-        [not r.dropped for r in reqs])) if reqs else 100.0
+        [not r.dropped for r in served])) if served else 100.0
     for p in (10, 50, 90):
       s[f"acc_p{p}"] = float(np.percentile(accs, p)) if accs else 0.0
     return s
@@ -530,11 +783,39 @@ class ServingEngine:
     s["prefills"] = self.prefills
     # Per-request admission wall percentiles (serial admissions only: the
     # overlapped path shares one wait with the decode step).
-    walls = [r.admit_wall_ms for r in self.completed if r.admit_wall_ms > 0]
+    walls = [r.admit_wall_ms for r in self.completed
+             if not r.shed_admission and r.admit_wall_ms > 0]
     s["admission_p50"] = float(np.percentile(walls, 50)) if walls else 0.0
     s["admission_p99"] = float(np.percentile(walls, 99)) if walls else 0.0
+    if self.corpus_cache.enabled:
+      cst = self.corpus_cache.stats()
+      for name in ("hits", "misses", "delta_hits", "evictions", "entries",
+                   "bytes"):
+        s[f"cache_{name}"] = float(cst[name])
+      s["cache_hit_rate"] = float(cst["hit_rate"])
     s["goodput_per_s"] = s["goodput_n"] / (self.now_ms / 1e3) \
         if self.now_ms > 0 else 0.0
+    # The contracts: prediction against the measured loss, band coverage
+    # at the stated confidence, and the budget error_bounded freed a step.
+    if self._telemetry:
+      served = [r for r in self.completed
+                if not r.shed_admission and r.est_raw]
+      preds = np.asarray([r.pred_loss for r in served], np.float64)
+      meas = np.asarray([1.0 - r.accuracy for r in served], np.float64)
+      s["pred_loss_mean"] = float(preds.mean()) if len(preds) else 0.0
+      s["pred_loss_mae"] = float(np.abs(preds - meas).mean()) \
+          if len(preds) else 0.0
+      s["band_cover_pct"] = 100.0 * float(np.mean(
+          [r.band_lo - 1e-9 <= m <= r.band_hi + 1e-9
+           for r, m in zip(served, meas)])) if served else 0.0
+      s["freed_budget_mean"] = float(np.mean(self._freed_log)) \
+          if self._freed_log else 0.0
+    # Per-SLO-class breakdown: the classes partition the completed
+    # requests.
+    names = sorted({r.slo for r in self.completed})
+    if names and names != ["default"]:
+      s["classes"] = {name: self._class_stats(
+          [r for r in self.completed if r.slo == name]) for name in names}
     return s
 
   # -- probes ---------------------------------------------------------------
@@ -594,13 +875,44 @@ def make_requests(arrivals_ms: Sequence[float], prompt_len: int,
           for i, t in enumerate(arrivals_ms)]
 
 
+def make_zipf_requests(arrivals_ms: Sequence[float], prompt_len: int,
+                       max_new_tokens: int, vocab: int,
+                       n_corpora: int = 8, alpha: float = 1.1,
+                       seed: int = 0) -> List[EngineRequest]:
+  """Requests whose prompts repeat: each arrival draws its prompt from a
+  pool of ``n_corpora`` corpora with Zipf(``alpha``) popularity (the
+  shared-index / per-tenant-document traffic the corpus cache serves).
+  ``n_corpora=1`` is the 100%-repeat arm.  The same prompts as the JAX
+  package's for the same seed."""
+  rng = np.random.default_rng(seed)
+  pool = [rng.integers(0, vocab, prompt_len, dtype=np.int32)
+          for _ in range(n_corpora)]
+  w = np.arange(1, n_corpora + 1, dtype=np.float64) ** -alpha
+  picks = rng.choice(n_corpora, size=len(arrivals_ms), p=w / w.sum())
+  return [EngineRequest(rid=i, arrival_ms=float(t), prompt=pool[picks[i]],
+                        max_new_tokens=max_new_tokens)
+          for i, t in enumerate(arrivals_ms)]
+
+
 def run_open_loop(engine: ServingEngine, rate_per_s: float,
-                  duration_s: float, seed: int = 0) -> Dict[str, float]:
+                  duration_s: float, seed: int = 0,
+                  slo_of: Optional[Callable[[int], str]] = None,
+                  zipf_corpora: int = 0) -> Dict[str, float]:
   """One measurement window of Poisson arrivals at ``rate_per_s``; the
-  arrivals and prompts derive from ``seed``."""
+  arrivals and prompts derive from ``seed``.  ``slo_of(rid)`` assigns each
+  request its SLO class; ``zipf_corpora`` > 0 draws the prompts from that
+  many Zipf-popular corpora (:func:`make_zipf_requests`)."""
   engine.reset()
   arrivals = poisson_arrivals(rate_per_s, duration_s, seed=seed)
-  reqs = make_requests(arrivals, engine.ecfg.prompt_len,
-                       engine.ecfg.max_new_tokens, engine.cfg.vocab,
-                       seed=seed)
+  e = engine.ecfg
+  if zipf_corpora > 0:
+    reqs = make_zipf_requests(arrivals, e.prompt_len, e.max_new_tokens,
+                              engine.cfg.vocab, n_corpora=zipf_corpora,
+                              seed=seed)
+  else:
+    reqs = make_requests(arrivals, e.prompt_len, e.max_new_tokens,
+                         engine.cfg.vocab, seed=seed)
+  if slo_of is not None:
+    for r in reqs:
+      r.slo = slo_of(r.rid)
   return engine.run(reqs)

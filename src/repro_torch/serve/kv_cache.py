@@ -26,6 +26,16 @@ from repro_torch.kernels import quant as qt
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import ModelConfig
 
+# The shared-immutable and private-mutable halves of a synopsis slot.
+# ARENA_LEAVES are a function of the corpus alone (the sorted KV, the
+# centroid tables, the counts, a quantized arena's scales), so the corpus
+# cache shares one arena among the slots serving the same corpus;
+# PRIVATE_LEAVES are a request's own decode state (the ring, ``pos``),
+# written fresh into each lane.
+ARENA_LEAVES = ("k", "v", "k_syn", "v_syn", "counts", "k_syn_scale",
+                "v_syn_scale", "k_scale", "v_scale")
+PRIVATE_LEAVES = ("recent_k", "recent_v", "recent_len", "pos")
+
 # Logical axes per cache leaf (leading 'layers' for the block stack).
 KV_AXES = ("layers", None, "batch", "kv_heads", "kv_seq", None)
 COUNT_AXES = ("layers", None, "batch", "kv_seq")
@@ -99,3 +109,11 @@ def write_slot(cache: Dict[str, torch.Tensor], sub: Dict[str, torch.Tensor],
     if name in sub:
       dst.narrow(batch_axes[name], slot, 1).copy_(sub[name])
   return cache
+
+
+def arena_nbytes(arena: Dict[str, torch.Tensor]) -> int:
+  """Bytes of the shared-immutable half (``ARENA_LEAVES``): the corpus
+  cache's capacity accounting (the private half lives in the slot
+  pool)."""
+  return sum(int(arena[name].nbytes) for name in ARENA_LEAVES
+             if name in arena)

@@ -5,13 +5,18 @@ The cache comes out in the decode layout (nb, na, B, Hkv, S, D) with
 ``pos`` (B,); ``serve.synopsis_kv.build`` then clusters it into the
 synopsis.  Causal attention runs through ``kernels.ops.prefill_attention``
 (the flash prefill kernel on CUDA tensors).
+
+:func:`make_extend_step` is the corpus cache's delta prefill: the tokens
+that extend a cached corpus, against the cached arena's sorted KV.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.models import attention as attn_lib
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import ModelConfig
+from repro_torch.models.layers import rms_norm, swiglu
 
 
 def make_prefill_step(cfg: ModelConfig):
@@ -28,3 +33,67 @@ def make_prefill_step(cfg: ModelConfig):
     return logits, cache
 
   return prefill_step
+
+
+def _extend_layer(x, lp, cfg: ModelConfig, positions, pk, pv):
+  """One decoder layer over E extension tokens attending [prefix; ext]:
+  the prefix half of the KV is the cached arena's sorted ``pk``/``pv``
+  (B, Hkv, P, D), not recomputed.  Sound because softmax over the cached
+  keys does not depend on their order and rope was applied at their true
+  positions before caching.  Plain f32 attention, as the JAX package's
+  (no kernel).  Returns (x, k_new, v_new), the new KV (B, Hkv, E, D)."""
+  h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+  q, k, v = attn_lib.qkv(h, lp["attn"], cfg, positions)
+  k_new = k.transpose(1, 2)                                   # (B,Hkv,E,D)
+  v_new = v.transpose(1, 2)
+  k_all = torch.cat([pk.to(k_new.dtype), k_new], dim=2).float()
+  B, E, H, D = q.shape
+  Hkv, P = pk.shape[1], pk.shape[2]
+  qg = q.transpose(1, 2).reshape(B, Hkv, H // Hkv, E, D).float()
+  logits = torch.einsum("bhged,bhsd->bhges", qg, k_all) * cfg.hd ** -0.5
+  del k_all
+  # Every prefix key (any sorted order) is visible to every extension
+  # query; among the extension's keys plain causality applies.
+  s = torch.arange(P + E, device=x.device)
+  vis = (s[None, :] - P) <= torch.arange(E, device=x.device)[:, None]
+  w = torch.softmax(logits.masked_fill_(~vis, -1e30), dim=-1)
+  del logits               # (B, Hkv, G, E, P+E) f32: free it before p.V
+  v_all = torch.cat([pv.to(v_new.dtype), v_new], dim=2).float()
+  o = torch.einsum("bhges,bhsd->bhged", w, v_all)
+  del w, v_all
+  o = o.reshape(B, H, E, D).transpose(1, 2).to(x.dtype)
+  x = x + attn_lib.out_proj(o, lp["attn"], x.dtype)
+  h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+  mp = lp["mlp"]
+  return x + swiglu(h2, mp["w1"], mp["w3"], mp["w2"]), k_new, v_new
+
+
+def make_extend_step(cfg: ModelConfig):
+  """Delta prefill for a corpus that extends a cached one: only the E
+  extension tokens run, against the cached arena's sorted prefix KV.
+
+  extend_step(params, ext_tokens (B, E), prefix_k, prefix_v (nb, na, B,
+  Hkv, P, D), pos0) -> (last-token logits (B, V) f32, (k_new, v_new)
+  (nb, na, B, Hkv, E, D)); feed the KV to ``synopsis_kv.extend_synopsis``.
+  Gate on ``corpus_cache.supports_delta``.  Each layer's f32 logits (B,
+  Hkv, G, E, P+E) are transient (4.3 GB a layer at llama3-8b's width for
+  P = E = 4096) and freed before the next layer."""
+  tf.check_supported(cfg)
+
+  @torch.no_grad()
+  def extend_step(params, ext_tokens, prefix_k, prefix_v, pos0: int):
+    x = tf.embed_tokens(params, cfg, ext_tokens)
+    E = x.shape[1]
+    positions = pos0 + torch.arange(E, device=x.device)
+    shape = (*prefix_k.shape[:4], E, prefix_k.shape[5])
+    k_new = torch.empty(shape, dtype=cfg.dtype, device=x.device)
+    v_new = torch.empty(shape, dtype=cfg.dtype, device=x.device)
+    for b in range(cfg.n_blocks):
+      for i, _ in enumerate(cfg.block_pattern):
+        lp = tf.layer_params(params["blocks"][f"pos{i}"], b)
+        x, k_new[b, i], v_new[b, i] = _extend_layer(
+            x, lp, cfg, positions, prefix_k[b, i], prefix_v[b, i])
+    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return tf.logits_fn(params, h[:, -1]), (k_new, v_new)
+
+  return extend_step

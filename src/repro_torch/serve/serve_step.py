@@ -12,6 +12,11 @@ token's self-KV folded in, one merge.
 ``k``/``v``; ``flash_decode`` runs over all of it and once more over the
 new token's self-KV (S = 1), and the two partials merge.
 
+``attention_fn`` replaces the synopsis decode attention (the engine's
+contract telemetry): it returns ``(ctx, aux)``, and each per-layer ``aux``
+leaf comes out of the step stacked over the layers (nb, na, ...).  Without
+one the step is the plain one, op for op.
+
 A quantized arena's scale leaves (``kernels/quant.py``) ride in the layer
 slice when the cache has them.  The cache is read-only inside the step;
 the new token's per-layer KV comes back as ``k_delta``/``v_delta`` for the
@@ -44,15 +49,18 @@ def synopsis_decode_attention(
     cluster_size: int,
     sm_scale: float,
     self_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-) -> torch.Tensor:
-  """AccuracyTrader Algorithm 1 on a KV cache; returns (B, H, D) f32."""
+    return_scores: bool = False,
+):
+  """AccuracyTrader Algorithm 1 on a KV cache; returns (B, H, D) f32, and
+  with ``return_scores`` also stage 1's scores (B, Hkv, M)."""
   self_k, self_v = self_kv if self_kv is not None else (None, None)
   return ops.synopsis_cache_attention(
       q, cache["k"], cache["v"], cache["k_syn"], cache["v_syn"],
       cache["counts"], cache.get("recent_k"), cache.get("recent_v"),
       cache.get("recent_len"), self_k, self_v, cache.get("k_syn_scale"),
       cache.get("v_syn_scale"), cache.get("k_scale"), cache.get("v_scale"),
-      i_max=i_max, cluster_size=cluster_size, sm_scale=sm_scale)
+      i_max=i_max, cluster_size=cluster_size, sm_scale=sm_scale,
+      return_scores=return_scores)
 
 
 def exact_decode_attention(
@@ -75,28 +83,36 @@ def exact_decode_attention(
 
 
 def _attn_decode_layer(x, lp, cfg: ModelConfig, cache_sl, pos, mode: str,
-                       i_max: int):
-  """x (B, 1, d) -> (y (B, 1, d), (k, v) of the new token (B, Hkv, 1, D))."""
+                       i_max: int, attention_fn=None):
+  """x (B, 1, d) -> (y (B, 1, d), (k, v) of the new token (B, Hkv, 1, D),
+  aux: ``attention_fn``'s telemetry dict, or None)."""
   q, k_new, v_new = attn_lib.qkv(x, lp, cfg, pos[:, None])
   kd = k_new.transpose(1, 2)                                  # (B,Hkv,1,D)
   vd = v_new.transpose(1, 2)
+  aux = None
   if mode == "synopsis":
-    ctx = synopsis_decode_attention(
-        q[:, 0], cache_sl, i_max=i_max,
-        cluster_size=cfg.synopsis.cluster_size, sm_scale=cfg.hd ** -0.5,
-        self_kv=(kd, vd))
+    kw = dict(i_max=i_max, cluster_size=cfg.synopsis.cluster_size,
+              sm_scale=cfg.hd ** -0.5, self_kv=(kd, vd))
+    if attention_fn is None:
+      ctx = synopsis_decode_attention(q[:, 0], cache_sl, **kw)
+    else:
+      ctx, aux = attention_fn(q[:, 0], cache_sl, **kw)
   else:
     ctx = exact_decode_attention(q[:, 0], cache_sl["k"], cache_sl["v"],
                                  sm_scale=cfg.hd ** -0.5, self_kv=(kd, vd))
   y = attn_lib.out_proj(ctx[:, None].to(x.dtype), lp, x.dtype)
-  return y, (kd, vd)
+  return y, (kd, vd), aux
 
 
 def make_serve_step(cfg: ModelConfig, *, mode: str = "synopsis",
-                    i_max: Optional[int] = None):
+                    i_max: Optional[int] = None, attention_fn=None):
   """Returns serve_step(params, cache, tokens (B, 1)) -> (logits (B, V)
   f32, {"k_delta", "v_delta" (nb, na, B, Hkv, 1, D), "pos" (B,)}).
-  ``mode`` is "synopsis" (budget ``i_max``) or "exact"."""
+  ``mode`` is "synopsis" (budget ``i_max``) or "exact".
+
+  ``attention_fn(q, cache_sl, *, i_max, cluster_size, sm_scale, self_kv)
+  -> (ctx, aux)`` replaces the synopsis decode attention; each leaf of
+  ``aux`` joins the outputs stacked over the layers (nb, na, ...)."""
   if mode not in LAYER_LEAVES:
     raise ValueError(f"mode={mode!r}: expected one of {tuple(LAYER_LEAVES)}")
   tf.check_supported(cfg)
@@ -108,6 +124,7 @@ def make_serve_step(cfg: ModelConfig, *, mode: str = "synopsis",
     x = tf.embed_tokens(params, cfg, tokens[:, :1])           # (B, 1, d)
     pos = cache["pos"]
     k_delta, v_delta = [], []
+    auxs: Dict[str, list] = {}              # per layer, in layer order
     for b in range(cfg.n_blocks):
       ks, vs = [], []
       for i, _ in enumerate(cfg.block_pattern):
@@ -118,8 +135,10 @@ def make_serve_step(cfg: ModelConfig, *, mode: str = "synopsis",
           layer_cache.update((kk, cache[kk][b, i])
                              for kk in qt.SCALE_LEAVES if kk in cache)
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        mix, (kd, vd) = _attn_decode_layer(h, lp["attn"], cfg, layer_cache,
-                                           pos, mode, i_max)
+        mix, (kd, vd), aux = _attn_decode_layer(
+            h, lp["attn"], cfg, layer_cache, pos, mode, i_max, attention_fn)
+        for name, t in (aux or {}).items():
+          auxs.setdefault(name, []).append(t)
         x = x + mix
         h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
         mp = lp["mlp"]
@@ -130,7 +149,10 @@ def make_serve_step(cfg: ModelConfig, *, mode: str = "synopsis",
       v_delta.append(torch.stack(vs))
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)[:, 0]
     logits = tf.logits_fn(params, h)
+    lead = (cfg.n_blocks, len(cfg.block_pattern))
     return logits, {"k_delta": torch.stack(k_delta),
-                    "v_delta": torch.stack(v_delta), "pos": pos + 1}
+                    "v_delta": torch.stack(v_delta), "pos": pos + 1,
+                    **{name: torch.stack(ts).view(*lead, *ts[0].shape)
+                       for name, ts in auxs.items()}}
 
   return serve_step

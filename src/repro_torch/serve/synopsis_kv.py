@@ -14,6 +14,8 @@
 * :func:`absorb_recent`: the paper's "situation 1" update — the full ring
   becomes R/C new clusters appended to the originals and centroid tables,
   through the same kernel with the identity permutation.
+* :func:`extend_synopsis`: the corpus cache's delta build, the clusters
+  of a prompt's extension appended to a cached arena's.
 
 Under ``cfg.synopsis.quant`` (``kernels/quant.py``) the build and the
 absorb emit the quantized tables and the scale leaves (nb, na, B, Hkv, M)
@@ -160,5 +162,49 @@ def absorb_recent(cache: Dict[str, torch.Tensor],
   for name in qt.SCALE_LEAVES:
     if name in cache:
       out[name] = cat([cache[name],
+                       built[name].reshape(nb, na, B, Hkv, newM)], dim=4)
+  return out
+
+
+def extend_synopsis(arena: Dict[str, torch.Tensor], ext_k: torch.Tensor,
+                    ext_v: torch.Tensor, cfg: ModelConfig, *,
+                    basis: Optional[torch.Tensor] = None
+                    ) -> Dict[str, torch.Tensor]:
+  """Prefix-extension delta build: append E prefill tokens' KV to a built
+  arena without rebuilding the prefix.  The extension gets its own
+  similarity clustering (PCA from ``basis``, balanced kd: E/C clusters,
+  a power of two, over the extension alone), built by ``segment_build``
+  and appended after the prefix's M clusters; the prefix's sorted KV,
+  centroids and counts are untouched.
+
+  ext_k/ext_v: (nb, na, B, Hkv, E, D) from ``prefill.make_extend_step``.
+  Returns a new arena (``pos`` advanced by E, the ring passed through)."""
+  nb, na, B, Hkv, E, D = ext_k.shape
+  C = cfg.synopsis.cluster_size
+  if E % C:
+    raise ValueError(f"extension length {E} is not a multiple of C={C}")
+  newM = E // C
+  N = nb * na * B
+  k = ext_k.reshape(N, Hkv, E, D)
+  v = ext_v.reshape(N, Hkv, E, D)
+  built = _build_arena(k, v, cluster_perms(k, newM, basis=basis), cfg)
+  cat = torch.cat
+  out = {
+      **arena,
+      "k": cat([arena["k"], built["k"].reshape(nb, na, B, Hkv, E, D).to(
+          arena["k"].dtype)], dim=4),
+      "v": cat([arena["v"], built["v"].reshape(nb, na, B, Hkv, E, D).to(
+          arena["v"].dtype)], dim=4),
+      "k_syn": cat([arena["k_syn"],
+                    built["k_syn"].reshape(nb, na, B, Hkv, newM, D)], dim=4),
+      "v_syn": cat([arena["v_syn"],
+                    built["v_syn"].reshape(nb, na, B, Hkv, newM, D)], dim=4),
+      "counts": cat([arena["counts"],
+                     built["counts"].reshape(nb, na, B, newM)], dim=3),
+      "pos": arena["pos"] + E,
+  }
+  for name in qt.SCALE_LEAVES:
+    if name in arena:
+      out[name] = cat([arena[name],
                        built[name].reshape(nb, na, B, Hkv, newM)], dim=4)
   return out

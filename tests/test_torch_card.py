@@ -987,3 +987,166 @@ def test_card_engine_generates_the_cpu_engine_ids(arm):
 def _tree_to(tree, dev):
   return {k: _tree_to(v, dev) if isinstance(v, dict) else v.to(dev)
           for k, v in tree.items()}
+
+
+# -- the contracts' telemetry, the corpus cache and delta replay ---------------
+
+@pytest.fixture(scope="module", params=["none", "int8+kv"])
+def card_contract_engine(request):
+  """A bf16 SMOKE engine under error_bounded (every bucket captured, with
+  the coverage profile in each step) after a trace."""
+  eng = _smoke_engine(_card_or_skip(), request.param,
+                      contract="error_bounded", epsilon=0.02)
+  _serve_a_trace(eng)
+  return eng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [0, 1, 2, 4])
+def test_card_engine_telemetry_graph_replays_its_eager_call(
+    card_contract_engine, budget):
+  """Every bucket's graph writes the coverage profile too; the replay's
+  outputs, ``est_profile`` included, are the eager call's bits, and the
+  profile is a profile (0 at b = 0, 1 at b = M, non-decreasing)."""
+  eng = card_contract_engine
+  key = ("step", budget)
+  assert set(eng.programs.graphs) == {("step", b) for b in eng.buckets} | \
+      {"append"}
+  eng.programs.run(key)
+  replayed = _step_outputs(eng)
+  eng.programs.call_eager(key)
+  eager = _step_outputs(eng)
+  assert set(replayed) == {"logits", "k_delta", "v_delta", "pos",
+                           "est_profile"}
+  for name, t in replayed.items():
+    assert torch.equal(t, eager[name]), name
+  prof = replayed["est_profile"]
+  assert tuple(prof.shape) == (2, eng.M + 1)
+  assert torch.all(prof[:, 1:] >= prof[:, :-1] - 1e-6)
+  assert torch.allclose(prof[:, 0], torch.zeros(2, device=prof.device))
+  assert torch.allclose(prof[:, -1], torch.ones(2, device=prof.device),
+                        atol=1e-5)
+
+
+def _device_ops(fn, sessions=3):
+  """Device ops one call of ``fn`` issues, from the profiler's rows: the
+  most of ``sessions`` sessions (a session at times loses a row)."""
+  from torch.profiler import ProfilerActivity, profile
+  fn()
+  torch.cuda.synchronize()
+  counts = []
+  for _ in range(sessions):
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+      fn()
+      torch.cuda.synchronize()
+    counts.append(sum(e.count for e in prof.key_averages()
+                      if e.device_type != torch.autograd.DeviceType.CPU
+                      and e.self_device_time_total > 0))
+  return max(counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["none", "int8+kv"])
+def test_card_engine_deadline_graphs_issue_the_plain_ops(quant):
+  """Under the deadline contract the step has no profile output; under a
+  contract with telemetry every bucket's graph issues the same number of
+  ops more than the deadline graph (the profile's cost does not depend on
+  the budget).  ``chip_smoke.py`` holds the deadline graph's count at full
+  width to the previous engine's."""
+  dev = _card_or_skip()
+  engines = {c: _smoke_engine(dev, quant, contract=c)
+             for c in ("deadline", "deadline_with_bound")}
+  assert "est_profile" not in engines["deadline"].step_out
+  extra = set()
+  for b in engines["deadline"].buckets:
+    ops_n = {}
+    for c, eng in engines.items():
+      key = ("step", b)
+      if key not in eng.programs.graphs:
+        eng.programs.capture(key)
+      ops_n[c] = _device_ops(lambda: eng.programs.run(key))
+    extra.add(ops_n["deadline_with_bound"] - ops_n["deadline"])
+  assert len(extra) == 1 and extra.pop() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["none", "int8+kv"])
+def test_card_engine_hit_lane_equals_miss_lane(quant):
+  """One corpus admitted into lane 0 (a miss: prefill, build, publish)
+  and into lane 1 (a hit: the cached arena copied): the two lanes hold the
+  same bits, and the hit ran neither prefill nor build."""
+  from repro_torch.serve.corpus_cache import CacheConfig
+  from repro_torch.serve.engine import make_requests
+  eng = _smoke_engine(_card_or_skip(), quant, policy="fixed", fixed_budget=1,
+                      cache=CacheConfig(capacity=2, delta_unit=16))
+  reqs = make_requests([0.0, 0.0], ENGINE_PROMPT, ENGINE_NEW, eng.cfg.vocab,
+                       seed=8)
+  reqs[1].prompt = reqs[0].prompt
+  eng._admit(reqs[0], 0)
+  counts = _build.launch_counts()
+  eng._admit(reqs[1], 1)
+  assert _build.launch_counts() == counts          # no kernel launched
+  assert eng.prefills == 1 and eng.corpus_cache.stats()["hits"] == 1
+  for name, t in eng.cache.items():
+    ax = eng._bx[name]
+    assert torch.equal(t.narrow(ax, 0, 1), t.narrow(ax, 1, 1)), name
+  assert int(eng.tok[0, 0]) == int(eng.tok[1, 0])
+  assert reqs[0].tokens == reqs[1].tokens
+
+
+def _rows_sorted(x, C):
+  """(..., S, D) with S = M * C -> each cluster block's rows in one
+  canonical order (by a random projection of the row), so that two builds
+  whose clusters hold the same rows in another order compare equal."""
+  *lead, S, D = x.shape
+  blocks = x.reshape(*lead, S // C, C, D)
+  vals = blocks.float() if x.element_size() > 1 else _steps(blocks).float()
+  proj = vals.cpu() @ torch.linspace(1.0, 2.0, D, dtype=torch.float32)
+  order = proj.argsort(dim=-1)[..., None].expand(*proj.shape, D)
+  return torch.gather(blocks.cpu(), -2, order)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["none", "int8+kv"])
+def test_card_extend_synopsis_equals_the_cpu(quant):
+  """The delta build on the card (PCA, kd, ``segment_build``) against the
+  CPU's (plain versions) on the same arena and extension, bf16: the same
+  clusters (counts equal, each cluster's rows bit-equal, or its codes
+  bit-equal under +kv, in a canonical order), the prefix untouched,
+  centroids within one bf16 ulp or one code step on few entries."""
+  import dataclasses
+  from repro_torch.configs.registry import get_config
+  from repro_torch.launch.serve import apply_quant
+  from repro_torch.serve import synopsis_kv as skv
+  dev = _card_or_skip()
+  cfg = apply_quant(get_config("llama3-8b", smoke=True), quant)
+  cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
+  C = cfg.synopsis.cluster_size
+  g = torch.Generator().manual_seed(19)
+  pre = {"k": _rand(g, 2, 1, 1, cfg.n_kv_heads, 2 * C, cfg.hd).bfloat16(),
+         "v": _rand(g, 2, 1, 1, cfg.n_kv_heads, 2 * C, cfg.hd).bfloat16(),
+         "pos": torch.full((1,), 2 * C, dtype=torch.int32)}
+  ext = [_rand(g, 2, 1, 1, cfg.n_kv_heads, 4 * C, cfg.hd).bfloat16()
+         for _ in range(2)]
+  out = {}
+  for where in ("cpu", dev):
+    arena = skv.build({k: t.to(where) for k, t in pre.items()}, cfg)
+    out[str(where)] = skv.extend_synopsis(arena, ext[0].to(where),
+                                          ext[1].to(where), cfg)
+  got, want = out["cuda"], out["cpu"]
+  assert set(got) == set(want)
+  assert torch.equal(got["counts"].cpu(), want["counts"])
+  assert torch.equal(got["pos"].cpu(), want["pos"])
+  for name in ("k", "v"):
+    assert torch.equal(_rows_sorted(got[name], C), _rows_sorted(want[name], C))
+  for name in ("k_scale", "v_scale"):
+    if name in want:
+      torch.testing.assert_close(got[name].cpu(), want[name],
+                                 rtol=1e-5, atol=1e-7)
+  for name in ("k_syn", "v_syn"):
+    if got[name].element_size() == 1:
+      step = (_steps(got[name]) - _steps(want[name])).abs()
+      assert int(step.max()) <= 1, name
+      assert float((step > 0).float().mean()) < 0.01, name
+    else:
+      _close(got[name], want[name], BF16_OUT_TOL)

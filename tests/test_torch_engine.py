@@ -14,8 +14,10 @@ graphs, ``tests/test_torch_card.py``).
   ``DeadlineBudgetPolicy`` and the three predictors on one observation
   sequence (within 1e-12: the same float64 arithmetic), the simulator's
   copy (exact: the same numpy draws), and ``summary()``'s keys.
-* The off forms (corpus cache, admission, step backends, contracts) raise,
-  in the engine and on the command line.
+* The step backends (ROADMAP A.7) raise, in the engine and on the command
+  line; the corpus cache, admission and the contracts, ported since, are
+  taken (``tests/test_torch_contracts.py`` and
+  ``tests/test_torch_corpus_cache.py`` hold them against the JAX package).
 """
 import dataclasses
 
@@ -43,12 +45,13 @@ from repro.serving.service import ServiceConfig as JServiceConfig
 from repro.serving.service import _default_concentration as j_concentration
 from repro_torch import bridge
 from repro_torch.configs.registry import get_config
-from repro_torch.control import (DeadlineBudgetPolicy, TailTracker,
-                                 make_predictor)
+from repro_torch.control import (AdmissionConfig, DeadlineBudgetPolicy,
+                                 TailTracker, make_predictor)
 from repro_torch.launch import serve as launch
 from repro_torch.launch.serve import apply_quant
 from repro_torch.serve import kv_cache as kvc
 from repro_torch.serve import synopsis_kv as skv
+from repro_torch.serve.corpus_cache import CacheConfig
 from repro_torch.serve.engine import (EngineConfig, MeasuredStepBackend,
                                       ServingEngine, make_requests,
                                       run_open_loop)
@@ -392,10 +395,14 @@ def test_simulator_copy_matches_jax(technique, skew, shed):
 # -- the off forms -------------------------------------------------------------
 
 @pytest.mark.parametrize("field,value,item", [
-    ("cache", object(), "A.5"), ("admission", object(), "A.4"),
+    ("cache", CacheConfig(capacity=2), "A.5"),
+    ("admission", AdmissionConfig(), "A.4"),
     ("contract", "error_bounded", "A.3"),
     ("contract", "deadline_with_bound", "A.3"), ("backend", object(), "A.7")])
 def test_engine_refuses_what_it_has_not_ported(llama, field, value, item):
+  """A step backend (A.7, not ported) raises; the corpus cache (A.5),
+  admission (A.4) and the contracts (A.3), ported since, build an engine
+  that serves."""
   _, _, cfg, params, _ = llama
   kw = dict(prompt_len=32, max_new_tokens=2)
   extra = {}
@@ -403,9 +410,35 @@ def test_engine_refuses_what_it_has_not_ported(llama, field, value, item):
     extra["backend"] = value
   else:
     kw[field] = value
-  with pytest.raises(NotImplementedError, match=item):
-    ServingEngine(cfg, EngineConfig(**kw), params=params, device="cpu",
-                  **extra)
+  if item == "A.7":
+    with pytest.raises(NotImplementedError, match=item):
+      ServingEngine(cfg, EngineConfig(**kw), params=params, device="cpu",
+                    **extra)
+    return
+  eng = ServingEngine(cfg, EngineConfig(**kw), params=params, device="cpu")
+  s = eng.run(make_requests([0.0, 1.0], 32, 2, cfg.vocab, seed=1))
+  assert s["n"] == 2 and s["served_n"] == 2
+
+
+def test_engine_is_freed_at_del(llama):
+  """No reference cycle: the last reference gone, the engine, its pool
+  and its programs go at once, without the cyclic collector (on the card
+  a collection could release graphs inside another engine's capture)."""
+  import gc
+  import weakref
+  _, _, cfg, params, _ = llama
+  gc.disable()
+  try:
+    eng = ServingEngine(cfg, EngineConfig(
+        prompt_len=32, max_new_tokens=2, contract="error_bounded",
+        admission=AdmissionConfig(order="slack"),
+        cache=CacheConfig(capacity=2)), params=params, device="cpu")
+    eng.run(make_requests([0.0, 1.0], 32, 2, cfg.vocab, seed=1))
+    ref, pool = weakref.ref(eng), weakref.ref(eng.cache["k"])
+    del eng
+    assert ref() is None and pool() is None
+  finally:
+    gc.enable()
 
 
 def test_engine_rejects_bad_configs(llama):
@@ -435,11 +468,23 @@ def test_engine_refuses_without_cuda(monkeypatch, llama):
     (["--cluster", "4"], "A.7"), (["--fleet"], "A.7"),
     (["--admission", "edf"], "A.4"), (["--cache-capacity", "8"], "A.5"),
     (["--contract", "error_bounded"], "A.3"), (["--mode", "exact"], "exact"),
-    (["--budget", "1"], "budget")])
-def test_engine_cli_refuses_unported_flags(capsys, flags, item):
+    (["--budget", "1"], "budget"), (["--autoscale"], "A.7")])
+def test_engine_cli_refuses_unported_flags(capsys, monkeypatch, flags, item):
+  """The multi-component tiers' flags (A.7) and what the engine does not
+  take exit with their reason; the flags of A.3-A.5, ported since, reach
+  the engine."""
+  seen = []
+  monkeypatch.setattr(launch, "engine_main",
+                      lambda args, device: seen.append(args))
+  if item in ("A.3", "A.4", "A.5"):
+    launch.main(["--engine", "--device", "cpu", *flags])
+    args, = seen
+    assert (args.admission, args.cache_capacity, args.contract) != \
+        ("off", 0, "deadline")
+    return
   with pytest.raises(SystemExit) as e:
     launch.main(["--engine", "--device", "cpu", *flags])
-  assert e.value.code != 0
+  assert e.value.code != 0 and not seen
   assert item in capsys.readouterr().err
 
 
@@ -454,3 +499,19 @@ def test_engine_cli_on_cpu(tmp_path, capsys):
   assert out["results"]["hour21"]["rate_per_s"] == pytest.approx(18.0)
   assert (tmp_path / "e.json").is_file()
   assert "[hour21]" in capsys.readouterr().out
+
+
+def test_engine_cli_contract_admission_cache_on_cpu(tmp_path, capsys):
+  out = launch.main(["--engine", "--device", "cpu", "--prompt-len", "32",
+                     "--tokens", "2", "--trace", "sogou_hourly", "--hours",
+                     "21", "--rate-scale", "0.2", "--duration", "0.5",
+                     "--contract", "deadline_with_bound", "--admission",
+                     "edf", "--slo-classes", "interactive:500,batch:2000",
+                     "--cache-capacity", "4", "--zipf-corpora", "2",
+                     "--json", str(tmp_path / "e.json")])
+  r = out["results"]["hour21"]
+  assert set(r["classes"]) == {"interactive", "batch"}
+  assert r["cache_hits"] + r["cache_misses"] == r["served_n"]
+  assert 0.0 <= r["band_cover_pct"] <= 100.0 and r["pred_loss_mean"] >= 0.0
+  assert "band_cov=" in capsys.readouterr().out
+  assert (tmp_path / "e.json").is_file()
