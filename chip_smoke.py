@@ -73,7 +73,19 @@
     the cache on and off: hits launch neither prefill nor build, the same
     ids; a Zipf window; delta replay of a 4096-token prefix's
     8192-token extension, its KV held against the full prefill's), and the
-    loop's ``--batches 2`` serial against ``--pipeline``.
+    loop's ``--batches 2`` serial against ``--pipeline``;
+12. gemma2-2b at its published width and depth (26 layers alternating
+    local, window 4096, and global; softcaps; sandwich norms; tied
+    embeddings; hd 256), random bf16 weights from seed 0: each kernel of
+    its path against its plain version at its shapes (``flash_prefill``
+    at D = 256 on a global and a local layer, with SDPA at the global
+    shape as a yardstick that has no softcap; ``flash_decode`` on the
+    local window's strided view), the budget-32 loop (130 steps, one
+    absorb: prefill / build ms, p50 / p99, peak memory, a profiled window's
+    device busy share), the exact loop, one step per budget against exact,
+    the full-budget deviation on a global layer, the unfused op on a
+    global layer, and one engine window under ``accuracytrader`` and
+    ``basic``.
 
 Every path's launch counts are reset just before it runs and read just
 after: the synopsis loop must launch its four kernels, the quantized loops
@@ -81,7 +93,11 @@ their quantized branches and not the unquantized ones, the exact loop
 ``flash_prefill`` and ``flash_decode``, the unfused op ``synopsis_score``,
 ``flash_decode`` and ``block_gather_attention``, the engine the four
 synopsis-path kernels (counted at the graphs' capture: a replay runs no
-Python, so the profiler's rows show the kernels inside the replays).
+Python, so the profiler's rows show the kernels inside the replays); the
+gemma2 loops exactly one ``flash_prefill`` a layer and, a step,
+``flash_decode`` twice on each local layer and the two synopsis kernels
+on each global one (exact: ``flash_decode`` twice on every layer), and
+its engine ``flash_decode`` beside the four.
 
 Any failed phase raises and exits non-zero.  The last lines are the
 kernels' JSON record, the nvidia-smi line and ``{"ok": true, ...}``.
@@ -957,30 +973,32 @@ def _check_run(out, cfg, absorbs=1):
     raise AssertionError("bad logits or token ids from the serving loop")
 
 
-def check_full_budget(cache, dev, g):
-  """Layer 0 of the run's final cache: synopsis decode with i_max = M
-  equals exact attention over every cached, ring and self token."""
+def check_full_budget(cache, dev, g, pos=0, cap=None, G=4):
+  """The first layer at pattern position ``pos`` of the run's final cache
+  (a synopsis layer): synopsis decode with i_max = M equals exact
+  attention over every cached, ring and self token (both softcapped by
+  ``cap``); G query heads a KV head."""
   from repro_torch.kernels import ops, ref
-  k, v = cache["k"][0, 0], cache["v"][0, 0]
+  k, v = cache["k"][0, pos], cache["v"][0, pos]
   B, Hkv, S, D = k.shape
   M = cache["k_syn"].shape[4]
   rl = int(cache["recent_len"][0])
-  q = torch.randn((B, Hkv * 4, D), generator=g, device=dev).to(k.dtype)
+  q = torch.randn((B, Hkv * G, D), generator=g, device=dev).to(k.dtype)
   sk = torch.randn((B, Hkv, 1, D), generator=g, device=dev).to(k.dtype)
   sv = torch.randn((B, Hkv, 1, D), generator=g, device=dev).to(k.dtype)
   got = ops.synopsis_cache_attention(
-      q, k, v, cache["k_syn"][0, 0], cache["v_syn"][0, 0],
-      cache["counts"][0, 0], cache["recent_k"][0, 0],
-      cache["recent_v"][0, 0], cache["recent_len"], sk, sv, i_max=M,
-      cluster_size=S // M, sm_scale=D ** -0.5)
-  keys = torch.cat([k, cache["recent_k"][0, 0][:, :, :rl], sk], dim=2)
-  vals = torch.cat([v, cache["recent_v"][0, 0][:, :, :rl], sv], dim=2)
-  want = ref.exact_attention_ref(q, keys, vals, sm_scale=D ** -0.5)
+      q, k, v, cache["k_syn"][0, pos], cache["v_syn"][0, pos],
+      cache["counts"][0, pos], cache["recent_k"][0, pos],
+      cache["recent_v"][0, pos], cache["recent_len"], sk, sv, i_max=M,
+      cluster_size=S // M, sm_scale=D ** -0.5, cap=cap)
+  keys = torch.cat([k, cache["recent_k"][0, pos][:, :, :rl], sk], dim=2)
+  vals = torch.cat([v, cache["recent_v"][0, pos][:, :, :rl], sv], dim=2)
+  want = ref.exact_attention_ref(q, keys, vals, sm_scale=D ** -0.5, cap=cap)
   rel = _max_err(got, want) / float(want.abs().max())
   # bf16 inputs, f32 sums in another order, and the stage-1 centroid terms
   # cancelled by the decrement: 1e-3 of the output's scale.
-  print(f"[full budget] layer 0, i_max=M={M}, S={S}+{rl}+1: max err "
-        f"{rel:.3e} of max|exact| (tol 1e-3)")
+  print(f"[full budget] layer {pos}, i_max=M={M}, S={S}+{rl}+1, cap={cap}: "
+        f"max err {rel:.3e} of max|exact| (tol 1e-3)")
   if not rel <= 1e-3:
     raise AssertionError(f"full-budget synopsis decode != exact: {rel}")
 
@@ -2031,6 +2049,339 @@ def run_pipeline(cfg, params, dev):
   return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: gemma2-2b at full width and depth (local and global layers,
+# softcaps, sandwich norms, tied embeddings; flash_prefill at D = 256)
+# ---------------------------------------------------------------------------
+
+GEMMA2 = "gemma2-2b"
+G2 = "[gemma2]"
+
+
+def _pairs_in_window(S, window):
+  """(query, key) pairs a causal prefill over S positions attends: all
+  S(S+1)/2, or those within ``window`` of the query."""
+  if window is None or window >= S:
+    return S * (S + 1) // 2
+  return window * (window + 1) // 2 + (S - window) * window
+
+
+def check_gemma2_kernels(cfg, dev, g):
+  """Every kernel of gemma2-2b's path against its plain version at the
+  full-width shapes, bf16: flash_prefill at D = 256 on a global (cap 50)
+  and a local layer (cap 50, window 4096), the build of the 52 layer
+  sequences and its absorb, stage 1 and stage 2 with cap 50, flash_decode
+  on a local layer's window view (and on the exact path's whole cache),
+  synopsis_score at D = 256 (the unfused op).  Returns the records, keyed
+  by ``<kernel>[gemma2]``; SDPA at the global shape with no cap is printed
+  as a yardstick only (it has no softcap: not the same function)."""
+  from repro_torch.kernels import ops, ref
+  from repro_torch.kernels.block_gather_attention import (
+      block_gather_attention as gather)
+  from repro_torch.kernels.flash_decode import flash_decode
+  from repro_torch.kernels.flash_prefill import flash_prefill
+  from repro_torch.kernels.fused_synopsis import (
+      fused_synopsis_score_attention as fused)
+  from repro_torch.kernels.synopsis_build import segment_build
+  from repro_torch.kernels.synopsis_score import synopsis_score
+  dtype = torch.bfloat16
+  B, S, H, Hkv, D = BATCH, PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+  C, W, cap = cfg.synopsis.cluster_size, cfg.sliding_window, cfg.attn_softcap
+  M, I, G = S // C, cfg.synopsis.i_max, H // Hkv
+  sm = D ** -0.5
+  recs = {}
+
+  def rnd(*shape):
+    return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+  def rec(kernel, err, kfn, pfn, nbytes, ops_n, src, line, **kw):
+    r = _record(f"{kernel}{G2}", f"src/repro_torch/kernels/csrc/{src}",
+                f"src/repro/kernels/{line}", dtype, err, kfn, pfn, nbytes,
+                ops_n, **kw)
+    recs[r["name"]] = r
+    return r
+
+  # flash_prefill: the global layer is the record; the local one printed.
+  q, k, v = rnd(B, S, H, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
+  times = {}
+  for label, window in (("local", W), ("global", None)):
+    kw = dict(sm_scale=sm, cap=cap, window=window)
+    got = flash_prefill(q, k, v, **kw)
+    err = _check(f"flash_prefill{G2} {label} D={D}", dtype, got,
+                 ref.flash_prefill_ref(q, k, v, **kw), *BF16_OUT_TOL)
+    ops_n = 4 * B * H * D * _pairs_in_window(S, window)
+    if label == "global":
+      r = rec("flash_prefill", err, lambda: flash_prefill(q, k, v, **kw),
+              lambda: ref.flash_prefill_ref(q, k, v, **kw),
+              _nbytes(q, k, v, got), ops_n, "flash_prefill.cu",
+              "flash_prefill.py:140")
+      dev_ms, bound = r["device_ms"], r["bound_ms"]
+    else:
+      fn = lambda: flash_prefill(q, k, v, **kw)  # noqa: E731
+      dev_ms = _device_ms(fn, KERNEL_ROWS["flash_prefill"])
+      bound = _bound(_nbytes(q, k, v, got), ops_n, dtype)[0]
+      print(f"  [flash_prefill{G2} local bf16] ms={_median_ms(fn):.4f}")
+    times[label] = dev_ms
+    print(f"  [flash_prefill{G2} {label} bf16] {ops_n / 1e12:.3f} TFLOP in "
+          f"{dev_ms:.4f} ms of device time ({ops_n / dev_ms / 1e9:.1f} "
+          f"TFLOP/s, {1.5 * ops_n / dev_ms / 1e9:.1f} issued with the P "
+          f"split); bound {bound:.4f} ms (operations), {bound / dev_ms:.1%} "
+          f"of it")
+  n_glob = sum(not s.local for s in cfg.block_pattern) * cfg.n_blocks
+  print(f"  [flash_prefill{G2}] a prompt's {cfg.n_layers} launches: "
+        f"{n_glob * times['global'] + (cfg.n_layers - n_glob) * times['local']:.3f}"
+        f" ms of device time")
+  qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+  sdpa = torch.nn.functional.scaled_dot_product_attention
+  lib = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)  # noqa
+  lib_dev = _device_ms(lib)
+  print(f"  [yardstick bf16] SDPA at the global layer's shape, causal, no "
+        f"softcap (not the same function: SDPA has no softcap): ms="
+        f"{_median_ms(lib):.4f} device {lib_dev:.4f} ms; flash_prefill"
+        f"{G2} global / SDPA device {times['global'] / lib_dev:.2f}x")
+  del q, k, v, qt, kt, vt, got
+
+  # segment_build: the 52 layer sequences of one B = 2 prompt, and the
+  # absorb of the 128-token ring.
+  N = cfg.n_layers * B
+  kb, vb = rnd(N, Hkv, S, D), rnd(N, Hkv, S, D)
+  perm = torch.argsort(torch.rand((N, S), generator=g, device=dev),
+                       dim=-1).to(torch.int32)
+  got = segment_build(kb, vb, perm, cluster_size=C)
+  err = _check(f"segment_build{G2} D={D}", dtype, got,
+               ref.synopsis_build_ref(kb, vb, perm, cluster_size=C),
+               *BF16_OUT_TOL)
+  ring = torch.arange(C, device=dev, dtype=torch.int32).expand(N, C)
+  ka, va = kb[:, :, :C].contiguous(), vb[:, :, :C].contiguous()
+  _check(f"segment_build{G2} absorb", dtype,
+         segment_build(ka, va, ring, cluster_size=C),
+         ref.synopsis_build_ref(ka, va, ring, cluster_size=C), *BF16_OUT_TOL)
+  _bound_share(rec(
+      "segment_build", err,
+      lambda: segment_build(kb, vb, perm, cluster_size=C),
+      lambda: ref.synopsis_build_ref(kb, vb, perm, cluster_size=C),
+      _nbytes(kb, vb, perm, *got),
+      2 * N * Hkv * S * D + 2 * N * Hkv * M * D, "segment_build.cu",
+      "synopsis_build.py:173"), dtype)
+  del kb, vb, perm, got, ka, va
+
+  # The decode kernels on one global layer's arena (and a local layer's
+  # window of a cache of the same shape).
+  q1, k, v = rnd(B, H, D), rnd(B, Hkv, S, D), rnd(B, Hkv, S, D)
+  k_syn = k.float().reshape(B, Hkv, M, C, D).mean(3).to(dtype)
+  v_syn = v.float().reshape(B, Hkv, M, C, D).mean(3).to(dtype)
+  counts = torch.full((B, M), float(C), device=dev)
+  cbias = ops.count_bias(counts)
+  tol = PARTIALS_TOL[dtype]
+  kw = dict(sm_scale=sm, cap=cap)
+  got = fused(q1, k_syn, v_syn, cbias, **kw)
+  want = ref.fused_synopsis_score_attention_ref(q1, k_syn, v_syn, cbias,
+                                                **kw)
+  err = _check(f"fused_synopsis{G2} M={M} cap={cap}", dtype,
+               (got[0], *got[1]), (want[0], *want[1]), *_stage1_tol(dtype, M))
+  rec("fused_synopsis_score_attention", err,
+      lambda: fused(q1, k_syn, v_syn, cbias, **kw),
+      lambda: ref.fused_synopsis_score_attention_ref(q1, k_syn, v_syn,
+                                                     cbias, **kw),
+      _nbytes(q1, k_syn, v_syn, cbias, got[0], *got[1]), 4 * B * H * M * D,
+      "fused_synopsis.cu", "fused_synopsis.py:139", cold=True)
+
+  sel = torch.topk(got[0], I, dim=-1).indices.to(torch.int32)
+  safe = sel.long()[..., None].expand(-1, -1, -1, D)
+  rk, rv = rnd(B, Hkv, cfg.synopsis.recent, D), rnd(B, Hkv,
+                                                   cfg.synopsis.recent, D)
+  ek, ev, eb = ops.build_extras(rk, rv, None, (rnd(B, Hkv, 1, D),
+                                                rnd(B, Hkv, 1, D)))
+  gkw = dict(cluster_size=C, sm_scale=sm, cap=cap,
+             k_sel=torch.gather(k_syn, 2, safe),
+             v_sel=torch.gather(v_syn, 2, safe),
+             sel_bias=cbias[:, None, :1].expand(B, Hkv, I).contiguous(),
+             extras_k=ek, extras_v=ev, extras_bias=eb)
+  got = gather(q1, k, v, sel, **gkw)
+  err = _check(f"block_gather{G2} S={S} I={I} E={ek.shape[2]} cap={cap}",
+               dtype, got, ref.fused_gather_attention_ref(q1, k, v, sel,
+                                                          **gkw), *tol)
+  rows = I * C * B * Hkv
+  rec("block_gather_attention", err, lambda: gather(q1, k, v, sel, **gkw),
+      lambda: ref.fused_gather_attention_ref(q1, k, v, sel, **gkw),
+      _nbytes(q1, sel, gkw["k_sel"], gkw["v_sel"], gkw["sel_bias"], ek, ev,
+              eb, *got) + 2 * rows * D * k.element_size(),
+      4 * G * D * (rows + B * Hkv * (I + ek.shape[2])), "block_gather.cu",
+      "block_gather_attention.py:255", cold=True)
+
+  # flash_decode: the exact path's whole cache, then the local layer's
+  # window as the loop gives it, a view of the layer's cache (recorded).
+  got = flash_decode(q1, k, v, **kw)
+  _check(f"flash_decode{G2} S={S} cap={cap}", dtype, got,
+         ref.flash_decode_ref(q1, k, v, **kw), *tol)
+  kw_, vw = k[:, :, -W:], v[:, :, -W:]
+  got = flash_decode(q1, kw_, vw, **kw)
+  same = all(torch.equal(a, b) for a, b in zip(
+      got, flash_decode(q1, kw_.contiguous(), vw.contiguous(), **kw)))
+  err = _check(f"flash_decode{G2} window view S={W} of {S} cap={cap}",
+               dtype, got, ref.flash_decode_ref(q1, kw_, vw, **kw), *tol)
+  print(f"  [flash_decode{G2}] the window view equals a contiguous copy "
+        f"bit for bit: {same}")
+  if not same:
+    raise AssertionError("flash_decode on the window view differs from "
+                         "the same rows copied")
+  copy_ms = _device_ms(lambda: (kw_.contiguous(), vw.contiguous()))
+  print(f"  [flash_decode{G2}] a .contiguous() copy of the window would "
+        f"take {copy_ms:.4f} ms of device time a local layer "
+        f"({2 * _nbytes(kw_, vw) / 1e6:.1f} MB moved)")
+  rec("flash_decode", err, lambda: flash_decode(q1, kw_, vw, **kw),
+      lambda: ref.flash_decode_ref(q1, kw_, vw, **kw),
+      _nbytes(q1, kw_, vw, *got), 4 * B * H * W * D, "flash_decode.cu",
+      "flash_decode.py:125", cold=True)
+
+  # synopsis_score (the unfused op's first stage) at D = 256.
+  got = synopsis_score(q1, k_syn, sm_scale=sm)
+  err = _check(f"synopsis_score{G2} M={M}", dtype, got,
+               ref.synopsis_score_ref(q1, k_syn, sm_scale=sm), *tol)
+  rec("synopsis_score", err, lambda: synopsis_score(q1, k_syn, sm_scale=sm),
+      lambda: ref.synopsis_score_ref(q1, k_syn, sm_scale=sm),
+      _nbytes(q1, k_syn, got), 2 * B * H * M * D, "synopsis_score.cu",
+      "synopsis_score.py:46", cold=True)
+  return recs
+
+
+def _require_gemma2_launches(path, counts, cfg, steps, mode):
+  """Exact launch counts of a gemma2 loop: flash_prefill once a layer;
+  each step, flash_decode twice on every local layer (its window view and
+  the self token), and on every global layer stage 1 and stage 2
+  (synopsis) or flash_decode twice (exact)."""
+  n_loc = sum(s.local for s in cfg.block_pattern) * cfg.n_blocks
+  n_glob = cfg.n_layers - n_loc
+  want = {"flash_prefill": cfg.n_layers}
+  if mode == "synopsis":
+    want.update(flash_decode=2 * n_loc * steps,
+                fused_synopsis_score_attention=n_glob * steps,
+                block_gather_attention=n_glob * steps)
+  else:
+    want.update(flash_decode=2 * cfg.n_layers * steps)
+  _require_launches(path, counts, tuple(want) + (
+      ("segment_build",) if mode == "synopsis" else ()),
+                    absent=("synopsis_score",))
+  if any(counts[k] != n for k, n in want.items()):
+    raise AssertionError(f"{path}: launches {counts}, expected {want}")
+
+
+def run_gemma2(dev, g):
+  """gemma2-2b at its published width and depth, random bf16 weights from
+  seed 0: the kernel checks at its shapes, the budget-32 loop (130 steps,
+  one absorb), the exact loop, one step per budget against exact, the
+  full-budget deviation on a global layer, a profiled window (device busy
+  share), and one engine window under accuracytrader and basic.  Returns
+  (records, {record name: launches on its path})."""
+  from repro_torch.configs.registry import get_config
+  from repro_torch.kernels import _build, ops
+  from repro_torch.launch import serve
+  from repro_torch.models import transformer as tf
+  from repro_torch.serve import synopsis_kv as skv
+  from repro_torch.serve.engine import run_open_loop
+  t_start = time.perf_counter()
+  cfg = get_config(GEMMA2)
+  print(f"{G2} {cfg.name} full width and depth: {cfg.n_layers} layers "
+        f"(local window {cfg.sliding_window} / global), d={cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd={cfg.hd}, vocab "
+        f"{cfg.vocab}, {cfg.param_count() / 1e9:.3f}B params, {cfg.dtype}; "
+        f"B={BATCH} prompt={PROMPT} steps={STEPS}")
+  records = check_gemma2_kernels(cfg, dev, g)
+  torch.cuda.empty_cache()
+  params = tf.init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
+  launches = {}
+
+  torch.cuda.reset_peak_memory_stats()
+  _build.reset_launches()
+  out = serve.run(cfg, batch=BATCH, prompt_len=PROMPT, tokens=STEPS,
+                  budgets=[cfg.synopsis.i_max] * STEPS, device=dev,
+                  params=params, log=lambda _: None)
+  counts = _build.launch_counts()
+  peak = torch.cuda.max_memory_allocated() / 1e9
+  _check_run(out, cfg)
+  print(f"{G2} loop: prefill_ms={out['prefill_ms']:.1f} "
+        f"({counts['flash_prefill']} flash_prefill launches) build_ms="
+        f"{out['build_ms']:.1f}; budget {cfg.synopsis.i_max} on every step: "
+        f"decode_ms {_step_stats(out['step_ms'])} absorbs={out['absorbs']} "
+        f"peak_mem_gb={peak:.2f}")
+  _require_gemma2_launches(f"{G2} loop", counts, cfg, STEPS, "synopsis")
+  for name in ("flash_prefill", "segment_build",
+               "fused_synopsis_score_attention", "block_gather_attention",
+               "flash_decode"):
+    launches[f"{name}{G2}"] = counts[name]
+  check_full_budget(out["cache"], dev, g, pos=1, cap=cfg.attn_softcap,
+                    G=cfg.n_heads // cfg.n_kv_heads)
+  profile_decode(cfg, params, out["cache"], dev, cfg.synopsis.i_max)
+  del out
+
+  torch.cuda.empty_cache()
+  _build.reset_launches()
+  exact = serve.run(cfg, batch=BATCH, prompt_len=PROMPT, tokens=STEPS,
+                    mode="exact", device=dev, params=params,
+                    log=lambda _: None)
+  counts = _build.launch_counts()
+  _check_run(exact, cfg, absorbs=0)
+  print(f"{G2} exact: decode_ms {_step_stats(exact['step_ms'])} "
+        f"prefill_ms={exact['prefill_ms']:.1f}")
+  _require_gemma2_launches(f"{G2} exact", counts, cfg, STEPS, "exact")
+  cache = exact["cache"]
+  del exact
+  profile_decode(cfg, params, cache, dev, 0, mode="exact")
+  syn = skv.build(cache, cfg)
+  check_accuracy_vs_exact(cfg, params, cache, syn, dev)
+  del cache
+
+  # The unfused op on a global layer: synopsis_score's path at D = 256.
+  k, v = syn["k"][0, 1], syn["v"][0, 1]
+  Bq, Hkv, _, D = k.shape
+  q = torch.randn((Bq, cfg.n_heads, D), generator=g, device=dev)
+  q = (q * 2.0 * D ** 0.5 / k.float().norm(dim=-1).mean()).to(k.dtype)
+  args = (q, k, v, syn["k_syn"][0, 1], syn["v_syn"][0, 1],
+          syn["counts"][0, 1])
+  kw = dict(i_max=cfg.synopsis.i_max, sm_scale=D ** -0.5,
+            cap=cfg.attn_softcap)
+  _build.reset_launches()
+  a = ops.synopsis_attention(*args, **kw)
+  torch.cuda.synchronize()
+  counts = _build.launch_counts()
+  _require_launches(f"{G2} unfused op", counts,
+                    ("synopsis_score", "flash_decode",
+                     "block_gather_attention"))
+  launches[f"synopsis_score{G2}"] = counts["synopsis_score"]
+  b = ops.synopsis_cache_attention(*args[:6], i_max=kw["i_max"],
+                                   cluster_size=cfg.synopsis.cluster_size,
+                                   sm_scale=kw["sm_scale"], cap=kw["cap"])
+  rel = _max_err(a, b) / float(a.abs().max())
+  print(f"{G2} unfused op against the fused one, global layer, cap "
+        f"{cfg.attn_softcap}: max err {rel:.2e} of max|out| (tol 1e-3)")
+  if not rel <= 1e-3:
+    raise AssertionError(f"gemma2 fused != unfused: {rel}")
+  del syn, args, k, v
+
+  for policy in ("accuracytrader", "basic"):
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    eng = _engine(cfg, params, dev, policy=policy)
+    n_graphs = len(eng.programs.graphs)
+    built_s = time.perf_counter() - t0
+    s = run_open_loop(eng, ENGINE_RATE, ENGINE_WINDOW_S, seed=0)
+    counts = _build.launch_counts()
+    print(f"{G2} engine {policy}: {n_graphs} graphs captured in "
+          f"{built_s:.1f}s; peak_mem_gb="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    _engine_metrics(f"{G2} {policy}", s, eng)
+    # The local layers' flash_decode is captured in every bucket's graph
+    # beside the global layers' two synopsis kernels.
+    _require_launches(f"{G2} engine {policy}", counts, ENGINE_KERNELS + (
+        "flash_decode",), absent=("synopsis_score",))
+    del eng
+  del params
+  torch.cuda.empty_cache()
+  print(f"{G2} phase in {time.perf_counter() - t_start:.1f}s")
+  return records, launches
+
+
 T_START = time.perf_counter()
 
 
@@ -2208,6 +2559,12 @@ def main() -> int:
   print(f"[phase 11] contracts, admission, cache, pipeline in "
         f"{time.perf_counter() - t_new:.1f}s")
 
+  # gemma2-2b at full width: its own weights, so llama3-8b's go first.
+  del params
+  torch.cuda.empty_cache()
+  g2_records, g2_launches = run_gemma2(dev, g)
+  records.update(g2_records)
+
   # Each kernel branch's launches on the path that runs it: the synopsis
   # loop's four, the exact loop's flash_decode, the unfused op's
   # synopsis_score; the quantized branches on the int8+kv / fp8+kv loops,
@@ -2222,6 +2579,7 @@ def main() -> int:
       if key in _build.KERNELS:            # unquantized: the runs above
         continue
       path_launches[key] = max(path_launches.get(key, 0), counts[key])
+  path_launches.update(g2_launches)
   missing = sorted(set(records) ^ set(path_launches))
   idle = [k for k, n in path_launches.items() if n == 0]
   if missing or idle:

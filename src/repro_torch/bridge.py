@@ -47,8 +47,19 @@ def arena_from_numpy(arena: Dict, device) -> Dict[str, torch.Tensor]:
 
 
 def params_from_numpy(tree: Dict, cfg: ModelConfig, device) -> Dict:
+  """The JAX tree -> the port's parameters.  A tied config's tree has no
+  ``unembed`` (the logits read ``embed``), an untied one needs it; under
+  sandwich norms every layer carries ``ln1_post`` and ``ln2_post``."""
   tf.check_supported(cfg)
-  missing = {"embed", "final_norm", "blocks", "unembed"} - set(tree)
+  want = {"embed", "final_norm", "blocks"}
+  if not cfg.tie_embeddings:
+    want.add("unembed")
+  missing = want - set(tree)
+  if cfg.sandwich_norm:
+    missing |= {f"blocks/{pos}/{name}" for pos, lp in tree.get(
+        "blocks", {}).items() for name in ("ln1_post", "ln2_post")
+                if name not in lp}
   if missing:
     raise KeyError(f"parameter tree lacks {sorted(missing)}")
-  return tf.finish_params(_convert(tree, cfg.dtype, torch.device(device)))
+  return tf.finish_params(_convert(tree, cfg.dtype, torch.device(device)),
+                          cfg)

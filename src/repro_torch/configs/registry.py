@@ -10,6 +10,7 @@ from repro_torch.models.common import ModelConfig
 
 _MODULES: Dict[str, str] = {
     "llama3-8b": "repro_torch.configs.llama3_8b",
+    "gemma2-2b": "repro_torch.configs.gemma2_2b",
 }
 
 

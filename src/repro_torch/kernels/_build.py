@@ -58,7 +58,7 @@ SIGNATURES = {
     "block_gather_launch": [_P] * 19 + [_I] * 9 + [_F, _F] + [_I] * 3 + [_P],
     "segment_build_launch": [_P] * 12 + [_I] * 8 + [_P],
     "flash_prefill_launch": [_P] * 4 + [_I] * 5 + [_F, _F, _I, _I, _P],
-    "flash_decode_launch": [_P] * 11 + [_I] * 6 + [_F, _F, _I, _P],
+    "flash_decode_launch": [_P] * 11 + [_I] * 8 + [_F, _F, _I, _P],
     "synopsis_score_launch": [_P] * 3 + [_I] * 5 + [_F, _I, _P],
 }
 
@@ -187,12 +187,13 @@ def code_of(dtype) -> int:
           torch.float8_e4m3fn: 3}[dtype]
 
 
-def dtype_code(name: str, *tensors, allowed=None) -> int:
+def dtype_code(name: str, *tensors, allowed=None, views=()) -> int:
   """Check that the tensors lie on one CUDA device, share one dtype and
   are contiguous; returns the C code of that dtype (0 = float32, 1 =
   bfloat16, 2 = int8, 3 = float8_e4m3fn).  ``allowed`` (default: float32,
   bfloat16 — the compute types) lists the dtypes the kernel was built
-  for."""
+  for.  ``views`` share the device and dtype but may be strided (the
+  kernel checks their strides itself)."""
   import torch  # noqa: PLC0415
   allowed = (torch.float32, torch.bfloat16) if allowed is None else allowed
   first = tensors[0]
@@ -200,12 +201,12 @@ def dtype_code(name: str, *tensors, allowed=None) -> int:
     raise ValueError(f"{name}: expected CUDA tensors, got {first.device}")
   if first.dtype not in allowed:
     raise TypeError(f"{name}: dtype {first.dtype} not in {tuple(allowed)}")
-  for t in tensors:
+  for i, t in enumerate((*tensors, *views)):
     if t.device != first.device or t.dtype != first.dtype:
       raise ValueError(f"{name}: tensors differ in device/dtype "
                        f"({t.device}, {t.dtype} vs {first.device}, "
                        f"{first.dtype})")
-    if not t.is_contiguous():
+    if i < len(tensors) and not t.is_contiguous():
       raise ValueError(f"{name}: tensor of shape {tuple(t.shape)} is not "
                        "contiguous")
   return code_of(first.dtype)

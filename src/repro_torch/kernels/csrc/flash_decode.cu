@@ -38,8 +38,8 @@ __global__ void __launch_bounds__(dc::WARPS * 32) flash_decode_kernel(
     float* __restrict__ o, float* __restrict__ m_out,
     float* __restrict__ l_out, float* __restrict__ o_part,
     float* __restrict__ m_part, float* __restrict__ l_part,
-    unsigned* __restrict__ tickets, int G, int S, int chunk, float sm_scale,
-    float cap) {
+    unsigned* __restrict__ tickets, int Hkv, int G, int S, int chunk,
+    int kv_sb, int kv_sh, float sm_scale, float cap) {
   using Sm = dc::Smem<T, T, D, GB>;
   extern __shared__ __align__(16) char smem[];
   const int split = blockIdx.x, nsplit = gridDim.x;
@@ -53,7 +53,10 @@ __global__ void __launch_bounds__(dc::WARPS * 32) flash_decode_kernel(
     return softcap_f(raw * sm_scale, cap) + (bb == nullptr ? 0.f : bb[r]);
   };
   dc::WarpState<GB> st;
-  const size_t off = ((size_t)bh * S + s0) * D;
+  // K/V may be a view: rows D apart, heads kv_sh and batches kv_sb
+  // elements apart (a sliding window's last S rows of a longer cache).
+  const size_t off = (size_t)(bh / Hkv) * kv_sb + (size_t)(bh % Hkv) * kv_sh +
+                     (size_t)s0 * D;
   dc::stream_chunk<T, D, GB>(k + off, v + off, n, G, Sm::q_s(smem), logit,
                              Sm::ring(smem), Sm::p_s(smem), st);
   dc::block_merge<D, GB>(st, G, smem, [&](int g, int d, float m, float l,
@@ -86,7 +89,8 @@ static int launch(const void* q, const void* k, const void* v,
                   const float* bias, float* o, float* m, float* l,
                   float* o_part, float* m_part, float* l_part,
                   unsigned* tickets, int B, int Hkv, int G, int S, int D,
-                  int chunk, float sm_scale, float cap, cudaStream_t stream) {
+                  int chunk, int kv_sb, int kv_sh, float sm_scale, float cap,
+                  cudaStream_t stream) {
   if (G < 1 || G > GMAX || S < 1 || chunk < 1)
     return (int)cudaErrorInvalidValue;
   const int nsplit = (S + chunk - 1) / chunk;
@@ -97,13 +101,15 @@ static int launch(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return (int)err;
     flash_decode_kernel<T, kD, kGB><<<grid, dc::WARPS * 32, smem, stream>>>(
         (const T*)q, (const T*)k, (const T*)v, bias, o, m, l, o_part, m_part,
-        l_part, tickets, G, S, chunk, sm_scale, cap);
+        l_part, tickets, Hkv, G, S, chunk, kv_sb, kv_sh, sm_scale, cap);
     return (int)cudaGetLastError();
   }))
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v); bias may be NULL; cap <= 0:
-// no softcap.  o_part (B*H, nsplit, D), m_part / l_part (B*H, nsplit) are
+// no softcap.  k and v share their strides: rows D elements apart, heads
+// kv_sh and batches kv_sb (a contiguous (B, Hkv, S, D): S * D and Hkv * S *
+// D).  o_part (B*H, nsplit, D), m_part / l_part (B*H, nsplit) are
 // the wrapper's scratch for nsplit = ceil(S / chunk) > 1, and tickets (B *
 // Hkv) its zeroed counters of the last-block merge, which the kernel
 // leaves zeroed (all may be NULL with one chunk).
@@ -113,13 +119,14 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
                                    float* o_part, float* m_part,
                                    float* l_part, unsigned* tickets, int B,
                                    int Hkv, int G, int S, int D, int chunk,
-                                   float sm_scale, float cap, int dtype,
-                                   void* stream) {
+                                   int kv_sb, int kv_sh, float sm_scale,
+                                   float cap, int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k, v, bias, o, m, l, o_part, m_part,
                                  l_part, tickets, B, Hkv, G, S, D, chunk,
-                                 sm_scale, cap, st);
+                                 kv_sb, kv_sh, sm_scale, cap, st);
   return launch<float>(q, k, v, bias, o, m, l, o_part, m_part, l_part,
-                       tickets, B, Hkv, G, S, D, chunk, sm_scale, cap, st);
+                       tickets, B, Hkv, G, S, D, chunk, kv_sb, kv_sh,
+                       sm_scale, cap, st);
 }

@@ -5,10 +5,12 @@
 // (pl.pallas_call at :140, body _kernel at :40).
 //
 // What bounds it on the H100: operations.  Causal attention over S = 8192
-// at the main path's shape (B 2, H 32, D 128) does 4 * B * H * D * S(S+1)/2
+// at llama3-8b's shape (B 2, H 32, D 128) does 4 * B * H * D * S(S+1)/2
 // = 1.1 TFLOP (Q.K^T and P.V) against 0.27 GB of bytes: 1.11 ms at the
-// 989 TFLOP/s of the bf16 tensor cores.  The P split below issues the P.V
-// half twice, 1.65 TFLOP in all.
+// 989 TFLOP/s of the bf16 tensor cores; at gemma2-2b's (B 2, H 8, D 256)
+// 0.55 TFLOP on a global layer, 0.41 on a local one (window 4096): 0.556
+// and 0.417 ms.  The P split below issues the P.V half twice, 1.5x the
+// operations in all.
 //
 // bf16 (the serving path): a warp-specialised wgmma kernel.
 //  * Work split.  One CTA per (b, hkv, query tile).  The tile's BQ = 128 / G
@@ -24,17 +26,18 @@
 //    (40 a thread) to the consumers (232).  One producer thread issues
 //    every copy.
 //  * Copies.  TMA (cp.async.bulk.tensor) loads the Q tile once and the
-//    K/V tiles of BN = 128 keys through a ring of STAGES = 2 slots, with
-//    full barriers counting bytes and an empty barrier that the 256
-//    consumer threads release.  Tiles land in shared memory swizzled by
-//    the row's bytes (128 B for D >= 64, else 64 B or 32 B; a D = 128 row
-//    is two 128-byte atoms).  The tensor maps are encoded on the host with
-//    cuTensorMapEncodeTiled, a driver call fetched at run time through
-//    cudaGetDriverEntryPoint(ByVersion), so the library needs no -lcuda.
+//    K/V tiles of BN keys (128; 64 at D = 256) through a ring of STAGES =
+//    2 slots, with full barriers counting bytes and an empty barrier that
+//    the 256 consumer threads release.  Tiles land in shared memory
+//    swizzled by the row's bytes (128 B for D >= 64, else 64 B or 32 B; a
+//    D = 128 row is two 128-byte atoms, a D = 256 row four).  The tensor
+//    maps are encoded on the host with cuTensorMapEncodeTiled, a driver
+//    call fetched at run time through cudaGetDriverEntryPoint(ByVersion),
+//    so the library needs no -lcuda.
 //    Q is a 5-d map (D, G, Hkv, S, B) whose box is one query tile of one
 //    KV head; K and V are 4-d maps (D, Hkv, S, B).  Keys and queries past S
 //    arrive as zeros.
-//  * S = Q.K^T: wgmma m64n128k16, bf16 x bf16 -> f32, both operands
+//  * S = Q.K^T: wgmma m64n{BN}k16, bf16 x bf16 -> f32, both operands
 //    K-major in shared memory.  Products of bf16 values are exact in f32,
 //    so the logits are the f32 reference's up to the order of the sum.
 //  * Softmax in registers on the accumulator fragment, in log2 units (the
@@ -46,18 +49,24 @@
 //    feeds exp2 one FMA.  The softcap is a template flag, so a kernel
 //    without it carries no tanh.  A masked logit is the finite -1e30
 //    sentinel, as in the reference.
-//  * O += P.V: P is the register-held A operand (the f32 accumulator
-//    fragment converts in place to the bf16 A fragment); V is the B
-//    operand in shared memory, D-contiguous, read through wgmma's
+//  * O += P.V: wgmma m64n{D}k16.  P is the register-held A operand (the
+//    f32 accumulator fragment converts in place to the bf16 A fragment); V
+//    is the B operand in shared memory, D-contiguous, read through wgmma's
 //    transpose bit (no transposed copy).  P is split into two bf16 values
 //    P = P_hi + P_lo, and both go through wgmma against the same V tile:
 //    rounding P to one bf16 would leave up to 2^-9 |v| (~2e-3) in an
 //    output element, far above the 1e-4 with which a short row whose V
 //    rows cancel must match the f32 reference; with the split the error
 //    is ~2^-17 |v|.
-//  * Registers a consumer thread: the S / P fragment (64), O (D / 2), two
-//    rows of m and l.  D = 256 (O alone 128 registers) is not built: the
-//    wrapper refuses it.
+//  * Registers a consumer thread (of the 232 that setmaxnreg gives it): O
+//    takes D / 2, the S fragment BN / 2, and P_hi with P_lo BN / 2 more
+//    (built while S is live), plus two rows of m and l.  With BN = 128, O, S and P
+//    are 64 + 64 + 64 = 192 at D = 128; at D = 256, O alone is 128, so the
+//    tile is cut to BN = 64 keys: 128 + 32 + 32 = 192 again.
+//  * Shared memory a CTA: Q (128 rows x D x 2 B) + 2 stages of K and V (BN
+//    x D x 2 B each) + 1 KB of alignment: D = 128, 32 KB + 4 x 32 KB = 161
+//    KB; D = 256, 64 KB + 4 x 32 KB = 193 KB, of the 227 KB a block may
+//    take.  One CTA an SM either way.
 //
 // f32 (the card tests and the f32 SMOKE parity loop only): a CUDA-core
 // kernel.  wgmma on f32 inputs is TF32, which would not hold 1e-4 against
@@ -133,7 +142,6 @@ __global__ void flash_prefill_kernel(const T* __restrict__ q,
 namespace wg {
 
 constexpr int ROWS = 128;    // query rows a CTA: two consumer warpgroups
-constexpr int BN = 128;      // keys a K/V tile
 constexpr int STAGES = 2;    // K/V ring slots
 constexpr int THREADS = 384;
 constexpr int CONSUMERS = 256;
@@ -141,6 +149,9 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
 struct Cfg {
+  // Keys a K/V tile: 128, and 64 at D = 256, where O's 128 registers leave
+  // room for an S / P fragment of 64 keys only (header comment).
+  static constexpr int BN = D > 128 ? 64 : 128;
   static constexpr int SWB = D * 2 < 128 ? D * 2 : 128;  // swizzle bytes
   static constexpr int W = SWB / 2;                      // columns an atom
   static constexpr int ATOMS = D / W;
@@ -203,6 +214,7 @@ __device__ __forceinline__ void attend_tile(const Smem& sm,
                                             float cap, int window) {
   using C = Cfg<D>;
   constexpr int SWB = C::SWB;
+  constexpr int BN = C::BN;
   constexpr int KSTEPS = C::W / 16;     // k16 steps in one atom row
   const int lane = threadIdx.x & 31;
 
@@ -320,6 +332,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                         float cap, int window) {
   using C = Cfg<D>;
   constexpr int SWB = C::SWB;
+  constexpr int BN = C::BN;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -496,7 +509,7 @@ static int launch(const void* q, const void* k, const void* v, void* out,
                                (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t kstr[3] = {D * e, (cuuint64_t)Hkv * D * e,
                               (cuuint64_t)S * Hkv * D * e};
-  const cuuint32_t kbox[4] = {(cuuint32_t)C::W, 1, (cuuint32_t)BN, 1};
+  const cuuint32_t kbox[4] = {(cuuint32_t)C::W, 1, (cuuint32_t)C::BN, 1};
   const CUtensorMapSwizzle swz = Swizzle<C::SWB>::tma;
   if (!encode(&tm_q, q, 5, qdims, qstr, qbox, swz) ||
       !encode(&tm_k, k, 4, kdims, kstr, kbox, swz) ||
@@ -531,7 +544,7 @@ static int launch_f32(const void* q, const void* k, const void* v, void* out,
 }
 
 // dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (wgmma kernel, D in
-// {16, 32, 64, 128}, G = H / Hkv in 1..8, 16-byte aligned tensors).
+// {16, 32, 64, 128, 256}, G = H / Hkv in 1..8, 16-byte aligned tensors).
 // cap <= 0: no softcap; window <= 0: no sliding window.
 extern "C" int flash_prefill_launch(const void* q, const void* k,
                                     const void* v, void* out, int B, int S,
@@ -551,6 +564,7 @@ extern "C" int flash_prefill_launch(const void* q, const void* k,
     case 32: return WG_LAUNCH(32);
     case 64: return WG_LAUNCH(64);
     case 128: return WG_LAUNCH(128);
+    case 256: return WG_LAUNCH(256);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef WG_LAUNCH

@@ -9,6 +9,13 @@ across blocks (chunks of whole tiles of the decode core, sized here so the
 grid fills the card about once) and merges the chunks' partials, so a
 ragged S (8320 after an absorb, 65 centroids, 1 self token) needs no tile
 that divides it.
+
+K and V may be views into a larger cache, as a sliding window's last rows
+``k[:, :, -window:]`` are (gemma2's local layers): the kernel takes their
+batch and head strides, so the window runs in place, with no copy (a copy
+of a 4096-row window at gemma2-2b's width moves 33.5 MB a layer at B = 2).
+Each row's D elements must be contiguous and the rows D apart, and K and V
+must share their strides.
 """
 from __future__ import annotations
 
@@ -40,9 +47,29 @@ def _chunk(S: int, D: int, itemsize: int, blocks: int, sms: int) -> int:
   return -(-rows // rnd) * rnd
 
 
+def _row_strides(k: torch.Tensor, v: torch.Tensor):
+  """(batch, head) strides in elements of the K/V views the kernel takes:
+  rows of D contiguous elements, D apart, every head 16-byte aligned; K
+  and V alike.  A dimension of size 1 takes its contiguous stride."""
+  B, Hkv, S, D = k.shape
+
+  def strides(t):
+    if (D > 1 and t.stride(3) != 1) or (S > 1 and t.stride(2) != D):
+      return None
+    return (t.stride(0) if B > 1 else Hkv * S * D,
+            t.stride(1) if Hkv > 1 else S * D)
+  sk = strides(k)
+  if (sk is None or strides(v) != sk or max(sk) >= 2 ** 31 or min(sk) < 0
+      or any(x * k.element_size() % 16 for x in sk)):
+    raise ValueError(f"{NAME}: K/V strides {k.stride()} / {v.stride()} not "
+                     "taken: rows of D contiguous elements, D apart, heads "
+                     "16-byte aligned, K and V alike")
+  return sk
+
+
 def flash_decode(
     q: torch.Tensor,                       # (B, H, D)
-    k: torch.Tensor,                       # (B, Hkv, S, D)
+    k: torch.Tensor,                       # (B, Hkv, S, D), rows contiguous
     v: torch.Tensor,                       # (B, Hkv, S, D)
     bias: Optional[torch.Tensor] = None,   # (B, Hkv, S) f32, after the cap
     *,
@@ -63,8 +90,9 @@ def flash_decode(
     raise ValueError(f"{NAME}: bad shapes q{tuple(q.shape)} "
                      f"k{tuple(k.shape)} v{tuple(v.shape)} bias"
                      f"{None if bias is None else tuple(bias.shape)}")
-  code = _build.dtype_code(NAME, q, k, v)
-  _build.check_rows(NAME, D, G, k)
+  code = _build.dtype_code(NAME, q, views=(k, v))
+  kv_sb, kv_sh = _row_strides(k, v)
+  _build.check_rows(NAME, D, G, k, v)
   f32 = dict(dtype=torch.float32, device=q.device)
   if bias is not None:
     bias = bias.to(**f32).contiguous()
@@ -80,7 +108,7 @@ def flash_decode(
   P = _build.ptr
   err = _build.library().flash_decode_launch(
       P(q), P(k), P(v), P(bias), P(o), P(m), P(l), *map(P, part), B, Hkv,
-      G, S, D, chunk, float(sm_scale), float(cap or 0.0), code,
+      G, S, D, chunk, kv_sb, kv_sh, float(sm_scale), float(cap or 0.0), code,
       _build.stream_ptr(q))
   _build.check(err, NAME)
   _build.LAUNCHES[NAME] += 1

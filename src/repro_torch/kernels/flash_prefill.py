@@ -21,10 +21,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref
 
 NAME = "flash_prefill"
-# D = 256 is not built: its O accumulator alone (128 f32 registers a
-# thread) beside the 64 of the S / P fragment leaves no room in the 232
-# registers of a consumer thread.
-WGMMA_HEAD_DIMS = (16, 32, 64, 128)
+# D = 256 (gemma2) runs K/V tiles of 64 keys instead of 128: its O
+# accumulator takes 128 f32 registers a thread, and the S / P fragment of a
+# 64-key tile the other 64 (csrc/flash_prefill.cu).
+WGMMA_HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 def flash_prefill(
@@ -54,8 +54,7 @@ def flash_prefill(
       raise ValueError(
           f"{NAME}: the bf16 (wgmma) kernel is built for head dims "
           f"{WGMMA_HEAD_DIMS} and GQA groups up to {_build.GMAX}, got D={D}, "
-          f"G={G}; D=256 would need more than the 232 registers a consumer "
-          "thread has")
+          f"G={G}")
     _build.check_aligned(NAME, q, k, v)
   out = torch.empty_like(q)
   P = _build.ptr

@@ -53,10 +53,13 @@ def count_bias(counts: torch.Tensor) -> torch.Tensor:
   return torch.log(counts.float().clamp_min(1.0))
 
 
-def prefill_attention(q, k, v, *, sm_scale: float = 1.0) -> torch.Tensor:
-  """Causal GQA prefill attention; (B, S, H, D) in ``q.dtype``."""
+def prefill_attention(q, k, v, *, sm_scale: float = 1.0,
+                      cap: Optional[float] = None,
+                      window: Optional[int] = None) -> torch.Tensor:
+  """Causal GQA prefill attention, with an optional logit softcap and
+  sliding window; (B, S, H, D) in ``q.dtype``."""
   return flash_prefill(q.contiguous(), k.contiguous(), v.contiguous(),
-                       sm_scale=sm_scale)
+                       sm_scale=sm_scale, cap=cap, window=window)
 
 
 def synopsis_build(k, v, perm, *, cluster_size: int,
@@ -75,6 +78,7 @@ ScalePair = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
 
 def synopsis_stage1(q, k_syn, v_syn, counts, *, sm_scale: float,
+                    cap: Optional[float] = None,
                     syn_scales: ScalePair = None):
   """One pass over the synopsis: (scores (B,Hkv,M), partials over ALL
   centroids with log-count bias).  ``syn_scales`` = (k_syn_scale,
@@ -82,11 +86,13 @@ def synopsis_stage1(q, k_syn, v_syn, counts, *, sm_scale: float,
   ks, vs = syn_scales if syn_scales is not None else (None, None)
   return fused_synopsis_score_attention(
       q.contiguous(), k_syn.contiguous(), v_syn.contiguous(),
-      count_bias(counts), sm_scale=sm_scale, k_scale=ks, v_scale=vs)
+      count_bias(counts), sm_scale=sm_scale, cap=cap, k_scale=ks,
+      v_scale=vs)
 
 
 def refine_stage2(q, k, v, selected, k_syn, v_syn, counts, *,
                   cluster_size: int, sm_scale: float,
+                  cap: Optional[float] = None,
                   extras: Optional[Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]] = None,
                   syn_scales: ScalePair = None, kv_scales: ScalePair = None):
@@ -111,7 +117,7 @@ def refine_stage2(q, k, v, selected, k_syn, v_syn, counts, *,
   kq, vq = kv_scales if kv_scales is not None else (None, None)
   return block_gather_attention(
       q.contiguous(), k.contiguous(), v.contiguous(), selected,
-      cluster_size=cluster_size, sm_scale=sm_scale, k_sel=k_sel,
+      cluster_size=cluster_size, sm_scale=sm_scale, cap=cap, k_sel=k_sel,
       v_sel=v_sel, sel_bias=sel_bias,
       extras_k=None if ek is None else ek.contiguous(),
       extras_v=None if ev is None else ev.contiguous(), extras_bias=eb,
@@ -179,6 +185,7 @@ def synopsis_cache_attention(
     i_max: int,
     cluster_size: int,
     sm_scale: float = 1.0,
+    cap: Optional[float] = None,
     return_scores: bool = False,
 ):
   """End-to-end fused AccuracyTrader decode attention over a serve-step
@@ -191,7 +198,8 @@ def synopsis_cache_attention(
   syn_scales, kv_scales = _pairs(k_syn_scale, v_syn_scale, kv_k_scale,
                                  kv_v_scale)
   scores, p_syn = synopsis_stage1(q, k_syn, v_syn, counts,
-                                  sm_scale=sm_scale, syn_scales=syn_scales)
+                                  sm_scale=sm_scale, cap=cap,
+                                  syn_scales=syn_scales)
   if i_max > 0:
     selected = torch.topk(scores, min(i_max, M), dim=-1).indices
     selected = selected.to(torch.int32)
@@ -202,7 +210,7 @@ def synopsis_cache_attention(
   extras = build_extras(recent_k, recent_v, recent_len, self_kv)
   p_ref = refine_stage2(q, k, v, selected, k_syn, v_syn, counts,
                         cluster_size=cluster_size, sm_scale=sm_scale,
-                        extras=extras, syn_scales=syn_scales,
+                        cap=cap, extras=extras, syn_scales=syn_scales,
                         kv_scales=kv_scales)
   out, _, _ = merge_partials(p_syn, p_ref)
   return (out, scores) if return_scores else out
@@ -242,6 +250,7 @@ def synopsis_attention(
     *,
     i_max: int,
     sm_scale: float = 1.0,
+    cap: Optional[float] = None,
     return_diag: bool = False,
 ):
   """AccuracyTrader attention, unfused: O(M + i_max*C) instead of O(S).
@@ -251,7 +260,9 @@ def synopsis_attention(
   selected ones); the top-``i_max`` clusters contribute their original
   tokens exactly (stage 2, ``block_gather_attention`` with neither
   epilogue).  The synopsis is read twice and three partials merge
-  separately.  With ``i_max == M`` this equals exact attention."""
+  separately.  With ``i_max == M`` this equals exact attention.  ``cap``
+  softcaps the attention logits (the scores stay uncapped, as stage 1's
+  do)."""
   B, Hkv, M, _ = k_syn.shape
   scores = synopsis_score(q.contiguous(), k_syn.contiguous(),
                           sm_scale=sm_scale)
@@ -260,10 +271,11 @@ def synopsis_attention(
   chosen.scatter_(2, selected.long(), True)
   syn_bias = torch.where(chosen, torch.tensor(NEG_INF, device=q.device),
                          count_bias(counts)[:, None, :])
-  part_syn = decode_partials(q, k_syn, v_syn, syn_bias, sm_scale=sm_scale)
+  part_syn = decode_partials(q, k_syn, v_syn, syn_bias, sm_scale=sm_scale,
+                              cap=cap)
   part_ref = block_gather_attention(
       q.contiguous(), k.contiguous(), v.contiguous(), selected,
-      cluster_size=k.shape[2] // M, sm_scale=sm_scale)
+      cluster_size=k.shape[2] // M, sm_scale=sm_scale, cap=cap)
   out, m, l = merge_partials(part_syn, part_ref)
   if return_diag:
     return out, (scores, selected, m, l)
@@ -272,9 +284,11 @@ def synopsis_attention(
 
 def decode_partials(q, k, v, bias=None, *, sm_scale: float = 1.0,
                     cap: Optional[float] = None):
-  """Decode attention over all of k/v: partials (out, m, l) for merging."""
-  return flash_decode(q.contiguous(), k.contiguous(), v.contiguous(), bias,
-                      sm_scale=sm_scale, cap=cap)
+  """Decode attention over all of k/v: partials (out, m, l) for merging.
+  k/v may be views with the batch and head strides of a larger cache (a
+  sliding window's last rows): ``flash_decode`` reads them in place."""
+  return flash_decode(q.contiguous(), k, v, bias, sm_scale=sm_scale,
+                      cap=cap)
 
 
 def exact_decode_attention(q, k, v, bias=None, *, sm_scale: float = 1.0,

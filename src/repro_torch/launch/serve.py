@@ -16,6 +16,10 @@ the device is a GPU.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
       --no-smoke --prompt-len 8192 --tokens 130 [--mode exact] \\
       [--quant {none,int8,fp8,int8+kv,fp8+kv}] [--batches 2 --pipeline]
+  # gemma2-2b: local (window 4096) and global layers, softcaps, sandwich
+  # norms, tied embeddings; the loop, --mode exact and --engine alike
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \\
+      --no-smoke --prompt-len 8192 --tokens 130 [--mode exact]
 
 ``--device cpu`` runs the plain PyTorch versions of the kernels (tests);
 without it the driver needs a CUDA device and refuses to run otherwise.
@@ -90,7 +94,8 @@ def run(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int,
         prompt: Optional[torch.Tensor] = None,
         budgets: Optional[Sequence[int]] = None,
         pca_basis: Optional[torch.Tensor] = None, mode: str = "synopsis",
-        batches: int = 1, pipeline: bool = False, log=print) -> Dict:
+        batches: int = 1, pipeline: bool = False,
+        keep_logits: bool = False, log=print) -> Dict:
   """Prefill ``batch`` prompts, build the synopsis, decode ``tokens``
   greedy tokens.  ``params``/``prompt`` default to random ones drawn from
   ``seed``; ``budgets`` fixes the budget of each step instead of the
@@ -117,7 +122,8 @@ def run(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int,
   clock around synchronised work, summed over the batches; build 0 in
   exact mode; both 0 when pipelined), the wall of all batches' prefill and
   build (``prefill_build_ms``), the number of absorbs and the final
-  cache."""
+  cache; with ``keep_logits`` also every step's logits (``step_logits``,
+  the prefill's first)."""
   if mode not in ("synopsis", "exact"):
     raise ValueError(f"mode={mode!r}: expected 'synopsis' or 'exact'")
   if mode == "exact" and budgets is not None:
@@ -191,6 +197,7 @@ def run(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int,
   steps = {}
   tok = logits.argmax(-1, keepdim=True)
   out_tokens = [tok]
+  step_logits = [logits] if keep_logits else None
   step_ms, chosen, absorbs = [], [], 0
   for i in range(tokens):
     if mode == "exact":
@@ -216,13 +223,15 @@ def run(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int,
             f"M={cache['k_syn'].shape[4]}")
     tok = logits.argmax(-1, keepdim=True)
     out_tokens.append(tok)
+    if keep_logits:
+      step_logits.append(logits)
     step_ms.append(dt)
     chosen.append(budget)
     log(f"[decode {i:3d}] budget={budget:3d} {dt:7.1f}ms")
   generated = torch.cat(out_tokens, 1)
   log(f"generated: {generated[0].tolist()}")
   return {"tokens": generated, "logits": logits, "budgets": chosen,
-          "step_ms": step_ms,
+          "step_ms": step_ms, "step_logits": step_logits,
           "prefill_ms": prefill_ms, "build_ms": build_ms,
           "prefill_build_ms": prefill_build_ms, "absorbs": absorbs,
           "cache": cache}

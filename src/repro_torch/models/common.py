@@ -1,10 +1,11 @@
 """Model configs: the port's own copy of ``repro.models.common``'s config
-dataclasses, cut to what the dense GQA serving path reads.  ``dtype`` is a
-torch dtype."""
+dataclasses, cut to what the dense GQA serving path reads (llama3's global
+attention; gemma2's local layers, softcaps, sandwich norms, embedding
+scale and tied embeddings).  ``dtype`` is a torch dtype."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -12,6 +13,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
   kind: str = "attn"              # the only layer kind the port runs
+  local: bool = False             # sliding-window attention (gemma2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +40,12 @@ class ModelConfig:
   rope_theta: float = 1e4
   norm_eps: float = 1e-6
   block_pattern: Tuple[LayerSpec, ...] = (LayerSpec(),)
+  sliding_window: int = 4096
+  logit_softcap: Optional[float] = None   # gemma2 final-logit softcap
+  attn_softcap: Optional[float] = None    # gemma2 attention softcap
+  sandwich_norm: bool = False             # post-block norms (gemma2)
+  scale_embed: bool = False               # sqrt(d) embedding scale (gemma2)
+  tie_embeddings: bool = False            # logits read embed.T (gemma2)
   synopsis: SynopsisConfig = SynopsisConfig()
   dtype: Any = torch.bfloat16
 
@@ -56,4 +64,7 @@ class ModelConfig:
     c = self
     per = c.d_model * c.hd * (c.n_heads * 2 + c.n_kv_heads * 2)
     per += 3 * c.d_model * c.d_ff + 2 * c.d_model
-    return 2 * c.vocab * c.d_model + c.d_model + per * c.n_layers
+    if c.sandwich_norm:
+      per += 2 * c.d_model
+    embed = c.vocab * c.d_model * (1 if c.tie_embeddings else 2)
+    return embed + c.d_model + per * c.n_layers

@@ -1,17 +1,26 @@
 """Dense GQA decoder (counterpart of ``repro.models.transformer`` for the
-architectures the port runs).
+architectures the port runs: llama3's global layers, and gemma2's
+alternating local (sliding-window) and global layers with attention and
+final-logit softcaps, sandwich norms, a sqrt(d) embedding scale and tied
+embeddings).
 
 Parameters are a nested dict with the JAX tree's keys and layouts, stacked
 per pattern position with a leading layer axis:
 ``{"embed" (V, d), "final_norm" (d,), "unembed" (d, V), "blocks": {"pos0":
 {"ln1", "attn": {"wq", "wk", "wv", "wo"}, "ln2", "mlp": {"w1", "w3",
-"w2"}}}}``.  A Python loop over layers takes the place of ``lax.scan``.
+"w2"}}}}``; with sandwich norms each layer also has ``ln1_post`` and
+``ln2_post``, and with tied embeddings the JAX tree has no ``unembed``.
+A Python loop over layers takes the place of ``lax.scan``.
 
-Logits are taken in f32 (``h.float() @ unembed.float()``, as the JAX serve
-step does).  So that a bf16 model does not re-cast its unembedding on every
-step, :func:`finish_params` replaces ``"unembed"`` by its f32 cast once:
-the values stay those of the bf16 weights, and no bf16 copy is kept (at
-llama3-8b width the f32 table is 2.1 GB, where both would be 3.2 GB).
+Logits are taken in f32 (``h.float() @ unembed.float()``, or
+``embed.T.float()`` when tied, then the logit softcap, as the JAX serve
+step does).  So that a bf16 model does not re-cast its unembedding on
+every step, :func:`finish_params` sets ``"unembed"`` to that f32 table
+once: untied, the f32 cast replaces the bf16 weights (at llama3-8b width
+the f32 table is 2.1 GB, where both would be 3.2 GB); tied, it is the f32
+cast of ``embed``, seen transposed, and the bf16 ``embed`` stays for the
+lookups (at gemma2-2b width 2.36 GB beside the 1.18 GB table).  Either way
+the values are those of the bf16 weights.
 """
 from __future__ import annotations
 
@@ -20,12 +29,13 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models.common import ModelConfig
-from repro_torch.models.layers import rms_norm, swiglu
+from repro_torch.models.common import LayerSpec, ModelConfig
+from repro_torch.models.layers import rms_norm, softcap, swiglu
 
 
 def check_supported(cfg: ModelConfig) -> None:
-  """The port runs dense GQA attention layers only (for now)."""
+  """The port runs dense GQA attention layers, global or local (for now):
+  no SSM, MoE, MLA, cross-attention or encoder layers."""
   if any(s.kind != "attn" for s in cfg.block_pattern):
     raise NotImplementedError(f"{cfg.name}: the port runs attention layers "
                               "only")
@@ -80,18 +90,28 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
             "w2": _stacked(n, (f, d), None, **kw),
         },
     }
+    if cfg.sandwich_norm:
+      blocks[f"pos{i}"]["ln1_post"] = torch.zeros((n, d), **zeros)
+      blocks[f"pos{i}"]["ln2_post"] = torch.zeros((n, d), **zeros)
   params = {
       "embed": _trunc_normal((cfg.vocab, d), 1.0, **kw),
       "final_norm": torch.zeros((d,), **zeros),
       "blocks": blocks,
-      "unembed": _trunc_normal((d, cfg.vocab), None, **kw),
   }
-  return finish_params(params)
+  if not cfg.tie_embeddings:
+    params["unembed"] = _trunc_normal((d, cfg.vocab), None, **kw)
+  return finish_params(params, cfg)
 
 
-def finish_params(params: Dict) -> Dict:
-  """Cast the unembedding the logits read to f32 (see the module doc)."""
-  params["unembed"] = params["unembed"].float()
+def finish_params(params: Dict, cfg: ModelConfig) -> Dict:
+  """Set the f32 unembedding the logits read (see the module doc): the
+  f32 cast of ``unembed``, or of ``embed`` seen transposed when tied."""
+  if cfg.tie_embeddings:
+    if "unembed" in params:
+      raise KeyError(f"{cfg.name}: tied embeddings take no 'unembed'")
+    params["unembed"] = params["embed"].float().t()
+  else:
+    params["unembed"] = params["unembed"].float()
   return params
 
 
@@ -101,19 +121,44 @@ def layer_params(stacked: Dict, i: int) -> Dict:
           for k, v in stacked.items()}
 
 
+def embed_scale(cfg: ModelConfig) -> Optional[float]:
+  """The sqrt(d) embedding scale as ``cfg.dtype`` holds it (the JAX model
+  multiplies by ``asarray(d ** 0.5, cfg.dtype)``), or None.  A Python
+  float, so that a captured step copies nothing from the host."""
+  if not cfg.scale_embed:
+    return None
+  return float(torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype))
+
+
 def embed_tokens(params, cfg: ModelConfig, tokens):
-  return params["embed"][tokens].to(cfg.dtype)
+  x = params["embed"][tokens].to(cfg.dtype)
+  scale = embed_scale(cfg)
+  return x if scale is None else x * scale
 
 
-def _layer_forward(x, lp, cfg: ModelConfig, positions):
-  """One pre-norm layer: attention + SwiGLU.  Returns (x, (k, v)) with the
-  layer's k/v in the decode layout (B, Hkv, S, D)."""
-  h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-  mix, kv = attn.attention_train(h, lp["attn"], cfg, positions)
-  x = x + mix
-  h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+def post_norm(y, lp, name: str, cfg: ModelConfig):
+  """A sandwich norm (``ln1_post`` after attention, ``ln2_post`` after the
+  MLP) where the config has them; else ``y``."""
+  return rms_norm(y, lp[name], cfg.norm_eps) if cfg.sandwich_norm else y
+
+
+def mlp_block(x, lp, cfg: ModelConfig):
+  """x + the (sandwich-normed) SwiGLU MLP of the pre-normed ``x``."""
   mp = lp["mlp"]
-  return x + swiglu(h2, mp["w1"], mp["w3"], mp["w2"]), kv
+  h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+  return x + post_norm(swiglu(h2, mp["w1"], mp["w3"], mp["w2"]), lp,
+                       "ln2_post", cfg)
+
+
+def _layer_forward(x, lp, cfg: ModelConfig, spec: LayerSpec, positions):
+  """One pre-norm layer: attention (sliding-window on a local layer) +
+  SwiGLU, each output normed again under sandwich norms.  Returns (x, (k,
+  v)) with the layer's k/v in the decode layout (B, Hkv, S, D)."""
+  h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+  mix, kv = attn.attention_train(h, lp["attn"], cfg, positions,
+                                 local=spec.local)
+  x = x + post_norm(mix, lp, "ln1_post", cfg)
+  return mlp_block(x, lp, cfg), kv
 
 
 def hidden_states(params, cfg: ModelConfig, tokens,
@@ -132,9 +177,9 @@ def hidden_states(params, cfg: ModelConfig, tokens,
     kv = {"k": torch.empty(shape, dtype=cfg.dtype, device=x.device),
           "v": torch.empty(shape, dtype=cfg.dtype, device=x.device)}
   for b in range(cfg.n_blocks):
-    for i, _ in enumerate(cfg.block_pattern):
+    for i, spec in enumerate(cfg.block_pattern):
       lp = layer_params(params["blocks"][f"pos{i}"], b)
-      x, (k, v) = _layer_forward(x, lp, cfg, positions)
+      x, (k, v) = _layer_forward(x, lp, cfg, spec, positions)
       if kv is not None:
         kv["k"][b, i] = k
         kv["v"][b, i] = v
@@ -142,6 +187,8 @@ def hidden_states(params, cfg: ModelConfig, tokens,
   return (h, kv) if collect_kv else h
 
 
-def logits_fn(params, h):
-  """(..., d) -> f32 logits (..., V)."""
-  return torch.matmul(h.float(), params["unembed"])
+def logits_fn(params, cfg: ModelConfig, h):
+  """(..., d) -> f32 logits (..., V), softcapped where the config caps
+  them."""
+  return softcap(torch.matmul(h.float(), params["unembed"]),
+                 cfg.logit_softcap)

@@ -95,7 +95,7 @@ from repro_torch.serve import synopsis_kv as skv
 from repro_torch.serve.corpus_cache import CacheConfig
 from repro_torch.serve.graphs import Programs
 from repro_torch.serve.prefill import make_extend_step, make_prefill_step
-from repro_torch.serve.serve_step import (make_serve_step,
+from repro_torch.serve.serve_step import (global_positions, make_serve_step,
                                           synopsis_decode_attention)
 from repro_torch.serving.service import _default_concentration
 from repro_torch.serving.workload import poisson_arrivals
@@ -184,7 +184,7 @@ def _refuse_backend(backend) -> None:
 
 
 def _telemetry_attention(q, cache_sl, *, i_max, cluster_size, sm_scale,
-                         self_kv):
+                         cap, self_kv):
   """The synopsis decode attention (the same stage 1, top-k, stage 2 and
   merge) with stage 1's scores (B, Hkv, M) as telemetry: the coverage
   profile comes from them, with no extra pass over the KV.  The step
@@ -192,7 +192,7 @@ def _telemetry_attention(q, cache_sl, *, i_max, cluster_size, sm_scale,
   in one batch of ops instead of one a layer)."""
   ctx, scores = synopsis_decode_attention(
       q, cache_sl, i_max=i_max, cluster_size=cluster_size,
-      sm_scale=sm_scale, self_kv=self_kv, return_scores=True)
+      sm_scale=sm_scale, cap=cap, self_kv=self_kv, return_scores=True)
   return ctx, {"stage1_scores": scores}
 
 
@@ -348,6 +348,9 @@ class ServingEngine:
         attention_fn=_telemetry_attention if self._telemetry else None)
     params, cache, tok, out = self.params, self.cache, self.tok, self.step_out
     n = self.ecfg.n_slots
+    # The pattern positions whose layers run the synopsis (and report its
+    # scores): gemma2's local layers decode exactly and have no profile.
+    glob = torch.tensor(global_positions(self.cfg), device=self.dev)
 
     def program():
       logits, st = step(params, cache, tok)
@@ -355,9 +358,11 @@ class ServingEngine:
       for name in ("k_delta", "v_delta", "pos"):
         out[name].copy_(st[name])
       if "est_profile" in out:
-        # Every layer's profile (nb * na * n, M+1), then their mean.
-        prof = coverage_profile(st["stage1_scores"].flatten(0, 2),
-                                cache["counts"].flatten(0, 2))
+        # Every synopsis layer's profile (nb * n_glob * n, M+1), then
+        # their mean.
+        prof = coverage_profile(
+            st["stage1_scores"].flatten(0, 2),
+            cache["counts"].index_select(1, glob).flatten(0, 2))
         out["est_profile"].copy_(prof.view(-1, n, prof.shape[-1]).mean(0))
 
     return program

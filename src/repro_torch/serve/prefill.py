@@ -16,7 +16,7 @@ import torch
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.layers import rms_norm, swiglu
+from repro_torch.models.layers import rms_norm, softcap
 
 
 def make_prefill_step(cfg: ModelConfig):
@@ -25,7 +25,7 @@ def make_prefill_step(cfg: ModelConfig):
   @torch.no_grad()
   def prefill_step(params, tokens):
     h, kv = tf.hidden_states(params, cfg, tokens, collect_kv=True)
-    logits = tf.logits_fn(params, h[:, -1])                  # (B, V) f32
+    logits = tf.logits_fn(params, cfg, h[:, -1])             # (B, V) f32
     B, S = tokens.shape
     cache = {"k": kv["k"], "v": kv["v"],
              "pos": torch.full((B,), S, dtype=torch.int32,
@@ -50,7 +50,8 @@ def _extend_layer(x, lp, cfg: ModelConfig, positions, pk, pv):
   B, E, H, D = q.shape
   Hkv, P = pk.shape[1], pk.shape[2]
   qg = q.transpose(1, 2).reshape(B, Hkv, H // Hkv, E, D).float()
-  logits = torch.einsum("bhged,bhsd->bhges", qg, k_all) * cfg.hd ** -0.5
+  logits = softcap(torch.einsum("bhged,bhsd->bhges", qg, k_all)
+                   * cfg.hd ** -0.5, cfg.attn_softcap)
   del k_all
   # Every prefix key (any sorted order) is visible to every extension
   # query; among the extension's keys plain causality applies.
@@ -62,10 +63,9 @@ def _extend_layer(x, lp, cfg: ModelConfig, positions, pk, pv):
   o = torch.einsum("bhges,bhsd->bhged", w, v_all)
   del w, v_all
   o = o.reshape(B, H, E, D).transpose(1, 2).to(x.dtype)
-  x = x + attn_lib.out_proj(o, lp["attn"], x.dtype)
-  h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-  mp = lp["mlp"]
-  return x + swiglu(h2, mp["w1"], mp["w3"], mp["w2"]), k_new, v_new
+  x = x + tf.post_norm(attn_lib.out_proj(o, lp["attn"], x.dtype), lp,
+                       "ln1_post", cfg)
+  return tf.mlp_block(x, lp, cfg), k_new, v_new
 
 
 def make_extend_step(cfg: ModelConfig):
@@ -77,8 +77,13 @@ def make_extend_step(cfg: ModelConfig):
   (nb, na, B, Hkv, E, D)); feed the KV to ``synopsis_kv.extend_synopsis``.
   Gate on ``corpus_cache.supports_delta``.  Each layer's f32 logits (B,
   Hkv, G, E, P+E) are transient (4.3 GB a layer at llama3-8b's width for
-  P = E = 4096) and freed before the next layer."""
+  P = E = 4096) and freed before the next layer.  A sliding-window layer
+  would couple the extension to the prefix's order, so a config with one
+  is refused (``corpus_cache.supports_delta`` is False for it)."""
   tf.check_supported(cfg)
+  if any(s.local for s in cfg.block_pattern):
+    raise NotImplementedError(f"{cfg.name}: no delta prefill over "
+                              "sliding-window layers")
 
   @torch.no_grad()
   def extend_step(params, ext_tokens, prefix_k, prefix_v, pos0: int):
@@ -94,6 +99,6 @@ def make_extend_step(cfg: ModelConfig):
         x, k_new[b, i], v_new[b, i] = _extend_layer(
             x, lp, cfg, positions, prefix_k[b, i], prefix_v[b, i])
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return tf.logits_fn(params, h[:, -1]), (k_new, v_new)
+    return tf.logits_fn(params, cfg, h[:, -1]), (k_new, v_new)
 
   return extend_step

@@ -12,10 +12,20 @@ token's self-KV folded in, one merge.
 ``k``/``v``; ``flash_decode`` runs over all of it and once more over the
 new token's self-KV (S = 1), and the two partials merge.
 
+A local (sliding-window) layer (gemma2) runs the exact decode in both
+modes, over the last ``cfg.sliding_window`` rows of the layer's ``k``/``v``
+as given, as the JAX step does: in synopsis mode that is the
+cluster-sorted cache, so the window is the last clusters in sorted order
+(after an absorb the absorbed ones), not the most recent tokens, and the
+recent ring is not read.  The window is a strided view that
+``flash_decode`` reads in place.  Every attention logit takes
+``cfg.attn_softcap`` and the logits ``cfg.logit_softcap``.
+
 ``attention_fn`` replaces the synopsis decode attention (the engine's
 contract telemetry): it returns ``(ctx, aux)``, and each per-layer ``aux``
-leaf comes out of the step stacked over the layers (nb, na, ...).  Without
-one the step is the plain one, op for op.
+leaf comes out of the step stacked over the layers that run it (nb, the
+global positions of the pattern, ...): local layers do not call it.
+Without one the step is the plain one, op for op.
 
 A quantized arena's scale leaves (``kernels/quant.py``) ride in the layer
 slice when the cache has them.  The cache is read-only inside the step;
@@ -33,7 +43,7 @@ from repro_torch.kernels import quant as qt
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.layers import rms_norm, swiglu
+from repro_torch.models.layers import rms_norm
 
 # Per-layer cache leaves each mode reads.
 LAYER_LEAVES = {"synopsis": ("k", "v", "k_syn", "v_syn", "counts",
@@ -48,6 +58,7 @@ def synopsis_decode_attention(
     i_max: int,
     cluster_size: int,
     sm_scale: float,
+    cap: Optional[float] = None,
     self_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     return_scores: bool = False,
 ):
@@ -59,7 +70,7 @@ def synopsis_decode_attention(
       cache["counts"], cache.get("recent_k"), cache.get("recent_v"),
       cache.get("recent_len"), self_k, self_v, cache.get("k_syn_scale"),
       cache.get("v_syn_scale"), cache.get("k_scale"), cache.get("v_scale"),
-      i_max=i_max, cluster_size=cluster_size, sm_scale=sm_scale,
+      i_max=i_max, cluster_size=cluster_size, sm_scale=sm_scale, cap=cap,
       return_scores=return_scores)
 
 
@@ -71,9 +82,14 @@ def exact_decode_attention(
     sm_scale: float,
     cap: Optional[float] = None,
     self_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    window: Optional[int] = None,
 ) -> torch.Tensor:
-  """Exact attention over the cache and the new token; (B, H, D) f32.  The
-  one-token self partial goes through the same kernel (S = 1)."""
+  """Exact attention over the cache (its last ``window`` rows, a view) and
+  the new token; (B, H, D) f32.  The one-token self partial goes through
+  the same kernel (S = 1)."""
+  if window is not None and window < k.shape[2]:
+    k = k[:, :, -window:]
+    v = v[:, :, -window:]
   out = ops.decode_partials(q, k, v, sm_scale=sm_scale, cap=cap)
   if self_kv is not None:
     out = ops.merge_partials(
@@ -82,26 +98,33 @@ def exact_decode_attention(
   return out[0]
 
 
-def _attn_decode_layer(x, lp, cfg: ModelConfig, cache_sl, pos, mode: str,
-                       i_max: int, attention_fn=None):
+def _attn_decode_layer(x, lp, cfg: ModelConfig, local: bool, cache_sl, pos,
+                       mode: str, i_max: int, attention_fn=None):
   """x (B, 1, d) -> (y (B, 1, d), (k, v) of the new token (B, Hkv, 1, D),
   aux: ``attention_fn``'s telemetry dict, or None)."""
   q, k_new, v_new = attn_lib.qkv(x, lp, cfg, pos[:, None])
   kd = k_new.transpose(1, 2)                                  # (B,Hkv,1,D)
   vd = v_new.transpose(1, 2)
   aux = None
-  if mode == "synopsis":
-    kw = dict(i_max=i_max, cluster_size=cfg.synopsis.cluster_size,
-              sm_scale=cfg.hd ** -0.5, self_kv=(kd, vd))
+  kw = dict(sm_scale=cfg.hd ** -0.5, cap=cfg.attn_softcap, self_kv=(kd, vd))
+  if local or mode == "exact":
+    ctx = exact_decode_attention(
+        q[:, 0], cache_sl["k"], cache_sl["v"],
+        window=cfg.sliding_window if local else None, **kw)
+  else:
+    kw.update(i_max=i_max, cluster_size=cfg.synopsis.cluster_size)
     if attention_fn is None:
       ctx = synopsis_decode_attention(q[:, 0], cache_sl, **kw)
     else:
       ctx, aux = attention_fn(q[:, 0], cache_sl, **kw)
-  else:
-    ctx = exact_decode_attention(q[:, 0], cache_sl["k"], cache_sl["v"],
-                                 sm_scale=cfg.hd ** -0.5, self_kv=(kd, vd))
   y = attn_lib.out_proj(ctx[:, None].to(x.dtype), lp, x.dtype)
   return y, (kd, vd), aux
+
+
+def global_positions(cfg: ModelConfig) -> Tuple[int, ...]:
+  """The pattern positions of the global (synopsis) attention layers; the
+  local ones run exact windowed decode."""
+  return tuple(i for i, s in enumerate(cfg.block_pattern) if not s.local)
 
 
 def make_serve_step(cfg: ModelConfig, *, mode: str = "synopsis",
@@ -110,14 +133,16 @@ def make_serve_step(cfg: ModelConfig, *, mode: str = "synopsis",
   f32, {"k_delta", "v_delta" (nb, na, B, Hkv, 1, D), "pos" (B,)}).
   ``mode`` is "synopsis" (budget ``i_max``) or "exact".
 
-  ``attention_fn(q, cache_sl, *, i_max, cluster_size, sm_scale, self_kv)
-  -> (ctx, aux)`` replaces the synopsis decode attention; each leaf of
-  ``aux`` joins the outputs stacked over the layers (nb, na, ...)."""
+  ``attention_fn(q, cache_sl, *, i_max, cluster_size, sm_scale, cap,
+  self_kv) -> (ctx, aux)`` replaces the synopsis decode attention of the
+  global layers; each leaf of ``aux`` joins the outputs stacked over them
+  (nb, len(:func:`global_positions`), ...)."""
   if mode not in LAYER_LEAVES:
     raise ValueError(f"mode={mode!r}: expected one of {tuple(LAYER_LEAVES)}")
   tf.check_supported(cfg)
   leaves = LAYER_LEAVES[mode]
   i_max = cfg.synopsis.i_max if i_max is None else i_max
+  n_glob = len(global_positions(cfg))
 
   @torch.no_grad()
   def serve_step(params, cache, tokens):
@@ -127,29 +152,30 @@ def make_serve_step(cfg: ModelConfig, *, mode: str = "synopsis",
     auxs: Dict[str, list] = {}              # per layer, in layer order
     for b in range(cfg.n_blocks):
       ks, vs = [], []
-      for i, _ in enumerate(cfg.block_pattern):
+      for i, spec in enumerate(cfg.block_pattern):
         lp = tf.layer_params(params["blocks"][f"pos{i}"], b)
-        layer_cache = {kk: cache[kk][b, i] for kk in leaves}
-        if mode == "synopsis":
+        # A local layer reads only its k / v (in either mode).
+        names = ("k", "v") if spec.local else leaves
+        layer_cache = {kk: cache[kk][b, i] for kk in names}
+        if mode == "synopsis" and not spec.local:
           layer_cache["recent_len"] = cache["recent_len"]
           layer_cache.update((kk, cache[kk][b, i])
                              for kk in qt.SCALE_LEAVES if kk in cache)
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         mix, (kd, vd), aux = _attn_decode_layer(
-            h, lp["attn"], cfg, layer_cache, pos, mode, i_max, attention_fn)
+            h, lp["attn"], cfg, spec.local, layer_cache, pos, mode, i_max,
+            attention_fn)
         for name, t in (aux or {}).items():
           auxs.setdefault(name, []).append(t)
-        x = x + mix
-        h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        mp = lp["mlp"]
-        x = x + swiglu(h2, mp["w1"], mp["w3"], mp["w2"])
+        x = x + tf.post_norm(mix, lp, "ln1_post", cfg)
+        x = tf.mlp_block(x, lp, cfg)
         ks.append(kd)
         vs.append(vd)
       k_delta.append(torch.stack(ks))
       v_delta.append(torch.stack(vs))
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)[:, 0]
-    logits = tf.logits_fn(params, h)
-    lead = (cfg.n_blocks, len(cfg.block_pattern))
+    logits = tf.logits_fn(params, cfg, h)
+    lead = (cfg.n_blocks, n_glob)
     return logits, {"k_delta": torch.stack(k_delta),
                     "v_delta": torch.stack(v_delta), "pos": pos + 1,
                     **{name: torch.stack(ts).view(*lead, *ts[0].shape)

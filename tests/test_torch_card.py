@@ -188,6 +188,13 @@ def test_cpu_tensors_run_the_plain_versions_without_launching():
     ((2, 600, 2, 4, 128), 200, 30.0),
     ((1, 300, 1, 8, 32), 57, 20.0),
     ((1, 1000, 2, 2, 128), 1, None),        # window 1: the diagonal only
+    # D = 256 (gemma2-2b; the bf16 kernel's tiles of 64 keys):
+    ((2, 520, 2, 2, 256), None, None),      # ragged S, several key tiles
+    ((1, 40, 1, 2, 256), None, None),       # S below one tile
+    ((1, 700, 2, 2, 256), 300, None),       # window edge inside a tile
+    ((2, 600, 2, 2, 256), 200, 50.0),       # cap 50 with window
+    ((1, 300, 1, 8, 256), 57, 50.0),        # G = 8
+    ((1, 64, 1, 2, 256), None, 50.0),       # one whole tile, G = 2
 ])
 def test_card_flash_prefill(cuda, dtype, shape, window, cap):
   q, k, v = _to(cuda, dtype, *_prefill_inputs(shape))
@@ -202,7 +209,7 @@ def test_card_flash_prefill(cuda, dtype, shape, window, cap):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [16, 128])
+@pytest.mark.parametrize("D", [16, 128, 256])
 def test_card_flash_prefill_bf16_cancelling_rows(cuda, D):
   """V rows of alternating sign (+1, -1, ...) and logits spread ~1: each
   early output is a difference of nearly equal probabilities, near zero.
@@ -222,10 +229,9 @@ def test_card_flash_prefill_bf16_cancelling_rows(cuda, D):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1, 64, 1, 2, 256), (1, 64, 1, 16, 64),
-                                   (1, 64, 1, 2, 48)])
+@pytest.mark.parametrize("shape", [(1, 64, 1, 16, 64), (1, 64, 1, 2, 48)])
 def test_card_flash_prefill_bf16_refuses_unbuilt_shapes(cuda, shape):
-  """D = 256 (registers), G > 8 and other head dims are not built for bf16:
+  """G > 8 and head dims outside WGMMA_HEAD_DIMS are not built for bf16:
   the wrapper raises instead of running the CUDA-core kernel; f32 takes
   them."""
   q, k, v = _to(cuda, torch.bfloat16, *_prefill_inputs(shape))
@@ -436,6 +442,33 @@ def test_card_flash_decode(cuda, dtype, S, bias_kind, cap):
     assert a.dtype == torch.float32 and a.shape == b.shape
     assert torch.isfinite(a).all()
     _close(a, b, TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("S,window", [(8192, 4096), (8320, 4096),
+                                      (300, 16)])
+def test_card_flash_decode_window_view(cuda, dtype, S, window):
+  """A local layer's window, ``k[:, :, -window:]`` of a (B, Hkv, S, D)
+  layer slice, runs as a strided view (no copy) and equals the kernel on
+  a contiguous copy of the same rows, bit for bit; gemma2-2b's shape (D
+  256, G 2, cap 50).  A view whose rows are not contiguous is refused."""
+  g = torch.Generator().manual_seed(12)
+  q, k, v = _to(cuda, dtype, *_decode_inputs(g, S, D=256, B=2, Hkv=4, G=2))
+  kw = dict(sm_scale=256 ** -0.5, cap=50.0)
+  kw_, vw = k[:, :, -window:], v[:, :, -window:]
+  assert not kw_.is_contiguous()
+  n0 = _build.LAUNCHES["flash_decode"]
+  got = flash_decode(q, kw_, vw, **kw)
+  want = flash_decode(q, kw_.contiguous(), vw.contiguous(), **kw)
+  torch.cuda.synchronize()
+  assert _build.LAUNCHES["flash_decode"] == n0 + 2
+  for a, b in zip(got, want):
+    assert torch.equal(a, b)
+  for a, b in zip(got, ref.flash_decode_ref(q, kw_, vw, **kw)):
+    _close(a, b, TOL[dtype])
+  with pytest.raises(ValueError, match="strides"):
+    flash_decode(q, k[:, :, ::2], v[:, :, ::2], **kw)
 
 
 @pytest.mark.cuda
@@ -987,6 +1020,90 @@ def test_card_engine_generates_the_cpu_engine_ids(arm):
 def _tree_to(tree, dev):
   return {k: _tree_to(v, dev) if isinstance(v, dict) else v.to(dev)
           for k, v in tree.items()}
+
+
+def _gemma2_smoke():
+  import dataclasses
+  from repro_torch.configs.registry import get_config
+  from repro_torch.models import transformer as tf
+  cfg = dataclasses.replace(get_config("gemma2-2b", smoke=True),
+                            dtype=torch.float32)
+  return cfg, tf.init_model(cfg, torch.Generator().manual_seed(2), "cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["synopsis", "exact"])
+def test_card_gemma2_loop_equals_the_cpu(mode):
+  """gemma2-2b SMOKE in f32 (tf32 off), 18 steps (one absorb in synopsis
+  mode): the loop on the card (kernels: the softcap and window branches,
+  flash_decode on the local layers' window views) and on the CPU (plain
+  versions) give the same ids, and every step's logits within 1e-4 of
+  max|logits| (f32 sums in another order through two layers)."""
+  from repro_torch.launch import serve
+  dev = _card_or_skip()
+  cfg, params = _gemma2_smoke()
+  prompt = torch.randint(0, cfg.vocab, (2, 64),
+                         generator=torch.Generator().manual_seed(3))
+  budgets = None if mode == "exact" else [2, 1, 0] * 6
+  outs = {}
+  for where in ("cpu", dev):
+    before = _build.launch_counts()
+    outs[str(where)] = serve.run(
+        cfg, batch=2, prompt_len=64, tokens=18, device=where,
+        params=_tree_to(params, where), prompt=prompt.to(where),
+        budgets=budgets, mode=mode, keep_logits=True, log=lambda _: None)
+    launched = {k: n - before[k] for k, n in _build.launch_counts().items()}
+    if str(where) == "cpu":
+      assert not any(launched.values())
+    else:
+      assert launched["flash_prefill"] == cfg.n_layers
+      assert launched["flash_decode"] >= 2 * 18       # the local layers
+  cpu, card = outs["cpu"], outs["cuda"]
+  assert torch.equal(card["tokens"].cpu(), cpu["tokens"])
+  for a, b in zip(card["step_logits"], cpu["step_logits"]):
+    torch.testing.assert_close(a.cpu(), b, rtol=0,
+                               atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", [dict(policy="fixed", fixed_budget=1),
+                                 dict(policy="basic")],
+                         ids=["fixed1", "basic"])
+def test_card_gemma2_engine_equals_the_cpu(arm):
+  """gemma2-2b SMOKE in f32: the engine on the card (graphs, kernels; the
+  local layers' flash_decode captured in each bucket's graph) and on the
+  CPU give the same ids, and each step's logits within 1e-4 of
+  max|logits|."""
+  from repro_torch.serve.engine import (EngineConfig, ServingEngine,
+                                        make_requests)
+  dev = _card_or_skip()
+  cfg, params = _gemma2_smoke()
+  ids, logs = {}, {}
+  for where in ("cpu", dev):
+    before = _build.launch_counts()
+    eng = ServingEngine(cfg, EngineConfig(
+        n_slots=2, prompt_len=64, max_new_tokens=ENGINE_NEW,
+        overlap_admission=False, **arm), params=_tree_to(params, where),
+        device=where)
+    if str(where) != "cpu":
+      assert _build.launch_counts()["flash_decode"] > before["flash_decode"]
+    log = logs[str(where)] = []
+    inner = eng._decode_step
+
+    def step(active, *a, _eng=eng, _inner=inner, _log=log, **kw):
+      _inner(active, *a, **kw)
+      _log.append(_eng.step_out["logits"][list(active)].cpu())
+    eng._decode_step = step
+    reqs = make_requests([0.0, 1.0, 2.0, 3.0], 64, ENGINE_NEW, cfg.vocab,
+                         seed=9)
+    eng.run(reqs)
+    ids[str(where)] = [r.tokens for r in reqs]
+    del eng
+  assert ids["cuda"] == ids["cpu"]
+  assert len(logs["cuda"]) == len(logs["cpu"]) > 0
+  for a, b in zip(logs["cuda"], logs["cpu"]):
+    torch.testing.assert_close(a, b, rtol=0,
+                               atol=1e-4 * float(b.abs().max()))
 
 
 # -- the contracts' telemetry, the corpus cache and delta replay ---------------

@@ -79,7 +79,7 @@ def test_config_is_llama3_8b():
       k: v for k, v in dataclasses.asdict(jsmoke.synopsis).items()
       if k in ("cluster_size", "i_max", "recent", "quant")}
   with pytest.raises(KeyError):
-    get_config("gemma2-2b")
+    get_config("command-r-plus-104b")
 
 
 def test_layers_match_jax():

@@ -5,8 +5,8 @@ the f32 plain version.
 The kernel runs only on the card; this keeps its numerical design
 checkable without one.  The emulation does what the kernel does, tile by
 tile: S = Q.K^T on bf16 inputs summed in f32 (the products are exact), the
-logits in log2 units, an online softmax over tiles of 128 keys with the
-finite -1e30 sentinel, P split into two bf16 values P_hi + P_lo, and two
+logits in log2 units, an online softmax over tiles of 128 keys (64 at D =
+256, as the kernel's tile there) with the finite -1e30 sentinel, P split into two bf16 values P_hi + P_lo, and two
 products of them with the bf16 V tile accumulated in f32; the output is
 O / l rounded to bf16.
 
@@ -27,7 +27,7 @@ import torch
 from repro_torch.kernels import ref
 
 BF16_OUT_TOL = (1e-4, 2.0 ** -7)     # (atol, rtol), as chip_smoke.py
-BN = 128                             # keys a tile, as the kernel
+BN = {256: 64}                       # keys a tile by D, as the kernel
 LOG2E = 1.4426950408889634
 NEG_INF = -1e30
 
@@ -46,6 +46,7 @@ def emulate(q, k, v, *, sm_scale, cap=None, window=None, split=True):
   B, S, H, D = q.shape
   Hkv = k.shape[2]
   G = H // Hkv
+  bn = BN.get(D, 128)
   out = torch.empty_like(q)
   scale_log2 = np.float32(sm_scale) * np.float32(LOG2E)
   qpos = torch.arange(S).repeat_interleave(G)            # row r = (s, g)
@@ -55,9 +56,9 @@ def emulate(q, k, v, *, sm_scale, cap=None, window=None, split=True):
       m = torch.full((S * G,), NEG_INF)
       l = torch.zeros(S * G)
       o = torch.zeros(S * G, D)
-      for k0 in range(0, S, BN):
-        kt = k[b, k0:k0 + BN, h].float()
-        vt = v[b, k0:k0 + BN, h].float()
+      for k0 in range(0, S, bn):
+        kt = k[b, k0:k0 + bn, h].float()
+        vt = v[b, k0:k0 + bn, h].float()
         s = rows @ kt.T
         if cap is not None:
           x = cap * torch.tanh(s * sm_scale / cap) * LOG2E
@@ -115,6 +116,8 @@ CASES = [
     ((1, 260, 2, 2, 64), 40, 30.0, False),     # window edge inside a tile
     ((1, 200, 1, 3, 16), None, None, True),    # cancelling V rows
     ((1, 140, 2, 1, 32), 7, None, True),
+    ((1, 200, 2, 2, 256), 70, 50.0, False),    # D = 256: 64-key tiles
+    ((1, 150, 1, 4, 256), None, None, True),
 ]
 
 
