@@ -74,17 +74,29 @@
     ids; a Zipf window; delta replay of a 4096-token prefix's
     8192-token extension, its KV held against the full prefill's), and the
     loop's ``--batches 2`` serial against ``--pipeline``;
-12. gemma2-2b at its published width and depth (26 layers alternating
-    local, window 4096, and global; softcaps; sandwich norms; tied
-    embeddings; hd 256), random bf16 weights from seed 0: each kernel of
-    its path against its plain version at its shapes (``flash_prefill``
-    at D = 256 on a global and a local layer, with SDPA at the global
-    shape as a yardstick that has no softcap; ``flash_decode`` on the
-    local window's strided view), the budget-32 loop (130 steps, one
-    absorb: prefill / build ms, p50 / p99, peak memory, a profiled window's
-    device busy share), the exact loop, one step per budget against exact,
-    the full-budget deviation on a global layer, the unfused op on a
-    global layer, and one engine window under ``accuracytrader`` and
+12-14. the other architectures at their published width and depth,
+    nothing cut, random bf16 weights from seed 0, each after the previous
+    model's weights are freed: gemma2-2b (26 layers alternating local,
+    window 4096, and global; softcaps; sandwich norms; tied embeddings; hd
+    256), smollm-135m (30 layers, 9/3 heads of 64: G = 3, which the
+    kernels pad to a bucket of 4; tied embeddings) and pixtral-12b (the
+    mistral-nemo backbone, 40 layers, 32/8 heads of 128, and the vision
+    stub).  Each phase: the SMOKE loop in f32 on the card against the CPU
+    (the same ids, every step's logits; gemma2 under its table-only int8 /
+    fp8 specs), each kernel of its path against its plain version at its
+    shapes (records ``<kernel>[gemma2]`` / ``[smollm]`` / ``[pixtral]``;
+    SDPA as the library time for prefill and exact decode where there is
+    no softcap, a yardstick where there is; gemma2's ``flash_prefill`` also
+    on a local layer and its ``flash_decode`` on the local window's
+    strided view), the budget-32 loop (130 steps, one absorb: prefill /
+    build ms, p50 / p99, peak memory, a profiled window's device busy
+    share) with every branch's exact launch count, the full-budget
+    deviation on the first global layer, gemma2's budget-32 loop under
+    int8 and fp8 (tables only) and their full-budget deviation on a global
+    layer (< 7%), the exact loop, one step per budget against exact,
+    pixtral's prefix prefill (256 patch embeddings and 7936 tokens, the
+    build, a step at budget M against an exact step on that cache), the
+    unfused op, and one engine window under ``accuracytrader`` and
     ``basic``.
 
 Every path's launch counts are reset just before it runs and read just
@@ -94,10 +106,12 @@ their quantized branches and not the unquantized ones, the exact loop
 ``flash_decode`` and ``block_gather_attention``, the engine the four
 synopsis-path kernels (counted at the graphs' capture: a replay runs no
 Python, so the profiler's rows show the kernels inside the replays); the
-gemma2 loops exactly one ``flash_prefill`` a layer and, a step,
-``flash_decode`` twice on each local layer and the two synopsis kernels
-on each global one (exact: ``flash_decode`` twice on every layer), and
-its engine ``flash_decode`` beside the four.
+phases 12-14's loops exactly one ``flash_prefill`` a layer, two builds
+(build and absorb) and, a step, ``flash_decode`` twice on each local
+layer and the two synopsis kernels on each global one, on the quant
+spec's branches (exact: ``flash_decode`` twice on every layer), every
+other branch not at all, and gemma2's engine ``flash_decode`` beside the
+four.
 
 Any failed phase raises and exits non-zero.  The last lines are the
 kernels' JSON record, the nvidia-smi line and ``{"ok": true, ...}``.
@@ -222,7 +236,7 @@ def _median_ms(fn, reps=REPS, warmup=2, cold=False):
   return statistics.median(times)
 
 
-def _device_ms(fn, names=None, reps=REPS, cold=False):
+def _device_ms(fn, names=None, reps=REPS, cold=False, floor_ms=0.0):
   """Device time of one call: the profiler's device rows over ``reps``
   calls, per call, summed over the rows whose name holds one of
   ``names`` (a kernel's own, KERNEL_ROWS); ``names=None`` (a library
@@ -232,10 +246,16 @@ def _device_ms(fn, names=None, reps=REPS, cold=False):
   a call shorter than its wrapper's host work.  A session may lose
   device records (it shows one launch fewer than were made, or none, only
   the host's launch rows): a kernel of ours, which a call launches once,
-  is timed over the launches the session recorded, and a session that
-  recorded none is run again; after PROFILE_TRIES sessions that recorded
-  none, the time comes from CUDA events instead (_queued_ms; a reading of
-  0 is not a time).  ``cold``: as _median_ms."""
+  is timed over the launches the session recorded.  A library call may
+  launch several kernels a call: each of its rows is timed over the
+  launches it recorded, times its whole number of launches a call (its
+  count over ``reps``, rounded).  Given ``floor_ms`` (the least time the
+  device could take), that reading counts only where every row kept nine
+  tenths of its launches and the sum is not below the floor (a reading
+  below it lost whole rows); else the session is run again, as is one
+  that recorded none.  After PROFILE_TRIES such sessions the time comes
+  from CUDA events instead (_queued_ms; a reading of 0 is not a time).
+  ``cold``: as _median_ms."""
   from torch.profiler import ProfilerActivity, profile
   fn()
   torch.cuda.synchronize()
@@ -252,16 +272,29 @@ def _device_ms(fn, names=None, reps=REPS, cold=False):
             and (any(n in e.key for n in names) if names
                  else not any(n in e.key for n in FLUSH_ROWS))]
     launches = sum(e.count for e in rows)
-    if launches != reps and names is not None:
-      print(f"  [profiler] {launches} launches of {names} recorded for "
-            f"{reps} calls")
-    if rows:
-      return (sum(e.self_device_time_total for e in rows) / 1e3
-              / (reps if names is None else launches))
+    if names is not None:
+      if launches != reps:
+        print(f"  [profiler] {launches} launches of {names} recorded for "
+              f"{reps} calls")
+      if rows:
+        return sum(e.self_device_time_total for e in rows) / 1e3 / launches
+    elif rows:
+      per_call = [max(1, round(e.count / reps)) for e in rows]
+      ms = sum(e.self_device_time_total / e.count * k
+               for e, k in zip(rows, per_call)) / 1e3
+      lost = [(e.key[:60], e.count) for e, k in zip(rows, per_call)
+              if e.count < 0.9 * k * reps]
+      if lost:
+        print(f"  [profiler] rows that lost launches: {lost}")
+      if not floor_ms or (not lost and ms >= floor_ms):
+        return ms
+      print(f"  [profiler] library call: {ms:.4f} ms a call (floor "
+            f"{floor_ms:.4f}): run again")
+      continue
     print(f"  [profiler] no device row of {names}: "
           f"{[e.key[:60] for e in prof.key_averages()]}")
   ms = _queued_ms(fn, reps=reps, cold=cold)
-  print(f"  [profiler] no device row of {names} in {PROFILE_TRIES} "
+  print(f"  [profiler] no whole device record of {names} in {PROFILE_TRIES} "
         f"sessions: {ms:.4f} ms from CUDA events on a queued stream")
   return ms
 
@@ -341,7 +374,9 @@ def _record(name, source, replaces, dtype, err, kernel_fn, plain_fn, nbytes,
   plain_ms = _median_ms(plain_fn)
   library_ms = _median_ms(library_fn) if library_fn is not None else None
   bound_ms, bound_by = _bound(nbytes, ops, dtype)
-  lib_dev = _device_ms(library_fn) if library_fn is not None else None
+  ops_ms = ops / PEAK_OPS[dtype] * 1e3  # warm inputs may sit in the L2
+  lib_dev = (_device_ms(library_fn, floor_ms=ops_ms)
+             if library_fn is not None else None)
   dev_ms = _device_ms(kernel_fn, names)
   print(f"  [{name} {str(dtype)[6:]}] ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"bound_ms={bound_ms:.4f} ({bound_by}) library_ms={library_ms}; "
@@ -355,8 +390,8 @@ def _record(name, source, replaces, dtype, err, kernel_fn, plain_fn, nbytes,
   if cold:
     rec["ms_cold"] = _median_ms(kernel_fn, cold=True)
     rec["device_ms_cold"] = _device_ms(kernel_fn, names, cold=True)
-    lib_cold = (_device_ms(library_fn, cold=True) if library_fn is not None
-                else None)
+    lib_cold = (_device_ms(library_fn, cold=True, floor_ms=bound_ms)
+                if library_fn is not None else None)
     print(f"  [{name} {str(dtype)[6:]}] L2-cold: ms={rec['ms_cold']:.4f} "
           f"device {rec['device_ms_cold']:.4f} ms (warm {dev_ms:.4f}), "
           f"{bound_ms / rec['device_ms_cold']:.1%} of the bound; library "
@@ -444,8 +479,8 @@ def check_segment_build(dev, dtype, g):
       dtype)
 
 
-def _decode_inputs(dev, dtype, g, S):
-  B, Hkv, G, D, C = BATCH, 8, 4, 128, 128
+def _decode_inputs(dev, dtype, g, S, Hkv=8, G=4, D=128):
+  B, C = BATCH, 128
   M = S // C
   q = torch.randn((B, Hkv * G, D), generator=g, device=dev).to(dtype)
   k = torch.randn((B, Hkv, S, D), generator=g, device=dev).to(dtype)
@@ -681,24 +716,29 @@ def _check_codes(name, dtype, got, want, exact):
   return moved
 
 
-def check_segment_build_quant(dev, dtype, g, spec):
-  """The quantized build at the slice's shape: sorted-KV codes and their
-  scales bit-equal to the plain version's, centroid codes at most one
-  step apart, centroid scales within f32 rounding; and the absorb."""
+def check_segment_build_quant(dev, dtype, g, spec, cfg=None, tag=""):
+  """The quantized build at the shape of ``cfg``'s prompt build (every
+  layer sequence of a B = 2 prompt; llama3-8b's by default): sorted-KV
+  codes and their scales bit-equal to the plain version's, centroid codes
+  at most one step apart, centroid scales within f32 rounding; and the
+  absorb.  The record is the branch's name and ``tag``."""
+  from repro_torch.configs.registry import get_config
   from repro_torch.kernels import _build, ref
   from repro_torch.kernels import quant as qt
   from repro_torch.kernels.synopsis_build import segment_build
-  N, Hkv, S, D, C = 32 * BATCH, 8, PROMPT, 128, 128
+  cfg = cfg or get_config("llama3-8b")
+  N, Hkv, S, D = cfg.n_layers * BATCH, cfg.n_kv_heads, PROMPT, cfg.hd
+  C = cfg.synopsis.cluster_size
   qc = qt.parse_qconfig(spec)
   k = torch.randn((N, Hkv, S, D), generator=g, device=dev).to(dtype)
   v = torch.randn((N, Hkv, S, D), generator=g, device=dev).to(dtype)
   perm = torch.argsort(torch.rand((N, S), generator=g, device=dev),
                        dim=-1).to(torch.int32)
-  ring = torch.arange(128, device=dev, dtype=torch.int32).expand(N, 128)
-  ka, va = k[:, :, :128].contiguous(), v[:, :, :128].contiguous()
-  name = _build.branch("segment_build", spec)
-  for args, label in (((k, v, perm), name), ((ka, va, ring),
-                                             name + " absorb")):
+  ring = torch.arange(C, device=dev, dtype=torch.int32).expand(N, C)
+  ka, va = k[:, :, :C].contiguous(), v[:, :, :C].contiguous()
+  name = _build.branch("segment_build", spec) + tag
+  for args, label in (((k, v, perm), f"{name} N={N} Hkv={Hkv} D={D}"),
+                      ((ka, va, ring), name + " absorb")):
     got = segment_build(*args, cluster_size=C, quant=spec)
     want = ref.synopsis_build_quant_ref(*args, cluster_size=C, qc=qc)
     for leaf in ("k", "v"):
@@ -731,12 +771,13 @@ def check_segment_build_quant(dev, dtype, g, spec):
       + 4 * N * Hkv * M * D), dtype)
 
 
-def _quant_arena(dev, dtype, g, S, spec):
-  """The decode inputs with their synopsis arena quantized under ``spec``
-  (plain version of the build, identity permutation)."""
+def _quant_arena(dev, dtype, g, S, spec, **heads):
+  """The decode inputs (``heads``: Hkv, G, D) with their synopsis arena
+  quantized under ``spec`` (plain version of the build, identity
+  permutation)."""
   from repro_torch.kernels import ops, ref
   from repro_torch.kernels import quant as qt
-  q, k, v, _, _, _, C = _decode_inputs(dev, dtype, g, S)
+  q, k, v, _, _, _, C = _decode_inputs(dev, dtype, g, S, **heads)
   B = k.shape[0]
   ident = torch.arange(S, device=dev, dtype=torch.int32).expand(B, S)
   arena = ref.synopsis_build_quant_ref(k, v, ident, cluster_size=C,
@@ -744,19 +785,27 @@ def _quant_arena(dev, dtype, g, S, spec):
   return q, arena, ops.count_bias(arena["counts"]), C
 
 
-def check_fused_synopsis_quant(dev, dtype, g, kind):
+def check_fused_synopsis_quant(dev, dtype, g, kind, cfg=None, tag=""):
+  """Stage 1 on int8 / fp8 tables at ``cfg``'s heads and softcap (llama3-8b's
+  by default), M = 1024, 65 and 64 (the loop's, which is recorded under
+  the branch's name and ``tag``)."""
+  from repro_torch.configs.registry import get_config
   from repro_torch.kernels import _build, ref
   from repro_torch.kernels.fused_synopsis import (
       fused_synopsis_score_attention as fused)
-  name = _build.branch("fused_synopsis_score_attention", kind)
+  cfg = cfg or get_config("llama3-8b")
+  heads = dict(Hkv=cfg.n_kv_heads, G=cfg.n_heads // cfg.n_kv_heads,
+               D=cfg.hd)
+  name = _build.branch("fused_synopsis_score_attention", kind) + tag
   for S in (16 * PROMPT, PROMPT + 128, PROMPT):      # M = 1024, 65, 64
-    q, arena, cbias, _ = _quant_arena(dev, dtype, g, S, kind)
+    q, arena, cbias, _ = _quant_arena(dev, dtype, g, S, kind, **heads)
     tables = (arena["k_syn"], arena["v_syn"], cbias)
-    kw = dict(sm_scale=q.shape[-1] ** -0.5, k_scale=arena["k_syn_scale"],
-              v_scale=arena["v_syn_scale"])
+    kw = dict(sm_scale=q.shape[-1] ** -0.5, cap=cfg.attn_softcap,
+              k_scale=arena["k_syn_scale"], v_scale=arena["v_syn_scale"])
     got = fused(q, *tables, **kw)
     want = ref.fused_synopsis_score_attention_ref(q, *tables, **kw)
-    err = _check(f"{name} M={tables[0].shape[2]}", dtype,
+    err = _check(f"{name} M={tables[0].shape[2]} {heads} cap="
+                 f"{cfg.attn_softcap}", dtype,
                  (got[0], *got[1]), (want[0], *want[1]),
                  *_stage1_tol(dtype, tables[0].shape[2]))
   B, H, D = q.shape
@@ -1062,34 +1111,93 @@ def check_accuracy_vs_exact(cfg, params, cache, syn, dev,
           f"{M + budget * C}/{PROMPT} tv={tv:.6f} argmax_match={match:.2f}")
 
 
-def check_full_budget_quant(cache, syn, quant, dev, g):
-  """Layer 0 of the exact run's prompt cache and of its synopsis built
-  under ``quant``: synopsis decode at i_max = M (with a self token) against
-  exact attention over the unquantized cache, relative L2 below 7%, the
-  JAX package's bound for quantization noise.  The query is scaled so that
-  its logits spread ~2, as in the fused/unfused comparison."""
-  from repro_torch.kernels import ops, ref
-  from repro_torch.kernels import quant as qt
-  k, v = cache["k"][0, 0], cache["v"][0, 0]
-  B, Hkv, S, D = k.shape
-  M = syn["k_syn"].shape[4]
-  q = torch.randn((B, Hkv * 4, D), generator=g, device=dev)
+def _layer_query(k, G, dev, g):
+  """A decode query for one layer's keys ``k`` (B, Hkv, S, D), G heads a
+  KV head, scaled so that its logits spread ~2 (as in the fused/unfused
+  comparison), and a self token."""
+  B, Hkv, _, D = k.shape
+  q = torch.randn((B, Hkv * G, D), generator=g, device=dev)
   q = (q * 2.0 * D ** 0.5 / k.float().norm(dim=-1).mean()).to(k.dtype)
   sk = torch.randn((B, Hkv, 1, D), generator=g, device=dev).to(k.dtype)
   sv = torch.randn((B, Hkv, 1, D), generator=g, device=dev).to(k.dtype)
-  lay = {n: syn[n][0, 0] for n in syn if n not in ("recent_len", "pos")}
-  got = ops.synopsis_cache_attention(
+  return q, sk, sv
+
+
+def _layer_decode(syn, pos, q, sk, sv, i_max, cap, return_scores=False):
+  """Synopsis decode on the first layer at pattern position ``pos`` of
+  the arena ``syn`` (quantized or not), with a self token and no ring."""
+  from repro_torch.kernels import ops
+  from repro_torch.kernels import quant as qt
+  lay = {n: syn[n][0, pos] for n in syn if n not in ("recent_len", "pos")}
+  S, M, D = lay["k"].shape[2], lay["k_syn"].shape[2], q.shape[-1]
+  return ops.synopsis_cache_attention(
       q, lay["k"], lay["v"], lay["k_syn"], lay["v_syn"], lay["counts"],
       None, None, None, sk, sv, *(lay.get(n) for n in qt.SCALE_LEAVES),
-      i_max=M, cluster_size=S // M, sm_scale=D ** -0.5)
+      i_max=i_max, cluster_size=S // M, sm_scale=D ** -0.5, cap=cap,
+      return_scores=return_scores)
+
+
+def check_full_budget_quant(cache, syn, quant, dev, g, pos=0, G=4,
+                            cap=None):
+  """The first layer at pattern position ``pos`` of the exact run's prompt
+  cache and of its synopsis built under ``quant``: synopsis decode at
+  i_max = M (with a self token) against exact attention over the
+  unquantized cache (both softcapped by ``cap``; G query heads a KV head),
+  relative L2 below 7%, the JAX package's bound for quantization noise.
+  At i_max = M stage 2 subtracts every centroid's stage-1 term again, so
+  the quantized tables cancel here: check_budget_quant reads them."""
+  from repro_torch.kernels import ref
+  k, v = cache["k"][0, pos], cache["v"][0, pos]
+  D, M = k.shape[3], syn["k_syn"].shape[4]
+  q, sk, sv = _layer_query(k, G, dev, g)
+  got = _layer_decode(syn, pos, q, sk, sv, M, cap)
   want = ref.exact_attention_ref(q, torch.cat([k, sk], 2),
-                                 torch.cat([v, sv], 2), sm_scale=D ** -0.5)
+                                 torch.cat([v, sv], 2), sm_scale=D ** -0.5,
+                                 cap=cap)
   rel = float((got - want).norm() / want.norm())
-  print(f"[full budget quant] layer 0, quant={quant}, i_max=M={M}: "
-        f"relative L2 deviation from exact {rel:.4e} (bound 0.07)")
+  print(f"[full budget quant] layer {pos}, quant={quant}, i_max=M={M}, "
+        f"cap={cap}: relative L2 deviation from exact {rel:.4e} (bound "
+        f"0.07)")
   if not rel < 0.07:
     raise AssertionError(f"full-budget {quant} decode deviates {rel}")
   return rel
+
+
+def check_budget_quant(syn, qsyn, quant, dev, g, pos=0, G=4, cap=None,
+                       budgets=(0, 8, 32)):
+  """What the quantized tables contribute below the full budget, on the
+  first layer at pattern position ``pos``: the arena built under
+  ``quant`` against the unquantized arena of the same cache, same query.
+  Stage 1's scores (the k tables) and the budget-0 output (the output of
+  the tables alone) each within a relative L2 of 7%, the JAX package's
+  stage-1 floor for quantization noise.  At budgets 8 and 32 the scores
+  pick the clusters stage 2 refines, and a score moved by the codes can
+  swap a cluster among near-ties for another, which moves the output by
+  the two clusters' exact-minus-centroid terms: the share of selected
+  clusters both arenas pick and the output's deviation are printed, with
+  no bound (the model's next-token distributions under either arena are
+  compared with exact in check_accuracy_vs_exact)."""
+  q, sk, sv = _layer_query(syn["k"][0, pos], G, dev, g)
+  for budget in budgets:
+    want, s_want = _layer_decode(syn, pos, q, sk, sv, budget, cap, True)
+    got, s_got = _layer_decode(qsyn, pos, q, sk, sv, budget, cap, True)
+    rel = float((got - want).norm() / want.norm())
+    line = (f"[budget quant] layer {pos}, quant={quant}, i_max={budget}, "
+            f"cap={cap}: output's relative L2 deviation from the "
+            f"unquantized arena's {rel:.4e}")
+    if budget == 0:
+      srel = float((s_got - s_want).norm() / s_want.norm())
+      print(f"{line} (bound 0.07); stage-1 scores' {srel:.4e} (bound 0.07)")
+      if not (rel < 0.07 and srel < 0.07):
+        raise AssertionError(f"{quant} tables deviate: output {rel}, "
+                             f"scores {srel}")
+    else:
+      pick = [torch.topk(s, budget, dim=-1).indices.sort(-1).values
+              for s in (s_want, s_got)]
+      same = float((pick[0][..., :, None] == pick[1][..., None, :])
+                   .any(-1).float().mean())
+      print(f"{line} (no bound); {same:.1%} of the {budget} clusters a "
+            f"head refines picked by both")
 
 
 def run_fixed_budget(cfg, params, dev, quant="none"):
@@ -1185,6 +1293,8 @@ def profile_decode(cfg, params, cache, dev, budget, steps=3,
                  and e.self_device_time_total > 0), reverse=True)
   busy = sum(r[0] for r in rows) / 1e3 / steps
   label = f"budget={budget}" if mode == "synopsis" else "exact"
+  if cfg.synopsis.quant != "none":
+    label += f" quant={cfg.synopsis.quant}"
   print(f"[profile] {label}: {wall:.2f} ms/step wall under the "
         f"profiler, device busy {busy:.2f} ms/step "
         f"({100 * busy / wall:.1f}%), {sum(r[2] for r in rows) // steps} "
@@ -2050,12 +2160,22 @@ def run_pipeline(cfg, params, dev):
 
 
 # ---------------------------------------------------------------------------
-# Phase 12: gemma2-2b at full width and depth (local and global layers,
-# softcaps, sandwich norms, tied embeddings; flash_prefill at D = 256)
+# Phases 12-14: the other architectures at full width and depth: gemma2-2b
+# (local and global layers, softcaps, sandwich norms, tied embeddings;
+# flash_prefill at D = 256; its table-only quantized arena), smollm-135m
+# (G = 3 at D = 64) and pixtral-12b (the vision stub's patch prefix)
 # ---------------------------------------------------------------------------
 
-GEMMA2 = "gemma2-2b"
-G2 = "[gemma2]"
+# arch -> (record tag, the SMOKE loops held card against CPU: (mode,
+# quant) pairs, the table-only quant specs of the full-width phase).
+MODELS = {
+    "gemma2-2b": ("[gemma2]", (("synopsis", "int8"), ("synopsis", "fp8")),
+                  ("int8", "fp8")),
+    "smollm-135m": ("[smollm]", (("synopsis", "none"), ("exact", "none")),
+                    ()),
+    "pixtral-12b": ("[pixtral]", (("synopsis", "none"), ("exact", "none")),
+                    ()),
+}
 
 
 def _pairs_in_window(S, window):
@@ -2066,15 +2186,16 @@ def _pairs_in_window(S, window):
   return window * (window + 1) // 2 + (S - window) * window
 
 
-def check_gemma2_kernels(cfg, dev, g):
-  """Every kernel of gemma2-2b's path against its plain version at the
-  full-width shapes, bf16: flash_prefill at D = 256 on a global (cap 50)
-  and a local layer (cap 50, window 4096), the build of the 52 layer
-  sequences and its absorb, stage 1 and stage 2 with cap 50, flash_decode
-  on a local layer's window view (and on the exact path's whole cache),
-  synopsis_score at D = 256 (the unfused op).  Returns the records, keyed
-  by ``<kernel>[gemma2]``; SDPA at the global shape with no cap is printed
-  as a yardstick only (it has no softcap: not the same function)."""
+def check_model_kernels(cfg, tag, dev, g):
+  """Every kernel of the arch's path against its plain version at its
+  full-width shapes, bf16: flash_prefill on a global layer (and, where the
+  config has local layers, a local one), the build of every layer
+  sequence of a B = 2 prompt and its absorb, stage 1 and stage 2 on one
+  layer's arena, flash_decode as the path runs it (a local layer's window
+  view, or the exact loop's whole cache), synopsis_score (the unfused
+  op), all with the config's softcap.  Returns the records, keyed by
+  ``<kernel><tag>``.  SDPA is the library time where it computes the same
+  function (no softcap); with a cap it is printed as a yardstick only."""
   from repro_torch.kernels import ops, ref
   from repro_torch.kernels.block_gather_attention import (
       block_gather_attention as gather)
@@ -2088,72 +2209,79 @@ def check_gemma2_kernels(cfg, dev, g):
   B, S, H, Hkv, D = BATCH, PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.hd
   C, W, cap = cfg.synopsis.cluster_size, cfg.sliding_window, cfg.attn_softcap
   M, I, G = S // C, cfg.synopsis.i_max, H // Hkv
+  local = any(s.local for s in cfg.block_pattern)
   sm = D ** -0.5
+  sdpa = torch.nn.functional.scaled_dot_product_attention
   recs = {}
 
   def rnd(*shape):
     return torch.randn(shape, generator=g, device=dev).to(dtype)
 
   def rec(kernel, err, kfn, pfn, nbytes, ops_n, src, line, **kw):
-    r = _record(f"{kernel}{G2}", f"src/repro_torch/kernels/csrc/{src}",
+    r = _record(f"{kernel}{tag}", f"src/repro_torch/kernels/csrc/{src}",
                 f"src/repro/kernels/{line}", dtype, err, kfn, pfn, nbytes,
                 ops_n, **kw)
     recs[r["name"]] = r
     return r
 
-  # flash_prefill: the global layer is the record; the local one printed.
+  # flash_prefill: the global layer is the record; a local one printed.
   q, k, v = rnd(B, S, H, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
+  qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+  lib = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)  # noqa
   times = {}
-  for label, window in (("local", W), ("global", None)):
+  for label, window in ((("local", W),) if local else ()) + (
+      ("global", None),):
     kw = dict(sm_scale=sm, cap=cap, window=window)
     got = flash_prefill(q, k, v, **kw)
-    err = _check(f"flash_prefill{G2} {label} D={D}", dtype, got,
+    err = _check(f"flash_prefill{tag} {label} D={D} G={G}", dtype, got,
                  ref.flash_prefill_ref(q, k, v, **kw), *BF16_OUT_TOL)
     ops_n = 4 * B * H * D * _pairs_in_window(S, window)
     if label == "global":
       r = rec("flash_prefill", err, lambda: flash_prefill(q, k, v, **kw),
               lambda: ref.flash_prefill_ref(q, k, v, **kw),
               _nbytes(q, k, v, got), ops_n, "flash_prefill.cu",
-              "flash_prefill.py:140")
+              "flash_prefill.py:140", library_fn=None if cap else lib)
       dev_ms, bound = r["device_ms"], r["bound_ms"]
     else:
       fn = lambda: flash_prefill(q, k, v, **kw)  # noqa: E731
       dev_ms = _device_ms(fn, KERNEL_ROWS["flash_prefill"])
       bound = _bound(_nbytes(q, k, v, got), ops_n, dtype)[0]
-      print(f"  [flash_prefill{G2} local bf16] ms={_median_ms(fn):.4f}")
+      print(f"  [flash_prefill{tag} local bf16] ms={_median_ms(fn):.4f}")
     times[label] = dev_ms
-    print(f"  [flash_prefill{G2} {label} bf16] {ops_n / 1e12:.3f} TFLOP in "
-          f"{dev_ms:.4f} ms of device time ({ops_n / dev_ms / 1e9:.1f} "
+    print(f"  [flash_prefill{tag} {label} bf16] {ops_n / 1e12:.3f} TFLOP "
+          f"in {dev_ms:.4f} ms of device time ({ops_n / dev_ms / 1e9:.1f} "
           f"TFLOP/s, {1.5 * ops_n / dev_ms / 1e9:.1f} issued with the P "
           f"split); bound {bound:.4f} ms (operations), {bound / dev_ms:.1%} "
           f"of it")
   n_glob = sum(not s.local for s in cfg.block_pattern) * cfg.n_blocks
-  print(f"  [flash_prefill{G2}] a prompt's {cfg.n_layers} launches: "
-        f"{n_glob * times['global'] + (cfg.n_layers - n_glob) * times['local']:.3f}"
+  print(f"  [flash_prefill{tag}] a prompt's {cfg.n_layers} launches: "
+        f"{n_glob * times['global'] + (cfg.n_layers - n_glob) * times.get('local', 0.0):.3f}"
         f" ms of device time")
-  qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-  sdpa = torch.nn.functional.scaled_dot_product_attention
-  lib = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)  # noqa
-  lib_dev = _device_ms(lib)
-  print(f"  [yardstick bf16] SDPA at the global layer's shape, causal, no "
-        f"softcap (not the same function: SDPA has no softcap): ms="
-        f"{_median_ms(lib):.4f} device {lib_dev:.4f} ms; flash_prefill"
-        f"{G2} global / SDPA device {times['global'] / lib_dev:.2f}x")
+  if cap:
+    lib_dev = _device_ms(lib, floor_ms=_bound(0, 4 * B * H * D * S * (S + 1)
+                                              // 2, dtype)[0])
+    print(f"  [yardstick bf16] SDPA at the global layer's shape, causal, "
+          f"no softcap (not the same function: SDPA has no softcap): ms="
+          f"{_median_ms(lib):.4f} device {lib_dev:.4f} ms; flash_prefill"
+          f"{tag} global / SDPA device {times['global'] / lib_dev:.2f}x")
+  else:
+    print(f"  [flash_prefill{tag}] kernel / SDPA device "
+          f"{times['global'] / r['library_device_ms']:.2f}x")
   del q, k, v, qt, kt, vt, got
 
-  # segment_build: the 52 layer sequences of one B = 2 prompt, and the
+  # segment_build: every layer sequence of one B = 2 prompt, and the
   # absorb of the 128-token ring.
   N = cfg.n_layers * B
   kb, vb = rnd(N, Hkv, S, D), rnd(N, Hkv, S, D)
   perm = torch.argsort(torch.rand((N, S), generator=g, device=dev),
                        dim=-1).to(torch.int32)
   got = segment_build(kb, vb, perm, cluster_size=C)
-  err = _check(f"segment_build{G2} D={D}", dtype, got,
+  err = _check(f"segment_build{tag} N={N} Hkv={Hkv} D={D}", dtype, got,
                ref.synopsis_build_ref(kb, vb, perm, cluster_size=C),
                *BF16_OUT_TOL)
   ring = torch.arange(C, device=dev, dtype=torch.int32).expand(N, C)
   ka, va = kb[:, :, :C].contiguous(), vb[:, :, :C].contiguous()
-  _check(f"segment_build{G2} absorb", dtype,
+  _check(f"segment_build{tag} absorb", dtype,
          segment_build(ka, va, ring, cluster_size=C),
          ref.synopsis_build_ref(ka, va, ring, cluster_size=C), *BF16_OUT_TOL)
   _bound_share(rec(
@@ -2165,8 +2293,7 @@ def check_gemma2_kernels(cfg, dev, g):
       "synopsis_build.py:173"), dtype)
   del kb, vb, perm, got, ka, va
 
-  # The decode kernels on one global layer's arena (and a local layer's
-  # window of a cache of the same shape).
+  # The decode kernels on one (global) layer's arena.
   q1, k, v = rnd(B, H, D), rnd(B, Hkv, S, D), rnd(B, Hkv, S, D)
   k_syn = k.float().reshape(B, Hkv, M, C, D).mean(3).to(dtype)
   v_syn = v.float().reshape(B, Hkv, M, C, D).mean(3).to(dtype)
@@ -2177,7 +2304,7 @@ def check_gemma2_kernels(cfg, dev, g):
   got = fused(q1, k_syn, v_syn, cbias, **kw)
   want = ref.fused_synopsis_score_attention_ref(q1, k_syn, v_syn, cbias,
                                                 **kw)
-  err = _check(f"fused_synopsis{G2} M={M} cap={cap}", dtype,
+  err = _check(f"fused_synopsis{tag} M={M} G={G} cap={cap}", dtype,
                (got[0], *got[1]), (want[0], *want[1]), *_stage1_tol(dtype, M))
   rec("fused_synopsis_score_attention", err,
       lambda: fused(q1, k_syn, v_syn, cbias, **kw),
@@ -2198,9 +2325,9 @@ def check_gemma2_kernels(cfg, dev, g):
              sel_bias=cbias[:, None, :1].expand(B, Hkv, I).contiguous(),
              extras_k=ek, extras_v=ev, extras_bias=eb)
   got = gather(q1, k, v, sel, **gkw)
-  err = _check(f"block_gather{G2} S={S} I={I} E={ek.shape[2]} cap={cap}",
-               dtype, got, ref.fused_gather_attention_ref(q1, k, v, sel,
-                                                          **gkw), *tol)
+  err = _check(f"block_gather{tag} S={S} I={I} E={ek.shape[2]} G={G} "
+               f"cap={cap}", dtype, got,
+               ref.fused_gather_attention_ref(q1, k, v, sel, **gkw), *tol)
   rows = I * C * B * Hkv
   rec("block_gather_attention", err, lambda: gather(q1, k, v, sel, **gkw),
       lambda: ref.fused_gather_attention_ref(q1, k, v, sel, **gkw),
@@ -2209,34 +2336,43 @@ def check_gemma2_kernels(cfg, dev, g):
       4 * G * D * (rows + B * Hkv * (I + ek.shape[2])), "block_gather.cu",
       "block_gather_attention.py:255", cold=True)
 
-  # flash_decode: the exact path's whole cache, then the local layer's
-  # window as the loop gives it, a view of the layer's cache (recorded).
+  # flash_decode: the exact path's whole cache (recorded, with SDPA as the
+  # library call, where the config has no local layer), then a local
+  # layer's window as the loop gives it, a view of the layer's cache.
   got = flash_decode(q1, k, v, **kw)
-  _check(f"flash_decode{G2} S={S} cap={cap}", dtype, got,
-         ref.flash_decode_ref(q1, k, v, **kw), *tol)
-  kw_, vw = k[:, :, -W:], v[:, :, -W:]
-  got = flash_decode(q1, kw_, vw, **kw)
-  same = all(torch.equal(a, b) for a, b in zip(
-      got, flash_decode(q1, kw_.contiguous(), vw.contiguous(), **kw)))
-  err = _check(f"flash_decode{G2} window view S={W} of {S} cap={cap}",
-               dtype, got, ref.flash_decode_ref(q1, kw_, vw, **kw), *tol)
-  print(f"  [flash_decode{G2}] the window view equals a contiguous copy "
-        f"bit for bit: {same}")
-  if not same:
-    raise AssertionError("flash_decode on the window view differs from "
-                         "the same rows copied")
-  copy_ms = _device_ms(lambda: (kw_.contiguous(), vw.contiguous()))
-  print(f"  [flash_decode{G2}] a .contiguous() copy of the window would "
-        f"take {copy_ms:.4f} ms of device time a local layer "
-        f"({2 * _nbytes(kw_, vw) / 1e6:.1f} MB moved)")
-  rec("flash_decode", err, lambda: flash_decode(q1, kw_, vw, **kw),
-      lambda: ref.flash_decode_ref(q1, kw_, vw, **kw),
-      _nbytes(q1, kw_, vw, *got), 4 * B * H * W * D, "flash_decode.cu",
-      "flash_decode.py:125", cold=True)
+  err = _check(f"flash_decode{tag} S={S} G={G} cap={cap}", dtype, got,
+               ref.flash_decode_ref(q1, k, v, **kw), *tol)
+  if not local:
+    rec("flash_decode", err, lambda: flash_decode(q1, k, v, **kw),
+        lambda: ref.flash_decode_ref(q1, k, v, **kw),
+        _nbytes(q1, k, v, *got), 4 * B * H * S * D, "flash_decode.cu",
+        "flash_decode.py:125", cold=True,
+        library_fn=None if cap else (
+            lambda: sdpa(q1[:, :, None], k, v, enable_gqa=True)))
+  else:
+    kw_, vw = k[:, :, -W:], v[:, :, -W:]
+    got = flash_decode(q1, kw_, vw, **kw)
+    same = all(torch.equal(a, b) for a, b in zip(
+        got, flash_decode(q1, kw_.contiguous(), vw.contiguous(), **kw)))
+    err = _check(f"flash_decode{tag} window view S={W} of {S} cap={cap}",
+                 dtype, got, ref.flash_decode_ref(q1, kw_, vw, **kw), *tol)
+    print(f"  [flash_decode{tag}] the window view equals a contiguous copy "
+          f"bit for bit: {same}")
+    if not same:
+      raise AssertionError("flash_decode on the window view differs from "
+                           "the same rows copied")
+    copy_ms = _device_ms(lambda: (kw_.contiguous(), vw.contiguous()))
+    print(f"  [flash_decode{tag}] a .contiguous() copy of the window would "
+          f"take {copy_ms:.4f} ms of device time a local layer "
+          f"({2 * _nbytes(kw_, vw) / 1e6:.1f} MB moved)")
+    rec("flash_decode", err, lambda: flash_decode(q1, kw_, vw, **kw),
+        lambda: ref.flash_decode_ref(q1, kw_, vw, **kw),
+        _nbytes(q1, kw_, vw, *got), 4 * B * H * W * D, "flash_decode.cu",
+        "flash_decode.py:125", cold=True)
 
-  # synopsis_score (the unfused op's first stage) at D = 256.
+  # synopsis_score (the unfused op's first stage).
   got = synopsis_score(q1, k_syn, sm_scale=sm)
-  err = _check(f"synopsis_score{G2} M={M}", dtype, got,
+  err = _check(f"synopsis_score{tag} M={M} G={G}", dtype, got,
                ref.synopsis_score_ref(q1, k_syn, sm_scale=sm), *tol)
   rec("synopsis_score", err, lambda: synopsis_score(q1, k_syn, sm_scale=sm),
       lambda: ref.synopsis_score_ref(q1, k_syn, sm_scale=sm),
@@ -2245,117 +2381,253 @@ def check_gemma2_kernels(cfg, dev, g):
   return recs
 
 
-def _require_gemma2_launches(path, counts, cfg, steps, mode):
-  """Exact launch counts of a gemma2 loop: flash_prefill once a layer;
-  each step, flash_decode twice on every local layer (its window view and
-  the self token), and on every global layer stage 1 and stage 2
-  (synopsis) or flash_decode twice (exact)."""
+def _require_model_launches(path, counts, cfg, steps, mode, quant="none"):
+  """Exact launch counts of a full-width loop, every branch: flash_prefill
+  once a layer; in synopsis mode segment_build twice (the build and the
+  absorb) on the quant spec's branch, and each step stage 1 (on the spec's
+  branch) and stage 2 on every global layer and flash_decode twice on
+  every local layer (its window view and the self token); in exact mode
+  flash_decode twice on every layer.  Every other branch launches 0."""
+  from repro_torch.kernels import _build
+  from repro_torch.kernels import quant as qt
+  qc = qt.parse_qconfig(quant)
   n_loc = sum(s.local for s in cfg.block_pattern) * cfg.n_blocks
   n_glob = cfg.n_layers - n_loc
   want = {"flash_prefill": cfg.n_layers}
   if mode == "synopsis":
-    want.update(flash_decode=2 * n_loc * steps,
-                fused_synopsis_score_attention=n_glob * steps,
-                block_gather_attention=n_glob * steps)
+    want[_build.branch("segment_build", qc.spec)] = 2
+    want[_build.branch("fused_synopsis_score_attention", qc.kind)] = \
+        n_glob * steps
+    want[_build.branch("block_gather_attention",
+                       qc.kind if qc.sorted_kv else "none")] = n_glob * steps
+    want["flash_decode"] = 2 * n_loc * steps
   else:
-    want.update(flash_decode=2 * cfg.n_layers * steps)
-  _require_launches(path, counts, tuple(want) + (
-      ("segment_build",) if mode == "synopsis" else ()),
-                    absent=("synopsis_score",))
-  if any(counts[k] != n for k, n in want.items()):
+    want["flash_decode"] = 2 * cfg.n_layers * steps
+  _require_exact_launches(path, counts, want)
+
+
+def _require_exact_launches(path, counts, want):
+  """Each branch launched exactly as often as ``want`` says, and every
+  branch it does not name not at all."""
+  print(f"[{path}] launches {({k: n for k, n in counts.items() if n})}")
+  want = {**dict.fromkeys(counts, 0), **want}
+  if counts != want:
     raise AssertionError(f"{path}: launches {counts}, expected {want}")
 
 
-def run_gemma2(dev, g):
-  """gemma2-2b at its published width and depth, random bf16 weights from
-  seed 0: the kernel checks at its shapes, the budget-32 loop (130 steps,
-  one absorb), the exact loop, one step per budget against exact, the
-  full-budget deviation on a global layer, a profiled window (device busy
-  share), and one engine window under accuracytrader and basic.  Returns
-  (records, {record name: launches on its path})."""
+def check_arch_smoke_parity(arch, tag, runs, dev):
+  """The arch's SMOKE loop in f32, card against CPU, for each (mode,
+  quant) of ``runs``: the same ids and every step's logits within 1e-4 of
+  max|logits| (``repro_torch.launch.parity``, which the card tests run
+  too)."""
+  from repro_torch.launch import parity
+  for mode, quant in runs:
+    _, rel = parity.loop_parity(arch, dev, mode, quant)
+    print(f"{tag} [parity] smoke f32 {mode} quant={quant}: "
+          f"{parity.TOKENS + 1} ids equal on card and CPU; every step's "
+          f"logits within {rel:.3e} of max (tol {parity.TOL})")
+
+
+def check_prefix_prefill(cfg, params, dev, tag):
+  """The vision stub's path at full width: 256 patch embeddings from the
+  seed (f32 normal, cast to the model's dtype) and 7936 text tokens, 8192
+  positions in all, through the prefill (one flash_prefill a layer),
+  then the build (segment_build once), then one synopsis step at budget
+  M against one exact step on that cache: logits within 1e-3 of
+  max|exact| (the full-budget bound)."""
+  from repro_torch.kernels import _build
+  from repro_torch.serve import synopsis_kv as skv
+  from repro_torch.serve.prefill import make_prefill_step
+  from repro_torch.serve.serve_step import make_serve_step
+  gen = torch.Generator(dev).manual_seed(0)
+  P = cfg.frontend_tokens
+  patches = torch.randn((BATCH, P, cfg.frontend_dim), generator=gen,
+                        device=dev).to(cfg.dtype)
+  text = torch.randint(0, cfg.vocab, (BATCH, PROMPT - P), generator=gen,
+                       device=dev)
+  _build.reset_launches()
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  logits, cache = make_prefill_step(cfg)(params, text, patches)
+  torch.cuda.synchronize()
+  prefill_ms = (time.perf_counter() - t0) * 1e3
+  t0 = time.perf_counter()
+  syn = skv.build(cache, cfg)
+  torch.cuda.synchronize()
+  build_ms = (time.perf_counter() - t0) * 1e3
+  want = {"flash_prefill": cfg.n_layers, "segment_build": 1}
+  _require_exact_launches(f"{tag} prefix prefill", _build.launch_counts(),
+                          want)
+  S = cache["k"].shape[4]
+  if (S != PROMPT or cache["pos"].tolist() != [PROMPT] * BATCH
+      or tuple(logits.shape) != (BATCH, cfg.vocab)
+      or not torch.isfinite(logits).all()):
+    raise AssertionError(f"{tag} prefix prefill: S={S}, pos "
+                         f"{cache['pos'].tolist()}, logits "
+                         f"{tuple(logits.shape)}")
+  M = syn["k_syn"].shape[4]
+  tok = logits.argmax(-1, keepdim=True)
+  lg_ex, _ = make_serve_step(cfg, mode="exact")(params, cache, tok)
+  lg_syn, _ = make_serve_step(cfg, mode="synopsis", i_max=M)(params, syn,
+                                                              tok)
+  rel = _max_err(lg_syn, lg_ex) / float(lg_ex.abs().max())
+  tv = float(0.5 * (torch.softmax(lg_syn, -1) - torch.softmax(lg_ex, -1))
+             .abs().sum(-1).mean())
+  print(f"{tag} prefix prefill: {P} patches + {PROMPT - P} tokens = {S} "
+        f"positions, B={BATCH}: prefill_ms={prefill_ms:.1f} build_ms="
+        f"{build_ms:.1f}; synopsis step at i_max=M={M} "
+        f"against the exact step: max err {rel:.3e} of max|exact| (tol "
+        f"1e-3), tv={tv:.6f}, argmax equal "
+        f"{bool(torch.equal(lg_syn.argmax(-1), lg_ex.argmax(-1)))}")
+  if not rel <= 1e-3:
+    raise AssertionError(f"{tag} prefix cache: full-budget step != exact "
+                         f"step: {rel}")
+
+
+def _model_loop(cfg, params, dev, tag, mode="synopsis", quant="none"):
+  """The budget-32 loop (or the exact loop) at full width, B = 2, prompt
+  8192, 130 steps, under ``quant``: exact launch counts, peak memory.
+  Returns (the run's output, its launch counts)."""
+  from repro_torch.kernels import _build
+  from repro_torch.launch import serve
+  qcfg = serve.apply_quant(cfg, quant)
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  _build.reset_launches()
+  out = serve.run(qcfg, batch=BATCH, prompt_len=PROMPT, tokens=STEPS,
+                  budgets=([cfg.synopsis.i_max] * STEPS
+                           if mode == "synopsis" else None),
+                  mode=mode, device=dev, params=params, log=lambda _: None)
+  torch.cuda.synchronize()
+  counts = _build.launch_counts()
+  peak = torch.cuda.max_memory_allocated() / 1e9
+  _check_run(out, cfg, absorbs=1 if mode == "synopsis" else 0)
+  label = (f"budget {cfg.synopsis.i_max} on every step"
+           if mode == "synopsis" else "exact")
+  print(f"{tag} loop quant={quant} {label}: prefill_ms="
+        f"{out['prefill_ms']:.1f} build_ms={out['build_ms']:.1f} decode_ms "
+        f"{_step_stats(out['step_ms'])} absorbs={out['absorbs']} "
+        f"peak_mem_gb={peak:.2f}")
+  _require_model_launches(f"{tag} loop {mode} quant={quant}", counts, cfg,
+                          STEPS, mode, quant)
+  return out, counts
+
+
+def run_model(arch, dev, g):
+  """One architecture at its published width and depth, random bf16
+  weights from seed 0: SMOKE parity card against CPU, the kernel checks
+  at its shapes, the budget-32 loop (130 steps, one absorb) with exact
+  launch counts, the full-budget deviation on its first global layer, a
+  profiled window (device busy share); under gemma2's table-only quant
+  specs the quantized build and stage 1 at its shapes, the same loop,
+  accuracy against exact, the full-budget deviation and each budget's
+  deviation from the unquantized arena (< 7%); the exact
+  loop and a profiled window, one step per budget against exact; the
+  vision stub's prefix prefill (pixtral); the unfused op; one engine
+  window under accuracytrader and basic.  Returns (records, {record
+  name: launches on its path})."""
   from repro_torch.configs.registry import get_config
   from repro_torch.kernels import _build, ops
   from repro_torch.launch import serve
   from repro_torch.models import transformer as tf
   from repro_torch.serve import synopsis_kv as skv
   from repro_torch.serve.engine import run_open_loop
+  from repro_torch.serve.serve_step import global_positions
   t_start = time.perf_counter()
-  cfg = get_config(GEMMA2)
-  print(f"{G2} {cfg.name} full width and depth: {cfg.n_layers} layers "
-        f"(local window {cfg.sliding_window} / global), d={cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd={cfg.hd}, vocab "
-        f"{cfg.vocab}, {cfg.param_count() / 1e9:.3f}B params, {cfg.dtype}; "
+  tag, smoke_runs, table_quants = MODELS[arch]
+  cfg = get_config(arch)
+  local = any(s.local for s in cfg.block_pattern)
+  pos = global_positions(cfg)[0]          # the first global (synopsis) layer
+  G = cfg.n_heads // cfg.n_kv_heads
+  print(f"{tag} {cfg.name} full width and depth, nothing cut: "
+        f"{cfg.n_layers} layers"
+        + (f" (local window {cfg.sliding_window} / global)" if local else "")
+        + f", d={cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads (G={G}),"
+        f" hd={cfg.hd}, d_ff={cfg.d_ff}, vocab {cfg.vocab}"
+        + (f", {cfg.frontend} {cfg.frontend_tokens}x{cfg.frontend_dim}"
+           if cfg.frontend else "")
+        + f", {cfg.param_count() / 1e9:.3f}B params, {cfg.dtype}; "
         f"B={BATCH} prompt={PROMPT} steps={STEPS}")
-  records = check_gemma2_kernels(cfg, dev, g)
+  check_arch_smoke_parity(arch, tag, smoke_runs, dev)
+  records = check_model_kernels(cfg, tag, dev, g)
+  for quant in table_quants:          # the branches the quantized loops run
+    for check in (check_segment_build_quant, check_fused_synopsis_quant):
+      rec = check(dev, torch.bfloat16, g, quant, cfg=cfg, tag=tag)
+      records[rec["name"]] = rec
+      torch.cuda.empty_cache()
   torch.cuda.empty_cache()
+  t0 = time.perf_counter()
   params = tf.init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
+  torch.cuda.synchronize()
+  print(f"{tag} random weights in {time.perf_counter() - t0:.1f}s")
   launches = {}
 
-  torch.cuda.reset_peak_memory_stats()
-  _build.reset_launches()
-  out = serve.run(cfg, batch=BATCH, prompt_len=PROMPT, tokens=STEPS,
-                  budgets=[cfg.synopsis.i_max] * STEPS, device=dev,
-                  params=params, log=lambda _: None)
-  counts = _build.launch_counts()
-  peak = torch.cuda.max_memory_allocated() / 1e9
-  _check_run(out, cfg)
-  print(f"{G2} loop: prefill_ms={out['prefill_ms']:.1f} "
-        f"({counts['flash_prefill']} flash_prefill launches) build_ms="
-        f"{out['build_ms']:.1f}; budget {cfg.synopsis.i_max} on every step: "
-        f"decode_ms {_step_stats(out['step_ms'])} absorbs={out['absorbs']} "
-        f"peak_mem_gb={peak:.2f}")
-  _require_gemma2_launches(f"{G2} loop", counts, cfg, STEPS, "synopsis")
+  out, counts = _model_loop(cfg, params, dev, tag)
   for name in ("flash_prefill", "segment_build",
-               "fused_synopsis_score_attention", "block_gather_attention",
-               "flash_decode"):
-    launches[f"{name}{G2}"] = counts[name]
-  check_full_budget(out["cache"], dev, g, pos=1, cap=cfg.attn_softcap,
-                    G=cfg.n_heads // cfg.n_kv_heads)
+               "fused_synopsis_score_attention", "block_gather_attention"):
+    launches[f"{name}{tag}"] = counts[name]
+  if local:
+    launches[f"flash_decode{tag}"] = counts["flash_decode"]
+  check_full_budget(out["cache"], dev, g, pos=pos, cap=cfg.attn_softcap,
+                    G=G)
   profile_decode(cfg, params, out["cache"], dev, cfg.synopsis.i_max)
   del out
+  for quant in table_quants:
+    out, counts = _model_loop(cfg, params, dev, tag, quant=quant)
+    for name in ("segment_build", "fused_synopsis_score_attention"):
+      key = _build.branch(name, quant)
+      launches[f"{key}{tag}"] = counts[key]
+    profile_decode(serve.apply_quant(cfg, quant), params, out["cache"], dev,
+                   cfg.synopsis.i_max)
+    del out
 
-  torch.cuda.empty_cache()
-  _build.reset_launches()
-  exact = serve.run(cfg, batch=BATCH, prompt_len=PROMPT, tokens=STEPS,
-                    mode="exact", device=dev, params=params,
-                    log=lambda _: None)
-  counts = _build.launch_counts()
-  _check_run(exact, cfg, absorbs=0)
-  print(f"{G2} exact: decode_ms {_step_stats(exact['step_ms'])} "
-        f"prefill_ms={exact['prefill_ms']:.1f}")
-  _require_gemma2_launches(f"{G2} exact", counts, cfg, STEPS, "exact")
+  exact, counts = _model_loop(cfg, params, dev, tag, mode="exact")
+  if not local:
+    launches[f"flash_decode{tag}"] = counts["flash_decode"]
   cache = exact["cache"]
   del exact
   profile_decode(cfg, params, cache, dev, 0, mode="exact")
   syn = skv.build(cache, cfg)
   check_accuracy_vs_exact(cfg, params, cache, syn, dev)
+  for quant in table_quants:
+    qcfg = serve.apply_quant(cfg, quant)
+    qsyn = skv.build(cache, qcfg)
+    check_accuracy_vs_exact(qcfg, params, cache, qsyn, dev,
+                            budgets=(0, 8, 32, 64))
+    check_full_budget_quant(cache, qsyn, quant, dev, g, pos=pos, G=G,
+                            cap=cfg.attn_softcap)
+    check_budget_quant(syn, qsyn, quant, dev, g, pos=pos, G=G,
+                       cap=cfg.attn_softcap)
+    del qsyn
   del cache
+  if cfg.frontend:
+    check_prefix_prefill(cfg, params, dev, tag)
 
-  # The unfused op on a global layer: synopsis_score's path at D = 256.
-  k, v = syn["k"][0, 1], syn["v"][0, 1]
+  # The unfused op on a global layer: synopsis_score's path.
+  k, v = syn["k"][0, pos], syn["v"][0, pos]
   Bq, Hkv, _, D = k.shape
   q = torch.randn((Bq, cfg.n_heads, D), generator=g, device=dev)
   q = (q * 2.0 * D ** 0.5 / k.float().norm(dim=-1).mean()).to(k.dtype)
-  args = (q, k, v, syn["k_syn"][0, 1], syn["v_syn"][0, 1],
-          syn["counts"][0, 1])
+  args = (q, k, v, syn["k_syn"][0, pos], syn["v_syn"][0, pos],
+          syn["counts"][0, pos])
   kw = dict(i_max=cfg.synopsis.i_max, sm_scale=D ** -0.5,
             cap=cfg.attn_softcap)
   _build.reset_launches()
   a = ops.synopsis_attention(*args, **kw)
   torch.cuda.synchronize()
   counts = _build.launch_counts()
-  _require_launches(f"{G2} unfused op", counts,
+  _require_launches(f"{tag} unfused op", counts,
                     ("synopsis_score", "flash_decode",
                      "block_gather_attention"))
-  launches[f"synopsis_score{G2}"] = counts["synopsis_score"]
+  launches[f"synopsis_score{tag}"] = counts["synopsis_score"]
   b = ops.synopsis_cache_attention(*args[:6], i_max=kw["i_max"],
                                    cluster_size=cfg.synopsis.cluster_size,
                                    sm_scale=kw["sm_scale"], cap=kw["cap"])
   rel = _max_err(a, b) / float(a.abs().max())
-  print(f"{G2} unfused op against the fused one, global layer, cap "
+  print(f"{tag} unfused op against the fused one, layer {pos}, cap "
         f"{cfg.attn_softcap}: max err {rel:.2e} of max|out| (tol 1e-3)")
   if not rel <= 1e-3:
-    raise AssertionError(f"gemma2 fused != unfused: {rel}")
+    raise AssertionError(f"{tag} fused != unfused: {rel}")
   del syn, args, k, v
 
   for policy in ("accuracytrader", "basic"):
@@ -2367,18 +2639,19 @@ def run_gemma2(dev, g):
     built_s = time.perf_counter() - t0
     s = run_open_loop(eng, ENGINE_RATE, ENGINE_WINDOW_S, seed=0)
     counts = _build.launch_counts()
-    print(f"{G2} engine {policy}: {n_graphs} graphs captured in "
+    print(f"{tag} engine {policy}: {n_graphs} graphs captured in "
           f"{built_s:.1f}s; peak_mem_gb="
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
-    _engine_metrics(f"{G2} {policy}", s, eng)
-    # The local layers' flash_decode is captured in every bucket's graph
+    _engine_metrics(f"{tag} {policy}", s, eng)
+    # A local layer's flash_decode is captured in every bucket's graph
     # beside the global layers' two synopsis kernels.
-    _require_launches(f"{G2} engine {policy}", counts, ENGINE_KERNELS + (
-        "flash_decode",), absent=("synopsis_score",))
+    _require_launches(f"{tag} engine {policy}", counts, ENGINE_KERNELS + (
+        ("flash_decode",) if local else ()), absent=("synopsis_score",) + (
+            () if local else ("flash_decode",)))
     del eng
   del params
   torch.cuda.empty_cache()
-  print(f"{G2} phase in {time.perf_counter() - t_start:.1f}s")
+  print(f"{tag} phase in {time.perf_counter() - t_start:.1f}s")
   return records, launches
 
 
@@ -2559,11 +2832,15 @@ def main() -> int:
   print(f"[phase 11] contracts, admission, cache, pipeline in "
         f"{time.perf_counter() - t_new:.1f}s")
 
-  # gemma2-2b at full width: its own weights, so llama3-8b's go first.
+  # The other architectures at full width: each its own weights, so
+  # llama3-8b's go first, and each model's before the next one's.
   del params
   torch.cuda.empty_cache()
-  g2_records, g2_launches = run_gemma2(dev, g)
-  records.update(g2_records)
+  model_launches = {}
+  for arch in MODELS:
+    arch_records, arch_launches = run_model(arch, dev, g)
+    records.update(arch_records)
+    model_launches.update(arch_launches)
 
   # Each kernel branch's launches on the path that runs it: the synopsis
   # loop's four, the exact loop's flash_decode, the unfused op's
@@ -2579,7 +2856,7 @@ def main() -> int:
       if key in _build.KERNELS:            # unquantized: the runs above
         continue
       path_launches[key] = max(path_launches.get(key, 0), counts[key])
-  path_launches.update(g2_launches)
+  path_launches.update(model_launches)
   missing = sorted(set(records) ^ set(path_launches))
   idle = [k for k, n in path_launches.items() if n == 0]
   if missing or idle:

@@ -49,11 +49,14 @@ def arena_from_numpy(arena: Dict, device) -> Dict[str, torch.Tensor]:
 def params_from_numpy(tree: Dict, cfg: ModelConfig, device) -> Dict:
   """The JAX tree -> the port's parameters.  A tied config's tree has no
   ``unembed`` (the logits read ``embed``), an untied one needs it; under
-  sandwich norms every layer carries ``ln1_post`` and ``ln2_post``."""
+  sandwich norms every layer carries ``ln1_post`` and ``ln2_post``; a
+  frontend needs ``frontend_proj``."""
   tf.check_supported(cfg)
   want = {"embed", "final_norm", "blocks"}
   if not cfg.tie_embeddings:
     want.add("unembed")
+  if cfg.frontend:
+    want.add("frontend_proj")
   missing = want - set(tree)
   if cfg.sandwich_norm:
     missing |= {f"blocks/{pos}/{name}" for pos, lp in tree.get(

@@ -11,6 +11,8 @@ from repro_torch.models.common import ModelConfig
 _MODULES: Dict[str, str] = {
     "llama3-8b": "repro_torch.configs.llama3_8b",
     "gemma2-2b": "repro_torch.configs.gemma2_2b",
+    "smollm-135m": "repro_torch.configs.smollm_135m",
+    "pixtral-12b": "repro_torch.configs.pixtral_12b",
 }
 
 

@@ -18,8 +18,14 @@ the device is a GPU.
       [--quant {none,int8,fp8,int8+kv,fp8+kv}] [--batches 2 --pipeline]
   # gemma2-2b: local (window 4096) and global layers, softcaps, sandwich
   # norms, tied embeddings; the loop, --mode exact and --engine alike
+  # (on the card --quant int8 / fp8 only: the +kv specs would hand its
+  # local layers' flash_decode int8 / fp8 codes, and are refused)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \\
       --no-smoke --prompt-len 8192 --tokens 130 [--mode exact]
+  # smollm-135m (9/3 heads of 64) and pixtral-12b (the vision stub's
+  # backbone; as in the JAX launcher, no patch input: text prompts only)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
+      --no-smoke --prompt-len 8192 --tokens 130 [--mode exact | --engine]
 
 ``--device cpu`` runs the plain PyTorch versions of the kernels (tests);
 without it the driver needs a CUDA device and refuses to run otherwise.
@@ -68,7 +74,7 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.common import ModelConfig
 from repro_torch.serve import synopsis_kv as skv
 from repro_torch.serve.prefill import make_prefill_step
-from repro_torch.serve.serve_step import make_serve_step
+from repro_torch.serve.serve_step import check_quant_device, make_serve_step
 
 BUCKETS = (0, 1, 2, 4, 8, 16, 32)
 
@@ -110,7 +116,9 @@ def run(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int,
   is queued (the JAX loop's dispatch order).
 
   ``cfg.synopsis.quant`` selects the quantized synopsis arena
-  (:func:`apply_quant`); exact mode builds no arena and refuses it.
+  (:func:`apply_quant`); exact mode builds no arena and refuses it, and a
+  CUDA device refuses a ``+kv`` spec for a config with local layers
+  (``serve_step.check_quant_device``).
 
   ``mode="exact"`` skips the build and the controller and records budget
   0 for every step.  Like the JAX loop it only advances ``pos``: the new
@@ -124,6 +132,7 @@ def run(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int,
   build (``prefill_build_ms``), the number of absorbs and the final
   cache; with ``keep_logits`` also every step's logits (``step_logits``,
   the prefill's first)."""
+  check_quant_device(cfg, device)
   if mode not in ("synopsis", "exact"):
     raise ValueError(f"mode={mode!r}: expected 'synopsis' or 'exact'")
   if mode == "exact" and budgets is not None:

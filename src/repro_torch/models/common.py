@@ -1,7 +1,8 @@
 """Model configs: the port's own copy of ``repro.models.common``'s config
 dataclasses, cut to what the dense GQA serving path reads (llama3's global
 attention; gemma2's local layers, softcaps, sandwich norms, embedding
-scale and tied embeddings).  ``dtype`` is a torch dtype."""
+scale and tied embeddings; pixtral's vision-stub patch prefix).  ``dtype``
+is a torch dtype."""
 from __future__ import annotations
 
 import dataclasses
@@ -46,6 +47,11 @@ class ModelConfig:
   sandwich_norm: bool = False             # post-block norms (gemma2)
   scale_embed: bool = False               # sqrt(d) embedding scale (gemma2)
   tie_embeddings: bool = False            # logits read embed.T (gemma2)
+  # "vision_stub" (pixtral): precomputed patch embeddings, projected by
+  # ``frontend_proj`` (frontend_dim, d), prefix the prompt's text.
+  frontend: Optional[str] = None
+  frontend_tokens: int = 0                # prefix tokens from the frontend
+  frontend_dim: int = 0                   # the stub embedding's width
   synopsis: SynopsisConfig = SynopsisConfig()
   dtype: Any = torch.bfloat16
 
@@ -61,6 +67,8 @@ class ModelConfig:
     return self.n_layers // len(self.block_pattern)
 
   def param_count(self) -> int:
+    """The JAX count plus the norm gains; like the JAX count it leaves
+    out ``frontend_proj``."""
     c = self
     per = c.d_model * c.hd * (c.n_heads * 2 + c.n_kv_heads * 2)
     per += 3 * c.d_model * c.d_ff + 2 * c.d_model

@@ -2,14 +2,16 @@
 architectures the port runs: llama3's global layers, and gemma2's
 alternating local (sliding-window) and global layers with attention and
 final-logit softcaps, sandwich norms, a sqrt(d) embedding scale and tied
-embeddings).
+embeddings; pixtral's vision stub, whose projected patch embeddings
+prefix the text embeddings).
 
 Parameters are a nested dict with the JAX tree's keys and layouts, stacked
 per pattern position with a leading layer axis:
 ``{"embed" (V, d), "final_norm" (d,), "unembed" (d, V), "blocks": {"pos0":
 {"ln1", "attn": {"wq", "wk", "wv", "wo"}, "ln2", "mlp": {"w1", "w3",
 "w2"}}}}``; with sandwich norms each layer also has ``ln1_post`` and
-``ln2_post``, and with tied embeddings the JAX tree has no ``unembed``.
+``ln2_post``, with tied embeddings the JAX tree has no ``unembed``, and
+with the vision stub it has ``frontend_proj`` (frontend_dim, d).
 A Python loop over layers takes the place of ``lax.scan``.
 
 Logits are taken in f32 (``h.float() @ unembed.float()``, or
@@ -34,11 +36,15 @@ from repro_torch.models.layers import rms_norm, softcap, swiglu
 
 
 def check_supported(cfg: ModelConfig) -> None:
-  """The port runs dense GQA attention layers, global or local (for now):
-  no SSM, MoE, MLA, cross-attention or encoder layers."""
+  """The port runs dense GQA attention layers, global or local (for now),
+  and the vision stub's patch prefix: no SSM, MoE, MLA, cross-attention or
+  encoder layers, and no other frontend."""
   if any(s.kind != "attn" for s in cfg.block_pattern):
     raise NotImplementedError(f"{cfg.name}: the port runs attention layers "
                               "only")
+  if cfg.frontend not in (None, "vision_stub"):
+    raise NotImplementedError(f"{cfg.name}: frontend {cfg.frontend!r}; the "
+                              "port runs the vision stub only")
 
 
 def _trunc_normal(shape, scale, generator, device, dtype):
@@ -63,10 +69,11 @@ def _stacked(n, shape, scale, generator, device, dtype):
 def init_model(cfg: ModelConfig, generator: torch.Generator,
                device) -> Dict:
   """Random weights with the JAX init's scales: truncated normal (+-2
-  sigma), by default times ``shape[-2]^-0.5``, embed scale 1.0, ``wo`` scale
-  (H*hd)^-0.5, norm gains zero (the norm is ``x * (1 + w)``).  The
-  numbers differ from the JAX init's: torch cannot replay JAX's RNG (use
-  ``repro_torch.bridge.params_from_numpy`` to load the same weights)."""
+  sigma), by default times ``shape[-2]^-0.5`` (``frontend_proj`` too),
+  embed scale 1.0, ``wo`` scale (H*hd)^-0.5, norm gains zero (the norm is
+  ``x * (1 + w)``).  The numbers differ from the JAX init's: torch cannot
+  replay JAX's RNG (use ``repro_torch.bridge.params_from_numpy`` to load
+  the same weights)."""
   check_supported(cfg)
   d, H, Hkv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                       cfg.d_ff)
@@ -100,6 +107,8 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
   }
   if not cfg.tie_embeddings:
     params["unembed"] = _trunc_normal((d, cfg.vocab), None, **kw)
+  if cfg.frontend:
+    params["frontend_proj"] = _trunc_normal((cfg.frontend_dim, d), None, **kw)
   return finish_params(params, cfg)
 
 
@@ -130,10 +139,23 @@ def embed_scale(cfg: ModelConfig) -> Optional[float]:
   return float(torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype))
 
 
-def embed_tokens(params, cfg: ModelConfig, tokens):
+def embed_tokens(params, cfg: ModelConfig, tokens, frontend_embeds=None):
+  """Token ids (B, S) -> (B, S, d) in ``cfg.dtype``; with the vision stub's
+  ``frontend_embeds`` (B, P, frontend_dim) -> (B, P + S, d), the projected
+  patches first (the product in the promoted dtype, then cast, as the JAX
+  einsum does)."""
   x = params["embed"][tokens].to(cfg.dtype)
   scale = embed_scale(cfg)
-  return x if scale is None else x * scale
+  x = x if scale is None else x * scale
+  if frontend_embeds is None:
+    return x
+  if cfg.frontend != "vision_stub":
+    raise ValueError(f"{cfg.name} has no vision stub to take "
+                     "frontend_embeds")
+  proj = params["frontend_proj"]
+  dt = torch.promote_types(frontend_embeds.dtype, proj.dtype)
+  prefix = torch.matmul(frontend_embeds.to(dt), proj.to(dt)).to(cfg.dtype)
+  return torch.cat([prefix, x], dim=1)
 
 
 def post_norm(y, lp, name: str, cfg: ModelConfig):
@@ -162,13 +184,14 @@ def _layer_forward(x, lp, cfg: ModelConfig, spec: LayerSpec, positions):
 
 
 def hidden_states(params, cfg: ModelConfig, tokens,
-                  collect_kv: bool = False):
-  """Token ids (B, S) -> final hidden states (B, S, d); with
+                  collect_kv: bool = False, frontend_embeds=None):
+  """Token ids (B, T) -> final hidden states (B, S, d), S = T plus the
+  patch prefix of ``frontend_embeds`` (rope positions run over both); with
   ``collect_kv`` also {"k", "v"} in the cache layout (nb, na, B, Hkv, S,
   D), written layer by layer into one preallocated tensor each."""
   check_supported(cfg)
-  x = embed_tokens(params, cfg, tokens)
-  B, S = tokens.shape
+  x = embed_tokens(params, cfg, tokens, frontend_embeds)
+  B, S = x.shape[:2]
   positions = torch.arange(S, device=x.device)
   kv: Optional[Dict] = None
   if collect_kv:

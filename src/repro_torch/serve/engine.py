@@ -95,7 +95,8 @@ from repro_torch.serve import synopsis_kv as skv
 from repro_torch.serve.corpus_cache import CacheConfig
 from repro_torch.serve.graphs import Programs
 from repro_torch.serve.prefill import make_extend_step, make_prefill_step
-from repro_torch.serve.serve_step import (global_positions, make_serve_step,
+from repro_torch.serve.serve_step import (check_quant_device,
+                                          global_positions, make_serve_step,
                                           synopsis_decode_attention)
 from repro_torch.serving.service import _default_concentration
 from repro_torch.serving.workload import poisson_arrivals
@@ -216,6 +217,7 @@ class ServingEngine:
     _refuse_backend(backend)
     check_contract(ecfg.contract)
     tf.check_supported(cfg)
+    check_quant_device(cfg, device)
     C = cfg.synopsis.cluster_size
     if ecfg.prompt_len % C != 0:
       raise ValueError(f"prompt_len {ecfg.prompt_len} % cluster_size {C}")

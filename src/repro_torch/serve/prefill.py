@@ -2,7 +2,9 @@
 run the full prompt and emit (last-token logits, decode cache).
 
 The cache comes out in the decode layout (nb, na, B, Hkv, S, D) with
-``pos`` (B,); ``serve.synopsis_kv.build`` then clusters it into the
+``pos`` (B,), S the prompt's tokens plus the vision stub's patch prefix
+where ``frontend_embeds`` is given (the loop and the engine give none, as
+in the JAX package); ``serve.synopsis_kv.build`` then clusters it into the
 synopsis.  Causal attention runs through ``kernels.ops.prefill_attention``
 (the flash prefill kernel on CUDA tensors).
 
@@ -23,10 +25,11 @@ def make_prefill_step(cfg: ModelConfig):
   tf.check_supported(cfg)
 
   @torch.no_grad()
-  def prefill_step(params, tokens):
-    h, kv = tf.hidden_states(params, cfg, tokens, collect_kv=True)
+  def prefill_step(params, tokens, frontend_embeds=None):
+    h, kv = tf.hidden_states(params, cfg, tokens, collect_kv=True,
+                             frontend_embeds=frontend_embeds)
     logits = tf.logits_fn(params, cfg, h[:, -1])             # (B, V) f32
-    B, S = tokens.shape
+    B, S = h.shape[:2]
     cache = {"k": kv["k"], "v": kv["v"],
              "pos": torch.full((B,), S, dtype=torch.int32,
                                device=tokens.device)}
@@ -78,12 +81,16 @@ def make_extend_step(cfg: ModelConfig):
   Gate on ``corpus_cache.supports_delta``.  Each layer's f32 logits (B,
   Hkv, G, E, P+E) are transient (4.3 GB a layer at llama3-8b's width for
   P = E = 4096) and freed before the next layer.  A sliding-window layer
-  would couple the extension to the prefix's order, so a config with one
-  is refused (``corpus_cache.supports_delta`` is False for it)."""
+  would couple the extension to the prefix's order, and a frontend to
+  prefix inputs the arena does not hold, so a config with either is
+  refused (``corpus_cache.supports_delta`` is False for it)."""
   tf.check_supported(cfg)
   if any(s.local for s in cfg.block_pattern):
     raise NotImplementedError(f"{cfg.name}: no delta prefill over "
                               "sliding-window layers")
+  if cfg.frontend:
+    raise NotImplementedError(f"{cfg.name}: no delta prefill behind a "
+                              "frontend prefix")
 
   @torch.no_grad()
   def extend_step(params, ext_tokens, prefix_k, prefix_v, pos0: int):

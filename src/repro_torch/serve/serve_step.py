@@ -127,6 +127,28 @@ def global_positions(cfg: ModelConfig) -> Tuple[int, ...]:
   return tuple(i for i, s in enumerate(cfg.block_pattern) if not s.local)
 
 
+def check_quant_device(cfg: ModelConfig, device) -> None:
+  """Refuse a ``+kv`` quant spec on a CUDA device for a config with local
+  layers, before anything runs.  Under ``+kv`` the sorted cache holds
+  int8 / fp8 codes, and a local layer hands its window of that cache to
+  exact decode as given (the JAX step does the same, unscaled): the CPU's
+  plain version mirrors that, but ``flash_decode`` does not attend over
+  raw codes.  The table-only specs keep the sorted cache in ``cfg.dtype``."""
+  qc = qt.parse_qconfig(cfg.synopsis.quant)
+  on_card = device is None or torch.device(device).type == "cuda"
+  if not qc.sorted_kv or not on_card:
+    return
+  n = len(cfg.block_pattern)
+  local = [b * n + i for b in range(cfg.n_blocks)
+           for i, s in enumerate(cfg.block_pattern) if s.local]
+  if local:
+    raise ValueError(
+        f"{cfg.name}: quant={qc.spec} stores the sorted cache as {qc.kind} "
+        f"codes, and the local (sliding-window) layers {local} decode over "
+        f"their window of it with flash_decode, which does not attend over "
+        f"raw codes; use quant={qc.kind} (tables only) on the card")
+
+
 def make_serve_step(cfg: ModelConfig, *, mode: str = "synopsis",
                     i_max: Optional[int] = None, attention_fn=None):
   """Returns serve_step(params, cache, tokens (B, 1)) -> (logits (B, V)

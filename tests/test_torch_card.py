@@ -24,6 +24,7 @@ from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.kernels.fused_synopsis import fused_synopsis_score_attention
 from repro_torch.kernels.synopsis_build import segment_build
 from repro_torch.kernels.synopsis_score import synopsis_score
+from repro_torch.launch import parity
 
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
        torch.bfloat16: dict(rtol=1e-3, atol=1e-3)}
@@ -195,6 +196,9 @@ def test_cpu_tensors_run_the_plain_versions_without_launching():
     ((2, 600, 2, 2, 256), 200, 50.0),       # cap 50 with window
     ((1, 300, 1, 8, 256), 57, 50.0),        # G = 8
     ((1, 64, 1, 2, 256), None, 50.0),       # one whole tile, G = 2
+    # smollm-135m's heads (G = 3, D = 64): 42 positions a tile, rows 126
+    # and 127 of each tile empty; ragged S.
+    ((2, 2100, 3, 3, 64), None, None),
 ])
 def test_card_flash_prefill(cuda, dtype, shape, window, cap):
   q, k, v = _to(cuda, dtype, *_prefill_inputs(shape))
@@ -522,6 +526,44 @@ def test_card_synopsis_score_head_dims(cuda, dtype, D, G):
   for sm in (D ** -0.5, -(D ** -0.5)):
     _close(synopsis_score(q, k_syn, sm_scale=sm), (logits * sm).amax(2),
            TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kernel", ["flash_decode", "fused_synopsis",
+                                    "block_gather", "synopsis_score"])
+def test_card_decode_kernels_at_g3_d64(cuda, dtype, kernel):
+  """smollm-135m's heads: 3 KV heads of 64, G = 3, which the decode core
+  and the score kernel pad to a bucket of 4 with a zero head row that must
+  stay out of every output; ragged sizes (S not a multiple of a chunk, M
+  not of a warp tile, C not of a key tile)."""
+  B, Hkv, G, D = 2, 3, 3, 64
+  g = torch.Generator().manual_seed(21)
+  sm = D ** -0.5
+  for n in (65, 301, 8191):
+    q, k, v = _to(cuda, dtype, *_decode_inputs(g, n, D=D, B=B, Hkv=Hkv,
+                                               G=G))
+    if kernel == "flash_decode":
+      bias = torch.log(torch.randint(1, 129, (B, Hkv, n), generator=g)
+                       .float()).to(cuda)
+      for a, b in zip(flash_decode(q, k, v, bias, sm_scale=sm),
+                      ref.flash_decode_ref(q, k, v, bias, sm_scale=sm)):
+        _close(a, b, TOL[dtype])
+    elif kernel == "fused_synopsis":
+      cbias = torch.log(torch.randint(1, 129, (B, n), generator=g)
+                        .float()).to(cuda)
+      got = fused_synopsis_score_attention(q, k, v, cbias, sm_scale=sm)
+      want = ref.fused_synopsis_score_attention_ref(q, k, v, cbias,
+                                                    sm_scale=sm)
+      for a, b in zip((got[0], *got[1]), (want[0], *want[1])):
+        _close(a, b, TOL[dtype])
+    elif kernel == "synopsis_score":
+      _close(synopsis_score(q, k, sm_scale=sm),
+             ref.synopsis_score_ref(q, k, sm_scale=sm), TOL[dtype])
+    else:
+      C, M, I = (48, 6, 3) if n < 8191 else (128, 64, 32)
+      _check_gather(cuda, dtype, *_gather_inputs(
+          "padded", M * C, D=D, C=C, G=G, Hkv=Hkv, E=129, I=I, seed=n))
 
 
 @pytest.mark.cuda
@@ -1022,62 +1064,89 @@ def _tree_to(tree, dev):
           for k, v in tree.items()}
 
 
-def _gemma2_smoke():
-  import dataclasses
-  from repro_torch.configs.registry import get_config
-  from repro_torch.models import transformer as tf
-  cfg = dataclasses.replace(get_config("gemma2-2b", smoke=True),
-                            dtype=torch.float32)
-  return cfg, tf.init_model(cfg, torch.Generator().manual_seed(2), "cpu")
+def _check_loop_on_card(arch, mode, quant="none"):
+  """The arch's SMOKE loop in f32 (tf32 off), prompt 64, 18 steps (one
+  absorb in synopsis mode), on the card (kernels) and on the CPU (plain
+  versions): the same ids, and every step's logits within 1e-4 of
+  max|logits| (f32 sums in another order through two layers;
+  ``parity.loop_parity``).  The card launches flash_prefill once a layer,
+  flash_decode twice a step on each layer that decodes exactly (every
+  layer in exact mode, the local ones in synopsis mode), and stage 1 on
+  the quant spec's branch."""
+  dev = _card_or_skip()
+  cfg = parity.smoke_f32(arch)[0]
+  launched, _ = parity.loop_parity(arch, dev, mode, quant)
+  exact = cfg.n_layers if mode == "exact" else sum(
+      s.local for s in cfg.block_pattern) * cfg.n_blocks
+  assert launched["flash_prefill"] == cfg.n_layers
+  assert launched["flash_decode"] == 2 * exact * 18
+  if mode == "synopsis":
+    assert launched[_build.branch("fused_synopsis_score_attention",
+                                  qt.parse_qconfig(quant).kind)] > 0
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["synopsis", "exact"])
 def test_card_gemma2_loop_equals_the_cpu(mode):
-  """gemma2-2b SMOKE in f32 (tf32 off), 18 steps (one absorb in synopsis
-  mode): the loop on the card (kernels: the softcap and window branches,
-  flash_decode on the local layers' window views) and on the CPU (plain
-  versions) give the same ids, and every step's logits within 1e-4 of
-  max|logits| (f32 sums in another order through two layers)."""
-  from repro_torch.launch import serve
-  dev = _card_or_skip()
-  cfg, params = _gemma2_smoke()
-  prompt = torch.randint(0, cfg.vocab, (2, 64),
-                         generator=torch.Generator().manual_seed(3))
-  budgets = None if mode == "exact" else [2, 1, 0] * 6
-  outs = {}
-  for where in ("cpu", dev):
-    before = _build.launch_counts()
-    outs[str(where)] = serve.run(
-        cfg, batch=2, prompt_len=64, tokens=18, device=where,
-        params=_tree_to(params, where), prompt=prompt.to(where),
-        budgets=budgets, mode=mode, keep_logits=True, log=lambda _: None)
-    launched = {k: n - before[k] for k, n in _build.launch_counts().items()}
-    if str(where) == "cpu":
-      assert not any(launched.values())
-    else:
-      assert launched["flash_prefill"] == cfg.n_layers
-      assert launched["flash_decode"] >= 2 * 18       # the local layers
-  cpu, card = outs["cpu"], outs["cuda"]
-  assert torch.equal(card["tokens"].cpu(), cpu["tokens"])
-  for a, b in zip(card["step_logits"], cpu["step_logits"]):
-    torch.testing.assert_close(a.cpu(), b, rtol=0,
-                               atol=1e-4 * float(b.abs().max()))
+  """gemma2-2b: the softcap and window branches, flash_decode on the
+  local layers' window views."""
+  _check_loop_on_card("gemma2-2b", mode)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arm", [dict(policy="fixed", fixed_budget=1),
-                                 dict(policy="basic")],
-                         ids=["fixed1", "basic"])
-def test_card_gemma2_engine_equals_the_cpu(arm):
-  """gemma2-2b SMOKE in f32: the engine on the card (graphs, kernels; the
-  local layers' flash_decode captured in each bucket's graph) and on the
-  CPU give the same ids, and each step's logits within 1e-4 of
+@pytest.mark.parametrize("quant", ["int8", "fp8"])
+def test_card_gemma2_table_quant_loop_equals_the_cpu(quant):
+  """gemma2-2b under int8 / fp8 (tables only): stage 1 on the quantized
+  tables with cap 50, the local layers' flash_decode on the unquantized
+  sorted cache."""
+  _check_loop_on_card("gemma2-2b", "synopsis", quant)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["synopsis", "exact"])
+def test_card_smollm_loop_equals_the_cpu(mode):
+  _check_loop_on_card("smollm-135m", mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["synopsis", "exact"])
+def test_card_pixtral_loop_equals_the_cpu(mode):
+  _check_loop_on_card("pixtral-12b", mode)
+
+
+@pytest.mark.cuda
+def test_card_pixtral_prefix_prefill_equals_the_cpu():
+  """pixtral-12b SMOKE in f32: 8 patch embeddings and 56 tokens, the
+  prefill on the card (flash_prefill over all 64 positions) and on the
+  CPU: logits and the cache within 1e-4 of max (f32 sums in another
+  order), pos 64."""
+  from repro_torch.serve.prefill import make_prefill_step
+  dev = _card_or_skip()
+  cfg, params = parity.smoke_f32("pixtral-12b")
+  g = torch.Generator().manual_seed(4)
+  tokens = torch.randint(0, cfg.vocab, (2, 56), generator=g)
+  patches = _rand(g, 2, cfg.frontend_tokens, cfg.frontend_dim)
+  prefill = make_prefill_step(cfg)
+  want = prefill(params, tokens, patches)
+  n0 = _build.LAUNCHES["flash_prefill"]
+  got = prefill(_tree_to(params, dev), tokens.to(dev), patches.to(dev))
+  torch.cuda.synchronize()
+  assert _build.LAUNCHES["flash_prefill"] == n0 + cfg.n_layers
+  for a, b in ((got[0], want[0]), (got[1]["k"], want[1]["k"]),
+               (got[1]["v"], want[1]["v"])):
+    torch.testing.assert_close(a.cpu(), b, rtol=0,
+                               atol=1e-4 * float(b.abs().max()))
+  assert got[1]["pos"].tolist() == [64, 64]
+
+
+def _check_engine_on_card(arch, arm):
+  """The arch's SMOKE engine in f32 on the card (graphs, kernels) and on
+  the CPU: the same ids, and each step's logits within 1e-4 of
   max|logits|."""
   from repro_torch.serve.engine import (EngineConfig, ServingEngine,
                                         make_requests)
   dev = _card_or_skip()
-  cfg, params = _gemma2_smoke()
+  cfg, params = parity.smoke_f32(arch)
   ids, logs = {}, {}
   for where in ("cpu", dev):
     before = _build.launch_counts()
@@ -1085,7 +1154,7 @@ def test_card_gemma2_engine_equals_the_cpu(arm):
         n_slots=2, prompt_len=64, max_new_tokens=ENGINE_NEW,
         overlap_admission=False, **arm), params=_tree_to(params, where),
         device=where)
-    if str(where) != "cpu":
+    if str(where) != "cpu" and any(s.local for s in cfg.block_pattern):
       assert _build.launch_counts()["flash_decode"] > before["flash_decode"]
     log = logs[str(where)] = []
     inner = eng._decode_step
@@ -1104,6 +1173,26 @@ def test_card_gemma2_engine_equals_the_cpu(arm):
   for a, b in zip(logs["cuda"], logs["cpu"]):
     torch.testing.assert_close(a, b, rtol=0,
                                atol=1e-4 * float(b.abs().max()))
+
+
+ENGINE_ARMS = dict(argnames="arm", argvalues=[
+    dict(policy="fixed", fixed_budget=1), dict(policy="basic")],
+                   ids=["fixed1", "basic"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(**ENGINE_ARMS)
+def test_card_gemma2_engine_equals_the_cpu(arm):
+  """gemma2-2b: the local layers' flash_decode is captured in each
+  bucket's graph."""
+  _check_engine_on_card("gemma2-2b", arm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["smollm-135m", "pixtral-12b"])
+@pytest.mark.parametrize(**ENGINE_ARMS)
+def test_card_arch_engine_equals_the_cpu(arch, arm):
+  _check_engine_on_card(arch, arm)
 
 
 # -- the contracts' telemetry, the corpus cache and delta replay ---------------

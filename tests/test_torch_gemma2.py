@@ -21,7 +21,11 @@ of every step, not only the ids.
   the raw loss estimates under ``deadline_with_bound`` (the coverage
   profile averages the global layers only).
 * ``supports_delta`` is False, as in the JAX package.
-* ``int8+kv`` at SMOKE size: the loop's ids and logits.
+* ``int8+kv`` at SMOKE size: the loop's ids and logits; ``int8`` and
+  ``fp8`` (tables only: the sorted cache stays in the model's dtype) the
+  same.  On a CUDA device ``int8+kv`` / ``fp8+kv`` are refused at the entry
+  of the loop and of the engine (flash_decode does not attend over the
+  codes the local layers would hand it), before any tensor is made.
 """
 import dataclasses
 
@@ -50,7 +54,9 @@ from repro_torch.models import transformer as tf
 from repro_torch.serve import corpus_cache as ccache
 from repro_torch.serve.engine import EngineConfig, ServingEngine, make_requests
 from repro_torch.serve.prefill import make_extend_step, make_prefill_step
-from repro_torch.serve.serve_step import global_positions, make_serve_step
+from repro_torch.serve import engine as engine_mod
+from repro_torch.serve.serve_step import (check_quant_device,
+                                          global_positions, make_serve_step)
 
 ARCH = "gemma2-2b"
 B, S = 2, 64
@@ -332,6 +338,56 @@ def test_int8_kv_loop_matches_jax(gemma):
   np.testing.assert_array_equal(out["tokens"].numpy(), want_ids)
   for got, want in zip(out["step_logits"], want_logits):
     _close(got, want)
+
+
+@pytest.mark.parametrize("quant", ["int8", "fp8"])
+def test_table_quant_loop_matches_jax(gemma, quant):
+  """int8 / fp8 quantize the synopsis tables only: the global layers run
+  stage 1 on the quantized tables, the local layers read their window of
+  the unquantized sorted cache; ids and every step's logits, budgets [2,
+  1, 0] * 6 (one absorb)."""
+  jcfg, jparams, cfg, params, prompt, basis = gemma
+  jq = dataclasses.replace(jcfg, synopsis=dataclasses.replace(
+      jcfg.synopsis, quant=quant))
+  q = launch.apply_quant(cfg, quant)
+  budgets = [2, 1, 0] * 6
+  want_ids, want_logits, _ = _jax_loop(jq, jparams, prompt, budgets)
+  out = _port_loop(q, params, prompt, basis, budgets)
+  assert out["cache"]["k"].dtype == torch.float32 and out["absorbs"] == 1
+  assert out["cache"]["k_syn"].dtype == (torch.int8 if quant == "int8" else
+                                         torch.float8_e4m3fn)
+  np.testing.assert_array_equal(out["tokens"].numpy(), want_ids)
+  for got, want in zip(out["step_logits"], want_logits):
+    _close(got, want)
+
+
+@pytest.mark.parametrize("quant", ["int8+kv", "fp8+kv"])
+def test_kv_quant_refused_on_the_card_at_entry(gemma, quant, monkeypatch):
+  """On a CUDA device the +kv specs raise at the entry of the loop and of
+  the engine, naming the local layers, before any tensor is made: the
+  device is not even resolved (here, without a card, resolving it would
+  raise something else).  The table-only spec, another arch's +kv and the
+  CPU pass the check."""
+  _, _, cfg, _, _, _ = gemma
+  q = launch.apply_quant(cfg, quant)
+
+  def reached(*a, **kw):
+    raise AssertionError("the refusal came after the entry")
+  for mod in (launch, engine_mod):
+    monkeypatch.setattr(mod, "resolve_device", reached)
+  monkeypatch.setattr(tf, "init_model", reached)
+  with pytest.raises(ValueError, match=r"local .* layers \[0\]"):
+    launch.run(q, batch=B, prompt_len=S, tokens=4, device="cuda")
+  with pytest.raises(ValueError, match="flash_decode"):
+    ServingEngine(q, EngineConfig(n_slots=N_SLOTS, prompt_len=PROMPT,
+                                  max_new_tokens=NEW), device="cuda")
+  full = launch.apply_quant(get_config(ARCH), quant)
+  with pytest.raises(ValueError, match=r"layers \[0, 2, .*, 24\]"):
+    check_quant_device(full, "cuda:0")
+  check_quant_device(q, "cpu")
+  check_quant_device(launch.apply_quant(cfg, quant.split("+")[0]), "cuda")
+  check_quant_device(launch.apply_quant(get_config("llama3-8b"), quant),
+                     "cuda")
 
 
 def test_delta_replay_stays_off(gemma):
