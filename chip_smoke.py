@@ -67,8 +67,9 @@
     (an estimator fit from fixed-budget ``deadline_with_bound`` windows,
     then the Poisson window under ``error_bounded`` and
     ``deadline_with_bound``; the budget-32 replay with the coverage
-    profile beside the ``deadline`` replay, whose device-op count must be
-    the previous engine's), queue-aware admission (EDF, two SLO classes,
+    profile beside the ``deadline`` replay, whose device-op count must stay
+    within 4 of the engine's 3631 / 3663 / 3695 a bucket,
+    ``check_deadline_replay_ops``), queue-aware admission (EDF, two SLO classes,
     shedding, twice the rate), the corpus cache (a 100%-repeat window with
     the cache on and off: hits launch neither prefill nor build, the same
     ids; a Zipf window; delta replay of a 4096-token prefix's
@@ -97,7 +98,17 @@
     pixtral's prefix prefill (256 patch embeddings and 7936 tokens, the
     build, a step at budget M against an exact step on that cache), the
     unfused op, and one engine window under ``accuracytrader`` and
-    ``basic``.
+    ``basic``;
+15. whisper-medium the same way (``[whisper]``: 24 + 24 layers, d 1024,
+    16/16 heads of 64, G = 1, d_ff 4096, vocab 51865, untied, nothing
+    cut): the SMOKE loops card against CPU in synopsis and exact mode and
+    under int8+kv, its kernels at its shapes (and ``flash_decode`` over
+    the 1500 encoder frames, ``flash_decode[whisper-cross1500]``), the
+    budget-32 and exact loops (no frames, as in the JAX loop: the cross
+    blocks read the decoder's own 8192 rows), the encoder prefill (1500
+    seeded frames, the encoder timed alone, a step at budget M against
+    exact on that cache), the unfused op, and the engine's refusal (the
+    JAX engine fails on whisper; no window).
 
 Every path's launch counts are reset just before it runs and read just
 after: the synopsis loop must launch its four kernels, the quantized loops
@@ -106,12 +117,13 @@ their quantized branches and not the unquantized ones, the exact loop
 ``flash_decode`` and ``block_gather_attention``, the engine the four
 synopsis-path kernels (counted at the graphs' capture: a replay runs no
 Python, so the profiler's rows show the kernels inside the replays); the
-phases 12-14's loops exactly one ``flash_prefill`` a layer, two builds
-(build and absorb) and, a step, ``flash_decode`` twice on each local
-layer and the two synopsis kernels on each global one, on the quant
-spec's branches (exact: ``flash_decode`` twice on every layer), every
-other branch not at all, and gemma2's engine ``flash_decode`` beside the
-four.
+phases 12-15's loops exactly one ``flash_prefill`` a layer (two with a
+cross block), two builds (build and absorb) and, a step, ``flash_decode``
+twice on each local layer and once on each cross block and the two
+synopsis kernels on each global one, on the quant spec's branches
+(exact: ``flash_decode`` twice on every layer, plus the cross blocks'),
+every other branch not at all, and gemma2's engine ``flash_decode``
+beside the four.
 
 Any failed phase raises and exits non-zero.  The last lines are the
 kernels' JSON record, the nvidia-smi line and ``{"ok": true, ...}``.
@@ -171,9 +183,13 @@ ENGINE_DEADLINE_MS = 2000.0
 # The engine's replayed step at these shapes issued these device ops
 # before the contracts' telemetry existed (PERF.md §5, counted by
 # engine_step_table); under the deadline contract the step must issue
-# them still (its telemetry runs under the other two).
+# them still (its telemetry runs under the other two).  The same tree
+# reads 3630 to 3634 at bucket 0 from one process to the next (PERF.md
+# §7), so each count is held to a band of DEADLINE_REPLAY_SLACK ops either
+# way: one op more a layer of the 32 adds 32.
 DEADLINE_REPLAY_OPS = {0: 3631, 1: 3663}
 DEADLINE_REPLAY_OPS_REST = 3695
+DEADLINE_REPLAY_SLACK = 4
 # The contracts: an estimator fit on short fixed-budget windows (one per
 # budget, every lane admitted at once), then error_bounded at the JAX
 # launcher's default ε.
@@ -1693,6 +1709,30 @@ def check_engine_kernels(eng):
   eng.reset()
 
 
+def check_deadline_replay_ops(eng, replays, sessions=3):
+  """Under the deadline contract every bucket's replayed step must issue
+  the device ops the engine issued at these shapes before the contracts'
+  telemetry existed, to within DEADLINE_REPLAY_SLACK
+  (``tests/test_torch_card.py`` holds at SMOKE size that the telemetry
+  runs only under the other two contracts).  ``replays`` is
+  ``engine_step_table``'s {bucket: (host ms, busy ms, device ops)}; a
+  count outside the band is read again, the most of up to ``sessions``
+  profiler sessions (a session at times loses rows)."""
+  for b, (_, _, ops_n) in replays.items():
+    want = DEADLINE_REPLAY_OPS.get(b, DEADLINE_REPLAY_OPS_REST)
+    for _ in range(sessions - 1):
+      if abs(round(ops_n) - want) <= DEADLINE_REPLAY_SLACK:
+        break
+      ops_n = max(ops_n, _profile_rows(
+          lambda: eng.programs.run(("step", b)), 3)[1])
+    print(f"  [engine step] bucket {b:2d}: {ops_n:.0f} device ops, the "
+          f"engine's {want} +- {DEADLINE_REPLAY_SLACK}")
+    if abs(round(ops_n) - want) > DEADLINE_REPLAY_SLACK:
+      raise AssertionError(f"bucket {b}: the deadline replay issues "
+                           f"{ops_n} device ops, the engine {want} +- "
+                           f"{DEADLINE_REPLAY_SLACK}")
+
+
 def run_engine(cfg, params, dev):
   """The engine at full width: capture, the per-bucket table, the trace
   under accuracytrader and basic, the simulator window.  Returns the
@@ -1743,19 +1783,7 @@ def run_engine(cfg, params, dev):
               f"accuracy_loss_pct={n['accuracy_loss_pct']:.3f}")
       eng.ecfg.deadline_ms = ENGINE_DEADLINE_MS
       replays = engine_step_table(eng)
-      for b, (_, _, ops_n) in replays.items():
-        want = DEADLINE_REPLAY_OPS.get(b, DEADLINE_REPLAY_OPS_REST)
-        if round(ops_n) != want:
-          # A profiler session at times loses rows: the most of three.
-          ops_n = max([ops_n] + [_profile_rows(
-              lambda: eng.programs.run(("step", b)), 3)[1]
-              for _ in range(2)])
-        print(f"  [engine step] bucket {b:2d}: {ops_n:.0f} device ops, the "
-              f"previous engine's {want}")
-        if round(ops_n) != want:
-          raise AssertionError(f"bucket {b}: the deadline replay issues "
-                               f"{ops_n} device ops, the previous engine "
-                               f"{want}")
+      check_deadline_replay_ops(eng, replays)
       backend = MeasuredStepBackend(eng, iters=5)
       print(f"[engine simulator] measured step table (ms): "
             f"{ {b: round(ms, 3) for b, ms in backend.table.items()} }")
@@ -2160,10 +2188,12 @@ def run_pipeline(cfg, params, dev):
 
 
 # ---------------------------------------------------------------------------
-# Phases 12-14: the other architectures at full width and depth: gemma2-2b
+# Phases 12-15: the other architectures at full width and depth: gemma2-2b
 # (local and global layers, softcaps, sandwich norms, tied embeddings;
 # flash_prefill at D = 256; its table-only quantized arena), smollm-135m
-# (G = 3 at D = 64) and pixtral-12b (the vision stub's patch prefix)
+# (G = 3 at D = 64), pixtral-12b (the vision stub's patch prefix) and
+# whisper-medium (G = 1 at D = 64; the encoder, cross blocks, GELU MLPs,
+# attention biases)
 # ---------------------------------------------------------------------------
 
 # arch -> (record tag, the SMOKE loops held card against CPU: (mode,
@@ -2175,6 +2205,8 @@ MODELS = {
                     ()),
     "pixtral-12b": ("[pixtral]", (("synopsis", "none"), ("exact", "none")),
                     ()),
+    "whisper-medium": ("[whisper]", (("synopsis", "none"), ("exact", "none"),
+                                     ("synopsis", "int8+kv")), ()),
 }
 
 
@@ -2195,7 +2227,10 @@ def check_model_kernels(cfg, tag, dev, g):
   view, or the exact loop's whole cache), synopsis_score (the unfused
   op), all with the config's softcap.  Returns the records, keyed by
   ``<kernel><tag>``.  SDPA is the library time where it computes the same
-  function (no softcap); with a cap it is printed as a yardstick only."""
+  function (no softcap); with a cap it is printed as a yardstick only.
+  With cross blocks (whisper) also ``flash_decode`` over the encoder's
+  ``source_len`` cross rows, the frames path's decode (record
+  ``flash_decode[<arch>-cross<T>]``)."""
   from repro_torch.kernels import ops, ref
   from repro_torch.kernels.block_gather_attention import (
       block_gather_attention as gather)
@@ -2369,6 +2404,22 @@ def check_model_kernels(cfg, tag, dev, g):
         lambda: ref.flash_decode_ref(q1, kw_, vw, **kw),
         _nbytes(q1, kw_, vw, *got), 4 * B * H * W * D, "flash_decode.cu",
         "flash_decode.py:125", cold=True)
+  if cfg.encoder is not None:
+    T = cfg.encoder.source_len
+    kc, vc = rnd(B, Hkv, T, D), rnd(B, Hkv, T, D)
+    got = flash_decode(q1, kc, vc, sm_scale=sm)
+    err = _check(f"flash_decode{tag} cross S={T} G={G}", dtype, got,
+                 ref.flash_decode_ref(q1, kc, vc, sm_scale=sm), *tol)
+    r = _record(f"flash_decode{tag[:-1]}-cross{T}]",
+                "src/repro_torch/kernels/csrc/flash_decode.cu",
+                "src/repro/kernels/flash_decode.py:125", dtype, err,
+                lambda: flash_decode(q1, kc, vc, sm_scale=sm),
+                lambda: ref.flash_decode_ref(q1, kc, vc, sm_scale=sm),
+                _nbytes(q1, kc, vc, *got), 4 * B * H * T * D, cold=True,
+                library_fn=lambda: sdpa(q1[:, :, None], kc, vc,
+                                        enable_gqa=True))
+    recs[r["name"]] = r
+    del kc, vc
 
   # synopsis_score (the unfused op's first stage).
   got = synopsis_score(q1, k_syn, sm_scale=sm)
@@ -2387,22 +2438,25 @@ def _require_model_launches(path, counts, cfg, steps, mode, quant="none"):
   absorb) on the quant spec's branch, and each step stage 1 (on the spec's
   branch) and stage 2 on every global layer and flash_decode twice on
   every local layer (its window view and the self token); in exact mode
-  flash_decode twice on every layer.  Every other branch launches 0."""
+  flash_decode twice on every layer.  A cross block (whisper) adds one
+  flash_prefill a layer (its causal branch) and, in both modes, one
+  flash_decode a layer a step.  Every other branch launches 0."""
   from repro_torch.kernels import _build
   from repro_torch.kernels import quant as qt
   qc = qt.parse_qconfig(quant)
   n_loc = sum(s.local for s in cfg.block_pattern) * cfg.n_blocks
   n_glob = cfg.n_layers - n_loc
-  want = {"flash_prefill": cfg.n_layers}
+  n_cross = sum(s.cross_attn for s in cfg.block_pattern) * cfg.n_blocks
+  want = {"flash_prefill": cfg.n_layers + n_cross}
   if mode == "synopsis":
     want[_build.branch("segment_build", qc.spec)] = 2
     want[_build.branch("fused_synopsis_score_attention", qc.kind)] = \
         n_glob * steps
     want[_build.branch("block_gather_attention",
                        qc.kind if qc.sorted_kv else "none")] = n_glob * steps
-    want["flash_decode"] = 2 * n_loc * steps
+    want["flash_decode"] = (2 * n_loc + n_cross) * steps
   else:
-    want["flash_decode"] = 2 * cfg.n_layers * steps
+    want["flash_decode"] = (2 * cfg.n_layers + n_cross) * steps
   _require_exact_launches(path, counts, want)
 
 
@@ -2417,15 +2471,16 @@ def _require_exact_launches(path, counts, want):
 
 def check_arch_smoke_parity(arch, tag, runs, dev):
   """The arch's SMOKE loop in f32, card against CPU, for each (mode,
-  quant) of ``runs``: the same ids and every step's logits within 1e-4 of
-  max|logits| (``repro_torch.launch.parity``, which the card tests run
-  too)."""
+  quant) of ``runs``: the same ids and every step's logits within the
+  larger of 1e-4 and four times the CPU's f32 loop's distance from the
+  same loop in float64, measured in the same call, of max|logits|
+  (``repro_torch.launch.parity``, which the card tests run too)."""
   from repro_torch.launch import parity
   for mode, quant in runs:
-    _, rel = parity.loop_parity(arch, dev, mode, quant)
+    _, rel, bound = parity.loop_parity(arch, dev, mode, quant)
     print(f"{tag} [parity] smoke f32 {mode} quant={quant}: "
           f"{parity.TOKENS + 1} ids equal on card and CPU; every step's "
-          f"logits within {rel:.3e} of max (tol {parity.TOL})")
+          f"logits within {rel:.3e} of max (bound {bound:.3e})")
 
 
 def check_prefix_prefill(cfg, params, dev, tag):
@@ -2438,7 +2493,6 @@ def check_prefix_prefill(cfg, params, dev, tag):
   from repro_torch.kernels import _build
   from repro_torch.serve import synopsis_kv as skv
   from repro_torch.serve.prefill import make_prefill_step
-  from repro_torch.serve.serve_step import make_serve_step
   gen = torch.Generator(dev).manual_seed(0)
   P = cfg.frontend_tokens
   patches = torch.randn((BATCH, P, cfg.frontend_dim), generator=gen,
@@ -2465,23 +2519,105 @@ def check_prefix_prefill(cfg, params, dev, tag):
     raise AssertionError(f"{tag} prefix prefill: S={S}, pos "
                          f"{cache['pos'].tolist()}, logits "
                          f"{tuple(logits.shape)}")
+  rel, tv, same = _budget_m_against_exact(cfg, params, cache, syn, logits,
+                                          tag)
+  print(f"{tag} prefix prefill: {P} patches + {PROMPT - P} tokens = {S} "
+        f"positions, B={BATCH}: prefill_ms={prefill_ms:.1f} build_ms="
+        f"{build_ms:.1f}; synopsis step at i_max=M={syn['k_syn'].shape[4]} "
+        f"against the exact step: max err {rel:.3e} of max|exact| (tol "
+        f"1e-3), tv={tv:.6f}, argmax equal {same}")
+
+
+def _budget_m_against_exact(cfg, params, cache, syn, logits, tag,
+                            counts=None):
+  """One synopsis step at budget M on ``syn`` against one exact step on
+  ``cache``, from the prefill ``logits``' argmax: (max error as a share of
+  max|exact|, TV distance, argmax equal); raises beyond 1e-3 (the
+  full-budget bound).  With ``counts`` the synopsis step's launches must
+  be exactly those."""
+  from repro_torch.kernels import _build
+  from repro_torch.serve.serve_step import make_serve_step
   M = syn["k_syn"].shape[4]
   tok = logits.argmax(-1, keepdim=True)
   lg_ex, _ = make_serve_step(cfg, mode="exact")(params, cache, tok)
+  _build.reset_launches()
   lg_syn, _ = make_serve_step(cfg, mode="synopsis", i_max=M)(params, syn,
                                                               tok)
+  torch.cuda.synchronize()
+  if counts is not None:
+    _require_exact_launches(f"{tag} budget-M step", _build.launch_counts(),
+                            counts)
   rel = _max_err(lg_syn, lg_ex) / float(lg_ex.abs().max())
   tv = float(0.5 * (torch.softmax(lg_syn, -1) - torch.softmax(lg_ex, -1))
              .abs().sum(-1).mean())
-  print(f"{tag} prefix prefill: {P} patches + {PROMPT - P} tokens = {S} "
-        f"positions, B={BATCH}: prefill_ms={prefill_ms:.1f} build_ms="
-        f"{build_ms:.1f}; synopsis step at i_max=M={M} "
-        f"against the exact step: max err {rel:.3e} of max|exact| (tol "
-        f"1e-3), tv={tv:.6f}, argmax equal "
-        f"{bool(torch.equal(lg_syn.argmax(-1), lg_ex.argmax(-1)))}")
   if not rel <= 1e-3:
-    raise AssertionError(f"{tag} prefix cache: full-budget step != exact "
-                         f"step: {rel}")
+    raise AssertionError(f"{tag}: full-budget step != exact step: {rel}")
+  return rel, tv, bool(torch.equal(lg_syn.argmax(-1), lg_ex.argmax(-1)))
+
+
+def check_encoder_prefill(cfg, params, dev, tag):
+  """The audio stub's path at full width: ``source_len`` (1500) frame
+  embeddings from the seed (f32 normal, cast to the model's dtype) and
+  8192 tokens.  The encoder alone (plain torch, as in JAX: no kernel),
+  timed; then the prefill (the encoder, then one flash_prefill a decoder
+  layer: its cross blocks attend over the encoder's output in plain
+  torch), the build (segment_build once), and one synopsis step at budget
+  M against one exact step on that cache: logits within 1e-3 of
+  max|exact| (the full-budget bound), the synopsis step's cross
+  flash_decode over the T rows counted, one a layer.  Returns that
+  count."""
+  from repro_torch.kernels import _build
+  from repro_torch.models import transformer as tf
+  from repro_torch.serve import synopsis_kv as skv
+  from repro_torch.serve.prefill import make_prefill_step
+  gen = torch.Generator(dev).manual_seed(0)
+  T = cfg.encoder.source_len
+  frames = torch.randn((BATCH, T, cfg.frontend_dim), generator=gen,
+                       device=dev).to(cfg.dtype)
+  text = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=gen,
+                       device=dev)
+  _build.reset_launches()
+  with torch.no_grad():
+    tf.encode(params, cfg, frames)                       # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc = tf.encode(params, cfg, frames)
+    torch.cuda.synchronize()
+  encoder_ms = (time.perf_counter() - t0) * 1e3
+  if (tuple(enc.shape) != (BATCH, T, cfg.d_model)
+      or not torch.isfinite(enc).all()):
+    raise AssertionError(f"{tag} encoder output {tuple(enc.shape)}")
+  del enc
+  t0 = time.perf_counter()
+  logits, cache = make_prefill_step(cfg)(params, text, frames)
+  torch.cuda.synchronize()
+  prefill_ms = (time.perf_counter() - t0) * 1e3
+  t0 = time.perf_counter()
+  syn = skv.build(cache, cfg)
+  torch.cuda.synchronize()
+  build_ms = (time.perf_counter() - t0) * 1e3
+  _require_exact_launches(f"{tag} encoder prefill", _build.launch_counts(),
+                          {"flash_prefill": cfg.n_layers, "segment_build": 1})
+  S, Tc = cache["k"].shape[4], cache["cross_k"].shape[4]
+  if (S != PROMPT or Tc != T or cache["pos"].tolist() != [PROMPT] * BATCH
+      or tuple(logits.shape) != (BATCH, cfg.vocab)
+      or not torch.isfinite(logits).all()):
+    raise AssertionError(f"{tag} encoder prefill: S={S}, T={Tc}, pos "
+                         f"{cache['pos'].tolist()}, logits "
+                         f"{tuple(logits.shape)}")
+  n = cfg.n_layers
+  rel, tv, same = _budget_m_against_exact(cfg, params, cache, syn, logits,
+                                          tag, {
+      "flash_decode": n, "fused_synopsis_score_attention": n,
+      "block_gather_attention": n})
+  print(f"{tag} encoder prefill: {T} frames of {cfg.frontend_dim} + "
+        f"{PROMPT} tokens, B={BATCH}: encoder_ms={encoder_ms:.1f} "
+        f"prefill_ms={prefill_ms:.1f} (the encoder included) build_ms="
+        f"{build_ms:.1f}; cross rows T={Tc}; synopsis step at i_max=M="
+        f"{syn['k_syn'].shape[4]} against the exact step: max err "
+        f"{rel:.3e} of max|exact| (tol 1e-3), tv={tv:.6f}, argmax equal "
+        f"{same}; its cross flash_decode over the {T} rows: {n} launches")
+  return n
 
 
 def _model_loop(cfg, params, dev, tag, mode="synopsis", quant="none"):
@@ -2523,9 +2659,10 @@ def run_model(arch, dev, g):
   accuracy against exact, the full-budget deviation and each budget's
   deviation from the unquantized arena (< 7%); the exact
   loop and a profiled window, one step per budget against exact; the
-  vision stub's prefix prefill (pixtral); the unfused op; one engine
-  window under accuracytrader and basic.  Returns (records, {record
-  name: launches on its path})."""
+  vision stub's prefix prefill (pixtral), or the audio stub's encoder
+  prefill (whisper); the unfused op; one engine window under
+  accuracytrader and basic (whisper: the engine's refusal).  Returns
+  (records, {record name: launches on its path})."""
   from repro_torch.configs.registry import get_config
   from repro_torch.kernels import _build, ops
   from repro_torch.launch import serve
@@ -2545,7 +2682,11 @@ def run_model(arch, dev, g):
         + f", d={cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads (G={G}),"
         f" hd={cfg.hd}, d_ff={cfg.d_ff}, vocab {cfg.vocab}"
         + (f", {cfg.frontend} {cfg.frontend_tokens}x{cfg.frontend_dim}"
-           if cfg.frontend else "")
+           if cfg.frontend == "vision_stub" else "")
+        + (f", encoder {cfg.encoder.n_layers} layers over "
+           f"{cfg.encoder.source_len}x{cfg.frontend_dim} frames, cross "
+           f"blocks, {cfg.mlp_type} MLPs, attention biases"
+           if cfg.encoder else "")
         + f", {cfg.param_count() / 1e9:.3f}B params, {cfg.dtype}; "
         f"B={BATCH} prompt={PROMPT} steps={STEPS}")
   check_arch_smoke_parity(arch, tag, smoke_runs, dev)
@@ -2600,8 +2741,12 @@ def run_model(arch, dev, g):
                        cap=cfg.attn_softcap)
     del qsyn
   del cache
-  if cfg.frontend:
+  if cfg.frontend == "vision_stub":
     check_prefix_prefill(cfg, params, dev, tag)
+  if cfg.encoder is not None:
+    T = cfg.encoder.source_len
+    launches[f"flash_decode{tag[:-1]}-cross{T}]"] = check_encoder_prefill(
+        cfg, params, dev, tag)
 
   # The unfused op on a global layer: synopsis_score's path.
   k, v = syn["k"][0, pos], syn["v"][0, pos]
@@ -2630,7 +2775,18 @@ def run_model(arch, dev, g):
     raise AssertionError(f"{tag} fused != unfused: {rel}")
   del syn, args, k, v
 
-  for policy in ("accuracytrader", "basic"):
+  # The engine refuses an encoder-decoder, as the JAX engine fails on one
+  # (ROADMAP C): no window runs.
+  policies = ("accuracytrader", "basic")
+  if cfg.encoder is not None:
+    policies = ()
+    try:
+      _engine(cfg, params, dev)
+    except NotImplementedError as e:
+      print(f"{tag} engine refused: {e}")
+    else:
+      raise AssertionError(f"{tag}: the engine took an encoder-decoder")
+  for policy in policies:
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     t0 = time.perf_counter()

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import transformer as tf
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import ModelConfig, leaves, param_shapes
 
 
 def _convert(tree, dtype, device):
@@ -47,22 +47,24 @@ def arena_from_numpy(arena: Dict, device) -> Dict[str, torch.Tensor]:
 
 
 def params_from_numpy(tree: Dict, cfg: ModelConfig, device) -> Dict:
-  """The JAX tree -> the port's parameters.  A tied config's tree has no
+  """The JAX tree -> the port's parameters.  The tree must hold every leaf
+  of ``common.param_shapes`` at its shape: a tied config's has no
   ``unembed`` (the logits read ``embed``), an untied one needs it; under
-  sandwich norms every layer carries ``ln1_post`` and ``ln2_post``; a
-  frontend needs ``frontend_proj``."""
+  sandwich norms every layer carries ``ln1_post`` and ``ln2_post``; a stub
+  frontend needs ``frontend_proj``; whisper its attention biases, every
+  layer's ``cross`` and ``ln_cross``, the GELU biases and the encoder
+  tree."""
   tf.check_supported(cfg)
-  want = {"embed", "final_norm", "blocks"}
-  if not cfg.tie_embeddings:
-    want.add("unembed")
-  if cfg.frontend:
-    want.add("frontend_proj")
-  missing = want - set(tree)
-  if cfg.sandwich_norm:
-    missing |= {f"blocks/{pos}/{name}" for pos, lp in tree.get(
-        "blocks", {}).items() for name in ("ln1_post", "ln2_post")
-                if name not in lp}
-  if missing:
-    raise KeyError(f"parameter tree lacks {sorted(missing)}")
+  missing, wrong = [], []
+  for path, shape in leaves(param_shapes(cfg)):
+    node = tree
+    for key in path.split("/"):
+      node = node.get(key) if isinstance(node, dict) else None
+    if node is None:
+      missing.append(path)
+    elif tuple(np.shape(node)) != tuple(shape):
+      wrong.append(f"{path} {np.shape(node)} != {shape}")
+  if missing or wrong:
+    raise KeyError(f"parameter tree lacks {missing}, shapes differ {wrong}")
   return tf.finish_params(_convert(tree, cfg.dtype, torch.device(device)),
                           cfg)

@@ -13,6 +13,7 @@ _MODULES: Dict[str, str] = {
     "gemma2-2b": "repro_torch.configs.gemma2_2b",
     "smollm-135m": "repro_torch.configs.smollm_135m",
     "pixtral-12b": "repro_torch.configs.pixtral_12b",
+    "whisper-medium": "repro_torch.configs.whisper_medium",
 }
 
 

@@ -108,8 +108,9 @@ def refine_stage2(q, k, v, selected, k_syn, v_syn, counts, *,
   v_sel = qt.gather_rows(v_syn, 2, rows)
   if syn_scales is not None:
     ks, vs = syn_scales
-    k_sel = k_sel.float() * torch.gather(ks.float(), 2, safe)[..., None]
-    v_sel = v_sel.float() * torch.gather(vs.float(), 2, safe)[..., None]
+    f = ref.acc_dtype(q)
+    k_sel = k_sel.to(f) * torch.gather(ks.to(f), 2, safe)[..., None]
+    v_sel = v_sel.to(f) * torch.gather(vs.to(f), 2, safe)[..., None]
   cb = count_bias(counts)                                     # (B, M)
   sel_bias = torch.gather(cb[:, None, :].expand(B, Hkv, cb.shape[-1]), 2,
                           safe)

@@ -24,6 +24,13 @@ Partials = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 NEG_INF = -1e30
 
 
+def acc_dtype(x: torch.Tensor) -> torch.dtype:
+  """The dtype the plain versions compute in for data like ``x``: f32, as
+  the kernels accumulate, or float64 for float64 data, so that a float64
+  run (``repro_torch.launch.parity``'s reference) stays in float64."""
+  return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def apply_softcap(logits: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
   if cap is None:
     return logits
@@ -46,15 +53,16 @@ def flash_prefill_ref(
   Hkv = k.shape[2]
   G = H // Hkv
   qg = q.reshape(B, S, Hkv, G, D)
-  kf = k.float()
-  vf = v.float()
+  f = acc_dtype(q)
+  kf = k.to(f)
+  vf = v.to(f)
   kpos = torch.arange(S, device=q.device)
   out = torch.empty_like(q)
   for q0 in range(0, S, q_chunk):
     q1 = min(S, q0 + q_chunk)
     qpos = torch.arange(q0, q1, device=q.device)
     logits = apply_softcap(
-        torch.einsum("bqhgd,bkhd->bhgqk", qg[:, q0:q1].float(), kf)
+        torch.einsum("bqhgd,bkhd->bhgqk", qg[:, q0:q1].to(f), kf)
         * sm_scale, cap)
     mask = qpos[:, None] >= kpos[None, :]
     if window is not None:
@@ -81,8 +89,9 @@ def synopsis_build_ref(
   idx = perm.long()[:, None, :, None].expand(N, Hkv, S, D)
   k_sorted = torch.gather(k, 2, idx)
   v_sorted = torch.gather(v, 2, idx)
-  k_syn = k_sorted.float().reshape(N, Hkv, M, C, D).mean(3).to(k.dtype)
-  v_syn = v_sorted.float().reshape(N, Hkv, M, C, D).mean(3).to(v.dtype)
+  f = acc_dtype(k)
+  k_syn = k_sorted.to(f).reshape(N, Hkv, M, C, D).mean(3).to(k.dtype)
+  v_syn = v_sorted.to(f).reshape(N, Hkv, M, C, D).mean(3).to(v.dtype)
   counts = torch.full((N, M), float(C), dtype=torch.float32,
                       device=k.device)
   return k_sorted, v_sorted, k_syn, v_syn, counts
@@ -141,18 +150,19 @@ def fused_synopsis_score_attention_ref(
   B, H, D = q.shape
   _, Hkv, M, _ = k_syn.shape
   G = H // Hkv
-  qg = q.reshape(B, Hkv, G, D).float()
-  raw = torch.einsum("bhgd,bhmd->bhgm", qg, k_syn.float())
+  f = acc_dtype(q)
+  qg = q.reshape(B, Hkv, G, D).to(f)
+  raw = torch.einsum("bhgd,bhmd->bhgm", qg, k_syn.to(f))
   if k_scale is not None:
-    raw = raw * k_scale[:, :, None, :].float()
+    raw = raw * k_scale[:, :, None, :].to(f)
   raw = raw * sm_scale
   scores = raw.amax(dim=2)                                    # (B, Hkv, M)
-  logits = apply_softcap(raw, cap) + cbias[:, None, None, :].float()
+  logits = apply_softcap(raw, cap) + cbias[:, None, None, :].to(f)
   m = logits.amax(dim=-1).clamp_min(NEG_INF)
   p = torch.exp(logits - m[..., None])
   l = p.sum(-1)
-  pv = p if v_scale is None else p * v_scale[:, :, None, :].float()
-  out = torch.einsum("bhgs,bhsd->bhgd", pv, v_syn.float())
+  pv = p if v_scale is None else p * v_scale[:, :, None, :].to(f)
+  out = torch.einsum("bhgs,bhsd->bhgd", pv, v_syn.to(f))
   out = out / l.clamp_min(1e-30)[..., None]
   return scores, (out.reshape(B, H, D), m.reshape(B, H), l.reshape(B, H))
 
@@ -188,7 +198,8 @@ def fused_gather_attention_ref(
   _, Hkv, S, _ = k.shape
   C = cluster_size
   G = H // Hkv
-  qg = q.reshape(B, Hkv, G, D).float()
+  f = acc_dtype(q)
+  qg = q.reshape(B, Hkv, G, D).to(f)
   selected = selected.long()
   starts = selected.clamp_min(0) * C                          # (B,Hkv,I)
   idx = (starts[..., None] + torch.arange(C, device=q.device)).reshape(
@@ -196,29 +207,29 @@ def fused_gather_attention_ref(
   kg = qt.gather_rows(k, 2, idx[..., None].expand(-1, -1, -1, D))
   vg = qt.gather_rows(v, 2, idx[..., None].expand(-1, -1, -1, D))
   valid = torch.repeat_interleave(selected >= 0, C, dim=-1)   # (B,Hkv,I*C)
-  neg = torch.tensor(NEG_INF, dtype=torch.float32, device=q.device)
-  raw = torch.einsum("bhgd,bhsd->bhgs", qg, kg.float())
+  neg = torch.tensor(NEG_INF, dtype=f, device=q.device)
+  raw = torch.einsum("bhgd,bhsd->bhgs", qg, kg.to(f))
   safe = selected.clamp_min(0)
   if kv_k_scale is not None:
-    ksc = torch.gather(kv_k_scale.float(), 2, safe)           # (B,Hkv,I)
+    ksc = torch.gather(kv_k_scale.to(f), 2, safe)           # (B,Hkv,I)
     raw = raw * torch.repeat_interleave(ksc, C, dim=-1)[:, :, None, :]
   if kv_v_scale is not None:
-    vsc = torch.gather(kv_v_scale.float(), 2, safe)
-    vg = vg.float() * torch.repeat_interleave(vsc, C, dim=-1)[..., None]
+    vsc = torch.gather(kv_v_scale.to(f), 2, safe)
+    vg = vg.to(f) * torch.repeat_interleave(vsc, C, dim=-1)[..., None]
   lt = apply_softcap(raw * sm_scale, cap)
   lt = torch.where(valid[:, :, None, :], lt, neg)
 
   pieces = [(lt, vg, 1.0)]
   if k_sel is not None:
-    lc = apply_softcap(torch.einsum("bhgd,bhid->bhgi", qg, k_sel.float())
+    lc = apply_softcap(torch.einsum("bhgd,bhid->bhgi", qg, k_sel.to(f))
                        * sm_scale, cap)
-    lc = lc + sel_bias[:, :, None, :].float()
+    lc = lc + sel_bias[:, :, None, :].to(f)
     lc = torch.where((selected >= 0)[:, :, None, :], lc, neg)
     pieces.append((lc, v_sel, -1.0))
   if extras_k is not None:
     le = apply_softcap(torch.einsum("bhgd,bhed->bhge", qg,
-                                    extras_k.float()) * sm_scale, cap)
-    le = le + extras_bias[:, None, None, :].float()
+                                    extras_k.to(f)) * sm_scale, cap)
+    le = le + extras_bias[:, None, None, :].to(f)
     pieces.append((le, extras_v, 1.0))
 
   m = pieces[0][0].amax(-1)
@@ -226,11 +237,11 @@ def fused_gather_attention_ref(
     m = torch.maximum(m, logits.amax(-1))
   m = m.clamp_min(NEG_INF)
   l = torch.zeros_like(m)
-  acc = torch.zeros((B, Hkv, G, D), dtype=torch.float32, device=q.device)
+  acc = torch.zeros((B, Hkv, G, D), dtype=f, device=q.device)
   for logits, values, sign in pieces:
     p = torch.exp(logits - m[..., None])
     l = l + sign * p.sum(-1)
-    acc = acc + sign * torch.einsum("bhgs,bhsd->bhgd", p, values.float())
+    acc = acc + sign * torch.einsum("bhgs,bhsd->bhgd", p, values.to(f))
   safe = torch.where(l.abs() > 1e-30, l, torch.ones_like(l))
   out = acc / safe[..., None]
   return (out.reshape(B, H, D), m.reshape(B, H), l.reshape(B, H))
@@ -262,15 +273,16 @@ def flash_decode_ref(
   selected clusters)."""
   B, H, D = q.shape
   Hkv = k.shape[1]
-  qg = q.reshape(B, Hkv, H // Hkv, D).float()
+  f = acc_dtype(q)
+  qg = q.reshape(B, Hkv, H // Hkv, D).to(f)
   logits = apply_softcap(
-      torch.einsum("bhgd,bhsd->bhgs", qg, k.float()) * sm_scale, cap)
+      torch.einsum("bhgd,bhsd->bhgs", qg, k.to(f)) * sm_scale, cap)
   if bias is not None:
-    logits = logits + bias[:, :, None, :].float()
+    logits = logits + bias[:, :, None, :].to(f)
   m = logits.amax(dim=-1).clamp_min(NEG_INF)
   p = torch.exp(logits - m[..., None])
   l = p.sum(-1)
-  out = torch.einsum("bhgs,bhsd->bhgd", p, v.float())
+  out = torch.einsum("bhgs,bhsd->bhgd", p, v.to(f))
   out = out / l.clamp_min(1e-30)[..., None]
   return (out.reshape(B, H, D), m.reshape(B, H), l.reshape(B, H))
 
@@ -285,8 +297,9 @@ def synopsis_score_ref(
   the GQA group's query heads of the centroid logit, (B, Hkv, M) f32."""
   B, H, D = q.shape
   Hkv = k_syn.shape[1]
-  qg = q.reshape(B, Hkv, H // Hkv, D).float()
-  logits = torch.einsum("bhgd,bhmd->bhgm", qg, k_syn.float())
+  f = acc_dtype(q)
+  qg = q.reshape(B, Hkv, H // Hkv, D).to(f)
+  logits = torch.einsum("bhgd,bhmd->bhgm", qg, k_syn.to(f))
   return logits.amax(dim=2) * sm_scale
 
 

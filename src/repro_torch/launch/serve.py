@@ -26,6 +26,11 @@ the device is a GPU.
   # backbone; as in the JAX launcher, no patch input: text prompts only)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
       --no-smoke --prompt-len 8192 --tokens 130 [--mode exact | --engine]
+  # whisper-medium: as in the JAX launcher no frames, so each layer's cross
+  # block reads the decoder's own prompt KV; both modes and every --quant
+  # spec (--engine is refused: the JAX engine fails on whisper)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \\
+      --no-smoke --prompt-len 8192 --tokens 130 [--mode exact]
 
 ``--device cpu`` runs the plain PyTorch versions of the kernels (tests);
 without it the driver needs a CUDA device and refuses to run otherwise.

@@ -1,12 +1,17 @@
 """Model configs: the port's own copy of ``repro.models.common``'s config
 dataclasses, cut to what the dense GQA serving path reads (llama3's global
 attention; gemma2's local layers, softcaps, sandwich norms, embedding
-scale and tied embeddings; pixtral's vision-stub patch prefix).  ``dtype``
-is a torch dtype."""
+scale and tied embeddings; pixtral's vision-stub patch prefix; whisper's
+encoder, cross attention, GELU MLPs and attention biases).  ``dtype`` is a
+torch dtype.
+
+:func:`param_shapes` is the parameter tree's layout, which the init, the
+bridge's check and :meth:`ModelConfig.param_count` all read."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+import math
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -15,6 +20,7 @@ import torch
 class LayerSpec:
   kind: str = "attn"              # the only layer kind the port runs
   local: bool = False             # sliding-window attention (gemma2)
+  cross_attn: bool = False        # a cross block after attention (whisper)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,6 +32,14 @@ class SynopsisConfig:
   # Synopsis arena quantization (kernels/quant.py): "none" | "int8" | "fp8"
   # | "int8+kv" | "fp8+kv"; "none" is the unquantized path, bit for bit.
   quant: str = "none"
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+  n_layers: int
+  n_heads: int
+  d_ff: int
+  source_len: int = 1500          # whisper: 30 s of 20 ms frames
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,8 +61,12 @@ class ModelConfig:
   sandwich_norm: bool = False             # post-block norms (gemma2)
   scale_embed: bool = False               # sqrt(d) embedding scale (gemma2)
   tie_embeddings: bool = False            # logits read embed.T (gemma2)
-  # "vision_stub" (pixtral): precomputed patch embeddings, projected by
-  # ``frontend_proj`` (frontend_dim, d), prefix the prompt's text.
+  mlp_type: str = "swiglu"                # "swiglu" | "gelu" (whisper)
+  attn_bias: bool = False                 # bq / bo (whisper)
+  encoder: Optional[EncoderConfig] = None  # whisper
+  # Precomputed embeddings projected by ``frontend_proj`` (frontend_dim,
+  # d): "vision_stub" (pixtral) patches prefix the prompt's text;
+  # "audio_stub" (whisper) frames feed the encoder.
   frontend: Optional[str] = None
   frontend_tokens: int = 0                # prefix tokens from the frontend
   frontend_dim: int = 0                   # the stub embedding's width
@@ -67,12 +85,87 @@ class ModelConfig:
     return self.n_layers // len(self.block_pattern)
 
   def param_count(self) -> int:
-    """The JAX count plus the norm gains; like the JAX count it leaves
-    out ``frontend_proj``."""
-    c = self
-    per = c.d_model * c.hd * (c.n_heads * 2 + c.n_kv_heads * 2)
-    per += 3 * c.d_model * c.d_ff + 2 * c.d_model
+    """Every weight of :func:`param_shapes` but the stub's
+    ``frontend_proj``.  Against the JAX count this adds the norm gains and
+    the biases, and charges a GELU MLP 2 d d_ff (JAX: 3 d d_ff)."""
+    n = 0
+    for path, shape in leaves(param_shapes(self)):
+      if path != "frontend_proj":
+        n += math.prod(shape)
+    return n
+
+
+def _attn_shapes(c: ModelConfig, n: int, H: int, Hkv: int, hd: int) -> Dict:
+  d = c.d_model
+  p = {"wq": (n, d, H, hd), "wk": (n, d, Hkv, hd), "wv": (n, d, Hkv, hd),
+       "wo": (n, H, hd, d)}
+  if c.attn_bias:
+    p["bq"] = (n, H, hd)
+    p["bo"] = (n, d)
+  return p
+
+
+def _mlp_shapes(c: ModelConfig, n: int, f: int) -> Dict:
+  d = c.d_model
+  if c.mlp_type == "gelu":
+    return {"w1": (n, d, f), "b1": (n, f), "w2": (n, f, d), "b2": (n, d)}
+  return {"w1": (n, d, f), "w3": (n, d, f), "w2": (n, f, d)}
+
+
+def param_shapes(c: ModelConfig) -> Dict:
+  """The parameter tree's leaf shapes, with the JAX tree's keys: per
+  pattern position ``blocks/pos<i>`` stacked over the ``n_blocks`` layers
+  ({ln1, attn: {wq, wk, wv, wo[, bq, bo]}, [ln_cross, cross: {...},] ln2,
+  mlp: {w1, w3, w2} or {w1, b1, w2, b2}[, ln1_post, ln2_post]}), then
+  ``embed``, ``final_norm``, ``unembed`` (untied), ``frontend_proj`` (a
+  stub) and ``encoder: {blocks: {ln1, attn, ln2, mlp} stacked over its
+  layers, final_norm}``."""
+  d, n = c.d_model, c.n_blocks
+  blocks = {}
+  for i, spec in enumerate(c.block_pattern):
+    lp = {"ln1": (n, d), "attn": _attn_shapes(c, n, c.n_heads, c.n_kv_heads,
+                                               c.hd)}
+    if spec.cross_attn:
+      lp["ln_cross"] = (n, d)
+      lp["cross"] = _attn_shapes(c, n, c.n_heads, c.n_kv_heads, c.hd)
+    lp["ln2"] = (n, d)
+    lp["mlp"] = _mlp_shapes(c, n, c.d_ff)
     if c.sandwich_norm:
-      per += 2 * c.d_model
-    embed = c.vocab * c.d_model * (1 if c.tie_embeddings else 2)
-    return embed + c.d_model + per * c.n_layers
+      lp["ln1_post"] = (n, d)
+      lp["ln2_post"] = (n, d)
+    blocks[f"pos{i}"] = lp
+  out = {"blocks": blocks, "embed": (c.vocab, d), "final_norm": (d,)}
+  if not c.tie_embeddings:
+    out["unembed"] = (d, c.vocab)
+  if c.frontend:
+    out["frontend_proj"] = (c.frontend_dim, d)
+  if c.encoder:
+    ec = encoder_config(c)
+    ne = ec.n_layers
+    out["encoder"] = {
+        "blocks": {"ln1": (ne, d),
+                   "attn": _attn_shapes(ec, ne, ec.n_heads, ec.n_heads,
+                                        ec.hd),
+                   "ln2": (ne, d), "mlp": _mlp_shapes(ec, ne, ec.d_ff)},
+        "final_norm": (d,)}
+  return out
+
+
+def encoder_config(c: ModelConfig) -> ModelConfig:
+  """The config the encoder's layers run under (the JAX
+  ``transformer._encoder_cfg``): its layers, heads (as many kv heads) and
+  d_ff, one plain layer kind, no encoder."""
+  e = c.encoder
+  return dataclasses.replace(
+      c, n_layers=e.n_layers, n_heads=e.n_heads, n_kv_heads=e.n_heads,
+      d_ff=e.d_ff, encoder=None, block_pattern=(LayerSpec(),))
+
+
+def leaves(tree: Dict, prefix: str = ""):
+  """(path "a/b/c", leaf) of a nested dict, in insertion order."""
+  for k, v in tree.items():
+    path = f"{prefix}{k}"
+    if isinstance(v, dict):
+      yield from leaves(v, path + "/")
+    else:
+      yield path, v

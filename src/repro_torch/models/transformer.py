@@ -3,16 +3,21 @@ architectures the port runs: llama3's global layers, and gemma2's
 alternating local (sliding-window) and global layers with attention and
 final-logit softcaps, sandwich norms, a sqrt(d) embedding scale and tied
 embeddings; pixtral's vision stub, whose projected patch embeddings
-prefix the text embeddings).
+prefix the text embeddings; whisper's encoder over the audio stub's
+frames, a cross block on every decoder layer, GELU MLPs and attention
+biases).
 
 Parameters are a nested dict with the JAX tree's keys and layouts, stacked
-per pattern position with a leading layer axis:
-``{"embed" (V, d), "final_norm" (d,), "unembed" (d, V), "blocks": {"pos0":
-{"ln1", "attn": {"wq", "wk", "wv", "wo"}, "ln2", "mlp": {"w1", "w3",
-"w2"}}}}``; with sandwich norms each layer also has ``ln1_post`` and
-``ln2_post``, with tied embeddings the JAX tree has no ``unembed``, and
-with the vision stub it has ``frontend_proj`` (frontend_dim, d).
-A Python loop over layers takes the place of ``lax.scan``.
+per pattern position with a leading layer axis; ``common.param_shapes``
+spells the tree out: ``{"embed" (V, d), "final_norm" (d,), "unembed" (d,
+V), "blocks": {"pos0": {"ln1", "attn": {"wq", "wk", "wv", "wo"}, "ln2",
+"mlp": {"w1", "w3", "w2"}}}}``; with sandwich norms each layer also has
+``ln1_post`` and ``ln2_post``, with tied embeddings the JAX tree has no
+``unembed``, with a stub frontend it has ``frontend_proj`` (frontend_dim,
+d); whisper adds ``bq``/``bo`` to every attention, ``ln_cross`` and
+``cross`` to every layer, a GELU ``mlp: {w1, b1, w2, b2}`` and ``encoder:
+{blocks, final_norm}``.  A Python loop over layers takes the place of
+``lax.scan``.
 
 Logits are taken in f32 (``h.float() @ unembed.float()``, or
 ``embed.T.float()`` when tied, then the logit softcap, as the JAX serve
@@ -31,20 +36,50 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models.common import LayerSpec, ModelConfig
-from repro_torch.models.layers import rms_norm, softcap, swiglu
+from repro_torch.models.common import (LayerSpec, ModelConfig,
+                                       encoder_config, param_shapes)
+from repro_torch.models.layers import gelu_mlp, rms_norm, softcap, swiglu
+
+
+FRONTENDS = (None, "vision_stub", "audio_stub")
+MLP_TYPES = ("swiglu", "gelu")
+# Leaves the init leaves at zero: the norm gains (the norm is x * (1 + w))
+# and the biases, as in the JAX init.
+ZERO_LEAVES = frozenset(("ln1", "ln2", "ln1_post", "ln2_post", "ln_cross",
+                         "final_norm", "bq", "bo", "b1", "b2"))
 
 
 def check_supported(cfg: ModelConfig) -> None:
-  """The port runs dense GQA attention layers, global or local (for now),
-  and the vision stub's patch prefix: no SSM, MoE, MLA, cross-attention or
-  encoder layers, and no other frontend."""
+  """The port runs dense GQA attention layers, global or local, with a
+  SwiGLU or GELU MLP; the vision stub's patch prefix; whisper's encoder
+  behind the audio stub, with a cross block on every decoder layer.  No
+  SSM, MoE or MLA layers, and no other frontend."""
   if any(s.kind != "attn" for s in cfg.block_pattern):
     raise NotImplementedError(f"{cfg.name}: the port runs attention layers "
                               "only")
-  if cfg.frontend not in (None, "vision_stub"):
+  if cfg.frontend not in FRONTENDS:
     raise NotImplementedError(f"{cfg.name}: frontend {cfg.frontend!r}; the "
-                              "port runs the vision stub only")
+                              f"port runs {FRONTENDS[1:]}")
+  if (cfg.frontend == "audio_stub") != (cfg.encoder is not None):
+    raise NotImplementedError(f"{cfg.name}: frontend {cfg.frontend!r} with "
+                              f"encoder {cfg.encoder}; the audio stub feeds "
+                              "an encoder, and only it")
+  if cfg.mlp_type not in MLP_TYPES:
+    raise NotImplementedError(f"{cfg.name}: mlp_type {cfg.mlp_type!r}; the "
+                              f"port runs {MLP_TYPES}")
+  cross = {s.cross_attn for s in cfg.block_pattern}
+  if len(cross) > 1 or cross != {cfg.encoder is not None}:
+    raise NotImplementedError(f"{cfg.name}: cross attention on layers "
+                              f"{[s.cross_attn for s in cfg.block_pattern]}"
+                              f" with encoder {cfg.encoder}; the port runs a "
+                              "cross block on every layer of an encoder's "
+                              "decoder, and none without one")
+
+
+def has_cross(cfg: ModelConfig) -> bool:
+  """Whether the decoder layers have cross blocks (whisper; by
+  ``check_supported``, every layer or none)."""
+  return any(s.cross_attn for s in cfg.block_pattern)
 
 
 def _trunc_normal(shape, scale, generator, device, dtype):
@@ -66,49 +101,38 @@ def _stacked(n, shape, scale, generator, device, dtype):
   return out
 
 
+def _init_leaf(name, shape, stacked, **kw):
+  if name in ZERO_LEAVES:
+    return torch.zeros(shape, dtype=kw["dtype"], device=kw["device"])
+  scale = None                          # fan-in
+  if name == "embed":
+    scale = 1.0
+  elif name == "wo":
+    scale = (shape[-3] * shape[-2]) ** -0.5
+  if stacked:
+    return _stacked(shape[0], shape[1:], scale, **kw)
+  return _trunc_normal(shape, scale, **kw)
+
+
+def _init_tree(shapes: Dict, stacked: bool, **kw) -> Dict:
+  return {name: _init_tree(sh, stacked or name == "blocks", **kw)
+          if isinstance(sh, dict) else _init_leaf(name, sh, stacked, **kw)
+          for name, sh in shapes.items()}
+
+
 def init_model(cfg: ModelConfig, generator: torch.Generator,
                device) -> Dict:
-  """Random weights with the JAX init's scales: truncated normal (+-2
-  sigma), by default times ``shape[-2]^-0.5`` (``frontend_proj`` too),
-  embed scale 1.0, ``wo`` scale (H*hd)^-0.5, norm gains zero (the norm is
-  ``x * (1 + w)``).  The numbers differ from the JAX init's: torch cannot
+  """Random weights of :func:`common.param_shapes` with the JAX init's
+  scales: truncated normal (+-2 sigma), by default times
+  ``shape[-2]^-0.5`` of one layer's weight (``frontend_proj`` too), embed
+  scale 1.0, ``wo`` scale (H*hd)^-0.5, norm gains and biases zero (the
+  norm is ``x * (1 + w)``).  Drawn leaf by leaf in the tree's order, the
+  blocks first.  The numbers differ from the JAX init's: torch cannot
   replay JAX's RNG (use ``repro_torch.bridge.params_from_numpy`` to load
   the same weights)."""
   check_supported(cfg)
-  d, H, Hkv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                      cfg.d_ff)
-  n = cfg.n_blocks
-  kw = dict(generator=generator, device=device, dtype=cfg.dtype)
-  zeros = dict(dtype=cfg.dtype, device=device)
-  blocks = {}
-  for i, _ in enumerate(cfg.block_pattern):
-    blocks[f"pos{i}"] = {
-        "ln1": torch.zeros((n, d), **zeros),
-        "attn": {
-            "wq": _stacked(n, (d, H, hd), None, **kw),
-            "wk": _stacked(n, (d, Hkv, hd), None, **kw),
-            "wv": _stacked(n, (d, Hkv, hd), None, **kw),
-            "wo": _stacked(n, (H, hd, d), (H * hd) ** -0.5, **kw),
-        },
-        "ln2": torch.zeros((n, d), **zeros),
-        "mlp": {
-            "w1": _stacked(n, (d, f), None, **kw),
-            "w3": _stacked(n, (d, f), None, **kw),
-            "w2": _stacked(n, (f, d), None, **kw),
-        },
-    }
-    if cfg.sandwich_norm:
-      blocks[f"pos{i}"]["ln1_post"] = torch.zeros((n, d), **zeros)
-      blocks[f"pos{i}"]["ln2_post"] = torch.zeros((n, d), **zeros)
-  params = {
-      "embed": _trunc_normal((cfg.vocab, d), 1.0, **kw),
-      "final_norm": torch.zeros((d,), **zeros),
-      "blocks": blocks,
-  }
-  if not cfg.tie_embeddings:
-    params["unembed"] = _trunc_normal((d, cfg.vocab), None, **kw)
-  if cfg.frontend:
-    params["frontend_proj"] = _trunc_normal((cfg.frontend_dim, d), None, **kw)
+  params = _init_tree(param_shapes(cfg), False, generator=generator,
+                      device=device, dtype=cfg.dtype)
   return finish_params(params, cfg)
 
 
@@ -164,54 +188,111 @@ def post_norm(y, lp, name: str, cfg: ModelConfig):
   return rms_norm(y, lp[name], cfg.norm_eps) if cfg.sandwich_norm else y
 
 
+def mlp(x, mp, cfg: ModelConfig):
+  """The config's MLP: SwiGLU, or GELU with biases."""
+  if cfg.mlp_type == "gelu":
+    return gelu_mlp(x, mp["w1"], mp["b1"], mp["w2"], mp["b2"])
+  return swiglu(x, mp["w1"], mp["w3"], mp["w2"])
+
+
 def mlp_block(x, lp, cfg: ModelConfig):
-  """x + the (sandwich-normed) SwiGLU MLP of the pre-normed ``x``."""
-  mp = lp["mlp"]
+  """x + the (sandwich-normed) MLP of the pre-normed ``x``."""
   h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-  return x + post_norm(swiglu(h2, mp["w1"], mp["w3"], mp["w2"]), lp,
-                       "ln2_post", cfg)
+  return x + post_norm(mlp(h2, lp["mlp"], cfg), lp, "ln2_post", cfg)
 
 
-def _layer_forward(x, lp, cfg: ModelConfig, spec: LayerSpec, positions):
-  """One pre-norm layer: attention (sliding-window on a local layer) +
-  SwiGLU, each output normed again under sandwich norms.  Returns (x, (k,
-  v)) with the layer's k/v in the decode layout (B, Hkv, S, D)."""
+def _layer_forward(x, lp, cfg: ModelConfig, spec: LayerSpec, positions,
+                   enc_out=None):
+  """One pre-norm layer: attention (sliding-window on a local layer), the
+  cross block where the layer has one, then the MLP, each output normed
+  again under sandwich norms.  Returns (x, (k, v), (cross_k, cross_v) or
+  None), the KV in the decode layout (B, Hkv, S or T, D).
+
+  The cross block (whisper) attends over ``enc_out`` where it is given
+  (``attention.cross_attention``); without it, as in the JAX loop, which
+  passes no frames, the reference runs causal self attention with rope
+  and ``bq`` on the cross weights, and so does this: through
+  ``ops.prefill_attention`` (the flash prefill kernel on the card), where
+  JAX computes the same function in XLA (``layers.causal_attention``)."""
   h = rms_norm(x, lp["ln1"], cfg.norm_eps)
   mix, kv = attn.attention_train(h, lp["attn"], cfg, positions,
                                  local=spec.local)
   x = x + post_norm(mix, lp, "ln1_post", cfg)
-  return mlp_block(x, lp, cfg), kv
+  cross_kv = None
+  if spec.cross_attn:
+    hc = rms_norm(x, lp["ln_cross"], cfg.norm_eps)
+    if enc_out is not None:
+      y, cross_kv = attn.cross_attention(hc, lp["cross"], cfg, enc_out)
+    else:
+      y, cross_kv = attn.attention_train(hc, lp["cross"], cfg, positions)
+    x = x + y
+  return mlp_block(x, lp, cfg), kv, cross_kv
+
+
+def encode(params, cfg: ModelConfig, frames):
+  """The encoder over the audio stub's frame embeddings (B, T,
+  frontend_dim) -> (B, T, d) in ``cfg.dtype``: ``frontend_proj`` (the
+  product in the promoted dtype, as the JAX einsum), then per layer ln1,
+  bidirectional ``cross_attention`` of the layer over itself (no rope: the
+  reference adds none, whatever its docstring says), ln2 and the GELU MLP,
+  then the encoder's ``final_norm``."""
+  ecfg = encoder_config(cfg)
+  proj = params["frontend_proj"]
+  dt = torch.promote_types(frames.dtype, proj.dtype)
+  x = torch.matmul(frames.to(dt), proj.to(dt)).to(cfg.dtype)
+  enc = params["encoder"]
+  for i in range(ecfg.n_layers):
+    lp = layer_params(enc["blocks"], i)
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    x = x + attn.cross_attention(h, lp["attn"], ecfg, h)[0]
+    x = x + mlp(rms_norm(x, lp["ln2"], cfg.norm_eps), lp["mlp"], ecfg)
+  return rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
 def hidden_states(params, cfg: ModelConfig, tokens,
                   collect_kv: bool = False, frontend_embeds=None):
   """Token ids (B, T) -> final hidden states (B, S, d), S = T plus the
-  patch prefix of ``frontend_embeds`` (rope positions run over both); with
+  patch prefix of ``frontend_embeds`` under the vision stub (rope
+  positions run over both); under the audio stub ``frontend_embeds`` are
+  frames for :func:`encode`, never prefixed to the text.  With
   ``collect_kv`` also {"k", "v"} in the cache layout (nb, na, B, Hkv, S,
-  D), written layer by layer into one preallocated tensor each."""
+  D), and with cross blocks {"cross_k", "cross_v"} (nb, na, B, Hkv, S or
+  T, D) beside them, written layer by layer into one preallocated tensor
+  each."""
   check_supported(cfg)
-  x = embed_tokens(params, cfg, tokens, frontend_embeds)
+  enc_out = None
+  if cfg.encoder is not None:
+    if frontend_embeds is not None:
+      enc_out = encode(params, cfg, frontend_embeds)
+    x = embed_tokens(params, cfg, tokens)
+  else:
+    x = embed_tokens(params, cfg, tokens, frontend_embeds)
   B, S = x.shape[:2]
   positions = torch.arange(S, device=x.device)
   kv: Optional[Dict] = None
   if collect_kv:
-    shape = (cfg.n_blocks, len(cfg.block_pattern), B, cfg.n_kv_heads, S,
-             cfg.hd)
-    kv = {"k": torch.empty(shape, dtype=cfg.dtype, device=x.device),
-          "v": torch.empty(shape, dtype=cfg.dtype, device=x.device)}
+    lead = (cfg.n_blocks, len(cfg.block_pattern), B, cfg.n_kv_heads)
+    T = S if enc_out is None else enc_out.shape[1]
+    names = (("k", S), ("v", S)) + (
+        (("cross_k", T), ("cross_v", T)) if has_cross(cfg) else ())
+    kv = {name: torch.empty((*lead, n, cfg.hd), dtype=cfg.dtype,
+                            device=x.device) for name, n in names}
   for b in range(cfg.n_blocks):
     for i, spec in enumerate(cfg.block_pattern):
       lp = layer_params(params["blocks"][f"pos{i}"], b)
-      x, (k, v) = _layer_forward(x, lp, cfg, spec, positions)
+      x, (k, v), ckv = _layer_forward(x, lp, cfg, spec, positions, enc_out)
       if kv is not None:
         kv["k"][b, i] = k
         kv["v"][b, i] = v
+        if ckv is not None:
+          kv["cross_k"][b, i], kv["cross_v"][b, i] = ckv
   h = rms_norm(x, params["final_norm"], cfg.norm_eps)
   return (h, kv) if collect_kv else h
 
 
 def logits_fn(params, cfg: ModelConfig, h):
-  """(..., d) -> f32 logits (..., V), softcapped where the config caps
-  them."""
-  return softcap(torch.matmul(h.float(), params["unembed"]),
+  """(..., d) -> logits (..., V) in the unembedding's dtype (f32; float64
+  in a float64 run), softcapped where the config caps them."""
+  unembed = params["unembed"]
+  return softcap(torch.matmul(h.to(unembed.dtype), unembed),
                  cfg.logit_softcap)

@@ -92,15 +92,18 @@ def supports_delta(cfg) -> bool:
   """Delta replay needs cached KV that is position-complete and
   order-free: global GQA attention with rope in every layer.  A sliding
   window (gemma2's local layers) couples the extension to the prefix's
-  order, and a frontend prefix (pixtral's patches) to un-cached prefix
-  inputs, so such a config takes the full build on a prefix-extension
-  miss, as in the JAX package.  (The engine also turns it off under a
-  ``+kv`` quant spec, whose sorted cache holds int8 / fp8 blocks.)"""
+  order; an encoder or cross blocks (whisper) and a frontend prefix
+  (pixtral's patches) couple it to prefix inputs the arena does not hold;
+  so such a config takes the full build on a prefix-extension miss, as in
+  the JAX package.  (The engine also turns it off under a ``+kv`` quant
+  spec, whose sorted cache holds int8 / fp8 blocks.)"""
   try:
     tf.check_supported(cfg)
   except NotImplementedError:
     return False
-  return cfg.frontend is None and not any(s.local for s in cfg.block_pattern)
+  return (cfg.encoder is None and cfg.frontend is None
+          and all(s.kind == "attn" and not s.local and not s.cross_attn
+                  for s in cfg.block_pattern))
 
 
 class CorpusCache:

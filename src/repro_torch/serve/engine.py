@@ -207,7 +207,8 @@ class ServingEngine:
   concentration curve).  ``estimator`` (the contracts' online accuracy
   estimator) defaults to an uncalibrated one; pass one to share its
   calibration across engines.  ``device`` is ``"cuda"`` unless the CPU is
-  asked for."""
+  asked for.  An encoder-decoder (whisper) is refused, as the JAX engine
+  fails on it (ROADMAP C)."""
 
   def __init__(self, cfg: ModelConfig, ecfg: EngineConfig, params=None,
                pca_basis: Optional[torch.Tensor] = None,
@@ -217,6 +218,14 @@ class ServingEngine:
     _refuse_backend(backend)
     check_contract(ecfg.contract)
     tf.check_supported(cfg)
+    if tf.has_cross(cfg):
+      raise NotImplementedError(
+          f"{cfg.name}: the engine does not serve an encoder-decoder with "
+          "cross attention, as the JAX engine does not: its slot pool "
+          "sizes cross_k / cross_v by the encoder's source_len while the "
+          "prefill emits them at prompt length, and its first admission "
+          "fails in write_slot's dynamic_update_slice (update shape larger "
+          "than the operand); run the loop")
     check_quant_device(cfg, device)
     C = cfg.synopsis.cluster_size
     if ecfg.prompt_len % C != 0:

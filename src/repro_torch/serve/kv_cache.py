@@ -7,14 +7,14 @@ exact cache (``k``/``v``, ``pos``) or the synopsis cache (cluster-ordered
 leaves under ``cfg.synopsis.quant``, the recent ring and ``pos``).  The
 batch axis doubles as the engine's *slot* axis: :func:`zeros_cache`
 allocates the slot pool and :func:`write_slot` admits one request's B=1
-cache into a lane.
+cache into a lane.  Cross-attention caches (whisper) have no pool.
 
 Unlike the JAX package, the pool is allocated once and written in place:
 ``write_slot`` copies into the lane and the engine's reset zeroes the
 leaves.  A captured CUDA graph reads fixed addresses, so a pool that was
 reallocated would leave the graphs reading the old one.  The other cache
-families (MLA, SSM state, cross-attention) raise, as
-``models.transformer.check_supported`` does.
+families (MLA, SSM state) raise, as ``models.transformer.check_supported``
+does, and so does cross attention (:func:`cache_struct`).
 """
 from __future__ import annotations
 
@@ -46,8 +46,16 @@ RECENT_AXES = ("layers", None, "batch", "kv_heads", None, None)
 def cache_struct(cfg: ModelConfig, B: int, S: int, *,
                  synopsis: bool) -> Dict[str, Any]:
   """{leaf: (shape, dtype, logical axes)} of the decode cache for (cfg,
-  batch, sequence length)."""
+  batch, sequence length).  A config with cross blocks (whisper) is
+  refused: the JAX pool sizes its cross leaves by the encoder's
+  ``source_len`` while the loop's prefill emits them at prompt length, so
+  the JAX engine fails its first slot write (ROADMAP C)."""
   tf.check_supported(cfg)
+  if tf.has_cross(cfg):
+    raise NotImplementedError(
+        f"{cfg.name}: no slot pool for cross-attention caches (the JAX "
+        "pool sizes cross_k / cross_v by the encoder's source_len, the "
+        "prefill emits them at prompt length)")
   nb, na = cfg.n_blocks, len(cfg.block_pattern)
   Hkv, D = cfg.n_kv_heads, cfg.hd
   dt = cfg.dtype

@@ -5,8 +5,12 @@ The cache comes out in the decode layout (nb, na, B, Hkv, S, D) with
 ``pos`` (B,), S the prompt's tokens plus the vision stub's patch prefix
 where ``frontend_embeds`` is given (the loop and the engine give none, as
 in the JAX package); ``serve.synopsis_kv.build`` then clusters it into the
-synopsis.  Causal attention runs through ``kernels.ops.prefill_attention``
-(the flash prefill kernel on CUDA tensors).
+synopsis.  A config with cross blocks (whisper) also emits
+``cross_k``/``cross_v`` (nb, na, B, Hkv, T, D): with the audio stub's
+frames the encoder's T frames, without them (the loop) the decoder's own S
+tokens from the causal "cross" prefill.  Causal attention runs through
+``kernels.ops.prefill_attention`` (the flash prefill kernel on CUDA
+tensors).
 
 :func:`make_extend_step` is the corpus cache's delta prefill: the tokens
 that extend a cached corpus, against the cached arena's sorted KV.
@@ -30,9 +34,8 @@ def make_prefill_step(cfg: ModelConfig):
                              frontend_embeds=frontend_embeds)
     logits = tf.logits_fn(params, cfg, h[:, -1])             # (B, V) f32
     B, S = h.shape[:2]
-    cache = {"k": kv["k"], "v": kv["v"],
-             "pos": torch.full((B,), S, dtype=torch.int32,
-                               device=tokens.device)}
+    cache = {**kv, "pos": torch.full((B,), S, dtype=torch.int32,
+                                     device=tokens.device)}
     return logits, cache
 
   return prefill_step
@@ -81,13 +84,16 @@ def make_extend_step(cfg: ModelConfig):
   Gate on ``corpus_cache.supports_delta``.  Each layer's f32 logits (B,
   Hkv, G, E, P+E) are transient (4.3 GB a layer at llama3-8b's width for
   P = E = 4096) and freed before the next layer.  A sliding-window layer
-  would couple the extension to the prefix's order, and a frontend to
-  prefix inputs the arena does not hold, so a config with either is
-  refused (``corpus_cache.supports_delta`` is False for it)."""
+  would couple the extension to the prefix's order, a cross block or a
+  frontend to inputs the arena does not hold, so a config with any of them
+  is refused (``corpus_cache.supports_delta`` is False for it)."""
   tf.check_supported(cfg)
   if any(s.local for s in cfg.block_pattern):
     raise NotImplementedError(f"{cfg.name}: no delta prefill over "
                               "sliding-window layers")
+  if tf.has_cross(cfg):
+    raise NotImplementedError(f"{cfg.name}: no delta prefill over "
+                              "cross-attention layers")
   if cfg.frontend:
     raise NotImplementedError(f"{cfg.name}: no delta prefill behind a "
                               "frontend prefix")

@@ -21,6 +21,12 @@ recent ring is not read.  The window is a strided view that
 ``flash_decode`` reads in place.  Every attention logit takes
 ``cfg.attn_softcap`` and the logits ``cfg.logit_softcap``.
 
+A layer with a cross block (whisper) then runs it in both modes, after
+the self-attention residual and before the MLP: exact decode over all of
+the layer's ``cross_k``/``cross_v`` with a query that has ``bq`` and no
+rope, as the JAX step does.  In the loop those are the decoder's own
+prompt KV from the causal "cross" prefill; with frames, the encoder's.
+
 ``attention_fn`` replaces the synopsis decode attention (the engine's
 contract telemetry): it returns ``(ctx, aux)``, and each per-layer ``aux``
 leaf comes out of the step stacked over the layers that run it (nb, the
@@ -45,10 +51,12 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import rms_norm
 
-# Per-layer cache leaves each mode reads.
+# Per-layer cache leaves each mode reads; a layer with a cross block
+# (whisper) also reads CROSS_LEAVES, in both modes.
 LAYER_LEAVES = {"synopsis": ("k", "v", "k_syn", "v_syn", "counts",
                              "recent_k", "recent_v"),
                 "exact": ("k", "v")}
+CROSS_LEAVES = ("cross_k", "cross_v")
 
 
 def synopsis_decode_attention(
@@ -121,6 +129,16 @@ def _attn_decode_layer(x, lp, cfg: ModelConfig, local: bool, cache_sl, pos,
   return y, (kd, vd), aux
 
 
+def _cross_decode_layer(x, lp, cfg: ModelConfig, cross_k, cross_v):
+  """The cross block of one decode step (the JAX ``_cross_decode_layer``):
+  q = x wq + bq with no rope, exact attention over all of the layer's
+  ``cross_k``/``cross_v`` (B, Hkv, T, D) with no self KV (one
+  ``flash_decode`` launch on the card), ``out_proj`` with ``bo``."""
+  q = attn_lib.query(x, lp)[:, 0]                             # (B, H, D)
+  ctx = exact_decode_attention(q, cross_k, cross_v, sm_scale=cfg.hd ** -0.5)
+  return attn_lib.out_proj(ctx[:, None].to(x.dtype), lp, x.dtype)
+
+
 def global_positions(cfg: ModelConfig) -> Tuple[int, ...]:
   """The pattern positions of the global (synopsis) attention layers; the
   local ones run exact windowed decode."""
@@ -177,7 +195,8 @@ def make_serve_step(cfg: ModelConfig, *, mode: str = "synopsis",
       for i, spec in enumerate(cfg.block_pattern):
         lp = tf.layer_params(params["blocks"][f"pos{i}"], b)
         # A local layer reads only its k / v (in either mode).
-        names = ("k", "v") if spec.local else leaves
+        names = (("k", "v") if spec.local else leaves) + (
+            CROSS_LEAVES if spec.cross_attn else ())
         layer_cache = {kk: cache[kk][b, i] for kk in names}
         if mode == "synopsis" and not spec.local:
           layer_cache["recent_len"] = cache["recent_len"]
@@ -190,6 +209,11 @@ def make_serve_step(cfg: ModelConfig, *, mode: str = "synopsis",
         for name, t in (aux or {}).items():
           auxs.setdefault(name, []).append(t)
         x = x + tf.post_norm(mix, lp, "ln1_post", cfg)
+        if spec.cross_attn:
+          hc = rms_norm(x, lp["ln_cross"], cfg.norm_eps)
+          x = x + _cross_decode_layer(hc, lp["cross"], cfg,
+                                      layer_cache["cross_k"],
+                                      layer_cache["cross_v"])
         x = tf.mlp_block(x, lp, cfg)
         ks.append(kd)
         vs.append(vd)

@@ -199,6 +199,8 @@ def test_cpu_tensors_run_the_plain_versions_without_launching():
     # smollm-135m's heads (G = 3, D = 64): 42 positions a tile, rows 126
     # and 127 of each tile empty; ragged S.
     ((2, 2100, 3, 3, 64), None, None),
+    # whisper-medium's heads (16 of 64, G = 1): 128 positions a tile.
+    ((1, 1024, 16, 1, 64), None, None),
 ])
 def test_card_flash_prefill(cuda, dtype, shape, window, cap):
   q, k, v = _to(cuda, dtype, *_prefill_inputs(shape))
@@ -564,6 +566,42 @@ def test_card_decode_kernels_at_g3_d64(cuda, dtype, kernel):
       C, M, I = (48, 6, 3) if n < 8191 else (128, 64, 32)
       _check_gather(cuda, dtype, *_gather_inputs(
           "padded", M * C, D=D, C=C, G=G, Hkv=Hkv, E=129, I=I, seed=n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kernel,S", [("flash_decode", 1500),
+                                      ("flash_decode", 8192),
+                                      ("fused_synopsis", 64),
+                                      ("block_gather", 8192)])
+def test_card_decode_kernels_at_whisper_shapes(cuda, dtype, kernel, S):
+  """whisper-medium's heads: 16 KV heads of 64, G = 1 (the decode core's
+  head bucket of 1), B = 2.  ``flash_decode`` over the cross rows a step
+  reads: 1500 encoder frames (a ragged S) or the loop's 8192 prompt
+  tokens; stage 1 on the 64 centroids of an 8192-token prompt; stage 2 at
+  S 8192, I 32, C 128, with the ring and self token (E = 129)."""
+  B, Hkv, G, D = 2, 16, 1, 64
+  g = torch.Generator().manual_seed(22)
+  sm = D ** -0.5
+  q, k, v = _to(cuda, dtype, *_decode_inputs(g, S, D=D, B=B, Hkv=Hkv, G=G))
+  if kernel == "flash_decode":
+    n0 = _build.LAUNCHES["flash_decode"]
+    got = flash_decode(q, k, v, sm_scale=sm)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_decode"] == n0 + 1
+    for a, b in zip(got, ref.flash_decode_ref(q, k, v, sm_scale=sm)):
+      _close(a, b, TOL[dtype])
+  elif kernel == "fused_synopsis":
+    cbias = torch.log(torch.randint(1, 129, (B, S), generator=g)
+                      .float()).to(cuda)
+    got = fused_synopsis_score_attention(q, k, v, cbias, sm_scale=sm)
+    want = ref.fused_synopsis_score_attention_ref(q, k, v, cbias,
+                                                  sm_scale=sm)
+    for a, b in zip((got[0], *got[1]), (want[0], *want[1])):
+      _close(a, b, TOL[dtype])
+  else:
+    _check_gather(cuda, dtype, *_gather_inputs(
+        "padded", S, D=D, C=128, G=G, Hkv=Hkv, E=129, I=32, seed=S))
 
 
 @pytest.mark.cuda
@@ -1067,19 +1105,21 @@ def _tree_to(tree, dev):
 def _check_loop_on_card(arch, mode, quant="none"):
   """The arch's SMOKE loop in f32 (tf32 off), prompt 64, 18 steps (one
   absorb in synopsis mode), on the card (kernels) and on the CPU (plain
-  versions): the same ids, and every step's logits within 1e-4 of
-  max|logits| (f32 sums in another order through two layers;
-  ``parity.loop_parity``).  The card launches flash_prefill once a layer,
+  versions): the same ids, and every step's logits within the larger of
+  1e-4 and four times the CPU's f32 loop's distance from float64, of
+  max|logits| (``parity.loop_parity``).  The card launches flash_prefill
+  once a layer (twice with a cross block: its causal branch),
   flash_decode twice a step on each layer that decodes exactly (every
-  layer in exact mode, the local ones in synopsis mode), and stage 1 on
-  the quant spec's branch."""
+  layer in exact mode, the local ones in synopsis mode) and once a step
+  on each cross block, and stage 1 on the quant spec's branch."""
   dev = _card_or_skip()
   cfg = parity.smoke_f32(arch)[0]
-  launched, _ = parity.loop_parity(arch, dev, mode, quant)
+  launched, _, _ = parity.loop_parity(arch, dev, mode, quant)
   exact = cfg.n_layers if mode == "exact" else sum(
       s.local for s in cfg.block_pattern) * cfg.n_blocks
-  assert launched["flash_prefill"] == cfg.n_layers
-  assert launched["flash_decode"] == 2 * exact * 18
+  cross = sum(s.cross_attn for s in cfg.block_pattern) * cfg.n_blocks
+  assert launched["flash_prefill"] == cfg.n_layers + cross
+  assert launched["flash_decode"] == (2 * exact + cross) * 18
   if mode == "synopsis":
     assert launched[_build.branch("fused_synopsis_score_attention",
                                   qt.parse_qconfig(quant).kind)] > 0
@@ -1112,6 +1152,17 @@ def test_card_smollm_loop_equals_the_cpu(mode):
 @pytest.mark.parametrize("mode", ["synopsis", "exact"])
 def test_card_pixtral_loop_equals_the_cpu(mode):
   _check_loop_on_card("pixtral-12b", mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,quant", [("synopsis", "none"),
+                                        ("exact", "none"),
+                                        ("synopsis", "int8+kv")])
+def test_card_whisper_loop_equals_the_cpu(mode, quant):
+  """whisper-medium: G = 1 at D = 32 through every kernel, the causal
+  "cross" prefill and each step's cross flash_decode over the prompt's
+  cross rows."""
+  _check_loop_on_card("whisper-medium", mode, quant)
 
 
 @pytest.mark.cuda
@@ -1258,7 +1309,8 @@ def test_card_engine_deadline_graphs_issue_the_plain_ops(quant):
   contract with telemetry every bucket's graph issues the same number of
   ops more than the deadline graph (the profile's cost does not depend on
   the budget).  ``chip_smoke.py`` holds the deadline graph's count at full
-  width to the previous engine's."""
+  width within a band of the count the engine has issued since before
+  the contracts existed."""
   dev = _card_or_skip()
   engines = {c: _smoke_engine(dev, quant, contract=c)
              for c in ("deadline", "deadline_with_bound")}
