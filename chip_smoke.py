@@ -108,7 +108,25 @@
     blocks read the decoder's own 8192 rows), the encoder prefill (1500
     seeded frames, the encoder timed alone, a step at budget M against
     exact on that cache), the unfused op, and the engine's refusal (the
-    JAX engine fails on whisper; no window).
+    JAX engine fails on whisper; no window);
+16. jamba-v0.1-52b at full width with its depth cut to 16 of 32 layers
+    (``[jamba]``, ``DEPTH``: 2 of its 4 eight-layer superblocks, ~26.0B
+    parameters, ~52 GB; the whole model does not fit one card): mamba
+    (SSD) layers, one attention layer in eight (llama3-8b's heads, G = 4
+    at D = 128), an MoE FFN (16 experts, top 2) on every other layer.
+    The same as 12-14: the SMOKE loops card against CPU (synopsis,
+    exact), its kernels at its shapes (records ``<kernel>[jamba]``), the
+    budget-32 and exact loops with exact launch counts (the kernels run on
+    the 2 attention layers only), the full-budget deviation on its
+    attention layer, one step per budget against exact, the unfused op,
+    and the engine window under ``accuracytrader`` and ``basic`` with each
+    step's change of the slots' SSM state (a state not written back shows
+    as 0 and fails the phase);
+17. mamba2-370m at full width and depth (``[mamba2]``, 48 SSD layers):
+    the SMOKE loop card against CPU, the exact loop (no attention, so
+    exact whatever the mode: prefill ms, p50 / p99, peak memory) with no
+    kernel launched, a profiled window (device busy ms and ops a step),
+    and the engine's refusal (``ValueError``, as the JAX engine).
 
 Every path's launch counts are reset just before it runs and read just
 after: the synopsis loop must launch its four kernels, the quantized loops
@@ -117,13 +135,13 @@ their quantized branches and not the unquantized ones, the exact loop
 ``flash_decode`` and ``block_gather_attention``, the engine the four
 synopsis-path kernels (counted at the graphs' capture: a replay runs no
 Python, so the profiler's rows show the kernels inside the replays); the
-phases 12-15's loops exactly one ``flash_prefill`` a layer (two with a
-cross block), two builds (build and absorb) and, a step, ``flash_decode``
-twice on each local layer and once on each cross block and the two
-synopsis kernels on each global one, on the quant spec's branches
-(exact: ``flash_decode`` twice on every layer, plus the cross blocks'),
-every other branch not at all, and gemma2's engine ``flash_decode``
-beside the four.
+phases 12-16's loops exactly one ``flash_prefill`` an attention layer
+(two with a cross block), two builds (build and absorb) and, a step,
+``flash_decode`` twice on each local layer and once on each cross block
+and the two synopsis kernels on each global one, on the quant spec's
+branches (exact: ``flash_decode`` twice on every attention layer, plus
+the cross blocks'), every other branch not at all, and gemma2's engine
+``flash_decode`` beside the four; mamba2's loop launches nothing.
 
 Any failed phase raises and exits non-zero.  The last lines are the
 kernels' JSON record, the nvidia-smi line and ``{"ok": true, ...}``.
@@ -2207,7 +2225,22 @@ MODELS = {
                     ()),
     "whisper-medium": ("[whisper]", (("synopsis", "none"), ("exact", "none"),
                                      ("synopsis", "int8+kv")), ()),
+    "jamba-v0.1-52b": ("[jamba]", (("synopsis", "none"), ("exact", "none")),
+                       ()),
 }
+# Depth cuts, layers run of the config's: jamba-v0.1-52b's 32 layers are
+# ~51.4B parameters, ~103 GB in bf16, which one 80 GB card cannot hold; 16
+# layers (2 of its 4 eight-layer superblocks: 2 attention, 14 mamba, 8 MoE
+# and 8 dense-MLP layers) are ~26.0B, ~52 GB, and 24 would be ~77 GB of
+# weights alone.  Width is never cut.
+DEPTH = {"jamba-v0.1-52b": 16}
+
+
+def _n_attn(cfg, local=None):
+  """The config's attention layers (of a ``local`` kind, or all)."""
+  return cfg.n_blocks * sum(
+      s.kind == "attn" and (local is None or s.local == local)
+      for s in cfg.block_pattern)
 
 
 def _pairs_in_window(S, window):
@@ -2288,10 +2321,10 @@ def check_model_kernels(cfg, tag, dev, g):
           f"TFLOP/s, {1.5 * ops_n / dev_ms / 1e9:.1f} issued with the P "
           f"split); bound {bound:.4f} ms (operations), {bound / dev_ms:.1%} "
           f"of it")
-  n_glob = sum(not s.local for s in cfg.block_pattern) * cfg.n_blocks
-  print(f"  [flash_prefill{tag}] a prompt's {cfg.n_layers} launches: "
-        f"{n_glob * times['global'] + (cfg.n_layers - n_glob) * times.get('local', 0.0):.3f}"
-        f" ms of device time")
+  n_glob, n_loc = _n_attn(cfg, local=False), _n_attn(cfg, local=True)
+  prompt_ms = n_glob * times["global"] + n_loc * times.get("local", 0.0)
+  print(f"  [flash_prefill{tag}] a prompt's {n_glob + n_loc} launches: "
+        f"{prompt_ms:.3f} ms of device time")
   if cap:
     lib_dev = _device_ms(lib, floor_ms=_bound(0, 4 * B * H * D * S * (S + 1)
                                               // 2, dtype)[0])
@@ -2304,9 +2337,9 @@ def check_model_kernels(cfg, tag, dev, g):
           f"{times['global'] / r['library_device_ms']:.2f}x")
   del q, k, v, qt, kt, vt, got
 
-  # segment_build: every layer sequence of one B = 2 prompt, and the
-  # absorb of the 128-token ring.
-  N = cfg.n_layers * B
+  # segment_build: every attention layer's sequence of one B = 2 prompt,
+  # and the absorb of the 128-token ring.
+  N = _n_attn(cfg) * B
   kb, vb = rnd(N, Hkv, S, D), rnd(N, Hkv, S, D)
   perm = torch.argsort(torch.rand((N, S), generator=g, device=dev),
                        dim=-1).to(torch.int32)
@@ -2434,7 +2467,8 @@ def check_model_kernels(cfg, tag, dev, g):
 
 def _require_model_launches(path, counts, cfg, steps, mode, quant="none"):
   """Exact launch counts of a full-width loop, every branch: flash_prefill
-  once a layer; in synopsis mode segment_build twice (the build and the
+  once an attention layer (a mamba layer launches no kernel); in synopsis
+  mode segment_build twice (the build and the
   absorb) on the quant spec's branch, and each step stage 1 (on the spec's
   branch) and stage 2 on every global layer and flash_decode twice on
   every local layer (its window view and the self token); in exact mode
@@ -2444,10 +2478,9 @@ def _require_model_launches(path, counts, cfg, steps, mode, quant="none"):
   from repro_torch.kernels import _build
   from repro_torch.kernels import quant as qt
   qc = qt.parse_qconfig(quant)
-  n_loc = sum(s.local for s in cfg.block_pattern) * cfg.n_blocks
-  n_glob = cfg.n_layers - n_loc
+  n_loc, n_glob = _n_attn(cfg, local=True), _n_attn(cfg, local=False)
   n_cross = sum(s.cross_attn for s in cfg.block_pattern) * cfg.n_blocks
-  want = {"flash_prefill": cfg.n_layers + n_cross}
+  want = {"flash_prefill": n_loc + n_glob + n_cross}
   if mode == "synopsis":
     want[_build.branch("segment_build", qc.spec)] = 2
     want[_build.branch("fused_synopsis_score_attention", qc.kind)] = \
@@ -2456,7 +2489,7 @@ def _require_model_launches(path, counts, cfg, steps, mode, quant="none"):
                        qc.kind if qc.sorted_kv else "none")] = n_glob * steps
     want["flash_decode"] = (2 * n_loc + n_cross) * steps
   else:
-    want["flash_decode"] = (2 * cfg.n_layers + n_cross) * steps
+    want["flash_decode"] = (2 * (n_loc + n_glob) + n_cross) * steps
   _require_exact_launches(path, counts, want)
 
 
@@ -2649,9 +2682,48 @@ def _model_loop(cfg, params, dev, tag, mode="synopsis", quant="none"):
   return out, counts
 
 
+def _window(eng):
+  """One Poisson window (``run_open_loop``, seed 0).  Returns its summary
+  and, on a hybrid, each decode step's largest change of the active
+  lanes' ``ssd_state`` across the step (taken outside the step's timed
+  wall): a state the step did not write back shows as 0."""
+  from repro_torch.serve.engine import run_open_loop
+  if "ssd_state" not in eng.cache:
+    return run_open_loop(eng, ENGINE_RATE, ENGINE_WINDOW_S, seed=0), None
+  moved = []
+  inner = eng._decode_step
+
+  def step(active, *a, **kw):
+    before = eng.cache["ssd_state"][:, :, list(active)].clone()
+    inner(active, *a, **kw)
+    after = eng.cache["ssd_state"][:, :, list(active)]
+    moved.append(float((after - before).abs().amax()))
+  eng._decode_step = step
+  try:
+    s = run_open_loop(eng, ENGINE_RATE, ENGINE_WINDOW_S, seed=0)
+  finally:
+    # The wrapper closes over the engine: left in place, it would make the
+    # engine a reference cycle, whose weights and graphs only the cyclic
+    # collector frees (possibly inside a later engine's capture).
+    del eng._decode_step
+  return s, moved
+
+
+def _report_ssm_state(label, moved):
+  frozen = sum(m == 0.0 for m in moved)
+  print(f"{label}: SSM state over the window: max|change| per step min "
+        f"{min(moved):.3e} median {statistics.median(moved):.3e} max "
+        f"{max(moved):.3e}; {frozen} of {len(moved)} steps left it as it "
+        "was")
+  if frozen:
+    raise AssertionError(f"{label}: {frozen} steps did not advance the SSM "
+                         "state")
+
+
 def run_model(arch, dev, g):
-  """One architecture at its published width and depth, random bf16
-  weights from seed 0: SMOKE parity card against CPU, the kernel checks
+  """One architecture at its published width and depth (depth cut where
+  ``DEPTH`` says: jamba), random bf16 weights from seed 0: SMOKE parity
+  card against CPU, the kernel checks
   at its shapes, the budget-32 loop (130 steps, one absorb) with exact
   launch counts, the full-budget deviation on its first global layer, a
   profiled window (device busy share); under gemma2's table-only quant
@@ -2661,23 +2733,39 @@ def run_model(arch, dev, g):
   loop and a profiled window, one step per budget against exact; the
   vision stub's prefix prefill (pixtral), or the audio stub's encoder
   prefill (whisper); the unfused op; one engine window under
-  accuracytrader and basic (whisper: the engine's refusal).  Returns
-  (records, {record name: launches on its path})."""
+  accuracytrader and basic (whisper: the engine's refusal), with a
+  hybrid's SSM state watched over it (jamba).  Returns (records, {record
+  name: launches on its path})."""
   from repro_torch.configs.registry import get_config
   from repro_torch.kernels import _build, ops
   from repro_torch.launch import serve
   from repro_torch.models import transformer as tf
   from repro_torch.serve import synopsis_kv as skv
-  from repro_torch.serve.engine import run_open_loop
   from repro_torch.serve.serve_step import global_positions
   t_start = time.perf_counter()
   tag, smoke_runs, table_quants = MODELS[arch]
   cfg = get_config(arch)
+  full_layers = cfg.n_layers
+  if arch in DEPTH:
+    cfg = dataclasses.replace(cfg, n_layers=DEPTH[arch])
   local = any(s.local for s in cfg.block_pattern)
   pos = global_positions(cfg)[0]          # the first global (synopsis) layer
   G = cfg.n_heads // cfg.n_kv_heads
-  print(f"{tag} {cfg.name} full width and depth, nothing cut: "
-        f"{cfg.n_layers} layers"
+  kinds = [s.kind for s in cfg.block_pattern]
+  print(f"{tag} {cfg.name} full width, "
+        + (f"depth cut to {cfg.n_layers} of {full_layers} layers "
+           f"({cfg.n_blocks} of {full_layers // len(kinds)} "
+           f"{len(kinds)}-layer superblocks): "
+           if cfg.n_layers != full_layers else "depth too, nothing cut: ")
+        + f"{cfg.n_layers} layers"
+        + (f" ({_n_attn(cfg)} attention, {cfg.n_layers - _n_attn(cfg)} "
+           f"mamba (SSD state {cfg.ssm.d_state}, "
+           f"{cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim} heads of "
+           f"{cfg.ssm.head_dim}), "
+           f"{sum(s.use_moe for s in cfg.block_pattern) * cfg.n_blocks} MoE "
+           f"({cfg.moe.num_experts} experts of {cfg.moe.d_ff_expert}, top "
+           f"{cfg.moe.top_k}; {cfg.param_count(active=True) / 1e9:.3f}B "
+           "params active a token))" if "mamba" in kinds else "")
         + (f" (local window {cfg.sliding_window} / global)" if local else "")
         + f", d={cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads (G={G}),"
         f" hd={cfg.hd}, d_ff={cfg.d_ff}, vocab {cfg.vocab}"
@@ -2793,12 +2881,14 @@ def run_model(arch, dev, g):
     eng = _engine(cfg, params, dev, policy=policy)
     n_graphs = len(eng.programs.graphs)
     built_s = time.perf_counter() - t0
-    s = run_open_loop(eng, ENGINE_RATE, ENGINE_WINDOW_S, seed=0)
+    s, moved = _window(eng)
     counts = _build.launch_counts()
     print(f"{tag} engine {policy}: {n_graphs} graphs captured in "
           f"{built_s:.1f}s; peak_mem_gb="
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
     _engine_metrics(f"{tag} {policy}", s, eng)
+    if moved is not None:
+      _report_ssm_state(f"{tag} engine {policy}", moved)
     # A local layer's flash_decode is captured in every bucket's graph
     # beside the global layers' two synopsis kernels.
     _require_launches(f"{tag} engine {policy}", counts, ENGINE_KERNELS + (
@@ -2809,6 +2899,67 @@ def run_model(arch, dev, g):
   torch.cuda.empty_cache()
   print(f"{tag} phase in {time.perf_counter() - t_start:.1f}s")
   return records, launches
+
+
+def run_mamba2(dev):
+  """mamba2-370m at full width and depth (48 SSD layers, nothing cut),
+  random bf16 weights from seed 0.  No attention: the loop runs in exact
+  mode and launches none of the six kernels (the SSD scan, the conv and
+  the state update are plain torch, as the reference is plain JAX).  The
+  SMOKE loop card against CPU (``launch.parity``), the exact loop at B =
+  2, prompt 8192, 130 steps (prefill ms, step p50 / p99, peak memory, no
+  launch), a profiled window (device busy ms and ops a step), and the
+  engine's refusal (``ValueError``, as the JAX engine refuses it)."""
+  from repro_torch.configs.registry import get_config
+  from repro_torch.kernels import _build
+  from repro_torch.launch import parity, serve
+  from repro_torch.models import transformer as tf
+  t_start = time.perf_counter()
+  tag = "[mamba2]"
+  cfg = get_config("mamba2-370m")
+  s = cfg.ssm
+  print(f"{tag} {cfg.name} full width and depth, nothing cut: "
+        f"{cfg.n_layers} mamba layers, d={cfg.d_model}, d_inner "
+        f"{s.expand * cfg.d_model} in {s.expand * cfg.d_model // s.head_dim}"
+        f" heads of {s.head_dim}, state {s.d_state}, conv {s.d_conv}, chunk "
+        f"{s.chunk}, no FFN, vocab {cfg.vocab} (tied), "
+        f"{cfg.param_count() / 1e9:.3f}B params, {cfg.dtype}; B={BATCH} "
+        f"prompt={PROMPT} steps={STEPS}")
+  launched, rel, bound = parity.loop_parity("mamba2-370m", dev, "exact")
+  if any(launched.values()):
+    raise AssertionError(f"{tag} SMOKE loop launched {launched}")
+  print(f"{tag} [parity] smoke f32 exact: {parity.TOKENS + 1} ids equal on "
+        f"card and CPU; every step's logits within {rel:.3e} of max (bound "
+        f"{bound:.3e}); no kernel launched")
+  t0 = time.perf_counter()
+  params = tf.init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
+  torch.cuda.synchronize()
+  print(f"{tag} random weights in {time.perf_counter() - t0:.1f}s")
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  _build.reset_launches()
+  out = serve.run(cfg, batch=BATCH, prompt_len=PROMPT, tokens=STEPS,
+                  device=dev, params=params, log=lambda _: None)
+  torch.cuda.synchronize()
+  peak = torch.cuda.max_memory_allocated() / 1e9
+  _check_run(out, cfg, absorbs=0)
+  if out["budgets"] != [0] * STEPS or out["build_ms"] != 0.0:
+    raise AssertionError(f"{tag}: the loop did not run in exact mode")
+  print(f"{tag} loop exact (no attention): prefill_ms="
+        f"{out['prefill_ms']:.1f} decode_ms {_step_stats(out['step_ms'])} "
+        f"peak_mem_gb={peak:.2f}")
+  _require_exact_launches(f"{tag} loop exact", _build.launch_counts(), {})
+  profile_decode(cfg, params, out["cache"], dev, 0, mode="exact")
+  del out
+  try:
+    _engine(cfg, params, dev)
+  except ValueError as e:
+    print(f"{tag} engine refused: {e}")
+  else:
+    raise AssertionError(f"{tag}: the engine took an attention-free model")
+  del params
+  torch.cuda.empty_cache()
+  print(f"{tag} phase in {time.perf_counter() - t_start:.1f}s")
 
 
 T_START = time.perf_counter()
@@ -2997,6 +3148,7 @@ def main() -> int:
     arch_records, arch_launches = run_model(arch, dev, g)
     records.update(arch_records)
     model_launches.update(arch_launches)
+  run_mamba2(dev)
 
   # Each kernel branch's launches on the path that runs it: the synopsis
   # loop's four, the exact loop's flash_decode, the unfused op's

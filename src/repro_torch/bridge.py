@@ -53,7 +53,9 @@ def params_from_numpy(tree: Dict, cfg: ModelConfig, device) -> Dict:
   sandwich norms every layer carries ``ln1_post`` and ``ln2_post``; a stub
   frontend needs ``frontend_proj``; whisper its attention biases, every
   layer's ``cross`` and ``ln_cross``, the GELU biases and the encoder
-  tree."""
+  tree; a mamba layer its ``ssm`` leaves (``A_log``, ``D`` and
+  ``dt_bias`` cast like the rest, as the JAX launcher casts them) and no
+  ``ln2`` / ``mlp`` where d_ff = 0; an MoE layer its ``moe`` leaves."""
   tf.check_supported(cfg)
   missing, wrong = [], []
   for path, shape in leaves(param_shapes(cfg)):

@@ -14,6 +14,8 @@ _MODULES: Dict[str, str] = {
     "smollm-135m": "repro_torch.configs.smollm_135m",
     "pixtral-12b": "repro_torch.configs.pixtral_12b",
     "whisper-medium": "repro_torch.configs.whisper_medium",
+    "mamba2-370m": "repro_torch.configs.mamba2_370m",
+    "jamba-v0.1-52b": "repro_torch.configs.jamba_v01_52b",
 }
 
 

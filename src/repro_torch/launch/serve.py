@@ -31,6 +31,15 @@ the device is a GPU.
   # spec (--engine is refused: the JAX engine fails on whisper)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \\
       --no-smoke --prompt-len 8192 --tokens 130 [--mode exact]
+  # mamba2-370m: no attention, so exact mode whatever --mode says, and
+  # --budget, --quant and --engine are refused, as in the JAX launcher
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
+      --no-smoke --prompt-len 8192 --tokens 130
+  # jamba-v0.1-52b: mamba, attention and MoE layers; the loop, --mode
+  # exact and --engine alike (the full config does not fit one card: the
+  # card runs it at 16 of its 32 layers, from chip_smoke.py)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \\
+      --engine --device cpu --prompt-len 64 --tokens 4 --rate-scale 0.1
 
 ``--device cpu`` runs the plain PyTorch versions of the kernels (tests);
 without it the driver needs a CUDA device and refuses to run otherwise.
@@ -76,7 +85,7 @@ from repro_torch.configs.registry import get_config, list_archs
 from repro_torch.control import BudgetController, make_predictor
 from repro_torch.kernels import quant as qt
 from repro_torch.models import transformer as tf
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import ModelConfig, n_attn_positions
 from repro_torch.serve import synopsis_kv as skv
 from repro_torch.serve.prefill import make_prefill_step
 from repro_torch.serve.serve_step import check_quant_device, make_serve_step
@@ -128,7 +137,12 @@ def run(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int,
   ``mode="exact"`` skips the build and the controller and records budget
   0 for every step.  Like the JAX loop it only advances ``pos``: the new
   tokens' KV is never appended, so every exact step attends over the
-  prompt plus its own token.
+  prompt plus its own token.  A config with no attention position
+  (mamba2) runs in exact mode whatever ``mode`` says, as the JAX loop
+  does, and so refuses ``budgets`` and a quant spec.  Like the JAX loop,
+  in either mode, the loop never writes a step's SSM state back: every
+  step of a hybrid decodes from the prefill's ``conv_state`` /
+  ``ssd_state`` (the engine advances them).
 
   Returns the generated ids (B, 1 + tokens), the last step's logits, the
   budget and wall time of every step, prefill and build times (ms, host
@@ -140,6 +154,8 @@ def run(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int,
   check_quant_device(cfg, device)
   if mode not in ("synopsis", "exact"):
     raise ValueError(f"mode={mode!r}: expected 'synopsis' or 'exact'")
+  if not n_attn_positions(cfg):
+    mode = "exact"                # nothing to synopsize
   if mode == "exact" and budgets is not None:
     raise ValueError("budgets fix the synopsis refinement; exact mode "
                      "has none")
@@ -226,7 +242,7 @@ def run(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int,
     logits, st = steps[budget](params, cache, tok)
     _sync(dev)
     dt = (time.perf_counter() - t0) * 1e3
-    cache["pos"] = st["pos"]
+    cache["pos"] = st["pos"]      # st's SSM state is dropped, as in JAX
     if mode == "synopsis":
       ctrl.observe(budget, dt)
       cache = skv.append_recent(cache, st["k_delta"], st["v_delta"])
@@ -442,11 +458,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     ap.error(str(e))
   if args.engine:
     return engine_main(args, device)
+  cfg = get_config(args.arch, smoke=args.smoke)
+  if not n_attn_positions(cfg):
+    args.mode = "exact"           # no attention: nothing to synopsize
   if args.mode == "exact" and args.budget is not None:
     ap.error("--budget sets the synopsis refinement; --mode exact has none")
   if args.mode == "exact" and args.quant != "none":
     ap.error("--quant sets the synopsis arena; --mode exact builds none")
-  cfg = apply_quant(get_config(args.arch, smoke=args.smoke), args.quant)
+  cfg = apply_quant(cfg, args.quant)
   budgets = None if args.budget is None else [args.budget] * args.tokens
   return run(cfg, batch=args.batch, prompt_len=args.prompt_len,
              tokens=args.tokens, deadline_ms=args.deadline_ms,

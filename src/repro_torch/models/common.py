@@ -1,9 +1,9 @@
 """Model configs: the port's own copy of ``repro.models.common``'s config
-dataclasses, cut to what the dense GQA serving path reads (llama3's global
+dataclasses, cut to what the serving path reads (llama3's global
 attention; gemma2's local layers, softcaps, sandwich norms, embedding
 scale and tied embeddings; pixtral's vision-stub patch prefix; whisper's
-encoder, cross attention, GELU MLPs and attention biases).  ``dtype`` is a
-torch dtype.
+encoder, cross attention, GELU MLPs and attention biases; mamba2's SSD
+layers and jamba's MoE FFNs).  ``dtype`` is a torch dtype.
 
 :func:`param_shapes` is the parameter tree's layout, which the init, the
 bridge's check and :meth:`ModelConfig.param_count` all read."""
@@ -18,9 +18,29 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-  kind: str = "attn"              # the only layer kind the port runs
+  kind: str = "attn"              # "attn" | "mamba"
   local: bool = False             # sliding-window attention (gemma2)
+  use_moe: bool = False           # an MoE FFN in place of the MLP (jamba)
   cross_attn: bool = False        # a cross block after attention (whisper)
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+  num_experts: int
+  top_k: int
+  d_ff_expert: int
+  num_shared: int = 0             # always-on shared experts (deepseek)
+  dense_parallel: bool = False    # dense MLP residual in parallel (arctic)
+  capacity_factor: float = 1.25
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+  d_state: int = 128
+  d_conv: int = 4
+  expand: int = 2
+  head_dim: int = 64
+  chunk: int = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +83,8 @@ class ModelConfig:
   tie_embeddings: bool = False            # logits read embed.T (gemma2)
   mlp_type: str = "swiglu"                # "swiglu" | "gelu" (whisper)
   attn_bias: bool = False                 # bq / bo (whisper)
+  moe: Optional[MoEConfig] = None
+  ssm: Optional[SSMConfig] = None
   encoder: Optional[EncoderConfig] = None  # whisper
   # Precomputed embeddings projected by ``frontend_proj`` (frontend_dim,
   # d): "vision_stub" (pixtral) patches prefix the prompt's text;
@@ -84,14 +106,20 @@ class ModelConfig:
                        f"multiple of the pattern {len(self.block_pattern)}")
     return self.n_layers // len(self.block_pattern)
 
-  def param_count(self) -> int:
+  def param_count(self, active: bool = False) -> int:
     """Every weight of :func:`param_shapes` but the stub's
-    ``frontend_proj``.  Against the JAX count this adds the norm gains and
-    the biases, and charges a GELU MLP 2 d d_ff (JAX: 3 d d_ff)."""
+    ``frontend_proj``.  Against the JAX count this adds the norm gains,
+    the biases, the SSM's conv, ``A_log``, ``D`` and ``dt_bias`` and the
+    dt columns of ``in_proj``, and charges a GELU MLP 2 d d_ff (JAX: 3 d
+    d_ff).  ``active=True`` counts only ``top_k`` of each MoE layer's
+    experts (the weights a token's FFN reads)."""
     n = 0
     for path, shape in leaves(param_shapes(self)):
-      if path != "frontend_proj":
-        n += math.prod(shape)
+      if path == "frontend_proj":
+        continue
+      if active and "/moe/w" in path:
+        shape = (shape[0], self.moe.top_k, *shape[2:])
+      n += math.prod(shape)
     return n
 
 
@@ -112,27 +140,90 @@ def _mlp_shapes(c: ModelConfig, n: int, f: int) -> Dict:
   return {"w1": (n, d, f), "w3": (n, d, f), "w2": (n, f, d)}
 
 
+def ssm_dims(c: ModelConfig) -> Tuple[int, int, int]:
+  """(d_inner, SSM heads, conv channels) of a mamba layer."""
+  s = c.ssm
+  d_in = s.expand * c.d_model
+  return d_in, d_in // s.head_dim, d_in + 2 * s.d_state
+
+
+def _ssm_shapes(c: ModelConfig, n: int) -> Dict:
+  d, s = c.d_model, c.ssm
+  d_in, h, conv_dim = ssm_dims(c)
+  return {"in_proj": (n, d, 2 * d_in + 2 * s.d_state + h),
+          "conv_w": (n, s.d_conv, conv_dim), "conv_b": (n, conv_dim),
+          "A_log": (n, h), "D": (n, h), "dt_bias": (n, h), "norm": (n, d_in),
+          "out_proj": (n, d_in, d)}
+
+
+def _moe_shapes(c: ModelConfig, n: int) -> Dict:
+  d, m = c.d_model, c.moe
+  e, f = m.num_experts, m.d_ff_expert
+  return {"router": (n, d, e), "w1": (n, e, d, f), "w3": (n, e, d, f),
+          "w2": (n, e, f, d)}
+
+
+def ssm_state_shapes(c: ModelConfig, B: int) -> Dict[str, Tuple[int, ...]]:
+  """The mamba layers' decode state for a batch of B, stacked over the
+  blocks and the pattern's mamba positions: ``conv_state`` (nb, ns, B,
+  d_conv-1, conv_dim), the last inputs of the causal conv, and
+  ``ssd_state`` (nb, ns, B, h, head_dim, d_state)."""
+  s = c.ssm
+  lead = (c.n_blocks, n_ssm_positions(c), B)
+  _, h, conv_dim = ssm_dims(c)
+  return {"conv_state": (*lead, s.d_conv - 1, conv_dim),
+          "ssd_state": (*lead, h, s.head_dim, s.d_state)}
+
+
+def _has_ffn(c: ModelConfig, spec: LayerSpec) -> bool:
+  """Whether the layer has an FFN (and its ``ln2``): an MLP (d_ff > 0) or
+  an MoE; mamba2's layers (d_ff = 0) have none."""
+  return c.d_ff > 0 or (spec.use_moe and c.moe is not None)
+
+
+def n_attn_positions(c: ModelConfig) -> int:
+  """Attention positions of the pattern: the k / v and synopsis leaves are
+  stacked over these only."""
+  return sum(s.kind == "attn" for s in c.block_pattern)
+
+
+def n_ssm_positions(c: ModelConfig) -> int:
+  """Mamba positions of the pattern: the SSM state leaves' stack."""
+  return sum(s.kind == "mamba" for s in c.block_pattern)
+
+
 def param_shapes(c: ModelConfig) -> Dict:
   """The parameter tree's leaf shapes, with the JAX tree's keys: per
   pattern position ``blocks/pos<i>`` stacked over the ``n_blocks`` layers
-  ({ln1, attn: {wq, wk, wv, wo[, bq, bo]}, [ln_cross, cross: {...},] ln2,
-  mlp: {w1, w3, w2} or {w1, b1, w2, b2}[, ln1_post, ln2_post]}), then
-  ``embed``, ``final_norm``, ``unembed`` (untied), ``frontend_proj`` (a
-  stub) and ``encoder: {blocks: {ln1, attn, ln2, mlp} stacked over its
-  layers, final_norm}``."""
+  ({ln1, attn: {wq, wk, wv, wo[, bq, bo]} or ssm: {in_proj, conv_w,
+  conv_b, A_log, D, dt_bias, norm, out_proj}, [ln_cross, cross: {...},]
+  [ln2, mlp: {w1, w3, w2} or {w1, b1, w2, b2} or moe: {router, w1, w3,
+  w2},] [ln1_post, ln2_post]}; a layer with no FFN, mamba2's, has no
+  ``ln2``), then ``embed``, ``final_norm``, ``unembed`` (untied),
+  ``frontend_proj`` (a stub) and ``encoder: {blocks: {ln1, attn, ln2,
+  mlp} stacked over its layers, final_norm}``."""
   d, n = c.d_model, c.n_blocks
   blocks = {}
   for i, spec in enumerate(c.block_pattern):
-    lp = {"ln1": (n, d), "attn": _attn_shapes(c, n, c.n_heads, c.n_kv_heads,
-                                               c.hd)}
+    lp = {"ln1": (n, d)}
+    if spec.kind == "attn":
+      lp["attn"] = _attn_shapes(c, n, c.n_heads, c.n_kv_heads, c.hd)
+    else:
+      lp["ssm"] = _ssm_shapes(c, n)
     if spec.cross_attn:
       lp["ln_cross"] = (n, d)
       lp["cross"] = _attn_shapes(c, n, c.n_heads, c.n_kv_heads, c.hd)
-    lp["ln2"] = (n, d)
-    lp["mlp"] = _mlp_shapes(c, n, c.d_ff)
+    ffn = _has_ffn(c, spec)
+    if ffn:
+      lp["ln2"] = (n, d)
+    if spec.use_moe and c.moe is not None:
+      lp["moe"] = _moe_shapes(c, n)
+    elif c.d_ff > 0:
+      lp["mlp"] = _mlp_shapes(c, n, c.d_ff)
     if c.sandwich_norm:
       lp["ln1_post"] = (n, d)
-      lp["ln2_post"] = (n, d)
+      if ffn:
+        lp["ln2_post"] = (n, d)
     blocks[f"pos{i}"] = lp
   out = {"blocks": blocks, "embed": (c.vocab, d), "final_norm": (d,)}
   if not c.tie_embeddings:
@@ -158,7 +249,8 @@ def encoder_config(c: ModelConfig) -> ModelConfig:
   e = c.encoder
   return dataclasses.replace(
       c, n_layers=e.n_layers, n_heads=e.n_heads, n_kv_heads=e.n_heads,
-      d_ff=e.d_ff, encoder=None, block_pattern=(LayerSpec(),))
+      d_ff=e.d_ff, moe=None, ssm=None, encoder=None,
+      block_pattern=(LayerSpec(),))
 
 
 def leaves(tree: Dict, prefix: str = ""):

@@ -1,0 +1,82 @@
+"""Mixture-of-Experts FFN with token-choice routing and per-expert capacity
+(counterpart of ``repro.models.moe`` on one device, its ``_dp_size`` 1).
+
+Every token picks its top-k experts (gates renormalised over the k);
+every expert then keeps its top-``capacity`` routed tokens and drops the
+rest, ``capacity = max(1, int(T k / E * capacity_factor))`` over the T
+tokens of the call.  At decode T is the batch (B = 2 in the loop, the
+slots in the engine), so with jamba's k = 2 of E = 16 the capacity is 1:
+each expert keeps only its highest-gated token of the batch, the rows of
+a batch change each other's output, and every expert computes its one
+slot (a decode step reads all E experts' weights), as in the reference.
+
+Both selections break ties as ``lax.top_k`` does, the lower index first:
+a stable descending sort (``torch.topk`` does not promise an order).
+Router logits and softmax in f32 (float64 for float64 activations); the
+expert products in the activation dtype with the SwiGLU gate in f32, as
+``layers.swiglu``; the combine an ``index_add_`` in the activation dtype
+(a token has at most k nonzero terms, so the order of the adds does not
+change the sum for k = 2).  Plain PyTorch on every device: the reference
+is plain JAX.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ref import acc_dtype
+from repro_torch.models.common import ModelConfig
+
+
+def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+  """The k largest along the last axis, ties to the lower index."""
+  vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+  return vals[..., :k], idx[..., :k]
+
+
+def capacity(cfg: ModelConfig, tokens: int) -> int:
+  """Tokens each expert keeps of a call over ``tokens`` tokens."""
+  m = cfg.moe
+  return max(1, int(tokens * m.top_k / m.num_experts * m.capacity_factor))
+
+
+def route(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
+  """The routing of x (T, d): (per expert the kept tokens ``tok`` (E,
+  cap) and their gates ``gate`` (E, cap), 0 where the slot holds no
+  routed token; the token side's choice ``topi`` (T, k); the aux
+  load-balance loss)."""
+  m = cfg.moe
+  T = x.shape[0]
+  E, K = m.num_experts, m.top_k
+  f = acc_dtype(x)
+  probs = torch.softmax(torch.matmul(x.to(f), router.to(f)), dim=-1)
+  topv, topi = _top_k(probs, K)                               # (T, K)
+  topv = topv / topv.sum(-1, keepdim=True).clamp_min(1e-9)
+  in_topk = torch.zeros((T, E), dtype=f, device=x.device).scatter_(
+      1, topi, topv)                                          # gate or 0
+  # Switch-style load-balance loss: E * sum_e f_e p_e.
+  frac_routed = (in_topk > 0).to(f).mean(0)
+  aux = E * (frac_routed * probs.mean(0)).sum()
+  masked = torch.where(in_topk > 0, in_topk, -1.0).t()        # (E, T)
+  gate, tok = _top_k(masked, capacity(cfg, T))                # (E, cap)
+  return tok, gate.clamp_min(0.0), topi, aux
+
+
+def moe_ffn(x: torch.Tensor, p, cfg: ModelConfig):
+  """x (B, S, d) -> (y (B, S, d) in x's dtype, aux load-balance loss; no
+  caller on the serve path reads it).  Routed experts only
+  (``transformer.check_supported`` refuses shared ones and arctic's
+  parallel dense MLP)."""
+  B, S, d = x.shape
+  xf = x.reshape(B * S, d)
+  tok, gate, _, aux = route(xf, p["router"], cfg)
+  dt, f = x.dtype, acc_dtype(x)
+  xg = xf[tok]                                                # (E, cap, d)
+  h = torch.matmul(xg, p["w1"].to(dt)).to(f)
+  g = torch.matmul(xg, p["w3"].to(dt)).to(f)
+  h = (F.silu(h) * g).to(dt)
+  y = torch.matmul(h, p["w2"].to(dt)) * gate[..., None].to(dt)
+  out = torch.zeros_like(xf).index_add_(0, tok.reshape(-1), y.reshape(-1, d))
+  return out.reshape(B, S, d), aux

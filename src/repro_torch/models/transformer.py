@@ -5,7 +5,9 @@ final-logit softcaps, sandwich norms, a sqrt(d) embedding scale and tied
 embeddings; pixtral's vision stub, whose projected patch embeddings
 prefix the text embeddings; whisper's encoder over the audio stub's
 frames, a cross block on every decoder layer, GELU MLPs and attention
-biases).
+biases; mamba2's SSD layers (``models.ssm``), with no FFN where d_ff = 0;
+jamba's pattern of attention and mamba layers with an MoE FFN
+(``models.moe``) on every other one).
 
 Parameters are a nested dict with the JAX tree's keys and layouts, stacked
 per pattern position with a leading layer axis; ``common.param_shapes``
@@ -16,8 +18,10 @@ V), "blocks": {"pos0": {"ln1", "attn": {"wq", "wk", "wv", "wo"}, "ln2",
 ``unembed``, with a stub frontend it has ``frontend_proj`` (frontend_dim,
 d); whisper adds ``bq``/``bo`` to every attention, ``ln_cross`` and
 ``cross`` to every layer, a GELU ``mlp: {w1, b1, w2, b2}`` and ``encoder:
-{blocks, final_norm}``.  A Python loop over layers takes the place of
-``lax.scan``.
+{blocks, final_norm}``; a mamba layer has ``ssm`` in place of ``attn``,
+an MoE layer ``moe: {router, w1, w3, w2}`` in place of ``mlp``, and a
+layer with neither MLP nor MoE (mamba2) no ``ln2``.  A Python loop over
+layers takes the place of ``lax.scan``.
 
 Logits are taken in f32 (``h.float() @ unembed.float()``, or
 ``embed.T.float()`` when tied, then the logit softcap, as the JAX serve
@@ -36,27 +40,46 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import (LayerSpec, ModelConfig,
-                                       encoder_config, param_shapes)
+                                       encoder_config, n_attn_positions,
+                                       n_ssm_positions, param_shapes,
+                                       ssm_state_shapes)
 from repro_torch.models.layers import gelu_mlp, rms_norm, softcap, swiglu
 
 
 FRONTENDS = (None, "vision_stub", "audio_stub")
 MLP_TYPES = ("swiglu", "gelu")
+LAYER_KINDS = ("attn", "mamba")
 # Leaves the init leaves at zero: the norm gains (the norm is x * (1 + w))
-# and the biases, as in the JAX init.
+# and the biases, as in the JAX init (the SSM's conv bias, dt bias and
+# gated-norm gain too).
 ZERO_LEAVES = frozenset(("ln1", "ln2", "ln1_post", "ln2_post", "ln_cross",
-                         "final_norm", "bq", "bo", "b1", "b2"))
+                         "final_norm", "bq", "bo", "b1", "b2", "conv_b",
+                         "dt_bias", "norm"))
+# conv_w's init scale (the other weights draw at fan-in), as in JAX.
+CONV_SCALE = 0.5
 
 
 def check_supported(cfg: ModelConfig) -> None:
   """The port runs dense GQA attention layers, global or local, with a
-  SwiGLU or GELU MLP; the vision stub's patch prefix; whisper's encoder
-  behind the audio stub, with a cross block on every decoder layer.  No
-  SSM, MoE or MLA layers, and no other frontend."""
-  if any(s.kind != "attn" for s in cfg.block_pattern):
-    raise NotImplementedError(f"{cfg.name}: the port runs attention layers "
-                              "only")
+  SwiGLU or GELU MLP or an MoE FFN (routed experts only); mamba (SSD)
+  layers; the vision stub's patch prefix; whisper's encoder behind the
+  audio stub, with a cross block on every decoder layer.  No shared
+  experts or parallel dense MLP beside the MoE (arctic), and no other
+  frontend (the config has no MLA field: MLA is not expressible)."""
+  kinds = {s.kind for s in cfg.block_pattern}
+  if not kinds <= set(LAYER_KINDS):
+    raise NotImplementedError(f"{cfg.name}: layer kinds {sorted(kinds)}; "
+                              f"the port runs {LAYER_KINDS}")
+  if "mamba" in kinds and cfg.ssm is None:
+    raise NotImplementedError(f"{cfg.name}: mamba layers without an "
+                              "SSMConfig")
+  moe = cfg.moe
+  if moe is not None and (moe.num_shared or moe.dense_parallel):
+    raise NotImplementedError(f"{cfg.name}: shared experts and the dense "
+                              "MLP in parallel with the MoE are not ported")
   if cfg.frontend not in FRONTENDS:
     raise NotImplementedError(f"{cfg.name}: frontend {cfg.frontend!r}; the "
                               f"port runs {FRONTENDS[1:]}")
@@ -104,9 +127,17 @@ def _stacked(n, shape, scale, generator, device, dtype):
 def _init_leaf(name, shape, stacked, **kw):
   if name in ZERO_LEAVES:
     return torch.zeros(shape, dtype=kw["dtype"], device=kw["device"])
+  if name == "D":
+    return torch.ones(shape, dtype=kw["dtype"], device=kw["device"])
+  if name == "A_log":                   # A = -(1 .. 16) over the heads
+    a = torch.linspace(1.0, 16.0, shape[-1], dtype=torch.float32,
+                       device=kw["device"]).log()
+    return a.expand(shape).to(kw["dtype"]).clone()
   scale = None                          # fan-in
   if name == "embed":
     scale = 1.0
+  elif name == "conv_w":
+    scale = CONV_SCALE
   elif name == "wo":
     scale = (shape[-3] * shape[-2]) ** -0.5
   if stacked:
@@ -124,12 +155,13 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
                device) -> Dict:
   """Random weights of :func:`common.param_shapes` with the JAX init's
   scales: truncated normal (+-2 sigma), by default times
-  ``shape[-2]^-0.5`` of one layer's weight (``frontend_proj`` too), embed
-  scale 1.0, ``wo`` scale (H*hd)^-0.5, norm gains and biases zero (the
-  norm is ``x * (1 + w)``).  Drawn leaf by leaf in the tree's order, the
-  blocks first.  The numbers differ from the JAX init's: torch cannot
-  replay JAX's RNG (use ``repro_torch.bridge.params_from_numpy`` to load
-  the same weights)."""
+  ``shape[-2]^-0.5`` of one layer's weight (``frontend_proj`` and the MoE
+  experts too), embed scale 1.0, ``wo`` scale (H*hd)^-0.5, ``conv_w``
+  0.5, norm gains and biases zero (the norm is ``x * (1 + w)``); the
+  SSM's ``A_log`` log(linspace(1, 16, h)) and ``D`` ones.  Drawn leaf by
+  leaf in the tree's order, the blocks first.  The numbers differ from
+  the JAX init's: torch cannot replay JAX's RNG (use
+  ``repro_torch.bridge.params_from_numpy`` to load the same weights)."""
   check_supported(cfg)
   params = _init_tree(param_shapes(cfg), False, generator=generator,
                       device=device, dtype=cfg.dtype)
@@ -195,18 +227,31 @@ def mlp(x, mp, cfg: ModelConfig):
   return swiglu(x, mp["w1"], mp["w3"], mp["w2"])
 
 
-def mlp_block(x, lp, cfg: ModelConfig):
-  """x + the (sandwich-normed) MLP of the pre-normed ``x``."""
+def ffn(x, lp, cfg: ModelConfig, spec: LayerSpec):
+  """The layer's FFN: the MoE (its aux loss dropped: nothing on the serve
+  path reads it) on an MoE layer, else the config's MLP."""
+  if spec.use_moe and cfg.moe is not None:
+    return moe_lib.moe_ffn(x, lp["moe"], cfg)[0]
+  return mlp(x, lp["mlp"], cfg)
+
+
+def mlp_block(x, lp, cfg: ModelConfig, spec: LayerSpec):
+  """x + the (sandwich-normed) FFN of the pre-normed ``x``; ``x`` as it is
+  where the layer has no FFN (no ``ln2``: mamba2's layers)."""
+  if "ln2" not in lp:
+    return x
   h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-  return x + post_norm(mlp(h2, lp["mlp"], cfg), lp, "ln2_post", cfg)
+  return x + post_norm(ffn(h2, lp, cfg, spec), lp, "ln2_post", cfg)
 
 
 def _layer_forward(x, lp, cfg: ModelConfig, spec: LayerSpec, positions,
                    enc_out=None):
-  """One pre-norm layer: attention (sliding-window on a local layer), the
-  cross block where the layer has one, then the MLP, each output normed
-  again under sandwich norms.  Returns (x, (k, v), (cross_k, cross_v) or
-  None), the KV in the decode layout (B, Hkv, S or T, D).
+  """One pre-norm layer: attention (sliding-window on a local layer) or
+  the SSD mixer, the cross block where the layer has one, then the FFN,
+  each output normed again under sandwich norms.  Returns (x, the layer's
+  decode-cache leaves): {"k", "v"} in the decode layout (B, Hkv, S, D),
+  with a cross block also {"cross_k", "cross_v"} (B, Hkv, S or T, D); on
+  a mamba layer {"conv_state", "ssd_state"}.
 
   The cross block (whisper) attends over ``enc_out`` where it is given
   (``attention.cross_attention``); without it, as in the JAX loop, which
@@ -215,18 +260,23 @@ def _layer_forward(x, lp, cfg: ModelConfig, spec: LayerSpec, positions,
   ``ops.prefill_attention`` (the flash prefill kernel on the card), where
   JAX computes the same function in XLA (``layers.causal_attention``)."""
   h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-  mix, kv = attn.attention_train(h, lp["attn"], cfg, positions,
-                                 local=spec.local)
+  if spec.kind == "mamba":
+    mix, (conv, ssd) = ssm_lib.ssm_forward(h, lp["ssm"], cfg)
+    out = {"conv_state": conv, "ssd_state": ssd}
+  else:
+    mix, (k, v) = attn.attention_train(h, lp["attn"], cfg, positions,
+                                       local=spec.local)
+    out = {"k": k, "v": v}
   x = x + post_norm(mix, lp, "ln1_post", cfg)
-  cross_kv = None
   if spec.cross_attn:
     hc = rms_norm(x, lp["ln_cross"], cfg.norm_eps)
     if enc_out is not None:
-      y, cross_kv = attn.cross_attention(hc, lp["cross"], cfg, enc_out)
+      y, (ck, cv) = attn.cross_attention(hc, lp["cross"], cfg, enc_out)
     else:
-      y, cross_kv = attn.attention_train(hc, lp["cross"], cfg, positions)
+      y, (ck, cv) = attn.attention_train(hc, lp["cross"], cfg, positions)
+    out.update(cross_k=ck, cross_v=cv)
     x = x + y
-  return mlp_block(x, lp, cfg), kv, cross_kv
+  return mlp_block(x, lp, cfg, spec), out
 
 
 def encode(params, cfg: ModelConfig, frames):
@@ -255,10 +305,13 @@ def hidden_states(params, cfg: ModelConfig, tokens,
   patch prefix of ``frontend_embeds`` under the vision stub (rope
   positions run over both); under the audio stub ``frontend_embeds`` are
   frames for :func:`encode`, never prefixed to the text.  With
-  ``collect_kv`` also {"k", "v"} in the cache layout (nb, na, B, Hkv, S,
-  D), and with cross blocks {"cross_k", "cross_v"} (nb, na, B, Hkv, S or
-  T, D) beside them, written layer by layer into one preallocated tensor
-  each."""
+  ``collect_kv`` also the decode cache's per-layer leaves, written layer
+  by layer into one preallocated tensor each: {"k", "v"} (nb, na, B, Hkv,
+  S, D) over the na attention positions of the pattern, with cross blocks
+  {"cross_k", "cross_v"} (nb, na, B, Hkv, S or T, D) beside them, and over
+  the ns mamba positions {"conv_state" (nb, ns, B, d_conv-1, conv_dim) in
+  ``cfg.dtype``, "ssd_state" (nb, ns, B, h, head_dim, d_state) in f32
+  (float64 in a float64 run)}."""
   check_supported(cfg)
   enc_out = None
   if cfg.encoder is not None:
@@ -271,23 +324,38 @@ def hidden_states(params, cfg: ModelConfig, tokens,
   positions = torch.arange(S, device=x.device)
   kv: Optional[Dict] = None
   if collect_kv:
-    lead = (cfg.n_blocks, len(cfg.block_pattern), B, cfg.n_kv_heads)
-    T = S if enc_out is None else enc_out.shape[1]
-    names = (("k", S), ("v", S)) + (
-        (("cross_k", T), ("cross_v", T)) if has_cross(cfg) else ())
-    kv = {name: torch.empty((*lead, n, cfg.hd), dtype=cfg.dtype,
-                            device=x.device) for name, n in names}
+    kv = {name: torch.empty(shape, dtype=dt, device=x.device)
+          for name, (shape, dt) in _cache_leaves(
+              cfg, B, S, S if enc_out is None else enc_out.shape[1]).items()}
   for b in range(cfg.n_blocks):
+    ai = si = 0                  # attention / mamba position in the stacks
     for i, spec in enumerate(cfg.block_pattern):
       lp = layer_params(params["blocks"][f"pos{i}"], b)
-      x, (k, v), ckv = _layer_forward(x, lp, cfg, spec, positions, enc_out)
+      x, leaves = _layer_forward(x, lp, cfg, spec, positions, enc_out)
       if kv is not None:
-        kv["k"][b, i] = k
-        kv["v"][b, i] = v
-        if ckv is not None:
-          kv["cross_k"][b, i], kv["cross_v"][b, i] = ckv
+        for name, t in leaves.items():
+          kv[name][b, si if spec.kind == "mamba" else ai] = t
+      ai += spec.kind == "attn"
+      si += spec.kind == "mamba"
   h = rms_norm(x, params["final_norm"], cfg.norm_eps)
   return (h, kv) if collect_kv else h
+
+
+def _cache_leaves(cfg: ModelConfig, B: int, S: int, T: int) -> Dict:
+  """{leaf: (shape, dtype)} of the prefill's per-layer cache leaves for a
+  batch of B sequences of S positions (T cross rows)."""
+  out = {}
+  if n_attn_positions(cfg):
+    lead = (cfg.n_blocks, n_attn_positions(cfg), B, cfg.n_kv_heads)
+    out["k"] = out["v"] = ((*lead, S, cfg.hd), cfg.dtype)
+    if has_cross(cfg):
+      out["cross_k"] = out["cross_v"] = ((*lead, T, cfg.hd), cfg.dtype)
+  if n_ssm_positions(cfg):
+    shapes = ssm_state_shapes(cfg, B)
+    out["conv_state"] = (shapes["conv_state"], cfg.dtype)
+    out["ssd_state"] = (shapes["ssd_state"], torch.float64
+                        if cfg.dtype == torch.float64 else torch.float32)
+  return out
 
 
 def logits_fn(params, cfg: ModelConfig, h):

@@ -9,12 +9,14 @@ under other weights, shapes, quant specs or devices are other corpora.
 
 Each entry holds a refcounted, immutable arena: the B=1 synopsis cache
 that the build produced (its shared half, ``kv_cache.ARENA_LEAVES``,
-carries the data; its private half is zeros) and the first token of the
-prefill.  The arena's tensors live on the engine's device.  An admission
-that hits copies the arena into its lane with ``kv_cache.write_slot`` and
-skips prefill and build: the engine's graphs read the slot pool at fixed
-addresses, so a lane never aliases an entry, and nothing ever writes to
-an entry.
+carries the data; its private half is zeros and ``pos``, and on a hybrid
+the SSM state the publishing prefill left, as in the JAX arena, which is
+the whole built dict) and the first token of the prefill.  The arena's
+tensors live on the engine's device.  An admission that hits copies the
+arena into its lane with ``kv_cache.write_slot`` (so a hybrid's lane
+starts from the prompt's SSM state) and skips prefill and build: the
+engine's graphs read the slot pool at fixed addresses, so a lane never
+aliases an entry, and nothing ever writes to an entry.
 
 A corpus that strictly extends a cached one replays only the extension:
 a partial prefill of the extension tokens against the cached arena's
@@ -93,10 +95,11 @@ def supports_delta(cfg) -> bool:
   order-free: global GQA attention with rope in every layer.  A sliding
   window (gemma2's local layers) couples the extension to the prefix's
   order; an encoder or cross blocks (whisper) and a frontend prefix
-  (pixtral's patches) couple it to prefix inputs the arena does not hold;
-  so such a config takes the full build on a prefix-extension miss, as in
-  the JAX package.  (The engine also turns it off under a ``+kv`` quant
-  spec, whose sorted cache holds int8 / fp8 blocks.)"""
+  (pixtral's patches) couple it to prefix inputs the arena does not hold,
+  and a mamba layer (jamba) to the prefix's SSM state; so such a config
+  takes the full build on a prefix-extension miss, as in the JAX package.
+  (The engine also turns it off under a ``+kv`` quant spec, whose sorted
+  cache holds int8 / fp8 blocks.)"""
   try:
     tf.check_supported(cfg)
   except NotImplementedError:

@@ -18,14 +18,23 @@ Programs: the JAX engine jits one serve step per budget bucket and one
 append program; here each is a program of ``serve.graphs.Programs``, one
 captured CUDA graph on the card and an eager call on the CPU.  The step is
 read-only: it reads the pool and the token column and writes static
-outputs (logits, the new token's per-layer KV, ``pos``); the append
-program writes the ring, ``pos`` and the token column of the active lanes
-only.  Every graph is captured in ``_warmup`` and replayed from the first
-measured step on.  Prefill, build and the slot write stay eager: each runs
-once an admission, and their kernels are long.  Everything runs on one
+outputs (logits, the new token's per-layer KV, ``pos``, and on a hybrid
+the mamba layers' new ``conv_state`` / ``ssd_state``); the append program
+writes the ring, ``pos``, the SSM state and the token column of the
+active lanes only (the JAX engine's per-slot masked write of the SSM
+state after each step).  A config with no attention position (mamba2)
+is refused with ``ValueError``, as the JAX engine refuses it: there is
+nothing to synopsize.  On an MoE layer the step's rows share the
+experts' capacity (1 at decode for jamba), so the inactive lanes' rows
+take part in the routing, as in the JAX engine.  Every graph is captured
+in ``_warmup`` and replayed from the first measured step on.  Prefill,
+build and the slot write stay eager: each runs once an admission, and
+their kernels are long.  Everything runs on one
 stream (the decode kernels' merge tickets assume it); admission overlaps
 decode through asynchronous launches, as the JAX engine's through
-asynchronous dispatch.
+asynchronous dispatch: the step's graph, then the admissions, then the
+append's graph, so that the step reads the pool as it was before the
+admissions, as the JAX step reads the pre-admission cache.
 
 Policies (the simulator's techniques, in measured time):
 
@@ -88,7 +97,7 @@ from repro_torch.core import cluster as cl
 from repro_torch.kernels import _build
 from repro_torch.kernels import quant as qt
 from repro_torch.models import transformer as tf
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import ModelConfig, n_attn_positions
 from repro_torch.serve import corpus_cache as ccache
 from repro_torch.serve import kv_cache as kvc
 from repro_torch.serve import synopsis_kv as skv
@@ -100,6 +109,10 @@ from repro_torch.serve.serve_step import (check_quant_device,
                                           synopsis_decode_attention)
 from repro_torch.serving.service import _default_concentration
 from repro_torch.serving.workload import poisson_arrivals
+
+
+# The mamba layers' decode state: a step's output the append writes back.
+SSM_LEAVES = ("conv_state", "ssd_state")
 
 
 @dataclasses.dataclass
@@ -218,6 +231,9 @@ class ServingEngine:
     _refuse_backend(backend)
     check_contract(ecfg.contract)
     tf.check_supported(cfg)
+    if n_attn_positions(cfg) == 0:
+      raise ValueError(f"{cfg.name}: no attention positions, nothing to "
+                       "synopsize; run the loop (exact mode)")
     if tf.has_cross(cfg):
       raise NotImplementedError(
           f"{cfg.name}: the engine does not serve an encoder-decoder with "
@@ -312,7 +328,7 @@ class ServingEngine:
     self._amask_host = torch.zeros((n,), dtype=torch.bool,
                                    pin_memory=dev.type == "cuda")
     self._new_tok = torch.zeros((n,), dtype=torch.long, device=dev)
-    delta = (cfg.n_blocks, len(cfg.block_pattern), n, cfg.n_kv_heads, 1,
+    delta = (cfg.n_blocks, n_attn_positions(cfg), n, cfg.n_kv_heads, 1,
              cfg.hd)
     self.step_out = {
         "logits": torch.zeros((n, cfg.vocab), dtype=torch.float32,
@@ -321,6 +337,10 @@ class ServingEngine:
         "v_delta": torch.zeros(delta, dtype=cfg.dtype, device=dev),
         "pos": torch.zeros((n,), dtype=torch.int32, device=dev),
     }
+    # A hybrid's new SSM state, the pool's shapes: the step's whole output.
+    for name in SSM_LEAVES:
+      if name in self.cache:
+        self.step_out[name] = torch.zeros_like(self.cache[name])
     if self._telemetry:
       # The layer-mean coverage profile of each lane.
       self.step_out["est_profile"] = torch.zeros(
@@ -366,8 +386,9 @@ class ServingEngine:
     def program():
       logits, st = step(params, cache, tok)
       out["logits"].copy_(logits)
-      for name in ("k_delta", "v_delta", "pos"):
-        out[name].copy_(st[name])
+      for name in ("k_delta", "v_delta", "pos") + SSM_LEAVES:
+        if name in out:
+          out[name].copy_(st[name])
       if "est_profile" in out:
         # Every synopsis layer's profile (nb * n_glob * n, M+1), then
         # their mean.
@@ -379,16 +400,26 @@ class ServingEngine:
     return program
 
   def _append_program(self) -> Callable[[], None]:
-    """``step_out`` -> the active lanes' ring row, ``pos`` and token; the
-    argmax of every lane into ``_new_tok``.  With no lane active it
-    changes nothing (the capture's warm-up calls rely on that)."""
+    """``step_out`` -> the active lanes' ring row, ``pos``, SSM state and
+    token; the argmax of every lane into ``_new_tok``.  With no lane
+    active it changes nothing (the capture's warm-up calls rely on
+    that)."""
     cache, tok, out, m = self.cache, self.tok, self.step_out, self._amask
     new_tok = self._new_tok
+    # The active mask along each SSM leaf's slot axis.
+    ssm_masks = {}
+    for name in SSM_LEAVES:
+      if name in out:
+        shape = [1] * out[name].ndim
+        shape[self._bx[name]] = -1
+        ssm_masks[name] = m.view(shape)
 
     def program():
       skv.append_recent_slots(cache, out["k_delta"], out["v_delta"], m)
       pos = cache["pos"]
       pos.copy_(torch.where(m, out["pos"], pos))
+      for name, mask in ssm_masks.items():
+        cache[name].copy_(torch.where(mask, out[name], cache[name]))
       new = out["logits"].argmax(-1)
       new_tok.copy_(new)
       tok.copy_(torch.where(m[:, None], new[:, None], tok))
@@ -621,27 +652,29 @@ class ServingEngine:
 
   def _decode_step(self, active: Sequence[int],
                    budget: Optional[int] = None,
-                   admitted_at: Optional[float] = None) -> None:
+                   admit: Optional[Callable[[], None]] = None) -> None:
     """One budgeted decode step for the ``active`` slots: the step's
-    graph, then the append's, then one wait.  ``admitted_at`` (admission
-    overlap): the host clock at which this iteration's admissions were
-    dispatched; the measured window starts there, since their eager
-    launches are host work the window pays for, and the controller does
-    not observe it."""
+    graph, then the append's, then one wait.  ``admit`` (admission
+    overlap) dispatches this iteration's admissions between the two, so
+    that the step reads the pre-admission pool, as the JAX engine's step
+    does; the measured window then holds the admissions' eager launches
+    (host work it pays for), and the controller does not observe it."""
     if budget is None:
       budget = self._pick_budget(active)
-    t0 = time.perf_counter() if admitted_at is None else admitted_at
+    t0 = time.perf_counter()
     mask = self._amask_host      # the last step's copy has completed
     mask.zero_()
     mask[list(active)] = True
     self._amask.copy_(mask, non_blocking=True)
     self.programs.run(("step", budget))
+    if admit is not None:
+      admit()
     self.programs.run("append")
     toks = self._new_tok.cpu().numpy()  # waits for the step
     dt = (time.perf_counter() - t0) * 1e3
     self.now_ms += dt
     if self.ecfg.policy == "accuracytrader" and not self._warming \
-        and admitted_at is None:
+        and admit is None:
       self.controller.observe(budget, dt)
     self.step_log.append((budget, dt, len(active)))
     # The contracts' telemetry: this step's layer-mean coverage profile per
@@ -738,19 +771,23 @@ class ServingEngine:
     self.events.append(("shed", req.rid, -1, self.now_ms))
 
   def _admit_overlapped(self, admissions, active: Sequence[int]) -> None:
-    """Launch the admitted requests' admissions, then the residents'
-    decode step behind them, and wait once.  The writes land in lanes the
-    step reads but does not decode (the admitted lanes are inactive in
-    it), so the residents' tokens are those of the serial order; the JAX
-    engine's step reads the pre-admission cache instead."""
+    """Launch the residents' decode step, the admitted requests'
+    admissions behind it, then the append, and wait once.  The step reads
+    the pre-admission pool, as in the JAX engine: on an MoE layer (jamba)
+    the inactive lanes' rows share the experts' capacity with the active
+    ones, so what an admitted lane holds during the step moves the
+    residents' outputs.  The append writes the active lanes only, so the
+    admissions' lane writes stand."""
     t_admit = self.now_ms
     budget = self._pick_budget(active, extra=[r for r, _ in admissions])
-    t0 = time.perf_counter()
     firsts = []
-    for req, slot in admissions:
-      req.admit_ms = t_admit
-      firsts.append(self._dispatch_admission(req, slot))
-    self._decode_step(active, budget=budget, admitted_at=t0)
+
+    def admit():
+      for req, slot in admissions:
+        req.admit_ms = t_admit
+        firsts.append(self._dispatch_admission(req, slot))
+
+    self._decode_step(active, budget=budget, admit=admit)
     for (req, slot), first in zip(admissions, firsts):
       self.tok[slot, 0] = first[0]
       req.tokens.append(int(first[0]))

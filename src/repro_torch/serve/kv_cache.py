@@ -1,20 +1,24 @@
 """Decode caches and the continuous-batching slot pool (counterpart of
-``repro.serve.kv_cache`` for the dense GQA family the port runs).
+``repro.serve.kv_cache`` for the families the port runs).
 
 ``cache_struct`` gives each leaf's shape, dtype and logical axes: the
 exact cache (``k``/``v``, ``pos``) or the synopsis cache (cluster-ordered
 ``k``/``v``, the centroid tables, ``counts``, the quantized arena's scale
-leaves under ``cfg.synopsis.quant``, the recent ring and ``pos``).  The
-batch axis doubles as the engine's *slot* axis: :func:`zeros_cache`
-allocates the slot pool and :func:`write_slot` admits one request's B=1
-cache into a lane.  Cross-attention caches (whisper) have no pool.
+leaves under ``cfg.synopsis.quant``, the recent ring and ``pos``), both
+stacked over the pattern's attention positions only (``na``: 1 for
+jamba's eight-layer pattern), and the mamba layers' decode state
+(``conv_state`` in ``cfg.dtype``, ``ssd_state`` in f32) stacked over its
+mamba positions.  The batch axis doubles as the engine's *slot* axis:
+:func:`zeros_cache` allocates the slot pool and :func:`write_slot` admits
+one request's B=1 cache into a lane.  Cross-attention caches (whisper)
+have no pool.
 
 Unlike the JAX package, the pool is allocated once and written in place:
 ``write_slot`` copies into the lane and the engine's reset zeroes the
 leaves.  A captured CUDA graph reads fixed addresses, so a pool that was
 reallocated would leave the graphs reading the old one.  The other cache
-families (MLA, SSM state) raise, as ``models.transformer.check_supported``
-does, and so does cross attention (:func:`cache_struct`).
+families (MLA) raise, as ``models.transformer.check_supported`` does, and
+so does cross attention (:func:`cache_struct`).
 """
 from __future__ import annotations
 
@@ -24,23 +28,27 @@ import torch
 
 from repro_torch.kernels import quant as qt
 from repro_torch.models import transformer as tf
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import (ModelConfig, n_attn_positions,
+                                       n_ssm_positions, ssm_state_shapes)
 
 # The shared-immutable and private-mutable halves of a synopsis slot.
 # ARENA_LEAVES are a function of the corpus alone (the sorted KV, the
 # centroid tables, the counts, a quantized arena's scales), so the corpus
 # cache shares one arena among the slots serving the same corpus;
-# PRIVATE_LEAVES are a request's own decode state (the ring, ``pos``),
-# written fresh into each lane.
+# PRIVATE_LEAVES are a request's own decode state (the ring, ``pos``,
+# the SSM state), written fresh into each lane.
 ARENA_LEAVES = ("k", "v", "k_syn", "v_syn", "counts", "k_syn_scale",
                 "v_syn_scale", "k_scale", "v_scale")
-PRIVATE_LEAVES = ("recent_k", "recent_v", "recent_len", "pos")
+PRIVATE_LEAVES = ("recent_k", "recent_v", "recent_len", "pos",
+                  "conv_state", "ssd_state")
 
 # Logical axes per cache leaf (leading 'layers' for the block stack).
 KV_AXES = ("layers", None, "batch", "kv_heads", "kv_seq", None)
 COUNT_AXES = ("layers", None, "batch", "kv_seq")
 SCALE_AXES = ("layers", None, "batch", "kv_heads", "kv_seq")
 RECENT_AXES = ("layers", None, "batch", "kv_heads", None, None)
+SSM_CONV_AXES = ("layers", None, "batch", None, "ssm_heads")
+SSM_STATE_AXES = ("layers", None, "batch", "ssm_heads", None, "ssm_state")
 
 
 def cache_struct(cfg: ModelConfig, B: int, S: int, *,
@@ -49,18 +57,19 @@ def cache_struct(cfg: ModelConfig, B: int, S: int, *,
   batch, sequence length).  A config with cross blocks (whisper) is
   refused: the JAX pool sizes its cross leaves by the encoder's
   ``source_len`` while the loop's prefill emits them at prompt length, so
-  the JAX engine fails its first slot write (ROADMAP C)."""
+  the JAX engine fails its first slot write (ROADMAP C).  With no
+  attention position (mamba2) the cache is the SSM state and ``pos``."""
   tf.check_supported(cfg)
   if tf.has_cross(cfg):
     raise NotImplementedError(
         f"{cfg.name}: no slot pool for cross-attention caches (the JAX "
         "pool sizes cross_k / cross_v by the encoder's source_len, the "
         "prefill emits them at prompt length)")
-  nb, na = cfg.n_blocks, len(cfg.block_pattern)
+  nb, na, ns = cfg.n_blocks, n_attn_positions(cfg), n_ssm_positions(cfg)
   Hkv, D = cfg.n_kv_heads, cfg.hd
   dt = cfg.dtype
   out: Dict[str, Any] = {}
-  if synopsis:
+  if na and synopsis:
     sc = cfg.synopsis
     C = sc.cluster_size
     if S % C:
@@ -81,9 +90,13 @@ def cache_struct(cfg: ModelConfig, B: int, S: int, *,
     out["recent_k"] = ((nb, na, B, Hkv, sc.recent, D), dt, RECENT_AXES)
     out["recent_v"] = ((nb, na, B, Hkv, sc.recent, D), dt, RECENT_AXES)
     out["recent_len"] = ((B,), torch.int32, ("batch",))
-  else:
+  elif na:
     out["k"] = ((nb, na, B, Hkv, S, D), dt, KV_AXES)
     out["v"] = ((nb, na, B, Hkv, S, D), dt, KV_AXES)
+  if ns:
+    shapes = ssm_state_shapes(cfg, B)
+    out["conv_state"] = (shapes["conv_state"], dt, SSM_CONV_AXES)
+    out["ssd_state"] = (shapes["ssd_state"], torch.float32, SSM_STATE_AXES)
   out["pos"] = ((B,), torch.int32, ("batch",))
   return out
 
@@ -112,7 +125,8 @@ def write_slot(cache: Dict[str, torch.Tensor], sub: Dict[str, torch.Tensor],
                ) -> Dict[str, torch.Tensor]:
   """Copy a B=1 per-request cache ``sub`` into lane ``slot`` of the slot
   pool, in place (cast to the pool's dtypes); leaves of ``cache`` with no
-  counterpart in ``sub`` stay as they are.  Returns ``cache``."""
+  counterpart in ``sub`` stay as they are.  A hybrid's ``conv_state`` /
+  ``ssd_state`` are written like the others.  Returns ``cache``."""
   for name, dst in cache.items():
     if name in sub:
       dst.narrow(batch_axes[name], slot, 1).copy_(sub[name])

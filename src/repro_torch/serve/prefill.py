@@ -41,7 +41,7 @@ def make_prefill_step(cfg: ModelConfig):
   return prefill_step
 
 
-def _extend_layer(x, lp, cfg: ModelConfig, positions, pk, pv):
+def _extend_layer(x, lp, cfg: ModelConfig, spec, positions, pk, pv):
   """One decoder layer over E extension tokens attending [prefix; ext]:
   the prefix half of the KV is the cached arena's sorted ``pk``/``pv``
   (B, Hkv, P, D), not recomputed.  Sound because softmax over the cached
@@ -71,7 +71,7 @@ def _extend_layer(x, lp, cfg: ModelConfig, positions, pk, pv):
   o = o.reshape(B, H, E, D).transpose(1, 2).to(x.dtype)
   x = x + tf.post_norm(attn_lib.out_proj(o, lp["attn"], x.dtype), lp,
                        "ln1_post", cfg)
-  return tf.mlp_block(x, lp, cfg), k_new, v_new
+  return tf.mlp_block(x, lp, cfg, spec), k_new, v_new
 
 
 def make_extend_step(cfg: ModelConfig):
@@ -85,9 +85,14 @@ def make_extend_step(cfg: ModelConfig):
   Hkv, G, E, P+E) are transient (4.3 GB a layer at llama3-8b's width for
   P = E = 4096) and freed before the next layer.  A sliding-window layer
   would couple the extension to the prefix's order, a cross block or a
-  frontend to inputs the arena does not hold, so a config with any of them
-  is refused (``corpus_cache.supports_delta`` is False for it)."""
+  frontend to inputs the arena does not hold, and a mamba layer to the
+  prefix's SSM state, so a config with any of them is refused
+  (``corpus_cache.supports_delta`` is False for it)."""
   tf.check_supported(cfg)
+  if any(s.kind != "attn" for s in cfg.block_pattern):
+    raise NotImplementedError(f"{cfg.name}: no delta prefill over mamba "
+                              "layers (the arena holds no prefix SSM state "
+                              "to extend from)")
   if any(s.local for s in cfg.block_pattern):
     raise NotImplementedError(f"{cfg.name}: no delta prefill over "
                               "sliding-window layers")
@@ -107,10 +112,10 @@ def make_extend_step(cfg: ModelConfig):
     k_new = torch.empty(shape, dtype=cfg.dtype, device=x.device)
     v_new = torch.empty(shape, dtype=cfg.dtype, device=x.device)
     for b in range(cfg.n_blocks):
-      for i, _ in enumerate(cfg.block_pattern):
+      for i, spec in enumerate(cfg.block_pattern):
         lp = tf.layer_params(params["blocks"][f"pos{i}"], b)
         x, k_new[b, i], v_new[b, i] = _extend_layer(
-            x, lp, cfg, positions, prefix_k[b, i], prefix_v[b, i])
+            x, lp, cfg, spec, positions, prefix_k[b, i], prefix_v[b, i])
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return tf.logits_fn(params, cfg, h[:, -1]), (k_new, v_new)
 

@@ -1,5 +1,6 @@
 """Decode (serve) step: one new token against a KV cache (counterpart of
-``repro.serve.serve_step``, dense GQA layers).
+``repro.serve.serve_step``: GQA attention layers, mamba layers, MLP or
+MoE FFNs).
 
 ``mode="synopsis"``: per attention layer the AccuracyTrader decode
 attention runs the fused two-stage pipeline of
@@ -33,10 +34,20 @@ leaf comes out of the step stacked over the layers that run it (nb, the
 global positions of the pattern, ...): local layers do not call it.
 Without one the step is the plain one, op for op.
 
+A mamba layer (mamba2, jamba) runs ``models.ssm.ssm_forward``'s S = 1
+decode from the cache's ``conv_state`` / ``ssd_state`` in both modes, and
+an MoE layer its FFN over the step's B rows (capacity 1 at jamba's B <= 6:
+the rows of the step change each other's output, as in the reference).
+The attention index ``ai`` and the mamba index ``si`` count separately:
+the cache stacks k / v and the synopsis over the attention positions, the
+SSM state over the mamba positions.
+
 A quantized arena's scale leaves (``kernels/quant.py``) ride in the layer
 slice when the cache has them.  The cache is read-only inside the step;
 the new token's per-layer KV comes back as ``k_delta``/``v_delta`` for the
-loop to append.
+loop to append, and the mamba layers' new state as ``conv_state`` /
+``ssd_state`` (the whole state, not a difference), which the loop drops
+and the engine writes back per slot, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -47,6 +58,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant as qt
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import rms_norm
@@ -140,9 +152,11 @@ def _cross_decode_layer(x, lp, cfg: ModelConfig, cross_k, cross_v):
 
 
 def global_positions(cfg: ModelConfig) -> Tuple[int, ...]:
-  """The pattern positions of the global (synopsis) attention layers; the
-  local ones run exact windowed decode."""
-  return tuple(i for i, s in enumerate(cfg.block_pattern) if not s.local)
+  """The global (synopsis) attention layers' indices among the pattern's
+  attention positions (the cache's second axis); the local ones run exact
+  windowed decode, the mamba positions no attention."""
+  attn = [s for s in cfg.block_pattern if s.kind == "attn"]
+  return tuple(i for i, s in enumerate(attn) if not s.local)
 
 
 def check_quant_device(cfg: ModelConfig, device) -> None:
@@ -170,8 +184,10 @@ def check_quant_device(cfg: ModelConfig, device) -> None:
 def make_serve_step(cfg: ModelConfig, *, mode: str = "synopsis",
                     i_max: Optional[int] = None, attention_fn=None):
   """Returns serve_step(params, cache, tokens (B, 1)) -> (logits (B, V)
-  f32, {"k_delta", "v_delta" (nb, na, B, Hkv, 1, D), "pos" (B,)}).
-  ``mode`` is "synopsis" (budget ``i_max``) or "exact".
+  f32, {"k_delta", "v_delta" (nb, na, B, Hkv, 1, D) where the pattern has
+  attention, "conv_state", "ssd_state" (nb, ns, B, ...) where it has
+  mamba layers, "pos" (B,)}).  ``mode`` is "synopsis" (budget ``i_max``)
+  or "exact".
 
   ``attention_fn(q, cache_sl, *, i_max, cluster_size, sm_scale, cap,
   self_kv) -> (ctx, aux)`` replaces the synopsis decode attention of the
@@ -188,42 +204,52 @@ def make_serve_step(cfg: ModelConfig, *, mode: str = "synopsis",
   def serve_step(params, cache, tokens):
     x = tf.embed_tokens(params, cfg, tokens[:, :1])           # (B, 1, d)
     pos = cache["pos"]
-    k_delta, v_delta = [], []
+    deltas: Dict[str, list] = {}            # per block
     auxs: Dict[str, list] = {}              # per layer, in layer order
     for b in range(cfg.n_blocks):
-      ks, vs = [], []
+      per: Dict[str, list] = {}
+      ai = si = 0                 # attention / mamba position in the cache
       for i, spec in enumerate(cfg.block_pattern):
         lp = tf.layer_params(params["blocks"][f"pos{i}"], b)
-        # A local layer reads only its k / v (in either mode).
-        names = (("k", "v") if spec.local else leaves) + (
-            CROSS_LEAVES if spec.cross_attn else ())
-        layer_cache = {kk: cache[kk][b, i] for kk in names}
-        if mode == "synopsis" and not spec.local:
-          layer_cache["recent_len"] = cache["recent_len"]
-          layer_cache.update((kk, cache[kk][b, i])
-                             for kk in qt.SCALE_LEAVES if kk in cache)
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        mix, (kd, vd), aux = _attn_decode_layer(
-            h, lp["attn"], cfg, spec.local, layer_cache, pos, mode, i_max,
-            attention_fn)
-        for name, t in (aux or {}).items():
-          auxs.setdefault(name, []).append(t)
+        if spec.kind == "mamba":
+          mix, (conv, ssd) = ssm_lib.ssm_forward(
+              h, lp["ssm"], cfg, decode_state=(cache["conv_state"][b, si],
+                                               cache["ssd_state"][b, si]))
+          per.setdefault("conv_state", []).append(conv)
+          per.setdefault("ssd_state", []).append(ssd)
+          si += 1
+        else:
+          # A local layer reads only its k / v (in either mode).
+          names = (("k", "v") if spec.local else leaves) + (
+              CROSS_LEAVES if spec.cross_attn else ())
+          layer_cache = {kk: cache[kk][b, ai] for kk in names}
+          if mode == "synopsis" and not spec.local:
+            layer_cache["recent_len"] = cache["recent_len"]
+            layer_cache.update((kk, cache[kk][b, ai])
+                               for kk in qt.SCALE_LEAVES if kk in cache)
+          mix, (kd, vd), aux = _attn_decode_layer(
+              h, lp["attn"], cfg, spec.local, layer_cache, pos, mode, i_max,
+              attention_fn)
+          for name, t in (aux or {}).items():
+            auxs.setdefault(name, []).append(t)
+          per.setdefault("k_delta", []).append(kd)
+          per.setdefault("v_delta", []).append(vd)
+          ai += 1
         x = x + tf.post_norm(mix, lp, "ln1_post", cfg)
         if spec.cross_attn:
           hc = rms_norm(x, lp["ln_cross"], cfg.norm_eps)
           x = x + _cross_decode_layer(hc, lp["cross"], cfg,
                                       layer_cache["cross_k"],
                                       layer_cache["cross_v"])
-        x = tf.mlp_block(x, lp, cfg)
-        ks.append(kd)
-        vs.append(vd)
-      k_delta.append(torch.stack(ks))
-      v_delta.append(torch.stack(vs))
+        x = tf.mlp_block(x, lp, cfg, spec)
+      for name, ts in per.items():
+        deltas.setdefault(name, []).append(torch.stack(ts))
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)[:, 0]
     logits = tf.logits_fn(params, cfg, h)
     lead = (cfg.n_blocks, n_glob)
-    return logits, {"k_delta": torch.stack(k_delta),
-                    "v_delta": torch.stack(v_delta), "pos": pos + 1,
+    return logits, {**{name: torch.stack(ts) for name, ts in deltas.items()},
+                    "pos": pos + 1,
                     **{name: torch.stack(ts).view(*lead, *ts[0].shape)
                        for name, ts in auxs.items()}}
 

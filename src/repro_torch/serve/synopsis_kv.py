@@ -60,7 +60,8 @@ def build(cache: Dict[str, torch.Tensor], cfg: ModelConfig, *,
   """Exact cache -> synopsis cache.  cache: k/v (nb, na, B, Hkv, S, D) and
   pos (B,).  ``basis`` is PCA's starting basis (see
   ``core.cluster.initial_basis``).  The cross blocks' ``cross_k`` /
-  ``cross_v`` (whisper) pass through untouched, as in the JAX build, and
+  ``cross_v`` (whisper) and the mamba layers' ``conv_state`` /
+  ``ssd_state`` (jamba) pass through untouched, as in the JAX build, and
   so through :func:`absorb_recent`'s ``**cache``."""
   k, v = cache["k"], cache["v"]
   nb, na, B, Hkv, S, D = k.shape
@@ -88,8 +89,8 @@ def build(cache: Dict[str, torch.Tensor], cfg: ModelConfig, *,
   for name in qt.SCALE_LEAVES:
     if name in built:
       out[name] = built[name].reshape(nb, na, B, Hkv, M)
-  for name in ("cross_k", "cross_v"):      # whisper: carried as they are
-    if name in cache:
+  for name in ("cross_k", "cross_v", "conv_state", "ssd_state"):
+    if name in cache:                       # carried as they are
       out[name] = cache[name]
   return out
 

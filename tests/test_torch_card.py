@@ -1108,17 +1108,20 @@ def _check_loop_on_card(arch, mode, quant="none"):
   versions): the same ids, and every step's logits within the larger of
   1e-4 and four times the CPU's f32 loop's distance from float64, of
   max|logits| (``parity.loop_parity``).  The card launches flash_prefill
-  once a layer (twice with a cross block: its causal branch),
-  flash_decode twice a step on each layer that decodes exactly (every
-  layer in exact mode, the local ones in synopsis mode) and once a step
-  on each cross block, and stage 1 on the quant spec's branch."""
+  once an attention layer (twice with a cross block: its causal branch;
+  a mamba layer launches nothing), flash_decode twice a step on each
+  attention layer that decodes exactly (every one in exact mode, the
+  local ones in synopsis mode) and once a step on each cross block, and
+  stage 1 on the quant spec's branch."""
   dev = _card_or_skip()
   cfg = parity.smoke_f32(arch)[0]
   launched, _, _ = parity.loop_parity(arch, dev, mode, quant)
-  exact = cfg.n_layers if mode == "exact" else sum(
-      s.local for s in cfg.block_pattern) * cfg.n_blocks
+  attn = [s for s in cfg.block_pattern if s.kind == "attn"]
+  n_attn = len(attn) * cfg.n_blocks
+  exact = n_attn if mode == "exact" else sum(
+      s.local for s in attn) * cfg.n_blocks
   cross = sum(s.cross_attn for s in cfg.block_pattern) * cfg.n_blocks
-  assert launched["flash_prefill"] == cfg.n_layers + cross
+  assert launched["flash_prefill"] == n_attn + cross
   assert launched["flash_decode"] == (2 * exact + cross) * 18
   if mode == "synopsis":
     assert launched[_build.branch("fused_synopsis_score_attention",
@@ -1163,6 +1166,76 @@ def test_card_whisper_loop_equals_the_cpu(mode, quant):
   "cross" prefill and each step's cross flash_decode over the prompt's
   cross rows."""
   _check_loop_on_card("whisper-medium", mode, quant)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["synopsis", "exact"])
+def test_card_jamba_loop_equals_the_cpu(mode):
+  """jamba-v0.1-52b: the kernels on its one attention layer a block, the
+  SSD mixer and the MoE FFN (capacity 1 at decode) in plain torch on both
+  devices."""
+  _check_loop_on_card("jamba-v0.1-52b", mode)
+
+
+@pytest.mark.cuda
+def test_card_mamba2_loop_equals_the_cpu():
+  """mamba2-370m: no attention, so the loop runs exact and the card
+  launches none of the six kernels."""
+  dev = _card_or_skip()
+  launched, _, _ = parity.loop_parity("mamba2-370m", dev, "exact")
+  assert not any(launched.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash_prefill", "segment_build",
+                                    "fused_synopsis", "block_gather",
+                                    "flash_decode", "synopsis_score"])
+def test_card_kernels_at_jamba_shapes(cuda, kernel):
+  """jamba-v0.1-52b's attention layer in bf16 (llama3-8b's heads: 32/8 of
+  128, G = 4), B = 2, prompt 8192, at the 16-layer cut the card runs: the
+  prefill; the build of the 2 attention layers' 4 sequences into M = 64
+  clusters; stage 1 on the 64 centroids; stage 2 at I 32, C 128 with the
+  ring and self token (E = 129); exact decode over the 8192 rows; the
+  unfused op's scores."""
+  dtype = torch.bfloat16
+  B, S, Hkv, G, D, C = 2, 8192, 8, 4, 128, 128
+  sm = D ** -0.5
+  g = torch.Generator().manual_seed(23)
+  if kernel == "flash_prefill":
+    q, k, v = _to(cuda, dtype, *_prefill_inputs((B, S, Hkv, G, D), seed=23))
+    _close(flash_prefill(q, k, v, sm_scale=sm),
+           ref.flash_prefill_ref(q, k, v, sm_scale=sm), BF16_OUT_TOL)
+  elif kernel == "segment_build":
+    k, v = _to(cuda, dtype, _rand(g, 4, Hkv, S, D), _rand(g, 4, Hkv, S, D))
+    perm = torch.argsort(torch.rand((4, S), generator=g), -1).to(
+        torch.int32).to(cuda)
+    for a, b in zip(segment_build(k, v, perm, cluster_size=C),
+                    ref.synopsis_build_ref(k, v, perm, cluster_size=C)):
+      _close(a, b, BF16_OUT_TOL)
+  elif kernel == "block_gather":
+    _check_gather(cuda, dtype, *_gather_inputs(
+        "padded", S, D=D, C=C, G=G, Hkv=Hkv, E=129, I=32, seed=23))
+  else:
+    q, k, v = _to(cuda, dtype, *_decode_inputs(g, S, D=D, B=B, Hkv=Hkv,
+                                                G=G))
+    M = S // C
+    k_syn = k.float().reshape(B, Hkv, M, C, D).mean(3).to(dtype)
+    v_syn = v.float().reshape(B, Hkv, M, C, D).mean(3).to(dtype)
+    if kernel == "flash_decode":
+      got = flash_decode(q, k, v, sm_scale=sm)
+      want = ref.flash_decode_ref(q, k, v, sm_scale=sm)
+    elif kernel == "synopsis_score":
+      got = (synopsis_score(q, k_syn, sm_scale=sm),)
+      want = (ref.synopsis_score_ref(q, k_syn, sm_scale=sm),)
+    else:
+      cbias = ops.count_bias(torch.full((B, M), float(C), device=cuda))
+      got = fused_synopsis_score_attention(q, k_syn, v_syn, cbias,
+                                           sm_scale=sm)
+      want = ref.fused_synopsis_score_attention_ref(q, k_syn, v_syn, cbias,
+                                                    sm_scale=sm)
+      got, want = (got[0], *got[1]), (want[0], *want[1])
+    for a, b in zip(got, want):
+      _close(a, b, TOL[dtype])
 
 
 @pytest.mark.cuda

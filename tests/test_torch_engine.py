@@ -119,9 +119,9 @@ ARMS = {"fixed0": dict(policy="fixed", fixed_budget=0),
 @pytest.mark.parametrize("prompt", [32, 64])
 def test_engine_generates_jax_token_ids(llama, arm, overlap, prompt):
   """Same weights, basis and requests: the same ids, every request, every
-  step.  With overlap on, the port writes an admitted lane before the
-  step reads the pool (the JAX step reads the pre-admission cache): the
-  admitted lanes are inactive in that step, so no id moves."""
+  step.  With overlap on, both steps read the pre-admission pool (the
+  port launches the admissions between the step's graph and the
+  append's)."""
   kw = dict(prompt_len=prompt, max_new_tokens=NEW, overlap_admission=overlap,
             **ARMS[arm])
   jreqs = j_make_requests(ARRIVALS, prompt, NEW, llama[2].vocab, seed=13)

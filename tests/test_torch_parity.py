@@ -22,7 +22,9 @@ RUNS = ([("gemma2-2b", m, q) for m, q in (
     + [(a, m, "none") for a in ("smollm-135m", "pixtral-12b")
        for m in ("synopsis", "exact")]
     + [("whisper-medium", m, q) for m, q in (
-        ("synopsis", "none"), ("exact", "none"), ("synopsis", "int8+kv"))])
+        ("synopsis", "none"), ("exact", "none"), ("synopsis", "int8+kv"))]
+    + [("jamba-v0.1-52b", m, "none") for m in ("synopsis", "exact")]
+    + [("mamba2-370m", "exact", "none")])
 
 
 @pytest.fixture(autouse=True, scope="module")
