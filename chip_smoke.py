@@ -122,7 +122,17 @@
     and the engine window under ``accuracytrader`` and ``basic`` with each
     step's change of the slots' SSM state (a state not written back shows
     as 0 and fails the phase);
-17. mamba2-370m at full width and depth (``[mamba2]``, 48 SSD layers):
+17-18. arctic-480b at full width with its depth cut to 2 of 35 layers
+    (``[arctic]``: 56/8 heads of 128, G = 7 in the kernels' head bucket of
+    8; an MoE of 128 experts of 4864, top 2, with a dense MLP beside it on
+    every layer, ~27.7B parameters) and command-r-plus-104b at full width
+    with its depth cut to 12 of 64 (``[command-r]``: 96/8 heads of 128,
+    G = 12 in the bucket of 16, flash_prefill's 128 rows as 10 positions
+    of 12 heads; parallel attention and FFN blocks, tied 256000-token
+    embeddings, ~22.0B parameters), ``DEPTH``: the same as 12-14, the
+    loops at budget 32 (``LOOP_BUDGET``: command-r's published i_max is
+    64 = M);
+19. mamba2-370m at full width and depth (``[mamba2]``, 48 SSD layers):
     the SMOKE loop card against CPU, the exact loop (no attention, so
     exact whatever the mode: prefill ms, p50 / p99, peak memory) with no
     kernel launched, a profiled window (device busy ms and ops a step),
@@ -135,7 +145,7 @@ their quantized branches and not the unquantized ones, the exact loop
 ``flash_decode`` and ``block_gather_attention``, the engine the four
 synopsis-path kernels (counted at the graphs' capture: a replay runs no
 Python, so the profiler's rows show the kernels inside the replays); the
-phases 12-16's loops exactly one ``flash_prefill`` an attention layer
+phases 12-18's loops exactly one ``flash_prefill`` an attention layer
 (two with a cross block), two builds (build and absorb) and, a step,
 ``flash_decode`` twice on each local layer and once on each cross block
 and the two synopsis kernels on each global one, on the quant spec's
@@ -2206,12 +2216,14 @@ def run_pipeline(cfg, params, dev):
 
 
 # ---------------------------------------------------------------------------
-# Phases 12-15: the other architectures at full width and depth: gemma2-2b
-# (local and global layers, softcaps, sandwich norms, tied embeddings;
-# flash_prefill at D = 256; its table-only quantized arena), smollm-135m
-# (G = 3 at D = 64), pixtral-12b (the vision stub's patch prefix) and
-# whisper-medium (G = 1 at D = 64; the encoder, cross blocks, GELU MLPs,
-# attention biases)
+# Phases 12-18: the other architectures at full width (depth cut where
+# DEPTH says): gemma2-2b (local and global layers, softcaps, sandwich
+# norms, tied embeddings; flash_prefill at D = 256; its table-only
+# quantized arena), smollm-135m (G = 3 at D = 64), pixtral-12b (the vision
+# stub's patch prefix), whisper-medium (G = 1 at D = 64; the encoder, cross
+# blocks, GELU MLPs, attention biases), jamba-v0.1-52b (SSD and MoE
+# layers), arctic-480b (an MoE beside a dense MLP, G = 7) and
+# command-r-plus-104b (parallel blocks, G = 12)
 # ---------------------------------------------------------------------------
 
 # arch -> (record tag, the SMOKE loops held card against CPU: (mode,
@@ -2227,13 +2239,29 @@ MODELS = {
                                      ("synopsis", "int8+kv")), ()),
     "jamba-v0.1-52b": ("[jamba]", (("synopsis", "none"), ("exact", "none")),
                        ()),
+    "arctic-480b": ("[arctic]", (("synopsis", "none"), ("exact", "none")),
+                    ()),
+    "command-r-plus-104b": ("[command-r]", (("synopsis", "none"),
+                                            ("exact", "none")), ()),
 }
 # Depth cuts, layers run of the config's: jamba-v0.1-52b's 32 layers are
 # ~51.4B parameters, ~103 GB in bf16, which one 80 GB card cannot hold; 16
 # layers (2 of its 4 eight-layer superblocks: 2 attention, 14 mamba, 8 MoE
 # and 8 dense-MLP layers) are ~26.0B, ~52 GB, and 24 would be ~77 GB of
-# weights alone.  Width is never cut.
-DEPTH = {"jamba-v0.1-52b": 16}
+# weights alone.  arctic-480b's layers hold 128 experts of 7168 x 4864 each
+# (26.8 GB in bf16): 2 of its 35 (~55.4 GB with the embeddings) fit, 3 would
+# not.  command-r-plus-104b's are 3.15 GB each beside its 6.3 GB tied
+# embedding and the 12.6 GB f32 unembedding the logits read: 12 of 64
+# (~56.6 GB) leave room for an 8192-token B = 2 prefill's transients; 16
+# would hold ~69 GB before them.  Width is never cut.
+DEPTH = {"jamba-v0.1-52b": 16, "arctic-480b": 2, "command-r-plus-104b": 12}
+# The per-model loops' budget: every model's published i_max but
+# command-r-plus-104b's, whose 64 is M at prompt 8192 (the full budget).
+LOOP_BUDGET = 32
+
+
+def _loop_budget(cfg):
+  return min(LOOP_BUDGET, cfg.synopsis.i_max)
 
 
 def _n_attn(cfg, local=None):
@@ -2276,7 +2304,7 @@ def check_model_kernels(cfg, tag, dev, g):
   dtype = torch.bfloat16
   B, S, H, Hkv, D = BATCH, PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.hd
   C, W, cap = cfg.synopsis.cluster_size, cfg.sliding_window, cfg.attn_softcap
-  M, I, G = S // C, cfg.synopsis.i_max, H // Hkv
+  M, I, G = S // C, _loop_budget(cfg), H // Hkv
   local = any(s.local for s in cfg.block_pattern)
   sm = D ** -0.5
   sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2664,14 +2692,14 @@ def _model_loop(cfg, params, dev, tag, mode="synopsis", quant="none"):
   torch.cuda.reset_peak_memory_stats()
   _build.reset_launches()
   out = serve.run(qcfg, batch=BATCH, prompt_len=PROMPT, tokens=STEPS,
-                  budgets=([cfg.synopsis.i_max] * STEPS
+                  budgets=([_loop_budget(cfg)] * STEPS
                            if mode == "synopsis" else None),
                   mode=mode, device=dev, params=params, log=lambda _: None)
   torch.cuda.synchronize()
   counts = _build.launch_counts()
   peak = torch.cuda.max_memory_allocated() / 1e9
   _check_run(out, cfg, absorbs=1 if mode == "synopsis" else 0)
-  label = (f"budget {cfg.synopsis.i_max} on every step"
+  label = (f"budget {_loop_budget(cfg)} on every step"
            if mode == "synopsis" else "exact")
   print(f"{tag} loop quant={quant} {label}: prefill_ms="
         f"{out['prefill_ms']:.1f} build_ms={out['build_ms']:.1f} decode_ms "
@@ -2722,9 +2750,11 @@ def _report_ssm_state(label, moved):
 
 def run_model(arch, dev, g):
   """One architecture at its published width and depth (depth cut where
-  ``DEPTH`` says: jamba), random bf16 weights from seed 0: SMOKE parity
+  ``DEPTH`` says: jamba, arctic, command-r-plus), random bf16 weights from
+  seed 0: SMOKE parity
   card against CPU, the kernel checks
-  at its shapes, the budget-32 loop (130 steps, one absorb) with exact
+  at its shapes, the budget-32 loop (130 steps, one absorb; budget
+  ``LOOP_BUDGET``) with exact
   launch counts, the full-budget deviation on its first global layer, a
   profiled window (device busy share); under gemma2's table-only quant
   specs the quantized build and stage 1 at its shapes, the same loop,
@@ -2753,10 +2783,11 @@ def run_model(arch, dev, g):
   G = cfg.n_heads // cfg.n_kv_heads
   kinds = [s.kind for s in cfg.block_pattern]
   print(f"{tag} {cfg.name} full width, "
-        + (f"depth cut to {cfg.n_layers} of {full_layers} layers "
-           f"({cfg.n_blocks} of {full_layers // len(kinds)} "
-           f"{len(kinds)}-layer superblocks): "
-           if cfg.n_layers != full_layers else "depth too, nothing cut: ")
+        + (f"depth cut to {cfg.n_layers} of {full_layers} layers"
+           + (f" ({cfg.n_blocks} of {full_layers // len(kinds)} "
+              f"{len(kinds)}-layer superblocks)" if len(kinds) > 1 else "")
+           + ": " if cfg.n_layers != full_layers
+           else "depth too, nothing cut: ")
         + f"{cfg.n_layers} layers"
         + (f" ({_n_attn(cfg)} attention, {cfg.n_layers - _n_attn(cfg)} "
            f"mamba (SSD state {cfg.ssm.d_state}, "
@@ -2766,6 +2797,13 @@ def run_model(arch, dev, g):
            f"({cfg.moe.num_experts} experts of {cfg.moe.d_ff_expert}, top "
            f"{cfg.moe.top_k}; {cfg.param_count(active=True) / 1e9:.3f}B "
            "params active a token))" if "mamba" in kinds else "")
+        + (f", an MoE on every layer ({cfg.moe.num_experts} experts of "
+           f"{cfg.moe.d_ff_expert}, top {cfg.moe.top_k}) with a dense MLP "
+           f"of {cfg.d_ff} beside it ({cfg.param_count(active=True) / 1e9:.3f}"
+           "B params active a token)"
+           if cfg.moe is not None and "mamba" not in kinds else "")
+        + (", parallel attention and FFN blocks (no ln2)"
+           if cfg.parallel_block else "")
         + (f" (local window {cfg.sliding_window} / global)" if local else "")
         + f", d={cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads (G={G}),"
         f" hd={cfg.hd}, d_ff={cfg.d_ff}, vocab {cfg.vocab}"
@@ -2799,7 +2837,7 @@ def run_model(arch, dev, g):
     launches[f"flash_decode{tag}"] = counts["flash_decode"]
   check_full_budget(out["cache"], dev, g, pos=pos, cap=cfg.attn_softcap,
                     G=G)
-  profile_decode(cfg, params, out["cache"], dev, cfg.synopsis.i_max)
+  profile_decode(cfg, params, out["cache"], dev, _loop_budget(cfg))
   del out
   for quant in table_quants:
     out, counts = _model_loop(cfg, params, dev, tag, quant=quant)
@@ -2807,7 +2845,7 @@ def run_model(arch, dev, g):
       key = _build.branch(name, quant)
       launches[f"{key}{tag}"] = counts[key]
     profile_decode(serve.apply_quant(cfg, quant), params, out["cache"], dev,
-                   cfg.synopsis.i_max)
+                   _loop_budget(cfg))
     del out
 
   exact, counts = _model_loop(cfg, params, dev, tag, mode="exact")
@@ -2843,7 +2881,7 @@ def run_model(arch, dev, g):
   q = (q * 2.0 * D ** 0.5 / k.float().norm(dim=-1).mean()).to(k.dtype)
   args = (q, k, v, syn["k_syn"][0, pos], syn["v_syn"][0, pos],
           syn["counts"][0, pos])
-  kw = dict(i_max=cfg.synopsis.i_max, sm_scale=D ** -0.5,
+  kw = dict(i_max=_loop_budget(cfg), sm_scale=D ** -0.5,
             cap=cfg.attn_softcap)
   _build.reset_launches()
   a = ops.synopsis_attention(*args, **kw)

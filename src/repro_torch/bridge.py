@@ -55,10 +55,14 @@ def params_from_numpy(tree: Dict, cfg: ModelConfig, device) -> Dict:
   layer's ``cross`` and ``ln_cross``, the GELU biases and the encoder
   tree; a mamba layer its ``ssm`` leaves (``A_log``, ``D`` and
   ``dt_bias`` cast like the rest, as the JAX launcher casts them) and no
-  ``ln2`` / ``mlp`` where d_ff = 0; an MoE layer its ``moe`` leaves."""
+  ``ln2`` / ``mlp`` where d_ff = 0; an MoE layer its ``moe`` leaves (and
+  ``mlp`` beside them under ``dense_parallel``); a parallel block no
+  ``ln2``.  Nor may the tree hold a leaf that ``param_shapes`` lacks:
+  weights the port would not read raise instead of loading silently."""
   tf.check_supported(cfg)
+  shapes = dict(leaves(param_shapes(cfg)))
   missing, wrong = [], []
-  for path, shape in leaves(param_shapes(cfg)):
+  for path, shape in shapes.items():
     node = tree
     for key in path.split("/"):
       node = node.get(key) if isinstance(node, dict) else None
@@ -66,7 +70,9 @@ def params_from_numpy(tree: Dict, cfg: ModelConfig, device) -> Dict:
       missing.append(path)
     elif tuple(np.shape(node)) != tuple(shape):
       wrong.append(f"{path} {np.shape(node)} != {shape}")
-  if missing or wrong:
-    raise KeyError(f"parameter tree lacks {missing}, shapes differ {wrong}")
+  extra = [path for path, _ in leaves(tree) if path not in shapes]
+  if missing or wrong or extra:
+    raise KeyError(f"parameter tree lacks {missing}, shapes differ {wrong}, "
+                   f"leaves not in the config's tree {extra}")
   return tf.finish_params(_convert(tree, cfg.dtype, torch.device(device)),
                           cfg)

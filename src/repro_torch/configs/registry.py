@@ -16,6 +16,8 @@ _MODULES: Dict[str, str] = {
     "whisper-medium": "repro_torch.configs.whisper_medium",
     "mamba2-370m": "repro_torch.configs.mamba2_370m",
     "jamba-v0.1-52b": "repro_torch.configs.jamba_v01_52b",
+    "arctic-480b": "repro_torch.configs.arctic_480b",
+    "command-r-plus-104b": "repro_torch.configs.command_r_plus_104b",
 }
 
 

@@ -34,7 +34,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # Head dims and largest GQA group the decode kernels are built for
 # (DISPATCH_HEAD_DIM and GMAX in csrc/attn_common.cuh).
 HEAD_DIMS = (16, 32, 64, 128, 256)
-GMAX = 8
+GMAX = 16
 
 # Geometry of the decode core (csrc/decode_core.cuh) that the wrappers of
 # flash_decode, block_gather_attention and fused_synopsis_score_attention

@@ -198,9 +198,11 @@ __device__ inline void softmax_update(SoftmaxSmem s, int R, int n, int D) {
 }
 
 // Upper bound of the GQA group G, so that per-head state is a fixed-size
-// register array (decode_core.cuh, synopsis_score.cu); the wrappers refuse
-// larger groups.
-constexpr int GMAX = 8;
+// register array (decode_core.cuh, synopsis_score.cu) and the 128 query rows
+// of flash_prefill.cu's wgmma kernel hold at least 8 positions; the
+// wrappers refuse larger groups.  16 covers command-r-plus's G = 96 / 8 =
+// 12.
+constexpr int GMAX = 16;
 
 // Runs the statements (which must return) with `constexpr int kD = D` for
 // the head dims the decode kernels (flash_decode, block_gather,

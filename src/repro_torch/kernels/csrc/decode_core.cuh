@@ -48,9 +48,14 @@
 //    of a warp are combined once, at the end of the chunk, and the warps of
 //    the block once after that, through shared memory that reuses the
 //    rings.
-//  * Heads: G is rounded up to a bucket GB of 4 or 8 (a template
+//  * Heads: G is rounded up to a bucket GB of 4, 8 or 16 (a template
 //    argument), so the loops over heads are unrolled without branches;
-//    the heads past G carry a zero query and are masked.
+//    the heads past G carry a zero query and are masked.  Every bucket
+//    reads a tile's K and V from device memory once for all G heads (the
+//    logit and p.V passes run over the tile staged in shared memory).  At
+//    GB = 16 (command-r-plus's G = 12) a lane's softmax head is lane % 16,
+//    so the shuffle tree over the heads' rows is one step (offset 16), and
+//    acc[16][8] is 128 f32 registers a lane.
 //
 // Masking follows the reference: a logit the caller sets to the -1e30
 // sentinel takes part in the softmax like any other (an all-masked span
@@ -557,9 +562,10 @@ __device__ __forceinline__ void merge_if_last(
 }
 
 // Runs the statements (which must return) with `constexpr int kGB` the
-// head bucket of G (4 or 8).
+// head bucket of G (4, 8 or 16).
 #define DISPATCH_HEAD_BUCKET(G, ...)                          \
   if ((G) <= 4) { constexpr int kGB = 4; __VA_ARGS__ }        \
-  else { constexpr int kGB = 8; __VA_ARGS__ }
+  else if ((G) <= 8) { constexpr int kGB = 8; __VA_ARGS__ }   \
+  else { constexpr int kGB = 16; __VA_ARGS__ }
 
 }  // namespace dc

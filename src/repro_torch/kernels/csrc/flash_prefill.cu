@@ -19,8 +19,10 @@
 //    the Pallas kernel flattens (block_q, G): each K/V tile is read once
 //    for all G heads.  Rows past BQ * G (G not a power of two) and
 //    positions past S are computed on whatever the tile holds and never
-//    written.  Query tiles are launched longest causal row first, so the
-//    triangle leaves no tail wave.
+//    written (G = 12: BQ = 10 positions, 120 live rows; the Q box is 10
+//    positions of 12 heads, and its byte count, BQ * G * D * 2, is what
+//    the barrier expects).  Query tiles are launched longest causal row
+//    first, so the triangle leaves no tail wave.
 //  * Warps.  Two consumer warpgroups of 64 rows each and one producer
 //    warpgroup, 384 threads; setmaxnreg moves registers from the producer
 //    (40 a thread) to the consumers (232).  One producer thread issues
@@ -544,7 +546,7 @@ static int launch_f32(const void* q, const void* k, const void* v, void* out,
 }
 
 // dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (wgmma kernel, D in
-// {16, 32, 64, 128, 256}, G = H / Hkv in 1..8, 16-byte aligned tensors).
+// {16, 32, 64, 128, 256}, G = H / Hkv in 1..GMAX, 16-byte aligned tensors).
 // cap <= 0: no softcap; window <= 0: no sliding window.
 extern "C" int flash_prefill_launch(const void* q, const void* k,
                                     const void* v, void* out, int B, int S,
@@ -556,7 +558,7 @@ extern "C" int flash_prefill_launch(const void* q, const void* k,
     return launch_f32(q, k, v, out, B, S, H, Hkv, D, sm_scale, cap, window,
                       st);
   const int G = H / Hkv;
-  if (G < 1 || G > 8) return (int)cudaErrorInvalidValue;
+  if (G < 1 || G > GMAX) return (int)cudaErrorInvalidValue;
 #define WG_LAUNCH(d) \
   wg::launch<d>(q, k, v, out, B, S, H, Hkv, sm_scale, cap, window, st)
   switch (D) {

@@ -31,9 +31,10 @@
 //    reduce-scatter (each lane keeping half its heads at each offset: GB -
 //    1 shuffles a row instead of GB * log2(LPR)) measured slower at the
 //    loop's M = 64 and no faster at M = 1024 in bf16 (PERF.md).
-//  * Heads: G is rounded up to a bucket GB of 4 or 8 (a template
+//  * Heads: G is rounded up to a bucket GB of 4, 8 or 16 (a template
 //    argument), so the FMA and shuffle loops carry no head test; heads
-//    past G carry a zero query and stay out of the max.
+//    past G carry a zero query and stay out of the max.  The centroid
+//    rows are read once for all G heads in every bucket.
 #include "decode_core.cuh"
 
 namespace ss {

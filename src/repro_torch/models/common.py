@@ -3,7 +3,9 @@ dataclasses, cut to what the serving path reads (llama3's global
 attention; gemma2's local layers, softcaps, sandwich norms, embedding
 scale and tied embeddings; pixtral's vision-stub patch prefix; whisper's
 encoder, cross attention, GELU MLPs and attention biases; mamba2's SSD
-layers and jamba's MoE FFNs).  ``dtype`` is a torch dtype.
+layers; jamba's and arctic's MoE FFNs, arctic's with a dense MLP beside
+the experts; command-r's parallel attention-and-FFN blocks).  ``dtype``
+is a torch dtype.
 
 :func:`param_shapes` is the parameter tree's layout, which the init, the
 bridge's check and :meth:`ModelConfig.param_count` all read."""
@@ -78,6 +80,7 @@ class ModelConfig:
   sliding_window: int = 4096
   logit_softcap: Optional[float] = None   # gemma2 final-logit softcap
   attn_softcap: Optional[float] = None    # gemma2 attention softcap
+  parallel_block: bool = False            # attn + ffn in parallel (command-r)
   sandwich_norm: bool = False             # post-block norms (gemma2)
   scale_embed: bool = False               # sqrt(d) embedding scale (gemma2)
   tie_embeddings: bool = False            # logits read embed.T (gemma2)
@@ -176,8 +179,9 @@ def ssm_state_shapes(c: ModelConfig, B: int) -> Dict[str, Tuple[int, ...]]:
 
 
 def _has_ffn(c: ModelConfig, spec: LayerSpec) -> bool:
-  """Whether the layer has an FFN (and its ``ln2``): an MLP (d_ff > 0) or
-  an MoE; mamba2's layers (d_ff = 0) have none."""
+  """Whether the layer has an FFN (and, unless the block is parallel, its
+  ``ln2``): an MLP (d_ff > 0) or an MoE; mamba2's layers (d_ff = 0) have
+  none."""
   return c.d_ff > 0 or (spec.use_moe and c.moe is not None)
 
 
@@ -201,7 +205,10 @@ def param_shapes(c: ModelConfig) -> Dict:
   w2},] [ln1_post, ln2_post]}; a layer with no FFN, mamba2's, has no
   ``ln2``), then ``embed``, ``final_norm``, ``unembed`` (untied),
   ``frontend_proj`` (a stub) and ``encoder: {blocks: {ln1, attn, ln2,
-  mlp} stacked over its layers, final_norm}``."""
+  mlp} stacked over its layers, final_norm}``.  A parallel block
+  (command-r) has no ``ln2``: its FFN reads the ``ln1``-normed input; an
+  MoE layer with ``dense_parallel`` (arctic) has both ``moe`` and
+  ``mlp``."""
   d, n = c.d_model, c.n_blocks
   blocks = {}
   for i, spec in enumerate(c.block_pattern):
@@ -214,10 +221,12 @@ def param_shapes(c: ModelConfig) -> Dict:
       lp["ln_cross"] = (n, d)
       lp["cross"] = _attn_shapes(c, n, c.n_heads, c.n_kv_heads, c.hd)
     ffn = _has_ffn(c, spec)
-    if ffn:
+    if ffn and not c.parallel_block:
       lp["ln2"] = (n, d)
     if spec.use_moe and c.moe is not None:
       lp["moe"] = _moe_shapes(c, n)
+      if c.moe.dense_parallel:
+        lp["mlp"] = _mlp_shapes(c, n, c.d_ff)
     elif c.d_ff > 0:
       lp["mlp"] = _mlp_shapes(c, n, c.d_ff)
     if c.sandwich_norm:

@@ -8,7 +8,8 @@ tokens of the call.  At decode T is the batch (B = 2 in the loop, the
 slots in the engine), so with jamba's k = 2 of E = 16 the capacity is 1:
 each expert keeps only its highest-gated token of the batch, the rows of
 a batch change each other's output, and every expert computes its one
-slot (a decode step reads all E experts' weights), as in the reference.
+slot (a decode step reads all E experts' weights), as in the reference;
+arctic's k = 2 of E = 128 gives capacity 1 up to T = 102.
 
 Both selections break ties as ``lax.top_k`` does, the lower index first:
 a stable descending sort (``torch.topk`` does not promise an order).
@@ -16,8 +17,8 @@ Router logits and softmax in f32 (float64 for float64 activations); the
 expert products in the activation dtype with the SwiGLU gate in f32, as
 ``layers.swiglu``; the combine an ``index_add_`` in the activation dtype
 (a token has at most k nonzero terms, so the order of the adds does not
-change the sum for k = 2).  Plain PyTorch on every device: the reference
-is plain JAX.
+change the sum for k = 2: jamba's and arctic's top 2).  Plain PyTorch on
+every device: the reference is plain JAX.
 """
 from __future__ import annotations
 
@@ -67,8 +68,9 @@ def route(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
 def moe_ffn(x: torch.Tensor, p, cfg: ModelConfig):
   """x (B, S, d) -> (y (B, S, d) in x's dtype, aux load-balance loss; no
   caller on the serve path reads it).  Routed experts only
-  (``transformer.check_supported`` refuses shared ones and arctic's
-  parallel dense MLP)."""
+  (``transformer.check_supported`` refuses shared ones); arctic's dense
+  MLP beside the experts is added at the call site (``transformer.ffn``),
+  as in the reference."""
   B, S, d = x.shape
   xf = x.reshape(B * S, d)
   tok, gate, _, aux = route(xf, p["router"], cfg)

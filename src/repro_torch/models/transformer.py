@@ -7,7 +7,10 @@ prefix the text embeddings; whisper's encoder over the audio stub's
 frames, a cross block on every decoder layer, GELU MLPs and attention
 biases; mamba2's SSD layers (``models.ssm``), with no FFN where d_ff = 0;
 jamba's pattern of attention and mamba layers with an MoE FFN
-(``models.moe``) on every other one).
+(``models.moe``) on every other one; arctic's MoE with a dense MLP added
+beside the experts; command-r's parallel blocks, ``x + attn(h) + ffn(h)``
+with ``h`` the ``ln1``-normed input and no ``ln2``).  Only MLA and shared
+experts (deepseek) stay refused (:func:`check_supported`).
 
 Parameters are a nested dict with the JAX tree's keys and layouts, stacked
 per pattern position with a leading layer axis; ``common.param_shapes``
@@ -19,8 +22,9 @@ V), "blocks": {"pos0": {"ln1", "attn": {"wq", "wk", "wv", "wo"}, "ln2",
 d); whisper adds ``bq``/``bo`` to every attention, ``ln_cross`` and
 ``cross`` to every layer, a GELU ``mlp: {w1, b1, w2, b2}`` and ``encoder:
 {blocks, final_norm}``; a mamba layer has ``ssm`` in place of ``attn``,
-an MoE layer ``moe: {router, w1, w3, w2}`` in place of ``mlp``, and a
-layer with neither MLP nor MoE (mamba2) no ``ln2``.  A Python loop over
+an MoE layer ``moe: {router, w1, w3, w2}`` in place of ``mlp`` (arctic's
+both), and a layer with neither MLP nor MoE (mamba2), or a parallel block
+(command-r), no ``ln2``.  A Python loop over
 layers takes the place of ``lax.scan``.
 
 Logits are taken in f32 (``h.float() @ unembed.float()``, or
@@ -35,6 +39,7 @@ the values are those of the bf16 weights.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
@@ -60,15 +65,18 @@ ZERO_LEAVES = frozenset(("ln1", "ln2", "ln1_post", "ln2_post", "ln_cross",
                          "dt_bias", "norm"))
 # conv_w's init scale (the other weights draw at fan-in), as in JAX.
 CONV_SCALE = 0.5
+# Elements of one f32 draw at most (4 GB); a weight under it is drawn whole.
+DRAW_ELEMS = 1 << 30
 
 
 def check_supported(cfg: ModelConfig) -> None:
   """The port runs dense GQA attention layers, global or local, with a
-  SwiGLU or GELU MLP or an MoE FFN (routed experts only); mamba (SSD)
+  SwiGLU or GELU MLP or an MoE FFN (routed experts, with or without a
+  dense MLP beside them), sequential or parallel blocks; mamba (SSD)
   layers; the vision stub's patch prefix; whisper's encoder behind the
   audio stub, with a cross block on every decoder layer.  No shared
-  experts or parallel dense MLP beside the MoE (arctic), and no other
-  frontend (the config has no MLA field: MLA is not expressible)."""
+  experts (deepseek), and no other frontend (the config has no MLA field:
+  MLA is not expressible)."""
   kinds = {s.kind for s in cfg.block_pattern}
   if not kinds <= set(LAYER_KINDS):
     raise NotImplementedError(f"{cfg.name}: layer kinds {sorted(kinds)}; "
@@ -77,9 +85,8 @@ def check_supported(cfg: ModelConfig) -> None:
     raise NotImplementedError(f"{cfg.name}: mamba layers without an "
                               "SSMConfig")
   moe = cfg.moe
-  if moe is not None and (moe.num_shared or moe.dense_parallel):
-    raise NotImplementedError(f"{cfg.name}: shared experts and the dense "
-                              "MLP in parallel with the MoE are not ported")
+  if moe is not None and moe.num_shared:
+    raise NotImplementedError(f"{cfg.name}: shared experts are not ported")
   if cfg.frontend not in FRONTENDS:
     raise NotImplementedError(f"{cfg.name}: frontend {cfg.frontend!r}; the "
                               f"port runs {FRONTENDS[1:]}")
@@ -108,9 +115,21 @@ def has_cross(cfg: ModelConfig) -> bool:
 def _trunc_normal(shape, scale, generator, device, dtype):
   """``scale * truncated_normal(-2, 2)`` drawn in f32, stored in ``dtype``
   (the init of ``repro.models.common.param``: ``scale=None`` is
-  ``fan_in^-0.5`` with fan_in = ``shape[-2]``, as there)."""
+  ``fan_in^-0.5`` with fan_in = ``shape[-2]``, as there).  A weight of
+  more than :data:`DRAW_ELEMS` elements is drawn in slices of its first
+  axis, so that its f32 draw never holds more than that: one layer's 128
+  experts of arctic-480b would be 17.8 GB of f32, command-r's tied
+  embedding 12.6 GB."""
   if scale is None:
     scale = (shape[-2] if len(shape) >= 2 else shape[-1]) ** -0.5
+  rows = max(1, DRAW_ELEMS // math.prod(shape[1:]))
+  if len(shape) > 1 and shape[0] > rows:
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for r0 in range(0, shape[0], rows):
+      n = min(rows, shape[0] - r0)
+      out[r0:r0 + n] = _trunc_normal((n, *shape[1:]), scale, generator,
+                                     device, dtype)
+    return out
   t = torch.empty(shape, dtype=torch.float32, device=device)
   torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
   return (t * scale).to(dtype)
@@ -229,26 +248,42 @@ def mlp(x, mp, cfg: ModelConfig):
 
 def ffn(x, lp, cfg: ModelConfig, spec: LayerSpec):
   """The layer's FFN: the MoE (its aux loss dropped: nothing on the serve
-  path reads it) on an MoE layer, else the config's MLP."""
+  path reads it) on an MoE layer, plus the dense MLP of ``lp["mlp"]``
+  where the MoE has ``dense_parallel`` (arctic); else the config's MLP."""
   if spec.use_moe and cfg.moe is not None:
-    return moe_lib.moe_ffn(x, lp["moe"], cfg)[0]
+    y = moe_lib.moe_ffn(x, lp["moe"], cfg)[0]
+    return y + mlp(x, lp["mlp"], cfg) if cfg.moe.dense_parallel else y
   return mlp(x, lp["mlp"], cfg)
 
 
 def mlp_block(x, lp, cfg: ModelConfig, spec: LayerSpec):
   """x + the (sandwich-normed) FFN of the pre-normed ``x``; ``x`` as it is
-  where the layer has no FFN (no ``ln2``: mamba2's layers)."""
+  where the layer has no FFN (no ``ln2``: mamba2's layers).  A parallel
+  block has no ``ln2`` either but an FFN: it goes through
+  :func:`parallel_residual` and never comes here."""
+  if cfg.parallel_block:
+    raise ValueError(f"{cfg.name}: a parallel block's FFN reads the "
+                     "ln1-normed input, not ln2's")
   if "ln2" not in lp:
     return x
   h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
   return x + post_norm(ffn(h2, lp, cfg, spec), lp, "ln2_post", cfg)
 
 
+def parallel_residual(x, mix, h, lp, cfg: ModelConfig, spec: LayerSpec):
+  """A parallel block's output (command-r): ``x + mix + ffn(h)``, with
+  ``h`` the ``ln1``-normed input the mixer read and ``mix`` normed again
+  under sandwich norms, as the reference's parallel branch (which skips
+  any cross block)."""
+  return x + post_norm(mix, lp, "ln1_post", cfg) + ffn(h, lp, cfg, spec)
+
+
 def _layer_forward(x, lp, cfg: ModelConfig, spec: LayerSpec, positions,
                    enc_out=None):
   """One pre-norm layer: attention (sliding-window on a local layer) or
   the SSD mixer, the cross block where the layer has one, then the FFN,
-  each output normed again under sandwich norms.  Returns (x, the layer's
+  each output normed again under sandwich norms; in a parallel block the
+  FFN of the same normed input, added beside the mixer's output.  Returns (x, the layer's
   decode-cache leaves): {"k", "v"} in the decode layout (B, Hkv, S, D),
   with a cross block also {"cross_k", "cross_v"} (B, Hkv, S or T, D); on
   a mamba layer {"conv_state", "ssd_state"}.
@@ -267,6 +302,8 @@ def _layer_forward(x, lp, cfg: ModelConfig, spec: LayerSpec, positions,
     mix, (k, v) = attn.attention_train(h, lp["attn"], cfg, positions,
                                        local=spec.local)
     out = {"k": k, "v": v}
+  if cfg.parallel_block:
+    return parallel_residual(x, mix, h, lp, cfg, spec), out
   x = x + post_norm(mix, lp, "ln1_post", cfg)
   if spec.cross_attn:
     hc = rms_norm(x, lp["ln_cross"], cfg.norm_eps)

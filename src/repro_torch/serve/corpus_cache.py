@@ -98,6 +98,8 @@ def supports_delta(cfg) -> bool:
   (pixtral's patches) couple it to prefix inputs the arena does not hold,
   and a mamba layer (jamba) to the prefix's SSM state; so such a config
   takes the full build on a prefix-extension miss, as in the JAX package.
+  The FFN does not matter: arctic's MoE beside a dense MLP and command-r's
+  parallel blocks replay deltas, as in the JAX package.
   (The engine also turns it off under a ``+kv`` quant spec, whose sorted
   cache holds int8 / fp8 blocks.)"""
   try:

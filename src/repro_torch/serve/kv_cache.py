@@ -16,9 +16,11 @@ have no pool.
 Unlike the JAX package, the pool is allocated once and written in place:
 ``write_slot`` copies into the lane and the engine's reset zeroes the
 leaves.  A captured CUDA graph reads fixed addresses, so a pool that was
-reallocated would leave the graphs reading the old one.  The other cache
-families (MLA) raise, as ``models.transformer.check_supported`` does, and
-so does cross attention (:func:`cache_struct`).
+reallocated would leave the graphs reading the old one.  The FFN never
+changes the cache (an MoE or parallel block has the leaves of any GQA
+layer); the other cache family, MLA's latents (deepseek), raises, as
+``models.transformer.check_supported`` does, and so does cross attention
+(:func:`cache_struct`).
 """
 from __future__ import annotations
 

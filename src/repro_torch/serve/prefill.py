@@ -47,7 +47,9 @@ def _extend_layer(x, lp, cfg: ModelConfig, spec, positions, pk, pv):
   (B, Hkv, P, D), not recomputed.  Sound because softmax over the cached
   keys does not depend on their order and rope was applied at their true
   positions before caching.  Plain f32 attention, as the JAX package's
-  (no kernel).  Returns (x, k_new, v_new), the new KV (B, Hkv, E, D)."""
+  (no kernel); then the FFN as in :func:`transformer._layer_forward`
+  (beside the attention in a parallel block).  Returns (x, k_new, v_new),
+  the new KV (B, Hkv, E, D)."""
   h = rms_norm(x, lp["ln1"], cfg.norm_eps)
   q, k, v = attn_lib.qkv(h, lp["attn"], cfg, positions)
   k_new = k.transpose(1, 2)                                   # (B,Hkv,E,D)
@@ -69,8 +71,10 @@ def _extend_layer(x, lp, cfg: ModelConfig, spec, positions, pk, pv):
   o = torch.einsum("bhges,bhsd->bhged", w, v_all)
   del w, v_all
   o = o.reshape(B, H, E, D).transpose(1, 2).to(x.dtype)
-  x = x + tf.post_norm(attn_lib.out_proj(o, lp["attn"], x.dtype), lp,
-                       "ln1_post", cfg)
+  mix = attn_lib.out_proj(o, lp["attn"], x.dtype)
+  if cfg.parallel_block:
+    return tf.parallel_residual(x, mix, h, lp, cfg, spec), k_new, v_new
+  x = x + tf.post_norm(mix, lp, "ln1_post", cfg)
   return tf.mlp_block(x, lp, cfg, spec), k_new, v_new
 
 

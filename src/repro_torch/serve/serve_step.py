@@ -1,6 +1,6 @@
 """Decode (serve) step: one new token against a KV cache (counterpart of
 ``repro.serve.serve_step``: GQA attention layers, mamba layers, MLP or
-MoE FFNs).
+MoE FFNs, sequential or parallel blocks).
 
 ``mode="synopsis"``: per attention layer the AccuracyTrader decode
 attention runs the fused two-stage pipeline of
@@ -36,8 +36,11 @@ Without one the step is the plain one, op for op.
 
 A mamba layer (mamba2, jamba) runs ``models.ssm.ssm_forward``'s S = 1
 decode from the cache's ``conv_state`` / ``ssd_state`` in both modes, and
-an MoE layer its FFN over the step's B rows (capacity 1 at jamba's B <= 6:
-the rows of the step change each other's output, as in the reference).
+an MoE layer its FFN over the step's B rows (capacity 1 at jamba's B <= 6
+and arctic's B <= 102: the rows of the step change each other's output,
+as in the reference), plus arctic's dense MLP beside the experts.  A
+parallel block (command-r) adds the FFN of the same ``ln1``-normed input
+beside the attention output, in both modes.
 The attention index ``ai`` and the mamba index ``si`` count separately:
 the cache stacks k / v and the synopsis over the attention positions, the
 SSM state over the mamba positions.
@@ -236,6 +239,9 @@ def make_serve_step(cfg: ModelConfig, *, mode: str = "synopsis",
           per.setdefault("k_delta", []).append(kd)
           per.setdefault("v_delta", []).append(vd)
           ai += 1
+        if cfg.parallel_block:
+          x = tf.parallel_residual(x, mix, h, lp, cfg, spec)
+          continue
         x = x + tf.post_norm(mix, lp, "ln1_post", cfg)
         if spec.cross_attn:
           hc = rms_norm(x, lp["ln_cross"], cfg.norm_eps)

@@ -201,6 +201,15 @@ def test_cpu_tensors_run_the_plain_versions_without_launching():
     ((2, 2100, 3, 3, 64), None, None),
     # whisper-medium's heads (16 of 64, G = 1): 128 positions a tile.
     ((1, 1024, 16, 1, 64), None, None),
+    # arctic-480b's G = 7 (18 positions a tile, 126 rows), command-r-plus's
+    # G = 12 (10 positions, 120 rows: the Q box 10 x 12 heads) and the
+    # largest group built, G = 16 (8 positions); ragged S, with window
+    # and cap.
+    ((1, 700, 2, 7, 128), None, None),
+    ((2, 1000, 2, 12, 128), None, None),
+    ((1, 300, 1, 12, 64), 57, 30.0),
+    ((1, 520, 1, 16, 128), None, None),
+    ((1, 300, 2, 16, 32), 40, 20.0),
 ])
 def test_card_flash_prefill(cuda, dtype, shape, window, cap):
   q, k, v = _to(cuda, dtype, *_prefill_inputs(shape))
@@ -235,9 +244,10 @@ def test_card_flash_prefill_bf16_cancelling_rows(cuda, D):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1, 64, 1, 16, 64), (1, 64, 1, 2, 48)])
+@pytest.mark.parametrize("shape", [(1, 64, 1, _build.GMAX + 1, 64),
+                                   (1, 64, 1, 2, 48)])
 def test_card_flash_prefill_bf16_refuses_unbuilt_shapes(cuda, shape):
-  """G > 8 and head dims outside WGMMA_HEAD_DIMS are not built for bf16:
+  """G > GMAX and head dims outside WGMMA_HEAD_DIMS are not built for bf16:
   the wrapper raises instead of running the CUDA-core kernel; f32 takes
   them."""
   q, k, v = _to(cuda, torch.bfloat16, *_prefill_inputs(shape))
@@ -334,7 +344,7 @@ def test_card_fused_synopsis_head_dims(cuda, dtype, kind, D, G):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D,G", [(48, 4), (128, 9)])
+@pytest.mark.parametrize("D,G", [(48, 4), (128, _build.GMAX + 1)])
 def test_card_fused_synopsis_refuses_unbuilt_shapes(cuda, D, G):
   """No fallback: a head dim or group the kernel is not built for raises
   and launches nothing."""
@@ -402,7 +412,7 @@ def test_card_block_gather_head_dims(cuda, dtype, D, G):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D,G", [(48, 4), (128, 9)])
+@pytest.mark.parametrize("D,G", [(48, 4), (128, _build.GMAX + 1)])
 def test_card_block_gather_refuses_unbuilt_shapes(cuda, D, G):
   q, k, v, sel, C, kw = _gather_inputs("dec_extras", 64, D=D, G=G, E=129)
   args = _to(cuda, torch.float32, q, k, v)
@@ -488,6 +498,51 @@ def test_card_flash_decode_head_dims(cuda, dtype, D, G):
   q, k, v = _to(cuda, dtype, *_decode_inputs(g, 300, D=D, B=1, Hkv=2, G=G))
   got = flash_decode(q, k, v, sm_scale=D ** -0.5)
   for a, b in zip(got, ref.flash_decode_ref(q, k, v, sm_scale=D ** -0.5)):
+    _close(a, b, TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kernel", ["fused_synopsis", "block_gather",
+                                    "flash_decode", "synopsis_score"])
+@pytest.mark.parametrize("G", [7, 12, 16])
+def test_card_decode_kernels_at_large_groups(cuda, dtype, kernel, G):
+  """The decode kernels at arctic-480b's G = 7 (the bucket of 8),
+  command-r-plus's G = 12 (the bucket of 16, four zero heads) and G = 16,
+  D = 128, Hkv = 8, B = 2, against their plain versions: stage 1 on 300
+  centroids (split in chunks, cap 30), stage 2 at I = 32 clusters of 128
+  with a padded id and the ring and self token, exact decode over 8320
+  rows with a log(count) bias, the unfused op's scores over 1024 rows."""
+  g = torch.Generator().manual_seed(G)
+  D, B, Hkv = 128, 2, 8
+  if kernel == "block_gather":
+    _check_gather(cuda, dtype, *_gather_inputs(
+        "padded", 36 * 128, D=D, C=128, G=G, Hkv=Hkv, E=129, I=32,
+        seed=G))
+    return
+  S = {"fused_synopsis": 300, "flash_decode": 8320, "synopsis_score": 1024}
+  q, k, v = _to(cuda, dtype, *_decode_inputs(g, S[kernel], D=D, B=B,
+                                             Hkv=Hkv, G=G))
+  sm = D ** -0.5
+  if kernel == "synopsis_score":
+    got = (synopsis_score(q, k, sm_scale=sm),)
+    want = (ref.synopsis_score_ref(q, k, sm_scale=sm),)
+  elif kernel == "flash_decode":
+    bias = torch.log(torch.randint(1, 129, (B, Hkv, S[kernel]),
+                                   generator=g).float()).to(cuda)
+    got = flash_decode(q, k, v, bias, sm_scale=sm)
+    want = ref.flash_decode_ref(q, k, v, bias, sm_scale=sm)
+  else:
+    cbias = torch.log(torch.randint(1, 129, (B, S[kernel]),
+                                    generator=g).float()).to(cuda)
+    got = fused_synopsis_score_attention(q, k, v, cbias, sm_scale=sm,
+                                         cap=30.0)
+    want = ref.fused_synopsis_score_attention_ref(q, k, v, cbias,
+                                                  sm_scale=sm, cap=30.0)
+    got, want = (got[0], *got[1]), (want[0], *want[1])
+  torch.cuda.synchronize()
+  for a, b in zip(got, want):
+    assert torch.isfinite(a).all()
     _close(a, b, TOL[dtype])
 
 
@@ -655,9 +710,13 @@ def test_card_wrappers_refuse_what_the_kernels_do_not_take(cuda):
   with pytest.raises(ValueError, match="head dim"):
     synopsis_score(q, k)
   q, k, _ = _to(cuda, torch.float32, *_decode_inputs(
-      torch.Generator().manual_seed(0), 64, D=16, Hkv=1, G=9))
+      torch.Generator().manual_seed(0), 64, D=16, Hkv=1, G=_build.GMAX + 1))
+  before = _build.launch_counts()
   with pytest.raises(ValueError, match="group"):
     synopsis_score(q, k)
+  with pytest.raises(ValueError, match="group"):
+    flash_decode(q, k, k)
+  assert _build.launch_counts() == before
 
 
 @pytest.mark.cuda
@@ -1169,6 +1228,15 @@ def test_card_whisper_loop_equals_the_cpu(mode, quant):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["arctic-480b", "command-r-plus-104b"])
+@pytest.mark.parametrize("mode", ["synopsis", "exact"])
+def test_card_arctic_command_r_loop_equals_the_cpu(arch, mode):
+  """arctic-480b (the MoE with a dense MLP beside it, capacity 1 at
+  decode) and command-r-plus-104b (parallel blocks, G = 4 at SMOKE)."""
+  _check_loop_on_card(arch, mode)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["synopsis", "exact"])
 def test_card_jamba_loop_equals_the_cpu(mode):
   """jamba-v0.1-52b: the kernels on its one attention layer a block, the
@@ -1313,7 +1381,8 @@ def test_card_gemma2_engine_equals_the_cpu(arm):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["smollm-135m", "pixtral-12b"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "pixtral-12b",
+                                  "arctic-480b", "command-r-plus-104b"])
 @pytest.mark.parametrize(**ENGINE_ARMS)
 def test_card_arch_engine_equals_the_cpu(arch, arm):
   _check_engine_on_card(arch, arm)

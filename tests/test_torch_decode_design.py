@@ -27,8 +27,8 @@ budget 0 (all ``-1`` ids, extras only), every part padded with no extras
 (every part survives), a cluster of equal keys (its part's l cancels to
 ~0), C = 16 (shorter than one tile), a ragged E, S = 8320 / M = 65 after
 an absorb, and the int8 / fp8 ``+kv`` scales; for stage 1, M = 1000 /
-1024 (split) against 64 / 65 (one chunk), G = 3 (a zero head in the
-bucket), and int8 / fp8 tables.
+1024 (split) against 64 / 65 (one chunk), G = 3 and 12 (zero heads in
+the buckets of 4 and 16), and int8 / fp8 tables.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -425,7 +425,7 @@ def test_split_decode_matches_plain_and_pallas(S, bias_kind, cap, chunking):
 def emulate_fused_synopsis(q, k_syn, v_syn, cbias, *, sm_scale=1.0,
                            cap=None, k_scale=None, v_scale=None, chunk):
   """Stage 1 as its blocks compute it: chunks of ``chunk`` centroid rows,
-  the query group padded with zero heads to its bucket (4 or 8), each
+  the query group padded with zero heads to its bucket (4, 8 or 16), each
   row's group-max score over the G real heads taken from the tile's raw
   dots (scaled, uncapped), the k-scale on the raw dot before sm_scale, the
   count bias after the softcap, the v-scale on p after l, and the chunks
@@ -433,7 +433,7 @@ def emulate_fused_synopsis(q, k_syn, v_syn, cbias, *, sm_scale=1.0,
   B, H, D = q.shape
   Hkv, M = k_syn.shape[1], k_syn.shape[2]
   G = H // Hkv
-  GB = 4 if G <= 4 else 8
+  GB = 4 if G <= 4 else 8 if G <= 8 else 16
   qg = torch.zeros((B, Hkv, GB, D))
   qg[:, :, :G] = q.reshape(B, Hkv, G, D).float()
   tr = _build.decode_tile_rows(D, k_syn.element_size())
@@ -486,16 +486,16 @@ def _stage1_case(M, G, kind, seed, B=1, Hkv=2, D=32, C=4):
 
 
 @pytest.mark.parametrize("M", [64, 65, 1000, 1024])
-@pytest.mark.parametrize("G", [3, 4, 8])
+@pytest.mark.parametrize("G", [3, 4, 8, 12])
 @pytest.mark.parametrize("kind", ["none", "int8", "fp8"])
 @pytest.mark.parametrize("cap", [None, 30.0])
 def test_split_stage1_matches_plain_and_pallas(M, G, kind, cap):
   """Stage 1's chunks, at the chunk length of the loop's shape (bf16 or
   int8 / fp8 tables, D = 128, 16 (b, hkv) rows) and at the one this test
   shape gets, against the plain version and the Pallas kernel: the scores
-  over the real heads only (G = 3 leaves a zero head in the bucket), the
-  per-row k / v scales, the count bias and the exact merge (M = 1000 and
-  1024 split, 64 and 65 do not at the loop's shape)."""
+  over the real heads only (G = 3 and 12 leave zero heads in their
+  buckets), the per-row k / v scales, the count bias and the exact merge
+  (M = 1000 and 1024 split, 64 and 65 do not at the loop's shape)."""
   q, k_syn, v_syn, cbias, scales = _stage1_case(M, G, kind, seed=M + G)
   B, Hkv, _, D = k_syn.shape
   sm = D ** -0.5

@@ -6,7 +6,8 @@ interpreter, on the same numpy inputs, within 2e-5 (f32 on both sides,
 sums taken in another order: the bound the JAX suite holds its own kernels
 to).  Cases cover softcap None/30, ``-1``-padded and all-padded selections
 with extras, the ragged M = 65 / E = 144 tails and absorb's identity
-permutation.
+permutation, and the five attention kernels at command-r-plus's GQA group
+of 12 (the kernels' head bucket of 16 on the card).
 
 ``test_torch_card.py`` holds each CUDA kernel against its plain version on
 the card (that file imports no JAX, which the card's machine lacks).
@@ -19,15 +20,19 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels.block_gather_attention import (
     block_gather_attention as j_block_gather)
+from repro.kernels.flash_decode import flash_decode as j_flash_decode
 from repro.kernels.flash_prefill import flash_prefill as j_flash_prefill
 from repro.kernels.fused_synopsis import (
     fused_synopsis_score_attention as j_fused_synopsis)
 from repro.kernels.synopsis_build import segment_build as j_segment_build
-from repro_torch.kernels import ops
+from repro.kernels.synopsis_score import synopsis_score as j_synopsis_score
+from repro_torch.kernels import _build, ops
 from repro_torch.kernels.block_gather_attention import block_gather_attention
+from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.kernels.fused_synopsis import fused_synopsis_score_attention
 from repro_torch.kernels.synopsis_build import segment_build
+from repro_torch.kernels.synopsis_score import synopsis_score
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 NEG_INF = -1e30
@@ -270,4 +275,86 @@ def test_merge_partials_matches_jax():
                              tuple(map(jnp.asarray, b)))
   got = ops.merge_partials(tuple(map(_t, a)), tuple(map(_t, b)))
   for g, w in zip(got, want):
+    _close(g, w)
+
+
+# ---------------------------------------------------------------------------
+# The five attention kernels at G = 12 (command-r-plus-104b's group)
+# ---------------------------------------------------------------------------
+
+def _g12(kernel, D, cap):
+  """(port output, Pallas output) of one attention kernel at G = 12, Hkv =
+  2, head dim D: q and the tables from one seed, the Pallas kernel in
+  interpret mode."""
+  B, Hkv, G, C, S = 2, 2, 12, 16, 128
+  M = S // C
+  rng = np.random.default_rng(D + (cap is not None))
+  q = _normal(rng, B, Hkv * G, D)
+  sm = D ** -0.5
+  if kernel == "flash_prefill":
+    qp, k, v = (_normal(rng, B, 80, Hkv * G, D), _normal(rng, B, 80, Hkv, D),
+                _normal(rng, B, 80, Hkv, D))
+    return (flash_prefill(_t(qp), _t(k), _t(v), sm_scale=sm, cap=cap),
+            j_flash_prefill(jnp.asarray(qp), jnp.asarray(k), jnp.asarray(v),
+                            sm_scale=sm, cap=cap, block_q=16, block_k=16,
+                            interpret=True))
+  k, v = _normal(rng, B, Hkv, S, D), _normal(rng, B, Hkv, S, D)
+  k_syn, v_syn = k.reshape(B, Hkv, M, C, D).mean(3), v.reshape(
+      B, Hkv, M, C, D).mean(3)
+  cbias = np.log(rng.integers(1, 17, (B, M)).astype(np.float32))
+  if kernel == "flash_decode":
+    bias = np.where(rng.random((B, Hkv, S)) < 0.1, NEG_INF,
+                    0.0).astype(np.float32)
+    return (flash_decode(_t(q), _t(k), _t(v), _t(bias), sm_scale=sm,
+                         cap=cap),
+            j_flash_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           jnp.asarray(bias), sm_scale=sm, cap=cap,
+                           block_s=32, interpret=True))
+  if kernel == "synopsis_score":
+    return ((synopsis_score(_t(q), _t(k_syn), sm_scale=sm),),
+            (j_synopsis_score(jnp.asarray(q), jnp.asarray(k_syn),
+                              sm_scale=sm, block_m=4, interpret=True),))
+  if kernel == "fused_synopsis":
+    got = fused_synopsis_score_attention(_t(q), _t(k_syn), _t(v_syn),
+                                         _t(cbias), sm_scale=sm, cap=cap)
+    want = j_fused_synopsis(jnp.asarray(q), jnp.asarray(k_syn),
+                            jnp.asarray(v_syn), jnp.asarray(cbias),
+                            sm_scale=sm, cap=cap, block_m=4, interpret=True)
+    return (got[0], *got[1]), (want[0], *want[1])
+  sel = np.stack([[rng.permutation(M)[:3] for _ in range(Hkv)]
+                  for _ in range(B)]).astype(np.int32)
+  sel[1, 0, 2] = -1
+  safe = np.maximum(sel, 0)[..., None]
+  E = 17
+  kw = dict(k_sel=np.take_along_axis(k_syn, safe, axis=2),
+            v_sel=np.take_along_axis(v_syn, safe, axis=2),
+            sel_bias=np.full(sel.shape, np.log(C), np.float32),
+            extras_k=_normal(rng, B, Hkv, E, D),
+            extras_v=_normal(rng, B, Hkv, E, D),
+            extras_bias=np.where(np.arange(E) < 12, 0.0, NEG_INF)[None]
+            .repeat(B, 0).astype(np.float32))
+  return (block_gather_attention(_t(q), _t(k), _t(v), _t(sel),
+                                 cluster_size=C, sm_scale=sm, cap=cap,
+                                 **{n: _t(a) for n, a in kw.items()}),
+          j_block_gather(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         jnp.asarray(sel), cluster_size=C, sm_scale=sm,
+                         cap=cap, interpret=True,
+                         **{n: jnp.asarray(a) for n, a in kw.items()}))
+
+
+@pytest.mark.parametrize("kernel", ["flash_prefill", "fused_synopsis",
+                                    "block_gather", "flash_decode",
+                                    "synopsis_score"])
+@pytest.mark.parametrize("D,cap", [(16, None), (32, 30.0)])
+def test_g12_matches_pallas(kernel, D, cap):
+  """The plain version of each attention kernel at G = 12 against its
+  Pallas kernel (which takes any G); the card's kernels are built for
+  groups up to GMAX = 16 and test_torch_card.py holds them to these plain
+  versions at G = 7, 12 and 16."""
+  assert 12 <= _build.GMAX
+  got, want = _g12(kernel, D, cap)
+  assert len(got) == len(want)
+  for g, w in zip(got, want):
+    assert tuple(g.shape) == tuple(w.shape)
+    assert np.isfinite(np.asarray(g)).all()
     _close(g, w)

@@ -24,6 +24,7 @@ from repro.serve.prefill import make_prefill_step as j_make_prefill_step
 from repro_torch import bridge, resolve_device
 from repro_torch.configs.registry import get_config
 from repro_torch.models import layers
+from repro_torch.models.common import leaves
 from repro_torch.models import transformer as tf
 from repro_torch.serve.prefill import make_prefill_step
 
@@ -79,7 +80,7 @@ def test_config_is_llama3_8b():
       k: v for k, v in dataclasses.asdict(jsmoke.synopsis).items()
       if k in ("cluster_size", "i_max", "recent", "quant")}
   with pytest.raises(KeyError):
-    get_config("command-r-plus-104b")
+    get_config("deepseek-v2-236b")
 
 
 def test_layers_match_jax():
@@ -122,6 +123,27 @@ def test_init_model_matches_jax_tree_and_scales(llama):
   assert un.dtype == torch.float32 and "unembed_f32" not in bf16
   assert torch.equal(un, un.to(torch.bfloat16).float())
   assert bf16["blocks"]["pos0"]["attn"]["wq"].dtype == torch.bfloat16
+
+
+def test_init_draws_large_weights_in_slices(llama, monkeypatch):
+  """A weight over ``DRAW_ELEMS`` elements (at full width arctic-480b's
+  experts, command-r-plus's tied embedding) is drawn in slices of its
+  first axis: other numbers than one whole draw, the same shapes, dtypes
+  and truncated-normal scales."""
+  cfg = llama[2]
+  whole = tf.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+  monkeypatch.setattr(tf, "DRAW_ELEMS", 4096)
+  sliced = tf.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+  pairs = list(zip(leaves(whole), leaves(sliced)))
+  assert [p for (p, _), _ in pairs] == [p for _, (p, _) in pairs]
+  for (path, a), (_, b) in pairs:
+    assert a.shape == b.shape and a.dtype == b.dtype, path
+    if not a.any():
+      assert not b.any(), path
+      continue
+    assert abs(float(b.std()) / float(a.std()) - 1.0) < 0.05, path
+    assert float(b.abs().max()) <= 1.01 * float(a.abs().max()), path
+  assert not torch.equal(whole["embed"], sliced["embed"])     # (512, 128)
 
 
 def test_prefill_matches_jax(llama):

@@ -23,7 +23,9 @@ RUNS = ([("gemma2-2b", m, q) for m, q in (
        for m in ("synopsis", "exact")]
     + [("whisper-medium", m, q) for m, q in (
         ("synopsis", "none"), ("exact", "none"), ("synopsis", "int8+kv"))]
-    + [("jamba-v0.1-52b", m, "none") for m in ("synopsis", "exact")]
+    + [(a, m, "none") for a in ("jamba-v0.1-52b", "arctic-480b",
+                                "command-r-plus-104b")
+       for m in ("synopsis", "exact")]
     + [("mamba2-370m", "exact", "none")])
 
 

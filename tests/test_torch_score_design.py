@@ -9,16 +9,16 @@ tiles of ``RW`` rows, 1, 2 or 4 warps a block by the launcher's rule; a
 tile is read as ``LOADS`` 16-byte loads a lane, load i of lane l covering
 bytes (i * 32 + l) * 16 of the tile, so each lane has a fixed column piece
 of its rows (two for f32 at D = 256); the query group is padded with zero
-heads to its bucket (4 or 8); the row's lanes add their partial dots of
+heads to its bucket (4, 8 or 16); the row's lanes add their partial dots of
 every head at offsets LPR / 2 down to 1 (a butterfly: every lane ends
 with the same sums), and the row's first lane writes the max over the
 real heads of the scaled sums.
 
 Tolerance 2e-5 (f32 on every side, sums in other orders: the bound of
 ``test_torch_kernels.py``).  Cases: M from 4 (less than a tile) to 1024,
-1000 (ragged), G = 1 and 3 (zero heads in the bucket), 4 and 8, D = 16 (2
-to 4 lanes a row, several rows a lane load) and 128, each in the tile
-geometry of bf16 and of f32.
+1000 (ragged), G = 1, 3 and 12 (zero heads in the bucket), 4 and 8, D =
+16 (2 to 4 lanes a row, several rows a lane load) and 128, each in the
+tile geometry of bf16 and of f32.
 """
 import pathlib
 import re
@@ -90,7 +90,7 @@ def emulate_synopsis_score(q, k_syn, *, sm_scale=1.0, itemsize=4):
   B, H, D = q.shape
   Hkv, M = k_syn.shape[1], k_syn.shape[2]
   G = H // Hkv
-  GB = 4 if G <= 4 else 8
+  GB = 4 if G <= 4 else 8 if G <= 8 else 16
   V, LPR, VPL, RPW, NS, RW = geometry(D, itemsize)
   _, _, chunks = blocks(M, B * Hkv, D, itemsize)
   Mp = chunks[-1].stop
@@ -121,13 +121,13 @@ def _case(M, G, D, seed, B=1, Hkv=2):
 
 
 @pytest.mark.parametrize("M", [4, 16, 64, 65, 1000, 1024])
-@pytest.mark.parametrize("G", [1, 3, 4, 8])
+@pytest.mark.parametrize("G", [1, 3, 4, 8, 12])
 @pytest.mark.parametrize("D", [16, 128])
 def test_warp_tiles_match_plain_and_pallas(M, G, D):
   """The emulation in the bf16 and the f32 tile geometry against the
   plain version and the Pallas kernel: every row once, the partial dots
   of each lane's pieces, the shuffle tree over the row's lanes, and a
-  max over the real heads only (G = 1 and 3 leave zero heads in the
+  max over the real heads only (G = 1, 3 and 12 leave zero heads in the
   bucket, which a row with negative logits would otherwise take)."""
   q, k_syn = _case(M, G, D, seed=M + 10 * G + D)
   sm = D ** -0.5
