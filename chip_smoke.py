@@ -132,7 +132,19 @@
     embeddings, ~22.0B parameters), ``DEPTH``: the same as 12-14, the
     loops at budget 32 (``LOOP_BUDGET``: command-r's published i_max is
     64 = M);
-19. mamba2-370m at full width and depth (``[mamba2]``, 48 SSD layers):
+19. deepseek-v2-236b at full width with its depth cut to 7 of 60 layers
+    (``[deepseek]``, ``DEPTH``: MLA with one latent key/value head of
+    kv_lora + rope = 576 read by 128 query heads, an MoE of 160 experts
+    of 1536, top 6, with 2 shared experts on every layer, vocab 102400
+    untied, ~28.9B parameters, ~58.8 GB with the f32 unembedding): the
+    same as 12-14, with the SMOKE engine card against CPU beside the
+    loops, its kernels at MLA's shapes (``check_mla_kernels``:
+    ``flash_prefill`` bf16 at D = 192 with G = 1 and SDPA beside it; the
+    latent core's four decode kernels with an f32 query over bf16 latent
+    rows, SDPA beside ``flash_decode`` naming its backend), the loops'
+    launches on the latent branches only, and every quant spec refused on
+    the card (no quantized branch is built at the latent shapes);
+20. mamba2-370m at full width and depth (``[mamba2]``, 48 SSD layers):
     the SMOKE loop card against CPU, the exact loop (no attention, so
     exact whatever the mode: prefill ms, p50 / p99, peak memory) with no
     kernel launched, a profiled window (device busy ms and ops a step),
@@ -233,10 +245,12 @@ SLO_CLASSES = "interactive:2000,batch:4000"
 KERNEL_ROWS = {
     "flash_prefill": ("flash_prefill_kernel", "flash_prefill_wgmma"),
     "segment_build": ("segment_build_kernel",),
-    "fused_synopsis_score_attention": ("fused_synopsis_kernel",),
-    "block_gather_attention": ("block_gather_kernel",),
-    "flash_decode": ("flash_decode_kernel",),
-    "synopsis_score": ("synopsis_score_warp_kernel",),
+    "fused_synopsis_score_attention": ("fused_synopsis_kernel",
+                                       "latent_synopsis_kernel"),
+    "block_gather_attention": ("block_gather_kernel",
+                               "latent_gather_kernel"),
+    "flash_decode": ("flash_decode_kernel",),   # latent_flash_decode_kernel
+    "synopsis_score": ("synopsis_score_warp_kernel", "latent_score_kernel"),
 }
 # L2 flush between the reps of a cold time: writing this many bytes
 # evicts the 50 MB L2, and reading them back then writes the dirty lines
@@ -1066,17 +1080,19 @@ def _check_run(out, cfg, absorbs=1):
     raise AssertionError("bad logits or token ids from the serving loop")
 
 
-def check_full_budget(cache, dev, g, pos=0, cap=None, G=4):
+def check_full_budget(cache, dev, g, pos=0, cap=None, G=4, q_dtype=None):
   """The first layer at pattern position ``pos`` of the run's final cache
   (a synopsis layer): synopsis decode with i_max = M equals exact
   attention over every cached, ring and self token (both softcapped by
-  ``cap``); G query heads a KV head."""
+  ``cap``); G query heads a KV head, the query in ``q_dtype`` (default
+  the cache's; f32 under MLA, as the absorbed q_eff)."""
   from repro_torch.kernels import ops, ref
   k, v = cache["k"][0, pos], cache["v"][0, pos]
   B, Hkv, S, D = k.shape
   M = cache["k_syn"].shape[4]
   rl = int(cache["recent_len"][0])
-  q = torch.randn((B, Hkv * G, D), generator=g, device=dev).to(k.dtype)
+  q = torch.randn((B, Hkv * G, D), generator=g, device=dev).to(
+      q_dtype or k.dtype)
   sk = torch.randn((B, Hkv, 1, D), generator=g, device=dev).to(k.dtype)
   sv = torch.randn((B, Hkv, 1, D), generator=g, device=dev).to(k.dtype)
   got = ops.synopsis_cache_attention(
@@ -2243,6 +2259,8 @@ MODELS = {
                     ()),
     "command-r-plus-104b": ("[command-r]", (("synopsis", "none"),
                                             ("exact", "none")), ()),
+    "deepseek-v2-236b": ("[deepseek]", (("synopsis", "none"),
+                                        ("exact", "none")), ()),
 }
 # Depth cuts, layers run of the config's: jamba-v0.1-52b's 32 layers are
 # ~51.4B parameters, ~103 GB in bf16, which one 80 GB card cannot hold; 16
@@ -2253,8 +2271,12 @@ MODELS = {
 # not.  command-r-plus-104b's are 3.15 GB each beside its 6.3 GB tied
 # embedding and the 12.6 GB f32 unembedding the logits read: 12 of 64
 # (~56.6 GB) leave room for an 8192-token B = 2 prefill's transients; 16
-# would hold ~69 GB before them.  Width is never cut.
-DEPTH = {"jamba-v0.1-52b": 16, "arctic-480b": 2, "command-r-plus-104b": 12}
+# would hold ~69 GB before them.  deepseek-v2-236b's layers are 7.94 GB
+# each (7.55 GB of them the 160 experts): 7 of 60 (~58.8 GB with the 2.1
+# GB f32 unembedding) leave room for the prefill's MLA and MoE transients;
+# 8 would hold 66.7 GB before them.  Width is never cut.
+DEPTH = {"jamba-v0.1-52b": 16, "arctic-480b": 2, "command-r-plus-104b": 12,
+         "deepseek-v2-236b": 7}
 # The per-model loops' budget: every model's published i_max but
 # command-r-plus-104b's, whose 64 is M at prompt 8192 (the full budget).
 LOOP_BUDGET = 32
@@ -2493,6 +2515,280 @@ def check_model_kernels(cfg, tag, dev, g):
   return recs
 
 
+def _sdpa_backend(fn):
+  """The first of SDPA's backends, in PyTorch's order of preference, that
+  takes the call ``fn`` when it is the only one allowed."""
+  from torch.nn.attention import SDPBackend, sdpa_kernel
+  for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                  SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+    try:
+      with sdpa_kernel([backend]):
+        fn()
+      return backend.name
+    except RuntimeError:
+      continue
+  return "none"
+
+
+def check_mla_kernels(cfg, tag, dev, g):
+  """deepseek-v2's kernels at full width against their plain versions, bf16
+  rows: ``flash_prefill`` at MLA's prefill width (D = qk_nope + qk_rope =
+  192, G = 1, v zero-padded from v_head_dim, scale 192^-0.5; SDPA as the
+  library time); ``segment_build`` over every layer's latent (B sequences
+  a layer of one head of kv_lora + rope = 576) and its absorb; and the
+  latent core's four decode kernels, an f32 query of all 128 heads (the
+  absorbed q_eff) over one latent head of 576, L2-cold too: stage 1 on one
+  layer's tables (M = 64), stage 2 over 32 clusters with the ring and the
+  self token, ``flash_decode`` over the exact loop's whole latent cache
+  and over the self token (SDPA beside it as a yardstick, the query
+  rounded to bf16, naming the backend it takes) and ``synopsis_score``.
+  Then each of them on f32 rows at the same shapes, checked and not
+  timed.  Returns the records, keyed ``<kernel><tag>``."""
+  from repro_torch.kernels import ops, ref
+  from repro_torch.kernels.block_gather_attention import (
+      block_gather_attention as gather)
+  from repro_torch.kernels.flash_decode import flash_decode
+  from repro_torch.kernels.flash_prefill import flash_prefill
+  from repro_torch.kernels.fused_synopsis import (
+      fused_synopsis_score_attention as fused)
+  from repro_torch.kernels.synopsis_build import segment_build
+  from repro_torch.kernels.synopsis_score import synopsis_score
+  m = cfg.mla
+  dtype = torch.bfloat16
+  B, S, H = BATCH, PROMPT, cfg.n_heads
+  Dp, D = m.qk_nope_dim + m.qk_rope_dim, m.kv_lora_rank + m.qk_rope_dim
+  C, I = cfg.synopsis.cluster_size, _loop_budget(cfg)
+  M = S // C
+  sm = Dp ** -0.5
+  sdpa = torch.nn.functional.scaled_dot_product_attention
+  recs = {}
+
+  def rnd(*shape):
+    return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+  def rec(kernel, err, kfn, pfn, nbytes, ops_n, src, line, **kw):
+    r = _record(f"{kernel}{tag}", f"src/repro_torch/kernels/csrc/{src}",
+                f"src/repro/kernels/{line}", dtype, err, kfn, pfn, nbytes,
+                ops_n, **kw)
+    recs[r["name"]] = r
+    return r
+
+  # flash_prefill at D = 192, G = 1: v's columns past v_head_dim are zero.
+  q, k, v = rnd(B, S, H, Dp), rnd(B, S, H, Dp), rnd(B, S, H, Dp)
+  v[..., m.v_head_dim:] = 0
+  qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+  lib = lambda: sdpa(qt, kt, vt, is_causal=True, scale=sm)  # noqa: E731
+  got = flash_prefill(q, k, v, sm_scale=sm)
+  err = _check(f"flash_prefill{tag} D={Dp} G=1", dtype, got,
+               ref.flash_prefill_ref(q, k, v, sm_scale=sm), *BF16_OUT_TOL)
+  ops_n = 4 * B * H * Dp * S * (S + 1) // 2
+  r = rec("flash_prefill", err, lambda: flash_prefill(q, k, v, sm_scale=sm),
+          lambda: ref.flash_prefill_ref(q, k, v, sm_scale=sm),
+          _nbytes(q, k, v, got), ops_n, "flash_prefill.cu",
+          "flash_prefill.py:140", library_fn=lib)
+  print(f"  [flash_prefill{tag} bf16] {ops_n / 1e12:.3f} TFLOP in "
+        f"{r['device_ms']:.4f} ms of device time ({ops_n / r['device_ms'] / 1e9:.1f}"
+        f" TFLOP/s); bound {r['bound_ms']:.4f} ms (operations), "
+        f"{r['bound_ms'] / r['device_ms']:.1%} of it; SDPA backend "
+        f"{_sdpa_backend(lib)}, kernel / SDPA device "
+        f"{r['device_ms'] / r['library_device_ms']:.2f}x; a prompt's "
+        f"{cfg.n_layers} launches: {cfg.n_layers * r['device_ms']:.3f} ms")
+  del q, k, v, qt, kt, vt, got
+
+  # segment_build: every layer's latent of one B = 2 prompt, and the
+  # absorb of the 128-token ring.
+  N = cfg.n_layers * B
+  kb, vb = rnd(N, 1, S, D), rnd(N, 1, S, D)
+  perm = torch.argsort(torch.rand((N, S), generator=g, device=dev),
+                       dim=-1).to(torch.int32)
+  got = segment_build(kb, vb, perm, cluster_size=C)
+  err = _check(f"segment_build{tag} N={N} Hkv=1 D={D}", dtype, got,
+               ref.synopsis_build_ref(kb, vb, perm, cluster_size=C),
+               *BF16_OUT_TOL)
+  ring = torch.arange(C, device=dev, dtype=torch.int32).expand(N, C)
+  ka, va = kb[:, :, :C].contiguous(), vb[:, :, :C].contiguous()
+  _check(f"segment_build{tag} absorb", dtype,
+         segment_build(ka, va, ring, cluster_size=C),
+         ref.synopsis_build_ref(ka, va, ring, cluster_size=C), *BF16_OUT_TOL)
+  _bound_share(rec(
+      "segment_build", err,
+      lambda: segment_build(kb, vb, perm, cluster_size=C),
+      lambda: ref.synopsis_build_ref(kb, vb, perm, cluster_size=C),
+      _nbytes(kb, vb, perm, *got), 2 * N * S * D + 2 * N * M * D,
+      "segment_build.cu", "synopsis_build.py:173"), dtype)
+  del kb, vb, perm, got, ka, va
+
+  # The latent core on one layer's arena: an f32 query whose logits spread
+  # ~1 over the bf16 latent rows.
+  q1 = torch.randn((B, H, D), generator=g, device=dev) * (3.0 * D ** -0.5)
+  k, v = rnd(B, 1, S, D), rnd(B, 1, S, D)
+  k_syn = k.float().reshape(B, 1, M, C, D).mean(3).to(dtype)
+  v_syn = v.float().reshape(B, 1, M, C, D).mean(3).to(dtype)
+  cbias = ops.count_bias(torch.full((B, M), float(C), device=dev))
+  tol = PARTIALS_TOL[dtype]
+  kw = dict(sm_scale=sm)
+  got = fused(q1, k_syn, v_syn, cbias, **kw)
+  want = ref.fused_synopsis_score_attention_ref(q1, k_syn, v_syn, cbias,
+                                                **kw)
+  err = _check(f"fused_synopsis{tag} M={M} G={H} D={D}", dtype,
+               (got[0], *got[1]), (want[0], *want[1]), *_stage1_tol(dtype, M))
+  rec("fused_synopsis_score_attention", err,
+      lambda: fused(q1, k_syn, v_syn, cbias, **kw),
+      lambda: ref.fused_synopsis_score_attention_ref(q1, k_syn, v_syn,
+                                                     cbias, **kw),
+      _nbytes(q1, k_syn, v_syn, cbias, got[0], *got[1]), 4 * B * H * M * D,
+      "latent_decode.cu", "fused_synopsis.py:139", cold=True)
+
+  sel = torch.topk(got[0], I, dim=-1).indices.to(torch.int32)
+  safe = sel.long()[..., None].expand(-1, -1, -1, D)
+  rk, rv = rnd(B, 1, cfg.synopsis.recent, D), rnd(B, 1, cfg.synopsis.recent,
+                                                  D)
+  ek, ev, eb = ops.build_extras(rk, rv, None, (rnd(B, 1, 1, D),
+                                                rnd(B, 1, 1, D)))
+  gkw = dict(cluster_size=C, sm_scale=sm,
+             k_sel=torch.gather(k_syn, 2, safe),
+             v_sel=torch.gather(v_syn, 2, safe),
+             sel_bias=cbias[:, None, :1].expand(B, 1, I).contiguous(),
+             extras_k=ek, extras_v=ev, extras_bias=eb)
+  got = gather(q1, k, v, sel, **gkw)
+  err = _check(f"block_gather{tag} S={S} I={I} E={ek.shape[2]} G={H} "
+               f"D={D}", dtype, got,
+               ref.fused_gather_attention_ref(q1, k, v, sel, **gkw), *tol)
+  rows = I * C * B
+  rec("block_gather_attention", err, lambda: gather(q1, k, v, sel, **gkw),
+      lambda: ref.fused_gather_attention_ref(q1, k, v, sel, **gkw),
+      _nbytes(q1, sel, gkw["k_sel"], gkw["v_sel"], gkw["sel_bias"], ek, ev,
+              eb, *got) + 2 * rows * D * k.element_size(),
+      4 * H * D * (rows + B * (I + ek.shape[2])), "latent_decode.cu",
+      "block_gather_attention.py:255", cold=True)
+
+  # flash_decode: the exact loop's whole latent cache, and its self token.
+  got = flash_decode(q1, k, v, **kw)
+  err = _check(f"flash_decode{tag} S={S} G={H} D={D}", dtype, got,
+               ref.flash_decode_ref(q1, k, v, **kw), *tol)
+  q1b = q1.to(dtype)[:, :, None]
+  lib = lambda: sdpa(q1b, k, v, enable_gqa=True, scale=sm)  # noqa: E731
+  r = rec("flash_decode", err, lambda: flash_decode(q1, k, v, **kw),
+          lambda: ref.flash_decode_ref(q1, k, v, **kw),
+          _nbytes(q1, k, v, *got), 4 * B * H * S * D, "latent_decode.cu",
+          "flash_decode.py:125", cold=True, library_fn=lib)
+  print(f"  [flash_decode{tag}] SDPA yardstick (the query rounded to bf16, "
+        f"enable_gqa over the one latent head) takes the "
+        f"{_sdpa_backend(lib)} backend; kernel / SDPA device "
+        f"{r['device_ms'] / r['library_device_ms']:.2f}x")
+  ks, vs = rk[:, :, :1].contiguous(), rv[:, :, :1].contiguous()
+  _check(f"flash_decode{tag} self token S=1", dtype,
+         flash_decode(q1, ks, vs, **kw), ref.flash_decode_ref(q1, ks, vs,
+                                                              **kw), *tol)
+  print(f"  [flash_decode{tag} self token] device "
+        f"{_device_ms(lambda: flash_decode(q1, ks, vs, **kw), KERNEL_ROWS['flash_decode']):.4f} ms")
+
+  got = synopsis_score(q1, k_syn, **kw)
+  err = _check(f"synopsis_score{tag} M={M} G={H} D={D}", dtype, got,
+               ref.synopsis_score_ref(q1, k_syn, **kw), *tol)
+  rec("synopsis_score", err, lambda: synopsis_score(q1, k_syn, **kw),
+      lambda: ref.synopsis_score_ref(q1, k_syn, **kw),
+      _nbytes(q1, k_syn, got), 2 * B * H * M * D, "latent_decode.cu",
+      "synopsis_score.py:46", cold=True)
+  del k, v, rk, rv, ek, ev, q1b
+
+  # The same kernels on f32 rows (the SMOKE parity loops' type), checked
+  # only: the records are the serving path's bf16.
+  f32 = torch.float32
+  tol = PARTIALS_TOL[f32]
+  q = torch.randn((B, S, H, Dp), generator=g, device=dev)
+  k, v = torch.randn_like(q), torch.randn_like(q)
+  v[..., m.v_head_dim:] = 0
+  _check(f"flash_prefill{tag} D={Dp} G=1", f32,
+         flash_prefill(q, k, v, sm_scale=sm),
+         ref.flash_prefill_ref(q, k, v, sm_scale=sm), *tol)
+  del q, k, v
+  k, v = (torch.randn((B, 1, S, D), generator=g, device=dev)
+          for _ in range(2))
+  perm = torch.argsort(torch.rand((B, S), generator=g, device=dev),
+                       dim=-1).to(torch.int32)
+  _check(f"segment_build{tag} N={B} Hkv=1 D={D}", f32,
+         segment_build(k, v, perm, cluster_size=C),
+         ref.synopsis_build_ref(k, v, perm, cluster_size=C), *tol)
+  k_syn, v_syn = (x.reshape(B, 1, M, C, D).mean(3) for x in (k, v))
+  got = fused(q1, k_syn, v_syn, cbias, **kw)
+  want = ref.fused_synopsis_score_attention_ref(q1, k_syn, v_syn, cbias,
+                                                **kw)
+  _check(f"fused_synopsis{tag} M={M} G={H} D={D}", f32, (got[0], *got[1]),
+         (want[0], *want[1]), *_stage1_tol(f32, M))
+  gkw.update(k_sel=torch.gather(k_syn, 2, safe),
+             v_sel=torch.gather(v_syn, 2, safe),
+             extras_k=gkw["extras_k"].float(),
+             extras_v=gkw["extras_v"].float())
+  _check(f"block_gather{tag} S={S} I={I} G={H} D={D}", f32,
+         gather(q1, k, v, sel, **gkw),
+         ref.fused_gather_attention_ref(q1, k, v, sel, **gkw), *tol)
+  _check(f"flash_decode{tag} S={S} G={H} D={D}", f32,
+         flash_decode(q1, k, v, **kw), ref.flash_decode_ref(q1, k, v, **kw),
+         *tol)
+  _check(f"synopsis_score{tag} M={M} G={H} D={D}", f32,
+         synopsis_score(q1, k_syn, **kw),
+         ref.synopsis_score_ref(q1, k_syn, **kw), *tol)
+  return recs
+
+
+def check_arch_engine_parity(arch, tag, dev):
+  """The arch's SMOKE engine in f32 (tf32 off) on the card (graphs,
+  kernels) and on the CPU (eager, plain versions) from the same weights
+  and requests, policy ``fixed`` at budget 1: the same ids, and every
+  step's logits within 1e-4 of max|logits|."""
+  from repro_torch.launch import parity
+  from repro_torch.serve.engine import (EngineConfig, ServingEngine,
+                                        make_requests)
+  cfg, params = parity.smoke_f32(arch)
+  ids, logs = {}, {}
+  for where in ("cpu", dev):
+    eng = ServingEngine(cfg, EngineConfig(
+        n_slots=2, prompt_len=64, max_new_tokens=4, policy="fixed",
+        fixed_budget=1, overlap_admission=False),
+        params=parity.tree_to(params, where), device=where)
+    log = logs[str(where)] = []
+    inner = eng._decode_step
+
+    def step(active, *a, _eng=eng, _inner=inner, _log=log, **kw):
+      _inner(active, *a, **kw)
+      _log.append(_eng.step_out["logits"][list(active)].cpu())
+    eng._decode_step = step
+    reqs = make_requests([0.0, 1.0, 2.0, 3.0], 64, 4, cfg.vocab, seed=9)
+    eng.run(reqs)
+    ids[str(where)] = [r.tokens for r in reqs]
+    del eng._decode_step, eng
+  rel = max(float((a - b).abs().max() / b.abs().max())
+            for a, b in zip(logs["cuda"], logs["cpu"]))
+  if ids["cuda"] != ids["cpu"] or len(logs["cuda"]) != len(logs["cpu"]) \
+      or not rel <= 1e-4:
+    raise AssertionError(f"{tag} engine parity: ids {ids}, logits {rel}")
+  print(f"{tag} [engine parity] smoke f32 fixed budget 1: "
+        f"{sum(map(len, ids['cpu']))} ids equal on card and CPU; every "
+        f"step's logits within {rel:.3e} of max (tol 1e-4)")
+
+
+def check_quant_refused(cfg, params, dev, tag):
+  """Every quant spec is refused on the card for MLA, at the loop's entry
+  and the engine's, before anything launches."""
+  from repro_torch.kernels import _build
+  from repro_torch.launch import serve
+  for quant in QSPECS:
+    before = _build.launch_counts()
+    for entry in (lambda q: serve.run(q, batch=BATCH, prompt_len=PROMPT,
+                                      tokens=2, device=dev, params=params),
+                  lambda q: _engine(q, params, dev)):
+      try:
+        entry(serve.apply_quant(cfg, quant))
+      except ValueError as e:
+        msg = str(e)
+      else:
+        raise AssertionError(f"{tag}: quant={quant} ran on the card")
+    if _build.launch_counts() != before:
+      raise AssertionError(f"{tag}: quant={quant} launched before refusing")
+  print(f"{tag} quant refused on the card ({', '.join(QSPECS)}): {msg}")
+
+
 def _require_model_launches(path, counts, cfg, steps, mode, quant="none"):
   """Exact launch counts of a full-width loop, every branch: flash_prefill
   once an attention layer (a mamba layer launches no kernel); in synopsis
@@ -2508,17 +2804,27 @@ def _require_model_launches(path, counts, cfg, steps, mode, quant="none"):
   qc = qt.parse_qconfig(quant)
   n_loc, n_glob = _n_attn(cfg, local=True), _n_attn(cfg, local=False)
   n_cross = sum(s.cross_attn for s in cfg.block_pattern) * cfg.n_blocks
+  key = _decode_key(cfg)
   want = {"flash_prefill": n_loc + n_glob + n_cross}
   if mode == "synopsis":
     want[_build.branch("segment_build", qc.spec)] = 2
-    want[_build.branch("fused_synopsis_score_attention", qc.kind)] = \
-        n_glob * steps
-    want[_build.branch("block_gather_attention",
-                       qc.kind if qc.sorted_kv else "none")] = n_glob * steps
+    want[key("fused_synopsis_score_attention", qc.kind)] = n_glob * steps
+    want[key("block_gather_attention",
+             qc.kind if qc.sorted_kv else "none")] = n_glob * steps
     want["flash_decode"] = (2 * n_loc + n_cross) * steps
   else:
-    want["flash_decode"] = (2 * (n_loc + n_glob) + n_cross) * steps
+    want[key("flash_decode")] = (2 * (n_loc + n_glob) + n_cross) * steps
   _require_exact_launches(path, counts, want)
+
+
+def _decode_key(cfg):
+  """key(kernel, quant="none") -> the launch-count key of a decode
+  kernel's branch on ``cfg``'s path: its "latent" branch under MLA (the
+  latent core; no quantized branch exists there), else the quant spec's."""
+  from repro_torch.kernels import _build
+  if cfg.mla is not None:
+    return lambda name, quant="none": _build.branch(name, _build.LATENT)
+  return _build.branch
 
 
 def _require_exact_launches(path, counts, want):
@@ -2801,7 +3107,16 @@ def run_model(arch, dev, g):
            f"{cfg.moe.d_ff_expert}, top {cfg.moe.top_k}) with a dense MLP "
            f"of {cfg.d_ff} beside it ({cfg.param_count(active=True) / 1e9:.3f}"
            "B params active a token)"
-           if cfg.moe is not None and "mamba" not in kinds else "")
+           if cfg.moe is not None and cfg.moe.dense_parallel else "")
+        + (f", MLA (q_lora {cfg.mla.q_lora_rank}; decode over one latent "
+           f"head of kv_lora {cfg.mla.kv_lora_rank} + rope "
+           f"{cfg.mla.qk_rope_dim} read by all {cfg.n_heads} heads, prefill "
+           f"at D = {cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim}), an MoE on "
+           f"every layer ({cfg.moe.num_experts} experts of "
+           f"{cfg.moe.d_ff_expert}, top {cfg.moe.top_k}, "
+           f"{cfg.moe.num_shared} shared; "
+           f"{cfg.param_count(active=True) / 1e9:.3f}B params active a "
+           "token)" if cfg.mla is not None else "")
         + (", parallel attention and FFN blocks (no ln2)"
            if cfg.parallel_block else "")
         + (f" (local window {cfg.sliding_window} / global)" if local else "")
@@ -2816,7 +3131,12 @@ def run_model(arch, dev, g):
         + f", {cfg.param_count() / 1e9:.3f}B params, {cfg.dtype}; "
         f"B={BATCH} prompt={PROMPT} steps={STEPS}")
   check_arch_smoke_parity(arch, tag, smoke_runs, dev)
-  records = check_model_kernels(cfg, tag, dev, g)
+  dkey = _decode_key(cfg)
+  if cfg.mla is not None:
+    check_arch_engine_parity(arch, tag, dev)
+    records = check_mla_kernels(cfg, tag, dev, g)
+  else:
+    records = check_model_kernels(cfg, tag, dev, g)
   for quant in table_quants:          # the branches the quantized loops run
     for check in (check_segment_build_quant, check_fused_synopsis_quant):
       rec = check(dev, torch.bfloat16, g, quant, cfg=cfg, tag=tag)
@@ -2832,11 +3152,13 @@ def run_model(arch, dev, g):
   out, counts = _model_loop(cfg, params, dev, tag)
   for name in ("flash_prefill", "segment_build",
                "fused_synopsis_score_attention", "block_gather_attention"):
-    launches[f"{name}{tag}"] = counts[name]
+    launches[f"{name}{tag}"] = counts[dkey(name) if name in
+                                      _build.LATENT_KERNELS else name]
   if local:
     launches[f"flash_decode{tag}"] = counts["flash_decode"]
   check_full_budget(out["cache"], dev, g, pos=pos, cap=cfg.attn_softcap,
-                    G=G)
+                    G=cfg.n_heads if cfg.mla else G,
+                    q_dtype=torch.float32 if cfg.mla else None)
   profile_decode(cfg, params, out["cache"], dev, _loop_budget(cfg))
   del out
   for quant in table_quants:
@@ -2850,7 +3172,7 @@ def run_model(arch, dev, g):
 
   exact, counts = _model_loop(cfg, params, dev, tag, mode="exact")
   if not local:
-    launches[f"flash_decode{tag}"] = counts["flash_decode"]
+    launches[f"flash_decode{tag}"] = counts[dkey("flash_decode")]
   cache = exact["cache"]
   del exact
   profile_decode(cfg, params, cache, dev, 0, mode="exact")
@@ -2878,7 +3200,8 @@ def run_model(arch, dev, g):
   k, v = syn["k"][0, pos], syn["v"][0, pos]
   Bq, Hkv, _, D = k.shape
   q = torch.randn((Bq, cfg.n_heads, D), generator=g, device=dev)
-  q = (q * 2.0 * D ** 0.5 / k.float().norm(dim=-1).mean()).to(k.dtype)
+  q = (q * 2.0 * D ** 0.5 / k.float().norm(dim=-1).mean()).to(
+      torch.float32 if cfg.mla else k.dtype)
   args = (q, k, v, syn["k_syn"][0, pos], syn["v_syn"][0, pos],
           syn["counts"][0, pos])
   kw = dict(i_max=_loop_budget(cfg), sm_scale=D ** -0.5,
@@ -2888,9 +3211,9 @@ def run_model(arch, dev, g):
   torch.cuda.synchronize()
   counts = _build.launch_counts()
   _require_launches(f"{tag} unfused op", counts,
-                    ("synopsis_score", "flash_decode",
-                     "block_gather_attention"))
-  launches[f"synopsis_score{tag}"] = counts["synopsis_score"]
+                    (dkey("synopsis_score"), dkey("flash_decode"),
+                     dkey("block_gather_attention")))
+  launches[f"synopsis_score{tag}"] = counts[dkey("synopsis_score")]
   b = ops.synopsis_cache_attention(*args[:6], i_max=kw["i_max"],
                                    cluster_size=cfg.synopsis.cluster_size,
                                    sm_scale=kw["sm_scale"], cap=kw["cap"])
@@ -2928,11 +3251,18 @@ def run_model(arch, dev, g):
     if moved is not None:
       _report_ssm_state(f"{tag} engine {policy}", moved)
     # A local layer's flash_decode is captured in every bucket's graph
-    # beside the global layers' two synopsis kernels.
-    _require_launches(f"{tag} engine {policy}", counts, ENGINE_KERNELS + (
-        ("flash_decode",) if local else ()), absent=("synopsis_score",) + (
-            () if local else ("flash_decode",)))
+    # beside the global layers' two synopsis kernels (under MLA their
+    # latent branches, and no other branch of theirs).
+    _require_launches(f"{tag} engine {policy}", counts, tuple(
+        dkey(n) if n in _build.LATENT_KERNELS else n for n in ENGINE_KERNELS)
+        + (("flash_decode",) if local else ()), absent=(
+            "synopsis_score", dkey("synopsis_score")) + (
+            () if local else ("flash_decode", dkey("flash_decode"))) + (
+            ("fused_synopsis_score_attention", "block_gather_attention")
+            if cfg.mla else ()))
     del eng
+  if cfg.mla is not None:
+    check_quant_refused(cfg, params, dev, tag)
   del params
   torch.cuda.empty_cache()
   print(f"{tag} phase in {time.perf_counter() - t_start:.1f}s")

@@ -18,6 +18,7 @@ _MODULES: Dict[str, str] = {
     "jamba-v0.1-52b": "repro_torch.configs.jamba_v01_52b",
     "arctic-480b": "repro_torch.configs.arctic_480b",
     "command-r-plus-104b": "repro_torch.configs.command_r_plus_104b",
+    "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
 }
 
 

@@ -36,6 +36,22 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 HEAD_DIMS = (16, 32, 64, 128, 256)
 GMAX = 16
 
+# The latent decode core (csrc/latent_core.cuh): MLA's absorbed decode, one
+# key/value head of D = kv_lora + rope read by up to LATENT_GMAX query heads
+# with an f32 query (deepseek-v2: D = 576, G = 128; 48 and 4 at SMOKE
+# size).  flash_decode, block_gather_attention,
+# fused_synopsis_score_attention and synopsis_score take these widths
+# there, and count those launches under their "latent" branch.
+LATENT_HEAD_DIMS = (48, 576)
+LATENT_GMAX = 128
+LATENT = "latent"
+# Its geometry (csrc/latent_core.cuh): a block takes LATENT_HEAD_TILE heads
+# (8 warps of 2) and tiles of LATENT_TILE_ROWS rows; two blocks fit an SM
+# at D = 576 in bf16 (74 KB of K/V stages, 128 registers a thread).
+LATENT_HEAD_TILE = 16
+LATENT_TILE_ROWS = 16
+LATENT_BLOCKS_PER_SM = 2
+
 # Geometry of the decode core (csrc/decode_core.cuh) that the wrappers of
 # flash_decode, block_gather_attention and fused_synopsis_score_attention
 # size their chunks by: a block
@@ -60,13 +76,18 @@ SIGNATURES = {
     "flash_prefill_launch": [_P] * 4 + [_I] * 5 + [_F, _F, _I, _I, _P],
     "flash_decode_launch": [_P] * 11 + [_I] * 8 + [_F, _F, _I, _P],
     "synopsis_score_launch": [_P] * 3 + [_I] * 5 + [_F, _I, _P],
+    "flash_decode_latent_launch": [_P] * 11 + [_I] * 8 + [_F, _F, _I, _P],
+    "block_gather_latent_launch": [_P] * 17 + [_I] * 9 + [_F, _F, _I, _I,
+                                                         _P],
+    "fused_synopsis_latent_launch": [_P] * 13 + [_I] * 6 + [_F, _F, _I, _P],
+    "synopsis_score_latent_launch": [_P] * 3 + [_I] * 5 + [_F, _I, _P],
 }
 
 # Launch counts per kernel branch: each wrapper adds one where it launches
 # its kernel and nowhere else, so a run can show it went through the
 # kernels.  A quantized branch counts under its own key: the build under
 # its spec, stage 1 and stage 2 under the storage type of the tables or
-# cache they read quantized.
+# cache they read quantized; the latent core's kernels under "latent".
 KERNELS = ("flash_prefill", "segment_build", "fused_synopsis_score_attention",
            "block_gather_attention", "flash_decode", "synopsis_score")
 QUANT_BRANCHES = {
@@ -81,10 +102,18 @@ def branch(name: str, quant: str = "none") -> str:
   return name if quant == "none" else f"{name}[{quant}]"
 
 
+LATENT_KERNELS = ("fused_synopsis_score_attention", "block_gather_attention",
+                  "flash_decode", "synopsis_score")
+
+
+def _branches(name: str):
+  return (*QUANT_BRANCHES.get(name, ()),
+          *((LATENT,) if name in LATENT_KERNELS else ()))
+
+
 LAUNCHES: Dict[str, int] = {
     key: 0 for name in KERNELS
-    for key in (name, *(branch(name, q)
-                        for q in QUANT_BRANCHES.get(name, ())))
+    for key in (name, *(branch(name, q) for q in _branches(name)))
 }
 
 _lib = None
@@ -196,7 +225,7 @@ def dtype_code(name: str, *tensors, allowed=None, views=()) -> int:
   kernel checks their strides itself)."""
   import torch  # noqa: PLC0415
   allowed = (torch.float32, torch.bfloat16) if allowed is None else allowed
-  first = tensors[0]
+  first = (tensors or views)[0]
   if first.device.type != "cuda":
     raise ValueError(f"{name}: expected CUDA tensors, got {first.device}")
   if first.dtype not in allowed:
@@ -254,6 +283,46 @@ def check_rows(name: str, D: int, G: int, *tensors) -> None:
     raise ValueError(f"{name}: head dim {D} / group {G} not built (D in "
                      f"{HEAD_DIMS}, G <= {GMAX})")
   check_aligned(name, *tensors)
+
+
+def is_latent(D: int) -> bool:
+  """Whether rows of width D go to the latent core."""
+  return D in LATENT_HEAD_DIMS
+
+
+def latent_codes(name: str, D: int, G: int, q, *tensors, views=()) -> int:
+  """The latent core's checks: D in LATENT_HEAD_DIMS, G <= LATENT_GMAX, an
+  f32 query on the tensors' CUDA device, the tensors (and ``views``,
+  whose strides the caller checks) f32 or bf16 alike, all 16-byte
+  aligned.  Returns their C dtype code."""
+  import torch  # noqa: PLC0415
+  if D not in LATENT_HEAD_DIMS or not 1 <= G <= LATENT_GMAX:
+    raise ValueError(f"{name}: latent head dim {D} / group {G} not built (D "
+                     f"in {LATENT_HEAD_DIMS}, G <= {LATENT_GMAX})")
+  if q.dtype != torch.float32:
+    raise TypeError(f"{name}: the latent core takes an f32 query, got "
+                    f"{q.dtype}")
+  code = dtype_code(name, *tensors, views=views)
+  if q.device != (tensors or views)[0].device or not q.is_contiguous():
+    raise ValueError(f"{name}: the query must be contiguous on "
+                     f"{(tensors or views)[0].device}")
+  check_aligned(name, q, *tensors, *views)
+  return code
+
+
+def latent_tiles(G: int) -> int:
+  """Head tiles of the latent core (a grid dimension) for a group of G."""
+  return -(-G // LATENT_HEAD_TILE)
+
+
+def latent_chunk(S: int, blocks: int, sms: int) -> int:
+  """Rows per block of a latent kernel's span of S rows, with ``blocks``
+  blocks for each chunk: enough chunks for LATENT_BLOCKS_PER_SM blocks on
+  each SM, whole tiles of LATENT_TILE_ROWS rows."""
+  nsplit = max(1, min(-(-S // LATENT_TILE_ROWS),
+                      -(-LATENT_BLOCKS_PER_SM * sms // blocks)))
+  rows = -(-S // nsplit)
+  return -(-rows // LATENT_TILE_ROWS) * LATENT_TILE_ROWS
 
 
 def check_aligned(name: str, *tensors) -> None:

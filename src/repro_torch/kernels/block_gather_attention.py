@@ -31,6 +31,13 @@ NAME = "block_gather_attention"
 EXTRAS_ROWS = 128
 
 
+def _parts(I: int, E: int, has_ext: bool):
+  """(rows of an extras chunk, parts): one part a selected cluster, one an
+  extras chunk of at most EXTRAS_ROWS rows."""
+  xrows = -(-E // -(-E // EXTRAS_ROWS)) if E else 1
+  return xrows, I + (-(-E // xrows) if has_ext else 0)
+
+
 def block_gather_attention(
     q: torch.Tensor,            # (B, H, D)
     k: torch.Tensor,            # (B, Hkv, S, D) cluster-contiguous
@@ -78,6 +85,10 @@ def block_gather_attention(
     raise ValueError(f"{NAME}: bad shapes q{tuple(q.shape)} "
                      f"k{tuple(k.shape)} selected{tuple(selected.shape)} "
                      f"C={C}")
+  if _build.is_latent(D):
+    return _latent(q, k, v, selected, C, sm_scale, cap, k_sel, v_sel,
+                   sel_bias, extras_k, extras_v, extras_bias, kv_k_scale,
+                   kv_v_scale)
   code = _build.dtype_code(NAME, q, *([extras_k, extras_v] if has_ext
                                        else []))
   storage = _build.storage_code(NAME, q, k, v)
@@ -96,9 +107,7 @@ def block_gather_attention(
   f32 = dict(dtype=torch.float32, device=q.device)
   sb = sel_bias.to(**f32).contiguous() if has_dec else None
   eb = extras_bias.to(**f32).contiguous() if has_ext else None
-  # One part a selected cluster, one an extras chunk of xrows rows.
-  xrows = -(-E // -(-E // EXTRAS_ROWS)) if E else 1
-  nparts = I + (-(-E // xrows) if has_ext else 0)
+  xrows, nparts = _parts(I, E, has_ext)
   o = torch.empty((B, H, D), **f32)
   m = torch.empty((B, H), **f32)
   l = torch.empty((B, H), **f32)
@@ -113,4 +122,48 @@ def block_gather_attention(
   _build.check(err, NAME)
   _build.LAUNCHES[_build.branch(
       NAME, qt.kind_of(k.dtype) if quantized else "none")] += 1
+  return o, m, l
+
+
+def _latent(q, k, v, selected, C, sm_scale, cap, k_sel, v_sel, sel_bias,
+            extras_k, extras_v, extras_bias, kv_k_scale, kv_v_scale):
+  """The latent core's stage 2 (``csrc/latent_decode.cu``): an f32 query of
+  up to 128 heads; the cache, the extras and the decrement rows f32 or
+  bf16 alike (the decrement rows may be f32 beside a bf16 cache); no
+  quantized cache (the card refuses a quant spec for MLA before this).
+  The grid is (parts, head tiles of 16, B * Hkv)."""
+  B, H, D = q.shape
+  _, Hkv, S, _ = k.shape
+  G, I = H // Hkv, selected.shape[-1]
+  has_dec, has_ext = k_sel is not None, extras_k is not None
+  E = extras_k.shape[2] if has_ext else 0
+  if kv_k_scale is not None or kv_v_scale is not None:
+    raise ValueError(f"{NAME}: the latent core takes no quantized cache")
+  code = _build.latent_codes(NAME, D, G, q, k, v, *(
+      [extras_k, extras_v] if has_ext else []))
+  dec = (_build.dtype_code(NAME, k_sel, v_sel, allowed=(k.dtype,
+                                                         torch.float32))
+         if has_dec else code)
+  if has_dec:
+    _build.check_aligned(NAME, k_sel, v_sel)
+    if k_sel.device != q.device:
+      raise ValueError(f"{NAME}: k_sel on {k_sel.device}, q on {q.device}")
+  sel = selected.to(device=q.device, dtype=torch.int32).contiguous()
+  f32 = dict(dtype=torch.float32, device=q.device)
+  sb = sel_bias.to(**f32).contiguous() if has_dec else None
+  eb = extras_bias.to(**f32).contiguous() if has_ext else None
+  xrows, nparts = _parts(I, E, has_ext)
+  o = torch.empty((B, H, D), **f32)
+  m = torch.empty((B, H), **f32)
+  l = torch.empty((B, H), **f32)
+  part = (_build.partials(q.device, B * H, nparts, D) if nparts > 1
+          else (None,) * 4)
+  P = _build.ptr
+  err = _build.library().block_gather_latent_launch(
+      P(q), P(k), P(v), P(sel), P(k_sel), P(v_sel), P(sb), P(extras_k),
+      P(extras_v), P(eb), P(o), P(m), P(l), *map(P, part), B, Hkv, G, S, D,
+      C, I, E, xrows, float(sm_scale), float(cap or 0.0), code, dec,
+      _build.stream_ptr(q))
+  _build.check(err, NAME)
+  _build.LAUNCHES[_build.branch(NAME, _build.LATENT)] += 1
   return o, m, l

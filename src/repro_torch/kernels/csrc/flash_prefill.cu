@@ -64,11 +64,14 @@
 //    takes D / 2, the S fragment BN / 2, and P_hi with P_lo BN / 2 more
 //    (built while S is live), plus two rows of m and l.  With BN = 128, O, S and P
 //    are 64 + 64 + 64 = 192 at D = 128; at D = 256, O alone is 128, so the
-//    tile is cut to BN = 64 keys: 128 + 32 + 32 = 192 again.
+//    tile is cut to BN = 64 keys: 128 + 32 + 32 = 192 again; D = 192
+//    (deepseek-v2's MLA prefill: qk_nope + qk_rope, v padded to it, G = 1)
+//    takes BN = 64 too, 96 + 32 + 32 = 160, with three 128-byte atoms a
+//    row and wgmma m64n192k16 for P.V.
 //  * Shared memory a CTA: Q (128 rows x D x 2 B) + 2 stages of K and V (BN
 //    x D x 2 B each) + 1 KB of alignment: D = 128, 32 KB + 4 x 32 KB = 161
-//    KB; D = 256, 64 KB + 4 x 32 KB = 193 KB, of the 227 KB a block may
-//    take.  One CTA an SM either way.
+//    KB; D = 192, 48 KB + 4 x 24 KB = 145 KB; D = 256, 64 KB + 4 x 32 KB =
+//    193 KB, of the 227 KB a block may take.  One CTA an SM either way.
 //
 // f32 (the card tests and the f32 SMOKE parity loop only): a CUDA-core
 // kernel.  wgmma on f32 inputs is TF32, which would not hold 1e-4 against
@@ -151,8 +154,9 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
 struct Cfg {
-  // Keys a K/V tile: 128, and 64 at D = 256, where O's 128 registers leave
-  // room for an S / P fragment of 64 keys only (header comment).
+  // Keys a K/V tile: 128, and 64 at D = 192 and 256, where O's 96 or 128
+  // registers leave room for an S / P fragment of 64 keys only (header
+  // comment).
   static constexpr int BN = D > 128 ? 64 : 128;
   static constexpr int SWB = D * 2 < 128 ? D * 2 : 128;  // swizzle bytes
   static constexpr int W = SWB / 2;                      // columns an atom
@@ -546,7 +550,8 @@ static int launch_f32(const void* q, const void* k, const void* v, void* out,
 }
 
 // dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (wgmma kernel, D in
-// {16, 32, 64, 128, 256}, G = H / Hkv in 1..GMAX, 16-byte aligned tensors).
+// {16, 32, 64, 128, 192, 256}, G = H / Hkv in 1..GMAX, 16-byte aligned
+// tensors).
 // cap <= 0: no softcap; window <= 0: no sliding window.
 extern "C" int flash_prefill_launch(const void* q, const void* k,
                                     const void* v, void* out, int B, int S,
@@ -566,6 +571,7 @@ extern "C" int flash_prefill_launch(const void* q, const void* k,
     case 32: return WG_LAUNCH(32);
     case 64: return WG_LAUNCH(64);
     case 128: return WG_LAUNCH(128);
+    case 192: return WG_LAUNCH(192);
     case 256: return WG_LAUNCH(256);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -90,6 +90,8 @@ def flash_decode(
     raise ValueError(f"{NAME}: bad shapes q{tuple(q.shape)} "
                      f"k{tuple(k.shape)} v{tuple(v.shape)} bias"
                      f"{None if bias is None else tuple(bias.shape)}")
+  if _build.is_latent(D):
+    return _latent(q, k, v, bias, sm_scale, cap)
   code = _build.dtype_code(NAME, q, views=(k, v))
   kv_sb, kv_sh = _row_strides(k, v)
   _build.check_rows(NAME, D, G, k, v)
@@ -112,4 +114,36 @@ def flash_decode(
       _build.stream_ptr(q))
   _build.check(err, NAME)
   _build.LAUNCHES[NAME] += 1
+  return o, m, l
+
+
+def _latent(q, k, v, bias, sm_scale, cap):
+  """The latent core's flash_decode (``csrc/latent_decode.cu``): an f32
+  query of up to 128 heads over one wide K/V head (MLA's absorbed decode),
+  K/V f32 or bf16, with the same strides and partials as above; the grid
+  is (chunks of S, head tiles of 16, B * Hkv)."""
+  B, H, D = q.shape
+  _, Hkv, S, _ = k.shape
+  G = H // Hkv
+  code = _build.latent_codes(NAME, D, G, q, views=(k, v))
+  kv_sb, kv_sh = _row_strides(k, v)
+  f32 = dict(dtype=torch.float32, device=q.device)
+  if bias is not None:
+    bias = bias.to(**f32).contiguous()
+  chunk = _build.latent_chunk(
+      S, B * Hkv * _build.latent_tiles(G),
+      torch.cuda.get_device_properties(q.device).multi_processor_count)
+  nsplit = -(-S // chunk)
+  o = torch.empty((B, H, D), **f32)
+  m = torch.empty((B, H), **f32)
+  l = torch.empty((B, H), **f32)
+  part = (_build.partials(q.device, B * H, nsplit, D) if nsplit > 1
+          else (None,) * 4)
+  P = _build.ptr
+  err = _build.library().flash_decode_latent_launch(
+      P(q), P(k), P(v), P(bias), P(o), P(m), P(l), *map(P, part), B, Hkv,
+      G, S, D, chunk, kv_sb, kv_sh, float(sm_scale), float(cap or 0.0), code,
+      _build.stream_ptr(q))
+  _build.check(err, NAME)
+  _build.LAUNCHES[_build.branch(NAME, _build.LATENT)] += 1
   return o, m, l

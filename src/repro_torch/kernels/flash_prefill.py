@@ -21,10 +21,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref
 
 NAME = "flash_prefill"
-# D = 256 (gemma2) runs K/V tiles of 64 keys instead of 128: its O
-# accumulator takes 128 f32 registers a thread, and the S / P fragment of a
-# 64-key tile the other 64 (csrc/flash_prefill.cu).
-WGMMA_HEAD_DIMS = (16, 32, 64, 128, 256)
+# D = 192 (deepseek-v2's MLA prefill) and 256 (gemma2) run K/V tiles of 64
+# keys instead of 128: their O accumulators take 96 and 128 f32 registers a
+# thread, and the S / P fragment of a 64-key tile 64 more
+# (csrc/flash_prefill.cu).
+WGMMA_HEAD_DIMS = (16, 32, 64, 128, 192, 256)
 
 
 def flash_prefill(

@@ -56,6 +56,8 @@ def fused_synopsis_score_attention(
     raise ValueError(f"{NAME}: bad shapes q{tuple(q.shape)} "
                      f"k_syn{tuple(k_syn.shape)} v_syn{tuple(v_syn.shape)} "
                      f"cbias{tuple(cbias.shape)}")
+  if _build.is_latent(D):
+    return _latent(q, k_syn, v_syn, cbias, sm_scale, cap, k_scale, v_scale)
   code = _build.dtype_code(NAME, q)
   storage = _build.storage_code(NAME, q, k_syn, v_syn)
   quantized = k_syn.dtype in qt.QDTYPES
@@ -82,4 +84,42 @@ def fused_synopsis_score_attention(
   _build.check(err, NAME)
   _build.LAUNCHES[_build.branch(
       NAME, qt.kind_of(k_syn.dtype) if quantized else "none")] += 1
+  return scores, (o, m, l)
+
+
+def _latent(q, k_syn, v_syn, cbias, sm_scale, cap, k_scale, v_scale):
+  """The latent core's stage 1 (``csrc/latent_decode.cu``): an f32 query of
+  up to 128 heads, f32 or bf16 tables (no quantized ones: the card
+  refuses a quant spec for MLA before this).  The grid is (chunks of M,
+  head tiles of 16, B * Hkv); each tile leaves its heads' max of every
+  row in a scratch row, and the last block of a (b, hkv) takes the max
+  over the tiles (tickets past the tiles' merge tickets)."""
+  B, H, D = q.shape
+  _, Hkv, M, _ = k_syn.shape
+  G = H // Hkv
+  if k_scale is not None or v_scale is not None:
+    raise ValueError(f"{NAME}: the latent core takes no quantized tables")
+  code = _build.latent_codes(NAME, D, G, q, k_syn, v_syn)
+  cbias = cbias.to(device=q.device, dtype=torch.float32).contiguous()
+  ntiles = _build.latent_tiles(G)
+  chunk = _build.latent_chunk(
+      M, B * Hkv * ntiles,
+      torch.cuda.get_device_properties(q.device).multi_processor_count)
+  nsplit = -(-M // chunk)
+  f32 = dict(dtype=torch.float32, device=q.device)
+  scores = torch.empty((B, Hkv, M), **f32)
+  score_part = torch.empty((B * Hkv, ntiles, M), **f32)
+  o = torch.empty((B, H, D), **f32)
+  m = torch.empty((B, H), **f32)
+  l = torch.empty((B, H), **f32)
+  part = (_build.partials(q.device, B * H, nsplit, D)[:3] if nsplit > 1
+          else (None,) * 3)
+  tickets = _build.tickets(q.device, B * Hkv * (ntiles + 1))
+  P = _build.ptr
+  err = _build.library().fused_synopsis_latent_launch(
+      P(q), P(k_syn), P(v_syn), P(cbias), P(scores), P(score_part), P(o),
+      P(m), P(l), *map(P, part), P(tickets), B, Hkv, G, M, D, chunk,
+      float(sm_scale), float(cap or 0.0), code, _build.stream_ptr(q))
+  _build.check(err, NAME)
+  _build.LAUNCHES[_build.branch(NAME, _build.LATENT)] += 1
   return scores, (o, m, l)

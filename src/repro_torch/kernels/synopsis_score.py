@@ -34,6 +34,8 @@ def synopsis_score(
   if H != Hkv * G or M < 1 or k_syn.shape != (B, Hkv, M, D):
     raise ValueError(f"{NAME}: bad shapes q{tuple(q.shape)} "
                      f"k_syn{tuple(k_syn.shape)}")
+  if _build.is_latent(D):
+    return _latent(q, k_syn, sm_scale)
   code = _build.dtype_code(NAME, q, k_syn)
   _build.check_rows(NAME, D, G, q, k_syn)
   scores = torch.empty((B, Hkv, M), dtype=torch.float32, device=q.device)
@@ -42,4 +44,21 @@ def synopsis_score(
       float(sm_scale), code, _build.stream_ptr(q))
   _build.check(err, NAME)
   _build.LAUNCHES[NAME] += 1
+  return scores
+
+
+def _latent(q, k_syn, sm_scale):
+  """The latent core's scores (``csrc/latent_decode.cu``): an f32 query of
+  up to 128 heads over f32 or bf16 centroids; one block a (b, hkv) and 16
+  rows, looping over the head tiles."""
+  B, H, D = q.shape
+  _, Hkv, M, _ = k_syn.shape
+  G = H // Hkv
+  code = _build.latent_codes(NAME, D, G, q, k_syn)
+  scores = torch.empty((B, Hkv, M), dtype=torch.float32, device=q.device)
+  err = _build.library().synopsis_score_latent_launch(
+      _build.ptr(q), _build.ptr(k_syn), _build.ptr(scores), B, Hkv, G, M, D,
+      float(sm_scale), code, _build.stream_ptr(q))
+  _build.check(err, NAME)
+  _build.LAUNCHES[_build.branch(NAME, _build.LATENT)] += 1
   return scores

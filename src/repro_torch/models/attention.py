@@ -1,8 +1,16 @@
-"""GQA attention blocks (counterpart of ``repro.models.attention``, dense
-GQA with rope, an optional logit softcap and, on local layers, a sliding
-window; whisper's attention biases and its non-causal cross attention).
-Weights keep the JAX layouts: wq (d, H, hd), wk/wv (d, Hkv, hd), wo (H,
-hd, d), and with ``cfg.attn_bias`` bq (H, hd) and bo (d,)."""
+"""Attention blocks (counterpart of ``repro.models.attention``): dense GQA
+with rope, an optional logit softcap and, on local layers, a sliding
+window; whisper's attention biases and its non-causal cross attention;
+deepseek's multi-head latent attention (MLA).  Weights keep the JAX
+layouts: wq (d, H, hd), wk/wv (d, Hkv, hd), wo (H, hd, d), and with
+``cfg.attn_bias`` bq (H, hd) and bo (d,); MLA's wq_a (d, q_lora), q_norm
+(q_lora,), wq_b (q_lora, H, nope + rope), wkv_a (d, kv_lora + rope),
+kv_norm (kv_lora,), wk_b (kv_lora, H, nope), wv_b (kv_lora, H, v_dim), wo
+(H, v_dim, d).
+
+MLA's latent cache is itself a learned synopsis: the decode cache holds
+one row of kv_lora + rope (576 at deepseek-v2's width) a token, shared by
+every head, and AccuracyTrader's clusters stack on top of it."""
 from __future__ import annotations
 
 from typing import Optional
@@ -12,7 +20,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import acc_dtype
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.layers import rope
+from repro_torch.models.layers import rms_norm, rope
 
 
 def causal_mix(q, k, v, *, sm_scale: float, window: Optional[int] = None,
@@ -100,3 +108,59 @@ def cross_attention(x, p, cfg: ModelConfig, src):
                                                      vf)
   o = o.reshape(B, H, S, D).transpose(1, 2)
   return out_proj(o, p, x.dtype), (k, v)
+
+
+# -- MLA (deepseek-v2) ---------------------------------------------------------
+
+def mla_latent(x, p, cfg: ModelConfig, positions):
+  """The latent cache entries of x (B, S, d): (c_kv (B, S, kv_lora),
+  rms-normed with ``kv_norm``; k_pe (B, S, rope), rope'd at
+  ``positions``), in x's dtype."""
+  m = cfg.mla
+  kv = _proj(x, p["wkv_a"])
+  c_kv = rms_norm(kv[..., :m.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
+  k_pe = rope(kv[..., m.kv_lora_rank:][:, :, None, :], positions,
+              cfg.rope_theta)[:, :, 0]
+  return c_kv, k_pe
+
+
+def mla_queries(x, p, cfg: ModelConfig, positions):
+  """(q_nope (B, S, H, nope), q_pe (B, S, H, rope) rope'd): x through the
+  ``wq_a`` bottleneck, ``q_norm``, then ``wq_b``, in x's dtype."""
+  m = cfg.mla
+  ql = rms_norm(_proj(x, p["wq_a"]), p["q_norm"], cfg.norm_eps)
+  q = _proj(ql, p["wq_b"])
+  return q[..., :m.qk_nope_dim], rope(q[..., m.qk_nope_dim:], positions,
+                                      cfg.rope_theta)
+
+
+def v_pad(v, dim: int):
+  """v (..., Dv) zero-padded to (..., dim), so that q, k and v share the
+  prefill kernel's head dim."""
+  if v.shape[-1] == dim:
+    return v
+  return torch.nn.functional.pad(v, (0, dim - v.shape[-1]))
+
+
+def mla_train(x, p, cfg: ModelConfig, positions):
+  """MLA over the prompt, not absorbed (the JAX ``mla_train``): per-head
+  keys [c_kv wk_b, k_pe] and values c_kv wv_b, causal attention through
+  :func:`causal_mix` at D = nope + rope (192 at full width) with G = 1, v
+  zero-padded to D and sliced back to ``v_head_dim``, the softmax scale
+  (nope + rope)^-0.5; then ``wo``.  Returns (y (B, S, d), (lat, lat)):
+  the latent [c_kv, k_pe] as the decode cache's one key/value head (B,
+  1, S, kv_lora + rope), given as both k and v, as in JAX."""
+  m = cfg.mla
+  q_nope, q_pe = mla_queries(x, p, cfg, positions)
+  c_kv, k_pe = mla_latent(x, p, cfg, positions)
+  k_nope = _proj(c_kv, p["wk_b"])                             # (B,S,H,nope)
+  v = _proj(c_kv, p["wv_b"])                                  # (B,S,H,vd)
+  q = torch.cat([q_nope, q_pe], dim=-1)
+  k = torch.cat([k_nope, k_pe[:, :, None].expand(*q_pe.shape)], dim=-1)
+  del k_nope
+  o = causal_mix(q, k, v_pad(v, q.shape[-1]),
+                 sm_scale=(m.qk_nope_dim + m.qk_rope_dim) ** -0.5)
+  del q, k, v
+  y = out_proj(o[..., :m.v_head_dim], p, x.dtype)
+  lat = torch.cat([c_kv, k_pe], dim=-1)[:, None]              # (B,1,S,Dk)
+  return y, (lat, lat)

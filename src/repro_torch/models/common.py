@@ -4,8 +4,8 @@ attention; gemma2's local layers, softcaps, sandwich norms, embedding
 scale and tied embeddings; pixtral's vision-stub patch prefix; whisper's
 encoder, cross attention, GELU MLPs and attention biases; mamba2's SSD
 layers; jamba's and arctic's MoE FFNs, arctic's with a dense MLP beside
-the experts; command-r's parallel attention-and-FFN blocks).  ``dtype``
-is a torch dtype.
+the experts; command-r's parallel attention-and-FFN blocks; deepseek's
+MLA attention and shared experts).  ``dtype`` is a torch dtype.
 
 :func:`param_shapes` is the parameter tree's layout, which the init, the
 bridge's check and :meth:`ModelConfig.param_count` all read."""
@@ -34,6 +34,18 @@ class MoEConfig:
   num_shared: int = 0             # always-on shared experts (deepseek)
   dense_parallel: bool = False    # dense MLP residual in parallel (arctic)
   capacity_factor: float = 1.25
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+  """Multi-head latent attention (deepseek-v2): queries through a
+  ``q_lora_rank`` bottleneck, keys and values from one shared latent of
+  ``kv_lora_rank`` plus a rope'd key part of ``qk_rope_dim``."""
+  q_lora_rank: int = 1536
+  kv_lora_rank: int = 512
+  qk_nope_dim: int = 128
+  qk_rope_dim: int = 64
+  v_head_dim: int = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,6 +99,7 @@ class ModelConfig:
   mlp_type: str = "swiglu"                # "swiglu" | "gelu" (whisper)
   attn_bias: bool = False                 # bq / bo (whisper)
   moe: Optional[MoEConfig] = None
+  mla: Optional[MLAConfig] = None         # deepseek's latent attention
   ssm: Optional[SSMConfig] = None
   encoder: Optional[EncoderConfig] = None  # whisper
   # Precomputed embeddings projected by ``frontend_proj`` (frontend_dim,
@@ -136,6 +149,28 @@ def _attn_shapes(c: ModelConfig, n: int, H: int, Hkv: int, hd: int) -> Dict:
   return p
 
 
+def _mla_shapes(c: ModelConfig, n: int) -> Dict:
+  """MLA's attention leaves in the JAX layouts
+  (``repro.models.attention.init_mla``)."""
+  d, H, m = c.d_model, c.n_heads, c.mla
+  return {"wq_a": (n, d, m.q_lora_rank), "q_norm": (n, m.q_lora_rank),
+          "wq_b": (n, m.q_lora_rank, H, m.qk_nope_dim + m.qk_rope_dim),
+          "wkv_a": (n, d, m.kv_lora_rank + m.qk_rope_dim),
+          "kv_norm": (n, m.kv_lora_rank),
+          "wk_b": (n, m.kv_lora_rank, H, m.qk_nope_dim),
+          "wv_b": (n, m.kv_lora_rank, H, m.v_head_dim),
+          "wo": (n, H, m.v_head_dim, d)}
+
+
+def kv_dims(c: ModelConfig) -> Tuple[int, int]:
+  """(Hkv, D) of the decode cache's rows: MLA's one latent head of
+  kv_lora + rope (key and value leaves alike, as in JAX's ``_kv_dims``),
+  else the config's kv heads of ``hd``."""
+  if c.mla is not None:
+    return 1, c.mla.kv_lora_rank + c.mla.qk_rope_dim
+  return c.n_kv_heads, c.hd
+
+
 def _mlp_shapes(c: ModelConfig, n: int, f: int) -> Dict:
   d = c.d_model
   if c.mlp_type == "gelu":
@@ -162,8 +197,12 @@ def _ssm_shapes(c: ModelConfig, n: int) -> Dict:
 def _moe_shapes(c: ModelConfig, n: int) -> Dict:
   d, m = c.d_model, c.moe
   e, f = m.num_experts, m.d_ff_expert
-  return {"router": (n, d, e), "w1": (n, e, d, f), "w3": (n, e, d, f),
-          "w2": (n, e, f, d)}
+  p = {"router": (n, d, e), "w1": (n, e, d, f), "w3": (n, e, d, f),
+       "w2": (n, e, f, d)}
+  if m.num_shared:
+    fs = f * m.num_shared
+    p["shared"] = {"w1": (n, d, fs), "w3": (n, d, fs), "w2": (n, fs, d)}
+  return p
 
 
 def ssm_state_shapes(c: ModelConfig, B: int) -> Dict[str, Tuple[int, ...]]:
@@ -208,12 +247,17 @@ def param_shapes(c: ModelConfig) -> Dict:
   mlp} stacked over its layers, final_norm}``.  A parallel block
   (command-r) has no ``ln2``: its FFN reads the ``ln1``-normed input; an
   MoE layer with ``dense_parallel`` (arctic) has both ``moe`` and
-  ``mlp``."""
+  ``mlp``; with shared experts (deepseek) ``moe`` also holds ``shared:
+  {w1, w3, w2}`` of width ``d_ff_expert * num_shared``; under MLA
+  (deepseek) ``attn`` is {wq_a, q_norm, wq_b, wkv_a, kv_norm, wk_b, wv_b,
+  wo}."""
   d, n = c.d_model, c.n_blocks
   blocks = {}
   for i, spec in enumerate(c.block_pattern):
     lp = {"ln1": (n, d)}
-    if spec.kind == "attn":
+    if spec.kind == "attn" and c.mla is not None:
+      lp["attn"] = _mla_shapes(c, n)
+    elif spec.kind == "attn":
       lp["attn"] = _attn_shapes(c, n, c.n_heads, c.n_kv_heads, c.hd)
     else:
       lp["ssm"] = _ssm_shapes(c, n)

@@ -15,10 +15,19 @@ Both selections break ties as ``lax.top_k`` does, the lower index first:
 a stable descending sort (``torch.topk`` does not promise an order).
 Router logits and softmax in f32 (float64 for float64 activations); the
 expert products in the activation dtype with the SwiGLU gate in f32, as
-``layers.swiglu``; the combine an ``index_add_`` in the activation dtype
-(a token has at most k nonzero terms, so the order of the adds does not
-change the sum for k = 2: jamba's and arctic's top 2).  Plain PyTorch on
-every device: the reference is plain JAX.
+``layers.swiglu``.
+
+The combine adds each token's kept expert outputs in the activation
+dtype, one rounding an add, in ascending expert order: the order of the
+reference's scatter-add over the flattened (E, capacity) slots, in which
+a token holds at most one slot an expert (:func:`combine`).  With k = 2
+(jamba, arctic) the order could not matter (two terms commute), but with
+deepseek's k = 6 it does; an ``index_add_`` on a CUDA tensor adds with
+atomics in no fixed order, so two runs of a step (a replayed CUDA graph
+and its eager call) could differ in the last bit.  Shared experts
+(deepseek) add ``swiglu`` of the same input to the routed output, as the
+reference does.  Plain PyTorch on every device: the reference is plain
+JAX.
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ref import acc_dtype
 from repro_torch.models.common import ModelConfig
+from repro_torch.models.layers import swiglu
 
 
 def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -65,20 +75,53 @@ def route(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
   return tok, gate.clamp_min(0.0), topi, aux
 
 
+def combine(y: torch.Tensor, tok: torch.Tensor,
+            topi: torch.Tensor) -> torch.Tensor:
+  """The experts' outputs y (E, cap, d), slot (e, c) belonging to token
+  ``tok[e, c]``, summed per token into (T, d) in y's dtype, in ascending
+  expert order (the reference scatter-adds the flattened (E, cap) slots
+  in order): k rounds of one gathered add, round j adding each token's
+  j-th smallest chosen expert ``topi`` (T, k), or 0 where that expert
+  dropped it.  A slot that holds no routed token (gate 0) points at a
+  token that did not choose its expert, so it is never read; the
+  reference adds it as 0.  Tensor ops only, so that a CUDA graph can
+  capture it."""
+  E, cap, d = y.shape
+  T = topi.shape[0]
+  # slot[e, t]: the slot of expert e holding token t (each expert holds a
+  # token once), or -1.
+  slot = torch.full((E, T), -1, dtype=torch.long, device=y.device)
+  slot.scatter_(1, tok, torch.arange(cap, device=y.device).expand(E, cap))
+  experts = torch.sort(topi, dim=1).values                    # (T, k)
+  flat = y.reshape(E * cap, d)
+  tokens = torch.arange(T, device=y.device)
+  out = torch.zeros((T, d), dtype=y.dtype, device=y.device)
+  for j in range(experts.shape[1]):
+    e = experts[:, j]
+    c = slot[e, tokens]                                       # (T,)
+    term = flat[e * cap + c.clamp_min(0)]
+    out = out + torch.where((c >= 0)[:, None], term, torch.zeros_like(term))
+  return out
+
+
 def moe_ffn(x: torch.Tensor, p, cfg: ModelConfig):
   """x (B, S, d) -> (y (B, S, d) in x's dtype, aux load-balance loss; no
-  caller on the serve path reads it).  Routed experts only
-  (``transformer.check_supported`` refuses shared ones); arctic's dense
-  MLP beside the experts is added at the call site (``transformer.ffn``),
-  as in the reference."""
+  caller on the serve path reads it): the routed experts' outputs,
+  combined in ascending expert order (:func:`combine`), plus the shared
+  experts' ``swiglu`` where the config has them (deepseek).  arctic's
+  dense MLP beside the experts is added at the call site
+  (``transformer.ffn``), as in the reference."""
   B, S, d = x.shape
   xf = x.reshape(B * S, d)
-  tok, gate, _, aux = route(xf, p["router"], cfg)
+  tok, gate, topi, aux = route(xf, p["router"], cfg)
   dt, f = x.dtype, acc_dtype(x)
   xg = xf[tok]                                                # (E, cap, d)
   h = torch.matmul(xg, p["w1"].to(dt)).to(f)
   g = torch.matmul(xg, p["w3"].to(dt)).to(f)
   h = (F.silu(h) * g).to(dt)
   y = torch.matmul(h, p["w2"].to(dt)) * gate[..., None].to(dt)
-  out = torch.zeros_like(xf).index_add_(0, tok.reshape(-1), y.reshape(-1, d))
-  return out.reshape(B, S, d), aux
+  out = combine(y, tok, topi).reshape(B, S, d)
+  if cfg.moe.num_shared:
+    s = p["shared"]
+    out = out + swiglu(x, s["w1"], s["w3"], s["w2"])
+  return out, aux

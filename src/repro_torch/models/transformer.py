@@ -9,8 +9,10 @@ biases; mamba2's SSD layers (``models.ssm``), with no FFN where d_ff = 0;
 jamba's pattern of attention and mamba layers with an MoE FFN
 (``models.moe``) on every other one; arctic's MoE with a dense MLP added
 beside the experts; command-r's parallel blocks, ``x + attn(h) + ffn(h)``
-with ``h`` the ``ln1``-normed input and no ``ln2``).  Only MLA and shared
-experts (deepseek) stay refused (:func:`check_supported`).
+with ``h`` the ``ln1``-normed input and no ``ln2``; deepseek's MLA
+attention (``attention.mla_train`` at prefill, its latent ``[c_kv, k_pe]``
+as the cache's one key/value head) and shared experts beside the routed
+ones).  :func:`check_supported` refuses what none of these is.
 
 Parameters are a nested dict with the JAX tree's keys and layouts, stacked
 per pattern position with a leading layer axis; ``common.param_shapes``
@@ -23,8 +25,9 @@ d); whisper adds ``bq``/``bo`` to every attention, ``ln_cross`` and
 ``cross`` to every layer, a GELU ``mlp: {w1, b1, w2, b2}`` and ``encoder:
 {blocks, final_norm}``; a mamba layer has ``ssm`` in place of ``attn``,
 an MoE layer ``moe: {router, w1, w3, w2}`` in place of ``mlp`` (arctic's
-both), and a layer with neither MLP nor MoE (mamba2), or a parallel block
-(command-r), no ``ln2``.  A Python loop over
+both; deepseek's with ``shared: {w1, w3, w2}``), MLA's ``attn`` {wq_a,
+q_norm, wq_b, wkv_a, kv_norm, wk_b, wv_b, wo}, and a layer with neither
+MLP nor MoE (mamba2), or a parallel block (command-r), no ``ln2``.  A Python loop over
 layers takes the place of ``lax.scan``.
 
 Logits are taken in f32 (``h.float() @ unembed.float()``, or
@@ -48,9 +51,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import (LayerSpec, ModelConfig,
-                                       encoder_config, n_attn_positions,
-                                       n_ssm_positions, param_shapes,
-                                       ssm_state_shapes)
+                                       encoder_config, kv_dims,
+                                       n_attn_positions, n_ssm_positions,
+                                       param_shapes, ssm_state_shapes)
 from repro_torch.models.layers import gelu_mlp, rms_norm, softcap, swiglu
 
 
@@ -62,7 +65,7 @@ LAYER_KINDS = ("attn", "mamba")
 # gated-norm gain too).
 ZERO_LEAVES = frozenset(("ln1", "ln2", "ln1_post", "ln2_post", "ln_cross",
                          "final_norm", "bq", "bo", "b1", "b2", "conv_b",
-                         "dt_bias", "norm"))
+                         "dt_bias", "norm", "q_norm", "kv_norm"))
 # conv_w's init scale (the other weights draw at fan-in), as in JAX.
 CONV_SCALE = 0.5
 # Elements of one f32 draw at most (4 GB); a weight under it is drawn whole.
@@ -70,13 +73,13 @@ DRAW_ELEMS = 1 << 30
 
 
 def check_supported(cfg: ModelConfig) -> None:
-  """The port runs dense GQA attention layers, global or local, with a
+  """The port runs dense GQA attention layers, global or local, or MLA
+  layers (deepseek: global, no softcap, no cross block, no bias), with a
   SwiGLU or GELU MLP or an MoE FFN (routed experts, with or without a
-  dense MLP beside them), sequential or parallel blocks; mamba (SSD)
-  layers; the vision stub's patch prefix; whisper's encoder behind the
-  audio stub, with a cross block on every decoder layer.  No shared
-  experts (deepseek), and no other frontend (the config has no MLA field:
-  MLA is not expressible)."""
+  dense MLP or shared experts beside them), sequential or parallel
+  blocks; mamba (SSD) layers; the vision stub's patch prefix; whisper's
+  encoder behind the audio stub, with a cross block on every decoder
+  layer.  No other frontend."""
   kinds = {s.kind for s in cfg.block_pattern}
   if not kinds <= set(LAYER_KINDS):
     raise NotImplementedError(f"{cfg.name}: layer kinds {sorted(kinds)}; "
@@ -84,9 +87,13 @@ def check_supported(cfg: ModelConfig) -> None:
   if "mamba" in kinds and cfg.ssm is None:
     raise NotImplementedError(f"{cfg.name}: mamba layers without an "
                               "SSMConfig")
-  moe = cfg.moe
-  if moe is not None and moe.num_shared:
-    raise NotImplementedError(f"{cfg.name}: shared experts are not ported")
+  if cfg.mla is not None and (
+      any(s.local or s.cross_attn for s in cfg.block_pattern)
+      or cfg.attn_softcap is not None or cfg.attn_bias
+      or cfg.parallel_block or cfg.encoder is not None):
+    raise NotImplementedError(f"{cfg.name}: MLA runs on global layers with "
+                              "no softcap, bias, cross block or parallel "
+                              "block, as the reference's MLA branch does")
   if cfg.frontend not in FRONTENDS:
     raise NotImplementedError(f"{cfg.name}: frontend {cfg.frontend!r}; the "
                               f"port runs {FRONTENDS[1:]}")
@@ -174,9 +181,11 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
                device) -> Dict:
   """Random weights of :func:`common.param_shapes` with the JAX init's
   scales: truncated normal (+-2 sigma), by default times
-  ``shape[-2]^-0.5`` of one layer's weight (``frontend_proj`` and the MoE
-  experts too), embed scale 1.0, ``wo`` scale (H*hd)^-0.5, ``conv_w``
-  0.5, norm gains and biases zero (the norm is ``x * (1 + w)``); the
+  ``shape[-2]^-0.5`` of one layer's weight (``frontend_proj``, the MoE
+  experts and MLA's leaves too: H for ``wq_b``, ``wk_b`` and ``wv_b``),
+  embed scale 1.0, ``wo`` scale (H*hd)^-0.5 (MLA: H*v_head_dim), ``conv_w``
+  0.5, norm gains (MLA's ``q_norm`` and ``kv_norm`` too) and biases zero
+  (the norm is ``x * (1 + w)``); the
   SSM's ``A_log`` log(linspace(1, 16, h)) and ``D`` ones.  Drawn leaf by
   leaf in the tree's order, the blocks first.  The numbers differ from
   the JAX init's: torch cannot replay JAX's RNG (use
@@ -283,8 +292,10 @@ def _layer_forward(x, lp, cfg: ModelConfig, spec: LayerSpec, positions,
   """One pre-norm layer: attention (sliding-window on a local layer) or
   the SSD mixer, the cross block where the layer has one, then the FFN,
   each output normed again under sandwich norms; in a parallel block the
-  FFN of the same normed input, added beside the mixer's output.  Returns (x, the layer's
-  decode-cache leaves): {"k", "v"} in the decode layout (B, Hkv, S, D),
+  FFN of the same normed input, added beside the mixer's output; an MLA
+  layer (deepseek) runs ``attention.mla_train``.  Returns (x, the layer's
+  decode-cache leaves): {"k", "v"} in the decode layout (B, Hkv, S, D)
+  (MLA: the latent, (B, 1, S, kv_lora + rope), as both),
   with a cross block also {"cross_k", "cross_v"} (B, Hkv, S or T, D); on
   a mamba layer {"conv_state", "ssd_state"}.
 
@@ -298,6 +309,9 @@ def _layer_forward(x, lp, cfg: ModelConfig, spec: LayerSpec, positions,
   if spec.kind == "mamba":
     mix, (conv, ssd) = ssm_lib.ssm_forward(h, lp["ssm"], cfg)
     out = {"conv_state": conv, "ssd_state": ssd}
+  elif cfg.mla is not None:
+    mix, (k, v) = attn.mla_train(h, lp["attn"], cfg, positions)
+    out = {"k": k, "v": v}
   else:
     mix, (k, v) = attn.attention_train(h, lp["attn"], cfg, positions,
                                        local=spec.local)
@@ -383,8 +397,9 @@ def _cache_leaves(cfg: ModelConfig, B: int, S: int, T: int) -> Dict:
   batch of B sequences of S positions (T cross rows)."""
   out = {}
   if n_attn_positions(cfg):
-    lead = (cfg.n_blocks, n_attn_positions(cfg), B, cfg.n_kv_heads)
-    out["k"] = out["v"] = ((*lead, S, cfg.hd), cfg.dtype)
+    Hkv, D = kv_dims(cfg)
+    lead = (cfg.n_blocks, n_attn_positions(cfg), B, Hkv)
+    out["k"] = out["v"] = ((*lead, S, D), cfg.dtype)
     if has_cross(cfg):
       out["cross_k"] = out["cross_v"] = ((*lead, T, cfg.hd), cfg.dtype)
   if n_ssm_positions(cfg):

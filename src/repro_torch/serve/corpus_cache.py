@@ -96,8 +96,10 @@ def supports_delta(cfg) -> bool:
   window (gemma2's local layers) couples the extension to the prefix's
   order; an encoder or cross blocks (whisper) and a frontend prefix
   (pixtral's patches) couple it to prefix inputs the arena does not hold,
-  and a mamba layer (jamba) to the prefix's SSM state; so such a config
-  takes the full build on a prefix-extension miss, as in the JAX package.
+  and a mamba layer (jamba) to the prefix's SSM state, and MLA (deepseek)
+  caches a latent the extension's attention does not take; so such a
+  config takes the full build on a prefix-extension miss, as in the JAX
+  package.
   The FFN does not matter: arctic's MoE beside a dense MLP and command-r's
   parallel blocks replay deltas, as in the JAX package.
   (The engine also turns it off under a ``+kv`` quant spec, whose sorted
@@ -106,7 +108,7 @@ def supports_delta(cfg) -> bool:
     tf.check_supported(cfg)
   except NotImplementedError:
     return False
-  return (cfg.encoder is None and cfg.frontend is None
+  return (cfg.encoder is None and cfg.frontend is None and cfg.mla is None
           and all(s.kind == "attn" and not s.local and not s.cross_attn
                   for s in cfg.block_pattern))
 

@@ -81,6 +81,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import math
 import time
 import weakref
 from typing import Callable, Dict, List, Optional, Sequence
@@ -97,7 +98,8 @@ from repro_torch.core import cluster as cl
 from repro_torch.kernels import _build
 from repro_torch.kernels import quant as qt
 from repro_torch.models import transformer as tf
-from repro_torch.models.common import ModelConfig, n_attn_positions
+from repro_torch.models.common import (ModelConfig, kv_dims,
+                                       n_attn_positions)
 from repro_torch.serve import corpus_cache as ccache
 from repro_torch.serve import kv_cache as kvc
 from repro_torch.serve import synopsis_kv as skv
@@ -306,7 +308,7 @@ class ServingEngine:
                              dev)
     self.params = params
     if pca_basis is None:
-      pca_basis = cl.initial_basis(cfg.n_kv_heads * cfg.hd, seed=ecfg.seed)
+      pca_basis = cl.initial_basis(math.prod(kv_dims(cfg)), seed=ecfg.seed)
     # On the device once: a host tensor would be copied (and the stream
     # waited for) at every admission's build.
     basis = torch.as_tensor(pca_basis, dtype=torch.float32).to(dev)
@@ -328,8 +330,8 @@ class ServingEngine:
     self._amask_host = torch.zeros((n,), dtype=torch.bool,
                                    pin_memory=dev.type == "cuda")
     self._new_tok = torch.zeros((n,), dtype=torch.long, device=dev)
-    delta = (cfg.n_blocks, n_attn_positions(cfg), n, cfg.n_kv_heads, 1,
-             cfg.hd)
+    Hkv, D = kv_dims(cfg)
+    delta = (cfg.n_blocks, n_attn_positions(cfg), n, Hkv, 1, D)
     self.step_out = {
         "logits": torch.zeros((n, cfg.vocab), dtype=torch.float32,
                               device=dev),

@@ -18,9 +18,11 @@ Unlike the JAX package, the pool is allocated once and written in place:
 leaves.  A captured CUDA graph reads fixed addresses, so a pool that was
 reallocated would leave the graphs reading the old one.  The FFN never
 changes the cache (an MoE or parallel block has the leaves of any GQA
-layer); the other cache family, MLA's latents (deepseek), raises, as
-``models.transformer.check_supported`` does, and so does cross attention
-(:func:`cache_struct`).
+layer).  MLA (deepseek) caches its latent instead: one key/value head of
+kv_lora + rope (576 at full width) for ``k``, ``v``, the centroid tables,
+the ring and the slot pool, in both families, with ``k`` and ``v``
+holding the same rows, as in JAX (``common.kv_dims``).  Cross attention
+has no pool (:func:`cache_struct`).
 """
 from __future__ import annotations
 
@@ -30,8 +32,9 @@ import torch
 
 from repro_torch.kernels import quant as qt
 from repro_torch.models import transformer as tf
-from repro_torch.models.common import (ModelConfig, n_attn_positions,
-                                       n_ssm_positions, ssm_state_shapes)
+from repro_torch.models.common import (ModelConfig, kv_dims,
+                                       n_attn_positions, n_ssm_positions,
+                                       ssm_state_shapes)
 
 # The shared-immutable and private-mutable halves of a synopsis slot.
 # ARENA_LEAVES are a function of the corpus alone (the sorted KV, the
@@ -68,7 +71,7 @@ def cache_struct(cfg: ModelConfig, B: int, S: int, *,
         "pool sizes cross_k / cross_v by the encoder's source_len, the "
         "prefill emits them at prompt length)")
   nb, na, ns = cfg.n_blocks, n_attn_positions(cfg), n_ssm_positions(cfg)
-  Hkv, D = cfg.n_kv_heads, cfg.hd
+  Hkv, D = kv_dims(cfg)
   dt = cfg.dtype
   out: Dict[str, Any] = {}
   if na and synopsis:

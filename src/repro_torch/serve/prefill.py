@@ -2,7 +2,8 @@
 run the full prompt and emit (last-token logits, decode cache).
 
 The cache comes out in the decode layout (nb, na, B, Hkv, S, D) with
-``pos`` (B,), S the prompt's tokens plus the vision stub's patch prefix
+``pos`` (B,) (MLA: the latent, Hkv = 1 and D = kv_lora + rope, as both
+``k`` and ``v``), S the prompt's tokens plus the vision stub's patch prefix
 where ``frontend_embeds`` is given (the loop and the engine give none, as
 in the JAX package); ``serve.synopsis_kv.build`` then clusters it into the
 synopsis.  A config with cross blocks (whisper) also emits
@@ -90,8 +91,9 @@ def make_extend_step(cfg: ModelConfig):
   P = E = 4096) and freed before the next layer.  A sliding-window layer
   would couple the extension to the prefix's order, a cross block or a
   frontend to inputs the arena does not hold, and a mamba layer to the
-  prefix's SSM state, so a config with any of them is refused
-  (``corpus_cache.supports_delta`` is False for it)."""
+  prefix's SSM state, and MLA caches a latent, not per-head keys, so a
+  config with any of them is refused (``corpus_cache.supports_delta`` is
+  False for it)."""
   tf.check_supported(cfg)
   if any(s.kind != "attn" for s in cfg.block_pattern):
     raise NotImplementedError(f"{cfg.name}: no delta prefill over mamba "
@@ -106,6 +108,9 @@ def make_extend_step(cfg: ModelConfig):
   if cfg.frontend:
     raise NotImplementedError(f"{cfg.name}: no delta prefill behind a "
                               "frontend prefix")
+  if cfg.mla is not None:
+    raise NotImplementedError(f"{cfg.name}: no delta prefill over MLA's "
+                              "latent cache (the reference has none)")
 
   @torch.no_grad()
   def extend_step(params, ext_tokens, prefix_k, prefix_v, pos0: int):

@@ -38,7 +38,10 @@ A mamba layer (mamba2, jamba) runs ``models.ssm.ssm_forward``'s S = 1
 decode from the cache's ``conv_state`` / ``ssd_state`` in both modes, and
 an MoE layer its FFN over the step's B rows (capacity 1 at jamba's B <= 6
 and arctic's B <= 102: the rows of the step change each other's output,
-as in the reference), plus arctic's dense MLP beside the experts.  A
+as in the reference), plus arctic's dense MLP or deepseek's shared
+experts beside the experts.  An MLA layer (deepseek) decodes absorbed
+(:func:`_mla_decode_layer`): an f32 query of all H heads over the latent
+cache's one key/value head, in either mode.  A
 parallel block (command-r) adds the FFN of the same ``ln1``-normed input
 beside the attention output, in both modes.
 The attention index ``ai`` and the mamba index ``si`` count separately:
@@ -60,6 +63,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant as qt
+from repro_torch.kernels.ref import acc_dtype
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as tf
@@ -121,27 +125,63 @@ def exact_decode_attention(
   return out[0]
 
 
+def _decode_attention(q, cache_sl, cfg: ModelConfig, local: bool, mode: str,
+                      i_max: int, attention_fn, **kw):
+  """One layer's decode attention of q (B, H, D) in the layer's mode:
+  exact (a local layer: over its window) or synopsis (``attention_fn``
+  where given).  Returns (ctx (B, H, D) f32, aux or None)."""
+  if local or mode == "exact":
+    return exact_decode_attention(
+        q, cache_sl["k"], cache_sl["v"],
+        window=cfg.sliding_window if local else None, **kw), None
+  kw.update(i_max=i_max, cluster_size=cfg.synopsis.cluster_size)
+  if attention_fn is None:
+    return synopsis_decode_attention(q, cache_sl, **kw), None
+  return attention_fn(q, cache_sl, **kw)
+
+
 def _attn_decode_layer(x, lp, cfg: ModelConfig, local: bool, cache_sl, pos,
                        mode: str, i_max: int, attention_fn=None):
   """x (B, 1, d) -> (y (B, 1, d), (k, v) of the new token (B, Hkv, 1, D),
   aux: ``attention_fn``'s telemetry dict, or None)."""
+  if cfg.mla is not None:
+    return _mla_decode_layer(x, lp, cfg, cache_sl, pos, mode, i_max,
+                             attention_fn)
   q, k_new, v_new = attn_lib.qkv(x, lp, cfg, pos[:, None])
   kd = k_new.transpose(1, 2)                                  # (B,Hkv,1,D)
   vd = v_new.transpose(1, 2)
-  aux = None
-  kw = dict(sm_scale=cfg.hd ** -0.5, cap=cfg.attn_softcap, self_kv=(kd, vd))
-  if local or mode == "exact":
-    ctx = exact_decode_attention(
-        q[:, 0], cache_sl["k"], cache_sl["v"],
-        window=cfg.sliding_window if local else None, **kw)
-  else:
-    kw.update(i_max=i_max, cluster_size=cfg.synopsis.cluster_size)
-    if attention_fn is None:
-      ctx = synopsis_decode_attention(q[:, 0], cache_sl, **kw)
-    else:
-      ctx, aux = attention_fn(q[:, 0], cache_sl, **kw)
+  ctx, aux = _decode_attention(
+      q[:, 0], cache_sl, cfg, local, mode, i_max, attention_fn,
+      sm_scale=cfg.hd ** -0.5, cap=cfg.attn_softcap, self_kv=(kd, vd))
   y = attn_lib.out_proj(ctx[:, None].to(x.dtype), lp, x.dtype)
   return y, (kd, vd), aux
+
+
+def _mla_decode_layer(x, lp, cfg: ModelConfig, cache_sl, pos, mode: str,
+                      i_max: int, attention_fn=None):
+  """MLA's absorbed decode (the JAX step's MLA branch): q_lat = q_nope .
+  wk_b in f32 (the reference's ``einsum`` prefers f32), q_eff = [q_lat,
+  q_pe] (B, H, kv_lora + rope) in f32 over the latent cache (one key /
+  value head: G = H), the new token's latent [c_kv, k_pe] as its self KV,
+  the softmax scale (nope + rope)^-0.5, in the layer's mode; then the
+  context's latent part through ``wv_b`` and ``wo`` in f32, cast to the
+  activation dtype.  The delta is the latent, as both k and v."""
+  m = cfg.mla
+  positions = pos[:, None]
+  q_nope, q_pe = attn_lib.mla_queries(x, lp, cfg, positions)
+  c_kv, k_pe = attn_lib.mla_latent(x, lp, cfg, positions)
+  f = acc_dtype(x)
+  q_lat = torch.einsum("bhk,rhk->bhr", q_nope[:, 0].to(f), lp["wk_b"].to(f))
+  q_eff = torch.cat([q_lat, q_pe[:, 0].to(f)], dim=-1)
+  lat = torch.cat([c_kv, k_pe], dim=-1)[:, None]              # (B,1,1,Dk)
+  ctx, aux = _decode_attention(
+      q_eff, cache_sl, cfg, False, mode, i_max, attention_fn,
+      sm_scale=(m.qk_nope_dim + m.qk_rope_dim) ** -0.5, cap=None,
+      self_kv=(lat, lat))
+  o = torch.einsum("bhr,rhk->bhk", ctx[..., :m.kv_lora_rank].to(f),
+                   lp["wv_b"].to(f))
+  y = torch.einsum("bhk,hkd->bd", o, lp["wo"].to(f))[:, None].to(x.dtype)
+  return y, (lat, lat), aux
 
 
 def _cross_decode_layer(x, lp, cfg: ModelConfig, cross_k, cross_v):
@@ -163,15 +203,30 @@ def global_positions(cfg: ModelConfig) -> Tuple[int, ...]:
 
 
 def check_quant_device(cfg: ModelConfig, device) -> None:
-  """Refuse a ``+kv`` quant spec on a CUDA device for a config with local
-  layers, before anything runs.  Under ``+kv`` the sorted cache holds
-  int8 / fp8 codes, and a local layer hands its window of that cache to
-  exact decode as given (the JAX step does the same, unscaled): the CPU's
-  plain version mirrors that, but ``flash_decode`` does not attend over
-  raw codes.  The table-only specs keep the sorted cache in ``cfg.dtype``."""
+  """Refuse, on a CUDA device and before anything runs, a quant spec the
+  kernels are not built for: any spec under MLA (deepseek), whose
+  quantized stage 1 and stage 2 branches are not built at the latent
+  shapes (the latent core reads f32 or bf16 rows only), and a ``+kv``
+  spec for a config with local layers.  Under ``+kv`` the sorted cache
+  holds int8 / fp8 codes, and a local layer hands its window of that
+  cache to exact decode as given (the JAX step does the same, unscaled):
+  the CPU's plain version mirrors that, but ``flash_decode`` does not
+  attend over raw codes.  The table-only specs keep the sorted cache in
+  ``cfg.dtype``.  On the CPU the plain versions run every spec."""
   qc = qt.parse_qconfig(cfg.synopsis.quant)
   on_card = device is None or torch.device(device).type == "cuda"
-  if not qc.sorted_kv or not on_card:
+  if not qc.enabled or not on_card:
+    return
+  if cfg.mla is not None:
+    m = cfg.mla
+    raise ValueError(
+        f"{cfg.name}: quant={qc.spec} under MLA: the quantized branches of "
+        f"stage 1 (fused_synopsis_score_attention[{qc.kind}]) and stage 2 "
+        f"(block_gather_attention[{qc.kind}]) are not built at the latent "
+        f"shapes (one key/value head of D = "
+        f"{m.kv_lora_rank + m.qk_rope_dim}, G = {cfg.n_heads}); run "
+        "quant=none on the card, or the spec on the CPU")
+  if not qc.sorted_kv:
     return
   n = len(cfg.block_pattern)
   local = [b * n + i for b in range(cfg.n_blocks)

@@ -210,6 +210,13 @@ def test_cpu_tensors_run_the_plain_versions_without_launching():
     ((1, 300, 1, 12, 64), 57, 30.0),
     ((1, 520, 1, 16, 128), None, None),
     ((1, 300, 2, 16, 32), 40, 20.0),
+    # deepseek-v2's MLA prefill: D = qk_nope + qk_rope = 192 (three
+    # 128-byte atoms a row, 64-key tiles, wgmma n192), G = 1 (128
+    # positions a tile); and its SMOKE width 48 (f32 only on the card).
+    ((1, 700, 4, 1, 192), None, None),      # ragged S, several key tiles
+    ((2, 300, 2, 1, 192), None, None),
+    ((1, 40, 2, 1, 192), None, None),       # S below one tile
+    ((1, 520, 1, 2, 192), 100, 30.0),
 ])
 def test_card_flash_prefill(cuda, dtype, shape, window, cap):
   q, k, v = _to(cuda, dtype, *_prefill_inputs(shape))
@@ -245,7 +252,7 @@ def test_card_flash_prefill_bf16_cancelling_rows(cuda, D):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(1, 64, 1, _build.GMAX + 1, 64),
-                                   (1, 64, 1, 2, 48)])
+                                   (1, 64, 1, 2, 40)])
 def test_card_flash_prefill_bf16_refuses_unbuilt_shapes(cuda, shape):
   """G > GMAX and head dims outside WGMMA_HEAD_DIMS are not built for bf16:
   the wrapper raises instead of running the CUDA-core kernel; f32 takes
@@ -344,7 +351,7 @@ def test_card_fused_synopsis_head_dims(cuda, dtype, kind, D, G):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D,G", [(48, 4), (128, _build.GMAX + 1)])
+@pytest.mark.parametrize("D,G", [(40, 4), (128, _build.GMAX + 1)])
 def test_card_fused_synopsis_refuses_unbuilt_shapes(cuda, D, G):
   """No fallback: a head dim or group the kernel is not built for raises
   and launches nothing."""
@@ -412,7 +419,7 @@ def test_card_block_gather_head_dims(cuda, dtype, D, G):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D,G", [(48, 4), (128, _build.GMAX + 1)])
+@pytest.mark.parametrize("D,G", [(40, 4), (128, _build.GMAX + 1)])
 def test_card_block_gather_refuses_unbuilt_shapes(cuda, D, G):
   q, k, v, sel, C, kw = _gather_inputs("dec_extras", 64, D=D, G=G, E=129)
   args = _to(cuda, torch.float32, q, k, v)
@@ -687,6 +694,149 @@ def test_card_unfused_and_fused_synopsis_ops(cuda, dtype, i_max):
            TOL[dtype])
 
 
+# -- the latent core (MLA's absorbed decode: one key/value head of 576, 128
+# query heads in f32; 48 and 4 at SMOKE size) --------------------------------
+
+LATENT_SHAPES = [(4, 48), (128, 576)]        # (G, D)
+LATENT = _build.LATENT
+
+
+def _latent_q(g, B, G, D):
+  """An f32 query whose logits spread ~1 over rows of D ~N(0, 1) values."""
+  return _rand(g, B, G, D) * (D ** -0.5) * 3.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("G,D", LATENT_SHAPES)
+@pytest.mark.parametrize("S", [1, 65, 300, 8192])
+@pytest.mark.parametrize("bias_kind,cap", [(None, None), ("masked", None),
+                                           ("log_count", 30.0)])
+def test_card_latent_flash_decode(cuda, dtype, G, D, S, bias_kind, cap):
+  """The latent core's flash_decode: an f32 query of G heads over one K/V
+  head of f32 or bf16 rows (the exact path's latent cache at S = 8192, the
+  self token at S = 1, the unfused op's masked centroids at 65), against
+  the plain version; one launch of the "latent" branch."""
+  g = torch.Generator().manual_seed(40 + S)
+  q = _latent_q(g, 2, G, D).to(cuda)
+  k, v = _to(cuda, dtype, _rand(g, 2, 1, S, D), _rand(g, 2, 1, S, D))
+  bias = None
+  if bias_kind is not None:
+    bias = torch.log(torch.randint(1, 129, (2, 1, S), generator=g).float())
+    if bias_kind == "masked":
+      bias[torch.rand((2, 1, S), generator=g) < 0.3] = NEG_INF
+      if S <= 65:
+        bias[0] = NEG_INF
+    bias = bias.to(cuda)
+  kw = dict(sm_scale=192 ** -0.5, cap=cap)
+  key = _build.branch("flash_decode", LATENT)
+  n0 = _build.LAUNCHES[key]
+  got = flash_decode(q, k, v, bias, **kw)
+  torch.cuda.synchronize()
+  assert _build.LAUNCHES[key] == n0 + 1
+  for a, b in zip(got, ref.flash_decode_ref(q, k, v, bias, **kw)):
+    assert torch.isfinite(a).all()
+    _close(a, b, TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("G,D", LATENT_SHAPES)
+@pytest.mark.parametrize("case,C,I", [("dec_extras", 128, 32),
+                                      ("padded", 16, 3),
+                                      ("equal_keys", 48, 3),
+                                      ("all_padded", 16, 1),
+                                      ("plain", 128, 1)])
+def test_card_latent_block_gather(cuda, dtype, G, D, case, C, I):
+  """The latent core's stage 2 (its f32 query beside f32 or bf16 cache,
+  extras and decrement rows) in every case of the serve step's inputs,
+  Hkv = 1; the decrement rows also in f32 beside a bf16 cache."""
+  q, k, v, sel, C, kw = _gather_inputs(case, (I + 2) * C, D=D, C=C, I=I,
+                                       G=G, Hkv=1, E=129, seed=G + C + I)
+  q = (q * (D ** -0.5) * 3.0).to(cuda)
+  k, v = _to(cuda, dtype, k, v)
+  opts = dict(cluster_size=C, sm_scale=192 ** -0.5, cap=30.0)
+  decs = [dtype] + ([torch.float32] if dtype != torch.float32
+                    and "k_sel" in kw else [])
+  for dec in decs:
+    kwc = {n: (t.to(cuda) if n in ("sel_bias", "extras_bias") else
+               t.to(device=cuda, dtype=dec if n in ("k_sel", "v_sel")
+                    else dtype)) for n, t in kw.items()}
+    key = _build.branch("block_gather_attention", LATENT)
+    n0 = _build.LAUNCHES[key]
+    got = block_gather_attention(q, k, v, sel.to(cuda), **opts, **kwc)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[key] == n0 + 1
+    want = ref.fused_gather_attention_ref(q, k, v, sel.to(cuda), **opts,
+                                          **kwc)
+    for a, b in zip(got, want):
+      assert torch.isfinite(a).all()
+      _close(a, b, TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("G,D", LATENT_SHAPES)
+@pytest.mark.parametrize("M", [64, 65, 1024])
+@pytest.mark.parametrize("cap", [None, 30.0])
+def test_card_latent_fused_synopsis(cuda, dtype, G, D, M, cap):
+  """The latent core's stage 1: the scores (a max over all G heads, across
+  the head tiles) and the count-biased partials, over f32 or bf16 tables
+  of M centroids (one or several chunks of M)."""
+  g = torch.Generator().manual_seed(50 + M)
+  q = _latent_q(g, 2, G, D).to(cuda)
+  k_syn, v_syn = _to(cuda, dtype, _rand(g, 2, 1, M, D), _rand(g, 2, 1, M, D))
+  cbias = torch.log(torch.randint(1, 129, (2, M), generator=g).float())
+  kw = dict(sm_scale=192 ** -0.5, cap=cap)
+  key = _build.branch("fused_synopsis_score_attention", LATENT)
+  n0 = _build.LAUNCHES[key]
+  got = fused_synopsis_score_attention(q, k_syn, v_syn, cbias.to(cuda), **kw)
+  torch.cuda.synchronize()
+  assert _build.LAUNCHES[key] == n0 + 1
+  want = ref.fused_synopsis_score_attention_ref(q, k_syn, v_syn,
+                                                cbias.to(cuda), **kw)
+  _close(got[0], want[0], TOL[dtype])
+  for a, b in zip(got[1], want[1]):
+    _close(a, b, TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("G,D", LATENT_SHAPES + [(100, 576)])
+@pytest.mark.parametrize("M", [64, 65, 1024])
+def test_card_latent_synopsis_score(cuda, dtype, G, D, M):
+  """The latent core's scores: one block a (b, hkv) and 16 rows, the max
+  over every head tile (G = 100: a last tile of 4 live heads)."""
+  g = torch.Generator().manual_seed(60 + M)
+  q = _latent_q(g, 2, G, D).to(cuda)
+  k_syn = _rand(g, 2, 1, M, D).to(device=cuda, dtype=dtype)
+  key = _build.branch("synopsis_score", LATENT)
+  n0 = _build.LAUNCHES[key]
+  got = synopsis_score(q, k_syn, sm_scale=192 ** -0.5)
+  torch.cuda.synchronize()
+  assert _build.LAUNCHES[key] == n0 + 1
+  _close(got, ref.synopsis_score_ref(q, k_syn, sm_scale=192 ** -0.5),
+         TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_card_latent_core_refuses_what_it_does_not_take(cuda):
+  """The latent widths take an f32 query only, and G <= LATENT_GMAX: a bf16
+  query or G = 129 raises and launches nothing."""
+  g = torch.Generator().manual_seed(70)
+  k = _rand(g, 2, 1, 64, 576).to(cuda)
+  before = _build.launch_counts()
+  with pytest.raises(TypeError, match="f32 query"):
+    flash_decode(_latent_q(g, 2, 4, 576).to(cuda, torch.bfloat16),
+                 k.bfloat16(), k.bfloat16())
+  with pytest.raises(ValueError, match="group"):
+    flash_decode(_latent_q(g, 2, _build.LATENT_GMAX + 1, 576).to(cuda), k,
+                 k)
+  with pytest.raises(ValueError, match="group"):
+    synopsis_score(_latent_q(g, 2, _build.LATENT_GMAX + 1, 576).to(cuda), k)
+  assert _build.launch_counts() == before
+
+
 @pytest.mark.cuda
 def test_card_wrappers_refuse_what_the_kernels_do_not_take(cuda):
   q, k, v = _to(cuda, torch.float16, *_prefill_inputs((1, 64, 2, 2, 16)))
@@ -700,7 +850,7 @@ def test_card_wrappers_refuse_what_the_kernels_do_not_take(cuda):
   with pytest.raises(ValueError):
     flash_prefill(q, k[:, :, :1].contiguous(), v)
   q, k, v = _to(cuda, torch.float32, *_decode_inputs(
-      torch.Generator().manual_seed(0), 64, D=48))
+      torch.Generator().manual_seed(0), 64, D=40))
   with pytest.raises(ValueError, match="head dim"):
     flash_decode(q, k, v)
   perm = torch.arange(64, dtype=torch.int32, device=cuda).expand(2, 64)
@@ -1171,7 +1321,8 @@ def _check_loop_on_card(arch, mode, quant="none"):
   a mamba layer launches nothing), flash_decode twice a step on each
   attention layer that decodes exactly (every one in exact mode, the
   local ones in synopsis mode) and once a step on each cross block, and
-  stage 1 on the quant spec's branch."""
+  stage 1 on the quant spec's branch; under MLA (deepseek) the decode
+  kernels' "latent" branches, and their other branches not at all."""
   dev = _card_or_skip()
   cfg = parity.smoke_f32(arch)[0]
   launched, _, _ = parity.loop_parity(arch, dev, mode, quant)
@@ -1180,11 +1331,18 @@ def _check_loop_on_card(arch, mode, quant="none"):
   exact = n_attn if mode == "exact" else sum(
       s.local for s in attn) * cfg.n_blocks
   cross = sum(s.cross_attn for s in cfg.block_pattern) * cfg.n_blocks
+  branch = _build.LATENT if cfg.mla is not None else None
   assert launched["flash_prefill"] == n_attn + cross
-  assert launched["flash_decode"] == (2 * exact + cross) * 18
+  assert launched[_build.branch("flash_decode", branch or "none")] == (
+      2 * exact + cross) * 18
   if mode == "synopsis":
     assert launched[_build.branch("fused_synopsis_score_attention",
-                                  qt.parse_qconfig(quant).kind)] > 0
+                                  branch or qt.parse_qconfig(quant).kind)] \
+        == (n_attn - sum(s.local for s in attn) * cfg.n_blocks) * 18
+  if branch is not None:
+    assert not any(n for k, n in launched.items()
+                   if k not in ("flash_prefill", "segment_build")
+                   and not k.endswith("[latent]"))
 
 
 @pytest.mark.cuda
@@ -1234,6 +1392,35 @@ def test_card_arctic_command_r_loop_equals_the_cpu(arch, mode):
   """arctic-480b (the MoE with a dense MLP beside it, capacity 1 at
   decode) and command-r-plus-104b (parallel blocks, G = 4 at SMOKE)."""
   _check_loop_on_card(arch, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["synopsis", "exact"])
+def test_card_deepseek_loop_equals_the_cpu(mode):
+  """deepseek-v2-236b: MLA's prefill through flash_prefill at D = 48 (f32)
+  and its absorbed decode on the latent core (an f32 query of 4 heads
+  over one latent head of 48), the MoE with a shared expert."""
+  _check_loop_on_card("deepseek-v2-236b", mode)
+
+
+@pytest.mark.cuda
+def test_card_deepseek_quant_refused():
+  """On the card every quant spec is refused for MLA at the entry of the
+  loop and of the engine (no quantized branch is built at the latent
+  shapes), before a tensor is made; the CPU runs them."""
+  from repro_torch.launch import serve
+  from repro_torch.serve.engine import EngineConfig, ServingEngine
+  dev = _card_or_skip()
+  cfg = parity.smoke_f32("deepseek-v2-236b")[0]
+  for quant in ("int8", "fp8", "int8+kv", "fp8+kv"):
+    q = serve.apply_quant(cfg, quant)
+    before = _build.launch_counts()
+    with pytest.raises(ValueError, match="latent shapes"):
+      serve.run(q, batch=2, prompt_len=64, tokens=2, device=dev)
+    with pytest.raises(ValueError, match="latent shapes"):
+      ServingEngine(q, EngineConfig(n_slots=2, prompt_len=64,
+                                    max_new_tokens=2), device=dev)
+    assert _build.launch_counts() == before
 
 
 @pytest.mark.cuda
@@ -1382,7 +1569,8 @@ def test_card_gemma2_engine_equals_the_cpu(arm):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["smollm-135m", "pixtral-12b",
-                                  "arctic-480b", "command-r-plus-104b"])
+                                  "arctic-480b", "command-r-plus-104b",
+                                  "deepseek-v2-236b"])
 @pytest.mark.parametrize(**ENGINE_ARMS)
 def test_card_arch_engine_equals_the_cpu(arch, arm):
   _check_engine_on_card(arch, arm)

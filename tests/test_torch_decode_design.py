@@ -29,6 +29,16 @@ budget 0 (all ``-1`` ids, extras only), every part padded with no extras
 an absorb, and the int8 / fp8 ``+kv`` scales; for stage 1, M = 1000 /
 1024 (split) against 64 / 65 (one chunk), G = 3 and 12 (zero heads in
 the buckets of 4 and 16), and int8 / fp8 tables.
+
+The latent core (``csrc/latent_core.cuh``, MLA's absorbed decode: one
+key/value head of D = 576 read by G = 128 query heads, 48 and 4 at SMOKE
+size) is emulated the same way at the end: a block takes a head tile of
+``LATENT_HEAD_TILE`` heads (the heads past G dead: excluded from the
+softmax and the scores) and a chunk of ``latent_chunk`` rows in tiles of
+``LATENT_TILE_ROWS``, each head's online softmax its own; the chunks of a
+(b, hkv, head tile) merge as the ticketed merge does, and stage 1's
+scores are each tile's max over its live heads, then the max across the
+tiles (the kernel's second ticket).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -44,7 +54,7 @@ from repro.kernels.fused_synopsis import (
 from repro_torch import bridge
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import quant as qt
-from repro_torch.kernels.block_gather_attention import EXTRAS_ROWS
+from repro_torch.kernels.block_gather_attention import EXTRAS_ROWS, _parts
 from repro_torch.kernels.flash_decode import (BLOCKS_PER_SM, MIN_CHUNK,
                                               _chunk)
 
@@ -521,3 +531,226 @@ def test_split_stage1_matches_plain_and_pallas(M, G, kind, cap):
       _close(g, w)
       _close(g, j)
 
+
+
+# ---------------------------------------------------------------------------
+# The latent core (MLA's absorbed decode)
+# ---------------------------------------------------------------------------
+
+def _latent_span(qt_, k, v, logit):
+  """One latent block: the head tile's queries qt_ (h, D) over the rows of
+  k, v (n, D) in tiles of LATENT_TILE_ROWS rows, each head's online
+  softmax; logit(raw (h, r), r0, r1).  Returns the unnormalised (acc (h,
+  D), m (h,), l (h,)) and each row's raw dots (h, n)."""
+  n, D = k.shape
+  h = qt_.shape[0]
+  m, l, acc = torch.full((h,), NEG_INF), torch.zeros(h), torch.zeros(h, D)
+  raws = []
+  for r0 in range(0, n, _build.LATENT_TILE_ROWS):
+    r1 = min(n, r0 + _build.LATENT_TILE_ROWS)
+    raw = qt_ @ k[r0:r1].T
+    raws.append(raw)
+    x = logit(raw, r0, r1)
+    m_new = torch.maximum(m, x.amax(-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(x - m_new[:, None])
+    l = l * alpha + p.sum(-1)
+    acc = acc * alpha[:, None] + p @ v[r0:r1]
+    m = m_new
+  return (acc, m, l), torch.cat(raws, 1)
+
+
+def _latent_tiles(G):
+  """The head tiles: (first head, live heads) of each."""
+  T = _build.LATENT_HEAD_TILE
+  return [(g0, min(T, G - g0)) for g0 in range(0, G, T)]
+
+
+def emulate_latent_decode(q, k, v, bias=None, *, sm_scale=1.0, cap=None):
+  """flash_decode on the latent core: grid (chunks, head tiles, B Hkv)."""
+  B, H, D = q.shape
+  _, Hkv, S, _ = k.shape
+  G = H // Hkv
+  tiles = _latent_tiles(G)
+  chunk = _build.latent_chunk(S, B * Hkv * len(tiles), H100_SMS)
+  o, m_out, l_out = (torch.zeros(B, H, D), torch.zeros(B, H),
+                     torch.zeros(B, H))
+  for b in range(B):
+    for hk in range(Hkv):
+      for g0, h in tiles:
+        rows = slice(hk * G + g0, hk * G + g0 + h)
+        parts = []
+        for s0 in range(0, S, chunk):
+          s1 = min(S, s0 + chunk)
+          bb = None if bias is None else bias[b, hk, s0:s1]
+          parts.append(_latent_span(
+              q[b, rows], k[b, hk, s0:s1], v[b, hk, s0:s1],
+              lambda raw, r0, r1, bb=bb: ref.apply_softcap(
+                  raw * sm_scale, cap) + (0.0 if bb is None
+                                          else bb[r0:r1]))[0])
+        acc, m, l = _combine(parts)
+        o[b, rows] = acc / l.clamp_min(1e-30)[:, None]
+        m_out[b, rows], l_out[b, rows] = m, l
+  return o, m_out, l_out
+
+
+def emulate_latent_gather(q, k, v, selected, *, cluster_size, sm_scale=1.0,
+                          cap=None, k_sel=None, v_sel=None, sel_bias=None,
+                          extras_k=None, extras_v=None, extras_bias=None):
+  """block_gather on the latent core: grid (I clusters + extras chunks,
+  head tiles, B Hkv); a cluster part folds its centroid's term in as a row
+  of weight -1; the parts merge with the signed rule."""
+  B, H, D = q.shape
+  _, Hkv, S, _ = k.shape
+  G, C, I = H // Hkv, cluster_size, selected.shape[-1]
+  E = extras_k.shape[2] if extras_k is not None else 0
+  xrows, _ = _parts(I, E, extras_k is not None)
+  o, m_out, l_out = (torch.zeros(B, H, D), torch.zeros(B, H),
+                     torch.zeros(B, H))
+  for b in range(B):
+    for hk in range(Hkv):
+      for g0, h in _latent_tiles(G):
+        rows = slice(hk * G + g0, hk * G + g0 + h)
+        qt_ = q[b, rows]
+        parts = []
+        for i in range(I):
+          sel = int(selected[b, hk, i])
+          cid = max(sel, 0)
+          cl = slice(cid * C, (cid + 1) * C)
+          (acc, m, l), _ = _latent_span(
+              qt_, k[b, hk, cl], v[b, hk, cl],
+              lambda raw, r0, r1, ok=sel >= 0: ref.apply_softcap(
+                  raw * sm_scale, cap) if ok else torch.full_like(raw,
+                                                                  NEG_INF))
+          if k_sel is not None:
+            dl = (ref.apply_softcap(qt_ @ k_sel[b, hk, i] * sm_scale, cap)
+                  + sel_bias[b, hk, i]) if sel >= 0 else torch.full(
+                      (h,), NEG_INF)
+            m2 = torch.maximum(m, dl)
+            e1, e2 = torch.exp(m - m2), torch.exp(dl - m2)
+            acc = acc * e1[:, None] - v_sel[b, hk, i][None] * e2[:, None]
+            m, l = m2, l * e1 - e2
+          parts.append((acc, m, l))
+        for x0 in range(0, E, xrows):
+          x1 = min(E, x0 + xrows)
+          eb = extras_bias[b, x0:x1]
+          parts.append(_latent_span(
+              qt_, extras_k[b, hk, x0:x1], extras_v[b, hk, x0:x1],
+              lambda raw, r0, r1, eb=eb: ref.apply_softcap(
+                  raw * sm_scale, cap) + eb[r0:r1])[0])
+        acc, m, l = _combine(parts)
+        o[b, rows] = acc / torch.where(l.abs() > 1e-30, l,
+                                       torch.ones_like(l))[:, None]
+        m_out[b, rows], l_out[b, rows] = m, l
+  return o, m_out, l_out
+
+
+def emulate_latent_stage1(q, k_syn, v_syn, cbias, *, sm_scale=1.0, cap=None):
+  """Stage 1 on the latent core: each (chunk, head tile) block writes its
+  rows' max over the tile's live heads of the scaled raw dot to the
+  tile's scratch row; the (b, hkv)'s last block takes the max across the
+  tiles.  Returns (scores, partials)."""
+  B, H, D = q.shape
+  _, Hkv, M, _ = k_syn.shape
+  G = H // Hkv
+  tiles = _latent_tiles(G)
+  chunk = _build.latent_chunk(M, B * Hkv * len(tiles), H100_SMS)
+  part_scores = torch.full((B, Hkv, len(tiles), M), float("nan"))
+  o, m_out, l_out = (torch.zeros(B, H, D), torch.zeros(B, H),
+                     torch.zeros(B, H))
+  for b in range(B):
+    for hk in range(Hkv):
+      for t, (g0, h) in enumerate(tiles):
+        rows = slice(hk * G + g0, hk * G + g0 + h)
+        parts = []
+        for s0 in range(0, M, chunk):
+          s1 = min(M, s0 + chunk)
+          cb = cbias[b, s0:s1]
+          part, raw = _latent_span(
+              q[b, rows], k_syn[b, hk, s0:s1], v_syn[b, hk, s0:s1],
+              lambda raw, r0, r1, cb=cb: ref.apply_softcap(
+                  raw * sm_scale, cap) + cb[r0:r1])
+          parts.append(part)
+          part_scores[b, hk, t, s0:s1] = (raw * sm_scale).amax(0)
+        acc, m, l = _combine(parts)
+        o[b, rows] = acc / l.clamp_min(1e-30)[:, None]
+        m_out[b, rows], l_out[b, rows] = m, l
+  return part_scores.amax(2), (o, m_out, l_out)
+
+
+def _latent_case(G, D, seed, S=256, C=16):
+  rng = np.random.default_rng(seed)
+  B, M = 2, S // C
+  q = _t(_normal(rng, B, G, D) * np.float32(3.0 * D ** -0.5))
+  k, v = _t(_normal(rng, B, 1, S, D)), _t(_normal(rng, B, 1, S, D))
+  return q, k, v, M, C, rng
+
+
+LATENT_SHAPES = [(4, 48), (100, 576), (128, 576)]
+
+
+@pytest.mark.parametrize("G,D", LATENT_SHAPES)
+@pytest.mark.parametrize("cap", [None, 30.0])
+def test_latent_decode_design_matches_plain(G, D, cap):
+  """The latent flash_decode's head tiles and chunk merge (S = 1000 cut
+  into chunks by latent_chunk, a -1e30 bias on a tenth of the keys)
+  against the plain version; G = 100 leaves a last tile of 4 live
+  heads."""
+  q, k, v, _, _, rng = _latent_case(G, D, seed=G + D, S=1000)
+  bias = _t(np.where(rng.random((2, 1, 1000)) < 0.1, NEG_INF,
+                     0.0).astype(np.float32))
+  kw = dict(sm_scale=192 ** -0.5, cap=cap)
+  assert len(range(0, 1000, _build.latent_chunk(
+      1000, 2 * len(_latent_tiles(G)), H100_SMS))) > 1
+  for got, want in zip(emulate_latent_decode(q, k, v, bias, **kw),
+                       ref.flash_decode_ref(q, k, v, bias, **kw)):
+    _close(got, want)
+
+
+@pytest.mark.parametrize("G,D", LATENT_SHAPES)
+@pytest.mark.parametrize("case", ["dec_extras", "padded", "budget0"])
+def test_latent_gather_design_matches_plain(G, D, case):
+  """The latent stage 2's parts (clusters with the decrement row, extras
+  chunks of a ragged E = 129) and signed merge against the plain version:
+  selected clusters, one padded id, and budget 0 (all -1, extras only)."""
+  q, k, v, M, C, rng = _latent_case(G, D, seed=3 * G + D)
+  sel = np.stack([rng.permutation(M)[:4] for _ in range(2)])[:, None]
+  if case == "padded":
+    sel[1, 0, 2] = -1
+  if case == "budget0":
+    sel = np.full((2, 1, 1), -1)
+  sel = _t(sel.astype(np.int32))
+  k_syn = k.reshape(2, 1, M, C, D).mean(3)
+  v_syn = v.reshape(2, 1, M, C, D).mean(3)
+  safe = sel.long().clamp_min(0)[..., None].expand(-1, -1, -1, D)
+  ek, ev = _t(_normal(rng, 2, 1, 129, D)), _t(_normal(rng, 2, 1, 129, D))
+  eb = torch.zeros(2, 129)
+  eb[:, 100:128] = NEG_INF
+  kw = dict(cluster_size=C, sm_scale=192 ** -0.5, cap=30.0,
+            k_sel=torch.gather(k_syn, 2, safe),
+            v_sel=torch.gather(v_syn, 2, safe),
+            sel_bias=torch.full(sel.shape, float(np.log(C))), extras_k=ek,
+            extras_v=ev, extras_bias=eb)
+  for got, want in zip(emulate_latent_gather(q, k, v, sel, **kw),
+                       ref.fused_gather_attention_ref(q, k, v, sel, **kw)):
+    _close(got, want)
+
+
+@pytest.mark.parametrize("G,D", LATENT_SHAPES)
+@pytest.mark.parametrize("M", [64, 65, 1024])
+def test_latent_stage1_design_matches_plain(G, D, M):
+  """The latent stage 1: the scores' max taken per head tile over its live
+  heads, then across the tiles, and the count-biased partials merged over
+  the chunks of M, against the plain version."""
+  rng = np.random.default_rng(M + G)
+  q = _t(_normal(rng, 2, G, D) * np.float32(3.0 * D ** -0.5))
+  k_syn, v_syn = _t(_normal(rng, 2, 1, M, D)), _t(_normal(rng, 2, 1, M, D))
+  cbias = _t(np.log(rng.integers(1, 129, (2, M)).astype(np.float32)))
+  kw = dict(sm_scale=192 ** -0.5, cap=30.0)
+  scores, part = emulate_latent_stage1(q, k_syn, v_syn, cbias, **kw)
+  want_scores, want_part = ref.fused_synopsis_score_attention_ref(
+      q, k_syn, v_syn, cbias, **kw)
+  assert not torch.isnan(scores).any()
+  _close(scores, want_scores)
+  for got, want in zip(part, want_part):
+    _close(got, want)

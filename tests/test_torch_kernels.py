@@ -6,8 +6,12 @@ interpreter, on the same numpy inputs, within 2e-5 (f32 on both sides,
 sums taken in another order: the bound the JAX suite holds its own kernels
 to).  Cases cover softcap None/30, ``-1``-padded and all-padded selections
 with extras, the ragged M = 65 / E = 144 tails and absorb's identity
-permutation, and the five attention kernels at command-r-plus's GQA group
-of 12 (the kernels' head bucket of 16 on the card).
+permutation, the five attention kernels at command-r-plus's GQA group
+of 12 (the kernels' head bucket of 16 on the card), and deepseek-v2's MLA
+shapes: the four decode kernels at one latent head (Hkv = 1) of D = 48
+(G = 4, SMOKE) and 576 (G = 128, full width) with an f32 query beside
+bf16 or f32 rows (the latent core on the card), and ``flash_prefill`` at
+D = 192 with G = 1.
 
 ``test_torch_card.py`` holds each CUDA kernel against its plain version on
 the card (that file imports no JAX, which the card's machine lacks).
@@ -29,7 +33,7 @@ from repro.kernels.synopsis_score import synopsis_score as j_synopsis_score
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.block_gather_attention import block_gather_attention
 from repro_torch.kernels.flash_decode import flash_decode
-from repro_torch.kernels.flash_prefill import flash_prefill
+from repro_torch.kernels.flash_prefill import WGMMA_HEAD_DIMS, flash_prefill
 from repro_torch.kernels.fused_synopsis import fused_synopsis_score_attention
 from repro_torch.kernels.synopsis_build import segment_build
 from repro_torch.kernels.synopsis_score import synopsis_score
@@ -358,3 +362,106 @@ def test_g12_matches_pallas(kernel, D, cap):
     assert tuple(g.shape) == tuple(w.shape)
     assert np.isfinite(np.asarray(g)).all()
     _close(g, w)
+
+
+# ---------------------------------------------------------------------------
+# deepseek-v2's MLA shapes: the latent decode head, the D = 192 prefill
+# ---------------------------------------------------------------------------
+
+def _latent(kernel, G, D, kv_dtype):
+  """(port output, Pallas output) of one decode kernel over one latent
+  key/value head (Hkv = 1) of width D read by G query heads: an f32 query
+  (the absorbed q_eff), the rows in ``kv_dtype`` (rounded alike on both
+  sides), the Pallas kernel in interpret mode."""
+  B, Hkv, C, S = 2, 1, 16, 128
+  M = S // C
+  rng = np.random.default_rng(G + D + (kv_dtype == "bf16"))
+  q = _normal(rng, B, G, D) * np.float32(3.0 * D ** -0.5)
+  sm = 192 ** -0.5
+  jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if kv_dtype == "bf16"
+              else (jnp.float32, torch.float32))
+
+  def both(a):
+    """(port tensor, JAX array) of the same rows in kv_dtype."""
+    return _t(a).to(tdt), jnp.asarray(a, jdt)
+  (tk, jk), (tv, jv) = both(_normal(rng, B, Hkv, S, D)), both(
+      _normal(rng, B, Hkv, S, D))
+  kf, vf = tk.float().numpy(), tv.float().numpy()
+  (tks, jks), (tvs, jvs) = both(kf.reshape(B, Hkv, M, C, D).mean(3)), both(
+      vf.reshape(B, Hkv, M, C, D).mean(3))
+  cbias = np.log(rng.integers(1, 17, (B, M)).astype(np.float32))
+  jq = jnp.asarray(q)
+  if kernel == "flash_decode":
+    bias = np.where(rng.random((B, Hkv, S)) < 0.1, NEG_INF,
+                    0.0).astype(np.float32)
+    return (flash_decode(_t(q), tk, tv, _t(bias), sm_scale=sm),
+            j_flash_decode(jq, jk, jv, jnp.asarray(bias), sm_scale=sm,
+                           block_s=32, interpret=True))
+  if kernel == "synopsis_score":
+    return ((synopsis_score(_t(q), tks, sm_scale=sm),),
+            (j_synopsis_score(jq, jks, sm_scale=sm, block_m=4,
+                              interpret=True),))
+  if kernel == "fused_synopsis":
+    got = fused_synopsis_score_attention(_t(q), tks, tvs, _t(cbias),
+                                         sm_scale=sm)
+    want = j_fused_synopsis(jq, jks, jvs, jnp.asarray(cbias), sm_scale=sm,
+                            block_m=4, interpret=True)
+    return (got[0], *got[1]), (want[0], *want[1])
+  sel = np.stack([[rng.permutation(M)[:3] for _ in range(Hkv)]
+                  for _ in range(B)]).astype(np.int32)
+  sel[1, 0, 2] = -1
+  safe = np.maximum(sel, 0)[..., None]
+  E = 17
+  (tksel, jksel), (tvsel, jvsel) = both(np.take_along_axis(
+      tks.float().numpy(), safe, axis=2)), both(np.take_along_axis(
+          tvs.float().numpy(), safe, axis=2))
+  (tek, jek), (tev, jev) = both(_normal(rng, B, Hkv, E, D)), both(
+      _normal(rng, B, Hkv, E, D))
+  sel_bias = np.full(sel.shape, np.log(C), np.float32)
+  eb = np.where(np.arange(E) < 12, 0.0, NEG_INF)[None].repeat(
+      B, 0).astype(np.float32)
+  return (block_gather_attention(
+      _t(q), tk, tv, _t(sel), cluster_size=C, sm_scale=sm, k_sel=tksel,
+      v_sel=tvsel, sel_bias=_t(sel_bias), extras_k=tek, extras_v=tev,
+      extras_bias=_t(eb)),
+          j_block_gather(jq, jk, jv, jnp.asarray(sel), cluster_size=C,
+                         sm_scale=sm, k_sel=jksel, v_sel=jvsel,
+                         sel_bias=jnp.asarray(sel_bias), extras_k=jek,
+                         extras_v=jev, extras_bias=jnp.asarray(eb),
+                         interpret=True))
+
+
+@pytest.mark.parametrize("kernel", ["fused_synopsis", "block_gather",
+                                    "flash_decode", "synopsis_score"])
+@pytest.mark.parametrize("G,D", [(4, 48), (128, 576)])
+@pytest.mark.parametrize("kv_dtype", ["f32", "bf16"])
+def test_latent_decode_matches_pallas(kernel, G, D, kv_dtype):
+  """The plain version of each decode kernel at MLA's latent shapes (what
+  the latent core runs on the card: D in LATENT_HEAD_DIMS, G up to
+  LATENT_GMAX, an f32 query beside bf16 or f32 rows) against its Pallas
+  kernel, which casts the query to f32 as the plain version does."""
+  assert D in _build.LATENT_HEAD_DIMS and G <= _build.LATENT_GMAX
+  got, want = _latent(kernel, G, D, kv_dtype)
+  assert len(got) == len(want)
+  for g, w in zip(got, want):
+    assert tuple(g.shape) == tuple(w.shape)
+    assert np.isfinite(np.asarray(g)).all()
+    _close(g, w)
+
+
+@pytest.mark.parametrize("S", [64, 100])
+def test_mla_prefill_d192_matches_pallas(S):
+  """flash_prefill at deepseek-v2's MLA prefill width (D = qk_nope +
+  qk_rope = 192, v zero-padded to it, G = 1, scale 192^-0.5) against the
+  Pallas kernel; the card's wgmma kernel takes D = 192 in bf16."""
+  assert 192 in WGMMA_HEAD_DIMS
+  rng = np.random.default_rng(S)
+  q, k = _normal(rng, 1, S, 2, 192), _normal(rng, 1, S, 2, 192)
+  v = np.zeros((1, S, 2, 192), np.float32)
+  v[..., :128] = _normal(rng, 1, S, 2, 128)
+  sm = 192 ** -0.5
+  got = flash_prefill(_t(q), _t(k), _t(v), sm_scale=sm)
+  want = j_flash_prefill(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         sm_scale=sm, block_q=16, block_k=16, interpret=True)
+  _close(got, want)
+  assert not got[..., 128:].any()

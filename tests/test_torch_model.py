@@ -80,7 +80,7 @@ def test_config_is_llama3_8b():
       k: v for k, v in dataclasses.asdict(jsmoke.synopsis).items()
       if k in ("cluster_size", "i_max", "recent", "quant")}
   with pytest.raises(KeyError):
-    get_config("deepseek-v2-236b")
+    get_config("no-such-arch")
 
 
 def test_layers_match_jax():

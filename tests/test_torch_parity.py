@@ -24,7 +24,7 @@ RUNS = ([("gemma2-2b", m, q) for m, q in (
     + [("whisper-medium", m, q) for m, q in (
         ("synopsis", "none"), ("exact", "none"), ("synopsis", "int8+kv"))]
     + [(a, m, "none") for a in ("jamba-v0.1-52b", "arctic-480b",
-                                "command-r-plus-104b")
+                                "command-r-plus-104b", "deepseek-v2-236b")
        for m in ("synopsis", "exact")]
     + [("mamba2-370m", "exact", "none")])
 

@@ -1,5 +1,5 @@
-"""What tests/test_torch_arctic.py and tests/test_torch_command_r.py hold
-alike: an arch's f32 SMOKE config in the port against the JAX package on
+"""What tests/test_torch_arctic.py, tests/test_torch_command_r.py and
+tests/test_torch_deepseek.py hold alike: an arch's f32 SMOKE config in the port against the JAX package on
 the CPU, the JAX weights bridged over (not a test module: each of those
 files calls these checks from its own tests).
 
@@ -29,6 +29,7 @@ from repro.serve.serve_step import make_serve_step as j_make_serve_step
 from repro_torch import bridge
 from repro_torch.configs.registry import get_config, list_archs
 from repro_torch.launch import serve as launch
+from repro_torch.models.common import kv_dims
 from repro_torch.serve import corpus_cache as ccache
 from repro_torch.serve import kv_cache as kvc
 from repro_torch.serve import synopsis_kv as skv
@@ -60,8 +61,9 @@ def load(arch):
   params = bridge.params_from_numpy(jax.tree.map(np.asarray, jparams), cfg,
                                     "cpu")
   prompt = np.random.default_rng(0).integers(0, cfg.vocab, (B, S))
+  Hkv, D = kv_dims(cfg)
   basis = np.array(jax.random.normal(
-      jax.random.PRNGKey(0), (cfg.n_kv_heads * cfg.hd, 3), jnp.float32))
+      jax.random.PRNGKey(0), (Hkv * D, 3), jnp.float32))
   return jcfg, jparams, cfg, params, prompt.astype(np.int32), basis
 
 
@@ -98,9 +100,11 @@ def check_config(arch):
                                                              smoke=smoke)
     for name in CONFIG_FIELDS:
       assert getattr(got, name) == getattr(want, name), (smoke, name)
-    assert (got.moe is None) == (want.moe is None)
-    if got.moe is not None:
-      assert dataclasses.asdict(got.moe) == dataclasses.asdict(want.moe)
+    for name in ("moe", "mla"):
+      a, b = getattr(got, name), getattr(want, name)
+      assert (a is None) == (b is None), (smoke, name)
+      if a is not None:
+        assert dataclasses.asdict(a) == dataclasses.asdict(b), (smoke, name)
     assert [(s.kind, s.use_moe, s.local) for s in got.block_pattern] == \
         [(s.kind, s.use_moe, s.local) for s in want.block_pattern]
     assert dataclasses.asdict(got.synopsis) == {
@@ -302,16 +306,16 @@ def engines(model, n_slots, **kw):
   return jeng, eng
 
 
-def check_engine(model, policy, overlap=False):
+def check_engine(model, policy, overlap=False, **ekw):
   """Same weights, basis and requests: the JAX engine's events, ids,
-  budgets and every step's logits under ``policy`` ("accuracytrader" or
-  "basic").  The deadline is one no step of either engine misses, so
+  budgets and every step's logits under ``policy`` ("accuracytrader",
+  "basic", or "fixed" with ``fixed_budget`` in ``ekw``).  The deadline is one no step of either engine misses, so
   that accuracytrader's controller picks the largest bucket every step in
   both packages, whatever their host clocks (on which they differ: a
   deadline either engine can miss gives budgets, and so ids, that follow
   each engine's own speed)."""
   kw = dict(prompt_len=S, max_new_tokens=NEW, overlap_admission=overlap,
-            policy=policy, deadline_ms=1e6)
+            policy=policy, deadline_ms=1e6, **ekw)
   jeng, eng = engines(model, 2, **kw)
   jlog, log = [], []
   _record_jax(jeng, jlog)
