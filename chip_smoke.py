@@ -75,6 +75,26 @@
     ids; a Zipf window; delta replay of a 4096-token prefix's
     8192-token extension, its KV held against the full prefill's), and the
     loop's ``--batches 2`` serial against ``--pipeline``;
+11b. the scatter-gather cluster tier on its stacked path
+    (``repro_torch.serve.cluster``, ``[cluster]``) on the same weights,
+    N = 4 components over the engine phase's prompt (M = 64), budget 32:
+    one decode step's layer-0 attention in f32 and bf16, kernels against
+    their plain versions (alloc topk with every component FULL, also
+    against the single-component synopsis attention; every component
+    DROP, also against flash_decode over the ring and the self token; a
+    FULL/STAGE1/DROP mix under alloc mass at skew 0 and 1.2), with the
+    records ``<kernel>[cluster]`` of stage 1 over B*N folded rows, stage 2
+    over the m_max*C-row shards and flash_decode over the extras; the
+    budget-32 step of a cluster engine beside the single-component one
+    (replay bitwise equal to its eager call, host / event / device busy
+    ms, stage 1 and stage 2 launched once a layer, the step's copies no
+    more than the query's N-fold repeat and the score table: no shard is
+    copied); three Poisson windows (``--cluster 4`` under accuracytrader
+    and basic; skew 1.2, rotate, R = 2 and a crash of component 1 at step
+    8 under accuracytrader) with p50 / p99, loss, misses, fault counters,
+    availability and the measured per-component ms at full budget; and
+    the SMOKE cluster engine's ids on the card against the CPU under
+    basic and fixed;
 12-14. the other architectures at their published width and depth,
     nothing cut, random bf16 weights from seed 0, each after the previous
     model's weights are freed: gemma2-2b (26 layers alternating local,
@@ -154,8 +174,9 @@ Every path's launch counts are reset just before it runs and read just
 after: the synopsis loop must launch its four kernels, the quantized loops
 their quantized branches and not the unquantized ones, the exact loop
 ``flash_prefill`` and ``flash_decode``, the unfused op ``synopsis_score``,
-``flash_decode`` and ``block_gather_attention``, the engine the four
-synopsis-path kernels (counted at the graphs' capture: a replay runs no
+``flash_decode`` and ``block_gather_attention``, the cluster engine
+stage 1, stage 2 and ``flash_decode`` (records ``<kernel>[cluster]``), the
+engine the four synopsis-path kernels (counted at the graphs' capture: a replay runs no
 Python, so the profiler's rows show the kernels inside the replays); the
 phases 12-18's loops exactly one ``flash_prefill`` an attention layer
 (two with a cross block), two builds (build and absorb) and, a step,
@@ -181,6 +202,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA data sheet
@@ -2232,6 +2254,463 @@ def run_pipeline(cfg, params, dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 11b: the scatter-gather cluster tier on its stacked path, at
+# llama3-8b's full width and depth (the engine phase's shapes)
+# ---------------------------------------------------------------------------
+
+# N components over the engine phase's prompt (M = 64 clusters of 128), the
+# budget of i_max = 32; the second window's Zipf exponent over the
+# components' shares, its route, replicas and fault world (the JAX
+# launcher's --faults example: component 1 crashes at step 8, forever).
+CLUSTER_N, CLUSTER_BUDGET = 4, 32
+CLUSTER_SKEW = 1.2
+CLUSTER_FAULTS = "crash=1@8,seed=3"
+# The kernels a cluster step launches: stage 1 and stage 2 over the B*N
+# folded rows, flash_decode over the frontend's recent ring and self KV.
+CLUSTER_KERNELS = ("fused_synopsis_score_attention", "block_gather_attention",
+                   "flash_decode")
+# The cluster step's copies beyond the single-component step's, a layer:
+# the query's N-fold repeat, and the frontend's small tables (score
+# relayout, selections and budgets cast to int32 or f32: each at most
+# B*Hkv*N*m_max entries of 8 bytes), of which it makes fewer than this.
+# A shard of one component of one layer is B*Hkv*m_max*C*D entries, C*D =
+# 16384 times a table's.
+CLUSTER_FRONTEND_TABLES = 8
+CLUSTER_SOURCES = {
+    "fused_synopsis_score_attention": ("fused_synopsis.cu",
+                                       "fused_synopsis.py:139"),
+    "block_gather_attention": ("block_gather.cu",
+                               "block_gather_attention.py:255"),
+    "flash_decode": ("flash_decode.cu", "flash_decode.py:125")}
+
+
+@contextlib.contextmanager
+def _plain_decode():
+  """Within the block the decode wrappers ``ops`` calls run their plain
+  versions, on the card's tensors."""
+  from repro_torch.kernels import ops, ref
+  with _swapped(ops, "fused_synopsis_score_attention",
+                ref.fused_synopsis_score_attention_ref), \
+      _swapped(ops, "block_gather_attention",
+               ref.fused_gather_attention_ref), \
+      _swapped(ops, "flash_decode", ref.flash_decode_ref):
+    yield
+
+
+def _component_layer(layer, topo):
+  """One layer's single-component slice -> the cluster tier's layout:
+  ``k``/``v`` (B, N, Hkv, m_max*C, D), the tables (B, N, Hkv, m_max, D),
+  ``counts`` (B, N, m_max), zero on the pads (``ClusterStepBackend.
+  write_slot``'s routing, ``route="fixed"``)."""
+  N, Mp = topo.n_components, topo.m_max
+  counts = layer["counts"]
+  C = layer["k"].shape[2] // counts.shape[1]
+  out = {n: layer[n] for n in ("recent_k", "recent_v", "recent_len")}
+  for name, unit in (("k", C), ("v", C), ("k_syn", 1), ("v_syn", 1)):
+    x = layer[name]
+    B, Hkv, _, D = x.shape
+    o = x.new_zeros((B, N, Hkv, Mp * unit, D))
+    for c in range(N):
+      off, cnt = topo.offsets[c] * unit, topo.counts[c] * unit
+      o[:, c, :, :cnt] = x[:, :, off:off + cnt]
+    out[name] = o
+  o = counts.new_zeros((counts.shape[0], N, Mp))
+  for c in range(N):
+    off, cnt = topo.offsets[c], topo.counts[c]
+    o[:, c, :cnt] = counts[:, off:off + cnt]
+  out["counts"] = o
+  return out
+
+
+def _cluster_modes(kind, N):
+  from repro_torch.serve.cluster import MODE_DROP, MODE_FULL, MODE_STAGE1
+  return {"full": [MODE_FULL] * N, "drop": [MODE_DROP] * N,
+          "mixed": ([MODE_FULL, MODE_STAGE1, MODE_FULL, MODE_DROP]
+                    * N)[:N]}[kind]
+
+
+def check_cluster_attention(cfg, dev, g):
+  """One decode step's layer-0 attention of the cluster tier at full width
+  (B = ENGINE_SLOTS lanes of an 8192-token prompt, N = CLUSTER_N, budget
+  32), in f32 and bf16, kernels against their plain versions on the same
+  tensors: ``alloc="topk"`` with every component FULL (also against the
+  single-component synopsis attention at the same budget: the same math),
+  every component DROP (also against flash_decode over the ring and the
+  self token: all that is left), and a FULL/STAGE1/DROP mix under
+  ``alloc="mass"`` at skew 0 and CLUSTER_SKEW.  Returns the records of the
+  three kernels at the tier's shapes (bf16, the skewed mix: stage 1 over
+  B*N rows of m_max centroids, stage 2 over m_max*C-row shards,
+  flash_decode over the extras), keyed ``<kernel>[cluster]``."""
+  from repro_torch.dist.topology import ComponentTopology
+  from repro_torch.kernels import ops, ref
+  from repro_torch.serve import cluster as cl
+  from repro_torch.serve.serve_step import synopsis_decode_attention
+  B, H, Hkv, D = ENGINE_SLOTS, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+  C, R = cfg.synopsis.cluster_size, cfg.synopsis.recent
+  M, N, I = PROMPT // C, CLUSTER_N, CLUSTER_BUDGET
+  sm = D ** -0.5
+  sdpa = torch.nn.functional.scaled_dot_product_attention
+  recs = {}
+  for dtype in (torch.float32, torch.bfloat16):
+    def rnd(*shape):
+      return torch.randn(shape, generator=g, device=dev).to(dtype)
+    k, v = rnd(B, Hkv, PROMPT, D), rnd(B, Hkv, PROMPT, D)
+    layer = {"k": k, "v": v,
+             "k_syn": k.float().reshape(B, Hkv, M, C, D).mean(3).to(dtype),
+             "v_syn": v.float().reshape(B, Hkv, M, C, D).mean(3).to(dtype),
+             "counts": torch.full((B, M), float(C), device=dev),
+             "recent_k": rnd(B, Hkv, R, D), "recent_v": rnd(B, Hkv, R, D),
+             "recent_len": torch.tensor([5, 64, 100, R][:B],
+                                        dtype=torch.int32, device=dev)}
+    q = rnd(B, H, D)
+    self_kv = (rnd(B, Hkv, 1, D), rnd(B, Hkv, 1, D))
+    kw = dict(i_max=I, cluster_size=C, sm_scale=sm, self_kv=self_kv)
+    tol = PARTIALS_TOL[dtype]
+    for label, alloc, skew, modes in (
+        ("topk FULL", "topk", 0.0, "full"), ("DROP", "topk", 0.0, "drop"),
+        ("mass mix", "mass", 0.0, "mixed"),
+        ("mass mix", "mass", CLUSTER_SKEW, "mixed")):
+      topo = ComponentTopology.plan(M, N, skew)
+      csl = _component_layer(layer, topo)
+      csl["fe_mode"] = torch.tensor(_cluster_modes(modes, N),
+                                    dtype=torch.int32, device=dev)
+      attn = cl.make_cluster_attention(topo, alloc=alloc)
+      tag = f"cluster attention {label} skew={skew} N={N} m_max=" \
+            f"{topo.m_max} I={I}"
+      keep = dtype == torch.bfloat16 and skew == CLUSTER_SKEW
+      with (_first_inputs(ops, CLUSTER_KERNELS) if keep
+            else contextlib.nullcontext()) as seen:
+        got, aux = attn(q, csl, **kw)
+      with _plain_decode():
+        want, _ = attn(q, csl, **kw)
+      _check(tag, dtype, got, want, *tol)
+      if modes == "full":
+        single = synopsis_decode_attention(q, layer, **kw)
+        _check(f"{tag} against single-component", dtype, got, single, *tol)
+        if float(aux["fe_cover"].sum()) != min(I, M):
+          raise AssertionError(f"{tag}: the components refined "
+                               f"{aux['fe_cover'].tolist()}, not {I}")
+      if modes == "drop":
+        ek, ev, eb = ops.build_extras(layer["recent_k"], layer["recent_v"],
+                                      layer["recent_len"], self_kv)
+        bias = eb[:, None, :].expand(B, Hkv, eb.shape[1]).contiguous()
+        _check(f"{tag} against flash_decode over the extras", dtype, got,
+               ops.decode_partials(q, ek, ev, bias, sm_scale=sm)[0], *tol)
+      print(f"  [{tag} {str(dtype)[6:]}] fe_cover "
+            f"{[round(x, 2) for x in aux['fe_cover'].tolist()]} fe_mass "
+            f"{[round(x, 3) for x in aux['fe_mass'].tolist()]}")
+      if keep:
+        recs.update(_cluster_records(seen, dtype, G=H // Hkv, C=C,
+                                     sdpa=sdpa))
+    del k, v, layer
+  return recs
+
+
+def _cluster_records(seen, dtype, *, G, C, sdpa):
+  """Each cluster kernel on the inputs the tier gave it (first call),
+  against its plain version, timed beside its bound: bytes that this
+  run's data needs (stage 1 the valid centroid rows, stage 2 the selected
+  clusters' rows)."""
+  from repro_torch.kernels import ops, ref
+  plain = {"fused_synopsis_score_attention":
+               ref.fused_synopsis_score_attention_ref,
+           "block_gather_attention": ref.fused_gather_attention_ref,
+           "flash_decode": ref.flash_decode_ref}
+  recs = {}
+  for name in CLUSTER_KERNELS:
+    args, kw = seen[name]
+    kern = getattr(ops, name)
+    out = kern(*args, **kw)
+    want = plain[name](*args, **kw)
+    q = args[0]
+    BN, H, D = q.shape
+    lib = None
+    if name == "fused_synopsis_score_attention":
+      k_syn, v_syn, cbias = args[1:4]
+      valid = int((cbias > NEG_INF / 2).sum()) * k_syn.shape[1]
+      got, exp = (out[0], *out[1]), (want[0], *want[1])
+      err = _check(f"{name}[cluster] B*N={BN} m_max={k_syn.shape[2]}", dtype,
+                   got, exp, *_stage1_tol(dtype, k_syn.shape[2]))
+      nbytes = _nbytes(q, cbias, *got) + 2 * valid * D * k_syn.element_size()
+      ops_n = 4 * G * D * valid
+    elif name == "block_gather_attention":
+      k, sel = args[1], args[3]
+      n_sel = int((sel >= 0).sum())
+      err = _check(f"{name}[cluster] B*N={BN} S={k.shape[2]} "
+                   f"I={sel.shape[-1]} ({n_sel} selected)", dtype, out,
+                   want, *PARTIALS_TOL[dtype])
+      nbytes = (_nbytes(q, sel, kw["k_sel"], kw["v_sel"], kw["sel_bias"],
+                        *out) + 2 * n_sel * C * D * k.element_size())
+      ops_n = 4 * G * D * (n_sel * C + n_sel)
+    else:
+      ek, ev, bias = args[1:4]
+      err = _check(f"{name}[cluster] extras E={ek.shape[2]}", dtype, out,
+                   want, *PARTIALS_TOL[dtype])
+      nbytes = _nbytes(q, ek, ev, bias, *out)
+      ops_n = 4 * BN * H * ek.shape[2] * D
+      mask = bias.repeat_interleave(H // ek.shape[1], 1)[:, :, None, :]
+      lib = lambda: sdpa(q[:, :, None], ek, ev, attn_mask=mask,  # noqa
+                         enable_gqa=True)
+    src, line = CLUSTER_SOURCES[name]
+    r = _record(f"{name}[cluster]", f"src/repro_torch/kernels/csrc/{src}",
+                f"src/repro/kernels/{line}", dtype, err,
+                lambda: kern(*args, **kw), lambda: plain[name](*args, **kw),
+                nbytes, ops_n, library_fn=lib)
+    recs[r["name"]] = _bound_share(r, dtype)
+  return recs
+
+
+def _copy_rows(fn, calls=3):
+  """The profiler's copy rows of one call of ``fn`` (Memcpy DtoD and the
+  elementwise copy kernels): (rows a call, device ms a call)."""
+  from torch.profiler import ProfilerActivity, profile
+  fn()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(calls):
+      fn()
+    torch.cuda.synchronize()
+  rows = [e for e in prof.key_averages()
+          if e.device_type != torch.autograd.DeviceType.CPU
+          and e.self_device_time_total > 0
+          and ("Memcpy" in e.key or "copy" in e.key.lower())]
+  return (sum(e.count for e in rows) / calls,
+          sum(e.self_device_time_total for e in rows) / 1e3 / calls)
+
+
+def _copy_bytes(fn):
+  """The copies one eager call of ``fn`` makes, from the aten ops
+  themselves (a TorchDispatchMode): copy_, clone, _to_copy, cat and stack,
+  counted by the bytes each writes.  Returns (total bytes, largest single
+  copy's bytes, {op: bytes})."""
+  from torch.utils._python_dispatch import TorchDispatchMode
+  ops_ = ("copy_", "clone", "_to_copy", "cat", "stack")
+  per, big, shapes = {}, [0], {}
+
+  class Count(TorchDispatchMode):
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+      out = func(*args, **(kwargs or {}))
+      name = func._overloadpacket.__name__
+      if name in ops_:
+        outs = out if isinstance(out, (list, tuple)) else (out,)
+        ts = [t for t in outs if isinstance(t, torch.Tensor)]
+        n = sum(t.numel() * t.element_size() for t in ts)
+        per[name] = per.get(name, 0) + n
+        big[0] = max(big[0], n)
+        key = (name, tuple(ts[0].shape), str(ts[0].dtype)[6:])
+        shapes[key] = shapes.get(key, 0) + n
+      return out
+
+  with Count():
+    fn()
+  torch.cuda.synchronize()
+  return sum(per.values()), big[0], per, shapes
+
+
+def cluster_step_table(cfg, params, dev):
+  """The budget-32 step of a cluster engine (N = CLUSTER_N, a
+  FULL/STAGE1/FULL/DROP gather) beside the single-component engine's, both
+  at policy ``fixed`` with the same ENGINE_SLOTS requests resident: the
+  graph replay against its eager call (bitwise), host ms, CUDA-event ms,
+  device busy ms and ops, the kernels' launches inside one replay (stage
+  1 and stage 2 once a layer, not N times), and the step's copies: the
+  profiler's copy rows of a replay, and the bytes the eager call's aten
+  copies write.  The cluster step may copy more than the single step by
+  the query's N-fold repeat and the frontend's score table (B*Hkv*N*m_max
+  f32) a layer, no more, and no copy may be as large as one component's
+  shard of one layer: the shards are read in place."""
+  from repro_torch.serve.cluster import ClusterConfig, ClusterStepBackend
+  from repro_torch.serve.engine import (EngineConfig, ServingEngine,
+                                        make_requests)
+  key = ("step", CLUSTER_BUDGET)
+  rows = {}
+  for label in ("single", "cluster"):
+    torch.cuda.empty_cache()
+    backend = ClusterStepBackend(ClusterConfig(n_components=CLUSTER_N)) \
+        if label == "cluster" else None
+    eng = ServingEngine(cfg, EngineConfig(
+        n_slots=ENGINE_SLOTS, prompt_len=PROMPT, max_new_tokens=ENGINE_NEW,
+        policy="fixed", fixed_budget=CLUSTER_BUDGET), params=params,
+        device=dev, backend=backend)
+    for slot, req in enumerate(make_requests(
+        [0.0] * ENGINE_SLOTS, PROMPT, ENGINE_NEW, cfg.vocab, seed=21)):
+      eng._admit(req, slot)
+    if backend is not None:
+      backend.load_mode(np.asarray(_cluster_modes("mixed", CLUSTER_N)))
+    outs = {}
+    for mode, fn in (("replay", lambda: eng.programs.run(key)),
+                     ("eager", lambda: eng.programs.call_eager(key))):
+      fn()
+      torch.cuda.synchronize()
+      outs[mode] = {k: t.clone() for k, t in eng.step_out.items()}
+    equal = all(torch.equal(outs["replay"][k], outs["eager"][k])
+                for k in outs["replay"])
+    replay = lambda: eng.programs.run(key)  # noqa: E731
+    host, busy, ops_n = _replay_row(eng, CLUSTER_BUDGET)
+    ev = _median_ms(replay, reps=10)
+    _, _, per, _ = _profile_rows(replay, 3)
+    n_copy, copy_ms = _copy_rows(replay)
+    c_bytes, c_big, c_per, c_shapes = _copy_bytes(
+        lambda: eng.programs.call_eager(key))
+    rows[label] = dict(host=host, busy=busy, ops=ops_n, per=per,
+                       bytes=c_bytes, big=c_big, shapes=c_shapes)
+    print(f"[cluster step] {label} budget {CLUSTER_BUDGET}: replay host "
+          f"{host:.3f} ms, events {ev:.3f} ms, device busy {busy:.3f} ms "
+          f"({ops_n:.0f} device ops); kernel launches inside one replay "
+          f"{ {k: n for k, n in per.items() if n} }; replay bitwise equal "
+          f"to its eager call: {equal}")
+    print(f"  [cluster step] {label}: copy rows a replay {n_copy:.0f} "
+          f"({copy_ms:.3f} ms of device time); eager aten copies write "
+          f"{c_bytes / 1e6:.3f} MB ({ {k: n for k, n in c_per.items()} }), "
+          f"the largest {c_big / 1e6:.3f} MB")
+    if not equal:
+      raise AssertionError(f"{label}: the budget-{CLUSTER_BUDGET} replay "
+                           "differs from its eager call")
+    kernels = ("fused_synopsis_score_attention", "block_gather_attention") \
+        + (("flash_decode",) if label == "cluster" else ())
+    if any(per.get(k, 0) != cfg.n_layers for k in kernels):
+      raise AssertionError(f"{label}: the replay does not launch "
+                           f"{kernels} once a layer: {per}")
+    if label == "cluster":
+      m_max = backend.topo.m_max
+    del eng, backend
+  B, H, D, Hkv = ENGINE_SLOTS, cfg.n_heads, cfg.hd, cfg.n_kv_heads
+  C, L = cfg.synopsis.cluster_size, cfg.n_layers
+  itemsize = torch.empty((), dtype=cfg.dtype).element_size()
+  repeat = L * CLUSTER_N * B * H * D * itemsize
+  table = B * Hkv * CLUSTER_N * m_max * 8     # one frontend table, 8 bytes
+  allowed = repeat + L * CLUSTER_FRONTEND_TABLES * table
+  shard = B * Hkv * m_max * C * D * itemsize
+  extra = rows["cluster"]["bytes"] - rows["single"]["bytes"]
+  diff = {k: n - rows["single"]["shapes"].get(k, 0)
+          for k, n in rows["cluster"]["shapes"].items()}
+  top = sorted(((n, k) for k, n in diff.items() if n), reverse=True)[:8]
+  print(f"[cluster step] cluster / single: host "
+        f"{rows['cluster']['host'] / rows['single']['host']:.2f}x, device "
+        f"busy {rows['cluster']['busy'] / rows['single']['busy']:.2f}x; "
+        f"copies {extra / 1e6:+.3f} MB a step: the query's {CLUSTER_N}-fold "
+        f"repeat {repeat / 1e6:.3f} MB, the rest the frontend's tables "
+        f"(allowed: {CLUSTER_FRONTEND_TABLES} of {table} bytes a layer, "
+        f"{allowed / 1e6:.3f} MB in all); largest copy "
+        f"{rows['cluster']['big'] / 1e6:.3f} MB, one component's shard of "
+        f"a layer {shard / 1e6:.1f} MB")
+  print(f"  [cluster step] the copies the cluster step adds, by op, shape "
+        f"and type (bytes a step): {top}")
+  if extra > allowed or rows["cluster"]["big"] >= shard:
+    raise AssertionError("the cluster step copies more than its query's "
+                         "repeat and the frontend's tables: a shard is "
+                         "copied")
+  return rows
+
+
+def _cluster_window(cfg, params, dev, label, ccfg, policy):
+  """One Poisson window (seed 0, ENGINE_RATE req/s for ENGINE_WINDOW_S s)
+  on a cluster engine; prints its metrics, fault counters, availability
+  and the measured per-component ms at full budget.  Returns (summary,
+  launch counts of the build, capture and window)."""
+  from repro_torch.kernels import _build
+  from repro_torch.serve.cluster import ClusterConfig, ClusterStepBackend
+  from repro_torch.serve.engine import (EngineConfig, ServingEngine,
+                                        run_open_loop)
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  _build.reset_launches()
+  t0 = time.perf_counter()
+  backend = ClusterStepBackend(ClusterConfig(**ccfg))
+  eng = ServingEngine(cfg, EngineConfig(
+      n_slots=ENGINE_SLOTS, prompt_len=PROMPT, max_new_tokens=ENGINE_NEW,
+      deadline_ms=ENGINE_DEADLINE_MS, policy=policy), params=params,
+      device=dev, backend=backend)
+  built = time.perf_counter() - t0
+  s = run_open_loop(eng, ENGINE_RATE, ENGINE_WINDOW_S, seed=0)
+  launches = _build.launch_counts()
+  comp_ms = [round(float(x), 3)
+             for x in backend.export().step_ms_per_component(100)]
+  print(f"[cluster engine] {label} {policy}: counts={backend.topo.counts} "
+        f"built and captured {len(eng.programs.graphs)} graphs in "
+        f"{built:.1f}s; n={s['n']} p50={s['p50']:.1f} ms p99="
+        f"{s['p99']:.1f} ms accuracy_loss_pct={s['accuracy_loss_pct']:.3f} "
+        f"deadline_miss_pct={s['deadline_miss_pct']:.1f} mean_budget="
+        f"{s['mean_budget']:.2f} steps={s['steps']} availability_pct="
+        f"{s['availability_pct']:.1f}")
+  print(f"  [cluster engine] {label} {policy}: fault_stats "
+        f"{backend.fault_stats}; per-component ms at full budget {comp_ms}; "
+        f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+  if s["n"] < 8 or not all(len(r.tokens) == ENGINE_NEW + 1
+                           for r in eng.completed if not r.dropped):
+    raise AssertionError(f"{label} {policy}: the window did not serve "
+                         "its requests")
+  del eng, backend
+  return s, launches
+
+
+def check_cluster_parity(dev):
+  """SMOKE llama3-8b in f32 on the tier (N = 4, skew 1.2): the cluster
+  engine on the card (graphs, kernels) and on the CPU (eager, plain
+  versions) generate the same ids under ``basic`` and ``fixed`` (budgets
+  under accuracytrader follow the host clock)."""
+  from repro_torch.configs.registry import get_config
+  from repro_torch.models import transformer as tf
+  from repro_torch.serve.cluster import ClusterConfig, ClusterStepBackend
+  from repro_torch.serve.engine import (EngineConfig, ServingEngine,
+                                        make_requests, run_open_loop)
+  cfg = dataclasses.replace(get_config("llama3-8b", smoke=True),
+                            dtype=torch.float32)
+  params = tf.init_model(cfg, torch.Generator().manual_seed(1), "cpu")
+  for arm in (dict(policy="basic"), dict(policy="fixed", fixed_budget=2)):
+    ids = {}
+    for where, p in (("cpu", params), ("card", _tree_to(params, dev))):
+      eng = ServingEngine(
+          cfg, EngineConfig(n_slots=2, prompt_len=128, max_new_tokens=8,
+                            deadline_ms=1e6, **arm), params=p,
+          device=dev if where == "card" else "cpu",
+          backend=ClusterStepBackend(ClusterConfig(
+              n_components=4, skew=CLUSTER_SKEW)))
+      run_open_loop(eng, 20.0, 0.3, seed=3)
+      ids[where] = [r.tokens for r in sorted(eng.completed,
+                                             key=lambda r: r.rid)]
+    if ids["card"] != ids["cpu"] or not ids["card"]:
+      raise AssertionError(f"cluster engine ids differ on card and CPU "
+                           f"({arm}): {ids['card']} vs {ids['cpu']}")
+    print(f"[cluster parity] smoke f32 N=4 skew={CLUSTER_SKEW} "
+          f"{arm['policy']}: {sum(map(len, ids['card']))} ids of "
+          f"{len(ids['card'])} requests equal on card and CPU")
+
+
+def run_cluster(cfg, params, dev, g):
+  """Phase 11b: the tier's attention at full width, its budget-32 step
+  beside the single-component one, three engine windows (``--cluster 4``
+  under accuracytrader and basic; skew 1.2, rotate, R = 2 and a crash
+  under accuracytrader) and the SMOKE parity.  Returns (records keyed
+  ``<kernel>[cluster]``, their launches on the accuracytrader window's
+  path)."""
+  from repro_torch.serve.resilience import parse_fault_spec
+  t0 = time.perf_counter()
+  recs = check_cluster_attention(cfg, dev, g)
+  torch.cuda.empty_cache()
+  cluster_step_table(cfg, params, dev)
+  launches = None
+  summaries = {}
+  for label, ccfg, policy in (
+      ("N=4", dict(n_components=CLUSTER_N), "accuracytrader"),
+      ("N=4", dict(n_components=CLUSTER_N), "basic"),
+      (f"N=4 skew={CLUSTER_SKEW} rotate R=2 faults={CLUSTER_FAULTS}",
+       dict(n_components=CLUSTER_N, skew=CLUSTER_SKEW, route="rotate",
+            replicas=2, faults=parse_fault_spec(CLUSTER_FAULTS)),
+       "accuracytrader")):
+    s, counts = _cluster_window(cfg, params, dev, label, ccfg, policy)
+    summaries[(label, policy)] = s
+    if launches is None:
+      launches = counts
+  _require_launches("cluster engine", launches,
+                    ENGINE_KERNELS + ("flash_decode",),
+                    absent=("synopsis_score",))
+  check_cluster_parity(dev)
+  print(f"[cluster] phase in {time.perf_counter() - t0:.1f}s")
+  return recs, {f"{k}[cluster]": launches[k] for k in CLUSTER_KERNELS}
+
+
+# ---------------------------------------------------------------------------
 # Phases 12-18: the other architectures at full width (depth cut where
 # DEPTH says): gemma2-2b (local and global layers, softcaps, sandwich
 # norms, tied embeddings; flash_prefill at D = 256; its table-only
@@ -3507,6 +3986,10 @@ def main() -> int:
   print(f"[phase 11] contracts, admission, cache, pipeline in "
         f"{time.perf_counter() - t_new:.1f}s")
 
+  # The scatter-gather cluster tier on the same weights.
+  cluster_records, cluster_launches = run_cluster(cfg, params, dev, g)
+  records.update(cluster_records)
+
   # The other architectures at full width: each its own weights, so
   # llama3-8b's go first, and each model's before the next one's.
   del params
@@ -3533,6 +4016,7 @@ def main() -> int:
         continue
       path_launches[key] = max(path_launches.get(key, 0), counts[key])
   path_launches.update(model_launches)
+  path_launches.update(cluster_launches)
   missing = sorted(set(records) ^ set(path_launches))
   idle = [k for k, n in path_launches.items() if n == 0]
   if missing or idle:

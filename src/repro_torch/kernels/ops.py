@@ -79,15 +79,26 @@ ScalePair = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
 def synopsis_stage1(q, k_syn, v_syn, counts, *, sm_scale: float,
                     cap: Optional[float] = None,
-                    syn_scales: ScalePair = None):
+                    syn_scales: ScalePair = None,
+                    valid: Optional[torch.Tensor] = None):
   """One pass over the synopsis: (scores (B,Hkv,M), partials over ALL
   centroids with log-count bias).  ``syn_scales`` = (k_syn_scale,
-  v_syn_scale) (B, Hkv, M) when the synopsis is quantized."""
+  v_syn_scale) (B, Hkv, M) when the synopsis is quantized.
+
+  ``valid`` (B, M) bool masks padding centroid slots (the cluster tier
+  pads every component's shard to a common ``m_max``): a NEG_INF bias
+  keeps them out of the partial, and NEG_INF scores out of any ranking.
+  It is a bias, not a kernel branch, as in the JAX wrapper."""
   ks, vs = syn_scales if syn_scales is not None else (None, None)
-  return fused_synopsis_score_attention(
-      q.contiguous(), k_syn.contiguous(), v_syn.contiguous(),
-      count_bias(counts), sm_scale=sm_scale, cap=cap, k_scale=ks,
-      v_scale=vs)
+  cbias = count_bias(counts)
+  if valid is not None:
+    cbias = torch.where(valid, cbias, NEG_INF)
+  scores, part = fused_synopsis_score_attention(
+      q.contiguous(), k_syn.contiguous(), v_syn.contiguous(), cbias,
+      sm_scale=sm_scale, cap=cap, k_scale=ks, v_scale=vs)
+  if valid is not None:
+    scores = torch.where(valid[:, None, :], scores, NEG_INF)
+  return scores, part
 
 
 def refine_stage2(q, k, v, selected, k_syn, v_syn, counts, *,
@@ -95,13 +106,18 @@ def refine_stage2(q, k, v, selected, k_syn, v_syn, counts, *,
                   cap: Optional[float] = None,
                   extras: Optional[Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]] = None,
-                  syn_scales: ScalePair = None, kv_scales: ScalePair = None):
+                  syn_scales: ScalePair = None, kv_scales: ScalePair = None,
+                  valid: Optional[torch.Tensor] = None):
   """Selected clusters' original tokens (+), their centroid stage-1 terms
   (-), and the recent/self extras (+) — one fused partial.  The I centroid
   rows of the decrement are gathered here (tiny: I rows, not I*C), and
   dequantized to f32 under ``syn_scales``; ``kv_scales`` = (k_scale,
-  v_scale) (B, Hkv, M) ride into the kernel with a quantized cache."""
+  v_scale) (B, Hkv, M) ride into the kernel with a quantized cache.
+  ``valid`` (B, Hkv, I) bool turns entries of ``selected`` into -1 pads
+  (skipped), as the JAX wrapper's."""
   B, Hkv, _, D = k.shape
+  if valid is not None:
+    selected = torch.where(valid, selected, -1)
   safe = selected.long().clamp_min(0)                         # (B,Hkv,I)
   rows = safe[..., None].expand(-1, -1, -1, D)
   k_sel = qt.gather_rows(k_syn, 2, rows)

@@ -52,8 +52,19 @@ decision is calibrated by measured step times.  ``--contract`` /
 ``--epsilon`` set the serving contract, ``--admission`` /
 ``--slo-classes`` / ``--shed-margin`` / ``--no-shed`` the admission
 policy, ``--cache-capacity`` / ``--no-cache`` / ``--zipf-corpora`` the
-corpus cache and the repeating prompts it serves.  ``--cluster``,
-``--fleet`` and ``--autoscale`` (the multi-component tiers) are refused.
+corpus cache and the repeating prompts it serves.
+
+``--cluster N`` (which implies ``--engine``) runs the decode steps on the
+N-component scatter-gather tier (``serve.cluster``), stacked on one device:
+``--skew`` (Zipf exponent over the components' corpus shares), ``--alloc``
+(mass | topk | gain), ``--route`` (fixed | rotate), ``--replicas`` (R >= 2
+hedges stragglers onto ring replicas), ``--faults`` (an injected fault
+world, e.g. ``crash=1@8,seed=3``), ``--no-recovery`` and ``--retries``
+(the recovery ladder); ``--predictor`` defaults to ewma there.  The
+``[cluster]`` line gives the partition, ``[faults]`` each window's fault
+counters, and the JSON's ``cluster`` entry the measured per-component step
+times at full budget.  ``--fleet`` and ``--autoscale`` (the fleet tier,
+ROADMAP A.7b) are refused.
 
   # the paper's Tables 1-2 load sweep, SMOKE model on the CPU:
   PYTHONPATH=src python -m repro_torch.launch.serve --engine --device cpu \
@@ -68,6 +79,9 @@ corpus cache and the repeating prompts it serves.  ``--cluster``,
       --contract error_bounded --epsilon 0.02 --admission edf \
       --slo-classes interactive:200,batch:800 --cache-capacity 4 \
       --zipf-corpora 4
+  # the scatter-gather tier over 2 components with a crash and replicas:
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
+      --cluster 2 --faults crash=1@2 --replicas 2 --duration 1
 """
 from __future__ import annotations
 
@@ -268,14 +282,16 @@ def run(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int,
 
 
 def _refuse_unported(ap, args) -> None:
-  """The JAX launcher's flags of the multi-component tiers, which the port
-  has not ported (ROADMAP A.7), and what the engine does not take."""
-  for flag, given in (("--cluster", args.cluster > 0),
-                      ("--fleet", args.fleet),
+  """The JAX launcher's flags of the fleet tier, which the port has not
+  ported (ROADMAP A.7b), and what the engine does not take."""
+  for flag, given in (("--fleet", args.fleet),
                       ("--autoscale", args.autoscale)):
     if given:
-      ap.error(f"{flag} is not ported yet (ROADMAP A.7)")
-  if args.engine and (args.mode != "synopsis" or args.budget is not None):
+      ap.error(f"{flag} (the fleet tier) is not ported yet (ROADMAP A.7b)")
+  if args.cluster < 0:
+    ap.error(f"--cluster {args.cluster}: a component count >= 1")
+  if (args.engine or args.cluster) and (args.mode != "synopsis"
+                                        or args.budget is not None):
     ap.error("--engine takes neither --mode exact nor --budget: the engine "
              "has no exact arm (--policy basic is its full-budget "
              "comparison), and --policy sets its budgets")
@@ -288,6 +304,7 @@ def engine_main(args, device: torch.device) -> Dict:
   from repro_torch.serve.corpus_cache import CacheConfig
   from repro_torch.serve.engine import (EngineConfig, ServingEngine,
                                         run_open_loop)
+  from repro_torch.serve.resilience import parse_fault_spec
   from repro_torch.serving.workload import CF_RATES, hour_rate
   cfg = apply_quant(get_config(args.arch, smoke=args.smoke), args.quant)
   C = cfg.synopsis.cluster_size
@@ -302,12 +319,22 @@ def engine_main(args, device: torch.device) -> Dict:
   cache = None
   if args.cache_capacity > 0 and not args.no_cache:
     cache = CacheConfig(capacity=args.cache_capacity, delta_unit=C)
+  backend = None
+  if args.cluster:
+    from repro_torch.serve.cluster import (  # noqa: PLC0415
+        ClusterConfig, ClusterStepBackend)
+    backend = ClusterStepBackend(ClusterConfig(
+        n_components=args.cluster, skew=args.skew, alloc=args.alloc,
+        route=args.route, replicas=args.replicas,
+        predictor=args.predictor or "ewma",
+        faults=parse_fault_spec(args.faults),
+        recovery=not args.no_recovery, retries=args.retries))
   eng = ServingEngine(cfg, EngineConfig(
       n_slots=args.n_slots, prompt_len=prompt_len, max_new_tokens=max_new,
       deadline_ms=args.deadline_ms, policy=args.policy,
-      predictor=args.predictor, seed=args.seed, admission=admission,
-      cache=cache, contract=args.contract, epsilon=args.epsilon),
-      device=device)
+      predictor=args.predictor or "affine", seed=args.seed,
+      admission=admission, cache=cache, contract=args.contract,
+      epsilon=args.epsilon), backend=backend, device=device)
   kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
           else "cpu")
   print(f"[engine] {cfg.name} on {kind} policy={args.policy} "
@@ -318,6 +345,11 @@ def engine_main(args, device: torch.device) -> Dict:
            if args.contract != "deadline" else "")
         + (f" admission={args.admission}" if admission is not None else "")
         + (f" cache={args.cache_capacity}" if cache is not None else ""))
+  if backend is not None:
+    print(f"[cluster] N={args.cluster} (stacked, 1 device) "
+          f"counts={backend.topo.counts} alloc={args.alloc} "
+          f"route={args.route} skew={args.skew} R={args.replicas} "
+          f"predictor={args.predictor or 'ewma'}")
   if args.trace == "cf_rates":
     points = [(f"rate{r}", r * args.rate_scale) for r in CF_RATES]
   else:
@@ -348,8 +380,21 @@ def engine_main(args, device: torch.device) -> Dict:
              f"band_cov={s['band_cover_pct']:.0f}% "
              f"freed={s['freed_budget_mean']:.2f}"
              if "pred_loss_mean" in s else ""))
+    if backend is not None and any(backend.fault_stats.values()):
+      print(f"  [faults] {backend.fault_stats}")
   out = {"trace": args.trace, "policy": args.policy, "device": kind,
          "results": results}
+  if backend is not None:
+    exp = backend.export()
+    out["cluster"] = {
+        "n_components": args.cluster, "skew": args.skew,
+        "alloc": args.alloc, "route": args.route,
+        "counts": list(backend.topo.counts),
+        "comp_ms_full": [round(float(v), 4)
+                         for v in exp.step_ms_per_component(100)],
+    }
+    print(f"[cluster] measured per-component ms at full budget: "
+          f"{out['cluster']['comp_ms_full']}")
   if args.json:
     with open(args.json, "w") as f:
       json.dump(out, f, indent=1, sort_keys=True)
@@ -407,8 +452,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                    help="multiplies every arrival rate of the trace")
   eng.add_argument("--hours", default="3,9,21",
                    help="hours of day of --trace sogou_hourly")
-  eng.add_argument("--predictor", default="affine",
-                   help="affine | ewma | quantile[:pct]")
+  eng.add_argument("--predictor", default=None,
+                   help="affine | ewma | quantile[:pct] (default: affine, "
+                        "ewma with --cluster)")
   eng.add_argument("--contract", default="deadline",
                    choices=["deadline", "error_bounded",
                             "deadline_with_bound"],
@@ -445,18 +491,44 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                         "popularity (0: a fresh prompt per request)")
   eng.add_argument("--json", default=None, metavar="PATH",
                    help="write the sweep's results as JSON")
+  tier = ap.add_argument_group("scatter-gather tier (--cluster N)")
+  tier.add_argument("--cluster", type=int, default=0, metavar="N",
+                    help="run the decode steps on the N-component "
+                         "scatter-gather tier, stacked on one device "
+                         "(implies --engine)")
+  tier.add_argument("--skew", type=float, default=0.0,
+                    help="Zipf exponent over the components' corpus shares")
+  tier.add_argument("--alloc", default="mass",
+                    choices=["mass", "topk", "gain"],
+                    help="the frontend's budget split: by relevance mass, "
+                         "global top-k, or global top-k by marginal gain")
+  tier.add_argument("--route", default="fixed", choices=["fixed", "rotate"],
+                    help="per-slot cluster -> component routing (rotate "
+                         "spreads skewed ranges over the components)")
+  tier.add_argument("--replicas", type=int, default=1, metavar="R",
+                    help="shard copies on the component ring (R >= 2 hedges "
+                         "a predicted straggler onto its replica)")
+  tier.add_argument("--faults", default=None, metavar="SPEC",
+                    help="inject component faults: key=value pairs joined "
+                         "by commas, e.g. 'crash=1@8,stall_rate=0.02,seed=3'"
+                         " (crash entries comp@step joined by +)")
+  tier.add_argument("--no-recovery", action="store_true",
+                    help="no retry to a replica and no stage-1 fallback: a "
+                         "dead shard stalls the gather and is dropped")
+  tier.add_argument("--retries", type=int, default=1, metavar="K",
+                    help="retries per component per step over the replica "
+                         "ring, with exponential backoff (1: one hedge)")
   # Flags of the JAX launcher that the port refuses (_refuse_unported).
-  eng.add_argument("--cluster", type=int, default=0, help=argparse.SUPPRESS)
-  eng.add_argument("--fleet", action="store_true", help=argparse.SUPPRESS)
-  eng.add_argument("--autoscale", action="store_true",
-                   help=argparse.SUPPRESS)
+  tier.add_argument("--fleet", action="store_true", help=argparse.SUPPRESS)
+  tier.add_argument("--autoscale", action="store_true",
+                    help=argparse.SUPPRESS)
   args = ap.parse_args(argv)
   _refuse_unported(ap, args)
   try:
     device = resolve_device(args.device)
   except RuntimeError as e:
     ap.error(str(e))
-  if args.engine:
+  if args.engine or args.cluster:
     return engine_main(args, device)
   cfg = get_config(args.arch, smoke=args.smoke)
   if not n_attn_positions(cfg):

@@ -70,9 +70,23 @@ The corpus cache (``EngineConfig.cache``, ``serve.corpus_cache``): an
 admission whose prompt is cached copies the cached arena into its lane
 (no prefill, no build); one that extends a cached prompt runs only the
 extension (``prefill.make_extend_step`` and
-``synopsis_kv.extend_synopsis``); a miss publishes its arena.  The
-multi-component step backends (ROADMAP A.7) are not ported: asking for
-one raises.
+``synopsis_kv.extend_synopsis``); a miss publishes its arena.
+
+The scatter-gather cluster tier (``backend=serve.cluster.
+ClusterStepBackend``, the stacked path): the backend owns the pool's
+component layout (``zeros_cache``) and the admissions' scatter
+(``write_slot``, corpus-cache hits included), each bucket's step program
+(``step_fn``: one graph per bucket, the gather modes a static buffer
+loaded before each replay), the gather decision before each step
+(``plan_step``) and the accounting after it (``account``, from the step's
+per-component telemetry ``fe_cover`` / ``fe_mass`` read after the wait):
+the clock advances by the modelled *parallel* completion, each request's
+accuracy is the mean of its steps' corpus-share-weighted accuracy, and a
+step that dropped shard mass costs the request its availability.  The
+engine's policy shares the backend's wall predictor, which only the
+backend observes; admissions are serial (no overlap: the parallel clock
+would hide their wall).  Any other backend (the fleet tier, ROADMAP A.7b)
+raises.
 
 :class:`MeasuredStepBackend` exports the measured per-bucket step times to
 the simulator (``serving.service.ScatterGatherService(step_backend=...)``).
@@ -103,6 +117,7 @@ from repro_torch.models.common import (ModelConfig, kv_dims,
 from repro_torch.serve import corpus_cache as ccache
 from repro_torch.serve import kv_cache as kvc
 from repro_torch.serve import synopsis_kv as skv
+from repro_torch.serve.cluster import ClusterStepBackend
 from repro_torch.serve.corpus_cache import CacheConfig
 from repro_torch.serve.graphs import Programs
 from repro_torch.serve.prefill import make_extend_step, make_prefill_step
@@ -161,6 +176,10 @@ class EngineRequest:
   admit_wall_ms: float = 0.0
   tokens: List[int] = dataclasses.field(default_factory=list)
   budgets: List[int] = dataclasses.field(default_factory=list)
+  # Per-step accuracy contributions and dropped shard-mass fractions from
+  # a cluster backend (empty on the single-component path).
+  step_acc: List[float] = dataclasses.field(default_factory=list)
+  step_drop: List[float] = dataclasses.field(default_factory=list)
   accuracy: float = 0.0
   dropped: bool = False            # shed mid-flight (partial execution)
   slo: str = "default"             # SLO class name (admission policy)
@@ -191,12 +210,14 @@ class _Slot:
 
 
 def _refuse_backend(backend) -> None:
-  """The multi-component step backends are not ported; asking for one
-  raises rather than being ignored."""
-  if backend is not None:
+  """Of the step backends the port has the scatter-gather cluster tier
+  (``serve.cluster.ClusterStepBackend``); any other (the fleet tier) raises
+  rather than being ignored."""
+  if backend is not None and not isinstance(backend, ClusterStepBackend):
     raise NotImplementedError(
-        "multi-component step backends (scatter-gather cluster, fleet) are "
-        "not ported yet (ROADMAP A.7)")
+        f"step backend {type(backend).__name__}: only the scatter-gather "
+        "cluster tier (ClusterStepBackend) is ported; the fleet tier "
+        "(FleetStepBackend) is not (ROADMAP A.7b)")
 
 
 def _telemetry_attention(q, cache_sl, *, i_max, cluster_size, sm_scale,
@@ -245,6 +266,7 @@ class ServingEngine:
           "fails in write_slot's dynamic_update_slice (update shape larger "
           "than the operand); run the loop")
     check_quant_device(cfg, device)
+    dev = resolve_device(device)
     C = cfg.synopsis.cluster_size
     if ecfg.prompt_len % C != 0:
       raise ValueError(f"prompt_len {ecfg.prompt_len} % cluster_size {C}")
@@ -282,6 +304,13 @@ class ServingEngine:
     # contracts: under "deadline" the step programs are the plain ones.
     self._telemetry = self.contract != "deadline"
     self._profile_prior: Optional[np.ndarray] = None
+    # The device with its index (the merge tickets are keyed by it).
+    self.dev = torch.empty((0,), device=dev).device
+    # The step backend is bound before the policy is built: the policy
+    # shares its wall predictor.
+    self.backend = backend
+    if backend is not None:
+      backend.bind(self)
     self.controller = self._make_policy()
     # One admission policy always: with no config it is the FIFO queue
     # with no shedding and no classes.  It reaches the demand estimate
@@ -294,7 +323,6 @@ class ServingEngine:
         ecfg.deadline_ms, lambda req: demand()(req))
     self._admit_ms_ewma = 0.0
 
-    dev = resolve_device(device)
     self.corpus_cache = ccache.CorpusCache(
         ecfg.cache, fingerprint=ccache.corpus_fingerprint(
             cfg, dev, ecfg.prompt_len, ecfg.seed))
@@ -321,9 +349,9 @@ class ServingEngine:
     self._bx = kvc.slot_batch_axes(cfg, n, P, synopsis=True)
     # The slot pool and the programs' static buffers: allocated once and
     # written in place from here on (the graphs read fixed addresses).
-    self.cache = kvc.zeros_cache(cfg, n, P, synopsis=True, device=dev)
+    self.cache = (backend.zeros_cache() if backend is not None else
+                  kvc.zeros_cache(cfg, n, P, synopsis=True, device=dev))
     self.tok = torch.zeros((n, 1), dtype=torch.long, device=dev)
-    self.dev = self.tok.device                 # with its index
     self._amask = torch.zeros((n,), dtype=torch.bool, device=dev)
     # Its host side, pinned on the card so that the copy does not wait
     # for the work queued ahead (the admissions of an overlapped step).
@@ -343,10 +371,19 @@ class ServingEngine:
     for name in SSM_LEAVES:
       if name in self.cache:
         self.step_out[name] = torch.zeros_like(self.cache[name])
+    n_ranked = self.M
+    if backend is not None:
+      # The backend's per-layer telemetry, read after each step.
+      tele = (cfg.n_blocks, n_attn_positions(cfg), backend.n_components)
+      for name in ("fe_cover", "fe_mass"):
+        self.step_out[name] = torch.zeros(tele, dtype=torch.float32,
+                                          device=dev)
+      n_ranked = backend.n_components * backend.topo.m_max
     if self._telemetry:
-      # The layer-mean coverage profile of each lane.
+      # The layer-mean coverage profile of each lane (over the global
+      # ranking of every component's padded clusters with a backend).
       self.step_out["est_profile"] = torch.zeros(
-          (n, self.M + 1), dtype=torch.float32, device=dev)
+          (n, n_ranked + 1), dtype=torch.float32, device=dev)
     self.programs = Programs(self.dev)
     for b in self.buckets:
       self.programs.add(("step", b), self._step_program(b))
@@ -358,13 +395,19 @@ class ServingEngine:
 
   def _make_policy(self) -> DeadlineBudgetPolicy:
     """The engine's slice of the control plane: one DeadlineBudgetPolicy
-    whose predictor is calibrated by measured step wall times."""
+    whose predictor is calibrated by measured step wall times.  With a
+    cluster backend it is the backend's predictor, observed by the backend
+    alone (the raw program wall per bucket, in ``account``)."""
     e = self.ecfg
-    kw = {"base": 2.0, "slope": 0.5, "alpha": 0.1} \
-        if e.predictor.startswith("affine") else {}
+    if self.backend is not None:
+      pred = self.backend.predictor
+    else:
+      kw = {"base": 2.0, "slope": 0.5, "alpha": 0.1} \
+          if e.predictor.startswith("affine") else {}
+      pred = make_predictor(e.predictor, **kw)
     return DeadlineBudgetPolicy(
         policy=e.policy, buckets=self.buckets, i_max_cap=self.M,
-        predictor=make_predictor(e.predictor, **kw),
+        predictor=pred,
         fixed_budget=e.fixed_budget, contract=e.contract, epsilon=e.epsilon,
         estimator=self.estimator)
 
@@ -375,10 +418,15 @@ class ServingEngine:
   def _step_program(self, budget: int) -> Callable[[], None]:
     """The read-only serve step at ``budget``: pool + token column ->
     ``step_out`` (with the contracts' telemetry, the layer-mean coverage
-    profile too)."""
-    step = make_serve_step(
-        self.cfg, mode="synopsis", i_max=budget,
-        attention_fn=_telemetry_attention if self._telemetry else None)
+    profile too).  A cluster backend's step reads its gather modes from
+    the backend's static buffer and adds its per-layer ``fe_cover`` /
+    ``fe_mass``; its attention gives each layer's profile itself."""
+    if self.backend is not None:
+      step = self.backend.step_fn(budget)
+    else:
+      step = make_serve_step(
+          self.cfg, mode="synopsis", i_max=budget,
+          attention_fn=_telemetry_attention if self._telemetry else None)
     params, cache, tok, out = self.params, self.cache, self.tok, self.step_out
     n = self.ecfg.n_slots
     # The pattern positions whose layers run the synopsis (and report its
@@ -388,15 +436,18 @@ class ServingEngine:
     def program():
       logits, st = step(params, cache, tok)
       out["logits"].copy_(logits)
-      for name in ("k_delta", "v_delta", "pos") + SSM_LEAVES:
+      for name in ("k_delta", "v_delta", "pos", "fe_cover",
+                   "fe_mass") + SSM_LEAVES:
         if name in out:
           out[name].copy_(st[name])
       if "est_profile" in out:
         # Every synopsis layer's profile (nb * n_glob * n, M+1), then
         # their mean.
-        prof = coverage_profile(
-            st["stage1_scores"].flatten(0, 2),
-            cache["counts"].index_select(1, glob).flatten(0, 2))
+        prof = st.get("est_profile")
+        if prof is None:
+          prof = coverage_profile(
+              st["stage1_scores"].flatten(0, 2),
+              cache["counts"].index_select(1, glob).flatten(0, 2))
         out["est_profile"].copy_(prof.view(-1, n, prof.shape[-1]).mean(0))
 
     return program
@@ -478,7 +529,9 @@ class ServingEngine:
     that they do not land in the graphs' pool."""
     self._warming = True
     if self.dev.type == "cuda":
-      _build.tickets(self.dev, self.ecfg.n_slots * self.cfg.n_heads)
+      # A cluster step runs its stages over n_slots * N rows.
+      fold = self.backend.n_components if self.backend is not None else 1
+      _build.tickets(self.dev, self.ecfg.n_slots * fold * self.cfg.n_heads)
     warm = self._warm_buckets()
     req = EngineRequest(rid=-1, arrival_ms=0.0,
                         prompt=np.zeros((self.ecfg.prompt_len,), np.int32),
@@ -520,7 +573,7 @@ class ServingEngine:
         else:                 # "extend": publishing pins the new entry
           entry = self._delta_admit(entry, req.prompt)
         self._slot_entry[slot] = entry.key
-        kvc.write_slot(self.cache, entry.arena, slot, self._bx)
+        self._write_slot(entry.arena, slot)
         return entry.first_token
     self.prefills += 1
     logits, cache1 = self._prefill(self.params, self._stage(req.prompt))
@@ -528,8 +581,16 @@ class ServingEngine:
     first = logits.argmax(-1)
     if use_cache:
       self._slot_entry[slot] = cc.publish(req.prompt, syn, first).key
-    kvc.write_slot(self.cache, syn, slot, self._bx)
+    self._write_slot(syn, slot)
     return first
+
+  def _write_slot(self, syn, slot: int) -> None:
+    """One request's built (or cached) B = 1 cache into lane ``slot``: the
+    cluster backend scatters its arena over the components."""
+    if self.backend is not None:
+      self.backend.write_slot(self.cache, syn, slot)
+    else:
+      kvc.write_slot(self.cache, syn, slot, self._bx)
 
   def _delta_admit(self, entry: ccache.CacheEntry,
                    prompt) -> ccache.CacheEntry:
@@ -628,13 +689,19 @@ class ServingEngine:
       self._slot_entry[slot] = None
     req.dropped = s.remaining > 0      # shed mid-flight, not finished
     policy = self.ecfg.policy
+    # With a cluster backend each step reported the corpus-share-weighted
+    # accuracy of its gather (refined / stage-1 floor / skipped).
+    stepwise = float(np.mean(req.step_acc)) if req.step_acc else None
     if policy == "basic":
-      req.accuracy = 1.0
+      req.accuracy = stepwise if stepwise is not None else 1.0
     elif policy == "partial":
       # Partial execution: a result missing at the deadline is skipped;
       # its entire accuracy contribution is lost (paper §5).
       late = req.dropped or req.latency_ms > self._deadline_of(req)
-      req.accuracy = 0.0 if late else 1.0
+      req.accuracy = 0.0 if late else (
+          stepwise if stepwise is not None else 1.0)
+    elif stepwise is not None:
+      req.accuracy = stepwise
     else:
       # Stage 1 always landed; each step covered budget/M of the ranked
       # clusters exactly plus the synopsis estimate of the rest.
@@ -652,6 +719,13 @@ class ServingEngine:
     self.completed.append(req)
     self.events.append(("retire", req.rid, slot, self.now_ms))
 
+  def _step_deadline(self, active: Sequence[int]) -> float:
+    """The cluster frontend's per-step deadline: the most urgent resident
+    request's remaining time spread over its remaining decode steps."""
+    vals = [max(self._abs_deadline(self.slots[i].req) - self.now_ms,
+                0.0) / max(self.slots[i].remaining, 1) for i in active]
+    return min(vals) if vals else float("inf")
+
   def _decode_step(self, active: Sequence[int],
                    budget: Optional[int] = None,
                    admit: Optional[Callable[[], None]] = None) -> None:
@@ -663,20 +737,36 @@ class ServingEngine:
     (host work it pays for), and the controller does not observe it."""
     if budget is None:
       budget = self._pick_budget(active)
+    plan = None
+    if self.backend is not None:
+      deadline = self._step_deadline(active) if not self._warming \
+          else float("inf")
+      plan = self.backend.plan_step(budget, deadline)
     t0 = time.perf_counter()
     mask = self._amask_host      # the last step's copy has completed
     mask.zero_()
     mask[list(active)] = True
     self._amask.copy_(mask, non_blocking=True)
+    if plan is not None:
+      self.backend.load_mode(plan.mode)
     self.programs.run(("step", budget))
     if admit is not None:
       admit()
     self.programs.run("append")
     toks = self._new_tok.cpu().numpy()  # waits for the step
     dt = (time.perf_counter() - t0) * 1e3
+    step_acc = step_drop = None
+    if plan is not None:
+      st = {name: self.step_out[name].cpu().numpy()
+            for name in ("fe_cover", "fe_mass")}
+      info = self.backend.account(budget, dt, plan, st,
+                                  warming=self._warming)
+      dt = info["parallel_ms"]       # the frontend-observed completion
+      step_acc, step_drop = info["step_acc"], info["drop_share"]
     self.now_ms += dt
+    # With a backend its predictor was observed in account.
     if self.ecfg.policy == "accuracytrader" and not self._warming \
-        and admit is None:
+        and admit is None and self.backend is None:
       self.controller.observe(budget, dt)
     self.step_log.append((budget, dt, len(active)))
     # The contracts' telemetry: this step's layer-mean coverage profile per
@@ -694,6 +784,9 @@ class ServingEngine:
       s = self.slots[i]
       s.req.tokens.append(int(toks[i]))
       s.req.budgets.append(budget)
+      if step_acc is not None:
+        s.req.step_acc.append(step_acc)
+        s.req.step_drop.append(step_drop)
       if prof is not None:
         s.req.est_raw.append(self.estimator.raw_loss(prof[i], budget))
         s.req.est_spread.append(
@@ -742,7 +835,8 @@ class ServingEngine:
         admissions.append((kept.pop(0), free.pop(0)))
       ready = kept + gated
       active = [i for i, s in enumerate(self.slots) if s is not None]
-      if admissions and active and self.ecfg.overlap_admission:
+      if admissions and active and self.ecfg.overlap_admission \
+          and self.backend is None:
         self._admit_overlapped(admissions, active)
         continue
       for req, slot in admissions:
@@ -822,10 +916,12 @@ class ServingEngine:
     # Goodput: requests actually answered within their own deadline.
     s["goodput_n"] = sum(1 for r in served if not r.dropped
                          and r.latency_ms <= self._deadline_of(r))
-    # Availability: a served request answered in full (not dropped
-    # mid-flight).
+    # Availability: a served request answered in full: not dropped
+    # mid-flight, and no step of it dropped shard mass (a stage-1
+    # fallback still answers).
     s["availability_pct"] = 100.0 * float(np.mean(
-        [not r.dropped for r in served])) if served else 100.0
+        [not r.dropped and all(d <= 0.0 for d in r.step_drop)
+         for r in served])) if served else 100.0
     for p in (10, 50, 90):
       s[f"acc_p{p}"] = float(np.percentile(accs, p)) if accs else 0.0
     return s
@@ -882,6 +978,8 @@ class ServingEngine:
     if budget not in self.buckets:
       raise ValueError(f"budget {budget} not a bucket {self.buckets}")
     key = ("step", budget)
+    if self.backend is not None:
+      self.backend.load_mode(self.backend.full_mode())
     if self.programs.captures and key not in self.programs.graphs:
       self.programs.capture(key)
     self.programs.run(key)
@@ -952,12 +1050,18 @@ def make_zipf_requests(arrivals_ms: Sequence[float], prompt_len: int,
 def run_open_loop(engine: ServingEngine, rate_per_s: float,
                   duration_s: float, seed: int = 0,
                   slo_of: Optional[Callable[[int], str]] = None,
-                  zipf_corpora: int = 0) -> Dict[str, float]:
+                  zipf_corpora: int = 0,
+                  service_seed: Optional[int] = None) -> Dict[str, float]:
   """One measurement window of Poisson arrivals at ``rate_per_s``; the
   arrivals and prompts derive from ``seed``.  ``slo_of(rid)`` assigns each
   request its SLO class; ``zipf_corpora`` > 0 draws the prompts from that
-  many Zipf-popular corpora (:func:`make_zipf_requests`)."""
+  many Zipf-popular corpora (:func:`make_zipf_requests`).  A cluster
+  backend's interference draws and fault world reseed from
+  ``service_seed`` (default ``seed``), so a window's draws are a pure
+  function of its seeds, whatever ran before."""
   engine.reset()
+  if engine.backend is not None:
+    engine.backend.reseed(seed if service_seed is None else service_seed)
   arrivals = poisson_arrivals(rate_per_s, duration_s, seed=seed)
   e = engine.ecfg
   if zipf_corpora > 0:

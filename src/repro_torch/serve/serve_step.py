@@ -29,10 +29,13 @@ rope, as the JAX step does.  In the loop those are the decoder's own
 prompt KV from the causal "cross" prefill; with frames, the encoder's.
 
 ``attention_fn`` replaces the synopsis decode attention (the engine's
-contract telemetry): it returns ``(ctx, aux)``, and each per-layer ``aux``
-leaf comes out of the step stacked over the layers that run it (nb, the
-global positions of the pattern, ...): local layers do not call it.
-Without one the step is the plain one, op for op.
+contract telemetry, the scatter-gather tier of ``serve.cluster``): it
+returns ``(ctx, aux)``, and each per-layer ``aux`` leaf comes out of the
+step stacked over the layers that run it (nb, the global positions of the
+pattern, ...): local layers do not call it.  Cache leaves whose names start
+with ``fe_`` (frontend inputs: the tier's per-component gather modes) reach
+every such layer whole, not sliced.  Without one the step is the plain
+one, op for op.
 
 A mamba layer (mamba2, jamba) runs ``models.ssm.ssm_forward``'s S = 1
 decode from the cache's ``conv_state`` / ``ssd_state`` in both modes, and
@@ -286,6 +289,10 @@ def make_serve_step(cfg: ModelConfig, *, mode: str = "synopsis",
             layer_cache["recent_len"] = cache["recent_len"]
             layer_cache.update((kk, cache[kk][b, ai])
                                for kk in qt.SCALE_LEAVES if kk in cache)
+            # Frontend inputs (the cluster tier's per-component gather
+            # modes) go to every layer whole.
+            layer_cache.update((kk, t) for kk, t in cache.items()
+                               if kk.startswith("fe_"))
           mix, (kd, vd), aux = _attn_decode_layer(
               h, lp["attn"], cfg, spec.local, layer_cache, pos, mode, i_max,
               attention_fn)

@@ -17,10 +17,23 @@ the service latency (paper §1).  Techniques:
 
 ``step_backend`` closes the loop with the real kernel path: the
 ``accuracytrader`` components then serve in the engine's measured
-per-bucket step time (``repro_torch.serve.engine.MeasuredStepBackend``)
-instead of the modelled ``base + slope * items``.  Injected faults with
-replica failover (``faults``) belong to the multi-component tiers
-(ROADMAP A.7), the ε-or-deadline contracts to ROADMAP A.3.
+per-bucket step time (``repro_torch.serve.engine.MeasuredStepBackend``),
+or in the cluster tier's measured per-component time
+(``serve.cluster.ClusterMeasuredExport``, one entry per component),
+instead of the modelled ``base + slope * items``.
+
+``faults`` injects the cluster tier's seed-deterministic fault world
+(``serve.resilience``), keyed by request id: a dead component's shard
+fails over to its ring replica under ``accuracytrader`` with ``replicas``
+>= 2 (queueing behind the replica's own work), else falls back to the
+frontend's stage-1 synopsis; the exact techniques have no ladder, wait out
+a hard timeout and lose the shard (``availability_pct``).
+
+The ε-or-deadline contracts: under ``error_bounded`` the budget is clamped
+to the smallest bucket the accuracy model says meets ``epsilon``; under
+both new contracts the predicted loss is tracked (``pred_loss_mean``).
+Here the accuracy model is the truth (there are no stage-1 scores to
+read), so the prediction is exact by construction.
 """
 from __future__ import annotations
 
@@ -31,6 +44,8 @@ import numpy as np
 
 from repro_torch.control import AffinePredictor, BudgetController, TailTracker
 from repro_torch.control.policy import check_contract
+from repro_torch.dist.topology import zipf_weights
+from repro_torch.serve.resilience import FaultPlan
 from repro_torch.serving.latency import ComponentModel
 
 
@@ -52,17 +67,13 @@ class ServiceConfig:
   # components "hot" (they own more of the corpus and serve slower).
   skew: float = 0.0
   seed: int = 0
-  faults: Optional[object] = None  # ROADMAP A.7
+  faults: Optional[object] = None  # serve.resilience.FaultSpec
+  replicas: int = 1            # >= 2: a dead component's shard is served
+                               # by its ring replica
   shed: bool = False           # predictive shed-at-admission
   shed_margin: float = 1.0     # shed when backlog+service > ddl*margin
-  contract: str = "deadline"   # the port runs "deadline" (ROADMAP A.3)
-
-
-def zipf_weights(n: int, s: float) -> np.ndarray:
-  """Normalised Zipf(s) weights over ``n`` ranks (s=0 -> uniform)."""
-  ranks = np.arange(1, n + 1, dtype=np.float64)
-  w = ranks ** (-float(s))
-  return w / w.sum()
+  contract: str = "deadline"   # control.policy.CONTRACTS
+  epsilon: float = 0.02        # error_bounded's loss target
 
 
 class ScatterGatherService:
@@ -70,13 +81,14 @@ class ScatterGatherService:
                accuracy_fn: Optional[Callable[[float], float]] = None,
                step_backend=None):
     check_contract(cfg.contract)
-    if cfg.faults is not None:
-      raise NotImplementedError(
-          "injected faults belong to the multi-component tiers, which the "
-          "port has not ported yet (ROADMAP A.7)")
     self.cfg = cfg
+    self.pred_tracker: List[float] = []
     self.step_backend = step_backend
-    if cfg.skew:
+    self.per_component_ms = step_backend is not None and hasattr(
+        step_backend, "step_ms_per_component")
+    # A per-component measured export already holds the tier's skew, so
+    # the modelled multiplier stays 1 then.
+    if cfg.skew and not self.per_component_ms:
       scales = zipf_weights(cfg.n_components, cfg.skew) * cfg.n_components
     else:
       scales = np.ones((cfg.n_components,))
@@ -98,8 +110,11 @@ class ScatterGatherService:
     # the fig-4-style concentration curve.
     self.accuracy_fn = accuracy_fn or _default_concentration
     self.rng = np.random.default_rng(cfg.seed)
+    # The cluster tier's fault world, keyed here by request id.
+    self.fault_plan = FaultPlan(cfg.faults, cfg.n_components)
     self.shed_n = 0
     self.total_n = 0
+    self.avail_tracker: List[float] = []
 
   # -- one request -----------------------------------------------------------
   def submit(self, req: Request) -> Dict[str, float]:
@@ -108,6 +123,7 @@ class ScatterGatherService:
     done_times = []
     processed_frac = []
     self.total_n += 1
+    fstate = self.fault_plan.at(req.rid)
 
     queue_delay = float(np.mean([
         max(0.0, c.busy_until - req.arrival_ms) for c in self.components]))
@@ -121,18 +137,45 @@ class ScatterGatherService:
         return {"latency_ms": 0.0, "accuracy": 0.0, "shed": True}
     if tech == "accuracytrader":
       budget = self.controller.budget_for(cfg.deadline_ms, queue_delay)
+      if cfg.contract == "error_bounded":
+        budget = min(budget, self._epsilon_budget())
       measured = None
       if self.step_backend is not None:
-        measured = self.step_backend.step_ms(budget)
-    for comp in self.components:
+        # Each component indexes its own entry of a per-component vector.
+        measured = (self.step_backend.step_ms_per_component(budget)
+                    if self.per_component_ms
+                    else self.step_backend.step_ms(budget))
+    lost_mass = 0
+    for i, comp in enumerate(self.components):
       if tech in ("basic", "partial", "reissue"):
         items = cfg.full_items
         service_ms = None
       else:
         items = budget
         service_ms = measured
+      if not fstate.alive[i]:
+        # AccuracyTrader's ladder fails a dead component's shard over to
+        # its ring replica (queueing behind the replica's own work), else
+        # falls back to the frontend's stage-1 synopsis; the exact
+        # techniques wait out a hard timeout and lose the shard.
+        j = (i + 1) % cfg.n_components
+        if tech == "accuracytrader" and cfg.replicas > 1 \
+            and fstate.alive[j]:
+          done_times.append(self.components[j].submit(
+              req.arrival_ms, items, service_ms=service_ms,
+              scale=float(fstate.slow[j])))
+          processed_frac.append(items / cfg.full_items)
+        elif tech == "accuracytrader":
+          done_times.append(req.arrival_ms + comp.base_ms)
+          processed_frac.append(0.0)
+        else:
+          done_times.append(req.arrival_ms + 3.0 * cfg.deadline_ms)
+          processed_frac.append(0.0)
+          lost_mass += 1
+        continue
       done_times.append(comp.submit(req.arrival_ms, items,
-                                    service_ms=service_ms))
+                                    service_ms=service_ms,
+                                    scale=float(fstate.slow[i])))
       processed_frac.append(items / cfg.full_items)
 
     if tech == "reissue" and self.class_latencies:
@@ -171,13 +214,30 @@ class ScatterGatherService:
       comp_lat = max(lat)
       self.controller.observe(budget, comp_lat)
       acc = float(np.mean([self.accuracy_fn(u) for u in processed_frac]))
+      if cfg.contract != "deadline":
+        # The model is the truth here: predicted == realized loss.
+        self.pred_tracker.append(1.0 - acc)
     else:
-      acc = 1.0
+      # Exact techniques: a lost shard's contribution is missing.
+      acc = 1.0 - lost_mass / cfg.n_components
       comp_lat = max(lat)
 
     self.tracker.observe(comp_lat)
     self.acc_tracker.append(acc)
+    self.avail_tracker.append(0.0 if lost_mass else 1.0)
     return {"latency_ms": comp_lat, "accuracy": acc}
+
+  def _epsilon_budget(self) -> int:
+    """Smallest controller bucket whose modelled loss meets ε; ε <= 0
+    demands exactness, which only the full ``i_max_cap`` spend gives (the
+    rule of ``AccuracyEstimator.bucket_for_epsilon``)."""
+    cfg = self.cfg
+    if cfg.epsilon <= 0.0:
+      return cfg.i_max_cap
+    for b in self.controller.buckets:
+      if 1.0 - self.accuracy_fn(b / cfg.full_items) <= cfg.epsilon:
+        return int(b)
+    return cfg.i_max_cap
 
   def run_open_loop(self, arrival_rate_per_s: float,
                     duration_s: float) -> Dict[str, float]:
@@ -186,6 +246,8 @@ class ScatterGatherService:
     tracker resets (each call = one reported session, as in Fig 5)."""
     self.tracker = TailTracker()
     self.acc_tracker = []
+    self.avail_tracker = []
+    self.pred_tracker = []
     self.shed_n = 0
     self.total_n = 0
     t = max((c.busy_until for c in self.components), default=0.0)
@@ -199,8 +261,11 @@ class ScatterGatherService:
     s = self.tracker.summary()
     s["accuracy_loss_pct"] = 100.0 * (1.0 - float(np.mean(self.acc_tracker)))
     s["shed_pct"] = 100.0 * self.shed_n / max(1, self.total_n)
-    # Every served request answered its full shard mass (no faults here).
-    s["availability_pct"] = 100.0 if self.total_n > self.shed_n else 0.0
+    s["availability_pct"] = (100.0 * float(np.mean(self.avail_tracker))
+                             if self.avail_tracker else 0.0)
+    if self.cfg.contract != "deadline":
+      s["pred_loss_mean"] = float(np.mean(self.pred_tracker)) \
+          if self.pred_tracker else 0.0
     return s
 
 

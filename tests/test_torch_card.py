@@ -1738,3 +1738,163 @@ def test_card_extend_synopsis_equals_the_cpu(quant):
       assert float((step > 0).float().mean()) < 0.01, name
     else:
       _close(got[name], want[name], BF16_OUT_TOL)
+
+
+# -- the scatter-gather cluster tier (stacked) ---------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_card_cluster_stages_over_folded_rows(cuda, dtype):
+  """The tier's layout (B, N, Hkv, m_max*C, D) folds, without a copy, into
+  B*N rows: stage 1 (with the padding slots masked by ``valid``) and stage
+  2 over them are ONE launch each, against their plain versions on the
+  CPU.  The components' shards here own 5, 3 and 2 of m_max = 5
+  clusters."""
+  B, N, Hkv, G, D, Mp, C = 2, 3, 2, 4, 128, 5, 16
+  own = (5, 3, 2)
+  g = torch.Generator().manual_seed(7)
+  k = _rand(g, B, N, Hkv, Mp * C, D)
+  v = _rand(g, B, N, Hkv, Mp * C, D)
+  counts = torch.zeros(B, N, Mp)
+  for c, n in enumerate(own):
+    counts[:, c, :n] = float(C)
+  k_syn = k.reshape(B, N, Hkv, Mp, C, D).mean(4)
+  v_syn = v.reshape(B, N, Hkv, Mp, C, D).mean(4)
+  q = _rand(g, B, Hkv * G, D)
+  folded, out = {}, {}
+  for where in ("cpu", cuda):
+    t = {n: x.to(torch.float32 if n == "counts" else dtype).to(where)
+         for n, x in dict(k=k, v=v, k_syn=k_syn, v_syn=v_syn, q=q,
+                          counts=counts).items()}
+    fold = {n: t[n].view(B * N, *t[n].shape[2:])
+            for n in ("k", "v", "k_syn", "v_syn", "counts")}
+    assert all(fold[n].data_ptr() == t[n].data_ptr() for n in fold)
+    fold["q"] = t["q"][:, None].expand(B, N, *q.shape[1:]).reshape(
+        B * N, *q.shape[1:])
+    folded[str(where)] = fold
+    before = _build.launch_counts()
+    scores, p_syn = ops.synopsis_stage1(
+        fold["q"], fold["k_syn"], fold["v_syn"], fold["counts"],
+        sm_scale=D ** -0.5, valid=fold["counts"] > 0)
+    if where != "cpu":
+      assert _build.launch_counts()["fused_synopsis_score_attention"] \
+          - before["fused_synopsis_score_attention"] == 1
+    out[str(where)] = (scores, *p_syn)
+  got, want = out["cuda"], out["cpu"]
+  masked = want[0] <= NEG_INF / 2
+  assert torch.equal(got[0].cpu() <= NEG_INF / 2, masked)
+  assert int(masked.sum()) == B * Hkv * (3 * Mp - sum(own))
+  _close(torch.where(masked, 0.0, got[0].cpu()),
+         torch.where(masked, 0.0, want[0]), TOL[dtype])
+  for a, b in zip(got[1:], want[1:]):
+    _close(a, b, TOL[dtype])
+  # Stage 2 over the shards, on one selection (the CPU's top 3, -1 on
+  # padding slots).
+  top = torch.topk(want[0], 3, dim=-1)
+  sel = torch.where(top.values > NEG_INF / 2, top.indices, -1).to(
+      torch.int32)
+  assert bool((sel < 0).any())
+  for where, fold in folded.items():
+    before = _build.launch_counts()
+    out[where] = ops.refine_stage2(
+        fold["q"], fold["k"], fold["v"], sel.to(fold["k"].device),
+        fold["k_syn"], fold["v_syn"], fold["counts"], cluster_size=C,
+        sm_scale=D ** -0.5)
+    if where != "cpu":
+      assert _build.launch_counts()["block_gather_attention"] \
+          - before["block_gather_attention"] == 1
+  for a, b in zip(out["cuda"], out["cpu"]):
+    _close(a, b, TOL[dtype])
+
+
+def _cluster_engine(dev, **kw):
+  from repro_torch.configs.registry import get_config
+  from repro_torch.serve.cluster import ClusterConfig, ClusterStepBackend
+  from repro_torch.serve.engine import EngineConfig, ServingEngine
+  cfg = get_config("llama3-8b", smoke=True)                   # bf16
+  return ServingEngine(cfg, EngineConfig(
+      n_slots=2, prompt_len=ENGINE_PROMPT, max_new_tokens=ENGINE_NEW, **kw),
+      device=dev, backend=ClusterStepBackend(ClusterConfig(
+          n_components=2, skew=1.2, replicas=2)))
+
+
+@pytest.fixture(scope="module")
+def card_cluster_engine():
+  """A bf16 SMOKE cluster engine (accuracytrader: every bucket captured)
+  after a trace, its gather modes set to FULL, STAGE1."""
+  eng = _cluster_engine(_card_or_skip())
+  _serve_a_trace(eng)
+  eng.backend.load_mode(np.asarray([2, 1], np.int32))
+  return eng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [0, 1, 2, 4])
+def test_card_cluster_step_graph_replays_its_eager_call(card_cluster_engine,
+                                                        budget):
+  """Each bucket's cluster step graph writes the bits its eager call
+  writes, the per-component telemetry included; the modes are read from
+  the static buffer at replay (a mode changed after capture changes the
+  replay's output)."""
+  eng = card_cluster_engine
+  key = ("step", budget)
+  assert key in eng.programs.graphs
+  eng.programs.run(key)
+  replayed = _step_outputs(eng)
+  eng.programs.call_eager(key)
+  eager = _step_outputs(eng)
+  assert {"fe_cover", "fe_mass"} <= set(replayed)
+  for name, t in replayed.items():
+    assert torch.equal(t, eager[name]), name
+  if budget:
+    eng.backend.load_mode(np.asarray([2, 2], np.int32))
+    eng.programs.run(key)
+    full = _step_outputs(eng)
+    eng.backend.load_mode(np.asarray([2, 1], np.int32))
+    assert not torch.equal(full["logits"], replayed["logits"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(**ENGINE_ARMS)
+def test_card_cluster_engine_equals_the_cpu(arm):
+  """SMOKE f32, N = 4 at skew 1.2: the cluster engine's ids on the card
+  (graphs, kernels) are the CPU's (eager, plain versions)."""
+  import dataclasses
+
+  from repro_torch.configs.registry import get_config
+  from repro_torch.models import transformer as tf
+  from repro_torch.serve.cluster import ClusterConfig, ClusterStepBackend
+  from repro_torch.serve.engine import (EngineConfig, ServingEngine,
+                                        run_open_loop)
+  dev = _card_or_skip()
+  cfg = dataclasses.replace(get_config("llama3-8b", smoke=True),
+                            dtype=torch.float32)
+  params = tf.init_model(cfg, torch.Generator().manual_seed(1), "cpu")
+  ids = {}
+  for where in ("cpu", dev):
+    eng = ServingEngine(cfg, EngineConfig(
+        n_slots=2, prompt_len=128, max_new_tokens=ENGINE_NEW,
+        deadline_ms=1e6, **arm), params=_tree_to(params, where),
+        device=where, backend=ClusterStepBackend(ClusterConfig(
+            n_components=4, skew=1.2)))
+    run_open_loop(eng, 20.0, 0.3, seed=3)
+    ids[str(where)] = [r.tokens for r in sorted(eng.completed,
+                                                key=lambda r: r.rid)]
+    del eng
+  assert ids["cuda"] == ids["cpu"] and ids["cpu"]
+
+
+@pytest.mark.cuda
+def test_card_cluster_cli_exits_0(capsys):
+  """The tier's command line on the card: a crash, replicas, the
+  ``[cluster]`` and ``[faults]`` lines and the measured per-component
+  times."""
+  from repro_torch.launch import serve
+  _card_or_skip()
+  out = serve.main(["--cluster", "2", "--faults", "crash=1@2",
+                    "--replicas", "2", "--duration", "1", "--trace",
+                    "sogou_hourly", "--hours", "21", "--rate-scale", "0.2"])
+  text = capsys.readouterr().out
+  assert "[cluster] N=2 (stacked" in text and "  [faults] {" in text
+  assert len(out["cluster"]["comp_ms_full"]) == 2
+  assert out["results"]["hour21"]["n"] > 0

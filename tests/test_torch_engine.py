@@ -14,10 +14,13 @@ graphs, ``tests/test_torch_card.py``).
   ``DeadlineBudgetPolicy`` and the three predictors on one observation
   sequence (within 1e-12: the same float64 arithmetic), the simulator's
   copy (exact: the same numpy draws), and ``summary()``'s keys.
-* The step backends (ROADMAP A.7) raise, in the engine and on the command
-  line; the corpus cache, admission and the contracts, ported since, are
-  taken (``tests/test_torch_contracts.py`` and
-  ``tests/test_torch_corpus_cache.py`` hold them against the JAX package).
+* A step backend other than the cluster tier's (the fleet tier, ROADMAP
+  A.7b) raises, and so do ``--fleet`` / ``--autoscale`` on the command
+  line; the cluster tier (``--cluster``, the simulator's ``faults``), the
+  corpus cache, admission and the contracts, ported since, are taken
+  (``tests/test_torch_cluster.py``, ``tests/test_torch_resilience.py``,
+  ``tests/test_torch_contracts.py`` and ``tests/test_torch_corpus_cache.py``
+  hold them against the JAX package).
 """
 import dataclasses
 
@@ -55,6 +58,7 @@ from repro_torch.serve.corpus_cache import CacheConfig
 from repro_torch.serve.engine import (EngineConfig, MeasuredStepBackend,
                                       ServingEngine, make_requests,
                                       run_open_loop)
+from repro_torch.serve.resilience import parse_fault_spec
 from repro_torch.serving import workload
 from repro_torch.serving.service import (ScatterGatherService, ServiceConfig,
                                          _default_concentration)
@@ -400,9 +404,9 @@ def test_simulator_copy_matches_jax(technique, skew, shed):
     ("contract", "error_bounded", "A.3"),
     ("contract", "deadline_with_bound", "A.3"), ("backend", object(), "A.7")])
 def test_engine_refuses_what_it_has_not_ported(llama, field, value, item):
-  """A step backend (A.7, not ported) raises; the corpus cache (A.5),
-  admission (A.4) and the contracts (A.3), ported since, build an engine
-  that serves."""
+  """A step backend that is not the cluster tier's (the fleet tier, A.7b,
+  not ported) raises; the corpus cache (A.5), admission (A.4) and the
+  contracts (A.3), ported since, build an engine that serves."""
   _, _, cfg, params, _ = llama
   kw = dict(prompt_len=32, max_new_tokens=2)
   extra = {}
@@ -411,7 +415,7 @@ def test_engine_refuses_what_it_has_not_ported(llama, field, value, item):
   else:
     kw[field] = value
   if item == "A.7":
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match="A.7b"):
       ServingEngine(cfg, EngineConfig(**kw), params=params, device="cpu",
                     **extra)
     return
@@ -452,8 +456,13 @@ def test_engine_rejects_bad_configs(llama):
       ServingEngine(cfg, EngineConfig(**kw), params=params, device="cpu")
   with pytest.raises(ValueError, match="unknown predictor"):
     make_predictor("median")
-  with pytest.raises(NotImplementedError, match="A.7"):
-    ScatterGatherService(ServiceConfig(faults=object()))
+  # Injected faults, ported since, serve: a crashed component's shard
+  # falls back to its stage-1 synopsis (tests/test_torch_resilience.py
+  # holds the round trip against the JAX simulator).
+  svc = ScatterGatherService(ServiceConfig(
+      n_components=4, faults=parse_fault_spec("crash=1@0,seed=2")))
+  s = svc.run_open_loop(20.0, 0.5)
+  assert s["n"] > 0 and s["availability_pct"] == 100.0
 
 
 def test_engine_refuses_without_cuda(monkeypatch, llama):
@@ -470,9 +479,10 @@ def test_engine_refuses_without_cuda(monkeypatch, llama):
     (["--contract", "error_bounded"], "A.3"), (["--mode", "exact"], "exact"),
     (["--budget", "1"], "budget"), (["--autoscale"], "A.7")])
 def test_engine_cli_refuses_unported_flags(capsys, monkeypatch, flags, item):
-  """The multi-component tiers' flags (A.7) and what the engine does not
-  take exit with their reason; the flags of A.3-A.5, ported since, reach
-  the engine."""
+  """The fleet tier's flags (A.7b) and what the engine does not take exit
+  with their reason; the flags of A.3-A.5 and ``--cluster`` (A.7a),
+  ported since, reach the engine, ``--cluster`` without ``--engine``
+  too."""
   seen = []
   monkeypatch.setattr(launch, "engine_main",
                       lambda args, device: seen.append(args))
@@ -482,10 +492,18 @@ def test_engine_cli_refuses_unported_flags(capsys, monkeypatch, flags, item):
     assert (args.admission, args.cache_capacity, args.contract) != \
         ("off", 0, "deadline")
     return
+  if flags[0] == "--cluster":
+    launch.main(["--engine", "--device", "cpu", *flags])
+    launch.main(["--device", "cpu", *flags])
+    assert [a.cluster for a in seen] == [4, 4]
+    return
   with pytest.raises(SystemExit) as e:
     launch.main(["--engine", "--device", "cpu", *flags])
   assert e.value.code != 0 and not seen
-  assert item in capsys.readouterr().err
+  err = capsys.readouterr().err
+  assert item in err
+  if item == "A.7":
+    assert "A.7b" in err
 
 
 def test_engine_cli_on_cpu(tmp_path, capsys):
