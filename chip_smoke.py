@@ -95,6 +95,22 @@
     availability and the measured per-component ms at full budget; and
     the SMOKE cluster engine's ids on the card against the CPU under
     basic and fixed;
+11c. the fleet tier on its stacked path (``repro_torch.serve.fleet``,
+    ``[fleet]``) on the same weights, N = 4 components x R = 2 replica
+    rows: layer-0 fleet attention in f32 and bf16 under random replica
+    selections, kernels against their plain versions and every output
+    bitwise equal to the all-primary one (records ``<kernel>[fleet]``:
+    stage 2 reads the selected lanes through its row map); the budget-32
+    fleet step beside the cluster step (replay bitwise equal to its eager
+    call and unmoved by the selection, host / event / device busy ms and
+    ops, stage 1 and stage 2 once a layer, no aten copy, gathers
+    included, as large as a shard); the engine window under ``--fleet
+    --cluster 4 --replicas 2`` under accuracytrader and basic (p50 / p99,
+    loss, misses, the steps that read a replica other than the primary,
+    per-component ms at full budget, peak memory); ``--autoscale`` over
+    the 24 Sogou hours from that window's measured export (host only);
+    and the SMOKE fleet engine's ids on the card against the CPU under
+    basic and fixed;
 12-14. the other architectures at their published width and depth,
     nothing cut, random bf16 weights from seed 0, each after the previous
     model's weights are freed: gemma2-2b (26 layers alternating local,
@@ -162,8 +178,15 @@
     ``flash_prefill`` bf16 at D = 192 with G = 1 and SDPA beside it; the
     latent core's four decode kernels with an f32 query over bf16 latent
     rows, SDPA beside ``flash_decode`` naming its backend), the loops'
-    launches on the latent branches only, and every quant spec refused on
-    the card (no quantized branch is built at the latent shapes);
+    launches on the latent branches only; and every quant spec on the
+    latent core's quantized branches (``check_mla_quant_kernels``: the
+    build's flushes at D = 576, stage 1 on int8 / fp8 tables and stage 2
+    on an int8 / fp8 cache against their plain versions, warm and L2-cold,
+    records ``<branch>[deepseek]``; the SMOKE int8+kv loop card against
+    CPU; the budget-32 loops under int8+kv and fp8+kv with exact launch
+    counts on the "latent-int8" / "latent-fp8" branches, a profiled
+    window each; one step under int8 and under fp8; the full-budget
+    deviation on layer 0 under all four, ``run_mla_quant``);
 20. mamba2-370m at full width and depth (``[mamba2]``, 48 SSD layers):
     the SMOKE loop card against CPU, the exact loop (no attention, so
     exact whatever the mode: prefill ms, p50 / p99, peak memory) with no
@@ -194,6 +217,7 @@ and prints no result.
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import math
 import pathlib
@@ -798,7 +822,8 @@ def _check_codes(name, dtype, got, want, exact):
 
 def check_segment_build_quant(dev, dtype, g, spec, cfg=None, tag=""):
   """The quantized build at the shape of ``cfg``'s prompt build (every
-  layer sequence of a B = 2 prompt; llama3-8b's by default): sorted-KV
+  layer sequence of a B = 2 prompt, the cache's rows: MLA's one latent
+  head of 576; llama3-8b's by default): sorted-KV
   codes and their scales bit-equal to the plain version's, centroid codes
   at most one step apart, centroid scales within f32 rounding; and the
   absorb.  The record is the branch's name and ``tag``."""
@@ -806,8 +831,9 @@ def check_segment_build_quant(dev, dtype, g, spec, cfg=None, tag=""):
   from repro_torch.kernels import _build, ref
   from repro_torch.kernels import quant as qt
   from repro_torch.kernels.synopsis_build import segment_build
+  from repro_torch.models.common import kv_dims
   cfg = cfg or get_config("llama3-8b")
-  N, Hkv, S, D = cfg.n_layers * BATCH, cfg.n_kv_heads, PROMPT, cfg.hd
+  (Hkv, D), N, S = kv_dims(cfg), cfg.n_layers * BATCH, PROMPT
   C = cfg.synopsis.cluster_size
   qc = qt.parse_qconfig(spec)
   k = torch.randn((N, Hkv, S, D), generator=g, device=dev).to(dtype)
@@ -1193,13 +1219,15 @@ def check_accuracy_vs_exact(cfg, params, cache, syn, dev,
           f"{M + budget * C}/{PROMPT} tv={tv:.6f} argmax_match={match:.2f}")
 
 
-def _layer_query(k, G, dev, g):
+def _layer_query(k, G, dev, g, q_dtype=None):
   """A decode query for one layer's keys ``k`` (B, Hkv, S, D), G heads a
   KV head, scaled so that its logits spread ~2 (as in the fused/unfused
-  comparison), and a self token."""
+  comparison), in ``q_dtype`` (default the keys'; f32 under MLA), and a
+  self token."""
   B, Hkv, _, D = k.shape
   q = torch.randn((B, Hkv * G, D), generator=g, device=dev)
-  q = (q * 2.0 * D ** 0.5 / k.float().norm(dim=-1).mean()).to(k.dtype)
+  q = (q * 2.0 * D ** 0.5 / k.float().norm(dim=-1).mean()).to(
+      q_dtype or k.dtype)
   sk = torch.randn((B, Hkv, 1, D), generator=g, device=dev).to(k.dtype)
   sv = torch.randn((B, Hkv, 1, D), generator=g, device=dev).to(k.dtype)
   return q, sk, sv
@@ -1220,7 +1248,7 @@ def _layer_decode(syn, pos, q, sk, sv, i_max, cap, return_scores=False):
 
 
 def check_full_budget_quant(cache, syn, quant, dev, g, pos=0, G=4,
-                            cap=None):
+                            cap=None, q_dtype=None):
   """The first layer at pattern position ``pos`` of the exact run's prompt
   cache and of its synopsis built under ``quant``: synopsis decode at
   i_max = M (with a self token) against exact attention over the
@@ -1231,7 +1259,7 @@ def check_full_budget_quant(cache, syn, quant, dev, g, pos=0, G=4,
   from repro_torch.kernels import ref
   k, v = cache["k"][0, pos], cache["v"][0, pos]
   D, M = k.shape[3], syn["k_syn"].shape[4]
-  q, sk, sv = _layer_query(k, G, dev, g)
+  q, sk, sv = _layer_query(k, G, dev, g, q_dtype)
   got = _layer_decode(syn, pos, q, sk, sv, M, cap)
   want = ref.exact_attention_ref(q, torch.cat([k, sk], 2),
                                  torch.cat([v, sv], 2), sm_scale=D ** -0.5,
@@ -1605,11 +1633,14 @@ def _prefill_f64(q, k, v, *, sm_scale, cap=None, window=None):
 def _gather_f64(q, k, v, selected, *, cluster_size, sm_scale, cap=None,
                 k_sel=None, v_sel=None, sel_bias=None, extras_k=None,
                 extras_v=None, extras_bias=None, kv_k_scale=None,
-                kv_v_scale=None):
+                kv_v_scale=None, rows=None):
   """Stage 2's signed softmax in f64 (the selected clusters' tokens +,
-  their centroid terms -, the extras +): partials (o, m, l)."""
+  their centroid terms -, the extras +): partials (o, m, l); ``rows``
+  the fleet tier's row map into k / v."""
   if cap is not None or kv_k_scale is not None or kv_v_scale is not None:
     raise ValueError("the f64 gather takes neither softcap nor scales")
+  if rows is not None:
+    k, v = k.index_select(0, rows.long()), v.index_select(0, rows.long())
   B, H, D = q.shape
   Hkv, C = k.shape[1], cluster_size
   qg = q.double().reshape(B, Hkv, H // Hkv, D)
@@ -2406,11 +2437,12 @@ def check_cluster_attention(cfg, dev, g):
   return recs
 
 
-def _cluster_records(seen, dtype, *, G, C, sdpa):
+def _cluster_records(seen, dtype, *, G, C, sdpa, tag="[cluster]"):
   """Each cluster kernel on the inputs the tier gave it (first call),
   against its plain version, timed beside its bound: bytes that this
   run's data needs (stage 1 the valid centroid rows, stage 2 the selected
-  clusters' rows)."""
+  clusters' rows, through the fleet tier's row map where it has one).
+  Records keyed ``<kernel><tag>``."""
   from repro_torch.kernels import ops, ref
   plain = {"fused_synopsis_score_attention":
                ref.fused_synopsis_score_attention_ref,
@@ -2429,22 +2461,24 @@ def _cluster_records(seen, dtype, *, G, C, sdpa):
       k_syn, v_syn, cbias = args[1:4]
       valid = int((cbias > NEG_INF / 2).sum()) * k_syn.shape[1]
       got, exp = (out[0], *out[1]), (want[0], *want[1])
-      err = _check(f"{name}[cluster] B*N={BN} m_max={k_syn.shape[2]}", dtype,
+      err = _check(f"{name}{tag} B*N={BN} m_max={k_syn.shape[2]}", dtype,
                    got, exp, *_stage1_tol(dtype, k_syn.shape[2]))
       nbytes = _nbytes(q, cbias, *got) + 2 * valid * D * k_syn.element_size()
       ops_n = 4 * G * D * valid
     elif name == "block_gather_attention":
       k, sel = args[1], args[3]
       n_sel = int((sel >= 0).sum())
-      err = _check(f"{name}[cluster] B*N={BN} S={k.shape[2]} "
-                   f"I={sel.shape[-1]} ({n_sel} selected)", dtype, out,
+      err = _check(f"{name}{tag} B*N={BN} S={k.shape[2]} "
+                   f"I={sel.shape[-1]} ({n_sel} selected)"
+                   + (f" rows of {k.shape[0]} through the row map"
+                      if kw.get("rows") is not None else ""), dtype, out,
                    want, *PARTIALS_TOL[dtype])
       nbytes = (_nbytes(q, sel, kw["k_sel"], kw["v_sel"], kw["sel_bias"],
                         *out) + 2 * n_sel * C * D * k.element_size())
       ops_n = 4 * G * D * (n_sel * C + n_sel)
     else:
       ek, ev, bias = args[1:4]
-      err = _check(f"{name}[cluster] extras E={ek.shape[2]}", dtype, out,
+      err = _check(f"{name}{tag} extras E={ek.shape[2]}", dtype, out,
                    want, *PARTIALS_TOL[dtype])
       nbytes = _nbytes(q, ek, ev, bias, *out)
       ops_n = 4 * BN * H * ek.shape[2] * D
@@ -2452,7 +2486,7 @@ def _cluster_records(seen, dtype, *, G, C, sdpa):
       lib = lambda: sdpa(q[:, :, None], ek, ev, attn_mask=mask,  # noqa
                          enable_gqa=True)
     src, line = CLUSTER_SOURCES[name]
-    r = _record(f"{name}[cluster]", f"src/repro_torch/kernels/csrc/{src}",
+    r = _record(f"{name}{tag}", f"src/repro_torch/kernels/csrc/{src}",
                 f"src/repro/kernels/{line}", dtype, err,
                 lambda: kern(*args, **kw), lambda: plain[name](*args, **kw),
                 nbytes, ops_n, library_fn=lib)
@@ -2478,13 +2512,18 @@ def _copy_rows(fn, calls=3):
           sum(e.self_device_time_total for e in rows) / 1e3 / calls)
 
 
-def _copy_bytes(fn):
+COPY_OPS = ("copy_", "clone", "_to_copy", "cat", "stack")
+# The ops that copy rows picked by index: an indexed shard would show here.
+GATHER_OPS = ("index", "index_select", "gather", "take")
+
+
+def _copy_bytes(fn, ops_=COPY_OPS):
   """The copies one eager call of ``fn`` makes, from the aten ops
-  themselves (a TorchDispatchMode): copy_, clone, _to_copy, cat and stack,
-  counted by the bytes each writes.  Returns (total bytes, largest single
-  copy's bytes, {op: bytes})."""
+  themselves (a TorchDispatchMode): ``ops_`` (by default copy_, clone,
+  _to_copy, cat and stack), counted by the bytes each writes.  Returns
+  (total bytes, largest single copy's bytes, {op: bytes}, {(op, shape,
+  type): bytes})."""
   from torch.utils._python_dispatch import TorchDispatchMode
-  ops_ = ("copy_", "clone", "_to_copy", "cat", "stack")
   per, big, shapes = {}, [0], {}
 
   class Count(TorchDispatchMode):
@@ -2711,6 +2750,361 @@ def run_cluster(cfg, params, dev, g):
 
 
 # ---------------------------------------------------------------------------
+# Phase 11c: the fleet tier (R materialized replica rows) on its stacked path
+# ---------------------------------------------------------------------------
+
+FLEET_R = 2
+
+
+def _free():
+  """Collect the engines just deleted: an engine and its step backend hold
+  each other, so their pools (the fleet's is twice the cluster's) go only
+  with the cyclic collector, here rather than inside a later capture."""
+  gc.collect()
+  torch.cuda.empty_cache()
+
+
+def _fleet_layer(csl, R):
+  """One layer of the cluster layout -> the fleet tier's (B, R, N, ...):
+  row r the components rolled right by r (``kv_cache.replicate_leaf``,
+  as the slot write lays them), copies made."""
+  from repro_torch.serve import kv_cache as kvc
+  out = dict(csl)
+  for name in ("k", "v", "k_syn", "v_syn", "counts"):
+    out[name] = kvc.replicate_leaf(csl[name], R, axis=1).contiguous()
+  return out
+
+
+def check_fleet_attention(cfg, dev, g):
+  """One decode step's layer-0 attention of the fleet tier at full width
+  (B = ENGINE_SLOTS lanes of an 8192-token prompt, N = CLUSTER_N, R =
+  FLEET_R, skew CLUSTER_SKEW, alloc mass, a FULL/STAGE1/FULL/DROP gather,
+  budget 32), in f32 and bf16: under three random replica selections the
+  kernels against their plain versions on the same tensors, and each
+  output bitwise equal to the all-primary one (every copy is
+  bit-identical and the fold runs in shard order).  Returns the records of
+  the three kernels at the tier's shapes (bf16, the first selection; stage
+  2 reads the selected lanes in place through its row map), keyed
+  ``<kernel>[fleet]``."""
+  from repro_torch.dist.topology import plan_2d
+  from repro_torch.kernels import ops
+  from repro_torch.serve import fleet as fl
+  B, H, Hkv, D = ENGINE_SLOTS, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+  C, R = cfg.synopsis.cluster_size, cfg.synopsis.recent
+  M, N, I = PROMPT // C, CLUSTER_N, CLUSTER_BUDGET
+  sm = D ** -0.5
+  sdpa = torch.nn.functional.scaled_dot_product_attention
+  topo = plan_2d(M, N, FLEET_R, skew=CLUSTER_SKEW)
+  attn = fl.make_fleet_attention(topo, alloc="mass")
+  rng = np.random.default_rng(11)
+  sels = [rng.integers(0, FLEET_R, N).astype(np.int32) for _ in range(3)]
+  sels[0][0] = 1                     # at least one shard off its primary
+  recs = {}
+  for dtype in (torch.float32, torch.bfloat16):
+    def rnd(*shape):
+      return torch.randn(shape, generator=g, device=dev).to(dtype)
+    k, v = rnd(B, Hkv, PROMPT, D), rnd(B, Hkv, PROMPT, D)
+    layer = {"k": k, "v": v,
+             "k_syn": k.float().reshape(B, Hkv, M, C, D).mean(3).to(dtype),
+             "v_syn": v.float().reshape(B, Hkv, M, C, D).mean(3).to(dtype),
+             "counts": torch.full((B, M), float(C), device=dev),
+             "recent_k": rnd(B, Hkv, R, D), "recent_v": rnd(B, Hkv, R, D),
+             "recent_len": torch.tensor([5, 64, 100, R][:B],
+                                        dtype=torch.int32, device=dev)}
+    csl = _fleet_layer(_component_layer(layer, topo), FLEET_R)
+    del k, v, layer
+    csl["fe_mode"] = torch.tensor(_cluster_modes("mixed", N),
+                                  dtype=torch.int32, device=dev)
+    q = rnd(B, H, D)
+    kw = dict(i_max=I, cluster_size=C, sm_scale=sm,
+              self_kv=(rnd(B, Hkv, 1, D), rnd(B, Hkv, 1, D)))
+    primary, paux = attn(q, dict(csl, fe_replica=torch.zeros(
+        N, dtype=torch.int32, device=dev)), **kw)
+    for i, sel in enumerate(sels):
+      c = dict(csl, fe_replica=torch.from_numpy(sel).to(dev))
+      keep = dtype == torch.bfloat16 and i == 0
+      with (_first_inputs(ops, CLUSTER_KERNELS) if keep
+            else contextlib.nullcontext()) as seen:
+        got, aux = attn(q, c, **kw)
+      with _plain_decode():
+        want, _ = attn(q, c, **kw)
+      tag = (f"fleet attention mass mix skew={CLUSTER_SKEW} N={N} "
+             f"R={FLEET_R} m_max={topo.m_max} I={I} fe_replica="
+             f"{sel.tolist()}")
+      _check(tag, dtype, got, want, *PARTIALS_TOL[dtype])
+      same = torch.equal(got, primary) and torch.equal(
+          aux["fe_cover"], paux["fe_cover"])
+      print(f"  [{tag} {str(dtype)[6:]}] bitwise equal to the all-primary "
+            f"output: {same}; fe_cover "
+            f"{[round(x, 2) for x in aux['fe_cover'].tolist()]}")
+      if not same:
+        raise AssertionError(f"{tag}: the output follows the selection")
+      if keep:
+        if seen["block_gather_attention"][1].get("rows") is None:
+          raise AssertionError("the fleet's stage 2 took no row map")
+        recs.update(_cluster_records(seen, dtype, G=H // Hkv, C=C,
+                                     sdpa=sdpa, tag="[fleet]"))
+    del csl
+  return recs
+
+
+def fleet_step_table(cfg, params, dev):
+  """The budget-32 step of a fleet engine (N = CLUSTER_N, R = FLEET_R) beside
+  the cluster engine's (the same gather modes), both at policy ``fixed``
+  with the same ENGINE_SLOTS requests resident: the replay against its
+  eager call (bitwise) and, for the fleet, against the replay under a
+  random selection (bitwise: the output cannot follow it); host ms,
+  CUDA-event ms, device busy ms and ops; stage 1 and stage 2 launched once
+  a layer inside a replay; and the step's copies and gathers (the aten
+  ops that copy, ``index_select`` / ``index`` / ``gather`` included, by
+  the bytes each writes): no single one as large as one component's shard
+  of one layer, and the fleet's beyond the cluster's no more than its
+  gathered stage-1 tables (B*N rows of k_syn, v_syn and counts a layer)."""
+  from repro_torch.serve.cluster import ClusterConfig, ClusterStepBackend
+  from repro_torch.serve.engine import (EngineConfig, ServingEngine,
+                                        make_requests)
+  from repro_torch.serve.fleet import FleetConfig, FleetStepBackend
+  key = ("step", CLUSTER_BUDGET)
+  modes = np.asarray(_cluster_modes("mixed", CLUSTER_N), np.int32)
+  sel = np.asarray([1, 0, 1, 1][:CLUSTER_N], np.int32)
+  rows = {}
+  for label in ("cluster", "fleet"):
+    torch.cuda.empty_cache()
+    backend = (FleetStepBackend(FleetConfig(n_components=CLUSTER_N,
+                                            replicas=FLEET_R))
+               if label == "fleet" else
+               ClusterStepBackend(ClusterConfig(n_components=CLUSTER_N)))
+    eng = ServingEngine(cfg, EngineConfig(
+        n_slots=ENGINE_SLOTS, prompt_len=PROMPT, max_new_tokens=ENGINE_NEW,
+        policy="fixed", fixed_budget=CLUSTER_BUDGET), params=params,
+        device=dev, backend=backend)
+    for slot, req in enumerate(make_requests(
+        [0.0] * ENGINE_SLOTS, PROMPT, ENGINE_NEW, cfg.vocab, seed=21)):
+      eng._admit(req, slot)
+    load = ((lambda s: backend.load_mode(np.stack([modes, s])))
+            if label == "fleet" else (lambda s: backend.load_mode(modes)))
+    load(np.zeros_like(sel))
+    outs = {}
+    for mode, fn in (("replay", lambda: eng.programs.run(key)),
+                     ("eager", lambda: eng.programs.call_eager(key))):
+      fn()
+      torch.cuda.synchronize()
+      outs[mode] = {k: t.clone() for k, t in eng.step_out.items()}
+    equal = all(torch.equal(outs["replay"][k], outs["eager"][k])
+                for k in outs["replay"])
+    moved = True
+    if label == "fleet":
+      load(sel)
+      eng.programs.run(key)
+      torch.cuda.synchronize()
+      moved = all(torch.equal(outs["replay"][k], t)
+                  for k, t in eng.step_out.items())
+    replay = lambda: eng.programs.run(key)  # noqa: E731
+    host, busy, ops_n = _replay_row(eng, CLUSTER_BUDGET)
+    ev = _median_ms(replay, reps=10)
+    _, _, per, _ = _profile_rows(replay, 3)
+    n_copy, copy_ms = _copy_rows(replay)
+    c_bytes, c_big, c_per, c_shapes = _copy_bytes(
+        lambda: eng.programs.call_eager(key), COPY_OPS + GATHER_OPS)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rows[label] = dict(host=host, busy=busy, ops=ops_n, bytes=c_bytes,
+                       big=c_big, shapes=c_shapes)
+    print(f"[fleet step] {label} budget {CLUSTER_BUDGET}: replay host "
+          f"{host:.3f} ms, events {ev:.3f} ms, device busy {busy:.3f} ms "
+          f"({ops_n:.0f} device ops); kernel launches inside one replay "
+          f"{ {k: n for k, n in per.items() if n} }; replay bitwise equal "
+          f"to its eager call: {equal}"
+          + (f"; to the replay reading replicas {sel.tolist()}: {moved}"
+             if label == "fleet" else ""))
+    print(f"  [fleet step] {label}: copy rows a replay {n_copy:.0f} "
+          f"({copy_ms:.3f} ms of device time); eager aten copies and "
+          f"gathers write {c_bytes / 1e6:.3f} MB ({c_per}), the largest "
+          f"{c_big / 1e6:.3f} MB; peak_mem_gb={peak:.2f}")
+    if not (equal and moved):
+      raise AssertionError(f"{label}: the budget-{CLUSTER_BUDGET} replay "
+                           "differs from its eager call or follows the "
+                           "selection")
+    if any(per.get(k, 0) != cfg.n_layers for k in CLUSTER_KERNELS):
+      raise AssertionError(f"{label}: the replay does not launch "
+                           f"{CLUSTER_KERNELS} once a layer: {per}")
+    m_max = backend.topo.m_max
+    del eng, backend
+    _free()
+  B, D, Hkv = ENGINE_SLOTS, cfg.hd, cfg.n_kv_heads
+  C, L = cfg.synopsis.cluster_size, cfg.n_layers
+  itemsize = torch.empty((), dtype=cfg.dtype).element_size()
+  shard = B * Hkv * m_max * C * D * itemsize
+  tables = L * B * CLUSTER_N * m_max * (2 * Hkv * D * itemsize + 4)
+  extra = rows["fleet"]["bytes"] - rows["cluster"]["bytes"]
+  diff = {k: n - rows["cluster"]["shapes"].get(k, 0)
+          for k, n in rows["fleet"]["shapes"].items()}
+  top = sorted(((n, k) for k, n in diff.items() if n), reverse=True)[:6]
+  print(f"[fleet step] fleet / cluster: host "
+        f"{rows['fleet']['host'] / rows['cluster']['host']:.2f}x, device "
+        f"busy {rows['fleet']['busy'] / rows['cluster']['busy']:.2f}x, ops "
+        f"{rows['fleet']['ops'] - rows['cluster']['ops']:+.0f}; copies and "
+        f"gathers {extra / 1e6:+.3f} MB a step (the gathered stage-1 "
+        f"tables: {tables / 1e6:.3f} MB); largest {rows['fleet']['big'] / 1e6:.3f}"
+        f" MB against one component's shard of a layer {shard / 1e6:.1f} MB;"
+        f" the fleet's additions {top}")
+  if rows["fleet"]["big"] >= shard or extra > 1.25 * tables:
+    raise AssertionError("the fleet step copies a shard, or more than its "
+                         "stage-1 tables")
+  return rows
+
+
+def _fleet_window(cfg, params, dev, policy):
+  """One Poisson window (seed 0, ENGINE_RATE req/s for ENGINE_WINDOW_S s)
+  on the fleet tier (``--fleet --cluster CLUSTER_N --replicas FLEET_R``):
+  p50 / p99, loss, misses, the steps whose selection read a replica
+  other than a primary, per-component ms at full budget, peak memory.
+  Returns (summary, launch counts, the backend's measured export)."""
+  from repro_torch.kernels import _build
+  from repro_torch.serve.engine import (EngineConfig, ServingEngine,
+                                        run_open_loop)
+  from repro_torch.serve.fleet import FleetConfig, FleetStepBackend
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  _build.reset_launches()
+  t0 = time.perf_counter()
+  backend = FleetStepBackend(FleetConfig(n_components=CLUSTER_N,
+                                         replicas=FLEET_R))
+  eng = ServingEngine(cfg, EngineConfig(
+      n_slots=ENGINE_SLOTS, prompt_len=PROMPT, max_new_tokens=ENGINE_NEW,
+      deadline_ms=ENGINE_DEADLINE_MS, policy=policy), params=params,
+      device=dev, backend=backend)
+  built = time.perf_counter() - t0
+  sels = []
+  account = backend.account
+
+  def counted(budget, wall, plan, st, warming=False):
+    if not warming:
+      sels.append(plan.sel.copy())
+    return account(budget, wall, plan, st, warming=warming)
+  backend.account = counted
+  try:
+    s = run_open_loop(eng, ENGINE_RATE, ENGINE_WINDOW_S, seed=0)
+  finally:
+    del backend.account            # no reference cycle through the engine
+  launches = _build.launch_counts()
+  exp = backend.export()
+  comp_ms = [round(float(x), 3) for x in exp.step_ms_per_component(100)]
+  off = sum(bool(x.any()) for x in sels)
+  shards = sum(int((x != 0).sum()) for x in sels)
+  print(f"[fleet engine] N={CLUSTER_N} R={FLEET_R} {policy}: grid "
+        f"{FLEET_R}x{CLUSTER_N} counts={backend.topo.counts} built and "
+        f"captured {len(eng.programs.graphs)} graphs in {built:.1f}s; "
+        f"n={s['n']} p50={s['p50']:.1f} ms p99={s['p99']:.1f} ms "
+        f"accuracy_loss_pct={s['accuracy_loss_pct']:.3f} deadline_miss_pct="
+        f"{s['deadline_miss_pct']:.1f} mean_budget={s['mean_budget']:.2f} "
+        f"steps={s['steps']} admission_p50={s['admission_p50']:.1f} ms")
+  print(f"  [fleet engine] {policy}: off_primary: {off} of {len(sels)} steps "
+        f"read a replica other than a primary ({shards} of "
+        f"{len(sels) * CLUSTER_N} shard reads); per-component ms at full "
+        f"budget {comp_ms}; peak_mem_gb="
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+  if s["n"] < 8 or not all(len(r.tokens) == ENGINE_NEW + 1
+                           for r in eng.completed if not r.dropped):
+    raise AssertionError(f"fleet {policy}: the window did not serve its "
+                         "requests")
+  del eng, backend
+  _free()
+  return s, launches, exp
+
+
+def run_autoscale(exp):
+  """``--autoscale`` over the 24 Sogou hours from the fleet window's
+  measured export (``launch.serve.autoscale_main``; host only): grids up
+  to CLUSTER_N x FLEET_R, the p99 target the engine's deadline, and the
+  rates scaled so that the peak hour (90 req/s) offers 80% of the full
+  grid's modelled capacity (slots x 1000 / (4 steps x its step ms))."""
+  import types
+  from repro_torch.launch import serve
+  from repro_torch.serving.service import ScaledFleetExport
+  from repro_torch.serving.workload import SOGOU_HOURLY
+  t0 = time.perf_counter()
+  step_full = ScaledFleetExport(exp, CLUSTER_N, FLEET_R).step_model(
+      CLUSTER_N, FLEET_R)
+  capacity = ENGINE_SLOTS * 1000.0 / (4.0 * step_full)
+  scale = 0.8 * capacity / max(SOGOU_HOURLY)
+  print(f"[autoscale] full grid {CLUSTER_N}x{FLEET_R}: modelled step "
+        f"{step_full:.3f} ms, capacity {capacity:.1f} req/s; rate_scale "
+        f"{scale:.4f}")
+  args = types.SimpleNamespace(
+      cluster=CLUSTER_N, replicas=FLEET_R, p99_target=ENGINE_DEADLINE_MS,
+      n_slots=ENGINE_SLOTS, rate_scale=scale,
+      deadline_ms=ENGINE_DEADLINE_MS, duration=ENGINE_WINDOW_S)
+  out = serve.autoscale_main(args, types.SimpleNamespace(export=lambda: exp))
+  grids = sorted({(w["n"], w["r"]) for w in out["windows"]})
+  print(f"[autoscale] grids used {grids}; component-hours "
+        f"{out['component_hours']} against {out['component_hours_static']} "
+        f"static ({out['component_hours'] / out['component_hours_static']:.1%}"
+        f"); host {time.perf_counter() - t0:.1f}s")
+  if len(out["windows"]) != 24:
+    raise AssertionError("the autoscaler did not size 24 hours")
+  return out
+
+
+def check_fleet_parity(dev):
+  """SMOKE llama3-8b in f32 on the fleet tier (N = 4, R = 2, skew 1.2): the
+  fleet engine on the card (graphs, kernels, the row map) and on the CPU
+  (eager, plain versions) generate the same ids under ``basic`` and
+  ``fixed``."""
+  from repro_torch.configs.registry import get_config
+  from repro_torch.models import transformer as tf
+  from repro_torch.serve.engine import (EngineConfig, ServingEngine,
+                                        run_open_loop)
+  from repro_torch.serve.fleet import FleetConfig, FleetStepBackend
+  cfg = dataclasses.replace(get_config("llama3-8b", smoke=True),
+                            dtype=torch.float32)
+  params = tf.init_model(cfg, torch.Generator().manual_seed(1), "cpu")
+  for arm in (dict(policy="basic"), dict(policy="fixed", fixed_budget=2)):
+    ids = {}
+    for where, p in (("cpu", params), ("card", _tree_to(params, dev))):
+      eng = ServingEngine(
+          cfg, EngineConfig(n_slots=2, prompt_len=128, max_new_tokens=8,
+                            deadline_ms=1e6, **arm), params=p,
+          device=dev if where == "card" else "cpu",
+          backend=FleetStepBackend(FleetConfig(
+              n_components=4, skew=CLUSTER_SKEW, replicas=FLEET_R)))
+      run_open_loop(eng, 20.0, 0.3, seed=3)
+      ids[where] = [r.tokens for r in sorted(eng.completed,
+                                             key=lambda r: r.rid)]
+    if ids["card"] != ids["cpu"] or not ids["card"]:
+      raise AssertionError(f"fleet engine ids differ on card and CPU "
+                           f"({arm}): {ids['card']} vs {ids['cpu']}")
+    print(f"[fleet parity] smoke f32 N=4 R={FLEET_R} skew={CLUSTER_SKEW} "
+          f"{arm['policy']}: {sum(map(len, ids['card']))} ids of "
+          f"{len(ids['card'])} requests equal on card and CPU")
+
+
+def run_fleet(cfg, params, dev, g):
+  """Phase 11c: the fleet tier's attention at full width, its budget-32
+  step beside the cluster step, the ``--fleet --cluster 4 --replicas 2``
+  window under accuracytrader and basic, the 24-hour autoscaler from the
+  accuracytrader window's export, and the SMOKE parity.  Returns (records
+  keyed ``<kernel>[fleet]``, their launches on the accuracytrader window's
+  path)."""
+  t0 = time.perf_counter()
+  _free()                                # the cluster phase's engines
+  recs = check_fleet_attention(cfg, dev, g)
+  torch.cuda.empty_cache()
+  fleet_step_table(cfg, params, dev)
+  launches = exp = None
+  for policy in ("accuracytrader", "basic"):
+    _, counts, e = _fleet_window(cfg, params, dev, policy)
+    if launches is None:
+      launches, exp = counts, e
+  _require_launches("fleet engine", launches,
+                    ENGINE_KERNELS + ("flash_decode",),
+                    absent=("synopsis_score",))
+  run_autoscale(exp)
+  check_fleet_parity(dev)
+  print(f"[fleet] phase in {time.perf_counter() - t0:.1f}s")
+  return recs, {f"{k}[fleet]": launches[k] for k in CLUSTER_KERNELS}
+
+
+# ---------------------------------------------------------------------------
 # Phases 12-18: the other architectures at full width (depth cut where
 # DEPTH says): gemma2-2b (local and global layers, softcaps, sandwich
 # norms, tied embeddings; flash_prefill at D = 256; its table-only
@@ -2739,7 +3133,8 @@ MODELS = {
     "command-r-plus-104b": ("[command-r]", (("synopsis", "none"),
                                             ("exact", "none")), ()),
     "deepseek-v2-236b": ("[deepseek]", (("synopsis", "none"),
-                                        ("exact", "none")), ()),
+                                        ("exact", "none"),
+                                        ("synopsis", "int8+kv")), ()),
 }
 # Depth cuts, layers run of the config's: jamba-v0.1-52b's 32 layers are
 # ~51.4B parameters, ~103 GB in bf16, which one 80 GB card cannot hold; 16
@@ -3211,6 +3606,137 @@ def check_mla_kernels(cfg, tag, dev, g):
   return recs
 
 
+def check_mla_quant_kernels(cfg, tag, dev, g):
+  """deepseek-v2's quantized branches at full width against their plain
+  versions: the build of every layer's latent under each quant spec
+  (``segment_build``'s flushes at D = 576), and the latent core's stage 1
+  (``has_scale``) and stage 2 (``has_kq``) on a one-byte arena of the
+  JAX build oracle (identity permutation): an f32 query of all 128 heads
+  over one latent head of 576 codes, stage 1 on one layer's tables (M =
+  64), stage 2 over the 32 clusters stage 1 ranks first with the ring and
+  the self token (E = 129, bf16) and f32 decrement rows, warm and
+  L2-cold.  Their bound: the bytes, or the operations at the f32 rate (the
+  query is f32, so every product is an f32 FMA; no library call scales
+  per cluster).  Returns the records, keyed ``<branch><tag>``."""
+  from repro_torch.kernels import _build, ops, ref
+  from repro_torch.kernels import quant as qt
+  from repro_torch.kernels.block_gather_attention import (
+      block_gather_attention as gather)
+  from repro_torch.kernels.fused_synopsis import (
+      fused_synopsis_score_attention as fused)
+  recs = {}
+  for spec in QSPECS:
+    rec = check_segment_build_quant(dev, torch.bfloat16, g, spec, cfg=cfg,
+                                    tag=tag)
+    recs[rec["name"]] = rec
+    torch.cuda.empty_cache()
+  m, f32, bf16 = cfg.mla, torch.float32, torch.bfloat16
+  B, H, S = BATCH, cfg.n_heads, PROMPT
+  D = m.kv_lora_rank + m.qk_rope_dim
+  C, I, R = cfg.synopsis.cluster_size, _loop_budget(cfg), cfg.synopsis.recent
+  M = S // C
+  sm = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+
+  def rnd(*shape):
+    return torch.randn(shape, generator=g, device=dev).to(bf16)
+
+  q1 = torch.randn((B, H, D), generator=g, device=dev) * (3.0 * D ** -0.5)
+  k, v = rnd(B, 1, S, D), rnd(B, 1, S, D)
+  ident = torch.arange(S, device=dev, dtype=torch.int32).expand(B, S)
+  ek, ev, eb = ops.build_extras(rnd(B, 1, R, D), rnd(B, 1, R, D), None,
+                                (rnd(B, 1, 1, D), rnd(B, 1, 1, D)))
+  for kind in QKINDS:
+    arena = ref.synopsis_build_quant_ref(
+        k, v, ident, cluster_size=C, qc=qt.parse_qconfig(f"{kind}+kv"))
+    src = f"src/repro_torch/kernels/csrc/latent_decode_{kind}.cu"
+    cbias = ops.count_bias(arena["counts"])
+    tables = (arena["k_syn"], arena["v_syn"], cbias)
+    kw = dict(sm_scale=sm, k_scale=arena["k_syn_scale"],
+              v_scale=arena["v_syn_scale"])
+    got = fused(q1, *tables, **kw)
+    want = ref.fused_synopsis_score_attention_ref(q1, *tables, **kw)
+    name = _build.branch("fused_synopsis_score_attention",
+                         _build.latent_branch(kind)) + tag
+    err = _check(f"{name} M={M} G={H} D={D}", f32, (got[0], *got[1]),
+                 (want[0], *want[1]), *_stage1_tol(f32, M))
+    recs[name] = _bound_share(_record(
+        name, src, "src/repro/kernels/fused_synopsis.py:139", f32, err,
+        lambda: fused(q1, *tables, **kw),
+        lambda: ref.fused_synopsis_score_attention_ref(q1, *tables, **kw),
+        _nbytes(q1, *tables, kw["k_scale"], kw["v_scale"], got[0], *got[1]),
+        4 * B * H * M * D, cold=True), f32)
+    # Stage 2 over stage 1's top I, its inputs as refine_stage2 makes them.
+    sel = torch.topk(got[0], I, dim=-1).indices.to(torch.int32)
+    safe = sel.long()
+    rows = safe[..., None].expand(-1, -1, -1, D)
+    gkw = {f"{x}_sel": qt.gather_rows(arena[f"{x}_syn"], 2, rows).float()
+           * torch.gather(arena[f"{x}_syn_scale"], 2, safe)[..., None]
+           for x in "kv"}
+    gkw.update(sel_bias=torch.gather(cbias[:, None].expand(B, 1, M), 2,
+                                     safe),
+               cluster_size=C, sm_scale=sm, extras_k=ek, extras_v=ev,
+               extras_bias=eb, kv_k_scale=arena["k_scale"],
+               kv_v_scale=arena["v_scale"])
+    kv = (arena["k"], arena["v"])
+    got = gather(q1, *kv, sel, **gkw)
+    name = _build.branch("block_gather_attention",
+                         _build.latent_branch(kind)) + tag
+    err = _check(f"{name} S={S} I={I} E={ek.shape[2]} G={H} D={D}", f32,
+                 got, ref.fused_gather_attention_ref(q1, *kv, sel, **gkw),
+                 *PARTIALS_TOL[bf16])
+    n_rows = B * I * C
+    recs[name] = _bound_share(_record(
+        name, src, "src/repro/kernels/block_gather_attention.py:255", f32,
+        err, lambda: gather(q1, *kv, sel, **gkw),
+        lambda: ref.fused_gather_attention_ref(q1, *kv, sel, **gkw),
+        _nbytes(q1, sel, gkw["k_sel"], gkw["v_sel"], gkw["sel_bias"], ek, ev,
+                eb, *got) + 2 * n_rows * D * kv[0].element_size()
+        + 2 * B * I * 4, 4 * H * D * (n_rows + B * (I + ek.shape[2])),
+        cold=True), f32)
+    del arena, kv, got
+  return recs
+
+
+def run_mla_quant(cfg, params, dev, g, tag, cache, launches):
+  """MLA under each quant spec, on the exact loop's prompt cache: each
+  spec's build, one budget-``LOOP_BUDGET`` step under the table-only specs
+  (exact launch counts: the build, stage 1 on the "latent-<kind>" branch
+  and stage 2 on "latent" on every layer), and the full-budget deviation
+  on layer 0 against exact attention over the unquantized cache (the f32
+  query of all heads; < 7%, the JAX package's bound).  Adds the
+  table-only builds' launches to ``launches``."""
+  from repro_torch.kernels import _build
+  from repro_torch.kernels import quant as qt
+  from repro_torch.launch import serve
+  from repro_torch.serve import synopsis_kv as skv
+  from repro_torch.serve.serve_step import make_serve_step
+  key = _decode_key(cfg)
+  n = _n_attn(cfg)
+  tok = torch.randint(0, cfg.vocab, (BATCH, 1),
+                      generator=torch.Generator().manual_seed(7)).to(dev)
+  for quant in QSPECS:
+    qc = qt.parse_qconfig(quant)
+    qcfg = serve.apply_quant(cfg, quant)
+    _build.reset_launches()
+    qsyn = skv.build(cache, qcfg)
+    if not qc.sorted_kv:
+      lg, _ = make_serve_step(qcfg, mode="synopsis", i_max=_loop_budget(
+          cfg))(params, qsyn, tok)
+      torch.cuda.synchronize()
+      if not torch.isfinite(lg).all():
+        raise AssertionError(f"{tag} quant={quant}: non-finite logits")
+      build_key = _build.branch("segment_build", quant)
+      _require_exact_launches(f"{tag} one step quant={quant}",
+                              _build.launch_counts(), {
+          build_key: 1, key("fused_synopsis_score_attention", qc.kind): n,
+          key("block_gather_attention"): n})
+      launches[f"{build_key}{tag}"] = 1
+    check_full_budget_quant(cache, qsyn, quant, dev, g, G=cfg.n_heads,
+                            q_dtype=torch.float32)
+    del qsyn
+    torch.cuda.empty_cache()
+
+
 def check_arch_engine_parity(arch, tag, dev):
   """The arch's SMOKE engine in f32 (tf32 off) on the card (graphs,
   kernels) and on the CPU (eager, plain versions) from the same weights
@@ -3247,27 +3773,6 @@ def check_arch_engine_parity(arch, tag, dev):
         f"step's logits within {rel:.3e} of max (tol 1e-4)")
 
 
-def check_quant_refused(cfg, params, dev, tag):
-  """Every quant spec is refused on the card for MLA, at the loop's entry
-  and the engine's, before anything launches."""
-  from repro_torch.kernels import _build
-  from repro_torch.launch import serve
-  for quant in QSPECS:
-    before = _build.launch_counts()
-    for entry in (lambda q: serve.run(q, batch=BATCH, prompt_len=PROMPT,
-                                      tokens=2, device=dev, params=params),
-                  lambda q: _engine(q, params, dev)):
-      try:
-        entry(serve.apply_quant(cfg, quant))
-      except ValueError as e:
-        msg = str(e)
-      else:
-        raise AssertionError(f"{tag}: quant={quant} ran on the card")
-    if _build.launch_counts() != before:
-      raise AssertionError(f"{tag}: quant={quant} launched before refusing")
-  print(f"{tag} quant refused on the card ({', '.join(QSPECS)}): {msg}")
-
-
 def _require_model_launches(path, counts, cfg, steps, mode, quant="none"):
   """Exact launch counts of a full-width loop, every branch: flash_prefill
   once an attention layer (a mamba layer launches no kernel); in synopsis
@@ -3298,11 +3803,13 @@ def _require_model_launches(path, counts, cfg, steps, mode, quant="none"):
 
 def _decode_key(cfg):
   """key(kernel, quant="none") -> the launch-count key of a decode
-  kernel's branch on ``cfg``'s path: its "latent" branch under MLA (the
-  latent core; no quantized branch exists there), else the quant spec's."""
+  kernel's branch on ``cfg``'s path: under MLA the latent core's branch
+  ("latent", or "latent-int8" / "latent-fp8" on a quantized arena), else
+  the quant spec's."""
   from repro_torch.kernels import _build
   if cfg.mla is not None:
-    return lambda name, quant="none": _build.branch(name, _build.LATENT)
+    return lambda name, quant="none": _build.branch(
+        name, _build.latent_branch(quant))
   return _build.branch
 
 
@@ -3614,6 +4121,7 @@ def run_model(arch, dev, g):
   if cfg.mla is not None:
     check_arch_engine_parity(arch, tag, dev)
     records = check_mla_kernels(cfg, tag, dev, g)
+    records.update(check_mla_quant_kernels(cfg, tag, dev, g))
   else:
     records = check_model_kernels(cfg, tag, dev, g)
   for quant in table_quants:          # the branches the quantized loops run
@@ -3640,6 +4148,18 @@ def run_model(arch, dev, g):
                     q_dtype=torch.float32 if cfg.mla else None)
   profile_decode(cfg, params, out["cache"], dev, _loop_budget(cfg))
   del out
+  # MLA's loops on the quantized latent core (the sorted cache's specs:
+  # stage 1 and stage 2 both on their one-byte branches).
+  for quant in (("int8+kv", "fp8+kv") if cfg.mla is not None else ()):
+    out, counts = _model_loop(cfg, params, dev, tag, quant=quant)
+    kind = quant.split("+")[0]
+    for key in (_build.branch("segment_build", quant),
+                dkey("fused_synopsis_score_attention", kind),
+                dkey("block_gather_attention", kind)):
+      launches[f"{key}{tag}"] = counts[key]
+    profile_decode(serve.apply_quant(cfg, quant), params, out["cache"], dev,
+                   _loop_budget(cfg))
+    del out
   for quant in table_quants:
     out, counts = _model_loop(cfg, params, dev, tag, quant=quant)
     for name in ("segment_build", "fused_synopsis_score_attention"):
@@ -3657,6 +4177,8 @@ def run_model(arch, dev, g):
   profile_decode(cfg, params, cache, dev, 0, mode="exact")
   syn = skv.build(cache, cfg)
   check_accuracy_vs_exact(cfg, params, cache, syn, dev)
+  if cfg.mla is not None:
+    run_mla_quant(cfg, params, dev, g, tag, cache, launches)
   for quant in table_quants:
     qcfg = serve.apply_quant(cfg, quant)
     qsyn = skv.build(cache, qcfg)
@@ -3740,8 +4262,6 @@ def run_model(arch, dev, g):
             ("fused_synopsis_score_attention", "block_gather_attention")
             if cfg.mla else ()))
     del eng
-  if cfg.mla is not None:
-    check_quant_refused(cfg, params, dev, tag)
   del params
   torch.cuda.empty_cache()
   print(f"{tag} phase in {time.perf_counter() - t_start:.1f}s")
@@ -3986,14 +4506,17 @@ def main() -> int:
   print(f"[phase 11] contracts, admission, cache, pipeline in "
         f"{time.perf_counter() - t_new:.1f}s")
 
-  # The scatter-gather cluster tier on the same weights.
+  # The scatter-gather cluster tier on the same weights, then its fleet
+  # tier.
   cluster_records, cluster_launches = run_cluster(cfg, params, dev, g)
   records.update(cluster_records)
+  fleet_records, fleet_launches = run_fleet(cfg, params, dev, g)
+  records.update(fleet_records)
 
   # The other architectures at full width: each its own weights, so
   # llama3-8b's go first, and each model's before the next one's.
   del params
-  torch.cuda.empty_cache()
+  _free()
   model_launches = {}
   for arch in MODELS:
     arch_records, arch_launches = run_model(arch, dev, g)
@@ -4017,6 +4540,7 @@ def main() -> int:
       path_launches[key] = max(path_launches.get(key, 0), counts[key])
   path_launches.update(model_launches)
   path_launches.update(cluster_launches)
+  path_launches.update(fleet_launches)
   missing = sorted(set(records) ^ set(path_launches))
   idle = [k for k, n in path_launches.items() if n == 0]
   if missing or idle:

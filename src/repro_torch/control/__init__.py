@@ -2,11 +2,13 @@
 serving loop, the engine, the scatter-gather tier and the simulator use):
 the predictors, the deadline -> budget policy and its serving contracts,
 the per-component budget allocation and gather modes, the recovery
-ladder, the online accuracy estimator and the queue-aware admission
-policy."""
+ladder, the online accuracy estimator, the queue-aware admission
+policy and the fleet autoscaler."""
 from repro_torch.control.admission import (AdmissionConfig, AdmissionPolicy,
                                            SLOClass, TokenBucket,
                                            parse_slo_classes)
+from repro_torch.control.autoscaler import (Autoscaler, AutoscalerConfig,
+                                            FleetSize, drain)
 from repro_torch.control.estimator import (AccuracyEstimator,
                                            calibration_pairs,
                                            coverage_profile, isotonic_fit,
@@ -28,4 +30,5 @@ __all__ = ["CONTRACTS", "MODE_DROP", "MODE_FULL", "MODE_STAGE1", "POLICIES",
            "AffinePredictor", "EwmaPredictor", "QuantilePredictor",
            "TailTracker", "make_predictor", "percentile",
            "AdmissionConfig", "AdmissionPolicy", "SLOClass", "TokenBucket",
-           "parse_slo_classes"]
+           "parse_slo_classes", "Autoscaler", "AutoscalerConfig",
+           "FleetSize", "drain"]

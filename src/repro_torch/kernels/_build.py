@@ -71,15 +71,15 @@ def decode_tile_rows(D: int, itemsize: int) -> int:
 # C entry point -> argtypes (see each .cu file's extern "C" function).
 SIGNATURES = {
     "fused_synopsis_launch": [_P] * 14 + [_I] * 6 + [_F, _F, _I, _I, _P],
-    "block_gather_launch": [_P] * 19 + [_I] * 9 + [_F, _F] + [_I] * 3 + [_P],
+    "block_gather_launch": [_P] * 20 + [_I] * 9 + [_F, _F] + [_I] * 3 + [_P],
     "segment_build_launch": [_P] * 12 + [_I] * 8 + [_P],
     "flash_prefill_launch": [_P] * 4 + [_I] * 5 + [_F, _F, _I, _I, _P],
     "flash_decode_launch": [_P] * 11 + [_I] * 8 + [_F, _F, _I, _P],
     "synopsis_score_launch": [_P] * 3 + [_I] * 5 + [_F, _I, _P],
     "flash_decode_latent_launch": [_P] * 11 + [_I] * 8 + [_F, _F, _I, _P],
-    "block_gather_latent_launch": [_P] * 17 + [_I] * 9 + [_F, _F, _I, _I,
-                                                         _P],
-    "fused_synopsis_latent_launch": [_P] * 13 + [_I] * 6 + [_F, _F, _I, _P],
+    "block_gather_latent_launch": [_P] * 20 + [_I] * 9 + [_F, _F] + [_I] * 3
+                                  + [_P],
+    "fused_synopsis_latent_launch": [_P] * 15 + [_I] * 6 + [_F, _F, _I, _P],
     "synopsis_score_latent_launch": [_P] * 3 + [_I] * 5 + [_F, _I, _P],
 }
 
@@ -87,7 +87,8 @@ SIGNATURES = {
 # its kernel and nowhere else, so a run can show it went through the
 # kernels.  A quantized branch counts under its own key: the build under
 # its spec, stage 1 and stage 2 under the storage type of the tables or
-# cache they read quantized; the latent core's kernels under "latent".
+# cache they read quantized; the latent core's kernels under "latent", and
+# its quantized stage 1 and stage 2 under "latent-int8" / "latent-fp8".
 KERNELS = ("flash_prefill", "segment_build", "fused_synopsis_score_attention",
            "block_gather_attention", "flash_decode", "synopsis_score")
 QUANT_BRANCHES = {
@@ -106,9 +107,19 @@ LATENT_KERNELS = ("fused_synopsis_score_attention", "block_gather_attention",
                   "flash_decode", "synopsis_score")
 
 
+def latent_branch(kind: str = "none") -> str:
+  """The latent core's branch of a kernel reading ``kind`` rows ("none",
+  or a quantized arena's "int8" / "fp8")."""
+  return LATENT if kind == "none" else f"{LATENT}-{kind}"
+
+
 def _branches(name: str):
-  return (*QUANT_BRANCHES.get(name, ()),
-          *((LATENT,) if name in LATENT_KERNELS else ()))
+  quant = QUANT_BRANCHES.get(name, ())
+  latent = ()
+  if name in LATENT_KERNELS:
+    latent = (LATENT, *(latent_branch(k) for k in ("int8", "fp8")
+                        if k in quant))
+  return (*quant, *latent)
 
 
 LAUNCHES: Dict[str, int] = {
@@ -290,11 +301,13 @@ def is_latent(D: int) -> bool:
   return D in LATENT_HEAD_DIMS
 
 
-def latent_codes(name: str, D: int, G: int, q, *tensors, views=()) -> int:
+def latent_codes(name: str, D: int, G: int, q, *tensors, views=(),
+                 allowed=None) -> int:
   """The latent core's checks: D in LATENT_HEAD_DIMS, G <= LATENT_GMAX, an
   f32 query on the tensors' CUDA device, the tensors (and ``views``,
-  whose strides the caller checks) f32 or bf16 alike, all 16-byte
-  aligned.  Returns their C dtype code."""
+  whose strides the caller checks) of one type in ``allowed`` (default f32
+  or bf16; a quantized arena's int8 / fp8 codes where the caller asks),
+  all 16-byte aligned.  Returns their C dtype code."""
   import torch  # noqa: PLC0415
   if D not in LATENT_HEAD_DIMS or not 1 <= G <= LATENT_GMAX:
     raise ValueError(f"{name}: latent head dim {D} / group {G} not built (D "
@@ -302,7 +315,7 @@ def latent_codes(name: str, D: int, G: int, q, *tensors, views=()) -> int:
   if q.dtype != torch.float32:
     raise TypeError(f"{name}: the latent core takes an f32 query, got "
                     f"{q.dtype}")
-  code = dtype_code(name, *tensors, views=views)
+  code = dtype_code(name, *tensors, views=views, allowed=allowed)
   if q.device != (tensors or views)[0].device or not q.is_contiguous():
     raise ValueError(f"{name}: the query must be contiguous on "
                      f"{(tensors or views)[0].device}")

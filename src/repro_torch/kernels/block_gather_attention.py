@@ -14,6 +14,12 @@ token's self-KV fold in after the clusters.  A quantized cache (int8 /
 fp8 codes) comes with one f32 scale per cluster block
 (``kv_k_scale``/``kv_v_scale``); under a quantized synopsis the decrement
 rows arrive dequantized in f32 beside a bf16 query.
+
+``rows`` (B,) int32, the fleet tier's row map: batch row b's clusters are
+read in place from row ``rows[b]`` of k / v's leading axis (the selected
+replica lane of a shard, in the ``B*R*N``-row view of the fleet pool),
+with no gathered copy; the selection, the scales, the decrement rows and
+the extras stay indexed by b.  None is the identity.
 """
 from __future__ import annotations
 
@@ -55,6 +61,7 @@ def block_gather_attention(
     extras_bias: Optional[torch.Tensor] = None,  # (B, E)
     kv_k_scale: Optional[torch.Tensor] = None,   # (B, Hkv, M) f32 per block
     kv_v_scale: Optional[torch.Tensor] = None,
+    rows: Optional[torch.Tensor] = None,         # (B,) int32 rows of k / v
 ):
   """Returns partials (o (B,H,D) f32, m (B,H), l (B,H)).
 
@@ -64,7 +71,7 @@ def block_gather_attention(
         q, k, v, selected, cluster_size=cluster_size, sm_scale=sm_scale,
         cap=cap, k_sel=k_sel, v_sel=v_sel, sel_bias=sel_bias,
         extras_k=extras_k, extras_v=extras_v, extras_bias=extras_bias,
-        kv_k_scale=kv_k_scale, kv_v_scale=kv_v_scale)
+        kv_k_scale=kv_k_scale, kv_v_scale=kv_v_scale, rows=rows)
   B, H, D = q.shape
   _, Hkv, S, _ = k.shape
   G = H // Hkv
@@ -74,6 +81,7 @@ def block_gather_attention(
   has_ext = extras_k is not None
   E = extras_k.shape[2] if has_ext else 0
   bad = (H != Hkv * G or S % C or I < 1 or v.shape != k.shape
+         or (k.shape[0] != B if rows is None else rows.shape != (B,))
          or selected.shape != (B, Hkv, I)
          or (has_dec and (k_sel.shape != (B, Hkv, I, D)
                           or v_sel.shape != k_sel.shape
@@ -88,7 +96,7 @@ def block_gather_attention(
   if _build.is_latent(D):
     return _latent(q, k, v, selected, C, sm_scale, cap, k_sel, v_sel,
                    sel_bias, extras_k, extras_v, extras_bias, kv_k_scale,
-                   kv_v_scale)
+                   kv_v_scale, _row_map(rows, q))
   code = _build.dtype_code(NAME, q, *([extras_k, extras_v] if has_ext
                                        else []))
   storage = _build.storage_code(NAME, q, k, v)
@@ -104,6 +112,7 @@ def block_gather_attention(
   _build.check_rows(NAME, D, G, k, v, *([extras_k, extras_v] if has_ext
                                         else []))
   sel = selected.to(device=q.device, dtype=torch.int32).contiguous()
+  rmap = _row_map(rows, q)
   f32 = dict(dtype=torch.float32, device=q.device)
   sb = sel_bias.to(**f32).contiguous() if has_dec else None
   eb = extras_bias.to(**f32).contiguous() if has_ext else None
@@ -116,35 +125,53 @@ def block_gather_attention(
   P = _build.ptr
   err = _build.library().block_gather_launch(
       P(q), P(k), P(v), P(sel), P(k_sel), P(v_sel), P(sb), P(extras_k),
-      P(extras_v), P(eb), P(kq), P(vq), P(o), P(m), P(l), *map(P, part), B,
-      Hkv, G, S, D, C, I, E, xrows, float(sm_scale), float(cap or 0.0), code,
-      storage, dec, _build.stream_ptr(q))
+      P(extras_v), P(eb), P(kq), P(vq), P(rmap), P(o), P(m), P(l),
+      *map(P, part), B, Hkv, G, S, D, C, I, E, xrows, float(sm_scale),
+      float(cap or 0.0), code, storage, dec, _build.stream_ptr(q))
   _build.check(err, NAME)
   _build.LAUNCHES[_build.branch(
       NAME, qt.kind_of(k.dtype) if quantized else "none")] += 1
   return o, m, l
 
 
+def _row_map(rows, q):
+  """The row map as the kernels read it: int32, contiguous, on q's device
+  (None stays None)."""
+  if rows is None:
+    return None
+  if rows.device != q.device:
+    raise ValueError(f"{NAME}: rows on {rows.device}, q on {q.device}")
+  return rows.to(torch.int32).contiguous()
+
+
 def _latent(q, k, v, selected, C, sm_scale, cap, k_sel, v_sel, sel_bias,
-            extras_k, extras_v, extras_bias, kv_k_scale, kv_v_scale):
-  """The latent core's stage 2 (``csrc/latent_decode.cu``): an f32 query of
-  up to 128 heads; the cache, the extras and the decrement rows f32 or
-  bf16 alike (the decrement rows may be f32 beside a bf16 cache); no
-  quantized cache (the card refuses a quant spec for MLA before this).
-  The grid is (parts, head tiles of 16, B * Hkv)."""
+            extras_k, extras_v, extras_bias, kv_k_scale, kv_v_scale, rmap):
+  """The latent core's stage 2 (``csrc/latent_decode.cuh``): an f32 query
+  of up to 128 heads; the cache f32 or bf16, or a quantized arena's int8 /
+  fp8 codes with one f32 scale per cluster block (``has_kq``); the extras
+  f32 or bf16 (the cache's type when it is unquantized); the decrement rows
+  the cache's type or f32 (f32 beside a quantized cache).  The grid is
+  (parts, head tiles of 16, B * Hkv)."""
   B, H, D = q.shape
   _, Hkv, S, _ = k.shape
   G, I = H // Hkv, selected.shape[-1]
   has_dec, has_ext = k_sel is not None, extras_k is not None
   E = extras_k.shape[2] if has_ext else 0
-  if kv_k_scale is not None or kv_v_scale is not None:
-    raise ValueError(f"{NAME}: the latent core takes no quantized cache")
-  code = _build.latent_codes(NAME, D, G, q, k, v, *(
-      [extras_k, extras_v] if has_ext else []))
-  dec = (_build.dtype_code(NAME, k_sel, v_sel, allowed=(k.dtype,
-                                                         torch.float32))
-         if has_dec else code)
+  quantized = k.dtype in qt.QDTYPES
+  storage = _build.latent_codes(NAME, D, G, q, k, v,
+                                allowed=qt.QDTYPES if quantized else None)
+  kq, vq = _build.scale_tensors(NAME, quantized, (B, Hkv, S // C), q.device,
+                                kv_k_scale, kv_v_scale)
+  if quantized:
+    code = (_build.latent_codes(NAME, D, G, q, extras_k, extras_v)
+            if has_ext else 0)
+  else:
+    code = _build.latent_codes(NAME, D, G, q, k, v, *(
+        [extras_k, extras_v] if has_ext else []))
+  dec = 0
   if has_dec:
+    dec = _build.dtype_code(NAME, k_sel, v_sel, allowed=(
+        (torch.float32,) if quantized else (k.dtype, torch.float32)))
     _build.check_aligned(NAME, k_sel, v_sel)
     if k_sel.device != q.device:
       raise ValueError(f"{NAME}: k_sel on {k_sel.device}, q on {q.device}")
@@ -161,9 +188,10 @@ def _latent(q, k, v, selected, C, sm_scale, cap, k_sel, v_sel, sel_bias,
   P = _build.ptr
   err = _build.library().block_gather_latent_launch(
       P(q), P(k), P(v), P(sel), P(k_sel), P(v_sel), P(sb), P(extras_k),
-      P(extras_v), P(eb), P(o), P(m), P(l), *map(P, part), B, Hkv, G, S, D,
-      C, I, E, xrows, float(sm_scale), float(cap or 0.0), code, dec,
-      _build.stream_ptr(q))
+      P(extras_v), P(eb), P(kq), P(vq), P(rmap), P(o), P(m), P(l),
+      *map(P, part), B, Hkv, G, S, D, C, I, E, xrows, float(sm_scale),
+      float(cap or 0.0), code, storage, dec, _build.stream_ptr(q))
   _build.check(err, NAME)
-  _build.LAUNCHES[_build.branch(NAME, _build.LATENT)] += 1
+  _build.LAUNCHES[_build.branch(NAME, _build.latent_branch(
+      qt.kind_of(k.dtype) if quantized else "none"))] += 1
   return o, m, l

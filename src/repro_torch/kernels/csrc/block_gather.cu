@@ -65,26 +65,29 @@ static int launch_storage(const GatherArgs& a, int dtype, int storage,
 // 1, or 2 = int8, 3 = fp8 with kv_k_scale / kv_v_scale (B, Hkv, M) f32;
 // NULL scales with an unquantized cache); dec_dtype: k_sel / v_sel's type
 // (dtype's, or 0 = float32).  k_sel == NULL: no decrement; ek == NULL: no
-// extras, else ceil(E / xrows) chunks of xrows rows.  o (B*H, D), m, l
-// (B*H) are the outputs; o_part (B*H, nparts, D), m_part / l_part (B*H,
-// nparts) the wrapper's scratch for nparts = I + extras chunks > 1, and
-// tickets (B * Hkv) its zeroed counters of the last-block merge, which the
-// kernel leaves zeroed (all may be NULL with one part).  cap <= 0: no
-// softcap.
+// extras, else ceil(E / xrows) chunks of xrows rows.  rows: (B) the cache
+// row of each batch row in k / v's leading axis (the fleet tier's row map),
+// or NULL (the identity); the scales, the selection and the decrement stay
+// indexed by the batch row.  o (B*H, D), m, l (B*H) are the outputs;
+// o_part (B*H, nparts, D), m_part / l_part (B*H, nparts) the wrapper's
+// scratch for nparts = I + extras chunks > 1, and tickets (B * Hkv) its
+// zeroed counters of the last-block merge, which the kernel leaves zeroed
+// (all may be NULL with one part).  cap <= 0: no softcap.
 extern "C" int block_gather_launch(
     const void* q, const void* k, const void* v, const int* selected,
     const void* k_sel, const void* v_sel, const float* sel_bias,
     const void* ek, const void* ev, const float* eb, const float* kv_k_scale,
-    const float* kv_v_scale, float* o, float* m, float* l, float* o_part,
-    float* m_part, float* l_part, unsigned* tickets, int B, int Hkv, int G,
-    int S, int D, int C, int I, int E, int xrows, float sm_scale, float cap,
-    int dtype, int storage, int dec_dtype, void* stream) {
+    const float* kv_v_scale, const int* rows, float* o, float* m, float* l,
+    float* o_part, float* m_part, float* l_part, unsigned* tickets, int B,
+    int Hkv, int G, int S, int D, int C, int I, int E, int xrows,
+    float sm_scale, float cap, int dtype, int storage, int dec_dtype,
+    void* stream) {
   if (k_sel != nullptr && dec_dtype != dtype && dec_dtype != 0)
     return (int)cudaErrorInvalidValue;
   const GatherArgs a{q, k, v, selected, k_sel, v_sel, sel_bias, ek, ev, eb,
-                     kv_k_scale, kv_v_scale, o, m, l, o_part, m_part, l_part,
-                     tickets, B, Hkv, G, S, D, C, I, E, xrows, sm_scale, cap,
-                     dec_dtype == 0};
+                     kv_k_scale, kv_v_scale, rows, o, m, l, o_part, m_part,
+                     l_part, tickets, B, Hkv, G, S, D, C, I, E, xrows,
+                     sm_scale, cap, dec_dtype == 0};
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1) return launch_storage<__nv_bfloat16>(a, dtype, storage, st);
   if (dtype == 0) return launch_storage<float>(a, dtype, storage, st);

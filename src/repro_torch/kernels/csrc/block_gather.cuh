@@ -19,6 +19,7 @@ struct GatherArgs {
   const float* eb;
   const float* kv_k_scale;  // (B, Hkv, M) when k / v are quantized
   const float* kv_v_scale;
+  const int* rows;  // (B) cache row of each batch row in k / v, or NULL
   float* o;  // final outputs
   float* m;
   float* l;
@@ -69,7 +70,11 @@ __global__ void __launch_bounds__(dc::WARPS * 32)
     const auto logit = [=](float raw, int) {
       return valid ? softcap_f(raw * ksc * sm_scale, cap) : NEG_INF_F;
     };
-    const size_t off = ((size_t)bh * a.S + (size_t)cid * a.C) * D;
+    // The cluster's rows in the cache row that the row map names (the
+    // fleet tier's selected replica lane), b itself without one.
+    const int row = a.rows != nullptr ? a.rows[b] : b;
+    const size_t off =
+        (((size_t)row * a.Hkv + bh % a.Hkv) * a.S + (size_t)cid * a.C) * D;
     dc::stream_chunk<TK, D, GB>(reinterpret_cast<const TK*>(a.k) + off,
                                 reinterpret_cast<const TK*>(a.v) + off, a.C,
                                 G, Sm::q_s(smem), logit, Sm::ring(smem),

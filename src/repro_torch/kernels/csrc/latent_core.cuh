@@ -74,12 +74,22 @@ struct Geo {
                 "rows must be whole 16-byte copies");
 };
 
-// A column pair of a row, widened to f32.
+// A column pair of a row, widened to f32.  One-byte rows (a quantized
+// arena's int8 / fp8 e4m3 codes) widen two codes at once, exactly (e4m3 ->
+// f16 -> f32, as decode_core.cuh's smem8); their scale is the caller's.
 __device__ __forceinline__ float2 pair_at(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
 __device__ __forceinline__ float2 pair_at(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 pair_at(const int8_t* p) {
+  const unsigned short u = *reinterpret_cast<const unsigned short*>(p);
+  return make_float2((float)(int8_t)(u & 0xffu), (float)(int8_t)(u >> 8));
+}
+__device__ __forceinline__ float2 pair_at(const __nv_fp8_e4m3* p) {
+  return __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(
+      *reinterpret_cast<const __nv_fp8x2_storage_t*>(p), __NV_E4M3)));
 }
 // A pair of a decrement row, f32 or TK.
 template <typename TK>
@@ -187,18 +197,29 @@ __device__ __forceinline__ float tile_dots(const char* kt,
   return x[0];
 }
 
+// The identity row hook of stream(): no per-row scale.
+struct Unscaled {
+  __device__ __forceinline__ float operator()(float x, int) const {
+    return x;
+  }
+};
+
 // The block's span of n rows at (k, v) for this warp's heads g0, g0 + 1
 // (all warps call it: it syncs the block), into st.  logit(raw, r) turns
 // row r's raw dot of one head into its logit (scale, softcap, bias or
 // sentinel); it is called for rows r < n and heads < G.  With scores !=
-// nullptr, scores[r] takes row r's max over the block's live heads of raw
-// * score_scale (stage 1's scores, uncapped), for r < n.
-template <typename TK, int D, typename Logit>
+// nullptr, scores[r] takes row r's max over the block's live heads of
+// score(raw, r) (stage 1's scores, uncapped), for r < n.  pscale(p, r)
+// weighs row r's p entering p.V (stage 1's per-row v-scale; l takes p
+// unscaled).
+template <typename TK, int D, typename Logit, typename Score = Unscaled,
+          typename PScale = Unscaled>
 __device__ __forceinline__ void stream(const TK* k, const TK* v, int n,
                                        int g0, int G, char* smem,
                                        State<D>& st, const Logit& logit,
                                        float* scores = nullptr,
-                                       float score_scale = 0.f) {
+                                       const Score& score = Score(),
+                                       const PScale& pscale = PScale()) {
   using Gm = Geo<TK, D>;
   __shared__ float sc_s[WARPS * ROWS];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -219,7 +240,7 @@ __device__ __forceinline__ void stream(const TK* k, const TK* v, int n,
     const int row = t * ROWS + r_me;
     const bool live = head_live && row < n;
     if (scores != nullptr) {
-      float s = live ? raw * score_scale : NEG_INF_F;
+      float s = live ? score(raw, row) : NEG_INF_F;
       s = fmaxf(s, __shfl_xor_sync(0xffffffffu, s, ROWS));
       if (lane < ROWS) sc_s[warp * ROWS + lane] = s;
     }
@@ -245,11 +266,12 @@ __device__ __forceinline__ void stream(const TK* k, const TK* v, int n,
       st.acc[1][c] *= a1;
     }
     // p.V; rows past n carry p = 0 and zero-filled values.
+    const float pv = live ? pscale(p, row) : 0.f;
     const TK* vt = reinterpret_cast<const TK*>(stg + Gm::KBYTES);
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
-      const float p0 = __shfl_sync(0xffffffffu, p, r);
-      const float p1 = __shfl_sync(0xffffffffu, p, ROWS + r);
+      const float p0 = __shfl_sync(0xffffffffu, pv, r);
+      const float p1 = __shfl_sync(0xffffffffu, pv, ROWS + r);
 #pragma unroll
       for (int j = 0; j < Gm::NP; ++j) {
         const int pi = 32 * j + lane;

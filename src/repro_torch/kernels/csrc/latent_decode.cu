@@ -26,8 +26,26 @@
 // f32 on the CUDA cores because the query is f32 (the reference's einsum
 // prefers f32; rounding it to bf16 would be a different result).  q is
 // f32; K, V, the extras and the tables are f32 or bf16 alike (TK); stage
-// 2's decrement rows TK or f32.
-#include "latent_core.cuh"
+// 2's decrement rows TK or f32.  Stage 1 and stage 2 also read a quantized
+// arena's int8 / fp8 codes with their scales (latent_decode.cuh: the
+// Pallas kernels' `has_scale` and `has_kq` branches; the extras and the
+// decrement rows stay f32 / bf16), and stage 2 takes the fleet tier's row
+// map; their kernels are templates in latent_decode.cuh, and this file
+// holds the C entry points with the unquantized instantiations.
+#include "latent_decode.cuh"
+
+// The quantized instantiations of stage 1 and stage 2 (int8 / fp8 codes
+// with their scales), compiled in latent_decode_int8.cu and
+// latent_decode_fp8.cu.
+#define LATENT_QUANT_EXTERN(TK)                                              \
+  extern template int latent_gather_launch<TK, float>(                       \
+      const LatentGatherArgs&, int, int, cudaStream_t);                      \
+  extern template int latent_gather_launch<TK, __nv_bfloat16>(               \
+      const LatentGatherArgs&, int, int, cudaStream_t);                      \
+  extern template int latent_synopsis_launch<TK>(const LatentSynopsisArgs&,  \
+                                                 int, int, cudaStream_t);
+LATENT_QUANT_EXTERN(int8_t)
+LATENT_QUANT_EXTERN(__nv_fp8_e4m3)
 
 using lc::HT;
 using lc::THREADS;
@@ -63,148 +81,6 @@ __global__ void __launch_bounds__(THREADS, 2) latent_flash_decode_kernel(
     lc::merge_if_last<false, D>(tickets + bh * ntiles + tile, nsplit, G,
                                 tile * HT, (size_t)bh * G, o_part, m_part,
                                 l_part, o, m_out, l_out);
-}
-
-struct LatentGatherArgs {
-  const float* q;
-  const void* k;
-  const void* v;
-  const int* selected;
-  const void* k_sel;
-  const void* v_sel;
-  const float* sel_bias;
-  const void* ek;
-  const void* ev;
-  const float* eb;
-  float* o;
-  float* m;
-  float* l;
-  float* o_part;
-  float* m_part;
-  float* l_part;
-  unsigned* tickets;  // (B * Hkv * head tiles) zeroed counters
-  int Hkv, G, S, C, I, E, xrows;
-  float sm_scale, cap;
-  bool dec_f32;  // k_sel / v_sel in f32, else in TK
-};
-
-// One block a part (a selected cluster, blockIdx.x < I, or an extras
-// chunk) and a head tile; blockIdx.z = b * Hkv + h.
-template <typename TK, int D>
-__global__ void __launch_bounds__(THREADS, 2)
-    latent_gather_kernel(LatentGatherArgs a) {
-  extern __shared__ __align__(16) char smem[];
-  const int part = blockIdx.x, nparts = gridDim.x;
-  const int tile = blockIdx.y, ntiles = gridDim.y, bh = blockIdx.z;
-  const int b = bh / a.Hkv, G = a.G;
-  const int g0 = tile * HT + (threadIdx.x >> 5) * lc::HPW;
-  const float sm_scale = a.sm_scale, cap = a.cap;
-  lc::State<D> st;
-  lc::load_q<D>(st, a.q + (size_t)bh * G * D, g0, G);
-  const bool cluster = part < a.I;
-  bool valid = false;
-  if (cluster) {
-    const int sel = a.selected[(size_t)bh * a.I + part];
-    valid = sel >= 0;
-    const int cid = valid ? sel : 0;  // -1 reads cluster 0 (masked)
-    const auto logit = [=](float raw, int) {
-      return valid ? softcap_f(raw * sm_scale, cap) : NEG_INF_F;
-    };
-    const size_t off = ((size_t)bh * a.S + (size_t)cid * a.C) * D;
-    lc::stream<TK, D>(reinterpret_cast<const TK*>(a.k) + off,
-                      reinterpret_cast<const TK*>(a.v) + off, a.C, g0, G,
-                      smem, st, logit);
-  } else {  // a chunk of the recent ring + self-KV, validity in the bias
-    const int x0 = (part - a.I) * a.xrows;
-    const float* eb = a.eb + (size_t)b * a.E + x0;
-    const auto logit = [=](float raw, int r) {
-      return softcap_f(raw * sm_scale, cap) + eb[r];
-    };
-    const size_t off = ((size_t)bh * a.E + x0) * D;
-    lc::stream<TK, D>(reinterpret_cast<const TK*>(a.ek) + off,
-                      reinterpret_cast<const TK*>(a.ev) + off,
-                      min(a.E - x0, a.xrows), g0, G, smem, st, logit);
-  }
-  if (cluster && a.k_sel != nullptr) {
-    // The centroid's stage-1 term, as one row of weight -1.
-    const size_t ci = (size_t)bh * a.I + part;
-    float d[lc::HPW], dl[lc::HPW];
-    lc::row_dots<TK, D>(st, a.dec_f32
-        ? (const void*)(reinterpret_cast<const float*>(a.k_sel) + ci * D)
-        : (const void*)(reinterpret_cast<const TK*>(a.k_sel) + ci * D),
-        a.dec_f32, d);
-#pragma unroll
-    for (int h = 0; h < lc::HPW; ++h)
-      dl[h] = valid ? softcap_f(d[h] * sm_scale, cap) + a.sel_bias[ci]
-                    : NEG_INF_F;
-    lc::fold_decrement<TK, D>(st, dl, a.dec_f32
-        ? (const void*)(reinterpret_cast<const float*>(a.v_sel) + ci * D)
-        : (const void*)(reinterpret_cast<const TK*>(a.v_sel) + ci * D),
-        a.dec_f32);
-  }
-  lc::write_out<true, D>(st, g0, G, (size_t)bh * G, nparts, part, a.o, a.m,
-                         a.l, a.o_part, a.m_part, a.l_part);
-  if (nparts > 1)
-    lc::merge_if_last<true, D>(a.tickets + bh * ntiles + tile, nparts, G,
-                               tile * HT, (size_t)bh * G, a.o_part,
-                               a.m_part, a.l_part, a.o, a.m, a.l);
-}
-
-struct LatentSynopsisArgs {
-  const float* q;
-  const void* k_syn;
-  const void* v_syn;
-  const float* cbias;   // (B, M)
-  float* scores;        // (B, Hkv, M)
-  float* score_part;    // (B * Hkv, head tiles, M) scratch
-  float* o;
-  float* m;
-  float* l;
-  float* o_part;
-  float* m_part;
-  float* l_part;
-  unsigned* tickets;    // (B * Hkv * (head tiles + 1)) zeroed counters
-  int Hkv, G, M, chunk;
-  float sm_scale, cap;
-};
-
-template <typename TK, int D>
-__global__ void __launch_bounds__(THREADS, 2)
-    latent_synopsis_kernel(LatentSynopsisArgs a) {
-  extern __shared__ __align__(16) char smem[];
-  const int split = blockIdx.x, nsplit = gridDim.x;
-  const int tile = blockIdx.y, ntiles = gridDim.y, bh = blockIdx.z;
-  const int b = bh / a.Hkv, G = a.G, M = a.M;
-  const int g0 = tile * HT + (threadIdx.x >> 5) * lc::HPW;
-  const int s0 = split * a.chunk, n = min(M, s0 + a.chunk) - s0;
-  const float sm_scale = a.sm_scale, cap = a.cap;
-  lc::State<D> st;
-  lc::load_q<D>(st, a.q + (size_t)bh * G * D, g0, G);
-  const float* cb = a.cbias + (size_t)b * M + s0;
-  const auto logit = [=](float raw, int r) {
-    return softcap_f(raw * sm_scale, cap) + __ldg(cb + r);
-  };
-  const size_t row0 = (size_t)bh * M + s0;
-  float* part_scores = a.score_part + ((size_t)bh * ntiles + tile) * M + s0;
-  lc::stream<TK, D>(reinterpret_cast<const TK*>(a.k_syn) + row0 * D,
-                    reinterpret_cast<const TK*>(a.v_syn) + row0 * D, n, g0,
-                    G, smem, st, logit, part_scores, sm_scale);
-  lc::write_out<false, D>(st, g0, G, (size_t)bh * G, nsplit, split, a.o,
-                          a.m, a.l, a.o_part, a.m_part, a.l_part);
-  if (nsplit > 1)
-    lc::merge_if_last<false, D>(a.tickets + bh * ntiles + tile, nsplit, G,
-                                tile * HT, (size_t)bh * G, a.o_part,
-                                a.m_part, a.l_part, a.o, a.m, a.l);
-  // The scores: the max over the head tiles' rows, by the (b, hkv)'s last
-  // block.
-  if (lc::last_ticket(a.tickets + gridDim.z * ntiles + bh, nsplit * ntiles))
-    for (int r = threadIdx.x; r < M; r += THREADS) {
-      float best = NEG_INF_F;
-      for (int t = 0; t < ntiles; ++t)
-        best = fmaxf(best,
-                     __ldcg(a.score_part + ((size_t)bh * ntiles + t) * M + r));
-      a.scores[(size_t)bh * M + r] = best;
-    }
 }
 
 // One block a (b, hkv) row (blockIdx.y) and ROWS centroid rows (blockIdx.x).
@@ -286,79 +162,77 @@ extern "C" int flash_decode_latent_launch(
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename TK>
-static int bg_launch(const LatentGatherArgs& a, int B, int D,
-                     cudaStream_t stream) {
-  const int nx = a.ek != nullptr ? (a.E + a.xrows - 1) / a.xrows : 0;
-  const dim3 grid(a.I + nx, (a.G + HT - 1) / HT, B * a.Hkv);
-  DISPATCH_LATENT_DIM(D, {
-    constexpr int smem = lc::Geo<TK, kD>::SMEM;
-    cudaError_t err = allow_smem(latent_gather_kernel<TK, kD>, smem);
-    if (err != cudaSuccess) return (int)err;
-    latent_gather_kernel<TK, kD><<<grid, THREADS, smem, stream>>>(a);
-    return (int)cudaGetLastError();
-  })
-}
-
-// q f32; kv_dtype: k / v / extras' type (0 = float32, 1 = bfloat16);
-// dec_dtype: k_sel / v_sel's (kv_dtype's, or 0 = float32).  k_sel ==
-// NULL: no decrement; ek == NULL: no extras, else ceil(E / xrows) chunks
-// of xrows rows.  Outputs and scratch as flash_decode_latent_launch's,
-// with nparts = I + extras chunks.
-extern "C" int block_gather_latent_launch(
-    const float* q, const void* k, const void* v, const int* selected,
-    const void* k_sel, const void* v_sel, const float* sel_bias,
-    const void* ek, const void* ev, const float* eb, float* o, float* m,
-    float* l, float* o_part, float* m_part, float* l_part, unsigned* tickets,
-    int B, int Hkv, int G, int S, int D, int C, int I, int E, int xrows,
-    float sm_scale, float cap, int kv_dtype, int dec_dtype, void* stream) {
-  if (G < 1 || G > lc::GMAX || C < 1 || S % C || I < 1 || xrows < 1 ||
-      (k_sel != nullptr && dec_dtype != kv_dtype && dec_dtype != 0))
-    return (int)cudaErrorInvalidValue;
-  const LatentGatherArgs a{q, k, v, selected, k_sel, v_sel, sel_bias, ek,
-                           ev, eb, o, m, l, o_part, m_part, l_part, tickets,
-                           Hkv, G, S, C, I, E, xrows, sm_scale, cap,
-                           dec_dtype == 0};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (kv_dtype == 1) return bg_launch<__nv_bfloat16>(a, B, D, st);
-  if (kv_dtype == 0) return bg_launch<float>(a, B, D, st);
+template <typename TE>
+static int bg_storage(const LatentGatherArgs& a, int B, int D, int kv_dtype,
+                      int storage, cudaStream_t st) {
+  if (storage == kv_dtype) return latent_gather_launch<TE, TE>(a, B, D, st);
+  if (storage == 2) return latent_gather_launch<int8_t, TE>(a, B, D, st);
+  if (storage == 3)
+    return latent_gather_launch<__nv_fp8_e4m3, TE>(a, B, D, st);
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename TK>
-static int fs_launch(const LatentSynopsisArgs& a, int B, int D,
-                     cudaStream_t stream) {
-  const dim3 grid((a.M + a.chunk - 1) / a.chunk, (a.G + HT - 1) / HT,
-                  B * a.Hkv);
-  DISPATCH_LATENT_DIM(D, {
-    constexpr int smem = lc::Geo<TK, kD>::SMEM;
-    cudaError_t err = allow_smem(latent_synopsis_kernel<TK, kD>, smem);
-    if (err != cudaSuccess) return (int)err;
-    latent_synopsis_kernel<TK, kD><<<grid, THREADS, smem, stream>>>(a);
-    return (int)cudaGetLastError();
-  })
+// q f32; kv_dtype: the extras' type (0 = float32, 1 = bfloat16); storage:
+// k / v's type (kv_dtype's, or 2 = int8, 3 = fp8 e4m3 codes with
+// kv_k_scale / kv_v_scale (B, Hkv, S / C) f32); dec_dtype: k_sel / v_sel's
+// (kv_dtype's, or 0 = float32; 0 with a quantized cache).  rows: (B) the
+// cache row of each batch row in k / v's leading axis, or NULL (the
+// identity).  k_sel == NULL: no decrement; ek == NULL: no extras, else
+// ceil(E / xrows) chunks of xrows rows.  Outputs and scratch as
+// flash_decode_latent_launch's, with nparts = I + extras chunks.
+extern "C" int block_gather_latent_launch(
+    const float* q, const void* k, const void* v, const int* selected,
+    const void* k_sel, const void* v_sel, const float* sel_bias,
+    const void* ek, const void* ev, const float* eb, const float* kv_k_scale,
+    const float* kv_v_scale, const int* rows, float* o, float* m, float* l,
+    float* o_part, float* m_part, float* l_part, unsigned* tickets, int B,
+    int Hkv, int G, int S, int D, int C, int I, int E, int xrows,
+    float sm_scale, float cap, int kv_dtype, int storage, int dec_dtype,
+    void* stream) {
+  const bool quant = storage >= 2;
+  if (G < 1 || G > lc::GMAX || C < 1 || S % C || I < 1 || xrows < 1 ||
+      quant != (kv_k_scale != nullptr && kv_v_scale != nullptr) ||
+      (k_sel != nullptr && dec_dtype != 0 && (quant || dec_dtype != kv_dtype)))
+    return (int)cudaErrorInvalidValue;
+  const LatentGatherArgs a{q, k, v, selected, k_sel, v_sel, sel_bias, ek,
+                           ev, eb, kv_k_scale, kv_v_scale, rows, o, m, l,
+                           o_part, m_part, l_part, tickets, Hkv, G, S, C, I,
+                           E, xrows, sm_scale, cap, dec_dtype == 0};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (kv_dtype == 1)
+    return bg_storage<__nv_bfloat16>(a, B, D, kv_dtype, storage, st);
+  if (kv_dtype == 0) return bg_storage<float>(a, B, D, kv_dtype, storage, st);
+  return (int)cudaErrorInvalidValue;
 }
 
-// q f32; kv_dtype: the tables' type (0 = float32, 1 = bfloat16).
+// q f32; kv_dtype: the tables' type (0 = float32, 1 = bfloat16, 2 = int8,
+// 3 = fp8 e4m3 codes with k_scale / v_scale (B, Hkv, M) f32, else NULL).
 // score_part (B * Hkv, head tiles, M) scratch; tickets (B * Hkv * (head
 // tiles + 1)) zeroed counters the kernel leaves zeroed; o_part / m_part /
 // l_part scratch for more than one chunk of M.
 extern "C" int fused_synopsis_latent_launch(
     const float* q, const void* k_syn, const void* v_syn, const float* cbias,
-    float* scores, float* score_part, float* o, float* m, float* l,
-    float* o_part, float* m_part, float* l_part, unsigned* tickets, int B,
-    int Hkv, int G, int M, int D, int chunk, float sm_scale, float cap,
-    int kv_dtype, void* stream) {
+    const float* k_scale, const float* v_scale, float* scores,
+    float* score_part, float* o, float* m, float* l, float* o_part,
+    float* m_part, float* l_part, unsigned* tickets, int B, int Hkv, int G,
+    int M, int D, int chunk, float sm_scale, float cap, int kv_dtype,
+    void* stream) {
   if (G < 1 || G > lc::GMAX || M < 1 || chunk < 1 || tickets == nullptr ||
-      score_part == nullptr)
+      score_part == nullptr ||
+      (kv_dtype >= 2) != (k_scale != nullptr && v_scale != nullptr))
     return (int)cudaErrorInvalidValue;
-  const LatentSynopsisArgs a{q, k_syn, v_syn, cbias, scores, score_part, o,
-                             m, l, o_part, m_part, l_part, tickets, Hkv, G,
-                             M, chunk, sm_scale, cap};
+  const LatentSynopsisArgs a{q, k_syn, v_syn, cbias, k_scale, v_scale,
+                             scores, score_part, o, m, l, o_part, m_part,
+                             l_part, tickets, Hkv, G, M, chunk, sm_scale,
+                             cap};
   cudaStream_t st = (cudaStream_t)stream;
-  if (kv_dtype == 1) return fs_launch<__nv_bfloat16>(a, B, D, st);
-  if (kv_dtype == 0) return fs_launch<float>(a, B, D, st);
-  return (int)cudaErrorInvalidValue;
+  switch (kv_dtype) {
+    case 0: return latent_synopsis_launch<float>(a, B, D, st);
+    case 1: return latent_synopsis_launch<__nv_bfloat16>(a, B, D, st);
+    case 2: return latent_synopsis_launch<int8_t>(a, B, D, st);
+    case 3: return latent_synopsis_launch<__nv_fp8_e4m3>(a, B, D, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <typename TK>

@@ -88,18 +88,20 @@ def fused_synopsis_score_attention(
 
 
 def _latent(q, k_syn, v_syn, cbias, sm_scale, cap, k_scale, v_scale):
-  """The latent core's stage 1 (``csrc/latent_decode.cu``): an f32 query of
-  up to 128 heads, f32 or bf16 tables (no quantized ones: the card
-  refuses a quant spec for MLA before this).  The grid is (chunks of M,
-  head tiles of 16, B * Hkv); each tile leaves its heads' max of every
-  row in a scratch row, and the last block of a (b, hkv) takes the max
-  over the tiles (tickets past the tiles' merge tickets)."""
+  """The latent core's stage 1 (``csrc/latent_decode.cuh``): an f32 query
+  of up to 128 heads over f32 or bf16 tables, or a quantized arena's int8
+  / fp8 tables with one f32 scale per row (``has_scale``).  The grid is
+  (chunks of M, head tiles of 16, B * Hkv); each tile leaves its heads'
+  max of every row in a scratch row, and the last block of a (b, hkv)
+  takes the max over the tiles (tickets past the tiles' merge tickets)."""
   B, H, D = q.shape
   _, Hkv, M, _ = k_syn.shape
   G = H // Hkv
-  if k_scale is not None or v_scale is not None:
-    raise ValueError(f"{NAME}: the latent core takes no quantized tables")
-  code = _build.latent_codes(NAME, D, G, q, k_syn, v_syn)
+  quantized = k_syn.dtype in qt.QDTYPES
+  code = _build.latent_codes(NAME, D, G, q, k_syn, v_syn,
+                             allowed=qt.QDTYPES if quantized else None)
+  ks, vs = _build.scale_tensors(NAME, quantized, (B, Hkv, M), q.device,
+                                k_scale, v_scale)
   cbias = cbias.to(device=q.device, dtype=torch.float32).contiguous()
   ntiles = _build.latent_tiles(G)
   chunk = _build.latent_chunk(
@@ -117,9 +119,11 @@ def _latent(q, k_syn, v_syn, cbias, sm_scale, cap, k_scale, v_scale):
   tickets = _build.tickets(q.device, B * Hkv * (ntiles + 1))
   P = _build.ptr
   err = _build.library().fused_synopsis_latent_launch(
-      P(q), P(k_syn), P(v_syn), P(cbias), P(scores), P(score_part), P(o),
-      P(m), P(l), *map(P, part), P(tickets), B, Hkv, G, M, D, chunk,
-      float(sm_scale), float(cap or 0.0), code, _build.stream_ptr(q))
+      P(q), P(k_syn), P(v_syn), P(cbias), P(ks), P(vs), P(scores),
+      P(score_part), P(o), P(m), P(l), *map(P, part), P(tickets), B, Hkv, G,
+      M, D, chunk, float(sm_scale), float(cap or 0.0), code,
+      _build.stream_ptr(q))
   _build.check(err, NAME)
-  _build.LAUNCHES[_build.branch(NAME, _build.LATENT)] += 1
+  _build.LAUNCHES[_build.branch(NAME, _build.latent_branch(
+      qt.kind_of(k_syn.dtype) if quantized else "none"))] += 1
   return scores, (o, m, l)

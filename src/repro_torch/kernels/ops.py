@@ -107,15 +107,18 @@ def refine_stage2(q, k, v, selected, k_syn, v_syn, counts, *,
                   extras: Optional[Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]] = None,
                   syn_scales: ScalePair = None, kv_scales: ScalePair = None,
-                  valid: Optional[torch.Tensor] = None):
+                  valid: Optional[torch.Tensor] = None,
+                  kv_rows: Optional[torch.Tensor] = None):
   """Selected clusters' original tokens (+), their centroid stage-1 terms
   (-), and the recent/self extras (+) — one fused partial.  The I centroid
   rows of the decrement are gathered here (tiny: I rows, not I*C), and
   dequantized to f32 under ``syn_scales``; ``kv_scales`` = (k_scale,
   v_scale) (B, Hkv, M) ride into the kernel with a quantized cache.
   ``valid`` (B, Hkv, I) bool turns entries of ``selected`` into -1 pads
-  (skipped), as the JAX wrapper's."""
-  B, Hkv, _, D = k.shape
+  (skipped), as the JAX wrapper's.  ``kv_rows`` (B,) is the row map of
+  ``block_gather_attention``: k / v are then a larger stack of rows (the
+  fleet pool's replica lanes) read in place at those rows."""
+  B, Hkv, _, D = k_syn.shape
   if valid is not None:
     selected = torch.where(valid, selected, -1)
   safe = selected.long().clamp_min(0)                         # (B,Hkv,I)
@@ -138,7 +141,7 @@ def refine_stage2(q, k, v, selected, k_syn, v_syn, counts, *,
       v_sel=v_sel, sel_bias=sel_bias,
       extras_k=None if ek is None else ek.contiguous(),
       extras_v=None if ev is None else ev.contiguous(), extras_bias=eb,
-      kv_k_scale=kq, kv_v_scale=vq)
+      kv_k_scale=kq, kv_v_scale=vq, rows=kv_rows)
 
 
 def _pairs(k_syn_scale, v_syn_scale, kv_k_scale, kv_v_scale):

@@ -145,3 +145,11 @@ def gather_rows(x: torch.Tensor, dim: int, index: torch.Tensor
   if x.dtype == torch.float8_e4m3fn:
     return torch.gather(x.view(torch.uint8), dim, index).view(x.dtype)
   return torch.gather(x, dim, index)
+
+
+def select_rows(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+  """``x.index_select(0, index)`` that also takes fp8 tensors, as
+  :func:`gather_rows`."""
+  if x.dtype == torch.float8_e4m3fn:
+    return x.view(torch.uint8).index_select(0, index).view(x.dtype)
+  return x.index_select(0, index)

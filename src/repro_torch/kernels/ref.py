@@ -184,6 +184,7 @@ def fused_gather_attention_ref(
     extras_bias: Optional[torch.Tensor] = None,  # (B, E)
     kv_k_scale: Optional[torch.Tensor] = None,   # (B, Hkv, M) f32
     kv_v_scale: Optional[torch.Tensor] = None,
+    rows: Optional[torch.Tensor] = None,         # (B,) int rows of k / v
 ) -> Partials:
   """Stage 2 in one signed softmax accumulation: the selected clusters'
   tokens (+), their centroid stage-1 terms (-, decremental masking) and
@@ -193,7 +194,12 @@ def fused_gather_attention_ref(
   With ``kv_k_scale``/``kv_v_scale`` k/v hold the quantized sorted arena:
   each selected cluster's scale (read through the clamped id) multiplies
   its raw logits and its value rows; the decrement and the extras take no
-  scale."""
+  scale.  ``rows`` (the fleet tier's row map) reads batch row b's clusters
+  from row ``rows[b]`` of k / v's leading axis; the scales and the rest
+  stay indexed by b."""
+  if rows is not None:
+    rows = rows.to(device=k.device, dtype=torch.long)
+    k, v = qt.select_rows(k, rows), qt.select_rows(v, rows)
   B, H, D = q.shape
   _, Hkv, S, _ = k.shape
   C = cluster_size

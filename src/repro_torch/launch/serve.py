@@ -63,8 +63,15 @@ world, e.g. ``crash=1@8,seed=3``), ``--no-recovery`` and ``--retries``
 (the recovery ladder); ``--predictor`` defaults to ewma there.  The
 ``[cluster]`` line gives the partition, ``[faults]`` each window's fault
 counters, and the JSON's ``cluster`` entry the measured per-component step
-times at full budget.  ``--fleet`` and ``--autoscale`` (the fleet tier,
-ROADMAP A.7b) are refused.
+times at full budget.  ``--fleet`` (with ``--cluster N``) runs the fleet
+tier instead (``serve.fleet``): ``--replicas R`` rows of materialized
+shard copies, each step reading every shard from its fastest-predicted
+holder (the faults and the retry ladder stay with ``--cluster`` alone).
+``--autoscale`` then sizes the (components, replicas) grid hour by hour
+over the 24 Sogou hours against ``--p99-target`` from the window's
+measured export, and replays each hour at that size in the simulator
+(``[hourHH]`` lines, component-hours against static peak sizing).  The
+sharded paths over a mesh are ROADMAP A.7c.
 
   # the paper's Tables 1-2 load sweep, SMOKE model on the CPU:
   PYTHONPATH=src python -m repro_torch.launch.serve --engine --device cpu \
@@ -82,6 +89,10 @@ ROADMAP A.7b) are refused.
   # the scatter-gather tier over 2 components with a crash and replicas:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
       --cluster 2 --faults crash=1@2 --replicas 2 --duration 1
+  # the fleet tier (2 x 2 grid) and the 24-hour autoscaler:
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
+      --cluster 2 --fleet --replicas 2 --autoscale --duration 0.5 \
+      --trace sogou_hourly --hours 21 --rate-scale 0.2
 """
 from __future__ import annotations
 
@@ -282,12 +293,15 @@ def run(cfg: ModelConfig, *, batch: int, prompt_len: int, tokens: int,
 
 
 def _refuse_unported(ap, args) -> None:
-  """The JAX launcher's flags of the fleet tier, which the port has not
-  ported (ROADMAP A.7b), and what the engine does not take."""
-  for flag, given in (("--fleet", args.fleet),
-                      ("--autoscale", args.autoscale)):
-    if given:
-      ap.error(f"{flag} (the fleet tier) is not ported yet (ROADMAP A.7b)")
+  """What the engine and the tiers do not take."""
+  if args.fleet and not args.cluster:
+    ap.error("--fleet needs --cluster N (the component count; --replicas R "
+             "sets the replica rows)")
+  if args.fleet and (args.faults or args.no_recovery or args.retries != 1):
+    ap.error("--fleet takes no --faults, --no-recovery or --retries: the "
+             "fleet tier is non-resilient (they ride --cluster alone)")
+  if args.autoscale and not args.cluster:
+    ap.error("--autoscale requires --fleet (or --cluster N)")
   if args.cluster < 0:
     ap.error(f"--cluster {args.cluster}: a component count >= 1")
   if (args.engine or args.cluster) and (args.mode != "synopsis"
@@ -320,7 +334,14 @@ def engine_main(args, device: torch.device) -> Dict:
   if args.cache_capacity > 0 and not args.no_cache:
     cache = CacheConfig(capacity=args.cache_capacity, delta_unit=C)
   backend = None
-  if args.cluster:
+  if args.fleet:
+    from repro_torch.serve.fleet import (  # noqa: PLC0415
+        FleetConfig, FleetStepBackend)
+    backend = FleetStepBackend(FleetConfig(
+        n_components=args.cluster, skew=args.skew, alloc=args.alloc,
+        route=args.route, replicas=max(1, args.replicas),
+        predictor=args.predictor or "ewma"))
+  elif args.cluster:
     from repro_torch.serve.cluster import (  # noqa: PLC0415
         ClusterConfig, ClusterStepBackend)
     backend = ClusterStepBackend(ClusterConfig(
@@ -346,9 +367,11 @@ def engine_main(args, device: torch.device) -> Dict:
         + (f" admission={args.admission}" if admission is not None else "")
         + (f" cache={args.cache_capacity}" if cache is not None else ""))
   if backend is not None:
-    print(f"[cluster] N={args.cluster} (stacked, 1 device) "
-          f"counts={backend.topo.counts} alloc={args.alloc} "
-          f"route={args.route} skew={args.skew} R={args.replicas} "
+    print(f"[{'fleet' if args.fleet else 'cluster'}] N={args.cluster} "
+          f"(stacked, 1 device) counts={backend.topo.counts} "
+          f"alloc={args.alloc} route={args.route} skew={args.skew} "
+          f"R={backend.topo.replicas if args.fleet else args.replicas}"
+          f"{' replica rows' if args.fleet else ''} "
           f"predictor={args.predictor or 'ewma'}")
   if args.trace == "cf_rates":
     points = [(f"rate{r}", r * args.rate_scale) for r in CF_RATES]
@@ -395,11 +418,58 @@ def engine_main(args, device: torch.device) -> Dict:
     }
     print(f"[cluster] measured per-component ms at full budget: "
           f"{out['cluster']['comp_ms_full']}")
+  if args.autoscale:
+    out["autoscale"] = autoscale_main(args, backend)
   if args.json:
     with open(args.json, "w") as f:
       json.dump(out, f, indent=1, sort_keys=True)
     print(f"# wrote {args.json}")
   return out
+
+
+def autoscale_main(args, backend) -> Dict:
+  """Elastic sizing over the 24-hour Sogou trace: each hour the autoscaler
+  decides the (components, replicas) grid from the backend's measured
+  export (rescaled by ``ScaledFleetExport``), and the discrete-event
+  simulator replays the hour's window at that size.  Host only: no step
+  runs on the device."""
+  from repro_torch.control import Autoscaler, AutoscalerConfig
+  from repro_torch.serving.service import (ScaledFleetExport,
+                                           ScatterGatherService,
+                                           ServiceConfig)
+  from repro_torch.serving.workload import hour_rate
+  exp = backend.export()
+  n_max, r_max = args.cluster, max(1, args.replicas)
+  asc = Autoscaler(AutoscalerConfig(
+      p99_target_ms=args.p99_target, max_components=n_max,
+      max_replicas=r_max, slots=args.n_slots),
+      ScaledFleetExport(exp, n_max, r_max).step_model)
+  print(f"[autoscale] p99 target {args.p99_target}ms, grid up to "
+        f"{n_max}x{r_max}, 24 sogou hours x rate_scale={args.rate_scale}")
+  size = None
+  windows = []
+  cost_auto = cost_static = 0
+  for h in range(24):
+    rate = hour_rate(h) * args.rate_scale
+    size = asc.decide(rate, size)
+    sim = ScatterGatherService(
+        ServiceConfig(n_components=size.n_components,
+                      deadline_ms=args.deadline_ms, seed=h),
+        step_backend=ScaledFleetExport(exp, size.n_components,
+                                       size.replicas))
+    s = sim.run_open_loop(rate, args.duration)
+    cost_auto += size.devices
+    cost_static += n_max * r_max
+    windows.append({"hour": h, "rate_per_s": round(rate, 2),
+                    "n": size.n_components, "r": size.replicas,
+                    "p99_ms": round(float(s["p99"]), 2)})
+    print(f"[hour{h:02d}] rate={rate:6.1f}/s grid="
+          f"{size.n_components}x{size.replicas} p99={s['p99']:7.1f}ms")
+  print(f"[autoscale] component-hours: autoscaled={cost_auto} "
+        f"static-peak={cost_static}")
+  return {"p99_target_ms": args.p99_target, "windows": windows,
+          "component_hours": cost_auto,
+          "component_hours_static": cost_static}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
@@ -507,7 +577,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                          "spreads skewed ranges over the components)")
   tier.add_argument("--replicas", type=int, default=1, metavar="R",
                     help="shard copies on the component ring (R >= 2 hedges "
-                         "a predicted straggler onto its replica)")
+                         "a predicted straggler onto its replica); with "
+                         "--fleet the replica rows of materialized copies")
   tier.add_argument("--faults", default=None, metavar="SPEC",
                     help="inject component faults: key=value pairs joined "
                          "by commas, e.g. 'crash=1@8,stall_rate=0.02,seed=3'"
@@ -518,10 +589,19 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
   tier.add_argument("--retries", type=int, default=1, metavar="K",
                     help="retries per component per step over the replica "
                          "ring, with exponential backoff (1: one hedge)")
-  # Flags of the JAX launcher that the port refuses (_refuse_unported).
-  tier.add_argument("--fleet", action="store_true", help=argparse.SUPPRESS)
-  tier.add_argument("--autoscale", action="store_true",
-                    help=argparse.SUPPRESS)
+  fleet = ap.add_argument_group("fleet tier (--fleet, with --cluster N)")
+  fleet.add_argument("--fleet", action="store_true",
+                     help="run the fleet tier: --replicas rows of "
+                          "materialized copies of every shard, each step "
+                          "reading every shard from its fastest-predicted "
+                          "holder (needs --cluster N)")
+  fleet.add_argument("--autoscale", action="store_true",
+                     help="after the sweep, size the (components, "
+                          "replicas) grid hour by hour over the 24 sogou "
+                          "hours against --p99-target from the measured "
+                          "export, replaying each hour in the simulator")
+  fleet.add_argument("--p99-target", type=float, default=50.0,
+                     help="the autoscaler's latency target (ms)")
   args = ap.parse_args(argv)
   _refuse_unported(ap, args)
   try:

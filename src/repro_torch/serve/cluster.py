@@ -271,9 +271,12 @@ def make_cluster_attention(topo: ComponentTopology, alloc: str = "mass",
 
 def _cluster_stacked(q, csl, alloc, *, i_max, cluster_size, sm_scale, cap,
                      self_kv, recirculate=True, mode_caps=False,
-                     telemetry=False):
+                     telemetry=False, kv_rows=None):
   """The N components as one launch of each stage over B*N rows: the math
-  of the JAX stacked path's loop over the component axis."""
+  of the JAX stacked path's loop over the component axis.  With
+  ``kv_rows`` (B*N,) (the fleet tier) ``csl["k"]`` / ``csl["v"]`` are a
+  larger stack of shard rows, which stage 2 reads in place at those
+  rows."""
   k_syn, counts = csl["k_syn"], csl["counts"]
   fe_mode = csl["fe_mode"]
   B, N, Hkv, Mp = k_syn.shape[:4]
@@ -283,6 +286,8 @@ def _cluster_stacked(q, csl, alloc, *, i_max, cluster_size, sm_scale, cap,
     # B and N are the leading axes of a contiguous slice: a view, never a
     # copy (``view`` raises where ``reshape`` would copy).
     t = csl[name]
+    if kv_rows is not None and name in ("k", "v"):
+      return t
     return t.view(BN, *t.shape[2:])
 
   def scales(names):
@@ -318,7 +323,7 @@ def _cluster_stacked(q, csl, alloc, *, i_max, cluster_size, sm_scale, cap,
         q_rep, fold("k"), fold("v"), sel.reshape(BN, Hkv, -1),
         fold("k_syn"), fold("v_syn"), counts_f, cluster_size=cluster_size,
         sm_scale=sm_scale, cap=cap, syn_scales=syn_scales,
-        kv_scales=scales(("k_scale", "v_scale")))
+        kv_scales=scales(("k_scale", "v_scale")), kv_rows=kv_rows)
     p_full = ops.merge_partials(p_syn, p_ref)
     cover = (sel >= 0).float().sum(-1).mean(dim=(0, 2))
   unfold = lambda p: tuple(t.view(B, N, *t.shape[1:]) for t in p)  # noqa: E731
@@ -489,10 +494,21 @@ class ClusterStepBackend:
     self._fe_host.copy_(torch.from_numpy(np.asarray(mode, np.int32)))
     self.fe_mode.copy_(self._fe_host, non_blocking=True)
 
+  def load_plan(self, plan: "_StepPlan") -> None:
+    """Load a planned step's frontend inputs before its replay: the gather
+    modes."""
+    self.load_mode(plan.mode)
+
   # -- cache layout ----------------------------------------------------------
   def zeros_cache(self) -> Dict[str, torch.Tensor]:
     """The engine's slot pool, with the arena leaves in component layout
     (the others as ``kv_cache.zeros_cache`` has them)."""
+    return {name: torch.zeros(sh, dtype=dt, device=self.dev)
+            for name, (sh, dt) in self._pool_struct().items()}
+
+  def _pool_struct(self) -> Dict[str, tuple]:
+    """Each pool leaf's (shape, dtype): the arena leaves with the
+    component axis after the slot axis."""
     C = self.cfg.synopsis.cluster_size
     N, Mp = self.topo.n_components, self.topo.m_max
     out = {}
@@ -508,7 +524,7 @@ class ClusterStepBackend:
         sh = sh[:3] + (N, Mp)
       elif name in kvc.ARENA_LEAVES:        # a quantized arena's scales
         sh = sh[:3] + (N, sh[3], Mp)
-      out[name] = torch.zeros(sh, dtype=dt, device=self.dev)
+      out[name] = (tuple(sh), dt)
     return out
 
   def write_slot(self, cache, syn, slot: int):
@@ -519,6 +535,14 @@ class ClusterStepBackend:
     The private leaves (ring, ``pos``, SSM state) are written as the
     single-component pool writes them.  A corpus-cache arena is the
     pre-scatter canonical state, so it scatters as a fresh build does."""
+    self._scatter(syn, slot, lambda name: cache[name][:, :, slot])
+    private = {k: v for k, v in syn.items() if k not in kvc.ARENA_LEAVES}
+    return kvc.write_slot(cache, private, slot, self._bx)
+
+  def _scatter(self, syn, slot: int, dst_of) -> None:
+    """Scatter the arena leaves of ``syn`` over the components of slot
+    ``slot`` into the views ``dst_of(name)`` (nb, na, N, ...), in place
+    (see :meth:`write_slot`)."""
     C = self.cfg.synopsis.cluster_size
     topo = self.topo
     N = topo.n_components
@@ -527,7 +551,7 @@ class ClusterStepBackend:
       if name not in syn:
         continue
       src = syn[name][:, :, 0]
-      dst = cache[name][:, :, slot]       # (nb, na, N, ...)
+      dst = dst_of(name)                  # (nb, na, N, ...)
       unit = C if name in ("k", "v") else 1
       # The cluster axis: the last of counts and the scales, else the one
       # before D.
@@ -539,8 +563,6 @@ class ClusterStepBackend:
         d.narrow(axis, 0, cnt).copy_(src.narrow(axis, off, cnt))
         if d.shape[axis] > cnt:
           d.narrow(axis, cnt, d.shape[axis] - cnt).zero_()
-    private = {k: v for k, v in syn.items() if k not in kvc.ARENA_LEAVES}
-    return kvc.write_slot(cache, private, slot, self._bx)
 
   # -- the step --------------------------------------------------------------
   def step_fn(self, budget: int):

@@ -85,8 +85,11 @@ accuracy is the mean of its steps' corpus-share-weighted accuracy, and a
 step that dropped shard mass costs the request its availability.  The
 engine's policy shares the backend's wall predictor, which only the
 backend observes; admissions are serial (no overlap: the parallel clock
-would hide their wall).  Any other backend (the fleet tier, ROADMAP A.7b)
-raises.
+would hide their wall).  The fleet tier (``serve.fleet.FleetStepBackend``,
+a cluster backend with R materialized replica rows) plugs in the same
+way; each admission then pins its corpus-cache arena once for each of
+the backend's ``replica_mappings``, and retirement releases them all.
+Any other backend raises; the sharded paths are ROADMAP A.7c.
 
 :class:`MeasuredStepBackend` exports the measured per-bucket step times to
 the simulator (``serving.service.ScatterGatherService(step_backend=...)``).
@@ -210,14 +213,15 @@ class _Slot:
 
 
 def _refuse_backend(backend) -> None:
-  """Of the step backends the port has the scatter-gather cluster tier
-  (``serve.cluster.ClusterStepBackend``); any other (the fleet tier) raises
-  rather than being ignored."""
+  """The step backends the port has: the scatter-gather cluster tier
+  (``serve.cluster.ClusterStepBackend``) and its fleet tier
+  (``serve.fleet.FleetStepBackend``, a subclass); any other raises rather
+  than being ignored."""
   if backend is not None and not isinstance(backend, ClusterStepBackend):
     raise NotImplementedError(
         f"step backend {type(backend).__name__}: only the scatter-gather "
-        "cluster tier (ClusterStepBackend) is ported; the fleet tier "
-        "(FleetStepBackend) is not (ROADMAP A.7b)")
+        "cluster tier (ClusterStepBackend) and the fleet tier "
+        "(FleetStepBackend) are ported")
 
 
 def _telemetry_attention(q, cache_sl, *, i_max, cluster_size, sm_scale,
@@ -311,6 +315,9 @@ class ServingEngine:
     self.backend = backend
     if backend is not None:
       backend.bind(self)
+    # Corpus-cache pins a slot's admission holds: one, or one for each of
+    # a fleet backend's replica mappings.
+    self._map_count = int(getattr(backend, "replica_mappings", 1))
     self.controller = self._make_policy()
     # One admission policy always: with no config it is the FIFO queue
     # with no shedding and no classes.  It reaches the demand estimate
@@ -501,7 +508,7 @@ class ServingEngine:
     self.prefills = 0
     for key in getattr(self, "_slot_entry", []):
       if key is not None:
-        self.corpus_cache.release(key)
+        self.corpus_cache.release(key, self._map_count)
     self._slot_entry: List[Optional[str]] = [None] * self.ecfg.n_slots
     self.corpus_cache.reset_stats()
     self._slot_profile: List[Optional[np.ndarray]] = \
@@ -569,9 +576,10 @@ class ServingEngine:
       kind, entry = cc.lookup(req.prompt, allow_extend=self._delta_ok)
       if kind != "miss":
         if kind == "hit":
-          cc.acquire(entry)
-        else:                 # "extend": publishing pins the new entry
+          cc.acquire(entry, self._map_count)
+        else:                 # "extend": publishing pins the new entry once
           entry = self._delta_admit(entry, req.prompt)
+          self._pin_mappings(entry)
         self._slot_entry[slot] = entry.key
         self._write_slot(entry.arena, slot)
         return entry.first_token
@@ -580,9 +588,18 @@ class ServingEngine:
     syn = self._build(cache1)
     first = logits.argmax(-1)
     if use_cache:
-      self._slot_entry[slot] = cc.publish(req.prompt, syn, first).key
+      entry = cc.publish(req.prompt, syn, first)  # pins once
+      self._pin_mappings(entry)
+      self._slot_entry[slot] = entry.key
     self._write_slot(syn, slot)
     return first
+
+  def _pin_mappings(self, entry: ccache.CacheEntry) -> None:
+    """The pins of a published entry's other replica mappings (the fleet
+    tier maps one admission's arena onto R rows, each holding its own pin,
+    so that retiring one mapping never frees an arena another reads)."""
+    if self._map_count > 1:
+      self.corpus_cache.acquire(entry, self._map_count - 1)
 
   def _write_slot(self, syn, slot: int) -> None:
     """One request's built (or cached) B = 1 cache into lane ``slot``: the
@@ -685,7 +702,7 @@ class ServingEngine:
     # Unpin the lane's cache entry (it stays resident, warm for the next
     # admission, until capacity pressure evicts it).
     if self._slot_entry[slot] is not None:
-      self.corpus_cache.release(self._slot_entry[slot])
+      self.corpus_cache.release(self._slot_entry[slot], self._map_count)
       self._slot_entry[slot] = None
     req.dropped = s.remaining > 0      # shed mid-flight, not finished
     policy = self.ecfg.policy
@@ -748,7 +765,7 @@ class ServingEngine:
     mask[list(active)] = True
     self._amask.copy_(mask, non_blocking=True)
     if plan is not None:
-      self.backend.load_mode(plan.mode)
+      self.backend.load_plan(plan)
     self.programs.run(("step", budget))
     if admit is not None:
       admit()

@@ -138,6 +138,20 @@ def write_slot(cache: Dict[str, torch.Tensor], sub: Dict[str, torch.Tensor],
   return cache
 
 
+def replicate_leaf(x: torch.Tensor, replicas: int, axis: int) -> torch.Tensor:
+  """The fleet tier's replica rows of one component-stacked leaf: R
+  ring-rotated copies stacked at a new axis ``axis`` (the component axis
+  moves to ``axis + 1``).  Row r is row 0 rolled right by r along the
+  component axis, so column j of row r holds shard ``(j - r) % N``,
+  exactly ``ComponentTopology.shard_grid()``; every copy is bit-identical
+  to its primary shard."""
+  r = int(replicas)
+  if r < 1:
+    raise ValueError(f"replicas must be >= 1, got {r}")
+  return torch.stack([torch.roll(x, shift, dims=axis) for shift in range(r)],
+                     dim=axis)
+
+
 def arena_nbytes(arena: Dict[str, torch.Tensor]) -> int:
   """Bytes of the shared-immutable half (``ARENA_LEAVES``): the corpus
   cache's capacity accounting (the private half lives in the slot

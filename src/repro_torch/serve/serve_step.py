@@ -206,30 +206,18 @@ def global_positions(cfg: ModelConfig) -> Tuple[int, ...]:
 
 
 def check_quant_device(cfg: ModelConfig, device) -> None:
-  """Refuse, on a CUDA device and before anything runs, a quant spec the
-  kernels are not built for: any spec under MLA (deepseek), whose
-  quantized stage 1 and stage 2 branches are not built at the latent
-  shapes (the latent core reads f32 or bf16 rows only), and a ``+kv``
+  """Refuse, on a CUDA device and before anything runs, a ``+kv`` quant
   spec for a config with local layers.  Under ``+kv`` the sorted cache
   holds int8 / fp8 codes, and a local layer hands its window of that
   cache to exact decode as given (the JAX step does the same, unscaled):
   the CPU's plain version mirrors that, but ``flash_decode`` does not
   attend over raw codes.  The table-only specs keep the sorted cache in
-  ``cfg.dtype``.  On the CPU the plain versions run every spec."""
+  ``cfg.dtype``.  Every other spec runs on the card, MLA's (deepseek)
+  too: the latent core has its quantized stage 1 and stage 2.  On the CPU
+  the plain versions run every spec."""
   qc = qt.parse_qconfig(cfg.synopsis.quant)
   on_card = device is None or torch.device(device).type == "cuda"
-  if not qc.enabled or not on_card:
-    return
-  if cfg.mla is not None:
-    m = cfg.mla
-    raise ValueError(
-        f"{cfg.name}: quant={qc.spec} under MLA: the quantized branches of "
-        f"stage 1 (fused_synopsis_score_attention[{qc.kind}]) and stage 2 "
-        f"(block_gather_attention[{qc.kind}]) are not built at the latent "
-        f"shapes (one key/value head of D = "
-        f"{m.kv_lora_rank + m.qk_rope_dim}, G = {cfg.n_heads}); run "
-        "quant=none on the card, or the spec on the CPU")
-  if not qc.sorted_kv:
+  if not qc.enabled or not on_card or not qc.sorted_kv:
     return
   n = len(cfg.block_pattern)
   local = [b * n + i for b in range(cfg.n_blocks)

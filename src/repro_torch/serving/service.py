@@ -20,7 +20,9 @@ the service latency (paper §1).  Techniques:
 per-bucket step time (``repro_torch.serve.engine.MeasuredStepBackend``),
 or in the cluster tier's measured per-component time
 (``serve.cluster.ClusterMeasuredExport``, one entry per component),
-instead of the modelled ``base + slope * items``.
+instead of the modelled ``base + slope * items``; :class:`ScaledFleetExport`
+rescales such an export onto a counterfactual fleet size (the fleet
+autoscaler's round trip).
 
 ``faults`` injects the cluster tier's seed-deterministic fault world
 (``serve.resilience``), keyed by request id: a dead component's shard
@@ -267,6 +269,46 @@ class ScatterGatherService:
       s["pred_loss_mean"] = float(np.mean(self.pred_tracker)) \
           if self.pred_tracker else 0.0
     return s
+
+
+class ScaledFleetExport:
+  """A fleet tier's measured per-component export rescaled onto a
+  counterfactual (n, r) size: the autoscaler's simulator round trip.
+
+  The export was measured at ``n0`` components each owning ~1/n0 of every
+  corpus; at ``n`` components each owns ~1/n, so the per-component time
+  is the measured total over n.  Replica selection serves every shard from
+  the fastest of its ``r`` holders, which trims the measured excess over
+  the mean (imbalance and stragglers) by 1/r; the mean work stays.  A
+  drop-in ``step_ms_per_component`` backend for
+  ``ScatterGatherService(step_backend=...)``; :meth:`step_model` is the
+  ``step_ms_fn(n, r)`` that ``control.Autoscaler`` scans."""
+
+  def __init__(self, export, n_components: int, replicas: int = 1,
+               model_budget: int = 8):
+    if n_components < 1 or replicas < 1:
+      raise ValueError(f"fleet size ({n_components}, {replicas}) invalid")
+    self.export = export
+    self.n_components = int(n_components)
+    self.replicas = int(replicas)
+    self.model_budget = int(model_budget)    # the operating point
+
+  def step_ms_per_component(self, budget: int) -> np.ndarray:
+    v0 = np.asarray(self.export.step_ms_per_component(budget), np.float64)
+    total = float(v0.sum())
+    mean = total / self.n_components
+    imbalance = float(v0.max()) / max(total / max(v0.size, 1), 1e-30) - 1.0
+    per = mean * (1.0 + max(imbalance, 0.0) / self.replicas)
+    return np.full(self.n_components, per)
+
+  def step_ms(self, budget: int) -> float:
+    return float(self.step_ms_per_component(budget).max())
+
+  def step_model(self, n_components: int, replicas: int) -> float:
+    """The predicted step wall at a candidate size (the frontend waits on
+    the slowest component, so the per-component time is the wall)."""
+    return ScaledFleetExport(self.export, n_components,
+                             replicas).step_ms(self.model_budget)
 
 
 def _default_concentration(frac: float) -> float:

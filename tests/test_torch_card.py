@@ -140,7 +140,7 @@ def test_ctypes_signatures_match_the_c_entry_points():
   # The split decode kernels take their outputs, then the scratch of their
   # chunk partials (o, m, l of every part) and the counters of their
   # last-block merge from the wrapper (stage 1 also its scores).
-  for name, n_in in (("flash_decode_launch", 4), ("block_gather_launch", 12),
+  for name, n_in in (("flash_decode_launch", 4), ("block_gather_launch", 13),
                      ("fused_synopsis_launch", 7)):
     assert found[name][:n_in + 7] == ["ptr"] * (n_in + 7), name
     assert found[name][n_in + 7] == "int", name
@@ -1000,17 +1000,20 @@ def test_card_fused_synopsis_quant(cuda, dtype, kind, M, cap):
 
 
 def _quant_gather_inputs(g, spec, M, budget, dtype, dev, C=128,
-                         equal=False):
+                         equal=False, Hkv=8, G=4, D=128, latent=False):
   """Stage-2 inputs as ``refine_stage2`` builds them on a quantized arena
   at the decode shape: decrement rows dequantized in f32 from the
   quantized centroid tables (the means of the cache's clusters), E = 129
   extras in the compute type, per-block scales under ``+kv``.  ``equal``:
   the first selected cluster's keys are all equal, so its rows nearly
   cancel its centroid term (exactly up to the centroid table's
-  rounding)."""
-  B, Hkv, G, D = 2, 8, 4, 128
+  rounding).  ``latent``: the latent core's f32 query (logits spread ~1),
+  the extras and an unquantized cache in ``dtype``."""
+  B = 2
   qc = qt.parse_qconfig(spec)
   q = _rand(g, B, Hkv * G, D)
+  if latent:
+    q = q * (D ** -0.5) * 3.0
   k, v = _rand(g, B, Hkv, M * C, D), _rand(g, B, Hkv, M * C, D)
   if budget == 0:
     sel = torch.full((B, Hkv, 1), -1, dtype=torch.int32)
@@ -1045,8 +1048,9 @@ def _quant_gather_inputs(g, spec, M, budget, dtype, dev, C=128,
   eb = torch.zeros((B, 129))
   eb[:, 100:128] = NEG_INF
   kw.update(extras_k=ek.to(dtype), extras_v=ev.to(dtype), extras_bias=eb)
-  return (q.to(device=dev, dtype=dtype), k.to(dev), v.to(dev), sel.to(dev),
-          C, {n: t.to(dev) for n, t in kw.items()})
+  return (q.to(device=dev, dtype=torch.float32 if latent else dtype),
+          k.to(dev), v.to(dev), sel.to(dev), C,
+          {n: t.to(dev) for n, t in kw.items()})
 
 
 @pytest.mark.cuda
@@ -1131,6 +1135,167 @@ def test_card_quant_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                            k_sel=kq[:, :, :1].bfloat16(),
                            v_sel=vq[:, :, :1].bfloat16(),
                            sel_bias=torch.zeros((2, 2, 1), device=cuda))
+
+
+# The latent core's quantized branches (MLA under every --quant spec).
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("G,D", LATENT_SHAPES)
+@pytest.mark.parametrize("M", [64, 65, 1024])
+@pytest.mark.parametrize("cap", [None, 30.0])
+def test_card_latent_fused_synopsis_quant(cuda, kind, G, D, M, cap):
+  """The latent core's stage 1 on int8 / fp8 tables with one scale a row
+  (``has_scale``): the scores (the k-scale on the raw dot, a max over all
+  G heads across the head tiles) and the partials (the v-scale on p),
+  against the plain version; one launch of the "latent-<kind>" branch."""
+  g = torch.Generator().manual_seed(80 + M)
+  q = _latent_q(g, 2, G, D).to(cuda)
+  kq, vq, ks, vs = (t.to(cuda) for t in _quant_tables(g, kind, 2, 1, M, D))
+  cbias = torch.log(torch.randint(1, 129, (2, M), generator=g).float())
+  kw = dict(sm_scale=192 ** -0.5, cap=cap, k_scale=ks, v_scale=vs)
+  key = _build.branch("fused_synopsis_score_attention",
+                      _build.latent_branch(kind))
+  n0 = _build.LAUNCHES[key]
+  got = fused_synopsis_score_attention(q, kq, vq, cbias.to(cuda), **kw)
+  torch.cuda.synchronize()
+  assert _build.LAUNCHES[key] == n0 + 1
+  want = ref.fused_synopsis_score_attention_ref(q, kq, vq, cbias.to(cuda),
+                                                **kw)
+  _close(got[0], want[0], TOL[torch.float32])
+  for a, b in zip(got[1], want[1]):
+    _close(a, b, TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("spec", QSPECS)
+@pytest.mark.parametrize("G,D", LATENT_SHAPES)
+@pytest.mark.parametrize("budget,equal", [(0, False), (1, False), (3, True),
+                                          (32, False)])
+@pytest.mark.parametrize("C", [16, 128])
+def test_card_latent_block_gather_quant(cuda, dtype, spec, G, D, budget,
+                                        equal, C):
+  """The latent core's stage 2 as the quantized path runs it: under
+  ``+kv`` int8 / fp8 cache blocks with one scale each (``has_kq``: the
+  k-scale on the block's dots, the v-scale on its sum) beside f32 or bf16
+  extras; under the table-only specs the f32 / bf16 cache with f32
+  decrement rows; the f32 query of G heads, Hkv = 1."""
+  g = torch.Generator().manual_seed(90 + G + C)
+  q, k, v, sel, C, kw = _quant_gather_inputs(
+      g, spec, 64, budget, dtype, cuda, C=C, equal=equal, Hkv=1, G=G, D=D,
+      latent=True)
+  qc = qt.parse_qconfig(spec)
+  key = _build.branch("block_gather_attention", _build.latent_branch(
+      qc.kind if qc.sorted_kv else "none"))
+  opts = dict(cluster_size=C, sm_scale=192 ** -0.5, cap=30.0)
+  n0 = _build.LAUNCHES[key]
+  got = block_gather_attention(q, k, v, sel, **opts, **kw)
+  torch.cuda.synchronize()
+  assert _build.LAUNCHES[key] == n0 + 1
+  want = ref.fused_gather_attention_ref(q, k, v, sel, **opts, **kw)
+  for a, b in zip(got, want):
+    assert torch.isfinite(a).all()
+    _close(a, b, TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,D", LATENT_SHAPES)
+def test_card_latent_fp8_widening_all_codes(cuda, G, D):
+  """Every e4m3 code, the two NaN codes included, widened by the latent
+  core equals ``quant.dequantize_rows``' decode: each batch row's table
+  row 0 holds D of the 256 codes at unit scale and takes p = 1 (the other
+  rows are masked and zero), so stage 1's output rows are the decoded
+  values.  (Equal as values: the accumulator starts at +0, so the code of
+  -0 comes out as +0.)"""
+  nb = -(-256 // D)
+  M = 16
+  codes = torch.zeros((nb, 1, M, D), dtype=torch.uint8)
+  codes[:, 0, 0] = (torch.arange(nb * D) % 256).to(torch.uint8).view(nb, D)
+  vq = codes.view(torch.float8_e4m3fn).to(cuda)
+  kq = torch.zeros_like(vq)
+  ones = torch.ones((nb, 1, M), device=cuda)
+  cbias = torch.full((nb, M), NEG_INF, device=cuda)
+  cbias[:, 0] = 0.0
+  q = torch.zeros((nb, G, D), device=cuda)
+  _, (o, _, l) = fused_synopsis_score_attention(
+      q, kq, vq, cbias, sm_scale=1.0, k_scale=ones, v_scale=ones)
+  torch.cuda.synchronize()
+  assert torch.equal(l, torch.ones_like(l))
+  want = qt.dequantize_rows(vq, ones)[:, 0, 0]                  # (nb, D)
+  nan = torch.isnan(want)
+  assert int(nan.sum()) == 2 * (nb * D // 256)
+  for h in range(G):
+    got = o[:, h]
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan], want[~nan])
+
+
+# The fleet tier's row map: stage 2 reads each batch row's clusters in
+# place from a row of a larger stack.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("spec", ["none", "int8+kv", "fp8+kv"])
+@pytest.mark.parametrize("G,D,Hkv", [(4, 128, 2), (128, 576, 1)])
+def test_card_block_gather_row_map(cuda, dtype, spec, G, D, Hkv):
+  """A random map of 4 batch rows into a stack of 12 shard rows (repeats
+  included), on every branch the fleet reaches (the unquantized cache and
+  the int8 / fp8 ``has_kq`` cache; the decode core and, at D = 576, the
+  latent core): against the plain version on the same map, and bit for
+  bit the launch on the rows copied out without a map."""
+  g = torch.Generator().manual_seed(95 + G)
+  Bq, P, C, M, I = 4, 12, 16, 8, 3
+  latent = D in _build.LATENT_HEAD_DIMS
+  q = _rand(g, Bq, Hkv * G, D)
+  q = (q * (D ** -0.5) * 3.0) if latent else q.to(dtype)
+  k, v = _rand(g, P, Hkv, M * C, D), _rand(g, P, Hkv, M * C, D)
+  rows = torch.randint(0, P, (Bq,), generator=g, dtype=torch.int32)
+  rows[1] = rows[0]
+  sel = torch.stack([torch.stack([torch.randperm(M, generator=g)[:I]
+                                  for _ in range(Hkv)]) for _ in range(Bq)])
+  sel = sel.to(torch.int32)
+  qc = qt.parse_qconfig(spec)
+  kw = {}
+  if qc.sorted_kv:
+    k, ks = qt.quantize_rows(k, qc.kind, block=C)
+    v, vs = qt.quantize_rows(v, qc.kind, block=C)
+    kw.update(kv_k_scale=ks[rows.long()], kv_v_scale=vs[rows.long()])
+  else:
+    k, v = k.to(dtype), v.to(dtype)
+  mine = qt.select_rows(k, rows.long()), qt.select_rows(v, rows.long())
+  kf = mine[0].float() if not qc.sorted_kv else qt.dequantize_rows(
+      mine[0], kw["kv_k_scale"], block=C)
+  vf = mine[1].float() if not qc.sorted_kv else qt.dequantize_rows(
+      mine[1], kw["kv_v_scale"], block=C)
+  safe = sel.long()[..., None].expand(-1, -1, -1, D)
+  kw["k_sel"] = torch.gather(kf.reshape(Bq, Hkv, M, C, D).mean(3), 2, safe)
+  kw["v_sel"] = torch.gather(vf.reshape(Bq, Hkv, M, C, D).mean(3), 2, safe)
+  kw["sel_bias"] = torch.full(sel.shape, float(np.log(C)))
+  if not qc.sorted_kv:
+    kw["k_sel"], kw["v_sel"] = (kw["k_sel"].to(dtype),
+                                kw["v_sel"].to(dtype))
+  ek, ev = _rand(g, Bq, Hkv, 129, D), _rand(g, Bq, Hkv, 129, D)
+  kw.update(extras_k=ek.to(dtype), extras_v=ev.to(dtype),
+            extras_bias=torch.zeros((Bq, 129)))
+  dev = {n: t.to(cuda) for n, t in kw.items()}
+  opts = dict(cluster_size=C, sm_scale=D ** -0.5, cap=30.0)
+  args = (q.to(cuda), k.to(cuda), v.to(cuda), sel.to(cuda))
+  kind = qc.kind if qc.sorted_kv else "none"
+  key = _build.branch("block_gather_attention",
+                      _build.latent_branch(kind) if latent else kind)
+  n0 = _build.LAUNCHES[key]
+  got = block_gather_attention(*args, **opts, rows=rows.to(cuda), **dev)
+  torch.cuda.synchronize()
+  assert _build.LAUNCHES[key] == n0 + 1
+  want = ref.fused_gather_attention_ref(*args, **opts, rows=rows.to(cuda),
+                                        **dev)
+  copied = block_gather_attention(args[0], mine[0].to(cuda),
+                                  mine[1].to(cuda), args[3], **opts, **dev)
+  for a, b, c in zip(got, want, copied):
+    assert torch.isfinite(a).all()
+    _close(a, b, TOL[dtype])
+    assert torch.equal(a, c)
 
 
 # -- the engine's CUDA graphs -------------------------------------------------
@@ -1332,17 +1497,24 @@ def _check_loop_on_card(arch, mode, quant="none"):
       s.local for s in attn) * cfg.n_blocks
   cross = sum(s.cross_attn for s in cfg.block_pattern) * cfg.n_blocks
   branch = _build.LATENT if cfg.mla is not None else None
+  qc = qt.parse_qconfig(quant)
   assert launched["flash_prefill"] == n_attn + cross
   assert launched[_build.branch("flash_decode", branch or "none")] == (
       2 * exact + cross) * 18
   if mode == "synopsis":
-    assert launched[_build.branch("fused_synopsis_score_attention",
-                                  branch or qt.parse_qconfig(quant).kind)] \
-        == (n_attn - sum(s.local for s in attn) * cfg.n_blocks) * 18
+    n_glob = n_attn - sum(s.local for s in attn) * cfg.n_blocks
+    s1 = _build.latent_branch(qc.kind) if branch else qc.kind
+    s2 = qc.kind if qc.sorted_kv else "none"
+    s2 = _build.latent_branch(s2) if branch else s2
+    assert launched[_build.branch("fused_synopsis_score_attention", s1)] \
+        == n_glob * 18
+    assert launched[_build.branch("block_gather_attention", s2)] \
+        == n_glob * 18
   if branch is not None:
     assert not any(n for k, n in launched.items()
-                   if k not in ("flash_prefill", "segment_build")
-                   and not k.endswith("[latent]"))
+                   if k != "flash_prefill"
+                   and not k.startswith("segment_build")
+                   and "[latent" not in k)
 
 
 @pytest.mark.cuda
@@ -1404,23 +1576,14 @@ def test_card_deepseek_loop_equals_the_cpu(mode):
 
 
 @pytest.mark.cuda
-def test_card_deepseek_quant_refused():
-  """On the card every quant spec is refused for MLA at the entry of the
-  loop and of the engine (no quantized branch is built at the latent
-  shapes), before a tensor is made; the CPU runs them."""
-  from repro_torch.launch import serve
-  from repro_torch.serve.engine import EngineConfig, ServingEngine
-  dev = _card_or_skip()
-  cfg = parity.smoke_f32("deepseek-v2-236b")[0]
-  for quant in ("int8", "fp8", "int8+kv", "fp8+kv"):
-    q = serve.apply_quant(cfg, quant)
-    before = _build.launch_counts()
-    with pytest.raises(ValueError, match="latent shapes"):
-      serve.run(q, batch=2, prompt_len=64, tokens=2, device=dev)
-    with pytest.raises(ValueError, match="latent shapes"):
-      ServingEngine(q, EngineConfig(n_slots=2, prompt_len=64,
-                                    max_new_tokens=2), device=dev)
-    assert _build.launch_counts() == before
+@pytest.mark.parametrize("quant", ["int8", "fp8", "int8+kv", "fp8+kv"])
+def test_card_deepseek_quant_loop_equals_the_cpu(quant):
+  """deepseek-v2-236b under every quant spec: stage 1 on the latent core's
+  quantized tables, stage 2 on its quantized cache under ``+kv`` (else the
+  unquantized one with f32 decrement rows), the absorb's fresh codes;
+  the same ids as the CPU and every step's logits within the parity
+  bound."""
+  _check_loop_on_card("deepseek-v2-236b", "synopsis", quant)
 
 
 @pytest.mark.cuda
@@ -1898,3 +2061,84 @@ def test_card_cluster_cli_exits_0(capsys):
   assert "[cluster] N=2 (stacked" in text and "  [faults] {" in text
   assert len(out["cluster"]["comp_ms_full"]) == 2
   assert out["results"]["hour21"]["n"] > 0
+
+
+# -- the fleet tier (stacked) ---------------------------------------------------
+
+def _fleet_engine(dev, **kw):
+  from repro_torch.configs.registry import get_config
+  from repro_torch.serve.engine import EngineConfig, ServingEngine
+  from repro_torch.serve.fleet import FleetConfig, FleetStepBackend
+  cfg = get_config("llama3-8b", smoke=True)                   # bf16
+  return ServingEngine(cfg, EngineConfig(
+      n_slots=2, prompt_len=ENGINE_PROMPT, max_new_tokens=ENGINE_NEW, **kw),
+      device=dev, backend=FleetStepBackend(FleetConfig(
+          n_components=2, skew=1.2, replicas=2)))
+
+
+@pytest.fixture(scope="module")
+def card_fleet_engine():
+  """A bf16 SMOKE fleet engine (accuracytrader: every bucket captured)
+  after a trace, its frontend vector set to FULL / STAGE1 read from the
+  primaries."""
+  eng = _fleet_engine(_card_or_skip())
+  _serve_a_trace(eng)
+  eng.backend.load_mode(np.asarray([[2, 1], [0, 0]], np.int32))
+  return eng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [0, 1, 2, 4])
+def test_card_fleet_step_graph_replays_its_eager_call(card_fleet_engine,
+                                                      budget):
+  """Each bucket's fleet step graph writes the bits its eager call writes;
+  the selection is read from the static buffer at replay and, every copy
+  being bit-identical, leaves every output as it was."""
+  eng = card_fleet_engine
+  key = ("step", budget)
+  assert key in eng.programs.graphs
+  assert eng.cache["k"].shape[3:5] == (2, 2)          # (R, N) after B
+  eng.programs.run(key)
+  replayed = _step_outputs(eng)
+  eng.programs.call_eager(key)
+  eager = _step_outputs(eng)
+  for name, t in replayed.items():
+    assert torch.equal(t, eager[name]), name
+  for sel in ([1, 0], [0, 1], [1, 1]):
+    eng.backend.load_mode(np.asarray([[2, 1], sel], np.int32))
+    eng.programs.run(key)
+    moved = _step_outputs(eng)
+    for name, t in replayed.items():
+      assert torch.equal(t, moved[name]), (sel, name)
+  eng.backend.load_mode(np.asarray([[2, 1], [0, 0]], np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(**ENGINE_ARMS)
+def test_card_fleet_engine_equals_the_cpu(arm):
+  """SMOKE f32, N = 4, R = 2 at skew 1.2: the fleet engine's ids on the
+  card (graphs, kernels, the row map) are the CPU's (eager, plain
+  versions)."""
+  import dataclasses
+
+  from repro_torch.configs.registry import get_config
+  from repro_torch.models import transformer as tf
+  from repro_torch.serve.engine import (EngineConfig, ServingEngine,
+                                        run_open_loop)
+  from repro_torch.serve.fleet import FleetConfig, FleetStepBackend
+  dev = _card_or_skip()
+  cfg = dataclasses.replace(get_config("llama3-8b", smoke=True),
+                            dtype=torch.float32)
+  params = tf.init_model(cfg, torch.Generator().manual_seed(1), "cpu")
+  ids = {}
+  for where in ("cpu", dev):
+    eng = ServingEngine(cfg, EngineConfig(
+        n_slots=2, prompt_len=128, max_new_tokens=ENGINE_NEW,
+        deadline_ms=1e6, **arm), params=_tree_to(params, where),
+        device=where, backend=FleetStepBackend(FleetConfig(
+            n_components=4, skew=1.2, replicas=2)))
+    run_open_loop(eng, 20.0, 0.3, seed=3)
+    ids[str(where)] = [r.tokens for r in sorted(eng.completed,
+                                                key=lambda r: r.rid)]
+    del eng
+  assert ids["cuda"] == ids["cpu"] and ids["cpu"]

@@ -26,7 +26,8 @@ and command-r-plus-104b are in ``tests/torch_arch_parity.py``.
   ``index_add_``'s bits).
 * Prefill logits and the latent cache, one absorbed step at budgets 0, 1
   and M and exact, every step of both loops (18 steps, one absorb) and of
-  the ``int8+kv`` loop; the quant specs refused on a CUDA device.
+  the loop under each quant spec; the engine under ``int8+kv``; every
+  quant spec passing the card's check (gemma2's ``+kv`` still refused).
 * The slot pool's leaves; the engine's ids, budgets and every step's
   logits under ``fixed``, ``basic`` and ``accuracytrader``.
 * ``supports_delta`` False as in JAX: an extension of a cached prefix
@@ -268,37 +269,65 @@ def test_loop_matches_jax_every_step(model, mode):
   tap.check_loop(model, mode)
 
 
-def test_int8_kv_loop_matches_jax(model):
-  """int8+kv on the CPU: the latent's sorted rows and tables as int8 codes,
-  the plain versions of the quantized branches; ids and every step's
-  logits of the 18-step loop (one absorb)."""
+def _quantized(model, quant):
+  """The model tuple with both configs under ``quant``."""
   jcfg, jparams, cfg, params, prompt, basis = model
   jq = dataclasses.replace(jcfg, synopsis=dataclasses.replace(
-      jcfg.synopsis, quant="int8+kv"))
+      jcfg.synopsis, quant=quant))
+  return jq, jparams, launch.apply_quant(cfg, quant), params, prompt, basis
+
+
+@pytest.mark.parametrize("quant", ["int8", "fp8", "int8+kv", "fp8+kv"])
+def test_int8_kv_loop_matches_jax(model, quant):
+  """Every quant spec on the CPU: the latent's tables (and under ``+kv``
+  its sorted rows) as int8 / fp8 codes, the plain versions of the
+  quantized branches; ids and every step's logits of the 18-step loop
+  (one absorb)."""
+  jq, jparams, cq, params, prompt, basis = _quantized(model, quant)
   want_ids, want_logits, _ = tap._jax_loop(jq, jparams, prompt, tap.BUDGETS,
                                            "synopsis")
-  out = launch.run(launch.apply_quant(cfg, "int8+kv"), batch=tap.B,
-                   prompt_len=tap.S, tokens=len(tap.BUDGETS), device="cpu",
-                   params=params, prompt=torch.from_numpy(prompt).long(),
+  out = launch.run(cq, batch=tap.B, prompt_len=tap.S,
+                   tokens=len(tap.BUDGETS), device="cpu", params=params,
+                   prompt=torch.from_numpy(prompt).long(),
                    budgets=tap.BUDGETS, pca_basis=torch.from_numpy(basis),
                    keep_logits=True, log=lambda _: None)
-  assert out["cache"]["k"].dtype == torch.int8 and out["absorbs"] == 1
+  kind = quant.split("+")[0]
+  kv = torch.int8 if kind == "int8" else torch.float8_e4m3fn
+  assert out["cache"]["k_syn"].dtype == kv and out["absorbs"] == 1
+  assert (out["cache"]["k"].dtype == kv) == quant.endswith("+kv")
   np.testing.assert_array_equal(out["tokens"].numpy(), want_ids)
   for got, want in zip(out["step_logits"], want_logits):
     tap.close(got, want)
 
 
+def test_int8_kv_engine_matches_jax(model):
+  """The SMOKE engine under int8+kv against the JAX engine: events, ids,
+  budgets and every step's logits (``fixed`` at budget 1)."""
+  tap.check_engine(_quantized(model, "int8+kv"), "fixed", fixed_budget=1)
+
+
 @pytest.mark.parametrize("quant", ["int8", "fp8", "int8+kv", "fp8+kv"])
-def test_quant_specs_refused_on_the_card(quant):
-  """On a CUDA device every quant spec raises for MLA (the quantized
-  stage 1 / stage 2 branches are not built at the latent shapes), before
-  anything runs; the CPU and quant=none pass."""
+def test_quant_specs_pass_the_card_check(quant):
+  """On a CUDA device every quant spec passes ``check_quant_device`` for
+  MLA, at SMOKE and full width (the latent core has the quantized stage 1
+  and stage 2), as on the CPU; the check runs nothing."""
   for smoke in (False, True):
     cfg = launch.apply_quant(get_config(ARCH, smoke=smoke), quant)
-    with pytest.raises(ValueError, match="latent shapes"):
-      check_quant_device(cfg, "cuda")
-    check_quant_device(cfg, "cpu")
-  check_quant_device(get_config(ARCH), "cuda:0")
+    for device in ("cuda", "cuda:0", "cpu"):
+      check_quant_device(cfg, device)
+
+
+@pytest.mark.parametrize("quant", ["int8+kv", "fp8+kv"])
+def test_gemma2_kv_specs_still_refused_on_the_card(quant):
+  """gemma2's local layers would hand flash_decode raw codes under ``+kv``
+  (a reference quirk refused on purpose, ROADMAP C): still refused on a
+  CUDA device, and passed on the CPU and under the table-only specs."""
+  cfg = launch.apply_quant(get_config("gemma2-2b"), quant)
+  with pytest.raises(ValueError, match="local"):
+    check_quant_device(cfg, "cuda")
+  check_quant_device(cfg, "cpu")
+  check_quant_device(launch.apply_quant(get_config("gemma2-2b"),
+                                        quant.split("+")[0]), "cuda")
 
 
 # -- the engine and the corpus cache ------------------------------------------

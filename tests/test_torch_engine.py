@@ -404,9 +404,10 @@ def test_simulator_copy_matches_jax(technique, skew, shed):
     ("contract", "error_bounded", "A.3"),
     ("contract", "deadline_with_bound", "A.3"), ("backend", object(), "A.7")])
 def test_engine_refuses_what_it_has_not_ported(llama, field, value, item):
-  """A step backend that is not the cluster tier's (the fleet tier, A.7b,
-  not ported) raises; the corpus cache (A.5), admission (A.4) and the
-  contracts (A.3), ported since, build an engine that serves."""
+  """A step backend that is neither the cluster tier's nor the fleet
+  tier's (A.7a-b, ported since) raises; the corpus cache (A.5), admission
+  (A.4) and the contracts (A.3), ported since, build an engine that
+  serves."""
   _, _, cfg, params, _ = llama
   kw = dict(prompt_len=32, max_new_tokens=2)
   extra = {}
@@ -415,7 +416,8 @@ def test_engine_refuses_what_it_has_not_ported(llama, field, value, item):
   else:
     kw[field] = value
   if item == "A.7":
-    with pytest.raises(NotImplementedError, match="A.7b"):
+    with pytest.raises(NotImplementedError,
+                       match="FleetStepBackend\\) are ported"):
       ServingEngine(cfg, EngineConfig(**kw), params=params, device="cpu",
                     **extra)
     return
@@ -479,10 +481,10 @@ def test_engine_refuses_without_cuda(monkeypatch, llama):
     (["--contract", "error_bounded"], "A.3"), (["--mode", "exact"], "exact"),
     (["--budget", "1"], "budget"), (["--autoscale"], "A.7")])
 def test_engine_cli_refuses_unported_flags(capsys, monkeypatch, flags, item):
-  """The fleet tier's flags (A.7b) and what the engine does not take exit
-  with their reason; the flags of A.3-A.5 and ``--cluster`` (A.7a),
-  ported since, reach the engine, ``--cluster`` without ``--engine``
-  too."""
+  """What the engine does not take exits with its reason; the flags of
+  A.3-A.5, ``--cluster`` (A.7a) and the fleet tier's (A.7b), ported since,
+  reach the engine, ``--cluster`` without ``--engine`` too; ``--fleet``
+  and ``--autoscale`` still exit without ``--cluster N``, naming it."""
   seen = []
   monkeypatch.setattr(launch, "engine_main",
                       lambda args, device: seen.append(args))
@@ -501,9 +503,13 @@ def test_engine_cli_refuses_unported_flags(capsys, monkeypatch, flags, item):
     launch.main(["--engine", "--device", "cpu", *flags])
   assert e.value.code != 0 and not seen
   err = capsys.readouterr().err
-  assert item in err
   if item == "A.7":
-    assert "A.7b" in err
+    assert "--cluster N" in err
+    launch.main(["--device", "cpu", "--cluster", "4", *flags])
+    args, = seen
+    assert args.cluster == 4 and (args.fleet or args.autoscale)
+    return
+  assert item in err
 
 
 def test_engine_cli_on_cpu(tmp_path, capsys):
