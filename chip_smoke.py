@@ -111,14 +111,14 @@
     the 24 Sogou hours from that window's measured export (host only);
     and the SMOKE fleet engine's ids on the card against the CPU under
     basic and fixed;
-12-14. the other architectures at their published width and depth,
-    nothing cut, random bf16 weights from seed 0, each after the previous
-    model's weights are freed: gemma2-2b (26 layers alternating local,
-    window 4096, and global; softcaps; sandwich norms; tied embeddings; hd
-    256), smollm-135m (30 layers, 9/3 heads of 64: G = 3, which the
-    kernels pad to a bucket of 4; tied embeddings) and pixtral-12b (the
-    mistral-nemo backbone, 40 layers, 32/8 heads of 128, and the vision
-    stub).  Each phase: the SMOKE loop in f32 on the card against the CPU
+12-14. the other architectures at their published width, depth cut to
+    keep the script in its limit (``DEPTH``), random bf16 weights from
+    seed 0, each after the previous model's weights are freed: gemma2-2b
+    (8 of its 26 layers alternating local, window 4096, and global;
+    softcaps; sandwich norms; tied embeddings; hd 256), smollm-135m (10 of
+    30 layers, 9/3 heads of 64: G = 3, which the kernels pad to a bucket
+    of 4; tied embeddings) and pixtral-12b (the mistral-nemo backbone, 10
+    of 40 layers, 32/8 heads of 128, and the vision stub).  Each phase: the SMOKE loop in f32 on the card against the CPU
     (the same ids, every step's logits; gemma2 under its table-only int8 /
     fp8 specs), each kernel of its path against its plain version at its
     shapes (records ``<kernel>[gemma2]`` / ``[smollm]`` / ``[pixtral]``;
@@ -135,9 +135,9 @@
     build, a step at budget M against an exact step on that cache), the
     unfused op, and one engine window under ``accuracytrader`` and
     ``basic``;
-15. whisper-medium the same way (``[whisper]``: 24 + 24 layers, d 1024,
-    16/16 heads of 64, G = 1, d_ff 4096, vocab 51865, untied, nothing
-    cut): the SMOKE loops card against CPU in synopsis and exact mode and
+15. whisper-medium the same way (``[whisper]``: the encoder's 24 layers
+    and 8 of the decoder's 24, d 1024, 16/16 heads of 64, G = 1, d_ff
+    4096, vocab 51865, untied): the SMOKE loops card against CPU in synopsis and exact mode and
     under int8+kv, its kernels at its shapes (and ``flash_decode`` over
     the 1500 encoder frames, ``flash_decode[whisper-cross1500]``), the
     budget-32 and exact loops (no frames, as in the JAX loop: the cross
@@ -145,15 +145,15 @@
     seeded frames, the encoder timed alone, a step at budget M against
     exact on that cache), the unfused op, and the engine's refusal (the
     JAX engine fails on whisper; no window);
-16. jamba-v0.1-52b at full width with its depth cut to 16 of 32 layers
-    (``[jamba]``, ``DEPTH``: 2 of its 4 eight-layer superblocks, ~26.0B
-    parameters, ~52 GB; the whole model does not fit one card): mamba
+16. jamba-v0.1-52b at full width with its depth cut to 8 of 32 layers
+    (``[jamba]``, ``DEPTH``: 1 of its 4 eight-layer superblocks; the whole
+    model does not fit one card, 16 layers would, ~52 GB): mamba
     (SSD) layers, one attention layer in eight (llama3-8b's heads, G = 4
     at D = 128), an MoE FFN (16 experts, top 2) on every other layer.
     The same as 12-14: the SMOKE loops card against CPU (synopsis,
     exact), its kernels at its shapes (records ``<kernel>[jamba]``), the
     budget-32 and exact loops with exact launch counts (the kernels run on
-    the 2 attention layers only), the full-budget deviation on its
+    its attention layer only), the full-budget deviation on its
     attention layer, one step per budget against exact, the unfused op,
     and the engine window under ``accuracytrader`` and ``basic`` with each
     step's change of the slots' SSM state (a state not written back shows
@@ -162,10 +162,11 @@
     (``[arctic]``: 56/8 heads of 128, G = 7 in the kernels' head bucket of
     8; an MoE of 128 experts of 4864, top 2, with a dense MLP beside it on
     every layer, ~27.7B parameters) and command-r-plus-104b at full width
-    with its depth cut to 12 of 64 (``[command-r]``: 96/8 heads of 128,
+    with its depth cut to 6 of 64 (``[command-r]``: 96/8 heads of 128,
     G = 12 in the bucket of 16, flash_prefill's 128 rows as 10 positions
     of 12 heads; parallel attention and FFN blocks, tied 256000-token
-    embeddings, ~22.0B parameters), ``DEPTH``: the same as 12-14, the
+    embeddings; 12 layers, ~22.0B parameters, would fit), ``DEPTH``: the
+    same as 12-14, the
     loops at budget 32 (``LOOP_BUDGET``: command-r's published i_max is
     64 = M);
 19. deepseek-v2-236b at full width with its depth cut to 7 of 60 layers
@@ -191,7 +192,31 @@
     the SMOKE loop card against CPU, the exact loop (no attention, so
     exact whatever the mode: prefill ms, p50 / p99, peak memory) with no
     kernel launched, a profiled window (device busy ms and ops a step),
-    and the engine's refusal (``ValueError``, as the JAX engine).
+    and the engine's refusal (``ValueError``, as the JAX engine);
+21. the generic-data Algorithm 1: the llama3-8b SMOKE cache built with
+    ``method="morton"`` (``[morton]``, record ``segment_build[morton]``:
+    the Morton permutation on the card beside the CPU's, ``segment_build``
+    against its plain version on it); then ``[apps]``: the CF recommender
+    (4000 x 1000 MovieLens-shaped ratings, 64 clusters) and the search
+    engine (20000 x 2000 Sogou-shaped pages, 128 clusters) on the card
+    against the card machine's CPU on the CPU's synopsis (``predict``
+    within 1e-5 of max|ref|, the same top-10 ids at 0 / 5 / 10 / 20 / 40 /
+    100% of the clusters and exact), the card's own builds' invariants and
+    their share of rows in the CPU build's cluster; one larger component
+    of each drawn on the device (65536 x 4096 ratings, 131072 x 2048
+    pages, 1024 clusters): the build's wall time, per-query p50 / p99
+    over 200 queries one at a time (each budget, exact, and the
+    recommender's unranked 25% partial execution), RMSE loss / top-10
+    overlap, peak memory; plain PyTorch, f32 without TF32;
+22. training (``[train]``): one f32 step of smollm's SMOKE config on the
+    card against the CPU (within 4x the CPU's distance from its float64
+    step); smollm-135m at full width, every gradient finite and non-zero,
+    30 steps at batch 8 x 2048 with a checkpoint at step 20
+    (``launch.train.run``: the loss every 5 steps, step p50 from CUDA
+    events, tokens/s, peak memory), a second uninterrupted run (the
+    run-to-run spread) and a restart from the step-20 checkpoint to 30,
+    held to the first run within twice that spread; no kernel may launch
+    (the training forward takes the differentiable attention).
 
 Every path's launch counts are reset just before it runs and read just
 after: the synopsis loop must launch its four kernels, the quantized loops
@@ -233,6 +258,10 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {torch.bfloat16: 989e12,  # dense tensor-core bf16
             torch.float32: 67e12}    # f32 outside the tensor cores
 REPS = 20
+# Calls timed of a plain version (after one warm-up): the slowest take
+# 100-600 ms a call, where 20 would cost ~40 s of the script's limit over
+# its 80-odd records.
+PLAIN_REPS = 5
 PROMPT, BATCH, STEPS = 8192, 2, 130
 # The controller's per-step deadline.  No published deadline exists for
 # this model and prompt; 100 ms is the smallest round value above this
@@ -475,7 +504,7 @@ def _record(name, source, replaces, dtype, err, kernel_fn, plain_fn, nbytes,
   version, its bound and the library call; returns its record."""
   names = KERNEL_ROWS[name.split("[")[0]]
   ms = _median_ms(kernel_fn)
-  plain_ms = _median_ms(plain_fn)
+  plain_ms = _median_ms(plain_fn, reps=PLAIN_REPS, warmup=1)
   library_ms = _median_ms(library_fn) if library_fn is not None else None
   bound_ms, bound_by = _bound(nbytes, ops, dtype)
   ops_ms = ops / PEAK_OPS[dtype] * 1e3  # warm inputs may sit in the L2
@@ -3148,9 +3177,16 @@ MODELS = {
 # would hold ~69 GB before them.  deepseek-v2-236b's layers are 7.94 GB
 # each (7.55 GB of them the 160 experts): 7 of 60 (~58.8 GB with the 2.1
 # GB f32 unembedding) leave room for the prefill's MLA and MoE transients;
-# 8 would hold 66.7 GB before them.  Width is never cut.
-DEPTH = {"jamba-v0.1-52b": 16, "arctic-480b": 2, "command-r-plus-104b": 12,
-         "deepseek-v2-236b": 7}
+# 8 would hold 66.7 GB before them.  The models that fit whole are cut too,
+# so that the script stays inside its 1200 s with the apps and training
+# (a whole run with them took 1195.9 s on one H100): gemma2-2b 8 of 26 (4
+# local, 4 global), smollm-135m 10 of 30, pixtral-12b 10 of 40,
+# whisper-medium's decoder 8 of 24 (its encoder whole), and jamba 8 (one
+# superblock: 1 attention, 7 mamba, 4 MoE layers) and command-r 6 of the
+# depths that fit.  Width is never cut.
+DEPTH = {"jamba-v0.1-52b": 8, "arctic-480b": 2, "command-r-plus-104b": 6,
+         "deepseek-v2-236b": 7, "gemma2-2b": 8, "smollm-135m": 10,
+         "pixtral-12b": 10, "whisper-medium": 8}
 # The per-model loops' budget: every model's published i_max but
 # command-r-plus-104b's, whose 64 is M at prompt 8192 (the full budget).
 LOOP_BUDGET = 32
@@ -4329,6 +4365,474 @@ def run_mamba2(dev):
   print(f"{tag} phase in {time.perf_counter() - t_start:.1f}s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the generic-data Algorithm 1 and its two services (``[apps]``),
+# with the Morton build of a KV cache; phase 22: training (``[train]``)
+# ---------------------------------------------------------------------------
+
+MORTON_PROMPT = 1024
+# The per-component scale of the JAX generators' defaults, then one larger
+# component on the device (CF: ~18 M ratings, 2.1 GB of dense ratings and
+# mask; search: 1.07 GB of term frequencies).
+APPS_CF = dict(n_users=4000, n_items=1000, density=0.0675)
+APPS_SE = dict(n_docs=20000, vocab=2000)
+APPS_CF_LARGE = dict(n_users=65536, n_items=4096, density=0.0675)
+APPS_SE_LARGE = dict(n_docs=131072, vocab=2048)
+APPS_CLUSTERS = {"cf": 64, "se": 128, "large": 1024}
+APPS_FRACTIONS = (0.0, 0.05, 0.1, 0.2, 0.4, 1.0)
+APPS_PARITY_QUERIES = 20
+APPS_QUERIES = 200
+APPS_PARTIAL = 0.25          # the unranked partial execution's share
+TRAIN_STEPS, TRAIN_CKPT, TRAIN_BATCH, TRAIN_SEQ = 30, 20, 8, 2048
+
+
+def _sync(dev):
+  if dev.type == "cuda":
+    torch.cuda.synchronize(dev)
+
+
+def _pct(xs, p):
+  return float(np.percentile(np.asarray(xs), p))
+
+
+def check_segment_build_morton(dev, g):
+  """The llama3-8b SMOKE cache (bf16, prompt 1024) built with
+  ``method="morton"`` through ``segment_build`` on the card, held against
+  the plain version on the same Morton permutation; the card's Morton
+  permutation beside the CPU's.  Returns (record, the build's launches)."""
+  from repro_torch.configs.registry import get_config
+  from repro_torch.kernels import _build, ref
+  from repro_torch.kernels.synopsis_build import segment_build
+  from repro_torch.models import transformer as tf
+  from repro_torch.serve import synopsis_kv as skv
+  from repro_torch.serve.prefill import make_prefill_step
+  cfg = get_config("llama3-8b", smoke=True)
+  params = tf.init_model(cfg, torch.Generator(dev).manual_seed(3), dev)
+  prompt = torch.randint(0, cfg.vocab, (BATCH, MORTON_PROMPT), generator=g,
+                         device=dev)
+  _, cache = make_prefill_step(cfg)(params, prompt)
+  _build.reset_launches()
+  syn = skv.build(cache, cfg, method="morton")
+  _sync(dev)
+  launches = _build.launch_counts()["segment_build"]
+  nb, na, B, Hkv, S, D = cache["k"].shape
+  N, C = nb * na * B, cfg.synopsis.cluster_size
+  M = S // C
+  k = cache["k"].reshape(N, Hkv, S, D)
+  v = cache["v"].reshape(N, Hkv, S, D)
+  perm = skv.cluster_perms(k, M, method="morton")
+  same = float((perm.cpu() == skv.cluster_perms(
+      k.cpu(), M, method="morton")).float().mean())
+  print(f"[morton] {N} sequences x {S} tokens: the card's Morton "
+        f"permutation equals the CPU's at {same:.2%} of positions (f32 PCA "
+        "in another order; codes tie often)")
+  want = ref.synopsis_build_ref(k, v, perm, cluster_size=C)
+  got = tuple(syn[n].reshape(want[i].shape) for i, n in enumerate(
+      ("k", "v", "k_syn", "v_syn", "counts")))
+  if not torch.equal(got[4], want[4]):
+    raise AssertionError("morton build counts differ from the plain version")
+  err = _check("segment_build[morton]", cfg.dtype, got, want, *BF16_OUT_TOL)
+  perm32 = perm.to(torch.int32)
+  rec = _record(
+      "segment_build[morton]", "src/repro_torch/kernels/csrc/segment_build.cu",
+      "src/repro/kernels/synopsis_build.py:173", cfg.dtype, err,
+      lambda: segment_build(k, v, perm32, cluster_size=C),
+      lambda: ref.synopsis_build_ref(k, v, perm32, cluster_size=C),
+      _nbytes(k, v, perm32, *want), 2 * N * Hkv * S * D + 2 * N * Hkv * M * D)
+  return _bound_share(rec, cfg.dtype), launches
+
+
+def _card_copy(obj, dev, **fields):
+  """The app object on ``dev`` with the CPU object's synopsis (no build)."""
+  out = type(obj).__new__(type(obj))
+  out.__dict__.update({k: (v.to(dev) if isinstance(v, torch.Tensor) else v)
+                       for k, v in obj.__dict__.items() if k != "syn"})
+  out.syn = obj.syn.to(dev)
+  out.__dict__.update(fields)
+  return out
+
+
+def _cf_queries(ratings, mask, n, rng):
+  """The recommender example's active users: (q, q_mask, test items,
+  truth) with the held-out ratings masked, on the data's device."""
+  mask_np = mask.cpu().numpy()
+  out = []
+  while len(out) < n:
+    uid = int(rng.integers(0, ratings.shape[0]))
+    rated = np.where(mask_np[uid] > 0)[0]
+    if len(rated) < 10:
+      continue
+    test = rng.choice(rated, size=min(10, len(rated) // 2), replace=False)
+    items = torch.from_numpy(test).to(ratings.device)
+    qm = mask[uid].clone()
+    qm[items] = 0.0
+    out.append((ratings[uid] * qm, qm, items, ratings[uid][items]))
+  return out
+
+
+def _check_build_invariants(label, syn, data, mask, n):
+  """tests/test_core.py's invariants of a build, on the device: every row
+  in exactly one cluster (row_cluster its inverse), counts balanced, each
+  centroid the masked mean of its members within 1e-5."""
+  mi = syn.member_idx.long()
+  valid = mi >= 0
+  rows = mi[valid]
+  cids = torch.arange(mi.shape[0], device=mi.device)[:, None].expand_as(
+      mi)[valid]
+  hits = torch.bincount(rows, minlength=n)
+  ok = (int(syn.counts.sum()) == n and bool((hits == 1).all())
+        and bool((syn.row_cluster.long()[rows] == cids).all())
+        and int(syn.counts.max() - syn.counts.min()) <= 1
+        and torch.equal(valid.sum(1).to(syn.counts.dtype), syn.counts))
+  safe = mi.clamp_min(0)
+  w = (mask[safe] * valid[..., None]).double()
+  mean = ((data[safe].double() * w).sum(1) / w.sum(1).clamp_min(1))
+  err = float((syn.centroids.double() - mean).abs().max())
+  print(f"[apps] {label} build on the card: {mi.shape[0]} clusters, "
+        f"counts {int(syn.counts.min())}-{int(syn.counts.max())}, every row "
+        f"in one cluster: {ok}; centroid max_abs_err {err:.2e} (tol 1e-5)")
+  if not ok or not err <= 1e-5:
+    raise AssertionError(f"{label}: the card's build breaks the synopsis "
+                         "invariants")
+
+
+def _apps_parity(dev):
+  """The per-component scale, card against the card machine's CPU."""
+  from repro_torch.serving import apps
+  rng = np.random.default_rng(0)
+  ratings, mask = apps.movielens_like(**APPS_CF)
+  cpu = apps.CFRecommender(ratings, mask, num_clusters=APPS_CLUSTERS["cf"])
+  card = _card_copy(cpu, dev)
+  budgets = sorted({int(f * APPS_CLUSTERS["cf"]) for f in APPS_FRACTIONS})
+  worst = 0.0
+  for q, qm, items, _ in _cf_queries(ratings, mask, APPS_PARITY_QUERIES,
+                                     rng):
+    qg, qmg, ig = q.to(dev), qm.to(dev), items.to(dev)
+    pairs = [(cpu.predict_exact(q, qm, items),
+              card.predict_exact(qg, qmg, ig))]
+    pairs += [(cpu.predict(q, qm, items, b), card.predict(qg, qmg, ig, b))
+              for b in budgets]
+    for want, got in pairs:
+      rel = float((got.cpu() - want).abs().max() / want.abs().max())
+      worst = max(worst, rel)
+  print(f"[apps] cf {APPS_CF['n_users']}x{APPS_CF['n_items']} "
+        f"({int(mask.sum())} ratings, {APPS_CLUSTERS['cf']} clusters): "
+        f"predict on the card against the CPU, same synopsis, "
+        f"{APPS_PARITY_QUERIES} users x budgets {budgets} + exact: max "
+        f"{worst:.2e} of max|ref| (tol 1e-5)")
+  if not worst <= 1e-5:
+    raise AssertionError("cf predict on the card disagrees with the CPU")
+  built = apps.CFRecommender(ratings.to(dev), mask.to(dev),
+                             num_clusters=APPS_CLUSTERS["cf"])
+  _check_build_invariants("cf", built.syn, built.ratings, built.mask,
+                          ratings.shape[0])
+  same = float((built.syn.row_cluster.cpu() == cpu.syn.row_cluster).float()
+               .mean())
+  print(f"[apps] cf: {same:.2%} of users in the same cluster as in the CPU "
+        "build")
+
+  docs = apps.webpages_like(**APPS_SE)
+  cpu = apps.SearchEngine(docs, num_clusters=APPS_CLUSTERS["se"])
+  card = _card_copy(cpu, dev)
+  budgets = sorted({int(f * APPS_CLUSTERS["se"]) for f in APPS_FRACTIONS})
+  differ = 0
+  for i in range(APPS_PARITY_QUERIES):
+    qv = docs[int(rng.integers(0, docs.shape[0]))] + 0.05 * torch.randn(
+        docs.shape[1], generator=torch.Generator().manual_seed(i))
+    qg = qv.to(dev)
+    differ += not torch.equal(cpu.search_exact(qv), card.search_exact(qg).cpu())
+    for b in budgets:
+      differ += not torch.equal(cpu.search(qv, b), card.search(qg, b).cpu())
+  print(f"[apps] search {APPS_SE['n_docs']} pages x {APPS_SE['vocab']} terms "
+        f"({APPS_CLUSTERS['se']} clusters): top-10 ids on the card against "
+        f"the CPU, same synopsis, {APPS_PARITY_QUERIES} queries x budgets "
+        f"{budgets} + exact: {differ} lists differ")
+  if differ:
+    raise AssertionError("search on the card disagrees with the CPU")
+  built = apps.SearchEngine(docs.to(dev), num_clusters=APPS_CLUSTERS["se"])
+  _check_build_invariants("search", built.syn, built.docs,
+                          torch.ones_like(built.docs), docs.shape[0])
+  same = float((built.syn.row_cluster.cpu() == cpu.syn.row_cluster).float()
+               .mean())
+  print(f"[apps] search: {same:.2%} of pages in the same cluster as in the "
+        "CPU build")
+
+
+def _movielens_on(dev, n_users, n_items, density, seed=0, n_taste=8):
+  """``apps.movielens_like``'s recipe drawn on the device with torch's RNG
+  (numpy on the host takes ~20 s at the large component's size): low-rank
+  tastes, scaled to mean 3 and std 1.2, rounded to half stars in [0.5,
+  5], a Bernoulli(density) mask.  Returns (ratings, mask) f32."""
+  g = torch.Generator(dev).manual_seed(seed)
+  u = torch.randn((n_users, n_taste), generator=g, device=dev,
+                  dtype=torch.float64)
+  v = torch.randn((n_items, n_taste), generator=g, device=dev,
+                  dtype=torch.float64)
+  full = u @ v.T
+  full = 3.0 + 1.2 * (full / full.std())
+  full = torch.clamp(torch.round(full * 2) / 2, 0.5, 5.0).float()
+  mask = (torch.rand((n_users, n_items), generator=g, device=dev)
+          < density).float()
+  return full * mask, mask
+
+
+def _webpages_on(dev, n_docs, vocab, n_topics=32, seed=0):
+  """``apps.webpages_like``'s recipe drawn on the device: Dirichlet(0.05)
+  topics over the terms, Dirichlet(0.2) topic mixtures, plus
+  Gamma(0.3, 0.02) noise.  Returns the term frequencies f32."""
+  dist = torch.distributions
+  full = lambda shape, x: torch.full(shape, x, device=dev)
+  # torch's Dirichlet and Gamma draw from the global generator only
+  with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
+    torch.manual_seed(seed)
+    topics = dist.Dirichlet(full((vocab,), 0.05)).sample((n_topics,))
+    doc_topic = dist.Dirichlet(full((n_topics,), 0.2)).sample((n_docs,))
+    noise = dist.Gamma(full((), 0.3), full((), 50.0)).sample((n_docs, vocab))
+  return doc_topic @ topics + noise
+
+
+def _timed(fn, dev):
+  """(result, host ms of one synchronised call)."""
+  _sync(dev)
+  t0 = time.perf_counter()
+  out = fn()
+  _sync(dev)
+  return out, (time.perf_counter() - t0) * 1e3
+
+
+def _latency_row(label, ms, acc):
+  print(f"[apps] {label:>16s} p50 {_pct(ms, 50):8.3f} ms  p99 "
+        f"{_pct(ms, 99):8.3f} ms  {acc}")
+
+
+def _apps_large_cf(dev, cf=APPS_CF_LARGE, m=APPS_CLUSTERS["large"],
+                   queries=APPS_QUERIES):
+  from repro_torch.serving import apps
+  t0 = time.perf_counter()
+  ratings, mask = _movielens_on(dev, **cf)
+  _sync(dev)
+  gen_s = time.perf_counter() - t0
+  if dev.type == "cuda":
+    torch.cuda.reset_peak_memory_stats()
+  rec, build_ms = _timed(lambda: apps.CFRecommender(ratings, mask,
+                                                    num_clusters=m), dev)
+  print(f"[apps] cf large {cf['n_users']}x{cf['n_items']}: "
+        f"{int(mask.sum())} ratings (made in {gen_s:.1f}s), {m} clusters, "
+        f"build {build_ms:.1f} ms")
+  rng = np.random.default_rng(1)
+  qs = _cf_queries(ratings, mask, queries, rng)
+  budgets = [int(f * m) for f in APPS_FRACTIONS]
+  variants = ["exact", "partial_25"] + budgets
+  ms = {k: [] for k in variants}
+  sq = {k: [] for k in variants}
+  for q, qm, items, truth in qs:
+    for b in budgets:
+      pr, t = _timed(lambda: rec.predict(q, qm, items, b), dev)
+      ms[b].append(t)
+      sq[b].append(((pr - truth) ** 2).cpu().numpy())
+    pr, t = _timed(lambda: rec.predict_exact(q, qm, items), dev)
+    ms["exact"].append(t)
+    sq["exact"].append(((pr - truth) ** 2).cpu().numpy())
+    keep = torch.from_numpy(rng.random(cf["n_users"]) < APPS_PARTIAL).to(
+        dev)[:, None].float()
+    view = _card_copy(rec, dev, ratings=rec.ratings * keep,
+                      mask=rec.mask * keep)
+    pr, t = _timed(lambda: apps.CFRecommender.predict_exact(view, q, qm,
+                                                            items), dev)
+    ms["partial_25"].append(t)
+    sq["partial_25"].append(((pr - truth) ** 2).cpu().numpy())
+    del view
+  rmse = {k: float(np.sqrt(np.mean(np.concatenate(v)))) for k, v in sq.items()}
+  for k in variants:
+    name = f"budget={k}" if isinstance(k, int) else k
+    loss = 100.0 * (rmse[k] - rmse["exact"]) / rmse["exact"]
+    _latency_row(name, ms[k], f"RMSE {rmse[k]:.4f} loss {loss:+.2f}%")
+  peak = (torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda"
+          else float("nan"))
+  print(f"[apps] cf large: {len(qs)} users one at a time, synchronised; "
+        f"peak device memory {peak:.2f} GB")
+  return rmse, ms
+
+
+def _apps_large_search(dev, se=APPS_SE_LARGE, m=APPS_CLUSTERS["large"],
+                       queries=APPS_QUERIES):
+  from repro_torch.serving import apps
+  t0 = time.perf_counter()
+  docs = _webpages_on(dev, **se)
+  _sync(dev)
+  gen_s = time.perf_counter() - t0
+  if dev.type == "cuda":
+    torch.cuda.reset_peak_memory_stats()
+  eng, build_ms = _timed(lambda: apps.SearchEngine(docs, num_clusters=m), dev)
+  print(f"[apps] search large {se['n_docs']} pages x {se['vocab']} terms "
+        f"(made in {gen_s:.1f}s), {m} clusters, build {build_ms:.1f} ms")
+  g = torch.Generator(dev).manual_seed(5)
+  rng = np.random.default_rng(2)
+  budgets = [int(f * m) for f in APPS_FRACTIONS]
+  ms = {k: [] for k in ["exact"] + budgets}
+  acc = {b: [] for b in budgets}
+  for _ in range(queries):
+    qv = docs[int(rng.integers(0, se["n_docs"]))] + 0.05 * torch.randn(
+        se["vocab"], generator=g, device=dev)
+    exact, t = _timed(lambda: eng.search_exact(qv), dev)
+    ms["exact"].append(t)
+    exact = set(exact.tolist())
+    for b in budgets:
+      got, t = _timed(lambda: eng.search(qv, b), dev)
+      ms[b].append(t)
+      acc[b].append(len(set(got.tolist()) & exact) / len(exact))
+  _latency_row("exact", ms["exact"], "top-10 overlap 100.0%")
+  for b in budgets:
+    _latency_row(f"budget={b}", ms[b],
+                 f"top-10 overlap {100 * np.mean(acc[b]):.1f}%")
+  peak = (torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda"
+          else float("nan"))
+  print(f"[apps] search large: {queries} queries one at a time, "
+        f"synchronised; peak device memory {peak:.2f} GB")
+  return acc, ms
+
+
+def run_apps(dev):
+  """Phase 21 (``[apps]``): the recommender and the search engine at the
+  JAX generators' per-component scale, card against CPU on the same
+  synopsis and the card's own build's invariants; then one larger
+  component of each on the card: latency per query and accuracy per
+  budget, the build's wall time, peak memory.  Plain PyTorch (the
+  reference runs no kernel here); f32 products without TF32."""
+  t0 = time.perf_counter()
+  if torch.backends.cuda.matmul.allow_tf32:
+    raise AssertionError("TF32 is on: the apps' f32 products must stay f32")
+  _apps_parity(dev)
+  _apps_large_cf(dev)
+  _free()
+  _apps_large_search(dev)
+  _free()
+  print(f"[apps] phase in {time.perf_counter() - t0:.1f}s")
+
+
+def _train_grads_card_vs_cpu(dev):
+  """One f32 step of smollm's SMOKE config on the card against the card
+  machine's CPU: the loss and every gradient within 4 times the CPU f32
+  step's distance from its float64 step (1e-4 of max|ref| at least), as
+  ``launch.parity`` holds the loops."""
+  from repro_torch.configs.registry import get_config
+  from repro_torch.models.common import leaves
+  from repro_torch.train.data import DataConfig, TokenStream
+  from repro_torch.train.optimizer import OptConfig, tree_map
+  from repro_torch.train.train_step import init_train_state, loss_and_grads
+  cfg = dataclasses.replace(get_config("smollm-135m", smoke=True),
+                            dtype=torch.float32)
+  state = init_train_state(cfg, OptConfig(), device="cpu",
+                           generator=torch.Generator().manual_seed(0))
+  tokens, labels = TokenStream(DataConfig(cfg.vocab, 256, 4)).batch_at(0)
+  batch = {"tokens": torch.from_numpy(tokens),
+           "labels": torch.from_numpy(labels)}
+  out = {}
+  for name, where, c in (("cpu", "cpu", cfg), ("card", dev, cfg),
+                         ("f64", "cpu", dataclasses.replace(
+                             cfg, dtype=torch.float64))):
+    p = tree_map(lambda t: t.to(where, c.dtype), state["params"])
+    b = {k: v.to(where) for k, v in batch.items()}
+    loss, _, g = loss_and_grads(c, p, b)
+    out[name] = (float(loss), {k: x.double().cpu() for k, x in leaves(g)})
+
+  def dist(a, b):
+    return max(float((a[1][k] - b[1][k]).abs().max()
+                     / b[1][k].abs().max()) for k in b[1])
+  floor = dist(out["cpu"], out["f64"])
+  bound = max(4 * floor, 1e-4)
+  err = dist(out["card"], out["cpu"])
+  loss_err = abs(out["card"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+  print(f"[train] smoke f32 step, card against CPU: loss {out['card'][0]:.6f}"
+        f" / {out['cpu'][0]:.6f} (rel {loss_err:.2e}); gradients max "
+        f"{err:.2e} of max|ref| per leaf, bound {bound:.2e} (4x the CPU "
+        f"f32's {floor:.2e} from float64, 1e-4 at least)")
+  if not (err <= bound and loss_err <= 1e-5):
+    raise AssertionError("the card's training step disagrees with the CPU")
+
+
+def run_train(dev, cfg=None, steps=TRAIN_STEPS, ckpt=TRAIN_CKPT,
+              batch=TRAIN_BATCH, seq=TRAIN_SEQ):
+  """Phase 22 (``[train]``): smollm-135m at full width, 30 steps at batch 8
+  x 2048 with a checkpoint at step 20 (``launch.train.run``); every
+  parameter's gradient finite and non-zero on the first batch; a second
+  uninterrupted run to measure the run-to-run spread; a restart from the
+  step-20 checkpoint to step 30, its losses held to the first run's
+  within twice that spread (1e-5 of the loss at least); no kernel launched
+  (the training forward takes the differentiable attention); and one f32
+  SMOKE step card against CPU."""
+  import tempfile
+  from repro_torch.configs.registry import get_config
+  from repro_torch.kernels import _build
+  from repro_torch.launch import train
+  from repro_torch.models.common import leaves
+  from repro_torch.train.data import DataConfig, TokenStream
+  from repro_torch.train.optimizer import OptConfig
+  from repro_torch.train.train_step import init_train_state, loss_and_grads
+  t0 = time.perf_counter()
+  _train_grads_card_vs_cpu(dev)
+  cfg = cfg or get_config("smollm-135m")
+  opt_cfg = OptConfig(lr=1e-3, warmup_steps=10, total_steps=steps)
+  _build.reset_launches()
+  state = init_train_state(cfg, opt_cfg, device=dev,
+                           generator=torch.Generator(dev).manual_seed(0))
+  tokens, labels = TokenStream(DataConfig(cfg.vocab, seq, batch)).batch_at(0)
+  _, _, grads = loss_and_grads(cfg, state["params"], {
+      "tokens": torch.from_numpy(tokens).to(dev),
+      "labels": torch.from_numpy(labels).to(dev)})
+  bad = [p for p, g in leaves(grads)
+         if not (bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0)]
+  n = sum(x.numel() for _, x in leaves(state["params"]))
+  print(f"[train] {cfg.name}: {n / 1e6:.1f}M params in "
+        f"{len(list(leaves(grads)))} leaves; every gradient finite and "
+        f"non-zero: {not bad} {bad}")
+  if bad:
+    raise AssertionError(f"parameters without a gradient: {bad}")
+  del state, grads
+  _free()
+  kw = dict(steps=steps, batch=batch, seq=seq, opt_cfg=opt_cfg, device=dev,
+            log_every=5, log=lambda s: print(f"[train] {s}"))
+  scratch = pathlib.Path(__file__).resolve().parent / "build"
+  scratch.mkdir(exist_ok=True)
+  with tempfile.TemporaryDirectory(dir=str(scratch)) as tmp:
+    if dev.type == "cuda":
+      torch.cuda.reset_peak_memory_stats()
+    a = train.run(cfg, ckpt_dir=tmp, ckpt_every=ckpt, **kw)
+    peak = (torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda"
+            else float("nan"))
+    del a["state"]
+    _free()
+    b = train.run(cfg, **kw)
+    del b["state"]
+    _free()
+    c = train.run(cfg, ckpt_dir=tmp, ckpt_every=ckpt, **kw)
+    del c["state"]
+  launched = {k: v for k, v in _build.launch_counts().items() if v}
+  la, lb, lc = a["losses"], b["losses"], c["losses"]
+  p50 = statistics.median(a["step_ms"][1:])
+  print(f"[train] losses every 5 steps: "
+        + " ".join(f"{i}:{la[i]:.4f}" for i in range(0, steps, 5))
+        + f" {steps - 1}:{la[-1]:.4f}")
+  print(f"[train] step p50 {p50:.2f} ms (CUDA events, steps 2-{steps}), "
+        f"first step {a['step_ms'][0]:.1f} ms, "
+        f"{batch * seq / p50 * 1e3:.0f} tokens/s, peak device memory "
+        f"{peak:.2f} GB; batch {batch} x {seq}")
+  spread = max(abs(x - y) for x, y in zip(la, lb))
+  bound = max(2 * spread, 1e-5 * max(map(abs, la)))
+  dev_c = max(abs(x - y) for x, y in zip(lc, la[ckpt:]))
+  print(f"[train] restart at step {c['start']} -> {steps}: losses against "
+        f"the uninterrupted run max |diff| {dev_c:.3e}; a second "
+        f"uninterrupted run differs by {spread:.3e} (bound {bound:.3e})")
+  fell = np.mean(la[-5:]) < np.mean(la[:5])
+  if c["start"] != ckpt or len(lc) != steps - ckpt or not dev_c <= bound:
+    raise AssertionError("the restart does not resume the run")
+  if not fell:
+    raise AssertionError(f"the loss did not fall: {la}")
+  if launched:
+    raise AssertionError(f"the training path launched kernels: {launched}")
+  print(f"[train] phase in {time.perf_counter() - t0:.1f}s")
+
+
 T_START = time.perf_counter()
 
 
@@ -4524,6 +5028,13 @@ def main() -> int:
     model_launches.update(arch_launches)
   run_mamba2(dev)
 
+  # The generic-data Algorithm 1 and its services, the Morton build of a
+  # KV cache, then training.
+  morton_record, morton_launches = check_segment_build_morton(dev, g)
+  records[morton_record["name"]] = morton_record
+  run_apps(dev)
+  run_train(dev)
+
   # Each kernel branch's launches on the path that runs it: the synopsis
   # loop's four, the exact loop's flash_decode, the unfused op's
   # synopsis_score; the quantized branches on the int8+kv / fp8+kv loops,
@@ -4541,6 +5052,7 @@ def main() -> int:
   path_launches.update(model_launches)
   path_launches.update(cluster_launches)
   path_launches.update(fleet_launches)
+  path_launches[morton_record["name"]] = morton_launches
   missing = sorted(set(records) ^ set(path_launches))
   idle = [k for k, n in path_launches.items() if n == 0]
   if missing or idle:

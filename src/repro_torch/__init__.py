@@ -2,8 +2,8 @@
 ``repro`` is the reference; nothing here imports it).
 
 The package mirrors ``repro``'s layout (``configs``, ``models``,
-``kernels``, ``core``, ``serve``, ``control``, ``launch``) so each module's
-counterpart is easy to find.  Tensors keep the JAX layouts at function
+``kernels``, ``core``, ``serve``, ``serving``, ``control``, ``train``,
+``launch``) so each module's counterpart is easy to find.  Tensors keep the JAX layouts at function
 boundaries: decode caches ``(nb, na, B, Hkv, S, D)``, decode queries
 ``(B, H, D)``, attention partials ``(o (B,H,D) f32, m (B,H), l (B,H))``.
 

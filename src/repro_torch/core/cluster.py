@@ -2,9 +2,12 @@
 ``repro.core.cluster``; paper §2.2 steps 1-2).
 
 Step 1 is PCA by subspace power iteration; step 2 splits the points into
-equal-size clusters by recursive median splits along each segment's widest
-dimension ("balanced kd").  Both take a leading batch of point sets, where
-the JAX package ``vmap``s over them.
+equal-size clusters, either by recursive median splits along each
+segment's widest dimension ("balanced kd", the quality path) or by sorting
+on Morton (Z-order) codes of the PCA coordinates ("morton", one sort).
+Both take a leading batch of point sets, where the JAX package ``vmap``s
+over them.  :func:`assign_to_nearest` places new points into existing
+clusters (the generic synopsis' incremental insert).
 """
 from __future__ import annotations
 
@@ -75,9 +78,70 @@ def balanced_kd_cluster(coords: torch.Tensor,
   return perm
 
 
+# The reference runs without 64-bit types, so its codes are int32: at most
+# 30 interleaved bits.  The port stores them in int64 with the same cap, so
+# that the sort order is the same.
+CODE_BITS = 30
+
+
+def morton_codes(coords: torch.Tensor, bits: int = 10) -> torch.Tensor:
+  """Interleave ``bits`` quantised bits of each of the j <= 5 dimensions
+  into a Z-order code.  coords (..., n, j) -> codes (..., n) int64; each
+  dimension is scaled to [0, 2^bits - 1] over its own set's min / max
+  (dim -2) and truncated, and ``bits`` is capped at ``30 // j``, as the
+  reference's int32 codes are."""
+  j = coords.shape[-1]
+  x = coords.float()
+  lo = x.amin(dim=-2, keepdim=True)
+  hi = x.amax(dim=-2, keepdim=True)
+  scale = torch.where(hi > lo, hi - lo, torch.ones_like(hi))
+  q = ((x - lo) / scale * (2 ** bits - 1)).clamp(0, 2 ** bits - 1)
+  if bits * j > CODE_BITS:
+    bits = CODE_BITS // j
+    q = q.clamp(0, 2 ** bits - 1)
+  q = q.to(torch.int64)
+  code = torch.zeros(q.shape[:-1], dtype=torch.int64, device=q.device)
+  for b in range(bits):
+    for d in range(j):
+      code |= ((q[..., d] >> b) & 1) << (b * j + d)
+  return code
+
+
+def morton_cluster(coords: torch.Tensor, num_clusters: int) -> torch.Tensor:
+  """Equal-size clusters by a stable sort on Morton codes (codes tie
+  often, and ``jnp.argsort`` is stable): perm (..., n) int64 in
+  cluster-contiguous order, chunked by the caller as for
+  :func:`balanced_kd_cluster` (``num_clusters`` does not change the
+  order)."""
+  del num_clusters
+  return torch.argsort(morton_codes(coords), dim=-1, stable=True)
+
+
 def cluster(coords: torch.Tensor, num_clusters: int,
             method: str = "kd") -> torch.Tensor:
-  """Dispatch on the clustering method; the port runs 'kd'."""
+  """Dispatch: 'kd' (quality, power-of-two clusters) or 'morton' (one
+  sort)."""
   if method == "kd":
     return balanced_kd_cluster(coords, num_clusters)
-  raise NotImplementedError(f"cluster method {method!r} is not ported")
+  if method == "morton":
+    return morton_cluster(coords, num_clusters)
+  raise ValueError(f"unknown cluster method {method!r}")
+
+
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+  """(values, indices) of the ``k`` largest entries along the last axis,
+  in descending order, ties to the lower index (``jax.lax.top_k``'s rule;
+  ``torch.topk`` promises no tie order)."""
+  vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+  return vals[..., :k], idx[..., :k]
+
+
+def assign_to_nearest(new_coords: torch.Tensor,
+                      cluster_centers: torch.Tensor) -> torch.Tensor:
+  """Nearest center of each new point in PCA space: new_coords (b, j),
+  cluster_centers (m, j) -> (b,) int64, ties to the lower index (squared
+  distances expanded as |x|^2 - 2 x.c + |c|^2, as in the reference)."""
+  d2 = ((new_coords ** 2).sum(1)[:, None]
+        - 2.0 * new_coords @ cluster_centers.T
+        + (cluster_centers ** 2).sum(1)[None, :])
+  return d2.argmin(dim=1)

@@ -20,13 +20,20 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import acc_dtype
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.layers import rms_norm, rope
+from repro_torch.models.layers import causal_attention, rms_norm, rope
 
 
 def causal_mix(q, k, v, *, sm_scale: float, window: Optional[int] = None,
-               cap: Optional[float] = None) -> torch.Tensor:
+               cap: Optional[float] = None, train: bool = False,
+               causal_skip: bool = False) -> torch.Tensor:
   """Causal self-attention over the prompt: the flash prefill kernel on
-  CUDA tensors, its plain version on CPU tensors."""
+  CUDA tensors, its plain version on CPU tensors.  ``train`` takes the
+  training path's differentiable ``layers.causal_attention`` on any device
+  instead (the reference's ``impl=None``): the kernel has no backward, so
+  its output would carry no gradient to q, k and v."""
+  if train:
+    return causal_attention(q, k, v, sm_scale=sm_scale, window=window,
+                            attn_softcap=cap, causal_skip=causal_skip)
   return ops.prefill_attention(q, k, v, sm_scale=sm_scale, cap=cap,
                                window=window)
 
@@ -64,14 +71,16 @@ def out_proj(o, p, x_dtype):
 
 
 def attention_train(x, p, cfg: ModelConfig, positions, *,
-                    local: bool = False):
-  """Full-sequence causal self-attention (the prefill branch), over the
-  last ``cfg.sliding_window`` positions on a ``local`` layer.  Returns
-  (y (B, S, d), (k, v)) with k/v in the decode layout (B, Hkv, S, D)."""
+                    local: bool = False, train: bool = False,
+                    causal_skip: bool = False):
+  """Full-sequence causal self-attention (the prefill branch, or with
+  ``train`` the training path's: :func:`causal_mix`), over the last
+  ``cfg.sliding_window`` positions on a ``local`` layer.  Returns (y (B,
+  S, d), (k, v)) with k/v in the decode layout (B, Hkv, S, D)."""
   q, k, v = qkv(x, p, cfg, positions)
   o = causal_mix(q, k, v, sm_scale=cfg.hd ** -0.5,
                  window=cfg.sliding_window if local else None,
-                 cap=cfg.attn_softcap)
+                 cap=cfg.attn_softcap, train=train, causal_skip=causal_skip)
   y = out_proj(o, p, x.dtype)
   return y, (k.transpose(1, 2), v.transpose(1, 2))
 
@@ -142,14 +151,16 @@ def v_pad(v, dim: int):
   return torch.nn.functional.pad(v, (0, dim - v.shape[-1]))
 
 
-def mla_train(x, p, cfg: ModelConfig, positions):
+def mla_train(x, p, cfg: ModelConfig, positions, *, train: bool = False,
+              causal_skip: bool = False):
   """MLA over the prompt, not absorbed (the JAX ``mla_train``): per-head
   keys [c_kv wk_b, k_pe] and values c_kv wv_b, causal attention through
   :func:`causal_mix` at D = nope + rope (192 at full width) with G = 1, v
   zero-padded to D and sliced back to ``v_head_dim``, the softmax scale
   (nope + rope)^-0.5; then ``wo``.  Returns (y (B, S, d), (lat, lat)):
   the latent [c_kv, k_pe] as the decode cache's one key/value head (B,
-  1, S, kv_lora + rope), given as both k and v, as in JAX."""
+  1, S, kv_lora + rope), given as both k and v, as in JAX.  ``train``
+  and ``causal_skip`` as in :func:`attention_train`."""
   m = cfg.mla
   q_nope, q_pe = mla_queries(x, p, cfg, positions)
   c_kv, k_pe = mla_latent(x, p, cfg, positions)
@@ -159,7 +170,8 @@ def mla_train(x, p, cfg: ModelConfig, positions):
   k = torch.cat([k_nope, k_pe[:, :, None].expand(*q_pe.shape)], dim=-1)
   del k_nope
   o = causal_mix(q, k, v_pad(v, q.shape[-1]),
-                 sm_scale=(m.qk_nope_dim + m.qk_rope_dim) ** -0.5)
+                 sm_scale=(m.qk_nope_dim + m.qk_rope_dim) ** -0.5,
+                 train=train, causal_skip=causal_skip)
   del q, k, v
   y = out_proj(o[..., :m.v_head_dim], p, x.dtype)
   lat = torch.cat([c_kv, k_pe], dim=-1)[:, None]              # (B,1,S,Dk)

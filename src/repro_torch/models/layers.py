@@ -54,3 +54,61 @@ def gelu_mlp(x: torch.Tensor, w1, b1, w2, b2) -> torch.Tensor:
   h = torch.matmul(x, w1.to(dt)) + b1.to(dt)
   h = torch.nn.functional.gelu(h.to(acc_dtype(h)), approximate="tanh").to(dt)
   return torch.matmul(h, w2.to(dt)) + b2.to(dt)
+
+
+# Query rows per chunk of :func:`causal_attention`, as the reference's.
+Q_CHUNK = 512
+
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     sm_scale: float, window: Optional[int] = None,
+                     attn_softcap: Optional[float] = None,
+                     q_chunk: int = Q_CHUNK,
+                     causal_skip: bool = False) -> torch.Tensor:
+  """Blockwise causal GQA attention, differentiable (the training path's,
+  ``repro.models.layers.causal_attention``): q (B, S, H, D), k / v (B, S,
+  Hkv, D) -> (B, S, H, D) in q's dtype.  Per chunk of ``q_chunk`` queries,
+  logits in f32 from q and k cast to f32, the softcap, the causal (and
+  sliding-window) mask as -1e30, softmax, and p.v in f32; never the whole
+  S x S matrix at once.  The training forward recomputes each layer in
+  the backward, so the chunks' softmaxes live only while their layer's
+  backward runs (B * H * S^2 f32 words: 1.2 GB at smollm-135m's 8 x 2048);
+  the reference also remats each chunk, which would run the attention's
+  forward a third time.  ``causal_skip`` restricts each chunk's keys to
+  [hi - span, hi)."""
+  B, S, H, D = q.shape
+  Hkv = k.shape[2]
+  q_chunk = min(q_chunk, S)
+  if S % q_chunk:
+    raise ValueError(f"sequence length {S} is not a multiple of the query "
+                     f"chunk {q_chunk}")
+  nq = S // q_chunk
+  f = acc_dtype(q)
+  qg = q.reshape(B, S, Hkv, H // Hkv, D)
+  pos = torch.arange(S, device=q.device)
+
+  def one_chunk(i):
+    qi = qg[:, i * q_chunk:(i + 1) * q_chunk]
+    qpos = pos[i * q_chunk:(i + 1) * q_chunk]
+    if causal_skip:
+      hi = (i + 1) * q_chunk
+      span = S if window is None else min(
+          S, ((window + q_chunk - 1) // q_chunk + 1) * q_chunk)
+      lo = max(hi - span, 0)
+      ki, vi, kpos = k[:, lo:lo + span], v[:, lo:lo + span], \
+          pos[lo:lo + span]
+    else:
+      ki, vi, kpos = k, v, pos
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qi.to(f), ki.to(f)) * sm_scale
+    logits = softcap(logits, attn_softcap)
+    mask = qpos[:, None] >= kpos[None, :]
+    if window is not None:
+      mask &= (qpos[:, None] - kpos[None, :]) < window
+    logits = logits.masked_fill(~mask, -1e30)
+    p = torch.softmax(logits, dim=-1)
+    oi = torch.einsum("bhgqk,bkhd->bqhgd", p, vi.to(f))
+    return oi.reshape(B, q_chunk, H, D).to(q.dtype)
+
+  if nq == 1:
+    return one_chunk(0)
+  return torch.cat([one_chunk(i) for i in range(nq)], dim=1)

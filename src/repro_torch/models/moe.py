@@ -31,20 +31,13 @@ JAX.
 """
 from __future__ import annotations
 
-from typing import Tuple
-
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.cluster import top_k
 from repro_torch.kernels.ref import acc_dtype
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import swiglu
-
-
-def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-  """The k largest along the last axis, ties to the lower index."""
-  vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-  return vals[..., :k], idx[..., :k]
 
 
 def capacity(cfg: ModelConfig, tokens: int) -> int:
@@ -63,7 +56,7 @@ def route(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
   E, K = m.num_experts, m.top_k
   f = acc_dtype(x)
   probs = torch.softmax(torch.matmul(x.to(f), router.to(f)), dim=-1)
-  topv, topi = _top_k(probs, K)                               # (T, K)
+  topv, topi = top_k(probs, K)                                # (T, K)
   topv = topv / topv.sum(-1, keepdim=True).clamp_min(1e-9)
   in_topk = torch.zeros((T, E), dtype=f, device=x.device).scatter_(
       1, topi, topv)                                          # gate or 0
@@ -71,7 +64,7 @@ def route(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
   frac_routed = (in_topk > 0).to(f).mean(0)
   aux = E * (frac_routed * probs.mean(0)).sum()
   masked = torch.where(in_topk > 0, in_topk, -1.0).t()        # (E, T)
-  gate, tok = _top_k(masked, capacity(cfg, T))                # (E, cap)
+  gate, tok = top_k(masked, capacity(cfg, T))                 # (E, cap)
   return tok, gate.clamp_min(0.0), topi, aux
 
 

@@ -77,12 +77,18 @@ def ssd_chunked(x, dt, A, Bs, Cs, chunk: int):
   total = cum[:, :, -1]                                      # (b,nc,h)
 
   # Intra-chunk: y_ij = C_i . B_j exp(cum_i - cum_j) dt_j x_j, j <= i.  The
-  # (b, nc, L, L, h) weights are built in one buffer, in place.
+  # (b, nc, L, L, h) weights are built in one buffer, in place, unless
+  # autograd records the scan (training), which needs each intermediate.
   w = cum[:, :, :, None, :] - cum[:, :, None, :, :]          # (b,nc,L,L,h)
   future = ~torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
-  w.masked_fill_(future[:, :, None], float("-inf")).exp_()
-  w.mul_(torch.einsum("bcin,bcjn->bcij", Cc, Bc)[..., None])
-  w.mul_(dtc[:, :, None])
+  cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)[..., None]
+  if torch.is_grad_enabled():
+    w = w.masked_fill(future[:, :, None], float("-inf")).exp() * cb \
+        * dtc[:, :, None]
+  else:
+    w.masked_fill_(future[:, :, None], float("-inf")).exp_()
+    w.mul_(cb)
+    w.mul_(dtc[:, :, None])
   y = torch.einsum("bcijh,bcjhp->bcihp", w, xc)
   del w
 

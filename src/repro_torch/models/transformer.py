@@ -39,6 +39,12 @@ the f32 table is 2.1 GB, where both would be 3.2 GB); tied, it is the f32
 cast of ``embed``, seen transposed, and the bf16 ``embed`` stays for the
 lookups (at gemma2-2b width 2.36 GB beside the 1.18 GB table).  Either way
 the values are those of the bf16 weights.
+
+The training path (:func:`train_hidden_states`, :func:`chunked_loss`,
+:func:`forward_loss`) runs the same layers with the differentiable
+``layers.causal_attention`` in place of the prefill kernel, each layer
+recomputed in the backward, and adds the MoE aux loss; its parameters are
+the raw tree of :func:`init_params`, without the f32 unembedding.
 """
 from __future__ import annotations
 
@@ -46,7 +52,9 @@ import math
 from typing import Dict, Optional
 
 import torch
+import torch.utils.checkpoint
 
+from repro_torch.kernels.ref import acc_dtype
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -177,6 +185,16 @@ def _init_tree(shapes: Dict, stacked: bool, **kw) -> Dict:
           for name, sh in shapes.items()}
 
 
+def init_params(cfg: ModelConfig, generator: torch.Generator, device,
+                dtype: Optional[torch.dtype] = None) -> Dict:
+  """The random parameter tree of :func:`init_model` in ``dtype`` (default
+  ``cfg.dtype``), without the f32 unembedding that serving adds: the
+  trainer's f32 master weights."""
+  check_supported(cfg)
+  return _init_tree(param_shapes(cfg), False, generator=generator,
+                    device=device, dtype=dtype or cfg.dtype)
+
+
 def init_model(cfg: ModelConfig, generator: torch.Generator,
                device) -> Dict:
   """Random weights of :func:`common.param_shapes` with the JAX init's
@@ -190,10 +208,7 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
   leaf in the tree's order, the blocks first.  The numbers differ from
   the JAX init's: torch cannot replay JAX's RNG (use
   ``repro_torch.bridge.params_from_numpy`` to load the same weights)."""
-  check_supported(cfg)
-  params = _init_tree(param_shapes(cfg), False, generator=generator,
-                      device=device, dtype=cfg.dtype)
-  return finish_params(params, cfg)
+  return finish_params(init_params(cfg, generator, device), cfg)
 
 
 def finish_params(params: Dict, cfg: ModelConfig) -> Dict:
@@ -255,17 +270,21 @@ def mlp(x, mp, cfg: ModelConfig):
   return swiglu(x, mp["w1"], mp["w3"], mp["w2"])
 
 
-def ffn(x, lp, cfg: ModelConfig, spec: LayerSpec):
-  """The layer's FFN: the MoE (its aux loss dropped: nothing on the serve
-  path reads it) on an MoE layer, plus the dense MLP of ``lp["mlp"]``
-  where the MoE has ``dense_parallel`` (arctic); else the config's MLP."""
+def ffn(x, lp, cfg: ModelConfig, spec: LayerSpec, aux=None):
+  """The layer's FFN: the MoE on an MoE layer, plus the dense MLP of
+  ``lp["mlp"]`` where the MoE has ``dense_parallel`` (arctic); else the
+  config's MLP.  The MoE's load-balance loss is appended to the list
+  ``aux`` where one is given (the training loss), else dropped (nothing on
+  the serve path reads it)."""
   if spec.use_moe and cfg.moe is not None:
-    y = moe_lib.moe_ffn(x, lp["moe"], cfg)[0]
+    y, a = moe_lib.moe_ffn(x, lp["moe"], cfg)
+    if aux is not None:
+      aux.append(a)
     return y + mlp(x, lp["mlp"], cfg) if cfg.moe.dense_parallel else y
   return mlp(x, lp["mlp"], cfg)
 
 
-def mlp_block(x, lp, cfg: ModelConfig, spec: LayerSpec):
+def mlp_block(x, lp, cfg: ModelConfig, spec: LayerSpec, aux=None):
   """x + the (sandwich-normed) FFN of the pre-normed ``x``; ``x`` as it is
   where the layer has no FFN (no ``ln2``: mamba2's layers).  A parallel
   block has no ``ln2`` either but an FFN: it goes through
@@ -276,19 +295,21 @@ def mlp_block(x, lp, cfg: ModelConfig, spec: LayerSpec):
   if "ln2" not in lp:
     return x
   h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-  return x + post_norm(ffn(h2, lp, cfg, spec), lp, "ln2_post", cfg)
+  return x + post_norm(ffn(h2, lp, cfg, spec, aux), lp, "ln2_post", cfg)
 
 
-def parallel_residual(x, mix, h, lp, cfg: ModelConfig, spec: LayerSpec):
+def parallel_residual(x, mix, h, lp, cfg: ModelConfig, spec: LayerSpec,
+                      aux=None):
   """A parallel block's output (command-r): ``x + mix + ffn(h)``, with
   ``h`` the ``ln1``-normed input the mixer read and ``mix`` normed again
   under sandwich norms, as the reference's parallel branch (which skips
   any cross block)."""
-  return x + post_norm(mix, lp, "ln1_post", cfg) + ffn(h, lp, cfg, spec)
+  return x + post_norm(mix, lp, "ln1_post", cfg) + ffn(h, lp, cfg, spec, aux)
 
 
 def _layer_forward(x, lp, cfg: ModelConfig, spec: LayerSpec, positions,
-                   enc_out=None):
+                   enc_out=None, *, train: bool = False,
+                   causal_skip: bool = False, aux=None):
   """One pre-norm layer: attention (sliding-window on a local layer) or
   the SSD mixer, the cross block where the layer has one, then the FFN,
   each output normed again under sandwich norms; in a parallel block the
@@ -304,30 +325,36 @@ def _layer_forward(x, lp, cfg: ModelConfig, spec: LayerSpec, positions,
   passes no frames, the reference runs causal self attention with rope
   and ``bq`` on the cross weights, and so does this: through
   ``ops.prefill_attention`` (the flash prefill kernel on the card), where
-  JAX computes the same function in XLA (``layers.causal_attention``)."""
+  JAX computes the same function in XLA (``layers.causal_attention``).
+
+  With ``train`` every causal attention takes the training path's
+  differentiable ``layers.causal_attention`` (``attention.causal_mix``),
+  with ``causal_skip``; the MoE's aux loss goes to the list ``aux``."""
+  mixer = dict(train=train, causal_skip=causal_skip)
   h = rms_norm(x, lp["ln1"], cfg.norm_eps)
   if spec.kind == "mamba":
     mix, (conv, ssd) = ssm_lib.ssm_forward(h, lp["ssm"], cfg)
     out = {"conv_state": conv, "ssd_state": ssd}
   elif cfg.mla is not None:
-    mix, (k, v) = attn.mla_train(h, lp["attn"], cfg, positions)
+    mix, (k, v) = attn.mla_train(h, lp["attn"], cfg, positions, **mixer)
     out = {"k": k, "v": v}
   else:
     mix, (k, v) = attn.attention_train(h, lp["attn"], cfg, positions,
-                                       local=spec.local)
+                                       local=spec.local, **mixer)
     out = {"k": k, "v": v}
   if cfg.parallel_block:
-    return parallel_residual(x, mix, h, lp, cfg, spec), out
+    return parallel_residual(x, mix, h, lp, cfg, spec, aux), out
   x = x + post_norm(mix, lp, "ln1_post", cfg)
   if spec.cross_attn:
     hc = rms_norm(x, lp["ln_cross"], cfg.norm_eps)
     if enc_out is not None:
       y, (ck, cv) = attn.cross_attention(hc, lp["cross"], cfg, enc_out)
     else:
-      y, (ck, cv) = attn.attention_train(hc, lp["cross"], cfg, positions)
+      y, (ck, cv) = attn.attention_train(hc, lp["cross"], cfg, positions,
+                                         **mixer)
     out.update(cross_k=ck, cross_v=cv)
     x = x + y
-  return mlp_block(x, lp, cfg, spec), out
+  return mlp_block(x, lp, cfg, spec, aux), out
 
 
 def encode(params, cfg: ModelConfig, frames):
@@ -364,13 +391,7 @@ def hidden_states(params, cfg: ModelConfig, tokens,
   ``cfg.dtype``, "ssd_state" (nb, ns, B, h, head_dim, d_state) in f32
   (float64 in a float64 run)}."""
   check_supported(cfg)
-  enc_out = None
-  if cfg.encoder is not None:
-    if frontend_embeds is not None:
-      enc_out = encode(params, cfg, frontend_embeds)
-    x = embed_tokens(params, cfg, tokens)
-  else:
-    x = embed_tokens(params, cfg, tokens, frontend_embeds)
+  x, enc_out = _inputs(params, cfg, tokens, frontend_embeds)
   B, S = x.shape[:2]
   positions = torch.arange(S, device=x.device)
   kv: Optional[Dict] = None
@@ -390,6 +411,17 @@ def hidden_states(params, cfg: ModelConfig, tokens,
       si += spec.kind == "mamba"
   h = rms_norm(x, params["final_norm"], cfg.norm_eps)
   return (h, kv) if collect_kv else h
+
+
+def _inputs(params, cfg: ModelConfig, tokens, frontend_embeds):
+  """(the decoder's input embeddings, the encoder's output or None): the
+  audio stub's frames go through :func:`encode`, the vision stub's patches
+  prefix the text."""
+  if cfg.encoder is None:
+    return embed_tokens(params, cfg, tokens, frontend_embeds), None
+  enc_out = (None if frontend_embeds is None
+             else encode(params, cfg, frontend_embeds))
+  return embed_tokens(params, cfg, tokens), enc_out
 
 
 def _cache_leaves(cfg: ModelConfig, B: int, S: int, T: int) -> Dict:
@@ -416,3 +448,89 @@ def logits_fn(params, cfg: ModelConfig, h):
   unembed = params["unembed"]
   return softcap(torch.matmul(h.to(unembed.dtype), unembed),
                  cfg.logit_softcap)
+
+
+# -- the training path ---------------------------------------------------------
+
+def train_hidden_states(params, cfg: ModelConfig, tokens,
+                        frontend_embeds=None, causal_skip: bool = False):
+  """The training forward (the reference's ``hidden_states`` with
+  ``impl=None``): token ids (B, T) -> (final hidden states (B, S, d), the
+  MoE aux loss summed over the layers, f32 0-d).  Differentiable on every
+  device: causal attention is ``layers.causal_attention``, never the
+  prefill kernel.  Each layer is recomputed in the backward
+  (``torch.utils.checkpoint``, non-reentrant) where autograd is on, as the
+  reference remats each scanned block."""
+  check_supported(cfg)
+  x, enc_out = _inputs(params, cfg, tokens, frontend_embeds)
+  positions = torch.arange(x.shape[1], device=x.device)
+  remat = torch.is_grad_enabled()
+
+  def layer(x, lp, spec):
+    acc = []
+    x, _ = _layer_forward(x, lp, cfg, spec, positions, enc_out, train=True,
+                          causal_skip=causal_skip, aux=acc)
+    return x, sum(acc, torch.zeros((), dtype=torch.float32,
+                                   device=x.device))
+
+  aux = torch.zeros((), dtype=torch.float32, device=x.device)
+  for b in range(cfg.n_blocks):
+    for i, spec in enumerate(cfg.block_pattern):
+      lp = layer_params(params["blocks"][f"pos{i}"], b)
+      if remat:
+        x, a = torch.utils.checkpoint.checkpoint(
+            layer, x, lp, spec, use_reentrant=False,
+            preserve_rng_state=False)
+      else:
+        x, a = layer(x, lp, spec)
+      aux = aux + a
+  return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+
+# Sequence positions per chunk of :func:`chunked_loss`, as the reference's.
+LOSS_CHUNK = 1024
+
+
+def chunked_loss(params, cfg: ModelConfig, h, labels,
+                 chunk: int = LOSS_CHUNK):
+  """Mean cross entropy of h (B, S, d) against labels (B, S) without the
+  whole (B, S, vocab) logits: per chunk of sequence positions (the largest
+  divisor of S at most ``chunk``), f32 logits from h and the unembedding
+  (``embed`` transposed when tied) cast to f32 (float64 in a float64
+  run), the logit softcap,
+  logsumexp minus the gold logit; each chunk recomputed in the backward
+  where autograd is on."""
+  B, S, _ = h.shape
+  chunk = min(chunk, S)
+  while S % chunk:
+    chunk -= 1
+  w = params["embed"].t() if cfg.tie_embeddings else params["unembed"]
+
+  def one(hc, lc, w):
+    f = acc_dtype(hc)
+    lg = softcap(torch.matmul(hc.to(f), w.to(f)), cfg.logit_softcap)
+    gold = lg.gather(-1, lc[..., None].long())[..., 0]
+    return (torch.logsumexp(lg, dim=-1) - gold).sum()
+
+  remat = torch.is_grad_enabled()
+  total = []
+  for i in range(S // chunk):
+    hc, lc = h[:, i * chunk:(i + 1) * chunk], labels[:, i * chunk:(i + 1)
+                                                      * chunk]
+    total.append(torch.utils.checkpoint.checkpoint(
+        one, hc, lc, w, use_reentrant=False, preserve_rng_state=False)
+                 if remat else one(hc, lc, w))
+  return torch.stack(total).sum() / (B * S)
+
+
+def forward_loss(params, cfg: ModelConfig, tokens, labels,
+                 frontend_embeds=None, causal_skip: bool = False):
+  """The training loss: cross entropy + 0.01 * the MoE aux loss, on the
+  text positions (the vision stub's patch prefix sliced off).  Returns
+  (loss, {"ce", "aux"})."""
+  h, aux = train_hidden_states(params, cfg, tokens, frontend_embeds,
+                               causal_skip)
+  if cfg.frontend == "vision_stub" and frontend_embeds is not None:
+    h = h[:, frontend_embeds.shape[1]:]
+  loss = chunked_loss(params, cfg, h, labels)
+  return loss + 0.01 * aux, {"ce": loss, "aux": aux}

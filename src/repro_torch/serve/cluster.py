@@ -71,6 +71,7 @@ from repro_torch.control import (MODE_DROP, MODE_FULL, MODE_STAGE1,
                                  RetryPolicy, allocate_budget, make_predictor,
                                  realized_recovery)
 from repro_torch.control.estimator import coverage_profile
+from repro_torch.core.cluster import top_k
 from repro_torch.dist.topology import ComponentTopology
 from repro_torch.kernels import ops
 from repro_torch.serve import kv_cache as kvc
@@ -122,14 +123,6 @@ class ClusterConfig:
 # graph captures them.
 # ---------------------------------------------------------------------------
 
-def _top_k(x: torch.Tensor, k: int):
-  """(values, indices) of the ``k`` largest entries along the last axis,
-  in descending order, ties by the lower index (``jax.lax.top_k``'s
-  rule; ``torch.topk`` promises no tie order)."""
-  vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-  return vals[..., :k], idx[..., :k]
-
-
 def _frontend_rank(sc_all: torch.Tensor, i_max: int, ranked: bool = True):
   """Global ranking over the gathered per-component scores.
 
@@ -146,7 +139,7 @@ def _frontend_rank(sc_all: torch.Tensor, i_max: int, ranked: bool = True):
   if not ranked:
     return True, mass
   K = min(i_max, N * Mp)
-  tsc, gsel = _top_k(sc_all.reshape(B, Hkv, N * Mp), K)
+  tsc, gsel = top_k(sc_all.reshape(B, Hkv, N * Mp), K)
   gsel = torch.where(tsc > NEG_INF / 2, gsel.to(torch.int32), -1)
   return gsel, mass
 
@@ -160,7 +153,7 @@ def gain_rank(sc_all: torch.Tensor, counts: torch.Tensor, i_max: int):
   bias = torch.log(torch.clamp_min(counts.float(), 1e-30))[:, None]
   g = torch.where(sc_all > NEG_INF / 2, sc_all + bias, NEG_INF)
   K = min(i_max, N * Mp)
-  tsc, gsel = _top_k(g.reshape(B, Hkv, N * Mp), K)
+  tsc, gsel = top_k(g.reshape(B, Hkv, N * Mp), K)
   return torch.where(tsc > NEG_INF / 2, gsel.to(torch.int32), -1)
 
 
@@ -190,7 +183,7 @@ def _select_local(sc: torch.Tensor, gsel, budgets, alloc: str, i_max: int,
     mine = comp_of[:, None] == comps                          # (B,N,Hkv,K)
     return torch.where(mine, (gsel % Mp)[:, None], -1).to(torch.int32)
   Kc = min(i_max, Mp)
-  tsc, sel = _top_k(sc, Kc)                                   # (B,N,Hkv,Kc)
+  tsc, sel = top_k(sc, Kc)                                   # (B,N,Hkv,Kc)
   b_c = budgets.permute(0, 2, 1)[..., None]                   # (B, N, Hkv, 1)
   keep = (torch.arange(Kc, device=sc.device) < b_c) & (tsc > NEG_INF / 2)
   return torch.where(keep, sel.to(torch.int32), -1)

@@ -2,8 +2,9 @@
 ``repro.serve.synopsis_kv``) — the paper's offline module.
 
 * :func:`build`: cluster each (block, layer, sequence)'s S cached tokens
-  into M = S/C equal-size clusters (PCA -> balanced kd over the
-  concatenated kv-head key features), then permute the cache
+  into M = S/C equal-size clusters (PCA -> balanced kd, or Morton order
+  with ``method="morton"``, over the concatenated kv-head key features),
+  then permute the cache
   cluster-contiguous and aggregate the mean centroids in one pass of the
   ``segment_build`` kernel.
 * :func:`append_recent`: write one decode step's new KV into the recent
@@ -46,20 +47,24 @@ def _build_arena(k, v, perm, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
 
 
 def cluster_perms(k: torch.Tensor, num_clusters: int, *,
-                  basis: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  basis: Optional[torch.Tensor] = None,
+                  method: str = "kd") -> torch.Tensor:
   """k (N, Hkv, S, D) -> one permutation (N, S) per sequence, clustering
-  tokens on their keys with all kv heads concatenated as features."""
+  tokens on their keys with all kv heads concatenated as features
+  (``core.cluster.cluster``'s ``method``: "kd" or "morton")."""
   N, Hkv, S, D = k.shape
   feats = k.permute(0, 2, 1, 3).reshape(N, S, Hkv * D)
   coords, _ = cl.pca_project(feats, out_dim=3, num_iters=4, basis=basis)
-  return cl.cluster(coords, num_clusters)
+  return cl.cluster(coords, num_clusters, method=method)
 
 
 def build(cache: Dict[str, torch.Tensor], cfg: ModelConfig, *,
-          basis: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+          basis: Optional[torch.Tensor] = None,
+          method: str = "kd") -> Dict[str, torch.Tensor]:
   """Exact cache -> synopsis cache.  cache: k/v (nb, na, B, Hkv, S, D) and
   pos (B,).  ``basis`` is PCA's starting basis (see
-  ``core.cluster.initial_basis``).  The cross blocks' ``cross_k`` /
+  ``core.cluster.initial_basis``), ``method`` the clustering ("kd" or
+  "morton").  The cross blocks' ``cross_k`` /
   ``cross_v`` (whisper) and the mamba layers' ``conv_state`` /
   ``ssd_state`` (jamba) pass through untouched, as in the JAX build, and
   so through :func:`absorb_recent`'s ``**cache``."""
@@ -72,7 +77,7 @@ def build(cache: Dict[str, torch.Tensor], cfg: ModelConfig, *,
   N = nb * na * B
   k = k.reshape(N, Hkv, S, D)
   v = v.reshape(N, Hkv, S, D)
-  perms = cluster_perms(k, M, basis=basis)
+  perms = cluster_perms(k, M, basis=basis, method=method)
   built = _build_arena(k, v, perms, cfg)
   R = cfg.synopsis.recent
   out = {
@@ -174,12 +179,13 @@ def absorb_recent(cache: Dict[str, torch.Tensor],
 
 def extend_synopsis(arena: Dict[str, torch.Tensor], ext_k: torch.Tensor,
                     ext_v: torch.Tensor, cfg: ModelConfig, *,
-                    basis: Optional[torch.Tensor] = None
-                    ) -> Dict[str, torch.Tensor]:
+                    basis: Optional[torch.Tensor] = None,
+                    method: str = "kd") -> Dict[str, torch.Tensor]:
   """Prefix-extension delta build: append E prefill tokens' KV to a built
   arena without rebuilding the prefix.  The extension gets its own
-  similarity clustering (PCA from ``basis``, balanced kd: E/C clusters,
-  a power of two, over the extension alone), built by ``segment_build``
+  similarity clustering (PCA from ``basis``, then ``method``: balanced
+  kd, E/C clusters, a power of two, or Morton order, over the extension
+  alone), built by ``segment_build``
   and appended after the prefix's M clusters; the prefix's sorted KV,
   centroids and counts are untouched.
 
@@ -193,7 +199,8 @@ def extend_synopsis(arena: Dict[str, torch.Tensor], ext_k: torch.Tensor,
   N = nb * na * B
   k = ext_k.reshape(N, Hkv, E, D)
   v = ext_v.reshape(N, Hkv, E, D)
-  built = _build_arena(k, v, cluster_perms(k, newM, basis=basis), cfg)
+  built = _build_arena(k, v, cluster_perms(k, newM, basis=basis,
+                                           method=method), cfg)
   cat = torch.cat
   out = {
       **arena,

@@ -2142,3 +2142,110 @@ def test_card_fleet_engine_equals_the_cpu(arm):
                                                 key=lambda r: r.rid)]
     del eng
   assert ids["cuda"] == ids["cpu"] and ids["cpu"]
+
+
+# -- the generic-data Algorithm 1, its services, and training ------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_card_morton_segment_build_equals_plain(cuda, dtype):
+  """A Morton permutation (``synopsis_kv.cluster_perms(method="morton")``)
+  on the card, then ``segment_build`` against its plain version on it:
+  rows bit-equal, counts equal, centroids as the kernel tolerances."""
+  from repro_torch.serve import synopsis_kv as skv
+  g = torch.Generator().manual_seed(23)
+  k = _rand(g, 4, 2, 256, 16).to(cuda, dtype)
+  v = _rand(g, 4, 2, 256, 16).to(cuda, dtype)
+  perm = skv.cluster_perms(k, 16, method="morton")
+  got = segment_build(k, v, perm.to(torch.int32), cluster_size=16)
+  want = ref.synopsis_build_ref(k, v, perm, cluster_size=16)
+  for i in (0, 1, 4):
+    assert torch.equal(got[i], want[i])
+  tol = TOL[dtype] if dtype == torch.float32 else BF16_OUT_TOL
+  for i in (2, 3):
+    _close(got[i], want[i], tol)
+
+
+def _on_card(obj, dev):
+  """A CPU app object's copy on the card with the same synopsis."""
+  out = type(obj).__new__(type(obj))
+  out.__dict__.update({k: (t.to(dev) if isinstance(t, torch.Tensor) else t)
+                       for k, t in obj.__dict__.items() if k != "syn"})
+  out.syn = obj.syn.to(dev)
+  return out
+
+
+@pytest.mark.cuda
+def test_card_apps_equal_the_cpu(cuda):
+  """The recommender and the search engine on the card against the CPU,
+  on the same synopsis: ``predict`` within 1e-5 of max|ref| at every
+  budget and exact; the same top-10 ids at every budget and exact."""
+  from repro_torch.serving import apps
+  r, m = apps.movielens_like(512, 300, density=0.3, seed=1)
+  cpu = apps.CFRecommender(r, m, num_clusters=16)
+  card = _on_card(cpu, cuda)
+  for uid in (3, 7, 100):
+    qm = m[uid].clone()
+    qm[torch.nonzero(qm)[:10, 0]] = 0.0
+    q = r[uid] * qm
+    items = torch.arange(0, 300, 7)
+    for b in (None, 0, 1, 4, 16):
+      want = (cpu.predict_exact(q, qm, items) if b is None
+              else cpu.predict(q, qm, items, b))
+      got = (card.predict_exact(q.to(cuda), qm.to(cuda), items.to(cuda))
+             if b is None else card.predict(q.to(cuda), qm.to(cuda),
+                                            items.to(cuda), b))
+      torch.testing.assert_close(got.cpu(), want, rtol=0,
+                                 atol=1e-5 * float(want.abs().max()))
+  docs = apps.webpages_like(1024, 256, seed=2)
+  cpu = apps.SearchEngine(docs, num_clusters=32)
+  card = _on_card(cpu, cuda)
+  g = torch.Generator().manual_seed(4)
+  for i in range(6):
+    qv = docs[i * 37] + 0.05 * torch.randn(256, generator=g)
+    assert torch.equal(card.search_exact(qv.to(cuda)).cpu(),
+                       cpu.search_exact(qv))
+    for b in (0, 1, 2, 8, 32):
+      assert torch.equal(card.search(qv.to(cuda), b).cpu(),
+                         cpu.search(qv, b))
+
+
+@pytest.mark.cuda
+def test_card_train_step_grads_equal_the_cpu(cuda):
+  """One f32 step of smollm's SMOKE config on the card against the CPU:
+  the loss within 1e-5, every gradient within 4 times the CPU f32 step's
+  distance from its float64 step (1e-4 of max|ref| at least), and every
+  gradient finite and non-zero on the card (the training forward takes
+  the differentiable attention, launching no kernel)."""
+  import dataclasses
+  from repro_torch.configs.registry import get_config
+  from repro_torch.models.common import leaves
+  from repro_torch.train.data import DataConfig, TokenStream
+  from repro_torch.train.optimizer import OptConfig, tree_map
+  from repro_torch.train.train_step import init_train_state, loss_and_grads
+  cfg = dataclasses.replace(get_config("smollm-135m", smoke=True),
+                            dtype=torch.float32)
+  state = init_train_state(cfg, OptConfig(), device="cpu",
+                           generator=torch.Generator().manual_seed(0))
+  tokens, labels = TokenStream(DataConfig(cfg.vocab, 128, 2)).batch_at(0)
+  out = {}
+  _build.reset_launches()
+  for name, where, dt in (("cpu", "cpu", torch.float32),
+                          ("card", cuda, torch.float32),
+                          ("f64", "cpu", torch.float64)):
+    c = dataclasses.replace(cfg, dtype=dt)
+    loss, _, g = loss_and_grads(
+        c, tree_map(lambda t: t.to(where, dt), state["params"]),
+        {"tokens": torch.from_numpy(tokens).to(where),
+         "labels": torch.from_numpy(labels).to(where)})
+    out[name] = (float(loss), {p: x.double().cpu() for p, x in leaves(g)})
+  assert not any(_build.launch_counts().values())
+
+  def dist(a, b):
+    return max(float((a[1][p] - b[1][p]).abs().max() / b[1][p].abs().max())
+               for p in b[1])
+  bound = max(4 * dist(out["cpu"], out["f64"]), 1e-4)
+  assert dist(out["card"], out["cpu"]) <= bound
+  assert abs(out["card"][0] - out["cpu"][0]) <= 1e-5 * abs(out["cpu"][0])
+  for p, x in out["card"][1].items():
+    assert bool(torch.isfinite(x).all()) and float(x.abs().max()) > 0, p

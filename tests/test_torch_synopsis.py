@@ -120,6 +120,39 @@ def test_build_matches_jax():
     _close(got[name], want[name])
 
 
+def test_morton_build_and_extend_match_jax():
+  """``method="morton"``: the same Morton permutations from the same
+  features, hence the same synopsis cache; and the same for the delta
+  build of an extension appended to it."""
+  jcfg, cfg = _cfgs()
+  cache = _exact_cache(seed=5)
+  basis = _t(_jax_basis(2 * 16))
+  N = 4
+  k = _t(cache["k"]).reshape(N, 2, 128, 16)
+  feats = jnp.moveaxis(jnp.asarray(cache["k"]), 3, 4).reshape(N, 128, 32)
+  want_perms = jax.vmap(lambda f: jskv._cluster_perm(f, 8, "morton"))(feats)
+  np.testing.assert_array_equal(
+      skv.cluster_perms(k, 8, basis=basis, method="morton").numpy(),
+      np.asarray(want_perms))
+  want = jskv.build({n: jnp.asarray(v) for n, v in cache.items()}, jcfg,
+                    method="morton", impl="xla")
+  got = skv.build({n: _t(v) for n, v in cache.items()}, cfg, basis=basis,
+                  method="morton")
+  assert set(got) == set(want)
+  for name in want:
+    _close(got[name], want[name])
+  ext = _exact_cache(seed=6, S=64)
+  want_e = jskv.extend_synopsis(want, jnp.asarray(ext["k"]),
+                                jnp.asarray(ext["v"]), jcfg, method="morton",
+                                impl="xla")
+  got_e = skv.extend_synopsis(got, _t(ext["k"]), _t(ext["v"]), cfg,
+                              basis=basis, method="morton")
+  assert set(got_e) == set(want_e)
+  for name in want_e:
+    assert tuple(got_e[name].shape) == want_e[name].shape, name
+    _close(got_e[name], want_e[name])
+
+
 def test_append_and_absorb_match_jax():
   jcfg, cfg = _cfgs()
   cache = _exact_cache(seed=3)
