@@ -216,7 +216,30 @@
     events, tokens/s, peak memory), a second uninterrupted run (the
     run-to-run spread) and a restart from the step-20 checkpoint to 30,
     held to the first run within twice that spread; no kernel may launch
-    (the training forward takes the differentiable attention).
+    (the training forward takes the differentiable attention);
+23. the sharded path over ``torch.distributed`` (``[mesh]``, ``run_mesh``):
+    MESH_WORLD = 8 ranks spawned on the one card (gloo, the collectives'
+    operands staged through host memory), the kernels built above and
+    loaded by every rank, llama3-8b at full width with 2 of its 32 layers
+    on every rank: ``sharded_synopsis_attention`` through the serve step
+    on a model-4 mesh and a data-2 x model-4 mesh (SERVE_RULES; each rank
+    prefills and builds the global prompt and cuts its shard): layer 0
+    against the one-rank kernels on the global cache at budget 16 of
+    M = 32 (a partial selection across the shards), each rank's stage 1
+    and stage 2 against their plain versions at its shard's shapes, 4
+    decode steps with stage 1 and stage 2 launched once a layer on every
+    rank, the collectives' bytes and host-staged ms a layer; one short
+    engine window (a functional check: a handful of requests) of the
+    cluster tier on a component-4 mesh and of the fleet tier on a
+    replica-2 x component-4 mesh (eager steps, rank 0's plans broadcast),
+    each rank's kernels against their plain versions; the SMOKE f32
+    cluster and fleet engines' ids on a mesh against the stacked engines'
+    under basic and fixed; smollm-135m's compressed train step over (pod
+    2, data 2) against the one-rank step (losses, parameters and error
+    buffers); records
+    ``<kernel>[mesh]`` (stage 1 and stage 2 at the data-2 x model-4 shard,
+    flash_decode over the cluster window's extras), timed on rank 0 with
+    the others waiting.
 
 Every path's launch counts are reset just before it runs and read just
 after: the synopsis loop must launch its four kernels, the quantized loops
@@ -2502,9 +2525,14 @@ def _cluster_records(seen, dtype, *, G, C, sdpa, tag="[cluster]"):
                    + (f" rows of {k.shape[0]} through the row map"
                       if kw.get("rows") is not None else ""), dtype, out,
                    want, *PARTIALS_TOL[dtype])
+      # The recent ring and self token where they fold in (the sharded
+      # synopsis path's shard 0).
+      ex = [kw[n] for n in ("extras_k", "extras_v", "extras_bias")
+            if kw.get(n) is not None]
+      n_ex = ex[0].shape[2] * ex[0].shape[0] * ex[0].shape[1] if ex else 0
       nbytes = (_nbytes(q, sel, kw["k_sel"], kw["v_sel"], kw["sel_bias"],
-                        *out) + 2 * n_sel * C * D * k.element_size())
-      ops_n = 4 * G * D * (n_sel * C + n_sel)
+                        *ex, *out) + 2 * n_sel * C * D * k.element_size())
+      ops_n = 4 * G * D * (n_sel * C + n_sel + n_ex)
     else:
       ek, ev, bias = args[1:4]
       err = _check(f"{name}{tag} extras E={ek.shape[2]}", dtype, out,
@@ -4833,6 +4861,521 @@ def run_train(dev, cfg=None, steps=TRAIN_STEPS, ckpt=TRAIN_CKPT,
   print(f"[train] phase in {time.perf_counter() - t0:.1f}s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the sharded path over torch.distributed, every rank on the card
+# ---------------------------------------------------------------------------
+
+# One world of MESH_WORLD ranks shares the one card (gloo: NCCL refuses two
+# ranks on one device), each rank a process of its own launching the
+# kernels on its shard; the kernels are built here, before any rank
+# starts, and the ranks load the library.  llama3-8b at full width with
+# MESH_DEPTH of its 32 layers on every rank: every rank holds the whole
+# model (~4 GB with its f32 unembedding; tensor-parallel weights are
+# ROADMAP A.7d).  Sizes are this phase's own, cut to keep it under ~150 s
+# and the eight ranks inside the card's 80 GB (at B = 2 x 8192 tokens the
+# ranks' prefills left cuSOLVER no memory for its handle): B = 2 prompts
+# of MESH_PROMPT tokens (M = 32 clusters of 128) for the sharded synopsis
+# (4 decode steps at budget MESH_BUDGET: half of M, so the global top-k
+# picks a part of each shard's clusters and the ranking is tested), the
+# engine windows on prompts of MESH_PROMPT tokens, 8 new tokens, for
+# MESH_WINDOW_S s: a functional check of the tiers on a mesh (a handful of
+# requests), not a latency measurement.
+MESH_DEPTH = 2
+MESH_PROMPT = 4096
+MESH_B, MESH_STEPS, MESH_BUDGET = 2, 4, 16
+MESH_N, MESH_R = 4, 2
+MESH_WORLD = MESH_N * MESH_R
+MESH_NEW, MESH_WINDOW_S = 8, 2.0
+MESH_TRAIN_STEPS = 2
+MESH_TIMEOUT_S = 300.0
+# The sharded attention against the one-rank kernels on the same global
+# cache, in f32 out of bf16 tables: only the order of the partials' f32
+# merges differs (PARTIALS_TOL's f32 bound).
+MESH_TOL = PARTIALS_TOL[torch.float32]
+MESH_KERNELS = ("fused_synopsis_score_attention", "block_gather_attention")
+
+
+def _plain_errs(seen, dtype):
+  """Each captured kernel call against its plain version on the same
+  inputs, at the card's tolerances; returns name -> max abs error (raises
+  past the tolerance)."""
+  from repro_torch.kernels import ops, ref
+  plain = {"fused_synopsis_score_attention":
+               ref.fused_synopsis_score_attention_ref,
+           "block_gather_attention": ref.fused_gather_attention_ref,
+           "flash_decode": ref.flash_decode_ref}
+  errs = {}
+  for name, (args, kw) in seen.items():
+    got = getattr(ops, name)(*args, **kw)
+    want = plain[name](*args, **kw)
+    if name == "fused_synopsis_score_attention":
+      got, want = (got[0], *got[1]), (want[0], *want[1])
+      atol, *rtol = _stage1_tol(dtype, args[1].shape[2])
+    else:
+      atol, *rtol = PARTIALS_TOL[dtype]
+    rtol = rtol[0] if rtol else 0.0
+    ok = all(bool(((g.float() - w.float()).abs()
+                   <= atol + rtol * w.float().abs()).all())
+             for g, w in zip(got, want))
+    errs[name] = _max_err(got, want)
+    if not ok:
+      raise AssertionError(f"{name}[mesh] disagrees with its plain version "
+                           f"(max abs err {errs[name]})")
+  return errs
+
+
+def _layer(cache, i=0):
+  """Layer ``i`` of a (nb, na, ...) cache (or a rank's shard of one)."""
+  return {k: (v if k in ("layout", "recent_len", "pos") else v[0, i])
+          for k, v in cache.items()}
+
+
+def _mesh_synopsis(cfg, params, dev, out):
+  """The sharded synopsis attention through the serve step on a (model 4)
+  and a (data 2, model 4) mesh of the world's ranks: each rank prefills and
+  builds the global prompt cache, cuts its shard (``shard_cache``), holds
+  layer 0's sharded attention against the one-rank kernels on the global
+  layer, its kernels against their plain versions on its shard (the second
+  mesh), then runs MESH_STEPS decode steps at budget MESH_BUDGET with the
+  counts reset just before (stage 1 and stage 2 once a global layer each
+  step) and the collectives' bytes and host-staged wall counted."""
+  import torch.distributed as dist
+  from repro_torch.dist import sharding as shd
+  from repro_torch.kernels import _build, ops
+  from repro_torch.serve import serve_step as ss
+  from repro_torch.serve import synopsis_kv as skv
+  from repro_torch.serve.prefill import make_prefill_step
+  g = torch.Generator(dev).manual_seed(1)
+  prompt = torch.randint(0, cfg.vocab, (MESH_B, MESH_PROMPT), generator=g,
+                         device=dev)
+  logits, cache = make_prefill_step(cfg)(params, prompt)
+  tok0 = logits.argmax(-1, keepdim=True)
+  del logits
+  torch.cuda.empty_cache()        # the prefill's transients, before QR
+  syn = skv.build(cache, cfg)
+  del cache
+  torch.cuda.empty_cache()
+  G, D = cfg.n_heads // cfg.n_kv_heads, cfg.hd
+  q = torch.randn((MESH_B, cfg.n_heads, D), generator=g,
+                  device=dev).to(cfg.dtype)
+  kd, vd = (torch.randn((MESH_B, cfg.n_kv_heads, 1, D), generator=g,
+                        device=dev).to(cfg.dtype) for _ in range(2))
+  kw = dict(i_max=MESH_BUDGET, cluster_size=cfg.synopsis.cluster_size,
+            sm_scale=D ** -0.5)
+  M = syn["counts"].shape[-1]
+  if not MESH_BUDGET < M:
+    raise AssertionError(f"[mesh] budget {MESH_BUDGET} selects all {M} "
+                         f"clusters: the ranking would go untested")
+  out["M"] = M
+  one_rank = ss.synopsis_decode_attention(q, _layer(syn),
+                                          self_kv=(kd, vd), **kw)
+  step = ss.make_serve_step(cfg, i_max=MESH_BUDGET)
+  for shape, axes in (((MESH_N,), ("model",)),
+                      ((2, MESH_N), ("data", "model"))):
+    mesh = shd.Mesh(shape, axes)
+    label = "x".join(f"{a}{n}" for a, n in zip(axes, shape))
+    if mesh.member:
+      loc = ss.shard_cache(syn, mesh, shd.SERVE_RULES)
+      lay = loc["layout"]
+      rows = slice(None)
+      if lay.dp_n > 1:
+        n = MESH_B // lay.dp_n
+        rows = slice(mesh.index(lay.dp_axes) * n,
+                     (mesh.index(lay.dp_axes) + 1) * n)
+      last = shape == (2, MESH_N)
+      with shd.use_mesh(mesh, shd.SERVE_RULES):
+        with (_first_inputs(ops, MESH_KERNELS) if last
+              else contextlib.nullcontext()) as seen:
+          got = ss.sharded_synopsis_attention(
+              q[rows], _layer(loc), self_kv=(kd[rows], vd[rows]), **kw)
+        want = one_rank[rows]
+        ok = bool(((got - want).abs() <= MESH_TOL[0]
+                   + MESH_TOL[1] * want.abs()).all())
+        err = float((got - want).abs().max())
+        if not ok:
+          raise AssertionError(f"[mesh] {label}: sharded attention on rank "
+                               f"{mesh.rank} off the one-rank kernels by "
+                               f"{err}")
+        res = {"attn_err": err, "layout": dataclasses.asdict(lay),
+               "shard": tuple(loc["k"].shape)}
+        if last:
+          res["kernel_errs"] = _plain_errs(seen, cfg.dtype)
+          if mesh.rank == 0:
+            out["seen_syn"] = seen
+        tok = tok0[rows]
+        _sync(dev)
+        _build.reset_launches()
+        mesh.reset_stats()
+        step_ms = []
+        for _ in range(MESH_STEPS):
+          t0 = time.perf_counter()
+          lg, st = step(params, loc, tok)
+          _sync(dev)
+          step_ms.append((time.perf_counter() - t0) * 1e3)
+          skv.append_recent(loc, st["k_delta"], st["v_delta"])
+          loc["pos"] = st["pos"]
+          tok = lg.argmax(-1, keepdim=True)
+        counts = _build.launch_counts()
+        per = MESH_STEPS * cfg.n_layers
+        res.update(step_ms=step_ms, launches={k: counts[k]
+                                              for k in MESH_KERNELS},
+                   finite=bool(torch.isfinite(lg).all()),
+                   gather_bytes_layer=mesh.stats["bytes"] / per,
+                   gather_ms_layer=mesh.stats["ms"] / per,
+                   collectives_layer=mesh.stats["calls"] / per)
+        if any(counts[k] != per for k in MESH_KERNELS) or not res["finite"]:
+          raise AssertionError(f"[mesh] {label} rank {mesh.rank}: launches "
+                               f"{res['launches']} (want {per} each), "
+                               f"finite logits {res['finite']}")
+        out.setdefault("synopsis", {})[label] = res
+        if last and mesh.rank == 0:
+          out["syn_launches"] = {k: counts[k] for k in MESH_KERNELS}
+      del loc
+    dist.barrier()
+
+
+def _mesh_engine(cfg, params, dev, out, fleet):
+  """One short Poisson window of the cluster tier on a (component 4) mesh
+  (the first 4 ranks) or of the fleet tier on a (replica 2, component 4)
+  mesh (all 8), under accuracytrader, as a functional check (requests and
+  tokens served, steps, budget, loss; too few requests for a latency); the
+  kernels' launches with the counts reset just before; then one probe step
+  whose stage 1, stage 2 and flash_decode calls are held against their
+  plain versions."""
+  import torch.distributed as dist
+  from repro_torch.dist import topology
+  from repro_torch.kernels import _build, ops
+  from repro_torch.serve.cluster import ClusterConfig, ClusterStepBackend
+  from repro_torch.serve.engine import (EngineConfig, ServingEngine,
+                                        run_open_loop)
+  from repro_torch.serve.fleet import FleetConfig, FleetStepBackend
+  rank = dist.get_rank()
+  need = MESH_N * (MESH_R if fleet else 1)
+  label = f"fleet N={MESH_N} R={MESH_R}" if fleet else f"cluster N={MESH_N}"
+  if rank >= need:                   # builds its part of the mesh, waits
+    topology.make_component_mesh(MESH_N)
+    dist.barrier()
+    return
+  backend = (FleetStepBackend(FleetConfig(n_components=MESH_N,
+                                          replicas=MESH_R, use_mesh=True))
+             if fleet else ClusterStepBackend(ClusterConfig(
+                 n_components=MESH_N, use_mesh=True)))
+  _sync(dev)
+  _build.reset_launches()
+  t0 = time.perf_counter()
+  eng = ServingEngine(cfg, EngineConfig(
+      n_slots=ENGINE_SLOTS, prompt_len=MESH_PROMPT, max_new_tokens=MESH_NEW,
+      deadline_ms=ENGINE_DEADLINE_MS, policy="accuracytrader"),
+      params=params, device=dev, backend=backend)
+  built = time.perf_counter() - t0
+  backend.mesh.reset_stats()
+  s = run_open_loop(eng, ENGINE_RATE, MESH_WINDOW_S, seed=0)
+  counts = _build.launch_counts()
+  stats = dict(backend.mesh.stats)
+  with _first_inputs(ops, CLUSTER_KERNELS) as seen:
+    eng.probe_step_ms(MESH_BUDGET, iters=1)
+  res = {"built_s": built, "eager": not eng.programs.captures,
+         "summary": {k: s[k] for k in ("n", "steps", "mean_budget",
+                                       "accuracy_loss_pct",
+                                       "deadline_miss_pct")},
+         "tokens": sum(len(r.tokens) for r in eng.completed
+                       if not r.dropped),
+         "launches": {k: counts[k] for k in CLUSTER_KERNELS + (
+             "flash_prefill", "segment_build")},
+         "kernel_errs": _plain_errs(seen, cfg.dtype),
+         "gather_bytes_step": stats["bytes"] / max(s["steps"], 1),
+         "gather_ms_step": stats["ms"] / max(s["steps"], 1),
+         "served": all(len(r.tokens) == MESH_NEW + 1 for r in eng.completed
+                       if not r.dropped) and s["n"] > 0}
+  if rank == 0 and not fleet:
+    out["seen_cluster"] = seen
+  missing = [k for k in CLUSTER_KERNELS if not counts[k]]
+  if missing or not res["served"] or not res["eager"]:
+    raise AssertionError(f"[mesh] {label} rank {rank}: kernels not launched "
+                         f"{missing}, served {res['served']}, eager "
+                         f"{res['eager']}")
+  out[label] = res
+  del eng, backend
+  gc.collect()
+  torch.cuda.empty_cache()
+  dist.barrier()
+
+
+def _mesh_parity(dev, out):
+  """SMOKE llama3-8b in f32: the cluster engine on a (component 4) mesh and
+  the fleet engine on a (replica 2, component 2) mesh of the first 4 ranks
+  against rank 0's stacked engines of the same configs, under basic and
+  fixed: the same ids."""
+  import torch.distributed as dist
+  from repro_torch.configs.registry import get_config
+  from repro_torch.dist import topology
+  from repro_torch.models import transformer as tf
+  from repro_torch.serve.cluster import ClusterConfig, ClusterStepBackend
+  from repro_torch.serve.engine import (EngineConfig, ServingEngine,
+                                        run_open_loop)
+  from repro_torch.serve.fleet import FleetConfig, FleetStepBackend
+  rank = dist.get_rank()
+  cfg = dataclasses.replace(get_config("llama3-8b", smoke=True),
+                            dtype=torch.float32)
+  params = _tree_to(tf.init_model(cfg, torch.Generator().manual_seed(1),
+                                  "cpu"), dev)
+  tiers = (("cluster", lambda m: ClusterStepBackend(ClusterConfig(
+      n_components=4, skew=CLUSTER_SKEW, use_mesh=m))),
+           ("fleet", lambda m: FleetStepBackend(FleetConfig(
+               n_components=2, replicas=2, use_mesh=m))))
+  for tier, backend_of in tiers:
+    for arm in (dict(policy="basic"), dict(policy="fixed", fixed_budget=2)):
+      ids = {}
+      for where in ("mesh", "stacked"):
+        if where == "mesh" and rank >= 4:
+          if tier == "fleet":
+            topology.make_fleet_mesh(2, 2)
+          else:
+            topology.make_component_mesh(4)
+          continue
+        if where == "stacked" and rank != 0:
+          continue
+        eng = ServingEngine(
+            cfg, EngineConfig(n_slots=2, prompt_len=128, max_new_tokens=8,
+                              deadline_ms=1e6, **arm), params=params,
+            device=dev, backend=backend_of(where == "mesh"))
+        run_open_loop(eng, 20.0, 0.3, seed=3)
+        ids[where] = [r.tokens for r in sorted(eng.completed,
+                                               key=lambda r: r.rid)]
+        del eng
+        gc.collect()
+      if rank == 0:
+        if ids["mesh"] != ids["stacked"] or not ids["mesh"]:
+          raise AssertionError(f"[mesh parity] {tier} {arm}: mesh ids "
+                               f"{ids['mesh']} vs stacked {ids['stacked']}")
+        out.setdefault("parity", []).append(
+            (tier, arm["policy"], sum(map(len, ids["mesh"])),
+             len(ids["mesh"])))
+      dist.barrier()
+
+
+def _one_rank_compressed(cfg, opt_cfg, dev, steps, batch, seq, shares):
+  """The one-rank reference of the compressed mesh step: the shares as
+  microbatches, then ``local_quantise_feedback`` and AdamW; the losses and
+  the final state."""
+  from repro_torch.train import compression as comp
+  from repro_torch.train.data import DataConfig, TokenStream
+  from repro_torch.train.optimizer import adamw_update
+  from repro_torch.train.train_step import init_train_state, loss_and_grads
+  state = init_train_state(cfg, opt_cfg, device=dev, compress=True,
+                           generator=torch.Generator(dev).manual_seed(0))
+  data = TokenStream(DataConfig(cfg.vocab, seq, batch, seed=0))
+  losses = []
+  for i in range(steps):
+    tokens, labels = data.batch_at(i)
+    loss, _, grads = loss_and_grads(cfg, state["params"], {
+        "tokens": torch.from_numpy(tokens).to(dev),
+        "labels": torch.from_numpy(labels).to(dev)}, microbatches=shares)
+    with torch.no_grad():
+      deq, err = comp.local_quantise_feedback(grads, state["err"])
+      params, opt, _ = adamw_update(deq, state["opt"], state["params"],
+                                    opt_cfg)
+    state = {"params": params, "opt": opt, "err": err}
+    losses.append(float(loss))
+  return losses, state
+
+
+def _mesh_train(dev, out):
+  """smollm-135m at full width (phase 22's depth) on a (pod 2, data 2) mesh
+  of the first 4 ranks: MESH_TRAIN_STEPS steps at TRAIN_BATCH x TRAIN_SEQ
+  through ``launch.train.run(mesh=..., compress_pods=True)``, no kernel
+  launched; on rank 0 the one-rank step over the same shares with
+  ``local_quantise_feedback``, twice (the card's run-to-run spread): the
+  mesh run's losses within twice that spread (1e-5 of the loss at
+  least), its parameters and error buffers, leaf by leaf, within twice
+  theirs (4e-5 of the leaf's max|ref| at least: the CPU tests' bound), so
+  that a wrong gradient reduction fails even where the losses, near flat
+  at this init, do not move."""
+  import torch.distributed as dist
+  from repro_torch.configs.registry import get_config
+  from repro_torch.dist import sharding as shd
+  from repro_torch.kernels import _build
+  from repro_torch.launch import train
+  from repro_torch.models.common import leaves
+  from repro_torch.train.optimizer import OptConfig
+  mesh = shd.Mesh((2, 2), ("pod", "data"))
+  if mesh.member:
+    cfg = get_config("smollm-135m")
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=1,
+                        total_steps=MESH_TRAIN_STEPS)
+    _build.reset_launches()
+    mesh.reset_stats()
+    run = train.run(cfg, steps=MESH_TRAIN_STEPS, batch=TRAIN_BATCH,
+                    seq=TRAIN_SEQ, opt_cfg=opt_cfg, device=dev, mesh=mesh,
+                    compress_pods=True, log=lambda _: None)
+    launched = {k: v for k, v in _build.launch_counts().items() if v}
+    res = {"losses": run["losses"], "step_ms": run["step_ms"],
+           "launched": launched,
+           "gather_mb_step": mesh.stats["bytes"] / 1e6 / MESH_TRAIN_STEPS,
+           "gather_ms_step": mesh.stats["ms"] / MESH_TRAIN_STEPS}
+    if launched:
+      raise AssertionError(f"[mesh train] kernels launched: {launched}")
+    if mesh.rank == 0:
+      a = _one_rank_compressed(cfg, opt_cfg, dev, MESH_TRAIN_STEPS,
+                               TRAIN_BATCH, TRAIN_SEQ, 4)
+      b = _one_rank_compressed(cfg, opt_cfg, dev, MESH_TRAIN_STEPS,
+                               TRAIN_BATCH, TRAIN_SEQ, 4)
+      spread = max(abs(x - y) for x, y in zip(a[0], b[0]))
+      bound = max(2 * spread, 1e-5 * max(map(abs, a[0])))
+      dev_l = max(abs(x - y) for x, y in zip(run["losses"], a[0]))
+
+      def rel(got, part):
+        want = dict(leaves(a[1][part]))
+        return max(float((x - want[p]).abs().max()
+                         / want[p].abs().max().clamp_min(1e-30))
+                   for p, x in leaves(got[part]))
+      res.update(ref_losses=a[0], spread=spread, bound=bound, dev=dev_l)
+      for part in ("params", "err"):
+        res[f"{part}_rel"] = rel(run["state"], part)
+        res[f"ref_spread_{part}"] = rel(b[1], part)
+        res[f"{part}_bound"] = max(2 * res[f"ref_spread_{part}"], 4e-5)
+      if not dev_l <= bound:
+        raise AssertionError(f"[mesh train] losses {run['losses']} off the "
+                             f"one-rank step's {a[0]} by {dev_l} > {bound}")
+      for part in ("params", "err"):
+        if not res[f"{part}_rel"] <= res[f"{part}_bound"]:
+          raise AssertionError(
+              f"[mesh train] {part} {res[f'{part}_rel']} of max|ref| off "
+              f"the one-rank step's > {res[f'{part}_bound']}")
+    out["train"] = res
+  dist.barrier()
+
+
+def _mesh_rank(device="cuda"):
+  """The phase's body on every rank of the world (see run_mesh)."""
+  import torch.distributed as dist
+  from repro_torch.configs.registry import get_config
+  from repro_torch.models import transformer as tf
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  dev = (torch.device("cuda", torch.cuda.current_device())
+         if device == "cuda" else torch.device(device))
+  rank = dist.get_rank()
+  out = {"rank": rank, "t": {}}
+  cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=MESH_DEPTH)
+  t0 = time.perf_counter()
+  params = tf.init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
+  _mesh_synopsis(cfg, params, dev, out)
+  out["t"]["synopsis"] = time.perf_counter() - t0
+  for fleet in (False, True):
+    t0 = time.perf_counter()
+    _mesh_engine(cfg, params, dev, out, fleet)
+    out["t"]["fleet" if fleet else "cluster"] = time.perf_counter() - t0
+  if rank == 0:
+    # The [mesh] records, timed with every other rank waiting.
+    seen = {**out.pop("seen_syn"), "flash_decode":
+            out.pop("seen_cluster")["flash_decode"]}
+    out["records"] = _cluster_records(
+        seen, cfg.dtype, G=cfg.n_heads // cfg.n_kv_heads,
+        C=cfg.synopsis.cluster_size,
+        sdpa=torch.nn.functional.scaled_dot_product_attention, tag="[mesh]")
+  dist.barrier()
+  del params
+  gc.collect()
+  torch.cuda.empty_cache()
+  t0 = time.perf_counter()
+  _mesh_parity(dev, out)
+  out["t"]["parity"] = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  _mesh_train(dev, out)
+  out["t"]["train"] = time.perf_counter() - t0
+  out["peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                    if dev.type == "cuda" else float("nan"))
+  return out
+
+
+def run_mesh(dev, smi):
+  """Phase 23 (``[mesh]``): MESH_WORLD ranks spawned on the one card
+  (``dist.world.run_world``), each a process running the same program on
+  its shard: the sharded synopsis attention through the serve step (a
+  model-4 and a data-2 x model-4 mesh), one cluster window (N = 4) and one
+  fleet window (N = 4, R = 2) on the engine, the SMOKE engines' ids on a
+  mesh against the stacked engines', and the mesh train step of
+  smollm-135m over (pod 2, data 2).  A rank that fails fails the phase.
+  Returns (the records ``<kernel>[mesh]``, their launches on the phase's
+  paths: stage 1 and stage 2 on the data-2 x model-4 serve steps, rank
+  0's, and flash_decode on the cluster window)."""
+  from repro_torch.dist import world
+  _free()
+  t0 = time.perf_counter()
+  backend = world.backend_for(dev, MESH_WORLD)
+  print(f"[mesh] {MESH_WORLD} ranks on {torch.cuda.device_count()} card: "
+        f"backend {backend} (the collectives' operands staged through host "
+        f"memory; NCCL, one card a rank, is not exercised here); "
+        f"llama3-8b at full width, {MESH_DEPTH} of 32 layers on every rank")
+  res = world.run_world(_mesh_rank, MESH_WORLD, device="cuda",
+                        timeout_s=MESH_TIMEOUT_S)
+  r0 = res[0]
+  for label in ("model4", "data2xmodel4"):
+    rs = [r["synopsis"][label] for r in res if label in r.get("synopsis",
+                                                              {})]
+    print(f"[mesh] sharded synopsis {label} (SERVE_RULES), {len(rs)} ranks: "
+          f"layout {rs[0]['layout']}, rank shard k {rs[0]['shard']}; layer 0 "
+          f"against the one-rank kernels on the global cache: max abs err "
+          f"{max(x['attn_err'] for x in rs):.3e} (tol {MESH_TOL[0]:.0e}+"
+          f"{MESH_TOL[1]:.0e}|x|) at budget {MESH_BUDGET} of M = {r0['M']}; "
+          f"{MESH_STEPS} decode steps: ms {[round(t, 2) for t in rs[0]['step_ms']]} "
+          f"(rank 0), stage 1 / stage 2 launches per rank "
+          f"{[tuple(x['launches'].values()) for x in rs]} "
+          f"({MESH_DEPTH} a step each)")
+    print(f"[mesh] {label}: per layer and rank {rs[0]['collectives_layer']:.0f} "
+          f"collectives, {rs[0]['gather_bytes_layer']:.0f} bytes all-gathered "
+          f"(received), host-staged gloo ms {rs[0]['gather_ms_layer']:.3f} "
+          f"(host clock, rank 0; {smi})")
+    if "kernel_errs" in rs[0]:
+      print(f"[mesh] {label} kernels against their plain versions on each "
+            f"rank's shard: max abs err "
+            + ", ".join(f"{k} {max(x['kernel_errs'][k] for x in rs):.3e}"
+                        for k in MESH_KERNELS))
+  for label in (f"cluster N={MESH_N}", f"fleet N={MESH_N} R={MESH_R}"):
+    rs = [r[label] for r in res if label in r]
+    s = rs[0]["summary"]
+    print(f"[mesh engine] {label}, {len(rs)} ranks, eager steps: built in "
+          f"{rs[0]['built_s']:.1f}s; a functional check, not a latency "
+          f"(too few requests): n={s['n']} requests, {rs[0]['tokens']} tokens "
+          f"served, steps={s['steps']} mean_budget="
+          f"{s['mean_budget']:.2f} loss={s['accuracy_loss_pct']:.3f}% "
+          f"miss={s['deadline_miss_pct']:.1f}%; launches per rank "
+          f"{[tuple(x['launches'].values()) for x in rs]} "
+          f"{tuple(rs[0]['launches'])}; all-gathered {rs[0]['gather_bytes_step']:.0f} "
+          f"bytes a step and rank in {rs[0]['gather_ms_step']:.2f} ms "
+          f"(host-staged gloo, host clock; {smi}); kernels against their "
+          f"plain versions: "
+          + ", ".join(f"{k} {max(x['kernel_errs'][k] for x in rs):.3e}"
+                      for k in CLUSTER_KERNELS))
+  for tier, policy, n_ids, n_req in r0["parity"]:
+    print(f"[mesh parity] smoke f32 {tier} {policy}: {n_ids} ids of {n_req} "
+          f"requests on the mesh equal to the stacked engine's")
+  tr = r0["train"]
+  print(f"[mesh train] smollm-135m full width over (pod 2, data 2), "
+        f"compress_pods: losses {[round(x, 5) for x in tr['losses']]} vs the "
+        f"one-rank step {[round(x, 5) for x in tr['ref_losses']]}: max |diff| "
+        f"{tr['dev']:.3e} (bound {tr['bound']:.3e}: twice the one-rank "
+        f"run-to-run spread {tr['spread']:.3e}, 1e-5 of the loss at least); "
+        f"params {tr['params_rel']:.3e} / err {tr['err_rel']:.3e} of max|ref| "
+        f"per leaf off it (bounds {tr['params_bound']:.1e} / "
+        f"{tr['err_bound']:.1e}: twice the one-rank run-to-run "
+        f"{tr['ref_spread_params']:.3e} / {tr['ref_spread_err']:.3e}, 4e-5 "
+        f"at least); step ms "
+        f"{[round(x, 1) for x in tr['step_ms']]}; all-gathered "
+        f"{tr['gather_mb_step']:.1f} MB received a step and rank by the "
+        f"gradients' all-reduce (all-to-all + all-gather) in "
+        f"{tr['gather_ms_step']:.1f} ms (host-staged gloo); no kernel launched")
+  print(f"[mesh] rank phases (s): {r0['t']}; peak device memory per rank "
+        f"{max(r['peak_gb'] for r in res):.2f} GB; phase in "
+        f"{time.perf_counter() - t0:.1f}s")
+  launches = dict(r0["syn_launches"])
+  launches["flash_decode"] = r0[f"cluster N={MESH_N}"]["launches"][
+      "flash_decode"]
+  recs = r0["records"]
+  return recs, {f"{k}[mesh]": launches[k] for k in CLUSTER_KERNELS}
+
+
 T_START = time.perf_counter()
 
 
@@ -5035,6 +5578,10 @@ def main() -> int:
   run_apps(dev)
   run_train(dev)
 
+  # The sharded path: ranks sharing the card, each on its shard.
+  mesh_records, mesh_launches = run_mesh(dev, smi)
+  records.update(mesh_records)
+
   # Each kernel branch's launches on the path that runs it: the synopsis
   # loop's four, the exact loop's flash_decode, the unfused op's
   # synopsis_score; the quantized branches on the int8+kv / fp8+kv loops,
@@ -5052,6 +5599,7 @@ def main() -> int:
   path_launches.update(model_launches)
   path_launches.update(cluster_launches)
   path_launches.update(fleet_launches)
+  path_launches.update(mesh_launches)
   path_launches[morton_record["name"]] = morton_launches
   missing = sorted(set(records) ^ set(path_launches))
   idle = [k for k, n in path_launches.items() if n == 0]

@@ -1,1 +1,1 @@
-"""The component topology of the scatter-gather tier."""
+"""The component topology, rule tables and meshes of the sharded path."""

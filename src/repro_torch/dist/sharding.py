@@ -1,0 +1,382 @@
+"""Logical-axis sharding: rule tables, the mesh context and the port's mesh
+of ``torch.distributed`` ranks (counterpart of ``repro.dist.sharding``).
+
+Every tensor carries *logical* axis names (``"batch"``, ``"heads"``,
+``"kv_seq"`` ...) instead of mesh axes.  A *rule table* maps logical names
+to mesh axes; :func:`mesh_axes_for` resolves one tensor's logical axes
+against a table with two safety rails:
+
+  * divisibility: a dim that does not divide evenly over its mesh axes
+    falls back to replication (trailing mesh axes are dropped first, so a
+    two-axis rule can degrade to one axis before giving up);
+  * no double use: a mesh axis consumed by an earlier dim of the same
+    tensor is unavailable to later dims (first dim wins).
+
+Rule tables (all derive from :data:`DEFAULT_RULES`):
+
+  * TRAIN_RULES: TP over `model` + FSDP (the weight ``embed`` dim over
+    `data`);
+  * SERVE_RULES: decode; the KV cache / synopsis ``kv_seq`` axis over
+    `model`: each shard is one paper "component" of the scatter-gather;
+  * LONG_RULES: ``kv_seq`` over ``(data, model)``, batch over `pod` only.
+
+A resolved spec is a plain tuple with the entries of a ``PartitionSpec``:
+None (replicated), a mesh axis name, or a tuple of them.
+
+The active (mesh, rules) pair is installed with :func:`use_mesh`.  Unlike
+JAX's, the port's programs are SPMD by hand: every rank of a :class:`Mesh`
+runs the same step on its own shard and calls the collectives itself, so
+there is no ``shard_map`` (each sharded body runs directly on its rank)
+and :func:`constrain` has nothing to do.
+
+:class:`Mesh` lays ``prod(shape)`` ranks of the ``torch.distributed``
+world out row-major over named axes (the first ``prod(shape)`` ranks; a
+larger world's other ranks take part in building it and in nothing
+else).  Its collectives run over one process group for each line of each
+set of axes.  On the gloo backend a CUDA tensor's collective is staged
+through host memory by the helper (the operands are copied to the host,
+gathered there and copied back); the compute never leaves the card.  The
+backend is chosen when the world starts (``dist.world``), never switched
+on a failure.
+"""
+from __future__ import annotations
+
+import contextlib
+import itertools
+import math
+import threading
+import time
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+AxisRule = Union[None, str, Tuple[str, ...]]
+Spec = Tuple[AxisRule, ...]
+
+DEFAULT_RULES: Dict[str, AxisRule] = {
+    "batch": ("pod", "data"),
+    "embed": None,            # weight FSDP dim: replicated unless training
+    "heads": "model",
+    "kv_heads": "model",
+    "ff": "model",
+    "vocab": "model",
+    "expert": "model",
+    "ssm_heads": "model",
+    "layers": None,
+    "kv_seq": None,
+    "ssm_state": None,
+}
+
+TRAIN_RULES: Dict[str, AxisRule] = {**DEFAULT_RULES, "embed": "data"}
+
+# Serving: the cache sequence axis takes `model`; the cache head axis must
+# stay unsharded or it would claim `model` first (leading dims win).
+SERVE_RULES: Dict[str, AxisRule] = {
+    **DEFAULT_RULES, "kv_heads": None, "kv_seq": "model",
+}
+
+# long_500k: the KV cache dominates memory: its sequence axis spreads over
+# both data and model; batch parallelism keeps only the pod axis.
+LONG_RULES: Dict[str, AxisRule] = {
+    **DEFAULT_RULES, "batch": ("pod",), "kv_heads": None,
+    "kv_seq": ("data", "model"),
+}
+
+
+class _Ctx(threading.local):
+
+  def __init__(self):
+    self.mesh = None
+    self.rules: Optional[Dict[str, AxisRule]] = None
+    self.manual: frozenset = frozenset()
+
+
+_CTX = _Ctx()
+
+
+@contextlib.contextmanager
+def use_mesh(mesh, rules: Dict[str, AxisRule]):
+  """Install (mesh, rules) as the ambient sharding context."""
+  prev = (_CTX.mesh, _CTX.rules)
+  _CTX.mesh, _CTX.rules = mesh, dict(rules)
+  try:
+    yield mesh
+  finally:
+    _CTX.mesh, _CTX.rules = prev
+
+
+@contextlib.contextmanager
+def manual_axes(axes):
+  """Mark mesh axes as manual (the reference's ``shard_map`` bodies).  The
+  port keeps the bookkeeping for code that reads it; nothing here emits a
+  constraint."""
+  prev = _CTX.manual
+  _CTX.manual = prev | frozenset(axes)
+  try:
+    yield
+  finally:
+    _CTX.manual = prev
+
+
+def current_mesh():
+  return _CTX.mesh
+
+
+def current_rules() -> Optional[Dict[str, AxisRule]]:
+  return _CTX.rules
+
+
+def rules_dict() -> Dict[str, AxisRule]:
+  """The active rule table, or DEFAULT_RULES when none is installed."""
+  return dict(_CTX.rules if _CTX.rules is not None else DEFAULT_RULES)
+
+
+def tp_size(mesh) -> int:
+  return int(mesh.shape.get("model", 1)) if mesh is not None else 1
+
+
+def dp_size(mesh) -> int:
+  if mesh is None:
+    return 1
+  n = 1
+  for a in ("pod", "data"):
+    n *= int(mesh.shape.get(a, 1))
+  return n
+
+
+def _axis_size(mesh, axes: Tuple[str, ...]) -> int:
+  return math.prod(int(mesh.shape[a]) for a in axes)
+
+
+def mesh_axes_for(logical_axes: Sequence[Optional[str]], mesh,
+                  rules: Dict[str, AxisRule],
+                  shape: Optional[Sequence[int]] = None) -> Spec:
+  """Resolve logical axes -> a spec tuple with divisibility + no-reuse
+  fallbacks.  ``mesh`` only needs a ``.shape`` mapping (tests use fakes)."""
+  used: set = set()
+  entries = []
+  for d, name in enumerate(logical_axes):
+    target = rules.get(name) if name is not None else None
+    if target is None:
+      entries.append(None)
+      continue
+    axes = (target,) if isinstance(target, str) else tuple(target)
+    axes = tuple(a for a in axes if a in mesh.shape and a not in used)
+    # Drop trailing mesh axes until the dim divides evenly.
+    while axes and shape is not None and \
+        shape[d] % _axis_size(mesh, axes) != 0:
+      axes = axes[:-1]
+    if not axes:
+      entries.append(None)
+      continue
+    used.update(axes)
+    entries.append(axes[0] if len(axes) == 1 else axes)
+  return tuple(entries)
+
+
+def constrain(x, logical_axes, rules: Optional[Dict[str, AxisRule]] = None):
+  """Returns ``x`` unchanged.  The reference's ``with_sharding_constraint``
+  tells GSPMD where a value should live and never changes the value; the
+  port places every tensor explicitly (each rank holds its own shard), so
+  there is nothing to constrain."""
+  del logical_axes, rules
+  return x
+
+
+# ---------------------------------------------------------------------------
+# The mesh of ranks
+# ---------------------------------------------------------------------------
+
+class Mesh:
+  """``shape`` ranks of the ``torch.distributed`` world laid out row-major
+  over ``axis_names`` (rank ``i`` of the first ``prod(shape)`` at the
+  row-major coordinates of ``i``).
+
+  Every rank of the world must build the mesh, in the same order as the
+  other ranks build theirs: :func:`torch.distributed.new_group` is
+  collective over the world.  A rank outside the first ``prod(shape)``
+  (``member`` False) holds groups of nothing and calls no collective.
+
+  ``shape`` maps axis name -> size, like JAX's ``Mesh.shape``, so the rule
+  logic takes the mesh as it takes the tests' fakes.  The collectives
+  :meth:`all_gather`, :meth:`all_reduce` and :meth:`broadcast_object` run
+  over one axis or a tuple of axes (the combined index in the tuple's
+  order, JAX's).  ``stats`` counts the collectives, the bytes this rank
+  received and their host wall (staging included) since
+  :meth:`reset_stats`."""
+
+  def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
+    if not dist.is_available() or not dist.is_initialized():
+      raise RuntimeError("a Mesh needs an initialised torch.distributed "
+                         "world (repro_torch.dist.world)")
+    dims = tuple(int(s) for s in shape)
+    names = tuple(axis_names)
+    if len(dims) != len(names) or len(set(names)) != len(names):
+      raise ValueError(f"mesh shape {dims} and axes {names} do not match")
+    self.axis_names = names
+    self.shape: Dict[str, int] = dict(zip(names, dims))
+    self.size = math.prod(dims)
+    world = dist.get_world_size()
+    if world < self.size:
+      raise RuntimeError(f"need {self.size} ranks for mesh {self.shape}, "
+                         f"have {world}")
+    self.rank = dist.get_rank()
+    self.backend = dist.get_backend()
+    self.ranks = np.arange(self.size).reshape(dims)
+    self.member = self.rank < self.size
+    self.coords: Dict[str, int] = (
+        dict(zip(names, (int(i) for i in np.unravel_index(self.rank, dims))))
+        if self.member else {})
+    # One group per line of every non-empty set of axes (in mesh order):
+    # the ranks that differ only in those axes' coordinates.
+    self._groups: Dict[Tuple[str, ...], Tuple[object, list]] = {}
+    for n_ax in range(1, len(names) + 1):
+      for subset in itertools.combinations(names, n_ax):
+        keep = [names.index(a) for a in subset]
+        rest = [i for i in range(len(names)) if i not in keep]
+        for fixed in itertools.product(*(range(dims[i]) for i in rest)):
+          idx = [slice(None)] * len(names)
+          for i, v in zip(rest, fixed):
+            idx[i] = v
+          line = [int(r) for r in self.ranks[tuple(idx)].reshape(-1)]
+          group = dist.new_group(line)
+          if self.rank in line:
+            self._groups[subset] = (group, line)
+    self.reset_stats()
+
+  def __repr__(self) -> str:
+    return f"Mesh({self.shape}, rank={self.rank}, backend={self.backend})"
+
+  def reset_stats(self) -> None:
+    self.stats = {"calls": 0, "bytes": 0, "ms": 0.0}
+
+  def axis_index(self, name: str) -> int:
+    """This rank's coordinate along axis ``name``."""
+    self._require_member()
+    return self.coords[name]
+
+  def index(self, axes) -> int:
+    """This rank's combined index along ``axes`` (a name or a tuple, in
+    the tuple's order: the first axis major)."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    i = 0
+    for a in axes:
+      i = i * self.shape[a] + self.axis_index(a)
+    return i
+
+  def axis_size(self, axes) -> int:
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    return math.prod(self.shape[a] for a in axes)
+
+  def _require_member(self) -> None:
+    if not self.member:
+      raise RuntimeError(f"rank {self.rank} is not in the mesh "
+                         f"{self.shape} (ranks 0..{self.size - 1})")
+
+  def _line(self, axes):
+    """(group, member ranks in the order of the combined index along
+    ``axes``)."""
+    self._require_member()
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    key = tuple(a for a in self.axis_names if a in axes)
+    if len(key) != len(axes):
+      raise ValueError(f"axes {axes} not all in mesh {self.shape}")
+    group, line = self._groups[key]
+    if key != axes:
+      def combined(r):
+        c = np.unravel_index(r, self.ranks.shape)
+        i = 0
+        for a in axes:
+          i = i * self.shape[a] + int(c[self.axis_names.index(a)])
+        return i
+      line = sorted(line, key=combined)
+    return group, line
+
+  def _staged(self, x: torch.Tensor) -> torch.Tensor:
+    """The operand of a collective: on gloo a CUDA tensor goes through
+    host memory (gloo's transport), elsewhere the tensor itself."""
+    x = x.contiguous()
+    if self.backend == "gloo" and x.device.type != "cpu":
+      return x.cpu()
+    return x
+
+  def all_gather(self, x: torch.Tensor, axes, dim: int = 0,
+                 tiled: bool = True) -> torch.Tensor:
+    """Every member's ``x`` along ``axes``, in the order of the combined
+    index: concatenated along ``dim`` (``tiled``) or stacked at ``dim``
+    (JAX's ``all_gather(x, axes, axis=dim, tiled=...)``)."""
+    group, line = self._line(axes)
+    t0 = time.perf_counter()
+    xs = self._staged(x)
+    parts = [torch.empty_like(xs) for _ in line]
+    dist.all_gather(parts, xs, group=group)
+    # dist's list is in group-rank order, the sorted global ranks.
+    by_rank = dict(zip(sorted(line), parts))
+    parts = [by_rank[r] for r in line]
+    out = torch.cat(parts, dim) if tiled else torch.stack(parts, dim)
+    out = out.to(x.device)
+    self.stats["calls"] += 1
+    self.stats["bytes"] += xs.numel() * xs.element_size() * len(line)
+    self.stats["ms"] += (time.perf_counter() - t0) * 1e3
+    return out
+
+  def all_reduce(self, x: torch.Tensor, axes, op: str = "sum"
+                 ) -> torch.Tensor:
+    """The sum (or mean) of every member's ``x`` along ``axes``, as a
+    reduce-scatter and an all-gather: ``x``, flat and zero-padded to a
+    multiple of the line's n ranks, is cut into n pieces; one all-to-all
+    hands each rank its piece of every member's ``x``, the rank sums them
+    in the order of the combined index, and one all-gather gives every rank
+    all n sums.  A rank sends and receives about 2 (n - 1) / n of ``x`` and
+    holds one more copy of it, whatever n.  Every element is summed in the
+    same fixed order, so all ranks get the same bits and the result equals
+    the one-rank sum of the same parts in that order: a backend's ring
+    order changes the last bits, which ``compress_pods``' int8 quantiser
+    would turn into whole steps of a code."""
+    if op not in ("sum", "mean"):
+      raise ValueError(f"op {op!r} not in ('sum', 'mean')")
+    group, line = self._line(axes)
+    n = len(line)
+    t0 = time.perf_counter()
+    xs = self._staged(x.reshape(-1))
+    per = -(-xs.numel() // n)
+    if per * n != xs.numel():
+      xs = torch.cat([xs, xs.new_zeros(per * n - xs.numel())])
+    pieces = torch.empty_like(xs)
+    dist.all_to_all_single(pieces, xs, group=group)
+    # Row j came from group rank j, the j-th of the sorted global ranks.
+    by_rank = dict(zip(sorted(line), pieces.view(n, per)))
+    acc = by_rank[line[0]]
+    for r in line[1:]:
+      acc = acc + by_rank[r]
+    if op == "mean":
+      acc = acc / n
+    sums = [torch.empty_like(acc) for _ in line]
+    dist.all_gather(sums, acc, group=group)   # piece j from group rank j
+    out = torch.cat(sums)[:x.numel()].view(x.shape).to(x.device)
+    self.stats["calls"] += 2
+    self.stats["bytes"] += 2 * xs.numel() * xs.element_size()
+    self.stats["ms"] += (time.perf_counter() - t0) * 1e3
+    return out
+
+  def broadcast_object(self, obj, src: int = 0):
+    """Mesh rank ``src``'s picklable ``obj`` on every member (over the
+    whole mesh)."""
+    group, line = self._line(self.axis_names)
+    t0 = time.perf_counter()
+    box = [obj]
+    dist.broadcast_object_list(box, src=line[src], group=group)
+    self.stats["calls"] += 1
+    self.stats["ms"] += (time.perf_counter() - t0) * 1e3
+    return box[0]
+
+
+def require_mesh(mesh) -> "Mesh":
+  """``mesh`` when it is the port's :class:`Mesh`; anything else raises
+  ``TypeError`` (a JAX mesh has no ranks to run on)."""
+  if not isinstance(mesh, Mesh):
+    raise TypeError(f"mesh must be a repro_torch.dist.sharding.Mesh, got "
+                    f"{type(mesh).__name__}")
+  return mesh

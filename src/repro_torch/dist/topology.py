@@ -20,8 +20,9 @@ M synopsis clusters of every resident request's corpus:
 :func:`plan_2d` validates the fleet tier's (R, N) grid, where replica row
 ``r`` holds, in column ``j``, a copy of shard ``shard_at(r, j) = (j - r) %
 N``, and :func:`select_replica` picks, per shard, the live holder predicted
-to finish first.  The port runs the tier stacked on one device: the meshes
-of the JAX module belong to the sharded path (ROADMAP A.7c).
+to finish first.  :func:`make_component_mesh` and :func:`make_fleet_mesh`
+lay the sharded path's components (and replica rows) over the ranks of
+the ``torch.distributed`` world, one rank a component.
 """
 from __future__ import annotations
 
@@ -178,3 +179,29 @@ def select_replica(t_pred, alive=None) -> np.ndarray:
     t = np.where(mask, t, np.inf)
   # np.argmin takes the first minimum, i.e. the lowest replica index.
   return np.argmin(t, axis=0).astype(np.int32)
+
+
+def make_component_mesh(n_components: int):
+  """1-axis ``("component",)`` mesh over the first ``n`` ranks of the
+  world, or ``None`` when the world has fewer ranks or none was started
+  (the tier then runs its stacked path).  Building it is collective over
+  the world."""
+  from repro_torch.dist import world  # noqa: PLC0415
+  from repro_torch.dist.sharding import Mesh  # noqa: PLC0415
+  if not world.started() or world.world_size() < n_components:
+    return None
+  return Mesh((n_components,), ("component",))
+
+
+def make_fleet_mesh(n_components: int, replicas: int):
+  """2-axis ``("replica", "component")`` mesh over the first R*N ranks of
+  the world: replica rows are the *leading* axis, so a row is a contiguous
+  block of ranks.  ``None`` when the world has fewer than R*N ranks (the
+  fleet tier then runs the stacked path of the same math), as when no
+  world was started."""
+  from repro_torch.dist import world  # noqa: PLC0415
+  from repro_torch.dist.sharding import Mesh  # noqa: PLC0415
+  n, r = int(n_components), int(replicas)
+  if not world.started() or world.world_size() < r * n:
+    return None
+  return Mesh((r, n), ("replica", "component"))

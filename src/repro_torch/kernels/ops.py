@@ -48,6 +48,20 @@ NEG_INF = ref.NEG_INF
 merge_partials = ref.merge_partials
 
 
+def pack_partials(p) -> torch.Tensor:
+  """Partials (o (..., D), m (...), l (...)) -> one f32 tensor (..., D + 2):
+  one collective moves all three (the sharded paths' result composer)."""
+  o, m, l = p
+  return torch.cat([o.float(), m[..., None].float(), l[..., None].float()],
+                   -1)
+
+
+def unpack_partials(x: torch.Tensor):
+  """The inverse of :func:`pack_partials`."""
+  D = x.shape[-1] - 2
+  return x[..., :D], x[..., D], x[..., D + 1]
+
+
 def count_bias(counts: torch.Tensor) -> torch.Tensor:
   """log(count) stand-in weight of an unselected cluster's centroid."""
   return torch.log(counts.float().clamp_min(1.0))

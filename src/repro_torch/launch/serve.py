@@ -70,8 +70,18 @@ holder (the faults and the retry ladder stay with ``--cluster`` alone).
 ``--autoscale`` then sizes the (components, replicas) grid hour by hour
 over the 24 Sogou hours against ``--p99-target`` from the window's
 measured export, and replays each hour at that size in the simulator
-(``[hourHH]`` lines, component-hours against static peak sizing).  The
-sharded paths over a mesh are ROADMAP A.7c.
+(``[hourHH]`` lines, component-hours against static peak sizing).
+
+Started under a world of at least N ranks (R*N with ``--fleet``), for
+example ``torchrun --nproc-per-node 4 -m repro_torch.launch.serve
+--device cpu --cluster 4 ...``, the tier runs on its mesh, one rank a
+component (``serve.cluster`` / ``serve.fleet``): every rank runs the
+engine, rank 0's host decisions are broadcast, the steps run eagerly, and
+rank 0 alone prints and writes the JSON.  The backend is ``gloo`` where
+ranks share a card or on the CPU and ``nccl`` where each rank has a card
+of its own (``dist.world.backend_for``); ranks past N (R*N) take part in
+building the mesh and then idle.  With fewer ranks the tier runs stacked.
+The ``[cluster]`` / ``[fleet]`` line says which, with the rank count.
 
   # the paper's Tables 1-2 load sweep, SMOKE model on the CPU:
   PYTHONPATH=src python -m repro_torch.launch.serve --engine --device cpu \
@@ -100,6 +110,7 @@ import argparse
 import dataclasses
 import functools
 import json
+import os
 import time
 from typing import Dict, Optional, Sequence
 
@@ -108,6 +119,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.registry import get_config, list_archs
 from repro_torch.control import BudgetController, make_predictor
+from repro_torch.dist import world
 from repro_torch.kernels import quant as qt
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import ModelConfig, n_attn_positions
@@ -333,6 +345,23 @@ def engine_main(args, device: torch.device) -> Dict:
   cache = None
   if args.cache_capacity > 0 and not args.no_cache:
     cache = CacheConfig(capacity=args.cache_capacity, delta_unit=C)
+  # A world from the launcher (torchrun): the tier's mesh over its first
+  # N (R*N) ranks; rank 0 alone prints.
+  comm = world.init_from_env(device) if args.cluster else None
+  ranks, rank = world.world_size(), world.rank()
+  if comm == "nccl":
+    device = world.rank_device(device, int(os.environ.get("LOCAL_RANK",
+                                                          rank)), comm)
+    torch.cuda.set_device(device)
+  need = args.cluster * (max(1, args.replicas) if args.fleet else 1)
+  say = print if rank == 0 else (lambda *a, **k: None)
+  if args.cluster and ranks > need and rank >= need:
+    from repro_torch.dist import topology  # noqa: PLC0415
+    if args.fleet:
+      topology.make_fleet_mesh(args.cluster, max(1, args.replicas))
+    else:
+      topology.make_component_mesh(args.cluster)
+    return {"rank": rank, "idle": True}
   backend = None
   if args.fleet:
     from repro_torch.serve.fleet import (  # noqa: PLC0415
@@ -358,21 +387,24 @@ def engine_main(args, device: torch.device) -> Dict:
       epsilon=args.epsilon), backend=backend, device=device)
   kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
           else "cpu")
-  print(f"[engine] {cfg.name} on {kind} policy={args.policy} "
-        f"slots={args.n_slots} prompt={prompt_len} tokens={max_new} "
-        f"M={eng.M} buckets={eng.buckets} deadline={args.deadline_ms}ms "
-        f"quant={cfg.synopsis.quant} graphs={len(eng.programs.graphs)}"
-        + (f" contract={args.contract} eps={args.epsilon}"
-           if args.contract != "deadline" else "")
-        + (f" admission={args.admission}" if admission is not None else "")
-        + (f" cache={args.cache_capacity}" if cache is not None else ""))
+  say(f"[engine] {cfg.name} on {kind} policy={args.policy} "
+      f"slots={args.n_slots} prompt={prompt_len} tokens={max_new} "
+      f"M={eng.M} buckets={eng.buckets} deadline={args.deadline_ms}ms "
+      f"quant={cfg.synopsis.quant} graphs={len(eng.programs.graphs)}"
+      + (f" contract={args.contract} eps={args.epsilon}"
+         if args.contract != "deadline" else "")
+      + (f" admission={args.admission}" if admission is not None else "")
+      + (f" cache={args.cache_capacity}" if cache is not None else ""))
   if backend is not None:
-    print(f"[{'fleet' if args.fleet else 'cluster'}] N={args.cluster} "
-          f"(stacked, 1 device) counts={backend.topo.counts} "
-          f"alloc={args.alloc} route={args.route} skew={args.skew} "
-          f"R={backend.topo.replicas if args.fleet else args.replicas}"
-          f"{' replica rows' if args.fleet else ''} "
-          f"predictor={args.predictor or 'ewma'}")
+    where = (f"mesh, {ranks} ranks, {comm}, eager steps"
+             if backend.mesh is not None else
+             f"stacked, {ranks} rank{'s' * (ranks > 1)}")
+    say(f"[{'fleet' if args.fleet else 'cluster'}] N={args.cluster} "
+        f"({where}) counts={backend.topo.counts} "
+        f"alloc={args.alloc} route={args.route} skew={args.skew} "
+        f"R={backend.topo.replicas if args.fleet else args.replicas}"
+        f"{' replica rows' if args.fleet else ''} "
+        f"predictor={args.predictor or 'ewma'}")
   if args.trace == "cf_rates":
     points = [(f"rate{r}", r * args.rate_scale) for r in CF_RATES]
   else:
@@ -391,20 +423,20 @@ def engine_main(args, device: torch.device) -> Dict:
         **{k: round(float(v), 3) for k, v in s.items()
            if not isinstance(v, dict)},
         **({"classes": s["classes"]} if "classes" in s else {})}
-    print(f"[{name}] rate={rate:6.1f}/s n={s['n']:4.0f} "
-          f"p50={s['p50']:7.1f}ms p99={s['p99']:7.1f}ms "
-          f"p999={s['p999']:7.1f}ms loss={s['accuracy_loss_pct']:5.2f}% "
-          f"miss={s['deadline_miss_pct']:5.1f}% "
-          f"budget={s['mean_budget']:.2f} "
-          f"shed={s['shed_pct']:.1f}% goodput={s['goodput_per_s']:.1f}/s"
-          + (f" hit_rate={s['cache_hit_rate']:.2f}"
-             if "cache_hit_rate" in s else "")
-          + (f" pred={s['pred_loss_mean']:.4f} "
-             f"band_cov={s['band_cover_pct']:.0f}% "
-             f"freed={s['freed_budget_mean']:.2f}"
-             if "pred_loss_mean" in s else ""))
+    say(f"[{name}] rate={rate:6.1f}/s n={s['n']:4.0f} "
+        f"p50={s['p50']:7.1f}ms p99={s['p99']:7.1f}ms "
+        f"p999={s['p999']:7.1f}ms loss={s['accuracy_loss_pct']:5.2f}% "
+        f"miss={s['deadline_miss_pct']:5.1f}% "
+        f"budget={s['mean_budget']:.2f} "
+        f"shed={s['shed_pct']:.1f}% goodput={s['goodput_per_s']:.1f}/s"
+        + (f" hit_rate={s['cache_hit_rate']:.2f}"
+           if "cache_hit_rate" in s else "")
+        + (f" pred={s['pred_loss_mean']:.4f} "
+           f"band_cov={s['band_cover_pct']:.0f}% "
+           f"freed={s['freed_budget_mean']:.2f}"
+           if "pred_loss_mean" in s else ""))
     if backend is not None and any(backend.fault_stats.values()):
-      print(f"  [faults] {backend.fault_stats}")
+      say(f"  [faults] {backend.fault_stats}")
   out = {"trace": args.trace, "policy": args.policy, "device": kind,
          "results": results}
   if backend is not None:
@@ -416,8 +448,10 @@ def engine_main(args, device: torch.device) -> Dict:
         "comp_ms_full": [round(float(v), 4)
                          for v in exp.step_ms_per_component(100)],
     }
-    print(f"[cluster] measured per-component ms at full budget: "
-          f"{out['cluster']['comp_ms_full']}")
+    say(f"[cluster] measured per-component ms at full budget: "
+        f"{out['cluster']['comp_ms_full']}")
+  if rank != 0:
+    return out
   if args.autoscale:
     out["autoscale"] = autoscale_main(args, backend)
   if args.json:

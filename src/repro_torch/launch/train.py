@@ -14,6 +14,12 @@ does not copy (a restart must reproduce the run it resumes).
 
 Without ``--device cpu`` it needs a CUDA device and refuses to run
 otherwise.
+
+``run(mesh=...)`` trains on a mesh of ranks (``dist.sharding.Mesh``):
+every rank runs it on its (pod, data) share of each global batch
+(``train_step.make_train_step(mesh=...)``, with ``compress_pods`` the
+int8 cross-pod reduction); rank 0 alone writes the checkpoints, and a
+restore is the same on every rank (the state is replicated).
 """
 from __future__ import annotations
 
@@ -39,10 +45,11 @@ def run(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
         opt_cfg: Optional[OptConfig] = None, microbatches: int = 1,
         ckpt_dir: Optional[str] = None, ckpt_every: int = 25,
         device="cuda", seed: int = 0, log_every: int = 10,
-        log=print) -> Dict:
+        mesh=None, compress_pods: bool = False, log=print) -> Dict:
   """Train ``cfg`` from step 0, or from the newest checkpoint in
   ``ckpt_dir``, up to ``steps``; save every ``ckpt_every`` steps (none
-  without ``ckpt_dir``).  Returns {"start", "losses" (one a step run),
+  without ``ckpt_dir``; on a ``mesh``, rank 0 saves).  Returns {"start",
+  "losses" (one a step run),
   "grad_norms", "step_ms" (CUDA events on the card, the host clock around
   synchronised steps on the CPU), "state", "device"}."""
   dev = resolve_device(device)
@@ -55,8 +62,11 @@ def run(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
     log(f"[restore] resumed at step {start} on {dev.type}")
   else:
     state = init_train_state(cfg, opt_cfg, device=dev,
-                             generator=torch.Generator(dev).manual_seed(seed))
-  step_fn = make_train_step(cfg, opt_cfg, microbatches=microbatches)
+                             generator=torch.Generator(dev).manual_seed(seed),
+                             compress=compress_pods)
+  step_fn = make_train_step(cfg, opt_cfg, microbatches=microbatches,
+                            compress_pods=compress_pods, mesh=mesh)
+  writes = mesh is None or mesh.rank == 0
   saver = ck.AsyncCheckpointer()
   cuda = dev.type == "cuda"
   losses, gnorms, marks = [], [], []
@@ -79,7 +89,8 @@ def run(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
       log(f"step {step:5d} loss {float(m['loss']):.4f} "
           f"lr {float(m['lr']):.2e} gnorm {float(m['grad_norm']):.2f} "
           f"({time.perf_counter() - t0:.1f}s)")
-    if ckpt_dir is not None and done % ckpt_every == 0 and done < steps:
+    if ckpt_dir is not None and writes and done % ckpt_every == 0 \
+        and done < steps:
       data.step = done
       saver.save_async(ckpt_dir, done, state,
                        extras={"data": data.state_dict()})

@@ -25,10 +25,14 @@ refining the corpus parts most related to the request.
     (``serve.resilience``) the single hedge becomes the bounded-retry
     recovery ladder of ``control.recovery``.
 
-The port runs the N components as one program on one card, the JAX
-package's stacked path (``mesh=None``); the sharded path over a
-component mesh is ROADMAP A.7c and raises.  The layout differs from the
-JAX one: the component axis sits next to the batch axis,
+The tier runs in one of two ways, as the JAX package's does.  Stacked
+(``mesh=None``), the N components are one program on one device.  On a
+``("component",)`` mesh (``dist.topology.make_component_mesh``: a world of
+at least N ranks), each rank is one component and holds only its own
+shard; the frontend runs on every rank after one all-gather of the
+scores, and the result composer folds the all-gathered partials in
+component order (:func:`_cluster_sharded`).  The stacked layout differs
+from the JAX one: the component axis sits next to the batch axis,
 
     k / v          (nb, na, B, N, Hkv, m_max*C, D)
     k_syn / v_syn  (nb, na, B, N, Hkv, m_max, D)
@@ -42,7 +46,9 @@ the query repeated N times: each component's partials are independent of
 the others', so this is the math of JAX's loop over the components, at the
 single-component step's launch count.  A slice of the JAX layout would be
 strided, and the wrappers' ``.contiguous()`` would copy the whole corpus
-every layer and step without an error.
+every layer and step without an error.  On a mesh a rank's pool is the
+layout without the component axis, its component's slice ``[:, :, :, sid]``
+stored contiguously: ``(nb, na, B, Hkv, m_max*C, D)`` and so on.
 
 :class:`ClusterStepBackend` plugs the tier into ``ServingEngine``:
 admission scatters each slot's built synopsis over the components (per-slot
@@ -51,8 +57,8 @@ graph whose gather modes are a static device buffer loaded before each
 replay, and the backend keeps a measured-latency attribution per component
 (:class:`ClusterMeasuredExport`) that round-trips into the simulator.
 
-One card runs the N components as one program, so the *total* step wall
-is measured and attributed to components in proportion to their corpus
+Stacked, one card runs the N components as one program, so the *total*
+step wall is measured and attributed to components in proportion to their corpus
 share and allocated budget; per-step interference and straggler draws
 model the co-located jobs the measurement cannot see, as
 ``serving.latency.ComponentModel`` does.  The engine clock advances by the
@@ -72,7 +78,9 @@ from repro_torch.control import (MODE_DROP, MODE_FULL, MODE_STAGE1,
                                  realized_recovery)
 from repro_torch.control.estimator import coverage_profile
 from repro_torch.core.cluster import top_k
-from repro_torch.dist.topology import ComponentTopology
+from repro_torch.dist import sharding as shd
+from repro_torch.dist import world
+from repro_torch.dist.topology import ComponentTopology, make_component_mesh
 from repro_torch.kernels import ops
 from repro_torch.serve import kv_cache as kvc
 from repro_torch.serve.resilience import FaultPlan, FaultSpec
@@ -100,8 +108,8 @@ class ClusterConfig:
   interference: float = 0.25   # lognormal sigma (co-located jobs, per step)
   straggler_prob: float = 0.02
   straggler_scale: float = 8.0
-  use_mesh: Optional[bool] = None   # None / False: the stacked path;
-                                    # True (a mesh) is ROADMAP A.7c
+  use_mesh: Optional[bool] = None   # None: the mesh iff the world has
+                                    # >= N ranks; True: the mesh or raise
   seed: int = 0
   # -- resilience (faults=None, recovery=True and retries=1 take the
   # plan/account path with no fault branch) ------------------------------
@@ -218,6 +226,44 @@ def _extras_partial(q, csl, self_kv, *, sm_scale, cap):
   return ops.decode_partials(q, ek, ev, bias, sm_scale=sm_scale, cap=cap)
 
 
+def _frontend(sc_all, counts_g, fe_mode, alloc, i_max, *, recirculate,
+              mode_caps):
+  """The frontend aggregator on the gathered scores (every rank runs it on
+  the same inputs): the global ranking, the mass, each component's budget
+  and every component's stage-2 selection (B, N, Hkv, K) (None at budget
+  0), with ``fe_cover`` (N,) from the selections, as the stacked body
+  computes them."""
+  B, Hkv, N, Mp = sc_all.shape
+  gsel, mass = _frontend_rank(sc_all, i_max, ranked=alloc == "topk")
+  if gsel is not None and alloc == "gain":
+    gsel = gain_rank(sc_all, counts_g.view(B, N, Mp), i_max)
+  if gsel is None:
+    return None, mass, torch.zeros((N,), dtype=torch.float32,
+                                   device=sc_all.device)
+  budgets = None
+  if alloc == "mass":
+    caps = (sc_all > NEG_INF / 2).sum(-1)                     # (B, Hkv, N)
+    if mode_caps:
+      caps = torch.where(fe_mode[None, None, :] == MODE_FULL, caps, 0)
+    budgets = allocate_budget(mass, i_max, caps, recirculate=recirculate)
+  sel = _select_local(sc_all.permute(0, 2, 1, 3), gsel, budgets, alloc,
+                      i_max, Mp)                              # (B,N,Hkv,K)
+  return sel, mass, (sel >= 0).float().sum(-1).mean(dim=(0, 2))
+
+
+def _aux(mass, cover, sc_all, counts_g, alloc, telemetry):
+  """The per-layer telemetry: ``fe_cover``, ``fe_mass`` and, with
+  ``telemetry``, the coverage profile over the global ranking."""
+  B, Hkv, N, Mp = sc_all.shape
+  mass_frac = mass / torch.clamp_min(mass.sum(-1, keepdim=True), 1e-30)
+  aux = {"fe_cover": cover, "fe_mass": mass_frac.mean(dim=(0, 1))}
+  if telemetry:
+    aux["est_profile"] = coverage_profile(
+        sc_all.reshape(B, Hkv, N * Mp), counts_g,
+        rank="mass" if alloc == "gain" else "score")
+  return aux
+
+
 # ---------------------------------------------------------------------------
 # The scatter-gather attention body, plugged into
 # make_serve_step(attention_fn=...).
@@ -243,17 +289,28 @@ def make_cluster_attention(topo: ComponentTopology, alloc: str = "mass",
   ``mode_caps``: a component gathered as STAGE1 / DROP never folds its
   refinement, so its allocation cap is zeroed and ``allocate_budget``'s
   recirculation respends that budget on the live FULL components (the
-  resilient backend turns it on).  ``mesh`` (the sharded path) is ROADMAP
-  A.7c and raises."""
-  if mesh is not None:
-    raise NotImplementedError(
-        "the sharded scatter-gather path over a component mesh is not "
-        "ported (ROADMAP A.7c); the port runs the stacked path (mesh=None)")
+  resilient backend turns it on).
+
+  With ``mesh`` (the port's ``Mesh`` with a ``component`` axis of N) the
+  body is :func:`_cluster_sharded` on this rank's component: the layer's
+  leaves without the component axis, ``k`` / ``v`` (B, Hkv, m_max*C, D)
+  and so on, ``fe_mode`` whole.  Anything else given as ``mesh`` raises
+  ``TypeError``."""
   if alloc not in ("mass", "topk", "gain"):
     raise ValueError(f"alloc {alloc!r} not in ('mass', 'topk', 'gain')")
+  if mesh is not None:
+    shd.require_mesh(mesh)
+    if mesh.shape.get("component") != topo.n_components:
+      raise ValueError(f"mesh {mesh.shape} has no component axis of "
+                       f"{topo.n_components}")
 
   def attention(q, csl, *, i_max, cluster_size, sm_scale, cap=None,
                 self_kv=None):
+    if mesh is not None:
+      return _cluster_sharded(
+          q, csl, mesh, topo, alloc, i_max=i_max, cluster_size=cluster_size,
+          sm_scale=sm_scale, cap=cap, self_kv=self_kv,
+          recirculate=recirculate, mode_caps=mode_caps, telemetry=telemetry)
     return _cluster_stacked(
         q, csl, alloc, i_max=i_max, cluster_size=cluster_size,
         sm_scale=sm_scale, cap=cap, self_kv=self_kv,
@@ -295,30 +352,18 @@ def _cluster_stacked(q, csl, alloc, *, i_max, cluster_size, sm_scale, cap,
   sc_f, p_syn = ops.synopsis_stage1(
       q_rep, fold("k_syn"), fold("v_syn"), counts_f, sm_scale=sm_scale,
       cap=cap, valid=counts_f > 0, syn_scales=syn_scales)
-  sc = sc_f.view(B, N, Hkv, Mp)
-  sc_all = sc.permute(0, 2, 1, 3)                             # (B,Hkv,N,Mp)
-  gsel, mass = _frontend_rank(sc_all, i_max, ranked=alloc == "topk")
-  if gsel is not None and alloc == "gain":
-    gsel = gain_rank(sc_all, counts, i_max)
-  budgets = None
-  if gsel is not None and alloc == "mass":
-    caps = (sc_all > NEG_INF / 2).sum(-1)                     # (B, Hkv, N)
-    if mode_caps:
-      caps = torch.where(fe_mode[None, None, :] == MODE_FULL, caps, 0)
-    budgets = allocate_budget(mass, i_max, caps, recirculate=recirculate)
-
-  if gsel is None:
-    p_full = p_syn
-    cover = torch.zeros((N,), dtype=torch.float32, device=q.device)
-  else:
-    sel = _select_local(sc, gsel, budgets, alloc, i_max, Mp)  # (B,N,Hkv,K)
+  sc_all = sc_f.view(B, N, Hkv, Mp).permute(0, 2, 1, 3)      # (B,Hkv,N,Mp)
+  counts_g = counts.reshape(B, N * Mp)
+  sel, mass, cover = _frontend(sc_all, counts_g, fe_mode, alloc, i_max,
+                               recirculate=recirculate, mode_caps=mode_caps)
+  p_full = p_syn
+  if sel is not None:
     p_ref = ops.refine_stage2(
         q_rep, fold("k"), fold("v"), sel.reshape(BN, Hkv, -1),
         fold("k_syn"), fold("v_syn"), counts_f, cluster_size=cluster_size,
         sm_scale=sm_scale, cap=cap, syn_scales=syn_scales,
         kv_scales=scales(("k_scale", "v_scale")), kv_rows=kv_rows)
     p_full = ops.merge_partials(p_syn, p_ref)
-    cover = (sel >= 0).float().sum(-1).mean(dim=(0, 2))
   unfold = lambda p: tuple(t.view(B, N, *t.shape[1:]) for t in p)  # noqa: E731
   contrib = _pick_mode(fe_mode, unfold(p_full), unfold(p_syn))
   # Component order 0..N-1, then the extras: the order decides the last
@@ -329,13 +374,83 @@ def _cluster_stacked(q, csl, alloc, *, i_max, cluster_size, sm_scale, cap,
   p_ex = _extras_partial(q, csl, self_kv, sm_scale=sm_scale, cap=cap)
   if p_ex is not None:
     acc = ops.merge_partials(acc, p_ex)
-  mass_frac = mass / torch.clamp_min(mass.sum(-1, keepdim=True), 1e-30)
-  aux = {"fe_cover": cover, "fe_mass": mass_frac.mean(dim=(0, 1))}
-  if telemetry:
-    aux["est_profile"] = coverage_profile(
-        sc_all.reshape(B, Hkv, N * Mp), counts.reshape(B, N * Mp),
-        rank="mass" if alloc == "gain" else "score")
-  return acc[0], aux
+  return acc[0], _aux(mass, cover, sc_all, counts_g, alloc, telemetry)
+
+
+def _pick_one(mode, full, syn):
+  """:func:`_pick_mode` for one component's partials (``mode`` a 0-d
+  tensor)."""
+  return tuple(torch.where(mode == MODE_FULL, f,
+                           torch.where(mode == MODE_STAGE1, s, fill))
+               for f, s, fill in zip(full, syn, (0.0, NEG_INF, 0.0)))
+
+
+def _compose(parts, q, csl, self_kv, *, sm_scale, cap):
+  """The result composer: the components' packed partials (N, B, H, D+2)
+  folded in component order, then the frontend's extras partial."""
+  acc = ops.unpack_partials(parts[0])
+  for c in range(1, parts.shape[0]):
+    acc = ops.merge_partials(acc, ops.unpack_partials(parts[c]))
+  p_ex = _extras_partial(q, csl, self_kv, sm_scale=sm_scale, cap=cap)
+  if p_ex is not None:
+    acc = ops.merge_partials(acc, p_ex)
+  return acc[0]
+
+
+def _local_stage1(q, csl, sm_scale, cap):
+  """This rank's stage 1 over its component's tables (padded slots, counts
+  0, masked)."""
+  syn_scales = (None if "k_syn_scale" not in csl else
+                (csl["k_syn_scale"], csl["v_syn_scale"]))
+  counts = csl["counts"]
+  sc_l, p_syn = ops.synopsis_stage1(
+      q, csl["k_syn"], csl["v_syn"], counts, sm_scale=sm_scale, cap=cap,
+      valid=counts > 0, syn_scales=syn_scales)
+  return sc_l, p_syn, syn_scales
+
+
+def _local_stage2(q, csl, sel, syn_scales, *, cluster_size, sm_scale, cap):
+  """This rank's stage 2 over its own shard of the clusters ``sel``."""
+  kv_scales = (None if "k_scale" not in csl else
+               (csl["k_scale"], csl["v_scale"]))
+  return ops.refine_stage2(
+      q, csl["k"], csl["v"], sel, csl["k_syn"], csl["v_syn"], csl["counts"],
+      cluster_size=cluster_size, sm_scale=sm_scale, cap=cap,
+      syn_scales=syn_scales, kv_scales=kv_scales)
+
+
+def _cluster_sharded(q, csl, mesh, topo, alloc, *, i_max, cluster_size,
+                     sm_scale, cap, self_kv, recirculate=True,
+                     mode_caps=False, telemetry=False):
+  """One rank = one component of the ``("component",)`` mesh: stage 1 over
+  its own tables, one all-gather of the (B, Hkv, m_max) scores (and of the
+  counts where the gain ranking or the coverage profile reads them), the
+  frontend replicated on every rank, stage 2 over its own shard of the
+  clusters it was given, its FULL / STAGE1 / DROP contribution, and one
+  all-gather of the packed (o, m, l) partials folded in component order,
+  then the extras.  Every rank returns the same (ctx, aux)."""
+  N, Mp = topo.n_components, topo.m_max
+  sid = mesh.axis_index("component")
+  B, Hkv = csl["k_syn"].shape[:2]
+  sc_l, p_syn, syn_scales = _local_stage1(q, csl, sm_scale, cap)
+  sc_all = mesh.all_gather(sc_l, "component", dim=2).view(B, Hkv, N, Mp)
+  counts_g = None
+  if alloc == "gain" or telemetry:
+    counts_g = mesh.all_gather(csl["counts"], "component", dim=1)
+  fe_mode = csl["fe_mode"]
+  sel, mass, cover = _frontend(sc_all, counts_g, fe_mode, alloc, i_max,
+                               recirculate=recirculate, mode_caps=mode_caps)
+  p_full = p_syn
+  if sel is not None:
+    p_ref = _local_stage2(q, csl, sel[:, sid].contiguous(), syn_scales,
+                          cluster_size=cluster_size, sm_scale=sm_scale,
+                          cap=cap)
+    p_full = ops.merge_partials(p_syn, p_ref)
+  contrib = _pick_one(fe_mode[sid], p_full, p_syn)
+  parts = mesh.all_gather(ops.pack_partials(contrib), "component", dim=0,
+                          tiled=False)
+  ctx = _compose(parts, q, csl, self_kv, sm_scale=sm_scale, cap=cap)
+  return ctx, _aux(mass, cover, sc_all, counts_g, alloc, telemetry)
 
 
 # ---------------------------------------------------------------------------
@@ -383,11 +498,6 @@ class ClusterStepBackend:
     """Called by ``ServingEngine.__init__`` once the shapes and the device
     are known."""
     cc = self.ccfg
-    if cc.use_mesh:
-      raise NotImplementedError(
-          "use_mesh=True: the sharded scatter-gather path over a component "
-          "mesh is not ported (ROADMAP A.7c); use_mesh=None runs the "
-          "stacked path")
     if cc.alloc not in ("mass", "topk", "gain"):
       raise ValueError(
           f"alloc {cc.alloc!r} not in ('mass', 'topk', 'gain')")
@@ -404,7 +514,7 @@ class ClusterStepBackend:
     self.accuracy_fn = engine.accuracy_fn
     self.topo = ComponentTopology.plan(self.M, cc.n_components,
                                        skew=cc.skew, replicas=cc.replicas)
-    self.mesh = None
+    self.mesh = self._make_mesh()
     # Resilience: the fault world, the bounded-retry policy over the
     # replica ring and mode-aware allocation caps.  The default config
     # (faults=None, recovery=True, retries=1) keeps ``resilient`` False and
@@ -431,10 +541,7 @@ class ClusterStepBackend:
     # The contracts' coverage-profile telemetry, gated on the engine's
     # contract so that "deadline" step programs carry none.
     self.telemetry = engine.ecfg.contract != "deadline"
-    self.attention = make_cluster_attention(self.topo, alloc=cc.alloc,
-                                            recirculate=cc.recirculate,
-                                            mode_caps=self.resilient,
-                                            telemetry=self.telemetry)
+    self.attention = self._make_attention()
     # Per-component corpus share: the latency and accuracy attribution
     # weights.  Rotation mixes ownership over slots by shifts 0..n_slots-1,
     # so the attribution is the mean of those rotations of the plan.
@@ -464,6 +571,41 @@ class ClusterStepBackend:
     self._fe_host = torch.full((N,), MODE_FULL, dtype=torch.int32,
                                pin_memory=self.dev.type == "cuda")
     self.reseed(cc.seed)
+
+  def _make_mesh(self):
+    """The ``("component",)`` mesh when ``use_mesh`` is None and the world
+    has N ranks or more, or ``use_mesh`` is True (fewer ranks raise);
+    None (the stacked path) otherwise."""
+    cc = self.ccfg
+    if cc.use_mesh is False:
+      return None
+    mesh = make_component_mesh(cc.n_components)
+    if mesh is None and cc.use_mesh:
+      raise RuntimeError(
+          f"use_mesh=True but the world has {world.world_size()} < "
+          f"{cc.n_components} ranks; start {cc.n_components} (torchrun "
+          f"--nproc-per-node {cc.n_components}, or "
+          "repro_torch.dist.world.run_world)")
+    return self._check_member(mesh)
+
+  @staticmethod
+  def _check_member(mesh):
+    if mesh is not None and not mesh.member:
+      raise RuntimeError(f"rank {mesh.rank} is outside the tier's mesh "
+                         f"{mesh.shape} (ranks 0..{mesh.size - 1})")
+    return mesh
+
+  def _make_attention(self):
+    cc = self.ccfg
+    return make_cluster_attention(self.topo, alloc=cc.alloc, mesh=self.mesh,
+                                  recirculate=cc.recirculate,
+                                  mode_caps=self.resilient,
+                                  telemetry=self.telemetry)
+
+  def _holds(self, comp: int) -> bool:
+    """Whether this rank's pool holds (row 0's) component ``comp``: every
+    component stacked, its own on the mesh."""
+    return self.mesh is None or comp == self.mesh.axis_index("component")
 
   @property
   def n_components(self) -> int:
@@ -501,41 +643,53 @@ class ClusterStepBackend:
 
   def _pool_struct(self) -> Dict[str, tuple]:
     """Each pool leaf's (shape, dtype): the arena leaves with the
-    component axis after the slot axis."""
+    component axis after the slot axis (on a mesh, without it: the rank's
+    own component)."""
     C = self.cfg.synopsis.cluster_size
     N, Mp = self.topo.n_components, self.topo.m_max
+    lane = () if self.mesh is not None else (N,)
     out = {}
     for name, (sh, dt, _) in kvc.cache_struct(
         self.cfg, self.n_slots, self.prompt_len, synopsis=True).items():
       if name in ("k", "v"):
         nb, na, B, Hkv, _, D = sh
-        sh = (nb, na, B, N, Hkv, Mp * C, D)
+        sh = (nb, na, B, *lane, Hkv, Mp * C, D)
       elif name in ("k_syn", "v_syn"):
         nb, na, B, Hkv, _, D = sh
-        sh = (nb, na, B, N, Hkv, Mp, D)
+        sh = (nb, na, B, *lane, Hkv, Mp, D)
       elif name == "counts":
-        sh = sh[:3] + (N, Mp)
+        sh = sh[:3] + lane + (Mp,)
       elif name in kvc.ARENA_LEAVES:        # a quantized arena's scales
-        sh = sh[:3] + (N, sh[3], Mp)
+        sh = sh[:3] + lane + (sh[3], Mp)
       out[name] = (tuple(sh), dt)
     return out
+
+  def _lane(self, cache, name: str, slot: int, comp: int):
+    """The (nb, na, ...) view of slot ``slot``'s component ``comp`` in the
+    pool leaf ``name``, or None where this rank does not hold it."""
+    if self.mesh is not None:
+      return cache[name][:, :, slot] if self._holds(comp) else None
+    return cache[name][:, :, slot, comp]
 
   def write_slot(self, cache, syn, slot: int):
     """Route one request's built (B = 1, cluster-contiguous) synopsis cache
     into lane ``slot``: component c's range of clusters into its shard,
-    padded to m_max with zeros (counts 0 on pads), in place.  With
-    ``route="rotate"`` slot s's range r lands on component (r + s) % N.
-    The private leaves (ring, ``pos``, SSM state) are written as the
-    single-component pool writes them.  A corpus-cache arena is the
-    pre-scatter canonical state, so it scatters as a fresh build does."""
-    self._scatter(syn, slot, lambda name: cache[name][:, :, slot])
+    padded to m_max with zeros (counts 0 on pads), in place (on a mesh,
+    the rank's own component only).  With ``route="rotate"`` slot s's
+    range r lands on component (r + s) % N.  The private leaves (ring,
+    ``pos``, SSM state) are written as the single-component pool writes
+    them.  A corpus-cache arena is the pre-scatter canonical state, so it
+    scatters as a fresh build does."""
+    self._scatter(syn, slot,
+                  lambda name, comp: self._lane(cache, name, slot, comp))
     private = {k: v for k, v in syn.items() if k not in kvc.ARENA_LEAVES}
     return kvc.write_slot(cache, private, slot, self._bx)
 
   def _scatter(self, syn, slot: int, dst_of) -> None:
     """Scatter the arena leaves of ``syn`` over the components of slot
-    ``slot`` into the views ``dst_of(name)`` (nb, na, N, ...), in place
-    (see :meth:`write_slot`)."""
+    ``slot`` into the views ``dst_of(name, comp)`` (nb, na, ...), None
+    where this rank holds no copy of component ``comp``, in place (see
+    :meth:`write_slot`)."""
     C = self.cfg.synopsis.cluster_size
     topo = self.topo
     N = topo.n_components
@@ -544,15 +698,16 @@ class ClusterStepBackend:
       if name not in syn:
         continue
       src = syn[name][:, :, 0]
-      dst = dst_of(name)                  # (nb, na, N, ...)
       unit = C if name in ("k", "v") else 1
       # The cluster axis: the last of counts and the scales, else the one
       # before D.
       axis = -1 if src.dim() in (3, 4) else -2
       for r in range(N):
         comp = (r + slot) % N if rotate else r
+        d = dst_of(name, comp)
+        if d is None:
+          continue
         off, cnt = topo.offsets[r] * unit, topo.counts[r] * unit
-        d = dst[:, :, comp]
         d.narrow(axis, 0, cnt).copy_(src.narrow(axis, off, cnt))
         if d.shape[axis] > cnt:
           d.narrow(axis, cnt, d.shape[axis] - cnt).zero_()

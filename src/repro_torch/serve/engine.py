@@ -89,7 +89,16 @@ would hide their wall).  The fleet tier (``serve.fleet.FleetStepBackend``,
 a cluster backend with R materialized replica rows) plugs in the same
 way; each admission then pins its corpus-cache arena once for each of
 the backend's ``replica_mappings``, and retirement releases them all.
-Any other backend raises; the sharded paths are ROADMAP A.7c.
+Any other backend raises.
+
+A backend on a mesh (one rank a component, ``dist.sharding.Mesh``): every
+rank runs the engine, and its host decisions must be the same on every
+rank, or the collectives' shapes differ and the ranks hang.  So the
+measured walls (which move the clock, the admissions and the predictor)
+and each step's budget and plan are rank 0's, broadcast before they are
+used (:meth:`ServingEngine._agree`), and the programs run eagerly
+(``Programs(capture=False)``: gloo collectives cannot be captured in a
+CUDA graph).
 
 :class:`MeasuredStepBackend` exports the measured per-bucket step times to
 the simulator (``serving.service.ScatterGatherService(step_backend=...)``).
@@ -391,7 +400,10 @@ class ServingEngine:
       # ranking of every component's padded clusters with a backend).
       self.step_out["est_profile"] = torch.zeros(
           (n, n_ranked + 1), dtype=torch.float32, device=dev)
-    self.programs = Programs(self.dev)
+    # A backend on a mesh: its host decisions are rank 0's, and its steps
+    # run eagerly (their collectives cannot be captured).
+    self.mesh = getattr(backend, "mesh", None)
+    self.programs = Programs(self.dev, capture=self.mesh is None)
     for b in self.buckets:
       self.programs.add(("step", b), self._step_program(b))
     self.programs.add("append", self._append_program())
@@ -489,6 +501,11 @@ class ServingEngine:
   def _sync(self) -> None:
     if self.dev.type == "cuda":
       torch.cuda.synchronize(self.dev)
+
+  def _agree(self, value):
+    """Rank 0's ``value`` on every rank of the backend's mesh (a measured
+    wall, a step's budget and plan); ``value`` itself without a mesh."""
+    return value if self.mesh is None else self.mesh.broadcast_object(value)
 
   # -- state ----------------------------------------------------------------
   def reset(self) -> None:
@@ -631,7 +648,7 @@ class ServingEngine:
     first = self._dispatch_admission(req, slot)
     self.tok[slot, 0] = first[0]
     first_id = int(first[0])             # waits for the admission
-    dt = (time.perf_counter() - t0) * 1e3
+    dt = self._agree((time.perf_counter() - t0) * 1e3)
     self.now_ms += dt
     req.admit_wall_ms = dt
     # The admission-cost EWMA: the fixed part of the demand estimate the
@@ -759,6 +776,8 @@ class ServingEngine:
       deadline = self._step_deadline(active) if not self._warming \
           else float("inf")
       plan = self.backend.plan_step(budget, deadline)
+    if self.mesh is not None:
+      budget, plan = self._agree((budget, plan))
     t0 = time.perf_counter()
     mask = self._amask_host      # the last step's copy has completed
     mask.zero_()
@@ -771,7 +790,7 @@ class ServingEngine:
       admit()
     self.programs.run("append")
     toks = self._new_tok.cpu().numpy()  # waits for the step
-    dt = (time.perf_counter() - t0) * 1e3
+    dt = self._agree((time.perf_counter() - t0) * 1e3)
     step_acc = step_drop = None
     if plan is not None:
       st = {name: self.step_out[name].cpu().numpy()
@@ -1007,7 +1026,7 @@ class ServingEngine:
       self.programs.run(key)
       self._sync()
       ts.append((time.perf_counter() - t0) * 1e3)
-    return float(np.median(ts))
+    return self._agree(float(np.median(ts)))
 
 
 class MeasuredStepBackend:

@@ -20,10 +20,14 @@ all-primary gather bit for bit whatever the selection.  Accounting prices
 shard c at the earliest completion among its holders: at R = 2 and the
 same seeds that is exactly the cluster tier's modelled-hedge minimum.
 
-The port runs the R x N lanes as one program on one card (JAX's stacked
-path, ``mesh=None``); the sharded path over a (replica, component) mesh
-is ROADMAP A.7c and raises.  The pool keeps the replica axis between the
-batch and the component axes,
+On a ``("replica", "component")`` mesh of R*N ranks
+(``dist.topology.make_fleet_mesh``) each rank is one lane: rank (r, j)
+holds a materialized copy of shard ``(j - r) % N`` (:func:`_fleet_sharded`).
+Every lane computes stage 1 and its refinement, one all-gather over both
+axes brings every lane's partials, and the selected lane of each shard is
+folded in shard order, as in JAX.  Stacked (``mesh=None``) the R x N lanes
+are one program on one card.  The stacked pool keeps the replica axis
+between the batch and the component axes,
 
     k / v          (nb, na, B, R, N, Hkv, m_max*C, D)
     k_syn / v_syn  (nb, na, B, R, N, Hkv, m_max, D)
@@ -39,7 +43,9 @@ selection becomes a row map of ``B*N`` entries, entry ``b*N + c`` the row
 frontend vector inside the step's graph: stage 2
 (``block_gather_attention``) reads each selected shard in place through
 it, and only stage 1's small tables, counts and scales (about 0.5 MB a
-layer at llama3-8b's --cluster 4 window) are gathered by index.
+layer at llama3-8b's --cluster 4 window) are gathered by index.  A rank's
+pool on the mesh is its lane alone, ``(nb, na, B, Hkv, m_max*C, D)`` and so
+on.
 """
 from __future__ import annotations
 
@@ -50,10 +56,15 @@ import numpy as np
 import torch
 
 from repro_torch.control import MODE_DROP, MODE_FULL, MODE_STAGE1
-from repro_torch.dist.topology import plan_2d, select_replica
+from repro_torch.dist import sharding as shd
+from repro_torch.dist import world
+from repro_torch.dist.topology import make_fleet_mesh, plan_2d, select_replica
+from repro_torch.kernels import ops
 from repro_torch.serve import kv_cache as kvc
 from repro_torch.serve.cluster import (ClusterConfig, ClusterStepBackend,
-                                       _cluster_stacked, _StepPlan)
+                                       _aux, _cluster_stacked, _compose,
+                                       _frontend, _local_stage1,
+                                       _local_stage2, _pick_one, _StepPlan)
 from repro_torch.serve.serve_step import make_serve_step
 
 __all__ = ["FleetConfig", "FleetStepBackend", "make_fleet_attention"]
@@ -103,16 +114,25 @@ def make_fleet_attention(topo, alloc: str = "mass", mesh=None,
 
   The body is the cluster tier's, on the selected lanes (stage 2 through
   the row map, stage 1 on the gathered tables); ``aux`` as the cluster
-  tier's.  ``mesh`` (the sharded path) is ROADMAP A.7c and raises."""
-  if mesh is not None:
-    raise NotImplementedError(
-        "the sharded fleet path over a (replica, component) mesh is not "
-        "ported (ROADMAP A.7c); the port runs the stacked path (mesh=None)")
+  tier's.  With ``mesh`` (the port's ``Mesh`` of (replica R, component
+  N)) the body is :func:`_fleet_sharded` on this rank's lane, the layer's
+  leaves without the replica and component axes; anything else given as
+  ``mesh`` raises ``TypeError``."""
   if alloc not in ("mass", "topk", "gain"):
     raise ValueError(f"alloc {alloc!r} not in ('mass', 'topk', 'gain')")
+  if mesh is not None:
+    shd.require_mesh(mesh)
+    want = {"replica": topo.replicas, "component": topo.n_components}
+    if mesh.shape != want:
+      raise ValueError(f"mesh {mesh.shape} is not the fleet's {want}")
 
   def attention(q, csl, *, i_max, cluster_size, sm_scale, cap=None,
                 self_kv=None):
+    if mesh is not None:
+      return _fleet_sharded(
+          q, csl, mesh, topo, alloc, i_max=i_max, cluster_size=cluster_size,
+          sm_scale=sm_scale, cap=cap, self_kv=self_kv,
+          recirculate=recirculate, telemetry=telemetry)
     return _fleet_stacked(
         q, csl, topo, alloc, i_max=i_max, cluster_size=cluster_size,
         sm_scale=sm_scale, cap=cap, self_kv=self_kv,
@@ -145,6 +165,49 @@ def _fleet_stacked(q, csl, topo, alloc, *, i_max, cluster_size, sm_scale,
       mode_caps=False, telemetry=telemetry, kv_rows=rows)
 
 
+def _fleet_sharded(q, csl, mesh, topo, alloc, *, i_max, cluster_size,
+                   sm_scale, cap, self_kv, recirculate=True,
+                   telemetry=False):
+  """One rank = lane (r, j) of the (replica, component) mesh, holding shard
+  ``(j - r) % N``: stage 1 over its tables, one all-gather of the scores
+  along its row (a row holds every shard once; rotated back to shard
+  order, so every lane sees the same table), the frontend replicated, stage
+  2 over its shard, its mode's contribution, then one all-gather of the
+  packed partials over both axes and the fold of each shard's SELECTED lane
+  in shard order: the stacked fold's order, whatever ``fe_replica``
+  says."""
+  R, N, Mp = topo.replicas, topo.n_components, topo.m_max
+  rid, j = mesh.axis_index("replica"), mesh.axis_index("component")
+  c_loc = (j - rid) % N
+  B, Hkv = csl["k_syn"].shape[:2]
+  dev = q.device
+  sc_l, p_syn, syn_scales = _local_stage1(q, csl, sm_scale, cap)
+  to_shard = (torch.arange(N, device=dev) + rid) % N
+  sc_all = mesh.all_gather(sc_l, "component", dim=2).view(
+      B, Hkv, N, Mp).index_select(2, to_shard)
+  counts_g = None
+  if alloc == "gain" or telemetry:
+    cg = mesh.all_gather(csl["counts"], "component", dim=1)
+    counts_g = cg.view(B, N, Mp).index_select(1, to_shard).reshape(B, N * Mp)
+  mode, sel_arr = csl["fe_mode"], csl["fe_replica"]
+  sel, mass, cover = _frontend(sc_all, counts_g, mode, alloc, i_max,
+                               recirculate=recirculate, mode_caps=False)
+  p_full = p_syn
+  if sel is not None:
+    p_ref = _local_stage2(q, csl, sel[:, c_loc].contiguous(), syn_scales,
+                          cluster_size=cluster_size, sm_scale=sm_scale,
+                          cap=cap)
+    p_full = ops.merge_partials(p_syn, p_ref)
+  contrib = _pick_one(mode[c_loc], p_full, p_syn)
+  lanes = mesh.all_gather(ops.pack_partials(contrib),
+                          ("replica", "component"), dim=0,
+                          tiled=False)                      # (R*N, B, H, D+2)
+  rows, cols = _select_lanes(sel_arr, N)
+  parts = lanes.index_select(0, (rows * N + cols).long())   # shard order
+  ctx = _compose(parts, q, csl, self_kv, sm_scale=sm_scale, cap=cap)
+  return ctx, _aux(mass, cover, sc_all, counts_g, alloc, telemetry)
+
+
 @dataclasses.dataclass
 class _FleetPlan(_StepPlan):
   """The cluster step plan and this step's per-shard replica selection."""
@@ -168,13 +231,41 @@ class FleetStepBackend(ClusterStepBackend):
           "retries=1, recovery=True): fault injection and the retry "
           "ladder ride the 1-D cluster tier")
     self.topo = plan_2d(self.M, cc.n_components, cc.replicas, skew=cc.skew)
-    self.attention = make_fleet_attention(self.topo, alloc=cc.alloc,
-                                          recirculate=cc.recirculate,
-                                          telemetry=self.telemetry)
     full = self.full_mode()
     self.fe_mode = torch.as_tensor(full).to(self.dev)
     self._fe_host = torch.as_tensor(full).pin_memory() \
         if self.dev.type == "cuda" else torch.as_tensor(full).clone()
+
+  def _make_mesh(self):
+    """The (replica, component) mesh of R*N ranks when ``use_mesh`` is None
+    and the world has them, or ``use_mesh`` is True (fewer ranks raise);
+    None (the stacked path) otherwise."""
+    cc = self.ccfg
+    if cc.use_mesh is False:
+      return None
+    n = cc.replicas * cc.n_components
+    mesh = make_fleet_mesh(cc.n_components, cc.replicas)
+    if mesh is None and cc.use_mesh:
+      raise RuntimeError(
+          f"use_mesh=True but the world has {world.world_size()} < {n} ranks "
+          f"for the (replica={cc.replicas}, component={cc.n_components}) "
+          f"mesh; start {n} (torchrun --nproc-per-node {n}, or "
+          "repro_torch.dist.world.run_world)")
+    return self._check_member(mesh)
+
+  def _make_attention(self):
+    cc = self.ccfg
+    return make_fleet_attention(self.topo, alloc=cc.alloc, mesh=self.mesh,
+                                recirculate=cc.recirculate,
+                                telemetry=self.telemetry)
+
+  def _holds(self, comp: int) -> bool:
+    """Whether this rank's lane (r, j) holds row 0's component ``comp``:
+    row r column j is row 0's column ``(j - r) % N``."""
+    if self.mesh is None:
+      return True
+    r, j = (self.mesh.axis_index(a) for a in ("replica", "component"))
+    return comp == (j - r) % self.topo.n_components
 
   @property
   def replica_mappings(self) -> int:
@@ -183,7 +274,10 @@ class FleetStepBackend(ClusterStepBackend):
 
   # -- cache layout ----------------------------------------------------------
   def _pool_struct(self) -> Dict[str, tuple]:
-    """The cluster layout with the replica axis after the slot axis."""
+    """The cluster layout with the replica axis after the slot axis (on a
+    mesh, the rank's lane alone)."""
+    if self.mesh is not None:
+      return super()._pool_struct()
     R = self.topo.replicas
     return {name: ((sh[:3] + (R,) + sh[3:]) if name in kvc.ARENA_LEAVES
                    else sh, dt)
@@ -192,8 +286,12 @@ class FleetStepBackend(ClusterStepBackend):
   def write_slot(self, cache, syn, slot: int):
     """One admission backs R replica mappings: scatter the arena over row
     0's components (and route it, as the cluster tier does), then copy
-    row r's column j from row 0's column ``(j - r) % N``, in place."""
-    self._scatter(syn, slot, lambda name: cache[name][:, :, slot, 0])
+    row r's column j from row 0's column ``(j - r) % N``, in place.  On a
+    mesh the rank writes its own lane's shard straight from the arena."""
+    if self.mesh is not None:
+      return super().write_slot(cache, syn, slot)
+    self._scatter(syn, slot,
+                  lambda name, comp: cache[name][:, :, slot, 0, comp])
     N = self.topo.n_components
     for name in kvc.ARENA_LEAVES:
       if name not in syn:

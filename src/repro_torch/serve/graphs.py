@@ -1,6 +1,8 @@
 """The engine's program set: one captured CUDA graph per program on a CUDA
 device, the same programs run eagerly on the CPU (the counterpart of the
-JAX engine's ``jax.jit`` programs).
+JAX engine's ``jax.jit`` programs).  A program that runs collectives over
+gloo (a step backend on a mesh) cannot be captured: its caller asks for
+eager programs explicitly (``capture=False``), on any device.
 
 A program is a Python callable with no arguments that reads and writes
 tensors at fixed addresses only (the slot pool, static input and output
@@ -25,18 +27,19 @@ import torch
 
 class Programs:
   """Named programs on one device: captured graphs on CUDA, eager on the
-  CPU (the device's own behaviour, not a switch)."""
+  CPU (the device's own behaviour), or eager on any device where the
+  caller says ``capture=False``."""
 
-  def __init__(self, device: torch.device):
+  def __init__(self, device: torch.device, capture: bool = True):
     self.device = torch.device(device)
     self.fns: Dict[Hashable, Callable[[], None]] = {}
     self.graphs: Dict[Hashable, "torch.cuda.CUDAGraph"] = {}
-    self.pool = (torch.cuda.graph_pool_handle()
-                 if self.device.type == "cuda" else None)
+    self._capture = bool(capture) and self.device.type == "cuda"
+    self.pool = torch.cuda.graph_pool_handle() if self._capture else None
 
   @property
   def captures(self) -> bool:
-    return self.device.type == "cuda"
+    return self._capture
 
   def add(self, key: Hashable, fn: Callable[[], None]) -> None:
     if key in self.fns:

@@ -51,6 +51,13 @@ The attention index ``ai`` and the mamba index ``si`` count separately:
 the cache stacks k / v and the synopsis over the attention positions, the
 SSM state over the mamba positions.
 
+Under a mesh (``dist.sharding.use_mesh``) whose rule table shards the
+cache's sequence axis (``SERVE_RULES``: over `model`; ``LONG_RULES``: over
+``(data, model)``), each rank holds its shard of the cache
+(:func:`shard_cache`) and a global layer's synopsis decode is
+:func:`sharded_synopsis_attention`: the paper's scatter-gather over the
+ranks, with every rank running the same step on its own shard.
+
 A quantized arena's scale leaves (``kernels/quant.py``) ride in the layer
 slice when the cache has them.  The cache is read-only inside the step;
 the new token's per-layer KV comes back as ``k_delta``/``v_delta`` for the
@@ -60,10 +67,13 @@ and the engine writes back per slot, as in the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.dist import sharding as shd
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant as qt
 from repro_torch.kernels.ref import acc_dtype
@@ -104,6 +114,174 @@ def synopsis_decode_attention(
       return_scores=return_scores)
 
 
+def _seq_axes() -> Tuple[str, ...]:
+  """Mesh axes the cache's sequence dim is sharded over (the active rule
+  table's ``kv_seq``)."""
+  t = shd.rules_dict().get("kv_seq")
+  if t is None:
+    return ()
+  return (t,) if isinstance(t, str) else tuple(t)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardLayout:
+  """How a cache is cut over a mesh, decided once from its global shapes
+  (the reference's dispatch): ``seq_axes`` () keeps it whole (no sequence
+  axis in the rules, M not divisible by the shard count, or one shard);
+  ``dp_axes`` () keeps the batch whole (B not divisible by the
+  data-parallel size)."""
+  seq_axes: Tuple[str, ...]
+  nshards: int
+  dp_axes: Tuple[str, ...]
+  dp_n: int
+  m_total: int
+  batch: int
+
+
+def shard_layout(mesh, seq_axes, M: int, B: int) -> ShardLayout:
+  """The reference's dispatch: the cache's M clusters spread over
+  ``seq_axes`` (those in the mesh) when they divide evenly over more than
+  one shard, and its batch over the mesh's `pod` / `data` axes not taken
+  by the sequence when B divides evenly."""
+  axes = tuple(a for a in seq_axes if mesh is not None and a in mesh.shape)
+  n = math.prod(mesh.shape[a] for a in axes) if axes else 1
+  if not axes or M % n != 0 or n == 1:
+    return ShardLayout((), 1, (), 1, M, B)
+  dp = tuple(a for a in ("pod", "data") if a in mesh.shape and a not in axes)
+  dp_n = math.prod(mesh.shape[a] for a in dp) if dp else 1
+  if B % dp_n != 0:
+    dp, dp_n = (), 1
+  return ShardLayout(axes, n, dp, dp_n, M, B)
+
+
+# Each cache leaf's (batch axis, sequence axis, the sequence axis's rows a
+# cluster), from the end: the same for a layer's slice (B, Hkv, S, D) and
+# the whole cache (nb, na, B, Hkv, S, D).  None: the leaf has no such axis.
+_SHARD_AXES = {"k": (-4, -2, "C"), "v": (-4, -2, "C"),
+               "k_syn": (-4, -2, 1), "v_syn": (-4, -2, 1),
+               "counts": (-2, -1, 1),
+               "k_syn_scale": (-3, -1, 1), "v_syn_scale": (-3, -1, 1),
+               "k_scale": (-3, -1, 1), "v_scale": (-3, -1, 1),
+               "recent_k": (-4, None, 0), "recent_v": (-4, None, 0),
+               "recent_len": (-1, None, 0), "pos": (-1, None, 0)}
+
+
+def shard_cache(cache: Dict[str, torch.Tensor], mesh, rules
+                ) -> Dict[str, torch.Tensor]:
+  """This rank's shard of a global synopsis cache (one layer's slice or the
+  whole cache) under ``rules`` on ``mesh``: M/n clusters of the centroid
+  tables, counts and scales, their S/n rows of the sorted k / v, and the
+  rank's batch rows of every leaf (:func:`shard_layout`'s dispatch); the
+  recent ring, ``recent_len`` and ``pos`` are cut by batch only.  The
+  shard's leaves are contiguous copies, and its ``"layout"`` entry (a
+  :class:`ShardLayout`) tells :func:`sharded_synopsis_attention` how it was
+  cut.  A leaf not listed in
+  ``_SHARD_AXES`` is refused where the batch is cut."""
+  mesh = shd.require_mesh(mesh)
+  counts = cache["counts"]
+  M, B = counts.shape[-1], counts.shape[-2]
+  with shd.use_mesh(mesh, rules):
+    layout = shard_layout(mesh, _seq_axes(), M, B)
+  sid = mesh.index(layout.seq_axes) if layout.seq_axes else 0
+  bid = mesh.index(layout.dp_axes) if layout.dp_axes else 0
+  C = cache["k"].shape[-2] // M
+  out = {}
+  for name, x in cache.items():
+    if name == "layout":
+      raise ValueError("the cache is already a rank's shard")
+    axes = _SHARD_AXES.get(name)
+    if axes is None:
+      if layout.dp_n > 1:
+        raise ValueError(f"shard_cache: no batch axis known for {name!r}")
+      out[name] = x
+      continue
+    b_ax, s_ax, unit = axes
+    if layout.dp_n > 1:
+      n = B // layout.dp_n
+      x = x.narrow(b_ax, bid * n, n)
+    if s_ax is not None and layout.nshards > 1:
+      rows = (M // layout.nshards) * (C if unit == "C" else unit)
+      x = x.narrow(s_ax, sid * rows, rows)
+    # A copy even where nothing was cut: the shard never aliases the
+    # global cache (the loop appends to its ring in place).
+    out[name] = x.clone(memory_format=torch.contiguous_format)
+  out["layout"] = layout
+  return out
+
+
+def sharded_synopsis_attention(
+    q: torch.Tensor,                      # (B_local, H, D)
+    cache: Dict[str, torch.Tensor],       # this rank's shard of a layer
+    *,
+    i_max: int,
+    cluster_size: int,
+    sm_scale: float,
+    cap: Optional[float] = None,
+    self_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+  """AccuracyTrader decode attention with the cache and its synopsis
+  sharded over the mesh: the paper's n-component scatter-gather, one rank
+  a component.  Every rank scores its own M/n centroids (stage 1, the
+  fused kernel), the *global* ranking comes from one all-gather of the
+  (B, Hkv, M/n) scores, each rank refines only the selected clusters it
+  owns (stage 2 over its S/n rows; the recent ring and the self token fold
+  into shard 0's launch only), and one all-gather of the (o, m, l)
+  partials, folded by ``merge_partials`` in shard order, composes the
+  result.  Returns this rank's batch rows (B_local, H, D), the same on every
+  rank of a batch group.
+
+  ``cache`` is a rank's shard as :func:`shard_cache` cut it: its
+  ``"layout"`` carries the reference's dispatch (the sequence axes it was
+  cut over and the batch's), so a cache it kept whole
+  (no sequence axes, M % n != 0, one shard), or with no layout, runs the
+  single-device path, and a batch it kept whole is computed whole."""
+  mesh = shd.current_mesh()
+  layout = cache.get("layout")
+  plain = {k: x for k, x in cache.items() if k != "layout"}
+  if mesh is None or layout is None or not layout.seq_axes:
+    return synopsis_decode_attention(
+        q, plain, i_max=i_max, cluster_size=cluster_size, sm_scale=sm_scale,
+        cap=cap, self_kv=self_kv)
+  axes = layout.seq_axes
+  sid = mesh.index(axes)
+  k_syn, v_syn, counts = plain["k_syn"], plain["v_syn"], plain["counts"]
+  B, Hkv, M_local = k_syn.shape[:3]
+  M = layout.m_total
+  syn_scales, kv_scales = ops._pairs(
+      plain.get("k_syn_scale"), plain.get("v_syn_scale"),
+      plain.get("k_scale"), plain.get("v_scale"))
+  # Stage 1 (fused) over the local centroids; one small all-gather for the
+  # global ranking.
+  sc_local, p_syn = ops.synopsis_stage1(
+      q, k_syn, v_syn, counts, sm_scale=sm_scale, cap=cap,
+      syn_scales=syn_scales)
+  sc = mesh.all_gather(sc_local, axes, dim=2)                 # (B, Hkv, M)
+  if i_max > 0:
+    selected = torch.topk(sc, min(i_max, M), dim=-1).indices
+    # Stage 2 refines only the selected clusters this shard owns.
+    rel = selected - sid * M_local
+    sel = torch.where((rel >= 0) & (rel < M_local), rel, -1).to(torch.int32)
+  else:
+    sel = torch.full((B, Hkv, 1), -1, dtype=torch.int32, device=q.device)
+  extras = ops.build_extras(plain.get("recent_k"), plain.get("recent_v"),
+                            plain.get("recent_len"), self_kv)
+  if extras is not None and sid != 0:
+    ek, ev, eb = extras                   # counted once: on shard 0
+    extras = (ek, ev, torch.full_like(eb, ops.NEG_INF))
+  p_ref = ops.refine_stage2(
+      q, plain["k"], plain["v"], sel, k_syn, v_syn, counts,
+      cluster_size=cluster_size, sm_scale=sm_scale, cap=cap, extras=extras,
+      syn_scales=syn_scales, kv_scales=kv_scales)
+  # The result composer: one all-gather of the packed partials, folded in
+  # shard order.
+  parts = mesh.all_gather(ops.pack_partials(ops.merge_partials(p_syn, p_ref)),
+                          axes, dim=0, tiled=False)           # (n,B,H,D+2)
+  acc = ops.unpack_partials(parts[0])
+  for p in parts[1:]:
+    acc = ops.merge_partials(acc, ops.unpack_partials(p))
+  return acc[0]
+
+
 def exact_decode_attention(
     q: torch.Tensor,                      # (B, H, D)
     k: torch.Tensor,                      # (B, Hkv, S, D)
@@ -138,9 +316,11 @@ def _decode_attention(q, cache_sl, cfg: ModelConfig, local: bool, mode: str,
         q, cache_sl["k"], cache_sl["v"],
         window=cfg.sliding_window if local else None, **kw), None
   kw.update(i_max=i_max, cluster_size=cfg.synopsis.cluster_size)
-  if attention_fn is None:
-    return synopsis_decode_attention(q, cache_sl, **kw), None
-  return attention_fn(q, cache_sl, **kw)
+  if attention_fn is not None:
+    return attention_fn(q, cache_sl, **kw)
+  if shd.current_mesh() is not None:
+    return sharded_synopsis_attention(q, cache_sl, **kw), None
+  return synopsis_decode_attention(q, cache_sl, **kw), None
 
 
 def _attn_decode_layer(x, lp, cfg: ModelConfig, local: bool, cache_sl, pos,
@@ -281,6 +461,8 @@ def make_serve_step(cfg: ModelConfig, *, mode: str = "synopsis",
             # modes) go to every layer whole.
             layer_cache.update((kk, t) for kk, t in cache.items()
                                if kk.startswith("fe_"))
+            if "layout" in cache:          # a rank's shard (shard_cache)
+              layer_cache["layout"] = cache["layout"]
           mix, (kd, vd), aux = _attn_decode_layer(
               h, lp["attn"], cfg, spec.local, layer_cache, pos, mode, i_max,
               attention_fn)

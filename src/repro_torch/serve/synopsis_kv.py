@@ -144,7 +144,14 @@ def absorb_recent(cache: Dict[str, torch.Tensor],
   identity); the ring resets.  The rows appended to the cache are the
   build's sorted output: the ring itself, or its codes under ``+kv``, whose
   scales extend the scale leaves with the centroids'.  Returns a new cache
-  dict."""
+  dict.  A rank's shard of a cache cut over a mesh (its ``layout``,
+  ``serve_step.shard_cache``) is refused: the absorbed clusters would land
+  on one shard and move the others' ranges (ROADMAP A.7d)."""
+  if "layout" in cache:
+    raise NotImplementedError(
+        "absorb on a cache sharded over a mesh is not implemented (ROADMAP "
+        "A.7d): the ring's new clusters would land on one shard and move "
+        "every other shard's cluster range")
   rk, rv = cache["recent_k"], cache["recent_v"]
   nb, na, B, Hkv, R, D = rk.shape
   C = cfg.synopsis.cluster_size

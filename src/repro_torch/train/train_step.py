@@ -10,6 +10,19 @@ the slices' gradients in f32 and divides by their count, and applies
 AdamW in f32.  Causal attention is the differentiable
 ``layers.causal_attention`` on every device, never the prefill kernel,
 which has no backward.
+
+On a mesh (``make_train_step(mesh=...)``, the port's ``dist.sharding.
+Mesh``) every rank runs the step on its (pod, data) share of the global
+batch, and the gradients are averaged over the pod and data ranks
+(:func:`mesh_loss_and_grads`): the global-mean gradient of the
+reference's GSPMD step, summed in rank order, so that it equals the
+one-rank step with the shares as its microbatches, bit for bit.  An MoE
+layer groups the tokens of each rank's share, the reference's grouping per
+data-parallel shard.  With ``compress_pods`` the cross-pod reduction then
+goes through ``compression.compressed_pod_psum``, as in the reference.
+Ranks along `model` hold the weights whole and compute the same thing:
+tensor-parallel weights over `model` and FSDP over `data` are ROADMAP
+A.7d.
 """
 from __future__ import annotations
 
@@ -17,6 +30,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.dist import sharding as shd
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import ModelConfig
 from repro_torch.train import compression as comp
@@ -70,22 +84,83 @@ def loss_and_grads(cfg: ModelConfig, params, batch: Dict, *,
   return loss / microbatches, metrics, tree_map(lambda _: next(it), params)
 
 
+def dp_axes(mesh) -> tuple:
+  """The mesh axes the batch is split over (`pod`, `data`)."""
+  return tuple(a for a in ("pod", "data") if a in mesh.shape)
+
+
+def shard_batch(batch: Dict, mesh) -> Dict:
+  """This rank's share of a global batch: its contiguous rows, in the
+  order of its combined (pod, data) index."""
+  axes = dp_axes(mesh)
+  if not axes:
+    return batch
+  n, i = mesh.axis_size(axes), mesh.index(axes)
+  B = batch["tokens"].shape[0]
+  if B % n:
+    raise ValueError(f"batch {B} does not split over {n} (pod, data) ranks")
+  rows = B // n
+  return {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+
+
+def mesh_loss_and_grads(cfg: ModelConfig, params, batch: Dict, mesh, *,
+                        microbatches: int = 1, causal_skip: bool = False):
+  """:func:`loss_and_grads` of this rank's share of the global ``batch``,
+  then the loss, the metrics and the gradients averaged over the mesh's
+  pod and data ranks: one all-reduce of the gradients packed flat, summed
+  in rank order (``Mesh.all_reduce``)."""
+  loss, metrics, grads = loss_and_grads(
+      cfg, params, shard_batch(batch, mesh), microbatches=microbatches,
+      causal_skip=causal_skip)
+  axes = dp_axes(mesh)
+  if not axes:
+    return loss, metrics, grads
+  leaves = tree_leaves(grads)
+  flat = torch.cat([g.reshape(-1) for g in leaves]
+                   + [torch.stack([loss.float().reshape(()), *(
+                       metrics[k].float().reshape(()) for k in metrics)])])
+  flat = mesh.all_reduce(flat, axes, op="mean")
+  out, at = [], 0
+  for g in leaves:
+    out.append(flat[at:at + g.numel()].view_as(g))
+    at += g.numel()
+  tail = flat[at:]
+  it = iter(out)
+  return (tail[0], {k: tail[1 + i] for i, k in enumerate(metrics)},
+          tree_map(lambda _: next(it), grads))
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: opt_lib.OptConfig, *,
                     microbatches: int = 1, compress_pods: bool = False,
                     mesh=None, causal_skip: bool = False):
   """Returns train_step(state, batch) -> (state', metrics) with metrics
-  {"loss", "ce", "aux", "grad_norm", "lr"}.  ``compress_pods`` quantises
-  the cross-pod reduction of a mesh; without a mesh it does nothing, as in
-  the reference.  A mesh (the sharded path) is not ported yet."""
+  {"loss", "ce", "aux", "grad_norm", "lr"}.  With ``mesh`` (the port's
+  ``Mesh``; anything else raises ``TypeError``) ``batch`` is the global
+  batch and each rank steps on its share (see the module doc);
+  ``compress_pods`` then quantises the cross-pod reduction of a mesh with
+  a `pod` axis (its state needs ``err``: ``init_train_state(compress=
+  True)``).  Without a mesh ``compress_pods`` does nothing, as in the
+  reference."""
   if mesh is not None:
-    raise NotImplementedError("the sharded train step needs a mesh, which "
-                              "the port does not have yet (ROADMAP A.7c)")
-  del compress_pods
+    shd.require_mesh(mesh)
+  compress = compress_pods and mesh is not None and "pod" in mesh.shape
 
   def train_step(state: Dict, batch: Dict):
-    loss, metrics, grads = loss_and_grads(
-        cfg, state["params"], batch, microbatches=microbatches,
-        causal_skip=causal_skip)
+    if mesh is None:
+      loss, metrics, grads = loss_and_grads(
+          cfg, state["params"], batch, microbatches=microbatches,
+          causal_skip=causal_skip)
+    else:
+      loss, metrics, grads = mesh_loss_and_grads(
+          cfg, state["params"], batch, mesh, microbatches=microbatches,
+          causal_skip=causal_skip)
+    if compress:
+      with torch.no_grad():
+        grads, err = comp.compressed_pod_psum(grads, state["err"], "pod",
+                                              mesh=mesh)
+        npods = mesh.shape["pod"]
+        grads = tree_map(lambda g: g / npods, grads)
+      state = {**state, "err": err}
     with torch.no_grad():
       new_params, new_opt, om = opt_lib.adamw_update(
           grads, state["opt"], state["params"], opt_cfg)

@@ -2249,3 +2249,20 @@ def test_card_train_step_grads_equal_the_cpu(cuda):
   assert abs(out["card"][0] - out["cpu"][0]) <= 1e-5 * abs(out["cpu"][0])
   for p, x in out["card"][1].items():
     assert bool(torch.isfinite(x).all()) and float(x.abs().max()) > 0, p
+
+
+def test_sharded_synopsis_on_ranks_sharing_the_card(cuda):
+  """Four gloo ranks on the one card (``dist.world.run_world``), each on
+  its quarter of the sequence: the sharded synopsis attention's kernels
+  against the one-rank kernels on the global cache (f32), stage 1 and
+  stage 2 launched once on every rank.  The kernels are built here, before
+  any rank starts."""
+  import torch_mesh_ranks
+  from repro_torch.dist import world
+  _build.build()
+  res = world.run_world(torch_mesh_ranks.card_synopsis_world, 4, (3,),
+                        device="cuda", timeout_s=120.0)
+  for r in res:
+    assert r["err_one_rank"] <= 1e-4 + 1e-4 * r["scale"], r
+    assert r["launches"] == {"fused_synopsis_score_attention": 1,
+                             "block_gather_attention": 1}, r

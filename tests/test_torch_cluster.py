@@ -368,8 +368,11 @@ def test_topk_full_gather_is_the_single_component_attention():
 
 
 def test_sharded_path_and_strided_shards_are_refused():
+  """A mesh that is not the port's ``Mesh`` is a ``TypeError`` (the
+  sharded path runs on ranks; ``tests/test_torch_mesh_tiers.py`` drives
+  it on a spawned world); a bad alloc and a strided shard are refused."""
   topo = topology.ComponentTopology.plan(M, 2)
-  with pytest.raises(NotImplementedError, match="A.7c"):
+  with pytest.raises(TypeError, match="Mesh"):
     cl.make_cluster_attention(topo, mesh=object())
   with pytest.raises(ValueError, match="alloc"):
     cl.make_cluster_attention(topo, alloc="nope")
@@ -658,7 +661,10 @@ def test_backend_refusals(llama):
       (dict(n_components=2, route="nope"), ValueError, "route"),
       (dict(n_components=8), ValueError, "n_components"),
       (dict(n_components=2, replicas=3), ValueError, "replicas"),
-      (dict(n_components=2, use_mesh=True), NotImplementedError, "A.7c")):
+      # A world of one rank has no mesh of 2: JAX's error with fewer
+      # devices.
+      (dict(n_components=2, use_mesh=True), RuntimeError,
+       "use_mesh=True but the world has 1 < 2 ranks")):
     with pytest.raises(err, match=match):
       ServingEngine(cfg, EngineConfig(n_slots=1, prompt_len=64,
                                       max_new_tokens=2), params=params,

@@ -252,8 +252,10 @@ def test_output_follows_the_selected_lane_where_copies_differ():
 
 
 def test_mesh_and_a_bad_alloc_are_refused():
+  """A mesh that is not the port's ``Mesh`` is a ``TypeError`` (the
+  sharded path runs on ranks: ``tests/test_torch_mesh_tiers.py``)."""
   topo = topology.plan_2d(16, 2, 2)
-  with pytest.raises(NotImplementedError, match="A.7c"):
+  with pytest.raises(TypeError, match="Mesh"):
     fl.make_fleet_attention(topo, mesh=object())
   with pytest.raises(ValueError, match="alloc"):
     fl.make_fleet_attention(topo, alloc="nope")
@@ -396,7 +398,10 @@ def test_resilience_knobs_are_refused(llama):
       (dict(faults=FaultSpec(crash_rate=0.1)), ValueError, "non-resilient"),
       (dict(retries=2), ValueError, "non-resilient"),
       (dict(recovery=False), ValueError, "non-resilient"),
-      (dict(use_mesh=True), NotImplementedError, "A.7c")):
+      # No (replica, component) mesh of 4 ranks in a world of one: JAX's
+      # error with fewer devices.
+      (dict(use_mesh=True), RuntimeError,
+       "use_mesh=True but the world has 1 < 4 ranks")):
     with pytest.raises(err, match=match):
       ServingEngine(cfg, EngineConfig(n_slots=1, prompt_len=64,
                                       max_new_tokens=2), params=params,

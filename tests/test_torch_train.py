@@ -164,7 +164,10 @@ def test_compression_equals_jax_and_is_unbiased():
     total = total + deq["a"]
   np.testing.assert_allclose((total + err["a"]).numpy(), g * 50, rtol=1e-3,
                              atol=1e-3)
-  with pytest.raises(NotImplementedError, match="A.7c"):
+  # Outside a mesh with a pod axis the collective has no axis to reduce
+  # over: the reference's NameError (tests/test_torch_mesh_tiers.py runs
+  # it on a spawned (pod, data) world).
+  with pytest.raises(NameError, match="unbound axis name: pod"):
     comp.compressed_pod_psum(grads, err)
 
 
@@ -185,7 +188,7 @@ def test_loss_decreases_tiny_model():
     losses.append(float(metrics["loss"]))
   assert losses[-1] < losses[0] - 0.3, losses
   assert int(state["opt"]["step"]) == 24
-  with pytest.raises(NotImplementedError, match="A.7c"):
+  with pytest.raises(TypeError, match="Mesh"):
     make_train_step(cfg, opt_cfg, mesh=object())
 
 
