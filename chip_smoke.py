@@ -239,7 +239,19 @@
     buffers); records
     ``<kernel>[mesh]`` (stage 1 and stage 2 at the data-2 x model-4 shard,
     flash_decode over the cluster window's extras), timed on rank 0 with
-    the others waiting.
+    the others waiting;
+24. the dry run against the card (``[dryrun]``, ``run_dryrun_decode`` on
+    phase 6's weights, ``run_dryrun_train`` after phase 22): the card's
+    ``total_memory``; the dry run's per-rank program (no mesh) traced on
+    ``meta`` by ``analysis.tracker.MemoryTracker``, then run on the card
+    (after one warm-up call) for llama3-8b's budget-32 synopsis step at the
+    loop's shapes (B = 2, prompt 8192, all 32 layers) and smollm-135m's
+    train step at 8 x 2048: the argument bytes predicted and measured
+    must be equal, the output + temp predicted within 10% or 1 MB of
+    ``max_memory_allocated() - memory_allocated()`` around the step, and
+    ``total_memory`` must equal ``launch.dryrun.CARD_MEMORY``; the
+    cost model's bound for the decode step beside phase 6's profiled
+    device time a step, as a share (printed, not gated).
 
 Every path's launch counts are reset just before it runs and read just
 after: the synopsis loop must launch its four kernels, the quantized loops
@@ -1467,6 +1479,7 @@ def profile_decode(cfg, params, cache, dev, budget, steps=3,
          for k, names in KERNEL_ROWS.items()}
   print(f"[profile] {label}: port kernels, ms/step: " + ", ".join(
       f"{k} {us / 1e3 / steps:.3f}" for k, us in per.items() if us))
+  return busy
 
 
 # ---------------------------------------------------------------------------
@@ -5376,6 +5389,132 @@ def run_mesh(dev, smi):
   return recs, {f"{k}[mesh]": launches[k] for k in CLUSTER_KERNELS}
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: the dry run's per-rank program, traced on meta, against the card
+# ---------------------------------------------------------------------------
+
+# The trace's output + temp against the card's: within this share of the
+# measured bytes or these bytes, whichever is larger (the caching
+# allocator charges a large request the rest of its block when that rest
+# is under 1 MB, too small to split off).
+DRYRUN_SHARE, DRYRUN_BYTES = 0.10, 1 << 20
+
+
+def _dryrun_against_card(label, step, meta_args, card_args, smi):
+  """Trace ``step`` on ``meta_args`` (``MemoryTracker``), then run it on
+  ``card_args`` after one warm-up call (lazy workspaces): the argument
+  bytes must be equal, and the trace's output + temp (its peak of new
+  storage) must match ``max_memory_allocated() - memory_allocated()``
+  around the call within DRYRUN_SHARE or DRYRUN_BYTES."""
+  from repro_torch.analysis.tracker import MemoryTracker, storage_bytes
+  t0 = time.perf_counter()
+  with MemoryTracker(meta_args) as trk:
+    out = step(*meta_args)
+    trk.finish(out)
+  del out
+  trace_s = time.perf_counter() - t0
+  predicted = trk.output_bytes - trk.alias_bytes + trk.temp_bytes
+  args = storage_bytes(card_args)
+  out = step(*card_args)
+  del out
+  gc.collect()
+  torch.cuda.synchronize()
+  base = torch.cuda.memory_allocated()
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  out = step(*card_args)
+  torch.cuda.synchronize()
+  step_ms = (time.perf_counter() - t0) * 1e3
+  measured = torch.cuda.max_memory_allocated() - base
+  del out
+  tol = max(DRYRUN_SHARE * measured, DRYRUN_BYTES)
+  print(f"[dryrun] {label}: argument bytes predicted {trk.argument_bytes} "
+        f"measured {args}; output + temp predicted {predicted} (output "
+        f"{trk.output_bytes - trk.alias_bytes}, temp {trk.temp_bytes}, "
+        f"{trk.allocations} allocations) measured {measured} "
+        f"(max_memory_allocated - memory_allocated), diff "
+        f"{predicted - measured:+d} (tol {tol:.0f}); trace {trace_s:.1f}s, "
+        f"step {step_ms:.1f} ms host; {smi}")
+  if trk.argument_bytes != args:
+    raise AssertionError(f"[dryrun] {label}: argument bytes predicted "
+                         f"{trk.argument_bytes} != measured {args}")
+  if abs(predicted - measured) > tol:
+    raise AssertionError(f"[dryrun] {label}: output + temp predicted "
+                         f"{predicted}, measured {measured}, beyond {tol}")
+
+
+def run_dryrun_decode(cfg, params, dev, busy_ms, smi):
+  """Phase 24, first half (on phase 6's llama3-8b weights): the card's
+  memory beside the dry run's constant; the budget-32 synopsis step at the
+  loop's shapes (B = BATCH, prompt PROMPT, every layer) traced on meta
+  and run on the card (a zero cache of the loop's layout after its
+  build); the cost model's bound for that step beside phase 6's profiled
+  device time a step."""
+  from repro_torch.analysis import costmodel, roofline
+  from repro_torch.configs.shapes import ShapeSpec
+  from repro_torch.launch import dryrun as dr
+  from repro_torch.serve import kv_cache as kvc
+  from repro_torch.serve.serve_step import make_serve_step
+  t0 = time.perf_counter()
+  total = torch.cuda.get_device_properties(0).total_memory
+  print(f"[dryrun] total_memory {total} bytes "
+        f"(launch.dryrun.CARD_MEMORY {dr.CARD_MEMORY}); {smi}")
+  if total != dr.CARD_MEMORY:
+    raise AssertionError(f"[dryrun] total_memory {total} != "
+                         f"launch.dryrun.CARD_MEMORY {dr.CARD_MEMORY}")
+  step = make_serve_step(cfg, mode="synopsis", i_max=cfg.synopsis.i_max)
+  struct = kvc.cache_struct(cfg, BATCH, PROMPT, synopsis=True)
+  meta = (dr.serve_params(cfg),
+          {k: torch.empty(sh, dtype=dt, device="meta")
+           for k, (sh, dt, _) in struct.items()},
+          torch.empty((BATCH, 1), dtype=torch.long, device="meta"))
+  card = (params, kvc.zeros_cache(cfg, BATCH, PROMPT, synopsis=True,
+                                  device=dev),
+          torch.zeros((BATCH, 1), dtype=torch.long, device=dev))
+  _dryrun_against_card(
+      f"{cfg.name} budget-{cfg.synopsis.i_max} synopsis step B={BATCH} "
+      f"prompt={PROMPT} {cfg.n_layers} layers", step, meta, card, smi)
+  del card
+  c = costmodel.cell_cost(cfg, ShapeSpec("loop", PROMPT, BATCH, "decode"),
+                          "synopsis")
+  r = roofline.Roofline(c.flops_global, c.bytes_global, 0.0, 1)
+  print(f"[dryrun] cost model's bound for that step {r.bound_s * 1e3:.4f} ms "
+        f"({r.dominant}: {c.flops_global:.4e} FLOPs, {c.bytes_global:.4e} "
+        f"bytes) against phase 6's profiled device time {busy_ms:.4f} ms a "
+        f"step: {100 * r.bound_s * 1e3 / busy_ms:.1f}% (printed, not gated)")
+  print(f"[dryrun] decode half in {time.perf_counter() - t0:.1f}s")
+
+
+def run_dryrun_train(dev, smi):
+  """Phase 24, second half: smollm-135m's train step (no mesh, one
+  microbatch) at TRAIN_BATCH x TRAIN_SEQ traced on meta and run on the
+  card, from ``init_train_state`` and the data pipeline's first batch."""
+  from repro_torch.configs.registry import get_config
+  from repro_torch.launch import dryrun as dr
+  from repro_torch.train.data import DataConfig, TokenStream
+  from repro_torch.train.optimizer import OptConfig
+  from repro_torch.train.train_step import init_train_state, make_train_step
+  t0 = time.perf_counter()
+  _free()
+  cfg = get_config("smollm-135m")
+  opt_cfg = OptConfig(lr=1e-3, warmup_steps=10, total_steps=TRAIN_STEPS)
+  state = init_train_state(cfg, opt_cfg, device=dev,
+                           generator=torch.Generator(dev).manual_seed(0))
+  tokens, labels = TokenStream(DataConfig(cfg.vocab, TRAIN_SEQ,
+                                          TRAIN_BATCH)).batch_at(0)
+  batch = {"tokens": torch.from_numpy(tokens).to(dev),
+           "labels": torch.from_numpy(labels).to(dev)}
+  meta = (dr.train_state(cfg, compress=False),
+          {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+           for k, v in batch.items()})
+  _dryrun_against_card(
+      f"{cfg.name} train step {TRAIN_BATCH} x {TRAIN_SEQ}",
+      make_train_step(cfg, opt_cfg), meta, (state, batch), smi)
+  del state, batch
+  _free()
+  print(f"[dryrun] train half in {time.perf_counter() - t0:.1f}s")
+
+
 T_START = time.perf_counter()
 
 
@@ -5463,8 +5602,8 @@ def main() -> int:
                      "block_gather_attention"))
   _check_run(out, cfg)
   check_full_budget(out["cache"], dev, g)
-  for budget in (0, cfg.synopsis.i_max):
-    profile_decode(cfg, params, out["cache"], dev, budget)
+  busy_ms = {budget: profile_decode(cfg, params, out["cache"], dev, budget)
+             for budget in (0, cfg.synopsis.i_max)}
   del out
 
   # Decode baselines: every step at the full budget, so the work per step
@@ -5530,6 +5669,9 @@ def main() -> int:
   del syn
   stage1_bytes_against_time(dev, g)
 
+  # The dry run's per-rank program against the card, on these weights.
+  run_dryrun_decode(cfg, params, dev, busy_ms[cfg.synopsis.i_max], smi)
+
   # The continuous-batching engine: its decode steps are graph replays.
   check_engine_parity(dev)
   engine_launches, deadline_replay = run_engine(cfg, params, dev)
@@ -5577,6 +5719,7 @@ def main() -> int:
   records[morton_record["name"]] = morton_record
   run_apps(dev)
   run_train(dev)
+  run_dryrun_train(dev, smi)
 
   # The sharded path: ranks sharing the card, each on its shard.
   mesh_records, mesh_launches = run_mesh(dev, smi)

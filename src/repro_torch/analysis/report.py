@@ -1,0 +1,142 @@
+"""The dry run's tables from its artifacts (counterpart of
+``repro.analysis.report``): a summary, the single-pod roofline and every
+cell's memory and collectives, against one NVIDIA H100 80GB HBM3, 700.00 W
+a rank.  The roofline terms are the cost model's on the card's peaks
+(modelled, not measured); the memory is the meta-device trace's.
+
+Every rank holds the weights whole until ROADMAP A.7d.  A cell whose
+trace does not fit the card is listed as waiting on A.7d when
+:func:`peak_with_rules_args` fits: its traced peak with the arguments
+taken at the rule tables' bytes and the step's new storage as traced,
+unscaled.  That is not a trace of the cut program (A.7d's own trace
+measures it).
+
+  PYTHONPATH=src python -m repro_torch.analysis.report artifacts/dryrun
+"""
+from __future__ import annotations
+
+import glob
+import json
+import os
+import sys
+
+
+def fmt_b(x):
+  for unit, div in (("TB", 1e12), ("GB", 1e9), ("MB", 1e6), ("KB", 1e3)):
+    if abs(x) >= div:
+      return f"{x / div:.2f}{unit}"
+  return f"{x:.0f}B"
+
+
+def fmt_s(x):
+  if x >= 1.0:
+    return f"{x:.2f}s"
+  if x >= 1e-3:
+    return f"{x * 1e3:.2f}ms"
+  return f"{x * 1e6:.1f}us"
+
+
+def load(art_dir):
+  cells = {}
+  for f in sorted(glob.glob(os.path.join(art_dir, "*.json"))):
+    with open(f) as fh:
+      d = json.load(fh)
+    cells[(d["arch"], d["shape"], d["mesh"], d["mode"])] = d
+  return cells
+
+
+def dryrun_table(cells) -> str:
+  rows = ["| arch | shape | mesh | mode | trace | args/rank | peak/rank "
+          "| fits | args under rules | peak with rules' args | "
+          "coll bytes/rank |",
+          "|---|---|---|---|---|---|---|---|---|---|---|"]
+  for (arch, shape, mesh, mode), d in sorted(cells.items()):
+    m = d["memory"]
+    rows.append(
+        f"| {arch} | {shape} | {mesh} | {mode} | {d['compile_s']:.0f}s "
+        f"| {fmt_b(m['argument_size_in_bytes'])} "
+        f"| {fmt_b(m['peak_bytes_per_device'])} "
+        f"| {'Y' if d['fits_hbm'] else 'N'} "
+        f"| {fmt_b(d['argument_bytes_under_rules'])} "
+        f"| {fmt_b(peak_with_rules_args(d))} "
+        f"| {fmt_b(d['collectives']['total'])} |")
+  return "\n".join(rows)
+
+
+def roofline_table(cells) -> str:
+  rows = ["| arch | shape | mode | compute | memory | collective | "
+          "dominant | bound | useful FLOPs |",
+          "|---|---|---|---|---|---|---|---|---|"]
+  for (arch, shape, mesh, mode), d in sorted(cells.items()):
+    if mesh != "single":
+      continue
+    r = d["roofline"]
+    uf = r.get("useful_flops_ratio")
+    rows.append(
+        f"| {arch} | {shape} | {mode} | {fmt_s(r['compute_s'])} "
+        f"| {fmt_s(r['memory_s'])} | {fmt_s(r['collective_s'])} "
+        f"| **{r['dominant']}** | {fmt_s(r['bound_s'])} "
+        f"| {uf:.2f} |" if uf else
+        f"| {arch} | {shape} | {mode} | - | - | - | - | - | - |")
+  return "\n".join(rows)
+
+
+def peak_with_rules_args(d) -> int:
+  """A cell's traced peak less its traced arguments plus the arguments
+  the rule tables assign a rank (module doc)."""
+  m = d["memory"]
+  return (m["peak_bytes_per_device"] - m["argument_size_in_bytes"]
+          + d["argument_bytes_under_rules"])
+
+
+def waiting_on_a7d(cells):
+  """Cells that do not fit the card with the weights whole: (those whose
+  ``peak_with_rules_args`` fits, those whose does not)."""
+  over = sorted(k for k, d in cells.items() if not d["fits_hbm"])
+  fit = lambda k: peak_with_rules_args(cells[k]) < cells[k][
+      "card_memory_bytes"]
+  return ([k for k in over if fit(k)], [k for k in over if not fit(k)])
+
+
+def summary(cells) -> str:
+  total = len(cells)
+  fits = sum(1 for d in cells.values() if d["fits_hbm"])
+  rules = sum(1 for d in cells.values()
+              if peak_with_rules_args(d) < d["card_memory_bytes"])
+  single = sum(1 for k in cells if k[2] == "single")
+  multi = sum(1 for k in cells if k[2] == "multi")
+  card = next(iter(cells.values()))["card"] if cells else "-"
+  lines = [f"- cells traced: {total} (single-pod {single}, multi-pod "
+           f"{multi}); fit in 80 GB ({card}) with the weights whole: "
+           f"{fits}/{total}; with the rule tables' argument bytes and "
+           f"the traced new storage: {rules}/{total}"]
+  census = {}
+  for k, d in cells.items():
+    if k[2] != "single":
+      continue
+    dom = d["roofline"]["dominant"]
+    census[dom] = census.get(dom, 0) + 1
+  lines.append(f"- dominant terms (single-pod, modelled): {census}")
+  wait, never = waiting_on_a7d(cells)
+  tag = lambda ks: ", ".join(" ".join(k) for k in ks) or "none"
+  lines.append(f"- wait on A.7d (fit with the rules' argument bytes): "
+               f"{tag(wait)}")
+  lines.append(f"- fit neither way: {tag(never)}")
+  return "\n".join(lines)
+
+
+def main(argv=None):
+  argv = sys.argv[1:] if argv is None else argv
+  art = argv[0] if argv else "artifacts/dryrun"
+  cells = load(art)
+  print("## Summary\n")
+  print(summary(cells))
+  print("\n## Roofline (single-pod, 256 ranks; the cost model on the "
+        "card's peaks)\n")
+  print(roofline_table(cells))
+  print("\n## Dry run (all cells; the meta-device trace of rank 0)\n")
+  print(dryrun_table(cells))
+
+
+if __name__ == "__main__":
+  main()

@@ -38,6 +38,16 @@ through host memory by the helper (the operands are copied to the host,
 gathered there and copied back); the compute never leaves the card.  The
 backend is chosen when the world starts (``dist.world``), never switched
 on a failure.
+
+:class:`AbstractMesh` is the dry run's mesh: the same interface for any
+rank of any shape, with no world.  Its collectives allocate what the real
+mesh's allocate, on the operand's device (``meta`` in the dry run), and
+move nothing; the two tally the operand bytes of each kind of collective
+alike (``stats``, read by ``analysis.roofline.collective_bytes``).
+:func:`mesh_axes_for` (one tensor: the spec tuple that stands for the
+reference's ``named_sharding``), :func:`tree_shardings` and
+:func:`shard_shape` resolve logical axes to spec tuples and the per-rank
+shapes they give.
 """
 from __future__ import annotations
 
@@ -46,7 +56,7 @@ import itertools
 import math
 import threading
 import time
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -176,6 +186,40 @@ def mesh_axes_for(logical_axes: Sequence[Optional[str]], mesh,
   return tuple(entries)
 
 
+def tree_shardings(axes_tree, mesh, rules, shapes_tree):
+  """The spec tuple of every leaf of a nested dict of logical axes (a
+  leaf's None: replicated), given the same tree of shapes (tuples or
+  tensors)."""
+  if isinstance(axes_tree, dict):
+    return {k: tree_shardings(v, mesh, rules, shapes_tree[k])
+            for k, v in axes_tree.items()}
+  shape = tuple(getattr(shapes_tree, "shape", shapes_tree))
+  axes = axes_tree if axes_tree is not None else (None,) * len(shape)
+  return mesh_axes_for(axes, mesh, rules, shape=shape)
+
+
+def shard_shape(shape: Sequence[int], spec: Spec, mesh) -> Tuple[int, ...]:
+  """The per-rank shape of a tensor of ``shape`` under ``spec``: each dim
+  divided by the size of its mesh axes."""
+  out = []
+  for d, entry in zip(shape, tuple(spec) + (None,) * len(shape)):
+    if entry is None:
+      out.append(int(d))
+      continue
+    axes = (entry,) if isinstance(entry, str) else tuple(entry)
+    n = _axis_size(mesh, axes)
+    if d % n:
+      raise ValueError(f"dim {d} does not divide over {axes} ({n})")
+    out.append(int(d) // n)
+  return tuple(out)
+
+
+# The kinds of collective whose operand bytes a mesh tallies (the keys of
+# the reference's ``roofline.collective_bytes``).
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+
+
 def constrain(x, logical_axes, rules: Optional[Dict[str, AxisRule]] = None):
   """Returns ``x`` unchanged.  The reference's ``with_sharding_constraint``
   tells GSPMD where a value should live and never changes the value; the
@@ -205,7 +249,8 @@ class Mesh:
   over one axis or a tuple of axes (the combined index in the tuple's
   order, JAX's).  ``stats`` counts the collectives, the bytes this rank
   received and their host wall (staging included) since
-  :meth:`reset_stats`."""
+  :meth:`reset_stats`, and under each kind of ``COLLECTIVES`` the bytes
+  of the operands this rank handed to it."""
 
   def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
     if not dist.is_available() or not dist.is_initialized():
@@ -250,7 +295,8 @@ class Mesh:
     return f"Mesh({self.shape}, rank={self.rank}, backend={self.backend})"
 
   def reset_stats(self) -> None:
-    self.stats = {"calls": 0, "bytes": 0, "ms": 0.0}
+    self.stats: Dict[str, Any] = {"calls": 0, "bytes": 0, "ms": 0.0,
+                                  **{k: 0 for k in COLLECTIVES}}
 
   def axis_index(self, name: str) -> int:
     """This rank's coordinate along axis ``name``."""
@@ -311,7 +357,7 @@ class Mesh:
     t0 = time.perf_counter()
     xs = self._staged(x)
     parts = [torch.empty_like(xs) for _ in line]
-    dist.all_gather(parts, xs, group=group)
+    self._all_gather(parts, xs, group)
     # dist's list is in group-rank order, the sorted global ranks.
     by_rank = dict(zip(sorted(line), parts))
     parts = [by_rank[r] for r in line]
@@ -319,6 +365,7 @@ class Mesh:
     out = out.to(x.device)
     self.stats["calls"] += 1
     self.stats["bytes"] += xs.numel() * xs.element_size() * len(line)
+    self.stats["all-gather"] += xs.numel() * xs.element_size()
     self.stats["ms"] += (time.perf_counter() - t0) * 1e3
     return out
 
@@ -345,7 +392,7 @@ class Mesh:
     if per * n != xs.numel():
       xs = torch.cat([xs, xs.new_zeros(per * n - xs.numel())])
     pieces = torch.empty_like(xs)
-    dist.all_to_all_single(pieces, xs, group=group)
+    self._all_to_all(pieces, xs, group)
     # Row j came from group rank j, the j-th of the sorted global ranks.
     by_rank = dict(zip(sorted(line), pieces.view(n, per)))
     acc = by_rank[line[0]]
@@ -354,10 +401,12 @@ class Mesh:
     if op == "mean":
       acc = acc / n
     sums = [torch.empty_like(acc) for _ in line]
-    dist.all_gather(sums, acc, group=group)   # piece j from group rank j
+    self._all_gather(sums, acc, group)        # piece j from group rank j
     out = torch.cat(sums)[:x.numel()].view(x.shape).to(x.device)
     self.stats["calls"] += 2
     self.stats["bytes"] += 2 * xs.numel() * xs.element_size()
+    self.stats["all-to-all"] += xs.numel() * xs.element_size()
+    self.stats["all-gather"] += acc.numel() * acc.element_size()
     self.stats["ms"] += (time.perf_counter() - t0) * 1e3
     return out
 
@@ -367,15 +416,88 @@ class Mesh:
     group, line = self._line(self.axis_names)
     t0 = time.perf_counter()
     box = [obj]
-    dist.broadcast_object_list(box, src=line[src], group=group)
+    self._broadcast(box, line[src], group)
     self.stats["calls"] += 1
     self.stats["ms"] += (time.perf_counter() - t0) * 1e3
     return box[0]
 
+  # The communication itself: the collectives above allocate their
+  # operands and results and call these to fill them.
+  def _all_gather(self, parts, x, group) -> None:
+    dist.all_gather(parts, x, group=group)
+
+  def _all_to_all(self, out, x, group) -> None:
+    dist.all_to_all_single(out, x, group=group)
+
+  def _broadcast(self, box, src, group) -> None:
+    dist.broadcast_object_list(box, src=src, group=group)
+
+
+class AbstractMesh(Mesh):
+  """The interface of :class:`Mesh` for rank ``rank`` of a mesh of any
+  shape, with no ``torch.distributed`` world and no process groups: the
+  dry run's mesh, on which one rank's program is traced.
+
+  Its collectives are :class:`Mesh`'s own code: they allocate the same
+  operands, pieces and results, of the real mesh's shapes, on the
+  operand's device, tally ``stats`` alike, and skip only the
+  communication, so the results' values are unspecified (``meta``
+  tensors have none).  Nothing is staged through host memory: the
+  production meshes span one card a rank (NCCL).  ``broadcast_object``
+  returns the object as given."""
+
+  def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
+               rank: int = 0):
+    dims = tuple(int(s) for s in shape)
+    names = tuple(axis_names)
+    if len(dims) != len(names) or len(set(names)) != len(names):
+      raise ValueError(f"mesh shape {dims} and axes {names} do not match")
+    self.axis_names = names
+    self.shape = dict(zip(names, dims))
+    self.size = math.prod(dims)
+    if not 0 <= rank < self.size:
+      raise ValueError(f"rank {rank} not in a mesh of {self.size}")
+    self.rank = int(rank)
+    self.backend = "abstract"
+    self.ranks = np.arange(self.size).reshape(dims)
+    self.member = True
+    self.coords = dict(zip(names, (int(i) for i in
+                                   np.unravel_index(self.rank, dims))))
+    self.reset_stats()
+
+  def __repr__(self) -> str:
+    return f"AbstractMesh({self.shape}, rank={self.rank})"
+
+  def _line(self, axes):
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    if any(a not in self.shape for a in axes):
+      raise ValueError(f"axes {axes} not all in mesh {self.shape}")
+    keep = [self.axis_names.index(a) for a in axes]
+    idx = [self.coords[a] for a in self.axis_names]
+    line = []
+    for combo in itertools.product(*(range(self.shape[a]) for a in axes)):
+      for i, v in zip(keep, combo):
+        idx[i] = v
+      line.append(int(self.ranks[tuple(idx)]))
+    return None, line
+
+  def _staged(self, x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous()
+
+  def _all_gather(self, parts, x, group) -> None:
+    del parts, x, group
+
+  def _all_to_all(self, out, x, group) -> None:
+    del out, x, group
+
+  def _broadcast(self, box, src, group) -> None:
+    del box, src, group
+
 
 def require_mesh(mesh) -> "Mesh":
-  """``mesh`` when it is the port's :class:`Mesh`; anything else raises
-  ``TypeError`` (a JAX mesh has no ranks to run on)."""
+  """``mesh`` when it is the port's :class:`Mesh` (an :class:`AbstractMesh`
+  too); anything else raises ``TypeError`` (a JAX mesh has no ranks to run
+  on)."""
   if not isinstance(mesh, Mesh):
     raise TypeError(f"mesh must be a repro_torch.dist.sharding.Mesh, got "
                     f"{type(mesh).__name__}")

@@ -62,6 +62,27 @@ DECODE_TILE_BYTES = 4096
 DECODE_TILE_ROWS = 64
 
 
+# Streaming multiprocessors of the card the kernels are built for (NVIDIA
+# H100 80GB HBM3, SXM5: 132): the decode wrappers size their chunks by the
+# card's SM count, and a meta tensor (the dry run) takes this one.
+H100_SMS = 132
+
+
+def sm_count(device) -> int:
+  """SMs of ``device``'s card; H100_SMS for the ``meta`` device."""
+  import torch  # noqa: PLC0415
+  if device.type == "meta":
+    return H100_SMS
+  return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def is_meta(t) -> bool:
+  """Whether ``t`` lies on the ``meta`` device: a wrapper then allocates
+  what its kernel's launch allocates and launches nothing (the dry run's
+  trace of a rank's program)."""
+  return t.device.type == "meta"
+
+
 def decode_tile_rows(D: int, itemsize: int) -> int:
   """Rows of one tile of the decode core for rows of D elements of
   ``itemsize`` bytes."""
@@ -228,17 +249,18 @@ def code_of(dtype) -> int:
 
 
 def dtype_code(name: str, *tensors, allowed=None, views=()) -> int:
-  """Check that the tensors lie on one CUDA device, share one dtype and
-  are contiguous; returns the C code of that dtype (0 = float32, 1 =
-  bfloat16, 2 = int8, 3 = float8_e4m3fn).  ``allowed`` (default: float32,
-  bfloat16 — the compute types) lists the dtypes the kernel was built
-  for.  ``views`` share the device and dtype but may be strided (the
+  """Check that the tensors lie on one CUDA device (or all on ``meta``),
+  share one dtype and are contiguous; returns the C code of that dtype (0
+  = float32, 1 = bfloat16, 2 = int8, 3 = float8_e4m3fn).  ``allowed``
+  (default: float32, bfloat16 — the compute types) lists the dtypes the
+  kernel was built for.  ``views`` share the device and dtype but may be strided (the
   kernel checks their strides itself)."""
   import torch  # noqa: PLC0415
   allowed = (torch.float32, torch.bfloat16) if allowed is None else allowed
   first = (tensors or views)[0]
-  if first.device.type != "cuda":
-    raise ValueError(f"{name}: expected CUDA tensors, got {first.device}")
+  if first.device.type not in ("cuda", "meta"):
+    raise ValueError(f"{name}: expected CUDA (or meta) tensors, got "
+                     f"{first.device}")
   if first.dtype not in allowed:
     raise TypeError(f"{name}: dtype {first.dtype} not in {tuple(allowed)}")
   for i, t in enumerate((*tensors, *views)):
@@ -372,7 +394,7 @@ def tickets(device, n: int):
   import torch  # noqa: PLC0415
   t = _tickets.get(device)
   if t is None or t.numel() < n:
-    if torch.cuda.is_current_stream_capturing():
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
       raise RuntimeError(
           f"merge tickets for {n} rows requested during a CUDA graph "
           "capture; allocate them before capturing")

@@ -65,7 +65,8 @@ def block_gather_attention(
 ):
   """Returns partials (o (B,H,D) f32, m (B,H), l (B,H)).
 
-  CPU tensors run the plain version; CUDA tensors launch the kernel."""
+  CPU tensors run the plain version; CUDA tensors launch the kernel; meta
+  tensors allocate its outputs and its scratch and launch nothing."""
   if q.device.type == "cpu":
     return ref.fused_gather_attention_ref(
         q, k, v, selected, cluster_size=cluster_size, sm_scale=sm_scale,
@@ -122,6 +123,8 @@ def block_gather_attention(
   l = torch.empty((B, H), **f32)
   part = (_build.partials(q.device, B * H, nparts, D) if nparts > 1
           else (None,) * 4)
+  if _build.is_meta(q):
+    return o, m, l
   P = _build.ptr
   err = _build.library().block_gather_launch(
       P(q), P(k), P(v), P(sel), P(k_sel), P(v_sel), P(sb), P(extras_k),
@@ -185,6 +188,8 @@ def _latent(q, k, v, selected, C, sm_scale, cap, k_sel, v_sel, sel_bias,
   l = torch.empty((B, H), **f32)
   part = (_build.partials(q.device, B * H, nparts, D) if nparts > 1
           else (None,) * 4)
+  if _build.is_meta(q):
+    return o, m, l
   P = _build.ptr
   err = _build.library().block_gather_latent_launch(
       P(q), P(k), P(v), P(sel), P(k_sel), P(v_sel), P(sb), P(extras_k),

@@ -78,7 +78,9 @@ def flash_decode(
 ):
   """Returns partials (o (B,H,D) f32 normalised, m (B,H), l (B,H)).
 
-  CPU tensors run the plain version; CUDA tensors launch the kernel."""
+  CPU tensors run the plain version; CUDA tensors launch the kernel; meta
+  tensors allocate its outputs and its chunks' scratch and launch
+  nothing."""
   if q.device.type == "cpu":
     return ref.flash_decode_ref(q, k, v, bias, sm_scale=sm_scale, cap=cap)
   B, H, D = q.shape
@@ -99,14 +101,15 @@ def flash_decode(
   if bias is not None:
     bias = bias.to(**f32).contiguous()
   chunk = _chunk(S, D, k.element_size(), B * Hkv,
-                 torch.cuda.get_device_properties(q.device)
-                 .multi_processor_count)
+                 _build.sm_count(q.device))
   nsplit = -(-S // chunk)
   o = torch.empty((B, H, D), **f32)
   m = torch.empty((B, H), **f32)
   l = torch.empty((B, H), **f32)
   part = (_build.partials(q.device, B * H, nsplit, D) if nsplit > 1
           else (None,) * 4)
+  if _build.is_meta(q):
+    return o, m, l
   P = _build.ptr
   err = _build.library().flash_decode_launch(
       P(q), P(k), P(v), P(bias), P(o), P(m), P(l), *map(P, part), B, Hkv,
@@ -131,14 +134,15 @@ def _latent(q, k, v, bias, sm_scale, cap):
   if bias is not None:
     bias = bias.to(**f32).contiguous()
   chunk = _build.latent_chunk(
-      S, B * Hkv * _build.latent_tiles(G),
-      torch.cuda.get_device_properties(q.device).multi_processor_count)
+      S, B * Hkv * _build.latent_tiles(G), _build.sm_count(q.device))
   nsplit = -(-S // chunk)
   o = torch.empty((B, H, D), **f32)
   m = torch.empty((B, H), **f32)
   l = torch.empty((B, H), **f32)
   part = (_build.partials(q.device, B * H, nsplit, D) if nsplit > 1
           else (None,) * 4)
+  if _build.is_meta(q):
+    return o, m, l
   P = _build.ptr
   err = _build.library().flash_decode_latent_launch(
       P(q), P(k), P(v), P(bias), P(o), P(m), P(l), *map(P, part), B, Hkv,

@@ -37,7 +37,8 @@ def flash_prefill(
     cap: Optional[float] = None,
     window: Optional[int] = None,
 ) -> torch.Tensor:
-  """CPU tensors run the plain version; CUDA tensors launch the kernel."""
+  """CPU tensors run the plain version; CUDA tensors launch the kernel;
+  meta tensors allocate its output and launch nothing."""
   if q.device.type == "cpu":
     return ref.flash_prefill_ref(q, k, v, sm_scale=sm_scale, cap=cap,
                                  window=window)
@@ -58,6 +59,8 @@ def flash_prefill(
           f"G={G}")
     _build.check_aligned(NAME, q, k, v)
   out = torch.empty_like(q)
+  if _build.is_meta(q):
+    return out
   P = _build.ptr
   err = _build.library().flash_prefill_launch(
       P(q), P(k), P(v), P(out), B, S, H, Hkv, D, float(sm_scale),

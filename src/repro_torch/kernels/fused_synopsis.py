@@ -43,7 +43,8 @@ def fused_synopsis_score_attention(
 ):
   """Returns (scores (B,Hkv,M) f32, (o (B,H,D) f32, m (B,H), l (B,H))).
 
-  CPU tensors run the plain version; CUDA tensors launch the kernel."""
+  CPU tensors run the plain version; CUDA tensors launch the kernel; meta
+  tensors allocate its outputs and its scratch and launch nothing."""
   if q.device.type == "cpu":
     return ref.fused_synopsis_score_attention_ref(
         q, k_syn, v_syn, cbias, sm_scale=sm_scale, cap=cap, k_scale=k_scale,
@@ -66,8 +67,7 @@ def fused_synopsis_score_attention(
   _build.check_rows(NAME, D, G, k_syn, v_syn)
   cbias = cbias.to(device=q.device, dtype=torch.float32).contiguous()
   chunk = _chunk(M, D, k_syn.element_size(), B * Hkv,
-                 torch.cuda.get_device_properties(q.device)
-                 .multi_processor_count)
+                 _build.sm_count(q.device))
   nsplit = -(-M // chunk)
   f32 = dict(dtype=torch.float32, device=q.device)
   scores = torch.empty((B, Hkv, M), **f32)
@@ -76,6 +76,8 @@ def fused_synopsis_score_attention(
   l = torch.empty((B, H), **f32)
   part = (_build.partials(q.device, B * H, nsplit, D) if nsplit > 1
           else (None,) * 4)
+  if _build.is_meta(q):
+    return scores, (o, m, l)
   P = _build.ptr
   err = _build.library().fused_synopsis_launch(
       P(q), P(k_syn), P(v_syn), P(cbias), P(ks), P(vs), P(scores), P(o),
@@ -105,8 +107,7 @@ def _latent(q, k_syn, v_syn, cbias, sm_scale, cap, k_scale, v_scale):
   cbias = cbias.to(device=q.device, dtype=torch.float32).contiguous()
   ntiles = _build.latent_tiles(G)
   chunk = _build.latent_chunk(
-      M, B * Hkv * ntiles,
-      torch.cuda.get_device_properties(q.device).multi_processor_count)
+      M, B * Hkv * ntiles, _build.sm_count(q.device))
   nsplit = -(-M // chunk)
   f32 = dict(dtype=torch.float32, device=q.device)
   scores = torch.empty((B, Hkv, M), **f32)
@@ -117,6 +118,8 @@ def _latent(q, k_syn, v_syn, cbias, sm_scale, cap, k_scale, v_scale):
   part = (_build.partials(q.device, B * H, nsplit, D)[:3] if nsplit > 1
           else (None,) * 3)
   tickets = _build.tickets(q.device, B * Hkv * (ntiles + 1))
+  if _build.is_meta(q):
+    return scores, (o, m, l)
   P = _build.ptr
   err = _build.library().fused_synopsis_latent_launch(
       P(q), P(k_syn), P(v_syn), P(cbias), P(ks), P(vs), P(scores),

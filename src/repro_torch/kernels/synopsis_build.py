@@ -36,7 +36,8 @@ def segment_build(
   counts, k_syn_scale, v_syn_scale[, k_scale, v_scale]} (scales (N, Hkv,
   M) f32).
 
-  CPU tensors run the plain version; CUDA tensors launch the kernel."""
+  CPU tensors run the plain version; CUDA tensors launch the kernel; meta
+  tensors allocate its outputs and launch nothing."""
   qc = qt.parse_qconfig(quant)
   if k.device.type == "cpu":
     if qc.enabled:
@@ -65,14 +66,15 @@ def segment_build(
   n_scales = (2 if qc.enabled else 0) + (2 if qc.sorted_kv else 0)
   scales = [torch.empty((N, Hkv, M), dtype=torch.float32, device=k.device)
             for _ in range(n_scales)] + [None] * (4 - n_scales)
-  P = _build.ptr
-  err = _build.library().segment_build_launch(
-      P(k), P(v), P(perm), P(k_sorted), P(v_sorted), P(k_syn), P(v_syn),
-      P(counts), *map(P, scales), N, Hkv, S, D, C, code,
-      _build.code_of(qdt) if qc.enabled else 0,
-      int(qc.sorted_kv), _build.stream_ptr(k))
-  _build.check(err, NAME)
-  _build.LAUNCHES[_build.branch(NAME, qc.spec)] += 1
+  if not _build.is_meta(k):
+    P = _build.ptr
+    err = _build.library().segment_build_launch(
+        P(k), P(v), P(perm), P(k_sorted), P(v_sorted), P(k_syn), P(v_syn),
+        P(counts), *map(P, scales), N, Hkv, S, D, C, code,
+        _build.code_of(qdt) if qc.enabled else 0,
+        int(qc.sorted_kv), _build.stream_ptr(k))
+    _build.check(err, NAME)
+    _build.LAUNCHES[_build.branch(NAME, qc.spec)] += 1
   if not qc.enabled:
     return k_sorted, v_sorted, k_syn, v_syn, counts
   out = {"k": k_sorted, "v": v_sorted, "k_syn": k_syn, "v_syn": v_syn,

@@ -25,7 +25,8 @@ def synopsis_score(
 ) -> torch.Tensor:
   """Returns scores (B, Hkv, M) f32.
 
-  CPU tensors run the plain version; CUDA tensors launch the kernel."""
+  CPU tensors run the plain version; CUDA tensors launch the kernel; meta
+  tensors allocate its output and launch nothing."""
   if q.device.type == "cpu":
     return ref.synopsis_score_ref(q, k_syn, sm_scale=sm_scale)
   B, H, D = q.shape
@@ -39,6 +40,8 @@ def synopsis_score(
   code = _build.dtype_code(NAME, q, k_syn)
   _build.check_rows(NAME, D, G, q, k_syn)
   scores = torch.empty((B, Hkv, M), dtype=torch.float32, device=q.device)
+  if _build.is_meta(q):
+    return scores
   err = _build.library().synopsis_score_launch(
       _build.ptr(q), _build.ptr(k_syn), _build.ptr(scores), B, Hkv, G, M, D,
       float(sm_scale), code, _build.stream_ptr(q))
@@ -56,6 +59,8 @@ def _latent(q, k_syn, sm_scale):
   G = H // Hkv
   code = _build.latent_codes(NAME, D, G, q, k_syn)
   scores = torch.empty((B, Hkv, M), dtype=torch.float32, device=q.device)
+  if _build.is_meta(q):
+    return scores
   err = _build.library().synopsis_score_latent_launch(
       _build.ptr(q), _build.ptr(k_syn), _build.ptr(scores), B, Hkv, G, M, D,
       float(sm_scale), code, _build.stream_ptr(q))

@@ -8,7 +8,9 @@ the experts; command-r's parallel attention-and-FFN blocks; deepseek's
 MLA attention and shared experts).  ``dtype`` is a torch dtype.
 
 :func:`param_shapes` is the parameter tree's layout, which the init, the
-bridge's check and :meth:`ModelConfig.param_count` all read."""
+bridge's check and :meth:`ModelConfig.param_count` all read;
+:func:`param_axes` is the same tree with each leaf's logical axes (the JAX
+tree's ``Box`` axes), which the rule tables of ``dist.sharding`` resolve."""
 from __future__ import annotations
 
 import dataclasses
@@ -293,6 +295,60 @@ def param_shapes(c: ModelConfig) -> Dict:
                    "ln2": (ne, d), "mlp": _mlp_shapes(ec, ne, ec.d_ff)},
         "final_norm": (d,)}
   return out
+
+
+# Each leaf's logical axes (without the leading "layers" of a stacked
+# leaf), by the dict that holds it: an attention's (``attn`` / ``cross``,
+# MLA's leaves too), an MLP's (``mlp`` / ``moe/shared``), the MoE's, the
+# SSM's; a layer's norm gains are ("embed",).
+_LEAF_AXES = {
+    "attn": {"wq": ("embed", "heads", None),
+             "wk": ("embed", "kv_heads", None),
+             "wv": ("embed", "kv_heads", None),
+             "wo": ("heads", None, "embed"), "bq": ("heads", None),
+             "bo": ("embed",), "wq_a": ("embed", "qlora"),
+             "q_norm": ("qlora",), "wq_b": ("qlora", "heads", None),
+             "wkv_a": ("embed", "kvlora"), "kv_norm": ("kvlora",),
+             "wk_b": ("kvlora", "heads", None),
+             "wv_b": ("kvlora", "heads", None)},
+    "mlp": {"w1": ("embed", "ff"), "w3": ("embed", "ff"),
+            "w2": ("ff", "embed"), "b1": ("ff",), "b2": ("embed",)},
+    "moe": {"router": ("embed", "expert"), "w1": ("expert", "embed", "ff"),
+            "w3": ("expert", "embed", "ff"), "w2": ("expert", "ff", "embed")},
+    "ssm": {"in_proj": ("embed", "ssm_heads"),
+            "conv_w": (None, "ssm_heads"), "conv_b": ("ssm_heads",),
+            "A_log": ("ssm_heads",), "D": ("ssm_heads",),
+            "dt_bias": ("ssm_heads",), "norm": ("ssm_heads",),
+            "out_proj": ("ssm_heads", "embed")},
+}
+_LEAF_AXES["cross"] = _LEAF_AXES["attn"]
+_LEAF_AXES["shared"] = _LEAF_AXES["mlp"]
+_TOP_AXES = {"embed": ("vocab", "embed"), "unembed": ("embed", "vocab"),
+             "final_norm": ("embed",), "frontend_proj": (None, "embed")}
+
+
+def param_axes(c: ModelConfig) -> Dict:
+  """:func:`param_shapes`' tree with each leaf's logical axes in place of
+  its shape: a stacked leaf (``blocks`` and ``encoder/blocks``) leads with
+  "layers", then the axes of ``_LEAF_AXES``; the norm gains are
+  ("embed",).  These are the JAX tree's ``Box`` axes, leaf for leaf."""
+  def walk(tree, parent, stacked):
+    out = {}
+    for k, v in tree.items():
+      if isinstance(v, dict):
+        out[k] = walk(v, k, stacked or k == "blocks")
+        continue
+      if not stacked:
+        ax = _TOP_AXES[k]
+      elif parent in _LEAF_AXES:
+        ax = ("layers",) + _LEAF_AXES[parent][k]
+      else:                                   # ln1, ln2, ln_cross, *_post
+        ax = ("layers", "embed")
+      if len(ax) != len(v):
+        raise AssertionError(f"axes {ax} of {k} do not fit its shape {v}")
+      out[k] = ax
+    return out
+  return walk(param_shapes(c), None, False)
 
 
 def encoder_config(c: ModelConfig) -> ModelConfig:

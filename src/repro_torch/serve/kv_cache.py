@@ -54,18 +54,23 @@ SCALE_AXES = ("layers", None, "batch", "kv_heads", "kv_seq")
 RECENT_AXES = ("layers", None, "batch", "kv_heads", None, None)
 SSM_CONV_AXES = ("layers", None, "batch", None, "ssm_heads")
 SSM_STATE_AXES = ("layers", None, "batch", "ssm_heads", None, "ssm_state")
+CROSS_AXES = ("layers", None, "batch", "kv_heads", None, None)
 
 
 def cache_struct(cfg: ModelConfig, B: int, S: int, *,
-                 synopsis: bool) -> Dict[str, Any]:
+                 synopsis: bool, cross: bool = False) -> Dict[str, Any]:
   """{leaf: (shape, dtype, logical axes)} of the decode cache for (cfg,
   batch, sequence length).  A config with cross blocks (whisper) is
-  refused: the JAX pool sizes its cross leaves by the encoder's
-  ``source_len`` while the loop's prefill emits them at prompt length, so
-  the JAX engine fails its first slot write (ROADMAP C).  With no
-  attention position (mamba2) the cache is the SSM state and ``pos``."""
+  refused unless ``cross``: the JAX pool sizes its cross leaves by the
+  encoder's ``source_len`` while the loop's prefill emits them at prompt
+  length, so the JAX engine fails its first slot write (ROADMAP C).  With
+  ``cross`` (the dry run, which lowers the reference's decode cells from
+  this layout) the cache also holds ``cross_k`` / ``cross_v`` (nb, na, B,
+  Hkv, source_len, hd) in ``cfg.dtype`` with the reference's
+  ``CROSS_AXES``.  With no attention position (mamba2) the cache is the
+  SSM state and ``pos``."""
   tf.check_supported(cfg)
-  if tf.has_cross(cfg):
+  if tf.has_cross(cfg) and not cross:
     raise NotImplementedError(
         f"{cfg.name}: no slot pool for cross-attention caches (the JAX "
         "pool sizes cross_k / cross_v by the encoder's source_len, the "
@@ -102,6 +107,10 @@ def cache_struct(cfg: ModelConfig, B: int, S: int, *,
     shapes = ssm_state_shapes(cfg, B)
     out["conv_state"] = (shapes["conv_state"], dt, SSM_CONV_AXES)
     out["ssd_state"] = (shapes["ssd_state"], torch.float32, SSM_STATE_AXES)
+  if tf.has_cross(cfg):
+    T = cfg.encoder.source_len
+    for name in ("cross_k", "cross_v"):
+      out[name] = ((nb, na, B, cfg.n_kv_heads, T, cfg.hd), dt, CROSS_AXES)
   out["pos"] = ((B,), torch.int32, ("batch",))
   return out
 

@@ -56,7 +56,13 @@ cache's sequence axis (``SERVE_RULES``: over `model`; ``LONG_RULES``: over
 ``(data, model)``), each rank holds its shard of the cache
 (:func:`shard_cache`) and a global layer's synopsis decode is
 :func:`sharded_synopsis_attention`: the paper's scatter-gather over the
-ranks, with every rank running the same step on its own shard.
+ranks, with every rank running the same step on its own shard.  Exact
+decode on such a shard (``mode="exact"``, and a local layer's window in
+either mode) is :func:`sharded_exact_decode_attention`: each rank's
+partial over its rows (of the global window), one all-gather of the
+partials, merged in shard order.  A sequence-cut shard with no mesh
+installed raises: computed alone it would give the shard's answer, not
+the global one.
 
 A quantized arena's scale leaves (``kernels/quant.py``) ride in the layer
 slice when the cache has them.  The cache is read-only inside the step;
@@ -157,34 +163,57 @@ def shard_layout(mesh, seq_axes, M: int, B: int) -> ShardLayout:
 # Each cache leaf's (batch axis, sequence axis, the sequence axis's rows a
 # cluster), from the end: the same for a layer's slice (B, Hkv, S, D) and
 # the whole cache (nb, na, B, Hkv, S, D).  None: the leaf has no such axis.
+# The cross leaves (whisper) and the SSM state are cut by batch only: the
+# port's mamba layers hold their heads whole (ROADMAP A.7d).
 _SHARD_AXES = {"k": (-4, -2, "C"), "v": (-4, -2, "C"),
                "k_syn": (-4, -2, 1), "v_syn": (-4, -2, 1),
                "counts": (-2, -1, 1),
                "k_syn_scale": (-3, -1, 1), "v_syn_scale": (-3, -1, 1),
                "k_scale": (-3, -1, 1), "v_scale": (-3, -1, 1),
                "recent_k": (-4, None, 0), "recent_v": (-4, None, 0),
-               "recent_len": (-1, None, 0), "pos": (-1, None, 0)}
+               "recent_len": (-1, None, 0), "pos": (-1, None, 0),
+               "cross_k": (-4, None, 0), "cross_v": (-4, None, 0),
+               "conv_state": (-3, None, 0), "ssd_state": (-4, None, 0)}
+
+
+def _cache_units(cache: Dict[str, torch.Tensor]) -> Tuple[int, int, int]:
+  """(units the sequence is cut in, batch, rows a unit) of a global cache:
+  a synopsis cache's M clusters of C rows; an exact cache's S rows; a
+  cache with no attention leaf (mamba2) one unit, so its sequence is never
+  cut."""
+  if "counts" in cache:
+    M, B = cache["counts"].shape[-1], cache["counts"].shape[-2]
+    return M, B, cache["k"].shape[-2] // M
+  if "k" in cache:
+    return cache["k"].shape[-2], cache["k"].shape[-4], 1
+  return 1, cache["pos"].shape[-1], 1
 
 
 def shard_cache(cache: Dict[str, torch.Tensor], mesh, rules
                 ) -> Dict[str, torch.Tensor]:
-  """This rank's shard of a global synopsis cache (one layer's slice or the
-  whole cache) under ``rules`` on ``mesh``: M/n clusters of the centroid
-  tables, counts and scales, their S/n rows of the sorted k / v, and the
-  rank's batch rows of every leaf (:func:`shard_layout`'s dispatch); the
-  recent ring, ``recent_len`` and ``pos`` are cut by batch only.  The
-  shard's leaves are contiguous copies, and its ``"layout"`` entry (a
-  :class:`ShardLayout`) tells :func:`sharded_synopsis_attention` how it was
-  cut.  A leaf not listed in
-  ``_SHARD_AXES`` is refused where the batch is cut."""
+  """This rank's shard of a global decode cache (one layer's slice or the
+  whole cache) under ``rules`` on ``mesh``.  A synopsis cache: M/n clusters
+  of the centroid tables, counts and scales, their S/n rows of the sorted k
+  / v, and the rank's batch rows of every leaf (:func:`shard_layout`'s
+  dispatch); the recent ring, ``recent_len`` and ``pos`` are cut by batch
+  only.  An exact cache: S/n rows of k / v (the same dispatch over its S
+  rows).  The cross leaves and the SSM state are cut by batch only; a
+  cache with no attention leaf (mamba2) by batch over the mesh's `pod` /
+  `data` axes where B divides.  The shard's leaves are contiguous copies,
+  and its ``"layout"`` entry (a :class:`ShardLayout`) tells the decode
+  attention how it was cut.  A leaf not listed in ``_SHARD_AXES`` is
+  refused where the batch is cut."""
   mesh = shd.require_mesh(mesh)
-  counts = cache["counts"]
-  M, B = counts.shape[-1], counts.shape[-2]
+  M, B, C = _cache_units(cache)
   with shd.use_mesh(mesh, rules):
     layout = shard_layout(mesh, _seq_axes(), M, B)
+  if "k" not in cache:
+    dp = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    dp_n = math.prod(mesh.shape[a] for a in dp) if dp else 1
+    if dp and B % dp_n == 0 and dp_n > 1:
+      layout = ShardLayout((), 1, dp, dp_n, M, B)
   sid = mesh.index(layout.seq_axes) if layout.seq_axes else 0
   bid = mesh.index(layout.dp_axes) if layout.dp_axes else 0
-  C = cache["k"].shape[-2] // M
   out = {}
   for name, x in cache.items():
     if name == "layout":
@@ -238,6 +267,7 @@ def sharded_synopsis_attention(
   mesh = shd.current_mesh()
   layout = cache.get("layout")
   plain = {k: x for k, x in cache.items() if k != "layout"}
+  _require_mesh_for(layout, mesh)
   if mesh is None or layout is None or not layout.seq_axes:
     return synopsis_decode_attention(
         q, plain, i_max=i_max, cluster_size=cluster_size, sm_scale=sm_scale,
@@ -282,6 +312,66 @@ def sharded_synopsis_attention(
   return acc[0]
 
 
+def _require_mesh_for(layout: Optional[ShardLayout], mesh) -> None:
+  """A shard whose sequence was cut needs its mesh: alone it would give
+  the shard's answer."""
+  if layout is not None and layout.seq_axes and mesh is None:
+    raise RuntimeError(
+        f"a rank's shard of the cache (its sequence cut over "
+        f"{layout.seq_axes}) decoded with no mesh installed (use_mesh): "
+        "attention over the shard alone is not the global answer")
+
+
+def _empty_partials(q: torch.Tensor):
+  """The partials of no key: o 0, m NEG_INF, l 0 (the merge's identity)."""
+  B, H, D = q.shape
+  f32 = dict(dtype=torch.float32, device=q.device)
+  return (torch.zeros((B, H, D), **f32),
+          torch.full((B, H), ops.NEG_INF, **f32), torch.zeros((B, H), **f32))
+
+
+def sharded_exact_decode_attention(
+    q: torch.Tensor,                      # (B_local, H, D)
+    k: torch.Tensor,                      # (B_local, Hkv, S/n, D) a shard
+    v: torch.Tensor,
+    layout: ShardLayout,
+    *,
+    sm_scale: float,
+    cap: Optional[float] = None,
+    self_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+  """Exact decode attention over a cache whose sequence is cut over the
+  mesh (``layout.seq_axes``, shard ``sid`` of n holding global rows [sid
+  S/n, (sid + 1) S/n)): each rank's ``flash_decode`` partials over its
+  rows, or with ``window`` (a local layer) over its rows among the global
+  last ``window`` rows, the empty partial where it holds none; the new
+  token's self partial folds into shard 0's only; one all-gather of the
+  packed partials, merged in shard order, gives every rank the global
+  answer (B_local, H, D) f32.  With no mesh installed it raises."""
+  mesh = shd.current_mesh()
+  _require_mesh_for(layout, mesh)
+  axes = layout.seq_axes
+  sid = mesh.index(axes)
+  rows = k.shape[2]
+  lo, S = sid * rows, rows * layout.nshards
+  start = lo if window is None else max(lo, S - window)
+  if start < lo + rows:
+    part = ops.decode_partials(q, k[:, :, start - lo:], v[:, :, start - lo:],
+                               sm_scale=sm_scale, cap=cap)
+  else:
+    part = _empty_partials(q)
+  if self_kv is not None and sid == 0:
+    part = ops.merge_partials(part, ops.decode_partials(
+        q, self_kv[0], self_kv[1], sm_scale=sm_scale, cap=cap))
+  parts = mesh.all_gather(ops.pack_partials(part), axes, dim=0,
+                          tiled=False)                        # (n,B,H,D+2)
+  acc = ops.unpack_partials(parts[0])
+  for p in parts[1:]:
+    acc = ops.merge_partials(acc, ops.unpack_partials(p))
+  return acc[0]
+
+
 def exact_decode_attention(
     q: torch.Tensor,                      # (B, H, D)
     k: torch.Tensor,                      # (B, Hkv, S, D)
@@ -312,9 +402,13 @@ def _decode_attention(q, cache_sl, cfg: ModelConfig, local: bool, mode: str,
   exact (a local layer: over its window) or synopsis (``attention_fn``
   where given).  Returns (ctx (B, H, D) f32, aux or None)."""
   if local or mode == "exact":
+    window = cfg.sliding_window if local else None
+    layout = cache_sl.get("layout")
+    if layout is not None and layout.seq_axes:
+      return sharded_exact_decode_attention(
+          q, cache_sl["k"], cache_sl["v"], layout, window=window, **kw), None
     return exact_decode_attention(
-        q, cache_sl["k"], cache_sl["v"],
-        window=cfg.sliding_window if local else None, **kw), None
+        q, cache_sl["k"], cache_sl["v"], window=window, **kw), None
   kw.update(i_max=i_max, cluster_size=cfg.synopsis.cluster_size)
   if attention_fn is not None:
     return attention_fn(q, cache_sl, **kw)
@@ -461,8 +555,8 @@ def make_serve_step(cfg: ModelConfig, *, mode: str = "synopsis",
             # modes) go to every layer whole.
             layer_cache.update((kk, t) for kk, t in cache.items()
                                if kk.startswith("fe_"))
-            if "layout" in cache:          # a rank's shard (shard_cache)
-              layer_cache["layout"] = cache["layout"]
+          if "layout" in cache:            # a rank's shard (shard_cache)
+            layer_cache["layout"] = cache["layout"]
           mix, (kd, vd), aux = _attn_decode_layer(
               h, lp["attn"], cfg, spec.local, layer_cache, pos, mode, i_max,
               attention_fn)

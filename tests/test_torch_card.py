@@ -2266,3 +2266,121 @@ def test_sharded_synopsis_on_ranks_sharing_the_card(cuda):
     assert r["err_one_rank"] <= 1e-4 + 1e-4 * r["scale"], r
     assert r["launches"] == {"fused_synopsis_score_attention": 1,
                              "block_gather_attention": 1}, r
+
+
+def test_sharded_exact_on_ranks_sharing_the_card(cuda):
+  """Four gloo ranks on the one card, each on its quarter of a 1024-row
+  exact cache: the sharded exact decode against the one-rank kernel on the
+  global cache (f32), whole and with a 384-row window that crosses from
+  shard 2 into shard 3 and leaves shards 0 and 1 empty; ``flash_decode``
+  launched once on each rank's rows it holds, and once more for the self
+  token on shard 0."""
+  import torch_mesh_ranks
+  from repro_torch.dist import world
+  _build.build()
+  res = world.run_world(torch_mesh_ranks.card_exact_world, 4, (5,),
+                        device="cuda", timeout_s=120.0)
+  for r in res:
+    for window, c in r["cases"].items():
+      assert c["err_one_rank"] <= 1e-4 + 1e-4 * c["scale"], (r["rank"], c)
+      holds = window is None or r["rank"] >= 2
+      want = int(holds) + (r["rank"] == 0)
+      assert c["launches"] == want, (r["rank"], window, c)
+
+
+def _wrapper_calls(dev):
+  """Every kernel wrapper's calls, on ``dev``, as the ops layer makes
+  them at small shapes: prefill (f32, bf16), each quant spec's build,
+  fused decode and stage 2, the unfused op, exact decode over a window's
+  strided view, and the latent core's kernels (f32 and an int8+kv
+  arena)."""
+  names = ("flash_prefill", "segment_build",
+           "fused_synopsis_score_attention", "block_gather_attention",
+           "flash_decode", "synopsis_score")
+  calls = []
+  mp = pytest.MonkeyPatch()
+  for name in names:
+    fn = getattr(ops, name)
+    mp.setattr(ops, name, (lambda n, f: lambda *a, **kw: (
+        calls.append((n, f, a, kw)), f(*a, **kw))[1])(name, fn))
+  g = torch.Generator(dev).manual_seed(0)
+  B, C, M, R = 2, 16, 8, 5
+  S = M * C
+  try:
+    for D, Hkv, G, dt, specs in (
+        (64, 2, 4, torch.float32, ("none", "int8", "fp8", "int8+kv",
+                                   "fp8+kv")),
+        (64, 2, 4, torch.bfloat16, ("none",)),
+        (48, 1, 8, torch.float32, ("none", "int8+kv"))):
+      H = Hkv * G
+
+      def rnd(*shape, dtype=dt):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+      if D != 48:
+        ops.prefill_attention(rnd(B, S, H, D), rnd(B, S, Hkv, D),
+                              rnd(B, S, Hkv, D), sm_scale=0.3)
+      for spec in specs:
+        k, v = rnd(B, Hkv, S, D), rnd(B, Hkv, S, D)
+        perm = torch.stack([torch.randperm(S, device=dev)
+                            for _ in range(B)])
+        built = ops.synopsis_build(k, v, perm, cluster_size=C,
+                                   qconfig=None if spec == "none" else spec)
+        if spec == "none":
+          built = dict(zip(("k", "v", "k_syn", "v_syn", "counts"), built))
+        q = rnd(B, H, D, dtype=torch.float32 if D == 48 else dt)
+        ops.synopsis_cache_attention(
+            q, built["k"], built["v"], built["k_syn"], built["v_syn"],
+            built["counts"], rnd(B, Hkv, R, D), rnd(B, Hkv, R, D),
+            torch.tensor([3, 5], device=dev), rnd(B, Hkv, 1, D),
+            rnd(B, Hkv, 1, D), *(built.get(n) for n in qt.SCALE_LEAVES),
+            i_max=3, cluster_size=C, sm_scale=0.25)
+        if spec == "none":
+          ops.synopsis_attention(q, built["k"], built["v"], built["k_syn"],
+                                 built["v_syn"], built["counts"], i_max=3,
+                                 sm_scale=0.25)
+          ops.decode_partials(q, k[:, :, -40:], v[:, :, -40:],
+                              sm_scale=0.25)
+  finally:
+    mp.undo()
+  return calls
+
+
+def _meta_copy(x):
+  if isinstance(x, torch.Tensor):
+    return torch.empty_strided(x.shape, x.stride(), dtype=x.dtype,
+                               device="meta")
+  if isinstance(x, (tuple, list)):
+    return type(x)(_meta_copy(t) for t in x)
+  if isinstance(x, dict):
+    return {k: _meta_copy(v) for k, v in x.items()}
+  return x
+
+
+def test_meta_allocation_equals_the_cuda_call(cuda):
+  """Each wrapper's call on ``meta`` (traced by ``MemoryTracker``)
+  allocates the bytes its CUDA call allocates: ``max_memory_allocated`` -
+  ``memory_allocated`` around one call, after a warm-up call on each
+  device (the merge tickets are made once a device).  A strided view keeps
+  its strides on ``meta``."""
+  from repro_torch.analysis.tracker import MemoryTracker
+  calls = _wrapper_calls(cuda)
+  assert {c[0] for c in calls} == {
+      "flash_prefill", "segment_build", "fused_synopsis_score_attention",
+      "block_gather_attention", "flash_decode", "synopsis_score"}
+  for name, fn, args, kw in calls:
+    margs, mkw = _meta_copy(args), _meta_copy(kw)
+    fn(*args, **kw)
+    fn(*margs, **mkw)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    card = torch.cuda.max_memory_allocated() - base
+    del out
+    with MemoryTracker((margs, mkw)) as trk:
+      mout = fn(*margs, **mkw)
+      trk.finish(mout)
+    assert trk.peak_bytes == card, (name, [getattr(a, "shape", a)
+                                           for a in args], trk.peak_bytes,
+                                    card)

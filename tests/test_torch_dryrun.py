@@ -1,0 +1,385 @@
+"""The port's dry run (``repro_torch.launch.dryrun``): the kernel wrappers'
+meta branches, the abstract mesh's tallies and ``run_cell`` on the meta
+device.  No card: nothing is allocated and no kernel launches.
+
+* Each kernel wrapper, every branch (unquantized, int8 / fp8 tables, the
+  ``+kv`` caches, the latent core, bf16 prefill), called on ``meta`` with
+  the arguments the ops layer gives it on the CPU: the outputs have the
+  plain version's shapes and dtypes, nothing is launched and the library
+  is never loaded; the split-and-merge scratch is allocated as on the
+  card (hand-counted).
+* ``run_cell`` on decode_32k (exact and synopsis) for every arch on the
+  single-pod mesh, and one train, one prefill and one long_500k cell on
+  each mesh: the artifact's keys (the reference's, without
+  ``raw_cost_analysis``, and the port's), the roofline terms against the
+  cost model on the H100's constants, the collectives against an analytic
+  count (per sharded attention layer one all-gather of the (B_local, Hkv,
+  M/n) f32 scores, synopsis only, and one of the (B_local, H, D+2)
+  partials; a train step's one all-reduce of the flat gradients), rank 0
+  and the last rank alike; the CLI's line and the report.
+"""
+import json
+import math
+
+import pytest
+import torch
+
+from repro_torch.analysis import costmodel as cost
+from repro_torch.analysis import report
+from repro_torch.analysis import roofline as roof
+from repro_torch.analysis.tracker import MemoryTracker, storage_bytes
+from repro_torch.configs import shapes as shp
+from repro_torch.configs.registry import get_config, list_archs
+from repro_torch.dist import sharding as shd
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels import quant as qt
+from repro_torch.kernels.block_gather_attention import block_gather_attention
+from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.flash_prefill import flash_prefill
+from repro_torch.kernels.fused_synopsis import fused_synopsis_score_attention
+from repro_torch.kernels.synopsis_build import segment_build
+from repro_torch.kernels.synopsis_score import synopsis_score
+from repro_torch.launch import dryrun as dr
+from repro_torch.models import common as cm
+
+torch.set_num_threads(1)
+
+WRAPPERS = {f.__name__: f for f in (
+    flash_prefill, segment_build, fused_synopsis_score_attention,
+    block_gather_attention, flash_decode, synopsis_score)}
+QSPECS = ("none", "int8", "fp8", "int8+kv", "fp8+kv")
+
+
+def _meta(x):
+  if isinstance(x, torch.Tensor):
+    return x.to("meta")
+  if isinstance(x, (tuple, list)):
+    return type(x)(_meta(t) for t in x)
+  if isinstance(x, dict):
+    return {k: _meta(v) for k, v in x.items()}
+  return x
+
+
+def _layout(x):
+  if isinstance(x, torch.Tensor):
+    return (tuple(x.shape), x.dtype)
+  if isinstance(x, (tuple, list)):
+    return tuple(_layout(t) for t in x)
+  if isinstance(x, dict):
+    return {k: _layout(v) for k, v in x.items()}
+  return x
+
+
+def _recorded_calls(case):
+  """The wrappers' calls (name, args, kwargs) that the ops layer makes on
+  the CPU for one case: prefill, build, the fused decode, the unfused op
+  and exact decode with a strided window."""
+  calls = []
+
+  def rec(name):
+    fn = WRAPPERS[name]
+
+    def wrapped(*a, **kw):
+      calls.append((name, a, kw))
+      return fn(*a, **kw)
+    return wrapped
+
+  mp = pytest.MonkeyPatch()
+  for name in WRAPPERS:
+    mp.setattr(ops, name, rec(name))
+  try:
+    _drive_ops(**case)
+  finally:
+    mp.undo()
+  return calls
+
+
+def _drive_ops(spec, D, Hkv, G, dtype, q_dtype):
+  g = torch.Generator().manual_seed(0)
+  B, C, M, R = 2, 16, 8, 5
+  S, H = M * C, Hkv * G
+
+  def rnd(*shape, dt=dtype):
+    return torch.randn(shape, generator=g).to(dt)
+
+  latent = _build.is_latent(D)
+  if not latent and spec == "none":
+    qp = rnd(B, S, H, D)
+    ops.prefill_attention(qp, rnd(B, S, Hkv, D), rnd(B, S, Hkv, D),
+                          sm_scale=0.3, window=7)
+  k, v = rnd(B, Hkv, S, D), rnd(B, Hkv, S, D)
+  perm = torch.stack([torch.randperm(S, generator=g) for _ in range(B)])
+  built = ops.synopsis_build(k, v, perm, cluster_size=C,
+                             qconfig=None if spec == "none" else spec)
+  if spec == "none":
+    built = dict(zip(("k", "v", "k_syn", "v_syn", "counts"), built))
+  q = rnd(B, H, D, dt=q_dtype)
+  ring = rnd(B, Hkv, R, D), rnd(B, Hkv, R, D)
+  self_kv = rnd(B, Hkv, 1, D), rnd(B, Hkv, 1, D)
+  ops.synopsis_cache_attention(
+      q, built["k"], built["v"], built["k_syn"], built["v_syn"],
+      built["counts"], *ring, torch.tensor([3, 5]), *self_kv,
+      *(built.get(n) for n in qt.SCALE_LEAVES), i_max=3, cluster_size=C,
+      sm_scale=0.25)
+  if spec == "none":
+    ops.synopsis_attention(q, built["k"], built["v"], built["k_syn"],
+                           built["v_syn"], built["counts"], i_max=3,
+                           sm_scale=0.25)
+    ops.decode_partials(q, k[:, :, -40:], v[:, :, -40:], sm_scale=0.25,
+                        cap=30.0)
+
+
+WRAPPER_CASES = {
+    **{f"f32-{s}": dict(spec=s, D=16, Hkv=2, G=2, dtype=torch.float32,
+                        q_dtype=torch.float32) for s in QSPECS},
+    "bf16": dict(spec="none", D=64, Hkv=2, G=4, dtype=torch.bfloat16,
+                 q_dtype=torch.bfloat16),
+    **{f"latent-{s}": dict(spec=s, D=48, Hkv=1, G=8, dtype=torch.float32,
+                           q_dtype=torch.float32)
+       for s in ("none", "int8+kv", "fp8")},
+}
+
+
+@pytest.mark.parametrize("name", list(WRAPPER_CASES))
+def test_wrappers_meta_outputs_match_the_plain_versions(name, monkeypatch):
+  """On ``meta`` each wrapper returns what its plain version returns on
+  the CPU, shape for shape and dtype for dtype, and launches nothing: the
+  library is never asked for and no launch is counted."""
+  calls = _recorded_calls(WRAPPER_CASES[name])
+  seen = {c[0] for c in calls}
+  assert {"segment_build", "fused_synopsis_score_attention",
+          "block_gather_attention"} <= seen, seen
+
+  def no_library():
+    raise AssertionError("a meta tensor reached a kernel launch")
+  monkeypatch.setattr(_build, "library", no_library)
+  before = dict(_build.LAUNCHES)
+  for wname, args, kw in calls:
+    want = WRAPPERS[wname](*args, **kw)
+    got = WRAPPERS[wname](*_meta(args), **_meta(kw))
+    assert _layout(got) == _layout(want), wname
+    for t in (got if isinstance(got, (tuple, list)) else [got]):
+      for x in (t if isinstance(t, (tuple, list)) else [t]):
+        assert not isinstance(x, torch.Tensor) or x.device.type == "meta"
+  assert _build.LAUNCHES == before
+
+
+def test_meta_branch_allocates_the_split_scratch():
+  """flash_decode over 4096 rows on ``meta`` chunks S by the H100's 132
+  SMs (32 chunks of 128 rows at B Hkv = 2) and allocates the outputs and
+  one scratch buffer of the chunks' partials, as its CUDA launch does."""
+  B, Hkv, G, D, S = 1, 2, 4, 128, 4096
+  H = Hkv * G
+  q = torch.empty((B, H, D), device="meta")
+  k = torch.empty((B, Hkv, S, D), device="meta")
+  flash_decode(q, k, k)                    # the merge tickets, made once
+  with MemoryTracker({"q": q, "k": k}) as trk:
+    out = flash_decode(q, k, k)
+    trk.finish(out)
+  nsplit = 32
+  unit = lambda n: -(-n // 512) * 512  # noqa: E731
+  assert trk.output_bytes == unit(B * H * D * 4) + 2 * unit(B * H * 4)
+  assert trk.temp_bytes == unit(B * H * nsplit * (D + 2) * 4)
+
+
+def test_cpu_and_other_devices_never_take_the_meta_branch():
+  """A CPU tensor runs the plain version (values, on the CPU); past the
+  plain version's branch, a tensor on neither CUDA nor ``meta`` is
+  refused by the wrappers' first check."""
+  q = torch.randn(1, 4, 16)
+  k = torch.randn(1, 2, 32, 16)
+  o, m, l = flash_decode(q, k, k)
+  assert o.device.type == "cpu" and torch.isfinite(o).all()
+  with pytest.raises(ValueError, match="CUDA"):
+    _build.dtype_code("x", torch.empty(1))
+
+
+# -- run_cell on the meta device -----------------------------------------------
+
+JAX_KEYS = {"arch", "shape", "mesh", "chips", "mode", "microbatches",
+            "lower_s", "compile_s", "memory", "fits_hbm", "collectives",
+            "roofline"}
+PORT_KEYS = {"rank", "collective_calls", "card", "card_memory_bytes",
+             "weights", "argument_bytes_under_rules"}
+MEM_KEYS = {"argument_size_in_bytes", "output_size_in_bytes",
+            "temp_size_in_bytes", "alias_size_in_bytes",
+            "generated_code_size_in_bytes", "peak_bytes_per_device"}
+
+
+def _check_artifact(res, arch, shape_name, mode, multi):
+  cfg, shape = get_config(arch), shp.SHAPES[shape_name]
+  assert set(res) == JAX_KEYS | PORT_KEYS
+  assert set(res["memory"]) == MEM_KEYS
+  assert res["mesh"] == ("multi" if multi else "single")
+  assert res["chips"] == (512 if multi else 256)
+  assert res["weights"] == "whole" and res["card"] == roof.CARD
+  c = cost.cell_cost(cfg, shape, res["mode"])
+  r = res["roofline"]
+  chips = res["chips"]
+  assert r["flops_per_device"] == c.flops_global / chips
+  assert r["bytes_per_device"] == c.bytes_global / chips
+  assert r["compute_s"] == r["flops_per_device"] / roof.PEAK_FLOPS
+  assert r["memory_s"] == r["bytes_per_device"] / roof.HBM_BW
+  assert r["collective_s"] == res["collectives"]["total"] / roof.COLL_BW
+  assert r["bound_s"] == max(r["compute_s"], r["memory_s"],
+                             r["collective_s"])
+  assert r["model_flops"] == dr.model_flops(cfg, shape, mode)
+  m = res["memory"]
+  assert m["argument_size_in_bytes"] > cfg.param_count() * 2
+  assert m["peak_bytes_per_device"] == (
+      m["argument_size_in_bytes"] + m["output_size_in_bytes"]
+      + m["temp_size_in_bytes"] - m["alias_size_in_bytes"])
+  assert res["fits_hbm"] == (m["peak_bytes_per_device"]
+                             < dr.CARD_MEMORY)
+  assert 0 < res["argument_bytes_under_rules"] <= m["argument_size_in_bytes"]
+  assert res["collectives"]["total"] == sum(
+      res["collectives"][k] for k in shd.COLLECTIVES)
+
+
+def _attn_gathers(cfg, res, mode, B, S, rules):
+  """Operand bytes of the sharded attention's all-gathers a step."""
+  mesh = dr.make_abstract_production_mesh(multi_pod=res["mesh"] == "multi")
+  seq = rules["kv_seq"]
+  seq = (seq,) if isinstance(seq, str) else tuple(seq)
+  n = math.prod(mesh.shape[a] for a in seq)
+  dp = tuple(a for a in ("pod", "data") if a in mesh.shape and a not in seq)
+  dp_n = math.prod(mesh.shape[a] for a in dp) if dp else 1
+  b = B // dp_n if B % dp_n == 0 else B
+  Hkv, D = cm.kv_dims(cfg)
+  H = cfg.n_heads
+  n_attn = cm.n_attn_positions(cfg) * cfg.n_blocks
+  n_glob = sum(not s.local for s in cfg.block_pattern
+               if s.kind == "attn") * cfg.n_blocks
+  M = S // cfg.synopsis.cluster_size
+  parts = b * H * (D + 2) * 4 * n_attn
+  scores = b * Hkv * (M // n) * 4 * n_glob if mode == "synopsis" else 0
+  return parts + scores
+
+
+@pytest.mark.parametrize("mode", ["exact", "synopsis"])
+@pytest.mark.parametrize("arch", list_archs())
+def test_decode_32k_cell(arch, mode):
+  res = dr.run_cell(arch, "decode_32k", False, mode)
+  cfg = get_config(arch)
+  want_mode = "exact" if cm.n_attn_positions(cfg) == 0 else mode
+  assert res["mode"] == want_mode
+  _check_artifact(res, arch, "decode_32k", want_mode, False)
+  assert res["microbatches"] is None
+  want = _attn_gathers(cfg, res, want_mode, 128, 32768, shd.SERVE_RULES)
+  assert res["collectives"]["all-gather"] == want
+  assert res["collectives"]["total"] == want
+
+
+def test_ranks_tally_alike():
+  """Rank 0 of gemma2's exact decode holds no row of any local layer's
+  window (the last 4096 of 32768 rows lie on model shards 14 and 15), the
+  last rank all of its shard: both make the same collectives."""
+  first = dr.run_cell("gemma2-2b", "decode_32k", False, "exact", rank=0)
+  last = dr.run_cell("gemma2-2b", "decode_32k", False, "exact", rank=255)
+  assert first["collectives"] == last["collectives"]
+  assert first["collective_calls"] == last["collective_calls"]
+  assert first["memory"]["argument_size_in_bytes"] == \
+      last["memory"]["argument_size_in_bytes"]
+
+
+@pytest.mark.parametrize("multi", [False, True])
+def test_train_cell(multi):
+  """smollm-135m's train step on its rank's rows: one all-reduce of the
+  flat f32 gradients (with the loss and two metrics) over the
+  data-parallel ranks, an all-to-all and an all-gather of its pieces; on
+  the multi-pod mesh the compressed cross-pod reduction adds its
+  all-gathers."""
+  res = dr.run_cell("smollm-135m", "train_4k", multi, "auto")
+  cfg = get_config("smollm-135m")
+  assert res["mode"] == "n/a" and res["microbatches"] >= 1
+  _check_artifact(res, "smollm-135m", "train_4k", "n/a", multi)
+  n = sum(math.prod(s) for _, s in cm.leaves(cm.param_shapes(cfg))) + 3
+  dp = 32 if multi else 16
+  padded = -(-n // dp) * dp
+  assert res["collectives"]["all-to-all"] == 4 * padded
+  if not multi:
+    assert res["collectives"]["all-gather"] == 4 * padded // dp
+  else:
+    assert res["collectives"]["all-gather"] > 4 * padded // dp
+
+
+@pytest.mark.parametrize("multi", [False, True])
+def test_prefill_cell(multi):
+  """A prefill takes its rank's batch rows and calls no collective."""
+  res = dr.run_cell("smollm-135m", "prefill_32k", multi, "auto")
+  _check_artifact(res, "smollm-135m", "prefill_32k", "n/a", multi)
+  assert res["collectives"]["total"] == 0
+  rows = 32 // (32 if multi else 16)
+  assert res["memory"]["argument_size_in_bytes"] == (
+      storage_bytes(dr.serve_params(get_config("smollm-135m")))
+      + rows * 32768 * 4)
+
+
+@pytest.mark.parametrize("multi", [False, True])
+def test_long_500k_cell(multi):
+  """jamba's long_500k synopsis step under LONG_RULES: the sequence over
+  (data, model), 256 shards, the batch of one whole."""
+  res = dr.run_cell("jamba-v0.1-52b", "long_500k", multi, "auto")
+  cfg = get_config("jamba-v0.1-52b")
+  assert res["mode"] == "synopsis"
+  _check_artifact(res, "jamba-v0.1-52b", "long_500k", "synopsis", multi)
+  rules = dr.cell_rules(cfg, "long_500k",
+                        dr.make_abstract_production_mesh(multi_pod=multi))
+  want = _attn_gathers(cfg, res, "synopsis", 1, 524288, rules)
+  assert res["collectives"]["all-gather"] == want
+
+
+def test_cli_and_report(tmp_path, capsys):
+  """The CLI writes one artifact and prints the reference's last line;
+  the report reads the artifacts."""
+  assert dr.main(["--arch", "mamba2-370m", "--shape", "decode_32k",
+                  "--mesh", "single", "--mode", "synopsis",
+                  "--out", str(tmp_path)]) == 0
+  last = capsys.readouterr().out.strip().splitlines()[-1]
+  assert last.startswith("DOMINANT=") and " bound=" in last and \
+      last.endswith("fits=True")
+  files = list(tmp_path.glob("*.json"))
+  assert [f.name for f in files] == [
+      "mamba2-370m__decode_32k__single__exact.json"]
+  d = json.loads(files[0].read_text())
+  assert d["mode"] == "exact"
+  cells = report.load(str(tmp_path))
+  text = report.summary(cells)
+  assert "cells traced: 1" in text and "fit in 80 GB" in text
+  assert "mamba2-370m" in report.dryrun_table(cells)
+  assert "mamba2-370m" in report.roofline_table(cells)
+  # A cell over the card waits on A.7d when its traced new storage on top
+  # of the rules' argument bytes fits, and fits neither way otherwise.
+  m, card = d["memory"], d["card_memory_bytes"]
+  new = m["peak_bytes_per_device"] - m["argument_size_in_bytes"]
+  over = {("a",): dict(d, fits_hbm=False,
+                       argument_bytes_under_rules=card - new - 1),
+          ("b",): dict(d, fits_hbm=False,
+                       argument_bytes_under_rules=card - new)}
+  assert report.peak_with_rules_args(over[("a",)]) == card - 1
+  assert report.waiting_on_a7d({**cells, **over}) == ([("a",)], [("b",)])
+
+
+def test_memory_policies_scale_the_references_to_the_card():
+  """The reference's thresholds are 10, 2 and 6 GB of a 16 GB chip: the
+  port's are the same shares of the card's memory."""
+  assert (dr.FSDP_SERVE_SHARE, dr.REPLICATE_TRAIN_SHARE,
+          dr.MICROBATCH_SHARE) == (10 / 16, 2 / 16, 6 / 16)
+  mesh = dr.make_abstract_production_mesh()
+  small = dr.cell_rules(get_config("smollm-135m"), "train_4k", mesh)
+  assert small["embed"] is None
+  big = dr.cell_rules(get_config("arctic-480b"), "decode_32k", mesh)
+  assert big["embed"] == ("data",)
+  shape = shp.SHAPES["train_4k"]
+  budget = dr.MICROBATCH_SHARE * dr.CARD_MEMORY
+
+  def residuals(cfg):
+    return (shape.global_batch // shd.dp_size(mesh) * shape.seq_len
+            * cfg.d_model * 2 * cfg.n_layers)
+  # llama3-8b's residuals exceed the reference's 6 GB but fit the card's
+  # share in one; command-r-plus-104b's take 4 microbatches on the card.
+  llama, cmdr = get_config("llama3-8b"), get_config("command-r-plus-104b")
+  assert 6e9 < residuals(llama) <= budget
+  assert dr.microbatches(llama, shape, mesh) == 1
+  assert residuals(cmdr) / 4 <= budget < residuals(cmdr) / 2
+  assert dr.microbatches(cmdr, shape, mesh) == 4

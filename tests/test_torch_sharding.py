@@ -24,6 +24,15 @@ attention (``serve.serve_step.sharded_synopsis_attention``, with
   1e-4), and ``Mesh.all_reduce`` over one axis and both (sum and mean),
   equal bit for bit to the left fold of the line's operands in the order
   of the combined index.
+* A second world of 8 ranks on the same mesh: exact decode on a cache
+  whose sequence is cut (``sharded_exact_decode_attention``), under both
+  tables, at llama3's SMOKE shapes and on a gemma2 local layer whose window
+  crosses a shard boundary and leaves shards empty, against JAX's
+  single-device ``exact_decode_attention`` within 4e-5 of max|ref|; the
+  whole exact serve step (llama3 and gemma2 SMOKE, f32) on the shards
+  against JAX's step and the port's one-rank step; and the same step on an
+  ``AbstractMesh`` of the rank, whose collectives' shapes and tallies equal
+  the real mesh's.
 """
 import dataclasses
 
@@ -43,6 +52,7 @@ from repro.models import transformer as jtf
 from repro.serve import synopsis_kv as jskv
 from repro.serve.prefill import make_prefill_step as j_make_prefill_step
 from repro.serve.serve_step import make_serve_step as j_make_serve_step
+from repro.serve.serve_step import exact_decode_attention as j_exact
 from repro.serve.serve_step import synopsis_decode_attention as j_synopsis
 from repro_torch.dist import sharding as shd
 from repro_torch.dist import topology, world
@@ -341,3 +351,131 @@ def test_mesh_all_reduce_sums_in_the_combined_index_order(synopsis_run,
       want = want + ranks.all_reduce_operand(j)
     assert torch.equal(r["all_reduce"][(axes, "sum")], want), (i, axes)
     assert torch.equal(r["all_reduce"][(axes, "mean")], want / len(line))
+
+
+# -- exact decode on a cache whose sequence is cut ----------------------------
+
+EXACT_B = 4
+EXACT_CASES = {
+    # name: (rules, SMOKE arch, S, window): gemma2's window of 16 over 48
+    # rows crosses from shard 2 into shard 3 of 4 (12 rows each, shards 0
+    # and 1 empty), and spans shards 5-7 of 8 (6 rows each).
+    "serve-llama3": ("SERVE_RULES", "llama3-8b", 128, None),
+    "long-llama3": ("LONG_RULES", "llama3-8b", 128, None),
+    "serve-gemma2-local": ("SERVE_RULES", "gemma2-2b", 48, 16),
+    "long-gemma2-local": ("LONG_RULES", "gemma2-2b", 48, 16),
+}
+EXACT_STEP_ARCHS = ("llama3-8b", "gemma2-2b")
+
+
+def _exact_inputs(seed, arch, S):
+  cfg = j_get_config(arch, smoke=True)
+  Hkv_, H_, D_ = cfg.n_kv_heads, cfg.n_heads, cfg.hd
+  ks = jax.random.split(jax.random.PRNGKey(100 + seed), 5)
+  k = jax.random.normal(ks[0], (EXACT_B, Hkv_, S, D_), jnp.float32)
+  v = jax.random.normal(ks[1], (EXACT_B, Hkv_, S, D_), jnp.float32)
+  q = jax.random.normal(ks[2], (EXACT_B, H_, D_), jnp.float32)
+  kd = jax.random.normal(ks[3], (EXACT_B, Hkv_, 1, D_), jnp.float32)
+  vd = jax.random.normal(ks[4], (EXACT_B, Hkv_, 1, D_), jnp.float32)
+  return cfg, q, k, v, (kd, vd)
+
+
+def _exact_step_inputs(arch):
+  jcfg = dataclasses.replace(j_get_config(arch, smoke=True),
+                             dtype=jnp.float32)
+  jparams, _ = jcm.split(jtf.init_model(jax.random.PRNGKey(0), jcfg))
+  prompt = np.random.default_rng(1).integers(0, jcfg.vocab, (2, 128))
+  _, cache = jax.jit(j_make_prefill_step(jcfg, impl="xla"))(
+      jparams, jnp.asarray(prompt, jnp.int32))
+  tok = np.array([[5], [77]], np.int32)
+  logits, _ = jax.jit(j_make_serve_step(jcfg, mode="exact", impl="xla"))(
+      jparams, cache, jnp.asarray(tok))
+  to_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
+  return ({"params": to_np(jparams), "cache": to_np(cache), "tok": tok},
+          np.asarray(logits))
+
+
+@pytest.fixture(scope="module")
+def exact_run():
+  cases, refs = [], {}
+  for i, (name, (rules, arch, S, window)) in enumerate(EXACT_CASES.items()):
+    cfg, q, k, v, (kd, vd) = _exact_inputs(i, arch, S)
+    sm = float(cfg.hd ** -0.5)
+    refs[name] = np.asarray(j_exact(
+        q, k, v, sm_scale=sm, cap=cfg.attn_softcap, self_kv=(kd, vd),
+        window=window, impl="xla"))
+    cases.append({"rules": rules, "q": np.asarray(q),
+                  "cache": {"k": np.asarray(k), "v": np.asarray(v)},
+                  "self_kv": (np.asarray(kd), np.asarray(vd)), "sm": sm,
+                  "cap": cfg.attn_softcap, "window": window})
+  steps, step_refs = {}, {}
+  for arch in EXACT_STEP_ARCHS:
+    steps[arch], step_refs[arch] = _exact_step_inputs(arch)
+  got = world.run_world(ranks.exact_world, 8, (cases, steps),
+                        timeout_s=JOIN_S)
+  return got, refs, step_refs
+
+
+@pytest.mark.parametrize("name", list(EXACT_CASES))
+def test_sharded_exact_attention_equals_jax(exact_run, name):
+  """Each rank's partial over its rows (of the global window), the self
+  token on shard 0 only, merged in shard order: the global answer on every
+  rank of a batch group, within 4e-5 of max|ref| of JAX's single-device
+  exact attention; a local window leaves some shards with no row."""
+  got, refs, _ = exact_run
+  i = list(EXACT_CASES).index(name)
+  rules, _, S, window = EXACT_CASES[name]
+  n = 4 if rules == "SERVE_RULES" else 8
+  empty = 0
+  for r in got:
+    c = r["cases"][i]
+    assert c["layout"]["nshards"] == n and c["k_rows"] == S // n
+    sid = (r["coords"]["model"] if n == 4
+           else r["coords"]["data"] * 4 + r["coords"]["model"])
+    empty += window is not None and (sid + 1) * S // n <= S - window
+  if window is not None:
+    assert empty > 0
+    assert (S - window) % (S // n) != 0          # crosses a boundary
+  out = _assemble(got, lambda r: (tuple(r["cases"][i]["rows"]),
+                                  r["cases"][i]["out"])).numpy()
+  want = refs[name]
+  assert out.shape == want.shape
+  err = np.abs(out - want).max()
+  assert err <= TOL * np.abs(want).max(), (err, np.abs(want).max())
+
+
+@pytest.mark.parametrize("rules", ["SERVE_RULES", "LONG_RULES"])
+@pytest.mark.parametrize("arch", EXACT_STEP_ARCHS)
+def test_sharded_exact_step_equals_one_rank(exact_run, arch, rules):
+  """The exact serve step on each rank's shard of a whole exact cache: its
+  logits against JAX's exact step on the global cache (the serve tests'
+  bound) and the port's one-rank step (4e-5 of max|ref|)."""
+  got, _, step_refs = exact_run
+  assert got[0]["steps"][(arch, rules)]["layout"]["nshards"] == (
+      4 if rules == "SERVE_RULES" else 8)
+  out = _assemble(got, lambda r: (tuple(r["steps"][(arch, rules)]["rows"]),
+                                  r["steps"][(arch, rules)]["logits"]))
+  one = _assemble(got, lambda r: (tuple(r["steps"][(arch, rules)]["rows"]),
+                                  r["steps"][(arch, rules)]["one"]))
+  np.testing.assert_allclose(out.numpy(), step_refs[arch], **STEP_TOL)
+  err = (out - one).abs().max().item()
+  assert err <= TOL * one.abs().max().item(), err
+
+
+def test_abstract_mesh_matches_the_mesh(exact_run):
+  """An ``AbstractMesh`` of the same shape and rank gives the collectives'
+  results the real mesh's shapes and tallies the same calls and operand
+  bytes of each kind, through the sharded exact step and alone; every rank
+  tallies the same."""
+  got = exact_run[0]
+  for r in got:
+    for key, s in r["steps"].items():
+      assert s["abstract_stats"] == s["stats"], key
+      assert s["abstract_shapes"] == (tuple(s["logits"].shape),
+                                      tuple(s["k_delta"].shape))
+      assert s["stats"]["all-gather"] > 0
+      assert s["stats"] == got[0]["steps"][key]["stats"]
+    for axes in ranks.ALL_REDUCE_AXES:
+      real, abstract = (r["collectives"][(axes, a)] for a in (False, True))
+      assert real == abstract, axes
+      assert real[3]["all-to-all"] > 0 and real[3]["all-gather"] > 0

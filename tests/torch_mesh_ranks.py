@@ -83,6 +83,82 @@ def synopsis_world(cases, step):
   return out
 
 
+def _batch_rows(mesh, lay):
+  """This rank's batch rows of a shard's layout."""
+  if lay.dp_n > 1:
+    n = lay.batch // lay.dp_n
+    b0 = mesh.index(lay.dp_axes) * n
+    return slice(b0, b0 + n)
+  return slice(None)
+
+
+def exact_world(cases, steps):
+  """(data 2, model 4) mesh: each case's global exact layer cache cut by
+  ``shard_cache`` under its rule table and ``sharded_exact_decode_
+  attention`` on the rank's shard (with a window where the case has one);
+  then each SMOKE config's exact serve step (f32) on the rank's shard of a
+  whole exact cache under both tables, beside the one-rank step on the
+  whole cache, and the same sharded step once more on an
+  ``AbstractMesh`` of the same shape and rank, whose collectives' results
+  and tallies are held to the real mesh's."""
+  from repro_torch.serve import serve_step as ss
+  mesh = shd.Mesh((2, 4), ("data", "model"))
+  out = {"coords": mesh.coords, "cases": [], "steps": {}}
+  for case in cases:
+    cache = _tensors(case["cache"])
+    q = torch.from_numpy(case["q"])
+    kd, vd = (torch.from_numpy(x) for x in case["self_kv"])
+    rules = getattr(shd, case["rules"])
+    loc = ss.shard_cache(cache, mesh, rules)
+    lay = loc["layout"]
+    rows = _batch_rows(mesh, lay)
+    with shd.use_mesh(mesh, rules):
+      got = ss.sharded_exact_decode_attention(
+          q[rows], loc["k"], loc["v"], lay, sm_scale=case["sm"],
+          cap=case["cap"], self_kv=(kd[rows], vd[rows]),
+          window=case["window"])
+    out["cases"].append({"out": got, "rows": (rows.start, rows.stop),
+                         "layout": dataclasses.asdict(lay),
+                         "k_rows": loc["k"].shape[2]})
+  amesh = shd.AbstractMesh((2, 4), ("data", "model"), rank=mesh.rank)
+  for arch, step in steps.items():
+    cfg = _f32(arch)
+    params = bridge.params_from_numpy(step["params"], cfg, "cpu")
+    cache = _tensors(step["cache"])
+    tok = torch.from_numpy(step["tok"]).long()
+    step_fn = ss.make_serve_step(cfg, mode="exact")
+    one, _ = step_fn(params, cache, tok)
+    for name in ("SERVE_RULES", "LONG_RULES"):
+      rules = getattr(shd, name)
+      res = {}
+      for m in (mesh, amesh):
+        m.reset_stats()
+        loc = ss.shard_cache(cache, m, rules)
+        rows = _batch_rows(m, loc["layout"])
+        with shd.use_mesh(m, rules):
+          logits, st = step_fn(params, loc, tok[rows])
+        res[m.backend == "abstract"] = (
+            logits, st, {k: v for k, v in m.stats.items() if k != "ms"})
+      (logits, st, stats), (alog, ast, astats) = res[False], res[True]
+      out["steps"][(arch, name)] = {
+          "logits": logits, "k_delta": st["k_delta"], "one": one[rows],
+          "rows": (rows.start, rows.stop), "stats": stats,
+          "abstract_stats": astats,
+          "abstract_shapes": (tuple(alog.shape), tuple(ast["k_delta"].shape)),
+          "layout": dataclasses.asdict(loc["layout"])}
+  x = all_reduce_operand(mesh.rank)
+  out["collectives"] = {}
+  for axes in ALL_REDUCE_AXES:
+    for m in (mesh, amesh):
+      m.reset_stats()
+      res = (m.all_reduce(x, axes).shape,
+             m.all_gather(x, axes, dim=1).shape,
+             m.all_gather(x, axes, dim=0, tiled=False).shape,
+             {k: v for k, v in m.stats.items() if k != "ms"})
+      out["collectives"][(axes, m.backend == "abstract")] = res
+  return out
+
+
 # Mesh.all_reduce over one axis and over both in either order, on an
 # operand whose size is not a multiple of the ranks (the padded piece).
 ALL_REDUCE_AXES = ("model", ("data", "model"), ("model", "data"))
@@ -275,3 +351,36 @@ def card_synopsis_world(seed):
           "scale": float(one.abs().max()),
           "launches": {k_: counts[k_] for k_ in (
               "fused_synopsis_score_attention", "block_gather_attention")}}
+
+
+def card_exact_world(seed):
+  """(model 4) mesh of ranks sharing the card: exact decode on each rank's
+  quarter of the sequence (``flash_decode`` over its rows, of a window
+  that crosses from shard 2 into shard 3 too) against the one-rank kernel
+  on the global cache, f32, with each rank's ``flash_decode`` launches."""
+  from repro_torch.kernels import _build
+  from repro_torch.serve import serve_step as ss
+  dev = torch.device("cuda", torch.cuda.current_device())
+  mesh = shd.Mesh((4,), ("model",))
+  rng = np.random.default_rng(seed)
+  B, Hkv, G, D, S = 2, 2, 4, 64, 1024
+
+  def f(*shape):
+    return torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dev)
+  cache = {"k": f(B, Hkv, S, D), "v": f(B, Hkv, S, D)}
+  q, kd, vd = f(B, Hkv * G, D), f(B, Hkv, 1, D), f(B, Hkv, 1, D)
+  loc = ss.shard_cache(cache, mesh, shd.SERVE_RULES)
+  out = {}
+  for window in (None, 384):
+    kw = dict(sm_scale=D ** -0.5, self_kv=(kd, vd), window=window)
+    one = ss.exact_decode_attention(q, cache["k"], cache["v"], **kw)
+    _build.reset_launches()
+    with shd.use_mesh(mesh, shd.SERVE_RULES):
+      got = ss.sharded_exact_decode_attention(q, loc["k"], loc["v"],
+                                              loc["layout"], **kw)
+    torch.cuda.synchronize()
+    out[window] = {"err_one_rank": float((got - one).abs().max()),
+                   "scale": float(one.abs().max()),
+                   "launches": _build.launch_counts()["flash_decode"]}
+  return {"rank": mesh.rank, "cases": out}
