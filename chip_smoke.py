@@ -60,9 +60,8 @@
     from the profiler, bitwise-equal outputs, the kernels' rows inside the
     replays), one Poisson trace under ``accuracytrader`` and under
     ``basic`` on the same arrivals (request latency, accuracy loss, misses,
-    budgets, goodput, admission time, peak memory; the ``basic`` trace also
-    under the profiler: the device's busy share over the window), and one
-    simulator window on the measured step table (``MeasuredStepBackend``);
+    budgets, goodput, admission time, peak memory), and one simulator
+    window on the measured step table (``MeasuredStepBackend``);
 11. the rest of the single-device engine at the same width: the contracts
     (an estimator fit from fixed-budget ``deadline_with_bound`` windows,
     then the Poisson window under ``error_bounded`` and
@@ -162,18 +161,19 @@
     (``[arctic]``: 56/8 heads of 128, G = 7 in the kernels' head bucket of
     8; an MoE of 128 experts of 4864, top 2, with a dense MLP beside it on
     every layer, ~27.7B parameters) and command-r-plus-104b at full width
-    with its depth cut to 6 of 64 (``[command-r]``: 96/8 heads of 128,
+    with its depth cut to 3 of 64 (``[command-r]``: 96/8 heads of 128,
     G = 12 in the bucket of 16, flash_prefill's 128 rows as 10 positions
     of 12 heads; parallel attention and FFN blocks, tied 256000-token
     embeddings; 12 layers, ~22.0B parameters, would fit), ``DEPTH``: the
     same as 12-14, the
     loops at budget 32 (``LOOP_BUDGET``: command-r's published i_max is
     64 = M);
-19. deepseek-v2-236b at full width with its depth cut to 7 of 60 layers
+19. deepseek-v2-236b at full width with its depth cut to 3 of 60 layers
     (``[deepseek]``, ``DEPTH``: MLA with one latent key/value head of
     kv_lora + rope = 576 read by 128 query heads, an MoE of 160 experts
     of 1536, top 6, with 2 shared experts on every layer, vocab 102400
-    untied, ~28.9B parameters, ~58.8 GB with the f32 unembedding): the
+    untied; 3 layers: ~13.0B parameters, ~26.9 GB with the f32
+    unembedding): the
     same as 12-14, with the SMOKE engine card against CPU beside the
     loops, its kernels at MLA's shapes (``check_mla_kernels``:
     ``flash_prefill`` bf16 at D = 192 with G = 1 and SDPA beside it; the
@@ -211,10 +211,10 @@
 22. training (``[train]``): one f32 step of smollm's SMOKE config on the
     card against the CPU (within 4x the CPU's distance from its float64
     step); smollm-135m at full width, every gradient finite and non-zero,
-    30 steps at batch 8 x 2048 with a checkpoint at step 20
+    20 steps at batch 8 x 2048 with a checkpoint at step 12
     (``launch.train.run``: the loss every 5 steps, step p50 from CUDA
     events, tokens/s, peak memory), a second uninterrupted run (the
-    run-to-run spread) and a restart from the step-20 checkpoint to 30,
+    run-to-run spread) and a restart from the step-12 checkpoint to 20,
     held to the first run within twice that spread; no kernel may launch
     (the training forward takes the differentiable attention);
 23. the sharded path over ``torch.distributed`` (``[mesh]``, ``run_mesh``):
@@ -236,10 +236,15 @@
     cluster and fleet engines' ids on a mesh against the stacked engines'
     under basic and fixed; smollm-135m's compressed train step over (pod
     2, data 2) against the one-rank step (losses, parameters and error
-    buffers); records
-    ``<kernel>[mesh]`` (stage 1 and stage 2 at the data-2 x model-4 shard,
-    flash_decode over the cluster window's extras), timed on rank 0 with
-    the others waiting;
+    buffers); the weights cut by the rule tables (``shard_params``):
+    llama3-8b in f32 on both meshes (the second FSDP-cut over `data`) and
+    deepseek-v2-236b (1 layer, bf16) FSDP-cut on the second, each rank's
+    weights held to their ``shard_shape`` bytes, prefill and decode steps
+    against the one-rank step on the same global weights and cache;
+    records ``<kernel>[mesh]`` (stage 1 and stage 2 at the data-2 x
+    model-4 shard, flash_decode over the cluster window's extras),
+    ``<kernel>[tp]`` and ``<kernel>[tp-mla]`` (rank 0's cut path), timed on
+    rank 0 with the others waiting;
 24. the dry run against the card (``[dryrun]``, ``run_dryrun_decode`` on
     phase 6's weights, ``run_dryrun_train`` after phase 22): the card's
     ``total_memory``; the dry run's per-rank program (no mesh) traced on
@@ -1954,32 +1959,6 @@ def run_engine(cfg, params, dev):
       print(f"[engine simulator] 108 components, accuracytrader, 20 req/s "
             f"for 1 s on the measured table: "
             f"{ {k: round(v, 3) for k, v in sim.items()} }")
-    else:
-      # The same window once more under the profiler: the device's busy
-      # time over the profiled window's own device span (first device op
-      # to last; the profiler's host work lengthens it) and, where the
-      # profiled window ran the same steps and admissions, over the
-      # unprofiled run's wall; and every kernel of the path in it.
-      prof_s = []
-      busy, ops_n, per, span = _profile_rows(
-          lambda: prof_s.append(
-              run_open_loop(eng, ENGINE_RATE, ENGINE_WINDOW_S, seed=0)), 1)
-      same = all(prof_s[0][k] == s[k] for k in ("steps", "prefills"))
-      print(f"[engine profile] basic trace: device busy {busy:.0f} ms, "
-            f"{ops_n:.0f} device ops, kernel launches "
-            f"{ {k: int(n) for k, n in per.items() if n} }; profiled "
-            f"window steps={prof_s[0]['steps']} prefills="
-            f"{prof_s[0]['prefills']} (unprofiled {s['steps']} / "
-            f"{s['prefills']})")
-      print(f"  [engine profile] busy share of the profiled window's device "
-            f"span: " + ("not measured (no device ops in the trace)"
-                         if span is None else
-                         f"{busy:.0f} / {span:.0f} ms = {busy / span:.1%}"))
-      print(f"  [engine profile] busy share of the unprofiled window's "
-            f"wall: " + (f"{busy:.0f} / {served_ms:.0f} ms = "
-                         f"{busy / served_ms:.1%}" if same else
-                         "not stated (the profiled window's steps or "
-                         "admissions differ from the unprofiled one's)"))
     print(f"[engine] {policy}: peak_mem_gb="
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} (weights, slot "
           "pool, one admission's transients, graphs' pool)")
@@ -2502,7 +2481,8 @@ def check_cluster_attention(cfg, dev, g):
   return recs
 
 
-def _cluster_records(seen, dtype, *, G, C, sdpa, tag="[cluster]"):
+def _cluster_records(seen, dtype, *, G, C, sdpa, tag="[cluster]",
+                     names=CLUSTER_KERNELS, source=None):
   """Each cluster kernel on the inputs the tier gave it (first call),
   against its plain version, timed beside its bound: bytes that this
   run's data needs (stage 1 the valid centroid rows, stage 2 the selected
@@ -2514,7 +2494,7 @@ def _cluster_records(seen, dtype, *, G, C, sdpa, tag="[cluster]"):
            "block_gather_attention": ref.fused_gather_attention_ref,
            "flash_decode": ref.flash_decode_ref}
   recs = {}
-  for name in CLUSTER_KERNELS:
+  for name in names:
     args, kw = seen[name]
     kern = getattr(ops, name)
     out = kern(*args, **kw)
@@ -2556,6 +2536,7 @@ def _cluster_records(seen, dtype, *, G, C, sdpa, tag="[cluster]"):
       lib = lambda: sdpa(q[:, :, None], ek, ev, attn_mask=mask,  # noqa
                          enable_gqa=True)
     src, line = CLUSTER_SOURCES[name]
+    src = source or src
     r = _record(f"{name}{tag}", f"src/repro_torch/kernels/csrc/{src}",
                 f"src/repro/kernels/{line}", dtype, err,
                 lambda: kern(*args, **kw), lambda: plain[name](*args, **kw),
@@ -3219,15 +3200,16 @@ MODELS = {
 # each (7.55 GB of them the 160 experts): 7 of 60 (~58.8 GB with the 2.1
 # GB f32 unembedding) leave room for the prefill's MLA and MoE transients;
 # 8 would hold 66.7 GB before them.  The models that fit whole are cut too,
-# so that the script stays inside its 1200 s with the apps and training
-# (a whole run with them took 1195.9 s on one H100): gemma2-2b 8 of 26 (4
-# local, 4 global), smollm-135m 10 of 30, pixtral-12b 10 of 40,
-# whisper-medium's decoder 8 of 24 (its encoder whole), and jamba 8 (one
-# superblock: 1 attention, 7 mamba, 4 MoE layers) and command-r 6 of the
-# depths that fit.  Width is never cut.
-DEPTH = {"jamba-v0.1-52b": 8, "arctic-480b": 2, "command-r-plus-104b": 6,
-         "deepseek-v2-236b": 7, "gemma2-2b": 8, "smollm-135m": 10,
-         "pixtral-12b": 10, "whisper-medium": 8}
+# so that the script stays inside its 1200 s with the apps, training and
+# the mesh's cut weights (a whole run with the first two took 1195.9 s on
+# one H100; the cut weights took more depth out): gemma2-2b 4 of 26 (2
+# local, 2 global), smollm-135m 4 of 30, pixtral-12b 4 of 40,
+# whisper-medium's decoder 4 of 24 (its encoder whole), and jamba 8 (one
+# superblock: 1 attention, 7 mamba, 4 MoE layers), command-r 3 and
+# deepseek 3 of the depths that fit.  Width is never cut.
+DEPTH = {"jamba-v0.1-52b": 8, "arctic-480b": 2, "command-r-plus-104b": 3,
+         "deepseek-v2-236b": 3, "gemma2-2b": 4, "smollm-135m": 4,
+         "pixtral-12b": 4, "whisper-medium": 4}
 # The per-model loops' budget: every model's published i_max but
 # command-r-plus-104b's, whose 64 is M at prompt 8192 (the full budget).
 LOOP_BUDGET = 32
@@ -4424,7 +4406,7 @@ APPS_FRACTIONS = (0.0, 0.05, 0.1, 0.2, 0.4, 1.0)
 APPS_PARITY_QUERIES = 20
 APPS_QUERIES = 200
 APPS_PARTIAL = 0.25          # the unranked partial execution's share
-TRAIN_STEPS, TRAIN_CKPT, TRAIN_BATCH, TRAIN_SEQ = 30, 20, 8, 2048
+TRAIN_STEPS, TRAIN_CKPT, TRAIN_BATCH, TRAIN_SEQ = 20, 12, 8, 2048
 
 
 def _sync(dev):
@@ -4794,11 +4776,12 @@ def _train_grads_card_vs_cpu(dev):
 
 def run_train(dev, cfg=None, steps=TRAIN_STEPS, ckpt=TRAIN_CKPT,
               batch=TRAIN_BATCH, seq=TRAIN_SEQ):
-  """Phase 22 (``[train]``): smollm-135m at full width, 30 steps at batch 8
-  x 2048 with a checkpoint at step 20 (``launch.train.run``); every
-  parameter's gradient finite and non-zero on the first batch; a second
-  uninterrupted run to measure the run-to-run spread; a restart from the
-  step-20 checkpoint to step 30, its losses held to the first run's
+  """Phase 22 (``[train]``): smollm-135m at full width, TRAIN_STEPS steps
+  at batch 8 x 2048 with a checkpoint at step TRAIN_CKPT
+  (``launch.train.run``); every parameter's gradient finite and non-zero
+  on the first batch; a second uninterrupted run to measure the
+  run-to-run spread; a restart from the checkpoint to the last step, its
+  losses held to the first run's
   within twice that spread (1e-5 of the loss at least); no kernel launched
   (the training forward takes the differentiable attention); and one f32
   SMOKE step card against CPU."""
@@ -5047,6 +5030,387 @@ def _mesh_synopsis(cfg, params, dev, out):
     dist.barrier()
 
 
+# Weights cut by the rule tables (``shard_params``) on the serving path:
+# the cut program's logits against the one-rank step on the same global
+# weights and cache.  llama3-8b runs in f32 (its bf16 weights cast, which
+# is exact; TF32 off): random weights at its full width attend near
+# one-hot, so bf16 rounding alone moves its logits by tens of percent of
+# max|ref| (the one-rank bf16 step against its f32 twin: up to 0.8) and
+# no bf16 bound could tell a fault from rounding.  In f32 the cut and the
+# one-rank program differ only in the order of their sums: TP_F32_TOL of
+# max|ref|.  deepseek-v2 runs in bf16, as it serves: its bound is the
+# one-rank bf16 step's own distance from the same step in f32 on the same
+# weights and inputs (a witness of how far bf16 rounding carries this
+# model), times TP_WITNESS, and 2^-7 of max|ref| at least; the phase fails
+# if that bound exceeds TP_WITNESS_CAP of max|ref|, where it could no
+# longer tell a fault (a missing all-reduce, a wrong block: O(1)) from
+# rounding.  All relative to max|one-rank logits|.
+TP_F32_TOL = 1e-3
+TP_WITNESS, TP_FLOOR, TP_WITNESS_CAP = 2.0, 2.0 ** -7, 0.05
+TP_STEPS_EXACT = 1
+# deepseek-v2-236b: 1 of its 60 layers (MLA, 160 experts, 2 shared) a rank
+# (~11 GB whole with its f32 unembedding: the ranks build it one at a
+# time), on prompts of TP_DS_PROMPT tokens, TP_DS_STEPS synopsis step
+# (each step gathers the layer's ~2 GB of FSDP-cut weights through host
+# memory on every rank: ~9 s a step on the shared card).
+TP_DS_DEPTH, TP_DS_PROMPT, TP_DS_STEPS = 1, 2048, 1
+TP_KERNELS = ("flash_prefill", "fused_synopsis_score_attention",
+              "block_gather_attention", "flash_decode")
+
+
+def _rows_of(cache, rows):
+  """Batch rows ``rows`` of a global decode cache, copied (the one-rank
+  reference's own cache)."""
+  from repro_torch.serve import serve_step as ss
+  return {k: v.narrow(ss._SHARD_AXES[k][0], rows.start,
+                      rows.stop - rows.start).clone()
+          for k, v in cache.items()}
+
+
+def _shard_bytes(cfg, specs, mesh):
+  """(the bytes of a rank's shard, every leaf of ``shard_shape`` under its
+  spec, the f32 unembedding as (embed, vocab); the same with each leaf
+  rounded as the caching allocator rounds an allocation)."""
+  from repro_torch.analysis.tracker import allocator_bytes
+  from repro_torch.dist import sharding as shd
+  from repro_torch.models import common as cm
+  shapes = dict(cm.leaves(cm.param_shapes(cfg)))
+  shapes["unembed"] = (cfg.d_model, cfg.vocab)
+  es = torch.empty((), dtype=cfg.dtype).element_size()
+  raw = rounded = 0
+  for path, spec in cm.leaves(specs):
+    n = math.prod(shd.shard_shape(shapes[path], spec, mesh))
+    raw += n * (4 if path == "unembed" else es)
+    rounded += allocator_bytes(n * (4 if path == "unembed" else es))
+  return raw, rounded
+
+
+def _held_bytes():
+  """(requested, allocated) bytes of the caching allocator now."""
+  st = torch.cuda.memory_stats()
+  return st["requested_bytes.all.current"], st["allocated_bytes.all.current"]
+
+
+def _tp_close(label, got, want, want32=None):
+  """(the cut logits' distance from the one-rank step's, the one-rank
+  step's from its f32 witness or None, the bound), each over max|want|:
+  TP_F32_TOL for an f32 program (no witness), else TP_WITNESS times the
+  witness's distance, TP_FLOOR at least and TP_WITNESS_CAP at most."""
+  scale = float(want.float().abs().max())
+  dev = float((got.float() - want.float()).abs().max()) / scale
+  if want32 is None:
+    wit, bound = None, TP_F32_TOL
+  else:
+    wit = float((want.float() - want32.float()).abs().max()) / scale
+    bound = max(TP_WITNESS * wit, TP_FLOOR)
+    if not bound <= TP_WITNESS_CAP:
+      raise AssertionError(f"[tp] {label}: the bf16 witness {wit:.3e} of "
+                           f"max|ref| gives a bound {bound:.3e} > "
+                           f"{TP_WITNESS_CAP}: too loose to tell a fault")
+  if not dev <= bound:
+    raise AssertionError(f"[tp] {label}: the cut program's logits off the "
+                         f"one-rank step's by {dev:.3e} of max|ref| > "
+                         f"{bound:.3e} (the f32 witness {wit})")
+  return dev, wit, bound
+
+
+def _f32(tree, in_place=False):
+  """A tree's floating leaves in f32 (the witness's weights or cache, or
+  llama3's): a new tree, or with ``in_place`` the same dicts, each leaf
+  replaced as it is cast (its old copy freed before the next leaf's
+  cast); anything but a tensor (a shard's ``Cut``) as it is."""
+  out = tree if in_place else {}
+  for k, v in list(tree.items()):
+    out[k] = _f32(v, in_place) if isinstance(v, dict) else (
+        v.float() if torch.is_tensor(v) and v.is_floating_point() else v)
+  return out
+
+
+def _tp_case(cfg, local, whole, mesh, rules, prompt, dev, label, capture,
+             syn_steps, own_whole=False):
+  """The cut program on one mesh: prefill on the rank's shard (every rank
+  the global prompt's logits and KV), the synopsis build, ``syn_steps``
+  decode steps at budget MESH_BUDGET on the rank's shard of the synopsis
+  cache and TP_STEPS_EXACT exact ones on its shard of the prompt's cache,
+  with the launch counts and the mesh's collectives counted over the cut
+  program's calls only; each against the one-rank step of ``whole`` (on
+  the rank's rows: an MoE routes a data-parallel shard's tokens
+  together) and its f32 witness (``_tp_close``), where ``whole`` is
+  given.  Every call of the three reads the same cache and token: the
+  cut step's (the same on every rank of a data group), so that each
+  comparison is one step's, not a drift of diverging sequences.  The
+  witness runs last, replaying the steps' tokens and new KV, on an f32
+  copy of ``whole`` (with ``own_whole``, ``whole`` itself converted leaf
+  by leaf, so that a large model's two copies never coexist).  With
+  ``capture`` the cut path's first call of each of TP_KERNELS is kept
+  for the records."""
+  from repro_torch.dist import sharding as shd
+  from repro_torch.kernels import _build, ops
+  from repro_torch.serve import serve_step as ss
+  from repro_torch.serve import synopsis_kv as skv
+  from repro_torch.serve.prefill import make_prefill_step
+  prefill = make_prefill_step(cfg)
+  steps = {"synopsis": ss.make_serve_step(cfg, i_max=MESH_BUDGET),
+           "exact": ss.make_serve_step(cfg, mode="exact")}
+  launches = {}
+  res = {"rel": {}, "ms": {}}
+  seen = {}
+
+  def cut(fn):
+    _sync(dev)
+    _build.reset_launches()
+    with shd.use_mesh(mesh, rules), (
+        _first_inputs(ops, [n for n in TP_KERNELS if n not in seen])
+        if capture else contextlib.nullcontext()) as got:
+      t0 = time.perf_counter()
+      out = fn()
+      _sync(dev)
+      ms = (time.perf_counter() - t0) * 1e3
+    for k, n in _build.launch_counts().items():
+      launches[k] = launches.get(k, 0) + n
+    if capture:
+      seen.update({k: v for k, v in got.items() if k not in seen})
+    return out, ms
+
+  def append(c, st):
+    skv.append_recent(c, st["k_delta"].to(c["recent_k"].dtype),
+                      st["v_delta"].to(c["recent_v"].dtype))
+    c["pos"] = st["pos"]
+
+  mesh.reset_stats()
+  (logits, cache), res["ms"]["prefill"] = cut(lambda: prefill(local, prompt))
+  res["prefill_stats"] = dict(mesh.stats)
+  # (label, cut logits, one-rank logits) of every call, for the witness.
+  pairs = []
+  if whole is not None:
+    pairs.append(("prefill", logits, prefill(whole, prompt)[0]))
+  tok0 = logits.argmax(-1, keepdim=True)
+  del logits
+  exact_cache = {k: cache[k] for k in ("k", "v", "pos")}
+  syn, res["ms"]["build"] = cut(lambda: skv.build(cache, cfg))
+  del cache
+  torch.cuda.empty_cache()
+  mesh.reset_stats()
+  step_ms = []
+  replay = {}                     # mode -> (rows, [(tok, new KV)])
+  for mode, n_steps, glob in (("synopsis", syn_steps, syn),
+                              ("exact", TP_STEPS_EXACT, exact_cache)):
+    loc = ss.shard_cache(glob, mesh, rules)
+    lay = loc["layout"]
+    rows = slice(0, MESH_B)
+    if lay.dp_n > 1:
+      n = MESH_B // lay.dp_n
+      rows = slice(mesh.index(lay.dp_axes) * n,
+                   (mesh.index(lay.dp_axes) + 1) * n)
+    one = _rows_of(glob, rows) if whole is not None else None
+    tok = tok0[rows]
+    replay[mode] = (rows, [])
+    for i in range(n_steps):
+      (lg, st), ms = cut(lambda: steps[mode](local, loc, tok))
+      step_ms.append(ms)
+      if not bool(torch.isfinite(lg).all()):
+        raise AssertionError(f"[tp] {label} {mode}: logits not finite")
+      if one is not None:
+        pairs.append((f"{mode}{i}", lg, steps[mode](whole, one, tok)[0]))
+      replay[mode][1].append((tok, st))
+      tok = lg.argmax(-1, keepdim=True)
+      if mode == "synopsis":
+        append(loc, st)
+        if one is not None:
+          append(one, st)
+    res["shard_k"] = tuple(loc["k"].shape)
+    res["layout"] = dataclasses.asdict(lay)
+    del loc, one
+  per = (syn_steps + TP_STEPS_EXACT) * cfg.n_layers
+  res.update(step_ms=step_ms, launches=launches, seen=seen,
+             calls_layer=mesh.stats["calls"] / per,
+             bytes_layer=mesh.stats["bytes"] / per,
+             gloo_ms_layer=mesh.stats["ms"] / per)
+  if whole is None:
+    return res
+  if cfg.dtype == torch.float32:
+    for key, lg, lg1 in pairs:
+      res["rel"][key] = _tp_close(f"{label} {key}", lg, lg1)
+    return res
+  # The f32 witness (activations in cfg.dtype, so an f32 config) on the
+  # same prompt, caches and tokens.
+  cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+  whole32 = _f32(whole, in_place=own_whole)
+  del whole
+  torch.cuda.empty_cache()
+  wit = {"prefill": make_prefill_step(cfg32)(whole32, prompt)[0]}
+  for mode, glob in (("synopsis", syn), ("exact", exact_cache)):
+    rows, calls = replay[mode]
+    one32 = _f32(_rows_of(glob, rows))
+    step32 = ss.make_serve_step(cfg32, mode=mode, i_max=MESH_BUDGET)
+    for i, (tok, st) in enumerate(calls):
+      wit[f"{mode}{i}"] = step32(whole32, one32, tok)[0]
+      if mode == "synopsis":
+        append(one32, st)
+    del one32
+  for key, lg, lg1 in pairs:
+    res["rel"][key] = _tp_close(f"{label} {key}", lg, lg1, wit[key])
+  return res
+
+
+def _tp_records(seen, cfg, tag):
+  """Each kernel of the cut path on the inputs it gave the kernel (one
+  rank's first call), against its plain version, timed beside its bound:
+  ``flash_prefill`` at the rank's query heads, stage 1 and stage 2 on the
+  rank's shard of the cache for all (gathered) heads, ``flash_decode``
+  over the rank's rows.  The model's layer-0 activations are far from
+  unit scale (logits of several hundred under the random init), so
+  ``flash_prefill`` is held as the engine phase holds it
+  (``_engine_check``: against the f64 answer as given, and to its plain
+  version on the inputs scaled to unit RMS by powers of two), and both it
+  and ``flash_decode`` are recorded on the scaled inputs.  The latent
+  core's source under MLA.  Records keyed ``<kernel><tag>``."""
+  from repro_torch.kernels import ops, ref
+  dtype = cfg.dtype
+  sdpa = torch.nn.functional.scaled_dot_product_attention
+  latent = cfg.mla is not None
+  src = "latent_decode.cu" if latent else None
+  q, k_syn = seen["fused_synopsis_score_attention"][0][:2]
+  recs = _cluster_records(seen, dtype, G=q.shape[1] // k_syn.shape[1],
+                          C=cfg.synopsis.cluster_size, sdpa=sdpa, tag=tag,
+                          names=CLUSTER_KERNELS[:2], source=src)
+  args, kw = seen["flash_prefill"]
+  _engine_check(tag, "flash_prefill", args, kw)
+  args, kw, _ = _unit_scaled("flash_prefill", args, kw)
+  q, k, v = args[:3]
+  out = ops.flash_prefill(*args, **kw)
+  B, S, H, D = q.shape
+  err = _check(f"flash_prefill{tag} D={D} H={H} Hkv={k.shape[2]} scaled",
+               dtype, out, ref.flash_prefill_ref(*args, **kw),
+               *(BF16_OUT_TOL if dtype == torch.bfloat16 else (1e-4,)))
+  qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+  lib = (None if kw.get("cap") is not None or kw.get("window") is not None
+         else lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+  r = _record(f"flash_prefill{tag}",
+              "src/repro_torch/kernels/csrc/flash_prefill.cu",
+              "src/repro/kernels/flash_prefill.py:140", dtype, err,
+              lambda: ops.flash_prefill(*args, **kw),
+              lambda: ref.flash_prefill_ref(*args, **kw),
+              _nbytes(q, k, v, out), 4 * B * H * D * (S * (S + 1) // 2),
+              library_fn=lib)
+  recs[r["name"]] = r
+  args, kw = seen["flash_decode"]
+  q, k, v = args[:3]
+  scale = {}
+  for fam, a in (("Q", q), ("K", k), ("V", v)):
+    rms = float(a.float().square().mean().sqrt())
+    scale[fam] = 2.0 ** -round(math.log2(rms)) if rms > 0 else 1.0
+  if latent:                  # MLA's key and value are the same latent
+    scale["V"] = scale["K"]
+  q, k, v = q * scale["Q"], k * scale["K"], v * scale["V"]
+  args = (q, k, v, *args[3:])
+  print(f"  [flash_decode{tag}] inputs scaled by {scale}")
+  out = ops.flash_decode(*args, **kw)
+  B, H, D = q.shape
+  S = k.shape[2]
+  err = _check(f"flash_decode{tag} S={S} H={H} Hkv={k.shape[1]} scaled",
+               dtype, out, ref.flash_decode_ref(*args, **kw),
+               *PARTIALS_TOL[dtype])
+  lib = (None if latent or args[3:4] != (None,) and len(args) > 3
+         else lambda: sdpa(q[:, :, None], k, v, enable_gqa=True))
+  r = _record(f"flash_decode{tag}",
+              f"src/repro_torch/kernels/csrc/{src or 'flash_decode.cu'}",
+              "src/repro/kernels/flash_decode.py:125", dtype, err,
+              lambda: ops.flash_decode(*args, **kw),
+              lambda: ref.flash_decode_ref(*args, **kw),
+              _nbytes(q, k, v, *out), 4 * B * H * S * D, library_fn=lib)
+  recs[r["name"]] = _bound_share(r, dtype)
+  return recs
+
+
+def _tp_require_launches(label, cfg, launches):
+  """Every kernel of the cut path launched: flash_prefill at prefill,
+  segment_build at the build (the global cache, as the loop builds it),
+  stage 1 and stage 2 each step on every layer, flash_decode in the exact
+  steps; the latent core's keys under MLA."""
+  want = ["flash_prefill", "segment_build"]
+  mla = "[latent]" if cfg.mla is not None else ""
+  want += [f"fused_synopsis_score_attention{mla}",
+           f"block_gather_attention{mla}", f"flash_decode{mla}"]
+  missing = [k for k in want if not launches.get(k)]
+  if missing:
+    raise AssertionError(f"[tp] {label}: kernels of the cut path never "
+                         f"launched: {missing} ({launches})")
+
+
+def _mesh_tp(cfg, params, dev, out, label_arch, meshes, prompt_len,
+             syn_steps=MESH_STEPS, f32=False):
+  """The cut serving path of ``cfg`` (full width) on each of ``meshes``
+  ((shape, axes, rules)): every rank's weights cut by ``shard_params``,
+  their ``memory_allocated`` held to the ``shard_shape`` bytes, then
+  ``_tp_case``.  ``params``: the whole weights on every rank (the first
+  rank of each data group holds its rows to the one-rank step), or None
+  to build them rank by rank (too large for 8 at once) and keep them on
+  rank 0 only.  With ``f32`` (given ``params``) the program runs in f32:
+  each rank's shard of ``params`` cast leaf by leaf, and the comparing
+  ranks' whole copy cast."""
+  import torch.distributed as dist
+  from repro_torch.dist import sharding as shd
+  from repro_torch.models import transformer as tf
+  g = torch.Generator(dev).manual_seed(2)
+  prompt = torch.randint(0, cfg.vocab, (MESH_B, prompt_len), generator=g,
+                         device=dev)
+  rank = dist.get_rank()
+  if f32:
+    cfg = dataclasses.replace(cfg, dtype=torch.float32)
+  for shape, axes, rules in meshes:
+    mesh = shd.Mesh(shape, axes)
+    label = f"{label_arch} " + "x".join(f"{a}{n}"
+                                        for a, n in zip(axes, shape))
+    if "embed" in rules and rules["embed"] is not None:
+      label += " fsdp"
+    whole = params
+    if mesh.member:
+      if params is None:
+        for r in range(mesh.size):
+          if r == rank:
+            w = tf.init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
+            torch.cuda.synchronize()
+            before = _held_bytes()
+            local, specs = shd.shard_params(w, cfg, mesh, rules)
+            held = [a - b for a, b in zip(_held_bytes(), before)]
+            # Rank 0 keeps the whole weights for its rows' one-rank steps
+            # and their f32 witness (two copies more would not fit).
+            whole = w if rank == 0 else None
+            del w
+            gc.collect()
+            torch.cuda.empty_cache()
+          dist.barrier(group=mesh._line(mesh.axis_names)[0])
+      else:
+        torch.cuda.synchronize()
+        before = _held_bytes()
+        local, specs = shd.shard_params(params, cfg, mesh, rules)
+        if f32:
+          _f32(local, in_place=True)
+        held = [a - b for a, b in zip(_held_bytes(), before)]
+        # The cut logits are the same on every rank of a data group: the
+        # first of each holds them to the one-rank step (and its witness).
+        whole = None
+        if mesh.coords.get("model", 0) == 0:
+          whole = _f32(params) if f32 else params
+      raw, rounded = _shard_bytes(cfg, specs, mesh)
+      if held[0] != raw or held[1] < rounded:
+        raise AssertionError(f"[tp] {label} rank {rank}: its weights hold "
+                             f"{held[0]} requested / {held[1]} allocated "
+                             f"bytes, the shard_shape bytes {raw} "
+                             f"({rounded} in the allocator's 512s)")
+      res = _tp_case(cfg, local, whole, mesh, rules, prompt, dev, label,
+                     capture=rank == 0 and axes == ("data", "model"),
+                     syn_steps=syn_steps, own_whole=params is None)
+      res.update(weight_bytes=held, shard_bytes=(raw, rounded))
+      out.setdefault("tp", {})[label] = res
+      _tp_require_launches(label, cfg, res["launches"])
+      del local, whole
+      gc.collect()
+      torch.cuda.empty_cache()
+    dist.barrier()
+
+
 def _mesh_engine(cfg, params, dev, out, fleet):
   """One short Poisson window of the cluster tier on a (component 4) mesh
   (the first 4 ranks) or of the fleet tier on a (replica 2, component 4)
@@ -5263,6 +5627,7 @@ def _mesh_rank(device="cuda"):
   """The phase's body on every rank of the world (see run_mesh)."""
   import torch.distributed as dist
   from repro_torch.configs.registry import get_config
+  from repro_torch.dist import sharding as shd
   from repro_torch.models import transformer as tf
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
@@ -5275,22 +5640,46 @@ def _mesh_rank(device="cuda"):
   params = tf.init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
   _mesh_synopsis(cfg, params, dev, out)
   out["t"]["synopsis"] = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  fsdp = dict(shd.SERVE_RULES, embed=("data",))
+  _mesh_tp(cfg, params, dev, out, "llama3-8b", (
+      ((MESH_N,), ("model",), shd.SERVE_RULES),
+      ((2, MESH_N), ("data", "model"), fsdp)), MESH_PROMPT, f32=True)
+  out["t"]["tp llama3-8b"] = time.perf_counter() - t0
   for fleet in (False, True):
     t0 = time.perf_counter()
     _mesh_engine(cfg, params, dev, out, fleet)
     out["t"]["fleet" if fleet else "cluster"] = time.perf_counter() - t0
   if rank == 0:
-    # The [mesh] records, timed with every other rank waiting.
+    # The [mesh] and [tp] records, timed with every other rank waiting.
     seen = {**out.pop("seen_syn"), "flash_decode":
             out.pop("seen_cluster")["flash_decode"]}
     out["records"] = _cluster_records(
         seen, cfg.dtype, G=cfg.n_heads // cfg.n_kv_heads,
         C=cfg.synopsis.cluster_size,
         sdpa=torch.nn.functional.scaled_dot_product_attention, tag="[mesh]")
+    tp = out["tp"]["llama3-8b data2xmodel4 fsdp"]
+    out["records"].update(_tp_records(
+        tp.pop("seen"), dataclasses.replace(cfg, dtype=torch.float32),
+        "[tp]"))
   dist.barrier()
   del params
   gc.collect()
   torch.cuda.empty_cache()
+  t0 = time.perf_counter()
+  ds = dataclasses.replace(get_config("deepseek-v2-236b"),
+                           n_layers=TP_DS_DEPTH)
+  _mesh_tp(ds, None, dev, out, "deepseek-v2-236b", (
+      ((2, MESH_N), ("data", "model"), fsdp),), TP_DS_PROMPT, TP_DS_STEPS)
+  if rank == 0:
+    tp = out["tp"]["deepseek-v2-236b data2xmodel4 fsdp"]
+    out["records"].update(_tp_records(tp.pop("seen"), ds, "[tp-mla]"))
+  for r in out.get("tp", {}).values():
+    r.pop("seen", None)
+  dist.barrier()
+  gc.collect()
+  torch.cuda.empty_cache()
+  out["t"]["tp deepseek-v2-236b"] = time.perf_counter() - t0
   t0 = time.perf_counter()
   _mesh_parity(dev, out)
   out["t"]["parity"] = time.perf_counter() - t0
@@ -5310,11 +5699,24 @@ def run_mesh(dev, smi):
   fleet window (N = 4, R = 2) on the engine, the SMOKE engines' ids on a
   mesh against the stacked engines', and the mesh train step of
   smollm-135m over (pod 2, data 2).  A rank that fails fails the phase.
-  Returns (the records ``<kernel>[mesh]``, their launches on the phase's
-  paths: stage 1 and stage 2 on the data-2 x model-4 serve steps, rank
-  0's, and flash_decode on the cluster window)."""
+  Then the weights cut by the rule tables (``shard_params``) on the serving
+  path: llama3-8b (MESH_DEPTH layers, in f32) under SERVE_RULES on the
+  model-4 mesh and with ``embed -> data`` on the data-2 x model-4 mesh,
+  and deepseek-v2-236b (TP_DS_DEPTH layer, in bf16: MLA, its experts over
+  `model`, the shared experts, the FSDP gathers) on the second: prefill,
+  the build, MESH_STEPS synopsis steps (deepseek's TP_DS_STEPS) and
+  TP_STEPS_EXACT exact ones against the one-rank step on the same global
+  weights and cache, within TP_F32_TOL (llama3) or the bf16 witness's
+  bound (deepseek) of max|ref| (``[tp]``).
+  Returns (the records ``<kernel>[mesh]``, ``<kernel>[tp]`` and
+  ``<kernel>[tp-mla]``, their launches on the phase's paths: stage 1 and
+  stage 2 on the data-2 x model-4 serve steps, rank 0's, flash_decode on
+  the cluster window; each [tp] kernel on rank 0's cut path)."""
   from repro_torch.dist import world
   _free()
+  print(f"[mesh] this process holds {torch.cuda.memory_allocated() / 1e9:.2f} "
+        f"GB of the card ({torch.cuda.memory_reserved() / 1e9:.2f} reserved) "
+        f"while the ranks run")
   t0 = time.perf_counter()
   backend = world.backend_for(dev, MESH_WORLD)
   print(f"[mesh] {MESH_WORLD} ranks on {torch.cuda.device_count()} card: "
@@ -5361,6 +5763,42 @@ def run_mesh(dev, smi):
           f"plain versions: "
           + ", ".join(f"{k} {max(x['kernel_errs'][k] for x in rs):.3e}"
                       for k in CLUSTER_KERNELS))
+  for label in r0.get("tp", {}):
+    rs = [r["tp"][label] for r in res if label in r.get("tp", {})]
+    rels = {}
+    for x in rs:
+      for k, v in x["rel"].items():
+        rels[k] = max(rels.get(k, v), v, key=lambda t: t[0])
+    f32 = all(v[1] is None for v in rels.values())
+    print(f"[tp] {label}: weights cut by the rules on {len(rs)} ranks, "
+          f"each holding its shard_shape bytes: requested "
+          f"{sorted({x['weight_bytes'][0] for x in rs})} (want "
+          f"{sorted({x['shard_bytes'][0] for x in rs})}), allocated "
+          f"{sorted({x['weight_bytes'][1] for x in rs})} (the allocator's "
+          f"512s: {sorted({x['shard_bytes'][1] for x in rs})}); layout "
+          f"{rs[0]['layout']}, rank shard k {rs[0]['shard_k']}")
+    how = (f"f32 step on the same global weights and cache, max |diff| / "
+           f"max|ref| (bound {TP_F32_TOL:.0e})" if f32 else
+           f"bf16 step on the same global weights and cache, max |diff| / "
+           f"max|ref| (the one-rank step's f32 witness; the bound, "
+           f"{TP_WITNESS:.0f}x it, {TP_FLOOR:.4f} at least, "
+           f"{TP_WITNESS_CAP} at most)")
+    print(f"[tp] {label}: the cut program against the one-rank {how}: "
+          + ", ".join(f"{k} {v[0]:.3e}" + ("" if f32 else
+                                          f" ({v[1]:.3e}; {v[2]:.3e})")
+                      for k, v in rels.items())
+          + f"; prefill {rs[0]['ms']['prefill']:.1f} ms, "
+          f"build {rs[0]['ms']['build']:.1f} ms, steps ms "
+          f"{[round(t, 1) for t in rs[0]['step_ms']]} (rank 0, host clock, "
+          f"ranks sharing the card)")
+    print(f"[tp] {label}: launches of the cut path, rank 0 "
+          f"{ {k: v for k, v in rs[0]['launches'].items() if v} }; prefill "
+          f"collectives {rs[0]['prefill_stats']['calls']} "
+          f"({rs[0]['prefill_stats']['bytes']:.0f} bytes received, "
+          f"{rs[0]['prefill_stats']['ms']:.1f} ms host-staged); decode per "
+          f"layer and rank {rs[0]['calls_layer']:.1f} collectives, "
+          f"{rs[0]['bytes_layer']:.0f} bytes received, host-staged gloo ms "
+          f"{rs[0]['gloo_ms_layer']:.3f} (host clock, rank 0; {smi})")
   for tier, policy, n_ids, n_req in r0["parity"]:
     print(f"[mesh parity] smoke f32 {tier} {policy}: {n_ids} ids of {n_req} "
           f"requests on the mesh equal to the stacked engine's")
@@ -5386,7 +5824,14 @@ def run_mesh(dev, smi):
   launches["flash_decode"] = r0[f"cluster N={MESH_N}"]["launches"][
       "flash_decode"]
   recs = r0["records"]
-  return recs, {f"{k}[mesh]": launches[k] for k in CLUSTER_KERNELS}
+  out = {f"{k}[mesh]": launches[k] for k in CLUSTER_KERNELS}
+  for label, tag in (("llama3-8b data2xmodel4 fsdp", "[tp]"),
+                     ("deepseek-v2-236b data2xmodel4 fsdp", "[tp-mla]")):
+    n = r0["tp"][label]["launches"]
+    for k in TP_KERNELS:
+      out[f"{k}{tag}"] = sum(v for key, v in n.items()
+                             if key.split("[")[0] == k)
+  return recs, out
 
 
 # ---------------------------------------------------------------------------

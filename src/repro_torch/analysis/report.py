@@ -4,12 +4,14 @@ cell's memory and collectives, against one NVIDIA H100 80GB HBM3, 700.00 W
 a rank.  The roofline terms are the cost model's on the card's peaks
 (modelled, not measured); the memory is the meta-device trace's.
 
-Every rank holds the weights whole until ROADMAP A.7d.  A cell whose
-trace does not fit the card is listed as waiting on A.7d when
-:func:`peak_with_rules_args` fits: its traced peak with the arguments
-taken at the rule tables' bytes and the step's new storage as traced,
-unscaled.  That is not a trace of the cut program (A.7d's own trace
-measures it).
+A serving cell's trace is the rank's cut program (``weights: "cut"``:
+the rule tables' tensor-parallel and FSDP cuts), so its traced peak is
+what decides whether it fits.  A train cell still holds the weights whole
+until ROADMAP A.7d-ii: one whose trace does not fit the card is listed as
+waiting on A.7d-ii when :func:`peak_with_rules_args` fits, its traced
+peak with the arguments taken at the rule tables' bytes and the step's
+new storage as traced, unscaled (an estimate, not a trace of the cut
+train step).
 
   PYTHONPATH=src python -m repro_torch.analysis.report artifacts/dryrun
 """
@@ -90,26 +92,34 @@ def peak_with_rules_args(d) -> int:
 
 
 def waiting_on_a7d(cells):
-  """Cells that do not fit the card with the weights whole: (those whose
-  ``peak_with_rules_args`` fits, those whose does not)."""
+  """Cells whose trace does not fit the card: (the train cells, weights
+  whole, whose ``peak_with_rules_args`` fits: they wait on A.7d-ii; the
+  rest: serving cells over the card with their weights cut, and train
+  cells that fit neither way)."""
   over = sorted(k for k, d in cells.items() if not d["fits_hbm"])
-  fit = lambda k: peak_with_rules_args(cells[k]) < cells[k][
-      "card_memory_bytes"]
-  return ([k for k in over if fit(k)], [k for k in over if not fit(k)])
+  wait = lambda k: cells[k].get("weights") == "whole" and \
+      peak_with_rules_args(cells[k]) < cells[k]["card_memory_bytes"]
+  return ([k for k in over if wait(k)], [k for k in over if not wait(k)])
 
 
 def summary(cells) -> str:
   total = len(cells)
   fits = sum(1 for d in cells.values() if d["fits_hbm"])
-  rules = sum(1 for d in cells.values()
+  cut = [d for d in cells.values() if d.get("weights") == "cut"]
+  whole = [d for d in cells.values() if d.get("weights") != "cut"]
+  rules = sum(1 for d in whole
               if peak_with_rules_args(d) < d["card_memory_bytes"])
   single = sum(1 for k in cells if k[2] == "single")
   multi = sum(1 for k in cells if k[2] == "multi")
   card = next(iter(cells.values()))["card"] if cells else "-"
   lines = [f"- cells traced: {total} (single-pod {single}, multi-pod "
-           f"{multi}); fit in 80 GB ({card}) with the weights whole: "
-           f"{fits}/{total}; with the rule tables' argument bytes and "
-           f"the traced new storage: {rules}/{total}"]
+           f"{multi}); fit in 80 GB ({card}) as traced: {fits}/{total} "
+           f"(serving cells, weights cut: "
+           f"{sum(1 for d in cut if d['fits_hbm'])}/{len(cut)}; train "
+           f"cells, weights whole: "
+           f"{sum(1 for d in whole if d['fits_hbm'])}/{len(whole)}, with "
+           f"the rule tables' argument bytes and the traced new storage: "
+           f"{rules}/{len(whole)})"]
   census = {}
   for k, d in cells.items():
     if k[2] != "single":
@@ -119,9 +129,10 @@ def summary(cells) -> str:
   lines.append(f"- dominant terms (single-pod, modelled): {census}")
   wait, never = waiting_on_a7d(cells)
   tag = lambda ks: ", ".join(" ".join(k) for k in ks) or "none"
-  lines.append(f"- wait on A.7d (fit with the rules' argument bytes): "
-               f"{tag(wait)}")
-  lines.append(f"- fit neither way: {tag(never)}")
+  lines.append(f"- train cells waiting on A.7d-ii (fit with the rules' "
+               f"argument bytes): {tag(wait)}")
+  lines.append(f"- do not fit (serving cells with their weights cut, and "
+               f"train cells either way): {tag(never)}")
   return "\n".join(lines)
 
 

@@ -7,6 +7,9 @@ port's tensors.
   and torch cannot replay JAX's RNG, so the tests draw the weights once in
   JAX and load them here.  Leaves are cast to ``cfg.dtype``, as the JAX
   launcher casts its params.
+* :func:`shard_params_from_numpy`: the same, then this rank's shard of
+  it under a rule table (``dist.sharding.shard_params``), so that every
+  rank of a mesh holds its cut of the JAX package's global weights.
 * :func:`arena_from_numpy`: a JAX synopsis cache or arena dict -> the
   port's, each leaf keeping its dtype (int8 and fp8 codes included).
 """
@@ -17,6 +20,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.dist import sharding as shd
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import ModelConfig, leaves, param_shapes
 
@@ -76,3 +80,12 @@ def params_from_numpy(tree: Dict, cfg: ModelConfig, device) -> Dict:
                    f"leaves not in the config's tree {extra}")
   return tf.finish_params(_convert(tree, cfg.dtype, torch.device(device)),
                           cfg)
+
+
+def shard_params_from_numpy(tree: Dict, cfg: ModelConfig, device, mesh,
+                            rules):
+  """:func:`params_from_numpy`, then this rank's shard under ``rules`` on
+  ``mesh``: (the rank's tree, the spec tree), as
+  ``dist.sharding.shard_params`` returns them."""
+  return shd.shard_params(params_from_numpy(tree, cfg, device), cfg, mesh,
+                          rules)

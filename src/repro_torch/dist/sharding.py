@@ -48,6 +48,16 @@ alike (``stats``, read by ``analysis.roofline.collective_bytes``).
 reference's ``named_sharding``), :func:`tree_shardings` and
 :func:`shard_shape` resolve logical axes to spec tuples and the per-rank
 shapes they give.
+
+:func:`shard_params` places the serving weights (the reference's
+``tree_shardings`` then ``jax.device_put``): each rank keeps the block of
+every leaf that the rule table gives it, and each dict of the rank's tree
+carries its leaves' :class:`Cut` under :data:`CUT_KEY`.  The model code
+reads a leaf's cut from there (:func:`cut_axes`), gathers an FSDP-cut
+``embed`` dim before use (:func:`gather_fsdp`, per layer) and calls the
+installed mesh's collectives where a cut needs them
+(:func:`all_reduce_over`, :func:`all_gather_over`).  A tree without cuts
+runs as it always has, whatever rules are installed.
 """
 from __future__ import annotations
 
@@ -56,7 +66,7 @@ import itertools
 import math
 import threading
 import time
-from typing import Any, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -492,6 +502,152 @@ class AbstractMesh(Mesh):
 
   def _broadcast(self, box, src, group) -> None:
     del box, src, group
+
+
+# ---------------------------------------------------------------------------
+# Weights cut by the rule tables
+# ---------------------------------------------------------------------------
+
+# The key under which a dict of a cut parameter tree holds its leaves'
+# :class:`Cut` (``{leaf name: Cut}``).  A tree without it holds its leaves
+# whole, and every model function computes as it always has.
+CUT_KEY = "_cut"
+
+
+class Cut(NamedTuple):
+  """How a leaf of a cut parameter tree was cut: its logical axes (those of
+  ``common.param_axes``) and the spec they resolved to (a stacked leaf's
+  leading ``"layers"`` entry included until ``layer_params`` slices it)."""
+  axes: Tuple[Optional[str], ...]
+  spec: Spec
+
+  def layer(self) -> "Cut":
+    """The cut of one layer's slice of a stacked leaf."""
+    if self.spec[0] is not None:
+      raise ValueError(f"the layer axis is cut ({self.spec}): the port "
+                       "slices layers on every rank")
+    return Cut(self.axes[1:], self.spec[1:])
+
+
+def axes_of(entry) -> Tuple[str, ...]:
+  """The mesh axes of one spec entry (None, a name or a tuple) as a
+  tuple."""
+  if entry is None:
+    return ()
+  return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def take_block(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+  """This rank's block of the whole tensor ``x`` under ``spec``: along each
+  cut dim the contiguous block at the rank's combined index over that
+  dim's mesh axes (a contiguous copy, which never aliases ``x``)."""
+  shape = shard_shape(tuple(x.shape), spec, mesh)
+  for d, entry in enumerate(spec):
+    axes = axes_of(entry)
+    if axes:
+      x = x.narrow(d, mesh.index(axes) * shape[d], shape[d])
+  return x.clone(memory_format=torch.contiguous_format)
+
+
+def shard_params(params: Dict, cfg, mesh, rules: Dict[str, AxisRule]):
+  """This rank's shard of a whole serving parameter tree (the reference's
+  ``tree_shardings`` followed by ``jax.device_put``): every leaf cut by
+  ``mesh_axes_for(param_axes(cfg)[leaf], mesh, rules, shape)``, each rank
+  holding the block at its combined index along every cut dim.  Returns
+  (the rank's tree, whose every dict carries its leaves' :class:`Cut`
+  under :data:`CUT_KEY`; the spec tree).  ``params`` is the tree of
+  ``transformer.finish_params``: its f32 ``unembed`` is cut as the
+  ``(embed, vocab)`` leaf it is, and a tied model's is the f32 cast of
+  the rank's ``embed`` block, seen transposed (``embed``'s spec, the
+  other way round).  The model code reads each leaf's cut from the tree,
+  never from its shape nor from the installed rules, so whole parameters
+  under any rule table stay whole."""
+  from repro_torch.models import common as cm
+  mesh = require_mesh(mesh)
+  axes_tree = cm.param_axes(cfg)
+  axes_tree["unembed"] = ("embed", "vocab")
+
+  def walk(tree, axes):
+    out, cuts, specs = {}, {}, {}
+    for k, v in tree.items():
+      if k == CUT_KEY:
+        raise ValueError("the parameter tree is already a rank's shard")
+      if isinstance(v, dict):
+        out[k], specs[k] = walk(v, axes[k])
+        continue
+      spec = mesh_axes_for(axes[k], mesh, rules, shape=tuple(v.shape))
+      cuts[k] = Cut(tuple(axes[k]), spec)
+      specs[k] = spec
+      if not (k == "unembed" and cfg.tie_embeddings):
+        out[k] = take_block(v, spec, mesh)
+    out[CUT_KEY] = cuts
+    return out, specs
+
+  local, specs = walk(params, axes_tree)
+  if cfg.tie_embeddings:
+    local["unembed"] = local["embed"].float().t()
+  return local, specs
+
+
+def is_cut(p) -> bool:
+  """Whether the dict ``p`` of a parameter tree is a rank's shard."""
+  return isinstance(p, dict) and CUT_KEY in p
+
+
+def cut_axes(p: Dict, name: str, dim: int) -> Tuple[str, ...]:
+  """The mesh axes dim ``dim`` of leaf ``name`` of the dict ``p`` is cut
+  over, () where it is whole or ``p`` holds whole leaves."""
+  cut = p.get(CUT_KEY, {}).get(name) if isinstance(p, dict) else None
+  return () if cut is None else axes_of(cut.spec[dim])
+
+
+def active_mesh() -> "Mesh":
+  """The installed mesh, which a cut leaf needs for its collectives."""
+  mesh = current_mesh()
+  if mesh is None:
+    raise RuntimeError("cut weights (shard_params) used with no mesh "
+                       "installed (use_mesh): a rank's shard alone does not "
+                       "give the global answer")
+  return mesh
+
+
+def block_start(axes: Tuple[str, ...], size: int) -> int:
+  """The first global index of this rank's block of ``size`` along a dim
+  cut over ``axes``."""
+  return active_mesh().index(axes) * size if axes else 0
+
+
+def all_reduce_over(x: torch.Tensor, axes: Tuple[str, ...]) -> torch.Tensor:
+  """The sum of every rank's partial ``x`` along ``axes``; ``x`` where
+  ``axes`` is ()."""
+  return active_mesh().all_reduce(x, axes) if axes else x
+
+
+def all_gather_over(x: torch.Tensor, axes: Tuple[str, ...],
+                    dim: int) -> torch.Tensor:
+  """Every rank's block of ``x`` along ``axes``, concatenated along
+  ``dim``; ``x`` where ``axes`` is ()."""
+  return active_mesh().all_gather(x, axes, dim=dim) if axes else x
+
+
+def gather_fsdp(x: torch.Tensor, cut: Cut) -> Tuple[torch.Tensor, Cut]:
+  """``x`` with its FSDP cut undone (the reference's ``_gather_fsdp``):
+  each ``embed`` dim that is cut is all-gathered over its mesh axes; the
+  other cuts (``model``) stay.  Returns (the tensor, its cut after)."""
+  spec = list(cut.spec)
+  for d, (name, entry) in enumerate(zip(cut.axes, cut.spec)):
+    if name == "embed" and entry is not None:
+      x = active_mesh().all_gather(x, axes_of(entry), dim=d)
+      spec[d] = None
+  return x, Cut(cut.axes, tuple(spec))
+
+
+def leaf(p: Dict, name: str) -> torch.Tensor:
+  """Leaf ``name`` of the dict ``p`` with its FSDP cut undone (the
+  top-level leaves: ``embed``, ``unembed``, ``final_norm``,
+  ``frontend_proj``); the leaf itself in a whole tree."""
+  cut = p.get(CUT_KEY, {}).get(name)
+  return p[name] if cut is None else gather_fsdp(p[name], cut)[0]
 
 
 def require_mesh(mesh) -> "Mesh":

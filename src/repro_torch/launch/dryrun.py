@@ -19,10 +19,17 @@ runs the rank's real step on them under ``use_mesh`` on an
 
 against one NVIDIA H100 80GB HBM3, 700.00 W a rank (``analysis.roofline``).
 
-Until ROADMAP A.7d every rank holds the weights whole (``weights:
-"whole"``): the rule tables' tensor-parallel and FSDP cuts are what the
-reference's program holds, and ``argument_bytes_under_rules`` reports
-those bytes a rank, so the report can name the cells that wait on A.7d.
+A serving cell (prefill_32k, decode_32k, long_500k) traces the rank's
+cut program (``weights: "cut"``): its parameters are its
+``dist.sharding.shard_params`` shard under the cell's rule table (the
+tensor-parallel cuts over `model`, and the FSDP cut of ``embed`` over
+`data` for a big model), and the step gathers and reduces what the cuts
+need.  Its traced argument bytes equal ``argument_bytes_under_rules``:
+the rule tables' bytes a rank, with the port's f32 unembedding (ROADMAP
+C).  A train cell still holds the weights whole (``weights: "whole"``)
+until TP and FSDP reach the train step (ROADMAP A.7d-ii); its
+``argument_bytes_under_rules`` is what the reference's program holds, so
+the report can name the train cells that wait on A.7d-ii.
 The memory policies keep the reference's
 structure, each threshold the same share of the card's memory as the
 reference's of its 16 GB chip: FSDP weights to serve above 10/16 of it a
@@ -180,6 +187,13 @@ def train_state(cfg: cm.ModelConfig, *, compress: bool,
   return state
 
 
+def cut_serve_params(cfg: cm.ModelConfig, mesh, rules,
+                     device=META) -> Dict:
+  """The rank's shard of :func:`serve_params` under ``rules``
+  (``shard_params``; on ``meta`` nothing is allocated)."""
+  return shd.shard_params(serve_params(cfg, device), cfg, mesh, rules)[0]
+
+
 def _rows(spec_tree, mesh) -> Dict:
   """A rank's share of a global batch (its contiguous rows over the mesh's
   `pod` / `data` axes), as tensors of its own."""
@@ -202,10 +216,13 @@ def _leaf_bytes(shape, dtype, axes, mesh, rules) -> int:
 
 def bytes_under_rules(cfg: cm.ModelConfig, shape_name: str, mode: str,
                       mesh, rules) -> int:
-  """The per-rank argument bytes the rule tables assign, which the
-  reference's program holds: the weights in ``cfg.dtype`` (to train: the
-  f32 master, m and v, and the error feedback on the multi-pod mesh), the
-  batch, the decode cache; every leaf cut by its logical axes."""
+  """The per-rank argument bytes the rule tables assign: the weights in
+  ``cfg.dtype`` (to train: the f32 master, m and v, and the error feedback
+  on the multi-pod mesh), the batch, the decode cache; every leaf cut by
+  its logical axes.  To serve, the port holds the unembedding in f32
+  (``transformer.finish_params``), cut as an (embed, vocab) leaf: in place
+  of the bf16 ``unembed`` where untied, beside ``embed`` where tied; the
+  reference holds it in ``cfg.dtype`` (ROADMAP C)."""
   shape = shp.SHAPES[shape_name]
   shapes = dict(cm.leaves(cm.param_shapes(cfg)))
   axes = dict(cm.leaves(cm.param_axes(cfg)))
@@ -217,7 +234,9 @@ def bytes_under_rules(cfg: cm.ModelConfig, shape_name: str, mode: str,
     total += 4                                             # the step
   else:
     total += sum(_leaf_bytes(shapes[p], cfg.dtype, axes[p], mesh, rules)
-                 for p in shapes)
+                 for p in shapes if p != "unembed")
+    total += _leaf_bytes((cfg.d_model, cfg.vocab), torch.float32,
+                         ("embed", "vocab"), mesh, rules)
   if shape.kind in ("train", "prefill"):
     for t in shp.input_specs(cfg, shape).values():
       total += _leaf_bytes(tuple(t.shape), t.dtype,
@@ -257,7 +276,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, mode: str,
   elif shape.kind == "prefill":
     batch = _rows(shp.input_specs(cfg, shape), mesh)
     prefill = make_prefill_step(cfg)
-    args = (serve_params(cfg), batch["tokens"], batch.get("frontend_embeds"))
+    args = (cut_serve_params(cfg, mesh, rules), batch["tokens"],
+            batch.get("frontend_embeds"))
     step = prefill
   else:
     syn = mode == "synopsis"
@@ -269,7 +289,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, mode: str,
     tokens = torch.empty((shape.global_batch // lay.dp_n, 1),
                          dtype=torch.long, device=META)
     step = make_serve_step(cfg, mode="synopsis" if syn else "exact")
-    args = (serve_params(cfg), cache, tokens)
+    args = (cut_serve_params(cfg, mesh, rules), cache, tokens)
   t_setup = time.time() - t0
 
   mesh.reset_stats()
@@ -303,7 +323,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, mode: str,
       "collective_calls": mesh.stats["calls"],
       "roofline": roof.to_dict(),
       "card": rl.CARD, "card_memory_bytes": CARD_MEMORY,
-      "weights": "whole",
+      "weights": "whole" if shape.kind == "train" else "cut",
       "argument_bytes_under_rules": bytes_under_rules(
           cfg, shape_name, mode, mesh, rules),
   }

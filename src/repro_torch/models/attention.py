@@ -10,13 +10,23 @@ kv_norm (kv_lora,), wk_b (kv_lora, H, nope), wv_b (kv_lora, H, v_dim), wo
 
 MLA's latent cache is itself a learned synopsis: the decode cache holds
 one row of kv_lora + rope (576 at deepseek-v2's width) a token, shared by
-every head, and AccuracyTrader's clusters stack on top of it."""
+every head, and AccuracyTrader's clusters stack on top of it.
+
+On a rank's shard (``dist.sharding.shard_params``) the query side is cut
+over ``heads``: ``wq`` and ``bq`` (MLA: ``wq_b``, ``wk_b``, ``wv_b``) hold
+the rank's query heads, ``wo`` their rows, and :func:`out_proj` sums the
+ranks' partial outputs with one all-reduce before ``bo``.  ``wk`` and
+``wv`` stay whole under the serving tables (``kv_heads`` is None there):
+every rank computes every KV head, so the prompt's KV comes out global
+with no collective, and each rank attends with the KV heads of its own
+query heads' groups (:func:`kv_heads_for`)."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 
+from repro_torch.dist import sharding as shd
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import acc_dtype
 from repro_torch.models.common import ModelConfig
@@ -36,6 +46,32 @@ def causal_mix(q, k, v, *, sm_scale: float, window: Optional[int] = None,
                             attn_softcap=cap, causal_skip=causal_skip)
   return ops.prefill_attention(q, k, v, sm_scale=sm_scale, cap=cap,
                                window=window)
+
+
+def heads_cut(p, name: str = "wq"):
+  """(mesh axes, first global head) of the query heads a rank's shard
+  holds: ``name``'s heads dim (``wq``; MLA ``wq_b``) cut over the axes, or
+  ((), 0) where the heads are whole.  A cut ``wk`` (a table that cuts
+  ``kv_heads``) is refused: no serving table does, and the prompt's KV
+  would come out cut."""
+  if shd.cut_axes(p, "wk", 1):
+    raise NotImplementedError("kv_heads cut over the mesh: the serving "
+                              "tables keep wk / wv whole")
+  axes = shd.cut_axes(p, name, 1)
+  return axes, shd.block_start(axes, p[name].shape[1])
+
+
+def kv_heads_for(k, v, h0: int, n_heads: int, group: int, dim: int):
+  """The KV heads of the query heads [h0, h0 + n_heads) (G = ``group``
+  query heads a KV head) along ``dim`` of k and v: a slice where the heads
+  are whole groups or lie in one group, else each query head's KV head
+  gathered (G = 1)."""
+  if (n_heads % group == 0 and h0 % group == 0) or \
+      h0 // group == (h0 + n_heads - 1) // group:
+    n = max(n_heads // group, 1)
+    return k.narrow(dim, h0 // group, n), v.narrow(dim, h0 // group, n)
+  idx = torch.arange(h0, h0 + n_heads, device=k.device) // group
+  return k.index_select(dim, idx), v.index_select(dim, idx)
 
 
 def _proj(x, w):
@@ -62,11 +98,13 @@ def qkv(x, p, cfg: ModelConfig, positions):
 
 def out_proj(o, p, x_dtype):
   """o (B, S, H, hd) -> (B, S, d) in ``x_dtype``, plus ``bo`` where the
-  params have it."""
+  params have it; a row-cut ``wo`` (the rank's H heads) sums the ranks'
+  partial products with one all-reduce first."""
   wo = p["wo"]
   H, hd, d = wo.shape
   y = torch.matmul(o.to(x_dtype).reshape(*o.shape[:-2], H * hd),
                    wo.reshape(H * hd, d).to(x_dtype))
+  y = shd.all_reduce_over(y, shd.cut_axes(p, "wo", 0))
   return y + p["bo"].to(x_dtype) if "bo" in p else y
 
 
@@ -78,7 +116,12 @@ def attention_train(x, p, cfg: ModelConfig, positions, *,
   ``cfg.sliding_window`` positions on a ``local`` layer.  Returns (y (B,
   S, d), (k, v)) with k/v in the decode layout (B, Hkv, S, D)."""
   q, k, v = qkv(x, p, cfg, positions)
-  o = causal_mix(q, k, v, sm_scale=cfg.hd ** -0.5,
+  kq, vq = k, v
+  axes, h0 = heads_cut(p)
+  if axes:
+    kq, vq = kv_heads_for(k, v, h0, q.shape[2],
+                          cfg.n_heads // cfg.n_kv_heads, 2)
+  o = causal_mix(q, kq, vq, sm_scale=cfg.hd ** -0.5,
                  window=cfg.sliding_window if local else None,
                  cap=cfg.attn_softcap, train=train, causal_skip=causal_skip)
   y = out_proj(o, p, x.dtype)
@@ -104,9 +147,13 @@ def cross_attention(x, p, cfg: ModelConfig, src):
   k = _proj(src, p["wk"]).transpose(1, 2)                     # (B,Hkv,T,D)
   v = _proj(src, p["wv"]).transpose(1, 2)
   B, S, H, D = q.shape
-  Hkv = k.shape[1]
+  kq, vq = k, v
+  axes, h0 = heads_cut(p)
+  if axes:
+    kq, vq = kv_heads_for(k, v, h0, H, cfg.n_heads // cfg.n_kv_heads, 1)
+  Hkv = kq.shape[1]
   f = acc_dtype(x)
-  kf, vf = k.to(f), v.to(f)
+  kf, vf = kq.to(f), vq.to(f)
   qg = q.transpose(1, 2).reshape(B, Hkv, H // Hkv, S, D)
   o = torch.empty((B, Hkv, H // Hkv, S, D), dtype=x.dtype, device=x.device)
   for s0 in range(0, S, CROSS_Q_CHUNK):

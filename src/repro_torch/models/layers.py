@@ -49,11 +49,13 @@ def swiglu(x: torch.Tensor, w1, w3, w2) -> torch.Tensor:
 def gelu_mlp(x: torch.Tensor, w1, b1, w2, b2) -> torch.Tensor:
   """GELU MLP with biases: ``gelu(x w1 + b1) w2 + b2``, each product and
   sum in ``x.dtype``, the GELU in f32 with the tanh approximation
-  (``jax.nn.gelu``'s default; torch's default is the erf form)."""
+  (``jax.nn.gelu``'s default; torch's default is the erf form).  ``b2``
+  None leaves it out (a row-cut ``w2`` adds it after its all-reduce)."""
   dt = x.dtype
   h = torch.matmul(x, w1.to(dt)) + b1.to(dt)
   h = torch.nn.functional.gelu(h.to(acc_dtype(h)), approximate="tanh").to(dt)
-  return torch.matmul(h, w2.to(dt)) + b2.to(dt)
+  y = torch.matmul(h, w2.to(dt))
+  return y if b2 is None else y + b2.to(dt)
 
 
 # Query rows per chunk of :func:`causal_attention`, as the reference's.

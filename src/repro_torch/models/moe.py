@@ -28,13 +28,27 @@ and its eager call) could differ in the last bit.  Shared experts
 (deepseek) add ``swiglu`` of the same input to the routed output, as the
 reference does.  Plain PyTorch on every device: the reference is plain
 JAX.
+
+On a rank's shard (``dist.sharding.shard_params``) the MoE is
+expert-parallel over ``expert``: the router's columns are cut, so one
+all-gather gives every rank the logits of all E experts and every rank
+routes every token globally (the same top-k, capacity and drops as one
+rank's); each rank then runs only its own experts, combines their outputs
+(:func:`combine` over its block) and one all-reduce sums the ranks'
+partial combines.  Where E does not divide over the mesh (the
+divisibility fallback) the experts stay whole and ``ff`` takes the cut:
+every rank runs every expert on its columns, and the same all-reduce sums
+the partial products.  Shared experts follow ``transformer.mlp``'s cut.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.cluster import top_k
+from repro_torch.dist import sharding as shd
 from repro_torch.kernels.ref import acc_dtype
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import swiglu
@@ -46,16 +60,19 @@ def capacity(cfg: ModelConfig, tokens: int) -> int:
   return max(1, int(tokens * m.top_k / m.num_experts * m.capacity_factor))
 
 
-def route(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
+def route(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig,
+          axes=()):
   """The routing of x (T, d): (per expert the kept tokens ``tok`` (E,
   cap) and their gates ``gate`` (E, cap), 0 where the slot holds no
   routed token; the token side's choice ``topi`` (T, k); the aux
-  load-balance loss)."""
+  load-balance loss).  ``axes``: the mesh axes the router's columns are
+  cut over; the logits of every expert are all-gathered first."""
   m = cfg.moe
   T = x.shape[0]
   E, K = m.num_experts, m.top_k
   f = acc_dtype(x)
-  probs = torch.softmax(torch.matmul(x.to(f), router.to(f)), dim=-1)
+  probs = torch.softmax(shd.all_gather_over(
+      torch.matmul(x.to(f), router.to(f)), axes, -1), dim=-1)
   topv, topi = top_k(probs, K)                                # (T, K)
   topv = topv / topv.sum(-1, keepdim=True).clamp_min(1e-9)
   in_topk = torch.zeros((T, E), dtype=f, device=x.device).scatter_(
@@ -68,8 +85,8 @@ def route(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
   return tok, gate.clamp_min(0.0), topi, aux
 
 
-def combine(y: torch.Tensor, tok: torch.Tensor,
-            topi: torch.Tensor) -> torch.Tensor:
+def combine(y: torch.Tensor, tok: torch.Tensor, topi: torch.Tensor,
+            e0: int = 0, n_experts: Optional[int] = None) -> torch.Tensor:
   """The experts' outputs y (E, cap, d), slot (e, c) belonging to token
   ``tok[e, c]``, summed per token into (T, d) in y's dtype, in ascending
   expert order (the reference scatter-adds the flattened (E, cap) slots
@@ -78,7 +95,9 @@ def combine(y: torch.Tensor, tok: torch.Tensor,
   dropped it.  A slot that holds no routed token (gate 0) points at a
   token that did not choose its expert, so it is never read; the
   reference adds it as 0.  Tensor ops only, so that a CUDA graph can
-  capture it."""
+  capture it.  With ``n_experts`` > E, y holds experts [e0, e0 + E) of
+  the ``n_experts`` (a rank's block): a token's expert outside the block
+  adds nothing."""
   E, cap, d = y.shape
   T = topi.shape[0]
   # slot[e, t]: the slot of expert e holding token t (each expert holds a
@@ -91,7 +110,12 @@ def combine(y: torch.Tensor, tok: torch.Tensor,
   out = torch.zeros((T, d), dtype=y.dtype, device=y.device)
   for j in range(experts.shape[1]):
     e = experts[:, j]
-    c = slot[e, tokens]                                       # (T,)
+    if n_experts is not None and n_experts != E:
+      own = (e >= e0) & (e < e0 + E)
+      e = (e - e0).clamp(0, E - 1)
+      c = torch.where(own, slot[e, tokens], -1)
+    else:
+      c = slot[e, tokens]                                     # (T,)
     term = flat[e * cap + c.clamp_min(0)]
     out = out + torch.where((c >= 0)[:, None], term, torch.zeros_like(term))
   return out
@@ -106,15 +130,23 @@ def moe_ffn(x: torch.Tensor, p, cfg: ModelConfig):
   (``transformer.ffn``), as in the reference."""
   B, S, d = x.shape
   xf = x.reshape(B * S, d)
-  tok, gate, topi, aux = route(xf, p["router"], cfg)
+  tok, gate, topi, aux = route(xf, p["router"], cfg,
+                               shd.cut_axes(p, "router", 1))
   dt, f = x.dtype, acc_dtype(x)
+  e_axes = shd.cut_axes(p, "w1", 0)
+  e0 = shd.block_start(e_axes, p["w1"].shape[0])
+  if e_axes:                              # this rank's experts only
+    tok = tok[e0:e0 + p["w1"].shape[0]]
+    gate = gate[e0:e0 + p["w1"].shape[0]]
   xg = xf[tok]                                                # (E, cap, d)
   h = torch.matmul(xg, p["w1"].to(dt)).to(f)
   g = torch.matmul(xg, p["w3"].to(dt)).to(f)
   h = (F.silu(h) * g).to(dt)
   y = torch.matmul(h, p["w2"].to(dt)) * gate[..., None].to(dt)
-  out = combine(y, tok, topi).reshape(B, S, d)
+  out = combine(y, tok, topi, e0, cfg.moe.num_experts).reshape(B, S, d)
+  out = shd.all_reduce_over(out, e_axes + shd.cut_axes(p, "w1", 2))
   if cfg.moe.num_shared:
     s = p["shared"]
-    out = out + swiglu(x, s["w1"], s["w3"], s["w2"])
+    out = out + shd.all_reduce_over(swiglu(x, s["w1"], s["w3"], s["w2"]),
+                                    shd.cut_axes(s, "w2", 0))
   return out, aux

@@ -16,6 +16,21 @@ kernel).  The scan, the conv and the state update compute in f32 (float64
 for float64 activations, ``kernels.ref.acc_dtype``).  Those f32 products
 must not run in TF32 on the card: the port leaves
 ``torch.backends.cuda.matmul.allow_tf32`` False (torch's default).
+
+On a rank's shard (``dist.sharding.shard_params``) every leaf is held as
+the rule table cuts it over ``ssm_heads``, evenly, not by segment:
+``in_proj``'s 2 d_in + 2 n + h columns, the conv's d_in + 2 n channels
+(a block may straddle x and B), the heads of ``A_log`` / ``D`` /
+``dt_bias``, and d_in of ``norm`` and ``out_proj``.  So the mixer
+all-gathers ``in_proj``'s output, runs the depthwise conv on the rank's
+channel block (with its block of ``conv_state``) and all-gathers that,
+runs the SSD for the rank's heads (its block of ``ssd_state``), sums the
+gated norm's squares over all of d_in with one all-reduce, and row-cut
+``out_proj`` ends in one all-reduce.  A leaf the rule leaves whole (the
+divisibility fallback) takes no collective: the rank computes all of it,
+or slices what its neighbours' cuts need.  The prefill's state comes out
+global (every rank's cache is the whole prompt's); a decode step's is the
+rank's block, as ``serve_step.shard_cache`` cuts the cache.
 """
 from __future__ import annotations
 
@@ -24,6 +39,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import sharding as shd
 from repro_torch.kernels.ref import acc_dtype
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import rms_norm
@@ -113,35 +129,92 @@ def ssm_forward(x: torch.Tensor, p, cfg: ModelConfig, *,
   """x (B, S, d) -> (y (B, S, d) in x's dtype, (conv_state (B, K-1,
   conv_dim) in x's dtype, ssd_state (B, h, p, n) in the compute dtype)).
   Without ``decode_state`` the prefill (the chunked scan from a zero
-  state); with it, S = 1 incremental decode from that state."""
+  state); with it, S = 1 incremental decode from that state.  Whole
+  weights or a rank's shard (see the module doc): with every cut axis ()
+  each collective is the identity and each block the whole leaf."""
   s = cfg.ssm
   f = acc_dtype(x)
-  zxbcdt = torch.matmul(x, p["in_proj"].to(x.dtype))
+  B_, S_ = x.shape[:2]
+  zxbcdt = shd.all_gather_over(torch.matmul(x, p["in_proj"].to(x.dtype)),
+                               shd.cut_axes(p, "in_proj", 1), -1)
   z, xin, Bs, Cs, dt, d_in, h = _split_proj(zxbcdt, cfg)
+  xbc = torch.cat([xin, Bs, Cs], dim=-1)
 
+  # The depthwise conv on the rank's channel block.
+  c_axes = shd.cut_axes(p, "conv_w", 1)
+  n_ch = p["conv_w"].shape[1]
+  c0 = shd.block_start(c_axes, n_ch)
   conv_state = decode_state[0] if decode_state is not None else None
-  conv_out, new_conv = _causal_conv(torch.cat([xin, Bs, Cs], dim=-1),
+  if conv_state is not None and conv_state.shape[-1] != n_ch:
+    raise ValueError(f"conv_state holds {conv_state.shape[-1]} channels, "
+                     f"the rank's conv {n_ch}: cut the cache with "
+                     "serve_step.shard_cache under the same rules")
+  conv_out, new_conv = _causal_conv(xbc[..., c0:c0 + n_ch],
                                     p["conv_w"].to(f), p["conv_b"].to(f),
                                     conv_state)
+  conv_out = shd.all_gather_over(conv_out, c_axes, -1)
+  if decode_state is None and c_axes:        # the prompt's whole state
+    K = p["conv_w"].shape[0]
+    new_conv = torch.cat([xbc.new_zeros((B_, K - 1, xbc.shape[-1])), xbc],
+                         dim=1)[:, S_:]
   xin, Bs, Cs = torch.split(conv_out, [d_in, s.d_state, s.d_state], dim=-1)
 
-  B_, S_ = x.shape[:2]
-  xh = xin.reshape(B_, S_, h, s.head_dim)
-  A = -torch.exp(p["A_log"].to(f))                           # (h,)
-  dt = dt.to(f) + p["dt_bias"].to(f)
+  # The SSD for the rank's heads.
+  h_axes = shd.cut_axes(p, "A_log", 0)
+  hl = p["A_log"].shape[0]
+  h0 = shd.block_start(h_axes, hl)
+  P = s.head_dim
+  xh = xin.reshape(B_, S_, h, P)[:, :, h0:h0 + hl]
+  A = -torch.exp(p["A_log"].to(f))
+  dt = dt[..., h0:h0 + hl].to(f) + p["dt_bias"].to(f)
   dt = torch.logaddexp(dt, torch.zeros_like(dt))             # softplus
+  if decode_state is not None and decode_state[1].shape[1] != hl:
+    raise ValueError(f"ssd_state holds {decode_state[1].shape[1]} heads, "
+                     f"the rank's SSD {hl}: cut the cache with "
+                     "serve_step.shard_cache under the same rules")
+  y, ssd_state = _ssd(xh, dt, A, Bs, Cs, s, decode_state)
+  if decode_state is None:
+    ssd_state = shd.all_gather_over(ssd_state, h_axes, 1)
+  y = y + xh * p["D"].to(f)[:, None]
+  y = y.reshape(B_, S_, hl * P) * F.silu(z[..., h0 * P:(h0 + hl) * P].to(f))
+
+  # The gated norm over all of d_in: where the rank holds some heads, its
+  # squares summed by one all-reduce.
+  n_axes = shd.cut_axes(p, "norm", 0)
+  w = p["norm"]
+  if not (n_axes and n_axes == h_axes):     # not already the rank's block
+    w = shd.all_gather_over(w, n_axes, 0)[h0 * P:(h0 + hl) * P]
+  if not h_axes:
+    y = rms_norm(y.to(x.dtype), w, cfg.norm_eps)
+  else:
+    yf = y.to(x.dtype).to(f)
+    sq = shd.all_reduce_over(yf.pow(2).sum(-1, keepdim=True), h_axes)
+    yf = yf * torch.rsqrt(sq / d_in + cfg.norm_eps)
+    y = (yf * (1.0 + w.to(f))).to(x.dtype)
+
+  # out_proj: row-cut, or the rank's y gathered where it is whole.
+  o_axes = shd.cut_axes(p, "out_proj", 0)
+  if o_axes and o_axes != h_axes:
+    y = shd.all_gather_over(y, h_axes, -1)
+    rows = p["out_proj"].shape[0]
+    o0 = shd.block_start(o_axes, rows)
+    y = y[..., o0:o0 + rows]
+  elif not o_axes:
+    y = shd.all_gather_over(y, h_axes, -1)
+  out = torch.matmul(y, p["out_proj"].to(x.dtype))
+  return shd.all_reduce_over(out, o_axes), (new_conv, ssd_state)
+
+
+def _ssd(xh, dt, A, Bs, Cs, s, decode_state):
+  """The SSD over xh's heads: the chunked scan (prefill) or one step from
+  ``decode_state[1]``; (y (B, S, h, p), the new state (B, h, p, n))."""
+  f = xh.dtype
 
   if decode_state is None:
-    y, ssd_state = ssd_chunked(xh, dt, A, Bs, Cs, s.chunk)
-  else:
-    st = decode_state[1].to(f)                               # (B,h,p,n)
-    dA = torch.exp(dt[:, 0] * A)                             # (B,h)
-    dBx = (dt[:, 0, :, None] * xh[:, 0])[..., None] * Bs[:, 0, None, None]
-    ssd_state = st * dA[:, :, None, None] + dBx
-    y = torch.einsum("bn,bhpn->bhp", Cs[:, 0], ssd_state)[:, None]
-
-  y = y + xh * p["D"].to(f)[:, None]
-  y = y.reshape(B_, S_, d_in) * F.silu(z.to(f))
-  y = rms_norm(y.to(x.dtype), p["norm"], cfg.norm_eps)
-  out = torch.matmul(y, p["out_proj"].to(x.dtype))
-  return out, (new_conv, ssd_state)
+    return ssd_chunked(xh, dt, A, Bs, Cs, s.chunk)
+  st = decode_state[1].to(f)                                 # (B,h,p,n)
+  dA = torch.exp(dt[:, 0] * A)                               # (B,h)
+  dBx = (dt[:, 0, :, None] * xh[:, 0])[..., None] * Bs[:, 0, None, None]
+  ssd_state = st * dA[:, :, None, None] + dBx
+  y = torch.einsum("bn,bhpn->bhp", Cs[:, 0], ssd_state)[:, None]
+  return y, ssd_state

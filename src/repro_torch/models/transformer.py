@@ -54,6 +54,7 @@ from typing import Dict, Optional
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.dist import sharding as shd
 from repro_torch.kernels.ref import acc_dtype
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
@@ -224,9 +225,25 @@ def finish_params(params: Dict, cfg: ModelConfig) -> Dict:
 
 
 def layer_params(stacked: Dict, i: int) -> Dict:
-  """Layer ``i``'s slice of a stacked parameter subtree."""
-  return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
-          for k, v in stacked.items()}
+  """Layer ``i``'s slice of a stacked parameter subtree.  A rank's shard
+  (``dist.sharding.shard_params``) comes with its FSDP cut undone, leaf by
+  leaf (``gather_fsdp``: the reference's ``_gather_fsdp`` before the
+  layer runs; the gathered leaves are freed with the slice), and its
+  ``model`` cuts kept in the slice's :data:`~repro_torch.dist.sharding.
+  CUT_KEY` entries."""
+  if not shd.is_cut(stacked):
+    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
+            for k, v in stacked.items()}
+  cuts = {}
+  out = {shd.CUT_KEY: cuts}
+  for k, v in stacked.items():
+    if k == shd.CUT_KEY:
+      continue
+    if isinstance(v, dict):
+      out[k] = layer_params(v, i)
+      continue
+    out[k], cuts[k] = shd.gather_fsdp(v[i], stacked[shd.CUT_KEY][k].layer())
+  return out
 
 
 def embed_scale(cfg: ModelConfig) -> Optional[float]:
@@ -243,7 +260,10 @@ def embed_tokens(params, cfg: ModelConfig, tokens, frontend_embeds=None):
   ``frontend_embeds`` (B, P, frontend_dim) -> (B, P + S, d), the projected
   patches first (the product in the promoted dtype, then cast, as the JAX
   einsum does)."""
-  x = params["embed"][tokens].to(cfg.dtype)
+  table = shd.leaf(params, "embed")
+  vocab_axes = shd.cut_axes(params, "embed", 0)
+  x = (_embed_cut(table, tokens, vocab_axes) if vocab_axes
+       else table[tokens]).to(cfg.dtype)
   scale = embed_scale(cfg)
   x = x if scale is None else x * scale
   if frontend_embeds is None:
@@ -251,10 +271,23 @@ def embed_tokens(params, cfg: ModelConfig, tokens, frontend_embeds=None):
   if cfg.frontend != "vision_stub":
     raise ValueError(f"{cfg.name} has no vision stub to take "
                      "frontend_embeds")
-  proj = params["frontend_proj"]
+  proj = shd.leaf(params, "frontend_proj")
   dt = torch.promote_types(frontend_embeds.dtype, proj.dtype)
   prefix = torch.matmul(frontend_embeds.to(dt), proj.to(dt)).to(cfg.dtype)
   return torch.cat([prefix, x], dim=1)
+
+
+def _embed_cut(table, tokens, axes):
+  """The lookup of ``tokens`` in a table whose vocab rows are cut over
+  ``axes``: each rank looks up the ids in its block (zero rows for the
+  others), and one all-reduce sums the blocks; every sum adds one row to
+  zeros, so the result is the whole table's rows exactly."""
+  rows = table.shape[0]
+  local = tokens - shd.block_start(axes, rows)
+  own = (local >= 0) & (local < rows)
+  x = table[local.clamp(0, rows - 1)]
+  x = torch.where(own[..., None], x, torch.zeros_like(x))
+  return shd.all_reduce_over(x, axes)
 
 
 def post_norm(y, lp, name: str, cfg: ModelConfig):
@@ -264,10 +297,16 @@ def post_norm(y, lp, name: str, cfg: ModelConfig):
 
 
 def mlp(x, mp, cfg: ModelConfig):
-  """The config's MLP: SwiGLU, or GELU with biases."""
+  """The config's MLP: SwiGLU, or GELU with biases.  Cut over ``ff`` (a
+  rank's shard): ``w1``, ``w3`` and ``b1`` column-cut, ``w2`` row-cut,
+  one all-reduce of the partial outputs, ``b2`` added after it."""
+  axes = shd.cut_axes(mp, "w2", 0)
   if cfg.mlp_type == "gelu":
-    return gelu_mlp(x, mp["w1"], mp["b1"], mp["w2"], mp["b2"])
-  return swiglu(x, mp["w1"], mp["w3"], mp["w2"])
+    if not axes:
+      return gelu_mlp(x, mp["w1"], mp["b1"], mp["w2"], mp["b2"])
+    y = gelu_mlp(x, mp["w1"], mp["b1"], mp["w2"], None)
+    return shd.all_reduce_over(y, axes) + mp["b2"].to(x.dtype)
+  return shd.all_reduce_over(swiglu(x, mp["w1"], mp["w3"], mp["w2"]), axes)
 
 
 def ffn(x, lp, cfg: ModelConfig, spec: LayerSpec, aux=None):
@@ -365,7 +404,7 @@ def encode(params, cfg: ModelConfig, frames):
   reference adds none, whatever its docstring says), ln2 and the GELU MLP,
   then the encoder's ``final_norm``."""
   ecfg = encoder_config(cfg)
-  proj = params["frontend_proj"]
+  proj = shd.leaf(params, "frontend_proj")
   dt = torch.promote_types(frames.dtype, proj.dtype)
   x = torch.matmul(frames.to(dt), proj.to(dt)).to(cfg.dtype)
   enc = params["encoder"]
@@ -374,7 +413,7 @@ def encode(params, cfg: ModelConfig, frames):
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     x = x + attn.cross_attention(h, lp["attn"], ecfg, h)[0]
     x = x + mlp(rms_norm(x, lp["ln2"], cfg.norm_eps), lp["mlp"], ecfg)
-  return rms_norm(x, enc["final_norm"], cfg.norm_eps)
+  return rms_norm(x, shd.leaf(enc, "final_norm"), cfg.norm_eps)
 
 
 def hidden_states(params, cfg: ModelConfig, tokens,
@@ -409,7 +448,7 @@ def hidden_states(params, cfg: ModelConfig, tokens,
           kv[name][b, si if spec.kind == "mamba" else ai] = t
       ai += spec.kind == "attn"
       si += spec.kind == "mamba"
-  h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+  h = rms_norm(x, shd.leaf(params, "final_norm"), cfg.norm_eps)
   return (h, kv) if collect_kv else h
 
 
@@ -444,10 +483,13 @@ def _cache_leaves(cfg: ModelConfig, B: int, S: int, T: int) -> Dict:
 
 def logits_fn(params, cfg: ModelConfig, h):
   """(..., d) -> logits (..., V) in the unembedding's dtype (f32; float64
-  in a float64 run), softcapped where the config caps them."""
-  unembed = params["unembed"]
-  return softcap(torch.matmul(h.to(unembed.dtype), unembed),
-                 cfg.logit_softcap)
+  in a float64 run), softcapped where the config caps them.  On a rank's
+  shard the unembedding's vocab columns are cut: the rank's logits, capped
+  elementwise, then one all-gather gives every rank all V."""
+  unembed = shd.leaf(params, "unembed")
+  return shd.all_gather_over(
+      softcap(torch.matmul(h.to(unembed.dtype), unembed), cfg.logit_softcap),
+      shd.cut_axes(params, "unembed", 1), -1)
 
 
 # -- the training path ---------------------------------------------------------
@@ -462,6 +504,11 @@ def train_hidden_states(params, cfg: ModelConfig, tokens,
   (``torch.utils.checkpoint``, non-reentrant) where autograd is on, as the
   reference remats each scanned block."""
   check_supported(cfg)
+  if shd.is_cut(params):
+    raise NotImplementedError(
+        f"{cfg.name}: the training path takes whole parameters (TP and FSDP "
+        "in the train step, with a backward for each collective, are "
+        "ROADMAP A.7d-ii)")
   x, enc_out = _inputs(params, cfg, tokens, frontend_embeds)
   positions = torch.arange(x.shape[1], device=x.device)
   remat = torch.is_grad_enabled()

@@ -13,6 +13,13 @@ tokens from the causal "cross" prefill.  Causal attention runs through
 ``kernels.ops.prefill_attention`` (the flash prefill kernel on CUDA
 tensors).
 
+On a rank's shard (``dist.sharding.shard_params``, under ``use_mesh``)
+causal attention runs on the rank's own query heads against their KV
+heads, so ``flash_prefill`` launches at the rank's head count; ``wk`` and
+``wv`` are whole under the serving tables, so every rank ends with the
+global prompt KV (and the mamba layers' global state) with no collective
+of its own, and the logits come out global (``transformer.logits_fn``).
+
 :func:`make_extend_step` is the corpus cache's delta prefill: the tokens
 that extend a cached corpus, against the cached arena's sorted KV.
 """
@@ -20,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.dist import sharding as shd
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import ModelConfig
@@ -114,6 +122,9 @@ def make_extend_step(cfg: ModelConfig):
 
   @torch.no_grad()
   def extend_step(params, ext_tokens, prefix_k, prefix_v, pos0: int):
+    if shd.is_cut(params):
+      raise NotImplementedError(f"{cfg.name}: the delta prefill takes whole "
+                                "parameters")
     x = tf.embed_tokens(params, cfg, ext_tokens)
     E = x.shape[1]
     positions = pos0 + torch.arange(E, device=x.device)

@@ -88,6 +88,7 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import rms_norm
+from repro_torch.serve import kv_cache as kvc
 
 # Per-layer cache leaves each mode reads; a layer with a cross block
 # (whisper) also reads CROSS_LEAVES, in both modes.
@@ -163,8 +164,8 @@ def shard_layout(mesh, seq_axes, M: int, B: int) -> ShardLayout:
 # Each cache leaf's (batch axis, sequence axis, the sequence axis's rows a
 # cluster), from the end: the same for a layer's slice (B, Hkv, S, D) and
 # the whole cache (nb, na, B, Hkv, S, D).  None: the leaf has no such axis.
-# The cross leaves (whisper) and the SSM state are cut by batch only: the
-# port's mamba layers hold their heads whole (ROADMAP A.7d).
+# The cross leaves (whisper) are cut by batch only; the SSM state also by
+# its ``ssm_heads`` axis (``_HEAD_AXES``), as a rank's mamba weights are.
 _SHARD_AXES = {"k": (-4, -2, "C"), "v": (-4, -2, "C"),
                "k_syn": (-4, -2, 1), "v_syn": (-4, -2, 1),
                "counts": (-2, -1, 1),
@@ -174,6 +175,14 @@ _SHARD_AXES = {"k": (-4, -2, "C"), "v": (-4, -2, "C"),
                "recent_len": (-1, None, 0), "pos": (-1, None, 0),
                "cross_k": (-4, None, 0), "cross_v": (-4, None, 0),
                "conv_state": (-3, None, 0), "ssd_state": (-4, None, 0)}
+
+
+# The SSM state's ``ssm_heads`` dim, from the end, and the leaf's logical
+# axes (``kv_cache``): cut as the rule table cuts it, the rank's block at
+# its combined index, as ``dist.sharding.shard_params`` cuts the mixer's
+# conv channels and heads.
+_HEAD_AXES = {"conv_state": (-1, kvc.SSM_CONV_AXES),
+              "ssd_state": (-3, kvc.SSM_STATE_AXES)}
 
 
 def _cache_units(cache: Dict[str, torch.Tensor]) -> Tuple[int, int, int]:
@@ -197,9 +206,11 @@ def shard_cache(cache: Dict[str, torch.Tensor], mesh, rules
   / v, and the rank's batch rows of every leaf (:func:`shard_layout`'s
   dispatch); the recent ring, ``recent_len`` and ``pos`` are cut by batch
   only.  An exact cache: S/n rows of k / v (the same dispatch over its S
-  rows).  The cross leaves and the SSM state are cut by batch only; a
-  cache with no attention leaf (mamba2) by batch over the mesh's `pod` /
-  `data` axes where B divides.  The shard's leaves are contiguous copies,
+  rows).  The cross leaves are cut by batch only, the SSM state by batch
+  and by its ``ssm_heads`` dim where the rules cut that (conv channels
+  and SSD heads: the rank's block, as its mamba weights); a cache with no
+  attention leaf (mamba2) by batch over the mesh's `pod` / `data` axes
+  where B divides.  The shard's leaves are contiguous copies,
   and its ``"layout"`` entry (a :class:`ShardLayout`) tells the decode
   attention how it was cut.  A leaf not listed in ``_SHARD_AXES`` is
   refused where the batch is cut."""
@@ -231,6 +242,14 @@ def shard_cache(cache: Dict[str, torch.Tensor], mesh, rules
     if s_ax is not None and layout.nshards > 1:
       rows = (M // layout.nshards) * (C if unit == "C" else unit)
       x = x.narrow(s_ax, sid * rows, rows)
+    if name in _HEAD_AXES:
+      h_ax, logical = _HEAD_AXES[name]
+      full = cache[name].shape
+      spec = shd.mesh_axes_for(logical[-len(full):], mesh, rules, shape=full)
+      axes = shd.axes_of(spec[h_ax])
+      if axes:
+        n = full[h_ax] // mesh.axis_size(axes)
+        x = x.narrow(h_ax, mesh.index(axes) * n, n)
     # A copy even where nothing was cut: the shard never aliases the
     # global cache (the loop appends to its ring in place).
     out[name] = x.clone(memory_format=torch.contiguous_format)
@@ -417,18 +436,56 @@ def _decode_attention(q, cache_sl, cfg: ModelConfig, local: bool, mode: str,
   return synopsis_decode_attention(q, cache_sl, **kw), None
 
 
+def _heads_decode(q, cache_sl, cfg: ModelConfig, local: bool, mode: str,
+                  i_max: int, attention_fn, heads, group: int, **kw):
+  """:func:`_decode_attention` for the rank's query heads q (B, Hl, D),
+  ``heads`` = (the mesh axes they are cut over, the first one's index),
+  G = ``group`` query heads a KV head.  Exact attention (exact mode, a
+  local layer) on a cache whose sequence is not cut runs on the rank's
+  own heads directly, against the KV heads of their groups (a view).
+  Otherwise every rank needs every head's query: over a sequence-cut
+  cache each rank's partials cover all heads for its rows, and stage 1's
+  score for a KV head is the max over all of its group's heads.  So q,
+  B x H x D and small, is all-gathered over the heads' axes, the decode
+  attention runs on all heads, and the rank keeps its heads of the
+  context."""
+  axes, h0 = heads
+  if not axes:
+    return _decode_attention(q, cache_sl, cfg, local, mode, i_max,
+                             attention_fn, **kw)
+  Hl = q.shape[1]
+  layout = cache_sl.get("layout")
+  seq_cut = layout is not None and bool(layout.seq_axes)
+  whole_groups = Hl % group == 0 and h0 % group == 0
+  if (local or mode == "exact") and not seq_cut and (
+      whole_groups or h0 // group == (h0 + Hl - 1) // group):
+    own = dict(cache_sl)
+    own["k"], own["v"] = attn_lib.kv_heads_for(cache_sl["k"], cache_sl["v"],
+                                               h0, Hl, group, -3)
+    kw["self_kv"] = attn_lib.kv_heads_for(*kw["self_kv"], h0, Hl, group, -3)
+    return _decode_attention(q, own, cfg, local, mode, i_max, attention_fn,
+                             **kw)
+  q_all = shd.all_gather_over(q, axes, 1)
+  ctx, aux = _decode_attention(q_all, cache_sl, cfg, local, mode, i_max,
+                               attention_fn, **kw)
+  return ctx[:, h0:h0 + Hl], aux
+
+
 def _attn_decode_layer(x, lp, cfg: ModelConfig, local: bool, cache_sl, pos,
                        mode: str, i_max: int, attention_fn=None):
   """x (B, 1, d) -> (y (B, 1, d), (k, v) of the new token (B, Hkv, 1, D),
-  aux: ``attention_fn``'s telemetry dict, or None)."""
+  aux: ``attention_fn``'s telemetry dict, or None).  On a rank's shard the
+  rank's query heads go through :func:`_heads_decode` and the row-cut
+  ``wo`` (``attention.out_proj``)."""
   if cfg.mla is not None:
     return _mla_decode_layer(x, lp, cfg, cache_sl, pos, mode, i_max,
                              attention_fn)
   q, k_new, v_new = attn_lib.qkv(x, lp, cfg, pos[:, None])
   kd = k_new.transpose(1, 2)                                  # (B,Hkv,1,D)
   vd = v_new.transpose(1, 2)
-  ctx, aux = _decode_attention(
+  ctx, aux = _heads_decode(
       q[:, 0], cache_sl, cfg, local, mode, i_max, attention_fn,
+      attn_lib.heads_cut(lp), cfg.n_heads // cfg.n_kv_heads,
       sm_scale=cfg.hd ** -0.5, cap=cfg.attn_softcap, self_kv=(kd, vd))
   y = attn_lib.out_proj(ctx[:, None].to(x.dtype), lp, x.dtype)
   return y, (kd, vd), aux
@@ -442,7 +499,10 @@ def _mla_decode_layer(x, lp, cfg: ModelConfig, cache_sl, pos, mode: str,
   value head: G = H), the new token's latent [c_kv, k_pe] as its self KV,
   the softmax scale (nope + rope)^-0.5, in the layer's mode; then the
   context's latent part through ``wv_b`` and ``wo`` in f32, cast to the
-  activation dtype.  The delta is the latent, as both k and v."""
+  activation dtype.  The delta is the latent, as both k and v.  On a
+  rank's shard ``wq_b``, ``wk_b`` and ``wv_b`` hold the rank's heads: its
+  q_eff goes through :func:`_heads_decode` (G = H over the one latent
+  head) and the row-cut ``wo``'s f32 product through one all-reduce."""
   m = cfg.mla
   positions = pos[:, None]
   q_nope, q_pe = attn_lib.mla_queries(x, lp, cfg, positions)
@@ -451,13 +511,15 @@ def _mla_decode_layer(x, lp, cfg: ModelConfig, cache_sl, pos, mode: str,
   q_lat = torch.einsum("bhk,rhk->bhr", q_nope[:, 0].to(f), lp["wk_b"].to(f))
   q_eff = torch.cat([q_lat, q_pe[:, 0].to(f)], dim=-1)
   lat = torch.cat([c_kv, k_pe], dim=-1)[:, None]              # (B,1,1,Dk)
-  ctx, aux = _decode_attention(
+  ctx, aux = _heads_decode(
       q_eff, cache_sl, cfg, False, mode, i_max, attention_fn,
+      attn_lib.heads_cut(lp, "wq_b"), cfg.n_heads,
       sm_scale=(m.qk_nope_dim + m.qk_rope_dim) ** -0.5, cap=None,
       self_kv=(lat, lat))
   o = torch.einsum("bhr,rhk->bhk", ctx[..., :m.kv_lora_rank].to(f),
                    lp["wv_b"].to(f))
-  y = torch.einsum("bhk,hkd->bd", o, lp["wo"].to(f))[:, None].to(x.dtype)
+  y = shd.all_reduce_over(torch.einsum("bhk,hkd->bd", o, lp["wo"].to(f)),
+                          shd.cut_axes(lp, "wo", 0))[:, None].to(x.dtype)
   return y, (lat, lat), aux
 
 
@@ -467,6 +529,10 @@ def _cross_decode_layer(x, lp, cfg: ModelConfig, cross_k, cross_v):
   ``cross_k``/``cross_v`` (B, Hkv, T, D) with no self KV (one
   ``flash_decode`` launch on the card), ``out_proj`` with ``bo``."""
   q = attn_lib.query(x, lp)[:, 0]                             # (B, H, D)
+  axes, h0 = attn_lib.heads_cut(lp)
+  if axes:                     # the KV heads of the rank's query heads
+    cross_k, cross_v = attn_lib.kv_heads_for(
+        cross_k, cross_v, h0, q.shape[1], cfg.n_heads // cfg.n_kv_heads, 1)
   ctx = exact_decode_attention(q, cross_k, cross_v, sm_scale=cfg.hd ** -0.5)
   return attn_lib.out_proj(ctx[:, None].to(x.dtype), lp, x.dtype)
 
@@ -577,7 +643,7 @@ def make_serve_step(cfg: ModelConfig, *, mode: str = "synopsis",
         x = tf.mlp_block(x, lp, cfg, spec)
       for name, ts in per.items():
         deltas.setdefault(name, []).append(torch.stack(ts))
-    h = rms_norm(x, params["final_norm"], cfg.norm_eps)[:, 0]
+    h = rms_norm(x, shd.leaf(params, "final_norm"), cfg.norm_eps)[:, 0]
     logits = tf.logits_fn(params, cfg, h)
     lead = (cfg.n_blocks, n_glob)
     return logits, {**{name: torch.stack(ts) for name, ts in deltas.items()},

@@ -21,8 +21,11 @@ layer groups the tokens of each rank's share, the reference's grouping per
 data-parallel shard.  With ``compress_pods`` the cross-pod reduction then
 goes through ``compression.compressed_pod_psum``, as in the reference.
 Ranks along `model` hold the weights whole and compute the same thing:
-tensor-parallel weights over `model` and FSDP over `data` are ROADMAP
-A.7d.
+the serving path cuts its weights by the rule tables
+(``dist.sharding.shard_params``), but the train step's tensor-parallel
+weights over `model` and FSDP over `data`, which need a backward for each
+hand-written collective, are ROADMAP A.7d-ii; ``transformer``'s training
+forward refuses a cut tree.
 """
 from __future__ import annotations
 

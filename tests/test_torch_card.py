@@ -2384,3 +2384,28 @@ def test_meta_allocation_equals_the_cuda_call(cuda):
     assert trk.peak_bytes == card, (name, [getattr(a, "shape", a)
                                            for a in args], trk.peak_bytes,
                                     card)
+
+
+@pytest.mark.cuda
+def test_cut_weights_on_the_card(cuda):
+  """Weights cut by SERVE_RULES on 4 ranks sharing the card (SMOKE, f32):
+  llama3-8b (2 heads a rank of a group of 4) and deepseek-v2 (MLA, one
+  head a rank, its experts over `model`): prefill and a synopsis and an
+  exact step within 1e-4 of max|ref| of the one-rank calls on the whole
+  weights, every rank launching the kernels of its cut path."""
+  del cuda
+  import torch_mesh_ranks
+  from repro_torch.dist import world
+  _build.build()
+  res = world.run_world(torch_mesh_ranks.card_tp_world, 4,
+                        (("llama3-8b", "deepseek-v2-236b"),),
+                        device="cuda", timeout_s=180.0)
+  for r in res:
+    for arch, c in r["cases"].items():
+      for key in ("prefill", "synopsis", "exact"):
+        err, scale = c[key]
+        assert err <= 1e-4 * scale, (r["rank"], arch, key, c)
+      launched = {k.split("[")[0] for k in c["launches"]}
+      assert {"flash_prefill", "segment_build",
+              "fused_synopsis_score_attention", "block_gather_attention",
+              "flash_decode"} <= launched, (arch, c["launches"])

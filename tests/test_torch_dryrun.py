@@ -15,8 +15,12 @@ device.  No card: nothing is allocated and no kernel launches.
   cost model on the H100's constants, the collectives against an analytic
   count (per sharded attention layer one all-gather of the (B_local, Hkv,
   M/n) f32 scores, synopsis only, and one of the (B_local, H, D+2)
-  partials; a train step's one all-reduce of the flat gradients), rank 0
-  and the last rank alike; the CLI's line and the report.
+  partials; on the serving cells' cut weights, ``_weight_collectives``:
+  the query heads' all-gather, each row-cut product's all-reduce, the
+  vocab's, the router's, the SSM's and the FSDP gathers; a train step's
+  one all-reduce of the flat gradients), rank 0 and the last rank alike;
+  a serving cell's traced argument bytes equal to the rule tables' (its
+  weights cut), a train cell's whole; the CLI's line and the report.
 """
 import json
 import math
@@ -212,7 +216,9 @@ def _check_artifact(res, arch, shape_name, mode, multi):
   assert set(res["memory"]) == MEM_KEYS
   assert res["mesh"] == ("multi" if multi else "single")
   assert res["chips"] == (512 if multi else 256)
-  assert res["weights"] == "whole" and res["card"] == roof.CARD
+  train = shape.kind == "train"
+  assert res["weights"] == ("whole" if train else "cut")
+  assert res["card"] == roof.CARD
   c = cost.cell_cost(cfg, shape, res["mode"])
   r = res["roofline"]
   chips = res["chips"]
@@ -225,13 +231,17 @@ def _check_artifact(res, arch, shape_name, mode, multi):
                              r["collective_s"])
   assert r["model_flops"] == dr.model_flops(cfg, shape, mode)
   m = res["memory"]
-  assert m["argument_size_in_bytes"] > cfg.param_count() * 2
+  if train:
+    assert m["argument_size_in_bytes"] > cfg.param_count() * 2
+    assert 0 < res["argument_bytes_under_rules"] <= \
+        m["argument_size_in_bytes"]
+  else:                             # the rank's cut program
+    assert m["argument_size_in_bytes"] == res["argument_bytes_under_rules"]
   assert m["peak_bytes_per_device"] == (
       m["argument_size_in_bytes"] + m["output_size_in_bytes"]
       + m["temp_size_in_bytes"] - m["alias_size_in_bytes"])
   assert res["fits_hbm"] == (m["peak_bytes_per_device"]
                              < dr.CARD_MEMORY)
-  assert 0 < res["argument_bytes_under_rules"] <= m["argument_size_in_bytes"]
   assert res["collectives"]["total"] == sum(
       res["collectives"][k] for k in shd.COLLECTIVES)
 
@@ -256,6 +266,106 @@ def _attn_gathers(cfg, res, mode, B, S, rules):
   return parts + scores
 
 
+def _weight_collectives(cfg, rules, mesh, b):
+  """The operand bytes, by kind, of the collectives a decode step on the
+  rank's cut weights makes for one token of each of its b rows (the
+  attention's own gathers aside): the FSDP gathers of every cut ``embed``
+  dim (a layer's leaves as ``layer_params`` slices them, the embedding,
+  final norm and f32 unembedding where used); the embedding's all-reduce
+  over a cut vocab and the logits' all-gather; per attention layer the
+  query heads' all-gather (MLA: the f32 q_eff) over a sequence-cut cache
+  and ``wo``'s all-reduce (MLA's in f32); a cross block's ``wo``; an
+  MLP's ``w2``; an MoE's router logits (f32), its partial combine and
+  its shared experts; a mamba layer's ``in_proj`` output and conv output
+  (f32) all-gathered, the gated norm's squares (f32) and ``out_proj``
+  all-reduced.  ``Mesh.all_reduce`` tallies its operand, padded to a
+  multiple of the line's ranks, as all-to-all and one piece of it as
+  all-gather."""
+  tally = {k: 0 for k in shd.COLLECTIVES}
+  dt = 2                                      # bf16
+  d = cfg.d_model
+  shapes = dict(cm.leaves(cm.param_shapes(cfg)))
+  axes = dict(cm.leaves(cm.param_axes(cfg)))
+  shapes["unembed"], axes["unembed"] = (d, cfg.vocab), ("embed", "vocab")
+
+  def spec(path):
+    return shd.mesh_axes_for(axes[path], mesh, rules, shape=shapes[path])
+
+  def n_of(entry):
+    names = () if entry is None else (
+        (entry,) if isinstance(entry, str) else entry)
+    return math.prod(mesh.shape[a] for a in names)
+
+  def gather(nbytes):
+    tally["all-gather"] += nbytes
+
+  def reduce(numel, es, n):
+    if n > 1:
+      padded = -(-numel // n) * n
+      tally["all-to-all"] += padded * es
+      tally["all-gather"] += padded // n * es
+
+  def fsdp(path, stacked):
+    sp = spec(path)
+    if any(a == "embed" and e is not None for a, e in zip(axes[path], sp)):
+      shape = shd.shard_shape(shapes[path], sp, mesh)
+      es = 4 if path == "unembed" else dt
+      gather(math.prod(shape[1:] if stacked else shape) * es)
+
+  def cut(path, dim):
+    return n_of(spec(path)[dim])
+
+  # The embedding, the final norm, the logits.
+  for path in ("embed", "final_norm", "unembed"):
+    fsdp(path, False)
+  reduce(b * d, dt, cut("embed", 0))
+  if cut("unembed", 1) > 1:
+    gather(b * cfg.vocab // cut("unembed", 1) * 4)
+  for b_ in range(cfg.n_blocks):
+    del b_
+    for i, ls in enumerate(cfg.block_pattern):
+      pre = f"blocks/pos{i}/"
+      for path in shapes:
+        if path.startswith(pre):
+          fsdp(path, True)
+      if ls.kind == "attn" and cfg.mla is not None:
+        n = cut(pre + "attn/wq_b", 2)
+        if n > 1:
+          m = cfg.mla
+          gather(b * cfg.n_heads // n * (m.kv_lora_rank + m.qk_rope_dim)
+                 * 4)
+        reduce(b * d, 4, cut(pre + "attn/wo", 1))
+      elif ls.kind == "attn":
+        n = cut(pre + "attn/wq", 2)
+        if n > 1:
+          gather(b * cfg.n_heads // n * cfg.hd * dt)
+        reduce(b * d, dt, cut(pre + "attn/wo", 1))
+        if ls.cross_attn:
+          reduce(b * d, dt, cut(pre + "cross/wo", 1))
+      else:
+        _, _, conv = cm.ssm_dims(cfg)
+        n = cut(pre + "ssm/in_proj", 2)
+        if n > 1:
+          gather(b * shapes[pre + "ssm/in_proj"][2] // n * dt)
+        n = cut(pre + "ssm/conv_w", 2)
+        if n > 1:
+          gather(b * conv // n * 4)
+        reduce(b, 4, cut(pre + "ssm/A_log", 1))
+        reduce(b * d, dt, cut(pre + "ssm/out_proj", 1))
+      if ls.use_moe and cfg.moe is not None:
+        n = cut(pre + "moe/router", 2)
+        if n > 1:
+          gather(b * cfg.moe.num_experts // n * 4)
+        reduce(b * d, dt, cut(pre + "moe/w1", 1) * cut(pre + "moe/w1", 3))
+        if cfg.moe.num_shared:
+          reduce(b * d, dt, cut(pre + "moe/shared/w2", 1))
+        if cfg.moe.dense_parallel:
+          reduce(b * d, dt, cut(pre + "mlp/w2", 1))
+      elif pre + "mlp/w2" in shapes:
+        reduce(b * d, dt, cut(pre + "mlp/w2", 1))
+  return tally
+
+
 @pytest.mark.parametrize("mode", ["exact", "synopsis"])
 @pytest.mark.parametrize("arch", list_archs())
 def test_decode_32k_cell(arch, mode):
@@ -265,9 +375,34 @@ def test_decode_32k_cell(arch, mode):
   assert res["mode"] == want_mode
   _check_artifact(res, arch, "decode_32k", want_mode, False)
   assert res["microbatches"] is None
-  want = _attn_gathers(cfg, res, want_mode, 128, 32768, shd.SERVE_RULES)
-  assert res["collectives"]["all-gather"] == want
-  assert res["collectives"]["total"] == want
+  mesh = dr.make_abstract_production_mesh()
+  rules = dr.cell_rules(cfg, "decode_32k", mesh)
+  want = _weight_collectives(cfg, rules, mesh, 128 // 16)
+  want["all-gather"] += _attn_gathers(cfg, res, want_mode, 128, 32768,
+                                      shd.SERVE_RULES)
+  assert {k: res["collectives"][k] for k in shd.COLLECTIVES} == want
+  assert res["collectives"]["total"] == sum(want.values())
+
+
+@pytest.mark.parametrize("arch,rules", [
+    ("llama3-8b", dict(shd.SERVE_RULES)),
+    ("deepseek-v2-236b", dict(shd.SERVE_RULES, embed=("data",)))])
+def test_decode_32k_weights_cut_by_the_rules(arch, rules, monkeypatch):
+  """A serving cell traces the rank's cut program: its traced argument
+  bytes equal ``argument_bytes_under_rules`` (the weights, the cache and
+  the tokens at the rule tables' bytes a rank, the f32 unembedding
+  included), with deepseek-v2's weights FSDP-cut over `data` too (a
+  table ``cell_rules`` gives it only past the card's threshold, put in
+  its place here)."""
+  monkeypatch.setattr(dr, "cell_rules", lambda *a: dict(rules))
+  res = dr.run_cell(arch, "decode_32k", False, "synopsis")
+  assert res["weights"] == "cut"
+  mesh = dr.make_abstract_production_mesh()
+  assert res["memory"]["argument_size_in_bytes"] == \
+      res["argument_bytes_under_rules"] == dr.bytes_under_rules(
+          get_config(arch), "decode_32k", "synopsis", mesh, rules)
+  want = _weight_collectives(get_config(arch), rules, mesh, 128 // 16)
+  assert res["collectives"]["all-to-all"] == want["all-to-all"]
 
 
 def test_ranks_tally_alike():
@@ -305,14 +440,27 @@ def test_train_cell(multi):
 
 @pytest.mark.parametrize("multi", [False, True])
 def test_prefill_cell(multi):
-  """A prefill takes its rank's batch rows and calls no collective."""
+  """A prefill takes its rank's batch rows and its cut weights: smollm's
+  9 heads stay whole over 16 (no attention collective), its ff and vocab
+  are cut (the MLP's all-reduces, the embedding's, the logits'
+  all-gather); the prompt's KV needs none."""
+  cfg = get_config("smollm-135m")
   res = dr.run_cell("smollm-135m", "prefill_32k", multi, "auto")
   _check_artifact(res, "smollm-135m", "prefill_32k", "n/a", multi)
-  assert res["collectives"]["total"] == 0
   rows = 32 // (32 if multi else 16)
+  mesh = dr.make_abstract_production_mesh(multi_pod=multi)
+  rules = dr.cell_rules(cfg, "prefill_32k", mesh)
   assert res["memory"]["argument_size_in_bytes"] == (
-      storage_bytes(dr.serve_params(get_config("smollm-135m")))
+      storage_bytes(dr.cut_serve_params(cfg, mesh, rules))
       + rows * 32768 * 4)
+  d, n = cfg.d_model, 16
+  tokens = rows * 32768
+  reduce = lambda numel: -(-numel // n) * n * 2  # noqa: E731
+  assert res["collectives"]["all-to-all"] == reduce(tokens * d) * (
+      1 + cfg.n_layers)
+  assert res["collectives"]["all-gather"] == (
+      reduce(tokens * d) // n * (1 + cfg.n_layers)
+      + rows * cfg.vocab // n * 4)
 
 
 @pytest.mark.parametrize("multi", [False, True])
@@ -323,10 +471,12 @@ def test_long_500k_cell(multi):
   cfg = get_config("jamba-v0.1-52b")
   assert res["mode"] == "synopsis"
   _check_artifact(res, "jamba-v0.1-52b", "long_500k", "synopsis", multi)
-  rules = dr.cell_rules(cfg, "long_500k",
-                        dr.make_abstract_production_mesh(multi_pod=multi))
-  want = _attn_gathers(cfg, res, "synopsis", 1, 524288, rules)
-  assert res["collectives"]["all-gather"] == want
+  mesh = dr.make_abstract_production_mesh(multi_pod=multi)
+  rules = dr.cell_rules(cfg, "long_500k", mesh)
+  want = _weight_collectives(cfg, rules, mesh, 1)
+  want["all-gather"] += _attn_gathers(cfg, res, "synopsis", 1, 524288,
+                                      rules)
+  assert {k: res["collectives"][k] for k in shd.COLLECTIVES} == want
 
 
 def test_cli_and_report(tmp_path, capsys):
@@ -348,16 +498,26 @@ def test_cli_and_report(tmp_path, capsys):
   assert "cells traced: 1" in text and "fit in 80 GB" in text
   assert "mamba2-370m" in report.dryrun_table(cells)
   assert "mamba2-370m" in report.roofline_table(cells)
-  # A cell over the card waits on A.7d when its traced new storage on top
-  # of the rules' argument bytes fits, and fits neither way otherwise.
+  assert d["weights"] == "cut"
+  # A train cell (weights whole) over the card waits on A.7d-ii when its
+  # traced new storage on top of the rules' argument bytes fits, and fits
+  # neither way otherwise; a serving cell over the card, its weights cut,
+  # waits on nothing.
   m, card = d["memory"], d["card_memory_bytes"]
   new = m["peak_bytes_per_device"] - m["argument_size_in_bytes"]
-  over = {("a",): dict(d, fits_hbm=False,
-                       argument_bytes_under_rules=card - new - 1),
-          ("b",): dict(d, fits_hbm=False,
-                       argument_bytes_under_rules=card - new)}
-  assert report.peak_with_rules_args(over[("a",)]) == card - 1
-  assert report.waiting_on_a7d({**cells, **over}) == ([("a",)], [("b",)])
+  train = dict(d, shape="train_4k", weights="whole", fits_hbm=False)
+  a, b, c = (("a", "train_4k", "single", "n/a"),
+             ("b", "train_4k", "single", "n/a"),
+             ("c", "decode_32k", "single", "exact"))
+  over = {a: dict(train, argument_bytes_under_rules=card - new - 1),
+          b: dict(train, argument_bytes_under_rules=card - new),
+          c: dict(d, fits_hbm=False,
+                  argument_bytes_under_rules=card - new - 1)}
+  assert report.peak_with_rules_args(over[a]) == card - 1
+  assert report.waiting_on_a7d({**cells, **over}) == ([a], [b, c])
+  text = report.summary({**cells, **over})
+  assert "train cells waiting on A.7d-ii (fit with the rules' argument " \
+      "bytes): a train_4k single n/a\n" in text
 
 
 def test_memory_policies_scale_the_references_to_the_card():

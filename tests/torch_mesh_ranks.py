@@ -384,3 +384,137 @@ def card_exact_world(seed):
                    "scale": float(one.abs().max()),
                    "launches": _build.launch_counts()["flash_decode"]}
   return {"rank": mesh.rank, "cases": out}
+
+
+# -- weights cut by the rule tables ---------------------------------------------
+
+def _rules(name, fsdp):
+  rules = dict(getattr(shd, name))
+  if fsdp:
+    rules["embed"] = ("data",)
+  return rules
+
+
+def _leaf_shapes(tree, prefix=""):
+  """{path: shape} of a cut tree's tensors (its ``_cut`` entries left
+  out)."""
+  out = {}
+  for k, v in tree.items():
+    if k == shd.CUT_KEY:
+      continue
+    if isinstance(v, dict):
+      out.update(_leaf_shapes(v, f"{prefix}{k}/"))
+    else:
+      out[f"{prefix}{k}"] = tuple(v.shape)
+  return out
+
+
+def _rows_of(cache, rows):
+  """Batch rows ``rows`` of a global cache (each leaf along its batch
+  axis)."""
+  from repro_torch.serve import serve_step as ss
+  if rows.start is None:
+    return cache
+  return {k: v.narrow(ss._SHARD_AXES[k][0], rows.start,
+                      rows.stop - rows.start) for k, v in cache.items()}
+
+
+def tensor_parallel_world(cases):
+  """(data 2, model 4) mesh: each case's SMOKE config (f32) with its
+  weights cut by ``shard_params`` under its rule table: the prefill of the
+  global prompt on every rank, then per mode the serve step on the rank's
+  shard of the global cache (``shard_cache``); beside each, the port's
+  one-rank step on the whole weights and cache.  Also the shards' shapes
+  and specs, and the whole weights' step under an installed TRAIN_RULES
+  against the step with no mesh, bit for bit."""
+  from repro_torch.models import common as cm
+  from repro_torch.serve import serve_step as ss
+  from repro_torch.serve.prefill import make_prefill_step
+  mesh = shd.Mesh((2, 4), ("data", "model"))
+  out = {"coords": mesh.coords, "cases": []}
+  for case in cases:
+    cfg = _f32(case["arch"])
+    rules = _rules(case["rules"], case["fsdp"])
+    whole = bridge.params_from_numpy(case["params"], cfg, "cpu")
+    local, specs = bridge.shard_params_from_numpy(case["params"], cfg, "cpu",
+                                                  mesh, rules)
+    prompt = torch.from_numpy(case["prompt"]).long()
+    prefill = make_prefill_step(cfg)
+    mesh.reset_stats()
+    with shd.use_mesh(mesh, rules):
+      logits, cache = prefill(local, prompt)
+    res = {"prefill": logits, "prefill_one": prefill(whole, prompt)[0],
+           "prefill_k": cache.get("k"), "prefill_stats": dict(mesh.stats),
+           "shapes": _leaf_shapes(local),
+           "specs": dict(cm.leaves(specs)), "steps": {}}
+    for mode, step_in in case["steps"].items():
+      jc = _tensors(step_in["cache"])
+      tok = torch.from_numpy(step_in["tok"]).long()
+      step = ss.make_serve_step(cfg, mode=mode, i_max=step_in["i_max"])
+      loc = ss.shard_cache(jc, mesh, rules)
+      rows = _batch_rows(mesh, loc["layout"])
+      with shd.use_mesh(mesh, rules):
+        got, st = step(local, loc, tok[rows])
+      # The one-rank step on the rank's rows: an MoE routes the tokens of
+      # a data-parallel shard together (the reference's per-shard routing).
+      one, _ = step(whole, _rows_of(jc, rows), tok[rows])
+      res["steps"][mode] = {
+          "logits": got, "one": one, "rows": (rows.start, rows.stop),
+          "layout": dataclasses.asdict(loc["layout"]),
+          "state_shapes": {k: tuple(st[k].shape) for k in
+                           ("conv_state", "ssd_state") if k in st},
+          "cache_shapes": {k: tuple(loc[k].shape) for k in
+                           ("conv_state", "ssd_state") if k in loc}}
+      if case.get("train_rules"):
+        plain, _ = step(whole, jc, tok)
+        with shd.use_mesh(mesh, shd.TRAIN_RULES):
+          again, _ = step(whole, jc, tok)
+        res["steps"][mode]["train_rules_equal"] = torch.equal(again, plain)
+    out["cases"].append(res)
+  return out
+
+
+def card_tp_world(archs):
+  """(model 4) mesh of ranks sharing the card: each SMOKE config (f32, the
+  port's own random weights) with its weights cut under SERVE_RULES:
+  prefill, one synopsis and one exact step on the rank's shard against
+  the one-rank calls on the whole weights, and the kernels each rank
+  launched on its cut path."""
+  from repro_torch.kernels import _build
+  from repro_torch.models import transformer as tf
+  from repro_torch.serve import serve_step as ss
+  from repro_torch.serve import synopsis_kv as skv
+  from repro_torch.serve.prefill import make_prefill_step
+  dev = torch.device("cuda", torch.cuda.current_device())
+  mesh = shd.Mesh((4,), ("model",))
+  out = {"rank": mesh.rank, "cases": {}}
+  for arch in archs:
+    cfg = _f32(arch)
+    whole = tf.init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
+    local, _ = shd.shard_params(whole, cfg, mesh, shd.SERVE_RULES)
+    prompt = torch.randint(0, cfg.vocab, (2, 128), device=dev,
+                           generator=torch.Generator(dev).manual_seed(1))
+    prefill = make_prefill_step(cfg)
+    _build.reset_launches()
+    with shd.use_mesh(mesh, shd.SERVE_RULES):
+      logits, cache = prefill(local, prompt)
+    syn = skv.build(cache, cfg)
+    launches = dict(_build.launch_counts())
+    one, _ = prefill(whole, prompt)
+    res = {"prefill": (float((logits - one).abs().max()),
+                       float(one.abs().max()))}
+    tok = one.argmax(-1, keepdim=True)
+    for mode, glob in (("synopsis", syn), ("exact", cache)):
+      step = ss.make_serve_step(cfg, mode=mode, i_max=2)
+      loc = ss.shard_cache(glob, mesh, shd.SERVE_RULES)
+      _build.reset_launches()
+      with shd.use_mesh(mesh, shd.SERVE_RULES):
+        got, _ = step(local, loc, tok)
+      for k, n in _build.launch_counts().items():
+        launches[k] = launches.get(k, 0) + n
+      ref, _ = step(whole, glob, tok)
+      res[mode] = (float((got - ref).abs().max()), float(ref.abs().max()))
+    torch.cuda.synchronize()
+    res["launches"] = {k: n for k, n in launches.items() if n}
+    out["cases"][arch] = res
+  return out
