@@ -6,8 +6,10 @@
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the six CUDA kernels, with the eight quantized branches of three
    of them, from ``src/repro_torch/kernels/csrc`` (one nvcc per source,
-   all started together), and prints ptxas's report of each source
-   (registers, shared memory, spills);
+   all started together, on a thread of its own while phases 20-22 and
+   phase 24's train half, which launch no kernel, run on the card), and
+   prints ptxas's report of each source (registers, shared memory,
+   spills);
 3. holds each kernel and each quantized branch (``segment_build`` under
    int8 / fp8 / int8+kv / fp8+kv, ``fused_synopsis_score_attention`` and
    ``block_gather_attention`` on int8 / fp8 tables or cache) against its
@@ -211,10 +213,10 @@
 22. training (``[train]``): one f32 step of smollm's SMOKE config on the
     card against the CPU (within 4x the CPU's distance from its float64
     step); smollm-135m at full width, every gradient finite and non-zero,
-    20 steps at batch 8 x 2048 with a checkpoint at step 12
+    14 steps at batch 8 x 2048 with a checkpoint at step 8
     (``launch.train.run``: the loss every 5 steps, step p50 from CUDA
     events, tokens/s, peak memory), a second uninterrupted run (the
-    run-to-run spread) and a restart from the step-12 checkpoint to 20,
+    run-to-run spread) and a restart from the step-8 checkpoint to 14,
     held to the first run within twice that spread; no kernel may launch
     (the training forward takes the differentiable attention);
 23. the sharded path over ``torch.distributed`` (``[mesh]``, ``run_mesh``):
@@ -234,13 +236,21 @@
     replica-2 x component-4 mesh (eager steps, rank 0's plans broadcast),
     each rank's kernels against their plain versions; the SMOKE f32
     cluster and fleet engines' ids on a mesh against the stacked engines'
-    under basic and fixed; smollm-135m's compressed train step over (pod
-    2, data 2) against the one-rank step (losses, parameters and error
-    buffers); the weights cut by the rule tables (``shard_params``):
+    under basic and fixed; smollm-135m's compressed train step (full
+    width, 8 of its 30 layers, 2 steps) over (pod 2, data 2) against the
+    one-rank step (losses, parameters and error buffers); the weights cut by the rule tables (``shard_params``):
     llama3-8b in f32 on both meshes (the second FSDP-cut over `data`) and
     deepseek-v2-236b (1 layer, bf16) FSDP-cut on the second, each rank's
     weights held to their ``shard_shape`` bytes, prefill and decode steps
     against the one-rank step on the same global weights and cache;
+    the train step on a state cut by ``TRAIN_RULES`` (``[tp train]``):
+    smollm-135m at full width and depth in f32 on (data 2, model 3), every
+    cut applied, each rank's master, m and v held to their ``shard_shape``
+    bytes, the loss, every leaf's assembled step-1 gradient and the
+    master, m and v after the cut AdamW against the one-rank step in
+    float64 at TP_TRAIN_GATE_DEPTH layers, TP_TRAIN_STEPS f32 steps at
+    every layer timed (each rank holds only its shard), no kernel
+    launched;
     records ``<kernel>[mesh]`` (stage 1 and stage 2 at the data-2 x
     model-4 shard, flash_decode over the cluster window's extras),
     ``<kernel>[tp]`` and ``<kernel>[tp-mla]`` (rank 0's cut path), timed on
@@ -303,6 +313,10 @@ REPS = 20
 # its 80-odd records.
 PLAIN_REPS = 5
 PROMPT, BATCH, STEPS = 8192, 2, 130
+# Torch's CPU threads while nvcc builds the kernels beside phases 20-22
+# (run HH: with all of the card machine's 8, the build took 196.7 s beside
+# them against 137.2 s alone in HG).
+BUILD_SIDE_THREADS = 2
 # The controller's per-step deadline.  No published deadline exists for
 # this model and prompt; 100 ms is the smallest round value above this
 # port's budget-0 step time on one H100 (68-100 ms, host-bound: PERF.md),
@@ -389,9 +403,17 @@ def _flush_l2():
   _flush[0].sum()
 
 
+# Whether the timing helpers time (phase 3 checks its f32 pass without
+# timing it: only the bf16 records, the serving path's type, are kept).
+_TIMING = [True]
+
+
 def _median_ms(fn, reps=REPS, warmup=2, cold=False):
   """CUDA-event time of one call, median of ``reps``; ``cold``: the L2 is
-  flushed before each call, so that its inputs come from HBM."""
+  flushed before each call, so that its inputs come from HBM.  NaN while
+  ``_TIMING`` is off, as for the other timing helpers."""
+  if not _TIMING[0]:
+    return float("nan")
   for _ in range(warmup):
     fn()
   torch.cuda.synchronize()
@@ -429,6 +451,8 @@ def _device_ms(fn, names=None, reps=REPS, cold=False, floor_ms=0.0):
   that recorded none.  After PROFILE_TRIES such sessions the time comes
   from CUDA events instead (_queued_ms; a reading of 0 is not a time).
   ``cold``: as _median_ms."""
+  if not _TIMING[0]:
+    return float("nan")
   from torch.profiler import ProfilerActivity, profile
   fn()
   torch.cuda.synchronize()
@@ -4406,7 +4430,7 @@ APPS_FRACTIONS = (0.0, 0.05, 0.1, 0.2, 0.4, 1.0)
 APPS_PARITY_QUERIES = 20
 APPS_QUERIES = 200
 APPS_PARTIAL = 0.25          # the unranked partial execution's share
-TRAIN_STEPS, TRAIN_CKPT, TRAIN_BATCH, TRAIN_SEQ = 20, 12, 8, 2048
+TRAIN_STEPS, TRAIN_CKPT, TRAIN_BATCH, TRAIN_SEQ = 14, 8, 8, 2048
 
 
 def _sync(dev):
@@ -4882,8 +4906,12 @@ MESH_B, MESH_STEPS, MESH_BUDGET = 2, 4, 16
 MESH_N, MESH_R = 4, 2
 MESH_WORLD = MESH_N * MESH_R
 MESH_NEW, MESH_WINDOW_S = 8, 2.0
-MESH_TRAIN_STEPS = 2
-MESH_TIMEOUT_S = 300.0
+# [mesh train]: smollm-135m at full width, MESH_TRAIN_DEPTH of its 30
+# layers (the gradients' host-staged all-reduce follows the parameter
+# count: 8 layers hold 42% of it), 2 steps: the second reaches AdamW's
+# second moment step and a non-zero error-feedback buffer.
+MESH_TRAIN_STEPS, MESH_TRAIN_DEPTH = 2, 8
+MESH_TIMEOUT_S = 420.0
 # The sharded attention against the one-rank kernels on the same global
 # cache, in f32 out of bf16 tables: only the order of the partials' f32
 # merges differs (PARTIALS_TOL's f32 bound).
@@ -5052,8 +5080,37 @@ TP_STEPS_EXACT = 1
 # (~11 GB whole with its f32 unembedding: the ranks build it one at a
 # time), on prompts of TP_DS_PROMPT tokens, TP_DS_STEPS synopsis step
 # (each step gathers the layer's ~2 GB of FSDP-cut weights through host
-# memory on every rank: ~9 s a step on the shared card).
+# memory on every rank: ~9 s a step on the shared card).  Without FSDP the
+# eight ranks' shards and rank 0's build ran out of the card's memory.
 TP_DS_DEPTH, TP_DS_PROMPT, TP_DS_STEPS = 1, 2048, 1
+# llama3-8b's FSDP-cut decode steps move a layer's f32 weights through
+# host memory each step (~2.5 s a layer, run GI): one synopsis step there
+# (MESH_STEPS on the model-4 mesh), to make room for [tp train].
+TP_FSDP_STEPS = 1
+# [tp train]: smollm-135m at full width and depth (30 layers, d 576, 9 / 3
+# heads of 64, ff 1536, vocab 49152, tied) in f32 under TRAIN_RULES on
+# (data 2, model 3), the first 6 ranks of the world: 3 query heads, 1 KV
+# head, ff 512, vocab 16384 and embed 288 a rank.  TP_TRAIN_STEPS steps at
+# a global batch of TP_TRAIN_BATCH x TP_TRAIN_SEQ; the loss and each
+# leaf's assembled step-1 gradient against the one-rank step on the same
+# batch (its data shares as microbatches).
+#
+# The gate runs step 1 in float64 on the first TP_TRAIN_GATE_DEPTH of the
+# 30 layers at full width (the same seed's init, cut the same way), within
+# TP_TRAIN_F64_TOL of max|ref| of the one-rank float64 step.  At this
+# random init (loss ~88) the gradient is chaotic in depth: a perturbation
+# grows ~3.6x a layer, so no precision tells a fault from rounding at 30
+# layers.  On a CPU (full width, S 1024) the cut step lies
+# from the one-rank step, of max|ref|: in f32 6.9e-5 at 2 layers, 2.0 at
+# 6 (the one-rank f32 step itself 6.9e-3 and 1.37 from float64); in
+# float64 8.2e-8 at 6 layers (the f32 rounding of the returned gradients)
+# and 2.5e-5 at 12; on the card at 30 layers float64 moved
+# blocks/pos0/attn/wk by 2.66 and f32 blocks/pos0/ln2 by 1.22, where the
+# one-rank f32 step itself lay 3.91 from float64.  The f32 steps at every
+# layer are timed.
+TP_TRAIN_MESH = ((2, 3), ("data", "model"))
+TP_TRAIN_STEPS, TP_TRAIN_BATCH, TP_TRAIN_SEQ = 3, 4, 1024
+TP_TRAIN_GATE_DEPTH, TP_TRAIN_F64_TOL = 6, 1e-6
 TP_KERNELS = ("flash_prefill", "fused_synopsis_score_attention",
               "block_gather_attention", "flash_decode")
 
@@ -5341,7 +5398,8 @@ def _tp_require_launches(label, cfg, launches):
 def _mesh_tp(cfg, params, dev, out, label_arch, meshes, prompt_len,
              syn_steps=MESH_STEPS, f32=False):
   """The cut serving path of ``cfg`` (full width) on each of ``meshes``
-  ((shape, axes, rules)): every rank's weights cut by ``shard_params``,
+  ((shape, axes, rules[, synopsis steps, else ``syn_steps``])): every
+  rank's weights cut by ``shard_params``,
   their ``memory_allocated`` held to the ``shard_shape`` bytes, then
   ``_tp_case``.  ``params``: the whole weights on every rank (the first
   rank of each data group holds its rows to the one-rank step), or None
@@ -5358,7 +5416,7 @@ def _mesh_tp(cfg, params, dev, out, label_arch, meshes, prompt_len,
   rank = dist.get_rank()
   if f32:
     cfg = dataclasses.replace(cfg, dtype=torch.float32)
-  for shape, axes, rules in meshes:
+  for shape, axes, rules, *steps in meshes:
     mesh = shd.Mesh(shape, axes)
     label = f"{label_arch} " + "x".join(f"{a}{n}"
                                         for a, n in zip(axes, shape))
@@ -5401,7 +5459,8 @@ def _mesh_tp(cfg, params, dev, out, label_arch, meshes, prompt_len,
                              f"({rounded} in the allocator's 512s)")
       res = _tp_case(cfg, local, whole, mesh, rules, prompt, dev, label,
                      capture=rank == 0 and axes == ("data", "model"),
-                     syn_steps=syn_steps, own_whole=params is None)
+                     syn_steps=steps[0] if steps else syn_steps,
+                     own_whole=params is None)
       res.update(weight_bytes=held, shard_bytes=(raw, rounded))
       out.setdefault("tp", {})[label] = res
       _tp_require_launches(label, cfg, res["launches"])
@@ -5558,8 +5617,9 @@ def _one_rank_compressed(cfg, opt_cfg, dev, steps, batch, seq, shares):
 
 
 def _mesh_train(dev, out):
-  """smollm-135m at full width (phase 22's depth) on a (pod 2, data 2) mesh
-  of the first 4 ranks: MESH_TRAIN_STEPS steps at TRAIN_BATCH x TRAIN_SEQ
+  """smollm-135m at full width (MESH_TRAIN_DEPTH layers) on a (pod 2, data
+  2) mesh of the first 4 ranks: MESH_TRAIN_STEPS steps at TRAIN_BATCH x
+  TRAIN_SEQ
   through ``launch.train.run(mesh=..., compress_pods=True)``, no kernel
   launched; on rank 0 the one-rank step over the same shares with
   ``local_quantise_feedback``, twice (the card's run-to-run spread): the
@@ -5577,7 +5637,8 @@ def _mesh_train(dev, out):
   from repro_torch.train.optimizer import OptConfig
   mesh = shd.Mesh((2, 2), ("pod", "data"))
   if mesh.member:
-    cfg = get_config("smollm-135m")
+    cfg = dataclasses.replace(get_config("smollm-135m"),
+                              n_layers=MESH_TRAIN_DEPTH)
     opt_cfg = OptConfig(lr=1e-3, warmup_steps=1,
                         total_steps=MESH_TRAIN_STEPS)
     _build.reset_launches()
@@ -5623,6 +5684,167 @@ def _mesh_train(dev, out):
   dist.barrier()
 
 
+def _state_leaves(params, opt):
+  """{"<part>/<leaf>": tensor} of the master, m and v."""
+  from repro_torch.models.common import leaves
+  return {f"{part}/{p}": x for part, tree in (
+      ("master", params), ("m", opt["m"]), ("v", opt["v"]))
+          for p, x in leaves(tree)}
+
+
+def _tp_train_step1(cfg, opt_cfg, mesh, batch, dev):
+  """Step 1 of ``cfg``'s state (seed 0) cut by TRAIN_RULES: (loss,
+  {leaf: gradient}, {part/leaf: master, m, v after AdamW on the cut state,
+  its global norm summed over each leaf's cut}) assembled on every rank;
+  on rank 0 the one-rank step's loss and gradients on the same batch (the
+  data shares as microbatches) and the one-rank AdamW applied to the
+  assembled gradients, else None.  (AdamW's first step is near sign(g):
+  where a gradient is near 0, the two steps' gradients, 1e-7 of max|ref|
+  apart, can move its master ~1e-5 of max|ref|; on the same gradients only
+  the global norm's order of summation differs.)"""
+  from repro_torch.dist import sharding as shd
+  from repro_torch.models.common import leaves
+  from repro_torch.train.optimizer import adamw_update
+  from repro_torch.train.train_step import (init_train_state,
+                                            loss_and_grads,
+                                            mesh_loss_and_grads,
+                                            shard_batch, shard_train_state,
+                                            unshard_train_state)
+  whole = init_train_state(cfg, opt_cfg, device=dev,
+                           generator=torch.Generator(dev).manual_seed(0))
+  state = shard_train_state(whole, cfg, mesh, shd.TRAIN_RULES)
+  loss, _, grads = mesh_loss_and_grads(cfg, state["params"],
+                                       shard_batch(batch, mesh), mesh)
+  with torch.no_grad():
+    params, opt, _ = adamw_update(grads, state["opt"], state["params"],
+                                  opt_cfg, mesh=mesh)
+  new = unshard_train_state({"params": params, "opt": opt}, mesh)
+  assembled = shd.unshard_tree(grads, mesh)
+  cut = (float(loss), dict(leaves(assembled)),
+         _state_leaves(new["params"], new["opt"]))
+  del state, grads, params, opt, new
+  one = None
+  if mesh.rank == 0:
+    loss, _, grads = loss_and_grads(cfg, whole["params"], batch,
+                                    microbatches=mesh.shape["data"])
+    with torch.no_grad():
+      params, opt, _ = adamw_update(assembled, whole["opt"],
+                                    whole["params"], opt_cfg)
+    one = (float(loss), dict(leaves(grads)), _state_leaves(params, opt))
+  return cut, one
+
+
+def _rel_leaves(got, ref, part=1):
+  """{"loss": relative error, leaf: max |diff| / max|ref|} of the
+  gradients (``part`` 1) or the state after the step (2)."""
+  return {"loss": abs(got[0] - ref[0]) / abs(ref[0]),
+          **{p: float((x - ref[part][p]).abs().max()
+                      / ref[part][p].abs().max().clamp_min(1e-30))
+             for p, x in got[part].items()}}
+
+
+def _mesh_tp_train(dev, out):
+  """[tp train] on every rank (the first 6 hold the mesh): the f32 state
+  of smollm-135m cut by ``shard_train_state`` under TRAIN_RULES, each
+  rank's master, m and v (and the allocator's delta) held to 3 x their
+  ``shard_shape`` f32 bytes; the gate: step 1 in float64 on its first
+  TP_TRAIN_GATE_DEPTH layers against the one-rank float64 step, within
+  TP_TRAIN_F64_TOL of max|ref| (loss and every leaf's gradient), and every
+  leaf's master, m and v after AdamW on the cut state, whose global norm
+  sums each leaf's squares over its cut, against the one-rank AdamW on the
+  same assembled gradients, within the same bound; then TP_TRAIN_STEPS
+  f32 steps of ``make_train_step(mesh=...)`` at every layer, timed (each
+  rank holds only its shard), with no kernel launched."""
+  import torch.distributed as dist
+  from repro_torch.configs.registry import get_config
+  from repro_torch.dist import sharding as shd
+  from repro_torch.kernels import _build
+  from repro_torch.models import common as cm
+  from repro_torch.train.data import DataConfig, TokenStream
+  from repro_torch.train.optimizer import OptConfig, tree_leaves
+  from repro_torch.train.train_step import (init_train_state,
+                                            make_train_step, shard_batch,
+                                            shard_train_state)
+  mesh = shd.Mesh(*TP_TRAIN_MESH)
+  if mesh.member:
+    cfg = dataclasses.replace(get_config("smollm-135m"), dtype=torch.float32)
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=1, total_steps=TP_TRAIN_STEPS)
+    data = TokenStream(DataConfig(cfg.vocab, TP_TRAIN_SEQ, TP_TRAIN_BATCH,
+                                  seed=0))
+    batches = []
+    for i in range(TP_TRAIN_STEPS):
+      tokens, labels = data.batch_at(i)
+      batches.append({"tokens": torch.from_numpy(tokens).to(dev),
+                      "labels": torch.from_numpy(labels).to(dev)})
+    _build.reset_launches()
+    res = {}
+    # The gate, at TP_TRAIN_GATE_DEPTH layers in float64.
+    cut, one = _tp_train_step1(
+        dataclasses.replace(cfg, dtype=torch.float64,
+                            n_layers=TP_TRAIN_GATE_DEPTH),
+        opt_cfg, mesh, batches[0], dev)
+    if one is not None:
+      res["rel64"] = _rel_leaves(cut, one)
+      res["state64"] = _rel_leaves(cut, one, part=2)
+      for d in (res["rel64"], res["state64"]):
+        worst = max(d, key=d.get)
+        if not d[worst] <= TP_TRAIN_F64_TOL:
+          raise AssertionError(
+              f"[tp train] the cut step's float64 {worst} off the one-rank "
+              f"float64 step's by {d[worst]:.3e} of max|ref| > "
+              f"{TP_TRAIN_F64_TOL} ({TP_TRAIN_GATE_DEPTH} layers)")
+    del cut, one
+    whole = init_train_state(cfg, opt_cfg, device=dev,
+                             generator=torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    before = _held_bytes()
+    state = shard_train_state(whole, cfg, mesh, shd.TRAIN_RULES)
+    torch.cuda.synchronize()
+    held = [a - b for a, b in zip(_held_bytes(), before)]
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    shapes = dict(cm.leaves(cm.param_shapes(cfg)))
+    axes = dict(cm.leaves(cm.param_axes(cfg)))
+    want = 4 * sum(math.prod(shd.shard_shape(
+        s_, shd.mesh_axes_for(axes[p], mesh, shd.TRAIN_RULES, shape=s_),
+        mesh)) for p, s_ in shapes.items())
+    parts = [sum(x.numel() * x.element_size() for x in tree_leaves(t))
+             for t in (state["params"], state["opt"]["m"],
+                       state["opt"]["v"])]
+    if parts != [want] * 3 or held[0] != 3 * want:
+      raise AssertionError(f"[tp train] rank {mesh.rank}: master, m, v "
+                           f"{parts} bytes (allocator {held}), want 3 x "
+                           f"{want}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mesh.reset_stats()
+    step = make_train_step(cfg, opt_cfg, mesh=mesh)
+    losses, step_ms = [], []
+    for b in batches:
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      state, m = step(state, shard_batch(b, mesh))
+      torch.cuda.synchronize()
+      step_ms.append((time.perf_counter() - t0) * 1e3)
+      losses.append(float(m["loss"]))
+    launched = {k: v for k, v in _build.launch_counts().items() if v}
+    if launched:
+      raise AssertionError(f"[tp train] kernels launched: {launched}")
+    res.update(losses=losses, step_ms=step_ms, bytes=(parts, held),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               calls_step=mesh.stats["calls"] / TP_TRAIN_STEPS,
+               bytes_step=mesh.stats["bytes"] / TP_TRAIN_STEPS,
+               gloo_ms_step=mesh.stats["ms"] / TP_TRAIN_STEPS,
+               kinds_step={k: mesh.stats[k] / TP_TRAIN_STEPS
+                           for k in shd.COLLECTIVES if mesh.stats[k]})
+    out["tp_train"] = res
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+  dist.barrier()
+
+
 def _mesh_rank(device="cuda"):
   """The phase's body on every rank of the world (see run_mesh)."""
   import torch.distributed as dist
@@ -5644,7 +5866,8 @@ def _mesh_rank(device="cuda"):
   fsdp = dict(shd.SERVE_RULES, embed=("data",))
   _mesh_tp(cfg, params, dev, out, "llama3-8b", (
       ((MESH_N,), ("model",), shd.SERVE_RULES),
-      ((2, MESH_N), ("data", "model"), fsdp)), MESH_PROMPT, f32=True)
+      ((2, MESH_N), ("data", "model"), fsdp, TP_FSDP_STEPS)), MESH_PROMPT,
+      f32=True)
   out["t"]["tp llama3-8b"] = time.perf_counter() - t0
   for fleet in (False, True):
     t0 = time.perf_counter()
@@ -5686,6 +5909,9 @@ def _mesh_rank(device="cuda"):
   t0 = time.perf_counter()
   _mesh_train(dev, out)
   out["t"]["train"] = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  _mesh_tp_train(dev, out)
+  out["t"]["tp train"] = time.perf_counter() - t0
   out["peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
                     if dev.type == "cuda" else float("nan"))
   return out
@@ -5803,7 +6029,8 @@ def run_mesh(dev, smi):
     print(f"[mesh parity] smoke f32 {tier} {policy}: {n_ids} ids of {n_req} "
           f"requests on the mesh equal to the stacked engine's")
   tr = r0["train"]
-  print(f"[mesh train] smollm-135m full width over (pod 2, data 2), "
+  print(f"[mesh train] smollm-135m full width, {MESH_TRAIN_DEPTH} of 30 "
+        f"layers, over (pod 2, data 2), "
         f"compress_pods: losses {[round(x, 5) for x in tr['losses']]} vs the "
         f"one-rank step {[round(x, 5) for x in tr['ref_losses']]}: max |diff| "
         f"{tr['dev']:.3e} (bound {tr['bound']:.3e}: twice the one-rank "
@@ -5817,6 +6044,33 @@ def run_mesh(dev, smi):
         f"{tr['gather_mb_step']:.1f} MB received a step and rank by the "
         f"gradients' all-reduce (all-to-all + all-gather) in "
         f"{tr['gather_ms_step']:.1f} ms (host-staged gloo); no kernel launched")
+  rs = [r["tp_train"] for r in res if "tp_train" in r]
+  tt = rs[0]
+
+  def worst(d, loss=True):
+    k = max((p for p in d if p != "loss"), key=d.get)
+    head = f"loss {d['loss']:.3e}, gradients max" if loss else "max"
+    return f"{head} {d[k]:.3e} ({k})"
+  print(f"[tp train] smollm-135m full width and depth, state cut by "
+        f"TRAIN_RULES on (data 2, model 3) ({len(rs)} ranks): master / m / "
+        f"v bytes a rank {sorted({x['bytes'][0][0] for x in rs})} each "
+        f"(3 x their shard_shape f32 bytes; allocator requested "
+        f"{sorted({x['bytes'][1][0] for x in rs})}); step 1 on "
+        f"{TP_TRAIN_BATCH} x {TP_TRAIN_SEQ} against the one-rank step, of "
+        f"max|ref|: float64 at {TP_TRAIN_GATE_DEPTH} layers "
+        f"{worst(tt['rel64'])}; master / m / v after the cut AdamW against "
+        f"the one-rank AdamW on the same gradients "
+        f"{worst(tt['state64'], loss=False)} (bound "
+        f"{TP_TRAIN_F64_TOL:.0e})")
+  print(f"[tp train] {TP_TRAIN_STEPS} f32 steps: losses "
+        f"{[round(x, 5) for x in tt['losses']]}; step ms "
+        f"{[round(x, 1) for x in tt['step_ms']]} (rank 0, host clock, 6 ranks "
+        f"sharing the card); peak memory a rank "
+        f"{max(x['peak_gb'] for x in rs):.2f} GB; collectives a step and "
+        f"rank {tt['calls_step']:.0f} (operand bytes "
+        f"{ {k: round(v) for k, v in tt['kinds_step'].items()} }), "
+        f"{tt['bytes_step'] / 1e6:.1f} MB received, host-staged gloo ms "
+        f"{tt['gloo_ms_step']:.1f} ({smi}); no kernel launched")
   print(f"[mesh] rank phases (s): {r0['t']}; peak device memory per rank "
         f"{max(r['peak_gb'] for r in res):.2f} GB; phase in "
         f"{time.perf_counter() - t0:.1f}s")
@@ -5963,6 +6217,11 @@ def run_dryrun_train(dev, smi):
 T_START = time.perf_counter()
 
 
+def _mark(label):
+  """Prints the script's wall time so far, after ``label``."""
+  print(f"[wall] {label}: {time.perf_counter() - T_START:.1f}s")
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5984,17 +6243,43 @@ def main() -> int:
   print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
         f"{torch.cuda.get_device_name(0)}")
 
+  # nvcc builds the kernels on a thread of its own while the phases that
+  # launch none (plain torch: the generic-data services, training, the dry
+  # run's train half, mamba2) run on the card; a kernel called meanwhile
+  # would wait for the build, and each of these phases fails if one
+  # launched.  Their CPU work takes BUILD_SIDE_THREADS threads, so that
+  # nvcc keeps the other cores.
   t0 = time.perf_counter()
-  _build.build(force=True, verbose=True)
+  ptxas = []
+  threads = torch.get_num_threads()
+  torch.set_num_threads(min(threads, BUILD_SIDE_THREADS))
+  builder = _build.start_build(log=ptxas.append)
+  try:
+    run_apps(dev)
+    run_train(dev)
+    run_dryrun_train(dev, smi)
+    run_mamba2(dev)
+  finally:                       # no nvcc outlives the script
+    t_free = time.perf_counter() - t0
+    builder.join()
+    torch.set_num_threads(threads)
+  waited = time.perf_counter() - t0 - t_free
+  _mark("the kernel-free phases and the build")
+  if builder.error is not None:
+    raise builder.error
+  for report in ptxas:
+    print(report)
   _build.library()
   n_quant = sum(map(len, _build.QUANT_BRANCHES.values()))
   print(f"[build] {len(_build.KERNELS)} CUDA kernels with {n_quant} "
         f"quantized branches ({len(_build.LAUNCHES)} launch-counted "
-        f"branches) in {time.perf_counter() - t0:.1f}s")
+        f"branches) in {builder.seconds:.1f}s, beside {t_free:.1f}s of the "
+        f"kernel-free phases 20-22 (waited {waited:.1f}s after them)")
 
   g = torch.Generator(dev).manual_seed(0)
   records = {}
   for dtype in (torch.float32, torch.bfloat16):
+    _TIMING[0] = dtype == torch.bfloat16      # f32: correctness only
     checks = [functools.partial(c, dev, dtype, g) for c in (
         check_fused_synopsis, check_block_gather, check_segment_build,
         check_flash_prefill, check_flash_decode, check_synopsis_score)]
@@ -6010,8 +6295,10 @@ def main() -> int:
         records.setdefault(rec["name"], rec)
       torch.cuda.empty_cache()
   _flush.clear()                 # the loops' peak memory leaves it out
+  _mark("phase 3, each kernel against its plain version")
 
   smoke_launches = check_small_model_parity(dev)
+  _mark("phase 4, the SMOKE loops card against CPU")
 
   cfg = get_config("llama3-8b")
   print(f"[model] {cfg.name} full width: {cfg.n_layers} layers, d="
@@ -6050,6 +6337,7 @@ def main() -> int:
   busy_ms = {budget: profile_decode(cfg, params, out["cache"], dev, budget)
              for budget in (0, cfg.synopsis.i_max)}
   del out
+  _mark("the main path")
 
   # Decode baselines: every step at the full budget, so the work per step
   # does not follow the host clock as the controller's budgets do;
@@ -6089,6 +6377,7 @@ def main() -> int:
   del exact
   profile_decode(cfg, params, cache, dev, 0, mode="exact")
 
+  _mark("the decode baselines and the exact loop")
   syn = skv.build(cache, cfg)
   check_accuracy_vs_exact(cfg, params, cache, syn, dev)
   check_full_budget_quant(cache, syn, "none", dev, g)
@@ -6113,6 +6402,7 @@ def main() -> int:
                      "block_gather_attention"))
   del syn
   stage1_bytes_against_time(dev, g)
+  _mark("accuracy against exact, fused against unfused, stage-1 bytes")
 
   # The dry run's per-rank program against the card, on these weights.
   run_dryrun_decode(cfg, params, dev, busy_ms[cfg.synopsis.i_max], smi)
@@ -6125,6 +6415,7 @@ def main() -> int:
                     "block_gather_attention")
   _require_launches("engine", engine_launches, engine_kernels,
                     absent=("flash_decode", "synopsis_score"))
+  _mark("the dry run's decode half and the engine")
 
   # The rest of the single-device engine, and the loop's pipelining.
   t_new = time.perf_counter()
@@ -6156,15 +6447,11 @@ def main() -> int:
     arch_records, arch_launches = run_model(arch, dev, g)
     records.update(arch_records)
     model_launches.update(arch_launches)
-  run_mamba2(dev)
 
-  # The generic-data Algorithm 1 and its services, the Morton build of a
-  # KV cache, then training.
+  # The Morton build of a KV cache (the generic-data services, training
+  # and mamba2 ran beside the build).
   morton_record, morton_launches = check_segment_build_morton(dev, g)
   records[morton_record["name"]] = morton_record
-  run_apps(dev)
-  run_train(dev)
-  run_dryrun_train(dev, smi)
 
   # The sharded path: ranks sharing the card, each on its shard.
   mesh_records, mesh_launches = run_mesh(dev, smi)

@@ -4,14 +4,10 @@ cell's memory and collectives, against one NVIDIA H100 80GB HBM3, 700.00 W
 a rank.  The roofline terms are the cost model's on the card's peaks
 (modelled, not measured); the memory is the meta-device trace's.
 
-A serving cell's trace is the rank's cut program (``weights: "cut"``:
-the rule tables' tensor-parallel and FSDP cuts), so its traced peak is
-what decides whether it fits.  A train cell still holds the weights whole
-until ROADMAP A.7d-ii: one whose trace does not fit the card is listed as
-waiting on A.7d-ii when :func:`peak_with_rules_args` fits, its traced
-peak with the arguments taken at the rule tables' bytes and the step's
-new storage as traced, unscaled (an estimate, not a trace of the cut
-train step).
+Every cell's trace is the rank's cut program (``weights: "cut"``: the
+rule tables' tensor-parallel and FSDP cuts, of the serving weights and of
+the train state alike), so its traced peak is what decides whether it
+fits; :func:`over_card` names the cells that do not.
 
   PYTHONPATH=src python -m repro_torch.analysis.report artifacts/dryrun
 """
@@ -49,9 +45,8 @@ def load(art_dir):
 
 def dryrun_table(cells) -> str:
   rows = ["| arch | shape | mesh | mode | trace | args/rank | peak/rank "
-          "| fits | args under rules | peak with rules' args | "
-          "coll bytes/rank |",
-          "|---|---|---|---|---|---|---|---|---|---|---|"]
+          "| fits | args under rules | coll bytes/rank |",
+          "|---|---|---|---|---|---|---|---|---|---|"]
   for (arch, shape, mesh, mode), d in sorted(cells.items()):
     m = d["memory"]
     rows.append(
@@ -60,7 +55,6 @@ def dryrun_table(cells) -> str:
         f"| {fmt_b(m['peak_bytes_per_device'])} "
         f"| {'Y' if d['fits_hbm'] else 'N'} "
         f"| {fmt_b(d['argument_bytes_under_rules'])} "
-        f"| {fmt_b(peak_with_rules_args(d))} "
         f"| {fmt_b(d['collectives']['total'])} |")
   return "\n".join(rows)
 
@@ -83,43 +77,25 @@ def roofline_table(cells) -> str:
   return "\n".join(rows)
 
 
-def peak_with_rules_args(d) -> int:
-  """A cell's traced peak less its traced arguments plus the arguments
-  the rule tables assign a rank (module doc)."""
-  m = d["memory"]
-  return (m["peak_bytes_per_device"] - m["argument_size_in_bytes"]
-          + d["argument_bytes_under_rules"])
-
-
-def waiting_on_a7d(cells):
-  """Cells whose trace does not fit the card: (the train cells, weights
-  whole, whose ``peak_with_rules_args`` fits: they wait on A.7d-ii; the
-  rest: serving cells over the card with their weights cut, and train
-  cells that fit neither way)."""
-  over = sorted(k for k, d in cells.items() if not d["fits_hbm"])
-  wait = lambda k: cells[k].get("weights") == "whole" and \
-      peak_with_rules_args(cells[k]) < cells[k]["card_memory_bytes"]
-  return ([k for k in over if wait(k)], [k for k in over if not wait(k)])
+def over_card(cells):
+  """The cells whose traced peak does not fit the card, sorted."""
+  return sorted(k for k, d in cells.items() if not d["fits_hbm"])
 
 
 def summary(cells) -> str:
   total = len(cells)
   fits = sum(1 for d in cells.values() if d["fits_hbm"])
-  cut = [d for d in cells.values() if d.get("weights") == "cut"]
-  whole = [d for d in cells.values() if d.get("weights") != "cut"]
-  rules = sum(1 for d in whole
-              if peak_with_rules_args(d) < d["card_memory_bytes"])
+  train = [d for d in cells.values() if d["shape"].startswith("train")]
+  serve = [d for d in cells.values() if not d["shape"].startswith("train")]
   single = sum(1 for k in cells if k[2] == "single")
   multi = sum(1 for k in cells if k[2] == "multi")
   card = next(iter(cells.values()))["card"] if cells else "-"
+  cut = sum(1 for d in cells.values() if d.get("weights") == "cut")
   lines = [f"- cells traced: {total} (single-pod {single}, multi-pod "
-           f"{multi}); fit in 80 GB ({card}) as traced: {fits}/{total} "
-           f"(serving cells, weights cut: "
-           f"{sum(1 for d in cut if d['fits_hbm'])}/{len(cut)}; train "
-           f"cells, weights whole: "
-           f"{sum(1 for d in whole if d['fits_hbm'])}/{len(whole)}, with "
-           f"the rule tables' argument bytes and the traced new storage: "
-           f"{rules}/{len(whole)})"]
+           f"{multi}), {cut} on the rank's cut program; fit in 80 GB "
+           f"({card}) as traced: {fits}/{total} (serving cells "
+           f"{sum(1 for d in serve if d['fits_hbm'])}/{len(serve)}, train "
+           f"cells {sum(1 for d in train if d['fits_hbm'])}/{len(train)})"]
   census = {}
   for k, d in cells.items():
     if k[2] != "single":
@@ -127,12 +103,8 @@ def summary(cells) -> str:
     dom = d["roofline"]["dominant"]
     census[dom] = census.get(dom, 0) + 1
   lines.append(f"- dominant terms (single-pod, modelled): {census}")
-  wait, never = waiting_on_a7d(cells)
-  tag = lambda ks: ", ".join(" ".join(k) for k in ks) or "none"
-  lines.append(f"- train cells waiting on A.7d-ii (fit with the rules' "
-               f"argument bytes): {tag(wait)}")
-  lines.append(f"- do not fit (serving cells with their weights cut, and "
-               f"train cells either way): {tag(never)}")
+  over = ", ".join(" ".join(k) for k in over_card(cells)) or "none"
+  lines.append(f"- do not fit 80 GB as traced: {over}")
   return "\n".join(lines)
 
 

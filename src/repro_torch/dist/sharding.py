@@ -49,15 +49,22 @@ reference's ``named_sharding``), :func:`tree_shardings` and
 :func:`shard_shape` resolve logical axes to spec tuples and the per-rank
 shapes they give.
 
-:func:`shard_params` places the serving weights (the reference's
-``tree_shardings`` then ``jax.device_put``): each rank keeps the block of
-every leaf that the rule table gives it, and each dict of the rank's tree
-carries its leaves' :class:`Cut` under :data:`CUT_KEY`.  The model code
-reads a leaf's cut from there (:func:`cut_axes`), gathers an FSDP-cut
-``embed`` dim before use (:func:`gather_fsdp`, per layer) and calls the
-installed mesh's collectives where a cut needs them
-(:func:`all_reduce_over`, :func:`all_gather_over`).  A tree without cuts
-runs as it always has, whatever rules are installed.
+:func:`shard_tree` places a tree (the reference's ``tree_shardings`` then
+``jax.device_put``): each rank keeps the block of every leaf that the rule
+table gives it, and each dict of the rank's tree carries its leaves'
+:class:`Cut` under :data:`CUT_KEY`; :func:`shard_params` places the
+serving weights so, :func:`unshard_tree` gathers a tree whole again.  The
+model code reads a leaf's cut from there (:func:`cut_axes`), gathers an
+FSDP-cut ``embed`` dim before use (:func:`gather_fsdp`, per layer) and
+calls the installed mesh's collectives where a cut needs them
+(:func:`all_reduce_over`, :func:`all_gather_over`, :func:`enter`).  A
+tree without cuts runs as it always has, whatever rules are installed.
+
+Where autograd records them (the training path), those collectives have
+backwards: Megatron-LM's conjugate pairs, with one invariant, that every
+rank's cotangent of a replicated tensor is the whole cotangent (see the
+comment above :class:`_ReduceOut`).  Each keeps its mesh from the forward,
+since the backward may run on a thread where no mesh is installed.
 """
 from __future__ import annotations
 
@@ -117,10 +124,11 @@ _CTX = _Ctx()
 
 
 @contextlib.contextmanager
-def use_mesh(mesh, rules: Dict[str, AxisRule]):
-  """Install (mesh, rules) as the ambient sharding context."""
+def use_mesh(mesh, rules: Optional[Dict[str, AxisRule]]):
+  """Install (mesh, rules) as the ambient sharding context (``rules``
+  None: no table, as outside any context)."""
   prev = (_CTX.mesh, _CTX.rules)
-  _CTX.mesh, _CTX.rules = mesh, dict(rules)
+  _CTX.mesh, _CTX.rules = mesh, None if rules is None else dict(rules)
   try:
     yield mesh
   finally:
@@ -255,8 +263,8 @@ class Mesh:
 
   ``shape`` maps axis name -> size, like JAX's ``Mesh.shape``, so the rule
   logic takes the mesh as it takes the tests' fakes.  The collectives
-  :meth:`all_gather`, :meth:`all_reduce` and :meth:`broadcast_object` run
-  over one axis or a tuple of axes (the combined index in the tuple's
+  :meth:`all_gather`, :meth:`all_reduce`, :meth:`reduce_scatter` and
+  :meth:`broadcast_object` run over one axis or a tuple of axes (the combined index in the tuple's
   order, JAX's).  ``stats`` counts the collectives, the bytes this rank
   received and their host wall (staging included) since
   :meth:`reset_stats`, and under each kind of ``COLLECTIVES`` the bytes
@@ -420,6 +428,39 @@ class Mesh:
     self.stats["ms"] += (time.perf_counter() - t0) * 1e3
     return out
 
+  def reduce_scatter(self, x: torch.Tensor, axes, dim: int = 0
+                     ) -> torch.Tensor:
+    """The sum of every member's ``x`` along ``axes``, of which each member
+    keeps its block along ``dim`` (the block at its combined index, as
+    :meth:`all_gather` places blocks): one all-to-all hands each rank its
+    block of every member's ``x``, and the rank sums them in the order of
+    the combined index, :meth:`all_reduce`'s order, so that every element
+    has the bits the all-reduce gives it.  A rank sends and receives
+    (n - 1) / n of ``x``."""
+    group, line = self._line(axes)
+    n = len(line)
+    if x.shape[dim] % n:
+      raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide over "
+                       f"{n} ranks")
+    t0 = time.perf_counter()
+    blocks = x.movedim(dim, 0).chunk(n, 0)
+    # Chunk j of the operand goes to group rank j, the j-th of the sorted
+    # global ranks: the block of that rank's combined index.
+    xs = self._staged(torch.cat([blocks[line.index(r)] for r in
+                                 sorted(line)]))
+    pieces = torch.empty_like(xs)
+    self._all_to_all(pieces, xs, group)
+    by_rank = dict(zip(sorted(line), pieces.chunk(n, 0)))
+    acc = by_rank[line[0]]
+    for r in line[1:]:
+      acc = acc + by_rank[r]
+    out = acc.movedim(0, dim).to(x.device)
+    self.stats["calls"] += 1
+    self.stats["bytes"] += xs.numel() * xs.element_size()
+    self.stats["reduce-scatter"] += xs.numel() * xs.element_size()
+    self.stats["ms"] += (time.perf_counter() - t0) * 1e3
+    return out
+
   def broadcast_object(self, obj, src: int = 0):
     """Mesh rank ``src``'s picklable ``obj`` on every member (over the
     whole mesh)."""
@@ -549,13 +590,38 @@ def take_block(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
   return x.clone(memory_format=torch.contiguous_format)
 
 
-def shard_params(params: Dict, cfg, mesh, rules: Dict[str, AxisRule]):
-  """This rank's shard of a whole serving parameter tree (the reference's
+def shard_tree(tree: Dict, axes_tree: Dict, mesh,
+               rules: Dict[str, AxisRule]):
+  """This rank's shard of a whole tree of tensors (the reference's
   ``tree_shardings`` followed by ``jax.device_put``): every leaf cut by
-  ``mesh_axes_for(param_axes(cfg)[leaf], mesh, rules, shape)``, each rank
+  ``mesh_axes_for(axes_tree[leaf], mesh, rules, shape)``, each rank
   holding the block at its combined index along every cut dim.  Returns
   (the rank's tree, whose every dict carries its leaves' :class:`Cut`
-  under :data:`CUT_KEY`; the spec tree).  ``params`` is the tree of
+  under :data:`CUT_KEY`; the spec tree)."""
+  mesh = require_mesh(mesh)
+
+  def walk(tree, axes):
+    out, cuts, specs = {}, {}, {}
+    for k, v in tree.items():
+      if k == CUT_KEY:
+        raise ValueError("the tree is already a rank's shard")
+      if isinstance(v, dict):
+        out[k], specs[k] = walk(v, axes[k])
+        continue
+      spec = mesh_axes_for(axes[k], mesh, rules, shape=tuple(v.shape))
+      cuts[k] = Cut(tuple(axes[k]), spec)
+      specs[k] = spec
+      out[k] = take_block(v, spec, mesh)
+    out[CUT_KEY] = cuts
+    return out, specs
+
+  return walk(tree, axes_tree)
+
+
+def shard_params(params: Dict, cfg, mesh, rules: Dict[str, AxisRule]):
+  """This rank's shard of a whole serving parameter tree
+  (:func:`shard_tree` by ``common.param_axes``).  Returns (the rank's
+  tree; the spec tree).  ``params`` is the tree of
   ``transformer.finish_params``: its f32 ``unembed`` is cut as the
   ``(embed, vocab)`` leaf it is, and a tied model's is the f32 cast of
   the rank's ``embed`` block, seen transposed (``embed``'s spec, the
@@ -566,27 +632,40 @@ def shard_params(params: Dict, cfg, mesh, rules: Dict[str, AxisRule]):
   mesh = require_mesh(mesh)
   axes_tree = cm.param_axes(cfg)
   axes_tree["unembed"] = ("embed", "vocab")
-
-  def walk(tree, axes):
-    out, cuts, specs = {}, {}, {}
-    for k, v in tree.items():
-      if k == CUT_KEY:
-        raise ValueError("the parameter tree is already a rank's shard")
-      if isinstance(v, dict):
-        out[k], specs[k] = walk(v, axes[k])
-        continue
-      spec = mesh_axes_for(axes[k], mesh, rules, shape=tuple(v.shape))
-      cuts[k] = Cut(tuple(axes[k]), spec)
-      specs[k] = spec
-      if not (k == "unembed" and cfg.tie_embeddings):
-        out[k] = take_block(v, spec, mesh)
-    out[CUT_KEY] = cuts
-    return out, specs
-
-  local, specs = walk(params, axes_tree)
-  if cfg.tie_embeddings:
+  tied = cfg.tie_embeddings
+  local, specs = shard_tree(
+      {k: v for k, v in params.items() if not (tied and k == "unembed")},
+      axes_tree, mesh, rules)
+  if tied:
+    spec = mesh_axes_for(axes_tree["unembed"], mesh, rules,
+                         shape=tuple(params["unembed"].shape))
+    local[CUT_KEY]["unembed"] = Cut(axes_tree["unembed"], spec)
+    specs["unembed"] = spec
     local["unembed"] = local["embed"].float().t()
   return local, specs
+
+
+def unshard_tree(tree, mesh) -> Dict:
+  """The whole tree from the ranks' shards (the inverse of
+  :func:`shard_tree`): every cut leaf all-gathered over its mesh axes
+  along each cut dim; the :data:`CUT_KEY` entries dropped.  Collective:
+  every member of ``mesh`` calls it, on trees of the same cuts."""
+  if not isinstance(tree, dict):
+    return tree
+  cuts = tree.get(CUT_KEY, {})
+  out = {}
+  for k, v in tree.items():
+    if k == CUT_KEY:
+      continue
+    if isinstance(v, dict):
+      out[k] = unshard_tree(v, mesh)
+      continue
+    cut = cuts.get(k)
+    for d, entry in enumerate(cut.spec if cut is not None else ()):
+      if axes_of(entry):
+        v = mesh.all_gather(v, axes_of(entry), dim=d)
+    out[k] = v
+  return out
 
 
 def is_cut(p) -> bool:
@@ -617,29 +696,144 @@ def block_start(axes: Tuple[str, ...], size: int) -> int:
   return active_mesh().index(axes) * size if axes else 0
 
 
+def under_current_mesh(fn):
+  """``fn`` run under the (mesh, rules) installed now, on whatever thread
+  calls it.  The mesh context is thread-local, and autograd runs a
+  backward on a thread of its own on CUDA, where
+  ``torch.utils.checkpoint`` recomputes a layer: the recomputed layer
+  must gather and reduce over the mesh it first ran under."""
+  mesh, rules = _CTX.mesh, _CTX.rules
+  if mesh is None:
+    return fn
+
+  def run(*args, **kw):
+    with use_mesh(mesh, rules):
+      return fn(*args, **kw)
+  return run
+
+
+# The collectives of a cut tree, as autograd sees them (Megatron-LM's
+# conjugate pairs, Shoeybi et al. 2019).  A tensor is either replicated
+# over a line of ranks (every rank holds the same bits) or the rank's own
+# (a block, or a partial sum).  The code keeps one invariant: every rank's
+# cotangent of a replicated tensor is the whole cotangent.  So a
+# collective whose output is replicated needs no sum in its backward, and
+# :func:`enter` marks each place where a replicated tensor feeds the
+# rank's own computation, whose cotangents are partial: its backward sums
+# them.  Each op keeps its mesh and axes from the forward: the backward
+# may run on a thread with no mesh installed.
+
+class _ReduceOut(torch.autograd.Function):
+  """The sum of the ranks' partials; backward: the identity."""
+
+  @staticmethod
+  def forward(ctx, x, mesh, axes):
+    return mesh.all_reduce(x, axes)
+
+  @staticmethod
+  def backward(ctx, g):
+    return g, None, None
+
+
+class _GatherOut(torch.autograd.Function):
+  """The ranks' blocks concatenated, replicated; backward: the rank's
+  block of the cotangent."""
+
+  @staticmethod
+  def forward(ctx, x, mesh, axes, dim):
+    ctx.dim, ctx.size = dim, x.shape[dim]
+    ctx.start = mesh.index(axes) * ctx.size
+    return mesh.all_gather(x, axes, dim=dim)
+
+  @staticmethod
+  def backward(ctx, g):
+    return g.narrow(ctx.dim, ctx.start, ctx.size), None, None, None
+
+
+class _Enter(torch.autograd.Function):
+  """The identity; backward: the sum of the ranks' partial cotangents."""
+
+  @staticmethod
+  def forward(ctx, x, mesh, axes):
+    ctx.mesh, ctx.axes = mesh, axes
+    return x
+
+  @staticmethod
+  def backward(ctx, g):
+    return ctx.mesh.all_reduce(g, ctx.axes), None, None
+
+
+class _GatherFsdp(torch.autograd.Function):
+  """A weight's FSDP blocks gathered; backward: a reduce-scatter, the
+  gradients of every rank's rows of the batch summed, the rank keeping its
+  block."""
+
+  @staticmethod
+  def forward(ctx, x, mesh, axes, dim):
+    ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+    return mesh.all_gather(x, axes, dim=dim)
+
+  @staticmethod
+  def backward(ctx, g):
+    return ctx.mesh.reduce_scatter(g, ctx.axes, ctx.dim), None, None, None
+
+
 def all_reduce_over(x: torch.Tensor, axes: Tuple[str, ...]) -> torch.Tensor:
-  """The sum of every rank's partial ``x`` along ``axes``; ``x`` where
-  ``axes`` is ()."""
-  return active_mesh().all_reduce(x, axes) if axes else x
+  """The sum of every rank's partial ``x`` along ``axes``, replicated;
+  ``x`` where ``axes`` is ().  Its backward is the identity."""
+  if not axes:
+    return x
+  return _ReduceOut.apply(x, active_mesh(), axes)
 
 
 def all_gather_over(x: torch.Tensor, axes: Tuple[str, ...],
                     dim: int) -> torch.Tensor:
   """Every rank's block of ``x`` along ``axes``, concatenated along
-  ``dim``; ``x`` where ``axes`` is ()."""
-  return active_mesh().all_gather(x, axes, dim=dim) if axes else x
+  ``dim`` and replicated; ``x`` where ``axes`` is ().  Its backward is the
+  rank's block of the cotangent."""
+  if not axes:
+    return x
+  return _GatherOut.apply(x, active_mesh(), axes, dim)
+
+
+def enter(x: torch.Tensor, axes: Tuple[str, ...]) -> torch.Tensor:
+  """``x``, replicated over ``axes``, where it enters computation of the
+  rank's own (a column-cut product, the rank's heads or experts): the
+  identity, whose backward all-reduces the ranks' partial cotangents over
+  ``axes``."""
+  if not axes:
+    return x
+  return _Enter.apply(x, active_mesh(), axes)
 
 
 def gather_fsdp(x: torch.Tensor, cut: Cut) -> Tuple[torch.Tensor, Cut]:
   """``x`` with its FSDP cut undone (the reference's ``_gather_fsdp``):
   each ``embed`` dim that is cut is all-gathered over its mesh axes; the
-  other cuts (``model``) stay.  Returns (the tensor, its cut after)."""
+  other cuts (``model``) stay.  Its backward is a reduce-scatter over
+  those axes: the gradient comes out summed over the data-parallel ranks
+  whose rows it saw.  Returns (the tensor, its cut after)."""
   spec = list(cut.spec)
   for d, (name, entry) in enumerate(zip(cut.axes, cut.spec)):
     if name == "embed" and entry is not None:
-      x = active_mesh().all_gather(x, axes_of(entry), dim=d)
+      x = _GatherFsdp.apply(x, active_mesh(), axes_of(entry), d)
       spec[d] = None
   return x, Cut(cut.axes, tuple(spec))
+
+
+def fsdp_axes(cut: Optional[Cut]) -> Tuple[str, ...]:
+  """The mesh axes a leaf's ``embed`` dim is cut over (its FSDP cut), ()
+  for a whole leaf."""
+  if cut is None:
+    return ()
+  return tuple(a for name, entry in zip(cut.axes, cut.spec)
+               if name == "embed" for a in axes_of(entry))
+
+
+def cut_mesh_axes(cut: Optional[Cut]) -> Tuple[str, ...]:
+  """Every mesh axis a leaf is cut over, () for a whole leaf."""
+  if cut is None:
+    return ()
+  return tuple(a for entry in cut.spec for a in axes_of(entry))
 
 
 def leaf(p: Dict, name: str) -> torch.Tensor:

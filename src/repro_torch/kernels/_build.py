@@ -22,6 +22,7 @@ import pathlib
 import shutil
 import subprocess
 import threading
+import time
 from typing import Dict
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
@@ -188,11 +189,12 @@ def _run_all(cmds):
   return outs
 
 
-def build(force: bool = False, verbose: bool = False) -> pathlib.Path:
+def build(force: bool = False, verbose: bool = False,
+          log=print) -> pathlib.Path:
   """Compile every ``csrc/*.cu`` (one nvcc each, in parallel) and link the
   shared library, unless an up-to-date library exists.  Returns its path.
-  ``verbose`` prints ptxas's register / shared-memory / spill report of
-  each source under a ``[ptxas <file>]`` line."""
+  ``verbose`` gives ``log`` ptxas's register / shared-memory / spill report
+  of each source under a ``[ptxas <file>]`` line."""
   sources = sorted(CSRC.glob("*.cu"))
   headers = sorted(CSRC.glob("*.cuh"))
   lib = BUILD_DIR / LIB_NAME
@@ -216,9 +218,29 @@ def build(force: bool = False, verbose: bool = False) -> pathlib.Path:
       obj.unlink(missing_ok=True)
   if verbose:
     for src, report in zip(sources, reports):
-      print(f"[ptxas {src.name}]\n{report}", end="")
+      log(f"[ptxas {src.name}]\n{report}".rstrip("\n"))
   os.replace(tmp, lib)
   return lib
+
+
+def start_build(log=print) -> threading.Thread:
+  """``build(force=True, verbose=True, log=log)`` on a thread of its own,
+  started here, which holds the library's lock until the build ends: a
+  kernel called meanwhile waits for it.  The thread's ``error`` is what
+  the build raised, else None, and its ``seconds`` the build's wall time;
+  join it before :func:`library`."""
+  def run():
+    t0 = time.perf_counter()
+    try:
+      with _lock:
+        build(force=True, verbose=True, log=log)
+    except BaseException as e:       # noqa: BLE001: re-raised by the joiner
+      th.error = e
+    th.seconds = time.perf_counter() - t0
+  th = threading.Thread(target=run, name="kernel-build", daemon=True)
+  th.error, th.seconds = None, float("nan")
+  th.start()
+  return th
 
 
 def library() -> ctypes.CDLL:

@@ -19,17 +19,17 @@ runs the rank's real step on them under ``use_mesh`` on an
 
 against one NVIDIA H100 80GB HBM3, 700.00 W a rank (``analysis.roofline``).
 
-A serving cell (prefill_32k, decode_32k, long_500k) traces the rank's
-cut program (``weights: "cut"``): its parameters are its
+Every cell traces the rank's cut program (``weights: "cut"``).  A
+serving cell (prefill_32k, decode_32k, long_500k) takes its
 ``dist.sharding.shard_params`` shard under the cell's rule table (the
 tensor-parallel cuts over `model`, and the FSDP cut of ``embed`` over
-`data` for a big model), and the step gathers and reduces what the cuts
-need.  Its traced argument bytes equal ``argument_bytes_under_rules``:
-the rule tables' bytes a rank, with the port's f32 unembedding (ROADMAP
-C).  A train cell still holds the weights whole (``weights: "whole"``)
-until TP and FSDP reach the train step (ROADMAP A.7d-ii); its
-``argument_bytes_under_rules`` is what the reference's program holds, so
-the report can name the train cells that wait on A.7d-ii.
+`data` for a big model), a train cell (train_4k) its
+``train_step.shard_train_state`` shard of the f32 master, the AdamW
+moments and the error feedback under ``TRAIN_RULES`` (FSDP dropped for a
+small model), and the rank's rows of the batch; the step gathers and
+reduces what the cuts need, forward and backward.  The traced argument
+bytes equal ``argument_bytes_under_rules``: the rule tables' bytes a
+rank, with the port's f32 unembedding to serve (ROADMAP C).
 The memory policies keep the reference's
 structure, each threshold the same share of the card's memory as the
 reference's of its 16 GB chip: FSDP weights to serve above 10/16 of it a
@@ -73,7 +73,8 @@ from repro_torch.serve.prefill import make_prefill_step
 from repro_torch.serve.serve_step import make_serve_step, shard_cache
 from repro_torch.train import compression as comp
 from repro_torch.train import optimizer as opt_lib
-from repro_torch.train.train_step import make_train_step
+from repro_torch.train.train_step import (make_train_step,
+                                          shard_train_state)
 
 META = torch.device("meta")
 # torch.cuda.get_device_properties(0).total_memory of one NVIDIA H100 80GB
@@ -187,6 +188,14 @@ def train_state(cfg: cm.ModelConfig, *, compress: bool,
   return state
 
 
+def cut_train_state(cfg: cm.ModelConfig, mesh, rules, *, compress: bool,
+                    device=META) -> Dict:
+  """The rank's shard of :func:`train_state` under ``rules``
+  (``shard_train_state``; on ``meta`` nothing is allocated)."""
+  return shard_train_state(train_state(cfg, compress=compress,
+                                       device=device), cfg, mesh, rules)
+
+
 def cut_serve_params(cfg: cm.ModelConfig, mesh, rules,
                      device=META) -> Dict:
   """The rank's shard of :func:`serve_params` under ``rules``
@@ -267,9 +276,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, mode: str,
   t0 = time.time()
   if shape.kind == "train":
     mb = microbatches(cfg, shape, mesh)
-    state = train_state(cfg, compress=multi_pod)
-    batch = shp.input_specs(cfg, shape)     # the global batch: the step
-    step = make_train_step(                 # takes its rank's rows
+    state = cut_train_state(cfg, mesh, rules, compress=multi_pod)
+    batch = _rows(shp.input_specs(cfg, shape), mesh)
+    step = make_train_step(
         cfg, opt_lib.OptConfig(), microbatches=mb, compress_pods=multi_pod,
         mesh=mesh, causal_skip=causal_skip)
     args = (state, batch)
@@ -323,7 +332,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, mode: str,
       "collective_calls": mesh.stats["calls"],
       "roofline": roof.to_dict(),
       "card": rl.CARD, "card_memory_bytes": CARD_MEMORY,
-      "weights": "whole" if shape.kind == "train" else "cut",
+      "weights": "cut",
       "argument_bytes_under_rules": bytes_under_rules(
           cfg, shape_name, mode, mesh, rules),
   }

@@ -18,8 +18,11 @@ otherwise.
 ``run(mesh=...)`` trains on a mesh of ranks (``dist.sharding.Mesh``):
 every rank runs it on its (pod, data) share of each global batch
 (``train_step.make_train_step(mesh=...)``, with ``compress_pods`` the
-int8 cross-pod reduction); rank 0 alone writes the checkpoints, and a
-restore is the same on every rank (the state is replicated).
+int8 cross-pod reduction).  A checkpoint holds the whole state
+(:func:`save_state` gathers a cut one, ``train_step.shard_train_state``'s,
+and rank 0 writes it), so that ``checkpoint.restore`` gives it back on one
+rank and ``shard_train_state`` cuts it onto any mesh, as the reference's
+logical-axes checkpoints restore elastically.
 """
 from __future__ import annotations
 
@@ -38,7 +41,18 @@ from repro_torch.models.common import ModelConfig
 from repro_torch.train import checkpoint as ck
 from repro_torch.train.data import DataConfig, TokenStream
 from repro_torch.train.optimizer import OptConfig
-from repro_torch.train.train_step import init_train_state, make_train_step
+from repro_torch.train.train_step import (init_train_state, make_train_step,
+                                          shard_batch, unshard_train_state)
+
+
+def save_state(saver: ck.AsyncCheckpointer, ckpt_dir: str, step: int,
+               state: Dict, mesh=None, extras: Optional[dict] = None
+               ) -> None:
+  """Checkpoint ``state`` whole: on a mesh every rank calls it (a cut
+  state is gathered, a collective), and rank 0 writes."""
+  whole = state if mesh is None else unshard_train_state(state, mesh)
+  if mesh is None or mesh.rank == 0:
+    saver.save_async(ckpt_dir, step, whole, extras=extras)
 
 
 def run(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
@@ -66,7 +80,6 @@ def run(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
                              compress=compress_pods)
   step_fn = make_train_step(cfg, opt_cfg, microbatches=microbatches,
                             compress_pods=compress_pods, mesh=mesh)
-  writes = mesh is None or mesh.rank == 0
   saver = ck.AsyncCheckpointer()
   cuda = dev.type == "cuda"
   losses, gnorms, marks = [], [], []
@@ -75,6 +88,8 @@ def run(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
     tokens, labels = data.batch_at(step)
     b = {"tokens": torch.from_numpy(tokens).to(dev),
          "labels": torch.from_numpy(labels).to(dev)}
+    if mesh is not None:
+      b = shard_batch(b, mesh)
     if cuda:
       ev = torch.cuda.Event(enable_timing=True)
       ev.record()
@@ -89,11 +104,10 @@ def run(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
       log(f"step {step:5d} loss {float(m['loss']):.4f} "
           f"lr {float(m['lr']):.2e} gnorm {float(m['grad_norm']):.2f} "
           f"({time.perf_counter() - t0:.1f}s)")
-    if ckpt_dir is not None and writes and done % ckpt_every == 0 \
-        and done < steps:
+    if ckpt_dir is not None and done % ckpt_every == 0 and done < steps:
       data.step = done
-      saver.save_async(ckpt_dir, done, state,
-                       extras={"data": data.state_dict()})
+      save_state(saver, ckpt_dir, done, state, mesh,
+                 extras={"data": data.state_dict()})
   if cuda:
     ev = torch.cuda.Event(enable_timing=True)
     ev.record()

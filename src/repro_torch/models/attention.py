@@ -19,7 +19,12 @@ ranks' partial outputs with one all-reduce before ``bo``.  ``wk`` and
 ``wv`` stay whole under the serving tables (``kv_heads`` is None there):
 every rank computes every KV head, so the prompt's KV comes out global
 with no collective, and each rank attends with the KV heads of its own
-query heads' groups (:func:`kv_heads_for`)."""
+query heads' groups (:func:`kv_heads_for`).  The training table cuts
+``kv_heads`` too where they divide: the rank's KV heads are then those of
+its query heads, and the training path (``train=True``) attends with them
+directly.  Where a replicated activation enters the rank's heads,
+``dist.sharding.enter`` sums the ranks' partial cotangents in the
+backward."""
 from __future__ import annotations
 
 from typing import Optional
@@ -48,16 +53,21 @@ def causal_mix(q, k, v, *, sm_scale: float, window: Optional[int] = None,
                                window=window)
 
 
-def heads_cut(p, name: str = "wq"):
+def heads_cut(p, name: str = "wq", kv_cut: bool = False):
   """(mesh axes, first global head) of the query heads a rank's shard
   holds: ``name``'s heads dim (``wq``; MLA ``wq_b``) cut over the axes, or
   ((), 0) where the heads are whole.  A cut ``wk`` (a table that cuts
-  ``kv_heads``) is refused: no serving table does, and the prompt's KV
-  would come out cut."""
-  if shd.cut_axes(p, "wk", 1):
+  ``kv_heads``: the training table) is refused unless ``kv_cut``: no
+  serving table cuts it, and the prompt's KV would come out cut."""
+  kv_axes = shd.cut_axes(p, "wk", 1)
+  if kv_axes and not kv_cut:
     raise NotImplementedError("kv_heads cut over the mesh: the serving "
                               "tables keep wk / wv whole")
   axes = shd.cut_axes(p, name, 1)
+  if kv_axes and kv_axes != axes:
+    raise NotImplementedError(f"kv_heads cut over {kv_axes}, the query "
+                              f"heads over {axes}: a rank's KV heads must be "
+                              "those of its query heads")
   return axes, shd.block_start(axes, p[name].shape[1])
 
 
@@ -114,13 +124,19 @@ def attention_train(x, p, cfg: ModelConfig, positions, *,
   """Full-sequence causal self-attention (the prefill branch, or with
   ``train`` the training path's: :func:`causal_mix`), over the last
   ``cfg.sliding_window`` positions on a ``local`` layer.  Returns (y (B,
-  S, d), (k, v)) with k/v in the decode layout (B, Hkv, S, D)."""
-  q, k, v = qkv(x, p, cfg, positions)
+  S, d), (k, v)) with k/v in the decode layout (B, Hkv, S, D): on the
+  training path with cut KV heads, the rank's."""
+  axes, h0 = heads_cut(p, kv_cut=train)
+  xq = shd.enter(x, axes)
+  q = rope(query(xq, p), positions, cfg.rope_theta)
+  own_kv = bool(shd.cut_axes(p, "wk", 1))       # the rank's KV heads
+  xk = xq if own_kv else x
+  k = rope(_proj(xk, p["wk"]), positions, cfg.rope_theta)
+  v = _proj(xk, p["wv"])
   kq, vq = k, v
-  axes, h0 = heads_cut(p)
-  if axes:
-    kq, vq = kv_heads_for(k, v, h0, q.shape[2],
-                          cfg.n_heads // cfg.n_kv_heads, 2)
+  if axes and not own_kv:
+    kq, vq = kv_heads_for(shd.enter(k, axes), shd.enter(v, axes), h0,
+                          q.shape[2], cfg.n_heads // cfg.n_kv_heads, 2)
   o = causal_mix(q, kq, vq, sm_scale=cfg.hd ** -0.5,
                  window=cfg.sliding_window if local else None,
                  cap=cfg.attn_softcap, train=train, causal_skip=causal_skip)
@@ -134,7 +150,7 @@ def attention_train(x, p, cfg: ModelConfig, positions, *,
 CROSS_Q_CHUNK = 1024
 
 
-def cross_attention(x, p, cfg: ModelConfig, src):
+def cross_attention(x, p, cfg: ModelConfig, src, *, train: bool = False):
   """Non-causal attention of x (B, S, d) over src (B, T, d), the JAX
   ``attention_train`` branch with ``enc_out`` (whisper's cross attention,
   and its encoder with ``src = x``): no rope and no ``bq`` (the reference
@@ -142,15 +158,19 @@ def cross_attention(x, p, cfg: ModelConfig, src):
   softmax and p.v in f32, then ``out_proj`` with ``bo``.  Plain
   ``torch.matmul``, as the JAX package computes it outside any kernel,
   over chunks of :data:`CROSS_Q_CHUNK` query rows.  Returns (y (B, S, d),
-  (k, v) in the decode layout (B, Hkv, T, D))."""
-  q = _proj(x, p["wq"])
+  (k, v) in the decode layout (B, Hkv, T, D)); ``train`` takes cut KV
+  heads, as :func:`attention_train`."""
+  axes, h0 = heads_cut(p, kv_cut=train)
+  own_kv = bool(shd.cut_axes(p, "wk", 1))
+  q = _proj(shd.enter(x, axes), p["wq"])
+  src = shd.enter(src, axes) if own_kv else src
   k = _proj(src, p["wk"]).transpose(1, 2)                     # (B,Hkv,T,D)
   v = _proj(src, p["wv"]).transpose(1, 2)
   B, S, H, D = q.shape
   kq, vq = k, v
-  axes, h0 = heads_cut(p)
-  if axes:
-    kq, vq = kv_heads_for(k, v, h0, H, cfg.n_heads // cfg.n_kv_heads, 1)
+  if axes and not own_kv:
+    kq, vq = kv_heads_for(shd.enter(k, axes), shd.enter(v, axes), h0, H,
+                          cfg.n_heads // cfg.n_kv_heads, 1)
   Hkv = kq.shape[1]
   f = acc_dtype(x)
   kf, vf = kq.to(f), vq.to(f)
@@ -185,7 +205,7 @@ def mla_queries(x, p, cfg: ModelConfig, positions):
   ``wq_a`` bottleneck, ``q_norm``, then ``wq_b``, in x's dtype."""
   m = cfg.mla
   ql = rms_norm(_proj(x, p["wq_a"]), p["q_norm"], cfg.norm_eps)
-  q = _proj(ql, p["wq_b"])
+  q = _proj(shd.enter(ql, shd.cut_axes(p, "wq_b", 1)), p["wq_b"])
   return q[..., :m.qk_nope_dim], rope(q[..., m.qk_nope_dim:], positions,
                                       cfg.rope_theta)
 
@@ -209,12 +229,15 @@ def mla_train(x, p, cfg: ModelConfig, positions, *, train: bool = False,
   1, S, kv_lora + rope), given as both k and v, as in JAX.  ``train``
   and ``causal_skip`` as in :func:`attention_train`."""
   m = cfg.mla
+  axes = shd.cut_axes(p, "wq_b", 1)
   q_nope, q_pe = mla_queries(x, p, cfg, positions)
   c_kv, k_pe = mla_latent(x, p, cfg, positions)
-  k_nope = _proj(c_kv, p["wk_b"])                             # (B,S,H,nope)
-  v = _proj(c_kv, p["wv_b"])                                  # (B,S,H,vd)
+  ce = shd.enter(c_kv, axes)
+  k_nope = _proj(ce, p["wk_b"])                               # (B,S,H,nope)
+  v = _proj(ce, p["wv_b"])                                    # (B,S,H,vd)
   q = torch.cat([q_nope, q_pe], dim=-1)
-  k = torch.cat([k_nope, k_pe[:, :, None].expand(*q_pe.shape)], dim=-1)
+  k = torch.cat([k_nope, shd.enter(k_pe, axes)[:, :, None].expand(
+      *q_pe.shape)], dim=-1)
   del k_nope
   o = causal_mix(q, k, v_pad(v, q.shape[-1]),
                  sm_scale=(m.qk_nope_dim + m.qk_rope_dim) ** -0.5,

@@ -39,6 +39,10 @@ partial combines.  Where E does not divide over the mesh (the
 divisibility fallback) the experts stay whole and ``ff`` takes the cut:
 every rank runs every expert on its columns, and the same all-reduce sums
 the partial products.  Shared experts follow ``transformer.mlp``'s cut.
+In the training backward the tokens and the gates enter the rank's
+experts through ``dist.sharding.enter`` (the ranks' partial cotangents
+summed), and the router's logits through the all-gather's (the rank's
+columns of the cotangent).
 """
 from __future__ import annotations
 
@@ -72,7 +76,8 @@ def route(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig,
   E, K = m.num_experts, m.top_k
   f = acc_dtype(x)
   probs = torch.softmax(shd.all_gather_over(
-      torch.matmul(x.to(f), router.to(f)), axes, -1), dim=-1)
+      torch.matmul(shd.enter(x, axes).to(f), router.to(f)), axes, -1),
+      dim=-1)
   topv, topi = top_k(probs, K)                                # (T, K)
   topv = topv / topv.sum(-1, keepdim=True).clamp_min(1e-9)
   in_topk = torch.zeros((T, E), dtype=f, device=x.device).scatter_(
@@ -134,19 +139,22 @@ def moe_ffn(x: torch.Tensor, p, cfg: ModelConfig):
                                shd.cut_axes(p, "router", 1))
   dt, f = x.dtype, acc_dtype(x)
   e_axes = shd.cut_axes(p, "w1", 0)
+  x_axes = e_axes + shd.cut_axes(p, "w1", 2)  # the rank's experts or ff
   e0 = shd.block_start(e_axes, p["w1"].shape[0])
+  gate = shd.enter(gate, x_axes)
   if e_axes:                              # this rank's experts only
     tok = tok[e0:e0 + p["w1"].shape[0]]
     gate = gate[e0:e0 + p["w1"].shape[0]]
-  xg = xf[tok]                                                # (E, cap, d)
+  xg = shd.enter(xf, x_axes)[tok]                             # (E, cap, d)
   h = torch.matmul(xg, p["w1"].to(dt)).to(f)
   g = torch.matmul(xg, p["w3"].to(dt)).to(f)
   h = (F.silu(h) * g).to(dt)
   y = torch.matmul(h, p["w2"].to(dt)) * gate[..., None].to(dt)
   out = combine(y, tok, topi, e0, cfg.moe.num_experts).reshape(B, S, d)
-  out = shd.all_reduce_over(out, e_axes + shd.cut_axes(p, "w1", 2))
+  out = shd.all_reduce_over(out, x_axes)
   if cfg.moe.num_shared:
     s = p["shared"]
-    out = out + shd.all_reduce_over(swiglu(x, s["w1"], s["w3"], s["w2"]),
-                                    shd.cut_axes(s, "w2", 0))
+    s_axes = shd.cut_axes(s, "w2", 0)
+    out = out + shd.all_reduce_over(
+        swiglu(shd.enter(x, s_axes), s["w1"], s["w3"], s["w2"]), s_axes)
   return out, aux

@@ -30,7 +30,12 @@ gated norm's squares over all of d_in with one all-reduce, and row-cut
 divisibility fallback) takes no collective: the rank computes all of it,
 or slices what its neighbours' cuts need.  The prefill's state comes out
 global (every rank's cache is the whole prompt's); a decode step's is the
-rank's block, as ``serve_step.shard_cache`` cuts the cache.
+rank's block, as ``serve_step.shard_cache`` cuts the cache.  In the
+training backward each replicated tensor that the rank's block reads
+(``x`` into ``in_proj``'s columns, the projection into the conv's
+channels and the heads, the conv's output, the norm's squares summed)
+enters it through ``dist.sharding.enter``, which sums the ranks' partial
+cotangents.
 """
 from __future__ import annotations
 
@@ -135,13 +140,16 @@ def ssm_forward(x: torch.Tensor, p, cfg: ModelConfig, *,
   s = cfg.ssm
   f = acc_dtype(x)
   B_, S_ = x.shape[:2]
-  zxbcdt = shd.all_gather_over(torch.matmul(x, p["in_proj"].to(x.dtype)),
-                               shd.cut_axes(p, "in_proj", 1), -1)
-  z, xin, Bs, Cs, dt, d_in, h = _split_proj(zxbcdt, cfg)
+  i_axes = shd.cut_axes(p, "in_proj", 1)
+  zxbcdt = shd.all_gather_over(torch.matmul(
+      shd.enter(x, i_axes), p["in_proj"].to(x.dtype)), i_axes, -1)
+  c_axes = shd.cut_axes(p, "conv_w", 1)
+  h_axes = shd.cut_axes(p, "A_log", 0)
+  z, _, _, _, dt, d_in, h = _split_proj(shd.enter(zxbcdt, h_axes), cfg)
+  _, xin, Bs, Cs, _, _, _ = _split_proj(shd.enter(zxbcdt, c_axes), cfg)
   xbc = torch.cat([xin, Bs, Cs], dim=-1)
 
   # The depthwise conv on the rank's channel block.
-  c_axes = shd.cut_axes(p, "conv_w", 1)
   n_ch = p["conv_w"].shape[1]
   c0 = shd.block_start(c_axes, n_ch)
   conv_state = decode_state[0] if decode_state is not None else None
@@ -157,10 +165,10 @@ def ssm_forward(x: torch.Tensor, p, cfg: ModelConfig, *,
     K = p["conv_w"].shape[0]
     new_conv = torch.cat([xbc.new_zeros((B_, K - 1, xbc.shape[-1])), xbc],
                          dim=1)[:, S_:]
-  xin, Bs, Cs = torch.split(conv_out, [d_in, s.d_state, s.d_state], dim=-1)
+  xin, Bs, Cs = torch.split(shd.enter(conv_out, h_axes),
+                            [d_in, s.d_state, s.d_state], dim=-1)
 
   # The SSD for the rank's heads.
-  h_axes = shd.cut_axes(p, "A_log", 0)
   hl = p["A_log"].shape[0]
   h0 = shd.block_start(h_axes, hl)
   P = s.head_dim
@@ -183,19 +191,23 @@ def ssm_forward(x: torch.Tensor, p, cfg: ModelConfig, *,
   n_axes = shd.cut_axes(p, "norm", 0)
   w = p["norm"]
   if not (n_axes and n_axes == h_axes):     # not already the rank's block
-    w = shd.all_gather_over(w, n_axes, 0)[h0 * P:(h0 + hl) * P]
+    w = shd.enter(shd.all_gather_over(w, n_axes, 0),
+                  h_axes)[h0 * P:(h0 + hl) * P]
   if not h_axes:
     y = rms_norm(y.to(x.dtype), w, cfg.norm_eps)
   else:
+    # The sum is replicated, and each rank's heads read it: its backward
+    # sums the ranks' partial cotangents too.
     yf = y.to(x.dtype).to(f)
-    sq = shd.all_reduce_over(yf.pow(2).sum(-1, keepdim=True), h_axes)
+    sq = shd.enter(shd.all_reduce_over(yf.pow(2).sum(-1, keepdim=True),
+                                       h_axes), h_axes)
     yf = yf * torch.rsqrt(sq / d_in + cfg.norm_eps)
     y = (yf * (1.0 + w.to(f))).to(x.dtype)
 
   # out_proj: row-cut, or the rank's y gathered where it is whole.
   o_axes = shd.cut_axes(p, "out_proj", 0)
   if o_axes and o_axes != h_axes:
-    y = shd.all_gather_over(y, h_axes, -1)
+    y = shd.enter(shd.all_gather_over(y, h_axes, -1), o_axes)
     rows = p["out_proj"].shape[0]
     o0 = shd.block_start(o_axes, rows)
     y = y[..., o0:o0 + rows]

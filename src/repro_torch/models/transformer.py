@@ -44,7 +44,9 @@ The training path (:func:`train_hidden_states`, :func:`chunked_loss`,
 :func:`forward_loss`) runs the same layers with the differentiable
 ``layers.causal_attention`` in place of the prefill kernel, each layer
 recomputed in the backward, and adds the MoE aux loss; its parameters are
-the raw tree of :func:`init_params`, without the f32 unembedding.
+the raw tree of :func:`init_params`, without the f32 unembedding, whole or
+a rank's shard of it (``train.train_step.shard_train_state``): every
+collective of a cut leaf has its backward (``dist.sharding``).
 """
 from __future__ import annotations
 
@@ -301,6 +303,7 @@ def mlp(x, mp, cfg: ModelConfig):
   rank's shard): ``w1``, ``w3`` and ``b1`` column-cut, ``w2`` row-cut,
   one all-reduce of the partial outputs, ``b2`` added after it."""
   axes = shd.cut_axes(mp, "w2", 0)
+  x = shd.enter(x, axes)
   if cfg.mlp_type == "gelu":
     if not axes:
       return gelu_mlp(x, mp["w1"], mp["b1"], mp["w2"], mp["b2"])
@@ -387,7 +390,8 @@ def _layer_forward(x, lp, cfg: ModelConfig, spec: LayerSpec, positions,
   if spec.cross_attn:
     hc = rms_norm(x, lp["ln_cross"], cfg.norm_eps)
     if enc_out is not None:
-      y, (ck, cv) = attn.cross_attention(hc, lp["cross"], cfg, enc_out)
+      y, (ck, cv) = attn.cross_attention(hc, lp["cross"], cfg, enc_out,
+                                         train=train)
     else:
       y, (ck, cv) = attn.attention_train(hc, lp["cross"], cfg, positions,
                                          **mixer)
@@ -396,13 +400,14 @@ def _layer_forward(x, lp, cfg: ModelConfig, spec: LayerSpec, positions,
   return mlp_block(x, lp, cfg, spec, aux), out
 
 
-def encode(params, cfg: ModelConfig, frames):
+def encode(params, cfg: ModelConfig, frames, train: bool = False):
   """The encoder over the audio stub's frame embeddings (B, T,
   frontend_dim) -> (B, T, d) in ``cfg.dtype``: ``frontend_proj`` (the
   product in the promoted dtype, as the JAX einsum), then per layer ln1,
   bidirectional ``cross_attention`` of the layer over itself (no rope: the
   reference adds none, whatever its docstring says), ln2 and the GELU MLP,
-  then the encoder's ``final_norm``."""
+  then the encoder's ``final_norm``; ``train`` as in
+  :func:`attention.cross_attention`."""
   ecfg = encoder_config(cfg)
   proj = shd.leaf(params, "frontend_proj")
   dt = torch.promote_types(frames.dtype, proj.dtype)
@@ -411,7 +416,7 @@ def encode(params, cfg: ModelConfig, frames):
   for i in range(ecfg.n_layers):
     lp = layer_params(enc["blocks"], i)
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    x = x + attn.cross_attention(h, lp["attn"], ecfg, h)[0]
+    x = x + attn.cross_attention(h, lp["attn"], ecfg, h, train=train)[0]
     x = x + mlp(rms_norm(x, lp["ln2"], cfg.norm_eps), lp["mlp"], ecfg)
   return rms_norm(x, shd.leaf(enc, "final_norm"), cfg.norm_eps)
 
@@ -452,14 +457,15 @@ def hidden_states(params, cfg: ModelConfig, tokens,
   return (h, kv) if collect_kv else h
 
 
-def _inputs(params, cfg: ModelConfig, tokens, frontend_embeds):
+def _inputs(params, cfg: ModelConfig, tokens, frontend_embeds,
+            train: bool = False):
   """(the decoder's input embeddings, the encoder's output or None): the
   audio stub's frames go through :func:`encode`, the vision stub's patches
   prefix the text."""
   if cfg.encoder is None:
     return embed_tokens(params, cfg, tokens, frontend_embeds), None
   enc_out = (None if frontend_embeds is None
-             else encode(params, cfg, frontend_embeds))
+             else encode(params, cfg, frontend_embeds, train))
   return embed_tokens(params, cfg, tokens), enc_out
 
 
@@ -502,36 +508,41 @@ def train_hidden_states(params, cfg: ModelConfig, tokens,
   device: causal attention is ``layers.causal_attention``, never the
   prefill kernel.  Each layer is recomputed in the backward
   (``torch.utils.checkpoint``, non-reentrant) where autograd is on, as the
-  reference remats each scanned block."""
+  reference remats each scanned block.
+
+  Whole parameters, or a rank's shard (``dist.sharding.shard_tree`` under
+  a rule table, with the mesh installed): a layer's FSDP leaves are
+  gathered inside its checkpointed function (``layer_params``), so that
+  they are freed after its forward and gathered again in the backward's
+  recompute, as the reference gathers inside its remat'd scan body; the
+  recompute runs under the mesh its forward ran under, on whatever thread
+  autograd runs it (``dist.sharding.under_current_mesh``)."""
   check_supported(cfg)
-  if shd.is_cut(params):
-    raise NotImplementedError(
-        f"{cfg.name}: the training path takes whole parameters (TP and FSDP "
-        "in the train step, with a backward for each collective, are "
-        "ROADMAP A.7d-ii)")
-  x, enc_out = _inputs(params, cfg, tokens, frontend_embeds)
+  x, enc_out = _inputs(params, cfg, tokens, frontend_embeds, train=True)
   positions = torch.arange(x.shape[1], device=x.device)
   remat = torch.is_grad_enabled()
 
-  def layer(x, lp, spec):
+  @shd.under_current_mesh
+  def layer(x, stacked, b, spec):
     acc = []
-    x, _ = _layer_forward(x, lp, cfg, spec, positions, enc_out, train=True,
-                          causal_skip=causal_skip, aux=acc)
+    x, _ = _layer_forward(x, layer_params(stacked, b), cfg, spec, positions,
+                          enc_out, train=True, causal_skip=causal_skip,
+                          aux=acc)
     return x, sum(acc, torch.zeros((), dtype=torch.float32,
                                    device=x.device))
 
   aux = torch.zeros((), dtype=torch.float32, device=x.device)
   for b in range(cfg.n_blocks):
     for i, spec in enumerate(cfg.block_pattern):
-      lp = layer_params(params["blocks"][f"pos{i}"], b)
+      stacked = params["blocks"][f"pos{i}"]
       if remat:
         x, a = torch.utils.checkpoint.checkpoint(
-            layer, x, lp, spec, use_reentrant=False,
+            layer, x, stacked, b, spec, use_reentrant=False,
             preserve_rng_state=False)
       else:
-        x, a = layer(x, lp, spec)
+        x, a = layer(x, stacked, b, spec)
       aux = aux + a
-  return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+  return rms_norm(x, shd.leaf(params, "final_norm"), cfg.norm_eps), aux
 
 
 # Sequence positions per chunk of :func:`chunked_loss`, as the reference's.
@@ -546,18 +557,37 @@ def chunked_loss(params, cfg: ModelConfig, h, labels,
   (``embed`` transposed when tied) cast to f32 (float64 in a float64
   run), the logit softcap,
   logsumexp minus the gold logit; each chunk recomputed in the backward
-  where autograd is on."""
+  where autograd is on.  On a rank's shard the unembedding's FSDP cut is
+  gathered, and its vocab cut is vocab-parallel: each rank takes the
+  logsumexp of its own logits, one all-gather gives every rank the ranks'
+  (the logsumexp of those is the whole one), and the gold logit comes from
+  the rank that holds it through one all-reduce."""
   B, S, _ = h.shape
   chunk = min(chunk, S)
   while S % chunk:
     chunk -= 1
-  w = params["embed"].t() if cfg.tie_embeddings else params["unembed"]
+  if cfg.tie_embeddings:
+    w, axes = shd.leaf(params, "embed").t(), shd.cut_axes(params, "embed", 0)
+  else:
+    w, axes = shd.leaf(params, "unembed"), shd.cut_axes(params, "unembed", 1)
 
+  @shd.under_current_mesh
   def one(hc, lc, w):
     f = acc_dtype(hc)
-    lg = softcap(torch.matmul(hc.to(f), w.to(f)), cfg.logit_softcap)
-    gold = lg.gather(-1, lc[..., None].long())[..., 0]
-    return (torch.logsumexp(lg, dim=-1) - gold).sum()
+    lg = softcap(torch.matmul(shd.enter(hc, axes).to(f), w.to(f)),
+                 cfg.logit_softcap)
+    if not axes:
+      gold = lg.gather(-1, lc[..., None].long())[..., 0]
+      return (torch.logsumexp(lg, dim=-1) - gold).sum()
+    rows = lg.shape[-1]
+    local = lc.long() - shd.block_start(axes, rows)
+    own = (local >= 0) & (local < rows)
+    gold = lg.gather(-1, local.clamp(0, rows - 1)[..., None])[..., 0]
+    gold = shd.all_reduce_over(torch.where(own, gold, torch.zeros_like(gold)),
+                               axes)
+    lse = torch.logsumexp(shd.all_gather_over(
+        torch.logsumexp(lg, dim=-1, keepdim=True), axes, -1), dim=-1)
+    return (lse - gold).sum()
 
   remat = torch.is_grad_enabled()
   total = []

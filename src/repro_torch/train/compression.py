@@ -8,6 +8,12 @@ uncompressed; across pods (:func:`compressed_pod_psum`, on a mesh with a
 `pod` axis) each rank all-gathers the pods' int8 codes and f32 scales (1
 byte a parameter on the wire, and one scale a leaf, instead of 4) and
 sums the dequantised copies itself.
+
+On a cut tree (``dist.sharding.shard_tree``) a leaf's scale is that of
+the whole leaf, as in the reference, whose GSPMD keeps the `data` and
+`model` cuts: the max of ``|g + err|`` over the mesh axes the leaf is cut
+over (an all-gather of one scalar a rank).  The codes of a shard are then
+the whole leaf's codes of its block.
 """
 from __future__ import annotations
 
@@ -16,13 +22,34 @@ from typing import Any, Tuple
 import torch
 
 from repro_torch.dist import sharding as shd
-from repro_torch.train.optimizer import tree_map, unzip
+from repro_torch.train.optimizer import (leaf_cuts, tree_leaves, tree_map,
+                                        unzip)
 
 
-def _quantise(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-  scale = g.abs().max() / 127.0 + 1e-12
+def _quantise(g: torch.Tensor, mesh=None, axes: Tuple[str, ...] = ()
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """(int8 codes, f32 scale) of ``g``, a whole leaf or a rank's block of
+  one cut over ``axes`` (the scale the whole leaf's)."""
+  amax = g.abs().max()
+  if axes:
+    amax = mesh.all_gather(amax.reshape(1), axes, dim=0).max()
+  scale = amax / 127.0 + 1e-12
   q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
   return q, scale
+
+
+def _map_cut(fn, grads, err):
+  """``fn(cut, g, e)`` over the leaves of two trees of the same cuts, as
+  a tree of its results (the first tree's ``_cut`` entries carried)."""
+  it = iter([fn(c, g, e) for c, g, e in zip(
+      leaf_cuts(grads), tree_leaves(grads), tree_leaves(err))])
+
+  def rebuild(tree):
+    if isinstance(tree, dict):
+      return {k: v if k == shd.CUT_KEY else rebuild(v)
+              for k, v in tree.items()}
+    return next(it)
+  return rebuild(grads)
 
 
 def compressed_pod_psum(grads, err, axis_name: str = "pod", mesh=None):
@@ -41,9 +68,9 @@ def compressed_pod_psum(grads, err, axis_name: str = "pod", mesh=None):
     raise NameError(f"unbound axis name: {axis_name}")
   shd.require_mesh(mesh)
 
-  def one(g, e):
+  def one(cut, g, e):
     g32 = g.float() + e
-    q, scale = _quantise(g32)
+    q, scale = _quantise(g32, mesh, shd.cut_mesh_axes(cut))
     deq = q.float() * scale
     q_all = mesh.all_gather(q, axis_name, dim=0, tiled=False)
     s_all = mesh.all_gather(scale.reshape(1), axis_name, dim=0)
@@ -52,7 +79,7 @@ def compressed_pod_psum(grads, err, axis_name: str = "pod", mesh=None):
       summed = summed + s_all[p] * q_all[p].float()
     return summed, g32 - deq
 
-  out = tree_map(one, grads, err)
+  out = _map_cut(one, grads, err)
   return unzip(out, 0), unzip(out, 1)
 
 

@@ -4,6 +4,12 @@ dict (counterpart of ``repro.train.optimizer``).
 f32 master weights and moments.  The update keeps the reference's order:
 clip by the global norm, the bias corrections, ``sqrt(vhat) + eps``, then
 the weight decay inside the lr product.
+
+A tree may be a rank's shard (``dist.sharding.shard_tree``): the maps
+carry each dict's ``_cut`` entry through unchanged, AdamW runs on the
+shards as it is (it is elementwise), and :func:`global_norm` sums each cut
+leaf's squares over the mesh axes it is cut over, so that every rank
+clips by the whole tree's norm.
 """
 from __future__ import annotations
 
@@ -12,6 +18,8 @@ import math
 from typing import Any, Dict, Tuple
 
 import torch
+
+from repro_torch.dist import sharding as shd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,17 +35,31 @@ class OptConfig:
 
 
 def tree_map(fn, *trees):
-  """``fn`` over the leaves of nested dicts with the first tree's keys."""
+  """``fn`` over the leaves of nested dicts with the first tree's keys; a
+  cut tree's ``_cut`` entries are carried through unchanged."""
   if isinstance(trees[0], dict):
-    return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return {k: trees[0][k] if k == shd.CUT_KEY else
+            tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
   return fn(*trees)
 
 
 def tree_leaves(tree):
-  """The leaves of a nested dict, in its key order."""
+  """The leaves of a nested dict, in its key order (``_cut`` entries are
+  not leaves)."""
   if isinstance(tree, dict):
-    return [x for v in tree.values() for x in tree_leaves(v)]
+    return [x for k, v in tree.items() if k != shd.CUT_KEY
+            for x in tree_leaves(v)]
   return [tree]
+
+
+def leaf_cuts(tree):
+  """The :class:`~repro_torch.dist.sharding.Cut` of each leaf of
+  :func:`tree_leaves`, None where a leaf is whole."""
+  if not isinstance(tree, dict):
+    return [None]
+  cuts = tree.get(shd.CUT_KEY, {})
+  return [c for k, v in tree.items() if k != shd.CUT_KEY
+          for c in (leaf_cuts(v) if isinstance(v, dict) else [cuts.get(k)])]
 
 
 def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
@@ -57,18 +79,38 @@ def init_opt_state(params) -> Dict[str, Any]:
                               device=tree_leaves(params)[0].device)}
 
 
-def global_norm(tree) -> torch.Tensor:
-  return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                        for x in tree_leaves(tree)))
+def global_norm(tree, mesh=None) -> torch.Tensor:
+  """The L2 norm of every leaf.  On a cut tree the squares of the leaves
+  cut over the same mesh axes are summed on the rank, then over those axes
+  (one all-reduce of a scalar for each set of axes, in a fixed order, so
+  that every rank gets the same bits); a whole leaf counts once.
+  ``mesh`` defaults to the installed one."""
+  leaves = tree_leaves(tree)
+  cuts = leaf_cuts(tree)
+  if not any(c is not None for c in cuts):
+    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                          for x in leaves))
+  mesh = mesh if mesh is not None else shd.active_mesh()
+  groups = {}
+  for x, c in zip(leaves, cuts):
+    axes = tuple(a for a in mesh.axis_names if a in shd.cut_mesh_axes(c))
+    sq = torch.sum(torch.square(x.float()))
+    groups[axes] = sq if axes not in groups else groups[axes] + sq
+  total = None
+  for axes in sorted(groups):
+    part = mesh.all_reduce(groups[axes], axes) if axes else groups[axes]
+    total = part if total is None else total + part
+  return torch.sqrt(total)
 
 
-def adamw_update(grads, opt_state, params, cfg: OptConfig
+def adamw_update(grads, opt_state, params, cfg: OptConfig, mesh=None
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
-  """One AdamW step on f32 params / grads.  Returns (params', opt',
-  {"grad_norm", "lr"}); nothing is written in place."""
+  """One AdamW step on f32 params / grads (whole, or a rank's shards with
+  ``mesh``, or the installed mesh, for the global norm).  Returns
+  (params', opt', {"grad_norm", "lr"}); nothing is written in place."""
   step = opt_state["step"] + 1
   lr = schedule(cfg, step)
-  gnorm = global_norm(grads)
+  gnorm = global_norm(grads, mesh)
   scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
   b1c = 1 - cfg.b1 ** step.float()
   b2c = 1 - cfg.b2 ** step.float()
@@ -90,7 +132,8 @@ def adamw_update(grads, opt_state, params, cfg: OptConfig
 
 
 def unzip(tree, i: int):
-  """Element ``i`` of each tuple leaf of ``tree``."""
+  """Element ``i`` of each tuple leaf of ``tree`` (``_cut`` entries kept)."""
   if isinstance(tree, dict):
-    return {k: unzip(v, i) for k, v in tree.items()}
+    return {k: v if k == shd.CUT_KEY else unzip(v, i)
+            for k, v in tree.items()}
   return tree[i]

@@ -13,19 +13,24 @@ which has no backward.
 
 On a mesh (``make_train_step(mesh=...)``, the port's ``dist.sharding.
 Mesh``) every rank runs the step on its (pod, data) share of the global
-batch, and the gradients are averaged over the pod and data ranks
-(:func:`mesh_loss_and_grads`): the global-mean gradient of the
-reference's GSPMD step, summed in rank order, so that it equals the
-one-rank step with the shares as its microbatches, bit for bit.  An MoE
-layer groups the tokens of each rank's share, the reference's grouping per
-data-parallel shard.  With ``compress_pods`` the cross-pod reduction then
-goes through ``compression.compressed_pod_psum``, as in the reference.
-Ranks along `model` hold the weights whole and compute the same thing:
-the serving path cuts its weights by the rule tables
-(``dist.sharding.shard_params``), but the train step's tensor-parallel
-weights over `model` and FSDP over `data`, which need a backward for each
-hand-written collective, are ROADMAP A.7d-ii; ``transformer``'s training
-forward refuses a cut tree.
+batch (:func:`shard_batch`), which it is given.  An MoE layer groups the tokens of each rank's share, the
+reference's grouping per data-parallel shard.  The state is whole on
+every rank, or each rank's shard of it (:func:`shard_train_state`: the
+reference's state under ``TRAIN_RULES``, tensor-parallel over `model` and
+FSDP, the weights' ``embed`` dim, over `data`).  On a cut state the
+forward gathers each layer's FSDP leaves inside its checkpointed function
+and keeps the `model` cuts, and every collective has its backward
+(``dist.sharding``): ``gather_fsdp``'s reduce-scatter sums an FSDP leaf's
+gradient over the ranks its gather spans.  :func:`mesh_loss_and_grads`
+then sums each leaf's gradient over the (pod, data) axes it is not yet
+summed over, in rank order (``Mesh.all_reduce``), and divides by the
+(pod, data) count: the global-mean gradient of the reference's GSPMD
+step.  No leaf is summed over `model`: every rank's cotangent of a
+replicated tensor is whole (``dist.sharding.enter``).  On a whole state
+all of it is one all-reduce of the gradients packed flat, so that it
+equals the one-rank step with the shares as its microbatches, bit for
+bit.  With ``compress_pods`` the cross-pod reduction then goes through
+``compression.compressed_pod_psum``, as in the reference.
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.dist import sharding as shd
+from repro_torch.models import common as cm
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import ModelConfig
 from repro_torch.train import compression as comp
@@ -87,6 +93,38 @@ def loss_and_grads(cfg: ModelConfig, params, batch: Dict, *,
   return loss / microbatches, metrics, tree_map(lambda _: next(it), params)
 
 
+def _each_tree(fn, state: Dict) -> Dict:
+  """``fn`` over the state's trees of the parameters' shape (the master,
+  ``m``, ``v`` and ``err``); ``step`` as it is."""
+  out = {"params": fn(state["params"]),
+         "opt": {"m": fn(state["opt"]["m"]), "v": fn(state["opt"]["v"]),
+                 "step": state["opt"]["step"]}}
+  if "err" in state:
+    out["err"] = fn(state["err"])
+  return out
+
+
+def shard_train_state(state: Dict, cfg: ModelConfig, mesh,
+                      rules: Dict) -> Dict:
+  """This rank's shard of a whole train state under ``rules`` (the
+  reference's ``state_shardings``): the f32 master, ``m``, ``v`` and
+  ``err`` cut leaf by leaf by ``common.param_axes``, as
+  ``dist.sharding.shard_params`` cuts weights, but with no f32 unembedding
+  beside a tied ``embed`` (AdamW would train it); ``step`` whole."""
+  axes = cm.param_axes(cfg)
+  return _each_tree(lambda t: shd.shard_tree(t, axes, mesh, rules)[0],
+                    state)
+
+
+def unshard_train_state(state: Dict, mesh) -> Dict:
+  """The whole train state from the ranks' shards (the inverse of
+  :func:`shard_train_state`; collective: every member of ``mesh`` calls
+  it); a whole state as it is."""
+  if not shd.is_cut(state["params"]):
+    return state
+  return _each_tree(lambda t: shd.unshard_tree(t, mesh), state)
+
+
 def dp_axes(mesh) -> tuple:
   """The mesh axes the batch is split over (`pod`, `data`)."""
   return tuple(a for a in ("pod", "data") if a in mesh.shape)
@@ -108,26 +146,42 @@ def shard_batch(batch: Dict, mesh) -> Dict:
 
 def mesh_loss_and_grads(cfg: ModelConfig, params, batch: Dict, mesh, *,
                         microbatches: int = 1, causal_skip: bool = False):
-  """:func:`loss_and_grads` of this rank's share of the global ``batch``,
-  then the loss, the metrics and the gradients averaged over the mesh's
-  pod and data ranks: one all-reduce of the gradients packed flat, summed
-  in rank order (``Mesh.all_reduce``)."""
-  loss, metrics, grads = loss_and_grads(
-      cfg, params, shard_batch(batch, mesh), microbatches=microbatches,
-      causal_skip=causal_skip)
+  """:func:`loss_and_grads` of ``batch``, this rank's share of the global
+  batch (:func:`shard_batch`), under ``mesh`` (installed here with the
+  rules installed now), then the loss, the metrics and the gradients
+  averaged over the mesh's pod and data ranks: each leaf summed over the
+  (pod, data) axes its FSDP gather has not summed it over, packed flat by
+  those axes (one all-reduce for each set, summed in rank order,
+  ``Mesh.all_reduce``), then divided by the (pod, data) count."""
+  with shd.use_mesh(mesh, shd.current_rules()):
+    loss, metrics, grads = loss_and_grads(
+        cfg, params, batch, microbatches=microbatches,
+        causal_skip=causal_skip)
   axes = dp_axes(mesh)
   if not axes:
     return loss, metrics, grads
+  n = mesh.axis_size(axes)
   leaves = tree_leaves(grads)
-  flat = torch.cat([g.reshape(-1) for g in leaves]
-                   + [torch.stack([loss.float().reshape(()), *(
-                       metrics[k].float().reshape(()) for k in metrics)])])
-  flat = mesh.all_reduce(flat, axes, op="mean")
-  out, at = [], 0
-  for g in leaves:
-    out.append(flat[at:at + g.numel()].view_as(g))
-    at += g.numel()
-  tail = flat[at:]
+  cuts = opt_lib.leaf_cuts(grads)
+  tail = torch.stack([loss.float().reshape(()), *(
+      metrics[k].float().reshape(()) for k in metrics)])
+  groups: Dict[tuple, list] = {axes: []}
+  for i, c in enumerate(cuts):
+    fsdp = shd.fsdp_axes(c)
+    groups.setdefault(tuple(a for a in axes if a not in fsdp), []).append(i)
+  out = [None] * len(leaves)
+  for red, idx in groups.items():
+    parts = [leaves[i].reshape(-1) for i in idx]
+    if red == axes:
+      parts.append(tail)
+    flat = torch.cat(parts)
+    flat = (mesh.all_reduce(flat, red) if red else flat) / n
+    at = 0
+    for i in idx:
+      out[i] = flat[at:at + leaves[i].numel()].view_as(leaves[i])
+      at += leaves[i].numel()
+    if red == axes:
+      tail = flat[at:]
   it = iter(out)
   return (tail[0], {k: tail[1 + i] for i, k in enumerate(metrics)},
           tree_map(lambda _: next(it), grads))
@@ -138,8 +192,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: opt_lib.OptConfig, *,
                     mesh=None, causal_skip: bool = False):
   """Returns train_step(state, batch) -> (state', metrics) with metrics
   {"loss", "ce", "aux", "grad_norm", "lr"}.  With ``mesh`` (the port's
-  ``Mesh``; anything else raises ``TypeError``) ``batch`` is the global
-  batch and each rank steps on its share (see the module doc);
+  ``Mesh``; anything else raises ``TypeError``) ``batch`` is this rank's
+  share of the global batch (:func:`shard_batch`), and each rank steps on
+  it with its state whole or cut (see the module doc);
   ``compress_pods`` then quantises the cross-pod reduction of a mesh with
   a `pod` axis (its state needs ``err``: ``init_train_state(compress=
   True)``).  Without a mesh ``compress_pods`` does nothing, as in the
@@ -166,7 +221,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: opt_lib.OptConfig, *,
       state = {**state, "err": err}
     with torch.no_grad():
       new_params, new_opt, om = opt_lib.adamw_update(
-          grads, state["opt"], state["params"], opt_cfg)
+          grads, state["opt"], state["params"], opt_cfg, mesh=mesh)
     return ({**state, "params": new_params, "opt": new_opt},
             {"loss": loss, **metrics, **om})
 

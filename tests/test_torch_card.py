@@ -2409,3 +2409,30 @@ def test_cut_weights_on_the_card(cuda):
       assert {"flash_prefill", "segment_build",
               "fused_synopsis_score_attention", "block_gather_attention",
               "flash_decode"} <= launched, (arch, c["launches"])
+
+
+@pytest.mark.cuda
+def test_cut_train_step_on_the_card(cuda):
+  """A train step on a state cut by TRAIN_RULES on 2 ranks sharing the
+  card (SMOKE, f32): llama3-8b and deepseek-v2 (MLA, MoE) on a (model 2)
+  mesh (tensor-parallel) and a (data 2) mesh (FSDP).  On CUDA autograd
+  runs the backward, and each checkpointed layer's recompute, on a thread
+  of its own where no mesh is installed: the collectives' backwards keep
+  their mesh from the forward and the recompute runs under the mesh it
+  first ran under.  The assembled gradients and loss within 1e-4 of
+  max|ref| of the one-rank step (f32: sums in another order), the
+  parameters after the step within 1e-6 of the one-rank AdamW on the
+  assembled gradients; no kernel launched."""
+  del cuda
+  import torch_mesh_ranks
+  from repro_torch.dist import world
+  _build.build()
+  res = world.run_world(torch_mesh_ranks.card_train_world, 2,
+                        (("llama3-8b", "deepseek-v2-236b"),),
+                        device="cuda", timeout_s=300.0)
+  for r in res:
+    assert len(r["cases"]) == 4
+    for key, c in r["cases"].items():
+      assert c["loss"] <= 1e-4 and c["grads"] <= 1e-4, (r["rank"], key, c)
+      assert c["params"] <= 1e-6, (r["rank"], key, c)
+      assert not c["launched"], (key, c["launched"])

@@ -17,10 +17,13 @@ device.  No card: nothing is allocated and no kernel launches.
   M/n) f32 scores, synopsis only, and one of the (B_local, H, D+2)
   partials; on the serving cells' cut weights, ``_weight_collectives``:
   the query heads' all-gather, each row-cut product's all-reduce, the
-  vocab's, the router's, the SSM's and the FSDP gathers; a train step's
-  one all-reduce of the flat gradients), rank 0 and the last rank alike;
-  a serving cell's traced argument bytes equal to the rule tables' (its
-  weights cut), a train cell's whole; the CLI's line and the report.
+  vocab's, the router's, the SSM's and the FSDP gathers; a train step
+  on its cut state: the forward's and the backward's all-reduces, the
+  vocab-parallel loss's, the flat gradients' over `data`, the global
+  norm's, and an FSDP leaf's reduce-scatter of its gradient), rank 0 and
+  the last rank alike; every cell's traced argument bytes equal to the
+  rule tables' (its weights, or its train state, cut); the CLI's line and
+  the report.
 """
 import json
 import math
@@ -216,8 +219,7 @@ def _check_artifact(res, arch, shape_name, mode, multi):
   assert set(res["memory"]) == MEM_KEYS
   assert res["mesh"] == ("multi" if multi else "single")
   assert res["chips"] == (512 if multi else 256)
-  train = shape.kind == "train"
-  assert res["weights"] == ("whole" if train else "cut")
+  assert res["weights"] == "cut"
   assert res["card"] == roof.CARD
   c = cost.cell_cost(cfg, shape, res["mode"])
   r = res["roofline"]
@@ -230,13 +232,8 @@ def _check_artifact(res, arch, shape_name, mode, multi):
   assert r["bound_s"] == max(r["compute_s"], r["memory_s"],
                              r["collective_s"])
   assert r["model_flops"] == dr.model_flops(cfg, shape, mode)
-  m = res["memory"]
-  if train:
-    assert m["argument_size_in_bytes"] > cfg.param_count() * 2
-    assert 0 < res["argument_bytes_under_rules"] <= \
-        m["argument_size_in_bytes"]
-  else:                             # the rank's cut program
-    assert m["argument_size_in_bytes"] == res["argument_bytes_under_rules"]
+  m = res["memory"]                 # the rank's cut program
+  assert m["argument_size_in_bytes"] == res["argument_bytes_under_rules"]
   assert m["peak_bytes_per_device"] == (
       m["argument_size_in_bytes"] + m["output_size_in_bytes"]
       + m["temp_size_in_bytes"] - m["alias_size_in_bytes"])
@@ -417,25 +414,80 @@ def test_ranks_tally_alike():
       last["memory"]["argument_size_in_bytes"]
 
 
+def _padded(numel, n):
+  return -(-numel // n) * n
+
+
 @pytest.mark.parametrize("multi", [False, True])
 def test_train_cell(multi):
-  """smollm-135m's train step on its rank's rows: one all-reduce of the
-  flat f32 gradients (with the loss and two metrics) over the
-  data-parallel ranks, an all-to-all and an all-gather of its pieces; on
-  the multi-pod mesh the compressed cross-pod reduction adds its
-  all-gathers."""
+  """smollm-135m's train step on its rank's rows and its cut state (no
+  FSDP for a model this small: ``embed -> None``; its 9 heads whole over
+  16, its ff and vocab cut).  The all-reduces, each tallied as an
+  all-to-all of its padded operand and an all-gather of one piece: the
+  embedding lookup's, each layer's MLP partials' (the checkpoint's
+  recompute stops before it), and the backward's sums of each MLP
+  input's partial cotangent (bf16 (b, S, d)); per loss chunk the gold
+  logit's (f32 (b, 1024), again in the recompute) and the chunk input's
+  partial cotangent (bf16 (b, 1024, d)); the flat f32 gradients of the
+  rank's shards, with the loss and two metrics, over the data-parallel
+  ranks; the global norm's one scalar over `model`.  The all-gathers
+  besides: each chunk's logsumexp over the vocab's ranks (f32 (b, 1024),
+  again in the recompute); on the multi-pod mesh the compressed cross-pod
+  reduction's."""
   res = dr.run_cell("smollm-135m", "train_4k", multi, "auto")
   cfg = get_config("smollm-135m")
-  assert res["mode"] == "n/a" and res["microbatches"] >= 1
+  assert res["mode"] == "n/a" and res["microbatches"] == 1
   _check_artifact(res, "smollm-135m", "train_4k", "n/a", multi)
-  n = sum(math.prod(s) for _, s in cm.leaves(cm.param_shapes(cfg))) + 3
-  dp = 32 if multi else 16
-  padded = -(-n // dp) * dp
-  assert res["collectives"]["all-to-all"] == 4 * padded
+  mesh = dr.make_abstract_production_mesh(multi_pod=multi)
+  rules = dr.cell_rules(cfg, "train_4k", mesh)
+  assert rules["embed"] is None
+  shapes = dict(cm.leaves(cm.param_shapes(cfg)))
+  axes = dict(cm.leaves(cm.param_axes(cfg)))
+  n = sum(math.prod(shd.shard_shape(s, shd.mesh_axes_for(
+      axes[p], mesh, rules, shape=s), mesh)) for p, s in shapes.items())
+  dp, tp = (32 if multi else 16), 16
+  shape = shp.SHAPES["train_4k"]
+  b, S, d, L = shape.global_batch // dp, shape.seq_len, cfg.d_model, \
+      cfg.n_layers
+  chunks = S // 1024
+  reduces = ([(b * S * d, 2)] * (1 + 2 * L) + [(b * 1024, 4)] * (2 * chunks)
+             + [(b * 1024 * d, 2)] * chunks + [(1, 4)])
+  a2a = sum(_padded(m, tp) * es for m, es in reduces)
+  a2a += _padded(n + 3, dp) * 4
+  assert res["collectives"]["all-to-all"] == a2a
+  assert res["collectives"]["reduce-scatter"] == 0
+  gathers = sum(_padded(m, tp) // tp * es for m, es in reduces) \
+      + _padded(n + 3, dp) // dp * 4 + 2 * chunks * b * 1024 * 4
   if not multi:
-    assert res["collectives"]["all-gather"] == 4 * padded // dp
+    assert res["collectives"]["all-gather"] == gathers
   else:
-    assert res["collectives"]["all-gather"] > 4 * padded // dp
+    assert res["collectives"]["all-gather"] > gathers
+
+
+def test_train_cell_fsdp():
+  """llama3-8b's train step (``TRAIN_RULES``: FSDP over `data`, its
+  heads, ff and vocab over `model`): its traced argument bytes are the
+  rules' (the cut master, m and v), and each FSDP leaf's gathered
+  gradient is reduce-scattered once a step (the checkpoint's recompute
+  gathers again, but the backward runs through the first gather): the
+  bf16 bytes of every FSDP-cut leaf with its `data` cut undone, a layer's
+  slice of a stacked leaf once a layer."""
+  res = dr.run_cell("llama3-8b", "train_4k", False, "auto")
+  cfg = get_config("llama3-8b")
+  _check_artifact(res, "llama3-8b", "train_4k", "n/a", False)
+  mesh = dr.make_abstract_production_mesh()
+  rules = dr.cell_rules(cfg, "train_4k", mesh)
+  assert rules["embed"] == "data" and res["microbatches"] == 1
+  shapes = dict(cm.leaves(cm.param_shapes(cfg)))
+  axes = dict(cm.leaves(cm.param_axes(cfg)))
+  want = 0
+  for p, s in shapes.items():
+    spec = shd.mesh_axes_for(axes[p], mesh, rules, shape=s)
+    if not any(a == "embed" and e for a, e in zip(axes[p], spec)):
+      continue
+    local = shd.shard_shape(s, spec, mesh)
+    want += math.prod(local) * mesh.shape["data"] * 2      # bf16, whole
+  assert res["collectives"]["reduce-scatter"] == want > 0
 
 
 @pytest.mark.parametrize("multi", [False, True])
@@ -499,25 +551,19 @@ def test_cli_and_report(tmp_path, capsys):
   assert "mamba2-370m" in report.dryrun_table(cells)
   assert "mamba2-370m" in report.roofline_table(cells)
   assert d["weights"] == "cut"
-  # A train cell (weights whole) over the card waits on A.7d-ii when its
-  # traced new storage on top of the rules' argument bytes fits, and fits
-  # neither way otherwise; a serving cell over the card, its weights cut,
-  # waits on nothing.
-  m, card = d["memory"], d["card_memory_bytes"]
-  new = m["peak_bytes_per_device"] - m["argument_size_in_bytes"]
-  train = dict(d, shape="train_4k", weights="whole", fits_hbm=False)
+  # Every cell traces its cut program: the report names the cells whose
+  # traced peak does not fit, train and serving cells alike.
   a, b, c = (("a", "train_4k", "single", "n/a"),
              ("b", "train_4k", "single", "n/a"),
              ("c", "decode_32k", "single", "exact"))
-  over = {a: dict(train, argument_bytes_under_rules=card - new - 1),
-          b: dict(train, argument_bytes_under_rules=card - new),
-          c: dict(d, fits_hbm=False,
-                  argument_bytes_under_rules=card - new - 1)}
-  assert report.peak_with_rules_args(over[a]) == card - 1
-  assert report.waiting_on_a7d({**cells, **over}) == ([a], [b, c])
+  over = {a: dict(d, shape="train_4k", fits_hbm=False),
+          b: dict(d, shape="train_4k"),
+          c: dict(d, fits_hbm=False)}
+  assert report.over_card({**cells, **over}) == [a, c]
   text = report.summary({**cells, **over})
-  assert "train cells waiting on A.7d-ii (fit with the rules' argument " \
-      "bytes): a train_4k single n/a\n" in text
+  assert "(serving cells 1/2, train cells 1/2)" in text
+  assert text.endswith("do not fit 80 GB as traced: a train_4k single "
+                       "n/a, c decode_32k single exact")
 
 
 def test_memory_policies_scale_the_references_to_the_card():

@@ -277,7 +277,7 @@ def train_world(dense, moe):
   from repro_torch.train import compression as comp
   from repro_torch.train.optimizer import OptConfig
   from repro_torch.train.train_step import (make_train_step,
-                                            mesh_loss_and_grads)
+                                            mesh_loss_and_grads, shard_batch)
   mesh = shd.Mesh((2, 2), ("pod", "data"))
   out = {"coords": mesh.coords}
   cfg = _f32(dense["arch"])
@@ -288,8 +288,9 @@ def train_world(dense, moe):
                          compress_pods=True, mesh=mesh)
   metrics = []
   for tokens, labels in dense["batches"]:
-    state, m = step(state, {"tokens": torch.from_numpy(tokens),
-                            "labels": torch.from_numpy(labels)})
+    state, m = step(state, shard_batch({"tokens": torch.from_numpy(tokens),
+                                        "labels": torch.from_numpy(labels)},
+                                       mesh))
     metrics.append({k: float(v) for k, v in m.items()})
   out["state"], out["metrics"] = state, metrics
   grads = _tensors_tree(dense["psum"]["grads"])
@@ -298,8 +299,8 @@ def train_world(dense, moe):
   mcfg = _f32(moe["arch"])
   loss, mets, g = mesh_loss_and_grads(
       mcfg, _tensors_tree(moe["params"]),
-      {"tokens": torch.from_numpy(moe["tokens"]),
-       "labels": torch.from_numpy(moe["labels"])}, mesh)
+      shard_batch({"tokens": torch.from_numpy(moe["tokens"]),
+                   "labels": torch.from_numpy(moe["labels"])}, mesh), mesh)
   out["moe"] = {"loss": float(loss), "metrics": {k: float(v)
                                                  for k, v in mets.items()},
                 "grads": g}
@@ -517,4 +518,227 @@ def card_tp_world(archs):
     torch.cuda.synchronize()
     res["launches"] = {k: n for k, n in launches.items() if n}
     out["cases"][arch] = res
+  return out
+
+
+# -- the train step on a cut state ----------------------------------------------
+
+def _leaf_specs(tree, prefix=""):
+  """{path: spec} of a cut tree's leaves."""
+  out = {}
+  cuts = tree.get(shd.CUT_KEY, {})
+  for k, v in tree.items():
+    if k == shd.CUT_KEY:
+      continue
+    if isinstance(v, dict):
+      out.update(_leaf_specs(v, f"{prefix}{k}/"))
+    else:
+      out[f"{prefix}{k}"] = cuts[k].spec
+  return out
+
+
+def _train_state_of(case, cfg, compress):
+  from repro_torch.train import compression as comp
+  from repro_torch.train.optimizer import init_opt_state
+  params = _tensors_tree(case["params"])
+  state = {"params": params, "opt": init_opt_state(params)}
+  if compress:
+    state["err"] = comp.init_error_feedback(params)
+  return state
+
+
+def cut_train_world(shape, names, cases, ckpt_dir=None):
+  """A mesh of ``shape`` over ``names``: each case's SMOKE state (JAX's
+  init, the forward in the case's dtype) cut by ``shard_train_state``
+  under its rule table; the cut
+  gradients of the rank's share of the global batch
+  (``mesh_loss_and_grads``) and one cut
+  train step (``make_train_step``), each assembled whole
+  (``unshard_train_state``), with the shards' shapes and specs and the
+  collectives' tally.  With ``ckpt_dir``, the first case's state after
+  its step checkpointed whole (``launch.train.save_state``)."""
+  from repro_torch.launch import train as launch_train
+  from repro_torch.train import checkpoint as ck
+  from repro_torch.train.optimizer import OptConfig
+  from repro_torch.train.train_step import (make_train_step,
+                                            mesh_loss_and_grads, shard_batch,
+                                            shard_train_state,
+                                            unshard_train_state)
+  mesh = shd.Mesh(shape, names)
+  out = {"coords": mesh.coords, "cases": []}
+  for i, case in enumerate(cases):
+    cfg = dataclasses.replace(_f32(case["arch"]),
+                              dtype=getattr(torch, case["dtype"]))
+    rules = _rules("TRAIN_RULES", False)
+    rules["embed"] = case["embed"]
+    compress = case["compress"]
+    cut = shard_train_state(_train_state_of(case, cfg, compress), cfg, mesh,
+                            rules)
+    batch = shard_batch({k: torch.from_numpy(v)
+                         for k, v in case["batch"].items()}, mesh)
+    mesh.reset_stats()
+    loss, metrics, grads = mesh_loss_and_grads(
+        cfg, cut["params"], batch, mesh, microbatches=case["mb"])
+    stats = dict(mesh.stats)
+    step = make_train_step(cfg, OptConfig(**case["opt_cfg"]),
+                           microbatches=case["mb"], compress_pods=compress,
+                           mesh=mesh)
+    new, m = step(cut, batch)
+    res = {"loss": float(loss), "metrics": {k: float(v) for k, v in
+                                            metrics.items()},
+           "grads": shd.unshard_tree(grads, mesh), "stats": stats,
+           "state": unshard_train_state(new, mesh),
+           "step_metrics": {k: float(v) for k, v in m.items()},
+           "shapes": {part: _leaf_shapes(t) for part, t in (
+               ("params", new["params"]), ("m", new["opt"]["m"]),
+               ("v", new["opt"]["v"])) + ((("err", new["err"]),)
+                                          if compress else ())},
+           "specs": _leaf_specs(new["params"])}
+    if ckpt_dir is not None and i == 0:
+      saver = ck.AsyncCheckpointer()
+      launch_train.save_state(saver, ckpt_dir, 1, new, mesh)
+      saver.wait()
+    out["cases"].append(res)
+  return out
+
+
+def collective_grads_world(ops_in, trap, ckpt):
+  """(data 2, model 2) mesh: a scalar loss on every rank through each
+  autograd collective alone, its gradients returned (the test holds them
+  to the one-rank gradients); one cut train step's backward run on a
+  fresh thread with no mesh installed, against the same backward on the
+  calling thread; then a whole checkpoint restored onto (model 2), cut
+  there and gathered whole again."""
+  import threading
+  from repro_torch.models import transformer as tf
+  from repro_torch.train import checkpoint as ck
+  from repro_torch.train.optimizer import tree_leaves, tree_map
+  from repro_torch.train.train_step import (shard_batch, shard_train_state,
+                                            unshard_train_state)
+  mesh = shd.Mesh((2, 2), ("data", "model"))
+  d, m = mesh.index("data"), mesh.index("model")
+  t = {k: torch.from_numpy(v) for k, v in ops_in.items()}
+  out = {"rank": mesh.rank}
+  with shd.use_mesh(mesh, shd.TRAIN_RULES):
+    # A row-cut product: the partials' all-reduce.
+    w = t["w_rows"].chunk(2, 0)[m].clone().requires_grad_(True)
+    y = shd.all_reduce_over(t["x"].chunk(2, 1)[m] @ w, ("model",))
+    out["all_reduce"] = torch.autograd.grad((y * t["c"]).sum(), w)[0]
+    # The rank's columns, all-gathered over `model`.
+    w = t["w_cols"].chunk(2, 1)[m].clone().requires_grad_(True)
+    y = shd.all_gather_over(t["x"] @ w, ("model",), -1)
+    out["all_gather"] = torch.autograd.grad((y * y * t["c"]).sum(), w)[0]
+    # A replicated activation entering the rank's columns.
+    p = t["p"].clone().requires_grad_(True)
+    w = t["w_cols"].chunk(2, 1)[m].clone().requires_grad_(True)
+    y = shd.all_gather_over(torch.tanh(shd.enter(t["x"] * p, ("model",))
+                                       @ w), ("model",), -1)
+    out["enter"] = torch.autograd.grad((y * t["c"]).sum(), (p, w))
+    # An FSDP weight: each data rank's rows of the batch.
+    cut = shd.Cut(("embed", "ff"), ("data", None))
+    w = t["w_cols"].chunk(2, 0)[d].clone().requires_grad_(True)
+    wg, _ = shd.gather_fsdp(w, cut)
+    xr = t["xb"].chunk(2, 0)[d]
+    out["gather_fsdp"] = torch.autograd.grad(((xr @ wg) ** 2).sum(), w)[0]
+  # The device-thread trap: the backward where no mesh is installed.
+  cfg = _f32(trap["arch"])
+  state = shard_train_state(_train_state_of(trap, cfg, False), cfg, mesh,
+                            shd.TRAIN_RULES)
+  batch = shard_batch({k: torch.from_numpy(v) for k, v in
+                       trap["batch"].items()}, mesh)
+
+  def forward():
+    masters = tree_map(lambda x: x.detach().requires_grad_(True),
+                       state["params"])
+    with shd.use_mesh(mesh, shd.TRAIN_RULES):
+      loss, _ = tf.forward_loss(masters, cfg, batch["tokens"],
+                                batch["labels"])
+    return loss, tree_leaves(masters)
+  loss, leaves = forward()
+  here = torch.autograd.grad(loss, leaves)
+  loss, leaves = forward()
+  box = {}
+
+  def backward():
+    box["mesh"] = shd.current_mesh()
+    try:
+      box["grads"] = torch.autograd.grad(loss, leaves)
+    except BaseException as e:              # noqa: BLE001: reported
+      box["error"] = repr(e)
+  th = threading.Thread(target=backward)
+  th.start()
+  th.join()
+  out["trap"] = {"mesh_on_thread": box["mesh"], "error": box.get("error"),
+                 "equal": "grads" in box and all(
+                     torch.equal(a, b) for a, b in zip(here, box["grads"]))}
+  # A whole checkpoint restored onto (model 2), the first two ranks, and
+  # cut there by the rules.
+  line = shd.Mesh((2,), ("model",))
+  if line.member:
+    whole, step, _ = ck.restore(ckpt["dir"], ckpt["step"], device="cpu")
+    cut = shard_train_state(whole, _f32(ckpt["arch"]), line,
+                            shd.TRAIN_RULES)
+    out["restored"] = {"step": step,
+                       "state": unshard_train_state(cut, line),
+                       "specs": _leaf_specs(cut["params"])}
+  return out
+
+
+def card_train_world(archs):
+  """2 ranks sharing the card: each SMOKE config (f32, the port's own
+  random init) with its train state cut by TRAIN_RULES on a (model 2) and
+  a (data 2) mesh (tensor-parallel, then FSDP): one cut step's assembled
+  gradients and state against the one-rank step on the whole state (the
+  data shares as its microbatches), with the kernels each rank launched.
+  On CUDA autograd runs the backward, and each layer's recompute, on a
+  thread of its own, where no mesh is installed."""
+  from repro_torch.kernels import _build
+  from repro_torch.models.common import leaves
+  from repro_torch.train.data import DataConfig, TokenStream
+  from repro_torch.train.optimizer import OptConfig, adamw_update
+  from repro_torch.train.train_step import (init_train_state,
+                                            loss_and_grads, make_train_step,
+                                            mesh_loss_and_grads, shard_batch,
+                                            shard_train_state,
+                                            unshard_train_state)
+  dev = torch.device("cuda", torch.cuda.current_device())
+  torch.backends.cuda.matmul.allow_tf32 = False
+  meshes = {"model2": shd.Mesh((2,), ("model",)),
+            "data2": shd.Mesh((2,), ("data",))}
+  opt_cfg = OptConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+  out = {"rank": meshes["model2"].rank, "cases": {}}
+  for arch in archs:
+    cfg = _f32(arch)
+    whole = init_train_state(cfg, opt_cfg, device=dev,
+                             generator=torch.Generator(dev).manual_seed(0))
+    tokens, labels = TokenStream(DataConfig(cfg.vocab, 64, 4, seed=1)
+                                 ).batch_at(0)
+    batch = {"tokens": torch.from_numpy(tokens).to(dev),
+             "labels": torch.from_numpy(labels).to(dev)}
+    for label, mesh in meshes.items():
+      dp = mesh.shape.get("data", 1)
+      state = shard_train_state(whole, cfg, mesh, shd.TRAIN_RULES)
+      _build.reset_launches()
+      share = shard_batch(batch, mesh)
+      loss, _, grads = mesh_loss_and_grads(cfg, state["params"], share, mesh)
+      new, _ = make_train_step(cfg, opt_cfg, mesh=mesh)(state, share)
+      torch.cuda.synchronize()
+      launched = {k: n for k, n in _build.launch_counts().items() if n}
+      assembled = shd.unshard_tree(grads, mesh)
+      got_p = dict(leaves(unshard_train_state(new, mesh)["params"]))
+      l1, _, g1 = loss_and_grads(cfg, whole["params"], batch,
+                                 microbatches=dp)
+      # AdamW on one rank from the assembled gradients: only the global
+      # norm's order of summation differs.
+      with torch.no_grad():
+        ref_p, _, _ = adamw_update(assembled, whole["opt"], whole["params"],
+                                   opt_cfg)
+
+      def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+      got_g = dict(leaves(assembled))
+      out["cases"][(arch, label)] = {
+          "loss": rel(loss, l1), "launched": launched,
+          "grads": max(rel(got_g[p], g) for p, g in leaves(g1)),
+          "params": max(rel(got_p[p], x) for p, x in leaves(ref_p))}
   return out
