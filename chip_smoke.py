@@ -377,10 +377,17 @@ KERNEL_ROWS = {
     "fused_synopsis_score_attention": ("fused_synopsis_kernel",
                                        "latent_synopsis_kernel"),
     "block_gather_attention": ("block_gather_kernel",
-                               "latent_gather_kernel"),
-    "flash_decode": ("flash_decode_kernel",),   # latent_flash_decode_kernel
+                               "latent_gather_kernel", "latent_gather_wgmma",
+                               "latent_merge_kernel<true>"),
+    # flash_decode_kernel also matches latent_flash_decode_kernel
+    "flash_decode": ("flash_decode_kernel", "latent_flash_decode_wgmma",
+                     "latent_merge_kernel<false>"),
     "synopsis_score": ("synopsis_score_warp_kernel", "latent_score_kernel"),
 }
+# The second launch of a call of the latent core's tensor-core kernels
+# (the merge of their parts): its time is the call's, its launches are not
+# the wrapper's.
+MERGE_ROWS = ("latent_merge_kernel",)
 # L2 flush between the reps of a cold time: writing this many bytes
 # evicts the 50 MB L2, and reading them back then writes the dirty lines
 # out, so that the timed call pays for neither; neither kernel is a row of
@@ -441,7 +448,9 @@ def _device_ms(fn, names=None, reps=REPS, cold=False, floor_ms=0.0):
   a call shorter than its wrapper's host work.  A session may lose
   device records (it shows one launch fewer than were made, or none, only
   the host's launch rows): a kernel of ours, which a call launches once,
-  is timed over the launches the session recorded.  A library call may
+  is timed over the launches the session recorded (each row a launch,
+  times its launches a call: the latent core's tensor-core kernels add a
+  merge launch, MERGE_ROWS).  A library call may
   launch several kernels a call: each of its rows is timed over the
   launches it recorded, times its whole number of launches a call (its
   count over ``reps``, rounded).  Given ``floor_ms`` (the least time the
@@ -468,13 +477,15 @@ def _device_ms(fn, names=None, reps=REPS, cold=False, floor_ms=0.0):
             and e.self_device_time_total > 0
             and (any(n in e.key for n in names) if names
                  else not any(n in e.key for n in FLUSH_ROWS))]
-    launches = sum(e.count for e in rows)
+    launches = sum(e.count for e in rows
+                   if not any(n in e.key for n in MERGE_ROWS))
     if names is not None:
       if launches != reps:
         print(f"  [profiler] {launches} launches of {names} recorded for "
               f"{reps} calls")
-      if rows:
-        return sum(e.self_device_time_total for e in rows) / 1e3 / launches
+      if launches:  # each row's time a launch, times its launches a call
+        return sum(e.self_device_time_total / e.count
+                   * max(1, round(e.count / reps)) for e in rows) / 1e3
     elif rows:
       per_call = [max(1, round(e.count / reps)) for e in rows]
       ms = sum(e.self_device_time_total / e.count * k
@@ -1560,7 +1571,8 @@ def _profile_rows(fn, calls):
           if e.device_type != torch.autograd.DeviceType.CPU
           and e.self_device_time_total > 0]
   busy = sum(e.self_device_time_total for e in rows) / 1e3 / calls
-  per = {k: sum(e.count for e in rows if any(n in e.key for n in names))
+  per = {k: sum(e.count for e in rows if any(n in e.key for n in names)
+             and not any(n in e.key for n in MERGE_ROWS))
          / calls for k, names in KERNEL_ROWS.items()}
   ranges = [e.time_range for e in prof.events()
             if e.device_type != torch.autograd.DeviceType.CPU]
@@ -2511,7 +2523,8 @@ def _cluster_records(seen, dtype, *, G, C, sdpa, tag="[cluster]",
   against its plain version, timed beside its bound: bytes that this
   run's data needs (stage 1 the valid centroid rows, stage 2 the selected
   clusters' rows, through the fleet tier's row map where it has one).
-  Records keyed ``<kernel><tag>``."""
+  ``source``: {kernel: its source under csrc/} where it is not
+  CLUSTER_SOURCES'.  Records keyed ``<kernel><tag>``."""
   from repro_torch.kernels import ops, ref
   plain = {"fused_synopsis_score_attention":
                ref.fused_synopsis_score_attention_ref,
@@ -2560,7 +2573,7 @@ def _cluster_records(seen, dtype, *, G, C, sdpa, tag="[cluster]",
       lib = lambda: sdpa(q[:, :, None], ek, ev, attn_mask=mask,  # noqa
                          enable_gqa=True)
     src, line = CLUSTER_SOURCES[name]
-    src = source or src
+    src = (source or {}).get(name, src)
     r = _record(f"{name}{tag}", f"src/repro_torch/kernels/csrc/{src}",
                 f"src/repro/kernels/{line}", dtype, err,
                 lambda: kern(*args, **kw), lambda: plain[name](*args, **kw),
@@ -3616,7 +3629,7 @@ def check_mla_kernels(cfg, tag, dev, g):
       lambda: ref.fused_gather_attention_ref(q1, k, v, sel, **gkw),
       _nbytes(q1, sel, gkw["k_sel"], gkw["v_sel"], gkw["sel_bias"], ek, ev,
               eb, *got) + 2 * rows * D * k.element_size(),
-      4 * H * D * (rows + B * (I + ek.shape[2])), "latent_decode.cu",
+      4 * H * D * (rows + B * (I + ek.shape[2])), "latent_mma.cuh",
       "block_gather_attention.py:255", cold=True)
 
   # flash_decode: the exact loop's whole latent cache, and its self token.
@@ -3627,7 +3640,7 @@ def check_mla_kernels(cfg, tag, dev, g):
   lib = lambda: sdpa(q1b, k, v, enable_gqa=True, scale=sm)  # noqa: E731
   r = rec("flash_decode", err, lambda: flash_decode(q1, k, v, **kw),
           lambda: ref.flash_decode_ref(q1, k, v, **kw),
-          _nbytes(q1, k, v, *got), 4 * B * H * S * D, "latent_decode.cu",
+          _nbytes(q1, k, v, *got), 4 * B * H * S * D, "latent_mma.cuh",
           "flash_decode.py:125", cold=True, library_fn=lib)
   print(f"  [flash_decode{tag}] SDPA yardstick (the query rounded to bf16, "
         f"enable_gqa over the one latent head) takes the "
@@ -3698,9 +3711,12 @@ def check_mla_quant_kernels(cfg, tag, dev, g):
   over one latent head of 576 codes, stage 1 on one layer's tables (M =
   64), stage 2 over the 32 clusters stage 1 ranks first with the ring and
   the self token (E = 129, bf16) and f32 decrement rows, warm and
-  L2-cold.  Their bound: the bytes, or the operations at the f32 rate (the
-  query is f32, so every product is an f32 FMA; no library call scales
-  per cluster).  Returns the records, keyed ``<branch><tag>``."""
+  L2-cold.  Their bound: the bytes, or the operations the function needs
+  (4 H D a row), stage 1's at the f32 rate (its kernel runs every product
+  as an f32 FMA), stage 2's at the bf16 tensor rate (the card can run its
+  products on the tensor cores: the codes widen to bf16 exactly); no
+  library call scales per cluster.  Returns the records, keyed
+  ``<branch><tag>``."""
   from repro_torch.kernels import _build, ops, ref
   from repro_torch.kernels import quant as qt
   from repro_torch.kernels.block_gather_attention import (
@@ -3769,13 +3785,14 @@ def check_mla_quant_kernels(cfg, tag, dev, g):
                  *PARTIALS_TOL[bf16])
     n_rows = B * I * C
     recs[name] = _bound_share(_record(
-        name, src, "src/repro/kernels/block_gather_attention.py:255", f32,
+        name, "src/repro_torch/kernels/csrc/latent_mma.cuh",
+        "src/repro/kernels/block_gather_attention.py:255", bf16,
         err, lambda: gather(q1, *kv, sel, **gkw),
         lambda: ref.fused_gather_attention_ref(q1, *kv, sel, **gkw),
         _nbytes(q1, sel, gkw["k_sel"], gkw["v_sel"], gkw["sel_bias"], ek, ev,
                 eb, *got) + 2 * n_rows * D * kv[0].element_size()
         + 2 * B * I * 4, 4 * H * D * (n_rows + B * (I + ek.shape[2])),
-        cold=True), f32)
+        cold=True), bf16)
     del arena, kv, got
   return recs
 
@@ -5326,7 +5343,8 @@ def _tp_records(seen, cfg, tag):
   dtype = cfg.dtype
   sdpa = torch.nn.functional.scaled_dot_product_attention
   latent = cfg.mla is not None
-  src = "latent_decode.cu" if latent else None
+  src = ({"fused_synopsis_score_attention": "latent_decode.cu",
+          "block_gather_attention": "latent_mma.cuh"} if latent else None)
   q, k_syn = seen["fused_synopsis_score_attention"][0][:2]
   recs = _cluster_records(seen, dtype, G=q.shape[1] // k_syn.shape[1],
                           C=cfg.synopsis.cluster_size, sdpa=sdpa, tag=tag,
@@ -5368,10 +5386,14 @@ def _tp_records(seen, cfg, tag):
   err = _check(f"flash_decode{tag} S={S} H={H} Hkv={k.shape[1]} scaled",
                dtype, out, ref.flash_decode_ref(*args, **kw),
                *PARTIALS_TOL[dtype])
-  lib = (None if latent or args[3:4] != (None,) and len(args) > 3
-         else lambda: sdpa(q[:, :, None], k, v, enable_gqa=True))
+  # SDPA computes the same function (its math backend at the latent's D =
+  # 576, the f32 query rounded to the cache's bf16).
+  lib = (None if args[3:4] != (None,) and len(args) > 3
+         else lambda: sdpa(q.to(k.dtype)[:, :, None], k, v, enable_gqa=True,
+                           scale=kw.get("sm_scale")))
   r = _record(f"flash_decode{tag}",
-              f"src/repro_torch/kernels/csrc/{src or 'flash_decode.cu'}",
+              "src/repro_torch/kernels/csrc/"
+              + ("latent_mma.cuh" if latent else "flash_decode.cu"),
               "src/repro/kernels/flash_decode.py:125", dtype, err,
               lambda: ops.flash_decode(*args, **kw),
               lambda: ref.flash_decode_ref(*args, **kw),

@@ -52,6 +52,19 @@ LATENT = "latent"
 LATENT_HEAD_TILE = 16
 LATENT_TILE_ROWS = 16
 LATENT_BLOCKS_PER_SM = 2
+# The latent core's tensor-core kernels (csrc/latent_mma.cuh): flash_decode
+# on bf16 rows and block_gather on a bf16 / int8 / fp8 cache beside bf16
+# extras (f32 rows stay on the kernels above).  A block takes
+# LATENT_MMA_HEADS heads (one wgmma M tile) and tiles of LATENT_MMA_ROWS
+# rows, one block an SM (222 KB of shared memory at D = 576); a
+# flash_decode chunk is at least LATENT_MMA_MIN_CHUNK rows (a block's query
+# split costs about four tiles), and block_gather takes its extras in
+# chunks of at most LATENT_MMA_EXTRAS_ROWS rows (E = 129: one chunk beside
+# 32 clusters, 33 parts x 2 head tiles x B = 2 = 132 blocks).
+LATENT_MMA_HEADS = 64
+LATENT_MMA_ROWS = 16
+LATENT_MMA_MIN_CHUNK = 64
+LATENT_MMA_EXTRAS_ROWS = 256
 
 # Geometry of the decode core (csrc/decode_core.cuh) that the wrappers of
 # flash_decode, block_gather_attention and fused_synopsis_score_attention
@@ -98,9 +111,10 @@ SIGNATURES = {
     "flash_prefill_launch": [_P] * 4 + [_I] * 5 + [_F, _F, _I, _I, _P],
     "flash_decode_launch": [_P] * 11 + [_I] * 8 + [_F, _F, _I, _P],
     "synopsis_score_launch": [_P] * 3 + [_I] * 5 + [_F, _I, _P],
-    "flash_decode_latent_launch": [_P] * 11 + [_I] * 8 + [_F, _F, _I, _P],
-    "block_gather_latent_launch": [_P] * 20 + [_I] * 9 + [_F, _F] + [_I] * 3
-                                  + [_P],
+    "flash_decode_latent_launch": [_P] * 11 + [_I] * 8 + [_F, _F, _I, _I,
+                                                          _P],
+    "block_gather_latent_launch": [_P] * 20 + [_I] * 10 + [_F, _F]
+                                  + [_I] * 4 + [_P],
     "fused_synopsis_latent_launch": [_P] * 15 + [_I] * 6 + [_F, _F, _I, _P],
     "synopsis_score_latent_launch": [_P] * 3 + [_I] * 5 + [_F, _I, _P],
 }
@@ -380,6 +394,32 @@ def latent_chunk(S: int, blocks: int, sms: int) -> int:
                       -(-LATENT_BLOCKS_PER_SM * sms // blocks)))
   rows = -(-S // nsplit)
   return -(-rows // LATENT_TILE_ROWS) * LATENT_TILE_ROWS
+
+
+def latent_mma(*tensors) -> bool:
+  """Whether the latent core's rows (the K/V rows a kernel streams: the
+  cache and the extras, None where absent) go to its tensor-core kernels:
+  bf16 rows or a quantized arena's int8 / fp8 codes beside bf16 extras.
+  f32 rows anywhere keep the CUDA-core kernels."""
+  import torch  # noqa: PLC0415
+  return all(t.dtype in (torch.bfloat16, torch.int8, torch.float8_e4m3fn)
+             for t in tensors if t is not None)
+
+
+def latent_mma_tiles(G: int) -> int:
+  """Head tiles of the latent core's tensor-core kernels for a group of
+  G."""
+  return -(-G // LATENT_MMA_HEADS)
+
+
+def latent_mma_chunk(S: int, groups: int, sms: int) -> int:
+  """Rows per block of the tensor-core flash_decode over S rows, with
+  ``groups`` blocks for each chunk (B * Hkv * head tiles): chunks of at
+  least LATENT_MMA_MIN_CHUNK rows, at most one wave of one block an SM,
+  whole tiles of LATENT_MMA_ROWS rows."""
+  nsplit = max(1, min(-(-S // LATENT_MMA_MIN_CHUNK), sms // groups))
+  rows = -(-S // nsplit)
+  return -(-rows // LATENT_MMA_ROWS) * LATENT_MMA_ROWS
 
 
 def check_aligned(name: str, *tensors) -> None:

@@ -37,10 +37,10 @@ NAME = "block_gather_attention"
 EXTRAS_ROWS = 128
 
 
-def _parts(I: int, E: int, has_ext: bool):
+def _parts(I: int, E: int, has_ext: bool, most: int = EXTRAS_ROWS):
   """(rows of an extras chunk, parts): one part a selected cluster, one an
-  extras chunk of at most EXTRAS_ROWS rows."""
-  xrows = -(-E // -(-E // EXTRAS_ROWS)) if E else 1
+  extras chunk of at most ``most`` rows."""
+  xrows = -(-E // -(-E // most)) if E else 1
   return xrows, I + (-(-E // xrows) if has_ext else 0)
 
 
@@ -149,12 +149,15 @@ def _row_map(rows, q):
 
 def _latent(q, k, v, selected, C, sm_scale, cap, k_sel, v_sel, sel_bias,
             extras_k, extras_v, extras_bias, kv_k_scale, kv_v_scale, rmap):
-  """The latent core's stage 2 (``csrc/latent_decode.cuh``): an f32 query
-  of up to 128 heads; the cache f32 or bf16, or a quantized arena's int8 /
-  fp8 codes with one f32 scale per cluster block (``has_kq``); the extras
-  f32 or bf16 (the cache's type when it is unquantized); the decrement rows
-  the cache's type or f32 (f32 beside a quantized cache).  The grid is
-  (parts, head tiles of 16, B * Hkv)."""
+  """The latent core's stage 2: an f32 query of up to 128 heads; the cache
+  f32 or bf16, or a quantized arena's int8 / fp8 codes with one f32 scale
+  per cluster block (``has_kq``); the extras f32 or bf16 (the cache's type
+  when it is unquantized); the decrement rows the cache's type or f32 (f32
+  beside a quantized cache).  A bf16 / int8 / fp8 cache beside bf16 extras
+  (or none) goes to the tensor cores (``csrc/latent_mma.cuh``: grid
+  (parts, head tiles of 64, B * Hkv), the extras in chunks of at most
+  LATENT_MMA_EXTRAS_ROWS, the parts merged by a second launch); f32 rows
+  to the CUDA cores (``csrc/latent_decode.cuh``: head tiles of 16)."""
   B, H, D = q.shape
   _, Hkv, S, _ = k.shape
   G, I = H // Hkv, selected.shape[-1]
@@ -182,7 +185,9 @@ def _latent(q, k, v, selected, C, sm_scale, cap, k_sel, v_sel, sel_bias,
   f32 = dict(dtype=torch.float32, device=q.device)
   sb = sel_bias.to(**f32).contiguous() if has_dec else None
   eb = extras_bias.to(**f32).contiguous() if has_ext else None
-  xrows, nparts = _parts(I, E, has_ext)
+  mma = _build.latent_mma(k, extras_k)
+  xrows, nparts = _parts(I, E, has_ext, _build.LATENT_MMA_EXTRAS_ROWS
+                         if mma else EXTRAS_ROWS)
   o = torch.empty((B, H, D), **f32)
   m = torch.empty((B, H), **f32)
   l = torch.empty((B, H), **f32)
@@ -194,8 +199,9 @@ def _latent(q, k, v, selected, C, sm_scale, cap, k_sel, v_sel, sel_bias,
   err = _build.library().block_gather_latent_launch(
       P(q), P(k), P(v), P(sel), P(k_sel), P(v_sel), P(sb), P(extras_k),
       P(extras_v), P(eb), P(kq), P(vq), P(rmap), P(o), P(m), P(l),
-      *map(P, part), B, Hkv, G, S, D, C, I, E, xrows, float(sm_scale),
-      float(cap or 0.0), code, storage, dec, _build.stream_ptr(q))
+      *map(P, part), B, k.shape[0], Hkv, G, S, D, C, I, E, xrows,
+      float(sm_scale), float(cap or 0.0), code, storage, dec, int(mma),
+      _build.stream_ptr(q))
   _build.check(err, NAME)
   _build.LAUNCHES[_build.branch(NAME, _build.latent_branch(
       qt.kind_of(k.dtype) if quantized else "none"))] += 1

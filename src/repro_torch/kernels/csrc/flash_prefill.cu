@@ -452,48 +452,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (the library
-// is not linked against libcuda); null if the driver lacks it.
-static EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A bf16 tensor map of `rank` dims (innermost first; strides in bytes of
-// dims 1..rank-1), box `box`, swizzle `swz`.
-static bool encode(CUtensorMap* map, const void* ptr, int rank,
-                   const cuuint64_t* dims, const cuuint64_t* strides,
-                   const cuuint32_t* box, CUtensorMapSwizzle swz) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
-            const_cast<void*>(ptr), dims, strides, box, ones,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 static int launch(const void* q, const void* k, const void* v, void* out,
                   int B, int S, int H, int Hkv, float sm_scale, float cap,
@@ -517,9 +475,9 @@ static int launch(const void* q, const void* k, const void* v, void* out,
                               (cuuint64_t)S * Hkv * D * e};
   const cuuint32_t kbox[4] = {(cuuint32_t)C::W, 1, (cuuint32_t)C::BN, 1};
   const CUtensorMapSwizzle swz = Swizzle<C::SWB>::tma;
-  if (!encode(&tm_q, q, 5, qdims, qstr, qbox, swz) ||
-      !encode(&tm_k, k, 4, kdims, kstr, kbox, swz) ||
-      !encode(&tm_v, v, 4, kdims, kstr, kbox, swz))
+  if (!encode_map(&tm_q, q, 5, qdims, qstr, qbox, swz) ||
+      !encode_map(&tm_k, k, 4, kdims, kstr, kbox, swz) ||
+      !encode_map(&tm_v, v, 4, kdims, kstr, kbox, swz))
     return (int)cudaErrorInvalidValue;
   auto kernel = cap > 0.f ? flash_prefill_wgmma<D, true>
                           : flash_prefill_wgmma<D, false>;

@@ -21,18 +21,21 @@
 //    centroid rows, looping over the head tiles with each row's running
 //    max; no cross-block reduction.
 //
-// What bounds them: operations, ~128 flops a byte of bf16 latent at G =
-// 128 (flash_decode over (2, 1, 8192, 576): 37.7 MB, 4.83 GFLOP), done in
-// f32 on the CUDA cores because the query is f32 (the reference's einsum
+// What bounds them on the CUDA cores: operations, ~128 flops a byte of
+// latent at G = 128 (flash_decode over (2, 1, 8192, 576): 37.7 MB in bf16,
+// 4.83 GFLOP), done in f32 because the query is f32 (the reference's einsum
 // prefers f32; rounding it to bf16 would be a different result).  q is
 // f32; K, V, the extras and the tables are f32 or bf16 alike (TK); stage
-// 2's decrement rows TK or f32.  Stage 1 and stage 2 also read a quantized
+// 2's decrement rows TK or f32.  The C entry points send flash_decode's
+// bf16 rows, and block_gather's bf16 / int8 / fp8 cache beside bf16 extras
+// (or none), to the tensor-core kernels of latent_mma.cuh instead; f32
+// rows stay here.  Stage 1 and stage 2 also read a quantized
 // arena's int8 / fp8 codes with their scales (latent_decode.cuh: the
 // Pallas kernels' `has_scale` and `has_kq` branches; the extras and the
 // decrement rows stay f32 / bf16), and stage 2 takes the fleet tier's row
 // map; their kernels are templates in latent_decode.cuh, and this file
 // holds the C entry points with the unquantized instantiations.
-#include "latent_decode.cuh"
+#include "latent_mma.cuh"
 
 // The quantized instantiations of stage 1 and stage 2 (int8 / fp8 codes
 // with their scales), compiled in latent_decode_int8.cu and
@@ -40,12 +43,19 @@
 #define LATENT_QUANT_EXTERN(TK)                                              \
   extern template int latent_gather_launch<TK, float>(                       \
       const LatentGatherArgs&, int, int, cudaStream_t);                      \
-  extern template int latent_gather_launch<TK, __nv_bfloat16>(               \
-      const LatentGatherArgs&, int, int, cudaStream_t);                      \
   extern template int latent_synopsis_launch<TK>(const LatentSynopsisArgs&,  \
                                                  int, int, cudaStream_t);
 LATENT_QUANT_EXTERN(int8_t)
 LATENT_QUANT_EXTERN(__nv_fp8_e4m3)
+// The tensor-core stage 2, compiled in latent_mma{,_int8,_fp8}.cu.
+extern template int lm::gather_launch<__nv_bfloat16>(const LatentGatherArgs&,
+                                                     int, int, int,
+                                                     cudaStream_t);
+extern template int lm::gather_launch<int8_t>(const LatentGatherArgs&, int,
+                                              int, int, cudaStream_t);
+extern template int lm::gather_launch<__nv_fp8_e4m3>(const LatentGatherArgs&,
+                                                     int, int, int,
+                                                     cudaStream_t);
 
 using lc::HT;
 using lc::THREADS;
@@ -137,38 +147,41 @@ static int fd_launch(const float* q, const void* k, const void* v,
   })
 }
 
-// q f32 (B, Hkv * G, D); kv_dtype: 0 = float32, 1 = bfloat16 (k, v); bias
-// (B, Hkv, S) or NULL; k and v share their strides (rows D apart, heads
-// kv_sh, batches kv_sb elements).  o_part (B*H, nsplit, D), m_part /
-// l_part (B*H, nsplit): scratch for nsplit = ceil(S / chunk) > 1, with
+// q f32 (B, Hkv * G, D); kv_dtype: 0 = float32, 1 = bfloat16 (k, v);
+// bias (B, Hkv, S) or NULL; k and v share their strides (rows D apart,
+// heads kv_sh, batches kv_sb elements).  mma: 1 = the tensor-core kernel
+// (bf16 rows), 0 = the CUDA cores' (f32 rows); the wrapper chooses, and
+// sizes `chunk` for its choice.  o_part (B*H, nsplit, D), m_part / l_part
+// (B*H, nsplit): scratch for nsplit = ceil(S / chunk) > 1, with (mma 0)
 // tickets (B * Hkv * head tiles) zeroed counters the kernel leaves zeroed.
 extern "C" int flash_decode_latent_launch(
     const float* q, const void* k, const void* v, const float* bias, float* o,
     float* m, float* l, float* o_part, float* m_part, float* l_part,
     unsigned* tickets, int B, int Hkv, int G, int S, int D, int chunk,
-    int kv_sb, int kv_sh, float sm_scale, float cap, int kv_dtype,
+    int kv_sb, int kv_sh, float sm_scale, float cap, int kv_dtype, int mma,
     void* stream) {
-  if (G < 1 || G > lc::GMAX || S < 1 || chunk < 1)
+  if (G < 1 || G > lc::GMAX || S < 1 || chunk < 1 ||
+      kv_dtype != (mma ? 1 : 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (kv_dtype == 1)
-    return fd_launch<__nv_bfloat16>(q, k, v, bias, o, m, l, o_part, m_part,
-                                    l_part, tickets, B, Hkv, G, S, D, chunk,
-                                    kv_sb, kv_sh, sm_scale, cap, st);
-  if (kv_dtype == 0)
-    return fd_launch<float>(q, k, v, bias, o, m, l, o_part, m_part, l_part,
-                            tickets, B, Hkv, G, S, D, chunk, kv_sb, kv_sh,
-                            sm_scale, cap, st);
-  return (int)cudaErrorInvalidValue;
+  if (mma)
+    return lm::decode_launch(
+        lm::DecodeArgs{q, bias, o, m, l, o_part, m_part, l_part, Hkv, G, S,
+                       chunk, sm_scale, cap},
+        k, v, B, D, kv_sb, kv_sh, st);
+  return fd_launch<float>(q, k, v, bias, o, m, l, o_part, m_part, l_part,
+                          tickets, B, Hkv, G, S, D, chunk, kv_sb, kv_sh,
+                          sm_scale, cap, st);
 }
 
-template <typename TE>
-static int bg_storage(const LatentGatherArgs& a, int B, int D, int kv_dtype,
-                      int storage, cudaStream_t st) {
-  if (storage == kv_dtype) return latent_gather_launch<TE, TE>(a, B, D, st);
-  if (storage == 2) return latent_gather_launch<int8_t, TE>(a, B, D, st);
+// The CUDA cores' stage 2: an f32 cache, or int8 / fp8 codes beside f32
+// extras.
+static int bg_f32(const LatentGatherArgs& a, int B, int D, int storage,
+                  cudaStream_t st) {
+  if (storage == 0) return latent_gather_launch<float, float>(a, B, D, st);
+  if (storage == 2) return latent_gather_launch<int8_t, float>(a, B, D, st);
   if (storage == 3)
-    return latent_gather_launch<__nv_fp8_e4m3, TE>(a, B, D, st);
+    return latent_gather_launch<__nv_fp8_e4m3, float>(a, B, D, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -176,33 +189,40 @@ static int bg_storage(const LatentGatherArgs& a, int B, int D, int kv_dtype,
 // k / v's type (kv_dtype's, or 2 = int8, 3 = fp8 e4m3 codes with
 // kv_k_scale / kv_v_scale (B, Hkv, S / C) f32); dec_dtype: k_sel / v_sel's
 // (kv_dtype's, or 0 = float32; 0 with a quantized cache).  rows: (B) the
-// cache row of each batch row in k / v's leading axis, or NULL (the
-// identity).  k_sel == NULL: no decrement; ek == NULL: no extras, else
-// ceil(E / xrows) chunks of xrows rows.  Outputs and scratch as
-// flash_decode_latent_launch's, with nparts = I + extras chunks.
+// cache row of each batch row in k / v's leading axis (of Bk rows), or
+// NULL (the identity).  k_sel == NULL: no decrement; ek == NULL: no extras,
+// else ceil(E / xrows) chunks of xrows rows.  Outputs and scratch as
+// flash_decode_latent_launch's, with nparts = I + extras chunks.  mma: 1 =
+// the tensor cores (a bf16, int8 or fp8 cache beside bf16 extras or none),
+// 0 = the CUDA cores (f32 rows); the wrapper chooses, and sizes xrows for
+// its choice.
 extern "C" int block_gather_latent_launch(
     const float* q, const void* k, const void* v, const int* selected,
     const void* k_sel, const void* v_sel, const float* sel_bias,
     const void* ek, const void* ev, const float* eb, const float* kv_k_scale,
     const float* kv_v_scale, const int* rows, float* o, float* m, float* l,
     float* o_part, float* m_part, float* l_part, unsigned* tickets, int B,
-    int Hkv, int G, int S, int D, int C, int I, int E, int xrows,
+    int Bk, int Hkv, int G, int S, int D, int C, int I, int E, int xrows,
     float sm_scale, float cap, int kv_dtype, int storage, int dec_dtype,
-    void* stream) {
+    int mma, void* stream) {
   const bool quant = storage >= 2;
   if (G < 1 || G > lc::GMAX || C < 1 || S % C || I < 1 || xrows < 1 ||
       quant != (kv_k_scale != nullptr && kv_v_scale != nullptr) ||
-      (k_sel != nullptr && dec_dtype != 0 && (quant || dec_dtype != kv_dtype)))
+      (k_sel != nullptr && dec_dtype != 0 && (quant || dec_dtype != kv_dtype))
+      || (ek != nullptr && kv_dtype != (mma ? 1 : 0)))
     return (int)cudaErrorInvalidValue;
   const LatentGatherArgs a{q, k, v, selected, k_sel, v_sel, sel_bias, ek,
                            ev, eb, kv_k_scale, kv_v_scale, rows, o, m, l,
                            o_part, m_part, l_part, tickets, Hkv, G, S, C, I,
                            E, xrows, sm_scale, cap, dec_dtype == 0};
   cudaStream_t st = (cudaStream_t)stream;
-  if (kv_dtype == 1)
-    return bg_storage<__nv_bfloat16>(a, B, D, kv_dtype, storage, st);
-  if (kv_dtype == 0) return bg_storage<float>(a, B, D, kv_dtype, storage, st);
-  return (int)cudaErrorInvalidValue;
+  if (!mma) return bg_f32(a, B, D, storage, st);
+  switch (storage) {
+    case 1: return lm::gather_launch<__nv_bfloat16>(a, B, Bk, D, st);
+    case 2: return lm::gather_launch<int8_t>(a, B, Bk, D, st);
+    case 3: return lm::gather_launch<__nv_fp8_e4m3>(a, B, Bk, D, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // q f32; kv_dtype: the tables' type (0 = float32, 1 = bfloat16, 2 = int8,

@@ -121,10 +121,12 @@ def flash_decode(
 
 
 def _latent(q, k, v, bias, sm_scale, cap):
-  """The latent core's flash_decode (``csrc/latent_decode.cu``): an f32
-  query of up to 128 heads over one wide K/V head (MLA's absorbed decode),
-  K/V f32 or bf16, with the same strides and partials as above; the grid
-  is (chunks of S, head tiles of 16, B * Hkv)."""
+  """The latent core's flash_decode: an f32 query of up to 128 heads over
+  one wide K/V head (MLA's absorbed decode), with the same strides and
+  partials as above.  bf16 K/V go to the tensor cores
+  (``csrc/latent_mma.cuh``: grid (chunks of S, head tiles of 64, B *
+  Hkv), the chunks merged by a second launch), f32 K/V to the CUDA cores
+  (``csrc/latent_decode.cu``: head tiles of 16, a ticketed merge)."""
   B, H, D = q.shape
   _, Hkv, S, _ = k.shape
   G = H // Hkv
@@ -133,8 +135,13 @@ def _latent(q, k, v, bias, sm_scale, cap):
   f32 = dict(dtype=torch.float32, device=q.device)
   if bias is not None:
     bias = bias.to(**f32).contiguous()
-  chunk = _build.latent_chunk(
-      S, B * Hkv * _build.latent_tiles(G), _build.sm_count(q.device))
+  mma = _build.latent_mma(k)
+  if mma:
+    chunk = _build.latent_mma_chunk(
+        S, B * Hkv * _build.latent_mma_tiles(G), _build.sm_count(q.device))
+  else:
+    chunk = _build.latent_chunk(
+        S, B * Hkv * _build.latent_tiles(G), _build.sm_count(q.device))
   nsplit = -(-S // chunk)
   o = torch.empty((B, H, D), **f32)
   m = torch.empty((B, H), **f32)
@@ -147,7 +154,7 @@ def _latent(q, k, v, bias, sm_scale, cap):
   err = _build.library().flash_decode_latent_launch(
       P(q), P(k), P(v), P(bias), P(o), P(m), P(l), *map(P, part), B, Hkv,
       G, S, D, chunk, kv_sb, kv_sh, float(sm_scale), float(cap or 0.0), code,
-      _build.stream_ptr(q))
+      int(mma), _build.stream_ptr(q))
   _build.check(err, NAME)
   _build.LAUNCHES[_build.branch(NAME, _build.LATENT)] += 1
   return o, m, l

@@ -837,6 +837,134 @@ def test_card_latent_core_refuses_what_it_does_not_take(cuda):
   assert _build.launch_counts() == before
 
 
+# The latent core's tensor-core kernels (csrc/latent_mma.cuh): bf16 rows,
+# and int8 / fp8 codes beside bf16 extras; head tiles of 64, 16-row tiles,
+# a merge launch after more than one part.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,G,S", [(2, 100, 1), (2, 100, 10), (2, 100, 300),
+                                   (2, 128, 10), (2, 128, 8192),
+                                   (1, 128, 512)])
+@pytest.mark.parametrize("bias_kind,cap", [(None, None), ("masked", 30.0)])
+def test_card_latent_mma_decode_edges(cuda, B, G, S, bias_kind, cap):
+  """The tensor-core flash_decode at its geometry's edges, bf16 rows of
+  576: a last head tile of 36 live heads (G = 100), S below one 16-row
+  tile (1, 10) and ragged (300), one chunk (S = 1, 10) against many (300,
+  8192: their parts merged by the second launch), and the cut serving
+  path's shard (B = 1, S = 512: [tp-mla]); the latent tests' tolerance."""
+  g = torch.Generator().manual_seed(140 + G + S)
+  D = 576
+  q = _latent_q(g, B, G, D).to(cuda)
+  k, v = _to(cuda, torch.bfloat16, _rand(g, B, 1, S, D), _rand(g, B, 1, S, D))
+  bias = None
+  if bias_kind is not None:
+    bias = torch.log(torch.randint(1, 129, (B, 1, S), generator=g).float())
+    bias[torch.rand((B, 1, S), generator=g) < 0.3] = NEG_INF
+    bias = bias.to(cuda)
+  kw = dict(sm_scale=192 ** -0.5, cap=cap)
+  key = _build.branch("flash_decode", LATENT)
+  n0 = _build.LAUNCHES[key]
+  got = flash_decode(q, k, v, bias, **kw)
+  torch.cuda.synchronize()
+  assert _build.LAUNCHES[key] == n0 + 1
+  for a, b in zip(got, ref.flash_decode_ref(q, k, v, bias, **kw)):
+    assert torch.isfinite(a).all()
+    _close(a, b, TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["none", "int8", "fp8"])
+@pytest.mark.parametrize("case", ["dec_extras", "padded", "all_padded"])
+def test_card_latent_mma_gather_last_tile(cuda, kind, case):
+  """The tensor-core stage 2 at G = 100 (a last head tile of 36 live
+  heads) on a bf16 cache and on int8 / fp8 codes with one scale per
+  cluster block, bf16 extras, against the plain version."""
+  C, I = (128, 32) if case == "dec_extras" else (16, 3)
+  q, k, v, sel, C, kw = _gather_inputs(case, (I + 2) * C, D=576, C=C, I=I,
+                                       G=100, Hkv=1, E=129, seed=I + C)
+  q = (q * (576 ** -0.5) * 3.0).to(cuda)
+  bf = ("extras_k", "extras_v") + (("k_sel", "v_sel") if kind == "none"
+                                   else ())
+  kw = {n: t.to(device=cuda, dtype=torch.bfloat16 if n in bf else t.dtype)
+        for n, t in kw.items()}
+  if kind == "none":
+    k, v = _to(cuda, torch.bfloat16, k, v)
+  else:
+    k, ks = qt.quantize_rows(k, kind, block=C)
+    v, vs = qt.quantize_rows(v, kind, block=C)
+    k, v = k.to(cuda), v.to(cuda)
+    kw.update(kv_k_scale=ks.to(cuda), kv_v_scale=vs.to(cuda))
+  opts = dict(cluster_size=C, sm_scale=192 ** -0.5, cap=30.0)
+  key = _build.branch("block_gather_attention", _build.latent_branch(kind))
+  n0 = _build.LAUNCHES[key]
+  got = block_gather_attention(q, k, v, sel.to(cuda), **opts, **kw)
+  torch.cuda.synchronize()
+  assert _build.LAUNCHES[key] == n0 + 1
+  want = ref.fused_gather_attention_ref(q, k, v, sel.to(cuda), **opts, **kw)
+  for a, b in zip(got, want):
+    assert torch.isfinite(a).all()
+    _close(a, b, TOL[torch.bfloat16])
+
+
+def _device_kernels(fn):
+  """The names of the device kernels one call of ``fn`` launches."""
+  from torch.profiler import ProfilerActivity, profile
+  fn()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    fn()
+    torch.cuda.synchronize()
+  return {e.key for e in prof.key_averages()
+          if e.device_type != torch.autograd.DeviceType.CPU}
+
+
+@pytest.mark.cuda
+def test_card_latent_rows_choose_the_kernel(cuda):
+  """bf16 rows, and int8 / fp8 codes beside bf16 extras, launch the
+  tensor-core kernels; f32 rows, and codes beside f32 extras, the CUDA-core
+  ones.  Both count under the latent branch keys; the profiler's kernel
+  names tell them apart."""
+  g = torch.Generator().manual_seed(150)
+  B, G, D, S = 2, 128, 576, 512
+  q = _latent_q(g, B, G, D).to(cuda)
+  k0, v0 = _rand(g, B, 1, S, D), _rand(g, B, 1, S, D)
+  new, old = "latent_flash_decode_wgmma", "latent_flash_decode_kernel"
+  for dtype, want, other in ((torch.bfloat16, new, old),
+                             (torch.float32, old, new)):
+    k, v = _to(cuda, dtype, k0, v0)
+    key = _build.branch("flash_decode", LATENT)
+    n0 = _build.LAUNCHES[key]
+    names = _device_kernels(lambda: flash_decode(q, k, v, sm_scale=0.07))
+    assert _build.LAUNCHES[key] == n0 + 2
+    assert any(want in n for n in names), (dtype, names)
+    assert not any(other in n for n in names), (dtype, names)
+  C, I = 128, 2
+  sel = torch.tensor([[[0, 2]], [[3, 1]]], dtype=torch.int32, device=cuda)
+  ek, ev = _rand(g, B, 1, 129, D), _rand(g, B, 1, 129, D)
+  eb = torch.zeros((B, 129), device=cuda)
+  new, old = "latent_gather_wgmma", "latent_gather_kernel"
+  for kind in ("none", "int8", "fp8"):
+    for xtype, want, other in ((torch.bfloat16, new, old),
+                               (torch.float32, old, new)):
+      kw = dict(cluster_size=C, sm_scale=0.07, extras_k=ek.to(cuda, xtype),
+                extras_v=ev.to(cuda, xtype), extras_bias=eb)
+      if kind == "none":
+        k, v = _to(cuda, xtype, k0, v0)
+      else:
+        k, ks = qt.quantize_rows(k0, kind, block=C)
+        v, vs = qt.quantize_rows(v0, kind, block=C)
+        k, v = k.to(cuda), v.to(cuda)
+        kw.update(kv_k_scale=ks.to(cuda), kv_v_scale=vs.to(cuda))
+      key = _build.branch("block_gather_attention",
+                          _build.latent_branch(kind))
+      n0 = _build.LAUNCHES[key]
+      names = _device_kernels(
+          lambda: block_gather_attention(q, k, v, sel, **kw))
+      assert _build.LAUNCHES[key] == n0 + 2
+      assert any(want in n for n in names), (kind, xtype, names)
+      assert not any(other in n for n in names), (kind, xtype, names)
+
+
 @pytest.mark.cuda
 def test_card_wrappers_refuse_what_the_kernels_do_not_take(cuda):
   q, k, v = _to(cuda, torch.float16, *_prefill_inputs((1, 64, 2, 2, 16)))

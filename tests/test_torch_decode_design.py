@@ -38,7 +38,13 @@ softmax and the scores) and a chunk of ``latent_chunk`` rows in tiles of
 ``LATENT_TILE_ROWS``, each head's online softmax its own; the chunks of a
 (b, hkv, head tile) merge as the ticketed merge does, and stage 1's
 scores are each tile's max over its live heads, then the max across the
-tiles (the kernel's second ticket).
+tiles (the kernel's second ticket).  The latent core's tensor-core
+kernels (``csrc/latent_mma.cuh``: bf16 flash_decode, stage 2 on a bf16 /
+int8 / fp8 cache) are emulated last: head tiles of ``LATENT_MMA_HEADS``,
+chunks of ``latent_mma_chunk`` rows in tiles of ``LATENT_MMA_ROWS``, the
+query and P each as bf16 hi + lo with the products summed in f32, the
+logits as the three warpgroups' thirds of the k steps; held against the
+plain versions and, at SMOKE size, the Pallas kernels.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -754,3 +760,280 @@ def test_latent_stage1_design_matches_plain(G, D, M):
   _close(scores, want_scores)
   for got, want in zip(part, want_part):
     _close(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The latent core's tensor-core kernels (csrc/latent_mma.cuh): flash_decode
+# on bf16 rows, block_gather on a bf16 / int8 / fp8 cache beside bf16
+# extras.  A block takes LATENT_MMA_HEADS heads and tiles of
+# LATENT_MMA_ROWS rows; the query and P go into the products as two bf16
+# halves each, the products (exact in f32) summed in f32; the logits are
+# the three warpgroups' thirds of the k steps, added (S_0 + S_1) + S_2.
+# ---------------------------------------------------------------------------
+
+def _bf16_split(x):
+  """x = hi + lo with hi = bf16(x), lo = bf16(x - hi), as f32 values."""
+  hi = x.to(torch.bfloat16).float()
+  return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _mma_span(qt_, k, v, logit):
+  """One tensor-core block: the head tile's queries qt_ (h, D) f32 over
+  the rows of k, v (n, D) (bf16 values, or codes widened to f32) in tiles
+  of LATENT_MMA_ROWS rows.  Returns the unnormalised (acc, m, l)."""
+  n, D = k.shape
+  h = qt_.shape[0]
+  third = D // 3                       # a warpgroup's logit columns
+  q_hi, q_lo = _bf16_split(qt_)
+  m, l, acc = torch.full((h,), NEG_INF), torch.zeros(h), torch.zeros(h, D)
+  for r0 in range(0, n, _build.LATENT_MMA_ROWS):
+    r1 = min(n, r0 + _build.LATENT_MMA_ROWS)
+    kt = k[r0:r1]
+    s0, s1, s2 = (q_hi[:, c] @ kt[:, c].T + q_lo[:, c] @ kt[:, c].T
+                  for c in (slice(w * third, (w + 1) * third)
+                            for w in range(3)))
+    x = logit((s0 + s1) + s2, r0, r1)
+    m_new = torch.maximum(m, x.amax(-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(x - m_new[:, None])
+    l = l * alpha + p.sum(-1)
+    p_hi, p_lo = _bf16_split(p)
+    acc = acc * alpha[:, None] + p_hi @ v[r0:r1] + p_lo @ v[r0:r1]
+    m = m_new
+  return acc, m, l
+
+
+def _mma_tiles(G):
+  """The tensor-core head tiles: (first head, live heads) of each."""
+  T = _build.LATENT_MMA_HEADS
+  return [(g0, min(T, G - g0)) for g0 in range(0, G, T)]
+
+
+def emulate_latent_mma_decode(q, k, v, bias=None, *, sm_scale=1.0,
+                              cap=None):
+  """The tensor-core flash_decode: grid (chunks of latent_mma_chunk rows,
+  head tiles of 64, B Hkv), the chunks merged exactly."""
+  B, H, D = q.shape
+  _, Hkv, S, _ = k.shape
+  G = H // Hkv
+  tiles = _mma_tiles(G)
+  chunk = _build.latent_mma_chunk(S, B * Hkv * len(tiles), H100_SMS)
+  o, m_out, l_out = (torch.zeros(B, H, D), torch.zeros(B, H),
+                     torch.zeros(B, H))
+  for b in range(B):
+    for hk in range(Hkv):
+      for g0, h in tiles:
+        rows = slice(hk * G + g0, hk * G + g0 + h)
+        parts = []
+        for s0 in range(0, S, chunk):
+          s1 = min(S, s0 + chunk)
+          bb = None if bias is None else bias[b, hk, s0:s1]
+          parts.append(_mma_span(
+              q[b, rows], k[b, hk, s0:s1].float(), v[b, hk, s0:s1].float(),
+              lambda raw, r0, r1, bb=bb: ref.apply_softcap(
+                  raw * sm_scale, cap) + (0.0 if bb is None
+                                          else bb[r0:r1])))
+        acc, m, l = _combine(parts)
+        o[b, rows] = acc / l.clamp_min(1e-30)[:, None]
+        m_out[b, rows], l_out[b, rows] = m, l
+  return o, m_out, l_out
+
+
+def emulate_latent_mma_gather(q, k, v, selected, *, cluster_size,
+                              sm_scale=1.0, cap=None, k_sel=None, v_sel=None,
+                              sel_bias=None, extras_k=None, extras_v=None,
+                              extras_bias=None, kv_k_scale=None,
+                              kv_v_scale=None):
+  """The tensor-core block_gather: grid (I clusters + extras chunks of at
+  most LATENT_MMA_EXTRAS_ROWS, head tiles of 64, B Hkv); a cluster's
+  k-scale on its raw logits, its v-scale on its sum, its centroid's term
+  as a row of weight -1 (logits from q_hi + q_lo); the signed merge."""
+  B, H, D = q.shape
+  _, Hkv, S, _ = k.shape
+  G, C, I = H // Hkv, cluster_size, selected.shape[-1]
+  E = extras_k.shape[2] if extras_k is not None else 0
+  xrows, _ = _parts(I, E, extras_k is not None,
+                    _build.LATENT_MMA_EXTRAS_ROWS)
+  kf, vf = k.float(), v.float()         # codes widen exactly
+  o, m_out, l_out = (torch.zeros(B, H, D), torch.zeros(B, H),
+                     torch.zeros(B, H))
+  for b in range(B):
+    for hk in range(Hkv):
+      for g0, h in _mma_tiles(G):
+        rows = slice(hk * G + g0, hk * G + g0 + h)
+        qt_ = q[b, rows]
+        parts = []
+        for i in range(I):
+          sel = int(selected[b, hk, i])
+          cid = max(sel, 0)
+          ksc = 1.0 if kv_k_scale is None else float(kv_k_scale[b, hk, cid])
+          vsc = 1.0 if kv_v_scale is None else float(kv_v_scale[b, hk, cid])
+          cl = slice(cid * C, (cid + 1) * C)
+          acc, m, l = _mma_span(
+              qt_, kf[b, hk, cl], vf[b, hk, cl],
+              lambda raw, r0, r1, ok=sel >= 0, ksc=ksc: ref.apply_softcap(
+                  raw * ksc * sm_scale, cap) if ok else torch.full_like(
+                      raw, NEG_INF))
+          acc = acc * vsc
+          if k_sel is not None:
+            q_hi, q_lo = _bf16_split(qt_)
+            dl = (ref.apply_softcap((q_hi + q_lo) @ k_sel[b, hk, i].float()
+                                    * sm_scale, cap) + sel_bias[b, hk, i]
+                  if sel >= 0 else torch.full((h,), NEG_INF))
+            m2 = torch.maximum(m, dl)
+            e1, e2 = torch.exp(m - m2), torch.exp(dl - m2)
+            acc = (acc * e1[:, None]
+                   - v_sel[b, hk, i].float()[None] * e2[:, None])
+            m, l = m2, l * e1 - e2
+          parts.append((acc, m, l))
+        for x0 in range(0, E, xrows):
+          x1 = min(E, x0 + xrows)
+          eb = extras_bias[b, x0:x1]
+          parts.append(_mma_span(
+              qt_, extras_k[b, hk, x0:x1].float(),
+              extras_v[b, hk, x0:x1].float(),
+              lambda raw, r0, r1, eb=eb: ref.apply_softcap(
+                  raw * sm_scale, cap) + eb[r0:r1]))
+        acc, m, l = _combine(parts)
+        o[b, rows] = acc / torch.where(l.abs() > 1e-30, l,
+                                       torch.ones_like(l))[:, None]
+        m_out[b, rows], l_out[b, rows] = m, l
+  return o, m_out, l_out
+
+
+def _mma_bias(rng, kind, S):
+  if kind is None:
+    return None
+  bias = np.log(rng.integers(1, 129, (2, 1, S))).astype(np.float32)
+  if kind == "masked":
+    bias[rng.random((2, 1, S)) < 0.3] = NEG_INF
+  return _t(bias)
+
+
+MMA_SHAPES = [(4, 48), (100, 576), (128, 576)]
+
+
+@pytest.mark.parametrize("G,D", MMA_SHAPES)
+@pytest.mark.parametrize("S", [1, 65, 300, 1000])
+@pytest.mark.parametrize("bias_kind,cap", [(None, None), ("masked", 30.0)])
+def test_latent_mma_decode_matches_plain(G, D, S, bias_kind, cap):
+  """The tensor-core flash_decode (head tiles of 64: G = 100 leaves a
+  last tile of 36 live heads; 16-row tiles: S = 1 and 65 leave a ragged
+  one; chunks: one at S = 1, several from 65 on) on bf16 rows against the
+  plain version; at SMOKE size also against the Pallas kernel."""
+  rng = np.random.default_rng(7 * G + S)
+  q = _t(_normal(rng, 2, G, D) * np.float32(3.0 * D ** -0.5))
+  k, v = (_t(_normal(rng, 2, 1, S, D)).to(torch.bfloat16) for _ in range(2))
+  bias = _mma_bias(rng, bias_kind, S)
+  kw = dict(sm_scale=192 ** -0.5, cap=cap)
+  nsplit = -(-S // _build.latent_mma_chunk(S, 2 * len(_mma_tiles(G)),
+                                           H100_SMS))
+  assert (nsplit == 1) == (S == 1)
+  got = emulate_latent_mma_decode(q, k, v, bias, **kw)
+  for g, w in zip(got, ref.flash_decode_ref(q, k, v, bias, **kw)):
+    assert torch.isfinite(g).all()
+    _close(g, w)
+  if D == 48:
+    jax_out = jops._decode(
+        jnp.asarray(q.numpy()), jnp.asarray(k.float().numpy()),
+        jnp.asarray(v.float().numpy()),
+        None if bias is None else jnp.asarray(bias.numpy()),
+        kw["sm_scale"], "interpret", cap=cap)
+    for g, j in zip(got, jax_out):
+      _close(g, j)
+
+
+def _mma_gather_case(case, G, D, kind="none", seed=0):
+  """A case of the card tests' stage-2 inputs (``_gather_inputs``: Hkv =
+  1, E = 129 as the port builds it, the q of the latent tests) with the
+  cache, extras and decrement rows in bf16, or the cache as the JAX
+  package's int8 / fp8 codes with one scale per cluster block beside bf16
+  extras and f32 decrement rows.  Returns the torch inputs and the JAX
+  ones (the same values)."""
+  from test_torch_card import _gather_inputs  # noqa: PLC0415
+  C, I = {"dec_extras": (128, 32), "plain": (128, 1)}.get(case, (16, 3))
+  q, k, v, sel, C, kw = _gather_inputs(case, (I + 2) * C, D=D, C=C, I=I,
+                                       G=G, Hkv=1, E=129, seed=seed)
+  q = q * (D ** -0.5) * 3.0
+  bf = ("extras_k", "extras_v") + (("k_sel", "v_sel") if kind == "none"
+                                   else ())
+  kw = {n: (t.bfloat16() if n in bf else t) for n, t in kw.items()}
+  jkw = {n: jnp.asarray(t.float().numpy()) for n, t in kw.items()}
+  if kind == "none":
+    k, v = k.bfloat16(), v.bfloat16()
+    jk, jv = jnp.asarray(k.float().numpy()), jnp.asarray(v.float().numpy())
+  else:
+    jk, ks = jqt.quantize_rows(jnp.asarray(k.numpy()), kind, block=C)
+    jv, vs = jqt.quantize_rows(jnp.asarray(v.numpy()), kind, block=C)
+    k, v = _t(np.asarray(jk)), _t(np.asarray(jv))
+    kw.update(kv_k_scale=_t(np.asarray(ks)), kv_v_scale=_t(np.asarray(vs)))
+    jkw.update(kv_k_scale=ks, kv_v_scale=vs)
+  return (q, k, v, sel, C, kw), (jnp.asarray(q.numpy()), jk, jv,
+                                  jnp.asarray(sel.numpy()), jkw)
+
+
+MMA_GATHER_CASES = ["dec_extras", "padded", "equal_keys", "all_padded",
+                    "all_padded_no_extras", "plain"]
+MMA_GATHER_KINDS = [("none", c) for c in MMA_GATHER_CASES] + [
+    (kind, c) for kind in ("int8", "fp8")
+    for c in ("dec_extras", "padded", "equal_keys")]
+
+
+@pytest.mark.parametrize("G,D", MMA_SHAPES)
+@pytest.mark.parametrize("kind,case", MMA_GATHER_KINDS)
+def test_latent_mma_gather_matches_plain(G, D, kind, case):
+  """The tensor-core block_gather in every case of the card tests' inputs
+  on a bf16 cache, and on int8 / fp8 codes with their per-cluster scales
+  in the cases that select clusters, against the plain version; at SMOKE
+  size also against the Pallas kernel in interpret mode."""
+  (q, k, v, sel, C, kw), (jq, jk, jv, jsel, jkw) = _mma_gather_case(
+      case, G, D, kind, seed=G + D)
+  opts = dict(cluster_size=C, sm_scale=192 ** -0.5, cap=30.0)
+  got = emulate_latent_mma_gather(q, k, v, sel, **opts, **kw)
+  want = ref.fused_gather_attention_ref(q, k, v, sel, **opts, **kw)
+  for g, w in zip(got, want):
+    assert torch.isfinite(g).all()
+    _close(g, w)
+  if D == 48:
+    for g, j in zip(got, j_block_gather(jq, jk, jv, jsel, interpret=True,
+                                        **opts, **jkw)):
+      _close(g, j)
+
+
+def test_latent_mma_extras_are_one_part_beside_32_clusters():
+  """deepseek-v2's budget-32 step: 32 clusters and E = 129 extras rows in
+  one chunk are 33 parts, x 2 head tiles of 64 x B = 2 = 132 blocks, one
+  wave of one block an SM; the exact path's S = 8192 is 32 chunks of 256
+  rows (128 blocks), the self token one."""
+  xrows, nparts = _parts(32, 129, True, _build.LATENT_MMA_EXTRAS_ROWS)
+  assert (xrows, nparts) == (129, 33)
+  assert nparts * _build.latent_mma_tiles(128) * 2 == H100_SMS
+  groups = 2 * _build.latent_mma_tiles(128)
+  assert _build.latent_mma_chunk(8192, groups, H100_SMS) == 256
+  assert _build.latent_mma_chunk(1, groups, H100_SMS) == 16
+  for S in (1, 65, 300, 1000, 8192, 8320):
+    chunk = _build.latent_mma_chunk(S, groups, H100_SMS)
+    assert chunk % _build.LATENT_MMA_ROWS == 0
+    assert -(-S // chunk) * groups <= H100_SMS
+
+
+def test_latent_mma_query_split_keeps_the_logits():
+  """q_hi + q_lo carries the f32 query's logits at deepseek-v2's width (G
+  = 128, D = 576, 8192 rows of bf16 latent) far inside the card tests'
+  bf16 bound (rtol = atol = 1e-3), against a float64 reference; q rounded
+  once to bf16 is reported beside it, not asserted to miss."""
+  rng = np.random.default_rng(0)
+  G, D, S = 128, 576, 8192
+  q = torch.from_numpy(_normal(rng, G, D) * np.float32(3.0 * D ** -0.5))
+  k = torch.from_numpy(_normal(rng, S, D)).bfloat16().float()
+  sm = 192 ** -0.5
+  want = (q.double() @ k.double().T) * sm
+  hi, lo = _bf16_split(q)
+  split = (hi @ k.T + lo @ k.T).double() * sm
+  one = (hi @ k.T).double() * sm
+
+  def excess(got):  # the largest |err| / (atol + rtol |want|)
+    return float(((got - want).abs() / (1e-3 + 1e-3 * want.abs())).max())
+  assert excess(split) < 0.01
+  print(f"logit error / bf16 card bound: q_hi + q_lo {excess(split):.2e}, "
+        f"q rounded once {excess(one):.2e}")

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Device times of the synopsis build and stage-1 kernels of whichever
-``repro_torch`` is on ``PYTHONPATH``, at the serving loop's shapes.
+"""Device times of the synopsis build, stage-1 and latent-core kernels of
+whichever ``repro_torch`` is on ``PYTHONPATH``, at the serving loop's
+shapes.
 
   PYTHONPATH=<tree>/src python3 tools/kernel_times.py --label <tree>
 
@@ -18,7 +19,19 @@ kernel's own launches (median over ``--rounds`` turns of 20 calls each):
 * ``synopsis_score`` (``--only score``) at the unfused op's shape (q (2,
   32, 128), k_syn (2, 8, M, 128)) at M = 64, 65 and 1024, bf16 and f32,
   warm and L2-cold.  Its rows are matched by the first version's kernel
-  name and by the redesigned one's, so the tool reads either tree.
+  name and by the redesigned one's, so the tool reads either tree;
+* the latent core (``--only latent``) at deepseek-v2's absorbed decode (an
+  f32 query of 128 heads over one latent head of 576): ``flash_decode``
+  over the exact loop's bf16 cache (2, 1, 8192, 576) and over the self
+  token, and ``block_gather_attention`` over 32 clusters of 128 rows of
+  an 8192-row cache with the 129 extras rows (the ring and the self token)
+  and the decrement rows, on a bf16 cache and on int8 / fp8 codes (bf16
+  extras; f32 decrement rows beside the codes), warm and L2-cold, each
+  beside its bound both ways: bytes, and the operations the tensor-core
+  kernels issue (every product twice: the query and P split in bf16
+  halves) at the bf16 tensor rate, the decrement rows' at the f32 rate.
+  A call's time sums its rows (the main kernel's and, where it has one,
+  the merge launch's), so it reads either tree.
 
 ``--chunking BLOCKS_PER_SM,MIN_CHUNK`` sets the chunk rule of the split
 decode kernels (``flash_decode._chunk``, which stage 1 follows in a tree
@@ -62,9 +75,9 @@ def device_ms(fn, names, reps=20, cold=False, tries=5):
     rows = [e for e in prof.key_averages()
             if e.device_type != torch.autograd.DeviceType.CPU
             and any(n in e.key for n in names)]
-    launches = sum(e.count for e in rows)
-    if launches:
-      return sum(e.self_device_time_total for e in rows) / 1e3 / launches
+    if rows:  # each row's time a launch, times its launches a call
+      return sum(e.self_device_time_total / e.count
+                 * max(1, round(e.count / reps)) for e in rows) / 1e3
   raise AssertionError(f"the profiler lost launches of {names}")
 
 
@@ -149,11 +162,93 @@ def score_times(g, rounds, label, smi):
             flush=True)
 
 
+TENSOR_OPS_PER_S = 989e12  # H100 SXM, dense bf16
+
+
+def _bounds(nbytes_, ops_):
+  """The bound both ways: bytes over HBM, and the operations the function
+  needs (4 H D a row) at the bf16 tensor rate; with the one that binds."""
+  t_bytes = nbytes_ / HBM_BYTES_PER_S * 1e3
+  t_ops = ops_ / TENSOR_OPS_PER_S * 1e3
+  return {"bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops,
+          "bound_ms": max(t_bytes, t_ops),
+          "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def latent_times(g, rounds, label, smi):
+  from repro_torch.kernels import ops
+  from repro_torch.kernels import quant as qt
+  from repro_torch.kernels.block_gather_attention import (
+      block_gather_attention as gather)
+  from repro_torch.kernels.flash_decode import flash_decode
+  B, H, S, D, C, I, E = 2, 128, 8192, 576, 128, 32, 129
+  sm = 192 ** -0.5
+  bf = torch.bfloat16
+
+  def rnd(*shape):
+    return torch.randn(shape, generator=g, device="cuda")
+
+  def emit(kernel, fn, names, nbytes_, ops_, **extra):
+    warm = statistics.median(device_ms(fn, names) for _ in range(rounds))
+    cold = statistics.median(device_ms(fn, names, cold=True)
+                             for _ in range(rounds))
+    b = _bounds(nbytes_, ops_)
+    print(json.dumps({"tree": label, "kernel": kernel, **extra,
+                      "device_ms": warm, "device_ms_cold": cold, **b,
+                      "share_warm": b["bound_ms"] / warm,
+                      "share_cold": b["bound_ms"] / cold, "card": smi}),
+          flush=True)
+
+  q = rnd(B, H, D) * (3.0 * D ** -0.5)
+  k, v = rnd(B, 1, S, D).to(bf), rnd(B, 1, S, D).to(bf)
+  fd_rows = ("latent_flash_decode", "latent_merge_kernel")
+  for name, (kk, vv) in (("cache", (k, v)),
+                         ("self token", (k[:, :, :1].contiguous(),
+                                         v[:, :, :1].contiguous()))):
+    fn = lambda kk=kk, vv=vv: flash_decode(q, kk, vv, sm_scale=sm)
+    out = fn()
+    n = kk.shape[2]
+    emit("flash_decode", fn, fd_rows, nbytes(q, kk, vv, *out),
+         4 * B * H * n * D, span=name, S=n)
+
+  M = S // C
+  sel = torch.stack([torch.randperm(M, generator=g, device="cuda")[:I]
+                     for _ in range(B)])[:, None].to(torch.int32)
+  safe = sel.long()[..., None].expand(-1, -1, -1, D)
+  k_syn = k.float().reshape(B, 1, M, C, D).mean(3)
+  v_syn = v.float().reshape(B, 1, M, C, D).mean(3)
+  ek, ev, eb = ops.build_extras(rnd(B, 1, E - 1, D).to(bf),
+                                rnd(B, 1, E - 1, D).to(bf), None,
+                                (rnd(B, 1, 1, D).to(bf),
+                                 rnd(B, 1, 1, D).to(bf)))
+  sel_bias = torch.full((B, 1, I), 4.85, device="cuda")
+  rows = B * I * C
+  for kind in ("none", "int8", "fp8"):
+    if kind == "none":
+      kc, vc, kw = k, v, {}
+      dec = torch.gather(k_syn, 2, safe).to(bf), torch.gather(
+          v_syn, 2, safe).to(bf)
+    else:
+      (kc, ks), (vc, vs) = (qt.quantize_rows(k.float(), kind, block=C),
+                            qt.quantize_rows(v.float(), kind, block=C))
+      kw = dict(kv_k_scale=ks, kv_v_scale=vs)
+      dec = torch.gather(k_syn, 2, safe), torch.gather(v_syn, 2, safe)
+    gkw = dict(cluster_size=C, sm_scale=sm, k_sel=dec[0], v_sel=dec[1],
+               sel_bias=sel_bias, extras_k=ek, extras_v=ev, extras_bias=eb,
+               **kw)
+    fn = lambda kc=kc, vc=vc, gkw=gkw: gather(q, kc, vc, sel, **gkw)
+    out = fn()
+    nb = (nbytes(q, sel, *dec, sel_bias, ek, ev, eb, *kw.values(), *out)
+          + 2 * rows * D * kc.element_size())
+    emit("block_gather", fn, ("latent_gather", "latent_merge_kernel"), nb,
+         4 * H * D * (rows + B * (E + I)), kind=kind)
+
+
 def main():
   ap = argparse.ArgumentParser()
   ap.add_argument("--label", required=True)
   ap.add_argument("--rounds", type=int, default=3)
-  ap.add_argument("--only", choices=("build", "stage1", "score"))
+  ap.add_argument("--only", choices=("build", "stage1", "score", "latent"))
   ap.add_argument("--chunking", help="BLOCKS_PER_SM,MIN_CHUNK")
   args = ap.parse_args()
   if not torch.cuda.is_available():
@@ -168,7 +263,7 @@ def main():
     args.label += f" chunking={bps},{mc}"
   g = torch.Generator("cuda").manual_seed(0)
   stages = {"build": build_times, "stage1": stage1_times,
-            "score": score_times}
+            "score": score_times, "latent": latent_times}
   for name, stage in stages.items():
     if args.only in (None, name):
       stage(g, args.rounds, args.label, smi)
