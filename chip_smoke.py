@@ -3283,8 +3283,11 @@ def check_model_kernels(cfg, tag, dev, g):
   function (no softcap); with a cap it is printed as a yardstick only.
   With cross blocks (whisper) also ``flash_decode`` over the encoder's
   ``source_len`` cross rows, the frames path's decode (record
-  ``flash_decode[<arch>-cross<T>]``)."""
-  from repro_torch.kernels import ops, ref
+  ``flash_decode[<arch>-cross<T>]``).  Where the group takes the
+  tensor-core stream (bf16 in the head bucket of 16: command-r-plus),
+  stage 2's and flash_decode's records are that branch's
+  (``<kernel>[g16]<tag>``)."""
+  from repro_torch.kernels import _build, ops, ref
   from repro_torch.kernels.block_gather_attention import (
       block_gather_attention as gather)
   from repro_torch.kernels.flash_decode import flash_decode
@@ -3417,12 +3420,14 @@ def check_model_kernels(cfg, tag, dev, g):
                f"cap={cap}", dtype, got,
                ref.fused_gather_attention_ref(q1, k, v, sel, **gkw), *tol)
   rows = I * C * B * Hkv
-  rec("block_gather_attention", err, lambda: gather(q1, k, v, sel, **gkw),
+  key = _build.decode_branch("block_gather_attention", dtype, G)
+  rec(key, err, lambda: gather(q1, k, v, sel, **gkw),
       lambda: ref.fused_gather_attention_ref(q1, k, v, sel, **gkw),
       _nbytes(q1, sel, gkw["k_sel"], gkw["v_sel"], gkw["sel_bias"], ek, ev,
               eb, *got) + 2 * rows * D * k.element_size(),
-      4 * G * D * (rows + B * Hkv * (I + ek.shape[2])), "block_gather.cu",
-      "block_gather_attention.py:255", cold=True)
+      4 * G * D * (rows + B * Hkv * (I + ek.shape[2])),
+      "decode_mma.cuh" if key != "block_gather_attention"
+      else "block_gather.cu", "block_gather_attention.py:255", cold=True)
 
   # flash_decode: the exact path's whole cache (recorded, with SDPA as the
   # library call, where the config has no local layer), then a local
@@ -3431,11 +3436,12 @@ def check_model_kernels(cfg, tag, dev, g):
   err = _check(f"flash_decode{tag} S={S} G={G} cap={cap}", dtype, got,
                ref.flash_decode_ref(q1, k, v, **kw), *tol)
   if not local:
-    rec("flash_decode", err, lambda: flash_decode(q1, k, v, **kw),
+    key = _build.decode_branch("flash_decode", dtype, G)
+    rec(key, err, lambda: flash_decode(q1, k, v, **kw),
         lambda: ref.flash_decode_ref(q1, k, v, **kw),
-        _nbytes(q1, k, v, *got), 4 * B * H * S * D, "flash_decode.cu",
-        "flash_decode.py:125", cold=True,
-        library_fn=None if cap else (
+        _nbytes(q1, k, v, *got), 4 * B * H * S * D,
+        "decode_mma.cuh" if key != "flash_decode" else "flash_decode.cu",
+        "flash_decode.py:125", cold=True, library_fn=None if cap else (
             lambda: sdpa(q1[:, :, None], k, v, enable_gqa=True)))
   else:
     kw_, vw = k[:, :, -W:], v[:, :, -W:]
@@ -3882,7 +3888,9 @@ def _require_model_launches(path, counts, cfg, steps, mode, quant="none"):
   every local layer (its window view and the self token); in exact mode
   flash_decode twice on every layer.  A cross block (whisper) adds one
   flash_prefill a layer (its causal branch) and, in both modes, one
-  flash_decode a layer a step.  Every other branch launches 0."""
+  flash_decode a layer a step.  The decode kernels count on the branch of
+  the stream they take (``_decode_key``).  Every other branch launches
+  0."""
   from repro_torch.kernels import _build
   from repro_torch.kernels import quant as qt
   qc = qt.parse_qconfig(quant)
@@ -3905,12 +3913,25 @@ def _decode_key(cfg):
   """key(kernel, quant="none") -> the launch-count key of a decode
   kernel's branch on ``cfg``'s path: under MLA the latent core's branch
   ("latent", or "latent-int8" / "latent-fp8" on a quantized arena), else
-  the quant spec's."""
+  the quant spec's, and unquantized the stream ``_build.decode_mma`` picks
+  for the config's dtype and group."""
   from repro_torch.kernels import _build
   if cfg.mla is not None:
     return lambda name, quant="none": _build.branch(
         name, _build.latent_branch(quant))
-  return _build.branch
+  G = cfg.n_heads // cfg.n_kv_heads
+  return lambda name, quant="none": (
+      _build.decode_branch(name, cfg.dtype, G) if quant == "none"
+      else _build.branch(name, quant))
+
+
+def _record_name(key, name, tag):
+  """The record of kernel ``name``'s launches on branch ``key`` in an arch's
+  phase: the tensor-core stream's under its key, any other under the
+  kernel's name (the latent core's records carry the arch's tag only)."""
+  from repro_torch.kernels import _build
+  mma = key == _build.branch(name, _build.DECODE_MMA)
+  return f"{key if mma else name}{tag}"
 
 
 def _require_exact_launches(path, counts, want):
@@ -4239,8 +4260,8 @@ def run_model(arch, dev, g):
   out, counts = _model_loop(cfg, params, dev, tag)
   for name in ("flash_prefill", "segment_build",
                "fused_synopsis_score_attention", "block_gather_attention"):
-    launches[f"{name}{tag}"] = counts[dkey(name) if name in
-                                      _build.LATENT_KERNELS else name]
+    key = dkey(name) if name in _build.LATENT_KERNELS else name
+    launches[_record_name(key, name, tag)] = counts[key]
   if local:
     launches[f"flash_decode{tag}"] = counts["flash_decode"]
   check_full_budget(out["cache"], dev, g, pos=pos, cap=cfg.attn_softcap,
@@ -4271,7 +4292,8 @@ def run_model(arch, dev, g):
 
   exact, counts = _model_loop(cfg, params, dev, tag, mode="exact")
   if not local:
-    launches[f"flash_decode{tag}"] = counts[dkey("flash_decode")]
+    key = dkey("flash_decode")
+    launches[_record_name(key, "flash_decode", tag)] = counts[key]
   cache = exact["cache"]
   del exact
   profile_decode(cfg, params, cache, dev, 0, mode="exact")
@@ -4358,9 +4380,9 @@ def run_model(arch, dev, g):
         dkey(n) if n in _build.LATENT_KERNELS else n for n in ENGINE_KERNELS)
         + (("flash_decode",) if local else ()), absent=(
             "synopsis_score", dkey("synopsis_score")) + (
-            () if local else ("flash_decode", dkey("flash_decode"))) + (
-            ("fused_synopsis_score_attention", "block_gather_attention")
-            if cfg.mla else ()))
+            () if local else ("flash_decode", dkey("flash_decode"))) + tuple(
+            n for n in ("fused_synopsis_score_attention",
+                        "block_gather_attention") if dkey(n) != n))
     del eng
   del params
   torch.cuda.empty_cache()

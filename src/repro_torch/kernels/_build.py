@@ -103,13 +103,41 @@ def decode_tile_rows(D: int, itemsize: int) -> int:
   return min(DECODE_TILE_ROWS, DECODE_TILE_BYTES // (D * itemsize))
 
 
+# The decode core's tensor-core stream (csrc/decode_mma.cuh): flash_decode
+# and block_gather_attention on bf16 rows (query, cache and extras) for a
+# group in the head bucket of 16, G in DECODE_MMA_GMIN .. GMAX
+# (command-r-plus's G = 12), counted under each kernel's DECODE_MMA
+# branch; the same grid, chunks and merges as the CUDA-core loops, which
+# keep f32 rows, quantized caches, G <= 8 and stage 1.  The self token (S
+# = 1) takes it too: it measured faster there than the CUDA-core loops'
+# bucket of 16 (PERF.md §6).  Those loops are not built for bf16 rows in
+# the bucket of 16 in either kernel.
+DECODE_MMA = "g16"
+DECODE_MMA_KERNELS = ("flash_decode", "block_gather_attention")
+DECODE_MMA_GMIN = 9
+
+
+def decode_mma(name: str, dtype, G: int) -> bool:
+  """Whether kernel ``name`` streams rows of ``dtype`` (the query's too)
+  read by a group of G on the tensor cores; the wrappers pass it to the C
+  entry point as its route flag (1, else 0 for the CUDA-core loops)."""
+  import torch  # noqa: PLC0415
+  return (name in DECODE_MMA_KERNELS and dtype == torch.bfloat16
+          and DECODE_MMA_GMIN <= G <= GMAX)
+
+
+def decode_branch(name: str, dtype, G: int) -> str:
+  """The launch-count key of the stream :func:`decode_mma` picks."""
+  return branch(name, DECODE_MMA) if decode_mma(name, dtype, G) else name
+
+
 # C entry point -> argtypes (see each .cu file's extern "C" function).
 SIGNATURES = {
     "fused_synopsis_launch": [_P] * 14 + [_I] * 6 + [_F, _F, _I, _I, _P],
-    "block_gather_launch": [_P] * 20 + [_I] * 9 + [_F, _F] + [_I] * 3 + [_P],
+    "block_gather_launch": [_P] * 20 + [_I] * 9 + [_F, _F] + [_I] * 4 + [_P],
     "segment_build_launch": [_P] * 12 + [_I] * 8 + [_P],
     "flash_prefill_launch": [_P] * 4 + [_I] * 5 + [_F, _F, _I, _I, _P],
-    "flash_decode_launch": [_P] * 11 + [_I] * 8 + [_F, _F, _I, _P],
+    "flash_decode_launch": [_P] * 11 + [_I] * 8 + [_F, _F, _I, _I, _P],
     "synopsis_score_launch": [_P] * 3 + [_I] * 5 + [_F, _I, _P],
     "flash_decode_latent_launch": [_P] * 11 + [_I] * 8 + [_F, _F, _I, _I,
                                                           _P],
@@ -124,7 +152,8 @@ SIGNATURES = {
 # kernels.  A quantized branch counts under its own key: the build under
 # its spec, stage 1 and stage 2 under the storage type of the tables or
 # cache they read quantized; the latent core's kernels under "latent", and
-# its quantized stage 1 and stage 2 under "latent-int8" / "latent-fp8".
+# its quantized stage 1 and stage 2 under "latent-int8" / "latent-fp8";
+# the decode core's tensor-core stream under DECODE_MMA ("g16").
 KERNELS = ("flash_prefill", "segment_build", "fused_synopsis_score_attention",
            "block_gather_attention", "flash_decode", "synopsis_score")
 QUANT_BRANCHES = {
@@ -155,7 +184,8 @@ def _branches(name: str):
   if name in LATENT_KERNELS:
     latent = (LATENT, *(latent_branch(k) for k in ("int8", "fp8")
                         if k in quant))
-  return (*quant, *latent)
+  mma = (DECODE_MMA,) if name in DECODE_MMA_KERNELS else ()
+  return (*quant, *latent, *mma)
 
 
 LAUNCHES: Dict[str, int] = {

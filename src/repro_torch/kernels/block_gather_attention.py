@@ -20,6 +20,12 @@ read in place from row ``rows[b]`` of k / v's leading axis (the selected
 replica lane of a shard, in the ``B*R*N``-row view of the fleet pool),
 with no gathered copy; the selection, the scales, the decrement rows and
 the extras stay indexed by b.  None is the identity.
+
+A bf16 query, cache and extras read by a group in the head bucket of 16
+(command-r-plus's G = 12) go to the decode core's tensor-core stream
+(``csrc/decode_mma.cuh``, chosen here by ``_build.decode_mma``), counted
+under ``block_gather_attention[g16]``; f32 rows, quantized caches and G <=
+8 keep the CUDA-core loops.
 """
 from __future__ import annotations
 
@@ -118,6 +124,11 @@ def block_gather_attention(
   sb = sel_bias.to(**f32).contiguous() if has_dec else None
   eb = extras_bias.to(**f32).contiguous() if has_ext else None
   xrows, nparts = _parts(I, E, has_ext)
+  # The tensor-core stream takes the cache in the query's type, not codes,
+  # and stages the query 16 bytes a copy.
+  mma = k.dtype == q.dtype and _build.decode_mma(NAME, k.dtype, G)
+  if mma:
+    _build.check_aligned(NAME, q)
   o = torch.empty((B, H, D), **f32)
   m = torch.empty((B, H), **f32)
   l = torch.empty((B, H), **f32)
@@ -130,10 +141,11 @@ def block_gather_attention(
       P(q), P(k), P(v), P(sel), P(k_sel), P(v_sel), P(sb), P(extras_k),
       P(extras_v), P(eb), P(kq), P(vq), P(rmap), P(o), P(m), P(l),
       *map(P, part), B, Hkv, G, S, D, C, I, E, xrows, float(sm_scale),
-      float(cap or 0.0), code, storage, dec, _build.stream_ptr(q))
+      float(cap or 0.0), code, storage, dec, int(mma), _build.stream_ptr(q))
   _build.check(err, NAME)
   _build.LAUNCHES[_build.branch(
-      NAME, qt.kind_of(k.dtype) if quantized else "none")] += 1
+      NAME, qt.kind_of(k.dtype) if quantized
+      else _build.DECODE_MMA if mma else "none")] += 1
   return o, m, l
 
 

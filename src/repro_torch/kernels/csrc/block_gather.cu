@@ -21,7 +21,10 @@
 // x B * Hkv (544 blocks at that shape), and each block streams its
 // span through the shared decode core (decode_core.cuh: per-warp cp.async
 // tiles, register state, 16-byte reads; 16 codes a copy for an int8 / fp8
-// cache; five blocks an SM, so the 544 blocks are one wave).  The cache is cluster-contiguous, so a selected cluster is C
+// cache; five blocks an SM, so the 544 blocks are one wave; a bf16 cache
+// read by a group in the head bucket of 16, command-r-plus's G = 12, takes
+// the tensor-core stream of decode_mma.cuh in the same grid and
+// epilogues).  The cache is cluster-contiguous, so a selected cluster is C
 // consecutive rows: the block reads its id from `selected` itself (the
 // scalar prefetch) and never materialises a gathered copy.  A cluster block
 // folds its centroid's stage-1 term in with weight -1 (decremental
@@ -72,7 +75,9 @@ static int launch_storage(const GatherArgs& a, int dtype, int storage,
 // o_part (B*H, nparts, D), m_part / l_part (B*H, nparts) the wrapper's
 // scratch for nparts = I + extras chunks > 1, and tickets (B * Hkv) its
 // zeroed counters of the last-block merge, which the kernel leaves zeroed
-// (all may be NULL with one part).  cap <= 0: no softcap.
+// (all may be NULL with one part).  cap <= 0: no softcap.  mma: 1 = the
+// tensor-core stream (decode_mma.cuh), for bf16 q, cache and extras only;
+// 0 = the CUDA-core stream (the wrapper's choice: _build.decode_mma).
 extern "C" int block_gather_launch(
     const void* q, const void* k, const void* v, const int* selected,
     const void* k_sel, const void* v_sel, const float* sel_bias,
@@ -80,14 +85,14 @@ extern "C" int block_gather_launch(
     const float* kv_v_scale, const int* rows, float* o, float* m, float* l,
     float* o_part, float* m_part, float* l_part, unsigned* tickets, int B,
     int Hkv, int G, int S, int D, int C, int I, int E, int xrows,
-    float sm_scale, float cap, int dtype, int storage, int dec_dtype,
+    float sm_scale, float cap, int dtype, int storage, int dec_dtype, int mma,
     void* stream) {
   if (k_sel != nullptr && dec_dtype != dtype && dec_dtype != 0)
     return (int)cudaErrorInvalidValue;
   const GatherArgs a{q, k, v, selected, k_sel, v_sel, sel_bias, ek, ev, eb,
                      kv_k_scale, kv_v_scale, rows, o, m, l, o_part, m_part,
                      l_part, tickets, B, Hkv, G, S, D, C, I, E, xrows,
-                     sm_scale, cap, dec_dtype == 0};
+                     sm_scale, cap, dec_dtype == 0, mma};
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1) return launch_storage<__nv_bfloat16>(a, dtype, storage, st);
   if (dtype == 0) return launch_storage<float>(a, dtype, storage, st);

@@ -55,7 +55,10 @@
 //    logit and p.V passes run over the tile staged in shared memory).  At
 //    GB = 16 (command-r-plus's G = 12) a lane's softmax head is lane % 16,
 //    so the shuffle tree over the heads' rows is one step (offset 16), and
-//    acc[16][8] is 128 f32 registers a lane.
+//    acc[16][8] is 128 f32 registers a lane: there bf16 rows of
+//    flash_decode and block_gather take the tensor-core stream of
+//    decode_mma.cuh instead (CudaCore below is this stream's side of the
+//    choice), and f32 rows, int8 / fp8 caches and stage 1 stay here.
 //
 // Masking follows the reference: a logit the caller sets to the -1e30
 // sentinel takes part in the softmax like any other (an all-masked span
@@ -420,6 +423,66 @@ struct Smem {
   }
 };
 
+// The block's NW partials, left in shared memory as m and l [NW][GB] and
+// acc [NW][GB][D] (floats from smem on), merged exactly: calls finish(g,
+// d, m, l, acc) for every g < G and d < D.  The caller syncs the block
+// after writing them.  From GB = 8 on, each head's m, l and the partials'
+// weights exp(m_w - m) are taken once, by one thread a head (the weights
+// over m's slots), so that an output costs NW loads and FMAs.  At GB = 4 a
+// thread's outputs lie in different heads, so each output takes its own
+// weights and the barrier goes: on the H100 that made llama3-8b's G = 4
+// flash_decode 1 us faster a call, where the shared weights made
+// arctic-480b's G = 7 block_gather 1.5 us faster (PERF.md §6).
+template <int D, int GB, int NW, typename Finish>
+__device__ __forceinline__ void combine_warps(int G, char* smem,
+                                              const Finish& finish) {
+  float* wm = reinterpret_cast<float*>(smem);
+  const float* wl = wm + NW * GB;
+  const float* wacc = wl + NW * GB;
+  if constexpr (GB <= 4) {
+    for (int t = threadIdx.x; t < G * D; t += blockDim.x) {
+      const int g = t / D, d = t % D;
+      float m = NEG_INF_F;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) m = fmaxf(m, wm[w * GB + g]);
+      float l = 0.f, a = 0.f;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        const float sc = expf(wm[w * GB + g] - m);
+        l = fmaf(wl[w * GB + g], sc, l);
+        a = fmaf(wacc[(w * GB + g) * D + d], sc, a);
+      }
+      finish(g, d, m, l, a);
+    }
+  } else {
+    __shared__ float head_m[GB], head_l[GB];
+    if (threadIdx.x < G) {
+      const int g = threadIdx.x;
+      float m = NEG_INF_F;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) m = fmaxf(m, wm[w * GB + g]);
+      float l = 0.f;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        const float sc = expf(wm[w * GB + g] - m);
+        l = fmaf(wl[w * GB + g], sc, l);
+        wm[w * GB + g] = sc;
+      }
+      head_m[g] = m;
+      head_l[g] = l;
+    }
+    __syncthreads();
+    for (int t = threadIdx.x; t < G * D; t += blockDim.x) {
+      const int g = t / D, d = t % D;
+      float a = 0.f;
+#pragma unroll
+      for (int w = 0; w < NW; ++w)
+        a = fmaf(wacc[(w * GB + g) * D + d], wm[w * GB + g], a);
+      finish(g, d, head_m[g], head_l[g], a);
+    }
+  }
+}
+
 // Merge the block's warps into one partial per (head, column): calls
 // finish(g, d, m, l, acc) for every g < G and d < D, with the chunk's
 // unnormalised acc.  Every warp must have left its ring (the merge reuses
@@ -453,20 +516,7 @@ __device__ __forceinline__ void block_merge(WarpState<GB>& st, int G,
         wacc[(warp * GB + g) * D + lane * COLS + e] = st.acc[g][e];
   }
   __syncthreads();
-  for (int t = threadIdx.x; t < G * D; t += blockDim.x) {
-    const int g = t / D, d = t % D;
-    float m = NEG_INF_F;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) m = fmaxf(m, wm[w * GB + g]);
-    float l = 0.f, a = 0.f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      const float sc = expf(wm[w * GB + g] - m);
-      l = fmaf(wl[w * GB + g], sc, l);
-      a = fmaf(wacc[(w * GB + g) * D + d], sc, a);
-    }
-    finish(g, d, m, l, a);
-  }
+  combine_warps<D, GB, WARPS>(G, smem, finish);
 }
 
 // The output of a (head, column): acc / l, with flash_decode's rule
@@ -483,50 +533,65 @@ __device__ __forceinline__ float normalise(float a, float l) {
 // partial; the block that takes the last ticket merges and resets the
 // ticket to 0 for the next launch (so launches that share the tickets must
 // run one after another, as on one stream).  m is the max, l the sum of
-// l_s * exp(m_s - m) (signed for block_gather), o the same sum of the
-// partials' acc, normalised.  The partials of other blocks are read from
-// L2 (__ldcg), after the fences of the ticket.  The weights exp(m_s - m)
-// go to shared memory (w: cap floats, free once the block has merged its
-// warps), so that each thread keeps the loads of its GB * D / 128 outputs
-// in flight together.
+// l_s * exp(m_s - m) (signed for block_gather; taken in one pass over the
+// parts, rescaled as m grows), o the same sum of the partials' acc,
+// normalised.  The partials of other blocks are read from
+// L2 (__ldcg, as float4s), after the fences of the ticket.  The weights
+// exp(m_s - m) go to shared memory (w: cap floats, free once the block has
+// merged its warps), so that each thread keeps the loads of its GB * D /
+// 512 float4 outputs, for four parts at a time, in flight together.
 template <bool SIGNED, int D, int GB>
 __device__ __forceinline__ void merge_if_last(
     unsigned* ticket, int nparts, int G, size_t row0,
     const float* o_part, const float* m_part, const float* l_part, float* o,
     float* m_out, float* l_out, float* w, int cap) {
   constexpr int THREADS = WARPS * 32;
-  constexpr int IT = (GB * D + THREADS - 1) / THREADS;  // outputs a thread
+  constexpr int V = D / 4;                              // float4s a row
+  constexpr int IT = (GB * V + THREADS - 1) / THREADS;  // float4s a thread
   __shared__ bool last;
   __shared__ float red_m[GMAX], red_l[GMAX];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == (unsigned)nparts - 1;
   __syncthreads();
   if (!last) return;
   __threadfence();
-  for (int g = warp; g < G; g += WARPS) {  // one warp a head: m and l
+  {  // m and l: HT threads a head, every head at once, in one pass (each
+     // thread's parts, then its head's threads, merged online)
+    constexpr int HT = THREADS / GB;
+    const int g = threadIdx.x / HT, sub = threadIdx.x % HT;
     const float* mp = m_part + (row0 + g) * nparts;
     const float* lp = l_part + (row0 + g) * nparts;
-    float mx = NEG_INF_F;
-    for (int s = lane; s < nparts; s += 32) mx = fmaxf(mx, __ldcg(mp + s));
-    mx = warp_max(mx);
-    float ls = 0.f;
-    for (int s = lane; s < nparts; s += 32)
-      ls += __ldcg(lp + s) * expf(__ldcg(mp + s) - mx);
-    ls = warp_sum(ls);
-    if (lane == 0) {
+    float mx = NEG_INF_F, ls = 0.f;
+    if (g < G) {
+#pragma unroll 4
+      for (int s = sub; s < nparts; s += HT) {
+        const float ms = __ldcg(mp + s), mn = fmaxf(mx, ms);
+        ls = ls * expf(mx - mn) + __ldcg(lp + s) * expf(ms - mn);
+        mx = mn;
+      }
+    }
+#pragma unroll
+    for (int o = HT / 2; o > 0; o >>= 1) {
+      const float mo = __shfl_xor_sync(0xffffffffu, mx, o);
+      const float lo = __shfl_xor_sync(0xffffffffu, ls, o);
+      const float mn = fmaxf(mx, mo);
+      ls = ls * expf(mx - mn) + lo * expf(mo - mn);
+      mx = mn;
+    }
+    if (g < G && sub == 0) {
       red_m[g] = mx;
       red_l[g] = ls;
     }
   }
-  float a[IT];
+  float4 a[IT];
 #pragma unroll
-  for (int it = 0; it < IT; ++it) a[it] = 0.f;
+  for (int it = 0; it < IT; ++it) a[it] = make_float4(0.f, 0.f, 0.f, 0.f);
   const int chunk = cap / G;  // parts whose weights fit at once
   for (int s0 = 0; s0 < nparts; s0 += chunk) {
     const int ns = min(chunk, nparts - s0);
     __syncthreads();
+#pragma unroll 4
     for (int i = threadIdx.x; i < G * ns; i += THREADS) {
       const int g = i / ns, s = s0 + i % ns;
       w[i] = expf(__ldcg(m_part + (row0 + g) * nparts + s) - red_m[g]);
@@ -537,11 +602,17 @@ __device__ __forceinline__ void merge_if_last(
 #pragma unroll
       for (int it = 0; it < IT; ++it) {
         const int t = threadIdx.x + it * THREADS;
-        if (t < G * D) {
-          const int g = t / D, d = t % D;
-          a[it] = fmaf(__ldcg(o_part + ((row0 + g) * nparts + s0 + s) * D +
-                              d),
-                       w[g * ns + s], a[it]);
+        if (t < G * V) {
+          const int g = t / V;
+          const float4 x = __ldcg(
+              reinterpret_cast<const float4*>(
+                  o_part + ((row0 + g) * nparts + s0 + s) * D) +
+              t % V);
+          const float wt = w[g * ns + s];
+          a[it].x = fmaf(x.x, wt, a[it].x);
+          a[it].y = fmaf(x.y, wt, a[it].y);
+          a[it].z = fmaf(x.z, wt, a[it].z);
+          a[it].w = fmaf(x.w, wt, a[it].w);
         }
       }
     }
@@ -549,17 +620,54 @@ __device__ __forceinline__ void merge_if_last(
 #pragma unroll
   for (int it = 0; it < IT; ++it) {
     const int t = threadIdx.x + it * THREADS;
-    if (t < G * D) {
-      const int g = t / D, d = t % D;
-      o[(row0 + g) * D + d] = normalise<SIGNED>(a[it], red_l[g]);
+    if (t < G * V) {
+      const int g = t / V, d = (t % V) * 4;
+      const float l = red_l[g];
+      *reinterpret_cast<float4*>(o + (row0 + g) * D + d) = make_float4(
+          normalise<SIGNED>(a[it].x, l), normalise<SIGNED>(a[it].y, l),
+          normalise<SIGNED>(a[it].z, l), normalise<SIGNED>(a[it].w, l));
       if (d == 0) {
         m_out[row0 + g] = red_m[g];
-        l_out[row0 + g] = red_l[g];
+        l_out[row0 + g] = l;
       }
     }
   }
   if (threadIdx.x == 0) *ticket = 0;
 }
+
+// The CUDA-core stream as the kernels take it: one of the two routes of
+// flash_decode.cu and block_gather.cuh (the other, the tensor-core stream
+// of decode_mma.cuh, has the same members).  Spans of rows of TA or TB
+// (block_gather: the cache's and the extras' types), a head bucket of GB.
+template <typename TA, typename TB, int D, int GB_>
+struct CudaCore {
+  static constexpr int GB = GB_;
+  // No minimum of blocks an SM in the kernels' launch bounds (0 emits
+  // none): with a minimum of 1 ptxas gave the bucket of 4 128 registers a
+  // thread where it takes 76-96 without one, and llama3-8b's 544 stage-2
+  // blocks no longer fit one wave (PERF.md §6).
+  static constexpr int MIN_BLOCKS = 0;
+  using Sm = Smem<TA, TB, D, GB>;
+  using State = WarpState<GB>;
+  static constexpr int SMEM = Sm::BYTES;
+  static constexpr int SCRATCH = Sm::P_OFF / 4;  // floats merge_if_last reuses
+  // Stage the query rows at qb for spans of TR rows; the caller syncs.
+  template <typename TR, typename T>
+  __device__ static void stage(const T* qb, int G, char* smem) {
+    stage_q<T, TR, D, GB>(qb, G, Sm::q_s(smem));
+  }
+  template <typename TR, typename Logit>
+  __device__ static void stream(const TR* k, const TR* v, int n, int G,
+                                const Logit& logit, char* smem, State& st) {
+    stream_chunk<TR, D, GB>(k, v, n, G, Sm::q_s(smem), logit, Sm::ring(smem),
+                            Sm::p_s(smem), st);
+  }
+  template <typename Finish>
+  __device__ static void merge(State& st, int G, char* smem,
+                               const Finish& finish) {
+    block_merge<D, GB>(st, G, smem, finish);
+  }
+};
 
 // Runs the statements (which must return) with `constexpr int kGB` the
 // head bucket of G (4, 8 or 16).

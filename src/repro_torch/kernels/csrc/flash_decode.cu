@@ -18,9 +18,12 @@
 // one warp computes, and the last block of each (b, hkv) row to
 // finish merges the chunks' unnormalised partials (the TPU kernel's
 // sequential S axis carried the state in VMEM scratch instead): one launch
-// a call, in a decode loop that is bound by its launches.  No tensor
-// cores: at G = 4 a tile's products are far below the size at which they
-// would pay.
+// a call, in a decode loop that is bound by its launches.  At G = 4 a
+// tile's products are far below the size at which tensor cores would pay;
+// bf16 rows of a group in the head bucket of 16 (command-r-plus's G = 12:
+// 3x the work a byte) stream through the tensor-core core of
+// decode_mma.cuh instead, in the same grid, chunks and merge (the wrapper
+// chooses: _build.decode_mma).
 //
 // Masking follows the reference: a logit with the -1e30 bias enters the
 // softmax like any other (an all-masked key set gives exp(0) = 1 per key,
@@ -29,81 +32,110 @@
 // max(m, NEG_INF) clamp.  With one chunk (S at most one chunk: the self
 // token, the 64 / 65 centroid tables) the block writes the normalised
 // output itself and no block merges.
-#include "decode_core.cuh"
+#include "decode_mma.cuh"
 
-template <typename T, int D, int GB>
-__global__ void __launch_bounds__(dc::WARPS * 32) flash_decode_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const float* __restrict__ bias,
-    float* __restrict__ o, float* __restrict__ m_out,
-    float* __restrict__ l_out, float* __restrict__ o_part,
-    float* __restrict__ m_part, float* __restrict__ l_part,
-    unsigned* __restrict__ tickets, int Hkv, int G, int S, int chunk,
-    int kv_sb, int kv_sh, float sm_scale, float cap) {
-  using Sm = dc::Smem<T, T, D, GB>;
+struct DecodeArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* bias;
+  float* o;
+  float* m_out;
+  float* l_out;
+  float* o_part;
+  float* m_part;
+  float* l_part;
+  unsigned* tickets;
+  int Hkv, G, S, chunk, kv_sb, kv_sh;
+  float sm_scale, cap;
+};
+
+// One block a (chunk, b * Hkv + h); Core: the CUDA-core stream of
+// decode_core.cuh (dc::CudaCore) or the tensor-core one of decode_mma.cuh
+// (dm::Core).
+template <typename T, int D, typename Core>
+__global__ void __launch_bounds__(dc::WARPS * 32, Core::MIN_BLOCKS)
+    flash_decode_kernel(DecodeArgs a) {
   extern __shared__ __align__(16) char smem[];
   const int split = blockIdx.x, nsplit = gridDim.x;
   const int bh = blockIdx.y;  // b * Hkv + h
-  const int s0 = split * chunk, n = min(S, s0 + chunk) - s0;
+  const int G = a.G, S = a.S, Hkv = a.Hkv;
+  const int s0 = split * a.chunk, n = min(S, s0 + a.chunk) - s0;
+  const float sm_scale = a.sm_scale, cap = a.cap;
 
-  dc::stage_q<T, T, D, GB>(q + (size_t)bh * G * D, G, Sm::q_s(smem));
+  Core::template stage<T>(reinterpret_cast<const T*>(a.q) +
+                              (size_t)bh * G * D,
+                          G, smem);
   __syncthreads();
-  const float* bb = bias == nullptr ? nullptr : bias + (size_t)bh * S + s0;
+  const float* bb = a.bias == nullptr ? nullptr : a.bias + (size_t)bh * S + s0;
   const auto logit = [=](float raw, int r) {
     return softcap_f(raw * sm_scale, cap) + (bb == nullptr ? 0.f : bb[r]);
   };
-  dc::WarpState<GB> st;
+  typename Core::State st;
   // K/V may be a view: rows D apart, heads kv_sh and batches kv_sb
   // elements apart (a sliding window's last S rows of a longer cache).
-  const size_t off = (size_t)(bh / Hkv) * kv_sb + (size_t)(bh % Hkv) * kv_sh +
-                     (size_t)s0 * D;
-  dc::stream_chunk<T, D, GB>(k + off, v + off, n, G, Sm::q_s(smem), logit,
-                             Sm::ring(smem), Sm::p_s(smem), st);
-  dc::block_merge<D, GB>(st, G, smem, [&](int g, int d, float m, float l,
-                                          float a) {
+  const size_t off = (size_t)(bh / Hkv) * a.kv_sb +
+                     (size_t)(bh % Hkv) * a.kv_sh + (size_t)s0 * D;
+  Core::template stream<T>(reinterpret_cast<const T*>(a.k) + off,
+                           reinterpret_cast<const T*>(a.v) + off, n, G, logit,
+                           smem, st);
+  Core::merge(st, G, smem, [&](int g, int d, float m, float l, float acc) {
     // Final outputs with one chunk, else the chunk's partial.
     const size_t row = (size_t)bh * G + g;
     if (nsplit == 1) {
-      o[row * D + d] = dc::normalise<false>(a, l);
+      a.o[row * D + d] = dc::normalise<false>(acc, l);
       if (d == 0) {
-        m_out[row] = m;
-        l_out[row] = l;
+        a.m_out[row] = m;
+        a.l_out[row] = l;
       }
     } else {
       const size_t prow = row * nsplit + split;
-      o_part[prow * D + d] = a;
+      a.o_part[prow * D + d] = acc;
       if (d == 0) {
-        m_part[prow] = m;
-        l_part[prow] = l;
+        a.m_part[prow] = m;
+        a.l_part[prow] = l;
       }
     }
   });
   if (nsplit > 1)
-    dc::merge_if_last<false, D, GB>(
-        tickets + bh, nsplit, G, (size_t)bh * G, o_part, m_part, l_part, o,
-        m_out, l_out, reinterpret_cast<float*>(smem), Sm::P_OFF / 4);
+    dc::merge_if_last<false, D, Core::GB>(
+        a.tickets + bh, nsplit, G, (size_t)bh * G, a.o_part, a.m_part,
+        a.l_part, a.o, a.m_out, a.l_out, reinterpret_cast<float*>(smem),
+        Core::SCRATCH);
 }
 
+template <typename T, int D, typename Core>
+static int run(const DecodeArgs& a, dim3 grid, cudaStream_t stream) {
+  constexpr int smem = Core::SMEM;
+  cudaError_t err = allow_smem(flash_decode_kernel<T, D, Core>, smem);
+  if (err != cudaSuccess) return (int)err;
+  flash_decode_kernel<T, D, Core><<<grid, dc::WARPS * 32, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// mma: 1 = the tensor-core stream (bf16 only), with two ring slots a team
+// of warps (one measured slower over a chunk of 512 rows, PERF.md §6); 0 =
+// the CUDA-core stream, which is not built for bf16 in the head bucket of
+// 16 (those calls take the tensor cores).
 template <typename T>
-static int launch(const void* q, const void* k, const void* v,
-                  const float* bias, float* o, float* m, float* l,
-                  float* o_part, float* m_part, float* l_part,
-                  unsigned* tickets, int B, int Hkv, int G, int S, int D,
-                  int chunk, int kv_sb, int kv_sh, float sm_scale, float cap,
+static int launch(const DecodeArgs& a, int B, int D, int mma,
                   cudaStream_t stream) {
-  if (G < 1 || G > GMAX || S < 1 || chunk < 1)
+  if (a.G < 1 || a.G > GMAX || a.S < 1 || a.chunk < 1)
     return (int)cudaErrorInvalidValue;
-  const int nsplit = (S + chunk - 1) / chunk;
-  const dim3 grid(nsplit, B * Hkv);
-  DISPATCH_HEAD_DIM(D, DISPATCH_HEAD_BUCKET(G, {
-    constexpr int smem = dc::Smem<T, T, kD, kGB>::BYTES;
-    cudaError_t err = allow_smem(flash_decode_kernel<T, kD, kGB>, smem);
-    if (err != cudaSuccess) return (int)err;
-    flash_decode_kernel<T, kD, kGB><<<grid, dc::WARPS * 32, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, bias, o, m, l, o_part, m_part,
-        l_part, tickets, Hkv, G, S, chunk, kv_sb, kv_sh, sm_scale, cap);
-    return (int)cudaGetLastError();
-  }))
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  const dim3 grid((a.S + a.chunk - 1) / a.chunk, B * a.Hkv);
+  DISPATCH_HEAD_DIM(D, {
+    if constexpr (kBf16) {
+      if (mma == 1) return run<T, kD, dm::Core<kD, 2>>(a, grid, stream);
+    }
+    if (mma != 0) return (int)cudaErrorInvalidValue;
+    DISPATCH_HEAD_BUCKET(a.G, {
+      if constexpr (kBf16 && kGB == 16)
+        return (int)cudaErrorInvalidValue;
+      else
+        return run<T, kD, dc::CudaCore<T, T, kD, kGB>>(a, grid, stream);
+    })
+  })
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v); bias may be NULL; cap <= 0:
@@ -112,7 +144,8 @@ static int launch(const void* q, const void* k, const void* v,
 // D).  o_part (B*H, nsplit, D), m_part / l_part (B*H, nsplit) are
 // the wrapper's scratch for nsplit = ceil(S / chunk) > 1, and tickets (B *
 // Hkv) its zeroed counters of the last-block merge, which the kernel
-// leaves zeroed (all may be NULL with one chunk).
+// leaves zeroed (all may be NULL with one chunk).  mma: the stream, as
+// launch() takes it (the wrapper's choice: _build.decode_mma).
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const float* bias,
                                    float* o, float* m, float* l,
@@ -120,13 +153,12 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
                                    float* l_part, unsigned* tickets, int B,
                                    int Hkv, int G, int S, int D, int chunk,
                                    int kv_sb, int kv_sh, float sm_scale,
-                                   float cap, int dtype, void* stream) {
+                                   float cap, int dtype, int mma,
+                                   void* stream) {
+  const DecodeArgs a{q, k, v, bias, o, m, l, o_part, m_part, l_part,
+                     tickets, Hkv, G, S, chunk, kv_sb, kv_sh, sm_scale, cap};
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, bias, o, m, l, o_part, m_part,
-                                 l_part, tickets, B, Hkv, G, S, D, chunk,
-                                 kv_sb, kv_sh, sm_scale, cap, st);
-  return launch<float>(q, k, v, bias, o, m, l, o_part, m_part, l_part,
-                       tickets, B, Hkv, G, S, D, chunk, kv_sb, kv_sh,
-                       sm_scale, cap, st);
+  if (dtype == 1) return launch<__nv_bfloat16>(a, B, D, mma, st);
+  if (dtype == 0) return launch<float>(a, B, D, mma, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -16,6 +16,16 @@ batch and head strides, so the window runs in place, with no copy (a copy
 of a 4096-row window at gemma2-2b's width moves 33.5 MB a layer at B = 2).
 Each row's D elements must be contiguous and the rows D apart, and K and V
 must share their strides.
+
+bf16 rows read by a group in the head bucket of 16 (command-r-plus's G =
+12) go to the decode core's tensor-core stream (``csrc/decode_mma.cuh``:
+logits and P.V on mma.sync, in the same grid, chunks and merge), counted
+under ``flash_decode[g16]``; f32 rows and G <= 8 keep the CUDA-core loops
+(``_build.decode_mma``).  The exact loop's self token (S = 1) takes the
+tensor-core stream too: no rule sends short spans back, as that stream
+measured faster there (0.0047 ms of device time against the CUDA-core
+bucket's 0.0103 at command-r-plus's (2, 96, 128) over one row, one H100
+80GB HBM3 at 700 W, ``tools/kernel_times.py --only g16``).
 """
 from __future__ import annotations
 
@@ -100,6 +110,9 @@ def flash_decode(
   f32 = dict(dtype=torch.float32, device=q.device)
   if bias is not None:
     bias = bias.to(**f32).contiguous()
+  mma = _build.decode_mma(NAME, q.dtype, G)
+  if mma:  # the tensor-core stream stages the query 16 bytes a copy
+    _build.check_aligned(NAME, q)
   chunk = _chunk(S, D, k.element_size(), B * Hkv,
                  _build.sm_count(q.device))
   nsplit = -(-S // chunk)
@@ -114,9 +127,9 @@ def flash_decode(
   err = _build.library().flash_decode_launch(
       P(q), P(k), P(v), P(bias), P(o), P(m), P(l), *map(P, part), B, Hkv,
       G, S, D, chunk, kv_sb, kv_sh, float(sm_scale), float(cap or 0.0), code,
-      _build.stream_ptr(q))
+      int(mma), _build.stream_ptr(q))
   _build.check(err, NAME)
-  _build.LAUNCHES[NAME] += 1
+  _build.LAUNCHES[_build.decode_branch(NAME, q.dtype, G)] += 1
   return o, m, l
 
 

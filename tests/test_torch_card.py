@@ -367,12 +367,14 @@ def test_card_fused_synopsis_refuses_unbuilt_shapes(cuda, D, G):
 
 def _check_gather(dev, dtype, q, k, v, sel, C, kw, key=None):
   """block_gather_attention on the card against its plain version on the
-  same (card) inputs, softcap 30; one launch of branch ``key``."""
+  same (card) inputs, softcap 30; one launch of branch ``key`` (default:
+  the stream the wrapper picks for the dtype and group)."""
   args = _to(dev, dtype, q, k, v)
   kwc = {n: (t.to(dev) if n in ("sel_bias", "extras_bias")
              else t.to(device=dev, dtype=dtype)) for n, t in kw.items()}
   opts = dict(cluster_size=C, sm_scale=q.shape[-1] ** -0.5, cap=30.0)
-  key = key or "block_gather_attention"
+  key = key or _build.decode_branch("block_gather_attention", dtype,
+                                    q.shape[1] // k.shape[1])
   n0 = _build.LAUNCHES[key]
   got = block_gather_attention(*args, sel.to(dev), **opts, **kwc)
   torch.cuda.synchronize()
@@ -551,6 +553,91 @@ def test_card_decode_kernels_at_large_groups(cuda, dtype, kernel, G):
   for a, b in zip(got, want):
     assert torch.isfinite(a).all()
     _close(a, b, TOL[dtype])
+
+
+# The decode core's tensor-core stream (csrc/decode_mma.cuh): bf16 rows read
+# by a group in the head bucket of 16, every head dim.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", _build.HEAD_DIMS)
+@pytest.mark.parametrize("G", [9, 12, 16])
+@pytest.mark.parametrize("S,bias_kind,cap", [
+    (1, None, None), (1, "masked", 30.0), (65, "masked", None),
+    (8320, "masked", 30.0)])
+def test_card_decode_mma_flash_decode(cuda, D, G, S, bias_kind, cap):
+  """flash_decode in bf16 at G = 9, 12 and 16 on the tensor-core stream:
+  the self token (S = 1), 65 rows (one chunk, a ragged tile) and 8320
+  (chunks merged), a log(count) bias with -1e30 on some keys, cap 30.  One
+  launch of ``flash_decode[g16]``, against the plain version."""
+  g = torch.Generator().manual_seed(D + G + S)
+  B, Hkv = 2, 2
+  q, k, v = _to(cuda, torch.bfloat16,
+                *_decode_inputs(g, S, D=D, B=B, Hkv=Hkv, G=G))
+  bias = None
+  if bias_kind is not None:
+    bias = torch.log(torch.randint(1, 129, (B, Hkv, S), generator=g).float())
+    bias[torch.rand((B, Hkv, S), generator=g) < 0.3] = NEG_INF
+    bias = bias.to(cuda)
+  kw = dict(sm_scale=D ** -0.5, cap=cap)
+  key = _build.branch("flash_decode", _build.DECODE_MMA)
+  n0 = _build.LAUNCHES[key]
+  got = flash_decode(q, k, v, bias, **kw)
+  torch.cuda.synchronize()
+  assert _build.LAUNCHES[key] == n0 + 1
+  for a, b in zip(got, ref.flash_decode_ref(q, k, v, bias, **kw)):
+    assert torch.isfinite(a).all()
+    _close(a, b, TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", _build.HEAD_DIMS)
+@pytest.mark.parametrize("G", [9, 12, 16])
+@pytest.mark.parametrize("case", ["padded", "equal_keys", "all_padded"])
+def test_card_decode_mma_block_gather(cuda, D, G, case):
+  """block_gather_attention in bf16 at G = 9, 12 and 16: clusters of 48
+  rows (tiles of 16 to 64 rows, a ragged last one), a padded id, a
+  cluster whose part cancels, or extras only; both epilogues.  One launch
+  of ``block_gather_attention[g16]``, against the plain version."""
+  _check_gather(cuda, torch.bfloat16, *_gather_inputs(
+      case, 6 * 48, D=D, C=48, G=G, E=129, seed=D + G),
+      key=_build.branch("block_gather_attention", _build.DECODE_MMA))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash_decode", "block_gather"])
+@pytest.mark.parametrize("fault", ["build", "launch"])
+def test_card_decode_mma_failures_raise(cuda, monkeypatch, kernel, fault):
+  """No fallback: where the tensor-core stream's library fails to build, or
+  its launch returns an error (here the C entry point's reply to a route
+  flag out of range, mma = 2), the wrapper raises and counts no
+  launch; it never gives way to the CUDA-core loops or the plain
+  version."""
+  q, k, v, sel, C, kw = _gather_inputs("padded", 6 * 48, D=128, C=48, G=12,
+                                       E=129, seed=5)
+  args = _to(cuda, torch.bfloat16, q, k, v)
+  kwc = {n: (t.to(cuda) if n in ("sel_bias", "extras_bias")
+             else t.to(device=cuda, dtype=torch.bfloat16))
+         for n, t in kw.items()}
+  if kernel == "flash_decode":
+    call = lambda: flash_decode(*args, sm_scale=0.1)  # noqa: E731
+  else:
+    call = lambda: block_gather_attention(  # noqa: E731
+        *args, sel.to(cuda), cluster_size=C, sm_scale=0.1, **kwc)
+  call()
+  torch.cuda.synchronize()
+  if fault == "build":
+    def broken(*a, **k):
+      raise RuntimeError("nvcc failed (forced)")
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "build", broken)
+    match = "forced"
+  else:
+    monkeypatch.setattr(_build, "decode_mma", lambda name, dtype, G: 2)
+    match = "failed to launch"
+  before = _build.launch_counts()
+  with pytest.raises(RuntimeError, match=match):
+    call()
+  assert _build.launch_counts() == before
 
 
 @pytest.mark.cuda
@@ -1365,7 +1452,8 @@ def test_card_latent_fp8_widening_all_codes(cuda, G, D):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("spec", ["none", "int8+kv", "fp8+kv"])
-@pytest.mark.parametrize("G,D,Hkv", [(4, 128, 2), (128, 576, 1)])
+@pytest.mark.parametrize("G,D,Hkv", [(4, 128, 2), (12, 128, 2),
+                                     (128, 576, 1)])
 def test_card_block_gather_row_map(cuda, dtype, spec, G, D, Hkv):
   """A random map of 4 batch rows into a stack of 12 shard rows (repeats
   included), on every branch the fleet reaches (the unquantized cache and
@@ -1412,6 +1500,8 @@ def test_card_block_gather_row_map(cuda, dtype, spec, G, D, Hkv):
   kind = qc.kind if qc.sorted_kv else "none"
   key = _build.branch("block_gather_attention",
                       _build.latent_branch(kind) if latent else kind)
+  if kind == "none" and not latent:
+    key = _build.decode_branch("block_gather_attention", dtype, G)
   n0 = _build.LAUNCHES[key]
   got = block_gather_attention(*args, **opts, rows=rows.to(cuda), **dev)
   torch.cuda.synchronize()
@@ -2420,8 +2510,8 @@ def _wrapper_calls(dev):
   """Every kernel wrapper's calls, on ``dev``, as the ops layer makes
   them at small shapes: prefill (f32, bf16), each quant spec's build,
   fused decode and stage 2, the unfused op, exact decode over a window's
-  strided view, and the latent core's kernels (f32 and an int8+kv
-  arena)."""
+  strided view (bf16 also at G = 12: the tensor-core stream), and the
+  latent core's kernels (f32 and an int8+kv arena)."""
   names = ("flash_prefill", "segment_build",
            "fused_synopsis_score_attention", "block_gather_attention",
            "flash_decode", "synopsis_score")
@@ -2439,6 +2529,7 @@ def _wrapper_calls(dev):
         (64, 2, 4, torch.float32, ("none", "int8", "fp8", "int8+kv",
                                    "fp8+kv")),
         (64, 2, 4, torch.bfloat16, ("none",)),
+        (64, 1, 12, torch.bfloat16, ("none",)),
         (48, 1, 8, torch.float32, ("none", "int8+kv"))):
       H = Hkv * G
 

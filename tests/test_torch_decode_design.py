@@ -44,7 +44,13 @@ int8 / fp8 cache) are emulated last: head tiles of ``LATENT_MMA_HEADS``,
 chunks of ``latent_mma_chunk`` rows in tiles of ``LATENT_MMA_ROWS``, the
 query and P each as bf16 hi + lo with the products summed in f32, the
 logits as the three warpgroups' thirds of the k steps; held against the
-plain versions and, at SMOKE size, the Pallas kernels.
+plain versions and, at SMOKE size, the Pallas kernels.  The decode core's
+tensor-core stream (``csrc/decode_mma.cuh``: bf16 rows for a group in the
+head bucket of 16) comes after it: 16-row M tiles of the query, tiles of
+16-row steps, the fragment's online softmax, P as bf16 hi + lo, the
+warps' partials and the chunk / part merges, at G = 9, 12 and 16 against
+the plain versions and the Pallas kernels; and the route and launch key
+each wrapper picks, with the allocations of its ``meta`` branch.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -148,9 +154,10 @@ def _finish(parts, B, H, D, signed):
 def gather_parts(q, k, v, selected, *, cluster_size, sm_scale=1.0, cap=None,
                  k_sel=None, v_sel=None, sel_bias=None, extras_k=None,
                  extras_v=None, extras_bias=None, kv_k_scale=None,
-                 kv_v_scale=None):
+                 kv_v_scale=None, span=_span):
   """block_gather's parts, as its blocks leave them (unnormalised): one
-  per selected cluster, then one per extras chunk."""
+  per selected cluster, then one per extras chunk.  ``span(qg, k, v,
+  logit, tile_rows)``: a block's stream (the CUDA-core one by default)."""
   B, H, D = q.shape
   _, Hkv, _, _ = k.shape
   G, C = H // Hkv, cluster_size
@@ -173,8 +180,8 @@ def gather_parts(q, k, v, selected, *, cluster_size, sm_scale=1.0, cap=None,
       x = ref.apply_softcap(raw * ksc[..., None, None] * sm_scale, cap)
       return torch.where(valid[..., None, None], x, torch.tensor(NEG_INF))
 
-    acc, m, l = _span(qg, kc, vc, logit,
-                      _build.decode_tile_rows(D, k.element_size()))
+    acc, m, l = span(qg, kc, vc, logit,
+                     _build.decode_tile_rows(D, k.element_size()))
     acc = acc * vsc[..., None, None]
     if k_sel is not None:                # the decrement: a row of weight -1
       sc = ref.apply_softcap(torch.einsum(
@@ -198,9 +205,9 @@ def gather_parts(q, k, v, selected, *, cluster_size, sm_scale=1.0, cap=None,
         return (ref.apply_softcap(raw * sm_scale, cap)
                 + eb[:, None, None, r0:r1])
 
-      parts.append(_span(qg, extras_k[:, :, x0:x0 + xrows].float(),
-                         extras_v[:, :, x0:x0 + xrows].float(), logit,
-                         _build.decode_tile_rows(D, extras_k.element_size())))
+      parts.append(span(qg, extras_k[:, :, x0:x0 + xrows].float(),
+                        extras_v[:, :, x0:x0 + xrows].float(), logit,
+                        _build.decode_tile_rows(D, extras_k.element_size())))
   return parts
 
 
@@ -210,7 +217,7 @@ def emulate_block_gather(q, k, v, selected, **kw):
 
 
 def emulate_flash_decode(q, k, v, bias=None, *, sm_scale=1.0, cap=None,
-                         chunk):
+                         chunk, span=_span):
   B, H, D = q.shape
   Hkv, S = k.shape[1], k.shape[2]
   qg = q.reshape(B, Hkv, H // Hkv, D).float()
@@ -223,8 +230,8 @@ def emulate_flash_decode(q, k, v, bias=None, *, sm_scale=1.0, cap=None,
       x = ref.apply_softcap(raw * sm_scale, cap)
       return x if bc is None else x + bc[:, :, None, r0:r1]
 
-    parts.append(_span(qg, k[:, :, s0:s0 + chunk].float(),
-                       v[:, :, s0:s0 + chunk].float(), logit, tr))
+    parts.append(span(qg, k[:, :, s0:s0 + chunk].float(),
+                      v[:, :, s0:s0 + chunk].float(), logit, tr))
   return _finish(parts, B, H, D, False)
 
 
@@ -1037,3 +1044,204 @@ def test_latent_mma_query_split_keeps_the_logits():
   assert excess(split) < 0.01
   print(f"logit error / bf16 card bound: q_hi + q_lo {excess(split):.2e}, "
         f"q rounded once {excess(one):.2e}")
+
+
+# ---------------------------------------------------------------------------
+# The decode core's tensor-core stream (csrc/decode_mma.cuh): flash_decode
+# and block_gather on bf16 rows for a group in the head bucket of 16
+# (command-r-plus's G = 12).  The group's query rows are one 16-row M tile
+# (rows past G zero and dead: p = 0), a block's tiles (_build's tile rows,
+# at least 16) go to its teams of warps in turn (a warp a team at D <= 64;
+# above, D / 64 warps read one tile and split O's columns: the same sums),
+# each tile as 16-row steps: logits as f32 sums of exact bf16 products,
+# the step's online softmax per head (the fragment's quad max and sum), P
+# split into bf16 hi + lo through P.V; the warps' partials merge as the
+# decode core's do, and the chunks (flash_decode) or parts with the
+# decrement row (block_gather) as before.  Tolerance: the file's 2e-5
+# (the P split keeps ~2^-17 of p; sums in other orders).
+# ---------------------------------------------------------------------------
+
+def _g16_geo(D):
+  """(rows a tile, teams a block): the decode core's tile, at least one
+  16-row step; the warps in teams of D / 64 above D = 64."""
+  rows = max(16, _build.decode_tile_rows(D, 2))
+  return rows, _build.DECODE_WARPS // max(1, D // 64)
+
+
+def _g16_span(qg, k, v, logit, tile_rows=None):
+  """One block of the tensor-core stream over the rows of k, v (..., n, D)
+  (bf16 values as f32) for query groups qg (..., G, D); ``tile_rows`` (the
+  CUDA-core stream's) is not its geometry.  Returns the unnormalised
+  (acc, m, l) of the G live heads."""
+  del tile_rows
+  n, D = k.shape[-2:]
+  lead, G = qg.shape[:-2], qg.shape[-2]
+  q16 = torch.zeros(lead + (16, D))
+  q16[..., :G, :] = qg
+  live = (torch.arange(16) < G)[:, None]
+  rows, readers = _g16_geo(D)
+  ntiles = -(-n // rows)
+  parts = []
+  for w in range(readers):
+    m = torch.full(lead + (16,), NEG_INF)
+    l = torch.zeros(lead + (16,))
+    acc = torch.zeros(lead + (16, D))
+    for t in range(w, ntiles, readers):
+      for r0 in range(t * rows, min(n, (t + 1) * rows), 16):
+        r1 = min(n, r0 + 16)
+        raw = torch.einsum("...gd,...rd->...gr", q16, k[..., r0:r1, :])
+        x = torch.where(live, logit(raw, r0, r1), torch.tensor(NEG_INF))
+        m_new = torch.maximum(m, x.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(live, torch.exp(x - m_new[..., None]),
+                        torch.tensor(0.0))
+        l = l * alpha + p.sum(-1)
+        hi, lo = _bf16_split(p)
+        acc = (acc * alpha[..., None]
+               + torch.einsum("...gr,...rd->...gd", hi, v[..., r0:r1, :])
+               + torch.einsum("...gr,...rd->...gd", lo, v[..., r0:r1, :]))
+        m = m_new
+    parts.append((acc[..., :G, :], m[..., :G], l[..., :G]))
+  return _combine(parts)
+
+
+def _bf16_inputs(*arrays):
+  """numpy f32 arrays rounded to bf16: (torch bf16 tensors, numpy f32 of
+  the same values for the Pallas kernels)."""
+  ts = [_t(a).to(torch.bfloat16) for a in arrays]
+  return ts, [t.float().numpy() for t in ts]
+
+
+G16_DECODE_CASES = [(1, None, None), (65, "masked", None),
+                    (8192, None, None), (8320, "masked", 30.0)]
+
+
+@pytest.mark.parametrize("G", [9, 12, 16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("S,bias_kind,cap", G16_DECODE_CASES)
+def test_g16_decode_design_matches_plain_and_pallas(G, D, S, bias_kind, cap):
+  """flash_decode on the tensor-core stream in the chunks of the exact
+  path's grid (B Hkv = 16) at this D: the self token, 65 rows with a
+  masked log(count) bias, the whole cache and 8320 rows after an absorb
+  with cap 30, against the plain version and the Pallas kernel."""
+  B, Hkv = 1, 1 if S >= 8192 else 2
+  rng = np.random.default_rng(G * D + S)
+  (q, k, v), (jq, jk, jv) = _bf16_inputs(
+      _normal(rng, B, Hkv * G, D), _normal(rng, B, Hkv, S, D),
+      _normal(rng, B, Hkv, S, D))
+  bias = None
+  if bias_kind is not None:
+    bias = np.log(rng.integers(1, 129, (B, Hkv, S))).astype(np.float32)
+    bias[rng.random((B, Hkv, S)) < 0.4] = NEG_INF
+  sm = D ** -0.5
+  tb = None if bias is None else _t(bias)
+  got = emulate_flash_decode(q, k, v, tb, sm_scale=sm, cap=cap,
+                             chunk=_chunk(S, D, 2, 16, H100_SMS),
+                             span=_g16_span)
+  want = ref.flash_decode_ref(q, k, v, tb, sm_scale=sm, cap=cap)
+  jax_out = jops._decode(jnp.asarray(jq), jnp.asarray(jk), jnp.asarray(jv),
+                         None if bias is None else jnp.asarray(bias), sm,
+                         "interpret", cap=cap)
+  for g, w, j in zip(got, want, jax_out):
+    assert torch.isfinite(g).all()
+    _close(g, w)
+    _close(g, j)
+
+
+@pytest.mark.parametrize("G", [9, 12, 16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("case", ["budget0", "equal_keys", "c16_padded",
+                                  "absorbed_m65"])
+def test_g16_gather_design_matches_plain_and_pallas(G, D, case):
+  """block_gather on the tensor-core stream: every selected cluster a
+  part (C = 16: one step; C = 128: several tiles), the decrement row of
+  weight -1, the extras in chunks, padded ids, a part that cancels, extras
+  only; against the plain version and the Pallas kernel."""
+  q, k, v, sel, C, kw = _gather_case(case, seed=G + D, D=D, B=2, Hkv=1,
+                                     G=G)
+  names = sorted(n for n in kw if n not in ("sel_bias", "extras_bias"))
+  (q, k, v, *rows), (jq, jk, jv, *jrows) = _bf16_inputs(
+      q, k, v, *(kw[n] for n in names))
+  tk = {**{n: _t(kw[n]) for n in ("sel_bias", "extras_bias") if n in kw},
+        **dict(zip(names, rows))}
+  jkw = {**{n: jnp.asarray(kw[n]) for n in ("sel_bias", "extras_bias")
+            if n in kw}, **{n: jnp.asarray(a) for n, a in zip(names, jrows)}}
+  opts = dict(cluster_size=C, sm_scale=D ** -0.5, cap=30.0)
+  sel_t = _t(sel)
+  B, H, _ = q.shape
+  got = _finish(gather_parts(q, k, v, sel_t, **opts, **tk, span=_g16_span),
+                B, H, D, True)
+  want = ref.fused_gather_attention_ref(q, k, v, sel_t, **opts, **tk)
+  jax_out = j_block_gather(jnp.asarray(jq), jnp.asarray(jk), jnp.asarray(jv),
+                           jnp.asarray(sel), interpret=True, **opts, **jkw)
+  for g, w, j in zip(got, want, jax_out):
+    assert torch.isfinite(g).all()
+    _close(g, w)
+    _close(g, j)
+
+
+@pytest.mark.parametrize("name,dtype,G,mma", [
+    ("flash_decode", torch.bfloat16, 12, True),
+    ("flash_decode", torch.bfloat16, 9, True),
+    ("flash_decode", torch.bfloat16, 16, True),
+    ("flash_decode", torch.bfloat16, 8, False),
+    ("flash_decode", torch.float32, 12, False),
+    ("block_gather_attention", torch.bfloat16, 12, True),
+    ("block_gather_attention", torch.bfloat16, 4, False),
+    ("block_gather_attention", torch.int8, 12, False),
+    ("block_gather_attention", torch.float32, 16, False),
+    ("fused_synopsis_score_attention", torch.bfloat16, 12, False),
+    ("synopsis_score", torch.bfloat16, 12, False)])
+def test_g16_route_and_launch_key(name, dtype, G, mma):
+  """The stream each wrapper passes to its C entry point (1 for the
+  tensor-core stream, 0 for the CUDA-core loops) and the key its launch
+  counts under, by the rows' dtype and the group: the tensor-core stream
+  for bf16 in the head bucket of 16, the CUDA-core loops otherwise (stage
+  1 and the score kernel always)."""
+  assert _build.decode_mma(name, dtype, G) is mma
+  key = _build.decode_branch(name, dtype, G)
+  assert key == (f"{name}[{_build.DECODE_MMA}]" if mma else name)
+  assert key in _build.LAUNCHES
+
+
+@pytest.mark.parametrize("kernel", ["flash_decode", "block_gather"])
+def test_g16_meta_branch_allocates_what_the_launch_does(kernel):
+  """On ``meta`` (the dry run) each wrapper at command-r-plus's shape (G =
+  12, bf16: the tensor-core stream) allocates its outputs and one scratch
+  buffer of its parts' partials, as the launch does (the stream changes
+  neither), and launches nothing."""
+  from repro_torch.analysis.tracker import MemoryTracker
+  from repro_torch.kernels.block_gather_attention import (
+      block_gather_attention as gather)
+  from repro_torch.kernels.flash_decode import flash_decode
+  B, Hkv, G, D, S, C, I, E = 2, 8, 12, 128, 8192, 128, 32, 129
+  H = Hkv * G
+  meta = dict(device="meta", dtype=torch.bfloat16)
+  q = torch.empty((B, H, D), **meta)
+  k = torch.empty((B, Hkv, S, D), **meta)
+  if kernel == "flash_decode":
+    args, kw = (q, k, k), {}
+    nparts = -(-S // _chunk(S, D, 2, B * Hkv, H100_SMS))
+    fn = flash_decode
+  else:
+    ek = torch.empty((B, Hkv, E, D), **meta)
+    kw = dict(cluster_size=C,
+              k_sel=torch.empty((B, Hkv, I, D), **meta),
+              v_sel=torch.empty((B, Hkv, I, D), **meta),
+              sel_bias=torch.empty((B, Hkv, I), device="meta"),
+              extras_k=ek, extras_v=ek,
+              extras_bias=torch.empty((B, E), device="meta"))
+    args = (q, k, k, torch.empty((B, Hkv, I), device="meta",
+                                 dtype=torch.int32))
+    nparts = _parts(I, E, True)[1]
+    fn = gather
+  assert _build.decode_mma(fn.__name__, torch.bfloat16, G)
+  before = _build.launch_counts()
+  fn(*args, **kw)                          # the merge tickets, made once
+  with MemoryTracker((args, kw)) as trk:
+    out = fn(*args, **kw)
+    trk.finish(out)
+  unit = lambda n: -(-n // 512) * 512  # noqa: E731
+  assert trk.output_bytes == unit(B * H * D * 4) + 2 * unit(B * H * 4)
+  assert trk.temp_bytes == unit(B * H * nparts * (D + 2) * 4)
+  assert _build.launch_counts() == before

@@ -407,9 +407,11 @@ def test_engine_refuses_what_it_has_not_ported(llama, field, value, item):
   """A step backend that is neither the cluster tier's nor the fleet
   tier's (A.7a-b, ported since) raises; the corpus cache (A.5), admission
   (A.4) and the contracts (A.3), ported since, build an engine that
-  serves."""
+  serves.  The deadline is one no step misses: predictive shedding
+  follows the host clock, and at the default 80 ms a loaded host would
+  shed a request."""
   _, _, cfg, params, _ = llama
-  kw = dict(prompt_len=32, max_new_tokens=2)
+  kw = dict(prompt_len=32, max_new_tokens=2, deadline_ms=1e6)
   extra = {}
   if field == "backend":
     extra["backend"] = value

@@ -31,7 +31,17 @@ kernel's own launches (median over ``--rounds`` turns of 20 calls each):
   kernels issue (every product twice: the query and P split in bf16
   halves) at the bf16 tensor rate, the decrement rows' at the f32 rate.
   A call's time sums its rows (the main kernel's and, where it has one,
-  the merge launch's), so it reads either tree.
+  the merge launch's), so it reads either tree;
+* the head bucket of 16 (``--only g16``) at command-r-plus's decode (96 /
+  8 heads of 128, G = 12, bf16): ``flash_decode`` over the exact loop's
+  cache (2, 8, 8192, 128), beside SDPA on the same inputs (GQA, one
+  query; its device rows, warm), and over the self token (S = 1);
+  ``block_gather_attention`` over 32 clusters of 128 rows of the 8192-row
+  cache with the 129 extras rows and the decrement rows; warm and
+  L2-cold, each beside its byte bound.  The same calls at arctic-480b's G
+  = 7, llama3-8b's G = 4 and gemma2-2b's D = 256 (``G16_SHAPES``: the
+  CUDA-core loops in every tree) are data points beside it; the kernels'
+  rows keep their names in every tree.
 
 ``--chunking BLOCKS_PER_SM,MIN_CHUNK`` sets the chunk rule of the split
 decode kernels (``flash_decode._chunk``, which stage 1 follows in a tree
@@ -244,11 +254,88 @@ def latent_times(g, rounds, label, smi):
          4 * H * D * (rows + B * (E + I)), kind=kind)
 
 
+# The decode shapes of --only g16: (arch, Hkv, G, D, cap).  command-r-plus's
+# G = 12 takes the tensor-core stream in a tree that has it; the others
+# stay on the CUDA-core loops in both trees, whose shared merge and
+# staging a tree may change: arctic's G = 7 (the bucket of 8), llama3-8b's
+# G = 4 and gemma2-2b's D = 256 (G = 2, softcap 50).
+G16_SHAPES = (("command-r-plus-104b", 8, 12, 128, None),
+              ("arctic-480b", 8, 7, 128, None),
+              ("llama3-8b", 8, 4, 128, None),
+              ("gemma2-2b", 4, 2, 256, 50.0))
+
+
+def g16_times(g, rounds, label, smi):
+  from repro_torch.kernels import ops
+  from repro_torch.kernels.block_gather_attention import (
+      block_gather_attention as gather)
+  from repro_torch.kernels.flash_decode import flash_decode
+  B, S, C, I, E = 2, 8192, 128, 32, 129
+  bf = torch.bfloat16
+  sdpa = torch.nn.functional.scaled_dot_product_attention
+
+  def rnd(*shape):
+    return torch.randn(shape, generator=g, device="cuda").to(bf)
+
+  def emit(kernel, fn, names, nbytes_, cold=True, **extra):
+    warm = statistics.median(device_ms(fn, names) for _ in range(rounds))
+    cold_ms = (statistics.median(device_ms(fn, names, cold=True)
+                                 for _ in range(rounds)) if cold else None)
+    bound = nbytes_ / HBM_BYTES_PER_S * 1e3
+    print(json.dumps({"tree": label, "kernel": kernel, **extra,
+                      "device_ms": warm, "device_ms_cold": cold_ms,
+                      "bound_ms": bound, "share_warm": bound / warm,
+                      "share_cold": None if cold_ms is None
+                      else bound / cold_ms, "card": smi}), flush=True)
+
+  for arch, Hkv, G, D, cap in G16_SHAPES:
+    H, sm = Hkv * G, D ** -0.5
+    at = dict(arch=arch, G=G, D=D)
+    q, k, v = rnd(B, H, D), rnd(B, Hkv, S, D), rnd(B, Hkv, S, D)
+    fn = lambda: flash_decode(q, k, v, sm_scale=sm, cap=cap)
+    emit("flash_decode", fn, ("flash_decode_kernel",),
+         nbytes(q, k, v, *fn()), **at, span="cache", S=S)
+    if cap is None:  # SDPA has no softcap
+      lib = lambda: sdpa(q[:, :, None], k, v, enable_gqa=True)
+      emit("sdpa", lib, ("",), nbytes(q, k, v, lib()), cold=False, **at,
+           span="cache", S=S)
+    k1, v1 = k[:, :, :1].contiguous(), v[:, :, :1].contiguous()
+    fn = lambda: flash_decode(q, k1, v1, sm_scale=sm, cap=cap)
+    emit("flash_decode", fn, ("flash_decode_kernel",),
+         nbytes(q, k1, v1, *fn()), **at, span="self token", S=1)
+
+    M = S // C
+    sel = torch.stack([torch.stack([torch.randperm(M, generator=g,
+                                                   device="cuda")[:I]
+                                    for _ in range(Hkv)])
+                       for _ in range(B)]).to(torch.int32)
+    safe = sel.long()[..., None].expand(-1, -1, -1, D)
+    k_syn = k.float().reshape(B, Hkv, M, C, D).mean(3).to(bf)
+    v_syn = v.float().reshape(B, Hkv, M, C, D).mean(3).to(bf)
+    ek, ev, eb = ops.build_extras(rnd(B, Hkv, E - 1, D),
+                                  rnd(B, Hkv, E - 1, D), None,
+                                  (rnd(B, Hkv, 1, D), rnd(B, Hkv, 1, D)))
+    gkw = dict(cluster_size=C, sm_scale=sm, cap=cap,
+               k_sel=torch.gather(k_syn, 2, safe),
+               v_sel=torch.gather(v_syn, 2, safe),
+               sel_bias=torch.full((B, Hkv, I), 4.85, device="cuda"),
+               extras_k=ek, extras_v=ev, extras_bias=eb)
+    fn = lambda: gather(q, k, v, sel, **gkw)
+    nb = (nbytes(q, sel, gkw["k_sel"], gkw["v_sel"], gkw["sel_bias"], ek,
+                 ev, eb, *fn())
+          + 2 * B * Hkv * I * C * D * k.element_size())
+    emit("block_gather", fn, ("block_gather_kernel",), nb, **at, S=S, I=I,
+         E=E)
+    del q, k, v, k1, v1, k_syn, v_syn, ek, ev, eb, gkw
+    torch.cuda.empty_cache()
+
+
 def main():
   ap = argparse.ArgumentParser()
   ap.add_argument("--label", required=True)
   ap.add_argument("--rounds", type=int, default=3)
-  ap.add_argument("--only", choices=("build", "stage1", "score", "latent"))
+  ap.add_argument("--only", nargs="+", choices=("build", "stage1", "score",
+                                                "latent", "g16"))
   ap.add_argument("--chunking", help="BLOCKS_PER_SM,MIN_CHUNK")
   args = ap.parse_args()
   if not torch.cuda.is_available():
@@ -263,9 +350,10 @@ def main():
     args.label += f" chunking={bps},{mc}"
   g = torch.Generator("cuda").manual_seed(0)
   stages = {"build": build_times, "stage1": stage1_times,
-            "score": score_times, "latent": latent_times}
+            "score": score_times, "latent": latent_times,
+            "g16": g16_times}
   for name, stage in stages.items():
-    if args.only in (None, name):
+    if args.only is None or name in args.only:
       stage(g, args.rounds, args.label, smi)
 
 
